@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (gpu_ecs_madrona_tpu_torch).
 
-Drives the port's main path — the collisions example at 8192 worlds x 100
-cubes — on one CUDA card, through both of its kernels, and holds every
-kernel against its plain PyTorch version.  Run from the root of a
-checkout:
+Drives the port's main paths on one CUDA card — the collisions example at
+8192 worlds x 100 cubes, simple_jobs at 1024 worlds x 100 objects and
+fantasy_vs at 16384 worlds x 50 dragons + 200 knights — through every
+kernel they run, and holds every kernel against its plain PyTorch version.
+Run from the root of a checkout:
 
     python3 chip_smoke.py            # the smoke test
     python3 chip_smoke.py --profile  # plus a torch.profiler breakdown
@@ -15,27 +16,48 @@ and exits non-zero before that line.  There is no CPU fallback: without a
 CUDA device, or run outside a checkout, it exits non-zero.
 
 Phases:
-  1. device   card name, count, nvidia-smi name and power limit
-  2. build    nvcc of every csrc/*.cu (in parallel), ptxas register and
-              shared-memory lines
-  3. parity   each kernel vs its plain version at the main path's shapes
-              (W=8192, n=108 rows, 100 live) and collision_pushes at
-              n=1500, W=16 (many j tiles); fused_collisions_step: lo/hi
-              atol 1e-5, delta atol 1e-4 against the plain push on the
-              kernel's own lo/hi; collision_pushes: delta atol 1e-4
-  4. golden   the reference binary's collisions trajectory
-              (tests/goldens/job_collisions.bin, 1 world x 100 cubes, 120
-              ticks) on the card, both modes: <= 1e-3 at t=3, <= 0.02 over
-              the horizon
-  5. main_fused     fused=True (kernel 1), 3 warm-up steps then 5 windows
-              of 200 steps; launch count = steps, finite positions, empty
-              temporary tables; env-steps/s
-  6. main_unfused   fused=False, use_kernel=True (kernel 2), 50 steps
-  7. timing   CUDA-event time of each kernel wrapper (200 calls) and of
-              its plain version at the main path's shapes, beside the
-              bound: max(bytes / 3.35 TB/s, fp32 ops / 67 TFLOP/s), the
-              H100 SXM peaks; no single PyTorch call computes either
-              function, so there is no library yardstick
+  device   card name, count, nvidia-smi name and power limit
+  build    nvcc of every csrc/*.cu (in parallel), ptxas register and
+           shared-memory lines
+  parity   collision kernels vs their plain versions at the main path's
+           shapes (W=8192, n=108 rows, 100 live) and collision_pushes at
+           n=1500, W=16 (many j tiles); fused_collisions_step: lo/hi atol
+           1e-5, delta atol 1e-4 against the plain push on the kernel's
+           own lo/hi; collision_pushes: delta atol 1e-4
+  parity_simple_jobs   fused_simple_jobs_step vs its plain version: the
+           main shapes (1024 x 100, K=1600, D=32, the executor's initial
+           state), a dense cluster with D=4 (dropped > 0), K=128 with more
+           pairs (slots cut), coincident bodies in one corner, n0=37; ab,
+           counts and dropped exact, lo/hi and normals atol 1e-5,
+           translation atol 1e-4, all finite
+  golden   the reference binary's collisions trajectory
+           (tests/goldens/job_collisions.bin, 1 world x 100 cubes, 120
+           ticks) on the card, both modes: <= 1e-3 at t=3, <= 0.02 over
+           the horizon
+  golden_fvs   the reference binary's fantasy_vs run
+           (tests/goldens/fvs_job_5d9k120t.bin, 2 worlds, 120 ticks)
+           replayed in scripted mode on the card: masks and arrows exact,
+           hp and mana atol 1e-3, action atol 1e-4, positions atol 1e-5,
+           at least one death
+  main_fused     collisions fused=True (kernel 1), 3 warm-up steps then
+           windows of 200 steps; launches = steps, finite positions, empty
+           temporary tables; env-steps/s
+  main_unfused   collisions fused=False, use_kernel=True (kernel 2), 50
+           steps
+  main_simple_jobs   simple_jobs fused=True (kernel 4), 1024 x 100, 3
+           warm-up steps then 5 windows of 200; launches = steps, finite
+           positions, counters 0
+  main_simple_jobs_unfused   fused=False, rank compaction, 50 steps; no
+           kernel launch
+  main_fantasy_vs   16384 worlds x 50 dragons + 200 knights, cleanup on, 3
+           warm-up steps then 5 windows of 50; live counts never rise,
+           overflow counters 0, finite positions
+  timing   CUDA-event time of each kernel wrapper (200 calls) and of its
+           plain version at the main paths' shapes (kernel 3: the tiled
+           case, n=1500, W=16, 128- and 1024-wide j tiles), beside the
+           bound: max(bytes / 3.35 TB/s, fp32 ops / 67 TFLOP/s), the H100
+           SXM peaks; no single PyTorch call computes any of these
+           functions, so there is no library yardstick
 """
 
 import json
@@ -46,7 +68,9 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-NUM_WORLDS = 8192
+NUM_WORLDS = 8192        # collisions
+SJ_WORLDS, SJ_OBJECTS, SJ_K, SJ_D = 1024, 100, 1600, 32   # simple_jobs
+FVS_WORLDS = 16384       # fantasy_vs
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12      # H100 SXM fp32, outside the tensor cores
 
@@ -72,11 +96,17 @@ def max_err(a, b):
 
 
 def cuda_ms(torch, fn, iters, warmup=3):
+    """Device ms per call of fn.  The calls are queued behind a ~0.1 s
+    device sleep, so the host has enqueued them before the first runs:
+    the events time the device's work back to back, not the host's
+    enqueue (which is the longer of the two for a call whose wrapper
+    costs more than its kernel)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -92,8 +122,9 @@ def pair_counts(torch, lo, hi, mask):
     live_pairs = float((live * (live - 1)).sum())
     not_eye = ~torch.eye(mask.shape[1], dtype=torch.bool, device=mask.device)
     overlaps = 0.0
-    for w0 in range(0, mask.shape[0], 1024):  # bounded temporaries
-        sl = slice(w0, w0 + 1024)
+    step = max(1, (1 << 24) // (mask.shape[1] ** 2))  # bounded temporaries
+    for w0 in range(0, mask.shape[0], step):
+        sl = slice(w0, w0 + step)
         ok = ((lo[sl, :, None] <= hi[sl, None]) & (lo[sl, None] <= hi[sl, :, None])).all(-1)
         overlaps += float((ok & mask[sl, :, None] & mask[sl, None, :] & not_eye).sum())
     return live_pairs, overlaps
@@ -105,10 +136,22 @@ def bound(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def rates(steps, windows_s):
-    r = sorted(steps * NUM_WORLDS / s for s in windows_s)
+def rates(steps, windows_s, worlds=NUM_WORLDS):
+    r = sorted(steps * worlds / s for s in windows_s)
     return {"median": r[len(r) // 2], "min": r[0], "max": r[-1],
             "window_s": windows_s, "steps_per_window": steps}
+
+
+def windows(sim, steps, count):
+    """Wall seconds of ``count`` windows of ``steps`` steps, each ended by
+    a device synchronise."""
+    out = []
+    for _ in range(count):
+        t0 = time.perf_counter()
+        sim.run(steps)
+        sim.block_until_ready()
+        out.append(time.perf_counter() - t0)
+    return out
 
 
 def load_job_golden():
@@ -126,6 +169,193 @@ def load_job_golden():
     return pos, rot0
 
 
+# -- the fantasy_vs golden: the binary's dump and its splitmix64 draws ------
+
+_M64 = (1 << 64) - 1
+# the constants fvs_job_5d9k120t.bin was generated with
+FVS_GOLDEN_CONSTANTS = {"ARROW_DAMAGE": 350.0, "CAST_DAMAGE": 60.0, "CAST_RADIUS": 8.0,
+                        "CAST_COST": 5.0}
+
+
+def _splitmix64(x):
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def _fvs_key(domain, tick, idx, ch):
+    return _splitmix64(((domain << 56) | (tick << 32) | (idx << 8) | ch) & _M64)
+
+
+def _fvs_u01(np, domain, tick, idx, ch):
+    return np.float32(_fvs_key(domain, tick, idx, ch) >> 40) / np.float32(16777216.0)
+
+
+def load_fvs_golden(np):
+    """(per-tick records, dragons, knights) of tests/goldens/fvs_job_5d9k120t.bin."""
+    with open(os.path.join(HERE, "tests", "goldens", "fvs_job_5d9k120t.bin"), "rb") as f:
+        d = f.read()
+    check(d[:4] == b"FVSG", "fvs golden magic")
+    tp1, nd, nk, _ = (int(v) for v in np.frombuffer(d[4:20], np.int32))
+    fields = (("d_alive", nd, np.int32), ("d_hp", nd, np.float32), ("d_mp", nd, np.float32),
+              ("d_act", nd, np.float32), ("d_pos", nd * 3, np.float32),
+              ("k_alive", nk, np.int32), ("k_hp", nk, np.float32),
+              ("k_arrows", nk, np.int32), ("k_act", nk, np.float32),
+              ("k_pos", nk * 3, np.float32), ("k_target", nk, np.int32))
+    off, out = 20, []
+    for _ in range(tp1):
+        rec = {}
+        for key, n, dt in fields:
+            rec[key] = np.frombuffer(d[off:off + 4 * n], dt).copy()
+            off += 4 * n
+        rec["d_pos"] = rec["d_pos"].reshape(nd, 3)
+        rec["k_pos"] = rec["k_pos"].reshape(nk, 3)
+        out.append(rec)
+    check(off == len(d), "fvs golden length")
+    return out, nd, nk
+
+
+def fvs_golden_script(np, dump, nd, nk, lo, hi):
+    """The binary's decisions (domains of fvs_main.cpp) as script tables."""
+    T = len(dump) - 1
+    lo, hi = np.array(lo, np.float32), np.array(hi, np.float32)
+    span = hi - lo
+
+    def posdraw(domain, tick, idx):
+        return np.array([lo[c] + span[c] * _fvs_u01(np, domain, tick, idx, c)
+                         for c in range(3)], np.float32)
+
+    def act_tab(domain, n):
+        tab = np.zeros((T, n, 4), np.float32)
+        for t in range(T):
+            for i in range(n):
+                tab[t, i, 0] = _fvs_u01(np, domain, t, i, 0)
+                for c in range(3):
+                    tab[t, i, 1 + c] = (np.float32(2.0) * _fvs_u01(np, domain, t, i, 1 + c)
+                                        - np.float32(1.0))
+        return tab
+
+    return {
+        "d_pos": np.stack([posdraw(0, 0, i) for i in range(nd)]),
+        "d_mana": np.array([np.float32(50.0) * _fvs_u01(np, 0, 0, i, 3) for i in range(nd)],
+                           np.float32),
+        "k_pos": np.stack([posdraw(1, 0, i) for i in range(nk)]),
+        "k_arrows": np.array([20 + _fvs_key(1, 0, i, 3) % 21 for i in range(nk)], np.int32),
+        "d_act": act_tab(2, nd), "k_act": act_tab(3, nk),
+        "cast_target": np.stack([np.stack([posdraw(4, t, i) for i in range(nd)])
+                                 for t in range(T)]),
+        "archer_target": np.stack([dump[t + 1]["k_target"] for t in range(T)]),
+    }
+
+
+def golden_fvs(torch, fvs):
+    """Replay fvs_job_5d9k120t.bin on the card; returns the phase's line."""
+    import numpy as np
+    dump, nd, nk = load_fvs_golden(np)
+    saved = {k: getattr(fvs, k) for k in FVS_GOLDEN_CONSTANTS}
+    for k, v in FVS_GOLDEN_CONSTANTS.items():
+        setattr(fvs, k, v)
+    try:
+        cfg = fvs.FantasyVsConfig(num_worlds=2, num_dragons=nd, num_knights=nk, seed=0,
+                                  scripted=True, replicate_clamp_bug=True)
+        sim = fvs.make_executor(cfg, init_data=fvs_golden_script(
+            np, dump, nd, nk, fvs.BOUNDS_LO, fvs.BOUNDS_HI), device="cuda")
+        mgr = sim.mgr
+        errs = {"hp": 0.0, "mp": 0.0, "act": 0.0, "pos": 0.0}
+        deaths = 0
+        for t in range(len(dump) - 1):
+            sim.step()
+            ref = dump[t + 1]
+            live = {fvs.Dragon: ref["d_alive"] > 0, fvs.Knight: ref["k_alive"] > 0}
+            deaths = int((~live[fvs.Dragon]).sum() + (~live[fvs.Knight]).sum())
+            for arch, p in ((fvs.Dragon, "d"), (fvs.Knight, "k")):
+                m = live[arch]
+                got_mask = mgr.row_mask(sim.state, arch).cpu().numpy()
+                check((got_mask == m[None]).all(), f"t={t} {arch.name} alive mask")
+
+                def col(comp, field=None):
+                    v = mgr.column(sim.state, arch, comp)
+                    return (v if field is None else v[field]).cpu().numpy()[:, m]
+
+                if arch is fvs.Knight:
+                    check((col(fvs.Quiver, "arrows") == ref["k_arrows"][m][None]).all(),
+                          f"t={t} arrows")
+                else:
+                    errs["mp"] = max(errs["mp"], float(np.abs(
+                        col(fvs.Mana, "mp") - ref["d_mp"][m][None]).max(initial=0.0)))
+                errs["hp"] = max(errs["hp"], float(np.abs(
+                    col(fvs.Health, "hp") - ref[f"{p}_hp"][m][None]).max(initial=0.0)))
+                errs["act"] = max(errs["act"], float(np.abs(
+                    col(fvs.Action, "remaining") - ref[f"{p}_act"][m][None]).max(initial=0.0)))
+                errs["pos"] = max(errs["pos"], float(np.abs(
+                    col(fvs.Position) - ref[f"{p}_pos"][m][None]).max(initial=0.0)))
+    finally:
+        for k, v in saved.items():
+            setattr(fvs, k, v)
+    check(errs["hp"] <= 1e-3 and errs["mp"] <= 1e-3, f"fvs golden hp/mana {errs}")
+    check(errs["act"] <= 1e-4 and errs["pos"] <= 1e-5, f"fvs golden action/pos {errs}")
+    check(deaths > 0, "fvs golden: no entity died")
+    return {"phase": "golden_fvs", "ticks": len(dump) - 1, "worlds": 2, "max_err": errs,
+            "dead_at_end": deaths,
+            "atol": {"hp": 1e-3, "mp": 1e-3, "act": 1e-4, "pos": 1e-5}}
+
+
+# -- kernel 4 against its plain version --------------------------------------
+
+
+def parity_simple_jobs(torch, sj, sk, dev):
+    """fused_simple_jobs_step vs its plain version on the five cases; returns
+    (the phase's line, the largest float error)."""
+    bounds = (sj.BOUNDS_LO, sj.BOUNDS_HI)
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def bodies(W, n0, half):
+        pos = (torch.rand((W, n0, 3), generator=g, device=dev) * 2.0 - 1.0) * half
+        pos[..., 2] += 5.0
+        q = torch.randn((W, n0, 4), generator=g, device=dev)
+        return pos, q / q.norm(dim=-1, keepdim=True)
+
+    init = sj.make_executor(sj.SimpleJobsConfig(num_worlds=SJ_WORLDS, num_objects=SJ_OBJECTS,
+                                                max_pairs=SJ_K, degree_cap=SJ_D, fused=True),
+                            device="cuda").state["user"]
+    corner = torch.tensor([[[-99.0, -99.0, -5.0], [-88.0, -77.0, -9.0], [-9.5, -9.5, 0.5]]],
+                          device=dev).expand(4, 3, 3).contiguous()
+    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).expand(4, 3, 4).contiguous()
+    cases = {
+        "main": (init["translation"], init["rotation"], SJ_K, SJ_D),
+        "degree_cap": (*bodies(64, 100, 2.5), 1600, 4),
+        "k_truncation": (*bodies(64, 100, 4.0), 128, 32),
+        "coincident_corner": (corner, ident, 64, 8),
+        "n0_37": (*bodies(64, 37, 4.0), 256, 8),
+    }
+    out, worst = {}, 0.0
+    names = ("translation", "lo", "hi", "ab", "normals", "counts", "dropped")
+    atol = {"translation": 1e-4, "lo": 1e-5, "hi": 1e-5, "normals": 1e-5}
+    for case, (pos, rot, K, D) in cases.items():
+        kw = dict(n0=pos.shape[1], K=K, degree_cap=D, bounds=bounds)
+        got = sk.fused_simple_jobs_step(pos, rot, **kw)
+        want = sk.fused_simple_jobs_step_plain(pos, rot, **kw)
+        torch.cuda.synchronize()
+        res = {"W": pos.shape[0], "n0": pos.shape[1], "K": K, "D": D,
+               "pairs_kept": int(torch.clamp(want[5], max=K).sum()),
+               "counts_over_K": int((want[5] > K).sum()), "dropped": int(want[6].sum())}
+        for name, a, b in zip(names, got, want):
+            if name in atol:
+                e = max_err(a, b)
+                res[name] = e
+                worst = max(worst, e)
+                check(e <= atol[name], f"simple_jobs {case} {name} err {e}")
+                check(bool(torch.isfinite(a).all()), f"simple_jobs {case} {name} finite")
+            else:
+                check(bool(torch.equal(a, b)), f"simple_jobs {case} {name} not exact")
+        out[case] = res
+    check(out["degree_cap"]["dropped"] > 0, "degree-cap case dropped no pair")
+    check(out["k_truncation"]["counts_over_K"] > 0, "K-truncation case cut no slot")
+    check(out["coincident_corner"]["pairs_kept"] > 0, "coincident case kept no pair")
+    return {"phase": "parity_simple_jobs", "cases": out, "ints": "exact", "atol": atol}, worst
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -137,21 +367,34 @@ def main(argv):
           f"the port must come from this checkout, got {port.__file__}")
     from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExecutor
     from gpu_ecs_madrona_tpu_torch.models import collisions as col
+    from gpu_ecs_madrona_tpu_torch.models import fantasy_vs as fvs
+    from gpu_ecs_madrona_tpu_torch.models import simple_jobs as sj
     from gpu_ecs_madrona_tpu_torch.ops import _build
     from gpu_ecs_madrona_tpu_torch.ops import collision_kernel as ck
+    from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
     from gpu_ecs_madrona_tpu_torch.utils import math as m
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    wrappers = {"fused_collisions_step": ck.fused_collisions_step,
+                "collision_pushes": ck.collision_pushes,
+                "fused_simple_jobs_step": sk.fused_simple_jobs_step}
 
-    # 1. device -----------------------------------------------------------
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    # device ----------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     emit({"phase": "device", "name": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # 2. build ------------------------------------------------------------
+    # build -----------------------------------------------------------------
     t0 = time.perf_counter()
     logs = _build.build()
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
@@ -160,7 +403,7 @@ def main(argv):
           "sources": sorted(logs), "dir": os.path.relpath(_build.BUILD_DIR, HERE),
           "ptxas": ptxas})
 
-    # 3. kernel vs plain at the main path's shapes --------------------------
+    # collision kernels vs plain at the main path's shapes --------------------
     sim = col.make_executor(col.CollisionsConfig(num_worlds=NUM_WORLDS), device="cuda")
     pos = sim.mgr.column(sim.state, col.CubeObject, col.Translation)
     rot = sim.mgr.column(sim.state, col.CubeObject, col.Rotation)
@@ -194,7 +437,11 @@ def main(argv):
     check(bool(torch.isfinite(delta).all()) and bool(torch.isfinite(d1500).all()),
           "finite kernel outputs")
 
-    # 4. the reference binary's golden, on the card --------------------------
+    # kernel 4 vs plain ---------------------------------------------------------
+    line, err_sj = parity_simple_jobs(torch, sj, sk, dev)
+    emit(line)
+
+    # the reference binary's goldens, on the card ------------------------------
     g_pos, g_rot0 = load_job_golden()
     n_g = g_pos.shape[1]
     golden = {}
@@ -227,44 +474,35 @@ def main(argv):
         check(golden[mode]["err_t3"] <= 1e-3 and golden[mode]["max_err"] <= 0.02,
               f"golden trajectory ({mode})")
     emit({"phase": "golden", **golden})
+    emit(golden_fvs(torch, fvs))
 
-    # 5. main path, fused=True (kernel 1) ----------------------------------
+    # collisions, fused=True (kernel 1) ----------------------------------------
     sim.run(3)
     sim.block_until_ready()
-    ck.fused_collisions_step.launches = 0
-    ck.collision_pushes.launches = 0
-    windows = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        sim.run(200)
-        sim.block_until_ready()
-        windows.append(time.perf_counter() - t0)
-    fused_launches = {"fused_collisions_step": ck.fused_collisions_step.launches,
-                      "collision_pushes": ck.collision_pushes.launches}
-    check(fused_launches == {"fused_collisions_step": 1000, "collision_pushes": 0},
+    reset_counts()
+    fused_windows = windows(sim, 200, 5)
+    fused_launches = read_counts()
+    check(fused_launches == {"fused_collisions_step": 1000, "collision_pushes": 0,
+                             "fused_simple_jobs_step": 0},
           f"fused main path launches {fused_launches}")
     fpos, fmask = sim.get_exported(0)
     check(bool(torch.isfinite(fpos[fmask]).all()), "finite positions (fused)")
     for arch in (col.CollisionCandidate, col.Contact):
         check(int(sim.mgr.num_rows(sim.state, arch).sum()) == 0, f"{arch.name} empty")
     emit({"phase": "main_fused", "worlds": NUM_WORLDS, "objects": 100,
-          "launches": fused_launches, "env_steps_per_s": rates(200, windows),
+          "launches": fused_launches, "env_steps_per_s": rates(200, fused_windows),
           "card": smi})
 
-    # 6. main path, fused=False with the collision_pushes kernel -------------
+    # collisions, fused=False with the collision_pushes kernel (kernel 2) -------
     usim = col.make_executor(col.CollisionsConfig(num_worlds=NUM_WORLDS, fused=False,
                                                   use_kernel=True), device="cuda")
     usim.run(3)
     usim.block_until_ready()
-    ck.fused_collisions_step.launches = 0
-    ck.collision_pushes.launches = 0
-    t0 = time.perf_counter()
-    usim.run(50)
-    usim.block_until_ready()
-    uwindow = time.perf_counter() - t0
-    unfused_launches = {"fused_collisions_step": ck.fused_collisions_step.launches,
-                        "collision_pushes": ck.collision_pushes.launches}
-    check(unfused_launches == {"fused_collisions_step": 0, "collision_pushes": 50},
+    reset_counts()
+    uwindows = windows(usim, 50, 1)
+    unfused_launches = read_counts()
+    check(unfused_launches == {"fused_collisions_step": 0, "collision_pushes": 50,
+                               "fused_simple_jobs_step": 0},
           f"unfused main path launches {unfused_launches}")
     upos, umask = usim.get_exported(0)
     check(bool(torch.isfinite(upos[umask]).all()), "finite positions (unfused)")
@@ -272,10 +510,82 @@ def main(argv):
     check(all(v.dtype == torch.int32 and int(v.min()) >= 0 for v in overflow.values()),
           "overflow counters int32 >= 0")
     emit({"phase": "main_unfused", "worlds": NUM_WORLDS, "objects": 100,
-          "launches": unfused_launches, "env_steps_per_s": rates(50, [uwindow]),
+          "launches": unfused_launches, "env_steps_per_s": rates(50, uwindows),
           "overflow_max": {k: int(v.max()) for k, v in overflow.items()}, "card": smi})
 
-    # 7. kernel times at the main path's shapes -------------------------------
+    # simple_jobs, fused=True (kernel 4) ----------------------------------------
+    sj_cfg = dict(num_worlds=SJ_WORLDS, num_objects=SJ_OBJECTS, max_pairs=SJ_K,
+                  degree_cap=SJ_D)
+    sjsim = sj.make_executor(sj.SimpleJobsConfig(fused=True, **sj_cfg), device="cuda")
+    check(sjsim.graph.node_names == ["fused_step"], "simple_jobs fused graph")
+    sjsim.run(3)
+    sjsim.block_until_ready()
+    reset_counts()
+    sj_windows = windows(sjsim, 200, 5)
+    sj_launches = read_counts()
+    check(sj_launches == {"fused_collisions_step": 0, "collision_pushes": 0,
+                          "fused_simple_jobs_step": 1000},
+          f"simple_jobs main path launches {sj_launches}")
+    user = sjsim.state["user"]
+    check(bool(torch.isfinite(user["translation"]).all()), "finite positions (simple_jobs)")
+    check(int(user["num_candidates"].abs().sum()) == 0
+          and int(user["num_contacts"].abs().sum()) == 0, "simple_jobs counters reset")
+    emit({"phase": "main_simple_jobs", "worlds": SJ_WORLDS, "objects": SJ_OBJECTS,
+          "max_pairs": SJ_K, "degree_cap": SJ_D, "launches": sj_launches,
+          "pairs_in_buffers": int((user["contacts_ab"] != 0).any(-1).sum()),
+          "env_steps_per_s": rates(200, sj_windows, SJ_WORLDS), "card": smi})
+
+    # simple_jobs, fused=False, rank compaction ---------------------------------
+    os.environ["GEM_SJ_COMPACT"] = "rank"
+    sjusim = sj.make_executor(sj.SimpleJobsConfig(fused=False, **sj_cfg), device="cuda")
+    sjusim.run(3)
+    sjusim.block_until_ready()
+    reset_counts()
+    sju_windows = windows(sjusim, 50, 1)
+    sju_launches = read_counts()
+    check(all(v == 0 for v in sju_launches.values()),
+          f"simple_jobs unfused launches {sju_launches}")
+    check(bool(torch.isfinite(sjusim.state["user"]["translation"]).all()),
+          "finite positions (simple_jobs unfused)")
+    emit({"phase": "main_simple_jobs_unfused", "worlds": SJ_WORLDS, "objects": SJ_OBJECTS,
+          "compaction": "rank", "launches": sju_launches,
+          "env_steps_per_s": rates(50, sju_windows, SJ_WORLDS), "card": smi})
+
+    # fantasy_vs, 16384 worlds, cleanup on --------------------------------------
+    fcfg = fvs.FantasyVsConfig(num_worlds=FVS_WORLDS, num_dragons=50, num_knights=200,
+                               cleanup=True)
+    fsim = fvs.make_executor(fcfg, device="cuda")
+    fsim.run(3)
+    fsim.block_until_ready()
+
+    def live_counts():
+        return [fsim.mgr.num_rows(fsim.state, a).clone() for a in (fvs.Dragon, fvs.Knight)]
+
+    before = live_counts()
+    first = before
+    reset_counts()
+    fvs_windows = []
+    for _ in range(5):
+        fvs_windows += windows(fsim, 50, 1)
+        now = live_counts()
+        check(all(bool((n <= p).all()) for n, p in zip(now, before)),
+              "fantasy_vs live counts rose")
+        before = now
+    fvs_launches = read_counts()
+    check(all(v == 0 for v in fvs_launches.values()), f"fantasy_vs launches {fvs_launches}")
+    check(all(int(v.abs().sum()) == 0 for v in fsim.overflow_counters().values()),
+          "fantasy_vs overflow counters")
+    for arch in (fvs.Dragon, fvs.Knight):
+        p = fsim.mgr.column(fsim.state, arch, fvs.Position)
+        check(bool(torch.isfinite(p[fsim.mgr.row_mask(fsim.state, arch)]).all()),
+              f"finite {arch.name} positions")
+    emit({"phase": "main_fantasy_vs", "worlds": FVS_WORLDS, "dragons": 50, "knights": 200,
+          "cleanup": True, "launches": fvs_launches,
+          "destroyed_in_windows": {"Dragon": int((first[0] - before[0]).sum()),
+                                   "Knight": int((first[1] - before[1]).sum())},
+          "env_steps_per_s": rates(50, fvs_windows, FVS_WORLDS), "card": smi})
+
+    # kernel times at the main paths' shapes ------------------------------------
     fpos = sim.mgr.column(sim.state, col.CubeObject, col.Translation)
     frot = sim.mgr.column(sim.state, col.CubeObject, col.Rotation)
     W, n = fmask.shape
@@ -292,30 +602,68 @@ def main(argv):
     p_plain = cuda_ms(torch, lambda: ck.collision_pushes_plain(upos, ulo, uhi, umask), 10)
     ulive, uover = pair_counts(torch, ulo, uhi, umask)
     p_bound, p_by = bound(W * n * (36 + 1 + 12), W * n * 9 + ulive * 6 + uover * 16)
+
+    # kernel 3: the tiled case, the parity phase's n=1500 data
+    t_lo, t_hi = p1500 - 1.0, p1500 + 1.0
+    tiled = {}
+    for tile in (0, 1024):
+        tiled[tile or 128] = cuda_ms(
+            torch, lambda: ck.collision_pushes(p1500, t_lo, t_hi, m1500, force_tile=tile), 200)
+    t_plain = cuda_ms(torch, lambda: ck.collision_pushes_plain(p1500, t_lo, t_hi, m1500), 10)
+    tlive, tover = pair_counts(torch, t_lo, t_hi, m1500)
+    tW, tn = m1500.shape
+    t_bound, t_by = bound(tW * tn * (36 + 1 + 12), tW * tn * 9 + tlive * 6 + tover * 16)
+
+    # kernel 4 at the simple_jobs main path's shapes and state
+    spos, srot = user["translation"], user["rotation"]
+    skw = dict(n0=SJ_OBJECTS, K=SJ_K, degree_cap=SJ_D, bounds=(sj.BOUNDS_LO, sj.BOUNDS_HI))
+    s_ms = cuda_ms(torch, lambda: sk.fused_simple_jobs_step(spos, srot, **skw), 200)
+    s_plain = cuda_ms(torch, lambda: sk.fused_simple_jobs_step_plain(spos, srot, **skw), 10)
+    _, slo, shi, _, _, _, _ = sk.fused_simple_jobs_step(spos, srot, **skw)
+    smask = torch.ones(spos.shape[:2], dtype=torch.bool, device=dev)
+    slive, sover = pair_counts(torch, slo, shi, smask)
+    sW, sn = smask.shape
+    s_bound, s_by = bound(sW * (sn * 28 + sn * 36 + SJ_K * 20 + 8),
+                          sW * sn * 40 + slive * 6 + sover * 20)
+
     emit({"phase": "timing", "fused_collisions_step": {
               "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
               "live_pairs": live, "overlapping_pairs": over},
           "collision_pushes": {
               "ms": p_ms, "plain_ms": p_plain, "bound_ms": p_bound, "bound_by": p_by,
               "live_pairs": ulive, "overlapping_pairs": uover},
-          "library_ms": "none: no single PyTorch call computes either function",
+          "collision_pushes_tiled_n1500_w16": {
+              "ms_by_tile_j": tiled, "plain_ms": t_plain, "bound_ms": t_bound,
+              "bound_by": t_by, "live_pairs": tlive, "overlapping_pairs": tover},
+          "fused_simple_jobs_step": {
+              "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
+              "live_pairs": slive, "overlapping_pairs": sover},
+          "library_ms": "none: no single PyTorch call computes any of these functions",
           "card": smi})
 
     if "--profile" in argv:
-        profile(torch, sim, usim)
+        profile(torch, {"fused": sim, "unfused_pushes": usim, "simple_jobs_fused": sjsim,
+                        "simple_jobs_rank": sjusim, "fantasy_vs": fsim})
 
-    src = "gpu_ecs_madrona_tpu_torch/csrc/collision_kernels.cu"
+    csrc = "gpu_ecs_madrona_tpu_torch/csrc/"
     emit({"kernels": [
-        {"name": "fused_collisions_step", "route": "cuda", "source": src,
+        {"name": "fused_collisions_step", "route": "cuda",
+         "source": csrc + "collision_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/collision_kernel.py:330",
          "launches": fused_launches["fused_collisions_step"], "launches_per_step": 1,
          "max_abs_err": max(err_fused.values()), "ms": f_ms, "plain_ms": f_plain,
          "bound_ms": f_bound, "bound_by": f_by, "library_ms": None},
-        {"name": "collision_pushes", "route": "cuda", "source": src,
+        {"name": "collision_pushes", "route": "cuda", "source": csrc + "collision_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/collision_kernel.py:212 (tiled :195)",
          "launches": unfused_launches["collision_pushes"], "launches_per_step": 1,
          "max_abs_err": max(err_p108, err_p1500), "ms": p_ms, "plain_ms": p_plain,
          "bound_ms": p_bound, "bound_by": p_by, "library_ms": None},
+        {"name": "fused_simple_jobs_step", "route": "cuda",
+         "source": csrc + "simple_jobs_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/simple_jobs_kernel.py:276",
+         "launches": sj_launches["fused_simple_jobs_step"], "launches_per_step": 1,
+         "max_abs_err": err_sj, "ms": s_ms, "plain_ms": s_plain,
+         "bound_ms": s_bound, "bound_by": s_by, "library_ms": None},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -323,12 +671,12 @@ def main(argv):
     return 0
 
 
-def profile(torch, sim, usim):
+def profile(torch, sims):
     """torch.profiler over 20 steps of each main path: device time by
     kernel, and the device's busy share of the profiled wall time (which
     includes the profiler's own host overhead)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
-    for name, s in (("fused", sim), ("unfused_pushes", usim)):
+    for name, s in sims.items():
         s.run(3)
         s.block_until_ready()
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

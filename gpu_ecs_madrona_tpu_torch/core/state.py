@@ -82,17 +82,27 @@ def rng_keys(rng: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return new, keys
 
 
-def uniform(keys: torch.Tensor, shape, low=0.0, high=1.0) -> torch.Tensor:
-    """Uniform float32 draws in [low, high): keys [...] -> [..., *shape].
-    ``low``/``high`` broadcast against the trailing ``shape``."""
+def _bits24(keys: torch.Tensor, shape) -> torch.Tensor:
+    """24 random bits per draw, int64: keys [...] -> [..., *shape]."""
     shape = tuple(shape)
     count = 1
     for s in shape:
         count *= s
     j = torch.arange(1, count + 1, dtype=torch.int64, device=keys.device)
     bits = mix64(keys[..., None] + j * _GOLDEN2)
-    u = ((bits >> 40) & 0xFFFFFF).to(torch.float32) * (1.0 / (1 << 24))
-    u = u.reshape(keys.shape + shape)
+    return ((bits >> 40) & 0xFFFFFF).reshape(keys.shape + shape)
+
+
+def randint(keys: torch.Tensor, shape, low: int, high: int) -> torch.Tensor:
+    """Integer int32 draws in [low, high) (high - low <= 2^24):
+    keys [...] -> [..., *shape]."""
+    return (low + _bits24(keys, shape) % (high - low)).to(torch.int32)
+
+
+def uniform(keys: torch.Tensor, shape, low=0.0, high=1.0) -> torch.Tensor:
+    """Uniform float32 draws in [low, high): keys [...] -> [..., *shape].
+    ``low``/``high`` broadcast against the trailing ``shape``."""
+    u = _bits24(keys, shape).to(torch.float32) * (1.0 / (1 << 24))
     low = torch.as_tensor(low, dtype=torch.float32, device=keys.device)
     high = torch.as_tensor(high, dtype=torch.float32, device=keys.device)
     return low + (high - low) * u

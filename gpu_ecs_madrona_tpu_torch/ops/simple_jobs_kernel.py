@@ -1,0 +1,202 @@
+"""The simple_jobs tick in one kernel: wrapper, plain version, launch counter.
+
+Counterpart of ``gpu_ecs_madrona_tpu/ops/simple_jobs_kernel.py``.
+``fused_simple_jobs_step(pos, rot, *, n0, K, degree_cap, bounds)`` keeps
+the JAX signature and outputs and runs the hand-written CUDA kernel in
+``csrc/simple_jobs_kernels.cu`` (whose notes say what bounds it and how it
+is laid out).  Per world of n0 bodies it clamps the positions to the
+bounds, takes the AABB of each rotated +-1 cube (the |R| form of
+``collision_kernel.aabb_plain``), finds the ordered overlapping pairs,
+compacts them by capped rank, computes each kept pair's normal and pushes
+every body apart over all overlapping pairs:
+
+  - slot(a, b) = base[a] + rank(b in row a) for the first D = degree_cap
+    partners of row a in ascending b, base the exclusive prefix of
+    min(deg, D) over rows; slots at or past K are cut and not counted;
+    ``dropped`` counts the pairs the cap cut, sum(deg) - total;
+  - normal = normalize(p_b - p_a) at the clamped positions;
+  - translation_a = p_a - 2 sum_b rsqrt(d2_ab) (pc_b - pc_a) over every
+    overlapping b, pc the positions centred on the world's mean, pairs with
+    d2 <= 1e-12 (bodies clamped into the same corner) excluded.
+
+A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
+tensors it launches the kernel or raises — never falls back.  The launches
+are counted in ``fused_simple_jobs_step.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gpu_ecs_madrona_tpu_torch.core.state import batched_gather
+from gpu_ecs_madrona_tpu_torch.ops import _build
+from gpu_ecs_madrona_tpu_torch.ops.collision_kernel import aabb_plain
+
+# The kernel's n bound: one CTA per world and one thread per body.
+MAX_BODIES = 1024
+
+
+def fused_fits(n0: int) -> bool:
+    return 1 <= n0 <= MAX_BODIES
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def clamp_to_bounds(pos, bounds):
+    """min(max(pos, lo), hi) per axis (jnp.clip's order); bounds are
+    (lo, hi) triples or tensors of 3."""
+    return torch.clamp(pos, torch.as_tensor(bounds[0], dtype=pos.dtype, device=pos.device),
+                       torch.as_tensor(bounds[1], dtype=pos.dtype, device=pos.device))
+
+
+def overlap_grid(lo, hi):
+    """Ordered-pair AABB overlap [W, n, n] (closed slabs), diagonal off."""
+    n = lo.shape[1]
+    ok = ((lo[:, :, None, :] <= hi[:, None, :, :])
+          & (lo[:, None, :, :] <= hi[:, :, None, :])).all(dim=-1)
+    return ok & ~torch.eye(n, dtype=torch.bool, device=lo.device)
+
+
+def first_partners(ok, D: int):
+    """[W, n, D] int32: row a's first D partners in ascending b (0 past
+    its degree), and the row degrees [W, n] int32.  Each partner is
+    scattered to its within-row rank, which the inclusive cumsum gives."""
+    W, n, _ = ok.shape
+    local_rank = torch.cumsum(ok, dim=2, dtype=torch.int32)
+    dest = torch.where(ok & (local_rank <= D), local_rank - 1, D).long()
+    out = torch.zeros((W, n, D + 1), dtype=torch.int32, device=ok.device)
+    b_iota = torch.arange(n, dtype=torch.int32, device=ok.device).expand(W, n, n)
+    out.scatter_(2, dest, b_iota)
+    return out[:, :, :D], local_rank[:, :, -1]
+
+
+def rank_slots(partners, deg, D: int, k: int):
+    """The capped rank compaction's slots: (ab [W, k, 2] int32, zero past
+    min(total, k); total [W] int32; dropped [W] int32).
+
+    Slot s belongs to the last row a with base[a] <= s (rows of degree 0
+    share their base with the next row), at rank s - base[a]."""
+    W, n = deg.shape
+    degc = deg.clamp(max=D)
+    base = torch.cumsum(degc, dim=1, dtype=torch.int32) - degc
+    total = degc.sum(dim=1, dtype=torch.int32)
+    dropped = deg.sum(dim=1, dtype=torch.int32) - total
+    slots = torch.arange(k, dtype=torch.int32, device=deg.device).expand(W, k).contiguous()
+    owner = (torch.searchsorted(base, slots, right=True) - 1).clamp(0, n - 1)
+    valid = slots < total[:, None]
+    if D == 0:  # every pair is dropped: no slot is valid
+        part = torch.zeros_like(slots)
+    else:
+        dd = slots - torch.gather(base, 1, owner)
+        part = torch.gather(partners.reshape(W, n * D), 1,
+                            owner * D + dd.clamp(0, D - 1).long())
+    ab = torch.stack([torch.where(valid, owner.int(), 0),
+                      torch.where(valid, part, 0)], dim=-1)
+    return ab.int(), total, dropped
+
+
+def contact_normals(pos, ab):
+    """normalize(p_b - p_a) for each slot's pair [W, k, 3] (a zero pair,
+    as in an empty slot, gives 0)."""
+    diff = batched_gather(pos, ab[..., 1]) - batched_gather(pos, ab[..., 0])
+    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
+    return diff * torch.rsqrt(d2.clamp(min=1e-30))[..., None]
+
+
+def centred_pushes(pos, ok):
+    """-2 sum_j M_ij (pc_j - pc_i), M_ij = ok_ij rsqrt(d2_ij) where d2_ij >
+    1e-12, pc the positions centred on each world's mean; subtract-first d2
+    over the dense [W, n, n] grid."""
+    pc = pos - pos.mean(dim=1, keepdim=True)
+    diff = pc[:, None, :, :] - pc[:, :, None, :]  # [W, i, j, 3] = x_j - x_i
+    d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+          + diff[..., 2] * diff[..., 2])
+    m = torch.where(ok & (d2 > 1e-12), torch.rsqrt(d2.clamp(min=1e-30)), 0.0)
+    return -2.0 * (m[..., None] * diff).sum(dim=2)
+
+
+def fused_simple_jobs_step_plain(pos, rot, *, n0: int, K: int, degree_cap: int, bounds):
+    p = clamp_to_bounds(pos, bounds)
+    lo, hi = aabb_plain(p, rot)
+    ok = overlap_grid(lo, hi)
+    partners, deg = first_partners(ok, degree_cap)
+    ab, total, dropped = rank_slots(partners, deg, degree_cap, K)
+    return (p + centred_pushes(p, ok), lo, hi, ab, contact_normals(p, ab),
+            total, dropped)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    lib = _build.load("simple_jobs_kernels")
+    if not getattr(lib, "_typed", False):
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fused_simple_jobs_step_launch.argtypes = (
+            [P, P, I, I, I, I] + [F] * 6 + [P] * 8)
+        lib.fused_simple_jobs_step_launch.restype = I
+        lib._typed = True
+    return lib
+
+
+def _check(pos, rot, n0):
+    W = pos.shape[0]
+    for key, t, width in (("pos", pos, 3), ("rot", rot, 4)):
+        if t.device.type != "cuda" or t.device != pos.device:
+            raise ValueError(f"fused_simple_jobs_step: {key} on {t.device}, "
+                             f"pos on {pos.device}")
+        if t.dtype != torch.float32 or tuple(t.shape) != (W, n0, width):
+            raise ValueError(f"fused_simple_jobs_step: {key} must be float32 "
+                             f"[{W}, {n0}, {width}], got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_simple_jobs_step: {key} must be contiguous")
+
+
+def fused_simple_jobs_step(pos, rot, *, n0: int, K: int, degree_cap: int, bounds):
+    """pos [W, n0, 3], rot [W, n0, 4] (w-first quats) -> (translation
+    [W, n0, 3], lo [W, n0, 3], hi [W, n0, 3], ab [W, K, 2] int32 (zero past
+    counts), normals [W, K, 3] (zero past counts), counts [W] int32,
+    dropped [W] int32).
+
+    K: the candidate capacity; degree_cap: the per-row partner cap D;
+    bounds: ((lo x, y, z), (hi x, y, z)).  n0 is at most MAX_BODIES."""
+    if pos.ndim != 3 or pos.shape[1] != n0:
+        raise ValueError(f"fused_simple_jobs_step: pos {tuple(pos.shape)} does not "
+                         f"hold n0={n0} bodies")
+    if not fused_fits(n0):
+        raise ValueError(f"fused_simple_jobs_step: n0={n0} outside the kernel's "
+                         f"bound [1, {MAX_BODIES}] (one thread per body)")
+    if K < 1 or degree_cap < 0:
+        raise ValueError(f"fused_simple_jobs_step: K={K}, degree_cap={degree_cap}")
+    if pos.device.type == "cpu":
+        return fused_simple_jobs_step_plain(pos, rot, n0=n0, K=K,
+                                            degree_cap=degree_cap, bounds=bounds)
+    _check(pos, rot, n0)
+    W = pos.shape[0]
+    translation = torch.empty_like(pos)
+    lo = torch.empty_like(pos)
+    hi = torch.empty_like(pos)
+    ab = torch.empty((W, K, 2), dtype=torch.int32, device=pos.device)
+    nrm = torch.empty((W, K, 3), dtype=torch.float32, device=pos.device)
+    counts = torch.empty((W,), dtype=torch.int32, device=pos.device)
+    dropped = torch.empty((W,), dtype=torch.int32, device=pos.device)
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    rc = _lib().fused_simple_jobs_step_launch(
+        pos.data_ptr(), rot.data_ptr(), W, n0, K, degree_cap,
+        *(float(v) for v in bounds[0]), *(float(v) for v in bounds[1]),
+        translation.data_ptr(), lo.data_ptr(), hi.data_ptr(), ab.data_ptr(),
+        nrm.data_ptr(), counts.data_ptr(), dropped.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_simple_jobs_step: kernel launch failed with cudaError {rc}")
+    fused_simple_jobs_step.launches += 1
+    return translation, lo, hi, ab, nrm, counts, dropped
+
+
+fused_simple_jobs_step.launches = 0

@@ -5,8 +5,10 @@ runs on a machine with the card and no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 Each CUDA kernel is held against its plain PyTorch version on the card
-(lo/hi atol 1e-5, pushes atol 1e-4), and the collisions slice on the card
-against the same slice on the CPU (plain versions), positions atol 1e-4.
+(lo/hi atol 1e-5, pushes and translations atol 1e-4, normals atol 1e-5,
+integer outputs exact), and the collisions and simple_jobs slices on the
+card against the same slices on the CPU (plain versions), positions atol
+1e-4.
 """
 
 import numpy as np
@@ -15,7 +17,9 @@ import torch
 
 from gpu_ecs_madrona_tpu_torch.interop import state_from_numpy, state_to_numpy
 from gpu_ecs_madrona_tpu_torch.models import collisions as col
+from gpu_ecs_madrona_tpu_torch.models import simple_jobs as sj
 from gpu_ecs_madrona_tpu_torch.ops import collision_kernel as ck
+from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
 
 
 @pytest.fixture
@@ -24,6 +28,7 @@ def card():
         pytest.skip("needs a CUDA device")
     ck.fused_collisions_step.launches = 0
     ck.collision_pushes.launches = 0
+    sk.fused_simple_jobs_step.launches = 0
     return torch.device("cuda")
 
 
@@ -103,3 +108,75 @@ def test_slice_on_card_matches_cpu(card, fused, use_kernel):
     for name in ("CubeObject", "CollisionCandidate", "Contact"):
         np.testing.assert_array_equal(b["overflow"][name], a["overflow"][name])
         np.testing.assert_array_equal(b["arch"][name]["mask"], a["arch"][name]["mask"])
+
+
+def sj_inputs(seed, W, n0, half, dev):
+    """Bodies around the middle of the simple_jobs bounds, some outside
+    them (the kernel clamps)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-half, half, (W, n0, 3)).astype(np.float32)
+    pos[..., 2] += 5.0
+    q = rng.normal(size=(W, n0, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    return torch.from_numpy(pos).to(dev), torch.from_numpy(q).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,n0,K,D,half", [(64, 100, 1600, 32, 10.0), (3, 37, 128, 4, 4.0),
+                                           (2, 1000, 4096, 32, 11.0)],
+                         ids=["main", "cap_and_truncation", "near_bound"])
+def test_fused_simple_jobs_step_matches_plain(card, W, n0, K, D, half):
+    pos, rot = sj_inputs(3, W, n0, half, card)
+    bounds = (sj.BOUNDS_LO, sj.BOUNDS_HI)
+    got = sk.fused_simple_jobs_step(pos, rot, n0=n0, K=K, degree_cap=D, bounds=bounds)
+    torch.cuda.synchronize()
+    assert sk.fused_simple_jobs_step.launches == 1
+    want = sk.fused_simple_jobs_step_plain(pos, rot, n0=n0, K=K, degree_cap=D, bounds=bounds)
+    names = ("translation", "lo", "hi", "ab", "normals", "counts", "dropped")
+    atol = {"translation": 1e-4, "lo": 1e-5, "hi": 1e-5, "normals": 1e-5}
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name in atol:
+            torch.testing.assert_close(g, w, atol=atol[name], rtol=0, msg=name)
+            assert torch.isfinite(g).all(), name
+        else:
+            assert torch.equal(g, w), name
+    assert int(want[5].sum()) > 0
+    if D == 4:
+        assert (want[6] > 0).any() and (want[5] > K).any()
+
+
+@pytest.mark.cuda
+def test_simple_jobs_wrapper_rejects_bad_input(card):
+    pos, rot = sj_inputs(1, 2, 16, 3.0, card)
+    kw = dict(n0=16, K=64, degree_cap=8, bounds=(sj.BOUNDS_LO, sj.BOUNDS_HI))
+    with pytest.raises(ValueError):
+        sk.fused_simple_jobs_step(pos.double(), rot, **kw)
+    with pytest.raises(ValueError):
+        sk.fused_simple_jobs_step(pos, rot.cpu(), **kw)
+    with pytest.raises(ValueError):
+        sk.fused_simple_jobs_step(pos, rot[:, :, :3].contiguous(), **kw)
+    with pytest.raises(ValueError):
+        sk.fused_simple_jobs_step(pos.transpose(0, 1).contiguous().transpose(0, 1), rot, **kw)
+    assert sk.fused_simple_jobs_step.launches == 0
+
+
+@pytest.mark.cuda
+def test_simple_jobs_on_card_matches_cpu(card):
+    """Five fused steps on the card (the kernel) and on the CPU (its plain
+    version) from the same state; one launch a step."""
+    cfg = sj.SimpleJobsConfig(num_worlds=8, num_objects=40, max_pairs=512, seed=5,
+                              fused=True)
+    cpu = sj.make_executor(cfg, device="cpu")
+    gpu = sj.make_executor(cfg, device="cuda")
+    gpu.state = state_from_numpy(state_to_numpy(cpu.state), card)
+    for _ in range(5):
+        cpu.step()
+        gpu.step()
+    torch.cuda.synchronize()
+    assert sk.fused_simple_jobs_step.launches == 5
+    a, b = state_to_numpy(cpu.state)["user"], state_to_numpy(gpu.state)["user"]
+    for key in ("candidates", "contacts_ab", "num_candidates", "num_contacts"):
+        np.testing.assert_array_equal(b[key], a[key], err_msg=key)
+    np.testing.assert_allclose(b["translation"], a["translation"], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(b["contacts_normal"], a["contacts_normal"], atol=1e-4, rtol=0)

@@ -23,6 +23,8 @@ def test_import_loads_no_jax():
         import sys
         import gpu_ecs_madrona_tpu_torch
         import gpu_ecs_madrona_tpu_torch.models.collisions
+        import gpu_ecs_madrona_tpu_torch.models.simple_jobs
+        import gpu_ecs_madrona_tpu_torch.models.fantasy_vs
         import gpu_ecs_madrona_tpu_torch.interop
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
