@@ -2,9 +2,10 @@
 """Chip smoke test of the PyTorch/CUDA port (gpu_ecs_madrona_tpu_torch).
 
 Drives the port's main paths on one CUDA card — the collisions example at
-8192 worlds x 100 cubes, simple_jobs at 1024 worlds x 100 objects and
-fantasy_vs at 16384 worlds x 50 dragons + 200 knights — through every
-kernel they run, and holds every kernel against its plain PyTorch version.
+8192 worlds x 100 cubes, simple_jobs at 1024 worlds x 100 objects,
+fantasy_vs at 16384 worlds x 50 dragons + 200 knights and rigid_bench
+(rigid-body physics) at 8192 worlds x 64 bodies — through every kernel
+they run, and holds every kernel against its plain PyTorch version.
 Run from the root of a checkout:
 
     python3 chip_smoke.py            # the smoke test
@@ -39,6 +40,16 @@ Phases:
            replayed in scripted mode on the card: masks and arrows exact,
            hp and mana atol 1e-3, action atol 1e-4, positions atol 1e-5,
            at least one death
+  parity_substep   the fused substep kernel vs its plain version: the
+           main path's shapes (8192 x 65 rows) after 3 steps at K=256 (the
+           chunked TPU route) and K=128 (the unchunked one), the initial
+           uniform spawn, tables without restitution, a golden scene;
+           poses and stashes atol 1e-4, velocities atol 1e-3, all finite, a
+           repeated launch and a repeated plain run bit-identical
+  golden_physics   the reference binary's 1-substep physics goldens
+           (cubes_fall, cube_pair, cube_stack, cube_bounce) and the
+           free-fall check on the card, kernel and pairs modes, with
+           tests/test_reference_golden.py's gates
   main_fused     collisions fused=True (kernel 1), 3 warm-up steps then
            windows of 200 steps; launches = steps, finite positions, empty
            temporary tables; env-steps/s
@@ -52,9 +63,20 @@ Phases:
   main_fantasy_vs   16384 worlds x 50 dragons + 200 knights, cleanup on, 3
            warm-up steps then 5 windows of 50; live counts never rise,
            overflow counters 0, finite positions
+  main_rigid     rigid_bench defaults, 8192 x 64, K=256, the fused
+           substep kernel: 3 warm-up steps then 5 windows of 50; launches =
+           steps, finite positions, empty temporaries after each window;
+           overflow counters, env-steps/s
+  main_rigid_k128    the same at max_candidates=128
+  main_rigid_pairs   contact_mode="pairs", one window of 10 steps; no
+           kernel launch
   timing   CUDA-event time of each kernel wrapper (200 calls) and of its
            plain version at the main paths' shapes (kernel 3: the tiled
-           case, n=1500, W=16, 128- and 1024-wide j tiles), beside the
+           case, n=1500, W=16, 128- and 1024-wide j tiles; the substep
+           kernel: 20 calls at both K from the main_rigid states, with
+           what its operation count is counted from: the pairs by kind,
+           and the live contact points the plain version finds in each
+           substep of the same call), beside the
            bound: max(bytes / 3.35 TB/s, fp32 ops / 67 TFLOP/s), the H100
            SXM peaks; no single PyTorch call computes any of these
            functions, so there is no library yardstick
@@ -356,6 +378,325 @@ def parity_simple_jobs(torch, sj, sk, dev):
     return {"phase": "parity_simple_jobs", "cases": out, "ints": "exact", "atol": atol}, worst
 
 
+# -- rigid-body physics: the fused substep kernel ------------------------------
+
+RB_WORLDS, RB_BODIES = 8192, 64      # rigid_bench defaults
+# fp32 operations of the fused substep kernel (each add, sub, mul, div,
+# sqrt, min, max and abs; compares and selects not counted), counted from
+# csrc/substep_kernels.cu.  The data decides how many of each the call
+# needs, so substep_work counts them from the plain version's contacts in
+# every substep of the timed call:
+#   - each valid candidate slot, its contact test by kind (the box-box SAT
+#     over 15 axes; a box against the plane tests its 8 corners);
+#   - each touching box pair, the incident-face clip when it keeps two or
+#     more live points, else the cheaper edge-edge point;
+#   - each pair with a live point (ok and depth > 0), the passes' per-pair
+#     work (two world inertia tensors a pass, the drift and friction
+#     direction, the velocity deltas), and 15 sums a dynamic side; a pair
+#     without a live point needs no pass work;
+#   - each live point, both passes' work at it (36 more for the
+#     restitution channels when some material bounces);
+#   - each pair (i <= j) of a pair's live points, one entry of the velocity
+#     pass's system and its share of the closed-form solve;
+#   - each dynamic body, the integrate, pose update and velocity recovery.
+OPS_TEST = {"box-box": 420, "box-plane": 360, "sphere-box": 100, "sphere-plane": 50,
+            "sphere-sphere": 25, "other": 0}
+OPS_CLIP_FACE, OPS_CLIP_EDGE = 760, 220
+OPS_PAIR, OPS_SIDE_SUM = 385, 15
+OPS_POINT, OPS_POINT_BOUNCE = 450, 36
+OPS_POINT_PAIR = 24
+OPS_BODY = 300
+# bytes a call moves: per body row 105 in (pose, velocity, mass, inertia,
+# friction, object id, external force and torque, dyn flag) and 132 out
+# (pose, velocity and the six stashes); per candidate slot 9 (rows, flag);
+# per world 20 (h, gravity, restitution threshold)
+BYTES_BODY, BYTES_SLOT, BYTES_WORLD = 237, 9, 20
+SUBSTEP_POSE_KEYS = ("pos", "rot", "prev_pos", "prev_rot", "ps_pos", "ps_rot")
+
+
+def fused_inputs(sim, rb, phys):
+    """The fused substep kernel's inputs for a rigid_bench executor's next step."""
+    return phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, rb.Body,
+                                                               rb.RigidBenchWorld.objmgr)
+
+
+def kind_masks(torch, kw, tables):
+    """Valid candidate slots [W, K] by contact kind (the kernel's branch)."""
+    prim = torch.as_tensor(tables.om["prim_type"], device=kw["obj"].device)
+    ri, rj, valid = kw["rows_i"].long(), kw["rows_j"].long(), kw["kvalid"]
+    pa = prim[torch.gather(kw["obj"], 1, ri).long()]
+    pb = prim[torch.gather(kw["obj"], 1, rj).long()]
+    lo, hi = torch.minimum(pa, pb), torch.maximum(pa, pb)   # 0 sphere, 1 hull, 2 plane
+    kinds = {"sphere-sphere": (lo == 0) & (hi == 0), "sphere-box": (lo == 0) & (hi == 1),
+             "sphere-plane": (lo == 0) & (hi == 2), "box-box": (lo == 1) & (hi == 1),
+             "box-plane": (lo == 1) & (hi == 2)}
+    kinds = {k: v & valid for k, v in kinds.items()}
+    kinds["other"] = valid & ~torch.stack(list(kinds.values())).any(0)
+    return kinds
+
+
+def pair_kinds(torch, kw, tables):
+    """Valid candidate pairs by contact kind."""
+    return {k: int(v.sum()) for k, v in kind_masks(torch, kw, tables).items()}
+
+
+def substep_work(torch, sk, kern, kw):
+    """The fp32 operations this call's data needs of the kernel, and what
+    they were counted from: the candidates by kind, and summed over the
+    substeps of a plain-version run on the same inputs, the pairs with a
+    live point, their dynamic sides and live points, the pairs of live
+    points within a pair, and the touching box pairs by clip path."""
+    kinds = kind_masks(torch, kw, kern.tables)
+    ri, rj = kw["rows_i"].long(), kw["rows_j"].long()
+    dyn_sides = torch.gather(kw["dyn"], 1, ri).int() + torch.gather(kw["dyn"], 1, rj).int()
+    n = dict.fromkeys(("pairs", "dyn_sides", "points", "point_pairs", "face_clips",
+                       "edge_points"), 0)
+
+    def observe(c):
+        live = c["ok"][:, None, :] & (c["depth"] > 0) & kw["kvalid"][:, None, :]
+        pts = live.sum(1)                                           # [W, K]
+        touching = pts > 0
+        boxes = kinds["box-box"] & c["ok"]
+        n["pairs"] += int(touching.sum())
+        n["dyn_sides"] += int(dyn_sides[touching].sum())
+        n["points"] += int(pts.sum())
+        n["point_pairs"] += int((pts * (pts + 1) // 2).sum())
+        n["face_clips"] += int((boxes & (pts >= 2)).sum())
+        n["edge_points"] += int((boxes & (pts < 2)).sum())
+
+    sk.fused_substep_plain(**kw, tables=kern.tables, num_substeps=kern.num_substeps,
+                           relaxation=kern.relaxation, speculative=kern.speculative,
+                           observe=observe)
+    counts = {k: int(v.sum()) for k, v in kinds.items()}
+    S = kern.num_substeps
+    per_point = OPS_POINT + (OPS_POINT_BOUNCE if kern.tables.any_restitution else 0)
+    ops = (S * sum(c * OPS_TEST[k] for k, c in counts.items())
+           + n["face_clips"] * OPS_CLIP_FACE + n["edge_points"] * OPS_CLIP_EDGE
+           + n["pairs"] * OPS_PAIR + n["dyn_sides"] * OPS_SIDE_SUM
+           + n["points"] * per_point + n["point_pairs"] * OPS_POINT_PAIR
+           + S * int(kw["dyn"].sum()) * OPS_BODY)
+    return ops, counts, n
+
+
+def substep_bound(kw, ops):
+    W, n = kw["im"].shape
+    K = kw["rows_i"].shape[1]
+    return bound(W * (n * BYTES_BODY + K * BYTES_SLOT + BYTES_WORLD), ops)
+
+
+def substep_case(torch, sk, kern, kw):
+    """Kernel (twice) vs plain (twice) on one input: max errors, or raises."""
+    got, again = kern(**kw), kern(**kw)
+    want, want2 = (sk.fused_substep_plain(**kw, tables=kern.tables,
+                                          num_substeps=kern.num_substeps,
+                                          relaxation=kern.relaxation,
+                                          speculative=kern.speculative) for _ in range(2))
+    torch.cuda.synchronize()
+    errs = {}
+    for k in sk.OUT_KEYS:
+        check(bool(torch.isfinite(got[k]).all()), f"substep {k} finite")
+        check(torch.equal(got[k], again[k]), f"substep {k}: a repeated launch differs")
+        check(torch.equal(want[k], want2[k]), f"substep {k}: the plain version does not repeat")
+        errs[k] = max_err(got[k], want[k])
+        check(errs[k] <= (1e-4 if k in SUBSTEP_POSE_KEYS else 1e-3), f"substep {k} err {errs[k]}")
+    return errs
+
+
+def parity_substep(torch, rb, phys, sk):
+    """fused_substep vs its plain version: the main path's shapes after 3
+    steps at K = 256 and 128, the initial uniform spawn, tables without
+    restitution, a golden scene.  Returns (the phase's line, worst error)."""
+    import numpy as np
+    cases, worst = {}, 0.0
+    for K in (256, 128):
+        sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, contact_mode="pallas",
+                                                   max_candidates=K), device="cuda")
+        if K == 256:
+            spawn = fused_inputs(sim, rb, phys)
+        sim.run(3)
+        kw = fused_inputs(sim, rb, phys)
+        kern = sk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
+        errs = substep_case(torch, sk, kern, kw)
+        cases[f"main_K{K}"] = {"W": RB_WORLDS, "n": RB_BODIES + 1, "K": K,
+                               "pairs": pair_kinds(torch, kw, kern.tables), "max_err": errs}
+        del sim
+    kern = sk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
+    cases["initial_spawn"] = {"pairs": pair_kinds(torch, spawn, kern.tables),
+                              "max_err": substep_case(torch, sk, kern, spawn)}
+    om = dict(rb.RigidBenchWorld.objmgr)
+    om["restitution"] = np.zeros_like(om["restitution"])
+    quiet = sk.FusedSubstepKernel(om, 4, relaxation=0.7)
+    check(not quiet.tables.any_restitution, "zero-restitution tables")
+    cases["no_restitution"] = {"max_err": substep_case(torch, sk, quiet, kw)}
+    gold = golden_sim(torch, phys, "cube_stack_ss1", "pallas")[0]
+    gkw = phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(gold, gold.world_cls.Body,
+                                                              gold.world_cls.objmgr)
+    gkern = sk.FusedSubstepKernel(gold.world_cls.objmgr, 1)
+    cases["golden_cube_stack_ss1"] = {"pairs": int(gkw["kvalid"].sum()),
+                                      "max_err": substep_case(torch, sk, gkern, gkw)}
+    for c in cases.values():
+        worst = max(worst, max(c["max_err"].values()))
+    return {"phase": "parity_substep", "cases": cases, "repeat": "bit-identical (kernel and plain)",
+            "atol": {"pose_and_stashes": 1e-4, "velocities": 1e-3}}, worst
+
+
+def load_physics_golden(np, name):
+    with open(os.path.join(HERE, "tests", "goldens", name + ".bin"), "rb") as f:
+        d = f.read()
+    check(d[:4] == b"GLD1", "physics golden magic")
+    T1, W, K, ss = struct.unpack("<4i", d[4:20])
+    dt = struct.unpack("<f", d[20:24])[0]
+    return np.frombuffer(d[24:], np.float32).reshape(T1, W, K, 13).copy(), W, K, ss, dt
+
+
+def golden_sim(torch, phys, name, mode):
+    """The golden's scene (plane row 0, its cubes after) on the card, from
+    its tick 0; returns (executor, golden, K)."""
+    import numpy as np
+    from gpu_ecs_madrona_tpu_torch.core import base
+    from gpu_ecs_madrona_tpu_torch.core.component import Archetype
+    from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExecutor
+    from gpu_ecs_madrona_tpu_torch.physics import components as pc
+    golden, W, K, ss, dt = load_physics_golden(np, name)
+    loader = phys.assets.PhysicsLoader()
+    loader.load_objects([phys.assets.make_plane(mu_s=0.5, mu_d=0.5),
+                         phys.assets.make_box((0.5, 0.5, 0.5), inv_mass=1.0, mu_s=0.5,
+                                              mu_d=0.5)])
+    mgr = loader.get_object_manager()
+    init0 = golden[0]
+
+    class World:
+        Body = Archetype("GoldenBody", phys.BODY_COMPONENTS)
+        objmgr = mgr
+
+        @classmethod
+        def register_types(cls, r):
+            phys.RigidBodyPhysicsSystem.register_types(r, max_candidates=64, max_contacts=64,
+                                                       max_joints=0)
+            r.register_archetype(cls.Body, capacity=K + 1)
+            r.export_column(cls.Body, base.Position, 0)
+            r.export_column(cls.Body, base.Rotation, 1)
+            r.export_column(cls.Body, pc.Velocity, 2)
+
+        @classmethod
+        def init(cls, ctx, init_data=None):
+            dev = ctx.device
+            phys.RigidBodyPhysicsSystem.init(ctx, delta_t=dt, num_substeps=ss)
+            pos = np.zeros((W, K + 1, 3), np.float32)
+            rot = np.zeros((W, K + 1, 4), np.float32)
+            rot[..., 0] = 1.0
+            vel = np.zeros((W, K + 1, 3), np.float32)
+            omega = np.zeros((W, K + 1, 3), np.float32)
+            pos[:, 1:], rot[:, 1:] = init0[..., 0:3], init0[..., 3:7]
+            vel[:, 1:], omega[:, 1:] = init0[..., 7:10], init0[..., 10:13]
+            oid = np.ones((W, K + 1), np.int32)
+            oid[:, 0] = 0
+            resp = np.full((W, K + 1), pc.RESPONSE_DYNAMIC, np.int32)
+            resp[:, 0] = pc.RESPONSE_STATIC
+
+            def t(a):
+                return torch.from_numpy(a).to(dev)
+            ctx.make_entities(cls.Body, counts=K + 1, max_new=K + 1, values={
+                base.Position: t(pos), base.Rotation: t(rot),
+                base.Scale: torch.ones((W, K + 1, 3), device=dev), base.ObjectID: t(oid),
+                pc.Velocity: {"linear": t(vel), "angular": t(omega)},
+                pc.ResponseType: t(resp)})
+
+        @classmethod
+        def setup_tasks(cls, builder):
+            bp = phys.RigidBodyPhysicsSystem.setup_broadphase_tasks(builder, [], cls.Body, mgr)
+            sub = phys.RigidBodyPhysicsSystem.setup_substep_tasks(builder, [bp], ss, cls.Body,
+                                                                  mgr, contact_mode=mode)
+            phys.RigidBodyPhysicsSystem.setup_cleanup_tasks(builder, [sub])
+
+    sim = TaskGraphExecutor(World, ExecutorConfig(num_worlds=W, max_entities_per_world=K + 8,
+                                                  seed=0, device="cuda"))
+    return sim, golden, K
+
+
+def golden_physics(torch, phys, sk):
+    """The four 1-substep physics goldens and the free-fall check on the
+    card, both contact modes, with tests/test_reference_golden.py's gates."""
+    import numpy as np
+    out = {}
+    for mode in ("pallas", "pairs"):
+        for name in ("cubes_fall_ss1", "cube_pair_ss1", "cube_stack_ss1", "cube_bounce_ss1"):
+            sk.FusedSubstepKernel.launches = 0
+            sim, golden, K = golden_sim(torch, phys, name, mode)
+            T = golden.shape[0] - 1
+            mine = np.zeros_like(golden)
+            mine[0] = golden[0]
+            for t in range(1, T + 1):
+                sim.step()
+                vel = sim.get_exported(2)[0]
+                mine[t] = np.concatenate([sim.get_exported(0)[0][:, 1:].cpu().numpy(),
+                                          sim.get_exported(1)[0][:, 1:].cpu().numpy(),
+                                          vel["linear"][:, 1:].cpu().numpy(),
+                                          vel["angular"][:, 1:].cpu().numpy()], axis=-1)
+            check(sk.FusedSubstepKernel.launches == (T if mode == "pallas" else 0),
+                  f"golden {name} {mode} launches {sk.FusedSubstepKernel.launches}")
+            perr = np.abs(mine[..., 0:3] - golden[..., 0:3]).max(axis=(1, 2, 3))
+            zmin = golden[..., 2].min(axis=(1, 2))
+            fc = int(np.argmax(zmin < 0.52)) if (zmin < 0.52).any() else T + 1
+            res = {"ticks": T, "free_flight": float(perr[:fc].max()) if fc > 1 else None,
+                   "early_contact": float(perr[:min(fc + 10, T)].max()),
+                   "horizon": float(perr.max())}
+            check(fc <= 1 or res["free_flight"] <= 1e-5, f"golden {name} {mode} free flight")
+            check(res["early_contact"] <= 0.06, f"golden {name} {mode} early contact")
+            check(res["horizon"] <= (2.5 if name.startswith("cube_stack") else 1.2),
+                  f"golden {name} {mode} horizon")
+            check(bool(np.isfinite(mine).all()), f"golden {name} {mode} finite")
+            if name.startswith("cube_bounce"):
+                res["bounce_peak"] = float(np.abs(golden[fc:, ..., 2].max(axis=0)
+                                                  - mine[fc:, ..., 2].max(axis=0)).max())
+                check(res["bounce_peak"] <= 0.08, f"golden {name} {mode} bounce peak")
+            if name.startswith("cubes_fall"):
+                m_final, g_final = mine[-1, ..., 2], golden[-1, ..., 2]
+                check(bool((m_final > 0.3).all() and (m_final < 4.0).all()),
+                      f"golden {name} {mode} rest")
+                res["rest"] = float(np.abs(np.sort(m_final, axis=None)
+                                           - np.sort(g_final, axis=None)).max())
+                check(res["rest"] <= 0.6, f"golden {name} {mode} rest state")
+                res["free_fall_all_channels"] = float(np.abs(mine[:fc - 1]
+                                                             - golden[:fc - 1]).max())
+                check(fc >= 15 and res["free_fall_all_channels"] <= 1e-5,
+                      f"golden free fall {mode}")
+            out[f"{name}_{mode}"] = res
+    return {"phase": "golden_physics", "cases": out,
+            "gates": {"free_flight": 1e-5, "early_contact": 0.06, "horizon": "1.2 (stack 2.5)",
+                      "bounce_peak": 0.08, "rest": 0.6}}
+
+
+def main_rigid(torch, rb, phys, mode, K, steps, count, card, reset_counts, read_counts):
+    """rigid_bench defaults at 8192 x 64 through ``mode`` at capacity K:
+    3 warm-up steps, then ``count`` windows of ``steps`` steps; launches =
+    steps (kernel mode) or 0, no other kernel launched, finite positions,
+    empty temporaries."""
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, contact_mode=mode,
+                                               max_candidates=K), device="cuda")
+    sim.run(3)
+    sim.block_until_ready()
+    reset_counts()
+    wins = []
+    for _ in range(count):
+        wins += windows(sim, steps, 1)
+        for arch in (phys.CandidateTemporary, phys.CandidateRowsTemporary,
+                     phys.ContactTemporary, phys.CollisionEventTemporary):
+            check(int(sim.mgr.num_rows(sim.state, arch).sum()) == 0,
+                  f"{arch.name} not empty after a step")
+    launches = read_counts()
+    want = {name: 0 for name in launches}
+    want["fused_substep"] = steps * count if mode == "pallas" else 0
+    check(launches == want, f"rigid_bench {mode} K={K} launches {launches}")
+    pos, mask = sim.get_exported(0)
+    check(bool(torch.isfinite(pos[mask]).all()), f"finite positions (rigid_bench {mode})")
+    overflow = {k: int(v.sum()) for k, v in sim.overflow_counters().items()}
+    return sim, {"worlds": RB_WORLDS, "bodies": RB_BODIES, "contact_mode": mode,
+                 "max_candidates": K, "launches": launches,
+                 "overflow_sum": overflow,
+                 "env_steps_per_s": rates(steps, wins, RB_WORLDS), "card": card}
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -367,11 +708,14 @@ def main(argv):
           f"the port must come from this checkout, got {port.__file__}")
     from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExecutor
     from gpu_ecs_madrona_tpu_torch.models import collisions as col
+    from gpu_ecs_madrona_tpu_torch import physics as phys
     from gpu_ecs_madrona_tpu_torch.models import fantasy_vs as fvs
+    from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
     from gpu_ecs_madrona_tpu_torch.models import simple_jobs as sj
     from gpu_ecs_madrona_tpu_torch.ops import _build
     from gpu_ecs_madrona_tpu_torch.ops import collision_kernel as ck
     from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
+    from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
     from gpu_ecs_madrona_tpu_torch.utils import math as m
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -379,7 +723,8 @@ def main(argv):
     torch.cuda.set_device(dev)
     wrappers = {"fused_collisions_step": ck.fused_collisions_step,
                 "collision_pushes": ck.collision_pushes,
-                "fused_simple_jobs_step": sk.fused_simple_jobs_step}
+                "fused_simple_jobs_step": sk.fused_simple_jobs_step,
+                "fused_substep": subk.FusedSubstepKernel}
 
     def reset_counts():
         for w in wrappers.values():
@@ -476,6 +821,11 @@ def main(argv):
     emit({"phase": "golden", **golden})
     emit(golden_fvs(torch, fvs))
 
+    # the fused substep kernel vs plain, and the physics goldens on the card
+    line, err_substep = parity_substep(torch, rb, phys, subk)
+    emit(line)
+    emit(golden_physics(torch, phys, subk))
+
     # collisions, fused=True (kernel 1) ----------------------------------------
     sim.run(3)
     sim.block_until_ready()
@@ -483,7 +833,7 @@ def main(argv):
     fused_windows = windows(sim, 200, 5)
     fused_launches = read_counts()
     check(fused_launches == {"fused_collisions_step": 1000, "collision_pushes": 0,
-                             "fused_simple_jobs_step": 0},
+                             "fused_simple_jobs_step": 0, "fused_substep": 0},
           f"fused main path launches {fused_launches}")
     fpos, fmask = sim.get_exported(0)
     check(bool(torch.isfinite(fpos[fmask]).all()), "finite positions (fused)")
@@ -502,7 +852,7 @@ def main(argv):
     uwindows = windows(usim, 50, 1)
     unfused_launches = read_counts()
     check(unfused_launches == {"fused_collisions_step": 0, "collision_pushes": 50,
-                               "fused_simple_jobs_step": 0},
+                               "fused_simple_jobs_step": 0, "fused_substep": 0},
           f"unfused main path launches {unfused_launches}")
     upos, umask = usim.get_exported(0)
     check(bool(torch.isfinite(upos[umask]).all()), "finite positions (unfused)")
@@ -524,7 +874,7 @@ def main(argv):
     sj_windows = windows(sjsim, 200, 5)
     sj_launches = read_counts()
     check(sj_launches == {"fused_collisions_step": 0, "collision_pushes": 0,
-                          "fused_simple_jobs_step": 1000},
+                          "fused_simple_jobs_step": 1000, "fused_substep": 0},
           f"simple_jobs main path launches {sj_launches}")
     user = sjsim.state["user"]
     check(bool(torch.isfinite(user["translation"]).all()), "finite positions (simple_jobs)")
@@ -585,6 +935,17 @@ def main(argv):
                                    "Knight": int((first[1] - before[1]).sum())},
           "env_steps_per_s": rates(50, fvs_windows, FVS_WORLDS), "card": smi})
 
+    # rigid_bench, 8192 x 64: the fused substep kernel at K = 256 and 128, and
+    # the pairs path -------------------------------------------------------------
+    counts = (reset_counts, read_counts)
+    rsim, line = main_rigid(torch, rb, phys, "pallas", 256, 50, 5, smi, *counts)
+    rig_launches = line["launches"]["fused_substep"]
+    emit({"phase": "main_rigid", **line})
+    r128, line = main_rigid(torch, rb, phys, "pallas", 128, 50, 5, smi, *counts)
+    emit({"phase": "main_rigid_k128", **line})
+    rpairs, line = main_rigid(torch, rb, phys, "pairs", 256, 10, 1, smi, *counts)
+    emit({"phase": "main_rigid_pairs", **line})
+
     # kernel times at the main paths' shapes ------------------------------------
     fpos = sim.mgr.column(sim.state, col.CubeObject, col.Translation)
     frot = sim.mgr.column(sim.state, col.CubeObject, col.Rotation)
@@ -626,6 +987,24 @@ def main(argv):
     s_bound, s_by = bound(sW * (sn * 28 + sn * 36 + SJ_K * 20 + 8),
                           sW * sn * 40 + slive * 6 + sover * 20)
 
+    # the fused substep kernel at both capacities, from the main_rigid states
+    sub_t = {}
+    for K, s_ in ((256, rsim), (128, r128)):
+        kw = fused_inputs(s_, rb, phys)
+        kern = subk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
+        ops, kinds, work = substep_work(torch, subk, kern, kw)
+        b_ms, b_by = substep_bound(kw, ops)
+        rows = kw["kvalid"].sum(1)
+        bodies = kw["dyn"].sum(1).double() + 1.0       # the pile and its plane
+        sub_t[K] = {"ms": cuda_ms(torch, lambda: kern(**kw), 20),
+                    "plain_ms": cuda_ms(torch, lambda: subk.fused_substep_plain(
+                        **kw, tables=kern.tables, num_substeps=4, relaxation=0.7), 3, warmup=1),
+                    "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
+                    "live_pairs": float((bodies * (bodies - 1) / 2).sum()),
+                    "overlapping_pairs": sum(kinds.values()), "pairs_by_kind": kinds,
+                    "work_over_substeps": work,
+                    "pairs_per_world_max": int(rows.max())}
+
     emit({"phase": "timing", "fused_collisions_step": {
               "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
               "live_pairs": live, "overlapping_pairs": over},
@@ -638,11 +1017,14 @@ def main(argv):
           "fused_simple_jobs_step": {
               "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
               "live_pairs": slive, "overlapping_pairs": sover},
+          "fused_substep_K256": sub_t[256], "fused_substep_K128": sub_t[128],
           "library_ms": "none: no single PyTorch call computes any of these functions",
           "card": smi})
 
     if "--profile" in argv:
         profile(torch, {"fused": sim, "unfused_pushes": usim, "simple_jobs_fused": sjsim,
+                        "rigid_fused_k256": rsim, "rigid_fused_k128": r128,
+                        "rigid_pairs": rpairs,
                         "simple_jobs_rank": sjusim, "fantasy_vs": fsim})
 
     csrc = "gpu_ecs_madrona_tpu_torch/csrc/"
@@ -664,6 +1046,13 @@ def main(argv):
          "launches": sj_launches["fused_simple_jobs_step"], "launches_per_step": 1,
          "max_abs_err": err_sj, "ms": s_ms, "plain_ms": s_plain,
          "bound_ms": s_bound, "bound_by": s_by, "library_ms": None},
+        {"name": "fused_substep", "route": "cuda", "source": csrc + "substep_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1257 (chunked :1241)",
+         "launches": rig_launches, "launches_per_step": 1, "max_abs_err": err_substep,
+         "ms": sub_t[256]["ms"], "plain_ms": sub_t[256]["plain_ms"],
+         "bound_ms": sub_t[256]["bound_ms"], "bound_by": sub_t[256]["bound_by"],
+         "library_ms": None,
+         "K128": {k: sub_t[128][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -24,6 +24,7 @@ before the archetype is cleared are then never built.
 
 from __future__ import annotations
 
+import math
 from collections.abc import Mapping
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -106,6 +107,14 @@ def uniform(keys: torch.Tensor, shape, low=0.0, high=1.0) -> torch.Tensor:
     low = torch.as_tensor(low, dtype=torch.float32, device=keys.device)
     high = torch.as_tensor(high, dtype=torch.float32, device=keys.device)
     return low + (high - low) * u
+
+
+def normal(keys: torch.Tensor, shape) -> torch.Tensor:
+    """Standard normal float32 draws (Box-Muller on two 24-bit uniforms):
+    keys [...] -> [..., *shape]."""
+    bits = _bits24(keys, tuple(shape) + (2,)).to(torch.float32) * (1.0 / (1 << 24))
+    u1 = 1.0 - bits[..., 0]                  # (0, 1]: log stays finite
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * bits[..., 1])
 
 
 # ---------------------------------------------------------------------------

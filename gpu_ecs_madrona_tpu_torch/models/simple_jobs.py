@@ -45,10 +45,10 @@ from gpu_ecs_madrona_tpu_torch.core.state import batched_gather, uniform
 from gpu_ecs_madrona_tpu_torch.core.taskgraph import TaskGraphBuilder
 from gpu_ecs_madrona_tpu_torch.models.collisions import _strict_fp32
 from gpu_ecs_madrona_tpu_torch.ops.simple_jobs_kernel import (
-    clamp_to_bounds, first_partners, fused_fits, fused_simple_jobs_step,
-    overlap_grid, rank_slots)
+    clamp_to_bounds, fused_fits, fused_simple_jobs_step, overlap_grid)
 from gpu_ecs_madrona_tpu_torch.utils import debug
 from gpu_ecs_madrona_tpu_torch.utils import math as m
+from gpu_ecs_madrona_tpu_torch.utils.compaction import first_partners, rank_slots
 
 BOUNDS_LO = (-10.0, -10.0, 0.0)
 BOUNDS_HI = (10.0, 10.0, 10.0)

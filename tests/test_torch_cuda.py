@@ -6,9 +6,10 @@ runs on a machine with the card and no JAX:
 
 Each CUDA kernel is held against its plain PyTorch version on the card
 (lo/hi atol 1e-5, pushes and translations atol 1e-4, normals atol 1e-5,
-integer outputs exact), and the collisions and simple_jobs slices on the
-card against the same slices on the CPU (plain versions), positions atol
-1e-4.
+integer outputs exact; the fused substep kernel's poses and stashes atol
+1e-4, velocities atol 1e-3, and two launches on one input bit-identical),
+and the collisions, simple_jobs and rigid_bench slices on the card
+against the same slices on the CPU (plain versions), positions atol 1e-4.
 """
 
 import numpy as np
@@ -17,9 +18,12 @@ import torch
 
 from gpu_ecs_madrona_tpu_torch.interop import state_from_numpy, state_to_numpy
 from gpu_ecs_madrona_tpu_torch.models import collisions as col
+from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
 from gpu_ecs_madrona_tpu_torch.models import simple_jobs as sj
 from gpu_ecs_madrona_tpu_torch.ops import collision_kernel as ck
 from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
+from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
+from gpu_ecs_madrona_tpu_torch.physics import RigidBodyPhysicsSystem
 
 
 @pytest.fixture
@@ -29,6 +33,7 @@ def card():
     ck.fused_collisions_step.launches = 0
     ck.collision_pushes.launches = 0
     sk.fused_simple_jobs_step.launches = 0
+    subk.FusedSubstepKernel.launches = 0
     return torch.device("cuda")
 
 
@@ -180,3 +185,109 @@ def test_simple_jobs_on_card_matches_cpu(card):
         np.testing.assert_array_equal(b[key], a[key], err_msg=key)
     np.testing.assert_allclose(b["translation"], a["translation"], atol=1e-4, rtol=0)
     np.testing.assert_allclose(b["contacts_normal"], a["contacts_normal"], atol=1e-4, rtol=0)
+
+
+def fused_inputs(sim):
+    """The fused substep kernel's inputs for sim's next step."""
+    return RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, rb.Body, rb.RigidBenchWorld.objmgr)
+
+
+POSE_KEYS = ("pos", "rot", "prev_pos", "prev_rot", "ps_pos", "ps_rot")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 128])
+def test_fused_substep_matches_plain(card, K):
+    """The kernel against its plain version at a mid-pile state (the
+    K > 128 and K <= 128 TPU routes), and bit-identical when repeated."""
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=64, contact_mode="pallas",
+                                               max_candidates=K, spawn_xy=4.0, spawn_h=6.0,
+                                               seed=3), device="cuda")
+    sim.run(3)
+    kw = fused_inputs(sim)
+    assert int(kw["kvalid"].sum()) > 64
+    kern = subk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
+    subk.FusedSubstepKernel.launches = 0
+    got, again = kern(**kw), kern(**kw)
+    torch.cuda.synchronize()
+    assert subk.FusedSubstepKernel.launches == 2
+    want = subk.fused_substep_plain(**kw, tables=kern.tables, num_substeps=4, relaxation=0.7)
+    for k in subk.OUT_KEYS:
+        assert got[k].shape == want[k].shape and torch.isfinite(got[k]).all(), k
+        torch.testing.assert_close(got[k], want[k], rtol=0,
+                                   atol=1e-4 if k in POSE_KEYS else 1e-3, msg=k)
+        assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.cuda
+def test_fused_substep_rejects_bad_input(card):
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=2, num_bodies=8, contact_mode="pallas"),
+                           device="cuda")
+    kw = fused_inputs(sim)
+    kern = subk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4)
+    args = dict(kw, tables=kern.tables, num_substeps=4)
+    with pytest.raises(ValueError):
+        subk.fused_substep(**dict(args, pos=kw["pos"].double()))
+    with pytest.raises(ValueError):
+        subk.fused_substep(**dict(args, rows_i=kw["rows_i"].cpu()))
+    om = dict(rb.RigidBenchWorld.objmgr)
+    om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
+    with pytest.raises(NotImplementedError, match="general-hull"):
+        subk.fused_substep(**dict(args, tables=subk.pk.ObjTables(om)))
+    assert subk.FusedSubstepKernel.launches == 0
+
+
+@pytest.mark.cuda
+def test_rigid_bench_on_card_matches_cpu(card):
+    """Two fused-mode steps on the card (the kernel) and on the CPU (its
+    plain version) from the same state; one launch a step."""
+    cfg = rb.RigidBenchConfig(num_worlds=8, num_bodies=20, contact_mode="pallas",
+                              max_candidates=128, spawn_xy=3.0, spawn_h=4.0, seed=5)
+    cpu = rb.make_executor(cfg, device="cpu")
+    gpu = rb.make_executor(cfg, device="cuda")
+    gpu.state = state_from_numpy(state_to_numpy(cpu.state), card)
+    for _ in range(2):
+        cpu.step()
+        gpu.step()
+    torch.cuda.synchronize()
+    assert subk.FusedSubstepKernel.launches == 2
+    a, b = state_to_numpy(cpu.state), state_to_numpy(gpu.state)
+    for comp in ("Position", "Rotation"):
+        np.testing.assert_allclose(b["arch"]["RigidBenchBody"]["comps"][comp]["value"],
+                                   a["arch"]["RigidBenchBody"]["comps"][comp]["value"],
+                                   atol=1e-4, rtol=0, err_msg=comp)
+
+
+@pytest.mark.cuda
+def test_fused_substep_plain_repeats_on_card(card):
+    """The plain version's segment sums add in a fixed order on the card
+    too (no atomics), so two runs from one state are bit-identical."""
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=64, contact_mode="pallas",
+                                               spawn_xy=4.0, spawn_h=6.0, seed=3),
+                           device="cuda")
+    sim.run(3)
+    kw = fused_inputs(sim)
+    tables = subk.pk.ObjTables(rb.RigidBenchWorld.objmgr)
+    a, b = (subk.fused_substep_plain(**kw, tables=tables, num_substeps=4, relaxation=0.7)
+            for _ in range(2))
+    for k in subk.OUT_KEYS:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_rigid_bench_step_waits_for_nothing(card):
+    """A fused-mode step queues its work and returns: no operation in it
+    makes the host wait for the card (after the first step, which copies
+    the object tables to the card)."""
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=16, contact_mode="pallas"),
+                           device="cuda")
+    sim.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            sim.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert subk.FusedSubstepKernel.launches == 4

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from gpu_ecs_madrona_tpu_torch.models import collisions as col
+from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "gpu_ecs_madrona_tpu_torch")
@@ -25,6 +26,11 @@ def test_import_loads_no_jax():
         import gpu_ecs_madrona_tpu_torch.models.collisions
         import gpu_ecs_madrona_tpu_torch.models.simple_jobs
         import gpu_ecs_madrona_tpu_torch.models.fantasy_vs
+        import gpu_ecs_madrona_tpu_torch.models.rigid_bench
+        import gpu_ecs_madrona_tpu_torch.physics
+        import gpu_ecs_madrona_tpu_torch.physics.assets
+        import gpu_ecs_madrona_tpu_torch.ops.substep_kernel
+        import gpu_ecs_madrona_tpu_torch.core.base
         import gpu_ecs_madrona_tpu_torch.interop
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
@@ -91,3 +97,13 @@ def test_fused_default_follows_device():
     with pytest.raises(ValueError, match="single-tile"):
         col.make_executor(col.CollisionsConfig(num_worlds=1, num_objects=800,
                                                max_pairs=16, fused=True), device="cpu")
+
+
+def test_rigid_bench_needs_a_card_or_cpu():
+    cfg = rb.RigidBenchConfig(num_worlds=1, num_bodies=4, contact_mode="pallas")
+    if torch.cuda.is_available():
+        assert rb.make_executor(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            rb.make_executor(cfg)
+    assert rb.make_executor(cfg, device="cpu").device.type == "cpu"
