@@ -3,9 +3,11 @@
 
 Drives the port's main paths on one CUDA card — the collisions example at
 8192 worlds x 100 cubes, simple_jobs at 1024 worlds x 100 objects,
-fantasy_vs at 16384 worlds x 50 dragons + 200 knights and rigid_bench
-(rigid-body physics) at 8192 worlds x 64 bodies — through every kernel
-they run, and holds every kernel against its plain PyTorch version.
+fantasy_vs at 16384 worlds x 50 dragons + 200 knights, rigid_bench
+(rigid-body physics) at 8192 worlds x 64 bodies and simple_taskgraph
+(physics and the batch renderer) at 1024 worlds x 100 spheres with 64 x 64
+RGB and depth — through every kernel they run, and holds every kernel
+against its plain PyTorch version.
 Run from the root of a checkout:
 
     python3 chip_smoke.py            # the smoke test
@@ -44,8 +46,11 @@ Phases:
            main path's shapes (8192 x 65 rows) after 3 steps at K=256 (the
            chunked TPU route) and K=128 (the unchunked one), the initial
            uniform spawn, tables without restitution, a golden scene;
-           poses and stashes atol 1e-4, velocities atol 1e-3, all finite, a
-           repeated launch and a repeated plain run bit-identical
+           and the single-substep kernel vs its plain version on the first
+           substep of the K=256 state and of the simple_taskgraph main
+           state (1024 x 104 rows, K=1000, after 3 steps); poses and
+           stashes atol 1e-4, velocities atol 1e-3, all finite, a repeated
+           launch and a repeated plain run bit-identical
   golden_physics   the reference binary's 1-substep physics goldens
            (cubes_fall, cube_pair, cube_stack, cube_bounce) and the
            free-fall check on the card, kernel and pairs modes, with
@@ -70,6 +75,22 @@ Phases:
   main_rigid_k128    the same at max_candidates=128
   main_rigid_pairs   contact_mode="pairs", one window of 10 steps; no
            kernel launch
+  parity_render   the render kernel vs its plain version on the four
+           scenes of tests/test_torch_render_scenes.py (2-D image tiles; the
+           inside scene's one tile spans both of its back-to-back views, so
+           its cone wraps) and at the main state (1024 worlds after 3
+           steps): hit exact, depth and float rgb atol 1e-5, a repeated
+           launch bit-identical; and the kernel route against the "xla"
+           route at 64 worlds: hit masks differ on at most 1 pixel in 1e5
+           (the count is printed), depth rtol 1e-4 / atol 1e-3 and RGBA8
+           within 1 where both hit (tests/test_render_pallas.py's
+           tolerances)
+  main_simple_taskgraph   simple_taskgraph at 1024 worlds x 100 spheres + 1
+           agent camera, 4 substeps, 64 x 64 RGB and depth, renderer
+           "auto": 3 warm-up steps then 5 windows of 50; launches =
+           {substep: 4 x steps, render: steps} and no other, finite
+           positions, finite depth on every hit and alpha 255 exactly where
+           the depth is finite, overflow counters; env-steps/s
   timing   CUDA-event time of each kernel wrapper (200 calls) and of its
            plain version at the main paths' shapes (kernel 3: the tiled
            case, n=1500, W=16, 128- and 1024-wide j tiles; the substep
@@ -79,7 +100,15 @@ Phases:
            substep of the same call), beside the
            bound: max(bytes / 3.35 TB/s, fp32 ops / 67 TFLOP/s), the H100
            SXM peaks; no single PyTorch call computes any of these
-           functions, so there is no library yardstick
+           functions, so there is no library yardstick.  The render kernel
+           (200 calls) from the main_simple_taskgraph state: its bound
+           counts the (pixel, live instance) pairs whose bounding sphere
+           the pixel's own ray meets, times the instance's test, and a
+           per-pixel cost; the instances its cull keeps per tile; and the
+           device time of a simple_taskgraph step's physics nodes and of
+           its render nodes.  The single-substep kernel (200 calls) at the
+           first substep of that state, its bound counted as the fused
+           kernel's for one substep without the integrate
 """
 
 import json
@@ -411,6 +440,12 @@ OPS_BODY = 300
 # (pose, velocity and the six stashes); per candidate slot 9 (rows, flag);
 # per world 20 (h, gravity, restitution threshold)
 BYTES_BODY, BYTES_SLOT, BYTES_WORLD = 237, 9, 20
+# the single-substep kernel: per body row 109 in (post-integrate pose and
+# velocity, the substep start, mass, inertia, friction, object id, dyn flag)
+# and 52 out (pose, velocity); per world 8 (h, restitution threshold); of a
+# body's 300 operations it does the pose update and velocity recovery, 100
+BYTES_BODY1, BYTES_WORLD1 = 161, 8
+OPS_BODY_SOLVE = 100
 SUBSTEP_POSE_KEYS = ("pos", "rot", "prev_pos", "prev_rot", "ps_pos", "ps_rot")
 
 
@@ -445,7 +480,9 @@ def substep_work(torch, sk, kern, kw):
     they were counted from: the candidates by kind, and summed over the
     substeps of a plain-version run on the same inputs, the pairs with a
     live point, their dynamic sides and live points, the pairs of live
-    points within a pair, and the touching box pairs by clip path."""
+    points within a pair, and the touching box pairs by clip path.  For the
+    single-substep kernel (kern a SubstepKernel): its one substep, the
+    bodies without the integrate."""
     kinds = kind_masks(torch, kw, kern.tables)
     ri, rj = kw["rows_i"].long(), kw["rows_j"].long()
     dyn_sides = torch.gather(kw["dyn"], 1, ri).int() + torch.gather(kw["dyn"], 1, rj).int()
@@ -464,24 +501,48 @@ def substep_work(torch, sk, kern, kw):
         n["face_clips"] += int((boxes & (pts >= 2)).sum())
         n["edge_points"] += int((boxes & (pts < 2)).sum())
 
-    sk.fused_substep_plain(**kw, tables=kern.tables, num_substeps=kern.num_substeps,
-                           relaxation=kern.relaxation, speculative=kern.speculative,
-                           observe=observe)
+    single = isinstance(kern, sk.SubstepKernel)
+    if single:
+        sk.substep_plain(**kw, tables=kern.tables, relaxation=kern.relaxation,
+                         speculative=kern.speculative, observe=observe)
+    else:
+        sk.fused_substep_plain(**kw, tables=kern.tables, num_substeps=kern.num_substeps,
+                               relaxation=kern.relaxation, speculative=kern.speculative,
+                               observe=observe)
     counts = {k: int(v.sum()) for k, v in kinds.items()}
-    S = kern.num_substeps
+    S = 1 if single else kern.num_substeps
     per_point = OPS_POINT + (OPS_POINT_BOUNCE if kern.tables.any_restitution else 0)
     ops = (S * sum(c * OPS_TEST[k] for k, c in counts.items())
            + n["face_clips"] * OPS_CLIP_FACE + n["edge_points"] * OPS_CLIP_EDGE
            + n["pairs"] * OPS_PAIR + n["dyn_sides"] * OPS_SIDE_SUM
            + n["points"] * per_point + n["point_pairs"] * OPS_POINT_PAIR
-           + S * int(kw["dyn"].sum()) * OPS_BODY)
+           + S * int(kw["dyn"].sum()) * (OPS_BODY_SOLVE if single else OPS_BODY))
     return ops, counts, n
 
 
-def substep_bound(kw, ops):
+def substep_bound(kw, ops, single=False):
     W, n = kw["im"].shape
     K = kw["rows_i"].shape[1]
+    if single:
+        return bound(W * (n * BYTES_BODY1 + K * BYTES_SLOT + BYTES_WORLD1), ops)
     return bound(W * (n * BYTES_BODY + K * BYTES_SLOT + BYTES_WORLD), ops)
+
+
+def substep1_case(torch, sk, kern, kw):
+    """Single-substep kernel (twice) vs plain (twice) on one input: max
+    errors, or raises."""
+    got, again = kern(**kw), kern(**kw)
+    want, want2 = (sk.substep_plain(**kw, tables=kern.tables, relaxation=kern.relaxation,
+                                    speculative=kern.speculative) for _ in range(2))
+    torch.cuda.synchronize()
+    errs = {}
+    for k, g, a in zip(sk.SUBSTEP_KEYS, got, again):
+        check(bool(torch.isfinite(g).all()), f"substep1 {k} finite")
+        check(torch.equal(g, a), f"substep1 {k}: a repeated launch differs")
+        check(torch.equal(want[k], want2[k]), f"substep1 {k}: the plain version does not repeat")
+        errs[k] = max_err(g, want[k])
+        check(errs[k] <= (1e-4 if k in SUBSTEP_POSE_KEYS else 1e-3), f"substep1 {k} err {errs[k]}")
+    return errs
 
 
 def substep_case(torch, sk, kern, kw):
@@ -505,7 +566,9 @@ def substep_case(torch, sk, kern, kw):
 def parity_substep(torch, rb, phys, sk):
     """fused_substep vs its plain version: the main path's shapes after 3
     steps at K = 256 and 128, the initial uniform spawn, tables without
-    restitution, a golden scene.  Returns (the phase's line, worst error)."""
+    restitution, a golden scene; and the single-substep kernel on the first
+    substep of the K = 256 state.  Returns (the phase's line, the worst
+    error of each kernel)."""
     import numpy as np
     cases, worst = {}, 0.0
     for K in (256, 128):
@@ -519,6 +582,11 @@ def parity_substep(torch, rb, phys, sk):
         errs = substep_case(torch, sk, kern, kw)
         cases[f"main_K{K}"] = {"W": RB_WORLDS, "n": RB_BODIES + 1, "K": K,
                                "pairs": pair_kinds(torch, kw, kern.tables), "max_err": errs}
+        if K == 256:
+            single = sk.SubstepKernel(rb.RigidBenchWorld.objmgr, relaxation=0.7)
+            kw1 = phys.RigidBodyPhysicsSystem.substep_kernel_inputs(kw)
+            cases["single_substep_main_K256"] = {
+                "kernel": "substep", "max_err": substep1_case(torch, sk, single, kw1)}
         del sim
     kern = sk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
     cases["initial_spawn"] = {"pairs": pair_kinds(torch, spawn, kern.tables),
@@ -535,9 +603,11 @@ def parity_substep(torch, rb, phys, sk):
     cases["golden_cube_stack_ss1"] = {"pairs": int(gkw["kvalid"].sum()),
                                       "max_err": substep_case(torch, sk, gkern, gkw)}
     for c in cases.values():
-        worst = max(worst, max(c["max_err"].values()))
+        if "kernel" not in c:
+            worst = max(worst, max(c["max_err"].values()))
+    worst1 = max(cases["single_substep_main_K256"]["max_err"].values())
     return {"phase": "parity_substep", "cases": cases, "repeat": "bit-identical (kernel and plain)",
-            "atol": {"pose_and_stashes": 1e-4, "velocities": 1e-3}}, worst
+            "atol": {"pose_and_stashes": 1e-4, "velocities": 1e-3}}, worst, worst1
 
 
 def load_physics_golden(np, name):
@@ -697,6 +767,195 @@ def main_rigid(torch, rb, phys, mode, K, steps, count, card, reset_counts, read_
                  "env_steps_per_s": rates(steps, wins, RB_WORLDS), "card": card}
 
 
+# -- the batch renderer: the render kernel ------------------------------------
+
+# bench_render.py:19-22's defaults, with the reference's 100 objects
+STG_WORLDS, STG_OBJECTS, STG_RES = 1024, 100, 64
+RENDER_INPUTS = ("ro", "rd", "pos", "rot", "scale", "obj", "mask")
+# fp32 operations of the render kernel (each add, sub, mul, div, sqrt, min,
+# max and abs; compares and selects not counted), counted from
+# csrc/render_kernels.cu: a ray against an instance by its test, and a
+# pixel's ray, shading and store
+OPS_RENDER = {"sphere": 25, "plane": 45, "hull": 75, "hull_face": 14, "mesh": 115,
+              "mesh_tri": 47}
+OPS_PIXEL = 30
+# bytes a call moves: each ray read (6 floats), each instance read (12),
+# each output written (5)
+BYTES_RAY, BYTES_INST, BYTES_OUT = 24, 48, 20
+# the kernel's widening of each bounding sphere (csrc/render_kernels.cu
+# kCullRel, kCullAbs)
+CULL_REL, CULL_ABS = 1e-3, 1e-3
+
+
+def render_case(torch, rkm, k, rays, inst, img_w):
+    """Kernel (twice) against plain on one input: its line, or raises."""
+    kw = dict(tables=k.tables, light=k.light, ambient=k.ambient)
+    got, again = rkm.render(rays, inst, img_w=img_w, **kw), rkm.render(rays, inst, img_w=img_w, **kw)
+    want = rkm.render_plain(rays, inst, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "render output finite")
+    check(torch.equal(got[:, rkm.O_HIT], want[:, rkm.O_HIT]), "render hit mask vs plain")
+    check(torch.equal(got, again), "render: a repeated launch differs")
+    err = max_err(got, want)
+    check(err <= 1e-5, f"render vs plain err {err}")
+    return {"W": rays.shape[0], "P": rays.shape[2], "N": inst.shape[2], "img_w": img_w,
+            "hits": int(want[:, rkm.O_HIT].sum()), "max_err": err}
+
+
+def stg_sim(stg, worlds, backend="auto"):
+    """A simple_taskgraph executor on the card after 3 steps."""
+    sim = stg.make_executor(stg.SimpleTaskgraphConfig(
+        num_worlds=worlds, num_objects=STG_OBJECTS, render=True, render_width=STG_RES,
+        render_height=STG_RES, render_backend=backend), device="cuda")
+    sim.run(3)
+    return sim
+
+
+def parity_render(torch, rkm, stg, dev, xla_worlds=64):
+    """The render kernel against its plain version (the four scenes, the main
+    state), and the kernel route against the "xla" route at 64 worlds.
+    Returns (the phase's line, the worst kernel-vs-plain error)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_render_scenes as scenes
+    cases = {}
+    for name, make in scenes.SCENES.items():
+        sc = make()
+        k = rkm.RenderKernel(sc["om"], sc["albedo"], scenes.LIGHT_DIR, scenes.AMBIENT,
+                             mesh_tables=sc["mesh_tables"])
+        rays, inst = k.pack(*(torch.from_numpy(sc[key]).to(dev) for key in RENDER_INPUTS))
+        cases[name] = render_case(torch, rkm, k, rays, inst, sc["img_w"])
+    sim = stg_sim(stg, STG_WORLDS)
+    rend = sim.world_cls.renderer()
+    rays, inst = rend.kernel_inputs(sim.state["user"]["render"], [stg.Sphere])
+    cases["main_state"] = render_case(torch, rkm, rend._kernel, rays, inst, STG_RES)
+    del sim, rays, inst
+    worst = max(c["max_err"] for c in cases.values())
+    # the kernel route against the batched "xla" route, same physics
+    a, b = stg_sim(stg, xla_worlds), stg_sim(stg, xla_worlds, backend="xla")
+    check(torch.equal(a.get_exported(2)[0], b.get_exported(2)[0]), "xla run: same physics")
+    da, db = a.depth_observations(), b.depth_observations()
+    ha, hb = torch.isfinite(da), torch.isfinite(db)
+    both = ha & hb
+    diff = int((ha != hb).sum())
+    rgb_d = int((a.rgb_observations().int() - b.rgb_observations().int()).abs()[both].max())
+    depth_ok = bool(torch.allclose(da[both], db[both], rtol=1e-4, atol=1e-3))
+    check(diff <= ha.numel() * 1e-5, f"kernel vs xla: {diff} hit pixels differ")
+    check(depth_ok and rgb_d <= 1, f"kernel vs xla: depth {depth_ok}, rgb {rgb_d}")
+    return {"phase": "parity_render", "cases": cases,
+            "kernel_vs_xla": {"worlds": xla_worlds, "pixels": ha.numel(), "hits": int(ha.sum()),
+                                        "hit_pixels_differing": diff,
+                                        "depth_max_err": max_err(da[both], db[both]),
+                                        "rgba8_max_diff": rgb_d},
+            "repeat": "bit-identical",
+            "atol": {"kernel_vs_plain": 1e-5, "hit": "exact",
+                     "kernel_vs_xla": "hit 1 in 1e5, depth rtol 1e-4 atol 1e-3, rgba8 1"}}, worst
+
+
+def render_work(torch, rkm, tables, rays, inst):
+    """The operations this call's data needs of the render kernel, and what
+    they were counted from: the (pixel, live instance) pairs whose bounding
+    sphere (the kernel's r_bound times the largest scale) the pixel's own
+    ray meets, by the instance's test (planes: every pixel), and the rays."""
+    W, _, P = rays.shape
+    N = inst.shape[2]
+    tab = tables.kernel_table(rays.device)
+    pairs = dict.fromkeys(("sphere", "hull", "plane", "mesh"), 0)
+    live_rays = 0
+    step = max(1, (1 << 24) // (P * N))
+    for w0 in range(0, W, step):
+        r, i = rays[w0:w0 + step], inst[w0:w0 + step]
+        ro = r[:, 0:3].transpose(1, 2)[:, :, None, :]                  # [w, P, 1, 3]
+        rd = r[:, 3:6].transpose(1, 2)[:, :, None, :]
+        real = (rd * rd).sum(-1) >= 0.5                                # [w, P, 1]
+        row = tab[i[:, rkm.I_OBJ].long().clamp(0, tables.O - 1)]       # [w, N, S]
+        rb = row[..., rkm.K_RBOUND] * i[:, rkm.I_SCALE:rkm.I_SCALE + 3].amax(1)
+        oc = i[:, None, 0:3].transpose(2, 3) - ro                      # [w, P, N, 3]
+        tca = (oc * rd).sum(-1)
+        oc2 = (oc * oc).sum(-1)
+        rr = (rb * rb)[:, None]
+        meets = (oc2 - tca * tca <= rr) & ((tca >= 0) | (oc2 <= rr))
+        mesh = (row[..., rkm.K_MESH] > 0.5) & (tables.T_used > 0)
+        prim = row[..., rkm.K_PRIM]
+        ok = real & (i[:, None, rkm.I_MASK] > 0.5)
+        for kind, sel in (("mesh", mesh), ("sphere", ~mesh & (prim == 0)),
+                          ("hull", ~mesh & (prim == 1)), ("plane", ~mesh & (prim == 2))):
+            m = ok & sel[:, None]
+            pairs[kind] += int((m if kind == "plane" else m & meets).sum())
+        live_rays += int(real.sum())
+    cost = {"sphere": OPS_RENDER["sphere"], "plane": OPS_RENDER["plane"],
+            "hull": OPS_RENDER["hull"] + OPS_RENDER["hull_face"] * tables.F_used,
+            "mesh": OPS_RENDER["mesh"] + OPS_RENDER["mesh_tri"] * tables.T_used}
+    ops = sum(pairs[k] * cost[k] for k in pairs) + live_rays * OPS_PIXEL
+    nbytes = W * (P * (BYTES_RAY + BYTES_OUT) + N * BYTES_INST)
+    return ops, nbytes, pairs, live_rays
+
+
+def render_survivors(torch, rkm, tables, rays, inst, img_w):
+    """The instances the kernel's cull keeps per 16 x 8 tile (its formula,
+    recomputed in PyTorch): mean and max over the tiles, and the live
+    instances."""
+    W, _, P = rays.shape
+    rows = P // img_w
+    check(rows * img_w == P and rows % 8 == 0 and img_w % 16 == 0, "survivors: 16 x 8 tiles")
+    r = rays.reshape(W, 6, rows // 8, 8, img_w // 16, 16).permute(0, 2, 4, 1, 3, 5)
+    r = r.reshape(W, -1, 6, 128)
+    ro, rd = r[:, :, 0:3], r[:, :, 3:6]                                # [W, T, 3, 128]
+    real = ((rd * rd).sum(2) >= 0.5).float()
+    ax = (rd * real[:, :, None]).sum(-1)                               # [W, T, 3]
+    ax = ax / torch.sqrt(torch.clamp((ax * ax).sum(-1, keepdim=True), min=1e-9))
+    ro_mean = (ro * real[:, :, None]).sum(-1) / torch.clamp(real.sum(-1), min=1.0)[..., None]
+    cos_m = torch.where(real > 0, (rd * ax[..., None]).sum(2), 1.0).amin(-1).clamp(-1.0, 1.0)
+    sin_m = torch.sqrt(torch.clamp(1.0 - cos_m * cos_m, min=0.0))[..., None]
+    spread = torch.sqrt(torch.where(real > 0, ((ro - ro_mean[..., None]) ** 2).sum(2),
+                                    0.0).amax(-1))
+    row = tables.kernel_table(rays.device)[inst[:, rkm.I_OBJ].long().clamp(0, tables.O - 1)]
+    rb = row[..., rkm.K_RBOUND] * inst[:, rkm.I_SCALE:rkm.I_SCALE + 3].amax(1)   # [W, N]
+    r_eff = (rb[:, None] + spread[..., None]) * (1.0 + CULL_REL) + CULL_ABS      # [W, T, N]
+    d = inst[:, None, 0:3] - ro_mean[..., None]                                  # [W, T, 3, N]
+    dist = torch.sqrt(torch.clamp((d * d).sum(2), min=1e-9))
+    cos_ad = (d * ax[..., None]).sum(2) / dist
+    sin_b = (r_eff / dist).clamp(0.0, 1.0)
+    cos_b = torch.sqrt(torch.clamp(1.0 - sin_b * sin_b, min=0.0))
+    cos_m = cos_m[..., None]
+    keep = ((cos_m <= -cos_b) | (cos_ad >= cos_m * cos_b - sin_m * sin_b) | (dist <= r_eff)
+            | (row[..., rkm.K_PRIM] == 2)[:, None])
+    live = inst[:, rkm.I_MASK] > 0.5
+    n = (keep & live[:, None]).sum(-1).double()
+    return {"mean": float(n.mean()), "max": int(n.max()), "tiles_per_world": n.shape[1],
+            "live_instances_per_world": float(live.sum(1).double().mean())}
+
+
+def main_simple_taskgraph(torch, stg, steps, count, card, reset_counts, read_counts):
+    """simple_taskgraph at 1024 x 100 with 64 x 64 rendering: 3 warm-up
+    steps, then ``count`` windows of ``steps`` steps; one launch each of
+    the single-substep kernel a substep and of the render kernel a step and
+    no other kernel, finite positions, finite depth on every hit and alpha
+    255 exactly where the depth is finite."""
+    sim = stg_sim(stg, STG_WORLDS)
+    sim.block_until_ready()
+    reset_counts()
+    wins = windows(sim, steps, count)
+    launches = read_counts()
+    want = {name: 0 for name in launches}
+    want["substep"] = 4 * steps * count
+    want["render"] = steps * count
+    check(launches == want, f"simple_taskgraph launches {launches}")
+    pos, mask = sim.get_exported(2)
+    check(bool(torch.isfinite(pos[mask]).all()), "finite positions (simple_taskgraph)")
+    rgb, depth = sim.rgb_observations(), sim.depth_observations()
+    check(tuple(rgb.shape) == (STG_WORLDS, 1, STG_RES, STG_RES, 4) and rgb.dtype == torch.uint8,
+          "simple_taskgraph rgb shape")
+    hit = rgb[..., 3] == 255
+    check(bool(((rgb[..., 3] == 0) | hit).all()), "alpha is 0 or 255")
+    check(torch.equal(hit, torch.isfinite(depth)), "alpha 255 exactly where depth is finite")
+    check(bool(hit.any()) and bool((depth[hit] > 0).all()), "positive depth on the hits")
+    overflow = {k: int(v.sum()) for k, v in sim.overflow_counters().items()}
+    return sim, {"worlds": STG_WORLDS, "objects": STG_OBJECTS, "resolution": STG_RES,
+                 "substeps": 4, "launches": launches, "hit_share": float(hit.double().mean()),
+                 "overflow_sum": overflow,
+                 "env_steps_per_s": rates(steps, wins, STG_WORLDS), "card": card}
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -712,8 +971,10 @@ def main(argv):
     from gpu_ecs_madrona_tpu_torch.models import fantasy_vs as fvs
     from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
     from gpu_ecs_madrona_tpu_torch.models import simple_jobs as sj
+    from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
     from gpu_ecs_madrona_tpu_torch.ops import _build
     from gpu_ecs_madrona_tpu_torch.ops import collision_kernel as ck
+    from gpu_ecs_madrona_tpu_torch.ops import render_kernel as rkm
     from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
     from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
     from gpu_ecs_madrona_tpu_torch.utils import math as m
@@ -724,7 +985,9 @@ def main(argv):
     wrappers = {"fused_collisions_step": ck.fused_collisions_step,
                 "collision_pushes": ck.collision_pushes,
                 "fused_simple_jobs_step": sk.fused_simple_jobs_step,
-                "fused_substep": subk.FusedSubstepKernel}
+                "fused_substep": subk.FusedSubstepKernel,
+                "substep": subk.SubstepKernel,
+                "render": rkm.RenderKernel}
 
     def reset_counts():
         for w in wrappers.values():
@@ -822,9 +1085,13 @@ def main(argv):
     emit(golden_fvs(torch, fvs))
 
     # the fused substep kernel vs plain, and the physics goldens on the card
-    line, err_substep = parity_substep(torch, rb, phys, subk)
+    line, err_substep, err_substep1 = parity_substep(torch, rb, phys, subk)
     emit(line)
     emit(golden_physics(torch, phys, subk))
+
+    # the render kernel vs plain, and the kernel route vs the "xla" route
+    line, err_render = parity_render(torch, rkm, stg, dev)
+    emit(line)
 
     # collisions, fused=True (kernel 1) ----------------------------------------
     sim.run(3)
@@ -833,7 +1100,8 @@ def main(argv):
     fused_windows = windows(sim, 200, 5)
     fused_launches = read_counts()
     check(fused_launches == {"fused_collisions_step": 1000, "collision_pushes": 0,
-                             "fused_simple_jobs_step": 0, "fused_substep": 0},
+                             "fused_simple_jobs_step": 0, "fused_substep": 0,
+                             "substep": 0, "render": 0},
           f"fused main path launches {fused_launches}")
     fpos, fmask = sim.get_exported(0)
     check(bool(torch.isfinite(fpos[fmask]).all()), "finite positions (fused)")
@@ -852,7 +1120,8 @@ def main(argv):
     uwindows = windows(usim, 50, 1)
     unfused_launches = read_counts()
     check(unfused_launches == {"fused_collisions_step": 0, "collision_pushes": 50,
-                               "fused_simple_jobs_step": 0, "fused_substep": 0},
+                               "fused_simple_jobs_step": 0, "fused_substep": 0,
+                               "substep": 0, "render": 0},
           f"unfused main path launches {unfused_launches}")
     upos, umask = usim.get_exported(0)
     check(bool(torch.isfinite(upos[umask]).all()), "finite positions (unfused)")
@@ -874,7 +1143,8 @@ def main(argv):
     sj_windows = windows(sjsim, 200, 5)
     sj_launches = read_counts()
     check(sj_launches == {"fused_collisions_step": 0, "collision_pushes": 0,
-                          "fused_simple_jobs_step": 1000, "fused_substep": 0},
+                          "fused_simple_jobs_step": 1000, "fused_substep": 0,
+                          "substep": 0, "render": 0},
           f"simple_jobs main path launches {sj_launches}")
     user = sjsim.state["user"]
     check(bool(torch.isfinite(user["translation"]).all()), "finite positions (simple_jobs)")
@@ -946,6 +1216,11 @@ def main(argv):
     rpairs, line = main_rigid(torch, rb, phys, "pairs", 256, 10, 1, smi, *counts)
     emit({"phase": "main_rigid_pairs", **line})
 
+    # simple_taskgraph, 1024 x 100, 64 x 64 RGB and depth -------------------------
+    ssim, line = main_simple_taskgraph(torch, stg, 50, 5, smi, *counts)
+    stg_launches = line["launches"]
+    emit({"phase": "main_simple_taskgraph", **line})
+
     # kernel times at the main paths' shapes ------------------------------------
     fpos = sim.mgr.column(sim.state, col.CubeObject, col.Translation)
     frot = sim.mgr.column(sim.state, col.CubeObject, col.Rotation)
@@ -1005,6 +1280,54 @@ def main(argv):
                     "work_over_substeps": work,
                     "pairs_per_world_max": int(rows.max())}
 
+    # the single-substep kernel at the simple_taskgraph main path's state:
+    # its first substep, with its parity there
+    kw1 = phys.RigidBodyPhysicsSystem.substep_kernel_inputs(
+        phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(ssim, stg.Sphere, stg.OBJMGR))
+    kern1 = subk.SubstepKernel(stg.OBJMGR, relaxation=0.7)
+    err_stg1 = substep1_case(torch, subk, kern1, kw1)
+    err_substep1 = max(err_substep1, max(err_stg1.values()))
+    ops1, kinds1, work1 = substep_work(torch, subk, kern1, kw1)
+    b1_ms, b1_by = substep_bound(kw1, ops1, single=True)
+    sub1_t = {"ms": cuda_ms(torch, lambda: kern1(**kw1), 200),
+              "plain_ms": cuda_ms(torch, lambda: subk.substep_plain(
+                  **kw1, tables=kern1.tables, relaxation=0.7), 3, warmup=1),
+              "bound_ms": b1_ms, "bound_by": b1_by, "ops": ops1, "pairs_by_kind": kinds1,
+              "work": work1, "max_err_vs_plain": err_stg1,
+              "W": kw1["im"].shape[0], "n": kw1["im"].shape[1], "K": kw1["rows_i"].shape[1],
+              "pairs_per_world_max": int(kw1["kvalid"].sum(1).max())}
+
+    # the render kernel at the simple_taskgraph main path's state
+    rend = ssim.world_cls.renderer()
+    rk_ = rend._kernel
+    rrays, rinst = rend.kernel_inputs(ssim.state["user"]["render"], [stg.Sphere])
+    rkw = dict(tables=rk_.tables, light=rk_.light, ambient=rk_.ambient)
+    r_ops, r_bytes, r_pairs, r_rays = render_work(torch, rkm, rk_.tables, rrays, rinst)
+    r_bound, r_by = bound(r_bytes, r_ops)
+    render_t = {"ms": cuda_ms(torch, lambda: rkm.render(rrays, rinst, img_w=STG_RES, **rkw), 200),
+                "plain_ms": cuda_ms(torch, lambda: rkm.render_plain(rrays, rinst, **rkw), 3,
+                                    warmup=1),
+                "bound_ms": r_bound, "bound_by": r_by, "ops": r_ops, "bytes": r_bytes,
+                "pairs_meeting_bounds": r_pairs, "live_rays": r_rays,
+                "survivors_per_tile": render_survivors(torch, rkm, rk_.tables, rrays, rinst,
+                                                       STG_RES),
+                "W": rrays.shape[0], "P": rrays.shape[2], "N": rinst.shape[2]}
+    # a simple_taskgraph step by node group, device ms: the physics (clamp,
+    # broadphase, substeps, cleanup) and the rendering (pack, render)
+    from gpu_ecs_madrona_tpu_torch.core.context import Context
+    groups = {"physics": [], "render": []}
+    for node in ssim.graph.nodes:
+        groups["render" if node.name in ("render_pack", "batch_render") else "physics"].append(node)
+
+    def run_group(nodes):
+        ctx = Context(ssim.mgr, ssim.state)
+        for node in nodes:
+            node.run(ctx)
+
+    render_t["step_by_node_group_ms"] = {
+        name: cuda_ms(torch, lambda nodes=nodes: run_group(nodes), 20)
+        for name, nodes in groups.items()}
+
     emit({"phase": "timing", "fused_collisions_step": {
               "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
               "live_pairs": live, "overlapping_pairs": over},
@@ -1018,6 +1341,7 @@ def main(argv):
               "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
               "live_pairs": slive, "overlapping_pairs": sover},
           "fused_substep_K256": sub_t[256], "fused_substep_K128": sub_t[128],
+          "substep": sub1_t, "render": render_t,
           "library_ms": "none: no single PyTorch call computes any of these functions",
           "card": smi})
 
@@ -1025,7 +1349,8 @@ def main(argv):
         profile(torch, {"fused": sim, "unfused_pushes": usim, "simple_jobs_fused": sjsim,
                         "rigid_fused_k256": rsim, "rigid_fused_k128": r128,
                         "rigid_pairs": rpairs,
-                        "simple_jobs_rank": sjusim, "fantasy_vs": fsim})
+                        "simple_jobs_rank": sjusim, "fantasy_vs": fsim,
+                        "simple_taskgraph": ssim})
 
     csrc = "gpu_ecs_madrona_tpu_torch/csrc/"
     emit({"kernels": [
@@ -1053,6 +1378,17 @@ def main(argv):
          "bound_ms": sub_t[256]["bound_ms"], "bound_by": sub_t[256]["bound_by"],
          "library_ms": None,
          "K128": {k: sub_t[128][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        {"name": "substep", "route": "cuda", "source": csrc + "substep_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1165",
+         "launches": stg_launches["substep"], "launches_per_step": 4,
+         "max_abs_err": err_substep1, "ms": sub1_t["ms"], "plain_ms": sub1_t["plain_ms"],
+         "bound_ms": sub1_t["bound_ms"], "bound_by": sub1_t["bound_by"], "library_ms": None},
+        {"name": "render", "route": "cuda", "source": csrc + "render_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/render_kernel.py:501",
+         "launches": stg_launches["render"], "launches_per_step": 1,
+         "max_abs_err": err_render, "ms": render_t["ms"], "plain_ms": render_t["plain_ms"],
+         "bound_ms": render_t["bound_ms"], "bound_by": render_t["bound_by"],
+         "library_ms": None},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

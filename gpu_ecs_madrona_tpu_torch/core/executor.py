@@ -157,6 +157,18 @@ class TaskGraphExecutor:
         too-small capacity (e.g. max_pairs)."""
         return self._state["overflow"]
 
+    # -- observation accessors (reference rgbObservations/depthObservations,
+    # include/madrona/mw_render.hpp) ----------------------------------------
+
+    def rgb_observations(self):
+        """RGBA8 observations [W, views, H, Wpx, 4] uint8 (needs a
+        render.renderer.BatchRenderer node in the graph)."""
+        return self._state["user"]["render_out"]["rgb"]
+
+    def depth_observations(self):
+        """float32 depth observations [W, views, H, Wpx] (inf = miss)."""
+        return self._state["user"]["render_out"]["depth"]
+
     # -- checkpoint ---------------------------------------------------------
 
     def save_state(self) -> SimState:

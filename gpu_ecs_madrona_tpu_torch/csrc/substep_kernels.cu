@@ -28,6 +28,15 @@
 //   The outputs carry the last substep's stashes (prev pose, post-integrate
 //   pose and velocities).  Only all-box object tables are taken (the wrapper
 //   raises otherwise): the general-hull SAT waits.
+//
+// substep_kernel
+//   Replaces gpu_ecs_madrona_tpu/ops/substep_kernel.py: _run, the
+//   single-substep pallas_call (:1165) that worlds with joints take: steps
+//   2-9 above once, from the post-integrate pose and velocities and the
+//   substep start the caller passes (it integrates before the call and
+//   solves the joints after it, in PyTorch).  Outputs pose and velocities.
+//   Both kernels share the layout, the slot lists and steps 2-9
+//   (solve_substep), so they cannot drift apart.
 //   Work: at 8192 worlds x 65 rows x K = 256 slots a call moves
 //   W (65 x 237 B + K x 9 B + 20 B) ~ 145 MB (~0.043 ms at 3.35 TB/s): each
 //   body row's inputs and its pose, velocity and six stashes out.  The
@@ -806,18 +815,232 @@ size_t smem_bytes(int n, int K) {
          sizeof(int) * (5 * static_cast<size_t>(K) + n + 1);
 }
 
+// A world's shared memory, carved from the dynamic block (smem_bytes).
+struct Smem {
+  float *sb, *sst, *spk;
+  int *sri, *srj, *skv;
+  int* soff;   // n + 1: each body's first entry in slist
+  int* slist;  // 2 K: (slot << 1 | side) per body, A sides first
+};
+
+__device__ __forceinline__ Smem carve(float* smem, int n, int K) {
+  Smem s;
+  s.sb = smem;
+  s.sst = s.sb + kBodyCh * n;
+  s.spk = s.sst + kSlotCh * K;
+  s.sri = reinterpret_cast<int*>(s.spk + kPackCh * K);
+  s.srj = s.sri + K;
+  s.skv = s.srj + K;
+  s.soff = s.skv + K;
+  s.slist = s.soff + n + 1;
+  return s;
+}
+
+// Stages world wld's candidate slots and builds each body's list of its
+// pair sides, A sides in ascending slot order then B sides (the candidate
+// rows are fixed for the call): the segment sums walk these lists instead
+// of every slot.  Returns kc = 1 + the last valid slot: the slot loops stop
+// there (candidate slots are a validity prefix, so this skips the dead
+// tail).  Ends with a barrier.
+__device__ int load_slots(const Smem& s, const int* rows_i, const int* rows_j,
+                          const uint8_t* kvalid, int wld, int n, int K, int tid, int T) {
+  int *sri = s.sri, *srj = s.srj, *skv = s.skv, *soff = s.soff, *slist = s.slist;
+  __shared__ int s_kc;
+  if (tid == 0) s_kc = 0;
+  __syncthreads();
+  for (int k = tid; k < K; k += T) {
+    const size_t g = static_cast<size_t>(wld) * K + k;
+    sri[k] = min(max(rows_i[g], 0), n - 1);
+    srj[k] = min(max(rows_j[g], 0), n - 1);
+    skv[k] = kvalid[g] ? 1 : 0;
+    if (skv[k]) atomicMax(&s_kc, k + 1);
+  }
+  __syncthreads();
+  const int kc = s_kc;
+  for (int b = tid; b < n; b += T) {
+    int cnt = 0;
+    for (int k = 0; k < kc; ++k)
+      if (skv[k]) cnt += (sri[k] == b ? 1 : 0) + (srj[k] == b ? 1 : 0);
+    soff[b + 1] = cnt;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    soff[0] = 0;
+    for (int b = 0; b < n; ++b) soff[b + 1] += soff[b];
+  }
+  __syncthreads();
+  for (int b = tid; b < n; b += T) {
+    int e = soff[b];
+    for (int k = 0; k < kc; ++k)
+      if (skv[k] && sri[k] == b) slist[e++] = k << 1;
+    for (int k = 0; k < kc; ++k)
+      if (skv[k] && srj[k] == b) slist[e++] = (k << 1) | 1;
+  }
+  __syncthreads();
+  return kc;
+}
+
+// Steps 2-9 of a substep, from the post-integrate pose and velocities
+// (kIPos, kIRot, kIV, kIW) and the substep start (kPrevPos, kPrevRot):
+// leaves the new pose in kPos/kRot (dynamic rows only) and the velocities
+// in kV/kW (zero on the other rows).  Ends with a barrier.
+__device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int kc, float h1,
+                              float rest1, float relax, float spec, bool bounce, int tid,
+                              int T) {
+  float *sb = s.sb, *sst = s.sst, *spk = s.spk;
+  const int *sri = s.sri, *srj = s.srj, *skv = s.skv, *soff = s.soff, *slist = s.slist;
+
+  // (2-4) per slot: gather, pair_contacts, positional pass
+  for (int k = tid; k < kc; k += T) {
+    if (!skv[k]) continue;
+    Side S[2];
+    Body Bd[2];
+    const int rows[2] = {sri[k], srj[k]};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int b = rows[q];
+      Bd[q].pos = ld3(sb, kIPos, b, n);
+      Bd[q].rot = ld4(sb, kIRot, b, n);
+      Bd[q].obj = obj_of(sb, b, n);
+      S[q].pos = Bd[q].pos;
+      S[q].rot = Bd[q].rot;
+      S[q].prev_pos = ld3(sb, kPrevPos, b, n);
+      S[q].im = sb[kIm * n + b];
+      S[q].ii = ld3(sb, kIi, b, n);
+      S[q].mu = sb[kMuS * n + b];
+    }
+    Manifold c;
+    pair_contacts(Bd[0], Bd[1], tab, spec, c);
+    float pA[9], pB[9], lam[kPts];
+    positional_pass(S[0], S[1], c, relax, pA, pB, lam);
+    sst[kSOk * K + k] = c.ok ? 1.0f : 0.0f;
+    sst[(kSN + 0) * K + k] = c.n.x;
+    sst[(kSN + 1) * K + k] = c.n.y;
+    sst[(kSN + 2) * K + k] = c.n.z;
+#pragma unroll
+    for (int p = 0; p < kPts; ++p) {
+      sst[(kSP + 3 * p) * K + k] = c.p[p].x;
+      sst[(kSP + 3 * p + 1) * K + k] = c.p[p].y;
+      sst[(kSP + 3 * p + 2) * K + k] = c.p[p].z;
+      sst[(kSD + p) * K + k] = c.d[p];
+      sst[(kSLam + p) * K + k] = lam[p];
+    }
+#pragma unroll
+    for (int q = 0; q < 9; ++q) {
+      spk[q * K + k] = pA[q];
+      spk[(9 + q) * K + k] = pB[q];
+    }
+  }
+  __syncthreads();
+
+  // (5-6) segment sum (A sides, then B sides, ascending slots) and the
+  // pose update / velocity recovery
+  for (int b = tid; b < n; b += T) {
+    // A non-dynamic body (inverse mass and inertia zero) receives only
+    // zero contributions: its sum is skipped, with the same result.
+    float acc[9];
+#pragma unroll
+    for (int q = 0; q < 9; ++q) acc[q] = 0.0f;
+    if (sb[kDyn * n + b] > 0.5f)
+      for (int e = soff[b]; e < soff[b + 1]; ++e) {
+        const int k = slist[e] >> 1, side = slist[e] & 1;
+#pragma unroll
+        for (int q = 0; q < 9; ++q) acc[q] = acc[q] + spk[(9 * side + q) * K + k];
+      }
+    const V3 pos_i = ld3(sb, kIPos, b, n);
+    const Q4 rot_i = ld4(sb, kIRot, b, n);
+    const V3 pp = ld3(sb, kPrevPos, b, n);
+    const Q4 pr = ld4(sb, kPrevRot, b, n);
+    const V3 p2 = add(pos_i, mk(acc[0], acc[1], acc[2]));
+    const Q4 dq = qmul(Q4{0.0f, acc[3], acc[4], acc[5]}, rot_i);
+    const Q4 r2 = qnormalize(Q4{rot_i.w + 0.5f * dq.w, rot_i.x + 0.5f * dq.x,
+                                rot_i.y + 0.5f * dq.y, rot_i.z + 0.5f * dq.z});
+    const V3 v2 = mk((p2.x - pp.x - acc[6]) / h1, (p2.y - pp.y - acc[7]) / h1,
+                     (p2.z - pp.z - acc[8]) / h1);
+    const Q4 dqv = qmul(r2, Q4{pr.w, -pr.x, -pr.y, -pr.z});
+    const bool pos_w = dqv.w >= 0.0f;
+    const V3 w2 = mk(pos_w ? 2.0f * dqv.x / h1 : -2.0f * dqv.x / h1,
+                     pos_w ? 2.0f * dqv.y / h1 : -2.0f * dqv.y / h1,
+                     pos_w ? 2.0f * dqv.z / h1 : -2.0f * dqv.z / h1);
+    st3(sb, kP2, b, n, p2);
+    st4(sb, kR2, b, n, r2);
+    st3(sb, kV2, b, n, v2);
+    st3(sb, kW2, b, n, w2);
+  }
+  __syncthreads();
+
+  // (7-8) per slot: re-gather at the post-solve poses, velocity pass
+  for (int k = tid; k < kc; k += T) {
+    if (!skv[k]) continue;
+    Side S[2];
+    const int rows[2] = {sri[k], srj[k]};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int b = rows[q];
+      S[q].pos = ld3(sb, kP2, b, n);
+      S[q].rot = ld4(sb, kR2, b, n);
+      S[q].v = ld3(sb, kV2, b, n);
+      S[q].w = ld3(sb, kW2, b, n);
+      S[q].pv = ld3(sb, kIV, b, n);
+      S[q].pw = ld3(sb, kIW, b, n);
+      S[q].im = sb[kIm * n + b];
+      S[q].ii = ld3(sb, kIi, b, n);
+      S[q].mu = sb[kMuD * n + b];
+      S[q].rest = tab.rest(obj_of(sb, b, n));
+    }
+    Manifold c;
+    float lam[kPts];
+    c.ok = sst[kSOk * K + k] > 0.5f;
+    c.n = mk(sst[kSN * K + k], sst[(kSN + 1) * K + k], sst[(kSN + 2) * K + k]);
+#pragma unroll
+    for (int p = 0; p < kPts; ++p) {
+      c.p[p] = mk(sst[(kSP + 3 * p) * K + k], sst[(kSP + 3 * p + 1) * K + k],
+                  sst[(kSP + 3 * p + 2) * K + k]);
+      c.d[p] = sst[(kSD + p) * K + k];
+      lam[p] = sst[(kSLam + p) * K + k];
+    }
+    float pA[6], pB[6];
+    velocity_pass(S[0], S[1], c, lam, h1, rest1, bounce, spec, pA, pB);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      spk[q * K + k] = pA[q];
+      spk[(6 + q) * K + k] = pB[q];
+    }
+  }
+  __syncthreads();
+
+  // (9) segment sum; dynamic rows take the solve, the others keep their
+  // pose and get zero velocity
+  for (int b = tid; b < n; b += T) {
+    const bool dyn = sb[kDyn * n + b] > 0.5f;
+    float acc[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) acc[q] = 0.0f;
+    if (dyn)
+      for (int e = soff[b]; e < soff[b + 1]; ++e) {
+        const int k = slist[e] >> 1, side = slist[e] & 1;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) acc[q] = acc[q] + spk[(6 * side + q) * K + k];
+      }
+    const V3 v3 = add(ld3(sb, kV2, b, n), mk(acc[0], acc[1], acc[2]));
+    const V3 w3 = add(ld3(sb, kW2, b, n), mk(acc[3], acc[4], acc[5]));
+    const V3 zero = mk(0.0f, 0.0f, 0.0f);
+    if (dyn) {
+      st3(sb, kPos, b, n, ld3(sb, kP2, b, n));
+      st4(sb, kRot, b, n, ld4(sb, kR2, b, n));
+    }
+    st3(sb, kV, b, n, dyn ? v3 : zero);
+    st3(sb, kW, b, n, dyn ? w3 : zero);
+  }
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(kMaxThreads) fused_substep_kernel(Args a) {
   extern __shared__ float smem[];
   const int wld = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
   const int n = a.n, K = a.K;
-  float* sb = smem;
-  float* sst = sb + kBodyCh * n;
-  float* spk = sst + kSlotCh * K;
-  int* sri = reinterpret_cast<int*>(spk + kPackCh * K);
-  int* srj = sri + K;
-  int* skv = srj + K;
-  int* soff = skv + K;      // n + 1: each body's first entry in slist
-  int* slist = soff + n + 1;  // 2 K: (slot << 1 | side) per body, A sides first
+  const Smem s = carve(smem, n, K);
+  float* sb = s.sb;
   const size_t b0 = static_cast<size_t>(wld) * n;
 
   for (int b = tid; b < n; b += T) {
@@ -842,46 +1065,9 @@ __global__ void __launch_bounds__(kMaxThreads) fused_substep_kernel(Args a) {
     st3(sb, kIV, b, n, ld3(sb, kV, b, n));
     st3(sb, kIW, b, n, ld3(sb, kW, b, n));
   }
-  // kc = 1 + the last valid slot: the slot loops stop there (candidate
-  // slots are a validity prefix, so this skips the dead tail)
-  __shared__ int s_kc;
-  if (tid == 0) s_kc = 0;
-  __syncthreads();
-  for (int k = tid; k < K; k += T) {
-    const size_t g = static_cast<size_t>(wld) * K + k;
-    sri[k] = min(max(a.rows_i[g], 0), n - 1);
-    srj[k] = min(max(a.rows_j[g], 0), n - 1);
-    skv[k] = a.kvalid[g] ? 1 : 0;
-    if (skv[k]) atomicMax(&s_kc, k + 1);
-  }
+  const int kc = load_slots(s, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
   const float h1 = a.h[wld], rest1 = a.rest_thr[wld];
   const V3 grav = mk(a.gravity[3 * wld], a.gravity[3 * wld + 1], a.gravity[3 * wld + 2]);
-  __syncthreads();
-  const int kc = s_kc;
-
-  // Each body's pair sides, A sides in ascending slot order then B sides
-  // (the candidate rows are fixed for the step): the segment sums walk
-  // these lists instead of every slot.
-  for (int b = tid; b < n; b += T) {
-    int cnt = 0;
-    for (int k = 0; k < kc; ++k)
-      if (skv[k]) cnt += (sri[k] == b ? 1 : 0) + (srj[k] == b ? 1 : 0);
-    soff[b + 1] = cnt;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    soff[0] = 0;
-    for (int b = 0; b < n; ++b) soff[b + 1] += soff[b];
-  }
-  __syncthreads();
-  for (int b = tid; b < n; b += T) {
-    int e = soff[b];
-    for (int k = 0; k < kc; ++k)
-      if (skv[k] && sri[k] == b) slist[e++] = k << 1;
-    for (int k = 0; k < kc; ++k)
-      if (skv[k] && srj[k] == b) slist[e++] = (k << 1) | 1;
-  }
-  __syncthreads();
 
   for (int step = 0; step < a.num_substeps; ++step) {
     // (1) integrate (_integrate), stash the substep start
@@ -920,150 +1106,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_substep_kernel(Args a) {
       st3(sb, kIW, b, n, wn);
     }
     __syncthreads();
-
-    // (2-4) per slot: gather, pair_contacts, positional pass
-    for (int k = tid; k < kc; k += T) {
-      if (!skv[k]) continue;
-      Side S[2];
-      Body Bd[2];
-      const int rows[2] = {sri[k], srj[k]};
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const int b = rows[s];
-        Bd[s].pos = ld3(sb, kIPos, b, n);
-        Bd[s].rot = ld4(sb, kIRot, b, n);
-        Bd[s].obj = obj_of(sb, b, n);
-        S[s].pos = Bd[s].pos;
-        S[s].rot = Bd[s].rot;
-        S[s].prev_pos = ld3(sb, kPrevPos, b, n);
-        S[s].im = sb[kIm * n + b];
-        S[s].ii = ld3(sb, kIi, b, n);
-        S[s].mu = sb[kMuS * n + b];
-      }
-      Manifold c;
-      pair_contacts(Bd[0], Bd[1], a.tab, a.spec, c);
-      float pA[9], pB[9], lam[kPts];
-      positional_pass(S[0], S[1], c, a.relax, pA, pB, lam);
-      sst[kSOk * K + k] = c.ok ? 1.0f : 0.0f;
-      sst[(kSN + 0) * K + k] = c.n.x;
-      sst[(kSN + 1) * K + k] = c.n.y;
-      sst[(kSN + 2) * K + k] = c.n.z;
-#pragma unroll
-      for (int p = 0; p < kPts; ++p) {
-        sst[(kSP + 3 * p) * K + k] = c.p[p].x;
-        sst[(kSP + 3 * p + 1) * K + k] = c.p[p].y;
-        sst[(kSP + 3 * p + 2) * K + k] = c.p[p].z;
-        sst[(kSD + p) * K + k] = c.d[p];
-        sst[(kSLam + p) * K + k] = lam[p];
-      }
-#pragma unroll
-      for (int q = 0; q < 9; ++q) {
-        spk[q * K + k] = pA[q];
-        spk[(9 + q) * K + k] = pB[q];
-      }
-    }
-    __syncthreads();
-
-    // (5-6) segment sum (A sides, then B sides, ascending slots) and the
-    // pose update / velocity recovery
-    for (int b = tid; b < n; b += T) {
-      // A non-dynamic body (inverse mass and inertia zero) receives only
-      // zero contributions: its sum is skipped, with the same result.
-      float acc[9];
-#pragma unroll
-      for (int q = 0; q < 9; ++q) acc[q] = 0.0f;
-      if (sb[kDyn * n + b] > 0.5f)
-        for (int e = soff[b]; e < soff[b + 1]; ++e) {
-          const int k = slist[e] >> 1, side = slist[e] & 1;
-#pragma unroll
-          for (int q = 0; q < 9; ++q) acc[q] = acc[q] + spk[(9 * side + q) * K + k];
-        }
-      const V3 pos_i = ld3(sb, kIPos, b, n);
-      const Q4 rot_i = ld4(sb, kIRot, b, n);
-      const V3 pp = ld3(sb, kPrevPos, b, n);
-      const Q4 pr = ld4(sb, kPrevRot, b, n);
-      const V3 p2 = add(pos_i, mk(acc[0], acc[1], acc[2]));
-      const Q4 dq = qmul(Q4{0.0f, acc[3], acc[4], acc[5]}, rot_i);
-      const Q4 r2 = qnormalize(Q4{rot_i.w + 0.5f * dq.w, rot_i.x + 0.5f * dq.x,
-                                  rot_i.y + 0.5f * dq.y, rot_i.z + 0.5f * dq.z});
-      const V3 v2 = mk((p2.x - pp.x - acc[6]) / h1, (p2.y - pp.y - acc[7]) / h1,
-                       (p2.z - pp.z - acc[8]) / h1);
-      const Q4 dqv = qmul(r2, Q4{pr.w, -pr.x, -pr.y, -pr.z});
-      const bool pos_w = dqv.w >= 0.0f;
-      const V3 w2 = mk(pos_w ? 2.0f * dqv.x / h1 : -2.0f * dqv.x / h1,
-                       pos_w ? 2.0f * dqv.y / h1 : -2.0f * dqv.y / h1,
-                       pos_w ? 2.0f * dqv.z / h1 : -2.0f * dqv.z / h1);
-      st3(sb, kP2, b, n, p2);
-      st4(sb, kR2, b, n, r2);
-      st3(sb, kV2, b, n, v2);
-      st3(sb, kW2, b, n, w2);
-    }
-    __syncthreads();
-
-    // (7-8) per slot: re-gather at the post-solve poses, velocity pass
-    for (int k = tid; k < kc; k += T) {
-      if (!skv[k]) continue;
-      Side S[2];
-      const int rows[2] = {sri[k], srj[k]};
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const int b = rows[s];
-        S[s].pos = ld3(sb, kP2, b, n);
-        S[s].rot = ld4(sb, kR2, b, n);
-        S[s].v = ld3(sb, kV2, b, n);
-        S[s].w = ld3(sb, kW2, b, n);
-        S[s].pv = ld3(sb, kIV, b, n);
-        S[s].pw = ld3(sb, kIW, b, n);
-        S[s].im = sb[kIm * n + b];
-        S[s].ii = ld3(sb, kIi, b, n);
-        S[s].mu = sb[kMuD * n + b];
-        S[s].rest = a.tab.rest(obj_of(sb, b, n));
-      }
-      Manifold c;
-      float lam[kPts];
-      c.ok = sst[kSOk * K + k] > 0.5f;
-      c.n = mk(sst[kSN * K + k], sst[(kSN + 1) * K + k], sst[(kSN + 2) * K + k]);
-#pragma unroll
-      for (int p = 0; p < kPts; ++p) {
-        c.p[p] = mk(sst[(kSP + 3 * p) * K + k], sst[(kSP + 3 * p + 1) * K + k],
-                    sst[(kSP + 3 * p + 2) * K + k]);
-        c.d[p] = sst[(kSD + p) * K + k];
-        lam[p] = sst[(kSLam + p) * K + k];
-      }
-      float pA[6], pB[6];
-      velocity_pass(S[0], S[1], c, lam, h1, rest1, a.bounce != 0, a.spec, pA, pB);
-#pragma unroll
-      for (int q = 0; q < 6; ++q) {
-        spk[q * K + k] = pA[q];
-        spk[(6 + q) * K + k] = pB[q];
-      }
-    }
-    __syncthreads();
-
-    // (9) segment sum; dynamic rows take the solve, the others keep their
-    // pose and get zero velocity
-    for (int b = tid; b < n; b += T) {
-      const bool dyn = sb[kDyn * n + b] > 0.5f;
-      float acc[6];
-#pragma unroll
-      for (int q = 0; q < 6; ++q) acc[q] = 0.0f;
-      if (dyn)
-        for (int e = soff[b]; e < soff[b + 1]; ++e) {
-          const int k = slist[e] >> 1, side = slist[e] & 1;
-#pragma unroll
-          for (int q = 0; q < 6; ++q) acc[q] = acc[q] + spk[(6 * side + q) * K + k];
-        }
-      const V3 v3 = add(ld3(sb, kV2, b, n), mk(acc[0], acc[1], acc[2]));
-      const V3 w3 = add(ld3(sb, kW2, b, n), mk(acc[3], acc[4], acc[5]));
-      const V3 zero = mk(0.0f, 0.0f, 0.0f);
-      if (dyn) {
-        st3(sb, kPos, b, n, ld3(sb, kP2, b, n));
-        st4(sb, kRot, b, n, ld4(sb, kR2, b, n));
-      }
-      st3(sb, kV, b, n, dyn ? v3 : zero);
-      st3(sb, kW, b, n, dyn ? w3 : zero);
-    }
-    __syncthreads();
+    // (2-9)
+    solve_substep(s, a.tab, n, K, kc, h1, rest1, a.relax, a.spec, a.bounce != 0, tid, T);
   }
 
   for (int b = tid; b < n; b += T) {
@@ -1085,6 +1129,84 @@ __global__ void __launch_bounds__(kMaxThreads) fused_substep_kernel(Args a) {
   }
 }
 
+struct Args1 {
+  const float *pos, *rot, *v, *w, *prev_pos, *prev_rot, *im, *ii, *mu_s, *mu_d;
+  const int* obj;
+  const uint8_t* dyn;
+  const float *h, *rest_thr;
+  const int *rows_i, *rows_j;
+  const uint8_t* kvalid;
+  Table tab;
+  int n, K, bounce;
+  float relax, spec;
+  float *o_pos, *o_rot, *o_v, *o_w;
+};
+
+// One substep (JAX _make_kernel): the caller integrated; its inputs are the
+// post-integrate pose and velocities and the substep start.
+__global__ void __launch_bounds__(kMaxThreads) substep_kernel(Args1 a) {
+  extern __shared__ float smem[];
+  const int wld = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
+  const int n = a.n, K = a.K;
+  const Smem s = carve(smem, n, K);
+  float* sb = s.sb;
+  const size_t b0 = static_cast<size_t>(wld) * n;
+
+  for (int b = tid; b < n; b += T) {
+    const size_t g = b0 + b;
+    for (int c = 0; c < 3; ++c) {
+      const float p = a.pos[3 * g + c], v = a.v[3 * g + c], w = a.w[3 * g + c];
+      sb[(kPos + c) * n + b] = p;
+      sb[(kIPos + c) * n + b] = p;
+      sb[(kV + c) * n + b] = v;
+      sb[(kIV + c) * n + b] = v;
+      sb[(kW + c) * n + b] = w;
+      sb[(kIW + c) * n + b] = w;
+      sb[(kPrevPos + c) * n + b] = a.prev_pos[3 * g + c];
+      sb[(kIi + c) * n + b] = a.ii[3 * g + c];
+    }
+    for (int c = 0; c < 4; ++c) {
+      sb[(kRot + c) * n + b] = a.rot[4 * g + c];
+      sb[(kIRot + c) * n + b] = a.rot[4 * g + c];
+      sb[(kPrevRot + c) * n + b] = a.prev_rot[4 * g + c];
+    }
+    sb[kIm * n + b] = a.im[g];
+    sb[kMuS * n + b] = a.mu_s[g];
+    sb[kMuD * n + b] = a.mu_d[g];
+    sb[kDyn * n + b] = a.dyn[g] ? 1.0f : 0.0f;
+    sb[kObj * n + b] = __int_as_float(a.obj[g]);
+  }
+  const int kc = load_slots(s, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
+  solve_substep(s, a.tab, n, K, kc, a.h[wld], a.rest_thr[wld], a.relax, a.spec, a.bounce != 0,
+                tid, T);
+
+  for (int b = tid; b < n; b += T) {
+    const size_t g = b0 + b;
+    for (int c = 0; c < 3; ++c) {
+      a.o_pos[3 * g + c] = sb[(kPos + c) * n + b];
+      a.o_v[3 * g + c] = sb[(kV + c) * n + b];
+      a.o_w[3 * g + c] = sb[(kW + c) * n + b];
+    }
+    for (int c = 0; c < 4; ++c) a.o_rot[4 * g + c] = sb[(kRot + c) * n + b];
+  }
+}
+
+// The shared memory and block size of either kernel for n bodies and K
+// slots; raises the kernel's dynamic shared-memory limit when needed.
+template <typename Kernel>
+cudaError_t launch_shape(Kernel kernel, int n, int K, size_t* smem, int* threads) {
+  *smem = smem_bytes(n, K);
+  if (*smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int widest = n > K ? n : K;
+  *threads = ((widest + 31) / 32) * 32;
+  if (*threads > kMaxThreads) *threads = kMaxThreads;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int fused_substep_launch(
@@ -1099,16 +1221,10 @@ extern "C" int fused_substep_launch(
   if (W <= 0) return static_cast<int>(cudaSuccess);
   if (n <= 0 || K <= 0 || num_substeps < 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(n, K);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_substep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int widest = n > K ? n : K;
-  int threads = ((widest + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
+  size_t smem;
+  int threads;
+  const cudaError_t err = launch_shape(fused_substep_kernel, n, K, &smem, &threads);
+  if (err != cudaSuccess) return static_cast<int>(err);
   Args a;
   a.pos = static_cast<const float*>(pos);
   a.rot = static_cast<const float*>(rot);
@@ -1146,5 +1262,51 @@ extern "C" int fused_substep_launch(
   a.o_ps_v = static_cast<float*>(o_ps_v);
   a.o_ps_w = static_cast<float*>(o_ps_w);
   fused_substep_kernel<<<W, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int substep_launch(
+    const void* pos, const void* rot, const void* v, const void* w, const void* prev_pos,
+    const void* prev_rot, const void* im, const void* ii, const void* mu_s, const void* mu_d,
+    const void* obj, const void* dyn, const void* h, const void* rest_thr, const void* rows_i,
+    const void* rows_j, const void* kvalid, const void* table, int num_objects, int vm, int W,
+    int n, int K, float relaxation, float speculative, int bounce, void* o_pos, void* o_rot,
+    void* o_v, void* o_w, void* stream) {
+  if (W <= 0) return static_cast<int>(cudaSuccess);
+  if (n <= 0 || K <= 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts)
+    return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem;
+  int threads;
+  const cudaError_t err = launch_shape(substep_kernel, n, K, &smem, &threads);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Args1 a;
+  a.pos = static_cast<const float*>(pos);
+  a.rot = static_cast<const float*>(rot);
+  a.v = static_cast<const float*>(v);
+  a.w = static_cast<const float*>(w);
+  a.prev_pos = static_cast<const float*>(prev_pos);
+  a.prev_rot = static_cast<const float*>(prev_rot);
+  a.im = static_cast<const float*>(im);
+  a.ii = static_cast<const float*>(ii);
+  a.mu_s = static_cast<const float*>(mu_s);
+  a.mu_d = static_cast<const float*>(mu_d);
+  a.obj = static_cast<const int*>(obj);
+  a.dyn = static_cast<const uint8_t*>(dyn);
+  a.h = static_cast<const float*>(h);
+  a.rest_thr = static_cast<const float*>(rest_thr);
+  a.rows_i = static_cast<const int*>(rows_i);
+  a.rows_j = static_cast<const int*>(rows_j);
+  a.kvalid = static_cast<const uint8_t*>(kvalid);
+  a.tab = Table{static_cast<const float*>(table), 7 + 3 * vm, vm};
+  a.n = n;
+  a.K = K;
+  a.bounce = bounce;
+  a.relax = relaxation;
+  a.spec = speculative;
+  a.o_pos = static_cast<float*>(o_pos);
+  a.o_rot = static_cast<float*>(o_rot);
+  a.o_v = static_cast<float*>(o_v);
+  a.o_w = static_cast<float*>(o_w);
+  substep_kernel<<<W, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,8 +57,7 @@ ContactConstraint = component(
 )
 
 # Joints (physics.hpp:200-243), union payload flattened; joint_type
-# 0=Fixed, 1=Hinge.  Registered for state parity; the port does not solve
-# joints yet (ROADMAP).
+# 0=Fixed, 1=Hinge; solved by solver.solve_joints.
 JointConstraint = component(
     "JointConstraint",
     e1=((), i32),

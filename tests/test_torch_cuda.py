@@ -6,10 +6,13 @@ runs on a machine with the card and no JAX:
 
 Each CUDA kernel is held against its plain PyTorch version on the card
 (lo/hi atol 1e-5, pushes and translations atol 1e-4, normals atol 1e-5,
-integer outputs exact; the fused substep kernel's poses and stashes atol
-1e-4, velocities atol 1e-3, and two launches on one input bit-identical),
-and the collisions, simple_jobs and rigid_bench slices on the card
-against the same slices on the CPU (plain versions), positions atol 1e-4.
+integer outputs exact; the fused and single-substep kernels' poses and
+stashes atol 1e-4, velocities atol 1e-3, and two launches on one input
+bit-identical;
+the render kernel's hit mask exact, depth and float rgb atol 1e-5, a
+repeat bit-identical), and the collisions, simple_jobs, rigid_bench and
+simple_taskgraph slices on the card against the same slices on the CPU
+(plain versions), positions atol 1e-4.
 """
 
 import numpy as np
@@ -20,7 +23,9 @@ from gpu_ecs_madrona_tpu_torch.interop import state_from_numpy, state_to_numpy
 from gpu_ecs_madrona_tpu_torch.models import collisions as col
 from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
 from gpu_ecs_madrona_tpu_torch.models import simple_jobs as sj
+from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
 from gpu_ecs_madrona_tpu_torch.ops import collision_kernel as ck
+from gpu_ecs_madrona_tpu_torch.ops import render_kernel as rk
 from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
 from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
 from gpu_ecs_madrona_tpu_torch.physics import RigidBodyPhysicsSystem
@@ -34,6 +39,8 @@ def card():
     ck.collision_pushes.launches = 0
     sk.fused_simple_jobs_step.launches = 0
     subk.FusedSubstepKernel.launches = 0
+    subk.SubstepKernel.launches = 0
+    rk.RenderKernel.launches = 0
     return torch.device("cuda")
 
 
@@ -238,6 +245,46 @@ def test_fused_substep_rejects_bad_input(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 1000])
+def test_substep_matches_plain(card, K):
+    """The single-substep kernel against its plain version at a mid-pile
+    state, and bit-identical when repeated."""
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=64, contact_mode="pallas",
+                                               max_candidates=K, spawn_xy=4.0, spawn_h=6.0,
+                                               seed=3), device="cuda")
+    sim.run(3)
+    a = RigidBodyPhysicsSystem.substep_kernel_inputs(fused_inputs(sim))
+    assert int(a["kvalid"].sum()) > 64
+    tables = subk.pk.ObjTables(rb.RigidBenchWorld.objmgr)
+    got, again = (subk.substep(**a, tables=tables, relaxation=0.7) for _ in range(2))
+    torch.cuda.synchronize()
+    assert subk.SubstepKernel.launches == 2
+    want = subk.substep_plain(**a, tables=tables, relaxation=0.7)
+    for k in subk.SUBSTEP_KEYS:
+        assert got[k].shape == want[k].shape and torch.isfinite(got[k]).all(), k
+        torch.testing.assert_close(got[k], want[k], rtol=0,
+                                   atol=1e-4 if k in POSE_KEYS else 1e-3, msg=k)
+        assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.cuda
+def test_substep_rejects_bad_input(card):
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=2, num_bodies=8, contact_mode="pallas"),
+                           device="cuda")
+    a = RigidBodyPhysicsSystem.substep_kernel_inputs(fused_inputs(sim))
+    args = dict(a, tables=subk.pk.ObjTables(rb.RigidBenchWorld.objmgr))
+    with pytest.raises(ValueError):
+        subk.substep(**dict(args, prev_rot=a["prev_rot"].double()))
+    with pytest.raises(ValueError):
+        subk.substep(**dict(args, kvalid=a["kvalid"].cpu()))
+    om = dict(rb.RigidBenchWorld.objmgr)
+    om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
+    with pytest.raises(NotImplementedError, match="general-hull"):
+        subk.substep(**dict(args, tables=subk.pk.ObjTables(om)))
+    assert subk.SubstepKernel.launches == 0
+
+
+@pytest.mark.cuda
 def test_rigid_bench_on_card_matches_cpu(card):
     """Two fused-mode steps on the card (the kernel) and on the CPU (its
     plain version) from the same state; one launch a step."""
@@ -291,3 +338,111 @@ def test_rigid_bench_step_waits_for_nothing(card):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert subk.FusedSubstepKernel.launches == 4
+
+
+RENDER_INPUTS = ("ro", "rd", "pos", "rot", "scale", "obj", "mask")
+
+
+def render_case(scene, dev):
+    """(RenderKernel, rays, inst) of a tests/test_torch_render_scenes.py scene."""
+    import test_torch_render_scenes as scenes
+    sc = scenes.SCENES[scene]()
+    k = rk.RenderKernel(sc["om"], sc["albedo"], scenes.LIGHT_DIR, scenes.AMBIENT,
+                        mesh_tables=sc["mesh_tables"])
+    rays, inst = k.pack(*(torch.from_numpy(sc[key]).to(dev) for key in RENDER_INPUTS))
+    return k, rays, inst, sc["img_w"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["pallas_scene", "two_views", "inside", "sphere_mesh"])
+def test_render_kernel_matches_plain(card, scene):
+    """The kernel against its plain version: hit exact, depth and float rgb
+    atol 1e-5, a repeated launch bit-identical (the inside scene's one
+    8 x 16 tile spans both of its views, so its cone wraps)."""
+    k, rays, inst, img_w = render_case(scene, card)
+    kw = dict(tables=k.tables, light=k.light, ambient=k.ambient, img_w=img_w)
+    got, again = rk.render(rays, inst, **kw), rk.render(rays, inst, **kw)
+    torch.cuda.synchronize()
+    assert rk.RenderKernel.launches == 2
+    want = rk.render_plain(rays, inst, tables=k.tables, light=k.light, ambient=k.ambient)
+    assert torch.equal(got[:, rk.O_HIT], want[:, rk.O_HIT]) and bool(want[:, rk.O_HIT].any())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_render_wrapper_rejects_bad_input_on_card(card):
+    k, rays, inst, img_w = render_case("pallas_scene", card)
+    kw = dict(tables=k.tables, light=k.light, ambient=k.ambient, img_w=img_w)
+    with pytest.raises(ValueError):
+        rk.render(rays.double(), inst, **kw)
+    with pytest.raises(ValueError):
+        rk.render(rays, inst.cpu(), **kw)
+    with pytest.raises(ValueError):
+        rk.render(rays.transpose(1, 2).contiguous().transpose(1, 2), inst, **kw)
+    big = torch.zeros((1, rk.C_INST, 5000), device=card)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        rk.render(rays[:1], big, **kw)
+    assert rk.RenderKernel.launches == 0
+
+
+STG = dict(num_worlds=4, num_objects=48, num_substeps=2, seed=5, render=True,
+           render_width=32, render_height=32)
+
+
+@pytest.mark.cuda
+def test_simple_taskgraph_on_card_matches_cpu(card):
+    """Three steps on the card (the single-substep and render kernels) and
+    on the CPU (their plain versions) from one state: poses atol 1e-4,
+    velocities 1e-3; one single-substep launch a substep and one render
+    launch a step; the card's observations equal the plain render of the
+    card's own state."""
+    cpu = stg.make_executor(stg.SimpleTaskgraphConfig(**STG), device="cpu")
+    gpu = stg.make_executor(stg.SimpleTaskgraphConfig(**STG), device="cuda")
+    gpu.state = state_from_numpy(state_to_numpy(cpu.state), card)
+    for _ in range(3):
+        cpu.step()
+        gpu.step()
+    torch.cuda.synchronize()
+    assert (subk.FusedSubstepKernel.launches, subk.SubstepKernel.launches,
+            rk.RenderKernel.launches) == (0, 3 * 2, 3)
+    a, b = state_to_numpy(cpu.state), state_to_numpy(gpu.state)
+    for comp, atol in (("Position", 1e-4), ("Rotation", 1e-4)):
+        np.testing.assert_allclose(b["arch"]["StgSphere"]["comps"][comp]["value"],
+                                   a["arch"]["StgSphere"]["comps"][comp]["value"],
+                                   atol=atol, rtol=0, err_msg=comp)
+    for key in ("linear", "angular"):
+        np.testing.assert_allclose(b["arch"]["StgSphere"]["comps"]["Velocity"][key],
+                                   a["arch"]["StgSphere"]["comps"]["Velocity"][key],
+                                   atol=1e-3, rtol=0, err_msg=key)
+    rend = gpu.world_cls.renderer()
+    rays, inst = rend.kernel_inputs(gpu.state["user"]["render"], [stg.Sphere])
+    k = rend._kernel
+    want = rk.render_plain(rays.cpu(), inst.cpu(), tables=k.tables, light=k.light,
+                           ambient=k.ambient)
+    depth = gpu.depth_observations().reshape(4, -1).cpu()
+    hit = want[:, rk.O_HIT, :32 * 32] > 0.5
+    assert torch.equal(torch.isfinite(depth), hit) and bool(hit.any())
+    torch.testing.assert_close(depth[hit], want[:, rk.O_DEPTH, :32 * 32][hit], atol=1e-5, rtol=0)
+    rgb = gpu.rgb_observations()
+    assert torch.equal(rgb[..., 3] == 255, torch.isfinite(gpu.depth_observations()))
+
+
+@pytest.mark.cuda
+def test_render_step_waits_for_nothing(card):
+    """A simple_taskgraph step with rendering queues its work and returns:
+    no operation in it makes the host wait for the card (after the first
+    step, which copies the object tables to the card)."""
+    sim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=16, num_objects=60,
+                                                      render=True), device="cuda")
+    sim.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            sim.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (subk.FusedSubstepKernel.launches, subk.SubstepKernel.launches,
+            rk.RenderKernel.launches) == (0, 4 * 4, 4)

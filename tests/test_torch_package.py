@@ -27,6 +27,10 @@ def test_import_loads_no_jax():
         import gpu_ecs_madrona_tpu_torch.models.simple_jobs
         import gpu_ecs_madrona_tpu_torch.models.fantasy_vs
         import gpu_ecs_madrona_tpu_torch.models.rigid_bench
+        import gpu_ecs_madrona_tpu_torch.models.simple_taskgraph
+        import gpu_ecs_madrona_tpu_torch.render.interop
+        import gpu_ecs_madrona_tpu_torch.render.renderer
+        import gpu_ecs_madrona_tpu_torch.ops.render_kernel
         import gpu_ecs_madrona_tpu_torch.physics
         import gpu_ecs_madrona_tpu_torch.physics.assets
         import gpu_ecs_madrona_tpu_torch.ops.substep_kernel

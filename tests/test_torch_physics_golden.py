@@ -28,7 +28,7 @@ from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExe
 from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
 from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
 from gpu_ecs_madrona_tpu_torch.physics import (
-    BODY_COMPONENTS, RigidBodyPhysicsSystem, assets, make_fixed_joint, raycast)
+    BODY_COMPONENTS, RigidBodyPhysicsSystem, assets)
 from gpu_ecs_madrona_tpu_torch.physics.components import (
     RESPONSE_DYNAMIC, RESPONSE_STATIC, ResponseType, Velocity)
 
@@ -162,29 +162,6 @@ def _bench(**kw):
                                     device="cpu")
 
 
-def _joint_world():
-    def build():
-        Body = Archetype("JBody", BODY_COMPONENTS)
-        om = rb.default_object_manager()
-
-        class World:
-            @staticmethod
-            def register_types(r):
-                RigidBodyPhysicsSystem.register_types(r, max_candidates=16, max_contacts=16)
-                r.register_archetype(Body, capacity=60)
-
-            @staticmethod
-            def init(ctx, init_data=None):
-                RigidBodyPhysicsSystem.init(ctx, delta_t=1 / 60, num_substeps=4)
-
-            @staticmethod
-            def setup_tasks(builder):
-                RigidBodyPhysicsSystem.setup_substep_tasks(builder, [], 4, Body, om,
-                                                           contact_mode="pairs")
-        TaskGraphExecutor(World, ExecutorConfig(num_worlds=1, device="cpu"))
-    return build
-
-
 NOT_PORTED = {
     "contact_mode=dense": _bench(contact_mode="dense"),
     "auto at 48 rows or fewer": _bench(contact_mode="auto"),
@@ -195,10 +172,6 @@ NOT_PORTED = {
     "contact_refresh": _bench(contact_mode="pallas", contact_refresh=True),
     "sleep": _bench(contact_mode="pallas", sleep_threshold=0.02),
     "manifold_persist": _bench(contact_mode="pallas", manifold_persist=True),
-    "joints": _joint_world(),
-    "make_fixed_joint": lambda: make_fixed_joint(None, None, None, None, None, None, None,
-                                                 None),
-    "raycast": lambda: raycast(None, None, None, None, None, None, None, None),
     "kernel bp_degree": lambda: sk.FusedSubstepKernel(rb.default_object_manager(), 4,
                                                       bp_degree=12),
 }

@@ -1,0 +1,160 @@
+"""Render-kernel test scenes, in numpy (no JAX; data only, no tests): shared by
+tests/test_torch_render_kernel.py (the port against the JAX kernel),
+tests/test_torch_cuda.py and chip_smoke.py (the CUDA kernel against its
+plain version).
+
+Each scene is a dict: the object manager ``om``, ``albedo``,
+``mesh_tables`` (or None), the pixel rays ``ro``/``rd`` [W, P, 3], the
+instance arrays ``pos``/``rot``/``scale``/``obj``/``mask`` [W, N, ...] and
+``img_w``, the rays' image width (the kernel's 2-D tiles).
+"""
+
+import numpy as np
+
+from gpu_ecs_madrona_tpu_torch.models.simple_taskgraph import _sphere_mesh
+from gpu_ecs_madrona_tpu_torch.physics import assets
+
+LIGHT_DIR = (0.3, 0.3, -1.0)
+AMBIENT = 0.2
+S2 = 1 / np.sqrt(2)
+
+
+def camera_rays(eye, quat, fov_degrees, res):
+    """The renderer's pinhole rays for one view: (ro, rd) [res * res, 3]
+    float32, row-major pixels."""
+    tanf = np.float32(np.tan(np.radians(fov_degrees) / 2))
+    ys = (np.arange(res, dtype=np.float32) + 0.5) / res * 2 - 1
+    px, py = np.meshgrid(ys, -ys)
+    d = np.stack([px * tanf, np.ones_like(px), py * tanf], -1).reshape(-1, 3)
+    w, u = np.float32(quat[0]), np.asarray(quat[1:], np.float32)
+    uv = np.cross(u, d)
+    d = d + 2.0 * (w * uv + np.cross(u, uv))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return np.broadcast_to(np.asarray(eye, np.float32), d.shape).copy(), d
+
+
+def _views(cams, res):
+    """cams: per world, a list of (eye, quat, fov) views -> ro, rd [W, P, 3]."""
+    ro, rd = [], []
+    for views in cams:
+        rays = [camera_rays(e, q, f, res) for e, q, f in views]
+        ro.append(np.concatenate([r[0] for r in rays]))
+        rd.append(np.concatenate([r[1] for r in rays]))
+    return np.stack(ro), np.stack(rd)
+
+
+def mesh_tables(num_objs, meshes, max_tris=128):
+    """The renderer's padded triangle tables for {object id: (verts, tris)}."""
+    ta = np.zeros((num_objs, max_tris, 3), np.float32)
+    te1, te2 = ta.copy(), ta.copy()
+    tm = np.zeros((num_objs, max_tris), bool)
+    hm = np.zeros(num_objs, bool)
+    for o, (v, t) in meshes.items():
+        a = v[t[:, 0]]
+        ta[o, :len(t)] = a
+        te1[o, :len(t)] = v[t[:, 1]] - a
+        te2[o, :len(t)] = v[t[:, 2]] - a
+        tm[o, :len(t)] = True
+        hm[o] = True
+    return {"has_mesh": hm, "tri_a": ta, "tri_e1": te1, "tri_e2": te2, "tri_mask": tm}
+
+
+def _box_sphere_plane():
+    loader = assets.PhysicsLoader(max_verts=8, max_faces=6, max_edges=3, max_face_verts=4,
+                                  max_full_edges=12)
+    loader.load_objects([assets.make_box((0.6, 0.4, 0.5)), assets.make_sphere(0.7),
+                         assets.make_plane()])
+    return loader.get_object_manager()
+
+
+ALBEDO3 = np.array([[0.9, 0.2, 0.1], [0.1, 0.8, 0.3], [0.5, 0.5, 0.5]], np.float32)
+
+
+def _pallas_instances(W):
+    """tests/test_render_pallas.py's instances (box, sphere, plane, a
+    rotated and scaled box) and two dead rows; world w shifted 0.3 w in x."""
+    pos = np.array([[0.0, 3.0, 0.6], [1.2, 4.0, 0.8], [0.0, 0.0, 0.0], [-1.1, 3.5, 0.5],
+                    [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]], np.float32)
+    pos = pos[None] + (np.arange(W, dtype=np.float32) * 0.3)[:, None, None] * \
+        np.array([1.0, 0.0, 0.0], np.float32)
+    rot = np.array([[1, 0, 0, 0], [1, 0, 0, 0], [1, 0, 0, 0], [S2, 0, 0, S2], [1, 0, 0, 0],
+                    [1, 0, 0, 0]], np.float32)
+    scale = np.array([[1, 1, 1], [1, 1, 1], [1, 1, 1], [1.5, 1.0, 0.8], [1, 1, 1], [1, 1, 1]],
+                     np.float32)
+    obj = np.array([0, 1, 2, 0, 0, 0], np.int32)
+    mask = np.array([1, 1, 1, 1, 0, 0], bool)
+
+    def tile(a):
+        return np.broadcast_to(a, (W,) + a.shape).copy()
+    return dict(pos=pos.astype(np.float32), rot=tile(rot), scale=tile(scale), obj=tile(obj),
+                mask=tile(mask))
+
+
+def pallas_scene(W=2, res=16):
+    """tests/test_render_pallas.py:28-56: the camera at (0, -2, 1.2), 70
+    degrees, looking +y."""
+    ro, rd = _views([[((0.0, -2.0, 1.2), (1.0, 0, 0, 0), 70.0)]] * W, res)
+    return dict(om=_box_sphere_plane(), albedo=ALBEDO3, mesh_tables=None, ro=ro, rd=rd,
+                img_w=res, **_pallas_instances(W))
+
+
+def two_views(W=2, res=16):
+    """tests/test_render.py:269: a unit sphere at (0, 0, 1); view 0 at y = -5
+    looking +y, view 1 at y = 9 looking -y; a dead second row."""
+    loader = assets.PhysicsLoader()
+    loader.load_objects([assets.make_sphere(1.0)])
+    cams = [[((0.0, -5.0, 1.0), (1.0, 0, 0, 0), 90.0), ((0.0, 9.0, 1.0), (0.0, 0, 0, 1.0), 90.0)]]
+    ro, rd = _views(cams * W, res)
+
+    def tile(a):
+        return np.broadcast_to(np.asarray(a), (W,) + np.asarray(a).shape).copy()
+    return dict(om=loader.get_object_manager(), albedo=np.array([[0.7, 0.6, 0.2]], np.float32),
+                mesh_tables=None, ro=ro, rd=rd, img_w=res,
+                pos=tile(np.array([[0.0, 0.0, 1.0], [0.0, 0.0, 0.0]], np.float32)),
+                rot=tile(np.array([[1, 0, 0, 0], [1, 0, 0, 0]], np.float32)),
+                scale=tile(np.ones((2, 3), np.float32)), obj=tile(np.zeros(2, np.int32)),
+                mask=tile(np.array([True, False])))
+
+
+def inside(W=2, res=8):
+    """The pallas scene's instances seen from inside: world 0's camera in
+    the box, world 1's in the sphere, each with two back-to-back views
+    (+y and -y), so a tile of 128 rays spans both views and its cone wraps
+    past a half-space."""
+    cams = []
+    for w in range(W):
+        eye = (0.0 + 0.3 * w, 3.0, 0.6) if w % 2 == 0 else (1.2 + 0.3 * w, 4.0, 0.8)
+        cams.append([(eye, (1.0, 0, 0, 0), 120.0), (eye, (0.0, 0, 0, 1.0), 120.0)])
+    ro, rd = _views(cams, res)
+    return dict(om=_box_sphere_plane(), albedo=ALBEDO3, mesh_tables=None, ro=ro, rd=rd,
+                img_w=res, **_pallas_instances(W))
+
+
+def sphere_mesh(W=2, res=16, n_lat=3, n_lon=4):
+    """simple_taskgraph's objects (a unit sphere and a plane) with a
+    lat-long render mesh of radius 0.5 on the sphere (models/
+    simple_taskgraph.py _sphere_mesh, here coarser), three spheres, a
+    ground plane and a dead row."""
+    loader = assets.PhysicsLoader()
+    loader.load_objects([assets.make_sphere(1.0), assets.make_plane()])
+    om = loader.get_object_manager()
+    mt = mesh_tables(2, {0: _sphere_mesh(0.5, n_lat, n_lon)})
+    ro, rd = _views([[((0.0, -3.0, 1.5), (1.0, 0, 0, 0), 90.0)]] * W, res)
+    pos = np.array([[0.0, 1.0, 1.0], [1.0, 2.0, 1.5], [-0.8, 0.5, 0.8], [0.0, 0.0, 0.0],
+                    [0.0, 0.0, 0.0]], np.float32)
+    pos = pos[None] + (np.arange(W, dtype=np.float32) * 0.2)[:, None, None] * \
+        np.array([0.0, 0.0, 1.0], np.float32)
+    q = np.array([np.cos(0.3), 0.0, np.sin(0.3), 0.0], np.float32)
+    rot = np.array([q, [1, 0, 0, 0], q, [1, 0, 0, 0], [1, 0, 0, 0]], np.float32)
+    scale = np.array([[1, 1, 1], [1.5, 1.0, 0.8], [1, 1, 1], [1, 1, 1], [1, 1, 1]], np.float32)
+
+    def tile(a):
+        return np.broadcast_to(a, (W,) + a.shape).copy()
+    return dict(om=om, albedo=np.array([[0.8, 0.3, 0.3], [0.4, 0.6, 0.4]], np.float32),
+                mesh_tables=mt, ro=ro, rd=rd, img_w=res, pos=pos.astype(np.float32),
+                rot=tile(rot), scale=tile(scale), obj=tile(np.array([0, 0, 0, 1, 0], np.int32)),
+                mask=tile(np.array([True, True, True, True, False])))
+
+
+SCENES = {"pallas_scene": pallas_scene, "two_views": two_views, "inside": inside,
+          "sphere_mesh": sphere_mesh}
