@@ -4,7 +4,8 @@
 Drives the port's main paths on one CUDA card — the collisions example at
 8192 worlds x 100 cubes, simple_jobs at 1024 worlds x 100 objects,
 fantasy_vs at 16384 worlds x 50 dragons + 200 knights, rigid_bench
-(rigid-body physics) at 8192 worlds x 64 bodies and simple_taskgraph
+(rigid-body physics) at 8192 worlds x 64 bodies (also with the broadphase
+in the fused kernel, and the settled pile with its options) and simple_taskgraph
 (physics and the batch renderer) at 1024 worlds x 100 spheres with 64 x 64
 RGB and depth — through every kernel they run, and holds every kernel
 against its plain PyTorch version.
@@ -75,6 +76,28 @@ Phases:
   main_rigid_k128    the same at max_candidates=128
   main_rigid_pairs   contact_mode="pairs", one window of 10 steps; no
            kernel launch
+  main_rigid_fused_bp   the main_rigid pile with broadphase_mode="fused"
+           (kernel 8: the broadphase inside the fused kernel), K = 256:
+           launches = steps, all of the "bp" specialisation, and no other
+           kernel; printed beside main_rigid's median
+  main_rigid_settled   the JAX bench_physics.py BENCH_PHYS_SETTLE=1 pile
+           (rigid_bench SETTLED_PILE: boxes on a grid, the broadphase in the
+           kernel, refresh, persistent manifolds, sleep 0.02; kernel 9), 400
+           untimed steps, then 5 windows of 50: launches = steps of the
+           "refresh+sleep+bp+persist" specialisation; then 10 more steps with
+           each step's share of stable worlds, of asleep worlds, and the
+           worlds rebuilding their cache (both shares must reach > 0)
+  main_rigid_settled_nopersist   the same without persistence and sleep
+           (bench_physics.py:43-47's A/B): "refresh+bp" launches
+  parity_substep_options   each option's kernel specialisation vs its
+           plain version at 8192 x 65: refresh over given rows at K = 256
+           and 128, sleep with mixed active flags, the broadphase at K = 256
+           without and with refresh, persistence at the settled state as it
+           is and with its stable and active flags flipped so that every
+           branch runs (the worlds by branch are printed); integers exact,
+           poses, stashes, AABBs and the cache atol 1e-4 (the cache's ok
+           flag free where its depth is within 1e-5 of 0), velocities 1e-3,
+           a repeated launch bit-identical
   parity_render   the render kernel vs its plain version on the four
            scenes of tests/test_torch_render_scenes.py (2-D image tiles; the
            inside scene's one tile spans both of its back-to-back views, so
@@ -108,7 +131,12 @@ Phases:
            device time of a simple_taskgraph step's physics nodes and of
            its render nodes.  The single-substep kernel (200 calls) at the
            first substep of that state, its bound counted as the fused
-           kernel's for one substep without the integrate
+           kernel's for one substep without the integrate.  Kernels 8 and 9
+           (20 calls each) at the main_rigid_fused_bp and main_rigid_settled
+           states (kernel 8 with refresh also at the settled A/B's), their
+           operations counted over the awake worlds (options_work: contact
+           tests only where contacts are made afresh, refreshes and cache
+           builds by slot, the broadphase of the rebuilding worlds)
 """
 
 import json
@@ -737,14 +765,15 @@ def golden_physics(torch, phys, sk):
                       "bounce_peak": 0.08, "rest": 0.6}}
 
 
-def main_rigid(torch, rb, phys, mode, K, steps, count, card, reset_counts, read_counts):
-    """rigid_bench defaults at 8192 x 64 through ``mode`` at capacity K:
-    3 warm-up steps, then ``count`` windows of ``steps`` steps; launches =
-    steps (kernel mode) or 0, no other kernel launched, finite positions,
-    empty temporaries."""
-    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, contact_mode=mode,
-                                               max_candidates=K), device="cuda")
-    sim.run(3)
+def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_counts,
+               specialisation="none", settle=3):
+    """rigid_bench at 8192 x 64 in configuration ``cfg`` (RigidBenchConfig
+    keywords): ``settle`` untimed steps, then ``count`` windows of
+    ``steps`` steps; launches = steps, all of the kernel specialisation
+    ``specialisation`` (kernel mode) or 0, no other kernel launched,
+    finite positions, empty temporaries."""
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, **cfg), device="cuda")
+    sim.run(settle)
     sim.block_until_ready()
     reset_counts()
     wins = []
@@ -755,16 +784,241 @@ def main_rigid(torch, rb, phys, mode, K, steps, count, card, reset_counts, read_
             check(int(sim.mgr.num_rows(sim.state, arch).sum()) == 0,
                   f"{arch.name} not empty after a step")
     launches = read_counts()
+    by_options = dict(phys.FusedSubstepKernel.launches_by_options)
+    kernel_mode = cfg.get("contact_mode") == "pallas"
     want = {name: 0 for name in launches}
-    want["fused_substep"] = steps * count if mode == "pallas" else 0
-    check(launches == want, f"rigid_bench {mode} K={K} launches {launches}")
+    want["fused_substep"] = steps * count if kernel_mode else 0
+    check(launches == want, f"rigid_bench {cfg} launches {launches}")
+    check(by_options == ({specialisation: steps * count} if kernel_mode else {}),
+          f"rigid_bench {cfg} launches by specialisation {by_options}")
     pos, mask = sim.get_exported(0)
-    check(bool(torch.isfinite(pos[mask]).all()), f"finite positions (rigid_bench {mode})")
+    check(bool(torch.isfinite(pos[mask]).all()), f"finite positions (rigid_bench {cfg})")
     overflow = {k: int(v.sum()) for k, v in sim.overflow_counters().items()}
-    return sim, {"worlds": RB_WORLDS, "bodies": RB_BODIES, "contact_mode": mode,
-                 "max_candidates": K, "launches": launches,
-                 "overflow_sum": overflow,
+    return sim, {"worlds": RB_WORLDS, "bodies": RB_BODIES, "config": cfg,
+                 "settle_steps": settle, "launches": launches,
+                 "launches_by_specialisation": by_options, "overflow_sum": overflow,
                  "env_steps_per_s": rates(steps, wins, RB_WORLDS), "card": card}
+
+
+# -- the fused kernel's options: TPU kernels 8 and 9 --------------------------
+
+# fp32 operations of the options (counted from csrc/substep_kernels.cu as
+# above): a slot's cached manifold moved with its bodies (two rotations and
+# a divergence a point, the normal rotated) 354, its manifold put in body
+# frames 294; the broadphase's AABB of a body 115, a pair's overlap test 6
+OPS_REFRESH, OPS_CACHE = 354, 294
+OPS_BP_BODY, OPS_BP_PAIR = 115, 6
+# bytes a call moves with the in-kernel broadphase: per body row 118 in (the
+# fused kernel's 105, scale, live flag) and 156 out (its 132 and the AABB);
+# per slot 9 out (rows, flag); per world 32 (its 20, dtv, count, dropped).
+# With persistent manifolds also the AABB columns in (24 a row), the cache
+# in and out (2 x 36 x 4 a slot) and the stable and active flags
+BYTES_BODY_BP, BYTES_SLOT_BP, BYTES_WORLD_BP = 274, 9, 32
+BYTES_BODY_P, BYTES_SLOT_P, BYTES_WORLD_P = 298, 297, 34
+INT_KEYS = ("rows_i", "rows_j", "kvalid", "bp_count", "bp_dropped")
+SURFACE_KEYS = ("aabb_lo", "aabb_hi", "mcache")
+
+
+def branches(torch, kw):
+    """Worlds by the kernel's branch: asleep (passthrough), awake and
+    keeping their cache, awake and rebuilding (or without a cache)."""
+    W = kw["im"].shape[0]
+    awake = kw["active"] if kw.get("active") is not None else \
+        torch.ones(W, dtype=torch.bool, device=kw["im"].device)
+    stable = kw["stable"] if kw.get("stable") is not None else torch.zeros_like(awake)
+    return {"asleep": int((~awake).sum()), "awake_stable": int((awake & stable).sum()),
+            "awake_rebuilding": int((awake & ~stable).sum()),
+            "asleep_stable": int((~awake & stable).sum())}
+
+
+def option_case(torch, sk, kern, kw):
+    """An option's kernel (twice) vs its plain version on one input: max
+    errors (integer keys: the count of differing entries), or raises.  The
+    cache's ok flag is a compare of a depth with 0: where the slot's
+    deepest cached depth is within 1e-5 of 0 in either version (a rounding
+    tie) either flag is accepted."""
+    got, again = kern(**kw), kern(**kw)
+    want = kern.plain(**kw)
+    torch.cuda.synchronize()
+    errs = {}
+    for k, w in want.items():
+        g = got[k]
+        check(torch.equal(g, again[k]), f"option {k}: a repeated launch differs")
+        if k in INT_KEYS:
+            errs[k] = int((g != w).sum())
+            check(errs[k] == 0, f"option {k}: {errs[k]} entries differ")
+            continue
+        check(bool(torch.isfinite(g).all()), f"option {k} finite")
+        if k == "mcache":
+            tie = torch.minimum(g[:, sk.MC_DEPTH0].abs(), w[:, sk.MC_DEPTH0].abs()) < 1e-5
+            g = g.clone()
+            g[:, sk.MC_OK] = torch.where(tie, w[:, sk.MC_OK], g[:, sk.MC_OK])
+        errs[k] = max_err(g, w)
+        tol = 1e-4 if k in SUBSTEP_POSE_KEYS or k in SURFACE_KEYS else 1e-3
+        check(errs[k] <= tol, f"option {k} err {errs[k]}")
+    return errs, got
+
+
+def flip_branches(torch, kw):
+    """The persistent kernel's inputs with the stable flags of odd worlds
+    and the active flags of worlds 2 and 3 mod 4 flipped, so that a state
+    where every world is in one branch runs them all."""
+    worlds = torch.arange(kw["im"].shape[0], device=kw["im"].device)
+    return dict(kw, stable=kw["stable"] ^ (worlds % 2 == 1),
+                active=kw["active"] ^ (worlds % 4 >= 2))
+
+
+def parity_substep_options(torch, rb, phys, sk, rows256, rows128, bp_sim, settled):
+    """Each option's kernel specialisation vs its plain version at the main
+    shapes (8192 x 65): refresh over given rows at K = 256 and 128, sleep
+    with mixed active flags, the broadphase at K = 256 without and with
+    refresh, and persistence from the settled pile as it is and with its
+    stable and active flags flipped so that every branch runs.  Returns
+    (the phase's line, the worst float error of kernel 8's and of kernel
+    9's variants)."""
+    om = rb.RigidBenchWorld.objmgr
+
+    def kernel(**opts):
+        return sk.FusedSubstepKernel(om, 4, relaxation=0.7, **opts)
+
+    kw256, kw128 = fused_inputs(rows256, rb, phys), fused_inputs(rows128, rb, phys)
+    kwb, kws = fused_inputs(bp_sim, rb, phys), fused_inputs(settled, rb, phys)
+    flipped = flip_branches(torch, kws)
+    worlds = torch.arange(RB_WORLDS, device=kw256["im"].device)
+    variants = {
+        "refresh_rows_K256": (kernel(contact_refresh=True), kw256),
+        "refresh_rows_K128": (kernel(contact_refresh=True), kw128),
+        "sleep_rows_K256": (kernel(), dict(kw256, active=worlds % 3 != 1)),
+        "bp_K256": (phys.RigidBodyPhysicsSystem.fused_kernel(bp_sim), kwb),
+        "bp_refresh_K256": (kernel(contact_refresh=True, bp_degree=12, bp_capacity=256), kwb),
+        "persist_settled": (phys.RigidBodyPhysicsSystem.fused_kernel(settled), kws),
+        "persist_settled_flipped": (phys.RigidBodyPhysicsSystem.fused_kernel(settled), flipped),
+    }
+    cases, worst8, worst9 = {}, 0.0, 0.0
+    for name, (kern, kw) in variants.items():
+        errs, out = option_case(torch, sk, kern, kw)
+        floats = max(v for k, v in errs.items() if k not in INT_KEYS)
+        if name.startswith("bp"):
+            worst8 = max(worst8, floats)
+        if name.startswith("persist"):
+            worst9 = max(worst9, floats)
+        cases[name] = {"K": int(out["rows_i"].shape[1]) if "rows_i" in out
+                       else int(kw["rows_i"].shape[1]),
+                       "branches": branches(torch, kw), "max_err": errs}
+        if "bp_count" in out:
+            cases[name]["candidates"] = int(out["bp_count"].sum())
+            cases[name]["dropped"] = int(out["bp_dropped"].sum())
+    check(all(v > 0 for v in cases["persist_settled_flipped"]["branches"].values()),
+          "the flipped settled case runs every branch")
+    return {"phase": "parity_substep_options", "W": RB_WORLDS, "n": RB_BODIES + 1,
+            "cases": cases, "ints": "exact", "repeat": "bit-identical",
+            "atol": {"pose_stashes_aabb_cache": 1e-4, "velocities": 1e-3}}, worst8, worst9
+
+
+def settled_trace(torch, rb, phys, sim, steps):
+    """``steps`` more steps of the settled pile, one at a time, with each
+    step's share of stable worlds, share of asleep worlds, and worlds
+    rebuilding their cache (from the step's own kernel inputs)."""
+    rows = []
+    for _ in range(steps):
+        kw = fused_inputs(sim, rb, phys)
+        rows.append(torch.stack([kw["stable"].float().mean(), (~kw["active"]).float().mean(),
+                                 (kw["active"] & ~kw["stable"]).float().sum()]))
+        sim.step()
+    t = torch.stack(rows).cpu()
+    return {"stable_share": t[:, 0].tolist(), "asleep_share": t[:, 1].tolist(),
+            "rebuilds": [int(x) for x in t[:, 2].tolist()]}
+
+
+def options_work(torch, kern, kw, out):
+    """The fp32 operations this call's data needs of a kernel with options,
+    and what they were counted from: substep_work's terms over the awake
+    worlds' valid slots (asleep worlds only copy), the contact tests and
+    clips only where the contacts were made afresh (every substep without
+    refresh; substep 0 with it; substep 0 of the rebuilding worlds with
+    persistence), a refresh of each valid slot where they were not (and at
+    substep 0 with persistence), the cache build, and the broadphase of the
+    rebuilding worlds: each live body's AABB and each pair of live rows."""
+    W = kw["im"].shape[0]
+    dev = kw["im"].device
+    awake = kw["active"] if kw.get("active") is not None else \
+        torch.ones(W, dtype=torch.bool, device=dev)
+    persist, refresh = kern.persist_margin > 0, kern.contact_refresh
+    rebuild = awake & ~kw["stable"] if persist else awake
+    rows = kw if "rows_i" in kw else out
+    kw2 = dict(kw, rows_i=rows["rows_i"], rows_j=rows["rows_j"], kvalid=rows["kvalid"])
+    kinds = kind_masks(torch, kw2, kern.tables)
+    slots = kw2["kvalid"] & awake[:, None]
+    ri, rj = kw2["rows_i"].long(), kw2["rows_j"].long()
+    dyn_sides = torch.gather(kw["dyn"], 1, ri).int() + torch.gather(kw["dyn"], 1, rj).int()
+    S = kern.num_substeps
+    n = dict.fromkeys(("tests", "refreshes", "caches", "pairs", "dyn_sides", "points",
+                       "point_pairs", "face_clips", "edge_points"), 0)
+    step = [0]
+
+    def observe(c):
+        s = step[0]
+        step[0] += 1
+        if persist:
+            fresh = rebuild if s == 0 else torch.zeros_like(awake)
+            refreshed = slots
+            built = slots & rebuild[:, None] if s == 0 else None
+        elif refresh and S > 1:
+            fresh = awake if s == 0 else torch.zeros_like(awake)
+            refreshed = slots & (s > 0)
+            built = slots if s == 0 else None
+        else:
+            fresh, refreshed, built = awake, slots & False, None
+        fresh_slots = slots & fresh[:, None]
+        n["tests"] += sum(int((m & fresh_slots).sum()) * OPS_TEST[k] for k, m in kinds.items())
+        n["refreshes"] += int(refreshed.sum())
+        n["caches"] += 0 if built is None else int(built.sum())
+        live = c["ok"][:, None, :] & (c["depth"] > 0) & slots[:, None, :]
+        pts = live.sum(1)
+        touching = pts > 0
+        boxes = kinds["box-box"] & c["ok"] & fresh_slots
+        n["pairs"] += int(touching.sum())
+        n["dyn_sides"] += int(dyn_sides[touching].sum())
+        n["points"] += int(pts.sum())
+        n["point_pairs"] += int((pts * (pts + 1) // 2).sum())
+        n["face_clips"] += int((boxes & (pts >= 2)).sum())
+        n["edge_points"] += int((boxes & (pts < 2)).sum())
+
+    kern.plain(observe=observe, **kw)
+    per_point = OPS_POINT + (OPS_POINT_BOUNCE if kern.tables.any_restitution else 0)
+    bodies = int((kw["dyn"] & awake[:, None]).sum())
+    ops = (n["tests"] + n["face_clips"] * OPS_CLIP_FACE + n["edge_points"] * OPS_CLIP_EDGE
+           + n["pairs"] * OPS_PAIR + n["dyn_sides"] * OPS_SIDE_SUM + n["points"] * per_point
+           + n["point_pairs"] * OPS_POINT_PAIR + S * bodies * OPS_BODY
+           + n["refreshes"] * OPS_REFRESH + n["caches"] * OPS_CACHE)
+    if kern.bp_degree:
+        live = kw["live"].sum(1).double()[rebuild]
+        n["bp_bodies"] = int(live.sum())
+        n["bp_pairs"] = int((live * (live - 1) / 2).sum())
+        ops += n["bp_bodies"] * OPS_BP_BODY + n["bp_pairs"] * OPS_BP_PAIR
+    return ops, n
+
+
+def options_bound(kw, kern, out, ops):
+    W, n = kw["im"].shape
+    K = (kw if "rows_i" in kw else out)["rows_i"].shape[1]
+    if kern.persist_margin > 0:
+        return bound(W * (n * BYTES_BODY_P + K * BYTES_SLOT_P + BYTES_WORLD_P), ops)
+    if kern.bp_degree:
+        return bound(W * (n * BYTES_BODY_BP + K * BYTES_SLOT_BP + BYTES_WORLD_BP), ops)
+    return bound(W * (n * BYTES_BODY + K * BYTES_SLOT + BYTES_WORLD), ops)
+
+
+def option_timing(torch, kern, kw):
+    """CUDA-event time of a kernel with options (20 calls) and of its plain
+    version (3) on inputs ``kw``, beside the bound."""
+    out = kern(**kw)
+    ops, work = options_work(torch, kern, kw, out)
+    b_ms, b_by = options_bound(kw, kern, out, ops)
+    return {"ms": cuda_ms(torch, lambda: kern(**kw), 20),
+            "plain_ms": cuda_ms(torch, lambda: kern.plain(**kw), 3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "work": work,
+            "branches": branches(torch, kw)}
 
 
 # -- the batch renderer: the render kernel ------------------------------------
@@ -992,6 +1246,7 @@ def main(argv):
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        subk.FusedSubstepKernel.launches_by_options.clear()
 
     def read_counts():
         return {name: w.launches for name, w in wrappers.items()}
@@ -1208,13 +1463,43 @@ def main(argv):
     # rigid_bench, 8192 x 64: the fused substep kernel at K = 256 and 128, and
     # the pairs path -------------------------------------------------------------
     counts = (reset_counts, read_counts)
-    rsim, line = main_rigid(torch, rb, phys, "pallas", 256, 50, 5, smi, *counts)
+    rsim, line = main_rigid(torch, rb, phys, dict(contact_mode="pallas", max_candidates=256),
+                            50, 5, smi, *counts)
     rig_launches = line["launches"]["fused_substep"]
+    rig_rate = line["env_steps_per_s"]["median"]
     emit({"phase": "main_rigid", **line})
-    r128, line = main_rigid(torch, rb, phys, "pallas", 128, 50, 5, smi, *counts)
+    r128, line = main_rigid(torch, rb, phys, dict(contact_mode="pallas", max_candidates=128),
+                            50, 5, smi, *counts)
     emit({"phase": "main_rigid_k128", **line})
-    rpairs, line = main_rigid(torch, rb, phys, "pairs", 256, 10, 1, smi, *counts)
+    rpairs, line = main_rigid(torch, rb, phys, dict(contact_mode="pairs", max_candidates=256),
+                              10, 1, smi, *counts)
     emit({"phase": "main_rigid_pairs", **line})
+
+    # the fused kernel's options: the broadphase in the kernel (kernel 8) on
+    # the default pile, and the settled pile with persistent manifolds and
+    # sleep (kernel 9) and without (its A/B) -----------------------------------
+    bsim, line = main_rigid(torch, rb, phys, dict(contact_mode="pallas", max_candidates=256,
+                                                  broadphase_mode="fused"),
+                            50, 5, smi, *counts, specialisation="bp")
+    bp_launches = line["launches"]["fused_substep"]
+    emit({"phase": "main_rigid_fused_bp", **line,
+          "main_rigid_env_steps_per_s_median": rig_rate})
+    settled_cfg = dict(rb.SETTLED_PILE, max_candidates=256)
+    settled_sim, line = main_rigid(torch, rb, phys, settled_cfg, 50, 5, smi, *counts,
+                            specialisation="refresh+sleep+bp+persist", settle=rb.SETTLE_STEPS)
+    persist_launches = line["launches"]["fused_substep"]
+    trace = settled_trace(torch, rb, phys, settled_sim, 10)
+    check(max(trace["stable_share"]) > 0 and max(trace["asleep_share"]) > 0,
+          f"settled pile: no stable or no asleep world {trace}")
+    emit({"phase": "main_rigid_settled", **line, "per_step_after_windows": trace})
+    nsim, line = main_rigid(torch, rb, phys, dict(settled_cfg, manifold_persist=False,
+                                                  sleep_threshold=0.0),
+                            50, 5, smi, *counts, specialisation="refresh+bp",
+                            settle=rb.SETTLE_STEPS)
+    emit({"phase": "main_rigid_settled_nopersist", **line})
+    line, err_bp, err_persist = parity_substep_options(torch, rb, phys, subk, rsim, r128, bsim,
+                                                       settled_sim)
+    emit(line)
 
     # simple_taskgraph, 1024 x 100, 64 x 64 RGB and depth -------------------------
     ssim, line = main_simple_taskgraph(torch, stg, 50, 5, smi, *counts)
@@ -1280,6 +1565,18 @@ def main(argv):
                     "work_over_substeps": work,
                     "pairs_per_world_max": int(rows.max())}
 
+    # kernels 8 and 9 at their main paths' states (and kernel 8 with refresh
+    # at the settled pile without persistence)
+    def executor_case(sim):
+        return phys.RigidBodyPhysicsSystem.fused_kernel(sim), fused_inputs(sim, rb, phys)
+
+    kern_p, kw_p = executor_case(settled_sim)
+    opt_t = {"bp": option_timing(torch, *executor_case(bsim)),
+             "bp_refresh_settled_nopersist": option_timing(torch, *executor_case(nsim)),
+             "persist_settled": option_timing(torch, kern_p, kw_p),
+             "persist_settled_flipped": option_timing(torch, kern_p,
+                                                      flip_branches(torch, kw_p))}
+
     # the single-substep kernel at the simple_taskgraph main path's state:
     # its first substep, with its parity there
     kw1 = phys.RigidBodyPhysicsSystem.substep_kernel_inputs(
@@ -1341,6 +1638,7 @@ def main(argv):
               "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
               "live_pairs": slive, "overlapping_pairs": sover},
           "fused_substep_K256": sub_t[256], "fused_substep_K128": sub_t[128],
+          "fused_substep_options": opt_t,
           "substep": sub1_t, "render": render_t,
           "library_ms": "none: no single PyTorch call computes any of these functions",
           "card": smi})
@@ -1348,7 +1646,8 @@ def main(argv):
     if "--profile" in argv:
         profile(torch, {"fused": sim, "unfused_pushes": usim, "simple_jobs_fused": sjsim,
                         "rigid_fused_k256": rsim, "rigid_fused_k128": r128,
-                        "rigid_pairs": rpairs,
+                        "rigid_pairs": rpairs, "rigid_fused_bp": bsim,
+                        "rigid_settled": settled_sim, "rigid_settled_nopersist": nsim,
                         "simple_jobs_rank": sjusim, "fantasy_vs": fsim,
                         "simple_taskgraph": ssim})
 
@@ -1378,6 +1677,23 @@ def main(argv):
          "bound_ms": sub_t[256]["bound_ms"], "bound_by": sub_t[256]["bound_by"],
          "library_ms": None,
          "K128": {k: sub_t[128][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        {"name": "fused_substep_bp", "route": "cuda", "source": csrc + "substep_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1278",
+         "launches": bp_launches, "launches_per_step": 1, "max_abs_err": err_bp,
+         "ms": opt_t["bp"]["ms"], "plain_ms": opt_t["bp"]["plain_ms"],
+         "bound_ms": opt_t["bp"]["bound_ms"], "bound_by": opt_t["bp"]["bound_by"],
+         "library_ms": None,
+         "with_refresh_settled": {k: opt_t["bp_refresh_settled_nopersist"][k]
+                                  for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        {"name": "fused_substep_persist", "route": "cuda",
+         "source": csrc + "substep_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1214",
+         "launches": persist_launches, "launches_per_step": 1, "max_abs_err": err_persist,
+         "ms": opt_t["persist_settled"]["ms"], "plain_ms": opt_t["persist_settled"]["plain_ms"],
+         "bound_ms": opt_t["persist_settled"]["bound_ms"],
+         "bound_by": opt_t["persist_settled"]["bound_by"], "library_ms": None,
+         "every_branch": {k: opt_t["persist_settled_flipped"][k]
+                          for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "substep", "route": "cuda", "source": csrc + "substep_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1165",
          "launches": stg_launches["substep"], "launches_per_step": 4,

@@ -163,11 +163,18 @@ __device__ __forceinline__ V3 sym_mv(const Sym& M, V3 v) {
 }
 
 // The object table row: prim_type, sphere_radius, box_half xyz,
-// restitution, num_verts, verts (vm x 3).
+// restitution, num_verts, verts (vm x 3), local_aabb_lo xyz, local_aabb_hi
+// xyz.
 struct Table {
   const float* t;
   int stride;
   int vm;
+  __device__ __forceinline__ float aabb_lo(int o, int k) const {
+    return t[o * stride + 7 + 3 * vm + k];
+  }
+  __device__ __forceinline__ float aabb_hi(int o, int k) const {
+    return t[o * stride + 10 + 3 * vm + k];
+  }
   __device__ __forceinline__ int prim(int o) const { return static_cast<int>(t[o * stride]); }
   __device__ __forceinline__ float radius(int o) const { return t[o * stride + 1]; }
   __device__ __forceinline__ float half(int o, int k) const { return t[o * stride + 2 + k]; }
@@ -455,8 +462,11 @@ __device__ __forceinline__ V3 plane_normal(Q4 rot) {
 }
 
 // pair_contacts of physics/pairs.py for one live pair (all-box tables).
+// NPTS: also its num_points (candidates past the speculative margin, at
+// most kPts) in *npts, which only the manifold cache keeps.
+template <bool NPTS>
 __device__ void pair_contacts(const Body& A, const Body& B, const Table& tab, float spec,
-                              Manifold& out) {
+                              Manifold& out, int* npts) {
   const int pa = tab.prim(A.obj), pb = tab.prim(B.obj);
   V3 cp[kCand];
   float cd[kCand];
@@ -532,7 +542,7 @@ __device__ void pair_contacts(const Body& A, const Body& B, const Table& tab, fl
   }
   out.ok = ok;
   out.n = n;
-  (void)num;
+  if (NPTS) *npts = num < kPts ? num : kPts;
 }
 
 
@@ -772,6 +782,18 @@ enum BodyCh {
 // Per-slot stash channels, each K floats: ok, normal, points, depths, lambdas.
 enum SlotCh { kSOk = 0, kSN = 1, kSP = 4, kSD = 16, kSLam = 20, kSlotCh = 24 };
 constexpr int kPackCh = 18;
+// The manifold cache, each K floats: the JAX layout of ManifoldPersist's mc
+// (ops/substep_kernel.py MC_*) without its three row channels — rA[c][p] at
+// kCRA + 4 c + p, rB likewise, the normal in A's frame, depth0[p], ok, the
+// point count.  mc itself is [W, kMcCh, K]: rows_i, rows_j, kvalid, cache.
+enum CacheCh { kCRA = 0, kCRB = 12, kCNLoc = 24, kCDepth0 = 27, kCOk = 31, kCNpts = 32,
+               kCacheCh = 33 };
+constexpr int kMcRows = 3;
+constexpr int kMcCh = kMcRows + kCacheCh;
+// The broadphase's AABB channels, each n floats: lo xyz, hi xyz.
+constexpr int kAabbCh = 6;
+// The kernel's option bits (OPT_* in ops/substep_kernel.py).
+constexpr int kOptRefresh = 1, kOptSleep = 2, kOptBp = 4, kOptPersist = 8;
 
 struct Args {
   const float *pos, *rot, *v, *w, *im, *ii, *mu_s, *mu_d;
@@ -786,6 +808,21 @@ struct Args {
   float relax, spec;
   float *o_pos, *o_rot, *o_v, *o_w, *o_prev_pos, *o_prev_rot, *o_ps_pos, *o_ps_rot, *o_ps_v,
       *o_ps_w;
+  // the options: the broadphase's inputs (scale [W, n, 3], live [W, n],
+  // dtv [W]), degree cap and AABB inflation; sleep's active [W]; the
+  // persistent cache's stable [W], mc [W, kMcCh, K] and current AABB columns
+  const float* scale;
+  const uint8_t* live;
+  const float* dtv;
+  const uint8_t *active, *stable;
+  const float *mc, *aabb_lo, *aabb_hi;
+  int D;
+  float inflate;
+  float *o_aabb_lo, *o_aabb_hi;
+  int *o_rows_i, *o_rows_j;
+  uint8_t* o_kvalid;
+  int *o_count, *o_dropped;
+  float* o_mc;
 };
 
 __device__ __forceinline__ V3 ld3(const float* s, int ch, int b, int n) {
@@ -809,52 +846,75 @@ __device__ __forceinline__ int obj_of(const float* s, int b, int n) {
   return __float_as_int(s[kObj * n + b]);
 }
 
-size_t smem_bytes(int n, int K) {
-  return sizeof(float) * (static_cast<size_t>(kBodyCh) * n +
-                          static_cast<size_t>(kSlotCh + kPackCh) * K) +
-         sizeof(int) * (5 * static_cast<size_t>(K) + n + 1);
+// The dynamic shared memory for n bodies and K slots, with the broadphase's
+// AABBs, degrees and bases (bp) and the manifold cache (cache).
+size_t smem_bytes(int n, int K, bool bp, bool cache) {
+  const size_t nn = static_cast<size_t>(n), kk = static_cast<size_t>(K);
+  const size_t floats = kBodyCh * nn + (kSlotCh + kPackCh) * kk + (cache ? kCacheCh * kk : 0) +
+                        (bp ? kAabbCh * nn : 0);
+  const size_t ints = 5 * kk + nn + 1 + 4 + (bp ? 2 * nn : 0);
+  return sizeof(float) * floats + sizeof(int) * ints;
 }
 
 // A world's shared memory, carved from the dynamic block (smem_bytes).
 struct Smem {
   float *sb, *sst, *spk;
+  float* scache;  // kCacheCh K (cache only)
+  float* saabb;   // kAabbCh n (bp only)
   int *sri, *srj, *skv;
-  int* soff;   // n + 1: each body's first entry in slist
-  int* slist;  // 2 K: (slot << 1 | side) per body, A sides first
+  int* soff;    // n + 1: each body's first entry in slist
+  int* slist;   // 2 K: (slot << 1 | side) per body, A sides first
+  int* sworld;  // 4 world scalars
+  int *sdeg, *sbase;  // n each (bp only): owner degree, first slot
 };
 
-__device__ __forceinline__ Smem carve(float* smem, int n, int K) {
+__device__ __forceinline__ Smem carve(float* smem, int n, int K, bool bp, bool cache) {
   Smem s;
   s.sb = smem;
   s.sst = s.sb + kBodyCh * n;
   s.spk = s.sst + kSlotCh * K;
-  s.sri = reinterpret_cast<int*>(s.spk + kPackCh * K);
+  float* f = s.spk + kPackCh * K;
+  s.scache = cache ? f : nullptr;
+  f += cache ? kCacheCh * K : 0;
+  s.saabb = bp ? f : nullptr;
+  f += bp ? kAabbCh * n : 0;
+  s.sri = reinterpret_cast<int*>(f);
   s.srj = s.sri + K;
   s.skv = s.srj + K;
   s.soff = s.skv + K;
   s.slist = s.soff + n + 1;
+  s.sworld = s.slist + 2 * K;
+  s.sdeg = bp ? s.sworld + 4 : nullptr;
+  s.sbase = bp ? s.sworld + 4 + n : nullptr;
   return s;
 }
 
-// Stages world wld's candidate slots and builds each body's list of its
-// pair sides, A sides in ascending slot order then B sides (the candidate
-// rows are fixed for the call): the segment sums walk these lists instead
-// of every slot.  Returns kc = 1 + the last valid slot: the slot loops stop
-// there (candidate slots are a validity prefix, so this skips the dead
-// tail).  Ends with a barrier.
-__device__ int load_slots(const Smem& s, const int* rows_i, const int* rows_j,
-                          const uint8_t* kvalid, int wld, int n, int K, int tid, int T) {
-  int *sri = s.sri, *srj = s.srj, *skv = s.skv, *soff = s.soff, *slist = s.slist;
+__device__ __forceinline__ int clamp_row(int r, int n) { return min(max(r, 0), n - 1); }
+
+// Stages world wld's candidate slots from the caller's rows.
+__device__ void stage_rows(const Smem& s, const int* rows_i, const int* rows_j,
+                           const uint8_t* kvalid, int wld, int n, int K, int tid, int T) {
+  for (int k = tid; k < K; k += T) {
+    const size_t g = static_cast<size_t>(wld) * K + k;
+    s.sri[k] = clamp_row(rows_i[g], n);
+    s.srj[k] = clamp_row(rows_j[g], n);
+    s.skv[k] = kvalid[g] ? 1 : 0;
+  }
+}
+
+// After the staging: kc = 1 + the last valid slot (the slot loops stop
+// there; candidate slots are a validity prefix, so this skips the dead
+// tail), and each body's list of its pair sides, A sides in ascending slot
+// order then B sides: the segment sums walk these lists instead of every
+// slot.  Starts and ends with a barrier.
+__device__ int finish_slots(const Smem& s, int n, int K, int tid, int T) {
+  const int *sri = s.sri, *srj = s.srj, *skv = s.skv;
+  int *soff = s.soff, *slist = s.slist;
   __shared__ int s_kc;
   if (tid == 0) s_kc = 0;
   __syncthreads();
-  for (int k = tid; k < K; k += T) {
-    const size_t g = static_cast<size_t>(wld) * K + k;
-    sri[k] = min(max(rows_i[g], 0), n - 1);
-    srj[k] = min(max(rows_j[g], 0), n - 1);
-    skv[k] = kvalid[g] ? 1 : 0;
+  for (int k = tid; k < K; k += T)
     if (skv[k]) atomicMax(&s_kc, k + 1);
-  }
   __syncthreads();
   const int kc = s_kc;
   for (int b = tid; b < n; b += T) {
@@ -880,17 +940,242 @@ __device__ int load_slots(const Smem& s, const int* rows_i, const int* rows_j,
   return kc;
 }
 
+// ---------------------------------------------------------------------------
+// The in-kernel broadphase (JAX _inkernel_broadphase)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bool aabb_overlap(const float* sa, int n, int i, int j) {
+  bool ok = true;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax)
+    ok = ok && sa[ax * n + j] <= sa[(3 + ax) * n + i] && sa[(3 + ax) * n + j] >= sa[ax * n + i];
+  return ok;
+}
+
+// Each body's velocity-expanded AABB from the step's starting pose and
+// velocity (the JAX kernel's arithmetic, term by term), then the live pairs
+// whose AABBs overlap, owned by the higher row: one thread per owner counts
+// its partners, one thread scans the capped degrees into each owner's first
+// slot, and each owner writes its first min(deg, D) partners in ascending
+// row.  Slots at K and beyond are not written.  Writes the AABB, row and
+// count outputs; the slots go to shared memory for finish_slots.
+__device__ void inkernel_broadphase(const Smem& s, const Args& a, int wld, int n, int K,
+                                    int tid, int T) {
+  const float* sb = s.sb;
+  float* sa = s.saabb;
+  const size_t b0 = static_cast<size_t>(wld) * n;
+  const uint8_t* live = a.live + b0;
+  const float dtv = a.dtv[wld];
+  for (int b = tid; b < n; b += T) {
+    const size_t g = b0 + b;
+    const int o = obj_of(sb, b, n);
+    const V3 p = ld3(sb, kPos, b, n), vel = ld3(sb, kV, b, n);
+    const Q4 q = ld4(sb, kRot, b, n);
+    float cl[3], he[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float lo = a.tab.aabb_lo(o, c), hi = a.tab.aabb_hi(o, c), sc = a.scale[3 * g + c];
+      cl[c] = (lo + hi) * 0.5f * sc;
+      he[c] = (hi - lo) * 0.5f * sc;
+    }
+    const float R[3][3] = {
+        {1.0f - 2.0f * (q.y * q.y + q.z * q.z), 2.0f * (q.x * q.y - q.w * q.z),
+         2.0f * (q.x * q.z + q.w * q.y)},
+        {2.0f * (q.x * q.y + q.w * q.z), 1.0f - 2.0f * (q.x * q.x + q.z * q.z),
+         2.0f * (q.y * q.z - q.w * q.x)},
+        {2.0f * (q.x * q.z - q.w * q.y), 2.0f * (q.y * q.z + q.w * q.x),
+         1.0f - 2.0f * (q.x * q.x + q.y * q.y)}};
+    const float pp[3] = {p.x, p.y, p.z}, vv[3] = {vel.x, vel.y, vel.z};
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const float cw = pp[ax] + (R[ax][0] * cl[0] + R[ax][1] * cl[1] + R[ax][2] * cl[2]);
+      const float ext = fabsf(R[ax][0]) * he[0] + fabsf(R[ax][1]) * he[1] + fabsf(R[ax][2]) * he[2];
+      const float vexp = vv[ax] * dtv;
+      const float lo = ((cw - ext) + fminf(vexp, 0.0f)) - a.inflate;
+      const float hi = ((cw + ext) + fmaxf(vexp, 0.0f)) + a.inflate;
+      sa[ax * n + b] = lo;
+      sa[(3 + ax) * n + b] = hi;
+      a.o_aabb_lo[3 * g + ax] = lo;
+      a.o_aabb_hi[3 * g + ax] = hi;
+    }
+  }
+  for (int k = tid; k < K; k += T) s.sri[k] = s.srj[k] = s.skv[k] = 0;
+  __syncthreads();
+  for (int j = tid; j < n; j += T) {
+    int deg = 0;
+    if (live[j])
+      for (int i = 0; i < j; ++i) deg += (live[i] && aabb_overlap(sa, n, i, j)) ? 1 : 0;
+    s.sdeg[j] = deg;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int base = 0, all = 0;
+    for (int j = 0; j < n; ++j) {
+      s.sbase[j] = base;
+      base += min(s.sdeg[j], a.D);
+      all += s.sdeg[j];
+    }
+    a.o_count[wld] = base;
+    a.o_dropped[wld] = all - base;
+  }
+  __syncthreads();
+  for (int j = tid; j < n; j += T) {
+    const int dc = min(s.sdeg[j], a.D);
+    int r = 0;
+    for (int i = 0; i < j && r < dc; ++i) {
+      if (!(live[i] && aabb_overlap(sa, n, i, j))) continue;
+      const int slot = s.sbase[j] + r++;
+      if (slot < K) {
+        s.sri[slot] = i;
+        s.srj[slot] = j;
+        s.skv[slot] = 1;
+      }
+    }
+  }
+  __syncthreads();
+  for (int k = tid; k < K; k += T) {
+    const size_t g = static_cast<size_t>(wld) * K + k;
+    a.o_rows_i[g] = s.sri[k];
+    a.o_rows_j[g] = s.srj[k];
+    a.o_kvalid[g] = static_cast<uint8_t>(s.skv[k]);
+  }
+}
+
+// The broadphase outputs of a world that keeps its cache (stable, or asleep
+// under persistence): the cached rows and kvalid, the current AABB columns,
+// count = the cached kvalid's sum, nothing dropped; the slots also go to
+// shared memory when s is given, and mc passes through when copy_mc.
+__device__ void cached_surface(const Smem* s, const Args& a, int wld, int n, int K, int tid,
+                               int T, bool copy_mc) {
+  const float* mc = a.mc + static_cast<size_t>(wld) * kMcCh * K;
+  for (int k = tid; k < K; k += T) {
+    const int ri = static_cast<int>(mc[k]), rj = static_cast<int>(mc[K + k]);
+    const bool kv = mc[2 * K + k] > 0.5f;
+    const size_t g = static_cast<size_t>(wld) * K + k;
+    a.o_rows_i[g] = ri;
+    a.o_rows_j[g] = rj;
+    a.o_kvalid[g] = kv ? 1 : 0;
+    if (s) {
+      s->sri[k] = clamp_row(ri, n);
+      s->srj[k] = clamp_row(rj, n);
+      s->skv[k] = kv ? 1 : 0;
+    }
+  }
+  const size_t g0 = static_cast<size_t>(wld) * 3 * n;
+  for (int i = tid; i < 3 * n; i += T) {
+    a.o_aabb_lo[g0 + i] = a.aabb_lo[g0 + i];
+    a.o_aabb_hi[g0 + i] = a.aabb_hi[g0 + i];
+  }
+  if (tid == 0) {
+    float cnt = 0.0f;
+    for (int k = 0; k < K; ++k) cnt = cnt + mc[2 * K + k];
+    a.o_count[wld] = static_cast<int>(cnt);
+    a.o_dropped[wld] = 0;
+  }
+  if (copy_mc) {
+    float* mo = a.o_mc + static_cast<size_t>(wld) * kMcCh * K;
+    for (int i = tid; i < kMcCh * K; i += T) mo[i] = mc[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The manifold cache (physics/pairs.py cache_contacts / refresh_contacts)
+// ---------------------------------------------------------------------------
+
+// Slot k's manifold (with its point count) in body frames at the pair
+// poses A, B.
+__device__ void cache_store(float* sc, int K, int k, const Manifold& c, int npts, const Side& A,
+                            const Side& B) {
+#pragma unroll
+  for (int p = 0; p < kPts; ++p) {
+    const V3 rA = qrot_inv(A.rot, sub(c.p[p], A.pos));
+    const V3 rB = qrot_inv(B.rot, sub(c.p[p], B.pos));
+    sc[(kCRA + p) * K + k] = rA.x;
+    sc[(kCRA + 4 + p) * K + k] = rA.y;
+    sc[(kCRA + 8 + p) * K + k] = rA.z;
+    sc[(kCRB + p) * K + k] = rB.x;
+    sc[(kCRB + 4 + p) * K + k] = rB.y;
+    sc[(kCRB + 8 + p) * K + k] = rB.z;
+    sc[(kCDepth0 + p) * K + k] = c.d[p];
+  }
+  const V3 nl = qrot_inv(A.rot, c.n);
+  sc[kCNLoc * K + k] = nl.x;
+  sc[(kCNLoc + 1) * K + k] = nl.y;
+  sc[(kCNLoc + 2) * K + k] = nl.z;
+  sc[kCOk * K + k] = c.ok ? 1.0f : 0.0f;
+  sc[kCNpts * K + k] = static_cast<float>(npts);
+}
+
+// The cache of a dead slot, which the plain version computes like any
+// other: rows 0 and 0, body 0's pose with w = 1 (the dead-slot quat), no
+// contact (zero points and normal, depths -1e9).
+__device__ void cache_dead(float* sc, int K, int k, V3 p0, Q4 q0) {
+  const Q4 q = Q4{1.0f, q0.x, q0.y, q0.z};
+  const V3 zero = mk(0.0f, 0.0f, 0.0f);
+  const V3 r = qrot_inv(q, sub(zero, p0));
+  const V3 nl = qrot_inv(q, zero);
+#pragma unroll
+  for (int p = 0; p < kPts; ++p) {
+    sc[(kCRA + p) * K + k] = r.x;
+    sc[(kCRA + 4 + p) * K + k] = r.y;
+    sc[(kCRA + 8 + p) * K + k] = r.z;
+    sc[(kCRB + p) * K + k] = r.x;
+    sc[(kCRB + 4 + p) * K + k] = r.y;
+    sc[(kCRB + 8 + p) * K + k] = r.z;
+    sc[(kCDepth0 + p) * K + k] = kNegBig;
+  }
+  sc[kCNLoc * K + k] = nl.x;
+  sc[(kCNLoc + 1) * K + k] = nl.y;
+  sc[(kCNLoc + 2) * K + k] = nl.z;
+  sc[kCOk * K + k] = 0.0f;
+  sc[kCNpts * K + k] = 0.0f;
+}
+
+// Slot k's cached manifold at the pair poses A, B: each point the midpoint
+// of its anchors, the normal rotated with A, the depth moved by the anchors'
+// divergence along it.
+__device__ void cache_refresh(const float* sc, int K, int k, const Side& A, const Side& B,
+                              Manifold& c) {
+  c.n = qrot(A.rot, mk(sc[kCNLoc * K + k], sc[(kCNLoc + 1) * K + k], sc[(kCNLoc + 2) * K + k]));
+#pragma unroll
+  for (int p = 0; p < kPts; ++p) {
+    const V3 rA = mk(sc[(kCRA + p) * K + k], sc[(kCRA + 4 + p) * K + k],
+                     sc[(kCRA + 8 + p) * K + k]);
+    const V3 rB = mk(sc[(kCRB + p) * K + k], sc[(kCRB + 4 + p) * K + k],
+                     sc[(kCRB + 8 + p) * K + k]);
+    const V3 pA = add(A.pos, qrot(A.rot, rA));
+    const V3 pB = add(B.pos, qrot(B.rot, rB));
+    c.d[p] = sc[(kCDepth0 + p) * K + k] - dot(c.n, sub(pB, pA));
+    c.p[p] = scl(add(pA, pB), 0.5f);
+  }
+  c.ok = sc[kCOk * K + k] > 0.5f;
+}
+
+// Where a substep's contacts come from: pair_contacts (kFresh); pair_contacts
+// kept in the cache (kBuild, contact refresh's substep 0); the cache
+// (kRefresh); the cache after a rebuild of it (kResolveBuild) or as kept
+// (kResolveKeep), persistence's substep 0.
+enum ContactMode { kFresh = 0, kBuild, kRefresh, kResolveBuild, kResolveKeep };
+
 // Steps 2-9 of a substep, from the post-integrate pose and velocities
 // (kIPos, kIRot, kIV, kIW) and the substep start (kPrevPos, kPrevRot):
 // leaves the new pose in kPos/kRot (dynamic rows only) and the velocities
 // in kV/kW (zero on the other rows).  Ends with a barrier.
+template <bool CACHE>
 __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int kc, float h1,
-                              float rest1, float relax, float spec, bool bounce, int tid,
-                              int T) {
+                              float rest1, float relax, float spec, bool bounce, int mode,
+                              int tid, int T) {
   float *sb = s.sb, *sst = s.sst, *spk = s.spk;
   const int *sri = s.sri, *srj = s.srj, *skv = s.skv, *soff = s.soff, *slist = s.slist;
 
-  // (2-4) per slot: gather, pair_contacts, positional pass
+  if (CACHE && mode == kResolveBuild) {
+    const V3 p0 = ld3(sb, kIPos, 0, n);
+    const Q4 q0 = ld4(sb, kIRot, 0, n);
+    for (int k = tid; k < K; k += T)
+      if (k >= kc || !skv[k]) cache_dead(s.scache, K, k, p0, q0);
+  }
+
+  // (2-4) per slot: gather, contacts, positional pass
   for (int k = tid; k < kc; k += T) {
     if (!skv[k]) continue;
     Side S[2];
@@ -910,7 +1195,13 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
       S[q].mu = sb[kMuS * n + b];
     }
     Manifold c;
-    pair_contacts(Bd[0], Bd[1], tab, spec, c);
+    int npts = 0;
+    if (!CACHE || mode == kFresh || mode == kBuild || mode == kResolveBuild)
+      pair_contacts<CACHE>(Bd[0], Bd[1], tab, spec, c, &npts);
+    if (CACHE && (mode == kBuild || mode == kResolveBuild))
+      cache_store(s.scache, K, k, c, npts, S[0], S[1]);
+    if (CACHE && (mode == kRefresh || mode == kResolveBuild || mode == kResolveKeep))
+      cache_refresh(s.scache, K, k, S[0], S[1], c);
     float pA[9], pB[9], lam[kPts];
     positional_pass(S[0], S[1], c, relax, pA, pB, lam);
     sst[kSOk * K + k] = c.ok ? 1.0f : 0.0f;
@@ -1035,11 +1326,40 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
   __syncthreads();
 }
 
+// An asleep world: pose and velocity unchanged, every stash the current state.
+__device__ void passthrough(const Args& a, int wld, int n, int tid, int T) {
+  const size_t g0 = static_cast<size_t>(wld) * n;
+  for (int i = tid; i < 3 * n; i += T) {
+    const size_t g = 3 * g0 + i;
+    const float p = a.pos[g], v = a.v[g], w = a.w[g];
+    a.o_pos[g] = a.o_prev_pos[g] = a.o_ps_pos[g] = p;
+    a.o_v[g] = a.o_ps_v[g] = v;
+    a.o_w[g] = a.o_ps_w[g] = w;
+  }
+  for (int i = tid; i < 4 * n; i += T) {
+    const size_t g = 4 * g0 + i;
+    a.o_rot[g] = a.o_prev_rot[g] = a.o_ps_rot[g] = a.rot[g];
+  }
+}
+
+// The fused kernel, specialised for its options (kOpt* bits): REFRESH
+// (contact refresh), SLEEP (active), BP (the in-kernel broadphase), PERSIST
+// (the persistent manifold cache; with BP and REFRESH).  OPTS = 0 is the
+// kernel without options.
+template <int OPTS>
 __global__ void __launch_bounds__(kMaxThreads) fused_substep_kernel(Args a) {
+  constexpr bool REFRESH = (OPTS & kOptRefresh) != 0, SLEEP = (OPTS & kOptSleep) != 0;
+  constexpr bool BP = (OPTS & kOptBp) != 0, PERSIST = (OPTS & kOptPersist) != 0;
+  constexpr bool CACHE = REFRESH || PERSIST;
   extern __shared__ float smem[];
   const int wld = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
   const int n = a.n, K = a.K;
-  const Smem s = carve(smem, n, K);
+  if (SLEEP && !a.active[wld]) {
+    passthrough(a, wld, n, tid, T);
+    if (PERSIST) cached_surface(nullptr, a, wld, n, K, tid, T, true);
+    return;
+  }
+  const Smem s = carve(smem, n, K, BP, CACHE);
   float* sb = s.sb;
   const size_t b0 = static_cast<size_t>(wld) * n;
 
@@ -1065,7 +1385,20 @@ __global__ void __launch_bounds__(kMaxThreads) fused_substep_kernel(Args a) {
     st3(sb, kIV, b, n, ld3(sb, kV, b, n));
     st3(sb, kIW, b, n, ld3(sb, kW, b, n));
   }
-  const int kc = load_slots(s, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
+  // the candidate slots: kept in the cache, from the broadphase, or given
+  const bool keep = PERSIST && a.stable[wld] != 0;
+  if (keep) {
+    cached_surface(&s, a, wld, n, K, tid, T, false);
+    const float* mc = a.mc + static_cast<size_t>(wld) * kMcCh * K;
+    for (int k = tid; k < K; k += T)
+      for (int c = 0; c < kCacheCh; ++c) s.scache[c * K + k] = mc[(kMcRows + c) * K + k];
+  } else if (BP) {
+    __syncthreads();
+    inkernel_broadphase(s, a, wld, n, K, tid, T);
+  } else {
+    stage_rows(s, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
+  }
+  const int kc = finish_slots(s, n, K, tid, T);
   const float h1 = a.h[wld], rest1 = a.rest_thr[wld];
   const V3 grav = mk(a.gravity[3 * wld], a.gravity[3 * wld + 1], a.gravity[3 * wld + 2]);
 
@@ -1106,8 +1439,16 @@ __global__ void __launch_bounds__(kMaxThreads) fused_substep_kernel(Args a) {
       st3(sb, kIW, b, n, wn);
     }
     __syncthreads();
-    // (2-9)
-    solve_substep(s, a.tab, n, K, kc, h1, rest1, a.relax, a.spec, a.bounce != 0, tid, T);
+    // (2-9), the contacts as the options say
+    int mode = kFresh;
+    if (PERSIST && step == 0)
+      mode = keep ? kResolveKeep : kResolveBuild;
+    else if (REFRESH && step == 0 && a.num_substeps > 1)
+      mode = kBuild;
+    else if (REFRESH && step > 0)
+      mode = kRefresh;
+    solve_substep<CACHE>(s, a.tab, n, K, kc, h1, rest1, a.relax, a.spec, a.bounce != 0, mode,
+                         tid, T);
   }
 
   for (int b = tid; b < n; b += T) {
@@ -1125,6 +1466,18 @@ __global__ void __launch_bounds__(kMaxThreads) fused_substep_kernel(Args a) {
       a.o_rot[4 * g + c] = sb[(kRot + c) * n + b];
       a.o_prev_rot[4 * g + c] = sb[(kPrevRot + c) * n + b];
       a.o_ps_rot[4 * g + c] = sb[(kIRot + c) * n + b];
+    }
+  }
+  if (PERSIST) {
+    // the cache out: the rows (as kept, or the broadphase's) and the
+    // resolved manifold, which substep 0 left in shared memory
+    const float* mi = a.mc + static_cast<size_t>(wld) * kMcCh * K;
+    float* mo = a.o_mc + static_cast<size_t>(wld) * kMcCh * K;
+    for (int k = tid; k < K; k += T) {
+      mo[k] = keep ? mi[k] : static_cast<float>(s.sri[k]);
+      mo[K + k] = keep ? mi[K + k] : static_cast<float>(s.srj[k]);
+      mo[2 * K + k] = keep ? mi[2 * K + k] : (s.skv[k] ? 1.0f : 0.0f);
+      for (int c = 0; c < kCacheCh; ++c) mo[(kMcRows + c) * K + k] = s.scache[c * K + k];
     }
   }
 }
@@ -1148,7 +1501,7 @@ __global__ void __launch_bounds__(kMaxThreads) substep_kernel(Args1 a) {
   extern __shared__ float smem[];
   const int wld = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
   const int n = a.n, K = a.K;
-  const Smem s = carve(smem, n, K);
+  const Smem s = carve(smem, n, K, false, false);
   float* sb = s.sb;
   const size_t b0 = static_cast<size_t>(wld) * n;
 
@@ -1176,9 +1529,10 @@ __global__ void __launch_bounds__(kMaxThreads) substep_kernel(Args1 a) {
     sb[kDyn * n + b] = a.dyn[g] ? 1.0f : 0.0f;
     sb[kObj * n + b] = __int_as_float(a.obj[g]);
   }
-  const int kc = load_slots(s, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
-  solve_substep(s, a.tab, n, K, kc, a.h[wld], a.rest_thr[wld], a.relax, a.spec, a.bounce != 0,
-                tid, T);
+  stage_rows(s, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
+  const int kc = finish_slots(s, n, K, tid, T);
+  solve_substep<false>(s, a.tab, n, K, kc, a.h[wld], a.rest_thr[wld], a.relax, a.spec,
+                       a.bounce != 0, kFresh, tid, T);
 
   for (int b = tid; b < n; b += T) {
     const size_t g = b0 + b;
@@ -1191,20 +1545,31 @@ __global__ void __launch_bounds__(kMaxThreads) substep_kernel(Args1 a) {
   }
 }
 
-// The shared memory and block size of either kernel for n bodies and K
-// slots; raises the kernel's dynamic shared-memory limit when needed.
+// The block size of either kernel for n bodies and K slots; raises the
+// kernel's dynamic shared-memory limit to smem when needed.
 template <typename Kernel>
-cudaError_t launch_shape(Kernel kernel, int n, int K, size_t* smem, int* threads) {
-  *smem = smem_bytes(n, K);
-  if (*smem > 48 * 1024) {
+cudaError_t launch_shape(Kernel kernel, int n, int K, size_t smem, int* threads) {
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int widest = n > K ? n : K;
   *threads = ((widest + 31) / 32) * 32;
   if (*threads > kMaxThreads) *threads = kMaxThreads;
   return cudaSuccess;
+}
+
+template <int OPTS>
+cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
+  constexpr bool bp = (OPTS & kOptBp) != 0;
+  constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
+  const size_t smem = smem_bytes(a.n, a.K, bp, cache);
+  int threads;
+  const cudaError_t err = launch_shape(fused_substep_kernel<OPTS>, a.n, a.K, smem, &threads);
+  if (err != cudaSuccess) return err;
+  fused_substep_kernel<OPTS><<<W, threads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1217,14 +1582,15 @@ extern "C" int fused_substep_launch(
     const void* table, int num_objects, int vm, int W, int n, int K, int num_substeps,
     float relaxation, float speculative, int bounce, void* o_pos, void* o_rot, void* o_v,
     void* o_w, void* o_prev_pos, void* o_prev_rot, void* o_ps_pos, void* o_ps_rot,
-    void* o_ps_v, void* o_ps_w, void* stream) {
+    void* o_ps_v, void* o_ps_w, int opts, int degree, float inflate, const void* scale,
+    const void* live, const void* dtv, const void* active, const void* stable, const void* mc,
+    const void* aabb_lo, const void* aabb_hi, void* o_aabb_lo, void* o_aabb_hi, void* o_rows_i,
+    void* o_rows_j, void* o_kvalid, void* o_count, void* o_dropped, void* o_mc, void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
   if (n <= 0 || K <= 0 || num_substeps < 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts)
     return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem;
-  int threads;
-  const cudaError_t err = launch_shape(fused_substep_kernel, n, K, &smem, &threads);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((opts & kOptBp) && (n > kMaxThreads || degree < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<const float*>(pos);
   a.rot = static_cast<const float*>(rot);
@@ -1244,7 +1610,7 @@ extern "C" int fused_substep_launch(
   a.rows_i = static_cast<const int*>(rows_i);
   a.rows_j = static_cast<const int*>(rows_j);
   a.kvalid = static_cast<const uint8_t*>(kvalid);
-  a.tab = Table{static_cast<const float*>(table), 7 + 3 * vm, vm};
+  a.tab = Table{static_cast<const float*>(table), 13 + 3 * vm, vm};
   a.n = n;
   a.K = K;
   a.num_substeps = num_substeps;
@@ -1261,8 +1627,42 @@ extern "C" int fused_substep_launch(
   a.o_ps_rot = static_cast<float*>(o_ps_rot);
   a.o_ps_v = static_cast<float*>(o_ps_v);
   a.o_ps_w = static_cast<float*>(o_ps_w);
-  fused_substep_kernel<<<W, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  a.scale = static_cast<const float*>(scale);
+  a.live = static_cast<const uint8_t*>(live);
+  a.dtv = static_cast<const float*>(dtv);
+  a.active = static_cast<const uint8_t*>(active);
+  a.stable = static_cast<const uint8_t*>(stable);
+  a.mc = static_cast<const float*>(mc);
+  a.aabb_lo = static_cast<const float*>(aabb_lo);
+  a.aabb_hi = static_cast<const float*>(aabb_hi);
+  a.D = degree;
+  a.inflate = inflate;
+  a.o_aabb_lo = static_cast<float*>(o_aabb_lo);
+  a.o_aabb_hi = static_cast<float*>(o_aabb_hi);
+  a.o_rows_i = static_cast<int*>(o_rows_i);
+  a.o_rows_j = static_cast<int*>(o_rows_j);
+  a.o_kvalid = static_cast<uint8_t*>(o_kvalid);
+  a.o_count = static_cast<int*>(o_count);
+  a.o_dropped = static_cast<int*>(o_dropped);
+  a.o_mc = static_cast<float*>(o_mc);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (opts) {
+    case 0: err = launch_fused<0>(a, W, st); break;
+    case kOptRefresh: err = launch_fused<kOptRefresh>(a, W, st); break;
+    case kOptSleep: err = launch_fused<kOptSleep>(a, W, st); break;
+    case kOptRefresh | kOptSleep: err = launch_fused<kOptRefresh | kOptSleep>(a, W, st); break;
+    case kOptBp: err = launch_fused<kOptBp>(a, W, st); break;
+    case kOptBp | kOptRefresh: err = launch_fused<kOptBp | kOptRefresh>(a, W, st); break;
+    case kOptPersist | kOptBp | kOptRefresh:
+      err = launch_fused<kOptPersist | kOptBp | kOptRefresh>(a, W, st);
+      break;
+    case kOptPersist | kOptBp | kOptRefresh | kOptSleep:
+      err = launch_fused<kOptPersist | kOptBp | kOptRefresh | kOptSleep>(a, W, st);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 extern "C" int substep_launch(
@@ -1275,9 +1675,9 @@ extern "C" int substep_launch(
   if (W <= 0) return static_cast<int>(cudaSuccess);
   if (n <= 0 || K <= 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts)
     return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem;
+  const size_t smem = smem_bytes(n, K, false, false);
   int threads;
-  const cudaError_t err = launch_shape(substep_kernel, n, K, &smem, &threads);
+  const cudaError_t err = launch_shape(substep_kernel, n, K, smem, &threads);
   if (err != cudaSuccess) return static_cast<int>(err);
   Args1 a;
   a.pos = static_cast<const float*>(pos);
@@ -1297,7 +1697,7 @@ extern "C" int substep_launch(
   a.rows_i = static_cast<const int*>(rows_i);
   a.rows_j = static_cast<const int*>(rows_j);
   a.kvalid = static_cast<const uint8_t*>(kvalid);
-  a.tab = Table{static_cast<const float*>(table), 7 + 3 * vm, vm};
+  a.tab = Table{static_cast<const float*>(table), 13 + 3 * vm, vm};
   a.n = n;
   a.K = K;
   a.bounce = bounce;

@@ -7,7 +7,9 @@ poses, settling under gravity and friction, through RigidBodyPhysicsSystem
 substeps).  The default configuration is 8192 worlds x 64 bodies.
 
 ``contact_mode="pallas"`` runs the fused substep kernel (one launch a step
-on the card); ``"pairs"`` the per-substep PyTorch path.  The candidate
+on the card), ``broadphase_mode="fused"`` the broadphase inside it, and
+contact_refresh, sleep_threshold and manifold_persist its other options
+(SETTLED_PILE); ``"pairs"`` the per-substep PyTorch path.  The candidate
 capacity K is ``max_candidates`` or 4 x num_bodies (the JAX package's
 autotuner artifact, written for the TPU, is not read).  The spawn draws
 from the port's own per-world generator, so its numbers differ from the
@@ -56,10 +58,11 @@ def default_object_manager():
 
 @dataclasses.dataclass
 class RigidBenchConfig:
-    """The JAX config's fields and defaults.  Options the port does not
-    run yet raise NotImplementedError when the graph is built (see
-    physics/__init__.py): broadphase_mode 'sap'/'fused', contact_refresh,
-    sleep_threshold > 0, manifold_persist."""
+    """The JAX config's fields and defaults.  broadphase_mode 'sap' raises
+    NotImplementedError when the graph is built (see physics/__init__.py);
+    'fused', contact_refresh, sleep_threshold > 0 and manifold_persist run
+    the fused kernel's options.  The settled pile of the JAX package's
+    bench_physics.py (BENCH_PHYS_SETTLE=1) is SETTLED_PILE."""
 
     num_worlds: int = 8192
     num_bodies: int = 64          # dynamic bodies per world (plus 1 plane)
@@ -67,7 +70,7 @@ class RigidBenchConfig:
     delta_t: float = 1 / 60
     max_candidates: int = 0       # 0 = 4 * num_bodies
     contact_mode: str = "pairs"   # pairs | pallas (the fused kernel) | auto
-    broadphase_mode: str = "auto"  # dense | auto (sap, fused wait)
+    broadphase_mode: str = "auto"  # dense | fused (in the kernel) | auto (sap waits)
     sap_window: int = 0
     # dense-broadphase rank-compaction degree cap (0 = every pair)
     dense_degree: int = 12
@@ -94,6 +97,17 @@ class RigidBenchConfig:
         # a settled pile averages ~3 overlap pairs per body; 4x covers the
         # in-flight transient (overflow drops excess candidates, counted)
         return self.max_candidates or 4 * self.num_bodies
+
+
+# The quasi-static settled pile (the JAX package's bench_physics.py:28-51,
+# BENCH_PHYS_SETTLE=1): boxes only on a jittered grid, the broadphase in the
+# fused kernel, contact refresh, persistent manifolds and world sleep; run
+# 400 steps before timing.  Its A/B (BENCH_PHYS_PERSIST=0) drops the
+# persistence and the sleep.
+SETTLED_PILE = dict(contact_mode="pallas", body_mix="boxes", spawn="grid",
+                    broadphase_mode="fused", contact_refresh=True, manifold_persist=True,
+                    persist_margin=0.05, sleep_threshold=0.02)
+SETTLE_STEPS = 400
 
 
 class RigidBenchWorld:

@@ -2,10 +2,9 @@
 and the ``FusedSubstepKernel`` and ``SubstepKernel`` drivers.
 
 Counterpart of ``gpu_ecs_madrona_tpu/ops/substep_kernel.py``'s
-``FusedSubstepKernel`` (``_run_fused`` without in-kernel broadphase,
-contact refresh, sleep or persistent manifolds).  ``fused_substep`` runs,
-per world and for each of ``num_substeps`` substeps (the JAX kernel loop,
-``_make_fused_kernel``):
+``FusedSubstepKernel`` (``_run_fused`` with all its options) and
+``SubstepKernel``.  ``fused_substep`` runs, per world and for each of
+``num_substeps`` substeps (the JAX kernel loop, ``_make_fused_kernel``):
 
   1. semi-implicit Euler integrate with the gyroscopic term (``_integrate``);
   2. a per-pair gather of pose and prev_pos at the candidate rows;
@@ -21,6 +20,25 @@ per world and for each of ``num_substeps`` substeps (the JAX kernel loop,
 
 The static pair data (inverse mass and inertia, friction, object id) is
 gathered once per step; the outputs carry the last substep's stashes.
+
+Its options, each a specialisation of the one CUDA kernel:
+
+  - ``refresh`` (contact_refresh): substep 0 runs ``pair_contacts`` and
+    keeps the manifold in body frames (``pairs.cache_contacts``); later
+    substeps move it with the bodies (``pairs.refresh_contacts``).
+  - ``active`` (sleep): an asleep world passes its state through, with
+    stashes equal to it.
+  - ``bp_degree`` (the in-kernel broadphase, TPU kernel 8): the candidate
+    rows come from the world's velocity-expanded AABBs and the dense rank
+    compaction with degree cap D (``inkernel_broadphase_plain``), over
+    K slots; the outputs add the AABBs, rows, counts and drops.
+  - ``persist_margin`` (persistent manifolds, TPU kernel 9; with bp and
+    refresh): a ``stable`` world reuses the rows, AABBs and body-frame
+    manifold of its cache ``mcache`` [W, MC_CHANNELS, K] and skips the
+    broadphase and SAT; the others rebuild with AABBs inflated by
+    margin / 2.  Both take substep 0's contacts through
+    ``refresh_contacts`` of the resolved cache, and the cache goes out.
+    An asleep world passes the cache surface through too.
 
 ``substep`` is the counterpart of ``SubstepKernel`` (``_run``, one
 substep per call), which worlds with joints take: steps 2-9 once, from
@@ -43,25 +61,57 @@ kernel), so both repeat bit for bit from run to run.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from gpu_ecs_madrona_tpu_torch.ops import _build
 from gpu_ecs_madrona_tpu_torch.physics import pairs as pk
+from gpu_ecs_madrona_tpu_torch.utils.compaction import first_partners, rank_slots
+
+# The JAX kernel's packed channels ([W, C, n], body lanes last), for
+# reading its layout: fused inputs F_*, fused outputs FO_*.
+F_POS, F_ROT, F_V, F_W, F_IM, F_II, F_MUS, F_MUD, F_OBJ = 0, 3, 7, 10, 13, 14, 17, 18, 19
+F_EXTF, F_EXTT, F_DYN, F_SCALE, F_LIVE, FC_IN = 20, 23, 26, 27, 30, 31
+F_ALO, F_AHI, FC_IN_P = 31, 34, 37
+FO_POS, FO_ROT, FO_V, FO_W, FO_PREV_POS, FO_PREV_ROT = 0, 3, 7, 10, 13, 16
+FO_PS_POS, FO_PS_ROT, FO_PS_V, FO_PS_W, FC_OUT = 20, 23, 27, 30, 33
+
+# The persistent-manifold cache (the ManifoldPersist singleton's ``mc``,
+# [W, MC_CHANNELS, K]), as the JAX package lays it out: per slot the
+# cached broadphase (rows_i, rows_j, kvalid), then the body-frame manifold
+# of pairs.cache_contacts (rA[c][p] at MC_RA + 4 c + p, rB likewise,
+# n_loc, depth0[p], ok, num_points).
+MC_ROWS = 3
+MC_RA, MC_RB, MC_NLOC, MC_DEPTH0, MC_OK, MC_NPTS = 3, 15, 27, 30, 34, 35
+MC_CHANNELS = 36
+MC_CACHE = MC_CHANNELS - MC_ROWS
 
 # The kernel's bounds: one CTA per world, whose bodies, per-slot stash and
 # slot lists sit in shared memory (see csrc/substep_kernels.cu), at most
-# 227 KB a block on an H100.
+# 227 KB a block on an H100.  The in-kernel broadphase takes one thread a
+# body row.
 MAX_SMEM_BYTES = 227 * 1024
 MAX_TABLE_VERTS = 8
+MAX_BP_ROWS = 128
 
 
-def smem_bytes(n: int, K: int) -> int:
+def smem_bytes(n: int, K: int, bp: bool = False, cache: bool = False) -> int:
     """The kernel's shared memory for n bodies and K slots: its dynamic
     part (smem_bytes in the .cu: 54 floats a body, 24 + 18 a slot, 5 ints
-    a slot and n + 1 offsets) and its one static int."""
-    return 4 * (54 * n + 42 * K) + 4 * (5 * K + n + 1) + 4
+    a slot, n + 1 offsets and 4 world ints; with the broadphase 6 floats
+    and 2 ints a body, with a manifold cache 33 floats a slot) and its one
+    static int."""
+    floats = 54 * n + 42 * K + (6 * n if bp else 0) + (MC_CACHE * K if cache else 0)
+    ints = 5 * K + n + 1 + 4 + (2 * n if bp else 0)
+    return 4 * floats + 4 * ints + 4
+
+
+def bp_slots(capacity: int) -> int:
+    """The in-kernel broadphase's slot count for a candidate capacity: the
+    JAX kernel's whole 128-lane tiles, at least one."""
+    return max(128, -(-capacity // 128) * 128)
 
 OUT_KEYS = ("pos", "rot", "v", "w", "prev_pos", "prev_rot",
             "ps_pos", "ps_rot", "ps_v", "ps_w")
@@ -137,12 +187,103 @@ def _pair_setup(im, ii, mu_s, mu_d, obj, rows_i, rows_j):
     return ri, rj, flat_i, flat_j, side_static(ri), side_static(rj)
 
 
+def _pack_cache(cache):
+    """pairs.cache_contacts dict ([W, P, K] tuples) -> [W, MC_CACHE, K]."""
+    chans = [cache["rA"][c][:, p] for c in range(3) for p in range(4)]
+    chans += [cache["rB"][c][:, p] for c in range(3) for p in range(4)]
+    chans += list(cache["n_loc"])
+    chans += [cache["depth0"][:, p] for p in range(4)]
+    chans += [cache["ok"].to(torch.float32), cache["num_points"].to(torch.float32)]
+    return torch.stack(chans, dim=1)
+
+
+def _parse_cache(mcc):
+    """[W, MC_CACHE, K] -> pairs.cache_contacts dict."""
+    def vec4(base):
+        return tuple(mcc[:, base + 4 * c:base + 4 * c + 4] for c in range(3))
+    return {"rA": vec4(MC_RA - MC_ROWS), "rB": vec4(MC_RB - MC_ROWS),
+            "n_loc": tuple(mcc[:, MC_NLOC - MC_ROWS + c] for c in range(3)),
+            "depth0": mcc[:, MC_DEPTH0 - MC_ROWS:MC_DEPTH0 - MC_ROWS + 4],
+            "ok": mcc[:, MC_OK - MC_ROWS] > 0.5,
+            "num_points": torch.round(mcc[:, MC_NPTS - MC_ROWS]).to(torch.int32)}
+
+
+def _aabbs(pos, rot, v, scale, obj, dtv, tables, inflate):
+    """Each body's velocity-expanded world AABB, inflated by ``inflate``
+    on every side: lo, hi [W, n, 3].  The JAX kernel's arithmetic
+    (``_inkernel_broadphase``): its own quaternion-to-matrix formula, the
+    rotated centre and half extent summed in axis order, the expansion
+    v * dtv from the step's starting velocity."""
+    lo_l, hi_l = tables.vec(obj, "local_aabb_lo"), tables.vec(obj, "local_aabb_hi")
+    scl = _comps(scale)
+    c_l = tuple((lo + hi) * 0.5 * s for lo, hi, s in zip(lo_l, hi_l, scl))
+    he = tuple((hi - lo) * 0.5 * s for lo, hi, s in zip(lo_l, hi_l, scl))
+    qw, qx, qy, qz = _comps(rot)
+    R = ((1.0 - 2.0 * (qy * qy + qz * qz), 2.0 * (qx * qy - qw * qz), 2.0 * (qx * qz + qw * qy)),
+         (2.0 * (qx * qy + qw * qz), 1.0 - 2.0 * (qx * qx + qz * qz), 2.0 * (qy * qz - qw * qx)),
+         (2.0 * (qx * qz - qw * qy), 2.0 * (qy * qz + qw * qx), 1.0 - 2.0 * (qx * qx + qy * qy)))
+    p, vel, d = _comps(pos), _comps(v), dtv[:, None]
+    los, his = [], []
+    for a in range(3):
+        cw = p[a] + (R[a][0] * c_l[0] + R[a][1] * c_l[1] + R[a][2] * c_l[2])
+        ext = R[a][0].abs() * he[0] + R[a][1].abs() * he[1] + R[a][2].abs() * he[2]
+        vexp = vel[a] * d
+        los.append(cw - ext + torch.clamp(vexp, max=0.0) - inflate)
+        his.append(cw + ext + torch.clamp(vexp, min=0.0) + inflate)
+    return torch.stack(los, -1), torch.stack(his, -1)
+
+
+def inkernel_broadphase_plain(pos, rot, v, scale, live, obj, dtv, *, tables: pk.ObjTables,
+                              K: int, D: int, inflate: float = 0.0):
+    """The plain version of the fused kernel's broadphase (JAX
+    ``_inkernel_broadphase``): each body's velocity-expanded AABB, the
+    live pairs (``live`` for both rows) whose AABBs overlap, owned by the
+    higher row, and the rank compaction — each owner's first min(deg, D)
+    partners in ascending row, owners in ascending row, into K slots.
+    Body args [W, n(, 3/4)], live bool, obj int32; dtv [W] (delta_t x
+    velocity expansion).  Returns aabb_lo, aabb_hi [W, n, 3]; rows_i
+    (partners), rows_j (owners) [W, K] int32; kvalid [W, K] bool (slot <
+    count); bp_count = the sum of min(deg, D) and bp_dropped = the sum of
+    deg less that, [W] int32 (a count above K keeps its value)."""
+    lo, hi = _aabbs(pos, rot, v, scale, obj, dtv, tables, inflate)
+    n = lo.shape[1]
+    ok = ((lo[:, :, None] <= hi[:, None]) & (hi[:, :, None] >= lo[:, None])).all(-1)
+    lower = torch.ones((n, n), dtype=torch.bool, device=lo.device).tril(-1)
+    P = ok & live[:, :, None] & live[:, None, :] & lower        # [W, owner j, partner i]
+    partners, deg = first_partners(P, D)
+    ab, total, dropped = rank_slots(partners, deg, D, K)
+    kvalid = torch.arange(K, device=lo.device)[None] < total[:, None]
+    return {"aabb_lo": lo, "aabb_hi": hi, "rows_i": ab[..., 1].contiguous(),
+            "rows_j": ab[..., 0].contiguous(), "kvalid": kvalid, "bp_count": total,
+            "bp_dropped": dropped}
+
+
+def _cached_surface(mcache, aabb_lo, aabb_hi):
+    """The broadphase surface of a world that keeps its cache: the cached
+    rows and kvalid, the current AABB columns, count = the cached kvalid's
+    sum, nothing dropped."""
+    return {"aabb_lo": aabb_lo, "aabb_hi": aabb_hi, "rows_i": mcache[:, 0].to(torch.int32),
+            "rows_j": mcache[:, 1].to(torch.int32), "kvalid": mcache[:, 2] > 0.5,
+            "bp_count": mcache[:, 2].sum(-1).to(torch.int32),
+            "bp_dropped": torch.zeros(mcache.shape[0], dtype=torch.int32,
+                                      device=mcache.device)}
+
+
+def _select(cond, a, b):
+    """Per world (cond [W] bool): a where cond, else b, for tensors of any
+    rank with the world axis first."""
+    return torch.where(cond.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
 def _solve_substep(pos_i, rot_i, v_i, w_i, prev_pos, prev_rot, pairs, kvalid, h1, rest1, *,
-                   tables, relaxation, speculative, observe=None):
+                   tables, relaxation, speculative, observe=None, contacts_at=None):
     """Steps 2-9 of a substep (the JAX kernels' ``_substep_core``) from the
     post-integrate pose and velocities and the substep start, all tuples
     of [W, n]: returns the post-solve pose and the post-velocity-pass
-    velocities (p2, r2, v3, w3), before the dynamic-row selection."""
+    velocities (p2, r2, v3, w3), before the dynamic-row selection.
+    ``contacts_at(PA, PB, fresh)``, if given, makes the contacts from the
+    pair sides (``fresh()`` is pair_contacts at them); by default they
+    are pair_contacts."""
     ri, rj, flat_i, flat_j, SA, SB = pairs
     W, n = pos_i[0].shape
     bounce = tables.any_restitution
@@ -158,9 +299,13 @@ def _solve_substep(pos_i, rot_i, v_i, w_i, prev_pos, prev_rot, pairs, kvalid, h1
                 "im": S["im"], "ii": S["ii"], "mu": S["mu_s"]}
 
     PA, PB = side1(ri, SA), side1(rj, SB)
-    FA = pk.body_fields(PA["pos"], PA["rot"], SA["obj"], tables)
-    FB = pk.body_fields(PB["pos"], PB["rot"], SB["obj"], tables)
-    contacts = pk.pair_contacts(FA, FB, kvalid, speculative=speculative)
+
+    def fresh():
+        FA = pk.body_fields(PA["pos"], PA["rot"], SA["obj"], tables)
+        FB = pk.body_fields(PB["pos"], PB["rot"], SB["obj"], tables)
+        return pk.pair_contacts(FA, FB, kvalid, speculative=speculative)
+
+    contacts = fresh() if contacts_at is None else contacts_at(PA, PB, fresh)
     if observe is not None:
         observe(contacts)
     packA, packB, lam = pk.positional_pass(PA, PB, contacts, relaxation=relaxation)
@@ -187,13 +332,36 @@ def _solve_substep(pos_i, rot_i, v_i, w_i, prev_pos, prev_rot, pairs, kvalid, h1
 def fused_substep_plain(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
                         h, gravity, restitution_threshold, rows_i, rows_j, kvalid, *,
                         tables: pk.ObjTables, num_substeps: int, relaxation: float = 1.0,
-                        speculative: float = 0.0, observe=None):
+                        speculative: float = 0.0, observe=None, refresh: bool = False,
+                        active=None, bp_degree: int = 0, K: int = 0, scale=None, live=None,
+                        dtv=None, persist_margin: float = 0.0, mcache=None, stable=None,
+                        aabb_lo=None, aabb_hi=None):
     """The plain PyTorch version of the fused substep kernel (see the module
     doc).  Body args [W, n(, 3/4)]; pair args [W, K]; h and
     restitution_threshold [W]; gravity [W, 3].  Returns the dict of
     OUT_KEYS, each [W, n, 3/4].  ``observe``, if given, is called with
-    each substep's ``pair_contacts`` output (to count the work the data
-    needs)."""
+    each substep's contacts (to count the work the data needs).
+
+    Options (the module doc): ``refresh``; ``active`` [W] bool (None: all
+    awake); ``bp_degree`` D > 0 with ``K`` slots, ``scale`` [W, n, 3],
+    ``live`` [W, n] bool and ``dtv`` [W], the rows then None, adding
+    aabb_lo/hi, rows_i/j, kvalid, bp_count and bp_dropped to the dict;
+    ``persist_margin`` > 0 (with bp and refresh) with ``mcache`` [W,
+    MC_CHANNELS, K], ``stable`` [W] bool and the current ``aabb_lo/hi``
+    columns, adding "mcache"."""
+    persist = persist_margin > 0.0
+    # an asleep world takes the cached surface, so its cache passes through
+    keep = None
+    if persist:
+        keep = stable if active is None else stable | ~active
+    extra = {}
+    if bp_degree:
+        extra = inkernel_broadphase_plain(pos, rot, v, scale, live, obj, dtv, tables=tables,
+                                          K=K, D=bp_degree, inflate=0.5 * persist_margin)
+        if persist:
+            cached = _cached_surface(mcache, aabb_lo, aabb_hi)
+            extra = {k: _select(keep, cached[k], x) for k, x in extra.items()}
+        rows_i, rows_j, kvalid = extra["rows_i"], extra["rows_j"], extra["kvalid"]
     h1 = h[:, None]
     rest1 = restitution_threshold[:, None]
     g = tuple(gravity[:, c:c + 1] for c in range(3))
@@ -202,7 +370,32 @@ def fused_substep_plain(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, d
     posc, rotc, vc, wc = _comps(pos), _comps(rot), _comps(v), _comps(w)
     prev_pos, prev_rot = posc, rotc
     ps = (posc, rotc, vc, wc)
-    for _ in range(num_substeps):
+    memo = {}
+
+    def build(PA, PB, fresh):
+        # substep 0 with refresh: fresh contacts, kept in body frames
+        contacts = fresh()
+        memo["cache"] = pk.cache_contacts(contacts, PA, PB)
+        return contacts
+
+    def resolve(PA, PB, fresh):
+        # substep 0 with persistence: the kept or the rebuilt cache, refreshed
+        built = _pack_cache(pk.cache_contacts(fresh(), PA, PB))
+        memo["mcc"] = _select(keep, mcache[:, MC_ROWS:], built)
+        memo["cache"] = _parse_cache(memo["mcc"])
+        return pk.refresh_contacts(memo["cache"], PA, PB)
+
+    def refreshed(PA, PB, fresh):
+        return pk.refresh_contacts(memo["cache"], PA, PB)
+
+    for step in range(num_substeps):
+        contacts_at = None
+        if persist and step == 0:
+            contacts_at = resolve
+        elif refresh and step == 0 and num_substeps > 1:
+            contacts_at = build
+        elif refresh and step > 0:
+            contacts_at = refreshed
         prev_pos, prev_rot = posc, rotc
         pos_i, rot_i, v_i, w_i = _integrate(posc, rotc, vc, wc, im, ii_b, extf, extt, dyn,
                                             h1, g)
@@ -210,14 +403,23 @@ def fused_substep_plain(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, d
         p2, r2, v3, w3 = _solve_substep(pos_i, rot_i, v_i, w_i, prev_pos, prev_rot, pairs,
                                         kvalid, h1, rest1, tables=tables,
                                         relaxation=relaxation, speculative=speculative,
-                                        observe=observe)
+                                        observe=observe, contacts_at=contacts_at)
         posc = tuple(torch.where(dyn, a, b) for a, b in zip(p2, posc))
         rotc = tuple(torch.where(dyn, a, b) for a, b in zip(r2, rotc))
         vc = tuple(torch.where(dyn, a, 0.0) for a in v3)
         wc = tuple(torch.where(dyn, a, 0.0) for a in w3)
 
     vals = (posc, rotc, vc, wc, prev_pos, prev_rot) + ps
-    return {k: torch.stack(x, -1) for k, x in zip(OUT_KEYS, vals)}
+    out = {k: torch.stack(x, -1) for k, x in zip(OUT_KEYS, vals)}
+    if active is not None:
+        frozen = (pos, rot, v, w, pos, rot, pos, rot, v, w)
+        out = {k: _select(active, out[k], x) for k, x in zip(OUT_KEYS, frozen)}
+    if persist:
+        rows = torch.stack([rows_i.to(torch.float32), rows_j.to(torch.float32),
+                            kvalid.to(torch.float32)], dim=1)
+        rows = _select(keep, mcache[:, :MC_ROWS], rows)
+        extra["mcache"] = torch.cat([rows, memo["mcc"]], dim=1)
+    return extra | out
 
 
 def substep_plain(pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn, h,
@@ -252,7 +454,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_substep_launch.argtypes = (
-            [P] * 19 + [I] * 6 + [F, F, I] + [P] * 10 + [P])
+            [P] * 19 + [I] * 6 + [F, F, I] + [P] * 10 + [I, I, F] + [P] * 16 + [P])
         lib.fused_substep_launch.restype = I
         lib.substep_launch.argtypes = [P] * 18 + [I] * 5 + [F, F, I] + [P] * 4 + [P]
         lib.substep_launch.restype = I
@@ -260,8 +462,10 @@ def _lib():
     return lib
 
 
-def kernel_fits(tables: pk.ObjTables, n: int, K: int) -> str:
-    """'' when the kernel takes these tables and shapes, else why not."""
+def kernel_fits(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
+                cache: bool = False) -> str:
+    """'' when the kernel takes these tables and shapes (with the in-kernel
+    broadphase, with a manifold cache), else why not."""
     if not tables.all_box:
         return ("a non-box hull in the object tables: the kernel's general-hull "
                 "SAT waits (ROADMAP)")
@@ -269,8 +473,11 @@ def kernel_fits(tables: pk.ObjTables, n: int, K: int) -> str:
         return f"tables with {tables.Vm} verts per hull > {MAX_TABLE_VERTS}"
     if n < 1 or K < 1:
         return f"n={n} bodies and K={K} candidate slots must both be >= 1"
-    if smem_bytes(n, K) > MAX_SMEM_BYTES:
-        return (f"n={n} bodies and K={K} candidate slots need {smem_bytes(n, K)} B of "
+    if bp and n > MAX_BP_ROWS:
+        return f"the in-kernel broadphase takes at most {MAX_BP_ROWS} body rows, not {n}"
+    need = smem_bytes(n, K, bp, cache)
+    if need > MAX_SMEM_BYTES:
+        return (f"n={n} bodies and K={K} candidate slots need {need} B of "
                 f"shared memory, over the {MAX_SMEM_BYTES} B a block may have")
     return ""
 
@@ -281,7 +488,9 @@ _SPECS = {"pos": (torch.float32, 3), "rot": (torch.float32, 4), "v": (torch.floa
           "w": (torch.float32, 3), "prev_pos": (torch.float32, 3),
           "prev_rot": (torch.float32, 4), "im": (torch.float32, 0), "ii": (torch.float32, 3),
           "mu_s": (torch.float32, 0), "mu_d": (torch.float32, 0), "obj": (torch.int32, 0),
-          "ext_f": (torch.float32, 3), "ext_t": (torch.float32, 3), "dyn": (torch.bool, 0)}
+          "ext_f": (torch.float32, 3), "ext_t": (torch.float32, 3), "dyn": (torch.bool, 0),
+          "scale": (torch.float32, 3), "live": (torch.bool, 0),
+          "aabb_lo": (torch.float32, 3), "aabb_hi": (torch.float32, 3)}
 
 
 def _check_inputs(name, device, bodies, W, n, K, **others):
@@ -292,7 +501,9 @@ def _check_inputs(name, device, bodies, W, n, K, **others):
     world = {"h": (torch.float32, (W,)), "gravity": (torch.float32, (W, 3)),
              "restitution_threshold": (torch.float32, (W,)),
              "rows_i": (torch.int32, (W, K)), "rows_j": (torch.int32, (W, K)),
-             "kvalid": (torch.bool, (W, K))}
+             "kvalid": (torch.bool, (W, K)), "dtv": (torch.float32, (W,)),
+             "active": (torch.bool, (W,)), "stable": (torch.bool, (W,)),
+             "mcache": (torch.float32, (W, MC_CHANNELS, K))}
     checks += [(key, t) + world[key] for key, t in others.items()]
     for key, t, dt, shape in checks:
         if t.device != device:
@@ -304,45 +515,106 @@ def _check_inputs(name, device, bodies, W, n, K, **others):
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
+# the kernel's option bits (fused_substep_launch's opts)
+OPT_REFRESH, OPT_SLEEP, OPT_BP, OPT_PERSIST = 1, 2, 4, 8
+BP_KEYS = ("aabb_lo", "aabb_hi", "rows_i", "rows_j", "kvalid", "bp_count", "bp_dropped")
+
+
 def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
                   h, gravity, restitution_threshold, rows_i, rows_j, kvalid, *,
                   tables: pk.ObjTables, num_substeps: int, relaxation: float = 1.0,
-                  speculative: float = 0.0):
+                  speculative: float = 0.0, refresh: bool = False, active=None,
+                  bp_degree: int = 0, K: int = 0, scale=None, live=None, dtv=None,
+                  persist_margin: float = 0.0, mcache=None, stable=None, aabb_lo=None,
+                  aabb_hi=None):
     """All substeps of one physics step.  Body args [W, n(, 3/4)] (dyn
     bool, obj int32); pair args rows_i/rows_j [W, K] int32, kvalid [W, K]
-    bool; h, restitution_threshold [W]; gravity [W, 3].  Returns the dict
-    of OUT_KEYS.  CPU tensors: the plain version.  CUDA tensors: the
-    kernel, or a raise (bad input, tables or shapes the kernel does not
-    take, a failed launch) — never the plain version."""
+    bool; h, restitution_threshold [W]; gravity [W, 3]; the options as in
+    fused_substep_plain (active, live, stable bool; the rows None with
+    bp_degree).  Returns the dict of OUT_KEYS, with bp_degree also BP_KEYS,
+    with persist_margin also "mcache".  CPU tensors: the plain version.
+    CUDA tensors: the kernel, or a raise (bad input, tables or shapes the
+    kernel does not take, a failed launch) — never the plain version."""
+    bp, persist = bool(bp_degree), persist_margin > 0.0
+    if persist and not (bp and refresh):
+        raise ValueError("fused_substep: persist_margin needs bp_degree and refresh")
+    if bp and active is not None and not persist:
+        raise ValueError("fused_substep: sleep with the in-kernel broadphase needs "
+                         "persist_margin")
+    if persist and num_substeps < 1:
+        raise ValueError("fused_substep: persist_margin needs num_substeps >= 1")
     args = (pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
             h, gravity, restitution_threshold, rows_i, rows_j, kvalid)
+    opts = dict(refresh=refresh, active=active, bp_degree=bp_degree, K=K, scale=scale,
+                live=live, dtv=dtv, persist_margin=persist_margin, mcache=mcache,
+                stable=stable, aabb_lo=aabb_lo, aabb_hi=aabb_hi)
     kw = dict(tables=tables, num_substeps=num_substeps, relaxation=relaxation,
               speculative=speculative)
     if pos.device.type == "cpu":
-        return fused_substep_plain(*args, **kw)
+        return fused_substep_plain(*args, **kw, **opts)
     W, n = im.shape
-    K = rows_i.shape[1]
-    why = kernel_fits(tables, n, K)
+    if not bp:
+        K = rows_i.shape[1]
+    why = kernel_fits(tables, n, K, bp, refresh or persist)
     if why:
         raise NotImplementedError(f"fused_substep: {why}")
+    dev = pos.device
     named = dict(zip(("pos", "rot", "v", "w", "im", "ii", "mu_s", "mu_d", "obj",
                       "ext_f", "ext_t", "dyn"), args[:12]))
-    _check_inputs("fused_substep", pos.device, named, W, n, K, h=h, gravity=gravity,
-                  restitution_threshold=restitution_threshold, rows_i=rows_i, rows_j=rows_j,
-                  kvalid=kvalid)
-    table = tables.kernel_table(pos.device)
-    outs = {k: torch.empty((W, n, _WIDTH[k]), dtype=torch.float32, device=pos.device)
+    others = dict(h=h, gravity=gravity, restitution_threshold=restitution_threshold)
+    if bp:
+        named.update(scale=scale, live=live)
+        others.update(dtv=dtv)
+    else:
+        others.update(rows_i=rows_i, rows_j=rows_j, kvalid=kvalid)
+    if active is not None:
+        others.update(active=active)
+    if persist:
+        named.update(aabb_lo=aabb_lo, aabb_hi=aabb_hi)
+        others.update(mcache=mcache, stable=stable)
+    _check_inputs("fused_substep", dev, named, W, n, K, **others)
+    table = tables.kernel_table(dev)
+    outs = {k: torch.empty((W, n, _WIDTH[k]), dtype=torch.float32, device=dev)
             for k in OUT_KEYS}
-    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    extra = {}
+    if bp:
+        extra = {"aabb_lo": torch.empty((W, n, 3), dtype=torch.float32, device=dev),
+                 "aabb_hi": torch.empty((W, n, 3), dtype=torch.float32, device=dev),
+                 "rows_i": torch.empty((W, K), dtype=torch.int32, device=dev),
+                 "rows_j": torch.empty((W, K), dtype=torch.int32, device=dev),
+                 "kvalid": torch.empty((W, K), dtype=torch.bool, device=dev),
+                 "bp_count": torch.empty((W,), dtype=torch.int32, device=dev),
+                 "bp_dropped": torch.empty((W,), dtype=torch.int32, device=dev)}
+    if persist:
+        extra["mcache"] = torch.empty((W, MC_CHANNELS, K), dtype=torch.float32, device=dev)
+    code = ((OPT_REFRESH if refresh else 0) | (OPT_SLEEP if active is not None else 0)
+            | (OPT_BP if bp else 0) | (OPT_PERSIST if persist else 0))
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().fused_substep_launch(
-        *(t.data_ptr() for t in args), table.data_ptr(),
+        *(ptr(t) for t in args), table.data_ptr(),
         tables.O, tables.Vm, W, n, K, int(num_substeps), float(relaxation),
         float(speculative), int(tables.any_restitution),
-        *(outs[k].data_ptr() for k in OUT_KEYS), stream)
+        *(outs[k].data_ptr() for k in OUT_KEYS),
+        code, int(bp_degree), float(0.5 * persist_margin),
+        *(ptr(t) for t in (scale, live, dtv, active, stable, mcache, aabb_lo, aabb_hi)),
+        *(ptr(extra.get(k)) for k in BP_KEYS + ("mcache",)), stream)
     if rc != 0:
         raise RuntimeError(f"fused_substep: kernel launch failed with cudaError {rc}")
     FusedSubstepKernel.launches += 1
-    return outs
+    FusedSubstepKernel.launches_by_options[option_name(code)] += 1
+    return extra | outs
+
+
+def option_name(code: int) -> str:
+    """The kernel specialisation of option bits ``code``: "none", or its
+    options joined by "+" (e.g. "refresh+sleep+bp+persist")."""
+    names = [n for bit, n in ((OPT_REFRESH, "refresh"), (OPT_SLEEP, "sleep"), (OPT_BP, "bp"),
+                              (OPT_PERSIST, "persist")) if code & bit]
+    return "+".join(names) or "none"
 
 
 def substep(pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn, h,
@@ -414,26 +686,23 @@ class SubstepKernel:
 class FusedSubstepKernel:
     """All-substeps driver: one ``fused_substep`` call (one kernel launch on
     the card) per STEP, whatever the substep count.  The JAX driver's
-    signature and output dict; of its options only the defaults are
-    ported — contact_refresh, bp_degree (the in-kernel broadphase),
-    persist_margin and sleep (``active``) raise NotImplementedError
-    (ROADMAP).  ``interpret`` and ``wt`` are the TPU kernel's interpret
-    mode and world-block size; only their defaults are accepted.
+    signature and output dict, with all its options: contact_refresh,
+    bp_degree (the in-kernel broadphase over bp_slots(bp_capacity)
+    slots), persist_margin (persistent manifolds; needs bp_degree and
+    contact_refresh) and sleep (``active``).  ``interpret`` and ``wt`` are
+    the TPU kernel's interpret mode and world-block size; only their
+    defaults are accepted (one CTA a world is the TPU kernel's wt = 1).
 
-    ``launches`` counts the kernel launches (class-wide)."""
+    ``launches`` counts the kernel launches (class-wide), and
+    ``launches_by_options`` counts them by specialisation (option_name)."""
 
     launches = 0
+    launches_by_options = collections.Counter()
 
     def __init__(self, object_manager, num_substeps: int, relaxation: float = 1.0,
                  interpret: bool = False, wt=None, speculative: float = 0.0,
                  contact_refresh: bool = False, bp_degree: int = 0, bp_capacity: int = 0,
                  persist_margin: float = 0.0):
-        for name, val in (("contact_refresh", contact_refresh), ("bp_degree", bp_degree),
-                          ("bp_capacity", bp_capacity), ("persist_margin", persist_margin)):
-            if val:
-                raise NotImplementedError(
-                    f"FusedSubstepKernel: {name} is not ported yet (ROADMAP, "
-                    "'the fused kernel's options')")
         if interpret or wt is not None:
             raise ValueError("FusedSubstepKernel: interpret and wt are TPU kernel "
                              "settings with no meaning on the card")
@@ -441,28 +710,77 @@ class FusedSubstepKernel:
         self.num_substeps = int(num_substeps)
         self.relaxation = float(relaxation)
         self.speculative = float(speculative)
+        self.contact_refresh = bool(contact_refresh)
+        self.bp_degree = int(bp_degree)
+        self.bp_capacity = int(bp_capacity)
+        self.persist_margin = float(persist_margin)
+        if self.persist_margin > 0.0 and not (self.bp_degree and self.contact_refresh):
+            raise ValueError("persist_margin requires the in-kernel broadphase (bp_degree) "
+                             "and contact_refresh")
 
-    def __call__(self, *, pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
-                 h, gravity, restitution_threshold, rows_i=None, rows_j=None,
-                 kvalid=None, active=None, scale=None, live=None, dtv=None, mcache=None,
-                 stable=None, aabb_lo=None, aabb_hi=None):
+    def __call__(self, **kw):
         """Body args [W, n(, 3/4)]; pair args [W, K]; h and
-        restitution_threshold [W]; gravity [W, 3].  Returns the dict of
-        updated columns: pos, rot, v, w and the last substep's stashes
-        prev_pos, prev_rot, ps_pos, ps_rot, ps_v, ps_w."""
-        if rows_i is None or rows_j is None or kvalid is None:
-            raise NotImplementedError("FusedSubstepKernel: the in-kernel broadphase is "
-                                      "not ported yet (ROADMAP); pass rows_i/rows_j/kvalid")
-        if any(x is not None for x in (active, scale, live, dtv, mcache, stable,
-                                       aabb_lo, aabb_hi)):
-            raise NotImplementedError("FusedSubstepKernel: sleep and persistent "
-                                      "manifolds are not ported yet (ROADMAP)")
-        return fused_substep(
-            pos.contiguous(), rot.contiguous(), v.contiguous(), w.contiguous(),
-            im.contiguous(), ii.contiguous(), mu_s.contiguous(), mu_d.contiguous(),
-            obj.to(torch.int32).contiguous(), ext_f.contiguous(), ext_t.contiguous(),
-            dyn.to(torch.bool).contiguous(), h.contiguous(), gravity.contiguous(),
-            restitution_threshold.contiguous(), rows_i.to(torch.int32).contiguous(),
-            rows_j.to(torch.int32).contiguous(), kvalid.to(torch.bool).contiguous(),
-            tables=self.tables, num_substeps=self.num_substeps,
-            relaxation=self.relaxation, speculative=self.speculative)
+        restitution_threshold [W]; gravity [W, 3]; active [W] (true or 1 =
+        awake; None = all awake).  With bp_degree, omit the rows and pass
+        scale [W, n, 3] (default ones), live [W, n] (default all) and dtv
+        [W] (delta_t x velocity expansion, default 0); with
+        persist_margin, also mcache [W, MC_CHANNELS, K], stable [W] and
+        the current aabb_lo/hi [W, n, 3].  Returns the dict of updated
+        columns: pos, rot, v, w and the last substep's stashes prev_pos,
+        prev_rot, ps_pos, ps_rot, ps_v, ps_w; with bp_degree also
+        aabb_lo/hi, rows_i/j [W, K] int32, kvalid [W, K] bool, bp_count
+        and bp_dropped [W] int32; with persist_margin also "mcache"."""
+        args, opts = self._arguments(**kw)
+        return fused_substep(*args, **opts)
+
+    def plain(self, observe=None, **kw):
+        """The plain version on the same inputs, on their own device (how
+        the kernel is held to it); ``observe`` as in fused_substep_plain."""
+        args, opts = self._arguments(**kw)
+        return fused_substep_plain(*args, **opts, observe=observe)
+
+    def _arguments(self, *, pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
+                   h, gravity, restitution_threshold, rows_i=None, rows_j=None,
+                   kvalid=None, active=None, scale=None, live=None, dtv=None, mcache=None,
+                   stable=None, aabb_lo=None, aabb_hi=None):
+        """fused_substep's positional and keyword arguments for a call."""
+        W, n = im.shape
+        dev = pos.device
+
+        def flag(x):
+            return None if x is None else (x.to(torch.float32) > 0.5).contiguous()
+
+        opts = dict(tables=self.tables, num_substeps=self.num_substeps,
+                    relaxation=self.relaxation, speculative=self.speculative,
+                    refresh=self.contact_refresh, active=flag(active))
+        if self.bp_degree:
+            if rows_i is not None or rows_j is not None or kvalid is not None:
+                raise ValueError("FusedSubstepKernel: with bp_degree the kernel makes "
+                                 "the candidate rows; pass none")
+            opts.update(
+                bp_degree=self.bp_degree, K=bp_slots(self.bp_capacity),
+                scale=(torch.ones((W, n, 3), device=dev) if scale is None
+                       else scale.to(torch.float32).contiguous()),
+                live=(torch.ones((W, n), dtype=torch.bool, device=dev) if live is None
+                      else live.to(torch.bool).contiguous()),
+                dtv=(torch.zeros((W,), device=dev) if dtv is None
+                     else dtv.to(torch.float32).contiguous()))
+        elif rows_i is None or rows_j is None or kvalid is None:
+            raise ValueError("FusedSubstepKernel: pass rows_i/rows_j/kvalid (or build "
+                             "them with bp_degree)")
+        else:
+            rows_i, rows_j = (r.to(torch.int32).contiguous() for r in (rows_i, rows_j))
+            kvalid = kvalid.to(torch.bool).contiguous()
+        if self.persist_margin > 0.0:
+            if mcache is None or stable is None or aabb_lo is None or aabb_hi is None:
+                raise ValueError("FusedSubstepKernel: persist_margin needs mcache, stable "
+                                 "and aabb_lo/aabb_hi")
+            opts.update(persist_margin=self.persist_margin, mcache=mcache.contiguous(),
+                        stable=flag(stable), aabb_lo=aabb_lo.contiguous(),
+                        aabb_hi=aabb_hi.contiguous())
+        args = (pos.contiguous(), rot.contiguous(), v.contiguous(), w.contiguous(),
+                im.contiguous(), ii.contiguous(), mu_s.contiguous(), mu_d.contiguous(),
+                obj.to(torch.int32).contiguous(), ext_f.contiguous(), ext_t.contiguous(),
+                dyn.to(torch.bool).contiguous(), h.contiguous(), gravity.contiguous(),
+                restitution_threshold.contiguous(), rows_i, rows_j, kvalid)
+        return args, opts

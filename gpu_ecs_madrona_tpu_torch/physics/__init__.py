@@ -15,21 +15,27 @@ narrowphase -> positional solve -> velocity recovery -> velocity solve)
 -> cleanup of the temporaries.
 
 What is ported: broadphase ``mode="dense"`` (exact ``dense_degree=0`` and
-rank-compacted ``dense_degree>0``); ``contact_mode="pairs"`` (one node per
-substep, the pair math of physics/pairs.py, contact and event temporaries
-emitted lazily on the last substep) and ``contact_mode="pallas"``, which
-keeps the JAX spelling and means the substep kernels of
-ops/substep_kernel.py (the CUDA kernels for CUDA tensors, their plain
-versions for CPU tensors): without joints the fused substep kernel, one
-node and one launch per step; with a joint archetype of any capacity the
-single-substep kernel, one node and one launch per substep, the joints
-solved after each launch (as the JAX package does).  Joints
-(``make_fixed_joint``, ``make_hinge_joint``, ``solver.solve_joints``) run
-in both modes.  ``contact_mode="auto"`` picks "pallas" above 48 body rows
-on any device.  Everything else raises NotImplementedError naming its
-ROADMAP item: the dense contact mode (and "auto" at 48 rows or fewer),
-the sap and fused broadphases, contact_refresh, sleep and persistent
-manifolds.  ``raycast`` runs the renderer's ray functions
+rank-compacted ``dense_degree>0``) and ``mode="fused"`` (the broadphase
+inside the fused substep kernel, degree cap ``dense_degree or 12``; the
+substep node writes the AABB and LeafID columns and emits the candidate
+temporaries from the kernel's outputs); ``contact_mode="pairs"`` (one
+node per substep, the pair math of physics/pairs.py, contact and event
+temporaries emitted lazily on the last substep) and
+``contact_mode="pallas"``, which keeps the JAX spelling and means the
+substep kernels of ops/substep_kernel.py (the CUDA kernels for CUDA
+tensors, their plain versions for CPU tensors): without joints the fused
+substep kernel, one node and one launch per step, with its options
+contact_refresh, world sleep (``sleep_threshold``) and persistent
+manifolds (``manifold_persist``, with ``register_persistent_manifolds``);
+with a joint archetype of any capacity the single-substep kernel, one
+node and one launch per substep, the joints solved after each launch (as
+the JAX package does).  Joints (``make_fixed_joint``,
+``make_hinge_joint``, ``solver.solve_joints``) run in both modes.
+``contact_mode="auto"`` picks "pallas" above 48 body rows on any device.
+The options raise the JAX package's ValueErrors where they do not
+compose.  What is not ported raises NotImplementedError naming its
+ROADMAP item: the dense contact mode (and "auto" at 48 rows or fewer) and
+the sap broadphase.  ``raycast`` runs the renderer's ray functions
 (render/renderer.py).
 """
 
@@ -38,15 +44,22 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Sequence
 
+import numpy as np
 import torch
 
 from gpu_ecs_madrona_tpu_torch.core import base
-from gpu_ecs_madrona_tpu_torch.core.component import Archetype
+from gpu_ecs_madrona_tpu_torch.core.component import Archetype, singleton_component
 from gpu_ecs_madrona_tpu_torch.core.context import Context
 from gpu_ecs_madrona_tpu_torch.core.registry import ECSRegistry
 from gpu_ecs_madrona_tpu_torch.core.state import batched_gather
 from gpu_ecs_madrona_tpu_torch.core.taskgraph import NodeID, TaskGraphBuilder
-from gpu_ecs_madrona_tpu_torch.ops.substep_kernel import FusedSubstepKernel, SubstepKernel
+from gpu_ecs_madrona_tpu_torch.ops.substep_kernel import (
+    MAX_BP_ROWS,
+    MC_CHANNELS,
+    FusedSubstepKernel,
+    SubstepKernel,
+    bp_slots,
+)
 from gpu_ecs_madrona_tpu_torch.physics import assets  # noqa: F401  (public submodule)
 from gpu_ecs_madrona_tpu_torch.physics import pairs as pk
 from gpu_ecs_madrona_tpu_torch.physics import solver as solver_mod
@@ -123,6 +136,20 @@ def _tables_on(object_manager, device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _emit_candidates(ctx: Context, arch: Archetype, counts, rows_i, rows_j):
+    """The broadphase's observable output: CandidateTemporary (entity
+    handles, built lazily) and CandidateRowsTemporary (body rows) with
+    ``counts`` per world (a count over the capacity goes to the overflow
+    counter)."""
+    ents = ctx.entity_column(arch)
+    ctx.emit_temporaries(
+        CandidateTemporary, counts=counts, width=rows_i.shape[1],
+        values=lambda: {CandidateCollision: {"a": batched_gather(ents, rows_i),
+                                             "b": batched_gather(ents, rows_j)}})
+    ctx.emit_temporaries(CandidateRowsTemporary, counts=counts,
+                         values={CandidatePairRows: {"i": rows_i, "j": rows_j}})
+
+
 def _stable_topk_rows(flag, k):
     """Indices of the first k entries of flag [W, M] in descending order,
     lower index first among equals (lax.top_k's order on 0/1 values)."""
@@ -175,7 +202,19 @@ class RigidBodyPhysicsSystem:
     @staticmethod
     def register_persistent_manifolds(registry: ECSRegistry, body_archetype: Archetype,
                                       max_candidates: int):
-        _not_ported("persistent manifolds", "the fused kernel's options")
+        """Register the cross-step manifold cache singleton ``ManifoldPersist``
+        (setup_substep_tasks' manifold_persist), after the body archetype:
+        mc [MC_CHANNELS, K] (the cached rows and body-frame manifold, K =
+        the fused kernel's slots for max_candidates), apos [n, 3] and arot
+        [n, 4] (the poses the cache was built at), valid (int32).  The JAX
+        package's keys and shapes, so its states convert 1:1."""
+        n_cap = registry.archetypes[body_archetype.name].capacity
+        comp = singleton_component(
+            "ManifoldPersist", mc=((MC_CHANNELS, bp_slots(max_candidates)), torch.float32),
+            apos=((n_cap, 3), torch.float32), arot=((n_cap, 4), torch.float32),
+            valid=((), torch.int32))
+        registry.register_singleton(comp)
+        return comp
 
     @staticmethod
     def reset(ctx: Context):
@@ -206,13 +245,14 @@ class RigidBodyPhysicsSystem:
                 objtab["mu_s"][o], objtab["mu_d"][o])
 
     @staticmethod
-    def fused_kernel_inputs(ctx: Context, arch: Archetype, object_manager):
+    def fused_kernel_inputs(ctx: Context, arch: Archetype, object_manager, rows: bool = True):
         """The fused substep kernel's keyword inputs (FusedSubstepKernel's
         call) from the current state: body columns, the per-object
         constants (inverse mass and inertia zeroed on non-dynamic rows),
-        the solver singleton and this step's candidate rows (emitted by the
-        broadphase earlier in the step).  ``object_manager``: the object
-        manager dict, or its tensors from a previous call."""
+        the solver singleton and, with ``rows``, this step's candidate rows
+        (emitted by the broadphase earlier in the step).
+        ``object_manager``: the object manager dict, or its tensors from a
+        previous call."""
         objtab = object_manager if isinstance(object_manager.get("inv_mass"), torch.Tensor) \
             else _tables_on(object_manager, ctx.device)
         pos, rot, obj, mask, inv_mass, inv_inertia, mu_s, mu_d = \
@@ -220,14 +260,17 @@ class RigidBodyPhysicsSystem:
         dyn = (ctx.column(arch, ResponseType) == RESPONSE_DYNAMIC) & mask
         phys = ctx.singleton(PhysicsState)
         vel = ctx.column(arch, Velocity)
-        rows = ctx.column(CandidateRowsTemporary, CandidatePairRows)
-        return dict(
+        kw = dict(
             pos=pos, rot=rot, v=vel["linear"], w=vel["angular"],
             im=torch.where(dyn, inv_mass, 0.0), ii=torch.where(dyn[..., None], inv_inertia, 0.0),
             mu_s=mu_s, mu_d=mu_d, obj=obj, ext_f=ctx.column(arch, ExternalForce),
             ext_t=ctx.column(arch, ExternalTorque), dyn=dyn, h=phys["h"],
-            gravity=phys["gravity"], restitution_threshold=phys["restitution_threshold"],
-            rows_i=rows["i"], rows_j=rows["j"], kvalid=ctx.row_mask(CandidateRowsTemporary))
+            gravity=phys["gravity"], restitution_threshold=phys["restitution_threshold"])
+        if rows:
+            cand = ctx.column(CandidateRowsTemporary, CandidatePairRows)
+            kw.update(rows_i=cand["i"], rows_j=cand["j"],
+                      kvalid=ctx.row_mask(CandidateRowsTemporary))
+        return kw
 
     @staticmethod
     def substep_kernel_inputs(fused_kw):
@@ -247,17 +290,30 @@ class RigidBodyPhysicsSystem:
 
     @staticmethod
     def next_step_kernel_inputs(sim, arch: Archetype, object_manager):
-        """fused_kernel_inputs for the next step of executor ``sim``: the
-        step's nodes before its first substep node (the fused kernel's, or
-        the first of the per-substep ones) run on a Context over a copy of
-        ``sim.state``, which stays as it was."""
+        """The fused kernel's inputs for the next step of executor ``sim``:
+        the step's nodes before its first substep node run on a Context
+        over a copy of ``sim.state``, which stays as it was; then the fused
+        node's own inputs (its options' too: the broadphase's, the sleep
+        flags, the persistent cache and its stable flags), or for the
+        per-substep nodes fused_kernel_inputs."""
         ctx = Context(sim.mgr, sim.state)
         for node in sim.graph.nodes:
-            if node.name == FUSED_NODE or node.name == "physics_substep_0":
+            if node.name == FUSED_NODE:
+                return node.run.kernel_inputs(ctx)
+            if node.name == "physics_substep_0":
                 return RigidBodyPhysicsSystem.fused_kernel_inputs(ctx, arch, object_manager)
             node.run(ctx)
         raise ValueError(f"the executor's graph has no {FUSED_NODE!r} or "
                          "'physics_substep_0' node")
+
+    @staticmethod
+    def fused_kernel(sim) -> FusedSubstepKernel:
+        """The FusedSubstepKernel of executor ``sim``'s fused substep node
+        (its options as the graph was built)."""
+        for node in sim.graph.nodes:
+            if node.name == FUSED_NODE:
+                return node.run.kernel
+        raise ValueError(f"the executor's graph has no {FUSED_NODE!r} node")
 
     # ------------------------------------------------------------------
 
@@ -278,7 +334,12 @@ class RigidBodyPhysicsSystem:
         the rank compaction — each higher row keeps its first D lower
         partners, slot = base[owner] + rank; pairs over the cap are
         counted in CandidateRowsTemporary's overflow counter.
-        mode "auto" is dense up to 192 body rows; "sap" and "fused" wait."""
+        mode "fused": the same rank compaction with D = dense_degree or 12,
+        inside the fused substep kernel (at most 128 body rows;
+        contact_mode "pallas" without joints): this registers a marker
+        node, and the substep node writes the CollisionAABB and LeafID
+        columns and the candidate temporaries.
+        mode "auto" is dense up to 192 body rows; "sap" waits."""
         arch = body_archetype
         cap_n = builder.mgr.registry.archetypes[arch.name].capacity
         if mode == "auto":
@@ -287,10 +348,18 @@ class RigidBodyPhysicsSystem:
             raise ValueError(f"unknown broadphase mode {mode!r}")
         if mode == "sap":
             _not_ported("broadphase_mode='sap' (and 'auto' above 192 rows)",
-                        "the fused kernel's options: the SAP broadphase")
+                        "the SAP broadphase")
         if mode == "fused":
-            _not_ported("broadphase_mode='fused'",
-                        "the fused kernel's options: in-kernel broadphase (kernel 8)")
+            if cap_n > MAX_BP_ROWS:
+                raise ValueError(f"fused broadphase requires body capacity <= "
+                                 f"{MAX_BP_ROWS} (got {cap_n})")
+            builder.fused_broadphase = {"degree": dense_degree or 12,
+                                        "vexp": float(velocity_expansion)}
+
+            def bp_fused_marker(ctx: Context):
+                pass
+
+            return builder.add_node(bp_fused_marker, deps, name="bp_fused_marker")
         dev = builder.mgr.device
         objtab = _tables_on(object_manager, dev)
         W = builder.mgr.num_worlds
@@ -327,15 +396,6 @@ class RigidBodyPhysicsSystem:
 
         n_aabb = builder.add_node(update_aabbs, deps, name="bp_update_aabbs")
 
-        def emit_candidates(ctx: Context, counts, rows_i, rows_j):
-            ents = ctx.entity_column(arch)
-            ctx.emit_temporaries(
-                CandidateTemporary, counts=counts, width=rows_i.shape[1],
-                values=lambda: {CandidateCollision: {"a": batched_gather(ents, rows_i),
-                                                     "b": batched_gather(ents, rows_j)}})
-            ctx.emit_temporaries(CandidateRowsTemporary, counts=counts,
-                                 values={CandidatePairRows: {"i": rows_i, "j": rows_j}})
-
         def find_overlaps(ctx: Context):
             # reference findOverlappingEntry (broadphase.cpp:897-932)
             aabb = ctx.column(arch, CollisionAABB)
@@ -347,7 +407,7 @@ class RigidBodyPhysicsSystem:
             counts = ok.sum(dim=(1, 2), dtype=torch.int32)
             if not dense_degree:
                 pair_idx = _stable_topk_rows(ok.reshape(W, n * n), k_eff).to(torch.int32)
-                emit_candidates(ctx, counts, pair_idx // n, pair_idx % n)
+                _emit_candidates(ctx, arch, counts, pair_idx // n, pair_idx % n)
                 return
             D = min(dense_degree, n)
             # owner = the higher row j, its partners the lower rows i < j
@@ -356,8 +416,8 @@ class RigidBodyPhysicsSystem:
             debug.check(excess == 0, f"dense rank-compaction degree cap {D} exceeded: "
                         "dropped pairs={} per world", excess)
             ctx.add_overflow(CandidateRowsTemporary, excess)
-            emit_candidates(ctx, counts - excess, ab[..., 1].contiguous(),
-                            ab[..., 0].contiguous())
+            _emit_candidates(ctx, arch, counts - excess, ab[..., 1].contiguous(),
+                             ab[..., 0].contiguous())
 
         return builder.add_node(find_overlaps, [n_aabb], name="bp_find_overlaps")
 
@@ -391,8 +451,25 @@ class RigidBodyPhysicsSystem:
                     fewer (the dense mode) it raises.
         speculative_margin > 0: speculative-contact CCD (near-miss
         contacts clamp approach speed to depth/h in the velocity pass).
-        contact_refresh, sleep_threshold > 0, manifold_persist and
-        contact_mode="dense" raise NotImplementedError (ROADMAP);
+
+        The fused kernel's options (contact_mode "pallas" without joints;
+        "pairs" ignores contact_refresh and manifold_persist, as the JAX
+        package does):
+          contact_refresh: SAT and clip on the first substep only, the
+                    manifold moved with the bodies on the others.
+          sleep_threshold > 0: a world whose dynamic bodies stay below it
+                    (|v|^2 + |w|^2 < thr^2) with no external force or
+                    torque for sleep_frames steps is asleep (SleepState)
+                    and frozen bit for bit until woken.
+          manifold_persist (with broadphase "fused", contact_refresh and
+                    register_persistent_manifolds): a world whose bodies'
+                    surfaces moved less than persist_margin / 2 since its
+                    cache was built, and cannot within this step, keeps
+                    its candidates and manifolds (ManifoldPersist) and
+                    skips the broadphase and SAT; the others rebuild with
+                    AABBs inflated by persist_margin / 2.
+        The JAX package's ValueErrors where the options do not compose.
+        contact_mode="dense" raises NotImplementedError (ROADMAP);
         substep_wt (the TPU kernel's world block) must stay None."""
         arch = body_archetype
         cap_n = builder.mgr.registry.archetypes[arch.name].capacity
@@ -403,17 +480,41 @@ class RigidBodyPhysicsSystem:
         if contact_mode == "dense":
             _not_ported("contact_mode='dense' (and 'auto' at 48 rows or fewer)",
                         "the dense contact mode")
-        if contact_refresh:
-            _not_ported("contact_refresh", "the fused kernel's options")
-        if sleep_threshold > 0.0:
-            _not_ported("sleep_threshold > 0", "the fused kernel's options")
-        if manifold_persist:
-            _not_ported("manifold_persist", "the fused kernel's options")
         jinfo = builder.mgr.registry.archetypes.get(JointArchetype.name)
         has_joints = jinfo is not None and jinfo.capacity > 0
         if substep_wt is not None:
             raise ValueError("substep_wt is the TPU kernel's world-block size; "
                              "it has no meaning here")
+        fused_bp = getattr(builder, "fused_broadphase", None)
+        fused = contact_mode == "pallas" and not has_joints
+        if contact_mode == "pallas" and has_joints and contact_refresh:
+            raise ValueError(
+                "contact_refresh requires the fused substep kernel; worlds with joints run "
+                "the per-substep kernel (joints interleave between the positional and "
+                "velocity phases) — drop contact_refresh or joints")
+        if fused and manifold_persist:
+            if fused_bp is None or not contact_refresh:
+                raise ValueError(
+                    "manifold_persist requires broadphase mode 'fused' and "
+                    "contact_refresh=True (the cache lives in the fused kernel and extends "
+                    "the refresh across steps)")
+            if "ManifoldPersist" not in builder.mgr.registry.singletons:
+                raise ValueError("manifold_persist: call register_persistent_manifolds "
+                                 "from the world's register_types")
+        if sleep_threshold > 0.0 and not fused:
+            raise ValueError("sleep_threshold requires the fused substep kernel "
+                             "(contact_mode='pallas', no joints)")
+        if fused_bp is not None:
+            if not fused:
+                raise ValueError(
+                    "broadphase mode 'fused' requires contact_mode='pallas' without joints "
+                    f"(the broadphase lives inside the fused kernel; got {contact_mode!r}, "
+                    f"joints={has_joints})")
+            if sleep_threshold > 0.0 and not manifold_persist:
+                raise ValueError(
+                    "broadphase mode 'fused' composes with sleep_threshold only through "
+                    "manifold_persist (the sleep passthrough echoes the persistent "
+                    "cache's AABB/pair surface)")
         dev = builder.mgr.device
         objtab = _tables_on(object_manager, dev)
         W = builder.mgr.num_worlds
@@ -497,14 +598,99 @@ class RigidBodyPhysicsSystem:
             return last[0]
 
         if contact_mode == "pallas":
-            fused_kernel = FusedSubstepKernel(object_manager, num_substeps=num_substeps,
-                                              relaxation=relaxation,
-                                              speculative=speculative_margin)
+            cand_cap = builder.mgr.registry.archetypes[CandidateRowsTemporary.name].capacity
+            fused_kernel = FusedSubstepKernel(
+                object_manager, num_substeps=num_substeps, relaxation=relaxation,
+                speculative=speculative_margin, contact_refresh=contact_refresh,
+                bp_degree=fused_bp["degree"] if fused_bp else 0,
+                bp_capacity=cand_cap if fused_bp else 0,
+                persist_margin=persist_margin if manifold_persist else 0.0)
+            if manifold_persist:
+                mpcomp = builder.mgr.registry.singletons["ManifoldPersist"]
+                # each object's bounding radius (the rotation term's lever)
+                lo = np.asarray(object_manager["local_aabb_lo"])
+                hi = np.asarray(object_manager["local_aabb_hi"])
+                r_tab = torch.as_tensor(np.linalg.norm(np.maximum(np.abs(lo), np.abs(hi)),
+                                                       axis=-1).astype(np.float32), device=dev)
+            leaf = torch.arange(cap_n, dtype=torch.int32, device=dev).expand(W, cap_n)
+
+            def norm(x):
+                return torch.sqrt((x * x).sum(-1))
+
+            def kernel_inputs(ctx: Context):
+                """The kernel's inputs from the step's state, its options'
+                too; updates SleepState under sleep."""
+                kw = RigidBodyPhysicsSystem.fused_kernel_inputs(ctx, arch, objtab,
+                                                                rows=fused_bp is None)
+                phys = ctx.singleton(PhysicsState)
+                dyn = kw["dyn"]
+                if fused_bp is not None:
+                    kw.update(scale=ctx.column(arch, base.Scale), live=ctx.row_mask(arch),
+                              dtv=phys["delta_t"] * fused_bp["vexp"])
+                if sleep_threshold > 0.0 or manifold_persist:
+                    forced = dyn & ((kw["ext_f"] != 0.0).any(-1) | (kw["ext_t"] != 0.0).any(-1))
+                if sleep_threshold > 0.0:
+                    # asleep after sleep_frames quiet steps (the count saturates)
+                    sl = ctx.singleton(SleepState)
+                    sp2 = (kw["v"] ** 2).sum(-1) + (kw["w"] ** 2).sum(-1)
+                    moving = (dyn & (sp2 > sleep_threshold ** 2)).any(1)
+                    quiet = ~(moving | forced.any(1))
+                    qs = torch.clamp(torch.where(quiet, sl["quiet_steps"] + 1, 0),
+                                     max=sleep_frames)
+                    asleep = qs >= sleep_frames
+                    ctx.set_singleton(SleepState, {"quiet_steps": qs,
+                                                   "asleep": asleep.to(torch.int32)})
+                    kw["active"] = ~asleep
+                if manifold_persist:
+                    # stable: every dynamic body's surface moved less than
+                    # margin / 2 since the cache was built (|dpos| + pi |dq| r)
+                    # and cannot by the end of this step ((|v| + |w| r) dt),
+                    # with no external force or torque; and the cache is valid
+                    mp = ctx.singleton(mpcomp)
+                    aabb = ctx.column(arch, CollisionAABB)
+                    rad = r_tab[kw["obj"].long()] * ctx.column(arch, base.Scale).amax(-1)
+                    carry = (norm(kw["v"]) + norm(kw["w"]) * rad) * phys["delta_t"][:, None]
+                    move = (norm(kw["pos"] - mp["apos"]) + math.pi * norm(kw["rot"] - mp["arot"])
+                            * rad + carry)
+                    moving = dyn & (move >= 0.5 * persist_margin)
+                    kw.update(mcache=mp["mc"], aabb_lo=aabb["lo"], aabb_hi=aabb["hi"],
+                              stable=(mp["valid"] > 0) & ~(moving | forced).any(1))
+                return kw
 
             def substeps_fused(ctx: Context):
-                kw = RigidBodyPhysicsSystem.fused_kernel_inputs(ctx, arch, objtab)
+                kw = kernel_inputs(ctx)
                 out = fused_kernel(**kw)
                 dyn, vel = kw["dyn"], ctx.column(arch, Velocity)
+                if manifold_persist:
+                    # re-anchor the worlds whose cache the kernel rebuilt
+                    # (unstable and awake) at the step's starting pose; a
+                    # rebuild that dropped pairs is not valid
+                    mp = ctx.singleton(mpcomp)
+                    rebuilt = ~kw["stable"]
+                    if "active" in kw:
+                        rebuilt = rebuilt & kw["active"]
+                    keep3 = ~rebuilt[:, None, None]
+                    ctx.set_singleton(mpcomp, {
+                        "mc": out["mcache"],
+                        "apos": torch.where(keep3, mp["apos"], kw["pos"]),
+                        "arot": torch.where(keep3, mp["arot"], kw["rot"]),
+                        "valid": torch.where(rebuilt, (out["bp_dropped"] == 0).to(torch.int32),
+                                             mp["valid"])})
+                if fused_bp is not None:
+                    # the broadphase's observable surface, from the kernel's outputs
+                    ctx.set_column(arch, CollisionAABB, {"lo": out["aabb_lo"],
+                                                         "hi": out["aabb_hi"]})
+                    ctx.set_column(arch, LeafID, leaf)
+                    debug.check(out["bp_dropped"] == 0,
+                                f"fused broadphase degree cap {fused_bp['degree']} exceeded: "
+                                "dropped pairs={} per world — raise dense_degree",
+                                out["bp_dropped"])
+                    ctx.add_overflow(CandidateRowsTemporary, out["bp_dropped"])
+                    # the kernel's slots are whole 128-slot tiles: the capacity's
+                    # first ones go out (a count above it is overflow)
+                    _emit_candidates(ctx, arch, out["bp_count"],
+                                     out["rows_i"][:, :cand_cap].contiguous(),
+                                     out["rows_j"][:, :cand_cap].contiguous())
                 ctx.set_column(arch, base.Position, out["pos"])
                 ctx.set_column(arch, base.Rotation, out["rot"])
                 keep = dyn[..., None]
@@ -516,6 +702,8 @@ class RigidBodyPhysicsSystem:
                 ctx.set_column(arch, PreSolvePositional, {"x": out["ps_pos"], "q": out["ps_rot"]})
                 ctx.set_column(arch, PreSolveVelocity, {"v": out["ps_v"], "omega": out["ps_w"]})
 
+            substeps_fused.kernel_inputs = kernel_inputs
+            substeps_fused.kernel = fused_kernel
             return builder.add_node(substeps_fused, list(deps), name=FUSED_NODE)
 
         tables = pk.ObjTables(object_manager)

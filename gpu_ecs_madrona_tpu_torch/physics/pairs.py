@@ -264,10 +264,11 @@ class ObjTables:
         return self.tab(key, obj.device)[obj.long(), idx].transpose(1, 2)
 
     def kernel_table(self, device):
-        """The table the CUDA kernel reads: [O, 7 + 3 Vm] float32, per
+        """The table the CUDA kernel reads: [O, 13 + 3 Vm] float32, per
         object (prim_type, sphere_radius, box_half xyz, restitution,
-        num_verts, verts).  Built and copied once per device, so a step
-        queues no host-to-device copy (which would wait for the stream)."""
+        num_verts, verts, local_aabb_lo xyz, local_aabb_hi xyz).  Built and
+        copied once per device, so a step queues no host-to-device copy
+        (which would wait for the stream)."""
         tabs = self._by_device.setdefault(torch.device(device), {})
         t = tabs.get("_kernel")
         if t is None:
@@ -277,7 +278,8 @@ class ObjTables:
                 om["sphere_radius"][:, None], om["box_half"],
                 om["restitution"][:, None],
                 om["num_verts"][:, None].astype(np.float32),
-                om["verts"].reshape(self.O, -1)], axis=1).astype(np.float32)
+                om["verts"].reshape(self.O, -1),
+                om["local_aabb_lo"], om["local_aabb_hi"]], axis=1).astype(np.float32)
             t = torch.as_tensor(np.ascontiguousarray(rows), device=device)
             tabs["_kernel"] = t
         return t
@@ -895,6 +897,34 @@ def positional_pass(sideA, sideB, contacts, relaxation=1.0, max_visible_depth=0.
                 s(dx[0] * bias_frac), s(dx[1] * bias_frac), s(dx[2] * bias_frac))
 
     return pack(dxA, dwA), pack(dxB, dwB), torch.where(pt_ok, dlam, 0.0)
+
+
+def cache_contacts(contacts, PA, PB):
+    """A pair_contacts manifold in body frames, for refresh_contacts: each
+    point's anchor on A and on B, and the normal, rotated into the body's
+    frame at the pair poses PA / PB (the fused kernel's contact refresh
+    and persistent manifolds; JAX pairs.cache_contacts)."""
+    pts = contacts["points"]                             # vec3 [W,P,K]
+    qAc = (PA["rot"][0],) + tuple(-c for c in PA["rot"][1:])
+    qBc = (PB["rot"][0],) + tuple(-c for c in PB["rot"][1:])
+    rA = qrot(tuple(expand(c) for c in qAc), v3sub(pts, vexpand(PA["pos"])))
+    rB = qrot(tuple(expand(c) for c in qBc), v3sub(pts, vexpand(PB["pos"])))
+    return {"ok": contacts["ok"], "num_points": contacts["num_points"],
+            "depth0": contacts["depth"], "rA": rA, "rB": rB,
+            "n_loc": qrot(qAc, contacts["normal"])}
+
+
+def refresh_contacts(cache, PA, PB):
+    """A cache_contacts manifold at the pair poses PA / PB: each point the
+    midpoint of its two anchors in world space, the normal rotated with A,
+    the depth moved by the anchors' divergence along the normal (they
+    coincide at the poses the cache was made at)."""
+    pA = v3add(vexpand(PA["pos"]), qrot(tuple(expand(c) for c in PA["rot"]), cache["rA"]))
+    pB = v3add(vexpand(PB["pos"]), qrot(tuple(expand(c) for c in PB["rot"]), cache["rB"]))
+    n = qrot(PA["rot"], cache["n_loc"])
+    depth = cache["depth0"] - dot3(vexpand(n), v3sub(pB, pA))
+    return {"ok": cache["ok"], "normal": n, "points": v3scale(v3add(pA, pB), 0.5),
+            "depth": depth, "num_points": cache["num_points"]}
 
 
 def velocity_pass(sideA, sideB, contacts, lambda_n, h, restitution_threshold,

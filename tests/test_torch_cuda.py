@@ -9,10 +9,13 @@ Each CUDA kernel is held against its plain PyTorch version on the card
 integer outputs exact; the fused and single-substep kernels' poses and
 stashes atol 1e-4, velocities atol 1e-3, and two launches on one input
 bit-identical;
+the fused kernel's options (contact refresh, sleep, the in-kernel
+broadphase, persistent manifolds) likewise, their integer outputs exact
+and the manifold cache and AABBs atol 1e-4;
 the render kernel's hit mask exact, depth and float rgb atol 1e-5, a
-repeat bit-identical), and the collisions, simple_jobs, rigid_bench and
-simple_taskgraph slices on the card against the same slices on the CPU
-(plain versions), positions atol 1e-4.
+repeat bit-identical), and the collisions, simple_jobs, rigid_bench (also
+its settled pile) and simple_taskgraph slices on the card against the
+same slices on the CPU (plain versions), positions atol 1e-4.
 """
 
 import numpy as np
@@ -338,6 +341,107 @@ def test_rigid_bench_step_waits_for_nothing(card):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert subk.FusedSubstepKernel.launches == 4
+
+
+# the fused kernel's options, each on its rigid_bench configuration (rows
+# given unless the broadphase is fused); sleep and stable flags are set to
+# mixes before the call
+OPTION_CASES = {
+    "refresh_K256": dict(contact_refresh=True, max_candidates=256),
+    "refresh_K128": dict(contact_refresh=True, max_candidates=128),
+    "sleep": dict(sleep_threshold=0.02),
+    "bp": dict(broadphase_mode="fused"),
+    "bp_refresh": dict(broadphase_mode="fused", contact_refresh=True),
+    "persist_sleep": dict(rb.SETTLED_PILE, spawn="uniform"),
+}
+INT_KEYS = ("rows_i", "rows_j", "kvalid", "bp_count", "bp_dropped")
+
+
+def option_case(case, dev, W=64):
+    """(kernel, inputs) of an option case at a mid-pile state, with every
+    branch taken: awake and asleep, stable and rebuilding worlds."""
+    cfg = dict(dict(contact_mode="pallas", spawn_xy=4.0, spawn_h=6.0, seed=3),
+               **OPTION_CASES[case])
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=W, **cfg), device=dev)
+    sim.run(6)
+    kw = fused_inputs(sim)
+    worlds = torch.arange(W, device=dev)
+    if "active" in kw:
+        kw["active"] = worlds % 3 != 1
+    if "stable" in kw:
+        kw["stable"] = worlds % 2 == 0
+    return RigidBodyPhysicsSystem.fused_kernel(sim), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(OPTION_CASES))
+def test_fused_substep_options_match_plain(card, case):
+    """Each option's kernel specialisation against the plain version on the
+    same inputs: integers exact, poses, stashes, AABBs and the manifold
+    cache atol 1e-4, velocities atol 1e-3; two launches bit-identical."""
+    kern, kw = option_case(case, card)
+    subk.FusedSubstepKernel.launches = 0
+    got, again = kern(**kw), kern(**kw)
+    torch.cuda.synchronize()
+    assert subk.FusedSubstepKernel.launches == 2
+    want = kern.plain(**kw)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], again[k]), k
+        if k in INT_KEYS:
+            assert torch.equal(got[k], want[k]), k
+            continue
+        assert torch.isfinite(got[k]).all(), k
+        atol = 1e-4 if k in POSE_KEYS or k in ("aabb_lo", "aabb_hi", "mcache") else 1e-3
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=atol, msg=k)
+    if "bp_count" in got:
+        assert int(got["bp_count"].sum()) > 64
+
+
+@pytest.mark.cuda
+def test_settled_step_waits_for_nothing(card):
+    """A step of the settled pile's configuration (the broadphase in the
+    kernel, refresh, sleep, persistent manifolds) queues its work and
+    returns: the stable and sleep flags stay on the card."""
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=16, **rb.SETTLED_PILE), device="cuda")
+    sim.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            sim.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert subk.FusedSubstepKernel.launches == 4
+
+
+@pytest.mark.cuda
+def test_settled_pile_on_card_matches_cpu(card):
+    """Six steps of the settled pile's configuration on the card (the
+    kernel) and on the CPU (its plain version) from one state: positions,
+    the manifold cache's rows and the sleep state alike."""
+    cfg = rb.RigidBenchConfig(num_worlds=8, num_bodies=20, spawn_xy=3.0, seed=5,
+                              **rb.SETTLED_PILE)
+    cpu = rb.make_executor(cfg, device="cpu")
+    gpu = rb.make_executor(cfg, device="cuda")
+    gpu.state = state_from_numpy(state_to_numpy(cpu.state), card)
+    for _ in range(6):
+        cpu.step()
+        gpu.step()
+    torch.cuda.synchronize()
+    assert subk.FusedSubstepKernel.launches == 6
+    a, b = state_to_numpy(cpu.state), state_to_numpy(gpu.state)
+    np.testing.assert_allclose(b["arch"]["RigidBenchBody"]["comps"]["Position"]["value"],
+                               a["arch"]["RigidBenchBody"]["comps"]["Position"]["value"],
+                               atol=1e-4, rtol=0)
+    for key in ("ManifoldPersist", "SleepState"):
+        for f, x in a["singleton"][key].items():
+            if f == "mc":
+                np.testing.assert_array_equal(b["singleton"][key][f][:, :3], x[:, :3])
+            else:
+                np.testing.assert_allclose(b["singleton"][key][f], x, atol=1e-4, rtol=0,
+                                           err_msg=f"{key}.{f}")
 
 
 RENDER_INPUTS = ("ro", "rd", "pos", "rot", "scale", "obj", "mask")

@@ -166,14 +166,8 @@ NOT_PORTED = {
     "contact_mode=dense": _bench(contact_mode="dense"),
     "auto at 48 rows or fewer": _bench(contact_mode="auto"),
     "broadphase sap": _bench(contact_mode="pallas", broadphase_mode="sap"),
-    "broadphase fused": _bench(contact_mode="pallas", broadphase_mode="fused"),
     "auto broadphase above 192 rows": lambda: rb.make_executor(rb.RigidBenchConfig(
         num_worlds=1, num_bodies=200, contact_mode="pallas"), device="cpu"),
-    "contact_refresh": _bench(contact_mode="pallas", contact_refresh=True),
-    "sleep": _bench(contact_mode="pallas", sleep_threshold=0.02),
-    "manifold_persist": _bench(contact_mode="pallas", manifold_persist=True),
-    "kernel bp_degree": lambda: sk.FusedSubstepKernel(rb.default_object_manager(), 4,
-                                                      bp_degree=12),
 }
 
 
@@ -249,4 +243,4 @@ def test_kernel_table_is_built_once_per_device():
     tables = sk.pk.ObjTables(rb.default_object_manager())
     t = tables.kernel_table("cpu")
     assert tables.kernel_table(torch.device("cpu")) is t
-    assert t.dtype == torch.float32 and tuple(t.shape) == (tables.O, 7 + 3 * tables.Vm)
+    assert t.dtype == torch.float32 and tuple(t.shape) == (tables.O, 13 + 3 * tables.Vm)
