@@ -136,7 +136,13 @@ Phases:
            states (kernel 8 with refresh also at the settled A/B's), their
            operations counted over the awake worlds (options_work: contact
            tests only where contacts are made afresh, refreshes and cache
-           builds by slot, the broadphase of the rebuilding worlds)
+           builds by slot, the broadphase of the rebuilding worlds), each
+           with its valid slots by contact kind.  substep_occupancy: each
+           fused specialisation's [threads a CTA, CTAs an SM] at 65 rows and
+           K = 256 and 128, and the single-substep kernel's at 104 rows, K =
+           1000 (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through
+           ops.substep_kernel.occupancy); the build phase's ptxas lines give
+           each kernel's registers, stack frame and spills
 """
 
 import json
@@ -1011,14 +1017,18 @@ def options_bound(kw, kern, out, ops):
 
 def option_timing(torch, kern, kw):
     """CUDA-event time of a kernel with options (20 calls) and of its plain
-    version (3) on inputs ``kw``, beside the bound."""
+    version (3) on inputs ``kw``, beside the bound; the valid slots by
+    contact kind (the given rows, or the broadphase's)."""
     out = kern(**kw)
     ops, work = options_work(torch, kern, kw, out)
     b_ms, b_by = options_bound(kw, kern, out, ops)
+    rows = kw if "rows_i" in kw else out
+    slots = pair_kinds(torch, dict(kw, rows_i=rows["rows_i"], rows_j=rows["rows_j"],
+                                   kvalid=rows["kvalid"]), kern.tables)
     return {"ms": cuda_ms(torch, lambda: kern(**kw), 20),
             "plain_ms": cuda_ms(torch, lambda: kern.plain(**kw), 3, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "work": work,
-            "branches": branches(torch, kw)}
+            "branches": branches(torch, kw), "slots_by_kind": slots}
 
 
 # -- the batch renderer: the render kernel ------------------------------------
@@ -1565,6 +1575,13 @@ def main(argv):
                     "work_over_substeps": work,
                     "pairs_per_world_max": int(rows.max())}
 
+    # the fused kernel's launch shape by specialisation at the main shapes,
+    # and the single-substep kernel's at simple_taskgraph's: [threads a CTA,
+    # CTAs an SM]
+    occupancy = {"fused_n65_K256": subk.occupancy(RB_BODIES + 1, 256),
+                 "fused_n65_K128": subk.occupancy(RB_BODIES + 1, 128),
+                 "substep_n104_K1000": subk.occupancy(104, 1000, single=True)}
+
     # kernels 8 and 9 at their main paths' states (and kernel 8 with refresh
     # at the settled pile without persistence)
     def executor_case(sim):
@@ -1638,6 +1655,7 @@ def main(argv):
               "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
               "live_pairs": slive, "overlapping_pairs": sover},
           "fused_substep_K256": sub_t[256], "fused_substep_K128": sub_t[128],
+          "substep_occupancy": occupancy,
           "fused_substep_options": opt_t,
           "substep": sub1_t, "render": render_t,
           "library_ms": "none: no single PyTorch call computes any of these functions",

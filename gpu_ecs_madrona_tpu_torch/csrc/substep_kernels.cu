@@ -7,11 +7,12 @@
 // (ctypes).  The launch goes on the caller's stream, allocates nothing, and
 // returns cudaGetLastError().
 //
-// fused_substep_kernel
+// fused_substep_kernel<OPTS>
 //   Replaces gpu_ecs_madrona_tpu/ops/substep_kernel.py: _run_fused, the
 //   unchunked pallas_call (K <= 128, :1257) and the K-slab chunked one
-//   (K > 128, :1241) — one kernel for both capacities, without the in-kernel
-//   broadphase, contact refresh, sleep or persistent manifolds.
+//   (K > 128, :1241) — one kernel for both capacities — and, as
+//   compile-time options (OPTS, kOpt*), its contact refresh, world sleep,
+//   in-kernel broadphase (:1278) and persistent manifolds (:1214).
 //   Computes, per world and for each of num_substeps substeps (the JAX
 //   kernel's loop, _make_fused_kernel):
 //     1. semi-implicit Euler integrate with the gyroscopic term (_integrate);
@@ -37,34 +38,69 @@
 //   solves the joints after it, in PyTorch).  Outputs pose and velocities.
 //   Both kernels share the layout, the slot lists and steps 2-9
 //   (solve_substep), so they cannot drift apart.
-//   Work: at 8192 worlds x 65 rows x K = 256 slots a call moves
-//   W (65 x 237 B + K x 9 B + 20 B) ~ 145 MB (~0.043 ms at 3.35 TB/s): each
-//   body row's inputs and its pose, velocity and six stashes out.  The
-//   operations depend on the contacts: a box-box candidate's SAT is ~420
-//   fp32 operations a substep, its face clip ~760 more when it touches,
-//   and each live contact point ~450 in the two passes; a settled pile of
-//   ~90 candidates a world needs a few GFLOP a call (chip_smoke.py counts
-//   them from the data), about as long as the bytes at 67 TFLOP/s.  The
-//   kernel is far from either: one thread per pair runs SAT, clip and both
-//   passes as long dependent chains (145 registers, a 384-byte stack
-//   frame, no spills in -Xptxas -v), so few warps hide the latency.
-//   Design: one CTA per world.  The world's body state (current, previous,
-//   post-integrate and post-solve pose and velocity, the static columns)
-//   sits in shared memory, 54 floats a body.  One thread per candidate
-//   slot and per body (blockDim = max(n, K) rounded up to 32, at most 128;
-//   the threads loop over what is left).  The slot loops stop at the
-//   world's last valid slot, so the dead tail of the capacity costs
-//   nothing: the chunked TPU kernel's dead-slab skip, by construction, at
-//   one-slot granularity.  The pair's
-//   manifold and lambdas are stashed per slot in shared memory between the
-//   positional and velocity passes, and each pass writes its per-slot
-//   contributions there.  The segment sums are deterministic (no float
-//   atomics): one thread per body adds its A-side contributions in
-//   ascending slot order, then its B-side ones — the plain version's order
-//   — walking a per-body list of its slots built once a step; a
+//
+// What bounds them on this card.  At 8192 worlds x 65 rows x K = 256 a
+// call moves W (65 x 237 B + K x 9 B + 20 B) ~ 145 MB (~0.043 ms at 3.35
+// TB/s); the operations depend on the contacts (a box-box candidate's SAT
+// ~420 fp32 operations a substep, its face clip ~760 more when it
+// touches, each live contact point ~450 in the two passes: a few GFLOP a
+// call, chip_smoke.py counts them), about as long as the bytes at 67
+// TFLOP/s.  The kernel is far from both: a world's substep is a chain of
+// barrier-separated phases, and in its slot phases one thread carries a
+// pair through contacts and a pass as long dependent chains (IEEE
+// divisions and square roots, -fmad=false), so the time is the latency of
+// the longest chain times the worlds an SM cannot overlap.  Per world
+// (clock64 stamps in a build of this kernel, H100): the two slot phases
+// take ~80% of the cycles, the body phases ~10%.
+//
+// Design: one CTA per world, block_threads(n, K) threads (one a slot and a
+// body, in whole warps, at most kMaxThreads = 128).  The world's body
+// state (current, previous, post-integrate and post-solve pose and
+// velocity, the static columns) sits in shared memory, 54 floats a body.
+// What the design does about the chain:
+//   - no array is indexed at run time (every candidate, axis and side is
+//     picked by selects over compile-time indices: pick3, sel_body,
+//     deepest4), so nothing lives in local memory but what the register
+//     cap spills;
+//   - the valid slots are walked in a work list grouped by contact kind
+//     (build_work), so a warp runs one or two branches of pair_contacts,
+//     not all five;
+//   - a thread keeps the manifold of its first work-list entry in
+//     registers between the passes: the shared stash holds only the
+//     entries past T, which with the per-body channels and the slot
+//     arrays lets 4 worlds share an SM at K = 256 (min_blocks caps the
+//     no-cache specialisations at 128 registers for that);
+//   - in the cache specialisations (2 worlds an SM, registers free) the
+//     box-box pairs are taken by groups of kGroup = 4 lanes
+//     (warp_box_box, box_box_group): the edge axes, clipped edges and
+//     reference vertices split across the group, the argmins and the
+//     deepest-4 picks reduced by shuffles; at 128 registers the group's
+//     state spills, so the other specialisations keep one lane a pair;
+//   - each body's slot lists and the work list are built in parallel
+//     (integer atomics for the counts, a warp scan, a stable counting
+//     sort by __match_any_sync and ballots), and the in-kernel broadphase
+//     tests its pairs in parallel into per-owner bit masks, sums the
+//     degrees by popcount and scans them in one warp.
+//   The slot loops stop at the world's last valid slot: the chunked TPU
+//   kernel's dead-slab skip, by construction, at one-slot granularity.
+//   The segment sums are deterministic (no float atomics): one thread per
+//   body adds its A-side contributions in ascending slot order, then its
+//   B-side ones — the plain version's order — walking its slot list; a
 //   non-dynamic body (the plane, which meets every pile body) gets only
 //   zero contributions and skips its sum.
-//
+//   Measured (ptxas -v, and cudaOccupancyMaxActiveBlocksPerMultiprocessor
+//   through fused_substep_occupancy at 65 rows, K = 256 and 128, H100):
+//   "none" and "sleep" 128 registers, a 128-byte frame, 138 bytes of spill
+//   stores; "bp" 128, 128, 158; all three 4 CTAs an SM.  The cache
+//   specialisations 248-255 registers, no frame, no spills, 2 CTAs an SM
+//   (shared memory).  substep_kernel 208 registers, no frame, 1 CTA an SM
+//   at 104 rows, K = 1000.  The frame of the three capped specialisations
+//   is the register cap's spill, kept on purpose: it holds the manifold a
+//   thread keeps between the passes (24 floats, so that stash lives in L1
+//   rather than registers) and ~10 loop values (nvdisasm of a -lineinfo
+//   build); uncapped they take ~220 registers and 2 CTAs an SM, and in one
+//   A/B the capped kernel with the spill ran 2.33 ms against 2.93 ms
+//   (K = 256; PERF.md's findings).
 // Arithmetic: -fmad=false keeps every product and sum separately rounded,
 // in the order of the plain version (ops/substep_kernel.py,
 // physics/pairs.py); 1/sqrtf stands for the plain version's 1 / sqrt.  The
@@ -87,6 +123,8 @@ constexpr int kPrimSphere = 0;
 constexpr int kPrimHull = 1;
 constexpr int kPrimPlane = 2;
 constexpr int kMaxThreads = 128;
+constexpr int kMinBlocks = 4;
+constexpr int kGroup = 4;        // lanes a box-box pair (box_box_group)
 
 struct V3 {
   float x, y, z;
@@ -213,6 +251,19 @@ __device__ __forceinline__ int argmin_tie(const float (&s)[M], float eps, float*
   return first;
 }
 
+// Element i (0..2, known only at run time) of a 3-array, by selects: an
+// array indexed at run time would live in local memory.
+template <typename T>
+__device__ __forceinline__ T pick3(const T (&x)[3], int i) {
+  return i == 0 ? x[0] : (i == 1 ? x[1] : x[2]);
+}
+__device__ __forceinline__ V3 sel3(bool c, V3 a, V3 b) {
+  return mk(c ? a.x : b.x, c ? a.y : b.y, c ? a.z : b.z);
+}
+__device__ __forceinline__ V3 pick3(const V3 (&x)[3], int i) {
+  return sel3(i == 0, x[0], sel3(i == 1, x[1], x[2]));
+}
+
 // The face of a box most aligned with `outward`, as clip inputs.
 struct BoxFace {
   V3 poly[4];
@@ -221,22 +272,22 @@ struct BoxFace {
   V3 n;
   float d;
 };
-__device__ void box_face(V3 pos, const V3 u[3], const float h[3], V3 outward, BoxFace& f) {
+__device__ __forceinline__ void box_face(V3 pos, const V3 (&u)[3], const float (&h)[3],
+                                         V3 outward, BoxFace& f) {
   float score[3], mag[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     score[k] = dot(u[k], outward);
     mag[k] = fabsf(score[k]);
   }
-  int sel = 0;
-  if (mag[1] > mag[sel]) sel = 1;
-  if (mag[2] > mag[sel]) sel = 2;
-  const float sgn = score[sel] >= 0.0f ? 1.0f : -1.0f;
+  int sel = mag[1] > mag[0] ? 1 : 0;
+  if (mag[2] > pick3(mag, sel)) sel = 2;
+  const float sgn = pick3(score, sel) >= 0.0f ? 1.0f : -1.0f;
   const int s1 = (sel + 1) % 3, s2 = (sel + 2) % 3;
-  const V3 n = scl(u[sel], sgn);
-  const float hn = h[sel];
-  const V3 a = u[s1], b = u[s2];
-  const float ha = h[s1], hb = h[s2];
+  const V3 n = scl(pick3(u, sel), sgn);
+  const float hn = pick3(h, sel);
+  const V3 a = pick3(u, s1), b = pick3(u, s2);
+  const float ha = pick3(h, s1), hb = pick3(h, s2);
   f.n = n;
   f.d = dot(n, pos) + hn;
   const V3 center = add(pos, scl(n, hn));
@@ -257,8 +308,8 @@ __device__ void box_face(V3 pos, const V3 u[3], const float h[3], V3 outward, Bo
 }
 
 // Supporting edge of a box along the winning cross axis.
-__device__ void box_edge(V3 pos, const V3 u[3], const float h[3], int e, V3 n_dir, V3* e0,
-                         V3* e1) {
+__device__ __forceinline__ void box_edge(V3 pos, const V3 (&u)[3], const float (&h)[3], int e,
+                                         V3 n_dir, V3* e0, V3* e1) {
   float selw[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) selw[k] = (e == k) ? 1.0f : 0.0f;
@@ -293,8 +344,9 @@ __device__ V3 segment_closest(V3 a0, V3 a1, V3 b0, V3 b1) {
 
 // Box-box contact: OBB SAT, then the incident-face clip or the edge point.
 // Fills the kCand candidates; returns hit, sets the normal and point count.
-__device__ bool box_box(const Body& A, const Body& B, const Table& tab, float spec,
-                        V3 cp[kCand], float cd[kCand], V3* normal, int* num) {
+__device__ __forceinline__ bool box_box(const Body& A, const Body& B, const Table& tab,
+                                        float spec, V3 (&cp)[kCand], float (&cd)[kCand],
+                                        V3* normal, int* num) {
   V3 uA[3], uB[3];
   quat_axes(A.rot, uA);
   quat_axes(B.rot, uB);
@@ -339,7 +391,7 @@ __device__ bool box_box(const Body& A, const Body& B, const Table& tab, float sp
   const int ib = argmin_tie(penB, kSatTieEps, &minB);
   const int ie = argmin_tie(penE, kSatTieEps, &minE);
   const int eA = ie / 3, eB = ie % 3;
-  V3 fE = cross(uA[eA], uB[eB]);
+  V3 fE = cross(pick3(uA, eA), pick3(uB, eB));
   fE = scl(fE, 1.0f / fmaxf(norm3(fE, 1e-30f), 1e-12f));
 
   const float sat_pen = fminf(fminf(minA, minB), minE);
@@ -347,7 +399,7 @@ __device__ bool box_box(const Body& A, const Body& B, const Table& tab, float sp
   const bool faceA = minA <= fminf(minB, minE) * kFaceBias + kSatTieEps;
   const bool faceB = !faceA && (minB <= minE * kFaceBias + kSatTieEps);
   const V3 ab = sub(B.pos, A.pos);
-  const V3 f = faceA ? uA[ia] : (faceB ? uB[ib] : fE);
+  const V3 f = sel3(faceA, pick3(uA, ia), sel3(faceB, pick3(uB, ib), fE));
   const V3 nrm = scl(f, dot(f, ab) >= 0.0f ? 1.0f : -1.0f);
   *normal = nrm;
 #pragma unroll
@@ -364,17 +416,22 @@ __device__ bool box_box(const Body& A, const Body& B, const Table& tab, float sp
     cp[0] = segment_closest(a0, a1, b0, b1);
     cd[0] = sat_pen;
   } else {
-    // incident face clipped against the reference face's side planes
+    // incident face clipped against the reference face's side planes; the
+    // reference (R) and incident (I) boxes by value selects, not by
+    // pointers into the two, which would put them in local memory
     const V3 nrm_inc = faceB ? scl(nrm, -1.0f) : nrm;
-    const Body& R = faceB ? B : A;
-    const Body& I = faceB ? A : B;
-    const V3* uR = faceB ? uB : uA;
-    const V3* uI = faceB ? uA : uB;
-    const float* hR = faceB ? hB : hA;
-    const float* hI = faceB ? hA : hB;
+    V3 uR[3], uI[3];
+    float hR[3], hI[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      uR[k] = sel3(faceB, uB[k], uA[k]);
+      uI[k] = sel3(faceB, uA[k], uB[k]);
+      hR[k] = faceB ? hB[k] : hA[k];
+      hI[k] = faceB ? hA[k] : hB[k];
+    }
     BoxFace fi, fr;
-    box_face(I.pos, uI, hI, scl(nrm_inc, -1.0f), fi);
-    box_face(R.pos, uR, hR, nrm_inc, fr);
+    box_face(sel3(faceB, A.pos, B.pos), uI, hI, scl(nrm_inc, -1.0f), fi);
+    box_face(sel3(faceB, B.pos, A.pos), uR, hR, nrm_inc, fr);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const V3 p0 = fi.poly[c], p1 = fi.poly[(c + 1) % 4];
@@ -425,8 +482,9 @@ __device__ bool box_box(const Body& A, const Body& B, const Table& tab, float sp
 
 // Sphere against box: clamp the centre into the box frame.  Returns the
 // contact decision; flip = the sphere is side B.
-__device__ bool sphere_box(V3 s_pos, float s_rad, const Body& Bx, const Table& tab, float spec,
-                           bool flip, V3* normal, V3* point, float* pen_out) {
+__device__ __forceinline__ bool sphere_box(V3 s_pos, float s_rad, const Body& Bx,
+                                           const Table& tab, float spec, bool flip, V3* normal,
+                                           V3* point, float* pen_out) {
   V3 u[3];
   quat_axes(Bx.rot, u);
   const float h[3] = {tab.half(Bx.obj, 0), tab.half(Bx.obj, 1), tab.half(Bx.obj, 2)};
@@ -445,12 +503,11 @@ __device__ bool sphere_box(V3 s_pos, float s_rad, const Body& Bx, const Table& t
   const V3 delta = sub(d, q_w);
   const float dist = norm3(delta, 1e-18f);
   const V3 n_out = scl(delta, 1.0f / dist);
-  int ax = 0;
-  if (fd[1] < fd[ax]) ax = 1;
-  if (fd[2] < fd[ax]) ax = 2;
-  const V3 n_in = scl(u[ax], cl[ax] >= 0.0f ? 1.0f : -1.0f);
+  int ax = fd[1] < fd[0] ? 1 : 0;
+  if (fd[2] < pick3(fd, ax)) ax = 2;
+  const V3 n_in = scl(pick3(u, ax), pick3(cl, ax) >= 0.0f ? 1.0f : -1.0f);
   const V3 nrm_hs = inside ? n_in : n_out;
-  const float pen = inside ? s_rad + fd[ax] : s_rad - dist;
+  const float pen = inside ? s_rad + pick3(fd, ax) : s_rad - dist;
   *normal = flip ? nrm_hs : scl(nrm_hs, -1.0f);
   *point = add(Bx.pos, q_w);
   *pen_out = pen;
@@ -461,20 +518,261 @@ __device__ __forceinline__ V3 plane_normal(Q4 rot) {
   return qrot(rot, mk(0.0f, 0.0f, 1.0f));
 }
 
+// One of two bodies, by value selects (a reference chosen at run time
+// would put both in local memory).
+__device__ __forceinline__ Body sel_body(bool c, const Body& a, const Body& b) {
+  Body r;
+  r.pos = sel3(c, a.pos, b.pos);
+  r.rot = Q4{c ? a.rot.w : b.rot.w, c ? a.rot.x : b.rot.x, c ? a.rot.y : b.rot.y,
+             c ? a.rot.z : b.rot.z};
+  r.obj = c ? a.obj : b.obj;
+  return r;
+}
+
+// The deepest 4 of kCand candidates, as pairs.py's compaction: each pick
+// the first index of the largest depth, which is then set to -1e9 (so that
+// once the real candidates are taken, the first candidate at -1e9 is taken
+// again).  Every index is known at compile time: no local memory.
+__device__ __forceinline__ void deepest4(const V3 (&cp)[kCand], float (&cd)[kCand],
+                                         Manifold& out) {
+#pragma unroll
+  for (int s = 0; s < kPts; ++s) {
+    float bv = cd[0];
+    V3 bp = cp[0];
+    int best = 0;
+#pragma unroll
+    for (int c = 1; c < kCand; ++c) {
+      const bool gt = cd[c] > bv;
+      bv = gt ? cd[c] : bv;
+      bp = sel3(gt, cp[c], bp);
+      best = gt ? c : best;
+    }
+    out.d[s] = bv;
+    out.p[s] = bp;
+#pragma unroll
+    for (int c = 0; c < kCand; ++c) cd[c] = best == c ? kNegBig : cd[c];
+  }
+}
+
+// deepest4 of one candidate (p0, d0) and kCand - 1 empty ones (the origin
+// at -1e9), in closed form: (p0, d0) then p0 at -1e9 three times, or, when
+// d0 < -1e9, the origin at -1e9 four times.
+__device__ __forceinline__ void single_point(V3 p0, float d0, Manifold& out) {
+  const bool keep = !(d0 < kNegBig);
+  const V3 p = sel3(keep, p0, mk(0.0f, 0.0f, 0.0f));
+  out.d[0] = keep ? d0 : kNegBig;
+  out.p[0] = p;
+#pragma unroll
+  for (int s = 1; s < kPts; ++s) {
+    out.d[s] = kNegBig;
+    out.p[s] = p;
+  }
+}
+
+// Element (r, c) of a 3 x 3 array, both known only at run time, by selects.
+__device__ __forceinline__ float pick33(const float (&m)[3][3], int r, int c) {
+  const float row[3] = {pick3(m[0], c), pick3(m[1], c), pick3(m[2], c)};
+  return pick3(row, r);
+}
+__device__ __forceinline__ V3 pick4(const V3 (&x)[4], int i) {
+  return sel3(i == 0, x[0], sel3(i == 1, x[1], sel3(i == 2, x[2], x[3])));
+}
+
+// box_box by the kGroup lanes of a group (mask gmask, this lane the s-th):
+// box_box's arithmetic term by term, the work split across the group.
+// Each lane computes the face axes and the shared setup itself; lane s
+// takes the edge axes s, s + kGroup, ... and the clip's edge and
+// reference vertex s, s + kGroup, ... (candidates x, 4 + x and 8 + x of
+// each); the argmins and the deepest-4 picks (largest depth, first index
+// on ties) reduce across the group by shuffles.  Every lane of the group
+// returns the manifold and the count of candidates past 0.  The minimum
+// over the edge axes is taken in another order than box_box's fold: only
+// the sign of a zero could differ, and no NaN is expected.
+__device__ __forceinline__ void box_box_group(const Body& A, const Body& B, const Table& tab,
+                                           float spec, int s, unsigned gmask, int gbase,
+                                           Manifold& out, int* num) {
+  constexpr int kEdgeAx = (9 + kGroup - 1) / kGroup;  // edge axes a lane
+  constexpr int kQuads = 4 / kGroup;                  // clip edges a lane
+  V3 uA[3], uB[3];
+  quat_axes(A.rot, uA);
+  quat_axes(B.rot, uB);
+  const float hA[3] = {tab.half(A.obj, 0), tab.half(A.obj, 1), tab.half(A.obj, 2)};
+  const float hB[3] = {tab.half(B.obj, 0), tab.half(B.obj, 1), tab.half(B.obj, 2)};
+  const V3 d = sub(B.pos, A.pos);
+  float t[3], sv[3], M[3][3], aM[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    t[i] = dot(uA[i], d);
+    sv[i] = dot(uB[i], d);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      M[i][j] = dot(uA[i], uB[j]);
+      aM[i][j] = fabsf(M[i][j]) + 1e-6f;
+    }
+  float penA[3], penB[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    penA[i] = hA[i] + aM[i][0] * hB[0] + aM[i][1] * hB[1] + aM[i][2] * hB[2] - fabsf(t[i]);
+    penB[i] = hB[i] + aM[0][i] * hA[0] + aM[1][i] * hA[1] + aM[2][i] * hA[2] - fabsf(sv[i]);
+  }
+  // this lane's edge axes e = s + kGroup r
+  float pe[kEdgeAx];
+  const float inf = __int_as_float(0x7f800000);
+  float minE = inf;
+#pragma unroll
+  for (int r = 0; r < kEdgeAx; ++r) {
+    const int e = s + kGroup * r;
+    const int i = e / 3, j = e % 3;
+    const int i1 = (i + 1) % 3, i2 = (i + 2) % 3, j1 = (j + 1) % 3, j2 = (j + 2) % 3;
+    const float rA = pick3(hA, i1) * pick33(aM, i2, j) + pick3(hA, i2) * pick33(aM, i1, j);
+    const float rB = pick3(hB, j1) * pick33(aM, i, j2) + pick3(hB, j2) * pick33(aM, i, j1);
+    const float tL =
+        fabsf(pick3(t, i2) * pick33(M, i1, j) - pick3(t, i1) * pick33(M, i2, j));
+    const float mij = pick33(M, i, j);
+    const float len2 = 1.0f - mij * mij;
+    const float pen = (rA + rB - tL) * rsq(fmaxf(len2, 1e-12f));
+    pe[r] = e < 9 ? (len2 > 1e-8f ? pen : kBig) : inf;
+    minE = fminf(minE, pe[r]);
+  }
+  for (int m = 1; m < kGroup; m <<= 1) minE = fminf(minE, __shfl_xor_sync(gmask, minE, m));
+  int ie = 99;
+#pragma unroll
+  for (int r = kEdgeAx - 1; r >= 0; --r)
+    if (s + kGroup * r < 9 && pe[r] <= minE + kSatTieEps) ie = s + kGroup * r;
+  for (int m = 1; m < kGroup; m <<= 1) ie = min(ie, __shfl_xor_sync(gmask, ie, m));
+  ie = ie == 99 ? 0 : ie;
+  float minA, minB;
+  const int ia = argmin_tie(penA, kSatTieEps, &minA);
+  const int ib = argmin_tie(penB, kSatTieEps, &minB);
+  const int eA = ie / 3, eB = ie % 3;
+  V3 fE = cross(pick3(uA, eA), pick3(uB, eB));
+  fE = scl(fE, 1.0f / fmaxf(norm3(fE, 1e-30f), 1e-12f));
+
+  const float sat_pen = fminf(fminf(minA, minB), minE);
+  const bool hit = (sat_pen > -spec) && (sat_pen < kBig * 0.5f);
+  const bool faceA = minA <= fminf(minB, minE) * kFaceBias + kSatTieEps;
+  const bool faceB = !faceA && (minB <= minE * kFaceBias + kSatTieEps);
+  const V3 ab = sub(B.pos, A.pos);
+  const V3 f = sel3(faceA, pick3(uA, ia), sel3(faceB, pick3(uB, ib), fE));
+  const V3 nrm = scl(f, dot(f, ab) >= 0.0f ? 1.0f : -1.0f);
+  out.ok = hit;
+  out.n = nrm;
+  if (!faceA && !faceB) {
+    // edge-edge: one point at the SAT depth (every lane alike)
+    V3 a0, a1, b0, b1;
+    box_edge(A.pos, uA, hA, eA, nrm, &a0, &a1);
+    box_edge(B.pos, uB, hB, eB, scl(nrm, -1.0f), &b0, &b1);
+    single_point(segment_closest(a0, a1, b0, b1), sat_pen, out);
+    *num = sat_pen > 0.0f ? 1 : 0;
+    return;
+  }
+  const V3 nrm_inc = faceB ? scl(nrm, -1.0f) : nrm;
+  V3 uR[3], uI[3];
+  float hR[3], hI[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    uR[k] = sel3(faceB, uB[k], uA[k]);
+    uI[k] = sel3(faceB, uA[k], uB[k]);
+    hR[k] = faceB ? hB[k] : hA[k];
+    hI[k] = faceB ? hA[k] : hB[k];
+  }
+  BoxFace fi, fr;
+  box_face(sel3(faceB, A.pos, B.pos), uI, hI, scl(nrm_inc, -1.0f), fi);
+  box_face(sel3(faceB, B.pos, A.pos), uR, hR, nrm_inc, fr);
+  const float den = dot(fi.n, nrm_inc);
+  const bool den_ok = fabsf(den) > 0.1f;
+  const float den_s = den_ok ? den : 1.0f;
+  // this lane's candidates, local entry k * kQuads + q: candidate x + 4 k
+  // of x = s + kGroup q (k = 0: the clipped edge's low end, 1: its high
+  // end, 2: the reference vertex)
+  V3 cp[3 * kQuads];
+  float cd[3 * kQuads];
+  int cnt = 0;
+#pragma unroll
+  for (int q = 0; q < kQuads; ++q) {
+    const int x = s + kGroup * q;
+    const V3 p0 = pick4(fi.poly, x), p1 = pick4(fi.poly, (x + 1) % 4);
+    float t_lo = 0.0f, t_hi = 1.0f;
+    bool empty = false;
+#pragma unroll
+    for (int sd = 0; sd < 4; ++sd) {
+      const float d0 = dot(p0, fr.side_n[sd]) - fr.side_d[sd];
+      const float d1 = dot(p1, fr.side_n[sd]) - fr.side_d[sd];
+      const float denom = d0 - d1;
+      const bool crossing = fabsf(denom) > 1e-12f;
+      const float tc = d0 / (crossing ? denom : 1.0f);
+      if (crossing && d0 > 0.0f && d1 <= 0.0f) t_lo = fmaxf(t_lo, tc);
+      if (crossing && d0 <= 0.0f && d1 > 0.0f) t_hi = fminf(t_hi, tc);
+      empty = empty || (d0 > 1e-6f && d1 > 1e-6f);
+    }
+    const bool edge_ok = !empty && (t_lo <= t_hi + 1e-9f);
+    const V3 seg = sub(p1, p0);
+    const V3 pt_lo = add(p0, scl(seg, t_lo));
+    const V3 pt_hi = add(p0, scl(seg, t_hi));
+    cp[q] = pt_lo;
+    cd[q] = edge_ok ? fr.d - dot(pt_lo, fr.n) : kNegBig;
+    cp[kQuads + q] = pt_hi;
+    cd[kQuads + q] = (edge_ok && t_hi < 0.9999f) ? fr.d - dot(pt_hi, fr.n) : kNegBig;
+    const V3 pr = pick4(fr.poly, x);
+    bool inside = true;
+#pragma unroll
+    for (int sd = 0; sd < 4; ++sd)
+      inside = inside && (dot(pr, fi.side_n[sd]) - fi.side_d[sd] <= -1e-5f);
+    const float sq = (fi.d - dot(pr, fi.n)) / den_s;
+    const V3 qv = add(pr, scl(nrm_inc, sq));
+    cp[2 * kQuads + q] = qv;
+    cd[2 * kQuads + q] = (inside && den_ok) ? fr.d - dot(qv, fr.n) : kNegBig;
+  }
+#pragma unroll
+  for (int l = 0; l < 3 * kQuads; ++l) cnt += cd[l] > 0.0f ? 1 : 0;
+  for (int m = 1; m < kGroup; m <<= 1) cnt += __shfl_xor_sync(gmask, cnt, m);
+  *num = cnt;
+  // the deepest 4: local entries in ascending candidate order (k outer,
+  // q inner), then the group's best, its point from the lane holding it
+#pragma unroll
+  for (int pick = 0; pick < kPts; ++pick) {
+    float bv = cd[0];
+    int bi = s;
+#pragma unroll
+    for (int l = 1; l < 3 * kQuads; ++l) {
+      const bool gt = cd[l] > bv;
+      bv = gt ? cd[l] : bv;
+      bi = gt ? s + kGroup * (l % kQuads) + 4 * (l / kQuads) : bi;
+    }
+    for (int m = 1; m < kGroup; m <<= 1) {
+      const float ov = __shfl_xor_sync(gmask, bv, m);
+      const int oi = __shfl_xor_sync(gmask, bi, m);
+      const bool take = ov > bv || (ov == bv && oi < bi);
+      bv = take ? ov : bv;
+      bi = take ? oi : bi;
+    }
+    const int holder = (bi % 4) % kGroup;
+    const int li = (bi / 4) * kQuads + (bi % 4) / kGroup;
+    V3 mine = cp[0];
+#pragma unroll
+    for (int l = 1; l < 3 * kQuads; ++l) mine = sel3(l == li, cp[l], mine);
+    out.d[pick] = bv;
+    out.p[pick] = mk(__shfl_sync(gmask, mine.x, gbase + holder),
+                     __shfl_sync(gmask, mine.y, gbase + holder),
+                     __shfl_sync(gmask, mine.z, gbase + holder));
+#pragma unroll
+    for (int l = 0; l < 3 * kQuads; ++l)
+      cd[l] = (s == holder && l == li) ? kNegBig : cd[l];
+  }
+}
+
 // pair_contacts of physics/pairs.py for one live pair (all-box tables).
 // NPTS: also its num_points (candidates past the speculative margin, at
-// most kPts) in *npts, which only the manifold cache keeps.
+// most kPts) in *npts, which only the manifold cache keeps.  Each kind's
+// branch compacts its own candidates, so the sphere kinds (one candidate)
+// carry no candidate arrays.
 template <bool NPTS>
-__device__ void pair_contacts(const Body& A, const Body& B, const Table& tab, float spec,
-                              Manifold& out, int* npts) {
+__device__ __forceinline__ void pair_contacts(const Body& A, const Body& B, const Table& tab,
+                                              float spec, Manifold& out, int* npts) {
   const int pa = tab.prim(A.obj), pb = tab.prim(B.obj);
-  V3 cp[kCand];
-  float cd[kCand];
-#pragma unroll
-  for (int c = 0; c < kCand; ++c) {
-    cp[c] = mk(0.0f, 0.0f, 0.0f);
-    cd[c] = kNegBig;
-  }
   bool ok = false;
   V3 n = mk(0.0f, 0.0f, 0.0f);
   int num = 0;
@@ -484,67 +782,120 @@ __device__ void pair_contacts(const Body& A, const Body& B, const Table& tab, fl
     const float dist = norm3(d, 1e-18f);
     n = scl(d, 1.0f / dist);
     const float pen = (radA + radB) - dist;
-    cp[0] = add(A.pos, scl(n, radA - 0.5f * pen));
-    cd[0] = pen;
+    single_point(add(A.pos, scl(n, radA - 0.5f * pen)), pen, out);
     ok = pen > -spec;
     num = 1;
   } else if ((pa == kPrimSphere && pb == kPrimPlane) || (pa == kPrimPlane && pb == kPrimSphere)) {
     const bool flip = pa == kPrimPlane;
-    const Body& S = flip ? B : A;
-    const Body& Pl = flip ? A : B;
+    const Body S = sel_body(flip, B, A);
+    const Body Pl = sel_body(flip, A, B);
     const V3 p_n = plane_normal(Pl.rot);
     const float p_d = dot(p_n, Pl.pos);
     const float c_dist = dot(S.pos, p_n) - p_d;
     const float pen = tab.radius(S.obj) - c_dist;
-    cp[0] = sub(S.pos, scl(p_n, c_dist));
-    cd[0] = pen;
+    single_point(sub(S.pos, scl(p_n, c_dist)), pen, out);
     n = flip ? p_n : scl(p_n, -1.0f);
     ok = pen > -spec;
     num = 1;
   } else if ((pa == kPrimHull && pb == kPrimPlane) || (pa == kPrimPlane && pb == kPrimHull)) {
     const bool flip = pa == kPrimPlane;
-    const Body& H = flip ? B : A;
-    const Body& Pl = flip ? A : B;
+    const Body H = sel_body(flip, B, A);
+    const Body Pl = sel_body(flip, A, B);
     const V3 p_n = plane_normal(Pl.rot);
     const float p_d = dot(p_n, Pl.pos);
     const int nv = tab.nverts(H.obj);
-    for (int v = 0; v < tab.vm; ++v) {
-      const V3 vw = add(qrot(H.rot, tab.vert(H.obj, v)), H.pos);
-      const float vd = dot(vw, p_n) - p_d;
-      const float pen_v = v < nv ? -vd : kNegBig;
-      cp[v] = vw;
-      cd[v] = pen_v;
-      num += pen_v > -spec ? 1 : 0;
+    V3 cp[kCand];
+    float cd[kCand];
+#pragma unroll
+    for (int v = 0; v < kCand; ++v) {
+      cp[v] = mk(0.0f, 0.0f, 0.0f);
+      cd[v] = kNegBig;
+      if (v < kMaxVerts && v < tab.vm) {
+        const V3 vw = add(qrot(H.rot, tab.vert(H.obj, v)), H.pos);
+        const float vd = dot(vw, p_n) - p_d;
+        const float pen_v = v < nv ? -vd : kNegBig;
+        cp[v] = vw;
+        cd[v] = pen_v;
+        num += pen_v > -spec ? 1 : 0;
+      }
     }
+    deepest4(cp, cd, out);
     n = flip ? p_n : scl(p_n, -1.0f);
     ok = num > 0;
   } else if ((pa == kPrimSphere && pb == kPrimHull) || (pa == kPrimHull && pb == kPrimSphere)) {
     const bool flip = pa == kPrimHull;
-    const Body& S = flip ? B : A;
-    const Body& Bx = flip ? A : B;
+    const Body S = sel_body(flip, B, A);
+    const Body Bx = sel_body(flip, A, B);
     float pen;
-    ok = sphere_box(S.pos, tab.radius(S.obj), Bx, tab, spec, flip, &n, &cp[0], &pen);
-    cd[0] = pen;
+    V3 p0;
+    ok = sphere_box(S.pos, tab.radius(S.obj), Bx, tab, spec, flip, &n, &p0, &pen);
+    single_point(p0, pen, out);
     num = 1;
   } else if (pa == kPrimHull && pb == kPrimHull) {
+    V3 cp[kCand];
+    float cd[kCand];
     ok = box_box(A, B, tab, spec, cp, cd, &n, &num);
-  }
-  // deepest 4 (first index wins ties), as pairs.py's compaction
-#pragma unroll
-  for (int s = 0; s < kPts; ++s) {
-    int best = 0;
-#pragma unroll
-    for (int c = 1; c < kCand; ++c)
-      if (cd[c] > cd[best]) best = c;
-    out.d[s] = cd[best];
-    out.p[s] = cp[best];
-    cd[best] = kNegBig;
+    deepest4(cp, cd, out);
+  } else {
+    single_point(mk(0.0f, 0.0f, 0.0f), kNegBig, out);  // no candidate
   }
   out.ok = ok;
   out.n = n;
   if (NPTS) *npts = num < kPts ? num : kPts;
 }
 
+// The box-box pairs among a warp's entries (lanes with bb set), kGroup
+// lanes each: the warp takes them in batches of 32 / kGroup, lowest lanes
+// first, each group runs box_box_group on its owner's pair, and each owner
+// lane takes its manifold (and with NPTS its point count) back.  Called by
+// every lane of the warp.
+template <bool NPTS>
+__device__ __forceinline__ void warp_box_box(const Body (&Bd)[2], const Table& tab, float spec,
+                                             bool bb, int lane, Manifold& c, int* npts) {
+  const unsigned full = 0xffffffffu;
+  const int gs = lane % kGroup, gbase = lane - gs, g = lane / kGroup;
+  const unsigned gmask = ((1u << kGroup) - 1u) << gbase;
+  unsigned todo = __ballot_sync(full, bb);
+  while (todo) {
+    unsigned m = todo;
+    for (int i = 0; i < g; ++i) m &= m - 1u;
+    const int owner = m ? __ffs(m) - 1 : lane;
+    Body P[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      P[q].pos = mk(__shfl_sync(full, Bd[q].pos.x, owner), __shfl_sync(full, Bd[q].pos.y, owner),
+                    __shfl_sync(full, Bd[q].pos.z, owner));
+      P[q].rot = Q4{__shfl_sync(full, Bd[q].rot.w, owner), __shfl_sync(full, Bd[q].rot.x, owner),
+                    __shfl_sync(full, Bd[q].rot.y, owner), __shfl_sync(full, Bd[q].rot.z, owner)};
+      P[q].obj = __shfl_sync(full, Bd[q].obj, owner);
+    }
+    Manifold r;
+    int num = 0;
+    if (m) box_box_group(P[0], P[1], tab, spec, gs, gmask, gbase, r, &num);
+    __syncwarp();
+    const int rank = __popc(todo & ((1u << lane) - 1u));
+    const bool mine = ((todo >> lane) & 1u) && rank < 32 / kGroup;
+    const int src = mine ? rank * kGroup : lane;
+    const float ok = __shfl_sync(full, r.ok ? 1.0f : 0.0f, src);
+    const V3 n = mk(__shfl_sync(full, r.n.x, src), __shfl_sync(full, r.n.y, src),
+                    __shfl_sync(full, r.n.z, src));
+    Manifold got;
+    got.ok = ok > 0.5f;
+    got.n = n;
+#pragma unroll
+    for (int p = 0; p < kPts; ++p) {
+      got.p[p] = mk(__shfl_sync(full, r.p[p].x, src), __shfl_sync(full, r.p[p].y, src),
+                    __shfl_sync(full, r.p[p].z, src));
+      got.d[p] = __shfl_sync(full, r.d[p], src);
+    }
+    const int got_num = __shfl_sync(full, num, src);
+    if (mine) {
+      c = got;
+      if (NPTS) *npts = got_num < kPts ? got_num : kPts;
+    }
+    for (int i = 0; i < 32 / kGroup && todo; ++i) todo &= todo - 1u;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Solver passes (physics/pairs.py positional_pass / velocity_pass)
@@ -794,6 +1145,15 @@ constexpr int kMcCh = kMcRows + kCacheCh;
 constexpr int kAabbCh = 6;
 // The kernel's option bits (OPT_* in ops/substep_kernel.py).
 constexpr int kOptRefresh = 1, kOptSleep = 2, kOptBp = 4, kOptPersist = 8;
+// The world scalars in shared memory: the work list's length, the
+// broadphase's dropped pairs and its live rows (kBpWords bit words).
+constexpr int kWorkCount = 0, kBpDropped = 1, kBpLive = 4, kWorldInts = 8;
+// The in-kernel broadphase's rows (MAX_BP_ROWS in ops/substep_kernel.py)
+// and the 32-bit words of a row's partner mask.
+constexpr int kMaxBpRows = 128, kBpWords = kMaxBpRows / 32;
+// Contact kinds, in the work list's order (the heaviest first), and the
+// number of kinds (the last: no contact code, a plane against a plane).
+enum Kind { kBoxBox = 0, kBoxPlane, kSphereBox, kSpherePlane, kSphereSphere, kOther, kKinds };
 
 struct Args {
   const float *pos, *rot, *v, *w, *im, *ii, *mu_s, *mu_d;
@@ -846,33 +1206,64 @@ __device__ __forceinline__ int obj_of(const float* s, int b, int n) {
   return __float_as_int(s[kObj * n + b]);
 }
 
+// The block size for n bodies and K slots: one thread a slot and a body,
+// rounded up to whole warps, at most kMaxThreads (the threads loop over
+// what is left).
+__host__ __device__ __forceinline__ int block_threads(int n, int K) {
+  const int widest = n > K ? n : K;
+  const int t = ((widest + 31) / 32) * 32;
+  return t < kMaxThreads ? t : kMaxThreads;
+}
+
+// The slots whose manifold waits in shared memory between the two passes:
+// a thread keeps the manifold of its first work-list entry in registers,
+// so only entries at T and beyond (at most ceil(K / T) - 1 rounds of T)
+// need the stash.
+__host__ __device__ __forceinline__ int stash_slots(int n, int K) {
+  const int t = block_threads(n, K);
+  return ((K + t - 1) / t - 1) * t;
+}
+
 // The dynamic shared memory for n bodies and K slots, with the broadphase's
-// AABBs, degrees and bases (bp) and the manifold cache (cache).
+// AABBs, pair masks, degrees and bases (bp) and the manifold cache (cache):
+//   floats: 54 a body; 18 (pass contributions) a slot; 24 (the manifold
+//           stash) a stash slot (stash_slots); with the cache 33 a slot;
+//           with bp 6 a body (AABB lo, hi)
+//   ints:   6 a slot (rows i, j, valid, the per-body list's 2, the work
+//           list); 3 n + 1 (the lists' offsets and two cursors a body); 8
+//           world scalars; with bp 6 a body (degree, base, kBpWords mask
+//           words)
 size_t smem_bytes(int n, int K, bool bp, bool cache) {
   const size_t nn = static_cast<size_t>(n), kk = static_cast<size_t>(K);
-  const size_t floats = kBodyCh * nn + (kSlotCh + kPackCh) * kk + (cache ? kCacheCh * kk : 0) +
-                        (bp ? kAabbCh * nn : 0);
-  const size_t ints = 5 * kk + nn + 1 + 4 + (bp ? 2 * nn : 0);
+  const size_t ks = static_cast<size_t>(stash_slots(n, K));
+  const size_t floats = kBodyCh * nn + kSlotCh * ks + kPackCh * kk +
+                        (cache ? kCacheCh * kk : 0) + (bp ? kAabbCh * nn : 0);
+  const size_t ints = 6 * kk + 3 * nn + 1 + kWorldInts + (bp ? (2 + kBpWords) * nn : 0);
   return sizeof(float) * floats + sizeof(int) * ints;
 }
 
 // A world's shared memory, carved from the dynamic block (smem_bytes).
 struct Smem {
   float *sb, *sst, *spk;
+  int ks;         // stash slots (sst's channel stride)
   float* scache;  // kCacheCh K (cache only)
   float* saabb;   // kAabbCh n (bp only)
   int *sri, *srj, *skv;
   int* soff;    // n + 1: each body's first entry in slist
+  int *scurA, *scurB;  // n each: the next A-side and B-side entry of a body
   int* slist;   // 2 K: (slot << 1 | side) per body, A sides first
-  int* sworld;  // 4 world scalars
+  int* swork;   // K: the valid slots, grouped by contact kind (Kind)
+  int* sworld;  // kWorldInts world scalars (kWorkCount, kBpDropped, kBpLive)
   int *sdeg, *sbase;  // n each (bp only): owner degree, first slot
+  unsigned* smask;    // kBpWords n (bp only): each owner's lower partners
 };
 
-__device__ __forceinline__ Smem carve(float* smem, int n, int K, bool bp, bool cache) {
+__device__ __forceinline__ Smem carve(float* smem, int n, int K, bool bp, bool cache, int T) {
   Smem s;
+  s.ks = ((K + T - 1) / T - 1) * T;  // stash_slots(n, K) at the launch's T
   s.sb = smem;
   s.sst = s.sb + kBodyCh * n;
-  s.spk = s.sst + kSlotCh * K;
+  s.spk = s.sst + kSlotCh * s.ks;
   float* f = s.spk + kPackCh * K;
   s.scache = cache ? f : nullptr;
   f += cache ? kCacheCh * K : 0;
@@ -882,10 +1273,14 @@ __device__ __forceinline__ Smem carve(float* smem, int n, int K, bool bp, bool c
   s.srj = s.sri + K;
   s.skv = s.srj + K;
   s.soff = s.skv + K;
-  s.slist = s.soff + n + 1;
-  s.sworld = s.slist + 2 * K;
-  s.sdeg = bp ? s.sworld + 4 : nullptr;
-  s.sbase = bp ? s.sworld + 4 + n : nullptr;
+  s.scurA = s.soff + n + 1;
+  s.scurB = s.scurA + n;
+  s.slist = s.scurB + n;
+  s.swork = s.slist + 2 * K;
+  s.sworld = s.swork + K;
+  s.sdeg = bp ? s.sworld + kWorldInts : nullptr;
+  s.sbase = bp ? s.sdeg + n : nullptr;
+  s.smask = bp ? reinterpret_cast<unsigned*>(s.sbase + n) : nullptr;
   return s;
 }
 
@@ -902,40 +1297,135 @@ __device__ void stage_rows(const Smem& s, const int* rows_i, const int* rows_j,
   }
 }
 
-// After the staging: kc = 1 + the last valid slot (the slot loops stop
-// there; candidate slots are a validity prefix, so this skips the dead
-// tail), and each body's list of its pair sides, A sides in ascending slot
-// order then B sides: the segment sums walk these lists instead of every
-// slot.  Starts and ends with a barrier.
-__device__ int finish_slots(const Smem& s, int n, int K, int tid, int T) {
+// The contact kind of a pair of primitives (pair_contacts' branch).
+__device__ __forceinline__ int pair_kind(int pa, int pb) {
+  const int lo = min(pa, pb), hi = max(pa, pb);
+  if (lo == kPrimHull && hi == kPrimHull) return kBoxBox;
+  if (lo == kPrimHull && hi == kPrimPlane) return kBoxPlane;
+  if (lo == kPrimSphere && hi == kPrimHull) return kSphereBox;
+  if (lo == kPrimSphere && hi == kPrimPlane) return kSpherePlane;
+  if (lo == kPrimSphere && hi == kPrimSphere) return kSphereSphere;
+  return kOther;
+}
+
+// The work list, by one warp of L lanes (L = 32 on the card): the valid
+// slots below kc grouped by contact kind (Kind's order), ascending within a
+// kind — a stable counting sort, two passes of a ballot per kind over
+// chunks of L slots.  The per-slot loops walk it, so a warp runs one branch
+// of pair_contacts (two or three at the boundaries between kinds).
+__device__ void build_work(const Smem& s, const Table& tab, int n, int kc, int lane, int L) {
+  const unsigned full = 0xffffffffu, below = (1u << lane) - 1u;
+  int cnt[kKinds];
+#pragma unroll
+  for (int c = 0; c < kKinds; ++c) cnt[c] = 0;
+  for (int c0 = 0; c0 < kc; c0 += L) {
+    const int k = c0 + lane;
+    const int kind = (k < kc && s.skv[k])
+                         ? pair_kind(tab.prim(obj_of(s.sb, s.sri[k], n)),
+                                     tab.prim(obj_of(s.sb, s.srj[k], n)))
+                         : kKinds;
+#pragma unroll
+    for (int c = 0; c < kKinds; ++c) cnt[c] += __popc(__ballot_sync(full, kind == c));
+  }
+  int base[kKinds], total = 0;
+#pragma unroll
+  for (int c = 0; c < kKinds; ++c) {
+    base[c] = total;
+    total += cnt[c];
+  }
+  for (int c0 = 0; c0 < kc; c0 += L) {
+    const int k = c0 + lane;
+    const int kind = (k < kc && s.skv[k])
+                         ? pair_kind(tab.prim(obj_of(s.sb, s.sri[k], n)),
+                                     tab.prim(obj_of(s.sb, s.srj[k], n)))
+                         : kKinds;
+#pragma unroll
+    for (int c = 0; c < kKinds; ++c) {
+      const unsigned b = __ballot_sync(full, kind == c);
+      if (kind == c) s.swork[base[c] + __popc(b & below)] = k;
+      base[c] += __popc(b);
+    }
+  }
+  if (lane == 0) s.sworld[kWorkCount] = total;
+}
+
+// Inclusive prefix sum of v over the L lanes of a warp (L = 32 on the card).
+__device__ __forceinline__ int warp_scan(int v, int lane, int L) {
+  for (int d = 1; d < L; d <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += u;
+  }
+  return v;
+}
+
+// Each body's list of its pair sides, A sides in ascending slot order then
+// B sides (the segment sums walk these lists instead of every slot), by
+// one warp of L lanes: a stable counting sort of the valid slots below kc
+// by row, chunks of L slots in order, lanes of one row ranked by
+// __match_any_sync, each row's leader lane advancing the row's cursor
+// (scurA / scurB, set to the row's first A-side and B-side entry).
+__device__ void build_lists(const Smem& s, int kc, int lane, int L) {
+  const unsigned full = 0xffffffffu, below = (1u << lane) - 1u;
+  for (int c0 = 0; c0 < kc; c0 += L) {
+    const int k = c0 + lane;
+    const bool valid = k < kc && s.skv[k];
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      const int row = side ? s.srj[valid ? k : 0] : s.sri[valid ? k : 0];
+      const int key = valid ? row : -1 - lane;
+      const unsigned same = __match_any_sync(full, key);
+      const int leader = __ffs(same) - 1;
+      int* cur = side ? s.scurB : s.scurA;
+      const int first = __shfl_sync(full, lane == leader && valid ? cur[row] : 0, leader);
+      if (valid) s.slist[first + __popc(same & below)] = (k << 1) | side;
+      __syncwarp();
+      if (valid && lane == leader) cur[row] = first + __popc(same);
+      __syncwarp();
+    }
+  }
+}
+
+// After the staging: kc = 1 + the last valid slot (the cache's dead-slot
+// loop stops there; candidate slots are a validity prefix, so this skips
+// the dead tail); each body's count of A and B sides (integer atomics: the
+// counts do not depend on their order); the lists' offsets by a warp scan;
+// then, at once, the lists (build_lists, warp 0) and the work list
+// (build_work, warp 1, or warp 0 after the lists when the block has one
+// warp).  Starts and ends with a barrier.
+__device__ int finish_slots(const Smem& s, const Table& tab, int n, int K, int tid, int T) {
   const int *sri = s.sri, *srj = s.srj, *skv = s.skv;
-  int *soff = s.soff, *slist = s.slist;
   __shared__ int s_kc;
   if (tid == 0) s_kc = 0;
+  for (int b = tid; b < n; b += T) s.scurA[b] = s.scurB[b] = 0;
   __syncthreads();
   for (int k = tid; k < K; k += T)
-    if (skv[k]) atomicMax(&s_kc, k + 1);
+    if (skv[k]) {
+      atomicMax(&s_kc, k + 1);
+      atomicAdd(&s.scurA[sri[k]], 1);
+      atomicAdd(&s.scurB[srj[k]], 1);
+    }
   __syncthreads();
   const int kc = s_kc;
-  for (int b = tid; b < n; b += T) {
-    int cnt = 0;
-    for (int k = 0; k < kc; ++k)
-      if (skv[k]) cnt += (sri[k] == b ? 1 : 0) + (srj[k] == b ? 1 : 0);
-    soff[b + 1] = cnt;
+  const int L = T < 32 ? T : 32, lane = tid % 32;
+  if (tid < 32) {
+    int carry = 0;
+    for (int c0 = 0; c0 < n; c0 += L) {
+      const int b = c0 + lane;
+      const int na = b < n ? s.scurA[b] : 0, v = b < n ? na + s.scurB[b] : 0;
+      const int incl = warp_scan(v, lane, L);
+      if (b < n) {
+        const int first = carry + incl - v;
+        s.soff[b] = first;
+        s.scurA[b] = first;
+        s.scurB[b] = first + na;
+      }
+      carry += __shfl_sync(0xffffffffu, incl, L - 1);
+    }
+    if (lane == 0) s.soff[n] = carry;
   }
   __syncthreads();
-  if (tid == 0) {
-    soff[0] = 0;
-    for (int b = 0; b < n; ++b) soff[b + 1] += soff[b];
-  }
-  __syncthreads();
-  for (int b = tid; b < n; b += T) {
-    int e = soff[b];
-    for (int k = 0; k < kc; ++k)
-      if (skv[k] && sri[k] == b) slist[e++] = k << 1;
-    for (int k = 0; k < kc; ++k)
-      if (skv[k] && srj[k] == b) slist[e++] = (k << 1) | 1;
-  }
+  if (tid < 32) build_lists(s, kc, lane, L);
+  if (T > 32 ? (tid >= 32 && tid < 64) : tid < 32) build_work(s, tab, n, kc, lane, L);
   __syncthreads();
   return kc;
 }
@@ -944,21 +1434,16 @@ __device__ int finish_slots(const Smem& s, int n, int K, int tid, int T) {
 // The in-kernel broadphase (JAX _inkernel_broadphase)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ bool aabb_overlap(const float* sa, int n, int i, int j) {
-  bool ok = true;
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax)
-    ok = ok && sa[ax * n + j] <= sa[(3 + ax) * n + i] && sa[(3 + ax) * n + j] >= sa[ax * n + i];
-  return ok;
-}
-
 // Each body's velocity-expanded AABB from the step's starting pose and
 // velocity (the JAX kernel's arithmetic, term by term), then the live pairs
-// whose AABBs overlap, owned by the higher row: one thread per owner counts
-// its partners, one thread scans the capped degrees into each owner's first
-// slot, and each owner writes its first min(deg, D) partners in ascending
-// row.  Slots at K and beyond are not written.  Writes the AABB, row and
-// count outputs; the slots go to shared memory for finish_slots.
+// whose AABBs overlap, owned by the higher row, in parallel: each thread
+// tests a (row, word) item's 32 lower rows into a bit word of the row's
+// partner mask and adds its popcount to the row's degree; a warp scan of
+// the degrees capped at D gives each owner its first slot; and each owner
+// writes its first min(deg, D) partners in ascending row from its mask,
+// without testing again.  Slots
+// at K and beyond are not written.  Writes the AABB, row and count
+// outputs; the slots go to shared memory for finish_slots.  n <= kMaxBpRows.
 __device__ void inkernel_broadphase(const Smem& s, const Args& a, int wld, int n, int K,
                                     int tid, int T) {
   const float* sb = s.sb;
@@ -999,36 +1484,82 @@ __device__ void inkernel_broadphase(const Smem& s, const Args& a, int wld, int n
       a.o_aabb_hi[3 * g + ax] = hi;
     }
   }
+  const int nw = (n + 31) / 32;
   for (int k = tid; k < K; k += T) s.sri[k] = s.srj[k] = s.skv[k] = 0;
+  for (int wd = tid; wd < kBpWords; wd += T) s.sworld[kBpLive + wd] = 0;
+  for (int j = tid; j < n; j += T) s.sdeg[j] = 0;
+  if (tid == 0) s.sworld[kBpDropped] = 0;
   __syncthreads();
-  for (int j = tid; j < n; j += T) {
-    int deg = 0;
-    if (live[j])
-      for (int i = 0; i < j; ++i) deg += (live[i] && aabb_overlap(sa, n, i, j)) ? 1 : 0;
-    s.sdeg[j] = deg;
-  }
+  for (int b = tid; b < n; b += T)
+    if (live[b]) atomicOr(reinterpret_cast<unsigned*>(&s.sworld[kBpLive + b / 32]), 1u << (b % 32));
   __syncthreads();
-  if (tid == 0) {
-    int base = 0, all = 0;
-    for (int j = 0; j < n; ++j) {
-      s.sbase[j] = base;
-      base += min(s.sdeg[j], a.D);
-      all += s.sdeg[j];
+  // the pair tests: item (j, wd) holds rows i = 32 wd + bit < j; the
+  // degrees are summed as the words are made (integer atomics)
+  const unsigned* live_bits = reinterpret_cast<const unsigned*>(s.sworld + kBpLive);
+  for (int it = tid; it < n * nw; it += T) {
+    const int j = it / nw, wd = it % nw;
+    unsigned m = 0;
+    if (((live_bits[j / 32] >> (j % 32)) & 1u) && 32 * wd < j) {
+      float lo[3], hi[3];
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        lo[ax] = sa[ax * n + j];
+        hi[ax] = sa[(3 + ax) * n + j];
+      }
+#pragma unroll
+      for (int bit = 0; bit < 32; ++bit) {
+        const int i = 32 * wd + bit;
+        bool ok = i < j;
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax)
+          ok = ok && lo[ax] <= sa[(3 + ax) * n + i] && hi[ax] >= sa[ax * n + i];
+        m |= ok ? 1u << bit : 0u;
+      }
+      m &= live_bits[wd];
+      if (m) atomicAdd(&s.sdeg[j], __popc(m));
     }
-    a.o_count[wld] = base;
-    a.o_dropped[wld] = all - base;
+    s.smask[j * kBpWords + wd] = m;
   }
   __syncthreads();
+  // warp 0: the capped degrees (in sdeg), each owner's first slot (an
+  // exclusive warp scan with carry, in sbase), the count and the drops
+  if (tid < 32) {
+    const int L = T < 32 ? T : 32, lane = tid % 32;
+    int carry = 0;
+    for (int c0 = 0; c0 < n; c0 += L) {
+      const int j = c0 + lane;
+      const int deg = j < n ? s.sdeg[j] : 0, capped = min(deg, a.D);
+      const int incl = warp_scan(capped, lane, L);
+      if (j < n) {
+        s.sbase[j] = carry + incl - capped;
+        s.sdeg[j] = capped;
+        if (deg > capped) atomicAdd(&s.sworld[kBpDropped], deg - capped);
+      }
+      carry += __shfl_sync(0xffffffffu, incl, L - 1);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      a.o_count[wld] = carry;
+      a.o_dropped[wld] = s.sworld[kBpDropped];
+    }
+  }
+  __syncthreads();
+  // each owner's first min(deg, D) partners, ascending
   for (int j = tid; j < n; j += T) {
-    const int dc = min(s.sdeg[j], a.D);
-    int r = 0;
-    for (int i = 0; i < j && r < dc; ++i) {
-      if (!(live[i] && aabb_overlap(sa, n, i, j))) continue;
-      const int slot = s.sbase[j] + r++;
-      if (slot < K) {
-        s.sri[slot] = i;
-        s.srj[slot] = j;
-        s.skv[slot] = 1;
+    int r = 0, slot = s.sbase[j];
+    const int dc = s.sdeg[j];
+    for (int wd = 0; wd < nw && r < dc; ++wd) {
+      unsigned m = s.smask[j * kBpWords + wd];
+      while (m && r < dc) {
+        const int i = 32 * wd + __ffs(m) - 1;
+        m &= m - 1u;
+        if (slot < K) {
+          s.sri[slot] = i;
+          s.srj[slot] = j;
+          s.skv[slot] = 1;
+        }
+        ++slot;
+        ++r;
       }
     }
   }
@@ -1157,6 +1688,35 @@ __device__ void cache_refresh(const float* sc, int K, int k, const Side& A, cons
 // (kResolveKeep), persistence's substep 0.
 enum ContactMode { kFresh = 0, kBuild, kRefresh, kResolveBuild, kResolveKeep };
 
+// A manifold and its lambdas in the stash's entry i (channel stride KS).
+__device__ __forceinline__ void stash_store(float* sst, int KS, int i, const Manifold& c,
+                                            const float (&lam)[kPts]) {
+  sst[kSOk * KS + i] = c.ok ? 1.0f : 0.0f;
+  sst[(kSN + 0) * KS + i] = c.n.x;
+  sst[(kSN + 1) * KS + i] = c.n.y;
+  sst[(kSN + 2) * KS + i] = c.n.z;
+#pragma unroll
+  for (int p = 0; p < kPts; ++p) {
+    sst[(kSP + 3 * p) * KS + i] = c.p[p].x;
+    sst[(kSP + 3 * p + 1) * KS + i] = c.p[p].y;
+    sst[(kSP + 3 * p + 2) * KS + i] = c.p[p].z;
+    sst[(kSD + p) * KS + i] = c.d[p];
+    sst[(kSLam + p) * KS + i] = lam[p];
+  }
+}
+__device__ __forceinline__ void stash_load(const float* sst, int KS, int i, Manifold& c,
+                                           float (&lam)[kPts]) {
+  c.ok = sst[kSOk * KS + i] > 0.5f;
+  c.n = mk(sst[kSN * KS + i], sst[(kSN + 1) * KS + i], sst[(kSN + 2) * KS + i]);
+#pragma unroll
+  for (int p = 0; p < kPts; ++p) {
+    c.p[p] = mk(sst[(kSP + 3 * p) * KS + i], sst[(kSP + 3 * p + 1) * KS + i],
+                sst[(kSP + 3 * p + 2) * KS + i]);
+    c.d[p] = sst[(kSD + p) * KS + i];
+    lam[p] = sst[(kSLam + p) * KS + i];
+  }
+}
+
 // Steps 2-9 of a substep, from the post-integrate pose and velocities
 // (kIPos, kIRot, kIV, kIW) and the substep start (kPrevPos, kPrevRot):
 // leaves the new pose in kPos/kRot (dynamic rows only) and the velocities
@@ -1175,9 +1735,19 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
       if (k >= kc || !skv[k]) cache_dead(s.scache, K, k, p0, q0);
   }
 
-  // (2-4) per slot: gather, contacts, positional pass
-  for (int k = tid; k < kc; k += T) {
-    if (!skv[k]) continue;
+  // (2-4) per valid slot, in work-list order: gather, contacts, positional
+  // pass.  The manifold and lambdas of a thread's first entry stay with
+  // the thread until the velocity pass; the others wait in the stash.  The
+  // loop runs in whole warps (warp_box_box's shuffles): a lane past the
+  // list works on the warp's first entry and drops out before the pass.
+  const int nwork = s.sworld[kWorkCount], KS = s.ks;
+  const int lane = tid % 32;
+  Manifold own;
+  float own_lam[kPts];
+  for (int e0 = tid - lane; e0 < nwork; e0 += T) {
+    const int e = e0 + lane;
+    const bool act = e < nwork;
+    const int k = s.swork[act ? e : e0];
     Side S[2];
     Body Bd[2];
     const int rows[2] = {sri[k], srj[k]};
@@ -1196,25 +1766,27 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
     }
     Manifold c;
     int npts = 0;
-    if (!CACHE || mode == kFresh || mode == kBuild || mode == kResolveBuild)
-      pair_contacts<CACHE>(Bd[0], Bd[1], tab, spec, c, &npts);
+    if (!CACHE || mode == kFresh || mode == kBuild || mode == kResolveBuild) {
+      // box-box pairs on lane groups where the registers are free (the
+      // cache specialisations; see min_blocks), on their own lane elsewhere
+      const bool bb = CACHE && act && tab.prim(Bd[0].obj) == kPrimHull &&
+                      tab.prim(Bd[1].obj) == kPrimHull;
+      if (CACHE) warp_box_box<CACHE>(Bd, tab, spec, bb, lane, c, &npts);
+      if (act && !bb) pair_contacts<CACHE>(Bd[0], Bd[1], tab, spec, c, &npts);
+    }
+    if (!act) continue;
     if (CACHE && (mode == kBuild || mode == kResolveBuild))
       cache_store(s.scache, K, k, c, npts, S[0], S[1]);
     if (CACHE && (mode == kRefresh || mode == kResolveBuild || mode == kResolveKeep))
       cache_refresh(s.scache, K, k, S[0], S[1], c);
     float pA[9], pB[9], lam[kPts];
     positional_pass(S[0], S[1], c, relax, pA, pB, lam);
-    sst[kSOk * K + k] = c.ok ? 1.0f : 0.0f;
-    sst[(kSN + 0) * K + k] = c.n.x;
-    sst[(kSN + 1) * K + k] = c.n.y;
-    sst[(kSN + 2) * K + k] = c.n.z;
+    if (e < T) {
+      own = c;
 #pragma unroll
-    for (int p = 0; p < kPts; ++p) {
-      sst[(kSP + 3 * p) * K + k] = c.p[p].x;
-      sst[(kSP + 3 * p + 1) * K + k] = c.p[p].y;
-      sst[(kSP + 3 * p + 2) * K + k] = c.p[p].z;
-      sst[(kSD + p) * K + k] = c.d[p];
-      sst[(kSLam + p) * K + k] = lam[p];
+      for (int p = 0; p < kPts; ++p) own_lam[p] = lam[p];
+    } else {
+      stash_store(sst, KS, e - T, c, lam);
     }
 #pragma unroll
     for (int q = 0; q < 9; ++q) {
@@ -1260,9 +1832,9 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
   }
   __syncthreads();
 
-  // (7-8) per slot: re-gather at the post-solve poses, velocity pass
-  for (int k = tid; k < kc; k += T) {
-    if (!skv[k]) continue;
+  // (7-8) per valid slot: re-gather at the post-solve poses, velocity pass
+  for (int e = tid; e < nwork; e += T) {
+    const int k = s.swork[e];
     Side S[2];
     const int rows[2] = {sri[k], srj[k]};
 #pragma unroll
@@ -1279,17 +1851,11 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
       S[q].mu = sb[kMuD * n + b];
       S[q].rest = tab.rest(obj_of(sb, b, n));
     }
-    Manifold c;
+    Manifold c = own;
     float lam[kPts];
-    c.ok = sst[kSOk * K + k] > 0.5f;
-    c.n = mk(sst[kSN * K + k], sst[(kSN + 1) * K + k], sst[(kSN + 2) * K + k]);
 #pragma unroll
-    for (int p = 0; p < kPts; ++p) {
-      c.p[p] = mk(sst[(kSP + 3 * p) * K + k], sst[(kSP + 3 * p + 1) * K + k],
-                  sst[(kSP + 3 * p + 2) * K + k]);
-      c.d[p] = sst[(kSD + p) * K + k];
-      lam[p] = sst[(kSLam + p) * K + k];
-    }
+    for (int p = 0; p < kPts; ++p) lam[p] = own_lam[p];
+    if (e >= T) stash_load(sst, KS, e - T, c, lam);
     float pA[6], pB[6];
     velocity_pass(S[0], S[1], c, lam, h1, rest1, bounce, spec, pA, pB);
 #pragma unroll
@@ -1346,8 +1912,18 @@ __device__ void passthrough(const Args& a, int wld, int n, int tid, int T) {
 // (contact refresh), SLEEP (active), BP (the in-kernel broadphase), PERSIST
 // (the persistent manifold cache; with BP and REFRESH).  OPTS = 0 is the
 // kernel without options.
+// CTAs an SM each specialisation is compiled for (__launch_bounds__'s
+// second argument, which caps the registers a thread at 65536 / (128 x
+// that)): 4 where shared memory lets 4 worlds share an SM at K = 256;
+// with a manifold cache (33 floats a slot more) shared memory allows 2, and
+// the registers are left free.
 template <int OPTS>
-__global__ void __launch_bounds__(kMaxThreads) fused_substep_kernel(Args a) {
+constexpr int min_blocks() {
+  return (OPTS & (kOptRefresh | kOptPersist)) != 0 ? 1 : kMinBlocks;
+}
+
+template <int OPTS>
+__global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep_kernel(Args a) {
   constexpr bool REFRESH = (OPTS & kOptRefresh) != 0, SLEEP = (OPTS & kOptSleep) != 0;
   constexpr bool BP = (OPTS & kOptBp) != 0, PERSIST = (OPTS & kOptPersist) != 0;
   constexpr bool CACHE = REFRESH || PERSIST;
@@ -1359,7 +1935,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_substep_kernel(Args a) {
     if (PERSIST) cached_surface(nullptr, a, wld, n, K, tid, T, true);
     return;
   }
-  const Smem s = carve(smem, n, K, BP, CACHE);
+  const Smem s = carve(smem, n, K, BP, CACHE, T);
   float* sb = s.sb;
   const size_t b0 = static_cast<size_t>(wld) * n;
 
@@ -1398,7 +1974,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_substep_kernel(Args a) {
   } else {
     stage_rows(s, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
   }
-  const int kc = finish_slots(s, n, K, tid, T);
+  const int kc = finish_slots(s, a.tab, n, K, tid, T);
   const float h1 = a.h[wld], rest1 = a.rest_thr[wld];
   const V3 grav = mk(a.gravity[3 * wld], a.gravity[3 * wld + 1], a.gravity[3 * wld + 2]);
 
@@ -1501,7 +2077,7 @@ __global__ void __launch_bounds__(kMaxThreads) substep_kernel(Args1 a) {
   extern __shared__ float smem[];
   const int wld = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
   const int n = a.n, K = a.K;
-  const Smem s = carve(smem, n, K, false, false);
+  const Smem s = carve(smem, n, K, false, false, T);
   float* sb = s.sb;
   const size_t b0 = static_cast<size_t>(wld) * n;
 
@@ -1530,7 +2106,7 @@ __global__ void __launch_bounds__(kMaxThreads) substep_kernel(Args1 a) {
     sb[kObj * n + b] = __int_as_float(a.obj[g]);
   }
   stage_rows(s, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
-  const int kc = finish_slots(s, n, K, tid, T);
+  const int kc = finish_slots(s, a.tab, n, K, tid, T);
   solve_substep<false>(s, a.tab, n, K, kc, a.h[wld], a.rest_thr[wld], a.relax, a.spec,
                        a.bounce != 0, kFresh, tid, T);
 
@@ -1554,9 +2130,7 @@ cudaError_t launch_shape(Kernel kernel, int n, int K, size_t smem, int* threads)
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const int widest = n > K ? n : K;
-  *threads = ((widest + 31) / 32) * 32;
-  if (*threads > kMaxThreads) *threads = kMaxThreads;
+  *threads = block_threads(n, K);
   return cudaSuccess;
 }
 
@@ -1572,7 +2146,54 @@ cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Threads a CTA and CTAs an SM of a kernel at n bodies and K slots.
+template <typename Kernel>
+cudaError_t occupancy_of(Kernel kernel, int n, int K, size_t smem, int* threads, int* blocks) {
+  const cudaError_t err = launch_shape(kernel, n, K, smem, threads);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, *threads, smem);
+}
+
+template <int OPTS>
+cudaError_t occupancy_fused(int n, int K, int* threads, int* blocks) {
+  constexpr bool bp = (OPTS & kOptBp) != 0;
+  constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
+  return occupancy_of(fused_substep_kernel<OPTS>, n, K, smem_bytes(n, K, bp, cache), threads,
+                      blocks);
+}
+
 }  // namespace
+
+// The launch shape and occupancy of the fused kernel's specialisation
+// `opts` (fused_substep_launch's option bits) at n bodies and K slots:
+// threads a CTA and CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int fused_substep_occupancy(int opts, int n, int K, int* threads, int* blocks) {
+  cudaError_t err;
+  switch (opts) {
+    case 0: err = occupancy_fused<0>(n, K, threads, blocks); break;
+    case kOptRefresh: err = occupancy_fused<kOptRefresh>(n, K, threads, blocks); break;
+    case kOptSleep: err = occupancy_fused<kOptSleep>(n, K, threads, blocks); break;
+    case kOptRefresh | kOptSleep:
+      err = occupancy_fused<kOptRefresh | kOptSleep>(n, K, threads, blocks);
+      break;
+    case kOptBp: err = occupancy_fused<kOptBp>(n, K, threads, blocks); break;
+    case kOptBp | kOptRefresh: err = occupancy_fused<kOptBp | kOptRefresh>(n, K, threads, blocks); break;
+    case kOptPersist | kOptBp | kOptRefresh:
+      err = occupancy_fused<kOptPersist | kOptBp | kOptRefresh>(n, K, threads, blocks);
+      break;
+    case kOptPersist | kOptBp | kOptRefresh | kOptSleep:
+      err = occupancy_fused<kOptPersist | kOptBp | kOptRefresh | kOptSleep>(n, K, threads, blocks);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The same for the single-substep kernel.
+extern "C" int substep_occupancy(int n, int K, int* threads, int* blocks) {
+  return static_cast<int>(
+      occupancy_of(substep_kernel, n, K, smem_bytes(n, K, false, false), threads, blocks));
+}
 
 extern "C" int fused_substep_launch(
     const void* pos, const void* rot, const void* v, const void* w, const void* im,
@@ -1589,7 +2210,7 @@ extern "C" int fused_substep_launch(
   if (W <= 0) return static_cast<int>(cudaSuccess);
   if (n <= 0 || K <= 0 || num_substeps < 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts)
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((opts & kOptBp) && (n > kMaxThreads || degree < 1))
+  if ((opts & kOptBp) && (n > kMaxBpRows || degree < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<const float*>(pos);

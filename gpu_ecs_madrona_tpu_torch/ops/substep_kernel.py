@@ -95,16 +95,34 @@ MC_CACHE = MC_CHANNELS - MC_ROWS
 MAX_SMEM_BYTES = 227 * 1024
 MAX_TABLE_VERTS = 8
 MAX_BP_ROWS = 128
+MAX_THREADS = 128
+
+
+def block_threads(n: int, K: int) -> int:
+    """The kernels' block size (block_threads in the .cu): one thread a
+    slot and a body, in whole warps, at most MAX_THREADS."""
+    return min(-(-max(n, K) // 32) * 32, MAX_THREADS)
+
+
+def stash_slots(n: int, K: int) -> int:
+    """The slots whose manifold waits in shared memory between the two
+    passes (stash_slots in the .cu): a thread keeps its first entry's in
+    registers, so only the rounds of T slots after the first."""
+    T = block_threads(n, K)
+    return (-(-K // T) - 1) * T
 
 
 def smem_bytes(n: int, K: int, bp: bool = False, cache: bool = False) -> int:
     """The kernel's shared memory for n bodies and K slots: its dynamic
-    part (smem_bytes in the .cu: 54 floats a body, 24 + 18 a slot, 5 ints
-    a slot, n + 1 offsets and 4 world ints; with the broadphase 6 floats
-    and 2 ints a body, with a manifold cache 33 floats a slot) and its one
-    static int."""
-    floats = 54 * n + 42 * K + (6 * n if bp else 0) + (MC_CACHE * K if cache else 0)
-    ints = 5 * K + n + 1 + 4 + (2 * n if bp else 0)
+    part (smem_bytes in the .cu: 54 floats a body, 18 a slot and 24 a
+    stash slot, 6 ints a slot (rows, flag, the per-body list, the work
+    list), 3 n + 1 list offsets and cursors and 8 world ints; with the
+    broadphase 6 floats and 6 ints a body (the AABB; degree, first slot and
+    4 partner-mask words), with a manifold cache 33 floats a slot) and its
+    one static int."""
+    floats = (54 * n + 24 * stash_slots(n, K) + 18 * K + (6 * n if bp else 0)
+              + (MC_CACHE * K if cache else 0))
+    ints = 6 * K + 3 * n + 1 + 8 + (6 * n if bp else 0)
     return 4 * floats + 4 * ints + 4
 
 
@@ -458,6 +476,11 @@ def _lib():
         lib.fused_substep_launch.restype = I
         lib.substep_launch.argtypes = [P] * 18 + [I] * 5 + [F, F, I] + [P] * 4 + [P]
         lib.substep_launch.restype = I
+        IP = ctypes.POINTER(ctypes.c_int)
+        lib.fused_substep_occupancy.argtypes = [I, I, I, IP, IP]
+        lib.fused_substep_occupancy.restype = I
+        lib.substep_occupancy.argtypes = [I, I, IP, IP]
+        lib.substep_occupancy.restype = I
         lib._typed = True
     return lib
 
@@ -607,6 +630,32 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
     FusedSubstepKernel.launches += 1
     FusedSubstepKernel.launches_by_options[option_name(code)] += 1
     return extra | outs
+
+
+SPECIALISATION_CODES = (0, OPT_REFRESH, OPT_SLEEP, OPT_REFRESH | OPT_SLEEP, OPT_BP,
+                        OPT_BP | OPT_REFRESH, OPT_PERSIST | OPT_BP | OPT_REFRESH,
+                        OPT_PERSIST | OPT_BP | OPT_REFRESH | OPT_SLEEP)
+
+
+def occupancy(n: int, K: int, single: bool = False):
+    """The kernels' launch shape at n bodies and K slots, on the current
+    card: {specialisation name: (threads a CTA, CTAs an SM)} for the fused
+    kernel's eight specialisations, or (threads, CTAs an SM) of the
+    single-substep kernel with ``single``.  Builds the kernels if needed."""
+    lib = _lib()
+    threads, blocks = ctypes.c_int(), ctypes.c_int()
+
+    def read(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"occupancy of {what}: cudaError {rc}")
+        return threads.value, blocks.value
+
+    if single:
+        return read(lib.substep_occupancy(n, K, ctypes.byref(threads), ctypes.byref(blocks)),
+                    "substep")
+    return {option_name(code): read(lib.fused_substep_occupancy(
+        code, n, K, ctypes.byref(threads), ctypes.byref(blocks)), option_name(code))
+        for code in SPECIALISATION_CODES}
 
 
 def option_name(code: int) -> str:

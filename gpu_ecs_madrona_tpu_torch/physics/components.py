@@ -87,7 +87,8 @@ PhysicsState = singleton_component(
 
 # World-level sleeping state (beyond the reference).  Registered
 # unconditionally, as in the JAX package, so the state schema does not
-# depend on the option; the port does not sleep worlds yet (ROADMAP).
+# depend on the option; the fused substep node reads and updates it when
+# sleep_threshold > 0 (setup_substep_tasks).
 SleepState = singleton_component(
     "SleepState",
     quiet_steps=((), i32),

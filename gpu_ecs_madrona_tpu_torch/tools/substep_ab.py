@@ -1,0 +1,230 @@
+#!/usr/bin/env python3
+"""Times the physics substep kernels of one or more checkouts on one card,
+in turns: an A/B of a change against its parent.
+
+    python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py ROOT [ROOT ...]
+    python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --phases ROOT
+
+Each ROOT is the root of a checkout of this repository; each runs in a
+process of its own (so that two versions of the package never meet), in
+the order given: "parent change change parent" is the usual A/B.  Each
+prints one JSON line:
+
+  ptxas      registers, stack frame and spills of each substep kernel
+             (the build log of ROOT's csrc/substep_kernels.cu)
+  occupancy  threads a CTA and CTAs an SM of each specialisation at
+             8192 x 65 (K = 256 and 128) and of the single-substep kernel
+             at 1024 x 104, K = 1000, where ROOT's library exports it
+  rates      env-steps/s of rigid_bench at 8192 x 64 (main_rigid: K = 256,
+             the dense broadphase; main_rigid_fused_bp: the broadphase in
+             the kernel): 3 untimed steps, 5 windows of 50 steps
+  ms         CUDA-event device ms a call (20 calls, queued behind a device
+             sleep) of the kernels of PERF.md's rows 5-9 at the states the
+             chip smoke test times them at: rows 7 and 6 at main_rigid's
+             state after 253 steps (K = 256, 128), row 8 at
+             main_rigid_fused_bp's, row 9 at the settled pile after 400 +
+             253 steps (as it is, and with its flags flipped so that every
+             branch runs), row 8 with refresh at the settled pile without
+             persistence, row 5 at simple_taskgraph's state (1024 x 104,
+             K = 1000) after 253 steps
+  phases     (--phases) row 7's time at main_rigid's state with 0, 1 and 4
+             substeps, with every slot cleared (the integrate and the body
+             phases), with only the slots of one contact kind valid; row
+             8's with 0 substeps (its broadphase and the loads and stores)
+
+The script needs a CUDA card; without one it exits 1 and prints nothing.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+RB_WORLDS, STG_WORLDS = 8192, 1024
+
+
+def cuda_ms(torch, fn, iters=20, warmup=3):
+    """Device ms a call of fn: the calls are queued behind a device sleep,
+    so the events time the device's work, not the host's enqueue."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rate(sim, steps=50, count=5):
+    """Median env-steps/s over ``count`` windows of ``steps`` steps."""
+    r = []
+    for _ in range(count):
+        t0 = time.perf_counter()
+        sim.run(steps)
+        sim.block_until_ready()
+        r.append(steps * sim.cfg.num_worlds / (time.perf_counter() - t0))
+    return sorted(r)[len(r) // 2]
+
+
+def kind_masks(torch, kw, prim_type):
+    """Valid candidate slots [W, K] by contact kind."""
+    prim = torch.as_tensor(prim_type, device=kw["obj"].device)
+    pa = prim[torch.gather(kw["obj"], 1, kw["rows_i"].long()).long()]
+    pb = prim[torch.gather(kw["obj"], 1, kw["rows_j"].long()).long()]
+    lo, hi = torch.minimum(pa, pb), torch.maximum(pa, pb)   # 0 sphere, 1 hull, 2 plane
+    kinds = {"sphere-sphere": (lo == 0) & (hi == 0), "sphere-box": (lo == 0) & (hi == 1),
+             "sphere-plane": (lo == 0) & (hi == 2), "box-box": (lo == 1) & (hi == 1),
+             "box-plane": (lo == 1) & (hi == 2)}
+    return {k: v & kw["kvalid"] for k, v in kinds.items()}
+
+
+def occupancy(ctypes, lib, n, K):
+    """{specialisation: [threads, CTAs an SM]} where the library exports it."""
+    if not hasattr(lib, "fused_substep_occupancy"):
+        return "not exported"
+    out = {}
+    t, b = ctypes.c_int(), ctypes.c_int()
+    for code, name in ((0, "none"), (1, "refresh"), (2, "sleep"), (3, "refresh+sleep"),
+                       (4, "bp"), (5, "refresh+bp"), (13, "refresh+bp+persist"),
+                       (15, "refresh+sleep+bp+persist")):
+        rc = lib.fused_substep_occupancy(code, n, K, ctypes.byref(t), ctypes.byref(b))
+        out[name] = [t.value, b.value] if rc == 0 else f"cudaError {rc}"
+    return out
+
+
+def one(root, phases):
+    import ctypes
+
+    import torch
+    sys.path.insert(0, root)
+    import gpu_ecs_madrona_tpu_torch as port
+    from gpu_ecs_madrona_tpu_torch import physics as phys
+    from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
+    from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
+    from gpu_ecs_madrona_tpu_torch.ops import _build
+    from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
+    if not os.path.abspath(port.__file__).startswith(os.path.abspath(root)):
+        raise RuntimeError(f"{port.__file__} is not under {root}")
+    torch.cuda.set_device(0)
+    log = _build.build(["substep_kernels"])["substep_kernels"]
+    ptxas, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry" in ln:
+            entry = ln.split("'")[1]
+            entry = ("substep_kernel" if "substep_kernelENS" in entry
+                     else "fused<" + entry.split("ILi")[1].split("E")[0] + ">")
+        elif entry and ("registers" in ln or "stack frame" in ln):
+            ptxas[entry] = (ptxas.get(entry, "") + " " + ln.split(":")[-1].strip()).strip()
+    lib = sk._lib()
+    res = {"root": root, "card": torch.cuda.get_device_name(0), "ptxas": ptxas,
+           "occupancy": {"K256": occupancy(ctypes, lib, 65, 256),
+                         "K128": occupancy(ctypes, lib, 65, 128)}}
+    if hasattr(lib, "substep_occupancy"):
+        t, b = ctypes.c_int(), ctypes.c_int()
+        lib.substep_occupancy(104, 1000, ctypes.byref(t), ctypes.byref(b))
+        res["occupancy"]["substep_1024x104_K1000"] = [t.value, b.value]
+    om = rb.RigidBenchWorld.objmgr
+
+    def inputs(sim):
+        return phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, rb.Body, om)
+
+    def executor(**cfg):
+        return rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, **cfg), device="cuda")
+
+    ms, rates = {}, {}
+    sims = {}
+    for name, cfg in (("main_rigid", dict(contact_mode="pallas", max_candidates=256)),
+                      ("main_rigid_k128", dict(contact_mode="pallas", max_candidates=128)),
+                      ("main_rigid_fused_bp", dict(contact_mode="pallas", max_candidates=256,
+                                                   broadphase_mode="fused"))):
+        sim = executor(**cfg)
+        sim.run(3)
+        sim.block_until_ready()
+        r = rate(sim)
+        if name != "main_rigid_k128":
+            rates[name] = r
+        sims[name] = sim
+    kern = sk.FusedSubstepKernel(om, 4, relaxation=0.7)
+    kw256, kw128 = inputs(sims["main_rigid"]), inputs(sims["main_rigid_k128"])
+    ms["row7_K256"] = cuda_ms(torch, lambda: kern(**kw256))
+    ms["row6_K128"] = cuda_ms(torch, lambda: kern(**kw128))
+    bkern = phys.RigidBodyPhysicsSystem.fused_kernel(sims["main_rigid_fused_bp"])
+    kwb = inputs(sims["main_rigid_fused_bp"])
+    ms["row8_bp"] = cuda_ms(torch, lambda: bkern(**kwb))
+
+    settled = executor(**dict(rb.SETTLED_PILE, max_candidates=256))
+    settled.run(rb.SETTLE_STEPS + 253)
+    pkern, kwp = phys.RigidBodyPhysicsSystem.fused_kernel(settled), inputs(settled)
+    ms["row9_persist_settled"] = cuda_ms(torch, lambda: pkern(**kwp))
+    worlds = torch.arange(RB_WORLDS, device=kwp["im"].device)
+    flipped = dict(kwp, stable=kwp["stable"] ^ (worlds % 2 == 1),
+                   active=kwp["active"] ^ (worlds % 4 >= 2))
+    ms["row9_persist_flipped"] = cuda_ms(torch, lambda: pkern(**flipped))
+    del settled
+    nsim = executor(**dict(rb.SETTLED_PILE, max_candidates=256, manifold_persist=False,
+                           sleep_threshold=0.0))
+    nsim.run(rb.SETTLE_STEPS + 253)
+    nkern, kwn = phys.RigidBodyPhysicsSystem.fused_kernel(nsim), inputs(nsim)
+    ms["row8_refresh_settled_nopersist"] = cuda_ms(torch, lambda: nkern(**kwn))
+    del nsim
+
+    ssim = stg.make_executor(stg.SimpleTaskgraphConfig(
+        num_worlds=STG_WORLDS, num_objects=100, render=True, render_width=64,
+        render_height=64), device="cuda")
+    ssim.run(253)
+    kw1 = phys.RigidBodyPhysicsSystem.substep_kernel_inputs(
+        phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(ssim, stg.Sphere, stg.OBJMGR))
+    kern1 = sk.SubstepKernel(stg.OBJMGR, relaxation=0.7)
+    ms["row5_substep"] = cuda_ms(torch, lambda: kern1(**kw1), 200)
+    del ssim
+    res.update(ms=ms, rates=rates, live_slots={
+        "main_rigid": {k: int(v.sum()) for k, v in kind_masks(
+            torch, kw256, om["prim_type"]).items()}})
+
+    if phases:
+        ph = {}
+        for S in (0, 1, 4):
+            k = sk.FusedSubstepKernel(om, S, relaxation=0.7)
+            ph[f"substeps_{S}"] = cuda_ms(torch, lambda: k(**kw256))
+        ph["no_slots"] = cuda_ms(torch, lambda: kern(**dict(
+            kw256, kvalid=torch.zeros_like(kw256["kvalid"]))))
+        for name, mask in kind_masks(torch, kw256, om["prim_type"]).items():
+            kwk = dict(kw256, kvalid=mask.contiguous())
+            ph[f"only_{name}"] = cuda_ms(torch, lambda: kern(**kwk))
+        b0 = sk.FusedSubstepKernel(om, 0, relaxation=0.7, bp_degree=bkern.bp_degree,
+                                   bp_capacity=bkern.bp_capacity)
+        ph["bp_substeps_0"] = cuda_ms(torch, lambda: b0(**kwb))
+        ph["row7_K256_again"] = cuda_ms(torch, lambda: kern(**kw256))
+        res["phases"] = ph
+    print(json.dumps(res), flush=True)
+
+
+def main(argv):
+    phases = "--phases" in argv
+    if "--one" in argv:
+        one(argv[argv.index("--one") + 1], phases)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("substep_ab: no CUDA device", file=sys.stderr)
+        return 1
+    roots = [a for a in argv if not a.startswith("--")]
+    if not roots:
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(json.dumps({"card": smi.strip().splitlines()[0], "order": roots}), flush=True)
+    for root in roots:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
+                        os.path.abspath(root)] + (["--phases"] if phases else []), check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

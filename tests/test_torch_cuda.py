@@ -550,3 +550,150 @@ def test_render_step_waits_for_nothing(card):
     torch.cuda.synchronize()
     assert (subk.FusedSubstepKernel.launches, subk.SubstepKernel.launches,
             rk.RenderKernel.launches) == (0, 4 * 4, 4)
+
+
+# -- the fused kernel's work list, broadphase masks and scans: every
+# specialisation bit for bit against its plain version on piles that stress
+# them ----------------------------------------------------------------------
+
+SPECIALISATIONS = ("none", "refresh", "sleep", "refresh+sleep", "bp", "refresh+bp",
+                   "refresh+bp+persist", "refresh+sleep+bp+persist")
+BODY_KEYS = ("pos", "rot", "v", "w", "im", "ii", "mu_s", "mu_d", "obj", "ext_f", "ext_t", "dyn")
+
+
+def slot_kinds(kw):
+    """Each slot's contact kind, as the kernel's work list groups them."""
+    prim = torch.as_tensor(rb.RigidBenchWorld.objmgr["prim_type"], device=kw["obj"].device)
+    pa = prim[torch.gather(kw["obj"], 1, kw["rows_i"].long()).long()]
+    pb = prim[torch.gather(kw["obj"], 1, kw["rows_j"].long()).long()]
+    return torch.minimum(pa, pb) * 3 + torch.maximum(pa, pb)
+
+
+def pile_inputs(pile, n, K, dev, W=6):
+    """The no-option kernel's inputs for a pile of n rows (the plane and
+    n - 1 bodies: boxes, spheres or both alternating) at K slots, from the
+    dense broadphase of a compact rigid_bench pile; world 0 keeps the
+    valid slots of one contact kind only, world 1 has none, world 2 fills
+    all K slots with the pairs of its rows in order (most of them apart)."""
+    nb = max(n - 1, 8)
+    sim = rb.make_executor(rb.RigidBenchConfig(
+        num_worlds=W, num_bodies=nb, contact_mode="pallas", max_candidates=K,
+        body_mix="boxes" if pile == "boxes" else "alternate", spawn_xy=3.0, spawn_h=5.0,
+        seed=7), device=dev)
+    sim.run(4)
+    kw = fused_inputs(sim)
+    kw.update({k: kw[k][:, :n].contiguous() for k in BODY_KEYS})
+    if pile == "spheres":
+        kw["obj"] = torch.where(torch.arange(n, device=dev) > 0, rb.OBJ_SPHERE,
+                                kw["obj"]).to(torch.int32).contiguous()
+    kvalid = kw["kvalid"] & (kw["rows_i"] < n) & (kw["rows_j"] < n)
+    kinds = slot_kinds(dict(kw, rows_i=kw["rows_i"].clamp(max=n - 1),
+                            rows_j=kw["rows_j"].clamp(max=n - 1)))
+    if bool(kvalid[0].any()):
+        first = kinds[0][kvalid[0]][0]
+        kvalid[0] &= kinds[0] == first
+    kvalid[1] = False
+    pairs = torch.combinations(torch.arange(n, device=dev), 2)[:K]
+    rows_i, rows_j = kw["rows_i"].clone(), kw["rows_j"].clone()
+    rows_i[2], rows_j[2], kvalid[2] = 0, 0, False
+    rows_i[2, :len(pairs)], rows_j[2, :len(pairs)] = pairs[:, 0].int(), pairs[:, 1].int()
+    kvalid[2, :len(pairs)] = True
+    rows_i = torch.where(kvalid, rows_i, 0)
+    rows_j = torch.where(kvalid, rows_j, 0)
+    kw.update(rows_i=rows_i.contiguous(), rows_j=rows_j.contiguous(),
+              kvalid=kvalid.contiguous())
+    return kw
+
+
+def specialised(spec, kw, K, D):
+    """(kernel, inputs) of specialisation ``spec`` on a pile's inputs: mixed
+    sleep flags; the broadphase with degree cap D over live rows with two
+    dead ones; the persistent cache built by a first plain call, then half
+    the worlds stable."""
+    W, n = kw["im"].shape
+    dev = kw["im"].device
+    opts = set(spec.split("+"))
+    kern = subk.FusedSubstepKernel(
+        rb.RigidBenchWorld.objmgr, 4, relaxation=0.7, contact_refresh="refresh" in opts,
+        bp_degree=D if "bp" in opts else 0, bp_capacity=K if "bp" in opts else 0,
+        persist_margin=0.05 if "persist" in opts else 0.0)
+    kw = dict(kw)
+    worlds = torch.arange(W, device=dev)
+    if "bp" in opts:
+        for k in ("rows_i", "rows_j", "kvalid"):
+            kw.pop(k)
+        live = torch.ones((W, n), dtype=torch.bool, device=dev)
+        live[:, n // 2] = False
+        live[:, -1] = n < 3
+        kw.update(scale=torch.ones((W, n, 3), device=dev), live=live,
+                  dtv=torch.full((W,), 1 / 60, device=dev))
+    if "persist" in opts:
+        first = subk.FusedSubstepKernel(
+            rb.RigidBenchWorld.objmgr, 4, relaxation=0.7, contact_refresh=True, bp_degree=D,
+            bp_capacity=K, persist_margin=0.05).plain(
+                **kw, mcache=torch.zeros((W, subk.MC_CHANNELS, K), device=dev),
+                stable=torch.zeros(W, dtype=torch.bool, device=dev),
+                aabb_lo=torch.zeros((W, n, 3), device=dev),
+                aabb_hi=torch.zeros((W, n, 3), device=dev))
+        kw.update(mcache=first["mcache"], stable=worlds % 2 == 0, aabb_lo=first["aabb_lo"],
+                  aabb_hi=first["aabb_hi"])
+    if "sleep" in opts:
+        kw["active"] = worlds % 3 != 1
+    return kern, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 128])
+@pytest.mark.parametrize("n", [1, 65, 127])
+@pytest.mark.parametrize("pile", ["boxes", "spheres", "alternate"])
+def test_every_specialisation_matches_plain_bit_for_bit(card, pile, n, K):
+    """Each of the eight specialisations against its plain version on the
+    same inputs: every output 0.0 apart (integers equal), and two launches
+    bit-identical.  The piles put one contact kind in a world, none in
+    another, and all K slots in a third; the broadphase runs over rows
+    with dead ones."""
+    kw0 = pile_inputs(pile, n, K, card)
+    for spec in SPECIALISATIONS:
+        kern, kw = specialised(spec, kw0, K, 12)
+        subk.FusedSubstepKernel.launches_by_options.clear()
+        got, again = kern(**kw), kern(**kw)
+        want = kern.plain(**kw)
+        torch.cuda.synchronize()
+        assert dict(subk.FusedSubstepKernel.launches_by_options) == {spec: 2}
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], again[k]), (spec, k)
+            if k in INT_KEYS:
+                assert torch.equal(got[k], want[k]), (spec, k)
+            else:
+                assert torch.isfinite(got[k]).all(), (spec, k)
+                assert float((got[k] - want[k]).abs().max()) == 0.0, (spec, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 128])
+def test_broadphase_rows_with_a_degree_cap_that_drops(card, K):
+    """The in-kernel broadphase's rows, counts and drops equal the plain
+    version's rank compaction exactly when the degree cap drops pairs."""
+    kw0 = pile_inputs("alternate", 65, K, card)
+    for spec in ("bp", "refresh+bp"):
+        kern, kw = specialised(spec, kw0, K, 2)
+        got, want = kern(**kw), kern.plain(**kw)
+        torch.cuda.synchronize()
+        assert int(want["bp_dropped"].sum()) > 0
+        for k in INT_KEYS:
+            assert torch.equal(got[k], want[k]), (spec, k)
+        for k in subk.OUT_KEYS:
+            assert float((got[k] - want[k]).abs().max()) == 0.0, (spec, k)
+
+
+@pytest.mark.cuda
+def test_occupancy_is_exported(card):
+    """Every specialisation reports its launch shape and CTAs an SM at the
+    main shape (8192 x 65 rows, K = 256)."""
+    occ = subk.occupancy(65, 256)
+    assert set(occ) == set(SPECIALISATIONS)
+    for spec, (threads, blocks) in occ.items():
+        assert threads % 32 == 0 and 32 <= threads <= 1024 and blocks >= 1, (spec, occ)
+    threads, blocks = subk.occupancy(104, 1000, single=True)
+    assert threads % 32 == 0 and blocks >= 1

@@ -10,7 +10,9 @@ tests/test_reference_golden.py, whose gates and tiers these are: the
     contact <= 0.06; the whole horizon <= 1.2 (2.5 for the toppling
     stack); the restitution bounce peak within 0.08; all cubes come to
     rest on the plane (cubes_fall);
-  - the free-fall ticks bit-level (<= 1e-5) in every channel.
+  - the free-fall ticks bit-level (<= 1e-5) in every channel;
+  - the fixed-joint chain (cube_chain_ss4, ~13 s here, so in the quick
+    tier), in "pairs" mode with its own gates (below).
 "contact_mode='pallas'" is the fused substep kernel's plain version here
 (the CUDA kernel runs these scenes in chip_smoke.py's golden_physics).
 """
@@ -28,7 +30,7 @@ from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExe
 from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
 from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
 from gpu_ecs_madrona_tpu_torch.physics import (
-    BODY_COMPONENTS, RigidBodyPhysicsSystem, assets)
+    BODY_COMPONENTS, RigidBodyPhysicsSystem, assets, make_fixed_joint)
 from gpu_ecs_madrona_tpu_torch.physics.components import (
     RESPONSE_DYNAMIC, RESPONSE_STATIC, ResponseType, Velocity)
 
@@ -44,9 +46,12 @@ def load_golden(name):
     return np.frombuffer(d[24:], np.float32).reshape(T1, W, K, 13).copy(), W, K, ss, dt
 
 
-def run_equivalent(golden, W, K, substeps, dt, ticks, contact_mode):
+def run_equivalent(golden, W, K, substeps, dt, ticks, contact_mode, joint=False):
     """The golden's scene in the port (plane row 0, the cubes after it),
-    initial state from its tick 0; returns [ticks + 1, W, K, 13]."""
+    initial state from its tick 0; returns [ticks + 1, W, K, 13].
+    joint=True recreates cube_chain's Fixed joint between the two cubes
+    (the reference's setupFixed(a, b, id, id, (0, 0, -0.6), (0, 0, 0.6),
+    0), as tests/test_reference_golden.py builds it)."""
     loader = assets.PhysicsLoader()
     loader.load_objects([assets.make_plane(mu_s=0.5, mu_d=0.5),
                          assets.make_box((0.5, 0.5, 0.5), inv_mass=1.0, mu_s=0.5, mu_d=0.5)])
@@ -58,7 +63,7 @@ def run_equivalent(golden, W, K, substeps, dt, ticks, contact_mode):
         @staticmethod
         def register_types(r):
             RigidBodyPhysicsSystem.register_types(r, max_candidates=64, max_contacts=64,
-                                                  max_joints=0)
+                                                  max_joints=4 if joint else 0)
             r.register_archetype(Body, capacity=K + 1)
             r.export_column(Body, base.Position, 0)
             r.export_column(Body, base.Rotation, 1)
@@ -81,10 +86,16 @@ def run_equivalent(golden, W, K, substeps, dt, ticks, contact_mode):
             oid[:, 1:] = 1
             resp[:, 1:] = RESPONSE_DYNAMIC
             t = torch.from_numpy
-            ctx.make_entities(Body, counts=K + 1, max_new=K + 1, values={
+            ents = ctx.make_entities(Body, counts=K + 1, max_new=K + 1, values={
                 base.Position: t(pos), base.Rotation: t(rot),
                 base.Scale: torch.ones((Wn, K + 1, 3)), base.ObjectID: t(oid),
                 Velocity: {"linear": t(vel), "angular": t(omega)}, ResponseType: t(resp)})
+            if joint:
+                ident = torch.tensor([1.0, 0.0, 0.0, 0.0]).expand(Wn, 1, 4)
+                make_fixed_joint(ctx, ents[:, 1:2], ents[:, 2:3], ident, ident,
+                                 torch.tensor([0.0, 0.0, -0.6]).expand(Wn, 1, 3),
+                                 torch.tensor([0.0, 0.0, 0.6]).expand(Wn, 1, 3),
+                                 torch.zeros((Wn, 1)))
 
         @staticmethod
         def setup_tasks(builder):
@@ -143,6 +154,30 @@ def test_golden_trajectory(name, mode):
         m_final, g_final = mine[-1, ..., 2], golden[-1, ..., 2]
         assert (m_final > 0.3).all() and (m_final < 4.0).all()
         assert np.abs(np.sort(m_final, axis=None) - np.sort(g_final, axis=None)).max() <= 0.6
+
+
+def test_golden_fixed_joint_chain():
+    """cube_chain_ss4 (the reference's setupFixed + handleJointConstraint,
+    physics.cpp:560-648) in "pairs" mode, with
+    tests/test_reference_golden.py::test_golden_fixed_joint_chain's gates:
+    a 2-cube chain swings, falls and lands; the early trajectory agrees,
+    the whole horizon stays bounded, the joint holds its 1.2 anchor
+    separation in both engines, and both come to rest near the plane.  The
+    kernel mode misses the early gate, as the JAX package's does
+    (test_torch_joint_golden.py pins that)."""
+    golden, W, K, ss, dt = load_golden("cube_chain_ss4")
+    T = golden.shape[0] - 1
+    mine = run_equivalent(golden, W, K, ss, dt, T, "pairs", joint=True)
+    perr = np.abs(mine[..., 0:3] - golden[..., 0:3]).max(axis=(1, 2, 3))
+    assert perr[:10].max() <= 0.02, perr[:10].max()
+    assert perr.max() <= 1.5, perr.max()
+    for t in range(0, T + 1, 10):
+        sep_m = np.linalg.norm(mine[t, :, 0, :3] - mine[t, :, 1, :3], axis=-1)
+        sep_g = np.linalg.norm(golden[t, :, 0, :3] - golden[t, :, 1, :3], axis=-1)
+        assert np.abs(sep_m - 1.2).max() < 0.15, (t, sep_m)
+        assert np.abs(sep_g - 1.2).max() < 0.15, (t, sep_g)
+    assert (mine[-1, :, :, 2] < 2.0).all() and (golden[-1, :, :, 2] < 2.0).all()
+    assert np.isfinite(mine).all()
 
 
 @pytest.mark.parametrize("mode", ["pairs", "pallas"])
