@@ -84,7 +84,8 @@ Phases:
            (rigid_bench SETTLED_PILE: boxes on a grid, the broadphase in the
            kernel, refresh, persistent manifolds, sleep 0.02; kernel 9), 400
            untimed steps, then 5 windows of 50: launches = steps of the
-           "refresh+sleep+bp+persist" specialisation; then 10 more steps with
+           "refresh+sleep+bp+persist" specialisation, of the world flags
+           kernel and of the asleep worlds' kernel; then 10 more steps with
            each step's share of stable worlds, of asleep worlds, and the
            worlds rebuilding their cache (both shares must reach > 0)
   main_rigid_settled_nopersist   the same without persistence and sleep
@@ -97,7 +98,14 @@ Phases:
            branch runs (the worlds by branch are printed); integers exact,
            poses, stashes, AABBs and the cache atol 1e-4 (the cache's ok
            flag free where its depth is within 1e-5 of 0), velocities 1e-3,
-           a repeated launch bit-identical
+           a repeated launch bit-identical; kernel 9's launch as the fused
+           node makes it (the cache and the anchors in place, the
+           per-object constants from the kernel's table, velocities kept)
+           on both states bit for bit against the plain version's in-place
+           path, a repeat into the same cache bit-identical and the kept
+           caches untouched; the world flags kernel equal to its plain
+           version on the settled pile as it is, disturbed, forced and with
+           invalid caches
   parity_render   the render kernel vs its plain version on the four
            scenes of tests/test_torch_render_scenes.py (2-D image tiles; the
            inside scene's one tile spans both of its back-to-back views, so
@@ -137,7 +145,13 @@ Phases:
            operations counted over the awake worlds (options_work: contact
            tests only where contacts are made afresh, refreshes and cache
            builds by slot, the broadphase of the rebuilding worlds), each
-           with its valid slots by contact kind.  substep_occupancy: each
+           with its valid slots by contact kind.  Kernel 9 is timed as the
+           fused node launches it (world_flags, then fused_substep: the
+           asleep worlds' kernel and the persistent kernel, the cache in
+           place) and by part, its bytes counted by each world's branch
+           (persist_bound; the bound with the cache in and out beside it);
+           and the settled pile's whole fused node: its device ms and the
+           device operations it queues (torch.profiler).  substep_occupancy: each
            fused specialisation's [threads a CTA, CTAs an SM] at 65 rows and
            K = 256 and 128, and the single-substep kernel's at 104 rows, K =
            1000 (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through
@@ -772,12 +786,13 @@ def golden_physics(torch, phys, sk):
 
 
 def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_counts,
-               specialisation="none", settle=3):
+               specialisation="none", settle=3, also=()):
     """rigid_bench at 8192 x 64 in configuration ``cfg`` (RigidBenchConfig
     keywords): ``settle`` untimed steps, then ``count`` windows of
     ``steps`` steps; launches = steps, all of the kernel specialisation
-    ``specialisation`` (kernel mode) or 0, no other kernel launched,
-    finite positions, empty temporaries."""
+    ``specialisation`` (kernel mode) or 0, launches = steps of the kernels
+    named in ``also`` (the world flags and the asleep worlds' kernel), no
+    other kernel launched, finite positions, empty temporaries."""
     sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, **cfg), device="cuda")
     sim.run(settle)
     sim.block_until_ready()
@@ -794,6 +809,7 @@ def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_coun
     kernel_mode = cfg.get("contact_mode") == "pallas"
     want = {name: 0 for name in launches}
     want["fused_substep"] = steps * count if kernel_mode else 0
+    want.update({name: steps * count for name in also})
     check(launches == want, f"rigid_bench {cfg} launches {launches}")
     check(by_options == ({specialisation: steps * count} if kernel_mode else {}),
           f"rigid_bench {cfg} launches by specialisation {by_options}")
@@ -916,9 +932,93 @@ def parity_substep_options(torch, rb, phys, sk, rows256, rows128, bp_sim, settle
             cases[name]["dropped"] = int(out["bp_dropped"].sum())
     check(all(v > 0 for v in cases["persist_settled_flipped"]["branches"].values()),
           "the flipped settled case runs every branch")
+    # kernel 9's launch as the node makes it, in place, and its world flags
+    fkw = flag_inputs(settled, rb, phys)
+    anchors0 = tuple(fkw[k] for k in ANCHOR_KEYS)
+    pkern = phys.RigidBodyPhysicsSystem.fused_kernel(settled)
+    for name, kw in (("persist_settled_in_place", kws),
+                     ("persist_settled_flipped_in_place", flipped)):
+        errs = in_place_case(torch, sk, pkern, kw, anchors0)
+        worst9 = max(worst9, max(errs.values()))
+        cases[name] = {"branches": branches(torch, kw), "max_err": errs}
+    flags = parity_world_flags(torch, sk, fkw)
     return {"phase": "parity_substep_options", "W": RB_WORLDS, "n": RB_BODIES + 1,
-            "cases": cases, "ints": "exact", "repeat": "bit-identical",
+            "cases": cases, "world_flags": flags, "ints": "exact", "repeat": "bit-identical",
+            "in_place": "bit for bit", "world_flags_equal": "exact",
             "atol": {"pose_stashes_aabb_cache": 1e-4, "velocities": 1e-3}}, worst8, worst9
+
+
+STATIC_KEYS = ("im", "ii", "mu_s", "mu_d")
+ANCHOR_KEYS = ("apos", "arot", "valid")
+
+
+def flag_inputs(sim, rb, phys):
+    """world_flags' arguments for a rigid_bench executor's next step."""
+    return phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, rb.Body, None, flags=True)
+
+
+def flag_cases(torch, fkw):
+    """The settled pile's world-flag inputs as they are, disturbed (every
+    fifth world's bodies given a velocity), with an external force on one
+    body of every seventh world, and with every eleventh world's cache not
+    valid."""
+    W = fkw["pos"].shape[0]
+    worlds = torch.arange(W, device=fkw["pos"].device)
+    v = fkw["v"].clone()
+    v[worlds % 5 == 0] += torch.linspace(0.0, 0.05, v.shape[1], device=v.device)[:, None]
+    ext_f = fkw["ext_f"].clone()
+    ext_f[worlds % 7 == 0, 5, 2] = 1.0
+    valid = torch.where(worlds % 11 == 0, 0, fkw["valid"]).to(torch.int32)
+    return {"settled": fkw, "disturbed": dict(fkw, v=v), "forced": dict(fkw, ext_f=ext_f),
+            "invalid": dict(fkw, valid=valid)}
+
+
+def parity_world_flags(torch, subk, fkw):
+    """The world flags kernel vs its plain version on flag_cases: every
+    flag equal.  Returns the cases' counts of differing entries and of
+    stable, asleep and quiet worlds."""
+    cases = {}
+    for name, kw in flag_cases(torch, fkw).items():
+        got, want = subk.world_flags(**kw), subk.world_flags_plain(**kw)
+        differ = {k: int((got[k] != want[k]).sum()) for k in want}
+        check(set(got) == set(want) and not any(differ.values()),
+              f"world flags {name}: {differ}")
+        cases[name] = {"differing": differ, "stable": int(want["stable"].sum()),
+                       "asleep": int(want["asleep"].sum()),
+                       "quiet": int((want["quiet_steps"] > 0).sum())}
+    return cases
+
+
+def in_place_case(torch, sk, kern, kw, anchors0):
+    """Kernel 9's launch as the fused node makes it (the per-object
+    constants from the kernel's table, the cache and the anchors updated
+    in place, non-dynamic rows' velocities kept) vs the plain version's
+    in-place path: every output, the cache and the anchors bit for bit
+    (integers equal, floats 0.0 apart); a repeat into the same cache
+    bit-identical, the kept and asleep worlds' caches unchanged.  Returns
+    the errors, or raises."""
+    kw = {k: x for k, x in kw.items() if k not in STATIC_KEYS}
+
+    def call(fn):
+        mc, anchors = kw["mcache"].clone(), tuple(t.clone() for t in anchors0)
+        return fn(**kw, mcache_out=mc, anchors=anchors, keep_velocity=True), mc, anchors
+
+    got, mc, anchors = call(kern)
+    first = {k: x.clone() for k, x in got.items()}
+    want, _, anchors_p = call(kern.plain)
+    again = kern(**kw, mcache_out=mc, anchors=anchors, keep_velocity=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for k, w in want.items():
+        check(torch.equal(first[k], again[k]), f"in place {k}: a repeated launch differs")
+        errs[k] = int((first[k] != w).sum()) if k in INT_KEYS else max_err(first[k], w)
+        check(errs[k] == 0, f"in place {k}: {errs[k]} apart from the plain version")
+    for name, a, b in zip(ANCHOR_KEYS, anchors, anchors_p):
+        errs[name] = max_err(a.float(), b.float())
+        check(errs[name] == 0, f"in place {name}: {errs[name]} apart")
+    keep = kw["stable"] | ~kw["active"]
+    check(torch.equal(mc[keep], kw["mcache"][keep]), "in place: a kept cache was written")
+    return errs
 
 
 def settled_trace(torch, rb, phys, sim, steps):
@@ -1013,6 +1113,108 @@ def options_bound(kw, kern, out, ops):
     if kern.bp_degree:
         return bound(W * (n * BYTES_BODY_BP + K * BYTES_SLOT_BP + BYTES_WORLD_BP), ops)
     return bound(W * (n * BYTES_BODY + K * BYTES_SLOT + BYTES_WORLD), ops)
+
+
+# bytes of kernel 9's launch (the world flags, the asleep worlds' kernel and
+# the persistent kernel over the awake ones, as the fused node makes it: the
+# per-object constants from the kernel's table, the cache in place), by a
+# world's branch.  Every world: the flags' inputs, per body 121 (pose,
+# velocity, external force and torque, dyn, object id, scale, the anchors),
+# per world 22 (delta_t, quiet steps, valid in; quiet steps, asleep, active,
+# stable out).  Asleep: per body the AABB columns in and out (48) and the
+# 10 outputs (132), per slot the cached rows in (12) and out (9), per world
+# the count, drops and its list entry (12).  Kept (stable, awake): per body
+# the same 180, per slot its whole cache in (144) and the rows out (9), per
+# world h, gravity, restitution threshold, dtv, count, drops, list (36).
+# Rebuilding: per body the live flag (1), the AABB out (24), the outputs
+# (132) and the anchors out (28), per slot the rows out (9) and the cache
+# out (144), per world 36 and valid (4).
+BYTES_P_BODY = {"asleep": 301, "kept": 301, "rebuilt": 306}
+BYTES_P_SLOT = {"asleep": 21, "kept": 153, "rebuilt": 153}
+BYTES_P_WORLD = {"asleep": 34, "kept": 58, "rebuilt": 62}
+# the world flags kernel alone: per body 121 in, per world 22
+BYTES_FLAGS_BODY, BYTES_FLAGS_WORLD = 121, 22
+# the asleep worlds' kernel alone (an asleep world): per body the pose and
+# velocity in (52), the AABB in and out (48), the outputs (132); per slot
+# 21; per world active in, count, drops and its list entry out (13)
+BYTES_SURF_BODY, BYTES_SURF_SLOT, BYTES_SURF_WORLD = 232, 21, 13
+
+
+def persist_bound(torch, kw, K, ops):
+    """Kernel 9's launch bound at inputs kw: bytes by each world's branch."""
+    n = kw["dyn"].shape[1]
+    awake, stable = kw["active"], kw["stable"]
+    worlds = {"asleep": int((~awake).sum()), "kept": int((awake & stable).sum()),
+              "rebuilt": int((awake & ~stable).sum())}
+    nbytes = sum(c * (n * BYTES_P_BODY[b] + K * BYTES_P_SLOT[b] + BYTES_P_WORLD[b])
+                 for b, c in worlds.items())
+    return bound(nbytes, ops) + (nbytes,)
+
+
+def persist_timing(torch, sk, kern, kw, fkw):
+    """Kernel 9's launch as the fused node makes it (world_flags, then
+    fused_substep: the asleep worlds' kernel and the persistent kernel,
+    the cache and the anchors in place on scratch copies, so that repeated
+    calls do the same work) and its parts, 20 calls each, beside their
+    plain versions (3) and bounds; and the same call with the cache in and
+    out (the bound before the cache stayed in place)."""
+    kwt = {k: x for k, x in kw.items() if k not in STATIC_KEYS}
+    mc, anchors = kw["mcache"].clone(), tuple(fkw[k].clone() for k in ANCHOR_KEYS)
+    mc_p, anchors_p = kw["mcache"].clone(), tuple(fkw[k].clone() for k in ANCHOR_KEYS)
+    opts = dict(mcache_out=mc, anchors=anchors, keep_velocity=True)
+    popts = dict(mcache_out=mc_p, anchors=anchors_p, keep_velocity=True)
+    out = kern(**kwt, **opts)
+    ops, work = options_work(torch, kern, kw, out)
+    K = out["rows_i"].shape[1]
+    b_ms, b_by, nbytes = persist_bound(torch, kw, K, ops)
+    W, n = kw["dyn"].shape
+    f_ms, f_by = bound(W * (n * BYTES_FLAGS_BODY + BYTES_FLAGS_WORLD), 0)
+    asleep = int((~kw["active"]).sum())
+    s_ms, s_by = bound(asleep * (n * BYTES_SURF_BODY + K * BYTES_SURF_SLOT)
+                       + W * BYTES_SURF_WORLD, 0)
+    surf = (kw["pos"], kw["rot"], kw["v"], kw["w"], kw["active"], kw["mcache"], kw["aabb_lo"],
+            kw["aabb_hi"])
+    return {
+        "ms": cuda_ms(torch, lambda: (sk.world_flags(**fkw), kern(**kwt, **opts)), 20),
+        "plain_ms": cuda_ms(torch, lambda: (sk.world_flags_plain(**fkw),
+                                            kern.plain(**kwt, **popts)), 3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops, "work": work,
+        "bound_ms_cache_in_and_out": options_bound(kw, kern, out, ops)[0],
+        "parts": {
+            "world_flags": {"ms": cuda_ms(torch, lambda: sk.world_flags(**fkw), 20),
+                            "plain_ms": cuda_ms(torch, lambda: sk.world_flags_plain(**fkw), 3,
+                                                warmup=1),
+                            "bound_ms": f_ms, "bound_by": f_by},
+            "asleep_surface": {"ms": cuda_ms(torch, lambda: sk.asleep_surface(*surf), 20),
+                               "plain_ms": cuda_ms(torch, lambda: sk.asleep_surface_plain(*surf),
+                                                   3, warmup=1),
+                               "bound_ms": s_ms, "bound_by": s_by},
+            "fused_substep": {"ms": cuda_ms(torch, lambda: kern(**kwt, **opts), 20)}},
+        "branches": branches(torch, kw)}
+
+
+def node_time(torch, sim, name):
+    """Device ms of one run of executor sim's node ``name`` on its state
+    (20 runs, as cuda_ms times), and the device operations one run
+    queues, by name (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from gpu_ecs_madrona_tpu_torch.core.context import Context
+    node = next(nd for nd in sim.graph.nodes if nd.name == name)
+
+    def run():
+        node.run(Context(sim.mgr, sim.state))
+
+    ms = cuda_ms(torch, run, 20)
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.key_averages():
+        if (getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)
+                and e.self_device_time_total > 0):
+            ops[e.key[:60]] = ops.get(e.key[:60], 0) + e.count
+    return {"device_ms": ms, "device_ops": sum(ops.values()), "by_name": ops}
 
 
 def option_timing(torch, kern, kw):
@@ -1251,6 +1453,8 @@ def main(argv):
                 "fused_simple_jobs_step": sk.fused_simple_jobs_step,
                 "fused_substep": subk.FusedSubstepKernel,
                 "substep": subk.SubstepKernel,
+                "world_flags": subk.WorldFlags,
+                "asleep_surface": subk.AsleepSurface,
                 "render": rkm.RenderKernel}
 
     def reset_counts():
@@ -1366,7 +1570,8 @@ def main(argv):
     fused_launches = read_counts()
     check(fused_launches == {"fused_collisions_step": 1000, "collision_pushes": 0,
                              "fused_simple_jobs_step": 0, "fused_substep": 0,
-                             "substep": 0, "render": 0},
+                             "substep": 0, "world_flags": 0, "asleep_surface": 0,
+                             "render": 0},
           f"fused main path launches {fused_launches}")
     fpos, fmask = sim.get_exported(0)
     check(bool(torch.isfinite(fpos[fmask]).all()), "finite positions (fused)")
@@ -1386,7 +1591,8 @@ def main(argv):
     unfused_launches = read_counts()
     check(unfused_launches == {"fused_collisions_step": 0, "collision_pushes": 50,
                                "fused_simple_jobs_step": 0, "fused_substep": 0,
-                               "substep": 0, "render": 0},
+                               "substep": 0, "world_flags": 0, "asleep_surface": 0,
+                               "render": 0},
           f"unfused main path launches {unfused_launches}")
     upos, umask = usim.get_exported(0)
     check(bool(torch.isfinite(upos[umask]).all()), "finite positions (unfused)")
@@ -1409,7 +1615,8 @@ def main(argv):
     sj_launches = read_counts()
     check(sj_launches == {"fused_collisions_step": 0, "collision_pushes": 0,
                           "fused_simple_jobs_step": 1000, "fused_substep": 0,
-                          "substep": 0, "render": 0},
+                          "substep": 0, "world_flags": 0, "asleep_surface": 0,
+                          "render": 0},
           f"simple_jobs main path launches {sj_launches}")
     user = sjsim.state["user"]
     check(bool(torch.isfinite(user["translation"]).all()), "finite positions (simple_jobs)")
@@ -1496,8 +1703,11 @@ def main(argv):
           "main_rigid_env_steps_per_s_median": rig_rate})
     settled_cfg = dict(rb.SETTLED_PILE, max_candidates=256)
     settled_sim, line = main_rigid(torch, rb, phys, settled_cfg, 50, 5, smi, *counts,
-                            specialisation="refresh+sleep+bp+persist", settle=rb.SETTLE_STEPS)
+                                   specialisation="refresh+sleep+bp+persist",
+                                   settle=rb.SETTLE_STEPS, also=("world_flags", "asleep_surface"))
     persist_launches = line["launches"]["fused_substep"]
+    flags_launches = line["launches"]["world_flags"]
+    surface_launches = line["launches"]["asleep_surface"]
     trace = settled_trace(torch, rb, phys, settled_sim, 10)
     check(max(trace["stable_share"]) > 0 and max(trace["asleep_share"]) > 0,
           f"settled pile: no stable or no asleep world {trace}")
@@ -1509,6 +1719,7 @@ def main(argv):
     emit({"phase": "main_rigid_settled_nopersist", **line})
     line, err_bp, err_persist = parity_substep_options(torch, rb, phys, subk, rsim, r128, bsim,
                                                        settled_sim)
+    err_flags = max(max(c["differing"].values()) for c in line["world_flags"].values())
     emit(line)
 
     # simple_taskgraph, 1024 x 100, 64 x 64 RGB and depth -------------------------
@@ -1588,11 +1799,13 @@ def main(argv):
         return phys.RigidBodyPhysicsSystem.fused_kernel(sim), fused_inputs(sim, rb, phys)
 
     kern_p, kw_p = executor_case(settled_sim)
+    fkw_p = flag_inputs(settled_sim, rb, phys)
     opt_t = {"bp": option_timing(torch, *executor_case(bsim)),
              "bp_refresh_settled_nopersist": option_timing(torch, *executor_case(nsim)),
-             "persist_settled": option_timing(torch, kern_p, kw_p),
-             "persist_settled_flipped": option_timing(torch, kern_p,
-                                                      flip_branches(torch, kw_p))}
+             "persist_settled": persist_timing(torch, subk, kern_p, kw_p, fkw_p),
+             "persist_settled_flipped": persist_timing(torch, subk, kern_p,
+                                                       flip_branches(torch, kw_p), fkw_p),
+             "fused_node_settled": node_time(torch, settled_sim, phys.FUSED_NODE)}
 
     # the single-substep kernel at the simple_taskgraph main path's state:
     # its first substep, with its parity there
@@ -1710,8 +1923,23 @@ def main(argv):
          "ms": opt_t["persist_settled"]["ms"], "plain_ms": opt_t["persist_settled"]["plain_ms"],
          "bound_ms": opt_t["persist_settled"]["bound_ms"],
          "bound_by": opt_t["persist_settled"]["bound_by"], "library_ms": None,
+         "ms_is": "the launch: world_flags, asleep_surface, fused_substep",
+         "bound_ms_cache_in_and_out": opt_t["persist_settled"]["bound_ms_cache_in_and_out"],
          "every_branch": {k: opt_t["persist_settled_flipped"][k]
-                          for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+                          for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "fused_node_settled": {k: opt_t["fused_node_settled"][k]
+                                for k in ("device_ms", "device_ops")}},
+        {"name": "world_flags", "route": "cuda", "source": csrc + "substep_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1214 (its launch's glue, "
+                     "gpu_ecs_madrona_tpu/physics/__init__.py:1103-1166)",
+         "launches": flags_launches, "launches_per_step": 1, "max_abs_err": err_flags,
+         **{k: opt_t["persist_settled"]["parts"]["world_flags"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None},
+        {"name": "asleep_surface", "route": "cuda", "source": csrc + "substep_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1214 (its asleep worlds)",
+         "launches": surface_launches, "launches_per_step": 1, "max_abs_err": err_persist,
+         **{k: opt_t["persist_settled"]["parts"]["asleep_surface"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None},
         {"name": "substep", "route": "cuda", "source": csrc + "substep_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1165",
          "launches": stg_launches["substep"], "launches_per_step": 4,

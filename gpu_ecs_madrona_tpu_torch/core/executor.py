@@ -89,7 +89,22 @@ class TaskGraphExecutor:
 
     @state.setter
     def state(self, value: SimState):
-        self._state = value
+        self._state = self._own(value)
+
+    def _own(self, state: SimState) -> SimState:
+        """``state`` with the tensors that a step writes in place (the
+        singletons registered ``in_place``, e.g. the physics'
+        ManifoldPersist) copied, so that a step never writes into a tensor
+        the caller still holds.  The other leaves are shared: the step
+        replaces them, it does not write them."""
+        names = self.registry.in_place_singletons & set(state.get("singleton", ()))
+        if not names:
+            return state
+        singles = dict(state["singleton"])
+        for name in names:
+            singles[name] = {f: t.clone(memory_format=torch.contiguous_format)
+                             for f, t in singles[name].items()}
+        return dict(state, singleton=singles)
 
     def step(self):
         """One step (reference MWCudaExecutor::run / ThreadPoolExecutor::run).
@@ -172,12 +187,16 @@ class TaskGraphExecutor:
     # -- checkpoint ---------------------------------------------------------
 
     def save_state(self) -> SimState:
-        """A snapshot of the state (tensors are shared: the state is never
-        written in place)."""
-        return dict(self._state)
+        """A snapshot of the state.  Its tensors are the state's own, but
+        for the singletons a step writes in place (registered ``in_place``:
+        the physics' ManifoldPersist mc, apos, arot and valid), which are
+        copied; so a later step leaves the snapshot as it was."""
+        return self._own(self._state)
 
     def restore_state(self, snapshot: SimState):
-        self._state = snapshot
+        """Continue from ``snapshot`` (its in-place singletons copied, so
+        that it can be restored again)."""
+        self._state = self._own(snapshot)
 
     def save_checkpoint(self, path: str):
         """Persist the full state: flat npz + a JSON structure spec, the

@@ -8,7 +8,7 @@ Python before the state is built and freezes into a static schema.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Set
 
 from gpu_ecs_madrona_tpu_torch.core.component import Archetype, Component
 
@@ -45,6 +45,7 @@ class ECSRegistry:
         self.components: Dict[str, Component] = {}
         self.archetypes: Dict[str, ArchetypeInfo] = {}
         self.singletons: Dict[str, Component] = {}
+        self.in_place_singletons: Set[str] = set()
         self.exports: Dict[int, ExportInfo] = {}
         self._frozen = False
 
@@ -77,9 +78,14 @@ class ECSRegistry:
         )
         return arch
 
-    def register_singleton(self, comp: Component) -> Component:
+    def register_singleton(self, comp: Component, in_place: bool = False) -> Component:
+        """Register a singleton component.  ``in_place``: a step may write
+        its tensors in place (TaskGraphExecutor copies them when it takes
+        a state in and when it saves one)."""
         self._check_mutable()
         self.singletons[comp.name] = comp
+        if in_place:
+            self.in_place_singletons.add(comp.name)
         return comp
 
     def export_column(self, arch: Archetype, comp: Component, slot: int):

@@ -462,10 +462,11 @@ class StateManager:
                 counts = counts()
             counts = self._counts(counts)
             dropped = counts.clamp(min=0) - counts.clamp(0, k)
-            debug.check(dropped == 0,
-                        "emit_temporaries overflow on archetype "
-                        f"{arch.name} (capacity {cap}, K {k}): "
-                        "dropped={} per world", dropped)
+            if debug.DEBUG:
+                debug.check(dropped == 0,
+                            "emit_temporaries overflow on archetype "
+                            f"{arch.name} (capacity {cap}, K {k}): "
+                            "dropped={} per world", dropped)
             new_state["overflow"] = {
                 **state["overflow"],
                 arch.name: state["overflow"][arch.name] + dropped,

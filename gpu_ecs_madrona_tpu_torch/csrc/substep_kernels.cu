@@ -30,6 +30,22 @@
 //   pose and velocities).  Only all-box object tables are taken (the wrapper
 //   raises otherwise): the general-hull SAT waits.
 //
+// world_flags_kernel and asleep_surface_kernel
+//   With the persistent manifolds (:1214) they make kernel 9's launch
+//   with the fused kernel's "refresh+sleep+bp+persist" specialisation.
+//   world_flags_kernel computes the fused node's sleep classifier and
+//   stability predicate, which the JAX package compiles into the step's
+//   jit program beside its Pallas kernel (gpu_ecs_madrona_tpu/physics/
+//   __init__.py:1103-1166).  asleep_surface_kernel writes the asleep
+//   worlds' outputs and lists the awake ones; the fused kernel then runs
+//   only the listed worlds (CTA b takes list[b]).  The bytes bound them
+//   (an asleep world: ~300 B a body, 21 a slot); the design keeps many in
+//   flight: a warp a world, its lanes on consecutive floats, 64 warps an
+//   SM, no shared memory, where the asleep branch inside the fused kernel
+//   held its 86.6 KB CTAs to 8 warps an SM.  The manifold cache stays in
+//   place: a world writes it only when it rebuilt (with its anchors and
+//   valid flag), and an asleep world reads only its three row channels.
+//
 // substep_kernel
 //   Replaces gpu_ecs_madrona_tpu/ops/substep_kernel.py: _run, the
 //   single-substep pallas_call (:1165) that worlds with joints take: steps
@@ -200,9 +216,11 @@ __device__ __forceinline__ V3 sym_mv(const Sym& M, V3 v) {
             M.m02 * v.x + M.m12 * v.y + M.m22 * v.z);
 }
 
-// The object table row: prim_type, sphere_radius, box_half xyz,
-// restitution, num_verts, verts (vm x 3), local_aabb_lo xyz, local_aabb_hi
-// xyz.
+// The object table row (pairs.py ObjTables.kernel_table): prim_type,
+// sphere_radius, box_half xyz, restitution, num_verts, verts (vm x 3),
+// local_aabb_lo xyz, local_aabb_hi xyz, inv_mass, inv_inertia xyz, mu_s,
+// mu_d, bound_radius: kTableFixed + 3 vm floats.
+constexpr int kTableFixed = 20;
 struct Table {
   const float* t;
   int stride;
@@ -212,6 +230,15 @@ struct Table {
   }
   __device__ __forceinline__ float aabb_hi(int o, int k) const {
     return t[o * stride + 10 + 3 * vm + k];
+  }
+  __device__ __forceinline__ float inv_mass(int o) const { return t[o * stride + 13 + 3 * vm]; }
+  __device__ __forceinline__ float inv_inertia(int o, int k) const {
+    return t[o * stride + 14 + 3 * vm + k];
+  }
+  __device__ __forceinline__ float mu_s(int o) const { return t[o * stride + 17 + 3 * vm]; }
+  __device__ __forceinline__ float mu_d(int o) const { return t[o * stride + 18 + 3 * vm]; }
+  __device__ __forceinline__ float bound_radius(int o) const {
+    return t[o * stride + 19 + 3 * vm];
   }
   __device__ __forceinline__ int prim(int o) const { return static_cast<int>(t[o * stride]); }
   __device__ __forceinline__ float radius(int o) const { return t[o * stride + 1]; }
@@ -1183,6 +1210,14 @@ struct Args {
   uint8_t* o_kvalid;
   int *o_count, *o_dropped;
   float* o_mc;
+  // with persistence: the rebuilt worlds' anchors (apos [W, n, 3], arot
+  // [W, n, 4], valid [W]; null: not written); with sleep too, the list of
+  // the worlds that run here and its length (asleep_surface_kernel's)
+  float *o_apos, *o_arot;
+  int* o_valid;
+  const int *work_list, *work_count;
+  // non-dynamic rows keep their velocities (else they come out zero)
+  int keep_v;
 };
 
 __device__ __forceinline__ V3 ld3(const float* s, int ch, int b, int n) {
@@ -1572,12 +1607,20 @@ __device__ void inkernel_broadphase(const Smem& s, const Args& a, int wld, int n
   }
 }
 
-// The broadphase outputs of a world that keeps its cache (stable, or asleep
-// under persistence): the cached rows and kvalid, the current AABB columns,
-// count = the cached kvalid's sum, nothing dropped; the slots also go to
-// shared memory when s is given, and mc passes through when copy_mc.
-__device__ void cached_surface(const Smem* s, const Args& a, int wld, int n, int K, int tid,
-                               int T, bool copy_mc) {
+// A warp's sum of v (every lane gets it).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// The broadphase outputs of a world that keeps its cache (stable and
+// awake): the cached rows and kvalid, also into shared memory, the current
+// AABB columns, count = the cached kvalid's sum (warp 0, a warp sum: the
+// channel holds 0 and 1, whose sum no order changes), nothing dropped.
+// Reads only the cache's three row channels.
+__device__ void cached_surface(const Smem& s, const Args& a, int wld, int n, int K, int tid,
+                               int T) {
   const float* mc = a.mc + static_cast<size_t>(wld) * kMcCh * K;
   for (int k = tid; k < K; k += T) {
     const int ri = static_cast<int>(mc[k]), rj = static_cast<int>(mc[K + k]);
@@ -1586,26 +1629,23 @@ __device__ void cached_surface(const Smem* s, const Args& a, int wld, int n, int
     a.o_rows_i[g] = ri;
     a.o_rows_j[g] = rj;
     a.o_kvalid[g] = kv ? 1 : 0;
-    if (s) {
-      s->sri[k] = clamp_row(ri, n);
-      s->srj[k] = clamp_row(rj, n);
-      s->skv[k] = kv ? 1 : 0;
-    }
+    s.sri[k] = clamp_row(ri, n);
+    s.srj[k] = clamp_row(rj, n);
+    s.skv[k] = kv ? 1 : 0;
   }
   const size_t g0 = static_cast<size_t>(wld) * 3 * n;
   for (int i = tid; i < 3 * n; i += T) {
     a.o_aabb_lo[g0 + i] = a.aabb_lo[g0 + i];
     a.o_aabb_hi[g0 + i] = a.aabb_hi[g0 + i];
   }
-  if (tid == 0) {
+  if (tid < 32) {
     float cnt = 0.0f;
-    for (int k = 0; k < K; ++k) cnt = cnt + mc[2 * K + k];
-    a.o_count[wld] = static_cast<int>(cnt);
-    a.o_dropped[wld] = 0;
-  }
-  if (copy_mc) {
-    float* mo = a.o_mc + static_cast<size_t>(wld) * kMcCh * K;
-    for (int i = tid; i < kMcCh * K; i += T) mo[i] = mc[i];
+    for (int k = tid; k < K; k += 32) cnt = cnt + mc[2 * K + k];
+    cnt = warp_sum(cnt);
+    if (tid == 0) {
+      a.o_count[wld] = static_cast<int>(cnt);
+      a.o_dropped[wld] = 0;
+    }
   }
 }
 
@@ -1928,11 +1968,16 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
   constexpr bool BP = (OPTS & kOptBp) != 0, PERSIST = (OPTS & kOptPersist) != 0;
   constexpr bool CACHE = REFRESH || PERSIST;
   extern __shared__ float smem[];
-  const int wld = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
+  const int tid = threadIdx.x, T = blockDim.x;
   const int n = a.n, K = a.K;
-  if (SLEEP && !a.active[wld]) {
+  int wld = blockIdx.x;
+  if (SLEEP && PERSIST) {
+    // the awake worlds, listed by asleep_surface_kernel (which did the
+    // asleep ones); the CTAs past the list's length have nothing to do
+    if (wld >= *a.work_count) return;
+    wld = a.work_list[wld];
+  } else if (SLEEP && !a.active[wld]) {
     passthrough(a, wld, n, tid, T);
-    if (PERSIST) cached_surface(nullptr, a, wld, n, K, tid, T, true);
     return;
   }
   const Smem s = carve(smem, n, K, BP, CACHE, T);
@@ -1945,14 +1990,26 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
       sb[(kPos + c) * n + b] = a.pos[3 * g + c];
       sb[(kV + c) * n + b] = a.v[3 * g + c];
       sb[(kW + c) * n + b] = a.w[3 * g + c];
-      sb[(kIi + c) * n + b] = a.ii[3 * g + c];
     }
     for (int c = 0; c < 4; ++c) sb[(kRot + c) * n + b] = a.rot[4 * g + c];
-    sb[kIm * n + b] = a.im[g];
-    sb[kMuS * n + b] = a.mu_s[g];
-    sb[kMuD * n + b] = a.mu_d[g];
-    sb[kDyn * n + b] = a.dyn[g] ? 1.0f : 0.0f;
-    sb[kObj * n + b] = __int_as_float(a.obj[g]);
+    const int o = a.obj[g];
+    const bool dy = a.dyn[g] != 0;
+    if (a.im) {
+      // the static columns as given
+      for (int c = 0; c < 3; ++c) sb[(kIi + c) * n + b] = a.ii[3 * g + c];
+      sb[kIm * n + b] = a.im[g];
+      sb[kMuS * n + b] = a.mu_s[g];
+      sb[kMuD * n + b] = a.mu_d[g];
+    } else {
+      // from the object table at the body's object, mass and inertia zero
+      // on non-dynamic rows
+      for (int c = 0; c < 3; ++c) sb[(kIi + c) * n + b] = dy ? a.tab.inv_inertia(o, c) : 0.0f;
+      sb[kIm * n + b] = dy ? a.tab.inv_mass(o) : 0.0f;
+      sb[kMuS * n + b] = a.tab.mu_s(o);
+      sb[kMuD * n + b] = a.tab.mu_d(o);
+    }
+    sb[kDyn * n + b] = dy ? 1.0f : 0.0f;
+    sb[kObj * n + b] = __int_as_float(o);
     // stashes for a zero-substep call: the current state
     st3(sb, kPrevPos, b, n, ld3(sb, kPos, b, n));
     st4(sb, kPrevRot, b, n, ld4(sb, kRot, b, n));
@@ -1964,7 +2021,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
   // the candidate slots: kept in the cache, from the broadphase, or given
   const bool keep = PERSIST && a.stable[wld] != 0;
   if (keep) {
-    cached_surface(&s, a, wld, n, K, tid, T, false);
+    cached_surface(s, a, wld, n, K, tid, T);
     const float* mc = a.mc + static_cast<size_t>(wld) * kMcCh * K;
     for (int k = tid; k < K; k += T)
       for (int c = 0; c < kCacheCh; ++c) s.scache[c * K + k] = mc[(kMcRows + c) * K + k];
@@ -2029,10 +2086,11 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
 
   for (int b = tid; b < n; b += T) {
     const size_t g = b0 + b;
+    const bool kept_v = a.keep_v && sb[kDyn * n + b] < 0.5f;
     for (int c = 0; c < 3; ++c) {
       a.o_pos[3 * g + c] = sb[(kPos + c) * n + b];
-      a.o_v[3 * g + c] = sb[(kV + c) * n + b];
-      a.o_w[3 * g + c] = sb[(kW + c) * n + b];
+      a.o_v[3 * g + c] = kept_v ? a.v[3 * g + c] : sb[(kV + c) * n + b];
+      a.o_w[3 * g + c] = kept_v ? a.w[3 * g + c] : sb[(kW + c) * n + b];
       a.o_prev_pos[3 * g + c] = sb[(kPrevPos + c) * n + b];
       a.o_ps_pos[3 * g + c] = sb[(kIPos + c) * n + b];
       a.o_ps_v[3 * g + c] = sb[(kIV + c) * n + b];
@@ -2044,16 +2102,25 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
       a.o_ps_rot[4 * g + c] = sb[(kIRot + c) * n + b];
     }
   }
-  if (PERSIST) {
-    // the cache out: the rows (as kept, or the broadphase's) and the
-    // resolved manifold, which substep 0 left in shared memory
-    const float* mi = a.mc + static_cast<size_t>(wld) * kMcCh * K;
+  if (PERSIST && !keep) {
+    // a rebuilt world's cache out: the broadphase's rows and the manifold
+    // that substep 0 built in shared memory; and its anchors, the step's
+    // starting pose, valid unless the degree cap dropped pairs.  A kept
+    // world writes none of its cache (it stays in place).  o_mc may be
+    // a.mc, and a call on the same inputs repeats bit for bit: a world
+    // that rebuilds never reads its cache, one that keeps it never writes
+    // it, and no world touches another's.
     float* mo = a.o_mc + static_cast<size_t>(wld) * kMcCh * K;
     for (int k = tid; k < K; k += T) {
-      mo[k] = keep ? mi[k] : static_cast<float>(s.sri[k]);
-      mo[K + k] = keep ? mi[K + k] : static_cast<float>(s.srj[k]);
-      mo[2 * K + k] = keep ? mi[2 * K + k] : (s.skv[k] ? 1.0f : 0.0f);
+      mo[k] = static_cast<float>(s.sri[k]);
+      mo[K + k] = static_cast<float>(s.srj[k]);
+      mo[2 * K + k] = s.skv[k] ? 1.0f : 0.0f;
       for (int c = 0; c < kCacheCh; ++c) mo[(kMcRows + c) * K + k] = s.scache[c * K + k];
+    }
+    if (a.o_apos) {
+      for (int i = tid; i < 3 * n; i += T) a.o_apos[3 * b0 + i] = a.pos[3 * b0 + i];
+      for (int i = tid; i < 4 * n; i += T) a.o_arot[4 * b0 + i] = a.rot[4 * b0 + i];
+      if (tid == 0) a.o_valid[wld] = s.sworld[kBpDropped] == 0 ? 1 : 0;
     }
   }
 }
@@ -2162,6 +2229,256 @@ cudaError_t occupancy_fused(int n, int K, int* threads, int* blocks) {
                       blocks);
 }
 
+// ---------------------------------------------------------------------------
+// The world flags and the asleep worlds (persistent manifolds and sleep)
+// ---------------------------------------------------------------------------
+
+// Worlds a CTA of the two world kernels below: one warp a world.
+constexpr int kWorldWarps = 8;
+// pi as float32 (what the plain version's math.pi becomes times a float32)
+constexpr float kPi = 3.14159265358979323846f;
+
+struct FlagArgs {
+  const float *pos, *rot, *v, *w, *ext_f, *ext_t;
+  const uint8_t* dyn;
+  const int* obj;
+  const float *scale, *delta_t;
+  const int* quiet;
+  const float *apos, *arot;
+  const int* valid;
+  Table tab;
+  int W, n, frames;
+  float thr2, half_margin;
+  int *o_quiet, *o_asleep;
+  uint8_t *o_active, *o_stable;
+};
+
+__device__ __forceinline__ V3 ldg3(const float* p, size_t g) {
+  return mk(p[3 * g], p[3 * g + 1], p[3 * g + 2]);
+}
+__device__ __forceinline__ Q4 ldg4(const float* p, size_t g) {
+  return Q4{p[4 * g], p[4 * g + 1], p[4 * g + 2], p[4 * g + 3]};
+}
+
+// The world flags of the fused node (physics/__init__.py; its plain version
+// is ops/substep_kernel.py world_flags_plain), one warp a world, its lanes
+// over the bodies, any() by warp votes:
+//   SLEEP:   the sleep classifier: a world is quiet when no dynamic body
+//            has |v|^2 + |w|^2 > thr^2 and none has an external force or
+//            torque; quiet_steps counts quiet steps (saturating at frames),
+//            asleep = quiet_steps >= frames, active = !asleep;
+//   PERSIST: the stability predicate: stable = valid and no dynamic body
+//            is forced or has moved (|dpos| + pi |dq| r, since the anchors)
+//            plus can move ((|v| + |w| r) dt) by margin / 2, r = the
+//            object's bounding radius x its largest scale.
+// The arithmetic is the plain version's, term by term: sums of squares in
+// component order, IEEE sqrtf, -fmad=false, the thresholds rounded to
+// float32 as PyTorch rounds a Python float beside a float32 tensor.
+template <bool SLEEP, bool PERSIST>
+__global__ void __launch_bounds__(32 * kWorldWarps) world_flags_kernel(FlagArgs a) {
+  const int lane = threadIdx.x % 32;
+  const int wld = blockIdx.x * kWorldWarps + threadIdx.x / 32;
+  if (wld >= a.W) return;
+  const int n = a.n;
+  const float dt = PERSIST ? a.delta_t[wld] : 0.0f;
+  bool forced = false, fast = false, moving = false;
+  for (int b = lane; b < n; b += 32) {
+    const size_t g = static_cast<size_t>(wld) * n + b;
+    if (!a.dyn[g]) continue;
+    const V3 f = ldg3(a.ext_f, g), tq = ldg3(a.ext_t, g);
+    forced = forced || f.x != 0.0f || f.y != 0.0f || f.z != 0.0f || tq.x != 0.0f ||
+             tq.y != 0.0f || tq.z != 0.0f;
+    const V3 v = ldg3(a.v, g), w = ldg3(a.w, g);
+    if (SLEEP) fast = fast || dot(v, v) + dot(w, w) > a.thr2;
+    if (PERSIST) {
+      const V3 s = ldg3(a.scale, g);
+      const float rad = a.tab.bound_radius(a.obj[g]) * fmaxf(fmaxf(s.x, s.y), s.z);
+      const float carry = (sqrtf(dot(v, v)) + sqrtf(dot(w, w)) * rad) * dt;
+      const V3 dp = sub(ldg3(a.pos, g), ldg3(a.apos, g));
+      const Q4 q = ldg4(a.rot, g), aq = ldg4(a.arot, g);
+      const float qw = q.w - aq.w, qx = q.x - aq.x, qy = q.y - aq.y, qz = q.z - aq.z;
+      const float dq = sqrtf(qw * qw + qx * qx + qy * qy + qz * qz);
+      const float move = sqrtf(dot(dp, dp)) + kPi * dq * rad + carry;
+      moving = moving || move >= a.half_margin;
+    }
+  }
+  forced = __any_sync(0xffffffffu, forced);
+  if (SLEEP) fast = __any_sync(0xffffffffu, fast);
+  if (PERSIST) moving = __any_sync(0xffffffffu, moving);
+  if (lane == 0) {
+    if (SLEEP) {
+      const bool quiet = !(fast || forced);
+      const int qs = min(quiet ? a.quiet[wld] + 1 : 0, a.frames);
+      const bool asleep = qs >= a.frames;
+      a.o_quiet[wld] = qs;
+      a.o_asleep[wld] = asleep ? 1 : 0;
+      a.o_active[wld] = asleep ? 0 : 1;
+    }
+    if (PERSIST) a.o_stable[wld] = (a.valid[wld] > 0 && !(moving || forced)) ? 1 : 0;
+  }
+}
+
+struct SurfArgs {
+  const float *pos, *rot, *v, *w;
+  const uint8_t* active;
+  const float *mc, *aabb_lo, *aabb_hi;
+  int W, n, K;
+  float *o_pos, *o_rot, *o_v, *o_w, *o_prev_pos, *o_prev_rot, *o_ps_pos, *o_ps_rot, *o_ps_v,
+      *o_ps_w;
+  float *o_aabb_lo, *o_aabb_hi;
+  int *o_rows_i, *o_rows_j;
+  uint8_t* o_kvalid;
+  int *o_count, *o_dropped;
+  int *work_list, *work_count;
+  int vec;  // every pointer 16-byte aligned (else every copy goes float by float)
+};
+
+// The asleep worlds of fused_substep_kernel<refresh+sleep+bp+persist>,
+// and the list of the others, before it runs (its plain version is
+// ops/substep_kernel.py asleep_surface_plain).  An asleep world's outputs:
+// pose and velocity unchanged, every stash the current state (the
+// passthrough), its cached rows and kvalid (the cache's three row
+// channels, the only ones it reads: an asleep world neither reads its
+// manifold nor writes any of its cache), the current AABB columns, count =
+// the cached kvalid's sum (a warp sum), nothing dropped.  CTA 0 lists the
+// awake worlds in ascending order (a block scan of the active flags over
+// chunks of 256 worlds), their count in work_count and -1 past it.  The
+// other threads copy, 16 bytes a load and a store: the [W, n, 3] columns
+// four floats a thread (a float4 whose floats are not all in asleep
+// worlds goes float by float), the rotations one body a thread; and a
+// warp a world takes its slots four at a time and sums its count (float by
+// float where a pointer is not 16-byte aligned).  The
+// copies are the kernel's bytes; few registers and no shared memory keep
+// 48 warps an SM with 16-byte accesses in flight.
+constexpr int kSurfThreads = 256;
+__global__ void __launch_bounds__(kSurfThreads, 6) asleep_surface_kernel(SurfArgs a) {
+  const int W = a.W, n = a.n, K = a.K;
+  if (blockIdx.x == 0) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    __shared__ int tot[kSurfThreads / 32];
+    int carry = 0;
+    for (int c0 = 0; c0 < W; c0 += kSurfThreads) {
+      const int wld = c0 + threadIdx.x;
+      const bool on = wld < W && a.active[wld];
+      const unsigned m = __ballot_sync(0xffffffffu, on);
+      if (lane == 0) tot[warp] = __popc(m);
+      __syncthreads();
+      int base = carry, all = 0;
+      for (int q = 0; q < kSurfThreads / 32; ++q) {
+        base += q < warp ? tot[q] : 0;
+        all += tot[q];
+      }
+      if (on) a.work_list[base + __popc(m & ((1u << lane) - 1u))] = wld;
+      carry += all;
+      __syncthreads();
+    }
+    for (int i = carry + threadIdx.x; i < W; i += kSurfThreads) a.work_list[i] = -1;
+    if (threadIdx.x == 0) *a.work_count = carry;
+    return;
+  }
+  const size_t t = static_cast<size_t>(blockIdx.x - 1) * kSurfThreads + threadIdx.x;
+  const size_t nt = static_cast<size_t>(gridDim.x - 1) * kSurfThreads;
+  const uint8_t* active = a.active;
+  // the [W, n, 3] columns: pos, v, w and the AABB, four floats a thread
+  const size_t n3 = static_cast<size_t>(W) * 3 * n, per = 3 * static_cast<size_t>(n);
+  for (size_t e = 4 * t; e < n3; e += 4 * nt) {
+    if (a.vec && e + 3 < n3 && !active[e / per] && !active[(e + 3) / per]) {
+      const float4 p = *reinterpret_cast<const float4*>(a.pos + e);
+      const float4 v = *reinterpret_cast<const float4*>(a.v + e);
+      const float4 w = *reinterpret_cast<const float4*>(a.w + e);
+      const float4 lo = *reinterpret_cast<const float4*>(a.aabb_lo + e);
+      const float4 hi = *reinterpret_cast<const float4*>(a.aabb_hi + e);
+      *reinterpret_cast<float4*>(a.o_pos + e) = p;
+      *reinterpret_cast<float4*>(a.o_prev_pos + e) = p;
+      *reinterpret_cast<float4*>(a.o_ps_pos + e) = p;
+      *reinterpret_cast<float4*>(a.o_v + e) = v;
+      *reinterpret_cast<float4*>(a.o_ps_v + e) = v;
+      *reinterpret_cast<float4*>(a.o_w + e) = w;
+      *reinterpret_cast<float4*>(a.o_ps_w + e) = w;
+      *reinterpret_cast<float4*>(a.o_aabb_lo + e) = lo;
+      *reinterpret_cast<float4*>(a.o_aabb_hi + e) = hi;
+      continue;
+    }
+    for (size_t g = e; g < e + 4 && g < n3; ++g) {
+      if (active[g / per]) continue;
+      const float p = a.pos[g], v = a.v[g], w = a.w[g];
+      a.o_pos[g] = p;
+      a.o_prev_pos[g] = p;
+      a.o_ps_pos[g] = p;
+      a.o_v[g] = v;
+      a.o_ps_v[g] = v;
+      a.o_w[g] = w;
+      a.o_ps_w[g] = w;
+      a.o_aabb_lo[g] = a.aabb_lo[g];
+      a.o_aabb_hi[g] = a.aabb_hi[g];
+    }
+  }
+  // the rotations, one body (a float4) a thread
+  const size_t bodies = static_cast<size_t>(W) * n;
+  for (size_t b = t; b < bodies; b += nt) {
+    if (active[b / n]) continue;
+    if (a.vec) {
+      const float4 r = *reinterpret_cast<const float4*>(a.rot + 4 * b);
+      *reinterpret_cast<float4*>(a.o_rot + 4 * b) = r;
+      *reinterpret_cast<float4*>(a.o_prev_rot + 4 * b) = r;
+      *reinterpret_cast<float4*>(a.o_ps_rot + 4 * b) = r;
+      continue;
+    }
+    for (size_t g = 4 * b; g < 4 * b + 4; ++g) {
+      const float r = a.rot[g];
+      a.o_rot[g] = r;
+      a.o_prev_rot[g] = r;
+      a.o_ps_rot[g] = r;
+    }
+  }
+  // the cached rows, a warp a world: four slots a lane at a time when K is
+  // a multiple of 4, and the count
+  const int lane = threadIdx.x % 32;
+  for (size_t wld = t / 32; wld < static_cast<size_t>(W); wld += nt / 32) {
+    if (active[wld]) continue;
+    const float* mc = a.mc + wld * kMcCh * K;
+    const size_t g0 = wld * K;
+    float cnt = 0.0f;
+    if (a.vec && K % 4 == 0) {
+      for (int k = 4 * lane; k < K; k += 128) {
+        const float4 ri = *reinterpret_cast<const float4*>(mc + k);
+        const float4 rj = *reinterpret_cast<const float4*>(mc + K + k);
+        const float4 kv = *reinterpret_cast<const float4*>(mc + 2 * K + k);
+        *reinterpret_cast<int4*>(a.o_rows_i + g0 + k) =
+            make_int4(static_cast<int>(ri.x), static_cast<int>(ri.y), static_cast<int>(ri.z),
+                      static_cast<int>(ri.w));
+        *reinterpret_cast<int4*>(a.o_rows_j + g0 + k) =
+            make_int4(static_cast<int>(rj.x), static_cast<int>(rj.y), static_cast<int>(rj.z),
+                      static_cast<int>(rj.w));
+        *reinterpret_cast<uchar4*>(a.o_kvalid + g0 + k) =
+            make_uchar4(kv.x > 0.5f ? 1 : 0, kv.y > 0.5f ? 1 : 0, kv.z > 0.5f ? 1 : 0,
+                        kv.w > 0.5f ? 1 : 0);
+        cnt = cnt + kv.x + kv.y + kv.z + kv.w;
+      }
+    } else {
+      for (int k = lane; k < K; k += 32) {
+        const float kv = mc[2 * K + k];
+        a.o_rows_i[g0 + k] = static_cast<int>(mc[k]);
+        a.o_rows_j[g0 + k] = static_cast<int>(mc[K + k]);
+        a.o_kvalid[g0 + k] = kv > 0.5f ? 1 : 0;
+        cnt = cnt + kv;
+      }
+    }
+    cnt = warp_sum(cnt);
+    if (lane == 0) {
+      a.o_count[wld] = static_cast<int>(cnt);
+      a.o_dropped[wld] = 0;
+    }
+  }
+}
+
+template <bool SLEEP, bool PERSIST>
+cudaError_t launch_flags(const FlagArgs& a, cudaStream_t stream) {
+  const int blocks = (a.W + kWorldWarps - 1) / kWorldWarps;
+  world_flags_kernel<SLEEP, PERSIST><<<blocks, 32 * kWorldWarps, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The launch shape and occupancy of the fused kernel's specialisation
@@ -2206,11 +2523,15 @@ extern "C" int fused_substep_launch(
     void* o_ps_v, void* o_ps_w, int opts, int degree, float inflate, const void* scale,
     const void* live, const void* dtv, const void* active, const void* stable, const void* mc,
     const void* aabb_lo, const void* aabb_hi, void* o_aabb_lo, void* o_aabb_hi, void* o_rows_i,
-    void* o_rows_j, void* o_kvalid, void* o_count, void* o_dropped, void* o_mc, void* stream) {
+    void* o_rows_j, void* o_kvalid, void* o_count, void* o_dropped, void* o_mc, void* o_apos,
+    void* o_arot, void* o_valid, const void* work_list, const void* work_count, int keep_v,
+    void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
   if (n <= 0 || K <= 0 || num_substeps < 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((opts & kOptBp) && (n > kMaxBpRows || degree < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((opts & kOptPersist) && (opts & kOptSleep) && (!work_list || !work_count))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<const float*>(pos);
@@ -2231,7 +2552,7 @@ extern "C" int fused_substep_launch(
   a.rows_i = static_cast<const int*>(rows_i);
   a.rows_j = static_cast<const int*>(rows_j);
   a.kvalid = static_cast<const uint8_t*>(kvalid);
-  a.tab = Table{static_cast<const float*>(table), 13 + 3 * vm, vm};
+  a.tab = Table{static_cast<const float*>(table), kTableFixed + 3 * vm, vm};
   a.n = n;
   a.K = K;
   a.num_substeps = num_substeps;
@@ -2266,6 +2587,12 @@ extern "C" int fused_substep_launch(
   a.o_count = static_cast<int*>(o_count);
   a.o_dropped = static_cast<int*>(o_dropped);
   a.o_mc = static_cast<float*>(o_mc);
+  a.o_apos = static_cast<float*>(o_apos);
+  a.o_arot = static_cast<float*>(o_arot);
+  a.o_valid = static_cast<int*>(o_valid);
+  a.work_list = static_cast<const int*>(work_list);
+  a.work_count = static_cast<const int*>(work_count);
+  a.keep_v = keep_v;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (opts) {
@@ -2284,6 +2611,112 @@ extern "C" int fused_substep_launch(
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The world flags (world_flags_kernel): opts bit 1 the sleep classifier
+// (thr2 = the threshold squared, frames), bit 2 the stability predicate
+// (half_margin = the persistence margin / 2).  Outputs of an option left
+// out are not written (their pointers may be null).
+extern "C" int world_flags_launch(
+    const void* pos, const void* rot, const void* v, const void* w, const void* ext_f,
+    const void* ext_t, const void* dyn, const void* obj, const void* scale,
+    const void* delta_t, const void* quiet, const void* apos, const void* arot,
+    const void* valid, const void* table, int num_objects, int vm, int W, int n, int opts,
+    float thr2, int frames, float half_margin, void* o_quiet, void* o_asleep, void* o_active,
+    void* o_stable, void* stream) {
+  if (W <= 0) return static_cast<int>(cudaSuccess);
+  if (n <= 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts || opts < 1 || opts > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FlagArgs a;
+  a.pos = static_cast<const float*>(pos);
+  a.rot = static_cast<const float*>(rot);
+  a.v = static_cast<const float*>(v);
+  a.w = static_cast<const float*>(w);
+  a.ext_f = static_cast<const float*>(ext_f);
+  a.ext_t = static_cast<const float*>(ext_t);
+  a.dyn = static_cast<const uint8_t*>(dyn);
+  a.obj = static_cast<const int*>(obj);
+  a.scale = static_cast<const float*>(scale);
+  a.delta_t = static_cast<const float*>(delta_t);
+  a.quiet = static_cast<const int*>(quiet);
+  a.apos = static_cast<const float*>(apos);
+  a.arot = static_cast<const float*>(arot);
+  a.valid = static_cast<const int*>(valid);
+  a.tab = Table{static_cast<const float*>(table), kTableFixed + 3 * vm, vm};
+  a.W = W;
+  a.n = n;
+  a.frames = frames;
+  a.thr2 = thr2;
+  a.half_margin = half_margin;
+  a.o_quiet = static_cast<int*>(o_quiet);
+  a.o_asleep = static_cast<int*>(o_asleep);
+  a.o_active = static_cast<uint8_t*>(o_active);
+  a.o_stable = static_cast<uint8_t*>(o_stable);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (opts) {
+    case 1: err = launch_flags<true, false>(a, st); break;
+    case 2: err = launch_flags<false, true>(a, st); break;
+    default: err = launch_flags<true, true>(a, st); break;
+  }
+  return static_cast<int>(err);
+}
+
+// The asleep worlds' outputs and the awake worlds' list
+// (asleep_surface_kernel), before fused_substep_launch with the options
+// refresh, sleep, bp and persist; its output pointers are that call's.
+extern "C" int asleep_surface_launch(
+    const void* pos, const void* rot, const void* v, const void* w, const void* active,
+    const void* mc, const void* aabb_lo, const void* aabb_hi, int W, int n, int K, void* o_pos,
+    void* o_rot, void* o_v, void* o_w, void* o_prev_pos, void* o_prev_rot, void* o_ps_pos,
+    void* o_ps_rot, void* o_ps_v, void* o_ps_w, void* o_aabb_lo, void* o_aabb_hi,
+    void* o_rows_i, void* o_rows_j, void* o_kvalid, void* o_count, void* o_dropped,
+    void* work_list, void* work_count, void* stream) {
+  if (W <= 0) return static_cast<int>(cudaSuccess);
+  if (n <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  SurfArgs a;
+  a.pos = static_cast<const float*>(pos);
+  a.rot = static_cast<const float*>(rot);
+  a.v = static_cast<const float*>(v);
+  a.w = static_cast<const float*>(w);
+  a.active = static_cast<const uint8_t*>(active);
+  a.mc = static_cast<const float*>(mc);
+  a.aabb_lo = static_cast<const float*>(aabb_lo);
+  a.aabb_hi = static_cast<const float*>(aabb_hi);
+  a.W = W;
+  a.n = n;
+  a.K = K;
+  a.o_pos = static_cast<float*>(o_pos);
+  a.o_rot = static_cast<float*>(o_rot);
+  a.o_v = static_cast<float*>(o_v);
+  a.o_w = static_cast<float*>(o_w);
+  a.o_prev_pos = static_cast<float*>(o_prev_pos);
+  a.o_prev_rot = static_cast<float*>(o_prev_rot);
+  a.o_ps_pos = static_cast<float*>(o_ps_pos);
+  a.o_ps_rot = static_cast<float*>(o_ps_rot);
+  a.o_ps_v = static_cast<float*>(o_ps_v);
+  a.o_ps_w = static_cast<float*>(o_ps_w);
+  a.o_aabb_lo = static_cast<float*>(o_aabb_lo);
+  a.o_aabb_hi = static_cast<float*>(o_aabb_hi);
+  a.o_rows_i = static_cast<int*>(o_rows_i);
+  a.o_rows_j = static_cast<int*>(o_rows_j);
+  a.o_kvalid = static_cast<uint8_t*>(o_kvalid);
+  a.o_count = static_cast<int*>(o_count);
+  a.o_dropped = static_cast<int*>(o_dropped);
+  a.work_list = static_cast<int*>(work_list);
+  a.work_count = static_cast<int*>(work_count);
+  const void* ptrs[] = {pos, rot, v, w, mc, aabb_lo, aabb_hi, o_pos, o_rot, o_v, o_w,
+                        o_prev_pos, o_prev_rot, o_ps_pos, o_ps_rot, o_ps_v, o_ps_w, o_aabb_lo,
+                        o_aabb_hi, o_rows_i, o_rows_j, o_kvalid};
+  a.vec = 1;
+  for (const void* q : ptrs) a.vec &= (reinterpret_cast<uintptr_t>(q) % 16) == 0 ? 1 : 0;
+  // a thread a body (and with it a float4 of the 3-wide columns), and at
+  // least a warp a world, after CTA 0 (the list)
+  const size_t bodies = static_cast<size_t>(W) * n;
+  const size_t work = bodies > static_cast<size_t>(W) * 32 ? bodies : static_cast<size_t>(W) * 32;
+  const int blocks = 1 + static_cast<int>((work + kSurfThreads - 1) / kSurfThreads);
+  asleep_surface_kernel<<<blocks, kSurfThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int substep_launch(
@@ -2318,7 +2751,7 @@ extern "C" int substep_launch(
   a.rows_i = static_cast<const int*>(rows_i);
   a.rows_j = static_cast<const int*>(rows_j);
   a.kvalid = static_cast<const uint8_t*>(kvalid);
-  a.tab = Table{static_cast<const float*>(table), 13 + 3 * vm, vm};
+  a.tab = Table{static_cast<const float*>(table), kTableFixed + 3 * vm, vm};
   a.n = n;
   a.K = K;
   a.bounce = bounce;

@@ -54,9 +54,12 @@ def state_from_numpy(tree, device="cuda") -> SimState:
 
 def state_to_numpy(state):
     """The port's state -> the same nested structure of numpy arrays
-    (lazily emitted rows are built on the way)."""
+    (lazily emitted rows are built on the way).  The arrays are copies,
+    also of a state on the CPU: a later step, which may write some of the
+    state's tensors in place, leaves them as they were."""
     if isinstance(state, Mapping):
         return {k: state_to_numpy(v) for k, v in state.items()}
     if isinstance(state, (list, tuple)):
         return type(state)(state_to_numpy(v) for v in state)
-    return state.detach().cpu().numpy()
+    t = state.detach()
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()

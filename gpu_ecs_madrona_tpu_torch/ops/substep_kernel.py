@@ -37,8 +37,20 @@ Its options, each a specialisation of the one CUDA kernel:
     manifold of its cache ``mcache`` [W, MC_CHANNELS, K] and skips the
     broadphase and SAT; the others rebuild with AABBs inflated by
     margin / 2.  Both take substep 0's contacts through
-    ``refresh_contacts`` of the resolved cache, and the cache goes out.
-    An asleep world passes the cache surface through too.
+    ``refresh_contacts`` of the resolved cache, and the cache goes out:
+    a new tensor, or ``mcache_out`` (which may be ``mcache``) updated in
+    place where a world rebuilt, with its ``anchors`` (apos, arot,
+    valid).  An asleep world passes the cache surface through too.  On
+    the card with sleep, ``asleep_surface`` (asleep_surface_kernel) writes
+    the asleep worlds' outputs and lists the awake ones before the fused
+    kernel, which then runs only those.
+
+``world_flags`` computes the fused node's sleep classifier and stability
+predicate (world_flags_kernel on the card, ``world_flags_plain`` on the
+CPU), which give the kernel its ``active`` and ``stable`` flags.  The
+per-object constants (inverse mass and inertia, friction) may be left to
+the kernels, which read them from their object table (``object_columns``
+is the plain version's gather).
 
 ``substep`` is the counterpart of ``SubstepKernel`` (``_run``, one
 substep per call), which worlds with joints take: steps 2-9 once, from
@@ -51,18 +63,20 @@ On CUDA tensors ``fused_substep`` and ``substep`` launch the hand-written
 kernels in ``csrc/substep_kernels.cu`` (one CTA per world; its notes say
 what bounds them and how they are laid out) or raise; on CPU tensors they
 run ``fused_substep_plain`` and ``substep_plain``, the same loop in
-batched PyTorch over [W, K] pair tensors.  Launches are counted in
-``FusedSubstepKernel.launches`` and ``SubstepKernel.launches``.  The
-segment sums add each body's A-side contributions in ascending slot order,
-then its B-side ones, in both versions (a stable sort and
-``segment_reduce`` in the plain version, a loop over the slots in the
-kernel), so both repeat bit for bit from run to run.
+batched PyTorch over [W, K] pair tensors.  The segment sums add each
+body's A-side contributions in ascending slot order, then its B-side
+ones, in both versions (a stable sort and ``segment_reduce`` in the plain
+version, a loop over the slots in the kernel), so both repeat bit for bit
+from run to run.  Launches are counted in ``FusedSubstepKernel.launches``,
+``SubstepKernel.launches``, ``WorldFlags.launches`` and
+``AsleepSurface.launches``.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import math
 
 import torch
 
@@ -145,6 +159,68 @@ SUBSTEP_KEYS = ("pos", "rot", "v", "w")
 
 def _comps(x):
     return tuple(x[..., c] for c in range(x.shape[-1]))
+
+
+def _sumsq(x):
+    """Each row's sum of squares over the last axis, in component order
+    ((x0 x0 + x1 x1) + x2 x2 ...), as the kernels add it."""
+    c = _comps(x)
+    acc = c[0] * c[0]
+    for xc in c[1:]:
+        acc = acc + xc * xc
+    return acc
+
+
+def object_columns(obj, dyn, tables: pk.ObjTables):
+    """The static body columns from the object tables at obj [W, n]:
+    inverse mass [W, n] and inertia [W, n, 3] (zero on rows not in dyn),
+    static and dynamic friction [W, n] — what the kernels read from their
+    table when these arguments are None."""
+    o, dev = obj.long(), obj.device
+    im = torch.where(dyn, tables.tab("inv_mass", dev)[o], 0.0)
+    ii = torch.where(dyn[..., None], tables.tab("inv_inertia", dev)[o], 0.0)
+    return im, ii, tables.tab("mu_s", dev)[o], tables.tab("mu_d", dev)[o]
+
+
+def world_flags_plain(pos, rot, v, w, ext_f, ext_t, dyn, obj, scale, delta_t, *,
+                      tables: pk.ObjTables, quiet_steps=None, sleep_threshold: float = 0.0,
+                      sleep_frames: int = 10, apos=None, arot=None, valid=None,
+                      persist_margin: float = 0.0):
+    """The plain version of the world flags kernel: the fused node's sleep
+    classifier and stability predicate (the JAX package's XLA glue,
+    physics/__init__.py).  Body args [W, n(, 3/4)] (dyn bool, obj int32),
+    delta_t [W].  A body is forced when it is dynamic and has an external
+    force or torque.
+
+    sleep_threshold > 0, with quiet_steps [W] int32: a world is quiet when
+    no dynamic body has |v|^2 + |w|^2 > thr^2 and none is forced;
+    quiet_steps counts quiet steps, saturating at sleep_frames; asleep =
+    quiet_steps >= sleep_frames (int32); active = not asleep (bool).
+
+    persist_margin > 0, with the cache's anchors apos [W, n, 3], arot [W,
+    n, 4] and valid [W] int32: stable (bool) = valid > 0 and no dynamic
+    body is forced or has |dpos| + pi |dq| r + (|v| + |w| r) delta_t >=
+    margin / 2, r the object's bounding radius times its largest scale.
+
+    Returns the dict of the options' flags.  Sums of squares add in
+    component order (_sumsq), as the kernel does."""
+    out = {}
+    forced = dyn & ((ext_f != 0.0).any(-1) | (ext_t != 0.0).any(-1))
+    if sleep_threshold > 0.0:
+        sp2 = _sumsq(v) + _sumsq(w)
+        fast = (dyn & (sp2 > sleep_threshold ** 2)).any(1)
+        quiet = ~(fast | forced.any(1))
+        qs = torch.clamp(torch.where(quiet, quiet_steps + 1, 0), max=sleep_frames)
+        asleep = qs >= sleep_frames
+        out.update(quiet_steps=qs, asleep=asleep.to(torch.int32), active=~asleep)
+    if persist_margin > 0.0:
+        rad = tables.scalar(obj, "bound_radius") * scale.amax(-1)
+        carry = (torch.sqrt(_sumsq(v)) + torch.sqrt(_sumsq(w)) * rad) * delta_t[:, None]
+        move = (torch.sqrt(_sumsq(pos - apos)) + math.pi * torch.sqrt(_sumsq(rot - arot)) * rad
+                + carry)
+        moving = dyn & (move >= 0.5 * persist_margin)
+        out["stable"] = (valid > 0) & ~(moving | forced).any(1)
+    return out
 
 
 def _integrate(pos, rot, v, w, im, ii, extf, extt, dyn, h1, g):
@@ -353,12 +429,15 @@ def fused_substep_plain(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, d
                         speculative: float = 0.0, observe=None, refresh: bool = False,
                         active=None, bp_degree: int = 0, K: int = 0, scale=None, live=None,
                         dtv=None, persist_margin: float = 0.0, mcache=None, stable=None,
-                        aabb_lo=None, aabb_hi=None):
+                        aabb_lo=None, aabb_hi=None, mcache_out=None, anchors=None,
+                        keep_velocity: bool = False):
     """The plain PyTorch version of the fused substep kernel (see the module
     doc).  Body args [W, n(, 3/4)]; pair args [W, K]; h and
-    restitution_threshold [W]; gravity [W, 3].  Returns the dict of
-    OUT_KEYS, each [W, n, 3/4].  ``observe``, if given, is called with
-    each substep's contacts (to count the work the data needs).
+    restitution_threshold [W]; gravity [W, 3]; im, ii, mu_s and mu_d may
+    be None (object_columns).  Returns the dict of OUT_KEYS, each [W, n,
+    3/4].  ``observe``, if given, is called with each substep's contacts
+    (to count the work the data needs).  ``keep_velocity``: non-dynamic
+    rows keep their v and w (else they come out zero).
 
     Options (the module doc): ``refresh``; ``active`` [W] bool (None: all
     awake); ``bp_degree`` D > 0 with ``K`` slots, ``scale`` [W, n, 3],
@@ -366,7 +445,13 @@ def fused_substep_plain(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, d
     aabb_lo/hi, rows_i/j, kvalid, bp_count and bp_dropped to the dict;
     ``persist_margin`` > 0 (with bp and refresh) with ``mcache`` [W,
     MC_CHANNELS, K], ``stable`` [W] bool and the current ``aabb_lo/hi``
-    columns, adding "mcache"."""
+    columns, adding "mcache": a new tensor, or ``mcache_out`` (which may be
+    mcache) with the worlds that rebuilt their cache written into it and
+    the others left as they are.  ``anchors`` (apos [W, n, 3], arot [W,
+    n, 4], valid [W] int32), if given, is updated in place where a world
+    rebuilt: the step's starting pose, valid = nothing dropped."""
+    if im is None:
+        im, ii, mu_s, mu_d = object_columns(obj, dyn, tables)
     persist = persist_margin > 0.0
     # an asleep world takes the cached surface, so its cache passes through
     keep = None
@@ -432,11 +517,23 @@ def fused_substep_plain(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, d
     if active is not None:
         frozen = (pos, rot, v, w, pos, rot, pos, rot, v, w)
         out = {k: _select(active, out[k], x) for k, x in zip(OUT_KEYS, frozen)}
+    if keep_velocity:
+        out["v"] = torch.where(dyn[..., None], out["v"], v)
+        out["w"] = torch.where(dyn[..., None], out["w"], w)
     if persist:
         rows = torch.stack([rows_i.to(torch.float32), rows_j.to(torch.float32),
                             kvalid.to(torch.float32)], dim=1)
         rows = _select(keep, mcache[:, :MC_ROWS], rows)
-        extra["mcache"] = torch.cat([rows, memo["mcc"]], dim=1)
+        new = torch.cat([rows, memo["mcc"]], dim=1)
+        if mcache_out is not None:
+            mcache_out.copy_(_select(keep, mcache_out, new))
+            new = mcache_out
+        extra["mcache"] = new
+        if anchors is not None:
+            apos, arot, valid = anchors
+            apos.copy_(_select(keep, apos, pos))
+            arot.copy_(_select(keep, arot, rot))
+            valid.copy_(torch.where(keep, valid, (extra["bp_dropped"] == 0).to(torch.int32)))
     return extra | out
 
 
@@ -472,8 +569,13 @@ def _lib():
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_substep_launch.argtypes = (
-            [P] * 19 + [I] * 6 + [F, F, I] + [P] * 10 + [I, I, F] + [P] * 16 + [P])
+            [P] * 19 + [I] * 6 + [F, F, I] + [P] * 10 + [I, I, F] + [P] * 16 + [P] * 5 + [I]
+            + [P])
         lib.fused_substep_launch.restype = I
+        lib.world_flags_launch.argtypes = [P] * 15 + [I] * 5 + [F, I, F] + [P] * 4 + [P]
+        lib.world_flags_launch.restype = I
+        lib.asleep_surface_launch.argtypes = [P] * 8 + [I] * 3 + [P] * 19 + [P]
+        lib.asleep_surface_launch.restype = I
         lib.substep_launch.argtypes = [P] * 18 + [I] * 5 + [F, F, I] + [P] * 4 + [P]
         lib.substep_launch.restype = I
         IP = ctypes.POINTER(ctypes.c_int)
@@ -513,7 +615,8 @@ _SPECS = {"pos": (torch.float32, 3), "rot": (torch.float32, 4), "v": (torch.floa
           "mu_s": (torch.float32, 0), "mu_d": (torch.float32, 0), "obj": (torch.int32, 0),
           "ext_f": (torch.float32, 3), "ext_t": (torch.float32, 3), "dyn": (torch.bool, 0),
           "scale": (torch.float32, 3), "live": (torch.bool, 0),
-          "aabb_lo": (torch.float32, 3), "aabb_hi": (torch.float32, 3)}
+          "aabb_lo": (torch.float32, 3), "aabb_hi": (torch.float32, 3),
+          "apos": (torch.float32, 3), "arot": (torch.float32, 4)}
 
 
 def _check_inputs(name, device, bodies, W, n, K, **others):
@@ -526,7 +629,10 @@ def _check_inputs(name, device, bodies, W, n, K, **others):
              "rows_i": (torch.int32, (W, K)), "rows_j": (torch.int32, (W, K)),
              "kvalid": (torch.bool, (W, K)), "dtv": (torch.float32, (W,)),
              "active": (torch.bool, (W,)), "stable": (torch.bool, (W,)),
-             "mcache": (torch.float32, (W, MC_CHANNELS, K))}
+             "mcache": (torch.float32, (W, MC_CHANNELS, K)),
+             "mcache_out": (torch.float32, (W, MC_CHANNELS, K)),
+             "valid": (torch.int32, (W,)), "quiet_steps": (torch.int32, (W,)),
+             "delta_t": (torch.float32, (W,))}
     checks += [(key, t) + world[key] for key, t in others.items()]
     for key, t, dt, shape in checks:
         if t.device != device:
@@ -549,15 +655,19 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
                   speculative: float = 0.0, refresh: bool = False, active=None,
                   bp_degree: int = 0, K: int = 0, scale=None, live=None, dtv=None,
                   persist_margin: float = 0.0, mcache=None, stable=None, aabb_lo=None,
-                  aabb_hi=None):
+                  aabb_hi=None, mcache_out=None, anchors=None, keep_velocity: bool = False):
     """All substeps of one physics step.  Body args [W, n(, 3/4)] (dyn
-    bool, obj int32); pair args rows_i/rows_j [W, K] int32, kvalid [W, K]
-    bool; h, restitution_threshold [W]; gravity [W, 3]; the options as in
+    bool, obj int32; im, ii, mu_s and mu_d may be None: the kernel reads
+    them from its object table); pair args rows_i/rows_j [W, K] int32,
+    kvalid [W, K] bool; h, restitution_threshold [W]; gravity [W, 3]; the
+    options, mcache_out, anchors and keep_velocity as in
     fused_substep_plain (active, live, stable bool; the rows None with
     bp_degree).  Returns the dict of OUT_KEYS, with bp_degree also BP_KEYS,
-    with persist_margin also "mcache".  CPU tensors: the plain version.
-    CUDA tensors: the kernel, or a raise (bad input, tables or shapes the
-    kernel does not take, a failed launch) — never the plain version."""
+    with persist_margin also "mcache" (mcache_out when given).  CPU
+    tensors: the plain version.  CUDA tensors: the kernel (with
+    persistence and sleep, asleep_surface_kernel first), or a raise (bad
+    input, tables or shapes the kernel does not take, a failed launch) —
+    never the plain version."""
     bp, persist = bool(bp_degree), persist_margin > 0.0
     if persist and not (bp and refresh):
         raise ValueError("fused_substep: persist_margin needs bp_degree and refresh")
@@ -570,20 +680,23 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
             h, gravity, restitution_threshold, rows_i, rows_j, kvalid)
     opts = dict(refresh=refresh, active=active, bp_degree=bp_degree, K=K, scale=scale,
                 live=live, dtv=dtv, persist_margin=persist_margin, mcache=mcache,
-                stable=stable, aabb_lo=aabb_lo, aabb_hi=aabb_hi)
+                stable=stable, aabb_lo=aabb_lo, aabb_hi=aabb_hi, mcache_out=mcache_out,
+                anchors=anchors, keep_velocity=keep_velocity)
     kw = dict(tables=tables, num_substeps=num_substeps, relaxation=relaxation,
               speculative=speculative)
     if pos.device.type == "cpu":
         return fused_substep_plain(*args, **kw, **opts)
-    W, n = im.shape
+    W, n = pos.shape[:2]
     if not bp:
         K = rows_i.shape[1]
     why = kernel_fits(tables, n, K, bp, refresh or persist)
     if why:
         raise NotImplementedError(f"fused_substep: {why}")
     dev = pos.device
-    named = dict(zip(("pos", "rot", "v", "w", "im", "ii", "mu_s", "mu_d", "obj",
-                      "ext_f", "ext_t", "dyn"), args[:12]))
+    named = {k: t for k, t in zip(("pos", "rot", "v", "w", "im", "ii", "mu_s", "mu_d", "obj",
+                                   "ext_f", "ext_t", "dyn"), args[:12]) if t is not None}
+    if len(named) not in (8, 12):
+        raise ValueError("fused_substep: pass all of im, ii, mu_s and mu_d, or none")
     others = dict(h=h, gravity=gravity, restitution_threshold=restitution_threshold)
     if bp:
         named.update(scale=scale, live=live)
@@ -593,8 +706,13 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
     if active is not None:
         others.update(active=active)
     if persist:
+        if mcache_out is None:
+            mcache_out = mcache.clone()
         named.update(aabb_lo=aabb_lo, aabb_hi=aabb_hi)
-        others.update(mcache=mcache, stable=stable)
+        others.update(mcache=mcache, stable=stable, mcache_out=mcache_out)
+        if anchors is not None:
+            named.update(apos=anchors[0], arot=anchors[1])
+            others.update(valid=anchors[2])
     _check_inputs("fused_substep", dev, named, W, n, K, **others)
     table = tables.kernel_table(dev)
     outs = {k: torch.empty((W, n, _WIDTH[k]), dtype=torch.float32, device=dev)
@@ -609,13 +727,18 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
                  "bp_count": torch.empty((W,), dtype=torch.int32, device=dev),
                  "bp_dropped": torch.empty((W,), dtype=torch.int32, device=dev)}
     if persist:
-        extra["mcache"] = torch.empty((W, MC_CHANNELS, K), dtype=torch.float32, device=dev)
+        extra["mcache"] = mcache_out
     code = ((OPT_REFRESH if refresh else 0) | (OPT_SLEEP if active is not None else 0)
             | (OPT_BP if bp else 0) | (OPT_PERSIST if persist else 0))
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
+    work = (None, None)
+    if persist and active is not None:
+        # the asleep worlds' outputs, and the list of the awake ones
+        _, *work = asleep_surface(pos, rot, v, w, active, mcache, aabb_lo, aabb_hi,
+                                  outs=outs | extra)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().fused_substep_launch(
         *(ptr(t) for t in args), table.data_ptr(),
@@ -624,12 +747,137 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
         *(outs[k].data_ptr() for k in OUT_KEYS),
         code, int(bp_degree), float(0.5 * persist_margin),
         *(ptr(t) for t in (scale, live, dtv, active, stable, mcache, aabb_lo, aabb_hi)),
-        *(ptr(extra.get(k)) for k in BP_KEYS + ("mcache",)), stream)
+        *(ptr(extra.get(k)) for k in BP_KEYS + ("mcache",)),
+        *(ptr(t) for t in (anchors or (None, None, None))), *(ptr(t) for t in work),
+        int(keep_velocity), stream)
     if rc != 0:
         raise RuntimeError(f"fused_substep: kernel launch failed with cudaError {rc}")
     FusedSubstepKernel.launches += 1
     FusedSubstepKernel.launches_by_options[option_name(code)] += 1
     return extra | outs
+
+
+def asleep_surface_plain(pos, rot, v, w, active, mcache, aabb_lo, aabb_hi):
+    """The plain version of asleep_surface_kernel: the outputs of the
+    persistent kernel with sleep for an asleep world (fused_substep_plain's
+    asleep branch), here for every world — pose and velocity unchanged,
+    every stash the current state, the cached rows and kvalid (mcache's
+    first three channels), the given AABB columns, count = the cached
+    kvalid's sum, nothing dropped — and the list of the awake worlds:
+    (dict of OUT_KEYS and BP_KEYS, work_list [W] int32 (the awake worlds
+    ascending, then -1), work_count [1] int32)."""
+    W = pos.shape[0]
+    outs = dict(zip(OUT_KEYS, (pos, rot, v, w, pos, rot, pos, rot, v, w)))
+    surface = _cached_surface(mcache, aabb_lo, aabb_hi)
+    awake = torch.nonzero(active).reshape(-1).to(torch.int32)
+    work_list = torch.full((W,), -1, dtype=torch.int32, device=pos.device)
+    work_list[:awake.shape[0]] = awake
+    count = torch.full((1,), awake.shape[0], dtype=torch.int32, device=pos.device)
+    return outs | surface, work_list, count
+
+
+def asleep_surface(pos, rot, v, w, active, mcache, aabb_lo, aabb_hi, outs=None):
+    """The asleep worlds of the persistent kernel with sleep (see
+    asleep_surface_plain), which fused_substep launches before it: CPU
+    tensors the plain version (every world's rows).  CUDA tensors:
+    asleep_surface_kernel, which writes the rows of the asleep worlds only
+    into ``outs`` (fused_substep's outputs; allocated when None, the awake
+    worlds' rows then undefined) and lists the awake worlds; or a raise."""
+    if pos.device.type == "cpu":
+        return asleep_surface_plain(pos, rot, v, w, active, mcache, aabb_lo, aabb_hi)
+    W, n = pos.shape[:2]
+    K = mcache.shape[2]
+    dev = pos.device
+    _check_inputs("asleep_surface", dev, dict(pos=pos, rot=rot, v=v, w=w, aabb_lo=aabb_lo,
+                                               aabb_hi=aabb_hi), W, n, K,
+                  active=active, mcache=mcache)
+    if outs is None:
+        outs = {k: torch.empty((W, n, _WIDTH[k]), dtype=torch.float32, device=dev)
+                for k in OUT_KEYS}
+        outs.update(aabb_lo=torch.empty((W, n, 3), dtype=torch.float32, device=dev),
+                    aabb_hi=torch.empty((W, n, 3), dtype=torch.float32, device=dev),
+                    rows_i=torch.empty((W, K), dtype=torch.int32, device=dev),
+                    rows_j=torch.empty((W, K), dtype=torch.int32, device=dev),
+                    kvalid=torch.empty((W, K), dtype=torch.bool, device=dev),
+                    bp_count=torch.empty((W,), dtype=torch.int32, device=dev),
+                    bp_dropped=torch.empty((W,), dtype=torch.int32, device=dev))
+    work = (torch.empty((W,), dtype=torch.int32, device=dev),
+            torch.empty((1,), dtype=torch.int32, device=dev))
+    rc = _lib().asleep_surface_launch(
+        *(t.data_ptr() for t in (pos, rot, v, w, active, mcache, aabb_lo, aabb_hi)), W, n, K,
+        *(outs[k].data_ptr() for k in OUT_KEYS + BP_KEYS), *(t.data_ptr() for t in work),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"asleep_surface: kernel launch failed with cudaError {rc}")
+    AsleepSurface.launches += 1
+    return (outs,) + work
+
+
+def world_flags(pos, rot, v, w, ext_f, ext_t, dyn, obj, scale, delta_t, *,
+                tables: pk.ObjTables, quiet_steps=None, sleep_threshold: float = 0.0,
+                sleep_frames: int = 10, apos=None, arot=None, valid=None,
+                persist_margin: float = 0.0):
+    """The fused node's world flags (see world_flags_plain, same arguments
+    and dict; at least one of the two options).  CPU tensors: the plain
+    version.  CUDA tensors: world_flags_kernel (one warp a world, bit for
+    bit the plain version), or a raise — never the plain version."""
+    sleep, persist = sleep_threshold > 0.0, persist_margin > 0.0
+    if not (sleep or persist):
+        raise ValueError("world_flags: pass sleep_threshold or persist_margin")
+    if pos.device.type == "cpu":
+        return world_flags_plain(pos, rot, v, w, ext_f, ext_t, dyn, obj, scale, delta_t,
+                                 tables=tables, quiet_steps=quiet_steps,
+                                 sleep_threshold=sleep_threshold, sleep_frames=sleep_frames,
+                                 apos=apos, arot=arot, valid=valid,
+                                 persist_margin=persist_margin)
+    W, n = pos.shape[:2]
+    dev = pos.device
+    named = dict(pos=pos, rot=rot, v=v, w=w, ext_f=ext_f, ext_t=ext_t, dyn=dyn, obj=obj)
+    others = {}
+    if sleep:
+        others.update(quiet_steps=quiet_steps)
+    if persist:
+        named.update(scale=scale, apos=apos, arot=arot)
+        others.update(delta_t=delta_t, valid=valid)
+    _check_inputs("world_flags", dev, named, W, n, 0, **others)
+    out = {}
+    if sleep:
+        out.update(quiet_steps=torch.empty((W,), dtype=torch.int32, device=dev),
+                   asleep=torch.empty((W,), dtype=torch.int32, device=dev),
+                   active=torch.empty((W,), dtype=torch.bool, device=dev))
+    if persist:
+        out["stable"] = torch.empty((W,), dtype=torch.bool, device=dev)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    table = tables.kernel_table(dev)
+    rc = _lib().world_flags_launch(
+        *(ptr(t) for t in (pos, rot, v, w, ext_f, ext_t, dyn, obj,
+                           scale if persist else None, delta_t if persist else None,
+                           quiet_steps if sleep else None, apos if persist else None,
+                           arot if persist else None, valid if persist else None)),
+        table.data_ptr(), tables.O, tables.Vm, W, n, (1 if sleep else 0) | (2 if persist else 0),
+        float(sleep_threshold ** 2), int(sleep_frames), float(0.5 * persist_margin),
+        *(ptr(out.get(k)) for k in ("quiet_steps", "asleep", "active", "stable")),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"world_flags: kernel launch failed with cudaError {rc}")
+    WorldFlags.launches += 1
+    return out
+
+
+class WorldFlags:
+    """``launches`` counts world_flags_kernel's launches (class-wide)."""
+
+    launches = 0
+
+
+class AsleepSurface:
+    """``launches`` counts asleep_surface_kernel's launches (class-wide),
+    one before each launch of the persistent kernel with sleep."""
+
+    launches = 0
 
 
 SPECIALISATION_CODES = (0, OPT_REFRESH, OPT_SLEEP, OPT_REFRESH | OPT_SLEEP, OPT_BP,
@@ -767,37 +1015,46 @@ class FusedSubstepKernel:
             raise ValueError("persist_margin requires the in-kernel broadphase (bp_degree) "
                              "and contact_refresh")
 
-    def __call__(self, **kw):
-        """Body args [W, n(, 3/4)]; pair args [W, K]; h and
+    def __call__(self, mcache_out=None, anchors=None, keep_velocity=False, **kw):
+        """Body args [W, n(, 3/4)] (im, ii, mu_s and mu_d may be None or
+        left out: the object tables' at obj); pair args [W, K]; h and
         restitution_threshold [W]; gravity [W, 3]; active [W] (true or 1 =
         awake; None = all awake).  With bp_degree, omit the rows and pass
         scale [W, n, 3] (default ones), live [W, n] (default all) and dtv
         [W] (delta_t x velocity expansion, default 0); with
         persist_margin, also mcache [W, MC_CHANNELS, K], stable [W] and
-        the current aabb_lo/hi [W, n, 3].  Returns the dict of updated
+        the current aabb_lo/hi [W, n, 3], and optionally mcache_out and
+        anchors (fused_substep_plain).  Returns the dict of updated
         columns: pos, rot, v, w and the last substep's stashes prev_pos,
         prev_rot, ps_pos, ps_rot, ps_v, ps_w; with bp_degree also
         aabb_lo/hi, rows_i/j [W, K] int32, kvalid [W, K] bool, bp_count
         and bp_dropped [W] int32; with persist_margin also "mcache"."""
         args, opts = self._arguments(**kw)
-        return fused_substep(*args, **opts)
+        return fused_substep(*args, **opts, mcache_out=mcache_out, anchors=anchors,
+                             keep_velocity=keep_velocity)
 
-    def plain(self, observe=None, **kw):
+    def plain(self, observe=None, mcache_out=None, anchors=None, keep_velocity=False, **kw):
         """The plain version on the same inputs, on their own device (how
         the kernel is held to it); ``observe`` as in fused_substep_plain."""
         args, opts = self._arguments(**kw)
-        return fused_substep_plain(*args, **opts, observe=observe)
+        return fused_substep_plain(*args, **opts, observe=observe, mcache_out=mcache_out,
+                                   anchors=anchors, keep_velocity=keep_velocity)
 
-    def _arguments(self, *, pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
-                   h, gravity, restitution_threshold, rows_i=None, rows_j=None,
-                   kvalid=None, active=None, scale=None, live=None, dtv=None, mcache=None,
-                   stable=None, aabb_lo=None, aabb_hi=None):
+    def _arguments(self, *, pos, rot, v, w, obj, ext_f, ext_t, dyn, h, gravity,
+                   restitution_threshold, im=None, ii=None, mu_s=None, mu_d=None, rows_i=None,
+                   rows_j=None, kvalid=None, active=None, scale=None, live=None, dtv=None,
+                   mcache=None, stable=None, aabb_lo=None, aabb_hi=None):
         """fused_substep's positional and keyword arguments for a call."""
-        W, n = im.shape
+        W, n = pos.shape[:2]
         dev = pos.device
 
         def flag(x):
-            return None if x is None else (x.to(torch.float32) > 0.5).contiguous()
+            if x is None or x.dtype == torch.bool:
+                return None if x is None else x.contiguous()
+            return (x.to(torch.float32) > 0.5).contiguous()
+
+        def opt(x):
+            return None if x is None else x.contiguous()
 
         opts = dict(tables=self.tables, num_substeps=self.num_substeps,
                     relaxation=self.relaxation, speculative=self.speculative,
@@ -828,8 +1085,8 @@ class FusedSubstepKernel:
                         stable=flag(stable), aabb_lo=aabb_lo.contiguous(),
                         aabb_hi=aabb_hi.contiguous())
         args = (pos.contiguous(), rot.contiguous(), v.contiguous(), w.contiguous(),
-                im.contiguous(), ii.contiguous(), mu_s.contiguous(), mu_d.contiguous(),
-                obj.to(torch.int32).contiguous(), ext_f.contiguous(), ext_t.contiguous(),
+                opt(im), opt(ii), opt(mu_s), opt(mu_d), obj.to(torch.int32).contiguous(),
+                ext_f.contiguous(), ext_t.contiguous(),
                 dyn.to(torch.bool).contiguous(), h.contiguous(), gravity.contiguous(),
                 restitution_threshold.contiguous(), rows_i, rows_j, kvalid)
         return args, opts

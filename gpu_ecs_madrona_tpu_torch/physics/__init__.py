@@ -44,7 +44,6 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Sequence
 
-import numpy as np
 import torch
 
 from gpu_ecs_madrona_tpu_torch.core import base
@@ -59,6 +58,7 @@ from gpu_ecs_madrona_tpu_torch.ops.substep_kernel import (
     FusedSubstepKernel,
     SubstepKernel,
     bp_slots,
+    world_flags,
 )
 from gpu_ecs_madrona_tpu_torch.physics import assets  # noqa: F401  (public submodule)
 from gpu_ecs_madrona_tpu_torch.physics import pairs as pk
@@ -138,16 +138,17 @@ def _tables_on(object_manager, device) -> Dict[str, torch.Tensor]:
 
 def _emit_candidates(ctx: Context, arch: Archetype, counts, rows_i, rows_j):
     """The broadphase's observable output: CandidateTemporary (entity
-    handles, built lazily) and CandidateRowsTemporary (body rows) with
-    ``counts`` per world (a count over the capacity goes to the overflow
-    counter)."""
+    handles) and CandidateRowsTemporary (body rows) with ``counts`` per
+    world (a count over the capacity goes to the overflow counter), both
+    built lazily: only if something reads them before their clear node
+    (the substep nodes read the rows)."""
     ents = ctx.entity_column(arch)
     ctx.emit_temporaries(
         CandidateTemporary, counts=counts, width=rows_i.shape[1],
         values=lambda: {CandidateCollision: {"a": batched_gather(ents, rows_i),
                                              "b": batched_gather(ents, rows_j)}})
-    ctx.emit_temporaries(CandidateRowsTemporary, counts=counts,
-                         values={CandidatePairRows: {"i": rows_i, "j": rows_j}})
+    ctx.emit_temporaries(CandidateRowsTemporary, counts=counts, width=rows_i.shape[1],
+                         values=lambda: {CandidatePairRows: {"i": rows_i, "j": rows_j}})
 
 
 def _stable_topk_rows(flag, k):
@@ -191,7 +192,7 @@ class RigidBodyPhysicsSystem:
         ctx.set_singleton(PhysicsState, {
             "delta_t": torch.full((W,), delta_t, dtype=f32, device=dev),
             "h": torch.full((W,), h, dtype=f32, device=dev),
-            "gravity": torch.tensor(gravity, dtype=f32, device=dev).expand(W, 3),
+            "gravity": torch.tensor(gravity, dtype=f32, device=dev).expand(W, 3).contiguous(),
             "restitution_threshold": torch.full((W,), 2.0 * gmag * h, dtype=f32, device=dev),
         })
         ctx.set_singleton(SleepState, {
@@ -207,13 +208,16 @@ class RigidBodyPhysicsSystem:
         mc [MC_CHANNELS, K] (the cached rows and body-frame manifold, K =
         the fused kernel's slots for max_candidates), apos [n, 3] and arot
         [n, 4] (the poses the cache was built at), valid (int32).  The JAX
-        package's keys and shapes, so its states convert 1:1."""
+        package's keys and shapes, so its states convert 1:1.  A step
+        writes its tensors in place (the worlds whose cache it rebuilt), so
+        it is registered ``in_place``: the executor copies it when it takes
+        a state in and in save_state."""
         n_cap = registry.archetypes[body_archetype.name].capacity
         comp = singleton_component(
             "ManifoldPersist", mc=((MC_CHANNELS, bp_slots(max_candidates)), torch.float32),
             apos=((n_cap, 3), torch.float32), arot=((n_cap, 4), torch.float32),
             valid=((), torch.int32))
-        registry.register_singleton(comp)
+        registry.register_singleton(comp, in_place=True)
         return comp
 
     @staticmethod
@@ -245,27 +249,32 @@ class RigidBodyPhysicsSystem:
                 objtab["mu_s"][o], objtab["mu_d"][o])
 
     @staticmethod
-    def fused_kernel_inputs(ctx: Context, arch: Archetype, object_manager, rows: bool = True):
+    def fused_kernel_inputs(ctx: Context, arch: Archetype, object_manager, rows: bool = True,
+                            gather: bool = True):
         """The fused substep kernel's keyword inputs (FusedSubstepKernel's
-        call) from the current state: body columns, the per-object
-        constants (inverse mass and inertia zeroed on non-dynamic rows),
-        the solver singleton and, with ``rows``, this step's candidate rows
-        (emitted by the broadphase earlier in the step).
+        call) from the current state: body columns, with ``gather`` the
+        per-object constants (inverse mass and inertia zeroed on
+        non-dynamic rows; without it the kernel reads them from its object
+        table), the solver singleton and, with ``rows``, this step's
+        candidate rows (emitted by the broadphase earlier in the step).
         ``object_manager``: the object manager dict, or its tensors from a
-        previous call."""
-        objtab = object_manager if isinstance(object_manager.get("inv_mass"), torch.Tensor) \
-            else _tables_on(object_manager, ctx.device)
-        pos, rot, obj, mask, inv_mass, inv_inertia, mu_s, mu_d = \
-            RigidBodyPhysicsSystem._body_data(ctx, arch, objtab)
-        dyn = (ctx.column(arch, ResponseType) == RESPONSE_DYNAMIC) & mask
+        previous call (or None without ``gather``)."""
+        dyn = (ctx.column(arch, ResponseType) == RESPONSE_DYNAMIC) & ctx.row_mask(arch)
         phys = ctx.singleton(PhysicsState)
         vel = ctx.column(arch, Velocity)
         kw = dict(
-            pos=pos, rot=rot, v=vel["linear"], w=vel["angular"],
-            im=torch.where(dyn, inv_mass, 0.0), ii=torch.where(dyn[..., None], inv_inertia, 0.0),
-            mu_s=mu_s, mu_d=mu_d, obj=obj, ext_f=ctx.column(arch, ExternalForce),
-            ext_t=ctx.column(arch, ExternalTorque), dyn=dyn, h=phys["h"],
-            gravity=phys["gravity"], restitution_threshold=phys["restitution_threshold"])
+            pos=ctx.column(arch, base.Position), rot=ctx.column(arch, base.Rotation),
+            v=vel["linear"], w=vel["angular"], obj=ctx.column(arch, base.ObjectID),
+            ext_f=ctx.column(arch, ExternalForce), ext_t=ctx.column(arch, ExternalTorque),
+            dyn=dyn, h=phys["h"], gravity=phys["gravity"],
+            restitution_threshold=phys["restitution_threshold"])
+        if gather:
+            objtab = object_manager if isinstance(object_manager.get("inv_mass"), torch.Tensor) \
+                else _tables_on(object_manager, ctx.device)
+            _, _, _, _, inv_mass, inv_inertia, mu_s, mu_d = \
+                RigidBodyPhysicsSystem._body_data(ctx, arch, objtab)
+            kw.update(im=torch.where(dyn, inv_mass, 0.0),
+                      ii=torch.where(dyn[..., None], inv_inertia, 0.0), mu_s=mu_s, mu_d=mu_d)
         if rows:
             cand = ctx.column(CandidateRowsTemporary, CandidatePairRows)
             kw.update(rows_i=cand["i"], rows_j=cand["j"],
@@ -289,18 +298,20 @@ class RigidBodyPhysicsSystem:
         return {k: x.contiguous() for k, x in out.items()}
 
     @staticmethod
-    def next_step_kernel_inputs(sim, arch: Archetype, object_manager):
+    def next_step_kernel_inputs(sim, arch: Archetype, object_manager, flags: bool = False):
         """The fused kernel's inputs for the next step of executor ``sim``:
         the step's nodes before its first substep node run on a Context
         over a copy of ``sim.state``, which stays as it was; then the fused
         node's own inputs (its options' too: the broadphase's, the sleep
-        flags, the persistent cache and its stable flags), or for the
-        per-substep nodes fused_kernel_inputs."""
+        flags, the persistent cache and its stable flags, computed by
+        world_flags; the per-object constants gathered), or for the
+        per-substep nodes fused_kernel_inputs.  With ``flags``, the fused
+        node's world_flags arguments instead."""
         ctx = Context(sim.mgr, sim.state)
         for node in sim.graph.nodes:
             if node.name == FUSED_NODE:
-                return node.run.kernel_inputs(ctx)
-            if node.name == "physics_substep_0":
+                return node.run.flag_inputs(ctx) if flags else node.run.kernel_inputs(ctx)
+            if node.name == "physics_substep_0" and not flags:
                 return RigidBodyPhysicsSystem.fused_kernel_inputs(ctx, arch, object_manager)
             node.run(ctx)
         raise ValueError(f"the executor's graph has no {FUSED_NODE!r} or "
@@ -605,104 +616,101 @@ class RigidBodyPhysicsSystem:
                 bp_degree=fused_bp["degree"] if fused_bp else 0,
                 bp_capacity=cand_cap if fused_bp else 0,
                 persist_margin=persist_margin if manifold_persist else 0.0)
-            if manifold_persist:
-                mpcomp = builder.mgr.registry.singletons["ManifoldPersist"]
-                # each object's bounding radius (the rotation term's lever)
-                lo = np.asarray(object_manager["local_aabb_lo"])
-                hi = np.asarray(object_manager["local_aabb_hi"])
-                r_tab = torch.as_tensor(np.linalg.norm(np.maximum(np.abs(lo), np.abs(hi)),
-                                                       axis=-1).astype(np.float32), device=dev)
+            mpcomp = (builder.mgr.registry.singletons["ManifoldPersist"] if manifold_persist
+                      else None)
             leaf = torch.arange(cap_n, dtype=torch.int32, device=dev).expand(W, cap_n)
 
-            def norm(x):
-                return torch.sqrt((x * x).sum(-1))
-
-            def kernel_inputs(ctx: Context):
-                """The kernel's inputs from the step's state, its options'
-                too; updates SleepState under sleep."""
-                kw = RigidBodyPhysicsSystem.fused_kernel_inputs(ctx, arch, objtab,
-                                                                rows=fused_bp is None)
+            def flag_inputs(ctx: Context, dyn=None):
+                """world_flags' arguments from the step's state (the sleep
+                classifier's and the stability predicate's); ``dyn``, the
+                dynamic rows, if the caller has them."""
+                vel = ctx.column(arch, Velocity)
                 phys = ctx.singleton(PhysicsState)
-                dyn = kw["dyn"]
+                if dyn is None:
+                    dyn = (ctx.column(arch, ResponseType) == RESPONSE_DYNAMIC) & ctx.row_mask(arch)
+                fkw = dict(pos=ctx.column(arch, base.Position),
+                           rot=ctx.column(arch, base.Rotation), v=vel["linear"],
+                           w=vel["angular"], ext_f=ctx.column(arch, ExternalForce),
+                           ext_t=ctx.column(arch, ExternalTorque), dyn=dyn,
+                           obj=ctx.column(arch, base.ObjectID),
+                           scale=ctx.column(arch, base.Scale), delta_t=phys["delta_t"],
+                           tables=fused_kernel.tables)
+                if sleep_threshold > 0.0:
+                    fkw.update(quiet_steps=ctx.singleton(SleepState)["quiet_steps"],
+                               sleep_threshold=sleep_threshold, sleep_frames=sleep_frames)
+                if manifold_persist:
+                    mp = ctx.singleton(mpcomp)
+                    fkw.update(apos=mp["apos"].contiguous(), arot=mp["arot"].contiguous(),
+                               valid=mp["valid"].contiguous(), persist_margin=persist_margin)
+                return fkw
+
+            def kernel_inputs(ctx: Context, gather: bool = True):
+                """The kernel's inputs from the step's state, its options'
+                too (the world flags by world_flags, one launch on the
+                card); updates SleepState under sleep.  Without ``gather``
+                the kernel reads the per-object constants from its table."""
+                kw = RigidBodyPhysicsSystem.fused_kernel_inputs(
+                    ctx, arch, objtab, rows=fused_bp is None, gather=gather)
+                phys = ctx.singleton(PhysicsState)
                 if fused_bp is not None:
                     kw.update(scale=ctx.column(arch, base.Scale), live=ctx.row_mask(arch),
                               dtv=phys["delta_t"] * fused_bp["vexp"])
                 if sleep_threshold > 0.0 or manifold_persist:
-                    forced = dyn & ((kw["ext_f"] != 0.0).any(-1) | (kw["ext_t"] != 0.0).any(-1))
-                if sleep_threshold > 0.0:
-                    # asleep after sleep_frames quiet steps (the count saturates)
-                    sl = ctx.singleton(SleepState)
-                    sp2 = (kw["v"] ** 2).sum(-1) + (kw["w"] ** 2).sum(-1)
-                    moving = (dyn & (sp2 > sleep_threshold ** 2)).any(1)
-                    quiet = ~(moving | forced.any(1))
-                    qs = torch.clamp(torch.where(quiet, sl["quiet_steps"] + 1, 0),
-                                     max=sleep_frames)
-                    asleep = qs >= sleep_frames
-                    ctx.set_singleton(SleepState, {"quiet_steps": qs,
-                                                   "asleep": asleep.to(torch.int32)})
-                    kw["active"] = ~asleep
-                if manifold_persist:
-                    # stable: every dynamic body's surface moved less than
-                    # margin / 2 since the cache was built (|dpos| + pi |dq| r)
-                    # and cannot by the end of this step ((|v| + |w| r) dt),
-                    # with no external force or torque; and the cache is valid
-                    mp = ctx.singleton(mpcomp)
-                    aabb = ctx.column(arch, CollisionAABB)
-                    rad = r_tab[kw["obj"].long()] * ctx.column(arch, base.Scale).amax(-1)
-                    carry = (norm(kw["v"]) + norm(kw["w"]) * rad) * phys["delta_t"][:, None]
-                    move = (norm(kw["pos"] - mp["apos"]) + math.pi * norm(kw["rot"] - mp["arot"])
-                            * rad + carry)
-                    moving = dyn & (move >= 0.5 * persist_margin)
-                    kw.update(mcache=mp["mc"], aabb_lo=aabb["lo"], aabb_hi=aabb["hi"],
-                              stable=(mp["valid"] > 0) & ~(moving | forced).any(1))
+                    flags = world_flags(**flag_inputs(ctx, kw["dyn"]))
+                    if sleep_threshold > 0.0:
+                        ctx.set_singleton(SleepState, {"quiet_steps": flags["quiet_steps"],
+                                                       "asleep": flags["asleep"]})
+                        kw["active"] = flags["active"]
+                    if manifold_persist:
+                        aabb = ctx.column(arch, CollisionAABB)
+                        kw.update(mcache=ctx.singleton(mpcomp)["mc"].contiguous(),
+                                  aabb_lo=aabb["lo"], aabb_hi=aabb["hi"],
+                                  stable=flags["stable"])
                 return kw
 
             def substeps_fused(ctx: Context):
-                kw = kernel_inputs(ctx)
-                out = fused_kernel(**kw)
-                dyn, vel = kw["dyn"], ctx.column(arch, Velocity)
+                kw = kernel_inputs(ctx, gather=False)
                 if manifold_persist:
-                    # re-anchor the worlds whose cache the kernel rebuilt
-                    # (unstable and awake) at the step's starting pose; a
-                    # rebuild that dropped pairs is not valid
+                    # the cache and the anchors are updated in place by the
+                    # launch, where a world rebuilt its cache (unstable and
+                    # awake): the cache and its rows, the step's starting
+                    # pose, and valid unless the rebuild dropped pairs
                     mp = ctx.singleton(mpcomp)
-                    rebuilt = ~kw["stable"]
-                    if "active" in kw:
-                        rebuilt = rebuilt & kw["active"]
-                    keep3 = ~rebuilt[:, None, None]
-                    ctx.set_singleton(mpcomp, {
-                        "mc": out["mcache"],
-                        "apos": torch.where(keep3, mp["apos"], kw["pos"]),
-                        "arot": torch.where(keep3, mp["arot"], kw["rot"]),
-                        "valid": torch.where(rebuilt, (out["bp_dropped"] == 0).to(torch.int32),
-                                             mp["valid"])})
+                    anchors = (mp["apos"].contiguous(), mp["arot"].contiguous(),
+                               mp["valid"].contiguous())
+                    out = fused_kernel(**kw, mcache_out=kw["mcache"], anchors=anchors,
+                                       keep_velocity=True)
+                    ctx.set_singleton(mpcomp, {"mc": kw["mcache"], "apos": anchors[0],
+                                               "arot": anchors[1], "valid": anchors[2]})
+                else:
+                    out = fused_kernel(**kw, keep_velocity=True)
                 if fused_bp is not None:
                     # the broadphase's observable surface, from the kernel's outputs
                     ctx.set_column(arch, CollisionAABB, {"lo": out["aabb_lo"],
                                                          "hi": out["aabb_hi"]})
                     ctx.set_column(arch, LeafID, leaf)
-                    debug.check(out["bp_dropped"] == 0,
-                                f"fused broadphase degree cap {fused_bp['degree']} exceeded: "
-                                "dropped pairs={} per world — raise dense_degree",
-                                out["bp_dropped"])
+                    if debug.DEBUG:
+                        debug.check(out["bp_dropped"] == 0,
+                                    f"fused broadphase degree cap {fused_bp['degree']} "
+                                    "exceeded: dropped pairs={} per world — raise dense_degree",
+                                    out["bp_dropped"])
                     ctx.add_overflow(CandidateRowsTemporary, out["bp_dropped"])
                     # the kernel's slots are whole 128-slot tiles: the capacity's
                     # first ones go out (a count above it is overflow)
                     _emit_candidates(ctx, arch, out["bp_count"],
                                      out["rows_i"][:, :cand_cap].contiguous(),
                                      out["rows_j"][:, :cand_cap].contiguous())
+                # non-dynamic rows keep their velocities (keep_velocity)
                 ctx.set_column(arch, base.Position, out["pos"])
                 ctx.set_column(arch, base.Rotation, out["rot"])
-                keep = dyn[..., None]
-                ctx.set_column(arch, Velocity, {
-                    "linear": torch.where(keep, out["v"], vel["linear"]),
-                    "angular": torch.where(keep, out["w"], vel["angular"])})
+                ctx.set_column(arch, Velocity, {"linear": out["v"], "angular": out["w"]})
                 ctx.set_column(arch, SubstepPrevState,
                                {"prev_pos": out["prev_pos"], "prev_rot": out["prev_rot"]})
                 ctx.set_column(arch, PreSolvePositional, {"x": out["ps_pos"], "q": out["ps_rot"]})
                 ctx.set_column(arch, PreSolveVelocity, {"v": out["ps_v"], "omega": out["ps_w"]})
 
             substeps_fused.kernel_inputs = kernel_inputs
+            substeps_fused.flag_inputs = flag_inputs
             substeps_fused.kernel = fused_kernel
             return builder.add_node(substeps_fused, list(deps), name=FUSED_NODE)
 

@@ -201,6 +201,12 @@ class ObjTables:
         self.O = om["prim_type"].shape[0]
         # hand-built managers predating the restitution table get e=0
         om.setdefault("restitution", np.zeros(self.O, np.float32))
+        if "local_aabb_lo" in om:
+            # each object's bounding radius, the persistence predicate's
+            # lever arm (the JAX package's _r_tab, the same numpy formula)
+            om["bound_radius"] = np.linalg.norm(np.maximum(
+                np.abs(om["local_aabb_lo"]), np.abs(om["local_aabb_hi"])),
+                axis=-1).astype(np.float32)
         self.om = om
         self.Vm = om["verts"].shape[1]
         self.Fm = om["face_normals"].shape[1]
@@ -264,22 +270,32 @@ class ObjTables:
         return self.tab(key, obj.device)[obj.long(), idx].transpose(1, 2)
 
     def kernel_table(self, device):
-        """The table the CUDA kernel reads: [O, 13 + 3 Vm] float32, per
+        """The table the CUDA kernels read: [O, 20 + 3 Vm] float32, per
         object (prim_type, sphere_radius, box_half xyz, restitution,
-        num_verts, verts, local_aabb_lo xyz, local_aabb_hi xyz).  Built and
-        copied once per device, so a step queues no host-to-device copy
-        (which would wait for the stream)."""
+        num_verts, verts, local_aabb_lo xyz, local_aabb_hi xyz, inv_mass,
+        inv_inertia xyz, mu_s, mu_d, bound_radius; a manager without the
+        mass and friction tables gets zeros there).  Built and copied once
+        per device, so a step queues no host-to-device copy (which would
+        wait for the stream)."""
         tabs = self._by_device.setdefault(torch.device(device), {})
         t = tabs.get("_kernel")
         if t is None:
             om = self.om
+
+            def col(key, width=1):
+                a = om.get(key)
+                a = np.zeros((self.O, width), np.float32) if a is None else np.asarray(a)
+                return a.reshape(self.O, width).astype(np.float32)
+
             rows = np.concatenate([
                 om["prim_type"][:, None].astype(np.float32),
                 om["sphere_radius"][:, None], om["box_half"],
                 om["restitution"][:, None],
                 om["num_verts"][:, None].astype(np.float32),
                 om["verts"].reshape(self.O, -1),
-                om["local_aabb_lo"], om["local_aabb_hi"]], axis=1).astype(np.float32)
+                om["local_aabb_lo"], om["local_aabb_hi"],
+                col("inv_mass"), col("inv_inertia", 3), col("mu_s"), col("mu_d"),
+                col("bound_radius")], axis=1).astype(np.float32)
             t = torch.as_tensor(np.ascontiguousarray(rows), device=device)
             tabs["_kernel"] = t
         return t

@@ -17,7 +17,10 @@ prints one JSON line:
              at 1024 x 104, K = 1000, where ROOT's library exports it
   rates      env-steps/s of rigid_bench at 8192 x 64 (main_rigid: K = 256,
              the dense broadphase; main_rigid_fused_bp: the broadphase in
-             the kernel): 3 untimed steps, 5 windows of 50 steps
+             the kernel): 3 untimed steps, 5 windows of 50 steps; and of
+             the settled pile with persistence and sleep
+             (main_rigid_settled) and without (main_rigid_settled_nopersist)
+             after 400 + 3 untimed steps
   ms         CUDA-event device ms a call (20 calls, queued behind a device
              sleep) of the kernels of PERF.md's rows 5-9 at the states the
              chip smoke test times them at: rows 7 and 6 at main_rigid's
@@ -26,7 +29,18 @@ prints one JSON line:
              253 steps (as it is, and with its flags flipped so that every
              branch runs), row 8 with refresh at the settled pile without
              persistence, row 5 at simple_taskgraph's state (1024 x 104,
-             K = 1000) after 253 steps
+             K = 1000) after 253 steps.  Row 9 is the launch the fused node
+             makes: where ROOT has world_flags, the world flags kernel and
+             fused_substep with the cache and anchors in place (on scratch
+             copies), else fused_substep alone (its flags were PyTorch
+             glue); so also fused_node_settled, the device ms of the whole
+             fused node at the settled pile, which is the same work in both
+  settled    at the settled pile after those steps: the host ms a run of
+             the fused node takes to queue its work (20 runs, no sync
+             between), the device ops it queues (torch.profiler, by
+             name), and over 20 steps
+             the device busy share of the wall time and the device ops a
+             step
   phases     (--phases) row 7's time at main_rigid's state with 0, 1 and 4
              substeps, with every slot cleared (the integrate and the body
              phases), with only the slots of one contact kind valid; row
@@ -69,6 +83,54 @@ def rate(sim, steps=50, count=5):
         sim.block_until_ready()
         r.append(steps * sim.cfg.num_worlds / (time.perf_counter() - t0))
     return sorted(r)[len(r) // 2]
+
+
+def settled_profile(torch, sim):
+    """(device ms of one run of sim's fused node on its state, as cuda_ms
+    times it; {the device ops one run queues (torch.profiler), the device
+    busy share of the wall time of 20 steps and the device ops a step})."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from gpu_ecs_madrona_tpu_torch import physics as phys
+    from gpu_ecs_madrona_tpu_torch.core.context import Context
+    node = next(nd for nd in sim.graph.nodes if nd.name == phys.FUSED_NODE)
+
+    def run():
+        node.run(Context(sim.mgr, sim.state))
+
+    def device_events(prof):
+        return [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) is not None
+                and "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+
+    ms = cuda_ms(torch, run)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        run()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20     # the host's enqueue, not synced
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with tprofile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    node_ops = {}
+    for e in device_events(prof):
+        node_ops[e.key[:60]] = node_ops.get(e.key[:60], 0) + e.count
+    sim.run(3)
+    sim.block_until_ready()
+    with tprofile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sim.run(20)
+        sim.block_until_ready()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = device_events(prof)
+    busy = sum(e.self_device_time_total for e in events)
+    return ms, {"fused_node_host_ms": host_ms,
+                "fused_node_device_ops": sum(node_ops.values()), "fused_node_ops": node_ops,
+                "steps": 20, "wall_us": wall_us, "device_busy_us": busy,
+                "device_busy_share": busy / wall_us,
+                "device_ops_per_step": sum(e.count for e in events) / 20}
 
 
 def kind_masks(torch, kw, prim_type):
@@ -116,8 +178,14 @@ def one(root, phases):
     for ln in log.splitlines():
         if "Compiling entry" in ln:
             entry = ln.split("'")[1]
-            entry = ("substep_kernel" if "substep_kernelENS" in entry
-                     else "fused<" + entry.split("ILi")[1].split("E")[0] + ">")
+            if "fused_substep_kernelILi" in entry:
+                entry = "fused<" + entry.split("fused_substep_kernelILi")[1].split("E")[0] + ">"
+            elif "world_flags_kernelILb" in entry:
+                bits = entry.split("world_flags_kernelILb")[1]      # "1ELb0E..."
+                entry = f"world_flags<{bits[0]},{bits[4]}>"
+            else:
+                entry = next(k for k in ("asleep_surface_kernel", "substep_kernel")
+                             if k in entry)
         elif entry and ("registers" in ln or "stack frame" in ln):
             ptxas[entry] = (ptxas.get(entry, "") + " " + ln.split(":")[-1].strip()).strip()
     lib = sk._lib()
@@ -158,17 +226,32 @@ def one(root, phases):
     ms["row8_bp"] = cuda_ms(torch, lambda: bkern(**kwb))
 
     settled = executor(**dict(rb.SETTLED_PILE, max_candidates=256))
-    settled.run(rb.SETTLE_STEPS + 253)
+    settled.run(rb.SETTLE_STEPS + 3)
+    rates["main_rigid_settled"] = rate(settled)
     pkern, kwp = phys.RigidBodyPhysicsSystem.fused_kernel(settled), inputs(settled)
-    ms["row9_persist_settled"] = cuda_ms(torch, lambda: pkern(**kwp))
-    worlds = torch.arange(RB_WORLDS, device=kwp["im"].device)
+    worlds = torch.arange(RB_WORLDS, device=kwp["pos"].device)
     flipped = dict(kwp, stable=kwp["stable"] ^ (worlds % 2 == 1),
                    active=kwp["active"] ^ (worlds % 4 >= 2))
-    ms["row9_persist_flipped"] = cuda_ms(torch, lambda: pkern(**flipped))
+    if hasattr(sk, "world_flags"):
+        fkw = phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(settled, rb.Body, om,
+                                                                   flags=True)
+        opts = dict(mcache_out=kwp["mcache"].clone(), keep_velocity=True,
+                    anchors=tuple(fkw[k].clone() for k in ("apos", "arot", "valid")))
+
+        def launch(kw):
+            kw = {k: x for k, x in kw.items() if k not in ("im", "ii", "mu_s", "mu_d")}
+            return lambda: (sk.world_flags(**fkw), pkern(**kw, **opts))
+    else:
+        def launch(kw):
+            return lambda: pkern(**kw)
+    ms["row9_persist_settled"] = cuda_ms(torch, launch(kwp))
+    ms["row9_persist_flipped"] = cuda_ms(torch, launch(flipped))
+    ms["fused_node_settled"], res["settled"] = settled_profile(torch, settled)
     del settled
     nsim = executor(**dict(rb.SETTLED_PILE, max_candidates=256, manifold_persist=False,
                            sleep_threshold=0.0))
-    nsim.run(rb.SETTLE_STEPS + 253)
+    nsim.run(rb.SETTLE_STEPS + 3)
+    rates["main_rigid_settled_nopersist"] = rate(nsim)
     nkern, kwn = phys.RigidBodyPhysicsSystem.fused_kernel(nsim), inputs(nsim)
     ms["row8_refresh_settled_nopersist"] = cuda_ms(torch, lambda: nkern(**kwn))
     del nsim

@@ -11,7 +11,9 @@ stashes atol 1e-4, velocities atol 1e-3, and two launches on one input
 bit-identical;
 the fused kernel's options (contact refresh, sleep, the in-kernel
 broadphase, persistent manifolds) likewise, their integer outputs exact
-and the manifold cache and AABBs atol 1e-4;
+and the manifold cache and AABBs atol 1e-4; the world flags kernel equal
+to its plain version, and kernel 9's launch with the cache and anchors
+updated in place bit for bit;
 the render kernel's hit mask exact, depth and float rgb atol 1e-5, a
 repeat bit-identical), and the collisions, simple_jobs, rigid_bench (also
 its settled pile) and simple_taskgraph slices on the card against the
@@ -43,6 +45,8 @@ def card():
     sk.fused_simple_jobs_step.launches = 0
     subk.FusedSubstepKernel.launches = 0
     subk.SubstepKernel.launches = 0
+    subk.WorldFlags.launches = 0
+    subk.AsleepSurface.launches = 0
     rk.RenderKernel.launches = 0
     return torch.device("cuda")
 
@@ -402,18 +406,131 @@ def test_fused_substep_options_match_plain(card, case):
 def test_settled_step_waits_for_nothing(card):
     """A step of the settled pile's configuration (the broadphase in the
     kernel, refresh, sleep, persistent manifolds) queues its work and
-    returns: the stable and sleep flags stay on the card."""
+    returns: the stable and sleep flags, the list of awake worlds and its
+    length stay on the card.  Each step launches the world flags kernel,
+    the asleep worlds' kernel and the fused kernel once; the steps of a
+    settled pile, where worlds sleep, do too."""
     sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=16, **rb.SETTLED_PILE), device="cuda")
-    sim.step()
+    for settle in (1, 150):
+        sim.run(settle)
+        torch.cuda.synchronize()
+        for counter in (subk.FusedSubstepKernel, subk.WorldFlags, subk.AsleepSurface):
+            counter.launches = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                sim.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert subk.FusedSubstepKernel.launches == 3
+        assert subk.WorldFlags.launches == 3 and subk.AsleepSurface.launches == 3
+    assert int(sim.state["singleton"]["SleepState"]["asleep"].sum()) > 0
+
+
+def flags_case(case, dev, W=48):
+    """world_flags' arguments on a rigid_bench pile with sleep and
+    persistence: "settled" after SETTLE_STEPS (worlds asleep and stable),
+    "moving" after 20 (falling), "kicked" the settled pile with an external
+    force on one body of world 3, "invalid" with world 5's cache not
+    valid."""
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=W, num_bodies=24, spawn_xy=3.0,
+                                               seed=11, **rb.SETTLED_PILE), device=dev)
+    sim.run(20 if case == "moving" else rb.SETTLE_STEPS)
+    fkw = RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, rb.Body, None, flags=True)
+    if case == "kicked":
+        ext_f = fkw["ext_f"].clone()
+        ext_f[3, 5] = torch.tensor([0.0, 0.0, 2.0], device=dev)
+        fkw["ext_f"] = ext_f
+    if case == "invalid":
+        valid = fkw["valid"].clone()
+        valid[5] = 0
+        fkw["valid"] = valid
+    return fkw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["settled", "moving", "kicked", "invalid"])
+def test_world_flags_match_plain_bit_for_bit(card, case):
+    """The world flags kernel against its plain version on the same
+    inputs: quiet steps, asleep, active and stable equal, with each option
+    alone and both; the settled pile has asleep and stable worlds, the
+    kicked and the invalid world are neither stable nor (kicked) quiet."""
+    fkw = flags_case(case, card)
+    subk.WorldFlags.launches = 0
+    both = subk.world_flags(**fkw)
+    want = subk.world_flags_plain(**fkw)
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for _ in range(3):
-            sim.step()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    assert set(both) == set(want) == {"quiet_steps", "asleep", "active", "stable"}
+    for k in want:
+        assert torch.equal(both[k], want[k]), (case, k)
+    for alone in (dict(persist_margin=0.0), dict(sleep_threshold=0.0)):
+        kw = dict(fkw, **alone)
+        got, exp = subk.world_flags(**kw), subk.world_flags_plain(**kw)
+        assert set(got) == set(exp) and all(torch.equal(got[k], exp[k]) for k in exp)
+    assert subk.WorldFlags.launches == 3
+    if case == "settled":
+        assert bool(want["stable"].any()) and bool((want["asleep"] == 1).any())
+    if case in ("kicked", "invalid"):
+        wld = 3 if case == "kicked" else 5
+        assert not bool(want["stable"][wld])
+        if case == "kicked":
+            assert int(want["quiet_steps"][wld]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bodies", [24, 64])
+def test_persistent_launch_in_place_matches_plain_bit_for_bit(card, n_bodies):
+    """Kernel 9's launch (the asleep worlds' kernel, then the fused kernel
+    over the listed awake worlds) with the cache and the anchors updated
+    in place, against the plain version's in-place path, with asleep,
+    kept and rebuilding worlds mixed (and the tables' per-object constants
+    read by the kernel): every output, the cache and the anchors equal; a
+    repeated call on the same inputs, into the same cache, is bit-identical
+    and leaves the cache as it was; the functional call (a fresh cache)
+    gives the same outputs."""
+    W = 36
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=W, num_bodies=n_bodies, spawn_xy=3.0,
+                                               seed=13, **rb.SETTLED_PILE), device=card)
+    sim.run(40)
+    kern = RigidBodyPhysicsSystem.fused_kernel(sim)
+    kw = fused_inputs(sim)
+    for k in ("im", "ii", "mu_s", "mu_d"):
+        kw.pop(k)
+    worlds = torch.arange(W, device=card)
+    kw.update(active=worlds % 3 != 1, stable=worlds % 2 == 0)
+    mp = sim.state["singleton"]["ManifoldPersist"]
+
+    def call(fn):
+        mc = kw["mcache"].clone()
+        anchors = tuple(mp[k].clone() for k in ("apos", "arot", "valid"))
+        out = fn(**kw, mcache_out=mc, anchors=anchors, keep_velocity=True)
+        assert out["mcache"] is mc
+        return out, mc, anchors
+
+    subk.AsleepSurface.launches = 0
+    got, mc, anchors = call(kern)
+    first = {k: x.clone() for k, x in got.items()}
+    want, mc_p, anchors_p = call(kern.plain)
+    again = kern(**kw, mcache_out=mc, keep_velocity=True)
+    fresh = kern(**kw, keep_velocity=True)
     torch.cuda.synchronize()
-    assert subk.FusedSubstepKernel.launches == 4
+    assert subk.AsleepSurface.launches == 3
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(first[k], again[k]), k
+        assert torch.equal(first[k], fresh[k]), k
+        if k in INT_KEYS:
+            assert torch.equal(got[k], want[k]), k
+        else:
+            assert float((got[k] - want[k]).abs().max()) == 0.0, k
+    for a, b in zip(anchors, anchors_p):
+        assert torch.equal(a, b)
+    # the rebuilding worlds (awake, unstable) moved their anchors and rows
+    rebuilt = (worlds % 3 != 1) & (worlds % 2 != 0)
+    assert not torch.equal(mc[rebuilt], kw["mcache"][rebuilt])
+    assert torch.equal(mc[~rebuilt], kw["mcache"][~rebuilt])
+    assert torch.equal(anchors[0][rebuilt], kw["pos"][rebuilt])
 
 
 @pytest.mark.cuda

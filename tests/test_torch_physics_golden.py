@@ -278,4 +278,4 @@ def test_kernel_table_is_built_once_per_device():
     tables = sk.pk.ObjTables(rb.default_object_manager())
     t = tables.kernel_table("cpu")
     assert tables.kernel_table(torch.device("cpu")) is t
-    assert t.dtype == torch.float32 and tuple(t.shape) == (tables.O, 13 + 3 * tables.Vm)
+    assert t.dtype == torch.float32 and tuple(t.shape) == (tables.O, 20 + 3 * tables.Vm)

@@ -418,3 +418,92 @@ def test_persist_sleep_world_matches_jax():
     # the run rebuilt, kept caches while awake, and slept
     assert rebuilt > 0 and kept > 0
     assert (a["singleton"]["SleepState"]["asleep"] == 1).any()
+
+
+# -- the world flags and the in-place cache --------------------------------------
+
+
+def jax_glue_flags(fkw, om, thr, frames, margin):
+    """The JAX package's fused-node glue (gpu_ecs_madrona_tpu/physics/
+    __init__.py:1106-1166: the sleep classifier and the stability
+    predicate), evaluated by JAX on world_flags' inputs."""
+    a = {k: jnp.asarray(x.numpy()) for k, x in fkw.items() if isinstance(x, torch.Tensor)}
+    dyn = a["dyn"]
+    sp2 = jnp.sum(a["v"] ** 2, -1) + jnp.sum(a["w"] ** 2, -1)
+    moving = jnp.any(dyn & (sp2 > thr ** 2), axis=1)
+    forced = dyn & (jnp.any(a["ext_f"] != 0.0, -1) | jnp.any(a["ext_t"] != 0.0, -1))
+    quiet = ~(moving | jnp.any(forced, axis=1))
+    qs = jnp.minimum(jnp.where(quiet, a["quiet_steps"] + 1, 0), jnp.int32(frames))
+    r_tab = jnp.asarray(np.linalg.norm(np.maximum(
+        np.abs(np.asarray(om["local_aabb_lo"])), np.abs(np.asarray(om["local_aabb_hi"]))),
+        axis=-1).astype(np.float32))
+    rad = r_tab[a["obj"]] * jnp.max(a["scale"], axis=-1)
+    carry = (jnp.linalg.norm(a["v"], axis=-1)
+             + jnp.linalg.norm(a["w"], axis=-1) * rad) * a["delta_t"][:, None]
+    move = (jnp.linalg.norm(a["pos"] - a["apos"], axis=-1)
+            + jnp.pi * jnp.linalg.norm(a["rot"] - a["arot"], axis=-1) * rad + carry)
+    moving_p = dyn & (move >= 0.5 * margin)
+    stable = (a["valid"] > 0) & ~jnp.any(moving_p | forced, axis=1)
+    return {"quiet_steps": qs, "asleep": (qs >= frames).astype(jnp.int32),
+            "active": ~(qs >= frames), "stable": stable}
+
+
+@pytest.mark.parametrize("case", ["settled", "kicked", "invalid"])
+def test_world_flags_match_jax_glue(settled, case):
+    """world_flags (its plain version here, the card's kernel equals it bit
+    for bit) against the JAX package's glue on the same inputs, integers
+    and bools exactly: the settled scene, with an external force on a box
+    of world 0, and with world 1's cache not valid; the quiet-step counts
+    set so that the quiet worlds fall asleep."""
+    sim = scene(persist=True)
+    sim.state = settled
+    fkw = phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, sim.world_cls.Body, None,
+                                                              flags=True)
+    fkw.update(quiet_steps=torch.tensor([2, 2], dtype=torch.int32), sleep_threshold=0.02,
+               sleep_frames=3)
+    if case == "kicked":
+        ext_f = fkw["ext_f"].clone()
+        ext_f[0, 2] = torch.tensor([0.0, 0.5, 0.0])
+        fkw["ext_f"] = ext_f
+    if case == "invalid":
+        fkw["valid"] = torch.tensor([1, 0], dtype=torch.int32)
+    got = sk.world_flags(**fkw)
+    want = jax_glue_flags(fkw, fkw["tables"].om, 0.02, 3, fkw["persist_margin"])
+    assert set(got) == set(want)
+    for k, x in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(x), err_msg=k)
+    assert got["stable"].tolist() == {"settled": [True, True], "kicked": [False, True],
+                                      "invalid": [True, False]}[case]
+    assert got["asleep"].tolist() == ([0, 1] if case == "kicked" else [1, 1])
+
+
+def flat(tree, prefix=""):
+    """A nested state of numpy arrays as {path: array}."""
+    if isinstance(tree, dict):
+        return {k2: v for k, x in tree.items() for k2, v in flat(x, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
+def test_save_restore_replays_with_the_cache_in_place():
+    """A step writes ManifoldPersist in place (the worlds that rebuilt), so
+    save_state copies it: a snapshot's leaves stay as they were over later
+    steps, and save -> step -> restore -> step (twice) is bit-identical."""
+    sim = scene(persist=True, sleep=0.02, frames=3)
+    sim.run(5)                                   # the dropped box falls: rebuilds
+    snap = sim.save_state()
+    kept = {k: x.clone() for k, x in snap["singleton"]["ManifoldPersist"].items()}
+    live = sim.state["singleton"]["ManifoldPersist"]["apos"]
+    sim.run(3)
+    # written in place
+    assert sim.state["singleton"]["ManifoldPersist"]["apos"].data_ptr() == live.data_ptr()
+    assert not torch.equal(live, kept["apos"])
+    for k, x in snap["singleton"]["ManifoldPersist"].items():
+        assert torch.equal(x, kept[k]), k
+    first = flat(state_to_numpy(sim.state))
+    for _ in range(2):
+        sim.restore_state(snap)
+        sim.run(3)
+        again = flat(state_to_numpy(sim.state))
+        assert set(again) == set(first)
+        for k, x in first.items():
+            np.testing.assert_array_equal(again[k], x, err_msg=k)

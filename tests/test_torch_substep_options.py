@@ -319,3 +319,35 @@ def test_jax_world_block_oddity_asleep_unstable_world(persist_calls):
     for k in ("pos", "rot", "v", "w"):
         np.testing.assert_array_equal(block[k][3], second[k][3])
         np.testing.assert_array_equal(got2[k][3], second[k][3])
+
+
+# -- (e) the cache in place -----------------------------------------------------
+
+
+def test_in_place_cache_matches_the_functional_path(persist_calls):
+    """The second call of persist_calls with the cache updated in place
+    (mcache_out is mcache) and the anchors given, and with the per-object
+    constants left to the tables: every output equal to the functional
+    call's, leaf by leaf; only the rebuilding world (stable 0, active 1)
+    wrote its cache and re-anchored (valid = nothing dropped)."""
+    second = persist_calls["second"][0]
+    tk = sk.FusedSubstepKernel(persist_calls["om"], 1, relaxation=0.7, **persist_calls["opts"])
+    args = {k: torch.from_numpy(np.array(v)) for k, v in second.items()}
+    functional = tk(**args)
+    W, n = args["pos"].shape[:2]
+    mc = args["mcache"]
+    anchors = (torch.zeros((W, n, 3)), torch.zeros((W, n, 4)),
+               torch.full((W,), 7, dtype=torch.int32))
+    no_static = {k: x for k, x in args.items() if k not in ("im", "ii", "mu_s", "mu_d")}
+    out = tk(**no_static, mcache_out=mc, anchors=anchors)
+    assert out["mcache"] is mc
+    assert set(out) == set(functional)
+    for k, x in functional.items():
+        assert torch.equal(out[k], x), k
+    rebuilt = torch.tensor([False, False, True, False])
+    assert torch.equal(anchors[0][rebuilt], args["pos"][rebuilt])
+    assert torch.equal(anchors[1][rebuilt], args["rot"][rebuilt])
+    assert not anchors[0][~rebuilt].any() and not anchors[1][~rebuilt].any()
+    assert anchors[2].tolist() == [7, 7, int(functional["bp_dropped"][2] == 0), 7]
+    # the kept and asleep worlds' caches are the given ones
+    np.testing.assert_array_equal(mc[~rebuilt].numpy(), second["mcache"][~rebuilt.numpy()])
