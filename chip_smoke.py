@@ -48,14 +48,25 @@ Phases:
            chunked TPU route) and K=128 (the unchunked one), the initial
            uniform spawn, tables without restitution, a golden scene;
            and the single-substep kernel vs its plain version on the first
-           substep of the K=256 state and of the simple_taskgraph main
-           state (1024 x 104 rows, K=1000, after 3 steps); poses and
-           stashes atol 1e-4, velocities atol 1e-3, all finite, a repeated
-           launch and a repeated plain run bit-identical
+           substep of the K=256 state, and its node launch (the integrate,
+           the joint solve and the writeback too) on the joint world of
+           tests/test_torch_joint_scenes.py (256 worlds, live Fixed and
+           Hinge joints) and on simple_taskgraph's state with its random
+           joints (16 worlds: several on a body, a null handle, a handle
+           into another archetype); poses and stashes atol 1e-4, velocities atol
+           1e-3, all finite, a repeated launch and a repeated plain run
+           bit-identical (both are also held at the simple_taskgraph main
+           state, in the timing phase)
   golden_physics   the reference binary's 1-substep physics goldens
            (cubes_fall, cube_pair, cube_stack, cube_bounce) and the
            free-fall check on the card, kernel and pairs modes, with
            tests/test_reference_golden.py's gates
+  joints_cube_chain   the reference binary's joint golden (cube_chain_ss4,
+           tests/goldens) in the kernel mode: kernel 5's node launch on the
+           card and its plain version on the CPU, 4 launches a tick on the
+           card; both miss the golden's early gate (0.02 over 10 ticks) by
+           the same amount as JAX's kernel mode (~0.048, equal within
+           1e-5), horizon <= 1.5, final z < 2, finite
   main_fused     collisions fused=True (kernel 1), 3 warm-up steps then
            windows of 200 steps; launches = steps, finite positions, empty
            temporary tables; env-steps/s
@@ -139,7 +150,13 @@ Phases:
            device time of a simple_taskgraph step's physics nodes and of
            its render nodes.  The single-substep kernel (200 calls) at the
            first substep of that state, its bound counted as the fused
-           kernel's for one substep without the integrate.  Kernels 8 and 9
+           kernel's for one substep without the integrate; and its node
+           launch there (200 calls; the kernels line's ms), held against
+           its plain version, its bound counted from the launch's bytes
+           (the joints' rows and the live joints' fields too) and
+           operations (the integrate and the joints' apply a body, each
+           live joint's terms), with the substep node's device ms, host ms
+           and device operations.  Kernels 8 and 9
            (20 calls each) at the main_rigid_fused_bp and main_rigid_settled
            states (kernel 8 with refresh also at the settled A/B's), their
            operations counted over the awake worlds (options_work: contact
@@ -154,7 +171,8 @@ Phases:
            device operations it queues (torch.profiler).  substep_occupancy: each
            fused specialisation's [threads a CTA, CTAs an SM] at 65 rows and
            K = 256 and 128, and the single-substep kernel's at 104 rows, K =
-           1000 (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through
+           1000, without and with its integrate and 64 joint rows
+           (cudaOccupancyMaxActiveBlocksPerMultiprocessor, through
            ops.substep_kernel.occupancy); the build phase's ptxas lines give
            each kernel's registers, stack frame and spills
 """
@@ -485,15 +503,29 @@ OPS_POINT_PAIR = 24
 OPS_BODY = 300
 # bytes a call moves: per body row 105 in (pose, velocity, mass, inertia,
 # friction, object id, external force and torque, dyn flag) and 132 out
-# (pose, velocity and the six stashes); per candidate slot 9 (rows, flag);
-# per world 20 (h, gravity, restitution threshold)
-BYTES_BODY, BYTES_SLOT, BYTES_WORLD = 237, 9, 20
+# (pose, velocity and the six stashes); per candidate slot its flag (1) and,
+# where the flag is set, its rows (8); per world 20 (h, gravity,
+# restitution threshold)
+BYTES_BODY, BYTES_WORLD = 237, 20
+BYTES_SLOT_FLAG, BYTES_SLOT_ROWS = 1, 8
 # the single-substep kernel: per body row 109 in (post-integrate pose and
 # velocity, the substep start, mass, inertia, friction, object id, dyn flag)
 # and 52 out (pose, velocity); per world 8 (h, restitution threshold); of a
 # body's 300 operations it does the pose update and velocity recovery, 100
 BYTES_BODY1, BYTES_WORLD1 = 161, 8
 OPS_BODY_SOLVE = 100
+# the single-substep kernel's node launch (SubstepKernel.step), counted from
+# the .cu: per body row 85 in (pose, velocity, object id, response type, row
+# mask, external force and torque) and 132 out (pose, velocity and the six
+# stashes), per world 20 (h, gravity, restitution threshold); per joint row
+# its mask, and per live joint its fields (96 B) and its two handles' entity
+# records (24 B).  Of a dynamic body's operations: the integrate (191), the
+# pose update and velocity recovery (100), the joint sums' apply (58); a
+# live joint's terms and sums (Fixed 725, Hinge 776).
+BYTES_BODY_NODE, BYTES_WORLD_NODE = 217, 20
+BYTES_JOINT_ROW, BYTES_JOINT_LIVE = 1, 120
+OPS_BODY_NODE = 191 + 100 + 58
+OPS_JOINT = {0: 725, 1: 776}
 SUBSTEP_POSE_KEYS = ("pos", "rot", "prev_pos", "prev_rot", "ps_pos", "ps_rot")
 
 
@@ -533,7 +565,8 @@ def substep_work(torch, sk, kern, kw):
     bodies without the integrate."""
     kinds = kind_masks(torch, kw, kern.tables)
     ri, rj = kw["rows_i"].long(), kw["rows_j"].long()
-    dyn_sides = torch.gather(kw["dyn"], 1, ri).int() + torch.gather(kw["dyn"], 1, rj).int()
+    dyn = kw["dyn"] if "dyn" in kw else node_dyn(kw)
+    dyn_sides = torch.gather(dyn, 1, ri).int() + torch.gather(dyn, 1, rj).int()
     n = dict.fromkeys(("pairs", "dyn_sides", "points", "point_pairs", "face_clips",
                        "edge_points"), 0)
 
@@ -550,7 +583,9 @@ def substep_work(torch, sk, kern, kw):
         n["edge_points"] += int((boxes & (pts < 2)).sum())
 
     single = isinstance(kern, sk.SubstepKernel)
-    if single:
+    if single and "joints" in kw:
+        kern.step_plain(**kw, observe=observe)
+    elif single:
         sk.substep_plain(**kw, tables=kern.tables, relaxation=kern.relaxation,
                          speculative=kern.speculative, observe=observe)
     else:
@@ -560,20 +595,45 @@ def substep_work(torch, sk, kern, kw):
     counts = {k: int(v.sum()) for k, v in kinds.items()}
     S = 1 if single else kern.num_substeps
     per_point = OPS_POINT + (OPS_POINT_BOUNCE if kern.tables.any_restitution else 0)
+    per_body = OPS_BODY_NODE if "joints" in kw else OPS_BODY_SOLVE if single else OPS_BODY
     ops = (S * sum(c * OPS_TEST[k] for k, c in counts.items())
            + n["face_clips"] * OPS_CLIP_FACE + n["edge_points"] * OPS_CLIP_EDGE
            + n["pairs"] * OPS_PAIR + n["dyn_sides"] * OPS_SIDE_SUM
            + n["points"] * per_point + n["point_pairs"] * OPS_POINT_PAIR
-           + S * int(kw["dyn"].sum()) * (OPS_BODY_SOLVE if single else OPS_BODY))
+           + S * int(dyn.sum()) * per_body)
+    if "joints" in kw:
+        live = live_joints(kw)
+        n["live_joints"] = int(live.sum())
+        ops += sum(OPS_JOINT[t] * int((live & (kw["joints"]["joint_type"] == t)).sum())
+                   for t in OPS_JOINT)
     return ops, counts, n
 
 
+def node_dyn(kw):
+    """The dynamic rows of the node launch's inputs (response type 0)."""
+    return (kw["resp"] == 0) & kw["mask"]
+
+
+def live_joints(kw):
+    """The node launch's live joints [W, J]: masked in, both handles live
+    in the body archetype."""
+    from gpu_ecs_madrona_tpu_torch.core.state import entity_rows
+    rows = [entity_rows(kw["eid"], kw["joints"][e], kw["arch_index"]) for e in ("e1", "e2")]
+    return kw["jmask"] & (rows[0] >= 0) & (rows[1] >= 0)
+
+
 def substep_bound(kw, ops, single=False):
-    W, n = kw["im"].shape
+    W, n = kw["obj"].shape
     K = kw["rows_i"].shape[1]
+    # every slot's flag, and the rows of the valid slots only
+    slots = W * K * BYTES_SLOT_FLAG + int(kw["kvalid"].sum()) * BYTES_SLOT_ROWS
+    if "joints" in kw:
+        J = kw["jmask"].shape[1]
+        return bound(W * (n * BYTES_BODY_NODE + BYTES_WORLD_NODE + J * BYTES_JOINT_ROW) + slots
+                     + int(live_joints(kw).sum()) * BYTES_JOINT_LIVE, ops)
     if single:
-        return bound(W * (n * BYTES_BODY1 + K * BYTES_SLOT + BYTES_WORLD1), ops)
-    return bound(W * (n * BYTES_BODY + K * BYTES_SLOT + BYTES_WORLD), ops)
+        return bound(W * (n * BYTES_BODY1 + BYTES_WORLD1) + slots, ops)
+    return bound(W * (n * BYTES_BODY + BYTES_WORLD) + slots, ops)
 
 
 def substep1_case(torch, sk, kern, kw):
@@ -590,6 +650,24 @@ def substep1_case(torch, sk, kern, kw):
         check(torch.equal(want[k], want2[k]), f"substep1 {k}: the plain version does not repeat")
         errs[k] = max_err(g, want[k])
         check(errs[k] <= (1e-4 if k in SUBSTEP_POSE_KEYS else 1e-3), f"substep1 {k} err {errs[k]}")
+    return errs
+
+
+def node_case(torch, sk, kern, kw):
+    """Kernel 5's node launch (twice) vs its plain version (twice) on one
+    input: max errors, or raises."""
+    got, again = kern.step(**kw), kern.step(**kw)
+    want, want2 = kern.step_plain(**kw), kern.step_plain(**kw)
+    torch.cuda.synchronize()
+    errs = {}
+    for k in sk.NODE_KEYS:
+        check(bool(torch.isfinite(got[k]).all()), f"substep node {k} finite")
+        check(torch.equal(got[k], again[k]), f"substep node {k}: a repeated launch differs")
+        check(torch.equal(want[k], want2[k]),
+              f"substep node {k}: the plain version does not repeat")
+        errs[k] = max_err(got[k], want[k])
+        check(errs[k] <= (1e-4 if k in SUBSTEP_POSE_KEYS else 1e-3),
+              f"substep node {k} err {errs[k]}")
     return errs
 
 
@@ -614,8 +692,9 @@ def substep_case(torch, sk, kern, kw):
 def parity_substep(torch, rb, phys, sk):
     """fused_substep vs its plain version: the main path's shapes after 3
     steps at K = 256 and 128, the initial uniform spawn, tables without
-    restitution, a golden scene; and the single-substep kernel on the first
-    substep of the K = 256 state.  Returns (the phase's line, the worst
+    restitution, a golden scene; the single-substep kernel on the first
+    substep of the K = 256 state, and its node launch on a joint world and
+    on simple_taskgraph's state with random joints.  Returns (the phase's line, the worst
     error of each kernel)."""
     import numpy as np
     cases, worst = {}, 0.0
@@ -650,10 +729,36 @@ def parity_substep(torch, rb, phys, sk):
     gkern = sk.FusedSubstepKernel(gold.world_cls.objmgr, 1)
     cases["golden_cube_stack_ss1"] = {"pairs": int(gkw["kvalid"].sum()),
                                       "max_err": substep_case(torch, sk, gkern, gkw)}
+    # kernel 5's node launch on a world with live Fixed and Hinge joints
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_joint_scenes as joint_scenes
+    jsim = joint_scenes.joint_world("pallas", num_worlds=256, device="cuda")
+    jsim.run(5)
+    jkw = phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(jsim, None, None, node=True)
+    live = int(live_joints(jkw).sum())
+    check(live == 2 * 256, f"joint world: {live} live joints, not two a world")
+    cases["substep_node_joint_world"] = {
+        "kernel": "substep", "W": 256, "live_joints": live,
+        "max_err": node_case(torch, sk, phys.RigidBodyPhysicsSystem.substep_kernel(jsim), jkw)}
+    # and on simple_taskgraph's state with random live joints (several on
+    # one body and side, a null handle, a handle into another archetype)
+    from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
+    rsim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=16, num_objects=STG_OBJECTS,
+                                                       seed=3), device="cuda")
+    rsim.run(3)
+    rkw = joint_scenes.random_joints(rsim, phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(
+        rsim, stg.Sphere, None, node=True), num_spheres=STG_OBJECTS)
+    live = int(live_joints(rkw).sum())
+    check(live > 0, "random joints: none live")
+    cases["substep_node_random_joints"] = {
+        "kernel": "substep", "W": 16, "live_joints": live,
+        "max_err": node_case(torch, sk, phys.RigidBodyPhysicsSystem.substep_kernel(rsim), rkw)}
     for c in cases.values():
         if "kernel" not in c:
             worst = max(worst, max(c["max_err"].values()))
-    worst1 = max(cases["single_substep_main_K256"]["max_err"].values())
+    worst1 = max(max(cases[c]["max_err"].values())
+                 for c in ("single_substep_main_K256", "substep_node_joint_world",
+                           "substep_node_random_joints"))
     return {"phase": "parity_substep", "cases": cases, "repeat": "bit-identical (kernel and plain)",
             "atol": {"pose_and_stashes": 1e-4, "velocities": 1e-3}}, worst, worst1
 
@@ -667,9 +772,12 @@ def load_physics_golden(np, name):
     return np.frombuffer(d[24:], np.float32).reshape(T1, W, K, 13).copy(), W, K, ss, dt
 
 
-def golden_sim(torch, phys, name, mode):
-    """The golden's scene (plane row 0, its cubes after) on the card, from
-    its tick 0; returns (executor, golden, K)."""
+def golden_sim(torch, phys, name, mode, joint=False, device="cuda"):
+    """The golden's scene (plane row 0, its cubes after) on ``device``, from
+    its tick 0, with ``joint`` cube_chain's Fixed joint between its two
+    cubes (the reference's setupFixed(a, b, id, id, (0, 0, -0.6), (0, 0,
+    0.6), 0), as tests/test_torch_physics_golden.py builds it); returns
+    (executor, golden, K)."""
     import numpy as np
     from gpu_ecs_madrona_tpu_torch.core import base
     from gpu_ecs_madrona_tpu_torch.core.component import Archetype
@@ -690,7 +798,7 @@ def golden_sim(torch, phys, name, mode):
         @classmethod
         def register_types(cls, r):
             phys.RigidBodyPhysicsSystem.register_types(r, max_candidates=64, max_contacts=64,
-                                                       max_joints=0)
+                                                       max_joints=4 if joint else 0)
             r.register_archetype(cls.Body, capacity=K + 1)
             r.export_column(cls.Body, base.Position, 0)
             r.export_column(cls.Body, base.Rotation, 1)
@@ -714,11 +822,18 @@ def golden_sim(torch, phys, name, mode):
 
             def t(a):
                 return torch.from_numpy(a).to(dev)
-            ctx.make_entities(cls.Body, counts=K + 1, max_new=K + 1, values={
+            ents = ctx.make_entities(cls.Body, counts=K + 1, max_new=K + 1, values={
                 base.Position: t(pos), base.Rotation: t(rot),
                 base.Scale: torch.ones((W, K + 1, 3), device=dev), base.ObjectID: t(oid),
                 pc.Velocity: {"linear": t(vel), "angular": t(omega)},
                 pc.ResponseType: t(resp)})
+            if joint:
+                def vec(x):
+                    return torch.tensor(x, device=dev).expand(W, 1, len(x))
+                ident = vec([1.0, 0.0, 0.0, 0.0])
+                phys.make_fixed_joint(ctx, ents[:, 1:2], ents[:, 2:3], ident, ident,
+                                      vec([0.0, 0.0, -0.6]), vec([0.0, 0.0, 0.6]),
+                                      torch.zeros((W, 1), device=dev))
 
         @classmethod
         def setup_tasks(cls, builder):
@@ -728,8 +843,47 @@ def golden_sim(torch, phys, name, mode):
             phys.RigidBodyPhysicsSystem.setup_cleanup_tasks(builder, [sub])
 
     sim = TaskGraphExecutor(World, ExecutorConfig(num_worlds=W, max_entities_per_world=K + 8,
-                                                  seed=0, device="cuda"))
+                                                  seed=0, device=device))
     return sim, golden, K
+
+
+def joints_cube_chain(torch, phys, sk):
+    """The reference's joint golden, cube_chain_ss4, in the kernel mode:
+    kernel 5's node launch on the card and its plain version on the CPU,
+    tick by tick from the golden's tick 0.  Both solve the joint after the
+    velocity pass, as the JAX package's kernel mode does, and both miss the
+    golden's early gate (0.02 over the first 10 ticks) by the same ~0.048
+    as JAX (tests/test_torch_joint_golden.py holds the CPU route to JAX's
+    trajectory, atol 1e-5); the golden's other gates hold."""
+    import numpy as np
+    err, final = {}, {}
+    for dev in ("cuda", "cpu"):
+        sk.SubstepKernel.launches = 0
+        sim, golden, K = golden_sim(torch, phys, "cube_chain_ss4", "pallas", joint=True,
+                                    device=dev)
+        T = golden.shape[0] - 1
+        mine = np.zeros(golden.shape[:-1] + (3,), np.float32)
+        mine[0] = golden[0, ..., 0:3]
+        for t in range(1, T + 1):
+            sim.step()
+            mine[t] = sim.get_exported(0)[0][:, 1:].cpu().numpy()
+        check(sk.SubstepKernel.launches == (4 * T if dev == "cuda" else 0),
+              f"cube_chain_ss4 {dev} launches {sk.SubstepKernel.launches}")
+        check(bool(np.isfinite(mine).all()), f"cube_chain_ss4 {dev} finite")
+        err[dev] = np.abs(mine - golden[..., 0:3]).max(axis=(1, 2, 3))
+        final[dev] = mine[-1]
+    res = {dev: {"early_gate_max": float(e[:10].max()), "horizon": float(e.max()),
+                 "final_z_max": float(final[dev][..., 2].max())} for dev, e in err.items()}
+    early = [res[d]["early_gate_max"] for d in ("cuda", "cpu")]
+    check(min(early) > 0.02, f"cube_chain_ss4: the known early-gate miss {early}")
+    check(abs(early[0] - early[1]) <= 1e-5, f"cube_chain_ss4: the card's miss {early}")
+    check(max(r["horizon"] for r in res.values()) <= 1.5, "cube_chain_ss4 horizon")
+    check(max(r["final_z_max"] for r in res.values()) < 2.0, "cube_chain_ss4 final z")
+    ticks = int(len(err["cuda"]) - 1)
+    return {"phase": "joints_cube_chain", "ticks": ticks, "launches": 4 * ticks, **res,
+            "early_gate_card_minus_cpu": early[0] - early[1],
+            "gates": {"early_gate_miss": "> 0.02 on both, equal within 1e-5",
+                      "horizon": 1.5, "final_z": 2.0}}
 
 
 def golden_physics(torch, phys, sk):
@@ -805,7 +959,7 @@ def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_coun
             check(int(sim.mgr.num_rows(sim.state, arch).sum()) == 0,
                   f"{arch.name} not empty after a step")
     launches = read_counts()
-    by_options = dict(phys.FusedSubstepKernel.launches_by_options)
+    by_options = dict(phys.subk.FusedSubstepKernel.launches_by_options)
     kernel_mode = cfg.get("contact_mode") == "pallas"
     want = {name: 0 for name in launches}
     want["fused_substep"] = steps * count if kernel_mode else 0
@@ -1112,7 +1266,7 @@ def options_bound(kw, kern, out, ops):
         return bound(W * (n * BYTES_BODY_P + K * BYTES_SLOT_P + BYTES_WORLD_P), ops)
     if kern.bp_degree:
         return bound(W * (n * BYTES_BODY_BP + K * BYTES_SLOT_BP + BYTES_WORLD_BP), ops)
-    return bound(W * (n * BYTES_BODY + K * BYTES_SLOT + BYTES_WORLD), ops)
+    return substep_bound(kw, ops)
 
 
 # bytes of kernel 9's launch (the world flags, the asleep worlds' kernel and
@@ -1194,18 +1348,29 @@ def persist_timing(torch, sk, kern, kw, fkw):
 
 
 def node_time(torch, sim, name):
-    """Device ms of one run of executor sim's node ``name`` on its state
-    (20 runs, as cuda_ms times), and the device operations one run
-    queues, by name (torch.profiler)."""
+    """Device ms of one run of executor sim's node ``name`` on the state the
+    step's nodes before it make of sim's (20 runs, as cuda_ms times), the
+    host ms a run takes to queue its work (20 runs, no sync between), and
+    the device operations one run queues, by name (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from gpu_ecs_madrona_tpu_torch.core.context import Context
-    node = next(nd for nd in sim.graph.nodes if nd.name == name)
+    ctx = Context(sim.mgr, sim.state)
+    for node in sim.graph.nodes:           # the step's nodes before it, once
+        if node.name == name:
+            break
+        node.run(ctx)
+    state = ctx.state
 
     def run():
-        node.run(Context(sim.mgr, sim.state))
+        node.run(Context(sim.mgr, state))
 
     ms = cuda_ms(torch, run, 20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        run()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20
+    torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
@@ -1214,7 +1379,8 @@ def node_time(torch, sim, name):
         if (getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)
                 and e.self_device_time_total > 0):
             ops[e.key[:60]] = ops.get(e.key[:60], 0) + e.count
-    return {"device_ms": ms, "device_ops": sum(ops.values()), "by_name": ops}
+    return {"device_ms": ms, "host_ms": host_ms, "device_ops": sum(ops.values()),
+            "by_name": ops}
 
 
 def option_timing(torch, kern, kw):
@@ -1557,6 +1723,7 @@ def main(argv):
     line, err_substep, err_substep1 = parity_substep(torch, rb, phys, subk)
     emit(line)
     emit(golden_physics(torch, phys, subk))
+    emit(joints_cube_chain(torch, phys, subk))
 
     # the render kernel vs plain, and the kernel route vs the "xla" route
     line, err_render = parity_render(torch, rkm, stg, dev)
@@ -1791,7 +1958,9 @@ def main(argv):
     # CTAs an SM]
     occupancy = {"fused_n65_K256": subk.occupancy(RB_BODIES + 1, 256),
                  "fused_n65_K128": subk.occupancy(RB_BODIES + 1, 128),
-                 "substep_n104_K1000": subk.occupancy(104, 1000, single=True)}
+                 "substep_n104_K1000": subk.occupancy(104, 1000, single=True),
+                 "substep_node_n104_K1000_J64": subk.occupancy(104, 1000, single=True,
+                                                               joints=64)}
 
     # kernels 8 and 9 at their main paths' states (and kernel 8 with refresh
     # at the settled pile without persistence)
@@ -1823,6 +1992,22 @@ def main(argv):
               "work": work1, "max_err_vs_plain": err_stg1,
               "W": kw1["im"].shape[0], "n": kw1["im"].shape[1], "K": kw1["rows_i"].shape[1],
               "pairs_per_world_max": int(kw1["kvalid"].sum(1).max())}
+    # and kernel 5's node launch there (the integrate, the joints and the
+    # writeback too), with the substep node that makes it
+    kwn = phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(ssim, stg.Sphere, stg.OBJMGR,
+                                                              node=True)
+    kernn = phys.RigidBodyPhysicsSystem.substep_kernel(ssim)
+    err_node = node_case(torch, subk, kernn, kwn)
+    err_substep1 = max(err_substep1, max(err_node.values()))
+    opsn, _, workn = substep_work(torch, subk, kernn, kwn)
+    bn_ms, bn_by = substep_bound(kwn, opsn)
+    node_t = {"ms": cuda_ms(torch, lambda: kernn.step(**kwn), 200),
+              "plain_ms": cuda_ms(torch, lambda: kernn.step_plain(**kwn), 3, warmup=1),
+              "bound_ms": bn_ms, "bound_by": bn_by, "ops": opsn, "work": workn,
+              "max_err_vs_plain": err_node, "J": kwn["jmask"].shape[1],
+              "substep_node": node_time(torch, ssim, "physics_substep_0")}
+    check(node_t["substep_node"]["device_ops"] <= 12,
+          f"the substep node queues {node_t['substep_node']['device_ops']} device ops")
 
     # the render kernel at the simple_taskgraph main path's state
     rend = ssim.world_cls.renderer()
@@ -1870,7 +2055,7 @@ def main(argv):
           "fused_substep_K256": sub_t[256], "fused_substep_K128": sub_t[128],
           "substep_occupancy": occupancy,
           "fused_substep_options": opt_t,
-          "substep": sub1_t, "render": render_t,
+          "substep": sub1_t, "substep_node": node_t, "render": render_t,
           "library_ms": "none: no single PyTorch call computes any of these functions",
           "card": smi})
 
@@ -1943,8 +2128,12 @@ def main(argv):
         {"name": "substep", "route": "cuda", "source": csrc + "substep_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1165",
          "launches": stg_launches["substep"], "launches_per_step": 4,
-         "max_abs_err": err_substep1, "ms": sub1_t["ms"], "plain_ms": sub1_t["plain_ms"],
-         "bound_ms": sub1_t["bound_ms"], "bound_by": sub1_t["bound_by"], "library_ms": None},
+         "max_abs_err": err_substep1, "ms": node_t["ms"], "plain_ms": node_t["plain_ms"],
+         "bound_ms": node_t["bound_ms"], "bound_by": node_t["bound_by"], "library_ms": None,
+         "ms_is": "the node launch: integrate, steps 2-9, joints, writeback",
+         "equal_work": {k: sub1_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "substep_node": {k: node_t["substep_node"][k]
+                          for k in ("device_ms", "host_ms", "device_ops")}},
         {"name": "render", "route": "cuda", "source": csrc + "render_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/render_kernel.py:501",
          "launches": stg_launches["render"], "launches_per_step": 1,

@@ -158,6 +158,26 @@ def batched_scatter(arr: torch.Tensor, rows: torch.Tensor, values,
     return buf[:, :cap].contiguous()
 
 
+def lookup_entities(eid_state, ents: torch.Tensor):
+    """Entity handles [W, K] -> (arch_index, row, live bool), each [W, K],
+    read from the entity store ``eid_state`` (loc_arch, loc_row, gen [W, E])."""
+    eids = Entity.id(ents)
+    gens = Entity.gen(ents)
+    cur_gen = batched_gather(eid_state["gen"], eids)
+    loc_arch = batched_gather(eid_state["loc_arch"], eids)
+    loc_row = batched_gather(eid_state["loc_row"], eids)
+    live = (~Entity.is_null(ents)) & (loc_arch >= 0) & (
+        (cur_gen & ENTITY_GEN_MASK) == gens)
+    return loc_arch, loc_row, live
+
+
+def entity_rows(eid_state, ents: torch.Tensor, arch_index: int) -> torch.Tensor:
+    """The rows of entity handles [W, K] in archetype ``arch_index``: -1
+    unless the handle is live and its entity in that archetype."""
+    loc_arch, loc_row, live = lookup_entities(eid_state, ents)
+    return torch.where(live & (loc_arch == arch_index), loc_row, -1)
+
+
 def _alloc_slots(free: torch.Tensor, count: torch.Tensor, k: int) -> torch.Tensor:
     """Pick the first ``count[w]`` free slot indices of each world
     (lowest-index-first).
@@ -553,15 +573,7 @@ class StateManager:
 
     def lookup(self, state: SimState, ents: torch.Tensor):
         """Entity handles -> (arch_index [..], row [..], live bool [..])."""
-        eid_state = state["eid"]
-        eids = Entity.id(ents)
-        gens = Entity.gen(ents)
-        cur_gen = batched_gather(eid_state["gen"], eids)
-        loc_arch = batched_gather(eid_state["loc_arch"], eids)
-        loc_row = batched_gather(eid_state["loc_row"], eids)
-        live = (~Entity.is_null(ents)) & (loc_arch >= 0) & (
-            (cur_gen & ENTITY_GEN_MASK) == gens)
-        return loc_arch, loc_row, live
+        return lookup_entities(state["eid"], ents)
 
     def get_component(self, state: SimState, comp: Component, ents: torch.Tensor):
         """Gather component values for entity handles [W, K] across every

@@ -46,14 +46,42 @@
 //   place: a world writes it only when it rebuilt (with its anchors and
 //   valid flag), and an asleep world reads only its three row channels.
 //
-// substep_kernel
+// substep_kernel<FULL>
 //   Replaces gpu_ecs_madrona_tpu/ops/substep_kernel.py: _run, the
 //   single-substep pallas_call (:1165) that worlds with joints take: steps
-//   2-9 above once, from the post-integrate pose and velocities and the
-//   substep start the caller passes (it integrates before the call and
-//   solves the joints after it, in PyTorch).  Outputs pose and velocities.
-//   Both kernels share the layout, the slot lists and steps 2-9
+//   2-9 above once.  FULL is the kernel-mode substep node of such a world
+//   in one launch: the integrate from the state's columns (the route's
+//   formulas, physics/solver.py integrate, the per-object constants read
+//   from the table), steps 2-9, the joint solve (solver.solve_joints, the
+//   joints' entity handles looked up here) and the writeback, with the
+//   three stashes out; the JAX package runs the integrate and the joints
+//   as XLA glue around its kernel (its physics/__init__.py:820-841).
+//   Without FULL, steps 2-9 alone from the caller's post-integrate pose and
+//   velocities (the JAX kernel's contract).  Both kernels share steps 2-9
 //   (solve_substep), so they cannot drift apart.
+//   What bounds it: at 1024 worlds x 104 rows, K = 1000 a launch moves
+//   W (104 x 217 B + K x 9 B + 84 B) ~ 32 MB (~0.0097 ms); its operations,
+//   a few hundred a live pair and ~350 a body, are fewer.  As with the
+//   fused kernel, the time is the chain of a world's phases times the
+//   worlds an SM cannot overlap.  Design: the shared memory is sized to a
+//   window of kWindow work entries, not to K: each valid slot gets a work
+//   entry e (build order as build_work), and its rows, pass contributions,
+//   stash and body-list entries are indexed by e; an entry past the window
+//   lives in the world's slice of a global scratch (touched only by a
+//   world with more live pairs than the window; L2-resident).  Nothing
+//   K-wide is staged: the slot lists and the work list are built from the
+//   caller's rows.  The joints: one thread a joint (a dead one costs its
+//   mask), both sides' terms into shared memory; then one thread a body
+//   adds side 1's terms over the joints in joint order, then side 2's, and
+//   applies them.  Measured (ptxas -v, cudaOccupancyMaxActiveBlocksPer-
+//   Multiprocessor at 104 rows, K = 1000, 64 joint rows, H100): window 320,
+//   168 registers (the cap of 3 CTAs), no frame, no spills, ~72 KB a world,
+//   3 CTAs an SM.  In one A/B at simple_taskgraph's state (PERF.md's
+//   findings) a window of 512 at 2 CTAs an SM (200-205 registers, ~107 KB)
+//   ran 0.181 ms a node launch, 320 at 3 CTAs 0.157, 200 at 4 CTAs (128
+//   registers, a 120-byte spill, most worlds past the window) 0.155, 256
+//   threads at 2 CTAs 0.175; the window of 320 keeps most worlds' live
+//   pairs in shared memory at no spill.
 //
 // What bounds them on this card.  At 8192 worlds x 65 rows x K = 256 a
 // call moves W (65 x 237 B + K x 9 B + 20 B) ~ 145 MB (~0.043 ms at 3.35
@@ -109,8 +137,7 @@
 //   "none" and "sleep" 128 registers, a 128-byte frame, 138 bytes of spill
 //   stores; "bp" 128, 128, 158; all three 4 CTAs an SM.  The cache
 //   specialisations 248-255 registers, no frame, no spills, 2 CTAs an SM
-//   (shared memory).  substep_kernel 208 registers, no frame, 1 CTA an SM
-//   at 104 rows, K = 1000.  The frame of the three capped specialisations
+//   (shared memory).  The frame of the three capped specialisations
 //   is the register cap's spill, kept on purpose: it holds the manifold a
 //   thread keeps between the passes (24 floats, so that stash lives in L1
 //   rather than registers) and ~10 loop values (nvdisasm of a -lineinfo
@@ -182,6 +209,34 @@ __device__ __forceinline__ Q4 qnormalize(Q4 q) {
   const float inv = rsq(fmaxf(q.w * q.w + q.x * q.x + q.y * q.y + q.z * q.z, 1e-30f));
   return Q4{q.w * inv, q.x * inv, q.y * inv, q.z * inv};
 }
+// The route's quaternion arithmetic (physics/solver.py integrate and
+// solve_joints, utils/math.py), as PyTorch computes it on the card:
+// torch.linalg.cross rounds each component as one fused multiply-add,
+// fma(a1, b2, -(a2 b1)) (its CPU kernel does too); quat_rotate is
+// v + 2 (w (u x v) + u x (u x v)); quat_normalize is q / max(|q|, 1e-12).
+__device__ __forceinline__ V3 cross_t(V3 a, V3 b) {
+  return mk(__fmaf_rn(a.y, b.z, -(a.z * b.y)), __fmaf_rn(a.z, b.x, -(a.x * b.z)),
+            __fmaf_rn(a.x, b.y, -(a.y * b.x)));
+}
+__device__ __forceinline__ V3 qrot_t(Q4 q, V3 v) {
+  const V3 u = mk(q.x, q.y, q.z);
+  const V3 uv = cross_t(u, v), uuv = cross_t(u, uv);
+  return mk(v.x + 2.0f * (q.w * uv.x + uuv.x), v.y + 2.0f * (q.w * uv.y + uuv.y),
+            v.z + 2.0f * (q.w * uv.z + uuv.z));
+}
+__device__ __forceinline__ V3 qrot_inv_t(Q4 q, V3 v) {
+  return qrot_t(Q4{q.w, -q.x, -q.y, -q.z}, v);
+}
+__device__ __forceinline__ Q4 qnormalize_t(Q4 q) {
+  const float d = fmaxf(sqrtf(q.w * q.w + q.x * q.x + q.y * q.y + q.z * q.z), 1e-12f);
+  return Q4{q.w / d, q.x / d, q.y / d, q.z / d};
+}
+// A rotation vector's quaternion delta (solver._apply_rot_delta).
+__device__ __forceinline__ Q4 rot_delta_t(Q4 r, V3 dw) {
+  const Q4 d = qmul(Q4{0.0f, dw.x, dw.y, dw.z}, r);
+  return qnormalize_t(Q4{r.w + 0.5f * d.w, r.x + 0.5f * d.x, r.y + 0.5f * d.y, r.z + 0.5f * d.z});
+}
+
 // Rotation-matrix columns (the box's local axes in world space).
 __device__ __forceinline__ void quat_axes(Q4 q, V3 u[3]) {
   const float xx = q.x * q.x, yy = q.y * q.y, zz = q.z * q.z;
@@ -1173,14 +1228,27 @@ constexpr int kAabbCh = 6;
 // The kernel's option bits (OPT_* in ops/substep_kernel.py).
 constexpr int kOptRefresh = 1, kOptSleep = 2, kOptBp = 4, kOptPersist = 8;
 // The world scalars in shared memory: the work list's length, the
-// broadphase's dropped pairs and its live rows (kBpWords bit words).
-constexpr int kWorkCount = 0, kBpDropped = 1, kBpLive = 4, kWorldInts = 8;
+// broadphase's dropped pairs, kernel 5's end of the valid slots and the
+// broadphase's live rows (kBpWords bit words).
+constexpr int kWorkCount = 0, kBpDropped = 1, kSlotsEnd = 2, kBpLive = 4, kWorldInts = 8;
 // The in-kernel broadphase's rows (MAX_BP_ROWS in ops/substep_kernel.py)
 // and the 32-bit words of a row's partner mask.
 constexpr int kMaxBpRows = 128, kBpWords = kMaxBpRows / 32;
 // Contact kinds, in the work list's order (the heaviest first), and the
 // number of kinds (the last: no contact code, a plane against a plane).
 enum Kind { kBoxBox = 0, kBoxPlane, kSphereBox, kSpherePlane, kSphereSphere, kOther, kKinds };
+// substep_kernel (kernel 5): threads a CTA at most, the CTAs an SM it is
+// compiled for, and its shared window: the work entries whose rows, pass
+// contributions, stash and list entries stay in shared memory.  An entry
+// past the window lives in the world's slice of a global scratch of
+// kScratchCh channels an entry (the 18 pass channels, the 24 stash
+// channels, the two rows and the two list entries).  A joint keeps its two
+// sides' contributions (dx, dw each): kJointCh floats.
+constexpr int kSubstepThreads = 128;
+constexpr int kSubstepBlocks = 3;
+constexpr int kWindow = 320;
+constexpr int kScratchCh = 46;
+constexpr int kJointCh = 12;
 
 struct Args {
   const float *pos, *rot, *v, *w, *im, *ii, *mu_s, *mu_d;
@@ -1291,6 +1359,15 @@ struct Smem {
   int* sworld;  // kWorldInts world scalars (kWorkCount, kBpDropped, kBpLive)
   int *sdeg, *sbase;  // n each (bp only): owner degree, first slot
   unsigned* smask;    // kBpWords n (bp only): each owner's lower partners
+  // kernel 5's window (carve_window): kw entries in shared memory, the
+  // rest in gsc (kScratchCh channels of kg floats); the window's rows
+  // (2 kw: i at e, j at kw + e); the joints' contributions (kJointCh J)
+  // and body rows (2 J: side 1 at j, side 2 at J + j; -1 if not summed)
+  int kw, kg;
+  float* gsc;
+  int* swrow;
+  float* sjv;
+  int* sjr;
 };
 
 __device__ __forceinline__ Smem carve(float* smem, int n, int K, bool bp, bool cache, int T) {
@@ -1317,6 +1394,111 @@ __device__ __forceinline__ Smem carve(float* smem, int n, int K, bool bp, bool c
   s.sbase = bp ? s.sdeg + n : nullptr;
   s.smask = bp ? reinterpret_cast<unsigned*>(s.sbase + n) : nullptr;
   return s;
+}
+
+// Kernel 5's window for K slots, its block for n bodies (one thread a
+// window entry and a body, in whole warps, at most kSubstepThreads), and the
+// entries of the global scratch a world may need (those past the window).
+__host__ __device__ __forceinline__ int substep_window(int K) { return K < kWindow ? K : kWindow; }
+__host__ __device__ __forceinline__ int substep_threads(int n, int K) {
+  const int kw = substep_window(K);
+  const int widest = n > kw ? n : kw;
+  const int t = ((widest + 31) / 32) * 32;
+  return t < kSubstepThreads ? t : kSubstepThreads;
+}
+__host__ __device__ __forceinline__ int substep_scratch(int K) { return K - substep_window(K); }
+
+// Kernel 5's dynamic shared memory for n bodies, K slots and J joints (the
+// window's layout, carve_window):
+//   floats: 54 a body; 18 (pass contributions) a window entry; 24 (the
+//           manifold stash) a window entry past the block's threads;
+//           kJointCh a joint
+//   ints:   4 a window entry (its rows, its two list entries); 3 n + 1
+//           (the lists' offsets and two cursors a body); 8 world scalars; 2
+//           a joint (its body rows)
+size_t substep_smem_bytes(int n, int K, int J) {
+  const size_t nn = static_cast<size_t>(n), jj = static_cast<size_t>(J);
+  const size_t ww = static_cast<size_t>(substep_window(K));
+  const size_t tt = static_cast<size_t>(substep_threads(n, K));
+  const size_t ks = ww > tt ? ww - tt : 0;
+  const size_t floats = kBodyCh * nn + kSlotCh * ks + kPackCh * ww + kJointCh * jj;
+  const size_t ints = 4 * ww + 3 * nn + 1 + kWorldInts + 2 * jj;
+  return sizeof(float) * floats + sizeof(int) * ints;
+}
+
+// Kernel 5's shared memory, carved from the dynamic block; gsc is the
+// world's slice of the global scratch (kScratchCh channels of kg floats).
+__device__ __forceinline__ Smem carve_window(float* smem, int n, int K, int J, int T, float* gsc) {
+  Smem s;
+  s.kw = substep_window(K);
+  s.kg = substep_scratch(K);
+  s.gsc = gsc;
+  s.ks = s.kw > T ? s.kw - T : 0;
+  s.sb = smem;
+  s.sst = s.sb + kBodyCh * n;
+  s.spk = s.sst + kSlotCh * s.ks;
+  s.sjv = s.spk + kPackCh * s.kw;
+  s.swrow = reinterpret_cast<int*>(s.sjv + kJointCh * J);
+  s.slist = s.swrow + 2 * s.kw;
+  s.soff = s.slist + 2 * s.kw;
+  s.scurA = s.soff + n + 1;
+  s.scurB = s.scurA + n;
+  s.sworld = s.scurB + n;
+  s.sjr = s.sworld + kWorldInts;
+  s.scache = s.saabb = nullptr;
+  s.sri = s.srj = s.skv = s.swork = s.sdeg = s.sbase = nullptr;
+  s.smask = nullptr;
+  return s;
+}
+
+// Where an entry's data lives.  The fused kernel's layout (WIN false)
+// indexes the pass contributions by slot (idx = k), the stash by work
+// entry past the threads (e - T); kernel 5's (WIN true) indexes both by
+// work entry (idx = e), in the window below kw, else in the global scratch.
+template <bool WIN>
+__device__ __forceinline__ float* pack_at(const Smem& s, int K, int q, int idx) {
+  if (!WIN) return s.spk + q * K + idx;
+  return idx < s.kw ? s.spk + q * s.kw + idx : s.gsc + q * s.kg + (idx - s.kw);
+}
+template <bool WIN>
+__device__ __forceinline__ float* stash_at(const Smem& s, int T, int e, int* stride) {
+  if (!WIN || e < s.kw) {
+    *stride = s.ks;
+    return s.sst + (e - T);
+  }
+  *stride = s.kg;
+  return s.gsc + kPackCh * s.kg + (e - s.kw);
+}
+// Kernel 5's rows of work entry e, and its body lists' entry i.
+__device__ __forceinline__ void entry_rows(const Smem& s, int e, int rows[2]) {
+  if (e < s.kw) {
+    rows[0] = s.swrow[e];
+    rows[1] = s.swrow[s.kw + e];
+  } else {
+    const float* g = s.gsc + (kPackCh + kSlotCh) * s.kg + (e - s.kw);
+    rows[0] = __float_as_int(g[0]);
+    rows[1] = __float_as_int(g[s.kg]);
+  }
+}
+__device__ __forceinline__ void entry_rows_store(const Smem& s, int e, int ri, int rj) {
+  if (e < s.kw) {
+    s.swrow[e] = ri;
+    s.swrow[s.kw + e] = rj;
+  } else {
+    float* g = s.gsc + (kPackCh + kSlotCh) * s.kg + (e - s.kw);
+    g[0] = __int_as_float(ri);
+    g[s.kg] = __int_as_float(rj);
+  }
+}
+__device__ __forceinline__ int list_at(const Smem& s, int i) {
+  return i < 2 * s.kw ? s.slist[i]
+                      : __float_as_int(s.gsc[(kPackCh + kSlotCh + 2) * s.kg + (i - 2 * s.kw)]);
+}
+__device__ __forceinline__ void list_store(const Smem& s, int i, int v) {
+  if (i < 2 * s.kw)
+    s.slist[i] = v;
+  else
+    s.gsc[(kPackCh + kSlotCh + 2) * s.kg + (i - 2 * s.kw)] = __int_as_float(v);
 }
 
 __device__ __forceinline__ int clamp_row(int r, int n) { return min(max(r, 0), n - 1); }
@@ -1420,6 +1602,25 @@ __device__ void build_lists(const Smem& s, int kc, int lane, int L) {
   }
 }
 
+// Each body's first list entry (soff, n + 1) and its A-side and B-side
+// cursors from the counts in scurA and scurB, by one warp's scan.
+__device__ __forceinline__ void list_offsets(const Smem& s, int n, int lane, int L) {
+  int carry = 0;
+  for (int c0 = 0; c0 < n; c0 += L) {
+    const int b = c0 + lane;
+    const int na = b < n ? s.scurA[b] : 0, v = b < n ? na + s.scurB[b] : 0;
+    const int incl = warp_scan(v, lane, L);
+    if (b < n) {
+      const int first = carry + incl - v;
+      s.soff[b] = first;
+      s.scurA[b] = first;
+      s.scurB[b] = first + na;
+    }
+    carry += __shfl_sync(0xffffffffu, incl, L - 1);
+  }
+  if (lane == 0) s.soff[n] = carry;
+}
+
 // After the staging: kc = 1 + the last valid slot (the cache's dead-slot
 // loop stops there; candidate slots are a validity prefix, so this skips
 // the dead tail); each body's count of A and B sides (integer atomics: the
@@ -1442,25 +1643,96 @@ __device__ int finish_slots(const Smem& s, const Table& tab, int n, int K, int t
   __syncthreads();
   const int kc = s_kc;
   const int L = T < 32 ? T : 32, lane = tid % 32;
-  if (tid < 32) {
-    int carry = 0;
-    for (int c0 = 0; c0 < n; c0 += L) {
-      const int b = c0 + lane;
-      const int na = b < n ? s.scurA[b] : 0, v = b < n ? na + s.scurB[b] : 0;
-      const int incl = warp_scan(v, lane, L);
-      if (b < n) {
-        const int first = carry + incl - v;
-        s.soff[b] = first;
-        s.scurA[b] = first;
-        s.scurB[b] = first + na;
-      }
-      carry += __shfl_sync(0xffffffffu, incl, L - 1);
-    }
-    if (lane == 0) s.soff[n] = carry;
-  }
+  if (tid < 32) list_offsets(s, n, lane, L);
   __syncthreads();
   if (tid < 32) build_lists(s, kc, lane, L);
   if (T > 32 ? (tid >= 32 && tid < 64) : tid < 32) build_work(s, tab, n, kc, lane, L);
+  __syncthreads();
+  return kc;
+}
+
+// Kernel 5's slot lists and work list, in its window's layout: the rows are
+// read from the caller's arrays (nothing K-wide is staged).  After the
+// counts by body (as finish_slots), warp 0 scans the lists' offsets while
+// warp 1 counts the valid slots below kc by contact kind; then warp 1 gives
+// each valid slot its work entry e (grouped by kind, ascending within a
+// kind, as build_work), stores its rows at e and lists its two sides by
+// body as (e << 1 | side), in ascending slot order, A sides first (as
+// build_lists, whose per-body order the segment sums keep).  Starts and ends
+// with a barrier; returns kc.
+__device__ int finish_slots_win(const Smem& s, const Table& tab, const int* rows_i,
+                                const int* rows_j, const uint8_t* kvalid, int wld, int n, int K,
+                                int tid, int T) {
+  const size_t k0 = static_cast<size_t>(wld) * K;
+  if (tid == 0) s.sworld[kSlotsEnd] = 0;
+  for (int b = tid; b < n; b += T) s.scurA[b] = s.scurB[b] = 0;
+  __syncthreads();
+  for (int k = tid; k < K; k += T)
+    if (kvalid[k0 + k]) {
+      atomicMax(&s.sworld[kSlotsEnd], k + 1);
+      atomicAdd(&s.scurA[clamp_row(rows_i[k0 + k], n)], 1);
+      atomicAdd(&s.scurB[clamp_row(rows_j[k0 + k], n)], 1);
+    }
+  __syncthreads();
+  const int kc = s.sworld[kSlotsEnd];
+  const int L = T < 32 ? T : 32, lane = tid % 32;
+  const unsigned full = 0xffffffffu, below = (1u << lane) - 1u;
+  const bool sorter = T > 32 ? (tid >= 32 && tid < 64) : tid < 32;
+  int base[kKinds];
+  if (tid < 32) list_offsets(s, n, lane, L);
+  if (sorter) {
+    int total = 0;
+#pragma unroll
+    for (int c = 0; c < kKinds; ++c) base[c] = 0;
+    for (int c0 = 0; c0 < kc; c0 += L) {
+      const int k = c0 + lane;
+      const int kind = (k < kc && kvalid[k0 + k])
+                           ? pair_kind(tab.prim(obj_of(s.sb, clamp_row(rows_i[k0 + k], n), n)),
+                                       tab.prim(obj_of(s.sb, clamp_row(rows_j[k0 + k], n), n)))
+                           : kKinds;
+#pragma unroll
+      for (int c = 0; c < kKinds; ++c) base[c] += __popc(__ballot_sync(full, kind == c));
+    }
+#pragma unroll
+    for (int c = 0; c < kKinds; ++c) {
+      const int cnt = base[c];
+      base[c] = total;
+      total += cnt;
+    }
+    if (lane == 0) s.sworld[kWorkCount] = total;
+  }
+  __syncthreads();
+  if (sorter) {
+    for (int c0 = 0; c0 < kc; c0 += L) {
+      const int k = c0 + lane;
+      const bool valid = k < kc && kvalid[k0 + k];
+      const int ri = valid ? clamp_row(rows_i[k0 + k], n) : 0;
+      const int rj = valid ? clamp_row(rows_j[k0 + k], n) : 0;
+      const int kind =
+          valid ? pair_kind(tab.prim(obj_of(s.sb, ri, n)), tab.prim(obj_of(s.sb, rj, n))) : kKinds;
+      int e = 0;
+#pragma unroll
+      for (int c = 0; c < kKinds; ++c) {
+        const unsigned b = __ballot_sync(full, kind == c);
+        if (kind == c) e = base[c] + __popc(b & below);
+        base[c] += __popc(b);
+      }
+      if (valid) entry_rows_store(s, e, ri, rj);
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const int row = side ? rj : ri;
+        const int key = valid ? row : -1 - lane;
+        const unsigned same = __match_any_sync(full, key);
+        const int leader = __ffs(same) - 1;
+        int* cur = side ? s.scurB : s.scurA;
+        const int first = __shfl_sync(full, lane == leader && valid ? cur[row] : 0, leader);
+        if (valid) list_store(s, first + __popc(same & below), (e << 1) | side);
+        __syncwarp();
+        if (valid && lane == leader) cur[row] = first + __popc(same);
+        __syncwarp();
+      }
+    }
+  }
   __syncthreads();
   return kc;
 }
@@ -1728,44 +2000,46 @@ __device__ void cache_refresh(const float* sc, int K, int k, const Side& A, cons
 // (kResolveKeep), persistence's substep 0.
 enum ContactMode { kFresh = 0, kBuild, kRefresh, kResolveBuild, kResolveKeep };
 
-// A manifold and its lambdas in the stash's entry i (channel stride KS).
-__device__ __forceinline__ void stash_store(float* sst, int KS, int i, const Manifold& c,
+// A manifold and its lambdas in a stash entry at sst (channel stride KS).
+__device__ __forceinline__ void stash_store(float* sst, int KS, const Manifold& c,
                                             const float (&lam)[kPts]) {
-  sst[kSOk * KS + i] = c.ok ? 1.0f : 0.0f;
-  sst[(kSN + 0) * KS + i] = c.n.x;
-  sst[(kSN + 1) * KS + i] = c.n.y;
-  sst[(kSN + 2) * KS + i] = c.n.z;
+  sst[kSOk * KS] = c.ok ? 1.0f : 0.0f;
+  sst[(kSN + 0) * KS] = c.n.x;
+  sst[(kSN + 1) * KS] = c.n.y;
+  sst[(kSN + 2) * KS] = c.n.z;
 #pragma unroll
   for (int p = 0; p < kPts; ++p) {
-    sst[(kSP + 3 * p) * KS + i] = c.p[p].x;
-    sst[(kSP + 3 * p + 1) * KS + i] = c.p[p].y;
-    sst[(kSP + 3 * p + 2) * KS + i] = c.p[p].z;
-    sst[(kSD + p) * KS + i] = c.d[p];
-    sst[(kSLam + p) * KS + i] = lam[p];
+    sst[(kSP + 3 * p) * KS] = c.p[p].x;
+    sst[(kSP + 3 * p + 1) * KS] = c.p[p].y;
+    sst[(kSP + 3 * p + 2) * KS] = c.p[p].z;
+    sst[(kSD + p) * KS] = c.d[p];
+    sst[(kSLam + p) * KS] = lam[p];
   }
 }
-__device__ __forceinline__ void stash_load(const float* sst, int KS, int i, Manifold& c,
+__device__ __forceinline__ void stash_load(const float* sst, int KS, Manifold& c,
                                            float (&lam)[kPts]) {
-  c.ok = sst[kSOk * KS + i] > 0.5f;
-  c.n = mk(sst[kSN * KS + i], sst[(kSN + 1) * KS + i], sst[(kSN + 2) * KS + i]);
+  c.ok = sst[kSOk * KS] > 0.5f;
+  c.n = mk(sst[kSN * KS], sst[(kSN + 1) * KS], sst[(kSN + 2) * KS]);
 #pragma unroll
   for (int p = 0; p < kPts; ++p) {
-    c.p[p] = mk(sst[(kSP + 3 * p) * KS + i], sst[(kSP + 3 * p + 1) * KS + i],
-                sst[(kSP + 3 * p + 2) * KS + i]);
-    c.d[p] = sst[(kSD + p) * KS + i];
-    lam[p] = sst[(kSLam + p) * KS + i];
+    c.p[p] = mk(sst[(kSP + 3 * p) * KS], sst[(kSP + 3 * p + 1) * KS], sst[(kSP + 3 * p + 2) * KS]);
+    c.d[p] = sst[(kSD + p) * KS];
+    lam[p] = sst[(kSLam + p) * KS];
   }
 }
 
 // Steps 2-9 of a substep, from the post-integrate pose and velocities
 // (kIPos, kIRot, kIV, kIW) and the substep start (kPrevPos, kPrevRot):
 // leaves the new pose in kPos/kRot (dynamic rows only) and the velocities
-// in kV/kW (zero on the other rows).  Ends with a barrier.
-template <bool CACHE>
+// in kV/kW (zero on the other rows).  WIN: kernel 5's window layout (the
+// entries' rows, pass contributions and list entries by work entry, those
+// past the window in the global scratch; no cache).  Ends with a barrier.
+template <bool CACHE, bool WIN>
 __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int kc, float h1,
                               float rest1, float relax, float spec, bool bounce, int mode,
                               int tid, int T) {
-  float *sb = s.sb, *sst = s.sst, *spk = s.spk;
+  static_assert(!(CACHE && WIN), "kernel 5's window layout has no manifold cache");
+  float* sb = s.sb;
   const int *sri = s.sri, *srj = s.srj, *skv = s.skv, *soff = s.soff, *slist = s.slist;
 
   if (CACHE && mode == kResolveBuild) {
@@ -1780,17 +2054,24 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
   // the thread until the velocity pass; the others wait in the stash.  The
   // loop runs in whole warps (warp_box_box's shuffles): a lane past the
   // list works on the warp's first entry and drops out before the pass.
-  const int nwork = s.sworld[kWorkCount], KS = s.ks;
+  const int nwork = s.sworld[kWorkCount];
   const int lane = tid % 32;
   Manifold own;
   float own_lam[kPts];
   for (int e0 = tid - lane; e0 < nwork; e0 += T) {
     const int e = e0 + lane;
     const bool act = e < nwork;
-    const int k = s.swork[act ? e : e0];
+    // the slot (or kernel 5's entry) whose contributions this is
+    const int k = WIN ? e : s.swork[act ? e : e0];
     Side S[2];
     Body Bd[2];
-    const int rows[2] = {sri[k], srj[k]};
+    int rows[2];
+    if (WIN) {
+      entry_rows(s, act ? e : e0, rows);
+    } else {
+      rows[0] = sri[k];
+      rows[1] = srj[k];
+    }
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int b = rows[q];
@@ -1826,12 +2107,14 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
 #pragma unroll
       for (int p = 0; p < kPts; ++p) own_lam[p] = lam[p];
     } else {
-      stash_store(sst, KS, e - T, c, lam);
+      int ks;
+      float* st = stash_at<WIN>(s, T, e, &ks);
+      stash_store(st, ks, c, lam);
     }
 #pragma unroll
     for (int q = 0; q < 9; ++q) {
-      spk[q * K + k] = pA[q];
-      spk[(9 + q) * K + k] = pB[q];
+      *pack_at<WIN>(s, K, q, k) = pA[q];
+      *pack_at<WIN>(s, K, 9 + q, k) = pB[q];
     }
   }
   __syncthreads();
@@ -1845,10 +2128,11 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
 #pragma unroll
     for (int q = 0; q < 9; ++q) acc[q] = 0.0f;
     if (sb[kDyn * n + b] > 0.5f)
-      for (int e = soff[b]; e < soff[b + 1]; ++e) {
-        const int k = slist[e] >> 1, side = slist[e] & 1;
+      for (int i = soff[b]; i < soff[b + 1]; ++i) {
+        const int ent = WIN ? list_at(s, i) : slist[i];
+        const int k = ent >> 1, side = ent & 1;
 #pragma unroll
-        for (int q = 0; q < 9; ++q) acc[q] = acc[q] + spk[(9 * side + q) * K + k];
+        for (int q = 0; q < 9; ++q) acc[q] = acc[q] + *pack_at<WIN>(s, K, 9 * side + q, k);
       }
     const V3 pos_i = ld3(sb, kIPos, b, n);
     const Q4 rot_i = ld4(sb, kIRot, b, n);
@@ -1874,9 +2158,15 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
 
   // (7-8) per valid slot: re-gather at the post-solve poses, velocity pass
   for (int e = tid; e < nwork; e += T) {
-    const int k = s.swork[e];
+    const int k = WIN ? e : s.swork[e];
     Side S[2];
-    const int rows[2] = {sri[k], srj[k]};
+    int rows[2];
+    if (WIN) {
+      entry_rows(s, e, rows);
+    } else {
+      rows[0] = sri[k];
+      rows[1] = srj[k];
+    }
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int b = rows[q];
@@ -1895,13 +2185,17 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
     float lam[kPts];
 #pragma unroll
     for (int p = 0; p < kPts; ++p) lam[p] = own_lam[p];
-    if (e >= T) stash_load(sst, KS, e - T, c, lam);
+    if (e >= T) {
+      int ks;
+      const float* st = stash_at<WIN>(s, T, e, &ks);
+      stash_load(st, ks, c, lam);
+    }
     float pA[6], pB[6];
     velocity_pass(S[0], S[1], c, lam, h1, rest1, bounce, spec, pA, pB);
 #pragma unroll
     for (int q = 0; q < 6; ++q) {
-      spk[q * K + k] = pA[q];
-      spk[(6 + q) * K + k] = pB[q];
+      *pack_at<WIN>(s, K, q, k) = pA[q];
+      *pack_at<WIN>(s, K, 6 + q, k) = pB[q];
     }
   }
   __syncthreads();
@@ -1914,10 +2208,11 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
 #pragma unroll
     for (int q = 0; q < 6; ++q) acc[q] = 0.0f;
     if (dyn)
-      for (int e = soff[b]; e < soff[b + 1]; ++e) {
-        const int k = slist[e] >> 1, side = slist[e] & 1;
+      for (int i = soff[b]; i < soff[b + 1]; ++i) {
+        const int ent = WIN ? list_at(s, i) : slist[i];
+        const int k = ent >> 1, side = ent & 1;
 #pragma unroll
-        for (int q = 0; q < 6; ++q) acc[q] = acc[q] + spk[(6 * side + q) * K + k];
+        for (int q = 0; q < 6; ++q) acc[q] = acc[q] + *pack_at<WIN>(s, K, 6 * side + q, k);
       }
     const V3 v3 = add(ld3(sb, kV2, b, n), mk(acc[0], acc[1], acc[2]));
     const V3 w3 = add(ld3(sb, kW2, b, n), mk(acc[3], acc[4], acc[5]));
@@ -2080,8 +2375,8 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
       mode = kBuild;
     else if (REFRESH && step > 0)
       mode = kRefresh;
-    solve_substep<CACHE>(s, a.tab, n, K, kc, h1, rest1, a.relax, a.spec, a.bounce != 0, mode,
-                         tid, T);
+    solve_substep<CACHE, false>(s, a.tab, n, K, kc, h1, rest1, a.relax, a.spec, a.bounce != 0,
+                                mode, tid, T);
   }
 
   for (int b = tid; b < n; b += T) {
@@ -2125,7 +2420,30 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
   }
 }
 
+// Row g of a [.., 3] or [.., 4] float column in device memory.
+__device__ __forceinline__ V3 ldg3(const float* p, size_t g) {
+  return mk(p[3 * g], p[3 * g + 1], p[3 * g + 2]);
+}
+__device__ __forceinline__ Q4 ldg4(const float* p, size_t g) {
+  return Q4{p[4 * g], p[4 * g + 1], p[4 * g + 2], p[4 * g + 3]};
+}
+__device__ __forceinline__ void stg3(float* p, size_t g, V3 v) {
+  p[3 * g] = v.x;
+  p[3 * g + 1] = v.y;
+  p[3 * g + 2] = v.z;
+}
+__device__ __forceinline__ void stg4(float* p, size_t g, Q4 q) {
+  p[4 * g] = q.w;
+  p[4 * g + 1] = q.x;
+  p[4 * g + 2] = q.y;
+  p[4 * g + 3] = q.z;
+}
+
 struct Args1 {
+  // the body columns: with FULL the state's (pos, rot, v, w, obj, the
+  // response type resp and the row mask, ext_f, ext_t); without it the
+  // post-integrate pose and velocities, the substep start (prev_pos,
+  // prev_rot) and the static columns (im, ii, mu_s, mu_d, obj, dyn)
   const float *pos, *rot, *v, *w, *prev_pos, *prev_rot, *im, *ii, *mu_s, *mu_d;
   const int* obj;
   const uint8_t* dyn;
@@ -2136,69 +2454,295 @@ struct Args1 {
   int n, K, bounce;
   float relax, spec;
   float *o_pos, *o_rot, *o_v, *o_w;
+  float* scratch;  // [W, kScratchCh, substep_scratch(K)], or null when K <= kWindow
+  // FULL: the integrate's inputs, the stashes out, the joints (JointConstraint
+  // fields [W, J, ...], their row mask) and the entity store [W, E] the
+  // joints' handles are looked up in (the body archetype's index arch)
+  const int* resp;
+  const uint8_t* mask;
+  const float *ext_f, *ext_t, *gravity;
+  int resp_dynamic;
+  float *o_prev_pos, *o_prev_rot, *o_ps_pos, *o_ps_rot, *o_ps_v, *o_ps_w;
+  int J, E, arch, id_bits;
+  const int *j_e1, *j_e2, *j_type;
+  const uint8_t* j_mask;
+  const float *j_ar1, *j_ar2, *j_sep, *j_a1, *j_a2, *j_r1, *j_r2;
+  const int *e_arch, *e_row, *e_gen;
 };
 
-// One substep (JAX _make_kernel): the caller integrated; its inputs are the
-// post-integrate pose and velocities and the substep start.
-__global__ void __launch_bounds__(kMaxThreads) substep_kernel(Args1 a) {
-  extern __shared__ float smem[];
-  const int wld = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
-  const int n = a.n, K = a.K;
-  const Smem s = carve(smem, n, K, false, false, T);
-  float* sb = s.sb;
-  const size_t b0 = static_cast<size_t>(wld) * n;
+// solver.integrate for one body: semi-implicit Euler with the gyroscopic
+// term, for a dynamic body with mass (live); the others keep their state.
+__device__ __forceinline__ void integrate_t(V3 p, Q4 rot, V3 v, V3 w, float im, V3 ii, V3 f,
+                                            V3 tq, bool live, float h, V3 g, V3& pn, Q4& rn,
+                                            V3& vn, V3& wn) {
+  vn = live ? mk(v.x + h * (g.x + f.x * im), v.y + h * (g.y + f.y * im),
+                 v.z + h * (g.z + f.z * im))
+            : v;
+  pn = live ? mk(p.x + h * vn.x, p.y + h * vn.y, p.z + h * vn.z) : p;
+  const V3 inertia = mk(ii.x > 0.0f ? 1.0f / fmaxf(ii.x, 1e-12f) : 0.0f,
+                        ii.y > 0.0f ? 1.0f / fmaxf(ii.y, 1e-12f) : 0.0f,
+                        ii.z > 0.0f ? 1.0f / fmaxf(ii.z, 1e-12f) : 0.0f);
+  V3 om_b = qrot_inv_t(rot, w);
+  const V3 gyro = cross_t(om_b, mk(inertia.x * om_b.x, inertia.y * om_b.y, inertia.z * om_b.z));
+  const V3 tau_b = qrot_inv_t(rot, tq);
+  om_b = mk(om_b.x + h * ii.x * (tau_b.x - gyro.x), om_b.y + h * ii.y * (tau_b.y - gyro.y),
+            om_b.z + h * ii.z * (tau_b.z - gyro.z));
+  wn = live ? qrot_t(rot, om_b) : w;
+  const Q4 d = qmul(Q4{0.0f, wn.x, wn.y, wn.z}, rot);
+  rn = live ? qnormalize_t(Q4{rot.w + h * (0.5f * d.w), rot.x + h * (0.5f * d.x),
+                              rot.y + h * (0.5f * d.y), rot.z + h * (0.5f * d.z)})
+            : rot;
+}
 
-  for (int b = tid; b < n; b += T) {
-    const size_t g = b0 + b;
-    for (int c = 0; c < 3; ++c) {
-      const float p = a.pos[3 * g + c], v = a.v[3 * g + c], w = a.w[3 * g + c];
-      sb[(kPos + c) * n + b] = p;
-      sb[(kIPos + c) * n + b] = p;
-      sb[(kV + c) * n + b] = v;
-      sb[(kIV + c) * n + b] = v;
-      sb[(kW + c) * n + b] = w;
-      sb[(kIW + c) * n + b] = w;
-      sb[(kPrevPos + c) * n + b] = a.prev_pos[3 * g + c];
-      sb[(kIi + c) * n + b] = a.ii[3 * g + c];
-    }
-    for (int c = 0; c < 4; ++c) {
-      sb[(kRot + c) * n + b] = a.rot[4 * g + c];
-      sb[(kIRot + c) * n + b] = a.rot[4 * g + c];
-      sb[(kPrevRot + c) * n + b] = a.prev_rot[4 * g + c];
-    }
-    sb[kIm * n + b] = a.im[g];
-    sb[kMuS * n + b] = a.mu_s[g];
-    sb[kMuD * n + b] = a.mu_d[g];
-    sb[kDyn * n + b] = a.dyn[g] ? 1.0f : 0.0f;
-    sb[kObj * n + b] = __int_as_float(a.obj[g]);
+// The body row of entity handle e (StateManager.lookup): -1 unless the
+// handle is live (its generation current) and its entity in archetype arch.
+__device__ __forceinline__ int joint_row(const Args1& a, size_t w0, int e) {
+  const int id = e & ((1 << a.id_bits) - 1);
+  const int gen = (e >> a.id_bits) & ((1 << (31 - a.id_bits)) - 1);
+  const size_t g = w0 + min(max(id, 0), a.E - 1);
+  const int arch = a.e_arch[g];
+  const bool live = e >= 0 && arch >= 0 && (a.e_gen[g] & ((1 << (31 - a.id_bits)) - 1)) == gen;
+  return live && arch == a.arch ? a.e_row[g] : -1;
+}
+
+
+// One live joint's contributions to its two bodies (solver.solve_joints,
+// term by term): out[0..5] body 1's (dx, dw), out[6..11] body 2's.  x, q,
+// im, ii: the bodies' pose after the substep and their inverse mass and
+// inertia (zero unless dynamic).
+__device__ void joint_terms(const Args1& a, size_t g, const V3 (&x)[2], const Q4 (&q)[2],
+                            const float (&im)[2], const V3 (&ii)[2], float (&out)[kJointCh]) {
+  const bool fixed = a.j_type[g] == 0;
+  const float relax = a.relax;
+  // angular: Fixed 2 vec((q1 aq1)(q2 aq2)^-1), Hinge a1w x a2w
+  const Q4 o0 = qnormalize_t(qmul(q[0], ldg4(a.j_ar1, g)));
+  const Q4 o1 = qnormalize_t(qmul(q[1], ldg4(a.j_ar2, g)));
+  const Q4 diff = qmul(o0, Q4{o1.w, -o1.x, -o1.y, -o1.z});
+  const V3 dq = fixed ? mk(2.0f * diff.x, 2.0f * diff.y, 2.0f * diff.z)
+                      : cross_t(qrot_t(q[0], ldg3(a.j_a1, g)), qrot_t(q[1], ldg3(a.j_a2, g)));
+  const float mag = sqrtf(dot(dq, dq));
+  const float md = fmaxf(mag, 1e-12f);
+  const V3 dir = mk(dq.x / md, dq.y / md, dq.z / md);
+  V3 nl[2];
+  float wa = 0.0f;
+#pragma unroll
+  for (int sd = 0; sd < 2; ++sd) {
+    nl[sd] = qrot_inv_t(q[sd], dir);
+    const float ws = nl[sd].x * ii[sd].x * nl[sd].x + nl[sd].y * ii[sd].y * nl[sd].y +
+                     nl[sd].z * ii[sd].z * nl[sd].z;
+    wa = sd ? wa + ws : ws;
   }
-  stage_rows(s, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
-  const int kc = finish_slots(s, a.tab, n, K, tid, T);
-  solve_substep<false>(s, a.tab, n, K, kc, a.h[wld], a.rest_thr[wld], a.relax, a.spec,
-                       a.bounce != 0, kFresh, tid, T);
-
-  for (int b = tid; b < n; b += T) {
-    const size_t g = b0 + b;
-    for (int c = 0; c < 3; ++c) {
-      a.o_pos[3 * g + c] = sb[(kPos + c) * n + b];
-      a.o_v[3 * g + c] = sb[(kV + c) * n + b];
-      a.o_w[3 * g + c] = sb[(kW + c) * n + b];
-    }
-    for (int c = 0; c < 4; ++c) a.o_rot[4 * g + c] = sb[(kRot + c) * n + b];
+  const float dla = (mag > 1e-9f && wa > 1e-12f ? mag / fmaxf(wa, 1e-12f) : 0.0f) * relax;
+  V3 dw[2];
+#pragma unroll
+  for (int sd = 0; sd < 2; ++sd)
+    dw[sd] = qrot_t(q[sd], mk(ii[sd].x * nl[sd].x * dla, ii[sd].y * nl[sd].y * dla,
+                              ii[sd].z * nl[sd].z * dla));
+  // positional: Fixed keeps the separation along the attachment x axis and
+  // zero along the others; Hinge pins the attachment points
+  const V3 rw[2] = {qrot_t(q[0], ldg3(a.j_r1, g)), qrot_t(q[1], ldg3(a.j_r2, g))};
+  const V3 dr = sub(add(x[1], rw[1]), add(x[0], rw[0]));
+  const V3 a1 = qrot_t(o0, mk(1.0f, 0.0f, 0.0f)), b1 = qrot_t(o0, mk(0.0f, 1.0f, 0.0f));
+  const V3 c1 = cross_t(a1, b1);
+  const float as = dot(dr, a1) - a.j_sep[g], bs = dot(dr, b1), cs = dot(dr, c1);
+  const V3 corr = fixed ? mk(as * a1.x + bs * b1.x + cs * c1.x, as * a1.y + bs * b1.y + cs * c1.y,
+                             as * a1.z + bs * b1.z + cs * c1.z)
+                        : dr;
+  const float cmag = sqrtf(dot(corr, corr));
+  const float cd = fmaxf(cmag, 1e-12f);
+  const V3 nrm = mk(corr.x / cd, corr.y / cd, corr.z / cd);
+  float wp = 0.0f;
+#pragma unroll
+  for (int sd = 0; sd < 2; ++sd) {
+    const V3 r = qrot_inv_t(q[sd], cross_t(rw[sd], nrm));
+    const float ws = im[sd] + (r.x * ii[sd].x * r.x + r.y * ii[sd].y * r.y + r.z * ii[sd].z * r.z);
+    wp = sd ? wp + ws : ws;
+  }
+  const float dlp = (cmag > 1e-9f && wp > 1e-12f ? cmag / fmaxf(wp, 1e-12f) : 0.0f) * relax;
+  const V3 pimp = mk(dlp * nrm.x, dlp * nrm.y, dlp * nrm.z);
+#pragma unroll
+  for (int sd = 0; sd < 2; ++sd) {
+    const V3 p = sd ? mk(-pimp.x, -pimp.y, -pimp.z) : pimp;
+    const V3 r = qrot_inv_t(q[sd], cross_t(rw[sd], p));
+    const V3 dwp = qrot_t(q[sd], mk(ii[sd].x * r.x, ii[sd].y * r.y, ii[sd].z * r.z));
+    const V3 turn = sd ? dw[1] : mk(-dw[0].x, -dw[0].y, -dw[0].z);
+    float* o = out + 6 * sd;
+    o[0] = p.x * im[sd];
+    o[1] = p.y * im[sd];
+    o[2] = p.z * im[sd];
+    o[3] = turn.x + dwp.x;
+    o[4] = turn.y + dwp.y;
+    o[5] = turn.z + dwp.z;
   }
 }
 
-// The block size of either kernel for n bodies and K slots; raises the
-// kernel's dynamic shared-memory limit to smem when needed.
-template <typename Kernel>
-cudaError_t launch_shape(Kernel kernel, int n, int K, size_t smem, int* threads) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+// Kernel 5 (JAX _make_kernel): one substep of a world with joints.  FULL:
+// the whole substep node in one launch — the integrate from the state's
+// columns (the per-object constants from the table, masked by dynamic =
+// the response type and the row mask), steps 2-9, the joint solve on the
+// post-substep pose (one thread a joint: the handles' rows, then both
+// sides' terms into shared memory; then one thread a body adds side 1's
+// terms over the joints in joint order, then side 2's, and applies them)
+// and the writeback (dynamic rows take the solve, the others keep their
+// pose and velocity), with the three stashes out.  Without FULL, steps
+// 2-9 alone from the caller's post-integrate pose and velocities (the JAX
+// kernel's contract).
+template <bool FULL>
+__global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kernel(Args1 a) {
+  extern __shared__ float smem[];
+  const int wld = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
+  const int n = a.n, K = a.K, J = FULL ? a.J : 0;
+  const Smem s = carve_window(
+      smem, n, K, J, T,
+      a.scratch ? a.scratch + static_cast<size_t>(wld) * kScratchCh * substep_scratch(K) : nullptr);
+  float* sb = s.sb;
+  const size_t b0 = static_cast<size_t>(wld) * n;
+  const float h1 = a.h[wld];
+
+  for (int b = tid; b < n; b += T) {
+    const size_t g = b0 + b;
+    if (FULL) {
+      const int o = a.obj[g];
+      const bool dy = a.resp[g] == a.resp_dynamic && a.mask[g] != 0;
+      const float im = dy ? a.tab.inv_mass(o) : 0.0f;
+      const V3 ii = dy ? mk(a.tab.inv_inertia(o, 0), a.tab.inv_inertia(o, 1),
+                            a.tab.inv_inertia(o, 2))
+                       : mk(0.0f, 0.0f, 0.0f);
+      const V3 p = ldg3(a.pos, g), v = ldg3(a.v, g), w = ldg3(a.w, g);
+      const Q4 rot = ldg4(a.rot, g);
+      V3 pn, vn, wn;
+      Q4 rn;
+      integrate_t(p, rot, v, w, im, ii, ldg3(a.ext_f, g), ldg3(a.ext_t, g), dy && im > 0.0f, h1,
+                  mk(a.gravity[3 * wld], a.gravity[3 * wld + 1], a.gravity[3 * wld + 2]), pn, rn,
+                  vn, wn);
+      st3(sb, kPrevPos, b, n, p);
+      st4(sb, kPrevRot, b, n, rot);
+      st3(sb, kPos, b, n, pn);
+      st4(sb, kRot, b, n, rn);
+      st3(sb, kIPos, b, n, pn);
+      st4(sb, kIRot, b, n, rn);
+      st3(sb, kIV, b, n, vn);
+      st3(sb, kIW, b, n, wn);
+      st3(sb, kIi, b, n, ii);
+      sb[kIm * n + b] = im;
+      sb[kMuS * n + b] = a.tab.mu_s(o);
+      sb[kMuD * n + b] = a.tab.mu_d(o);
+      sb[kDyn * n + b] = dy ? 1.0f : 0.0f;
+      sb[kObj * n + b] = __int_as_float(o);
+    } else {
+      for (int c = 0; c < 3; ++c) {
+        const float p = a.pos[3 * g + c], v = a.v[3 * g + c], w = a.w[3 * g + c];
+        sb[(kPos + c) * n + b] = p;
+        sb[(kIPos + c) * n + b] = p;
+        sb[(kIV + c) * n + b] = v;
+        sb[(kIW + c) * n + b] = w;
+        sb[(kPrevPos + c) * n + b] = a.prev_pos[3 * g + c];
+        sb[(kIi + c) * n + b] = a.ii[3 * g + c];
+      }
+      for (int c = 0; c < 4; ++c) {
+        sb[(kRot + c) * n + b] = a.rot[4 * g + c];
+        sb[(kIRot + c) * n + b] = a.rot[4 * g + c];
+        sb[(kPrevRot + c) * n + b] = a.prev_rot[4 * g + c];
+      }
+      sb[kIm * n + b] = a.im[g];
+      sb[kMuS * n + b] = a.mu_s[g];
+      sb[kMuD * n + b] = a.mu_d[g];
+      sb[kDyn * n + b] = a.dyn[g] ? 1.0f : 0.0f;
+      sb[kObj * n + b] = __int_as_float(a.obj[g]);
+    }
   }
-  *threads = block_threads(n, K);
-  return cudaSuccess;
+  const int kc = finish_slots_win(s, a.tab, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
+  solve_substep<false, true>(s, a.tab, n, K, kc, h1, a.rest_thr[wld], a.relax, a.spec,
+                             a.bounce != 0, kFresh, tid, T);
+
+  if (!FULL) {
+    for (int b = tid; b < n; b += T) {
+      const size_t g = b0 + b;
+      for (int c = 0; c < 3; ++c) {
+        a.o_pos[3 * g + c] = sb[(kPos + c) * n + b];
+        a.o_v[3 * g + c] = sb[(kV + c) * n + b];
+        a.o_w[3 * g + c] = sb[(kW + c) * n + b];
+      }
+      for (int c = 0; c < 4; ++c) a.o_rot[4 * g + c] = sb[(kRot + c) * n + b];
+    }
+    return;
+  }
+
+  // the joints: each live one's rows and terms (a dead one costs its mask)
+  const size_t j0 = static_cast<size_t>(wld) * J, e0 = static_cast<size_t>(wld) * a.E;
+  bool any = false;
+  for (int j = tid; j < J; j += T) {
+    const size_t g = j0 + j;
+    const int r1 = a.j_mask[g] ? joint_row(a, e0, a.j_e1[g]) : -1;
+    const int r2 = a.j_mask[g] ? joint_row(a, e0, a.j_e2[g]) : -1;
+    const bool live = r1 >= 0 && r2 >= 0;
+    s.sjr[j] = live && r1 < n ? r1 : -1;
+    s.sjr[J + j] = live && r2 < n ? r2 : -1;
+    if (!live) continue;
+    any = true;
+    const int rows[2] = {min(r1, n - 1), min(r2, n - 1)};
+    V3 x[2], ii[2];
+    Q4 q[2];
+    float im[2];
+#pragma unroll
+    for (int sd = 0; sd < 2; ++sd) {
+      x[sd] = ld3(sb, kPos, rows[sd], n);
+      q[sd] = ld4(sb, kRot, rows[sd], n);
+      im[sd] = sb[kIm * n + rows[sd]];
+      ii[sd] = ld3(sb, kIi, rows[sd], n);
+    }
+    float out[kJointCh];
+    joint_terms(a, g, x, q, im, ii, out);
+#pragma unroll
+    for (int c = 0; c < kJointCh; ++c) s.sjv[c * J + j] = out[c];
+  }
+  const bool joints = __syncthreads_or(any) != 0;
+
+  // each body: its joint sums (side 1's over the joints in order, then side
+  // 2's), the pose they move it to, and the writeback
+  for (int b = tid; b < n; b += T) {
+    const size_t g = b0 + b;
+    float acc1[6], acc2[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) acc1[c] = acc2[c] = 0.0f;
+    if (joints)
+      for (int j = 0; j < J; ++j) {
+        if (s.sjr[j] == b)
+#pragma unroll
+          for (int c = 0; c < 6; ++c) acc1[c] = acc1[c] + s.sjv[c * J + j];
+        if (s.sjr[J + j] == b)
+#pragma unroll
+          for (int c = 0; c < 6; ++c) acc2[c] = acc2[c] + s.sjv[(6 + c) * J + j];
+      }
+    const V3 p = ld3(sb, kPos, b, n);
+    const Q4 r = ld4(sb, kRot, b, n);
+    const V3 pj =
+        mk(p.x + (acc1[0] + acc2[0]), p.y + (acc1[1] + acc2[1]), p.z + (acc1[2] + acc2[2]));
+    const Q4 rj = rot_delta_t(r, mk(acc1[3] + acc2[3], acc1[4] + acc2[4], acc1[5] + acc2[5]));
+    const bool dy = sb[kDyn * n + b] > 0.5f;
+    const V3 p0 = ld3(sb, kPrevPos, b, n);
+    const Q4 r0 = ld4(sb, kPrevRot, b, n);
+    const V3 v = dy ? ld3(sb, kV, b, n) : ldg3(a.v, g);
+    const V3 w = dy ? ld3(sb, kW, b, n) : ldg3(a.w, g);
+    stg3(a.o_pos, g, dy ? pj : p0);
+    stg4(a.o_rot, g, dy ? rj : r0);
+    stg3(a.o_v, g, v);
+    stg3(a.o_w, g, w);
+    stg3(a.o_prev_pos, g, p0);
+    stg4(a.o_prev_rot, g, r0);
+    stg3(a.o_ps_pos, g, ld3(sb, kIPos, b, n));
+    stg4(a.o_ps_rot, g, ld4(sb, kIRot, b, n));
+    stg3(a.o_ps_v, g, ld3(sb, kIV, b, n));
+    stg3(a.o_ps_w, g, ld3(sb, kIW, b, n));
+  }
+}
+
+// Raises a kernel's dynamic shared-memory limit to smem when needed.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <int OPTS>
@@ -2206,27 +2750,35 @@ cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
   constexpr bool bp = (OPTS & kOptBp) != 0;
   constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
   const size_t smem = smem_bytes(a.n, a.K, bp, cache);
-  int threads;
-  const cudaError_t err = launch_shape(fused_substep_kernel<OPTS>, a.n, a.K, smem, &threads);
+  const cudaError_t err = allow_smem(fused_substep_kernel<OPTS>, smem);
   if (err != cudaSuccess) return err;
-  fused_substep_kernel<OPTS><<<W, threads, smem, stream>>>(a);
+  fused_substep_kernel<OPTS><<<W, block_threads(a.n, a.K), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// Threads a CTA and CTAs an SM of a kernel at n bodies and K slots.
-template <typename Kernel>
-cudaError_t occupancy_of(Kernel kernel, int n, int K, size_t smem, int* threads, int* blocks) {
-  const cudaError_t err = launch_shape(kernel, n, K, smem, threads);
+template <bool FULL>
+cudaError_t launch_substep(const Args1& a, int W, cudaStream_t stream) {
+  const size_t smem = substep_smem_bytes(a.n, a.K, FULL ? a.J : 0);
+  const cudaError_t err = allow_smem(substep_kernel<FULL>, smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, *threads, smem);
+  substep_kernel<FULL><<<W, substep_threads(a.n, a.K), smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// CTAs an SM of a kernel at `threads` a CTA and smem bytes of shared memory.
+template <typename Kernel>
+cudaError_t occupancy_of(Kernel kernel, int threads, size_t smem, int* blocks) {
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
 }
 
 template <int OPTS>
 cudaError_t occupancy_fused(int n, int K, int* threads, int* blocks) {
   constexpr bool bp = (OPTS & kOptBp) != 0;
   constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
-  return occupancy_of(fused_substep_kernel<OPTS>, n, K, smem_bytes(n, K, bp, cache), threads,
-                      blocks);
+  *threads = block_threads(n, K);
+  return occupancy_of(fused_substep_kernel<OPTS>, *threads, smem_bytes(n, K, bp, cache), blocks);
 }
 
 // ---------------------------------------------------------------------------
@@ -2253,12 +2805,6 @@ struct FlagArgs {
   uint8_t *o_active, *o_stable;
 };
 
-__device__ __forceinline__ V3 ldg3(const float* p, size_t g) {
-  return mk(p[3 * g], p[3 * g + 1], p[3 * g + 2]);
-}
-__device__ __forceinline__ Q4 ldg4(const float* p, size_t g) {
-  return Q4{p[4 * g], p[4 * g + 1], p[4 * g + 2], p[4 * g + 3]};
-}
 
 // The world flags of the fused node (physics/__init__.py; its plain version
 // is ops/substep_kernel.py world_flags_plain), one warp a world, its lanes
@@ -2506,10 +3052,13 @@ extern "C" int fused_substep_occupancy(int opts, int n, int K, int* threads, int
   return static_cast<int>(err);
 }
 
-// The same for the single-substep kernel.
-extern "C" int substep_occupancy(int n, int K, int* threads, int* blocks) {
-  return static_cast<int>(
-      occupancy_of(substep_kernel, n, K, smem_bytes(n, K, false, false), threads, blocks));
+// The same for kernel 5 (substep_kernel) at n bodies, K slots and J joints,
+// with its integrate, joints and writeback (full) or without.
+extern "C" int substep_occupancy(int n, int K, int J, int full, int* threads, int* blocks) {
+  *threads = substep_threads(n, K);
+  const size_t smem = substep_smem_bytes(n, K, full ? J : 0);
+  return static_cast<int>(full ? occupancy_of(substep_kernel<true>, *threads, smem, blocks)
+                               : occupancy_of(substep_kernel<false>, *threads, smem, blocks));
 }
 
 extern "C" int fused_substep_launch(
@@ -2719,21 +3268,21 @@ extern "C" int asleep_surface_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernel 5 without its integrate and joints (the JAX kernel's contract):
+// steps 2-9 from the post-integrate pose and velocities.  scratch: [W,
+// kScratchCh, substep_scratch(K)] floats, or null when K <= kWindow.
 extern "C" int substep_launch(
     const void* pos, const void* rot, const void* v, const void* w, const void* prev_pos,
     const void* prev_rot, const void* im, const void* ii, const void* mu_s, const void* mu_d,
     const void* obj, const void* dyn, const void* h, const void* rest_thr, const void* rows_i,
     const void* rows_j, const void* kvalid, const void* table, int num_objects, int vm, int W,
     int n, int K, float relaxation, float speculative, int bounce, void* o_pos, void* o_rot,
-    void* o_v, void* o_w, void* stream) {
+    void* o_v, void* o_w, void* scratch, void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
-  if (n <= 0 || K <= 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts)
+  if (n <= 0 || K <= 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts ||
+      (substep_scratch(K) > 0 && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(n, K, false, false);
-  int threads;
-  const cudaError_t err = launch_shape(substep_kernel, n, K, smem, &threads);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Args1 a;
+  Args1 a = {};
   a.pos = static_cast<const float*>(pos);
   a.rot = static_cast<const float*>(rot);
   a.v = static_cast<const float*>(v);
@@ -2761,6 +3310,86 @@ extern "C" int substep_launch(
   a.o_rot = static_cast<float*>(o_rot);
   a.o_v = static_cast<float*>(o_v);
   a.o_w = static_cast<float*>(o_w);
-  substep_kernel<<<W, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  a.scratch = static_cast<float*>(scratch);
+  return static_cast<int>(launch_substep<false>(a, W, static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel 5 with its integrate, joint solve and writeback: the kernel-mode
+// substep node of a world with joints in one launch.  Body columns [W, n]:
+// pos, rot, v, w, obj, resp (response type; dynamic = resp_dynamic and the
+// row mask), mask, ext_f, ext_t; h, rest_thr [W], gravity [W, 3]; the
+// candidate rows [W, K]; the joints [W, J]: e1, e2, joint_type, attach_rot1/2,
+// separation, a1/a2_local, r1/r2, their mask; the entity store [W, E]
+// (loc_arch, loc_row, gen), the body archetype's index arch and the entity
+// handles' id bits.  Outputs [W, n]: pos, rot, v, w, prev_pos, prev_rot,
+// ps_pos, ps_rot, ps_v, ps_w.
+extern "C" int substep_node_launch(
+    const void* pos, const void* rot, const void* v, const void* w, const void* obj,
+    const void* resp, const void* mask, const void* ext_f, const void* ext_t, const void* h,
+    const void* gravity, const void* rest_thr, const void* rows_i, const void* rows_j,
+    const void* kvalid, const void* table, int num_objects, int vm, int W, int n, int K,
+    float relaxation, float speculative, int bounce, int resp_dynamic, int J, const void* j_e1,
+    const void* j_e2, const void* j_type, const void* j_ar1, const void* j_ar2,
+    const void* j_sep, const void* j_a1, const void* j_a2, const void* j_r1, const void* j_r2,
+    const void* j_mask, int E, const void* e_arch, const void* e_row, const void* e_gen,
+    int arch, int id_bits, void* o_pos, void* o_rot, void* o_v, void* o_w, void* o_prev_pos,
+    void* o_prev_rot, void* o_ps_pos, void* o_ps_rot, void* o_ps_v, void* o_ps_w,
+    void* scratch, void* stream) {
+  if (W <= 0) return static_cast<int>(cudaSuccess);
+  if (n <= 0 || K <= 0 || J < 0 || E <= 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts ||
+      id_bits < 1 || id_bits > 30 || (substep_scratch(K) > 0 && !scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args1 a = {};
+  a.pos = static_cast<const float*>(pos);
+  a.rot = static_cast<const float*>(rot);
+  a.v = static_cast<const float*>(v);
+  a.w = static_cast<const float*>(w);
+  a.obj = static_cast<const int*>(obj);
+  a.resp = static_cast<const int*>(resp);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.ext_f = static_cast<const float*>(ext_f);
+  a.ext_t = static_cast<const float*>(ext_t);
+  a.h = static_cast<const float*>(h);
+  a.gravity = static_cast<const float*>(gravity);
+  a.rest_thr = static_cast<const float*>(rest_thr);
+  a.rows_i = static_cast<const int*>(rows_i);
+  a.rows_j = static_cast<const int*>(rows_j);
+  a.kvalid = static_cast<const uint8_t*>(kvalid);
+  a.tab = Table{static_cast<const float*>(table), kTableFixed + 3 * vm, vm};
+  a.n = n;
+  a.K = K;
+  a.bounce = bounce;
+  a.relax = relaxation;
+  a.spec = speculative;
+  a.resp_dynamic = resp_dynamic;
+  a.J = J;
+  a.j_e1 = static_cast<const int*>(j_e1);
+  a.j_e2 = static_cast<const int*>(j_e2);
+  a.j_type = static_cast<const int*>(j_type);
+  a.j_ar1 = static_cast<const float*>(j_ar1);
+  a.j_ar2 = static_cast<const float*>(j_ar2);
+  a.j_sep = static_cast<const float*>(j_sep);
+  a.j_a1 = static_cast<const float*>(j_a1);
+  a.j_a2 = static_cast<const float*>(j_a2);
+  a.j_r1 = static_cast<const float*>(j_r1);
+  a.j_r2 = static_cast<const float*>(j_r2);
+  a.j_mask = static_cast<const uint8_t*>(j_mask);
+  a.E = E;
+  a.e_arch = static_cast<const int*>(e_arch);
+  a.e_row = static_cast<const int*>(e_row);
+  a.e_gen = static_cast<const int*>(e_gen);
+  a.arch = arch;
+  a.id_bits = id_bits;
+  a.o_pos = static_cast<float*>(o_pos);
+  a.o_rot = static_cast<float*>(o_rot);
+  a.o_v = static_cast<float*>(o_v);
+  a.o_w = static_cast<float*>(o_w);
+  a.o_prev_pos = static_cast<float*>(o_prev_pos);
+  a.o_prev_rot = static_cast<float*>(o_prev_rot);
+  a.o_ps_pos = static_cast<float*>(o_ps_pos);
+  a.o_ps_rot = static_cast<float*>(o_ps_rot);
+  a.o_ps_v = static_cast<float*>(o_ps_v);
+  a.o_ps_w = static_cast<float*>(o_ps_w);
+  a.scratch = static_cast<float*>(scratch);
+  return static_cast<int>(launch_substep<true>(a, W, static_cast<cudaStream_t>(stream)));
 }

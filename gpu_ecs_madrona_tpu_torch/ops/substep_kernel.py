@@ -54,22 +54,29 @@ is the plain version's gather).
 
 ``substep`` is the counterpart of ``SubstepKernel`` (``_run``, one
 substep per call), which worlds with joints take: steps 2-9 once, from
-the post-integrate pose and velocities its caller passes (the caller
-integrates before the call and solves the joints after it).  Both
-versions share steps 2-9 with the fused ones (``_solve_substep`` here,
-``solve_substep`` in the .cu).
+the post-integrate pose and velocities its caller passes (the JAX
+kernel's contract).  ``substep_node`` is the kernel-mode substep node of
+such a world in one launch of the same kernel: the integrate
+(``solver.integrate``) from the state's columns, steps 2-9, the joint
+solve (``solver.solve_joints``, the joints' entity handles looked up in
+the kernel) and the writeback (dynamic rows take the solve, the others
+keep their pose and velocity), with the substep's three stashes.  Its
+plain version ``substep_node_plain`` is that route composed.  Both share
+steps 2-9 with the fused ones (``_solve_substep`` here, ``solve_substep``
+in the .cu).
 
-On CUDA tensors ``fused_substep`` and ``substep`` launch the hand-written
-kernels in ``csrc/substep_kernels.cu`` (one CTA per world; its notes say
-what bounds them and how they are laid out) or raise; on CPU tensors they
-run ``fused_substep_plain`` and ``substep_plain``, the same loop in
-batched PyTorch over [W, K] pair tensors.  The segment sums add each
-body's A-side contributions in ascending slot order, then its B-side
-ones, in both versions (a stable sort and ``segment_reduce`` in the plain
-version, a loop over the slots in the kernel), so both repeat bit for bit
-from run to run.  Launches are counted in ``FusedSubstepKernel.launches``,
-``SubstepKernel.launches``, ``WorldFlags.launches`` and
-``AsleepSurface.launches``.
+On CUDA tensors ``fused_substep``, ``substep`` and ``substep_node`` launch
+the hand-written kernels in ``csrc/substep_kernels.cu`` (one CTA per
+world; its notes say what bounds them and how they are laid out) or
+raise; on CPU tensors they run ``fused_substep_plain``, ``substep_plain``
+and ``substep_node_plain``, the same loop in batched PyTorch over [W, K]
+pair tensors.  The segment sums add each body's A-side contributions in
+ascending slot order, then its B-side ones, in both versions (a stable
+sort and ``segment_reduce`` in the plain version, a loop over the slots
+in the kernel), and the joint sums each side's joints in joint order, so
+both repeat bit for bit from run to run.  Launches are counted in
+``FusedSubstepKernel.launches``, ``SubstepKernel.launches``,
+``WorldFlags.launches`` and ``AsleepSurface.launches``.
 """
 
 from __future__ import annotations
@@ -80,8 +87,12 @@ import math
 
 import torch
 
+from gpu_ecs_madrona_tpu_torch.core.component import ENTITY_ID_BITS
+from gpu_ecs_madrona_tpu_torch.core.state import entity_rows
 from gpu_ecs_madrona_tpu_torch.ops import _build
 from gpu_ecs_madrona_tpu_torch.physics import pairs as pk
+from gpu_ecs_madrona_tpu_torch.physics import solver
+from gpu_ecs_madrona_tpu_torch.physics.components import RESPONSE_DYNAMIC
 from gpu_ecs_madrona_tpu_torch.utils.compaction import first_partners, rank_slots
 
 # The JAX kernel's packed channels ([W, C, n], body lanes last), for
@@ -138,6 +149,46 @@ def smem_bytes(n: int, K: int, bp: bool = False, cache: bool = False) -> int:
               + (MC_CACHE * K if cache else 0))
     ints = 6 * K + 3 * n + 1 + 8 + (6 * n if bp else 0)
     return 4 * floats + 4 * ints + 4
+
+
+# Kernel 5 (substep_kernel, see csrc/substep_kernels.cu): its block, its
+# shared window of work entries, and the global scratch channels of an entry
+# past the window; a joint's kJointCh floats of shared memory.
+SUBSTEP_THREADS = 128
+SUBSTEP_WINDOW = 320
+SCRATCH_CH = 46
+JOINT_CH = 12
+
+
+def substep_window(K: int) -> int:
+    """Kernel 5's work entries in shared memory for K slots."""
+    return min(K, SUBSTEP_WINDOW)
+
+
+def substep_threads(n: int, K: int) -> int:
+    """Kernel 5's block size: one thread a window entry and a body, in whole
+    warps, at most SUBSTEP_THREADS."""
+    return min(-(-max(n, substep_window(K)) // 32) * 32, SUBSTEP_THREADS)
+
+
+def substep_smem_bytes(n: int, K: int, J: int = 0) -> int:
+    """Kernel 5's shared memory for n bodies, K slots and J joints
+    (substep_smem_bytes in the .cu): 54 floats a body, 18 a window entry and
+    24 more one past the block's threads, 12 a joint; 4 ints a window entry,
+    3 n + 1 list offsets and cursors, 8 world ints and 2 a joint."""
+    kw, T = substep_window(K), substep_threads(n, K)
+    floats = 54 * n + 24 * max(kw - T, 0) + 18 * kw + JOINT_CH * J
+    ints = 4 * kw + 3 * n + 1 + 8 + 2 * J
+    return 4 * floats + 4 * ints
+
+
+def substep_scratch(W: int, K: int, device):
+    """Kernel 5's global scratch for W worlds and K slots, [W, SCRATCH_CH,
+    K - window] float32 (the work entries past the window), or None when K
+    fits the window."""
+    if K <= SUBSTEP_WINDOW:
+        return None
+    return torch.empty((W, SCRATCH_CH, K - SUBSTEP_WINDOW), dtype=torch.float32, device=device)
 
 
 def bp_slots(capacity: int) -> int:
@@ -559,6 +610,49 @@ def substep_plain(pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, d
     return {k: torch.stack(x, -1) for k, x in zip(SUBSTEP_KEYS, vals)}
 
 
+NODE_KEYS = ("pos", "rot", "v", "w", "prev_pos", "prev_rot", "ps_pos", "ps_rot", "ps_v", "ps_w")
+# the JointConstraint fields the joint solve reads, with their widths
+JOINT_FIELDS = {"e1": 0, "e2": 0, "joint_type": 0, "attach_rot1": 4, "attach_rot2": 4,
+                "separation": 0, "a1_local": 3, "a2_local": 3, "r1": 3, "r2": 3}
+
+
+def substep_node_plain(pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity,
+                       restitution_threshold, rows_i, rows_j, kvalid, *, tables: pk.ObjTables,
+                       relaxation: float = 1.0, speculative: float = 0.0, joints=None, jmask=None,
+                       eid=None, arch_index: int = 0, observe=None):
+    """The plain version of kernel 5's node launch: the kernel-mode substep
+    node of a world with joints, composed of its route — the per-object
+    constants at obj (inverse mass and inertia zero unless dynamic: resp ==
+    RESPONSE_DYNAMIC and the row mask), ``solver.integrate``,
+    ``substep_plain``, ``solver.solve_joints`` on its pose (the joints'
+    rows by ``core.state.entity_rows``), and the writeback: dynamic rows take the
+    solve, the others keep their pose and velocity.  Body args [W, n(,
+    3/4)] (obj and resp int32, mask bool); pair args [W, K]; h,
+    restitution_threshold [W]; gravity [W, 3]; ``joints`` the
+    JointConstraint field dict [W, J, ...] with its row mask ``jmask`` and
+    the entity store ``eid`` (None: no joint solve).  Returns the dict of
+    NODE_KEYS: the new pose and velocity, the substep start (prev_pos,
+    prev_rot) and the post-integrate stashes (ps_*)."""
+    dyn = (resp == RESPONSE_DYNAMIC) & mask
+    im, ii, mu_s, mu_d = object_columns(obj, dyn, tables)
+    pos_i, rot_i, v_i, w_i, prev_pos, prev_rot = solver.integrate(
+        pos, rot, v, w, im, ii, ext_f, ext_t, dyn, h, gravity)
+    out = substep_plain(pos_i, rot_i, v_i, w_i, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn,
+                        h, restitution_threshold, rows_i, rows_j, kvalid, tables=tables,
+                        relaxation=relaxation, speculative=speculative, observe=observe)
+    p2, r2 = out["pos"], out["rot"]
+    if joints is not None:
+        p2, r2 = solver.solve_joints(p2, r2, im, ii, joints,
+                                     entity_rows(eid, joints["e1"], arch_index),
+                                     entity_rows(eid, joints["e2"], arch_index), jmask,
+                                     relaxation=relaxation)
+    keep = dyn[..., None]
+    vals = (torch.where(keep, p2, pos), torch.where(keep, r2, rot),
+            torch.where(keep, out["v"], v), torch.where(keep, out["w"], w),
+            prev_pos, prev_rot, pos_i, rot_i, v_i, w_i)
+    return dict(zip(NODE_KEYS, vals))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
@@ -576,21 +670,26 @@ def _lib():
         lib.world_flags_launch.restype = I
         lib.asleep_surface_launch.argtypes = [P] * 8 + [I] * 3 + [P] * 19 + [P]
         lib.asleep_surface_launch.restype = I
-        lib.substep_launch.argtypes = [P] * 18 + [I] * 5 + [F, F, I] + [P] * 4 + [P]
+        lib.substep_launch.argtypes = [P] * 18 + [I] * 5 + [F, F, I] + [P] * 4 + [P, P]
         lib.substep_launch.restype = I
+        lib.substep_node_launch.argtypes = (
+            [P] * 16 + [I] * 5 + [F, F] + [I] * 3 + [P] * 11 + [I] + [P] * 3 + [I, I] + [P] * 10
+            + [P, P])
+        lib.substep_node_launch.restype = I
         IP = ctypes.POINTER(ctypes.c_int)
         lib.fused_substep_occupancy.argtypes = [I, I, I, IP, IP]
         lib.fused_substep_occupancy.restype = I
-        lib.substep_occupancy.argtypes = [I, I, IP, IP]
+        lib.substep_occupancy.argtypes = [I, I, I, I, IP, IP]
         lib.substep_occupancy.restype = I
         lib._typed = True
     return lib
 
 
 def kernel_fits(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
-                cache: bool = False) -> str:
-    """'' when the kernel takes these tables and shapes (with the in-kernel
-    broadphase, with a manifold cache), else why not."""
+                cache: bool = False, single: bool = False, joints: int = 0) -> str:
+    """'' when the kernel takes these tables and shapes (the fused kernel
+    with the in-kernel broadphase, with a manifold cache; with ``single``
+    kernel 5 with ``joints`` joints), else why not."""
     if not tables.all_box:
         return ("a non-box hull in the object tables: the kernel's general-hull "
                 "SAT waits (ROADMAP)")
@@ -600,7 +699,7 @@ def kernel_fits(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
         return f"n={n} bodies and K={K} candidate slots must both be >= 1"
     if bp and n > MAX_BP_ROWS:
         return f"the in-kernel broadphase takes at most {MAX_BP_ROWS} body rows, not {n}"
-    need = smem_bytes(n, K, bp, cache)
+    need = substep_smem_bytes(n, K, joints) if single else smem_bytes(n, K, bp, cache)
     if need > MAX_SMEM_BYTES:
         return (f"n={n} bodies and K={K} candidate slots need {need} B of "
                 f"shared memory, over the {MAX_SMEM_BYTES} B a block may have")
@@ -616,7 +715,8 @@ _SPECS = {"pos": (torch.float32, 3), "rot": (torch.float32, 4), "v": (torch.floa
           "ext_f": (torch.float32, 3), "ext_t": (torch.float32, 3), "dyn": (torch.bool, 0),
           "scale": (torch.float32, 3), "live": (torch.bool, 0),
           "aabb_lo": (torch.float32, 3), "aabb_hi": (torch.float32, 3),
-          "apos": (torch.float32, 3), "arot": (torch.float32, 4)}
+          "apos": (torch.float32, 3), "arot": (torch.float32, 4), "resp": (torch.int32, 0),
+          "mask": (torch.bool, 0)}
 
 
 def _check_inputs(name, device, bodies, W, n, K, **others):
@@ -885,11 +985,12 @@ SPECIALISATION_CODES = (0, OPT_REFRESH, OPT_SLEEP, OPT_REFRESH | OPT_SLEEP, OPT_
                         OPT_PERSIST | OPT_BP | OPT_REFRESH | OPT_SLEEP)
 
 
-def occupancy(n: int, K: int, single: bool = False):
+def occupancy(n: int, K: int, single: bool = False, joints=None):
     """The kernels' launch shape at n bodies and K slots, on the current
     card: {specialisation name: (threads a CTA, CTAs an SM)} for the fused
-    kernel's eight specialisations, or (threads, CTAs an SM) of the
-    single-substep kernel with ``single``.  Builds the kernels if needed."""
+    kernel's eight specialisations, or (threads, CTAs an SM) of kernel 5
+    with ``single``: without its integrate and joints, or with ``joints``
+    joints its node launch.  Builds the kernels if needed."""
     lib = _lib()
     threads, blocks = ctypes.c_int(), ctypes.c_int()
 
@@ -899,7 +1000,8 @@ def occupancy(n: int, K: int, single: bool = False):
         return threads.value, blocks.value
 
     if single:
-        return read(lib.substep_occupancy(n, K, ctypes.byref(threads), ctypes.byref(blocks)),
+        return read(lib.substep_occupancy(n, K, int(joints or 0), int(joints is not None),
+                                          ctypes.byref(threads), ctypes.byref(blocks)),
                     "substep")
     return {option_name(code): read(lib.fused_substep_occupancy(
         code, n, K, ctypes.byref(threads), ctypes.byref(blocks)), option_name(code))
@@ -914,15 +1016,28 @@ def option_name(code: int) -> str:
     return "+".join(names) or "none"
 
 
+def _scratch_for(scratch, W, K, device):
+    """The given kernel-5 scratch (checked), or a new one."""
+    if scratch is None:
+        return substep_scratch(W, K, device)
+    want = (W, SCRATCH_CH, K - SUBSTEP_WINDOW)
+    if (K <= SUBSTEP_WINDOW or tuple(scratch.shape) != want or scratch.dtype != torch.float32
+            or scratch.device != device or not scratch.is_contiguous()):
+        raise ValueError(f"substep: scratch must be float32 {list(want)} on {device}")
+    return scratch
+
+
 def substep(pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn, h,
             restitution_threshold, rows_i, rows_j, kvalid, *, tables: pk.ObjTables,
-            relaxation: float = 1.0, speculative: float = 0.0):
-    """One substep after the integrate (the single-substep kernel).  Body
-    args [W, n(, 3/4)] (dyn bool, obj int32); pair args rows_i/rows_j
-    [W, K] int32, kvalid [W, K] bool; h, restitution_threshold [W].
-    Returns the dict of SUBSTEP_KEYS.  CPU tensors: the plain version.
-    CUDA tensors: the kernel, or a raise (bad input, tables or shapes the
-    kernel does not take, a failed launch) — never the plain version."""
+            relaxation: float = 1.0, speculative: float = 0.0, scratch=None):
+    """One substep after the integrate (kernel 5 without its integrate and
+    joints).  Body args [W, n(, 3/4)] (dyn bool, obj int32); pair args
+    rows_i/rows_j [W, K] int32, kvalid [W, K] bool; h,
+    restitution_threshold [W]; ``scratch`` the kernel's global scratch
+    (substep_scratch; made when None).  Returns the dict of SUBSTEP_KEYS.
+    CPU tensors: the plain version.  CUDA tensors: the kernel, or a raise
+    (bad input, tables or shapes the kernel does not take, a failed
+    launch) — never the plain version."""
     args = (pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn, h,
             restitution_threshold, rows_i, rows_j, kvalid)
     kw = dict(tables=tables, relaxation=relaxation, speculative=speculative)
@@ -930,7 +1045,7 @@ def substep(pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn, h,
         return substep_plain(*args, **kw)
     W, n = im.shape
     K = rows_i.shape[1]
-    why = kernel_fits(tables, n, K)
+    why = kernel_fits(tables, n, K, single=True)
     if why:
         raise NotImplementedError(f"substep: {why}")
     named = dict(zip(("pos", "rot", "v", "w", "prev_pos", "prev_rot", "im", "ii", "mu_s",
@@ -938,6 +1053,7 @@ def substep(pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn, h,
     _check_inputs("substep", pos.device, named, W, n, K, h=h,
                   restitution_threshold=restitution_threshold, rows_i=rows_i, rows_j=rows_j,
                   kvalid=kvalid)
+    scratch = _scratch_for(scratch, W, K, pos.device)
     table = tables.kernel_table(pos.device)
     outs = {k: torch.empty((W, n, _WIDTH[k]), dtype=torch.float32, device=pos.device)
             for k in SUBSTEP_KEYS}
@@ -945,18 +1061,92 @@ def substep(pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn, h,
     rc = _lib().substep_launch(
         *(t.data_ptr() for t in args), table.data_ptr(), tables.O, tables.Vm, W, n, K,
         float(relaxation), float(speculative), int(tables.any_restitution),
-        *(outs[k].data_ptr() for k in SUBSTEP_KEYS), stream)
+        *(outs[k].data_ptr() for k in SUBSTEP_KEYS),
+        0 if scratch is None else scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"substep: kernel launch failed with cudaError {rc}")
     SubstepKernel.launches += 1
     return outs
 
 
+def _check_joints(device, W, joints, jmask, eid):
+    """Raise ValueError unless the joint fields are [W, J(, c)] (the handles
+    and joint_type int32, the rest float32), jmask [W, J] bool and the
+    entity store's three columns [W, E] int32, all on ``device`` and
+    contiguous.  Returns (J, E)."""
+    J, E = jmask.shape[1], eid["gen"].shape[1]
+    checks = [("jmask", jmask, torch.bool, (W, J))]
+    for f, c in JOINT_FIELDS.items():
+        dt = torch.int32 if f in ("e1", "e2", "joint_type") else torch.float32
+        checks.append((f, joints[f], dt, (W, J) + ((c,) if c else ())))
+    checks += [(k, eid[k], torch.int32, (W, E)) for k in ("loc_arch", "loc_row", "gen")]
+    for key, t, dt, shape in checks:
+        if t.device != device:
+            raise ValueError(f"substep_node: {key} on {t.device}, pos on {device}")
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"substep_node: {key} must be {dt} {list(shape)}, "
+                             f"got {t.dtype} {list(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"substep_node: {key} must be contiguous")
+    return J, E
+
+
+def substep_node(pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity,
+                 restitution_threshold, rows_i, rows_j, kvalid, *, tables: pk.ObjTables,
+                 relaxation: float = 1.0, speculative: float = 0.0, joints, jmask, eid,
+                 arch_index: int, scratch=None):
+    """The kernel-mode substep node of a world with joints in one launch of
+    kernel 5: the integrate, steps 2-9, the joint solve and the writeback
+    (substep_node_plain, same arguments; ``joints`` the JointConstraint
+    field dict, ``jmask`` its row mask, ``eid`` the entity store, all
+    required).  Returns the dict of NODE_KEYS.  CPU tensors: the plain
+    version.  CUDA tensors: the kernel, or a raise (bad input, tables or
+    shapes the kernel does not take, a failed launch) — never the plain
+    version."""
+    args = (pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity, restitution_threshold,
+            rows_i, rows_j, kvalid)
+    if pos.device.type == "cpu":
+        return substep_node_plain(*args, tables=tables, relaxation=relaxation,
+                                  speculative=speculative, joints=joints, jmask=jmask, eid=eid,
+                                  arch_index=arch_index)
+    W, n = obj.shape
+    K = rows_i.shape[1]
+    dev = pos.device
+    J, E = _check_joints(dev, W, joints, jmask, eid)
+    why = kernel_fits(tables, n, K, single=True, joints=J)
+    if why:
+        raise NotImplementedError(f"substep_node: {why}")
+    _check_inputs("substep_node", dev, dict(pos=pos, rot=rot, v=v, w=w, obj=obj, resp=resp,
+                                            mask=mask, ext_f=ext_f, ext_t=ext_t), W, n, K,
+                  h=h, gravity=gravity, restitution_threshold=restitution_threshold,
+                  rows_i=rows_i, rows_j=rows_j, kvalid=kvalid)
+    scratch = _scratch_for(scratch, W, K, dev)
+    table = tables.kernel_table(dev)
+    outs = {k: torch.empty((W, n, _WIDTH[k]), dtype=torch.float32, device=dev)
+            for k in NODE_KEYS}
+    rc = _lib().substep_node_launch(
+        *(t.data_ptr() for t in args), table.data_ptr(), tables.O, tables.Vm, W, n, K,
+        float(relaxation), float(speculative), int(tables.any_restitution), RESPONSE_DYNAMIC, J,
+        *(joints[f].data_ptr() for f in JOINT_FIELDS), jmask.data_ptr(), E,
+        *(eid[k].data_ptr() for k in ("loc_arch", "loc_row", "gen")), int(arch_index),
+        ENTITY_ID_BITS, *(outs[k].data_ptr() for k in NODE_KEYS),
+        0 if scratch is None else scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"substep_node: kernel launch failed with cudaError {rc}")
+    SubstepKernel.launches += 1
+    return outs
+
+
 class SubstepKernel:
-    """Single-substep driver (JAX ``SubstepKernel``): one ``substep`` call
-    (one kernel launch on the card) per substep, for worlds with joints,
-    whose solve runs between the calls.  Call with the post-integrate body
-    columns; returns (pos, rot, v, w).
+    """The single-substep kernel's object (JAX ``SubstepKernel``), for
+    worlds with joints: one kernel-5 launch on the card per substep.
+    ``step`` is the kernel-mode substep node's launch (substep_node: the
+    integrate, the solve, the joints and the writeback, from the state's
+    columns), and ``step_plain`` its plain version on the same inputs; a
+    call is the JAX kernel's contract, steps 2-9 from the post-integrate
+    body columns, returning (pos, rot, v, w).  The kernel's global scratch
+    (for worlds whose work overflows its shared window) is made once per
+    shape.
 
     ``launches`` counts the kernel launches (class-wide)."""
 
@@ -966,6 +1156,15 @@ class SubstepKernel:
         self.tables = pk.ObjTables(object_manager)
         self.relaxation = float(relaxation)
         self.speculative = float(speculative)
+        self._scratch = {}
+
+    def scratch(self, W: int, K: int, device):
+        """The kernel's global scratch for W worlds and K slots on device
+        (substep_scratch), made at first use."""
+        key = (torch.device(device), W, K)
+        if key not in self._scratch:
+            self._scratch[key] = substep_scratch(W, K, device)
+        return self._scratch[key]
 
     def __call__(self, *, pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn,
                  rows_i, rows_j, kvalid, h, restitution_threshold):
@@ -976,8 +1175,44 @@ class SubstepKernel:
             dyn.to(torch.bool).contiguous(), h.contiguous(),
             restitution_threshold.contiguous(), rows_i.to(torch.int32).contiguous(),
             rows_j.to(torch.int32).contiguous(), kvalid.to(torch.bool).contiguous(),
-            tables=self.tables, relaxation=self.relaxation, speculative=self.speculative)
+            tables=self.tables, relaxation=self.relaxation, speculative=self.speculative,
+            scratch=(self.scratch(*rows_i.shape, pos.device) if pos.is_cuda else None))
         return out["pos"], out["rot"], out["v"], out["w"]
+
+    def _node_args(self, *, pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity,
+                   restitution_threshold, rows_i, rows_j, kvalid, joints, jmask, eid,
+                   arch_index):
+        args = (pos.contiguous(), rot.contiguous(), v.contiguous(), w.contiguous(),
+                obj.to(torch.int32).contiguous(), resp.to(torch.int32).contiguous(),
+                mask.to(torch.bool).contiguous(), ext_f.contiguous(), ext_t.contiguous(),
+                h.contiguous(), gravity.contiguous(), restitution_threshold.contiguous(),
+                rows_i.to(torch.int32).contiguous(), rows_j.to(torch.int32).contiguous(),
+                kvalid.to(torch.bool).contiguous())
+        opts = dict(tables=self.tables, relaxation=self.relaxation, speculative=self.speculative,
+                    joints={f: joints[f].contiguous() for f in JOINT_FIELDS},
+                    jmask=jmask.to(torch.bool).contiguous(),
+                    eid={k: eid[k].contiguous() for k in ("loc_arch", "loc_row", "gen")},
+                    arch_index=int(arch_index))
+        return args, opts
+
+    def step(self, **kw):
+        """One substep node's launch (substep_node) on keyword inputs: the
+        body columns pos, rot, v, w, obj, resp, mask, ext_f, ext_t; h,
+        gravity, restitution_threshold; the candidate rows rows_i, rows_j,
+        kvalid; the joints (the JointConstraint field dict), jmask, the
+        entity store eid and the body archetype's arch_index.  Returns the
+        dict of NODE_KEYS."""
+        args, opts = self._node_args(**kw)
+        if args[0].is_cuda:
+            opts["scratch"] = self.scratch(*args[12].shape, args[0].device)
+        return substep_node(*args, **opts)
+
+    def step_plain(self, observe=None, **kw):
+        """The plain version of ``step`` on the same inputs, on their own
+        device (how the kernel is held to it); ``observe`` as in
+        fused_substep_plain."""
+        args, opts = self._node_args(**kw)
+        return substep_node_plain(*args, **opts, observe=observe)
 
 
 class FusedSubstepKernel:

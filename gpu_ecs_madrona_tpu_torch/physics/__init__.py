@@ -28,8 +28,9 @@ substep kernel, one node and one launch per step, with its options
 contact_refresh, world sleep (``sleep_threshold``) and persistent
 manifolds (``manifold_persist``, with ``register_persistent_manifolds``);
 with a joint archetype of any capacity the single-substep kernel, one
-node and one launch per substep, the joints solved after each launch (as
-the JAX package does).  Joints (``make_fixed_joint``,
+node and one launch per substep, whose launch also integrates, solves the
+joints after the velocity pass (as the JAX package does) and writes the
+columns back.  Joints (``make_fixed_joint``,
 ``make_hinge_joint``, ``solver.solve_joints``) run in both modes.
 ``contact_mode="auto"`` picks "pallas" above 48 body rows on any device.
 The options raise the JAX package's ValueErrors where they do not
@@ -50,16 +51,11 @@ from gpu_ecs_madrona_tpu_torch.core import base
 from gpu_ecs_madrona_tpu_torch.core.component import Archetype, singleton_component
 from gpu_ecs_madrona_tpu_torch.core.context import Context
 from gpu_ecs_madrona_tpu_torch.core.registry import ECSRegistry
-from gpu_ecs_madrona_tpu_torch.core.state import batched_gather
+from gpu_ecs_madrona_tpu_torch.core.state import batched_gather, entity_rows
 from gpu_ecs_madrona_tpu_torch.core.taskgraph import NodeID, TaskGraphBuilder
-from gpu_ecs_madrona_tpu_torch.ops.substep_kernel import (
-    MAX_BP_ROWS,
-    MC_CHANNELS,
-    FusedSubstepKernel,
-    SubstepKernel,
-    bp_slots,
-    world_flags,
-)
+# the module, not its names: it imports this package's submodules, so either
+# may be imported first
+from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
 from gpu_ecs_madrona_tpu_torch.physics import assets  # noqa: F401  (public submodule)
 from gpu_ecs_madrona_tpu_torch.physics import pairs as pk
 from gpu_ecs_madrona_tpu_torch.physics import solver as solver_mod
@@ -214,7 +210,8 @@ class RigidBodyPhysicsSystem:
         a state in and in save_state."""
         n_cap = registry.archetypes[body_archetype.name].capacity
         comp = singleton_component(
-            "ManifoldPersist", mc=((MC_CHANNELS, bp_slots(max_candidates)), torch.float32),
+            "ManifoldPersist",
+            mc=((subk.MC_CHANNELS, subk.bp_slots(max_candidates)), torch.float32),
             apos=((n_cap, 3), torch.float32), arot=((n_cap, 4), torch.float32),
             valid=((), torch.int32))
         registry.register_singleton(comp, in_place=True)
@@ -298,7 +295,8 @@ class RigidBodyPhysicsSystem:
         return {k: x.contiguous() for k, x in out.items()}
 
     @staticmethod
-    def next_step_kernel_inputs(sim, arch: Archetype, object_manager, flags: bool = False):
+    def next_step_kernel_inputs(sim, arch: Archetype, object_manager, flags: bool = False,
+                                node: bool = False):
         """The fused kernel's inputs for the next step of executor ``sim``:
         the step's nodes before its first substep node run on a Context
         over a copy of ``sim.state``, which stays as it was; then the fused
@@ -306,19 +304,31 @@ class RigidBodyPhysicsSystem:
         flags, the persistent cache and its stable flags, computed by
         world_flags; the per-object constants gathered), or for the
         per-substep nodes fused_kernel_inputs.  With ``flags``, the fused
-        node's world_flags arguments instead."""
+        node's world_flags arguments instead; with ``node``, the kernel-mode
+        substep node's own inputs (SubstepKernel.step's keywords)."""
         ctx = Context(sim.mgr, sim.state)
-        for node in sim.graph.nodes:
-            if node.name == FUSED_NODE:
-                return node.run.flag_inputs(ctx) if flags else node.run.kernel_inputs(ctx)
-            if node.name == "physics_substep_0" and not flags:
+        for nd in sim.graph.nodes:
+            if nd.name == FUSED_NODE:
+                return nd.run.flag_inputs(ctx) if flags else nd.run.kernel_inputs(ctx)
+            if nd.name == "physics_substep_0" and not flags:
+                if node:
+                    return nd.run.node_inputs(ctx)
                 return RigidBodyPhysicsSystem.fused_kernel_inputs(ctx, arch, object_manager)
-            node.run(ctx)
+            nd.run(ctx)
         raise ValueError(f"the executor's graph has no {FUSED_NODE!r} or "
                          "'physics_substep_0' node")
 
     @staticmethod
-    def fused_kernel(sim) -> FusedSubstepKernel:
+    def substep_kernel(sim) -> subk.SubstepKernel:
+        """The SubstepKernel of executor ``sim``'s kernel-mode substep nodes
+        (a world with joints)."""
+        for node in sim.graph.nodes:
+            if node.name == "physics_substep_0" and hasattr(node.run, "kernel"):
+                return node.run.kernel
+        raise ValueError("the executor's graph has no kernel-mode 'physics_substep_0' node")
+
+    @staticmethod
+    def fused_kernel(sim) -> subk.FusedSubstepKernel:
         """The FusedSubstepKernel of executor ``sim``'s fused substep node
         (its options as the graph was built)."""
         for node in sim.graph.nodes:
@@ -361,9 +371,9 @@ class RigidBodyPhysicsSystem:
             _not_ported("broadphase_mode='sap' (and 'auto' above 192 rows)",
                         "the SAP broadphase")
         if mode == "fused":
-            if cap_n > MAX_BP_ROWS:
+            if cap_n > subk.MAX_BP_ROWS:
                 raise ValueError(f"fused broadphase requires body capacity <= "
-                                 f"{MAX_BP_ROWS} (got {cap_n})")
+                                 f"{subk.MAX_BP_ROWS} (got {cap_n})")
             builder.fused_broadphase = {"degree": dense_degree or 12,
                                         "vexp": float(velocity_expansion)}
 
@@ -453,10 +463,10 @@ class RigidBodyPhysicsSystem:
           "pallas": the fused substep kernel, one node (and one launch on
                     the card) per step; with a joint archetype, the
                     single-substep kernel, one node and one launch per
-                    substep, the joints solved after each launch (between
-                    the substep's velocity pass and the next integrate,
-                    where "pairs" solves them between the positional and
-                    velocity phases, as in the JAX package); no contact
+                    substep: the integrate, the solve and the joint solve
+                    (after the substep's velocity pass, where "pairs"
+                    solves them between the positional and velocity
+                    phases, as in the JAX package); no contact
                     temporaries.
           "auto":   "pallas" above 48 body rows, on any device; at 48 or
                     fewer (the dense mode) it raises.
@@ -544,13 +554,11 @@ class RigidBodyPhysicsSystem:
                 return p2, r2
             jfields = ctx.column(JointArchetype, JointConstraint)
             arch_idx = ctx.mgr.arch_index[arch.name]
-            la1, lr1, lv1 = ctx.mgr.lookup(ctx.state, jfields["e1"])
-            la2, lr2, lv2 = ctx.mgr.lookup(ctx.state, jfields["e2"])
-            rows1 = torch.where(lv1 & (la1 == arch_idx), lr1, -1)
-            rows2 = torch.where(lv2 & (la2 == arch_idx), lr2, -1)
             return solver_mod.solve_joints(
                 p2, r2, torch.where(dyn, inv_mass, 0.0),
-                torch.where(dyn[..., None], inv_inertia, 0.0), jfields, rows1, rows2,
+                torch.where(dyn[..., None], inv_inertia, 0.0), jfields,
+                entity_rows(ctx.state["eid"], jfields["e1"], arch_idx),
+                entity_rows(ctx.state["eid"], jfields["e2"], arch_idx),
                 ctx.row_mask(JointArchetype), relaxation=relaxation)
 
         def integrate_and_stash(ctx: Context, body):
@@ -580,27 +588,45 @@ class RigidBodyPhysicsSystem:
                 "angular": torch.where(keep, w3, vel["angular"])})
 
         if contact_mode == "pallas" and has_joints:
-            substep_kernel = SubstepKernel(object_manager, relaxation=relaxation,
-                                           speculative=speculative_margin)
+            substep_kernel = subk.SubstepKernel(object_manager, relaxation=relaxation,
+                                                speculative=speculative_margin)
+            arch_idx = builder.mgr.arch_index[arch.name]
+
+            def node_inputs(ctx: Context):
+                """The node's launch inputs (SubstepKernel.step's keywords):
+                the state's columns as they are, no device op."""
+                phys = ctx.singleton(PhysicsState)
+                vel = ctx.column(arch, Velocity)
+                rowsc = ctx.column(CandidateRowsTemporary, CandidatePairRows)
+                return dict(
+                    pos=ctx.column(arch, base.Position), rot=ctx.column(arch, base.Rotation),
+                    v=vel["linear"], w=vel["angular"], obj=ctx.column(arch, base.ObjectID),
+                    resp=ctx.column(arch, ResponseType), mask=ctx.row_mask(arch),
+                    ext_f=ctx.column(arch, ExternalForce), ext_t=ctx.column(arch, ExternalTorque),
+                    h=phys["h"], gravity=phys["gravity"],
+                    restitution_threshold=phys["restitution_threshold"], rows_i=rowsc["i"],
+                    rows_j=rowsc["j"], kvalid=ctx.row_mask(CandidateRowsTemporary),
+                    joints=ctx.column(JointArchetype, JointConstraint),
+                    jmask=ctx.row_mask(JointArchetype), eid=ctx.state["eid"],
+                    arch_index=arch_idx)
 
             def make_kernel_substep(idx):
                 def substep(ctx: Context):
-                    body = body_inputs(ctx)
-                    _, _, obj, _, inv_mass, inv_inertia, mu_s, mu_d, dyn = body
-                    new_pos, new_rot, v, w, prev_pos, prev_rot = integrate_and_stash(ctx, body)
-                    phys = ctx.singleton(PhysicsState)
-                    rowsc = ctx.column(CandidateRowsTemporary, CandidatePairRows)
-                    p2, r2, v3, w3 = substep_kernel(
-                        pos=new_pos, rot=new_rot, v=v, w=w, prev_pos=prev_pos,
-                        prev_rot=prev_rot, im=torch.where(dyn, inv_mass, 0.0),
-                        ii=torch.where(dyn[..., None], inv_inertia, 0.0), mu_s=mu_s, mu_d=mu_d,
-                        obj=obj, dyn=dyn, rows_i=rowsc["i"], rows_j=rowsc["j"],
-                        kvalid=ctx.row_mask(CandidateRowsTemporary), h=phys["h"],
-                        restitution_threshold=phys["restitution_threshold"])
-                    p2, r2 = solve_joints_at(ctx, p2, r2, dyn, inv_mass, inv_inertia)
-                    writeback(ctx, body, p2, r2, v3, w3)
+                    # the integrate, the solve, the joints and the writeback
+                    # in one launch of kernel 5 (its plain version on the CPU)
+                    out = substep_kernel.step(**node_inputs(ctx))
+                    ctx.set_column(arch, SubstepPrevState,
+                                   {"prev_pos": out["prev_pos"], "prev_rot": out["prev_rot"]})
+                    ctx.set_column(arch, PreSolvePositional,
+                                   {"x": out["ps_pos"], "q": out["ps_rot"]})
+                    ctx.set_column(arch, PreSolveVelocity, {"v": out["ps_v"], "omega": out["ps_w"]})
+                    ctx.set_column(arch, base.Position, out["pos"])
+                    ctx.set_column(arch, base.Rotation, out["rot"])
+                    ctx.set_column(arch, Velocity, {"linear": out["v"], "angular": out["w"]})
 
                 substep.__name__ = f"physics_substep_{idx}"
+                substep.node_inputs = node_inputs
+                substep.kernel = substep_kernel
                 return substep
 
             last = list(deps)
@@ -610,7 +636,7 @@ class RigidBodyPhysicsSystem:
 
         if contact_mode == "pallas":
             cand_cap = builder.mgr.registry.archetypes[CandidateRowsTemporary.name].capacity
-            fused_kernel = FusedSubstepKernel(
+            fused_kernel = subk.FusedSubstepKernel(
                 object_manager, num_substeps=num_substeps, relaxation=relaxation,
                 speculative=speculative_margin, contact_refresh=contact_refresh,
                 bp_degree=fused_bp["degree"] if fused_bp else 0,
@@ -656,7 +682,7 @@ class RigidBodyPhysicsSystem:
                     kw.update(scale=ctx.column(arch, base.Scale), live=ctx.row_mask(arch),
                               dtv=phys["delta_t"] * fused_bp["vexp"])
                 if sleep_threshold > 0.0 or manifold_persist:
-                    flags = world_flags(**flag_inputs(ctx, kw["dyn"]))
+                    flags = subk.world_flags(**flag_inputs(ctx, kw["dyn"]))
                     if sleep_threshold > 0.0:
                         ctx.set_singleton(SleepState, {"quiet_steps": flags["quiet_steps"],
                                                        "asleep": flags["asleep"]})

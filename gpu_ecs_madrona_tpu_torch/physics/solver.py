@@ -60,11 +60,22 @@ def set_velocities(pos, rot, prev_pos, prev_rot, h, bias_dpos=None):
     return v, omega
 
 
+def _sum3(x):
+    """The sum over the last axis of 3, in component order ((x0 + x1) + x2),
+    as the kernels add it: a reduction's order on the card is not fixed."""
+    return x[..., 0] + x[..., 1] + x[..., 2]
+
+
+def _norm3(x):
+    """|x| over the last axis of 3, its squares added in component order."""
+    return torch.sqrt(_sum3(x * x))
+
+
 def _generalized_inv_mass(r, nrm, inv_mass, inv_inertia, rot):
     """w = 1/m + (r x n)^T I^-1 (r x n) (physics.cpp:215-231); the inertia
     diagonal is in the body frame."""
     rxn_b = m.quat_inv_rotate(rot, torch.linalg.cross(r, nrm, dim=-1))
-    return inv_mass + (rxn_b * inv_inertia * rxn_b).sum(-1)
+    return inv_mass + _sum3(rxn_b * inv_inertia * rxn_b)
 
 
 def _apply_impulse_terms(p, r, inv_mass, inv_inertia, rot):
@@ -76,11 +87,25 @@ def _apply_impulse_terms(p, r, inv_mass, inv_inertia, rot):
 
 def _to_bodies(vals, rows, valid, n):
     """Per-joint values of both sides [2, W, J, c] summed onto their bodies
-    [W, n, c]: a masked sum over the joints, side 1's sum then side 2's
-    (JAX's one-hot einsums, with no matmul, so TF32 never touches them)."""
-    oh = (rows[..., None] == torch.arange(n, device=rows.device)) & valid[..., None]
-    per_side = torch.where(oh[..., None], vals[:, :, :, None, :], 0.0).sum(2)   # [2, W, n, c]
-    return per_side[0] + per_side[1]
+    [W, n, c]: each side's live joints at a row in [0, n), added from 0 in
+    joint order, then side 1's sum plus side 2's (JAX's one-hot einsums).
+    The order is fixed on every device (a stable sort by body and
+    ``segment_reduce``, which adds each segment in order, as
+    physics/pairs.py segment_sum does), so the single-substep kernel's
+    joint sums repeat it bit for bit."""
+    _, W, J, C = vals.shape
+    ok = valid & (rows >= 0) & (rows < n)                                # [2, W, J]
+    base = torch.arange(W, device=rows.device)[:, None] * n
+    body = torch.where(ok, rows.long() + base, W * n)      # the others: one extra segment
+    sides = []
+    for s in range(2):
+        flat = body[s].reshape(-1)
+        order = torch.sort(flat, stable=True).indices
+        lengths = torch.bincount(flat, minlength=W * n + 1)
+        seg = torch.segment_reduce(vals[s].reshape(W * J, C)[order], "sum", lengths=lengths,
+                                   axis=0, unsafe=True)
+        sides.append(seg[:W * n].reshape(W, n, C))
+    return sides[0] + sides[1]
 
 
 def solve_joints(pos, rot, inv_mass, inv_inertia, joints, rows1, rows2, jmask,
@@ -115,12 +140,12 @@ def solve_joints(pos, rot, inv_mass, inv_inertia, joints, rows1, rows2, jmask,
     diff = m.quat_mul(o[0], torch.cat([o[1][..., 0:1], -o[1][..., 1:4]], -1))
     aw = m.quat_rotate(q, both("a1_local", "a2_local"))
     dq = torch.where(is_fixed, 2.0 * diff[..., 1:4], torch.linalg.cross(aw[0], aw[1], dim=-1))
-    mag = torch.linalg.vector_norm(dq, dim=-1)
+    mag = _norm3(dq)
     # dead rows' fields may be garbage: zero them before they reach a sum
     dq_dir = torch.where(valid[..., None], dq / torch.clamp(mag[..., None], min=1e-12), 0.0)
     mag = torch.where(valid, mag, 0.0)
     n_l = m.quat_inv_rotate(q, dq_dir)                                  # [2, W, J, 3]
-    w_side = (n_l * ii * n_l).sum(-1)
+    w_side = _sum3(n_l * ii * n_l)
     w_a = w_side[0] + w_side[1]
     ang_ok = valid & (mag > 1e-9) & (w_a > 1e-12)
     dlam_a = torch.where(ang_ok, mag / torch.clamp(w_a, min=1e-12), 0.0) * relaxation
@@ -138,12 +163,12 @@ def solve_joints(pos, rot, inv_mass, inv_inertia, joints, rows1, rows2, jmask,
     e_xy[1, ..., 1] = 1.0
     a1, b1 = m.quat_rotate(o[0], e_xy)
     c1 = torch.linalg.cross(a1, b1, dim=-1)
-    a_sep = (delta_r * a1).sum(-1) - joints["separation"]
-    b_sep = (delta_r * b1).sum(-1)
-    c_sep = (delta_r * c1).sum(-1)
+    a_sep = _sum3(delta_r * a1) - joints["separation"]
+    b_sep = _sum3(delta_r * b1)
+    c_sep = _sum3(delta_r * c1)
     corr_fixed = a_sep[..., None] * a1 + b_sep[..., None] * b1 + c_sep[..., None] * c1
     corr = torch.where(is_fixed, corr_fixed, delta_r)
-    c_mag = torch.linalg.vector_norm(corr, dim=-1)
+    c_mag = _norm3(corr)
     nrm = torch.where(valid[..., None], corr / torch.clamp(c_mag[..., None], min=1e-12), 0.0)
     c_mag = torch.where(valid, c_mag, 0.0)
     w_side = _generalized_inv_mass(rw, nrm.expand_as(rw), im, ii, q)

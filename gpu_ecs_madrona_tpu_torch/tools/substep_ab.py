@@ -4,6 +4,7 @@ in turns: an A/B of a change against its parent.
 
     python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py ROOT [ROOT ...]
     python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --phases ROOT
+    python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --stg ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository; each runs in a
 process of its own (so that two versions of the package never meet), in
@@ -14,7 +15,18 @@ prints one JSON line:
              (the build log of ROOT's csrc/substep_kernels.cu)
   occupancy  threads a CTA and CTAs an SM of each specialisation at
              8192 x 65 (K = 256 and 128) and of the single-substep kernel
-             at 1024 x 104, K = 1000, where ROOT's library exports it
+             at 1024 x 104, K = 1000 (and of its node launch with the 64
+             joint rows, where ROOT has one)
+  stg        simple_taskgraph at 1024 worlds x 100 spheres, 64 x 64 RGB
+             and depth (with --stg, the only case): env-steps/s
+             (main_simple_taskgraph, in rates) over 5 windows of 50 steps
+             after 3; at that state row 5 at equal work (ms "row5_substep":
+             the single-substep kernel from the post-integrate columns)
+             and, where ROOT has it, kernel 5's node launch (ms
+             "row5_node": with the integrate, the joints and the
+             writeback); and the first substep node: its device ms a run,
+             the device ops it queues (torch.profiler, by name) and the
+             host ms a run takes to queue them (20 runs, no sync between)
   rates      env-steps/s of rigid_bench at 8192 x 64 (main_rigid: K = 256,
              the dense broadphase; main_rigid_fused_bp: the broadphase in
              the kernel): 3 untimed steps, 5 windows of 50 steps; and of
@@ -28,9 +40,9 @@ prints one JSON line:
              main_rigid_fused_bp's, row 9 at the settled pile after 400 +
              253 steps (as it is, and with its flags flipped so that every
              branch runs), row 8 with refresh at the settled pile without
-             persistence, row 5 at simple_taskgraph's state (1024 x 104,
-             K = 1000) after 253 steps.  Row 9 is the launch the fused node
-             makes: where ROOT has world_flags, the world flags kernel and
+             persistence, row 5 as the stg case says.  Row 9 is the
+             launch the fused node makes: where ROOT has world_flags, the
+             world flags kernel and
              fused_substep with the cache and anchors in place (on scratch
              copies), else fused_substep alone (its flags were PyTorch
              glue); so also fused_node_settled, the device ms of the whole
@@ -85,23 +97,29 @@ def rate(sim, steps=50, count=5):
     return sorted(r)[len(r) // 2]
 
 
-def settled_profile(torch, sim):
-    """(device ms of one run of sim's fused node on its state, as cuda_ms
-    times it; {the device ops one run queues (torch.profiler), the device
-    busy share of the wall time of 20 steps and the device ops a step})."""
+def device_events(prof):
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+
+
+def node_profile(torch, sim, name):
+    """(device ms of one run of sim's node ``name`` on the state the step's
+    nodes before it make of sim's, as cuda_ms times it; {its device ops by
+    name (torch.profiler), their count, the host ms a run takes to queue
+    them})."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    from gpu_ecs_madrona_tpu_torch import physics as phys
     from gpu_ecs_madrona_tpu_torch.core.context import Context
-    node = next(nd for nd in sim.graph.nodes if nd.name == phys.FUSED_NODE)
+    ctx = Context(sim.mgr, sim.state)
+    for node in sim.graph.nodes:           # the step's nodes before it, once
+        if node.name == name:
+            break
+        node.run(ctx)
+    state = ctx.state
 
     def run():
-        node.run(Context(sim.mgr, sim.state))
-
-    def device_events(prof):
-        return [e for e in prof.key_averages()
-                if getattr(e, "device_type", None) is not None
-                and "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+        node.run(Context(sim.mgr, state))
 
     ms = cuda_ms(torch, run)
     torch.cuda.synchronize()
@@ -110,24 +128,34 @@ def settled_profile(torch, sim):
         run()
     host_ms = (time.perf_counter() - t0) * 1e3 / 20     # the host's enqueue, not synced
     torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with tprofile(activities=acts) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    node_ops = {}
+    ops = {}
     for e in device_events(prof):
-        node_ops[e.key[:60]] = node_ops.get(e.key[:60], 0) + e.count
+        ops[e.key[:60]] = ops.get(e.key[:60], 0) + e.count
+    return ms, {"host_ms": host_ms, "device_ops": sum(ops.values()), "ops": ops}
+
+
+def settled_profile(torch, sim):
+    """(device ms of one run of sim's fused node on its state, as cuda_ms
+    times it; {the device ops one run queues (torch.profiler), the device
+    busy share of the wall time of 20 steps and the device ops a step})."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from gpu_ecs_madrona_tpu_torch import physics as phys
+    ms, node = node_profile(torch, sim, phys.FUSED_NODE)
     sim.run(3)
     sim.block_until_ready()
-    with tprofile(activities=acts) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sim.run(20)
         sim.block_until_ready()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = device_events(prof)
     busy = sum(e.self_device_time_total for e in events)
-    return ms, {"fused_node_host_ms": host_ms,
-                "fused_node_device_ops": sum(node_ops.values()), "fused_node_ops": node_ops,
+    return ms, {"fused_node_host_ms": node["host_ms"],
+                "fused_node_device_ops": node["device_ops"], "fused_node_ops": node["ops"],
                 "steps": 20, "wall_us": wall_us, "device_busy_us": busy,
                 "device_busy_share": busy / wall_us,
                 "device_ops_per_step": sum(e.count for e in events) / 20}
@@ -159,7 +187,30 @@ def occupancy(ctypes, lib, n, K):
     return out
 
 
-def one(root, phases):
+def stg_case(torch, ms, rates, res):
+    """The stg case (see the module doc) of the imported checkout."""
+    from gpu_ecs_madrona_tpu_torch import physics as phys
+    from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
+    from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
+    RS = phys.RigidBodyPhysicsSystem
+    ssim = stg.make_executor(stg.SimpleTaskgraphConfig(
+        num_worlds=STG_WORLDS, num_objects=100, render=True, render_width=64,
+        render_height=64), device="cuda")
+    ssim.run(3)
+    ssim.block_until_ready()
+    rates["main_simple_taskgraph"] = rate(ssim)
+    kw1 = RS.substep_kernel_inputs(RS.next_step_kernel_inputs(ssim, stg.Sphere, stg.OBJMGR))
+    kern1 = sk.SubstepKernel(stg.OBJMGR, relaxation=0.7)
+    ms["row5_substep"] = cuda_ms(torch, lambda: kern1(**kw1), 200)
+    if hasattr(sk.SubstepKernel, "step"):
+        kern = RS.substep_kernel(ssim)
+        kwn = RS.next_step_kernel_inputs(ssim, stg.Sphere, stg.OBJMGR, node=True)
+        ms["row5_node"] = cuda_ms(torch, lambda: kern.step(**kwn), 200)
+    ms["stg_substep_node"], node = node_profile(torch, ssim, "physics_substep_0")
+    res["stg"] = dict(node, pairs_per_world_max=int(kw1["kvalid"].sum(1).max()))
+
+
+def one(root, phases, stg_only):
     import ctypes
 
     import torch
@@ -167,7 +218,6 @@ def one(root, phases):
     import gpu_ecs_madrona_tpu_torch as port
     from gpu_ecs_madrona_tpu_torch import physics as phys
     from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
-    from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
     from gpu_ecs_madrona_tpu_torch.ops import _build
     from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
     if not os.path.abspath(port.__file__).startswith(os.path.abspath(root)):
@@ -183,6 +233,8 @@ def one(root, phases):
             elif "world_flags_kernelILb" in entry:
                 bits = entry.split("world_flags_kernelILb")[1]      # "1ELb0E..."
                 entry = f"world_flags<{bits[0]},{bits[4]}>"
+            elif "substep_kernelILb" in entry:
+                entry = "substep<" + entry.split("substep_kernelILb")[1][0] + ">"
             else:
                 entry = next(k for k in ("asleep_surface_kernel", "substep_kernel")
                              if k in entry)
@@ -192,10 +244,16 @@ def one(root, phases):
     res = {"root": root, "card": torch.cuda.get_device_name(0), "ptxas": ptxas,
            "occupancy": {"K256": occupancy(ctypes, lib, 65, 256),
                          "K128": occupancy(ctypes, lib, 65, 128)}}
-    if hasattr(lib, "substep_occupancy"):
-        t, b = ctypes.c_int(), ctypes.c_int()
-        lib.substep_occupancy(104, 1000, ctypes.byref(t), ctypes.byref(b))
-        res["occupancy"]["substep_1024x104_K1000"] = [t.value, b.value]
+    res["occupancy"]["substep_1024x104_K1000"] = sk.occupancy(104, 1000, single=True)
+    if hasattr(sk.SubstepKernel, "step"):
+        res["occupancy"]["substep_node_1024x104_K1000_J64"] = sk.occupancy(
+            104, 1000, single=True, joints=64)
+    ms, rates = {}, {}
+    stg_case(torch, ms, rates, res)
+    if stg_only:
+        res.update(ms=ms, rates=rates)
+        print(json.dumps(res), flush=True)
+        return
     om = rb.RigidBenchWorld.objmgr
 
     def inputs(sim):
@@ -204,7 +262,6 @@ def one(root, phases):
     def executor(**cfg):
         return rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, **cfg), device="cuda")
 
-    ms, rates = {}, {}
     sims = {}
     for name, cfg in (("main_rigid", dict(contact_mode="pallas", max_candidates=256)),
                       ("main_rigid_k128", dict(contact_mode="pallas", max_candidates=128)),
@@ -256,15 +313,6 @@ def one(root, phases):
     ms["row8_refresh_settled_nopersist"] = cuda_ms(torch, lambda: nkern(**kwn))
     del nsim
 
-    ssim = stg.make_executor(stg.SimpleTaskgraphConfig(
-        num_worlds=STG_WORLDS, num_objects=100, render=True, render_width=64,
-        render_height=64), device="cuda")
-    ssim.run(253)
-    kw1 = phys.RigidBodyPhysicsSystem.substep_kernel_inputs(
-        phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(ssim, stg.Sphere, stg.OBJMGR))
-    kern1 = sk.SubstepKernel(stg.OBJMGR, relaxation=0.7)
-    ms["row5_substep"] = cuda_ms(torch, lambda: kern1(**kw1), 200)
-    del ssim
     res.update(ms=ms, rates=rates, live_slots={
         "main_rigid": {k: int(v.sum()) for k, v in kind_masks(
             torch, kw256, om["prim_type"]).items()}})
@@ -288,9 +336,9 @@ def one(root, phases):
 
 
 def main(argv):
-    phases = "--phases" in argv
+    phases, stg_only = "--phases" in argv, "--stg" in argv
     if "--one" in argv:
-        one(argv[argv.index("--one") + 1], phases)
+        one(argv[argv.index("--one") + 1], phases, stg_only)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -305,7 +353,8 @@ def main(argv):
     print(json.dumps({"card": smi.strip().splitlines()[0], "order": roots}), flush=True)
     for root in roots:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                        os.path.abspath(root)] + (["--phases"] if phases else []), check=True)
+                        os.path.abspath(root)] + (["--phases"] if phases else [])
+                       + (["--stg"] if stg_only else []), check=True)
     return 0
 
 

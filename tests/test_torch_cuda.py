@@ -8,7 +8,9 @@ Each CUDA kernel is held against its plain PyTorch version on the card
 (lo/hi atol 1e-5, pushes and translations atol 1e-4, normals atol 1e-5,
 integer outputs exact; the fused and single-substep kernels' poses and
 stashes atol 1e-4, velocities atol 1e-3, and two launches on one input
-bit-identical;
+bit-identical; the single-substep kernel's node launch (integrate, solve,
+joints, writeback) bit for bit its plain version, with live joints and
+with work past its shared window, the node one device op;
 the fused kernel's options (contact refresh, sleep, the in-kernel
 broadphase, persistent manifolds) likewise, their integer outputs exact
 and the manifold cache and AABBs atol 1e-4; the world flags kernel equal
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from gpu_ecs_madrona_tpu_torch.core.state import entity_rows
 from gpu_ecs_madrona_tpu_torch.interop import state_from_numpy, state_to_numpy
 from gpu_ecs_madrona_tpu_torch.models import collisions as col
 from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
@@ -34,6 +37,8 @@ from gpu_ecs_madrona_tpu_torch.ops import render_kernel as rk
 from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
 from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
 from gpu_ecs_madrona_tpu_torch.physics import RigidBodyPhysicsSystem
+
+from test_torch_joint_scenes import joint_world, random_joints
 
 
 @pytest.fixture
@@ -289,6 +294,139 @@ def test_substep_rejects_bad_input(card):
     with pytest.raises(NotImplementedError, match="general-hull"):
         subk.substep(**dict(args, tables=subk.pk.ObjTables(om)))
     assert subk.SubstepKernel.launches == 0
+
+
+def node_case(case, dev):
+    """(SubstepKernel, node inputs) of kernel 5's node launch: "stg",
+    simple_taskgraph's state (100 spheres, K = 1000, 64 dead joint rows,
+    dead body rows); "joints", the joint world (live Fixed and Hinge
+    joints, static bodies); "overflow", simple_taskgraph's state with all
+    1000 slots of world 0 valid (every pair of its rows in order: past the
+    shared window, so the global scratch is used) and every other slot of
+    world 1; "random_joints", simple_taskgraph's state with random live
+    Fixed and Hinge joints (several on one body and side, a null handle, a
+    handle into another archetype: test_torch_joint_scenes.random_joints)."""
+    if case == "joints":
+        sim = joint_world("pallas", num_worlds=8, device=dev)
+        sim.run(5)
+        arch = sim.world_cls.Body
+    else:
+        sim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=8, num_objects=100, seed=3),
+                                device=dev)
+        sim.run(3)
+        arch = stg.Sphere
+    kern = RigidBodyPhysicsSystem.substep_kernel(sim)
+    kw = RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, arch, None, node=True)
+    if case == "overflow":
+        n, K = kw["obj"].shape[1], kw["rows_i"].shape[1]
+        pairs = torch.combinations(torch.arange(n, device=dev), 2)[:K].int()
+        ri, rj, kv = kw["rows_i"].clone(), kw["rows_j"].clone(), kw["kvalid"].clone()
+        ri[0], rj[0], kv[0] = pairs[:, 0], pairs[:, 1], True
+        kv[1] &= torch.arange(K, device=dev) % 2 == 0
+        kw.update(rows_i=ri, rows_j=rj, kvalid=kv)
+    if case == "random_joints":
+        kw = random_joints(sim, kw, num_spheres=100)
+    return kern, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["stg", "joints", "overflow", "random_joints"])
+def test_substep_node_matches_plain_bit_for_bit(card, case):
+    """Kernel 5's node launch against its plain version (the route:
+    integrate, steps 2-9, joint solve, writeback) on the same inputs: every
+    output 0.0 apart, two launches bit-identical, one launch a call."""
+    kern, kw = node_case(case, card)
+    rows = [entity_rows(kw["eid"], kw["joints"][e], kw["arch_index"]) for e in ("e1", "e2")]
+    live = kw["jmask"] & (rows[0] >= 0) & (rows[1] >= 0)
+    if case in ("joints", "random_joints"):
+        assert bool(live.any())
+    if case == "random_joints":
+        # several live joints on one body and side, and masked-in joints
+        # whose handle is null or in another archetype
+        world = torch.arange(live.shape[0], device=card)[:, None].expand_as(live)
+        body = (world * kw["obj"].shape[1] + rows[0])[live]
+        assert int(torch.unique(body, return_counts=True)[1].max()) > 1
+        assert bool((kw["jmask"] & ((rows[0] < 0) | (rows[1] < 0))).any())
+    if case == "overflow":
+        assert int(kw["kvalid"].sum(1).max()) > subk.SUBSTEP_WINDOW
+    subk.SubstepKernel.launches = 0
+    got, again = kern.step(**kw), kern.step(**kw)
+    want = kern.step_plain(**kw)
+    torch.cuda.synchronize()
+    assert subk.SubstepKernel.launches == 2
+    for k in subk.NODE_KEYS:
+        assert got[k].shape == want[k].shape and torch.isfinite(got[k]).all(), k
+        assert torch.equal(got[k], again[k]), k
+        assert float((got[k] - want[k]).abs().max()) == 0.0, k
+
+
+@pytest.mark.cuda
+def test_substep_node_is_one_device_op(card):
+    """simple_taskgraph's kernel-mode substep node queues one device
+    operation, kernel 5's launch (torch.profiler, as chip_smoke.py's
+    node_time counts them); at most 12 is the bound kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpu_ecs_madrona_tpu_torch.core.context import Context
+    sim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=16, num_objects=100),
+                            device="cuda")
+    sim.run(2)
+    torch.cuda.synchronize()
+    ctx = Context(sim.mgr, sim.state)
+    nodes = iter(sim.graph.nodes)
+    for node in nodes:
+        if node.name == "physics_substep_0":
+            break
+        node.run(ctx)
+    node.run(ctx)                                 # warm: the scratch, the tables
+    torch.cuda.synchronize()
+    subk.SubstepKernel.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        node.run(ctx)
+        torch.cuda.synchronize()
+    ops = sum(e.count for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)
+              and e.self_device_time_total > 0)
+    assert subk.SubstepKernel.launches == 1
+    assert 1 <= ops <= 12, ops
+
+
+@pytest.mark.cuda
+def test_substep_node_rejects_bad_input(card):
+    kern, kw = node_case("joints", card)
+    args, opts = kern._node_args(**kw)
+    subk.SubstepKernel.launches = 0
+    with pytest.raises(ValueError):
+        subk.substep_node(*((args[0].double(),) + args[1:]), **opts)
+    with pytest.raises(ValueError):
+        subk.substep_node(*args, **dict(opts, jmask=opts["jmask"].cpu()))
+    with pytest.raises(ValueError):
+        bad = dict(opts["joints"], attach_rot1=opts["joints"]["attach_rot1"][..., :3].contiguous())
+        subk.substep_node(*args, **dict(opts, joints=bad))
+    om = dict(kern.tables.om)
+    om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
+    with pytest.raises(NotImplementedError, match="general-hull"):
+        subk.substep_node(*args, **dict(opts, tables=subk.pk.ObjTables(om)))
+    assert subk.SubstepKernel.launches == 0
+
+
+@pytest.mark.cuda
+def test_joint_world_step_waits_for_nothing(card):
+    """A step of the joint world in kernel mode queues its work and
+    returns: the joints' rows are looked up in the launch, no operation
+    makes the host wait for the card; one launch a substep."""
+    sim = joint_world("pallas", num_worlds=8, device="cuda")
+    sim.step()
+    torch.cuda.synchronize()
+    subk.SubstepKernel.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            sim.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert subk.SubstepKernel.launches == 3 * 4
 
 
 @pytest.mark.cuda
@@ -814,3 +952,6 @@ def test_occupancy_is_exported(card):
         assert threads % 32 == 0 and 32 <= threads <= 1024 and blocks >= 1, (spec, occ)
     threads, blocks = subk.occupancy(104, 1000, single=True)
     assert threads % 32 == 0 and blocks >= 1
+    # kernel 5's node launch at simple_taskgraph's shape: three worlds an SM
+    threads, blocks = subk.occupancy(104, 1000, single=True, joints=64)
+    assert threads == subk.substep_threads(104, 1000) and blocks >= 3

@@ -24,7 +24,6 @@ import math
 
 import numpy as np
 import pytest
-import torch
 
 import jax
 import jax.numpy as jnp
@@ -36,92 +35,24 @@ from gpu_ecs_madrona_tpu import base as jbase
 from gpu_ecs_madrona_tpu import physics as jphys
 from gpu_ecs_madrona_tpu.physics import components as jcomp
 
-from gpu_ecs_madrona_tpu_torch import physics as phys
-from gpu_ecs_madrona_tpu_torch.core import base
-from gpu_ecs_madrona_tpu_torch.core.component import Archetype
-from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExecutor
 from gpu_ecs_madrona_tpu_torch.interop import state_from_numpy, state_to_numpy
 from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
-from gpu_ecs_madrona_tpu_torch.physics import components as comp
 
-HINGE = np.array([0.0, 0.0, 5.4], np.float32)
-SWING = 0.2
+import test_torch_joint_scenes as scenes
+from test_torch_joint_scenes import HINGE, SWING
 
 
 def joint_world(pkg, contact_mode, num_worlds=2):
-    """Plane; a static anchor with a box hung from it by a Fixed joint; a
-    static pivot with a box swinging on a Hinge joint; a free box on the
-    plane.  Returns the executor."""
-    if pkg == "jax":
-        physics, bmod, cmod, Arch = jphys, jbase, jcomp, JArchetype
+    """The joint scene (test_torch_joint_scenes.joint_scene) in the JAX
+    package or the port, on the CPU.  Returns the executor."""
+    if pkg == "port":
+        return scenes.joint_world(contact_mode, num_worlds=num_worlds, device="cpu")
 
-        def conv(x, dt=np.float32):
-            return jnp.asarray(np.asarray(x, dt))
-    else:
-        physics, bmod, cmod, Arch = phys, base, comp, Archetype
-
-        def conv(x, dt=np.float32):
-            return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dt)))
-    loader = physics.assets.PhysicsLoader()
-    loader.load_objects([physics.assets.make_plane(),
-                         physics.assets.make_box((0.5, 0.5, 0.5), inv_mass=1.0)])
-    om = loader.get_object_manager()
-    Body = Arch("JointBody", physics.BODY_COMPONENTS)
-    down = np.array([math.sin(SWING), 0.0, -math.cos(SWING)], np.float32)
-    bodies = [  # (object, position, rotation, response)
-        (0, (0, 0, 0), (1, 0, 0, 0), cmod.RESPONSE_STATIC),
-        (1, (3.0, 0, 6.0), (1, 0, 0, 0), cmod.RESPONSE_STATIC),
-        (1, (3.0, 0, 4.0), (1, 0, 0, 0), cmod.RESPONSE_DYNAMIC),
-        (1, (0, 0, 6.0), (1, 0, 0, 0), cmod.RESPONSE_STATIC),
-        (1, tuple(HINGE + 0.6 * down), (math.cos(SWING / 2), 0, math.sin(SWING / 2), 0),
-         cmod.RESPONSE_DYNAMIC),
-        (1, (-3.0, 0, 0.55), (1, 0, 0, 0), cmod.RESPONSE_DYNAMIC)]
-
-    class World:
-        @staticmethod
-        def register_types(registry):
-            physics.RigidBodyPhysicsSystem.register_types(registry, max_candidates=32,
-                                                          max_contacts=32, max_joints=4)
-            registry.register_archetype(Body, capacity=8)
-            registry.export_column(Body, bmod.Position, 0)
-            registry.export_column(Body, bmod.Rotation, 1)
-
-        @staticmethod
-        def init(ctx, init_data=None):
-            W, nb = ctx.num_worlds, len(bodies)
-
-            def tile(col, dt=np.float32):
-                return conv(np.broadcast_to(np.asarray([b[col] for b in bodies], dt),
-                                            (W, nb) + np.asarray(bodies[0][col]).shape), dt)
-            ctx.data = {"_": conv(np.zeros((W, 1)))}
-            physics.RigidBodyPhysicsSystem.init(ctx, delta_t=1 / 60, num_substeps=4)
-            ents = ctx.make_entities(Body, counts=nb, max_new=nb, values={
-                bmod.Position: tile(1), bmod.Rotation: tile(2),
-                bmod.Scale: conv(np.ones((W, nb, 3))), bmod.ObjectID: tile(0, np.int32),
-                cmod.ResponseType: tile(3, np.int32)})
-
-            def vec(x, k=3):
-                return conv(np.broadcast_to(np.asarray(x, np.float32), (W, 1, k)))
-            ident = vec([1, 0, 0, 0], 4)
-            physics.make_fixed_joint(ctx, ents[:, 1:2], ents[:, 2:3], ident, ident,
-                                     r1=vec([0, 0, -1.0]), r2=vec([0, 0, 1.0]),
-                                     separation=conv(np.zeros((W, 1))))
-            physics.make_hinge_joint(ctx, ents[:, 3:4], ents[:, 4:5], vec([0, 1, 0]),
-                                     vec([0, 1, 0]), vec([1, 0, 0]), vec([1, 0, 0]),
-                                     vec([0, 0, -0.6]), vec([0, 0, 0.6]))
-
-        @staticmethod
-        def setup_tasks(builder):
-            bp = physics.RigidBodyPhysicsSystem.setup_broadphase_tasks(builder, [], Body, om)
-            ss = physics.RigidBodyPhysicsSystem.setup_substep_tasks(
-                builder, [bp], 4, Body, om, relaxation=0.7, contact_mode=contact_mode)
-            physics.RigidBodyPhysicsSystem.setup_cleanup_tasks(builder, [ss])
-
-    if pkg == "jax":
-        return JTaskGraphExecutor(World, JExecutorConfig(
-            num_worlds=num_worlds, max_entities_per_world=16, seed=0, donate=False))
-    return TaskGraphExecutor(World, ExecutorConfig(
-        num_worlds=num_worlds, max_entities_per_world=16, seed=0, device="cpu"))
+    def conv(x, dt=np.float32):
+        return jnp.asarray(np.asarray(x, dt))
+    World = scenes.joint_scene(jphys, jbase, jcomp, JArchetype, conv, contact_mode)
+    return JTaskGraphExecutor(World, JExecutorConfig(
+        num_worlds=num_worlds, max_entities_per_world=16, seed=0, donate=False))
 
 
 @pytest.mark.parametrize("mode", ["pairs", "pallas"])

@@ -50,6 +50,18 @@ def test_import_loads_no_jax():
     assert "BAD []" in out.stdout
 
 
+@pytest.mark.parametrize("module", ["ops.substep_kernel", "physics", "physics.solver",
+                                    "ops.render_kernel", "models.simple_taskgraph"])
+def test_each_module_imports_first(module):
+    """Any module of the port imports in a fresh process on its own (the
+    physics package and the substep kernels' module import each other)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", f"import gpu_ecs_madrona_tpu_torch.{module}"],
+                         env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 IMPORT_RE = re.compile(
     r"^\s*(import\s+(jax|gpu_ecs_madrona_tpu)(\.|\s|$|,)"
     r"|from\s+(jax|gpu_ecs_madrona_tpu)(\.|\s))", re.M)

@@ -48,6 +48,35 @@ def cu_smem_bytes(n, K, bp, cache):
     return 4 * counts["floats"] + 4 * counts["ints"] + 4 * static_ints
 
 
+def cu_substep_smem_bytes(n, K, J):
+    """The .cu's substep_smem_bytes (kernel 5's window layout) evaluated in
+    Python."""
+    body = CU[CU.index("size_t substep_smem_bytes("):]
+    body = body[:body.index("\n}\n")]
+    c = cu_constants()
+    ww = min(K, c["kWindow"])
+    tt = min(-(-max(n, ww) // 32) * 32, c["kSubstepThreads"])   # substep_threads
+    env = dict(c, nn=n, jj=J, ww=ww, tt=tt, ks=max(ww - tt, 0))
+    counts = {var: eval(" ".join(re.search(rf"const size_t {var} = (.*?);", body, re.S)
+                                 .group(1).split()), {}, env) for var in ("floats", "ints")}
+    return 4 * counts["floats"] + 4 * counts["ints"]
+
+
+@pytest.mark.parametrize("n,K,J", [(104, 1000, 64), (104, 1000, 0), (1, 1, 0), (8, 32, 4),
+                                   (65, 256, 4), (200, 600, 10)])
+def test_kernel5_smem_mirror_equals_the_cu_layout(n, K, J):
+    assert sk.substep_smem_bytes(n, K, J) == cu_substep_smem_bytes(n, K, J)
+
+
+def test_kernel5_limits_match_the_cu():
+    c = cu_constants()
+    assert sk.SUBSTEP_THREADS == c["kSubstepThreads"]
+    assert sk.SUBSTEP_WINDOW == c["kWindow"]
+    assert sk.JOINT_CH == c["kJointCh"]
+    # an entry past the window: its pass channels, stash, two rows, two list entries
+    assert sk.SCRATCH_CH == c["kScratchCh"] == c["kPackCh"] + c["kSlotCh"] + 4
+
+
 @pytest.mark.parametrize("n,K", [(1, 1), (65, 128), (65, 256), (104, 1000), (127, 40)])
 @pytest.mark.parametrize("bp,cache", [(False, False), (False, True), (True, False),
                                       (True, True)])
@@ -74,8 +103,16 @@ def test_main_shapes_fit_with_every_option(bp, cache):
 
 
 def test_single_substep_main_shape_fits():
-    """simple_taskgraph's 104 rows at K = 1000 (kernel 5)."""
-    assert sk.kernel_fits(sk.pk.ObjTables(stg.OBJMGR), 104, 1000) == ""
+    """simple_taskgraph's 104 rows at K = 1000 with its 64 joint rows (kernel
+    5): within a third of an SM's 228 KB with the 1 KB a block reserves, so
+    three worlds share an SM; the scratch holds the entries past the
+    window."""
+    tables = sk.pk.ObjTables(stg.OBJMGR)
+    assert sk.kernel_fits(tables, 104, 1000, single=True, joints=64) == ""
+    assert 3 * (sk.substep_smem_bytes(104, 1000, 64) + 1024) <= 228 * 1024
+    scratch = sk.substep_scratch(3, 1000, "cpu")
+    assert tuple(scratch.shape) == (3, sk.SCRATCH_CH, 1000 - sk.SUBSTEP_WINDOW)
+    assert sk.substep_scratch(3, sk.SUBSTEP_WINDOW, "cpu") is None
 
 
 @pytest.mark.parametrize("bp,cache", [(False, False), (True, True)])
