@@ -25,9 +25,11 @@ Phases:
            shared-memory lines
   parity   collision kernels vs their plain versions at the main path's
            shapes (W=8192, n=108 rows, 100 live) and collision_pushes at
-           n=1500, W=16 (many j tiles); fused_collisions_step: lo/hi atol
-           1e-5, delta atol 1e-4 against the plain push on the kernel's
-           own lo/hi; collision_pushes: delta atol 1e-4
+           n=1500, W=16 (the tiled path), a dense cluster (64 x 64 rows,
+           every live pair overlapping) through both, and collision_pushes
+           on the main state offset by 1e4; fused_collisions_step: lo/hi
+           atol 1e-5, delta atol 1e-4 against the plain push on the
+           kernel's own lo/hi; collision_pushes: delta atol 1e-4
   parity_simple_jobs   fused_simple_jobs_step vs its plain version: the
            main shapes (1024 x 100, K=1600, D=32, the executor's initial
            state), a dense cluster with D=4 (dropped > 0), K=128 with more
@@ -135,7 +137,10 @@ Phases:
            the depth is finite, overflow counters; env-steps/s
   timing   CUDA-event time of each kernel wrapper (200 calls) and of its
            plain version at the main paths' shapes (kernel 3: the tiled
-           case, n=1500, W=16, 128- and 1024-wide j tiles; the substep
+           case, n=1500, W=16, 128- and 1024-wide j tiles; the collision
+           kernels' launch shapes with their CTAs an SM, and the device ops
+           of a collision_pushes call, the nodes of a CUDA graph that
+           captures it, which must be 1; the substep
            kernel: 20 calls at both K from the main_rigid states, with
            what its operation count is counted from: the pairs by kind,
            and the live contact points the plain version finds in each
@@ -1347,6 +1352,23 @@ def persist_timing(torch, sk, kern, kw, fkw):
         "branches": branches(torch, kw)}
 
 
+def graph_nodes(torch, fn):
+    """The device operations one call of fn queues: the nodes of a CUDA
+    graph that captures the call (cuGraphGetNodes).  It opens no
+    torch.profiler session, which would disturb node_time's counts."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    count = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    check(rc == 0, f"cuGraphGetNodes failed with {rc}")
+    return count.value
+
+
 def node_time(torch, sim, name):
     """Device ms of one run of executor sim's node ``name`` on the state the
     step's nodes before it make of sim's (20 runs, as cuda_ms times), the
@@ -1670,14 +1692,36 @@ def main(argv):
     d1500 = ck.collision_pushes(p1500, p1500 - 1.0, p1500 + 1.0, m1500)
     err_p1500 = max_err(d1500, ck.collision_pushes_plain(p1500, p1500 - 1.0, p1500 + 1.0,
                                                           m1500))
+    # a dense cluster (every live pair overlaps), and collision_pushes on
+    # the main state offset by 1e4 (where only the centring keeps it right)
+    c_pos = torch.rand((64, 64, 3), generator=g, device=dev) * 0.6 - 0.3
+    c_rot, c_mask = rot[:64, :64].contiguous(), mask[:64, :64].contiguous()
+    cd, clo, chi = ck.fused_collisions_step(c_pos, c_rot, c_mask)
+    c_live, c_over = pair_counts(torch, clo, chi, c_mask)
+    check(c_live == c_over > 0, f"the cluster's live pairs all overlap ({c_over} of {c_live})")
+    err_cluster = {"lo": max_err(clo, ck.aabb_plain(c_pos, c_rot)[0]),
+                   "hi": max_err(chi, ck.aabb_plain(c_pos, c_rot)[1]),
+                   "delta": max_err(cd, ck.pushes_plain(c_pos, clo, chi, c_mask, center=False)),
+                   "pushes": max_err(ck.collision_pushes(c_pos, clo, chi, c_mask),
+                                     ck.collision_pushes_plain(c_pos, clo, chi, c_mask))}
+    o_pos, o_lo, o_hi = pos + 1e4, plo + 1e4, phi + 1e4
+    d_off = ck.collision_pushes(o_pos, o_lo, o_hi, mask)
+    err_offset = max_err(d_off, ck.collision_pushes_plain(o_pos, o_lo, o_hi, mask))
+    del o_pos, o_lo, o_hi
     emit({"phase": "parity", "fused_collisions_step": err_fused,
           "fused_rows_differing_with_plain_own_aabb": rows_own,
           "collision_pushes_n108": err_p108, "collision_pushes_n1500_w16": err_p1500,
+          "cluster_64x64": err_cluster, "collision_pushes_offset_1e4": err_offset,
           "atol": {"aabb": 1e-5, "delta": 1e-4}})
     check(err_fused["lo"] <= 1e-5 and err_fused["hi"] <= 1e-5, "fused lo/hi vs plain")
     check(err_fused["delta"] <= 1e-4, "fused delta vs plain")
     check(err_p108 <= 1e-4 and err_p1500 <= 1e-4, "collision_pushes vs plain")
-    check(bool(torch.isfinite(delta).all()) and bool(torch.isfinite(d1500).all()),
+    check(err_cluster["lo"] <= 1e-5 and err_cluster["hi"] <= 1e-5
+          and err_cluster["delta"] <= 1e-4 and err_cluster["pushes"] <= 1e-4,
+          f"the dense cluster vs plain {err_cluster}")
+    check(err_offset <= 1e-4, f"collision_pushes at a 1e4 offset vs plain {err_offset}")
+    check(bool(torch.isfinite(delta).all()) and bool(torch.isfinite(d1500).all())
+          and bool(torch.isfinite(cd).all()) and bool(torch.isfinite(d_off).all()),
           "finite kernel outputs")
 
     # kernel 4 vs plain ---------------------------------------------------------
@@ -1922,6 +1966,14 @@ def main(argv):
     tlive, tover = pair_counts(torch, t_lo, t_hi, m1500)
     tW, tn = m1500.shape
     t_bound, t_by = bound(tW * tn * (36 + 1 + 12), tW * tn * 9 + tlive * 6 + tover * 16)
+    # the collision kernels' launch shapes (CTAs an SM from the occupancy
+    # API) and the device ops of one collision_pushes call
+    col_occupancy = {"fused_8192x108": ck.occupancy(W, n, "fused"),
+                     "pushes_8192x108": ck.occupancy(W, n, "pushes"),
+                     "pushes_16x1500": ck.occupancy(tW, tn, "pushes"),
+                     "pushes_16x1500_tile1024": ck.occupancy(tW, tn, "pushes", 1024)}
+    p_ops = graph_nodes(torch, lambda: ck.collision_pushes(upos, ulo, uhi, umask))
+    check(p_ops == 1, f"a collision_pushes call queues {p_ops} device ops")
 
     # kernel 4 at the simple_jobs main path's shapes and state
     spos, srot = user["translation"], user["rotation"]
@@ -2045,7 +2097,8 @@ def main(argv):
               "live_pairs": live, "overlapping_pairs": over},
           "collision_pushes": {
               "ms": p_ms, "plain_ms": p_plain, "bound_ms": p_bound, "bound_by": p_by,
-              "live_pairs": ulive, "overlapping_pairs": uover},
+              "live_pairs": ulive, "overlapping_pairs": uover, "device_ops": p_ops},
+          "collision_occupancy": col_occupancy,
           "collision_pushes_tiled_n1500_w16": {
               "ms_by_tile_j": tiled, "plain_ms": t_plain, "bound_ms": t_bound,
               "bound_by": t_by, "live_pairs": tlive, "overlapping_pairs": tover},

@@ -9,8 +9,9 @@ bounds each one and how it is laid out):
     whole collisions tick per world — the AABB of each rotated +-1 cube,
     the overlap grid and the push reduction, without centring.
   - ``collision_pushes(pos, lo, hi, mask) -> delta``: the push reduction
-    alone with the AABBs given, on positions centred per world; n is
-    unbounded (j is walked in shared-memory tiles).
+    alone with the AABBs given, on positions centred per world (inside the
+    launch); n is unbounded (past the fused kernel's bound, or with a
+    forced tile, j is walked in shared-memory tiles).
 
 The push of body i is  delta_i = -2 sum_j ok_ij (x_j - x_i) / |x_j - x_i|
 over every live j != i whose AABB overlaps i's, with |.|^2 clamped at
@@ -37,6 +38,56 @@ FUSED_MAX_BYTES = 6 * 1024 * 1024
 def fused_fits(n: int) -> bool:
     n_pad = ((n + 127) // 128) * 128
     return n_pad * n_pad * 12 <= FUSED_MAX_BYTES
+
+
+# The kernels' launch shapes (csrc/collision_kernels.cu; the layout test
+# holds these equal to the .cu's constants and shared-memory formulas).
+GRID_THREADS = 128       # the grid path: one CTA of 4 warps a world
+GRID_WARPS = GRID_THREADS // 32
+CHUNK = 64               # the grid path's rows j a warp holds, bits a word
+TILED_THREADS = 256      # the tiled path: 8 warps a (world, 32-row block)
+TILED_WARPS = TILED_THREADS // 32
+I_BLOCK = 32
+GRID_MAX_ROWS = 640      # the largest n that fused_fits takes
+_TILE_J = 128            # the tiled path's j tile where none is forced
+
+
+def grid_smem_bytes(n: int) -> int:
+    """Shared bytes of a grid-path CTA (grid_smem_bytes in the .cu): lo, hi
+    and position as float4 a row, a half box a row (8 halves), the 64-bit
+    overlap words [np / 64][np], the live index a row, a live count a
+    32-row segment, the centring's warp sums."""
+    np_ = CHUNK * -(-n // CHUNK)
+    return (4 * (12 * np_ + GRID_WARPS * 3) + 2 * 8 * np_ + 8 * (np_ // CHUNK * np_)
+            + 4 * (np_ + np_ // 32))
+
+
+def tiled_smem_bytes(tile_j: int) -> int:
+    """Shared bytes of a tiled CTA (tiled_smem_bytes in the .cu): lo, hi and
+    position as float4 a row of the j tile, the warps' partial sums, the
+    centring's warp sums."""
+    return 4 * (12 * tile_j + TILED_WARPS * 3 * I_BLOCK + TILED_WARPS * 3)
+
+
+def pushes_tile(n: int, force_tile: int = 0) -> int:
+    """The j tile collision_pushes launches with: 0 (the grid path) where
+    the fused kernel's bound takes n and no tile is forced, else the
+    forced tile or 128."""
+    if force_tile:
+        return force_tile
+    return 0 if fused_fits(n) else _TILE_J
+
+
+def launch_shape(W: int, n: int, kernel: str = "fused", force_tile: int = 0) -> dict:
+    """{path, ctas, threads, smem} of a launch: ``kernel`` "fused"
+    (fused_collisions_step) or "pushes" (collision_pushes, whose path
+    pushes_tile decides)."""
+    tile = 0 if kernel == "fused" else pushes_tile(n, force_tile)
+    if tile == 0:
+        return {"path": "grid", "ctas": W, "threads": GRID_THREADS,
+                "smem": grid_smem_bytes(n)}
+    return {"path": "tiled", "tile_j": tile, "ctas": W * -(-n // I_BLOCK),
+            "threads": TILED_THREADS, "smem": tiled_smem_bytes(tile)}
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +154,9 @@ def _lib():
         lib.fused_collisions_step_launch.restype = I
         lib.collision_pushes_launch.argtypes = [P, P, P, P, I, I, I, P, P]
         lib.collision_pushes_launch.restype = I
+        IP = ctypes.POINTER(ctypes.c_int)
+        lib.collision_occupancy.argtypes = [I, I, I, IP, IP, IP]
+        lib.collision_occupancy.restype = I
         lib._typed = True
     return lib
 
@@ -156,29 +210,39 @@ def fused_collisions_step(pos, rot, mask):
 
 fused_collisions_step.launches = 0
 
-_TILE_J = 128
+
+def occupancy(W: int, n: int, kernel: str = "fused", force_tile: int = 0) -> dict:
+    """launch_shape plus the CTAs an SM the card's occupancy API gives for
+    it (needs the card)."""
+    shape = launch_shape(W, n, kernel, force_tile)
+    which = 0 if kernel == "fused" else (1 if shape["path"] == "grid" else 2)
+    t, b, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = _lib().collision_occupancy(which, n, shape.get("tile_j", 0), ctypes.byref(t),
+                                    ctypes.byref(b), ctypes.byref(c))
+    _raise_on(rc, "collision_occupancy")
+    return dict(shape, ctas_per_sm=c.value)
 
 
 def collision_pushes(pos, lo, hi, mask, force_tile: int = 0):
     """pos [W, n, 3], lo/hi [W, n, 3], mask [W, n] bool -> delta [W, n, 3].
 
-    Positions are centred per world first (d2 and the push are
-    translation-invariant; centring keeps large coordinates from
-    cancelling).  ``force_tile`` sets the width of the j tiles the kernel
-    stages through shared memory (default 128; at most 1024)."""
+    Positions are centred per world first, inside the launch (d2 and the
+    push are translation-invariant; centring keeps large coordinates from
+    cancelling).  ``force_tile`` forces the tiled path with j tiles of that
+    width staged through shared memory (at most 1024); without it, n past
+    the fused kernel's bound takes 128-wide tiles and other n the grid
+    path (pushes_tile)."""
     if pos.device.type == "cpu":
         return collision_pushes_plain(pos, lo, hi, mask)
     _check("collision_pushes", mask, pos=(pos, 3), lo=(lo, 3), hi=(hi, 3))
-    tile_j = force_tile or _TILE_J
-    if not 1 <= tile_j <= 1024:
-        raise ValueError(f"collision_pushes: force_tile={force_tile} outside [1, 1024]")
+    if not 0 <= force_tile <= 1024:
+        raise ValueError(f"collision_pushes: force_tile={force_tile} outside [0, 1024]")
     W, n = mask.shape
-    pc = (pos - pos.mean(dim=1, keepdim=True)).contiguous()
     delta = torch.empty_like(pos)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     rc = _lib().collision_pushes_launch(
-        pc.data_ptr(), lo.data_ptr(), hi.data_ptr(), mask.data_ptr(), W, n,
-        tile_j, delta.data_ptr(), stream)
+        pos.data_ptr(), lo.data_ptr(), hi.data_ptr(), mask.data_ptr(), W, n,
+        pushes_tile(n, force_tile), delta.data_ptr(), stream)
     _raise_on(rc, "collision_pushes")
     collision_pushes.launches += 1
     return delta

@@ -67,32 +67,153 @@ def inputs(seed, W, n, half, dead, dev):
             torch.from_numpy(mask).to(dev))
 
 
+def shaped(pos, rot, mask, kind):
+    """A collision case's inputs made ``kind``: "all_dead" kills every row
+    of world 0; "coincident" puts each odd row on the even row before it
+    (d2 = 0: the push's clamp at 1e-30); "cluster" packs every world into
+    a 0.6-wide cube, so every live pair overlaps."""
+    if kind == "all_dead":
+        mask = mask.clone()
+        mask[0] = False
+    elif kind == "coincident":
+        pos = pos.clone()
+        pos[:, 1::2] = pos[:, 0:pos.shape[1] - 1:2]
+    elif kind == "cluster":
+        pos = pos * (0.3 / pos.abs().max())
+    elif kind in ("touching", "near_miss"):
+        # unit cubes unrotated on shuffled points of a line 2 (+ 1e-4) apart:
+        # neighbours' faces touch (an overlap, by <=) or miss by 1e-4, well
+        # inside the half-precision prefilter's rounding, which the float
+        # test must then drop
+        W, n = mask.shape
+        step = 2.0 + (1e-4 if kind == "near_miss" else 0.0)
+        x = torch.arange(n, dtype=torch.float32, device=pos.device) * step - n
+        order = torch.argsort(pos[..., 0], dim=1)
+        pos = torch.zeros_like(pos)
+        pos[..., 0] = x[order]
+        rot = torch.zeros_like(rot)
+        rot[..., 0] = 1.0
+    return pos, rot, mask
+
+
+# name: (seed, W, n, half, dead rows, kind); the first two are the cases
+# the grid path's parent was held to.
+FUSED_CASES = {"64-108": (7, 64, 108, 10.0, 8, None), "3-300": (7, 3, 300, 10.0, 8, None),
+               "n37": (11, 8, 37, 3.0, 3, None), "n1": (12, 4, 1, 1.0, 0, None),
+               "all_dead": (13, 3, 108, 10.0, 8, "all_dead"),
+               "coincident": (14, 4, 60, 4.0, 4, "coincident"),
+               "cluster": (15, 4, 64, 1.0, 2, "cluster"),
+               "n640": (16, 2, 640, 12.0, 10, None),
+               "touching": (24, 2, 90, 1.0, 0, "touching"),
+               "near_miss": (25, 2, 90, 1.0, 0, "near_miss")}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,n", [(64, 108), (3, 300)])
-def test_fused_collisions_step_matches_plain(card, W, n):
-    pos, rot, mask = inputs(7, W, n, 10.0, 8, card)
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_collisions_step_matches_plain(card, case):
+    """lo/hi atol 1e-5, delta atol 1e-4, dead rows 0, a second launch
+    bit-identical; n = 640 is fused_fits's bound, where the bit grid
+    passes 48 KB of shared memory."""
+    seed, W, n, half, dead, kind = FUSED_CASES[case]
+    pos, rot, mask = shaped(*inputs(seed, W, n, half, dead, card), kind)
     delta, lo, hi = ck.fused_collisions_step(pos, rot, mask)
+    again = ck.fused_collisions_step(pos, rot, mask)
     torch.cuda.synchronize()
-    assert ck.fused_collisions_step.launches == 1
+    assert ck.fused_collisions_step.launches == 2
     plo, phi = ck.aabb_plain(pos, rot)
     torch.testing.assert_close(lo, plo, atol=1e-5, rtol=0)
     torch.testing.assert_close(hi, phi, atol=1e-5, rtol=0)
     want = ck.pushes_plain(pos, lo, hi, mask, center=False)
     torch.testing.assert_close(delta, want, atol=1e-4, rtol=0)
     assert (delta[~mask] == 0).all()
+    assert bool(torch.isfinite(delta).all())
+    for a, b in zip((delta, lo, hi), again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if kind == "cluster":
+        assert bool((want[mask].norm(dim=-1) > 0).all())   # every live row pushed
+    if kind in ("touching", "near_miss"):
+        assert bool(want.any()) == (kind == "touching")     # the ends are pushed
+
+
+# name: (seed, W, n, AABB half-width, dead rows, force_tile, kind, offset)
+PUSH_CASES = {"64-108-0": (9, 64, 108, 1.0, 5, 0, None, 0.0),
+              "4-700-32": (9, 4, 700, 1.0, 5, 32, None, 0.0),
+              "2-1500-1024": (9, 2, 1500, 1.0, 5, 1024, None, 0.0),
+              "n37": (17, 8, 37, 1.0, 3, 0, None, 0.0),
+              "n37-tiled": (17, 8, 37, 1.0, 3, 32, None, 0.0),
+              "n1": (18, 4, 1, 1.0, 0, 0, None, 0.0),
+              "all_dead": (19, 3, 108, 1.0, 8, 0, "all_dead", 0.0),
+              "coincident": (20, 4, 60, 1.0, 4, 0, "coincident", 0.0),
+              "cluster": (21, 4, 64, 1.0, 2, 0, "cluster", 0.0),
+              "cluster-tiled": (21, 4, 64, 1.0, 2, 128, "cluster", 0.0),
+              "offset_1e4": (22, 8, 108, 1.0, 8, 0, None, 1e4),
+              "offset_1e4-tiled": (22, 8, 108, 1.0, 8, 128, None, 1e4),
+              "touching": (26, 2, 90, 1.0, 0, 0, "touching", 0.0),
+              "near_miss": (27, 2, 90, 1.0, 0, 0, "near_miss", 0.0),
+              "near_miss-tiled": (27, 2, 90, 1.0, 0, 32, "near_miss", 0.0)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,n,tile", [(64, 108, 0), (4, 700, 32), (2, 1500, 1024)])
-def test_collision_pushes_matches_plain(card, W, n, tile):
-    pos, _, mask = inputs(9, W, n, n ** (1 / 3) * 2.0, 5, card)
-    lo, hi = pos - 1.0, pos + 1.0
+@pytest.mark.parametrize("case", list(PUSH_CASES))
+def test_collision_pushes_matches_plain(card, case):
+    """delta atol 1e-4 against the plain version (which centres with
+    pos.mean), dead rows 0, a second launch bit-identical; the 1e4 offset
+    is where only the centring keeps the push right."""
+    seed, W, n, ext, dead, tile, kind, offset = PUSH_CASES[case]
+    pos, _, mask = shaped(*inputs(seed, W, n, n ** (1 / 3) * 2.0, dead, card), kind)
+    pos = pos + offset
+    lo, hi = pos - ext, pos + ext
     delta = ck.collision_pushes(pos, lo, hi, mask, force_tile=tile)
+    again = ck.collision_pushes(pos, lo, hi, mask, force_tile=tile)
     torch.cuda.synchronize()
-    assert ck.collision_pushes.launches == 1
+    assert ck.collision_pushes.launches == 2
     want = ck.collision_pushes_plain(pos, lo, hi, mask)
     torch.testing.assert_close(delta, want, atol=1e-4, rtol=0)
     assert (delta[~mask] == 0).all()
+    assert bool(torch.isfinite(delta).all())
+    assert torch.equal(delta.view(torch.int32), again.view(torch.int32))
+    if kind in ("touching", "near_miss"):
+        assert bool(delta.any()) == (kind == "touching")
+
+
+def graph_nodes(fn):
+    """The device operations one call of fn queues: the nodes of a CUDA
+    graph that captures the call (cuGraphGetNodes).  No torch.profiler
+    session, which would disturb the profiler counts of later tests."""
+    import ctypes
+
+    fn()                                          # warm: the build, the allocator
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    count = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    assert rc == 0, rc
+    return count.value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,n", [(64, 108), (16, 1500)], ids=["grid", "tiled"])
+def test_collision_pushes_is_one_device_op(card, W, n):
+    """The centring runs in the launch: a collision_pushes call queues one
+    device operation, on both paths."""
+    pos, _, mask = inputs(23, W, n, n ** (1 / 3) * 2.0, 5, card)
+    lo, hi = pos - 1.0, pos + 1.0
+    assert graph_nodes(lambda: ck.collision_pushes(pos, lo, hi, mask)) == 1
+    assert ck.collision_pushes.launches == 2
+
+
+@pytest.mark.cuda
+def test_collision_launch_shapes_on_card(card):
+    """The occupancy API takes each launch shape: the main path's grid
+    launch, the bound's, the tiled timing's."""
+    for W, n, kernel, tile in ((8192, 108, "fused", 0), (8192, 108, "pushes", 0),
+                               (2, 640, "fused", 0), (16, 1500, "pushes", 0),
+                               (16, 1500, "pushes", 1024)):
+        occ = ck.occupancy(W, n, kernel, tile)
+        assert occ["ctas_per_sm"] >= 1, occ
 
 
 @pytest.mark.cuda
