@@ -39,6 +39,7 @@ kernel's strict ``<``).  Launches are counted in ``RenderKernel.launches``.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -345,6 +346,59 @@ def render_plain(rays, inst, *, tables: RenderTables, light, ambient: float):
         out[w0:w0 + step] = _plain_block(rays[w0:w0 + step], inst[w0:w0 + step], tables,
                                          light, ambient)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The render node's camera rays and observations
+# ---------------------------------------------------------------------------
+
+
+def pixel_ndc(n: int, device):
+    """The centres of n pixels in [-1, 1], ((i + 0.5) / n) * 2 - 1, each step
+    rounded on its own as the kernel rounds it: the division is by a tensor,
+    since PyTorch on the card multiplies by the reciprocal of a Python
+    scalar divisor."""
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    return (i + 0.5) / torch.full_like(i, float(n)) * 2.0 - 1.0
+
+
+def camera_rays(views, V: int, H: int, Wpx: int):
+    """Pinhole rays of the first V views (``ctx.data["render"]["__views__"]``):
+    (ro, d) [W, V, H, Wpx, 3], looking down +y in camera space with +z up,
+    rotated by each view's rotation; NDC in [-1, 1].
+
+    Every product, sum and norm is its own elementwise operation in a fixed
+    order, so the card and the kernel's views mode round them alike: the
+    rotation is quat_rotate's v + 2 (w uv + u x uv) with uv = u x v, each
+    cross product's components written out (physics/pairs.py cross3, no
+    fused multiply-add), and |d| adds its squares in component order."""
+    eye, rot, tanf = views["eye"][:, :V], views["rot"][:, :V], views["tan_fov"][:, :V]
+    W, dev = eye.shape[0], eye.device
+    px = pixel_ndc(Wpx, dev)[None, None, None, :]                     # [1, 1, 1, Wpx]
+    py = -pixel_ndc(H, dev)[None, None, :, None]                      # [1, 1, H, 1]
+    tanf = tanf[:, :, None, None]
+    shape = (W, V, H, Wpx)
+    v = ((px * tanf).expand(shape), torch.ones(shape, device=dev), (py * tanf).expand(shape))
+    q = tuple(rot[:, :, None, None, c] for c in range(4))
+    u = q[1:]
+    uv = pk.cross3(u, v)
+    uuv = pk.cross3(u, uv)
+    d = tuple(a + 2.0 * (q[0] * b + c) for a, b, c in zip(v, uv, uuv))
+    n = torch.sqrt(pk.dot3(d, d))
+    d = torch.stack([a / n for a in d], dim=-1)
+    return eye[:, :, None, None, :].expand(d.shape), d
+
+
+def observations(rgb, hit, depth, alive):
+    """The render node's outputs from rgb [W, V, H, Wpx, 3] in [0, 1], hit
+    and depth [W, V, H, Wpx] and the views' alive [W, V]: (RGBA8 [W, V, H,
+    Wpx, 4], alpha 255 on a hit; depth, inf at a miss), both 0 / inf on a
+    dead view.  The cast truncates, as the JAX node's does."""
+    rgba = torch.cat([rgb, torch.where(hit[..., None], 1.0, 0.0)], dim=-1)
+    rgba8 = (torch.clamp(rgba, 0, 1) * 255).to(torch.uint8)
+    depth = torch.where(hit, depth, math.inf)
+    alive = alive[:, :, None, None]
+    return (torch.where(alive[..., None], rgba8, 0), torch.where(alive, depth, math.inf))
 
 
 # ---------------------------------------------------------------------------

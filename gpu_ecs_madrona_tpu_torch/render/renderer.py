@@ -37,7 +37,8 @@ from gpu_ecs_madrona_tpu_torch.core.component import Archetype
 from gpu_ecs_madrona_tpu_torch.core.context import Context
 from gpu_ecs_madrona_tpu_torch.core.state import batched_gather
 from gpu_ecs_madrona_tpu_torch.core.taskgraph import NodeID, TaskGraphBuilder
-from gpu_ecs_madrona_tpu_torch.ops.render_kernel import RenderKernel
+from gpu_ecs_madrona_tpu_torch.ops.render_kernel import (RenderKernel, camera_rays,
+                                                         observations)
 from gpu_ecs_madrona_tpu_torch.physics.assets import PRIM_HULL, PRIM_PLANE, PRIM_SPHERE
 from gpu_ecs_madrona_tpu_torch.utils import math as m
 
@@ -423,23 +424,11 @@ class BatchRenderer:
 
     # -- node ---------------------------------------------------------------
 
-    def camera_rays(self, views, device):
+    def camera_rays(self, views):
         """Pinhole rays of the views (``ctx.data["render"]["__views__"]``):
-        (ro, d) [W, V, H, Wpx, 3], looking down +y in camera space with +z
-        up, rotated by each view's rotation; NDC in [-1, 1]."""
+        (ro, d) [W, V, H, Wpx, 3] (ops/render_kernel.py camera_rays)."""
         cfg = self.cfg
-        V, Hh, Ww = cfg.max_views, cfg.height, cfg.width
-        W = views["eye"].shape[0]
-        ys = (torch.arange(Hh, dtype=torch.float32, device=device) + 0.5) / Hh * 2 - 1
-        xs = (torch.arange(Ww, dtype=torch.float32, device=device) + 0.5) / Ww * 2 - 1
-        px, py = torch.meshgrid(xs, -ys, indexing="xy")              # [H, Wpx]
-        tanf = views["tan_fov"][:, :V, None, None]
-        d_cam = torch.stack([px.expand(W, V, Hh, Ww) * tanf,
-                             torch.ones((W, V, Hh, Ww), device=device),
-                             py.expand(W, V, Hh, Ww) * tanf], dim=-1)
-        d = m.quat_rotate(views["rot"][:, :V, None, None, :], d_cam)
-        d = d / _norm(d)
-        return views["eye"][:, :V, None, None, :].expand(d.shape), d
+        return camera_rays(views, cfg.max_views, cfg.height, cfg.width)
 
     @staticmethod
     def instances(render_in, instance_archetypes):
@@ -453,7 +442,7 @@ class BatchRenderer:
         """The render kernel's (rays, inst) for ``ctx.data["render"]``: the
         one place that builds them, for the render node and its callers;
         the image width is ``cfg.width``."""
-        ro, d = self.camera_rays(render_in["__views__"], render_in["__views__"]["eye"].device)
+        ro, d = self.camera_rays(render_in["__views__"])
         W = ro.shape[0]
         return self._kernel.pack(ro.reshape(W, -1, 3), d.reshape(W, -1, 3),
                                  *self.instances(render_in, instance_archetypes))
@@ -480,17 +469,12 @@ class BatchRenderer:
                 hit = hit_f.reshape(W, V, Hh, Ww)
                 best_t = depth_f.reshape(W, V, Hh, Ww)
             else:
-                ro, d = self.camera_rays(views, ctx.device)
+                ro, d = self.camera_rays(views)
                 pos, rot, scale, obj, imask = self.instances(render_in, instance_archetypes)
                 rgb, hit, best_t = self._render_batched(ctx, d, ro, views["eye"][:, :V], pos,
                                                         rot, scale, obj, imask)
-            rgba = torch.cat([rgb, torch.where(hit[..., None], 1.0, 0.0)], dim=-1)
-            rgba8 = (torch.clamp(rgba, 0, 1) * 255).to(torch.uint8)
-            depth = torch.where(hit, best_t, math.inf)
-            # dead views render black / inf
-            alive = views["mask"][:, :V, None, None]
-            user["render_out"] = {"rgb": torch.where(alive[..., None], rgba8, 0),
-                                  "depth": torch.where(alive, depth, math.inf)}
+            rgb8, depth = observations(rgb, hit, best_t, views["mask"][:, :V])
+            user["render_out"] = {"rgb": rgb8, "depth": depth}
             ctx.data = user
 
         return builder.add_node(render, deps, name="batch_render")
