@@ -119,19 +119,27 @@ Phases:
            caches untouched; the world flags kernel equal to its plain
            version on the settled pile as it is, disturbed, forced and with
            invalid caches
-  parity_render   the render kernel vs its plain version on the four
-           scenes of tests/test_torch_render_scenes.py (2-D image tiles; the
-           inside scene's one tile spans both of its back-to-back views, so
-           its cone wraps) and at the main state (1024 worlds after 3
-           steps): hit exact, depth and float rgb atol 1e-5, a repeated
-           launch bit-identical; and the kernel route against the "xla"
-           route at 64 worlds: hit masks differ on at most 1 pixel in 1e5
-           (the count is printed), depth rtol 1e-4 / atol 1e-3 and RGBA8
-           within 1 where both hit (tests/test_render_pallas.py's
-           tolerances)
+  parity_render   the render kernel's rays mode vs its plain version on
+           the scenes of tests/test_torch_render_scenes.py (CARD_SCENES:
+           8 x 4 pixel tiles; inside_wrapping's tile over rows 4-7 spans
+           both of its back-to-back views, so its cone wraps) and at the
+           main state (1024 worlds after 3 steps): hit exact, depth and
+           float rgb atol 1e-5, a repeated launch bit-identical; its views
+           mode (the render node's one launch) at the main state and on
+           VIEW_CASES (two views with dead ones, 24 x 40 and 18 x 30
+           images) bit for bit against the node's route before it on the
+           card (camera_rays, pack, the rays mode, the RGBA8/depth
+           epilogue; depth compared as int32 bits), a repeat bit-identical,
+           and against its plain version (alpha exact, depth atol 1e-5
+           where both hit, RGBA8 within 1); and the kernel route against
+           the "xla" route at 64 worlds: hit masks differ on at most 1
+           pixel in 1e5 (the count is printed), depth rtol 1e-4 / atol
+           1e-3 and RGBA8 within 1 where both hit
+           (tests/test_render_pallas.py's tolerances)
   main_simple_taskgraph   simple_taskgraph at 1024 worlds x 100 spheres + 1
            agent camera, 4 substeps, 64 x 64 RGB and depth, renderer
-           "auto": 3 warm-up steps then 5 windows of 50; launches =
+           "auto" (the render node one views-mode launch): 3 warm-up steps
+           then 5 windows of 50; launches =
            {substep: 4 x steps, render: steps} and no other, finite
            positions, finite depth on every hit and alpha 255 exactly where
            the depth is finite, overflow counters; env-steps/s
@@ -148,12 +156,19 @@ Phases:
            bound: max(bytes / 3.35 TB/s, fp32 ops / 67 TFLOP/s), the H100
            SXM peaks; no single PyTorch call computes any of these
            functions, so there is no library yardstick.  The render kernel
-           (200 calls) from the main_simple_taskgraph state: its bound
-           counts the (pixel, live instance) pairs whose bounding sphere
-           the pixel's own ray meets, times the instance's test, and a
-           per-pixel cost; the instances its cull keeps per tile; and the
-           device time of a simple_taskgraph step's physics nodes and of
-           its render nodes.  The single-substep kernel (200 calls) at the
+           (200 calls) from the main_simple_taskgraph state, in its rays
+           mode on the inputs the node's route before its views mode gave
+           it (row 10 at equal work) and in its views mode as the node
+           launches it (the kernels line's ms), each with its CTAs an SM
+           and CTAs an image: the bound counts the (pixel, live instance)
+           pairs whose bounding sphere the pixel's own ray meets, times the
+           instance's test, and a per-pixel cost (the views mode's ray
+           too), and the bytes of each mode's inputs and outputs; the
+           instances the tile cull keeps per 8 x 4 and per 16 x 8 tile;
+           the render node's device ms, host ms and device operations (a
+           captured CUDA graph's nodes, at most 3); and the device time of
+           a simple_taskgraph step's physics nodes and of its render
+           nodes.  The single-substep kernel (200 calls) at the
            first substep of that state, its bound counted as the fused
            kernel's for one substep without the integrate; and its node
            launch there (200 calls; the kernels line's ms), held against
@@ -1439,9 +1454,16 @@ RENDER_INPUTS = ("ro", "rd", "pos", "rot", "scale", "obj", "mask")
 OPS_RENDER = {"sphere": 25, "plane": 45, "hull": 75, "hull_face": 14, "mesh": 115,
               "mesh_tri": 47}
 OPS_PIXEL = 30
+# the views mode's ray a pixel (camera_ray: the pixel's NDC, the rotation,
+# the norm and the division)
+OPS_RAY = 50
 # bytes a call moves: each ray read (6 floats), each instance read (12),
 # each output written (5)
 BYTES_RAY, BYTES_INST, BYTES_OUT = 24, 48, 20
+# the views mode: each view read (eye 12, rot 16, tan_fov 4, mask 1), each
+# instance (pos 12, rot 16, scale 12, obj 4, mask 1), each pixel written
+# (RGBA8 4, depth 4)
+BYTES_VIEW, BYTES_INST_VIEWS, BYTES_PIXEL = 33, 45, 8
 # the kernel's widening of each bounding sphere (csrc/render_kernels.cu
 # kCullRel, kCullAbs)
 CULL_REL, CULL_ABS = 1e-3, 1e-3
@@ -1471,14 +1493,48 @@ def stg_sim(stg, worlds, backend="auto"):
     return sim
 
 
+def views_case(torch, rkm, scenes, k, views, inst, V, H, Wpx):
+    """The kernel's views mode (twice) against the node's route before it
+    on the card (camera_rays, pack, the rays-mode kernel, the epilogue), bit
+    for bit, and against its plain version (alpha exact, depth atol 1e-5
+    where both hit, RGBA8 within 1): its line, or raises."""
+    kw = dict(height=H, width=Wpx, max_views=V)
+    got, again = k.render_views(views, *inst, **kw), k.render_views(views, *inst, **kw)
+    want = scenes.node_route(k, views, inst, V, H, Wpx)
+    plain = rkm.render_views_plain(views, *inst, tables=k.tables, light=k.light,
+                                   ambient=k.ambient, **kw)
+    torch.cuda.synchronize()
+    for other, what in ((want, "the old route"), (again, "a repeated launch")):
+        check(torch.equal(got[0], other[0]), f"render_views RGBA8 vs {what}")
+        check(torch.equal(got[1].view(torch.int32), other[1].view(torch.int32)),
+              f"render_views depth bits vs {what}")
+    hit = torch.isfinite(got[1])
+    check(torch.equal(got[0][..., 3] == 255, hit), "render_views alpha 255 exactly on hits")
+    check(torch.equal(got[0][..., 3], plain[0][..., 3]), "render_views alpha vs plain")
+    both = hit & torch.isfinite(plain[1])
+    err = max_err(got[1][both], plain[1][both])
+    rgb_d = int((got[0].int() - plain[0].int()).abs().max())
+    check(err <= 1e-5 and rgb_d <= 1, f"render_views vs plain: depth {err}, rgba8 {rgb_d}")
+    dead = ~views["mask"][:, :V]
+    check(bool((got[0][dead] == 0).all()) and bool(torch.isinf(got[1][dead]).all()),
+          "render_views: a dead view is black with depth inf")
+    return {"W": int(got[1].shape[0]), "V": V, "H": H, "Wpx": Wpx, "N": int(inst[0].shape[1]),
+            "dead_views": int(dead.sum()), "hits": int(hit.sum()),
+            "vs_old_route": "bit-identical", "depth_max_err_vs_plain": err,
+            "rgba8_max_diff_vs_plain": rgb_d}, err
+
+
 def parity_render(torch, rkm, stg, dev, xla_worlds=64):
-    """The render kernel against its plain version (the four scenes, the main
-    state), and the kernel route against the "xla" route at 64 worlds.
-    Returns (the phase's line, the worst kernel-vs-plain error)."""
+    """The render kernel's rays mode against its plain version (the scenes,
+    the main state); its views mode against the node's route before it and
+    against its plain version (the main state, two views with dead ones,
+    24 x 40 and 18 x 30 images); and the kernel route against the "xla"
+    route at 64 worlds.  Returns (the phase's line, the worst kernel-vs-plain
+    error)."""
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import test_torch_render_scenes as scenes
     cases = {}
-    for name, make in scenes.SCENES.items():
+    for name, make in scenes.CARD_SCENES.items():
         sc = make()
         k = rkm.RenderKernel(sc["om"], sc["albedo"], scenes.LIGHT_DIR, scenes.AMBIENT,
                              mesh_tables=sc["mesh_tables"])
@@ -1486,10 +1542,19 @@ def parity_render(torch, rkm, stg, dev, xla_worlds=64):
         cases[name] = render_case(torch, rkm, k, rays, inst, sc["img_w"])
     sim = stg_sim(stg, STG_WORLDS)
     rend = sim.world_cls.renderer()
-    rays, inst = rend.kernel_inputs(sim.state["user"]["render"], [stg.Sphere])
+    render_in = sim.state["user"]["render"]
+    rays, inst = rend.kernel_inputs(render_in, [stg.Sphere])
     cases["main_state"] = render_case(torch, rkm, rend._kernel, rays, inst, STG_RES)
-    del sim, rays, inst
     worst = max(c["max_err"] for c in cases.values())
+    views = {}
+    views["main_state"], err = views_case(
+        torch, rkm, scenes, rend._kernel, render_in["__views__"],
+        rend.instances(render_in, [stg.Sphere]), 1, STG_RES, STG_RES)
+    worst = max(worst, err)
+    for name in scenes.VIEW_CASES:
+        views[name], err = views_case(torch, rkm, scenes, *scenes.view_case(name, dev))
+        worst = max(worst, err)
+    del sim, rays, inst
     # the kernel route against the batched "xla" route, same physics
     a, b = stg_sim(stg, xla_worlds), stg_sim(stg, xla_worlds, backend="xla")
     check(torch.equal(a.get_exported(2)[0], b.get_exported(2)[0]), "xla run: same physics")
@@ -1501,13 +1566,15 @@ def parity_render(torch, rkm, stg, dev, xla_worlds=64):
     depth_ok = bool(torch.allclose(da[both], db[both], rtol=1e-4, atol=1e-3))
     check(diff <= ha.numel() * 1e-5, f"kernel vs xla: {diff} hit pixels differ")
     check(depth_ok and rgb_d <= 1, f"kernel vs xla: depth {depth_ok}, rgb {rgb_d}")
-    return {"phase": "parity_render", "cases": cases,
+    return {"phase": "parity_render", "cases": cases, "views_mode": views,
             "kernel_vs_xla": {"worlds": xla_worlds, "pixels": ha.numel(), "hits": int(ha.sum()),
                                         "hit_pixels_differing": diff,
                                         "depth_max_err": max_err(da[both], db[both]),
                                         "rgba8_max_diff": rgb_d},
             "repeat": "bit-identical",
             "atol": {"kernel_vs_plain": 1e-5, "hit": "exact",
+                     "views_vs_old_route": "bit-identical (RGBA8, depth bits)",
+                     "views_vs_plain": "alpha exact, depth 1e-5 where both hit, rgba8 1",
                      "kernel_vs_xla": "hit 1 in 1e5, depth rtol 1e-4 atol 1e-3, rgba8 1"}}, worst
 
 
@@ -1550,16 +1617,17 @@ def render_work(torch, rkm, tables, rays, inst):
     return ops, nbytes, pairs, live_rays
 
 
-def render_survivors(torch, rkm, tables, rays, inst, img_w):
-    """The instances the kernel's cull keeps per 16 x 8 tile (its formula,
-    recomputed in PyTorch): mean and max over the tiles, and the live
-    instances."""
+def render_survivors(torch, rkm, tables, rays, inst, img_w, tile_w, tile_h):
+    """The instances the kernel's tile cull keeps per tile_w x tile_h tile
+    (its formula, recomputed in PyTorch): mean and max over the tiles, and
+    the live instances."""
     W, _, P = rays.shape
     rows = P // img_w
-    check(rows * img_w == P and rows % 8 == 0 and img_w % 16 == 0, "survivors: 16 x 8 tiles")
-    r = rays.reshape(W, 6, rows // 8, 8, img_w // 16, 16).permute(0, 2, 4, 1, 3, 5)
-    r = r.reshape(W, -1, 6, 128)
-    ro, rd = r[:, :, 0:3], r[:, :, 3:6]                                # [W, T, 3, 128]
+    check(rows * img_w == P and rows % tile_h == 0 and img_w % tile_w == 0,
+          f"survivors: {tile_w} x {tile_h} tiles")
+    r = rays.reshape(W, 6, rows // tile_h, tile_h, img_w // tile_w, tile_w)
+    r = r.permute(0, 2, 4, 1, 3, 5).reshape(W, -1, 6, tile_w * tile_h)
+    ro, rd = r[:, :, 0:3], r[:, :, 3:6]                                # [W, T, 3, px]
     real = ((rd * rd).sum(2) >= 0.5).float()
     ax = (rd * real[:, :, None]).sum(-1)                               # [W, T, 3]
     ax = ax / torch.sqrt(torch.clamp((ax * ax).sum(-1, keepdim=True), min=1e-9))
@@ -2067,21 +2135,44 @@ def main(argv):
     check(1 <= node_t["substep_node"]["device_ops"] <= 12,
           f"the substep node queues {node_t['substep_node']['device_ops']} device ops")
 
-    # the render kernel at the simple_taskgraph main path's state
+    # the render kernel at the simple_taskgraph main path's state: its rays
+    # mode at the inputs the node's route before it gave the kernel (row
+    # 10 at equal work), its views mode as the node launches it
     rend = ssim.world_cls.renderer()
     rk_ = rend._kernel
-    rrays, rinst = rend.kernel_inputs(ssim.state["user"]["render"], [stg.Sphere])
+    render_in = ssim.state["user"]["render"]
+    rrays, rinst = rend.kernel_inputs(render_in, [stg.Sphere])
+    rviews, rinsts = render_in["__views__"], rend.instances(render_in, [stg.Sphere])
     rkw = dict(tables=rk_.tables, light=rk_.light, ambient=rk_.ambient)
+    vkw = dict(height=STG_RES, width=STG_RES, max_views=1)
     r_ops, r_bytes, r_pairs, r_rays = render_work(torch, rkm, rk_.tables, rrays, rinst)
     r_bound, r_by = bound(r_bytes, r_ops)
-    render_t = {"ms": cuda_ms(torch, lambda: rkm.render(rrays, rinst, img_w=STG_RES, **rkw), 200),
-                "plain_ms": cuda_ms(torch, lambda: rkm.render_plain(rrays, rinst, **rkw), 3,
-                                    warmup=1),
-                "bound_ms": r_bound, "bound_by": r_by, "ops": r_ops, "bytes": r_bytes,
+    v_ops = r_ops + r_rays * OPS_RAY
+    v_bytes = STG_WORLDS * (BYTES_VIEW + rinst.shape[2] * BYTES_INST_VIEWS
+                            + STG_RES * STG_RES * BYTES_PIXEL)
+    v_bound, v_by = bound(v_bytes, v_ops)
+    rays_t = {"ms": cuda_ms(torch, lambda: rkm.render(rrays, rinst, img_w=STG_RES, **rkw), 200),
+              "plain_ms": cuda_ms(torch, lambda: rkm.render_plain(rrays, rinst, **rkw), 3,
+                                  warmup=1),
+              "bound_ms": r_bound, "bound_by": r_by, "ops": r_ops, "bytes": r_bytes,
+              "ctas_per_sm": rkm.occupancy(rinst.shape[2]),
+              "splits": rkm.launch_splits(STG_WORLDS, rkm.tile_shape(rrays.shape[2], STG_RES)[3])}
+    views_t = {"ms": cuda_ms(torch, lambda: rk_.render_views(rviews, *rinsts, **vkw), 200),
+               "plain_ms": cuda_ms(torch, lambda: rkm.render_views_plain(
+                   rviews, *rinsts, **rkw, **vkw), 3, warmup=1),
+               "bound_ms": v_bound, "bound_by": v_by, "ops": v_ops, "bytes": v_bytes,
+               "ctas_per_sm": rkm.occupancy(rinst.shape[2], views=True),
+               "splits": rkm.launch_splits(STG_WORLDS, rkm.tile_shape(STG_RES ** 2, STG_RES)[3])}
+    render_t = {"rays_mode": rays_t, "views_mode": views_t,
                 "pairs_meeting_bounds": r_pairs, "live_rays": r_rays,
-                "survivors_per_tile": render_survivors(torch, rkm, rk_.tables, rrays, rinst,
-                                                       STG_RES),
+                "survivors_per_tile": {
+                    f"{tw}x{th}": render_survivors(torch, rkm, rk_.tables, rrays, rinst,
+                                                   STG_RES, tw, th)
+                    for tw, th in ((rkm.TILE_W, rkm.TILE_H), (16, 8))},
+                "render_node": node_time(torch, ssim, "batch_render"),
                 "W": rrays.shape[0], "P": rrays.shape[2], "N": rinst.shape[2]}
+    check(1 <= render_t["render_node"]["device_ops"] <= 3,
+          f"the render node queues {render_t['render_node']['device_ops']} device ops")
     # a simple_taskgraph step by node group, device ms: the physics (clamp,
     # broadphase, substeps, cleanup) and the rendering (pack, render)
     from gpu_ecs_madrona_tpu_torch.core.context import Context
@@ -2196,9 +2287,13 @@ def main(argv):
         {"name": "render", "route": "cuda", "source": csrc + "render_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/render_kernel.py:501",
          "launches": stg_launches["render"], "launches_per_step": 1,
-         "max_abs_err": err_render, "ms": render_t["ms"], "plain_ms": render_t["plain_ms"],
-         "bound_ms": render_t["bound_ms"], "bound_by": render_t["bound_by"],
-         "library_ms": None},
+         "max_abs_err": err_render, "ms": views_t["ms"], "plain_ms": views_t["plain_ms"],
+         "bound_ms": views_t["bound_ms"], "bound_by": views_t["bound_by"],
+         "library_ms": None,
+         "ms_is": "the views mode: the render node's one launch (rays, trace, RGBA8/depth)",
+         "rays_mode": {k: rays_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "render_node": {k: render_t["render_node"][k]
+                         for k in ("device_ms", "host_ms", "device_ops")}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

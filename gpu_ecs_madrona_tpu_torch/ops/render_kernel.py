@@ -33,7 +33,16 @@ runs ``render_plain``, which tests every (pixel, instance) pair in the
 kernel's order of operations, chunked over worlds to bound memory, without
 the kernel's cull: the cull is conservative, so the two agree.  The
 nearest hit wins; on a tie of t the first instance in index order (the
-kernel's strict ``<``).  Launches are counted in ``RenderKernel.launches``.
+kernel's strict ``<``).
+
+``render_views`` is the render node in one launch of the same kernel's
+views mode: the views and instances as the render_pack node leaves them
+in, RGBA8 [W, V, H, Wpx, 4] and depth [W, V, H, Wpx] out, each pixel's ray
+made in the launch in ``camera_rays``' order of operations.  On CPU
+tensors it runs ``render_views_plain``: ``camera_rays``, ``pack``,
+``render_plain`` and ``observations`` composed, the node's route before
+its views mode.  Launches of both modes are counted in
+``RenderKernel.launches``.
 """
 
 from __future__ import annotations
@@ -70,12 +79,23 @@ K_PRIM, K_RADIUS, K_RBOUND, K_ALBEDO, K_MESH, K_NFACE = 0, 1, 2, 3, 6, 7
 K_FIXED = 8
 K_FACE, K_TRI = 4, 13
 
-# One CTA per (world, pixel tile) of this many threads, one pixel a
-# thread; the world's instance channels and survivor list sit in shared
-# memory (13 words an instance), at most 227 KB a block on an H100.
-THREADS = 128
+# The kernel's launch (csrc/render_kernels.cu): CTAs of WARPS warps, one per
+# world in the rays mode and per (world, view) in the views mode, or
+# ``splits`` CTAs sharing one; each warp traces TILE_W x TILE_H pixel tiles.
+# A CTA keeps STAGE_RAYS (rays mode: 4 float4s, and each warp's cull terms
+# from its tiles' apex, a float4 and a float) or STAGE_VIEWS (views mode: 6
+# float4s) bytes an instance in shared memory, at most 227 KB a block on an
+# H100.
+WARPS = 4
+TILE_W, TILE_H = 8, 4
+STAGE_RAYS, STAGE_VIEWS = 4 * 16 + WARPS * 20, 6 * 16
 MAX_SMEM_BYTES = 227 * 1024
-MAX_TILES = 65535
+# CTAs a launch aims for (132 SMs x 16, two waves of 8 CTAs an SM): images
+# are split until the grid has them, so that the last wave is short and
+# small world counts still fill the card (chosen on the card among 1056,
+# 2112, 4096 and 8192: PERF.md, PR 11)
+MIN_CTAS = 2112
+MAX_SPLITS = 65535
 # elements of one [worlds, P, N] block of the plain version
 PLAIN_BLOCK = 1 << 23
 
@@ -412,37 +432,53 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.render_launch.argtypes = [P, P, P] + [I] * 9 + [F] * 5 + [P, P]
         lib.render_launch.restype = I
+        lib.render_views_launch.argtypes = ([P] * 4 + [I] * 4 + [P] * 6 + [I] * 7 + [F] * 5
+                                            + [P] * 3)
+        lib.render_views_launch.restype = I
+        lib.render_occupancy.argtypes = [I, I, P]
+        lib.render_occupancy.restype = I
         lib._typed = True
     return lib
 
 
-def smem_bytes(N: int) -> int:
-    """The kernel's dynamic shared memory for N instances (12 channels and
-    a survivor index each)."""
-    return 4 * 13 * N
+def smem_bytes(N: int, views: bool = False) -> int:
+    """The kernel's dynamic shared memory for N instances: STAGE_RAYS or
+    STAGE_VIEWS bytes each."""
+    return N * (STAGE_VIEWS if views else STAGE_RAYS)
 
 
 def tile_shape(P: int, img_w: int):
     """(img_w, tile_w, tile_h, tiles): pixel p is (row p // img_w, column
-    p % img_w); a tile is tile_w x tile_h pixels, one per thread."""
-    tile_w = min(16, img_w)
-    tile_h = THREADS // tile_w
+    p % img_w); a warp's tile is tile_w x tile_h pixels, one a lane."""
     rows = -(-P // img_w)
-    tiles = -(-img_w // tile_w) * -(-rows // tile_h)
-    return img_w, tile_w, tile_h, tiles
+    tiles = -(-img_w // TILE_W) * -(-rows // TILE_H)
+    return img_w, TILE_W, TILE_H, tiles
 
 
-def kernel_fits(tables: RenderTables, P: int, N: int, img_w: int) -> str:
-    """'' when the kernel takes these tables and shapes, else why not."""
+def launch_splits(blocks: int, tiles: int) -> int:
+    """The CTAs that share one image (a world, or a (world, view)): enough
+    that ``blocks`` images make MIN_CTAS CTAs, at most a CTA per WARPS
+    tiles."""
+    return max(1, min(-(-MIN_CTAS // max(blocks, 1)), -(-tiles // WARPS), MAX_SPLITS))
+
+
+def kernel_fits(N: int, views: bool = False) -> str:
+    """'' when the kernel's mode takes N instances, else why not."""
     if N < 1:
         return f"N={N} instances: the kernel needs at least one"
-    if smem_bytes(N) > MAX_SMEM_BYTES:
-        return (f"N={N} instances need {smem_bytes(N)} B of shared memory, over the "
+    if smem_bytes(N, views) > MAX_SMEM_BYTES:
+        return (f"N={N} instances need {smem_bytes(N, views)} B of shared memory, over the "
                 f"{MAX_SMEM_BYTES} B a block may have")
-    tiles = tile_shape(P, img_w)[3]
-    if tiles > MAX_TILES:
-        return f"P={P} rays make {tiles} pixel tiles a world, over {MAX_TILES}"
     return ""
+
+
+def occupancy(N: int, views: bool = False) -> int:
+    """CTAs an SM of the mode's kernel at N instances (needs the card)."""
+    n = ctypes.c_int(0)
+    rc = _lib().render_occupancy(int(views), N, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"render occupancy failed with cudaError {rc}")
+    return n.value
 
 
 def render(rays, inst, *, tables: RenderTables, light, ambient: float, img_w: int):
@@ -471,24 +507,130 @@ def render(rays, inst, *, tables: RenderTables, light, ambient: float, img_w: in
         raise ValueError("render: rays and inst must be contiguous")
     W, _, P = rays.shape
     N = inst.shape[2]
-    why = kernel_fits(tables, P, N, img_w)
+    why = kernel_fits(N)
     if why:
         raise NotImplementedError(f"render: {why}")
-    img_w, tile_w, _, tiles = tile_shape(P, img_w)
     table = tables.kernel_table(rays.device)
     out = torch.empty((W, C_OUT, P), dtype=torch.float32, device=rays.device)
     if W == 0 or P == 0:
         return out
+    splits = launch_splits(W, tile_shape(P, img_w)[3])
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     rc = _lib().render_launch(
         rays.data_ptr(), inst.data_ptr(), table.data_ptr(), tables.O, tables.stride,
-        tables.F_used, tables.T_used, W, P, N, img_w, tile_w,
+        tables.F_used, tables.T_used, W, P, N, img_w, splits,
         float(light[0]), float(light[1]), float(light[2]), float(ambient),
         float(1.0 - ambient), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"render: kernel launch failed with cudaError {rc}")
     RenderKernel.launches += 1
     return out
+
+
+def pack(ro, rd, pos, rot, scale, obj, mask):
+    """(rays [W, 6, P], inst [W, 12, N]) from ro/rd [W, P0, 3] and the
+    instance arrays [W, N, ...]; P is P0 padded to a multiple of 128 with
+    zero rays, as PallasRenderKernel pads it."""
+    W, P0, _ = ro.shape
+    P = max(128, -(-P0 // 128) * 128)
+    rays = torch.zeros((W, 6, P), dtype=torch.float32, device=ro.device)
+    rays[:, 0:3, :P0] = ro.transpose(1, 2)
+    rays[:, 3:6, :P0] = rd.transpose(1, 2)
+    inst = torch.cat([pos.transpose(1, 2), rot.transpose(1, 2), scale.transpose(1, 2),
+                      obj.to(torch.float32)[:, None, :],
+                      mask.to(torch.float32)[:, None, :]], dim=1).contiguous()
+    return rays, inst
+
+
+def _check_views(views, pos, rot, scale, obj, mask, light, height, width, max_views):
+    """render_views' input checks: (W, N, the views' capacity Vc)."""
+    vmask = views["mask"]
+    if vmask.dim() != 2 or mask.dim() != 2:
+        raise ValueError("render_views: the views' and the instances' masks must be [W, *], "
+                         f"got {list(vmask.shape)} and {list(mask.shape)}")
+    (W, Vc), N = vmask.shape, mask.shape[1]
+    for name, t, dtype, shape in (
+            ("views['eye']", views["eye"], torch.float32, (W, Vc, 3)),
+            ("views['rot']", views["rot"], torch.float32, (W, Vc, 4)),
+            ("views['tan_fov']", views["tan_fov"], torch.float32, (W, Vc)),
+            ("views['mask']", vmask, torch.bool, (W, Vc)),
+            ("pos", pos, torch.float32, (W, N, 3)), ("rot", rot, torch.float32, (W, N, 4)),
+            ("scale", scale, torch.float32, (W, N, 3)), ("obj", obj, torch.int32, (W, N)),
+            ("mask", mask, torch.bool, (W, N))):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"render_views: {name} must be {dtype} {list(shape)} ({W} worlds, "
+                             f"{Vc} views, {N} instances), got {t.dtype} {list(t.shape)}")
+    devices = {str(t.device) for t in (*views.values(), pos, rot, scale, obj, mask)}
+    if len(devices) != 1:
+        raise ValueError(f"render_views: inputs on more than one device: {sorted(devices)}")
+    if not 1 <= int(max_views) <= Vc:
+        raise ValueError(f"render_views: max_views={max_views}, but the views hold {Vc}")
+    if int(height) < 1 or int(width) < 1:
+        raise ValueError(f"render_views: a {height} x {width} image")
+    if len(light) != 3:
+        raise ValueError("render_views: light must have 3 components")
+    return W, N, Vc
+
+
+def render_views_plain(views, pos, rot, scale, obj, mask, *, tables: RenderTables, light,
+                       ambient: float, height: int, width: int, max_views: int):
+    """The plain version of the render kernel's views mode: the node's route
+    before it, ``camera_rays`` -> ``pack`` -> ``render_plain`` ->
+    ``observations`` (see ``render_views``)."""
+    V, H, Wpx = int(max_views), int(height), int(width)
+    ro, d = camera_rays(views, V, H, Wpx)
+    W, P0 = ro.shape[0], V * H * Wpx
+    rays, inst = pack(ro.reshape(W, P0, 3), d.reshape(W, P0, 3), pos, rot, scale, obj, mask)
+    out = render_plain(rays, inst, tables=tables, light=light, ambient=ambient)[:, :, :P0]
+    return observations(out[:, O_R:O_B + 1].transpose(1, 2).reshape(W, V, H, Wpx, 3),
+                        (out[:, O_HIT] > 0.5).reshape(W, V, H, Wpx),
+                        out[:, O_DEPTH].reshape(W, V, H, Wpx), views["mask"][:, :V])
+
+
+def render_views(views, pos, rot, scale, obj, mask, *, tables: RenderTables, light,
+                 ambient: float, height: int, width: int, max_views: int):
+    """The render node in one launch: the first ``max_views`` views of
+    ``views`` (``ctx.data["render"]["__views__"]``: eye [W, Vc, 3], rot
+    [W, Vc, 4] float32, tan_fov [W, Vc] float32, mask [W, Vc] bool) traced
+    against the instances pos [W, N, 3], rot [W, N, 4], scale [W, N, 3]
+    float32, obj [W, N] int32, mask [W, N] bool.  Returns (RGBA8 [W, V, H,
+    Wpx, 4] uint8, alpha 255 on a hit; depth [W, V, H, Wpx] float32, inf at
+    a miss), 0 / inf on a dead view.  CPU tensors: ``render_views_plain``.
+    CUDA tensors: the kernel's views mode, bit for bit that route on the
+    card, or a raise — never the plain version."""
+    W, N, Vc = _check_views(views, pos, rot, scale, obj, mask, light, height, width,
+                            max_views)
+    kw = dict(tables=tables, light=light, ambient=ambient, height=height, width=width,
+              max_views=max_views)
+    dev = pos.device
+    if dev.type == "cpu":
+        return render_views_plain(views, pos, rot, scale, obj, mask, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"render_views: no kernel for device {dev}")
+    ins = (views["eye"], views["rot"], views["tan_fov"], views["mask"], pos, rot, scale, obj,
+           mask)
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("render_views: the views and instances must be contiguous")
+    why = kernel_fits(N, views=True)
+    if why:
+        raise NotImplementedError(f"render_views: {why}")
+    V, H, Wpx = int(max_views), int(height), int(width)
+    table = tables.kernel_table(dev)
+    rgba = torch.empty((W, V, H, Wpx, 4), dtype=torch.uint8, device=dev)
+    depth = torch.empty((W, V, H, Wpx), dtype=torch.float32, device=dev)
+    if W == 0:
+        return rgba, depth
+    splits = launch_splits(W * V, -(-Wpx // TILE_W) * -(-H // TILE_H))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().render_views_launch(
+        *(t.data_ptr() for t in ins[:4]), Vc, V, H, Wpx, *(t.data_ptr() for t in ins[4:]),
+        table.data_ptr(), tables.O, tables.stride, tables.F_used, tables.T_used, W, N, splits,
+        float(light[0]), float(light[1]), float(light[2]), float(ambient),
+        float(1.0 - ambient), rgba.data_ptr(), depth.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"render_views: kernel launch failed with cudaError {rc}")
+    RenderKernel.launches += 1
+    return rgba, depth
 
 
 class RenderKernel:
@@ -511,16 +653,8 @@ class RenderKernel:
 
     def pack(self, ro, rd, pos, rot, scale, obj, mask):
         """(rays [W, 6, P], inst [W, 12, N]) from ro/rd [W, P0, 3] and the
-        instance arrays [W, N, ...]."""
-        W, P0, _ = ro.shape
-        P = max(128, -(-P0 // 128) * 128)
-        rays = torch.zeros((W, 6, P), dtype=torch.float32, device=ro.device)
-        rays[:, 0:3, :P0] = ro.transpose(1, 2)
-        rays[:, 3:6, :P0] = rd.transpose(1, 2)
-        inst = torch.cat([pos.transpose(1, 2), rot.transpose(1, 2), scale.transpose(1, 2),
-                          obj.to(torch.float32)[:, None, :],
-                          mask.to(torch.float32)[:, None, :]], dim=1).contiguous()
-        return rays, inst
+        instance arrays [W, N, ...] (``pack``)."""
+        return pack(ro, rd, pos, rot, scale, obj, mask)
 
     def render(self, rays, inst, img_w: int, P0: int):
         """``render`` on packed (rays, inst) with this kernel's tables and
@@ -529,6 +663,13 @@ class RenderKernel:
         out = render(rays, inst, tables=self.tables, light=self.light, ambient=self.ambient,
                      img_w=img_w)[:, :, :P0]
         return out[:, O_R:O_B + 1].transpose(1, 2), out[:, O_HIT] > 0.5, out[:, O_DEPTH]
+
+    def render_views(self, views, pos, rot, scale, obj, mask, *, height: int, width: int,
+                     max_views: int):
+        """``render_views`` with this kernel's tables and light."""
+        return render_views(views, pos, rot, scale, obj, mask, tables=self.tables,
+                            light=self.light, ambient=self.ambient, height=height,
+                            width=width, max_views=max_views)
 
     def __call__(self, ro, rd, pos, rot, scale, obj, mask, img_w: int):
         """ro/rd [W, P0, 3] pixel rays; instance arrays [W, N, ...].  Returns

@@ -12,8 +12,10 @@ rgb [W, views, H, Wpx, 4] uint8 and depth [W, views, H, Wpx] float32
 batched over worlds.
 
 Routes (``RendererConfig.backend``):
-  "auto", "pallas": the render kernel (ops/render_kernel.py: the CUDA
-      kernel on the card, its plain version on the CPU).  The kernel runs
+  "auto", "pallas": the render kernel's views mode (ops/render_kernel.py
+      render_views: on the card the node is one launch of the CUDA kernel,
+      camera rays, trace and RGBA8/depth writeback; on the CPU its plain
+      version, the rays-mode route composed).  The kernel runs
       the exact hull test only: with ``exact_hulls=False`` "pallas" raises,
       and "auto" takes the "xla" route on the CPU, as in JAX, but raises on
       the card, naming backend="xla", so that nothing there takes the
@@ -435,13 +437,16 @@ class BatchRenderer:
         """(pos, rot, scale, obj, mask) [W, N, ...]: the packed instances of
         the archetypes, in order, as one flat list."""
         insts = [render_in[arch.name] for arch in instance_archetypes]
-        return tuple(torch.cat([i[k] for i in insts], dim=1)
-                     for k in ("pos", "rot", "scale", "obj_id", "mask"))
+        keys = ("pos", "rot", "scale", "obj_id", "mask")
+        if len(insts) == 1:
+            return tuple(insts[0][k] for k in keys)
+        return tuple(torch.cat([i[k] for i in insts], dim=1) for k in keys)
 
     def kernel_inputs(self, render_in, instance_archetypes):
-        """The render kernel's (rays, inst) for ``ctx.data["render"]``: the
-        one place that builds them, for the render node and its callers;
-        the image width is ``cfg.width``."""
+        """The render kernel's rays-mode inputs (rays, inst) for
+        ``ctx.data["render"]``: the node's route before its views mode, for
+        the callers that hold the two modes against each other; the image
+        width is ``cfg.width``."""
         ro, d = self.camera_rays(render_in["__views__"])
         W = ro.shape[0]
         return self._kernel.pack(ro.reshape(W, -1, 3), d.reshape(W, -1, 3),
@@ -461,19 +466,16 @@ class BatchRenderer:
             user = dict(ctx.data)
             render_in = user["render"]
             views = render_in["__views__"]
-            W, V, Hh, Ww = ctx.num_worlds, cfg.max_views, cfg.height, cfg.width
+            V, Hh, Ww = cfg.max_views, cfg.height, cfg.width
+            inst = self.instances(render_in, instance_archetypes)
             if self._kernel is not None:
-                rays, inst = self.kernel_inputs(render_in, instance_archetypes)
-                rgb_f, hit_f, depth_f = self._kernel.render(rays, inst, Ww, V * Hh * Ww)
-                rgb = rgb_f.reshape(W, V, Hh, Ww, 3)
-                hit = hit_f.reshape(W, V, Hh, Ww)
-                best_t = depth_f.reshape(W, V, Hh, Ww)
+                # one launch of the kernel's views mode: rays, trace, RGBA8
+                rgb8, depth = self._kernel.render_views(
+                    views, *(t.contiguous() for t in inst), height=Hh, width=Ww, max_views=V)
             else:
                 ro, d = self.camera_rays(views)
-                pos, rot, scale, obj, imask = self.instances(render_in, instance_archetypes)
-                rgb, hit, best_t = self._render_batched(ctx, d, ro, views["eye"][:, :V], pos,
-                                                        rot, scale, obj, imask)
-            rgb8, depth = observations(rgb, hit, best_t, views["mask"][:, :V])
+                rgb, hit, best_t = self._render_batched(ctx, d, ro, views["eye"][:, :V], *inst)
+                rgb8, depth = observations(rgb, hit, best_t, views["mask"][:, :V])
             user["render_out"] = {"rgb": rgb8, "depth": depth}
             ctx.data = user
 

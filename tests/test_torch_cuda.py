@@ -17,7 +17,8 @@ and the manifold cache and AABBs atol 1e-4; the world flags kernel equal
 to its plain version, and kernel 9's launch with the cache and anchors
 updated in place bit for bit;
 the render kernel's hit mask exact, depth and float rgb atol 1e-5, a
-repeat bit-identical), and the collisions, simple_jobs, rigid_bench (also
+repeat bit-identical; its views mode bit for bit the node's route through
+the rays mode, the node one launch), and the collisions, simple_jobs, rigid_bench (also
 its settled pile) and simple_taskgraph slices on the card against the
 same slices on the CPU (plain versions), positions atol 1e-4.
 """
@@ -38,6 +39,7 @@ from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
 from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
 from gpu_ecs_madrona_tpu_torch.physics import RigidBodyPhysicsSystem
 
+import test_torch_render_scenes as scenes
 from test_torch_joint_scenes import joint_world, random_joints
 
 
@@ -822,8 +824,7 @@ RENDER_INPUTS = ("ro", "rd", "pos", "rot", "scale", "obj", "mask")
 
 def render_case(scene, dev):
     """(RenderKernel, rays, inst) of a tests/test_torch_render_scenes.py scene."""
-    import test_torch_render_scenes as scenes
-    sc = scenes.SCENES[scene]()
+    sc = scenes.CARD_SCENES[scene]()
     k = rk.RenderKernel(sc["om"], sc["albedo"], scenes.LIGHT_DIR, scenes.AMBIENT,
                         mesh_tables=sc["mesh_tables"])
     rays, inst = k.pack(*(torch.from_numpy(sc[key]).to(dev) for key in RENDER_INPUTS))
@@ -831,11 +832,12 @@ def render_case(scene, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scene", ["pallas_scene", "two_views", "inside", "sphere_mesh"])
+@pytest.mark.parametrize("scene", ["pallas_scene", "two_views", "inside", "sphere_mesh",
+                                   "inside_wrapping"])
 def test_render_kernel_matches_plain(card, scene):
     """The kernel against its plain version: hit exact, depth and float rgb
-    atol 1e-5, a repeated launch bit-identical (the inside scene's one
-    8 x 16 tile spans both of its views, so its cone wraps)."""
+    atol 1e-5, a repeated launch bit-identical (inside_wrapping's 8 x 4
+    tile over rows 4-7 spans both of its views, so its cone wraps)."""
     k, rays, inst, img_w = render_case(scene, card)
     kw = dict(tables=k.tables, light=k.light, ambient=k.ambient, img_w=img_w)
     got, again = rk.render(rays, inst, **kw), rk.render(rays, inst, **kw)
@@ -861,6 +863,90 @@ def test_render_wrapper_rejects_bad_input_on_card(card):
     with pytest.raises(NotImplementedError, match="shared memory"):
         rk.render(rays[:1], big, **kw)
     assert rk.RenderKernel.launches == 0
+
+
+def views_case(case, dev):
+    """A views-mode case: simple_taskgraph's main state (1024 worlds x 100
+    spheres, 64 x 64, after 3 steps) or a tests/test_torch_render_scenes.py
+    VIEW_CASES case (two views, dead views, 24 x 40 and 18 x 30 images).
+    Returns (RenderKernel, views, instances, V, H, Wpx)."""
+    if case != "main_state":
+        return scenes.view_case(case, dev)
+    sim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=1024, num_objects=100,
+                                                      render=True), device="cuda")
+    sim.run(3)
+    rend = sim.world_cls.renderer()
+    render_in = sim.state["user"]["render"]
+    return (rend._kernel, render_in["__views__"], rend.instances(render_in, [stg.Sphere]),
+            1, 64, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["main_state", *scenes.VIEW_CASES])
+def test_render_views_matches_the_old_route_bit_for_bit(card, case):
+    """The kernel's views mode (the render node's one launch) against the
+    node's route before it on the card (camera_rays, pack, the rays-mode
+    kernel, the RGBA8/depth epilogue): RGBA8 equal and depth equal as int32
+    bits, a repeated launch bit-identical; against its plain version alpha
+    exact, depth atol 1e-5 where both hit, RGBA8 within 1."""
+    k, views, inst, V, H, Wpx = views_case(case, card)
+    kw = dict(height=H, width=Wpx, max_views=V)
+    rk.RenderKernel.launches = 0
+    got, again = k.render_views(views, *inst, **kw), k.render_views(views, *inst, **kw)
+    torch.cuda.synchronize()
+    assert rk.RenderKernel.launches == 2
+    want = scenes.node_route(k, views, inst, V, H, Wpx)
+    plain = rk.render_views_plain(views, *inst, tables=k.tables, light=k.light,
+                                  ambient=k.ambient, **kw)
+    for a in (want, again):
+        assert torch.equal(got[0], a[0])
+        assert torch.equal(got[1].view(torch.int32), a[1].view(torch.int32))
+    hit = torch.isfinite(got[1])
+    assert bool(hit.any()) and torch.equal(got[0][..., 3] == 255, hit)
+    assert torch.equal(got[0][..., 3], plain[0][..., 3])
+    both = hit & torch.isfinite(plain[1])
+    torch.testing.assert_close(got[1][both], plain[1][both], atol=1e-5, rtol=0)
+    assert int((got[0].int() - plain[0].int()).abs().max()) <= 1
+    dead = ~views["mask"][:, :V]
+    assert (got[0][dead] == 0).all() and torch.isinf(got[1][dead]).all()
+
+
+@pytest.mark.cuda
+def test_render_views_rejects_bad_input_on_card(card):
+    k, views, inst, V, H, Wpx = scenes.view_case("two_views_dead", card)
+    kw = dict(height=H, width=Wpx, max_views=V)
+    with pytest.raises(ValueError):
+        k.render_views(dict(views, eye=views["eye"].cpu()), *inst, **kw)
+    with pytest.raises(ValueError):
+        k.render_views(views, inst[0].transpose(0, 1).contiguous().transpose(0, 1), *inst[1:],
+                       **kw)
+    big = [torch.zeros((3, 3000) + x.shape[2:], dtype=x.dtype, device=card) for x in inst]
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        k.render_views(views, *big, **kw)
+    assert rk.RenderKernel.launches == 0
+
+
+@pytest.mark.cuda
+def test_render_node_is_one_launch(card):
+    """simple_taskgraph's render node is one views-mode launch: at most 3
+    device operations (the nodes of a CUDA graph capturing the node)."""
+    from gpu_ecs_madrona_tpu_torch.core.context import Context
+    sim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=16, num_objects=100,
+                                                      render=True), device="cuda")
+    sim.run(2)
+    torch.cuda.synchronize()
+    ctx = Context(sim.mgr, sim.state)
+    for node in sim.graph.nodes:
+        if node.name == "batch_render":
+            break
+        node.run(ctx)
+    state = ctx.state
+    rk.RenderKernel.launches = 0
+    node.run(Context(sim.mgr, state))
+    torch.cuda.synchronize()
+    assert rk.RenderKernel.launches == 1
+    ops = graph_nodes(lambda: node.run(Context(sim.mgr, state)))
+    assert 1 <= ops <= 3, ops
 
 
 STG = dict(num_worlds=4, num_objects=48, num_substeps=2, seed=5, render=True,

@@ -137,15 +137,26 @@ def test_render_wrapper_rejects_bad_input():
 
 
 def test_kernel_fits_and_tiles():
-    t = rk.RenderTables(scenes.pallas_scene()["om"], scenes.ALBEDO3)
-    assert rk.kernel_fits(t, 4096, 104, 64) == ""
-    assert "shared memory" in rk.kernel_fits(t, 4096, 5000, 64)
-    assert "at least one" in rk.kernel_fits(t, 4096, 0, 64)
-    assert rk.tile_shape(4096, 64) == (64, 16, 8, 32)
-    # the inside scene: one 8 x 16 tile spans both of its back-to-back
-    # views, so that tile's cone wraps
-    assert rk.tile_shape(128, 8) == (8, 8, 16, 1)
-    assert rk.tile_shape(640, 24) == (24, 16, 8, 8)
+    assert rk.kernel_fits(104) == ""
+    assert "shared memory" in rk.kernel_fits(5000)
+    assert "at least one" in rk.kernel_fits(0)
+    # the views mode keeps 6 float4s an instance, the rays mode 4 and each
+    # warp's cull terms (a float4 and a float)
+    assert rk.smem_bytes(104, views=True) == 104 * 96 and rk.smem_bytes(104) == 104 * 144
+    assert rk.kernel_fits(2000, views=True) == ""
+    assert "shared memory" in rk.kernel_fits(2000)
+    assert "shared memory" in rk.kernel_fits(3000, views=True)
+    # a warp's tile is 8 x 4 pixels: 128 tiles a 64 x 64 image
+    assert rk.tile_shape(4096, 64) == (64, 8, 4, 128)
+    # the inside scene: its two 8 x 8 views stack as 16 rows, four tiles,
+    # each inside one view (inside_wrapping's 6 x 6 views share a tile)
+    assert rk.tile_shape(128, 8) == (8, 8, 4, 4)
+    assert rk.tile_shape(72, 6) == (6, 8, 4, 3)
+    assert rk.tile_shape(640, 24) == (24, 8, 4, 21)
+    # CTAs sharing an image: enough for MIN_CTAS, at most one a WARPS tiles
+    assert rk.launch_splits(1024, 128) == 3
+    assert rk.launch_splits(2, 128) == 32 and rk.launch_splits(2, 4) == 1
+    assert rk.launch_splits(8192, 128) == 1
 
 
 def test_padded_rays_are_misses():
@@ -161,3 +172,19 @@ def test_padded_rays_are_misses():
     rgb, hit, depth = k(*(torch.from_numpy(sc[key]) for key in INPUTS), img_w=10)
     assert rgb.shape == (2, 100, 3) and hit.shape == depth.shape == (2, 100)
     assert torch.equal(depth, out[:, 4, :100])
+
+
+def test_launch_mirror_matches_the_cu():
+    """ops/render_kernel.py's launch constants (warps a CTA, the tile, the
+    shared bytes an instance of each mode) equal csrc/render_kernels.cu's."""
+    import re
+    from pathlib import Path
+    src = (Path(rk.__file__).resolve().parents[1] / "csrc" / "render_kernels.cu").read_text()
+    warps = int(re.search(r"constexpr int kWarps = (\d+);", src).group(1))
+    tile = re.search(r"constexpr int kTileW = (\d+), kTileH = (\d+);", src)
+    stage = re.search(r"constexpr int kStageRays = ([^,]+), kStageViews = ([^;]+);", src)
+    assert warps == rk.WARPS
+    assert (int(tile.group(1)), int(tile.group(2))) == (rk.TILE_W, rk.TILE_H)
+    env = {"kWarps": warps}
+    assert eval(stage.group(1), env) == rk.STAGE_RAYS
+    assert eval(stage.group(2), env) == rk.STAGE_VIEWS

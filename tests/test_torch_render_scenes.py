@@ -1,7 +1,8 @@
 """Render-kernel test scenes, in numpy (no JAX; data only, no tests): shared by
-tests/test_torch_render_kernel.py (the port against the JAX kernel),
-tests/test_torch_cuda.py and chip_smoke.py (the CUDA kernel against its
-plain version).
+tests/test_torch_render_kernel.py and tests/test_torch_render_node.py (the
+port against the JAX kernel and node), tests/test_torch_cuda.py and
+chip_smoke.py (the CUDA kernel against its plain version and the views
+mode against the rays mode's route).
 
 Each scene is a dict: the object manager ``om``, ``albedo``,
 ``mesh_tables`` (or None), the pixel rays ``ro``/``rd`` [W, P, 3], the
@@ -10,8 +11,10 @@ instance arrays ``pos``/``rot``/``scale``/``obj``/``mask`` [W, N, ...] and
 """
 
 import numpy as np
+import torch
 
 from gpu_ecs_madrona_tpu_torch.models.simple_taskgraph import _sphere_mesh
+from gpu_ecs_madrona_tpu_torch.ops import render_kernel as rk
 from gpu_ecs_madrona_tpu_torch.physics import assets
 
 LIGHT_DIR = (0.3, 0.3, -1.0)
@@ -156,5 +159,75 @@ def sphere_mesh(W=2, res=16, n_lat=3, n_lon=4):
                 mask=tile(np.array([True, True, True, True, False])))
 
 
+def inside_wrapping(W=2):
+    """The inside scene at 6 x 6: its two views stack as 12 rows, so the
+    kernel's 8 x 4 tile over rows 4-7 spans both back-to-back views and its
+    cone wraps."""
+    return inside(W, res=6)
+
+
 SCENES = {"pallas_scene": pallas_scene, "two_views": two_views, "inside": inside,
           "sphere_mesh": sphere_mesh}
+# the CUDA kernel's cases: the scenes and a tile whose cone wraps
+CARD_SCENES = dict(SCENES, inside_wrapping=inside_wrapping)
+
+
+# -- the views mode: views as the render_pack node leaves them ---------------
+
+def random_views(seed, W, cap, dead=()):
+    """Views as the render_pack node leaves them: eye [W, cap, 3], unit
+    rotations [W, cap, 4], tan_fov [W, cap], mask [W, cap] (False at each
+    (world, view) of ``dead``), made from a seed with numpy."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(W, cap, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    mask = np.ones((W, cap), bool)
+    for w, v in dead:
+        mask[w, v] = False
+    return {"eye": rng.uniform(-2.0, 2.0, (W, cap, 3)).astype(np.float32), "rot": q,
+            "tan_fov": rng.uniform(0.3, 1.5, (W, cap)).astype(np.float32), "mask": mask}
+
+
+def torch_views(views, device="cpu"):
+    return {k: torch.from_numpy(v).to(device) for k, v in views.items()}
+
+
+# name: (W, views of the camera archetype, max_views, dead (world, view), H, Wpx)
+VIEW_CASES = {"one_view": (2, 1, 1, (), 16, 16),
+              "two_views_dead": (3, 2, 2, ((1, 1), (2, 0)), 16, 16),
+              "24x40": (2, 2, 2, ((0, 1),), 24, 40),
+              "18x30": (4, 3, 2, ((3, 1),), 18, 30)}
+
+
+def view_case(name, device="cpu"):
+    """A view case over the pallas scene (box, sphere, plane, a rotated and
+    scaled box, two dead rows): random views about the scene's camera (the
+    first dead view's rotation NaN: a dead view's garbage is never seen),
+    the instances as [W, N, ...] tensors.  Returns (RenderKernel, views,
+    (pos, rot, scale, obj, mask), V, H, Wpx)."""
+    W, cap, V, dead, H, Wpx = VIEW_CASES[name]
+    sc = pallas_scene(W=W)
+    views = random_views(5, W, cap, dead)
+    views["eye"] = views["eye"] * np.float32(0.2) + np.float32([0.0, -2.0, 1.2])
+    # rotations near the identity, so that the views see the scene
+    views["rot"][..., 0] += np.float32(3.0)
+    views["rot"] /= np.linalg.norm(views["rot"], axis=-1, keepdims=True)
+    if dead:
+        w, v = dead[0]
+        views["rot"][w, v] = np.nan
+    k = rk.RenderKernel(sc["om"], sc["albedo"], LIGHT_DIR, AMBIENT)
+    inst = tuple(torch.from_numpy(sc[key]).to(device)
+                 for key in ("pos", "rot", "scale", "obj", "mask"))
+    return k, torch_views(views, device), inst, V, H, Wpx
+
+
+def node_route(k, views, inst, V, H, Wpx):
+    """The render node's route before its views mode: camera_rays, pack,
+    the rays-mode render (the kernel on the card), the RGBA8/depth
+    epilogue."""
+    ro, d = rk.camera_rays(views, V, H, Wpx)
+    W = ro.shape[0]
+    rays, packed = k.pack(ro.reshape(W, -1, 3), d.reshape(W, -1, 3), *inst)
+    rgb, hit, depth = k.render(rays, packed, Wpx, V * H * Wpx)
+    return rk.observations(rgb.reshape(W, V, H, Wpx, 3), hit.reshape(W, V, H, Wpx),
+                           depth.reshape(W, V, H, Wpx), views["mask"][:, :V])
