@@ -38,7 +38,7 @@
 //
 //   Work: the pixel rays against the instances that survive the cull.  The
 //   bytes bound it when few instances survive a tile (rays mode W (24 P +
-//   48 N + 20 P); views mode W (33 V + 48 N + 8 P)); the ray tests (~25
+//   48 N + 20 P); views mode W (33 V + 45 N + 8 P)); the ray tests (~25
 //   operations a sphere, ~45 a plane, 75 + 14 F a hull, 115 + 47 T a mesh)
 //   when many do.  chip_smoke.py counts both from the timed state and
 //   reports the larger (PERF.md).

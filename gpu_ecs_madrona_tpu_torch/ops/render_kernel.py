@@ -92,8 +92,8 @@ STAGE_RAYS, STAGE_VIEWS = 4 * 16 + WARPS * 20, 6 * 16
 MAX_SMEM_BYTES = 227 * 1024
 # CTAs a launch aims for (132 SMs x 16, two waves of 8 CTAs an SM): images
 # are split until the grid has them, so that the last wave is short and
-# small world counts still fill the card (chosen on the card among 1056,
-# 2112, 4096 and 8192: PERF.md, PR 11)
+# small world counts still fill the card (the fastest of 1056, 2112, 4096
+# and 8192 on an H100 at simple_taskgraph's 1024 views: PERF.md)
 MIN_CTAS = 2112
 MAX_SPLITS = 65535
 # elements of one [worlds, P, N] block of the plain version
