@@ -127,9 +127,10 @@ Phases:
            float rgb atol 1e-5, a repeated launch bit-identical; its views
            mode (the render node's one launch) at the main state and on
            VIEW_CASES (two views with dead ones, 24 x 40 and 18 x 30
-           images) bit for bit against the node's route before it on the
-           card (camera_rays, pack, the rays mode, the RGBA8/depth
-           epilogue; depth compared as int32 bits), a repeat bit-identical,
+           images, a triangle-mesh scene) bit for bit against the node's
+           route before it on the card (camera_rays, pack, the rays mode,
+           the RGBA8/depth epilogue; depth compared as int32 bits), a
+           repeat bit-identical,
            and against its plain version (alpha exact, depth atol 1e-5
            where both hit, RGBA8 within 1); and the kernel route against
            the "xla" route at 64 worlds: hit masks differ on at most 1
@@ -1528,9 +1529,9 @@ def parity_render(torch, rkm, stg, dev, xla_worlds=64):
     """The render kernel's rays mode against its plain version (the scenes,
     the main state); its views mode against the node's route before it and
     against its plain version (the main state, two views with dead ones,
-    24 x 40 and 18 x 30 images); and the kernel route against the "xla"
-    route at 64 worlds.  Returns (the phase's line, the worst kernel-vs-plain
-    error)."""
+    24 x 40 and 18 x 30 images, a triangle-mesh scene); and the kernel
+    route against the "xla" route at 64 worlds.  Returns (the phase's line,
+    the worst kernel-vs-plain error)."""
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import test_torch_render_scenes as scenes
     cases = {}

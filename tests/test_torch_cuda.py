@@ -868,7 +868,8 @@ def test_render_wrapper_rejects_bad_input_on_card(card):
 def views_case(case, dev):
     """A views-mode case: simple_taskgraph's main state (1024 worlds x 100
     spheres, 64 x 64, after 3 steps) or a tests/test_torch_render_scenes.py
-    VIEW_CASES case (two views, dead views, 24 x 40 and 18 x 30 images).
+    VIEW_CASES case (two views, dead views, 24 x 40 and 18 x 30 images, a
+    triangle-mesh scene).
     Returns (RenderKernel, views, instances, V, H, Wpx)."""
     if case != "main_state":
         return scenes.view_case(case, dev)

@@ -10,7 +10,8 @@ epilogue, on the CPU.
   - ``render_views_plain`` bit for bit against the route it replaces
     (``camera_rays`` -> ``RenderKernel.pack`` -> ``render_plain`` -> the
     RGBA8/depth epilogue), one and two views, dead views, 24 x 40 and
-    18 x 30 images (tests/test_torch_render_scenes.py VIEW_CASES);
+    18 x 30 images, a triangle-mesh scene
+    (tests/test_torch_render_scenes.py VIEW_CASES);
   - the render node against the JAX node on the JAX kernel route in
     interpret mode (tests/test_render_pallas.py's tolerances: RGBA8 within
     1, depth rtol 1e-4 / atol 1e-3, hit masks equal);

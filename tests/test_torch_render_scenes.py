@@ -192,30 +192,35 @@ def torch_views(views, device="cpu"):
     return {k: torch.from_numpy(v).to(device) for k, v in views.items()}
 
 
-# name: (W, views of the camera archetype, max_views, dead (world, view), H, Wpx)
-VIEW_CASES = {"one_view": (2, 1, 1, (), 16, 16),
-              "two_views_dead": (3, 2, 2, ((1, 1), (2, 0)), 16, 16),
-              "24x40": (2, 2, 2, ((0, 1),), 24, 40),
-              "18x30": (4, 3, 2, ((3, 1),), 18, 30)}
+# name: (W, views of the camera archetype, max_views, dead (world, view), H,
+# Wpx, the scene: the pallas scene's hulls, sphere and plane, or the sphere
+# mesh scene's triangle meshes)
+VIEW_CASES = {"one_view": (2, 1, 1, (), 16, 16, "pallas_scene"),
+              "two_views_dead": (3, 2, 2, ((1, 1), (2, 0)), 16, 16, "pallas_scene"),
+              "24x40": (2, 2, 2, ((0, 1),), 24, 40, "pallas_scene"),
+              "18x30": (4, 3, 2, ((3, 1),), 18, 30, "pallas_scene"),
+              "mesh": (2, 2, 2, (), 16, 16, "sphere_mesh")}
 
 
 def view_case(name, device="cpu"):
-    """A view case over the pallas scene (box, sphere, plane, a rotated and
-    scaled box, two dead rows): random views about the scene's camera (the
-    first dead view's rotation NaN: a dead view's garbage is never seen),
-    the instances as [W, N, ...] tensors.  Returns (RenderKernel, views,
-    (pos, rot, scale, obj, mask), V, H, Wpx)."""
-    W, cap, V, dead, H, Wpx = VIEW_CASES[name]
-    sc = pallas_scene(W=W)
+    """A view case over a scene's instances (the pallas scene: box, sphere,
+    plane, a rotated and scaled box, two dead rows; or the sphere mesh
+    scene): random views about the scene's camera (the first dead view's
+    rotation NaN: a dead view's garbage is never seen), the instances as
+    [W, N, ...] tensors.  Returns (RenderKernel, views, (pos, rot, scale,
+    obj, mask), V, H, Wpx)."""
+    W, cap, V, dead, H, Wpx, scene = VIEW_CASES[name]
+    sc = SCENES[scene](W=W)
     views = random_views(5, W, cap, dead)
-    views["eye"] = views["eye"] * np.float32(0.2) + np.float32([0.0, -2.0, 1.2])
+    views["eye"] = views["eye"] * np.float32(0.2) + sc["ro"][:, :1]
     # rotations near the identity, so that the views see the scene
     views["rot"][..., 0] += np.float32(3.0)
     views["rot"] /= np.linalg.norm(views["rot"], axis=-1, keepdims=True)
     if dead:
         w, v = dead[0]
         views["rot"][w, v] = np.nan
-    k = rk.RenderKernel(sc["om"], sc["albedo"], LIGHT_DIR, AMBIENT)
+    k = rk.RenderKernel(sc["om"], sc["albedo"], LIGHT_DIR, AMBIENT,
+                        mesh_tables=sc["mesh_tables"])
     inst = tuple(torch.from_numpy(sc[key]).to(device)
                  for key in ("pos", "rot", "scale", "obj", "mask"))
     return k, torch_views(views, device), inst, V, H, Wpx
