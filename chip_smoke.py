@@ -33,9 +33,11 @@ Phases:
   parity_simple_jobs   fused_simple_jobs_step vs its plain version: the
            main shapes (1024 x 100, K=1600, D=32, the executor's initial
            state), a dense cluster with D=4 (dropped > 0), K=128 with more
-           pairs (slots cut), coincident bodies in one corner, n0=37; ab,
-           counts and dropped exact, lo/hi and normals atol 1e-5,
-           translation atol 1e-4, all finite
+           pairs (slots cut), coincident bodies in one corner, n0=37, a
+           touching grid (AABBs meeting on closed slabs) and a dense
+           cluster with D=32 (every row past the cap, K cut); ab, counts,
+           dropped, lo and hi exact, normals atol 1e-5, translation atol
+           1e-4, all finite, a repeated launch bit-identical
   golden   the reference binary's collisions trajectory
            (tests/goldens/job_collisions.bin, 1 world x 100 cubes, 120
            ticks) on the card, both modes: <= 1e-3 at t=3, <= 0.02 over
@@ -76,7 +78,7 @@ Phases:
            steps
   main_simple_jobs   simple_jobs fused=True (kernel 4), 1024 x 100, 3
            warm-up steps then 5 windows of 200; launches = steps, finite
-           positions, counters 0
+           positions, counters 0 (the node's one launch writes them)
   main_simple_jobs_unfused   fused=False, rank compaction, 50 steps; no
            kernel launch
   main_fantasy_vs   16384 worlds x 50 dragons + 200 knights, cleanup on, 3
@@ -149,7 +151,10 @@ Phases:
            case, n=1500, W=16, 128- and 1024-wide j tiles; the collision
            kernels' launch shapes with their CTAs an SM, and the device ops
            of a collision_pushes call, the nodes of a CUDA graph that
-           captures it, which must be 1; the substep
+           captures it, which must be 1; kernel 4 at the main_simple_jobs
+           state, with its registers and spills (the build's ptxas line),
+           its launch shape and CTAs an SM, and the fused_step node's
+           device ms, host ms and device operations, which must be 1; the substep
            kernel: 20 calls at both K from the main_rigid states, with
            what its operation count is counted from: the pairs by kind,
            and the live contact points the plain version finds in each
@@ -455,6 +460,11 @@ def parity_simple_jobs(torch, sj, sk, dev):
         q = torch.randn((W, n0, 4), generator=g, device=dev)
         return pos, q / q.norm(dim=-1, keepdim=True)
 
+    def numpy_case(arrays):
+        return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_simple_jobs_cases as sj_cases
     init = sj.make_executor(sj.SimpleJobsConfig(num_worlds=SJ_WORLDS, num_objects=SJ_OBJECTS,
                                                 max_pairs=SJ_K, degree_cap=SJ_D, fused=True),
                             device="cuda").state["user"]
@@ -467,19 +477,28 @@ def parity_simple_jobs(torch, sj, sk, dev):
         "k_truncation": (*bodies(64, 100, 4.0), 128, 32),
         "coincident_corner": (corner, ident, 64, 8),
         "n0_37": (*bodies(64, 37, 4.0), 256, 8),
+        # AABBs meeting on closed slabs (the filter's outward rounding and
+        # the float32 re-test), and every body past the degree cap, K cut
+        "touching_grid": (*numpy_case(sj_cases.touching_grid(4, 5, 5, 4)), SJ_K, SJ_D),
+        "dense_cluster": (*numpy_case(sj_cases.dense_cluster(4, 64, SJ_OBJECTS)), SJ_K, SJ_D),
     }
     out, worst = {}, 0.0
     names = ("translation", "lo", "hi", "ab", "normals", "counts", "dropped")
-    atol = {"translation": 1e-4, "lo": 1e-5, "hi": 1e-5, "normals": 1e-5}
+    atol = {"translation": 1e-4, "normals": 1e-5}
     for case, (pos, rot, K, D) in cases.items():
         kw = dict(n0=pos.shape[1], K=K, degree_cap=D, bounds=bounds)
         got = sk.fused_simple_jobs_step(pos, rot, **kw)
+        again = sk.fused_simple_jobs_step(pos, rot, **kw)
         want = sk.fused_simple_jobs_step_plain(pos, rot, **kw)
         torch.cuda.synchronize()
         res = {"W": pos.shape[0], "n0": pos.shape[1], "K": K, "D": D,
                "pairs_kept": int(torch.clamp(want[5], max=K).sum()),
                "counts_over_K": int((want[5] > K).sum()), "dropped": int(want[6].sum())}
-        for name, a, b in zip(names, got, want):
+        if case == "touching_grid":
+            touching_world0 = int(want[5][0])
+        for name, a, a2, b in zip(names, got, again, want):
+            check(bool(torch.equal(a.view(torch.int32), a2.view(torch.int32))),
+                  f"simple_jobs {case} {name}: a repeated launch differs")
             if name in atol:
                 e = max_err(a, b)
                 res[name] = e
@@ -492,7 +511,14 @@ def parity_simple_jobs(torch, sj, sk, dev):
     check(out["degree_cap"]["dropped"] > 0, "degree-cap case dropped no pair")
     check(out["k_truncation"]["counts_over_K"] > 0, "K-truncation case cut no slot")
     check(out["coincident_corner"]["pairs_kept"] > 0, "coincident case kept no pair")
-    return {"phase": "parity_simple_jobs", "cases": out, "ints": "exact", "atol": atol}, worst
+    check(out["dense_cluster"]["dropped"] > 0 and out["dense_cluster"]["counts_over_K"] > 0,
+          "dense-cluster case dropped no pair or cut no slot")
+    tg = cases["touching_grid"][0]
+    d = (tg[0, :, None] - tg[0, None]).abs().amax(-1)
+    check(touching_world0 == int(((d <= 2.0) & (d > 0)).sum()),
+          "touching grid: world 0 lost a tie")
+    return {"phase": "parity_simple_jobs", "cases": out, "ints": "exact",
+            "lo_hi": "exact", "repeat": "bit-identical", "atol": atol}, worst
 
 
 # -- rigid-body physics: the fused substep kernel ------------------------------
@@ -2061,6 +2087,12 @@ def main(argv):
     sW, sn = smask.shape
     s_bound, s_by = bound(sW * (sn * 28 + sn * 36 + SJ_K * 20 + 8),
                           sW * sn * 40 + slive * 6 + sover * 20)
+    s_ptxas = [ln for ln in logs["simple_jobs_kernels"].splitlines()
+               if any(k in ln for k in ("registers", "spill"))]
+    s_shape = sk.occupancy(sW, sn, SJ_K)
+    s_node = node_time(torch, sjsim, "fused_step")
+    check(s_node["device_ops"] == 1,
+          f"the simple_jobs node queues {s_node['device_ops']} device ops")
 
     # the fused substep kernel at both capacities, from the main_rigid states
     sub_t = {}
@@ -2202,7 +2234,8 @@ def main(argv):
               "bound_by": t_by, "live_pairs": tlive, "overlapping_pairs": tover},
           "fused_simple_jobs_step": {
               "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
-              "live_pairs": slive, "overlapping_pairs": sover},
+              "live_pairs": slive, "overlapping_pairs": sover, "ptxas": s_ptxas,
+              "shape": s_shape, "fused_step_node": s_node},
           "fused_substep_K256": sub_t[256], "fused_substep_K128": sub_t[128],
           "substep_occupancy": occupancy,
           "fused_substep_options": opt_t,
@@ -2236,7 +2269,11 @@ def main(argv):
          "replaces": "gpu_ecs_madrona_tpu/ops/simple_jobs_kernel.py:276",
          "launches": sj_launches["fused_simple_jobs_step"], "launches_per_step": 1,
          "max_abs_err": err_sj, "ms": s_ms, "plain_ms": s_plain,
-         "bound_ms": s_bound, "bound_by": s_by, "library_ms": None},
+         "bound_ms": s_bound, "bound_by": s_by, "library_ms": None,
+         "design": "a CTA a world: a producer warp's bulk zero stores beside the chain, "
+                   "a half-box bit grid re-tested in float32, shuffle scans, slots staged "
+                   "and written as 16-byte stores; the node's one launch",
+         "fused_step_node": {k: s_node[k] for k in ("device_ms", "host_ms", "device_ops")}},
         {"name": "fused_substep", "route": "cuda", "source": csrc + "substep_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1257 (chunked :1241)",
          "launches": rig_launches, "launches_per_step": 1, "max_abs_err": err_substep,

@@ -18,7 +18,8 @@ Per tick (reference simple.cpp):
 
 ``fused=True`` runs the whole tick as one kernel
 (ops/simple_jobs_kernel.fused_simple_jobs_step) in a single node,
-``fused_step``; its AABBs take the extents from |R| instead of 8 corners,
+``fused_step``, which on the card is that one launch (the reset counters
+come from it too); its AABBs take the extents from |R| instead of 8 corners,
 so a borderline overlap can differ from the 4-node path.
 
 Unlike the collisions example, the candidate and contact buffers are
@@ -134,12 +135,13 @@ class SimpleJobsWorld:
         if fused:
             def fused_step(ctx: Context):
                 d = dict(ctx.data)
-                npos, lo, hi, ab, nrm, counts, dropped = fused_simple_jobs_step(
+                # the reset counters come from the same launch: one device op
+                npos, lo, hi, ab, nrm, counts, dropped, zero = fused_simple_jobs_step(
                     d["translation"], d["rotation"], n0=n0, K=K,
-                    degree_cap=min(cfg.degree_cap, n0), bounds=BOUNDS)
-                debug.check(dropped == 0, "simple_jobs degree cap exceeded: "
-                            "dropped pairs={} per world — raise degree_cap", dropped)
-                zero = torch.zeros_like(counts)
+                    degree_cap=min(cfg.degree_cap, n0), bounds=BOUNDS, zeros=True)
+                if debug.DEBUG:  # the predicate alone would be a second device op
+                    debug.check(dropped == 0, "simple_jobs degree cap exceeded: "
+                                "dropped pairs={} per world — raise degree_cap", dropped)
                 d.update(translation=npos, aabb_lo=lo, aabb_hi=hi,
                          candidates=ab, num_candidates=zero,
                          contacts_normal=nrm, contacts_ab=ab, num_contacts=zero)

@@ -21,7 +21,9 @@ every body apart over all overlapping pairs:
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the kernel or raises — never falls back.  The launches
-are counted in ``fused_simple_jobs_step.launches``.
+are counted in ``fused_simple_jobs_step.launches``.  ``zeros=True`` adds an
+eighth output, a [W] int32 zero tensor written by the same launch: the
+simple_jobs node's reset counters, so that the node queues one device op.
 """
 
 from __future__ import annotations
@@ -35,12 +37,45 @@ from gpu_ecs_madrona_tpu_torch.ops import _build
 from gpu_ecs_madrona_tpu_torch.ops.collision_kernel import aabb_plain
 from gpu_ecs_madrona_tpu_torch.utils.compaction import first_partners, rank_slots
 
-# The kernel's n bound: one CTA per world and one thread per body.
+# The kernel's launch shape (csrc/simple_jobs_kernels.cu; the layout test
+# holds these equal to the .cu's constants and shared-memory formula): one
+# CTA a world, a compute thread a row slot (n0 rounded up to CHUNK, at
+# least MIN_THREADS), so n0 is at most MAX_BODIES, and one producer warp
+# that queues the slot spans' zeros where it fits in MAX_THREADS.
 MAX_BODIES = 1024
+MAX_THREADS = 1024
+MIN_THREADS = 128
+CHUNK = 64          # rows a bit-grid word covers
+STAGE = 512         # slots staged a chunk
+ZERO_BYTES = 2048   # the bulk stores' zero source
 
 
 def fused_fits(n0: int) -> bool:
     return 1 <= n0 <= MAX_BODIES
+
+
+def compute_threads(n0: int) -> int:
+    return max(MIN_THREADS, CHUNK * -(-n0 // CHUNK))
+
+
+def block_threads(n0: int) -> int:
+    tc = compute_threads(n0)
+    return tc + 32 if tc + 32 <= MAX_THREADS else tc
+
+
+def smem_bytes(n0: int) -> int:
+    """Shared bytes of a CTA (smem_bytes in the .cu): lo, hi, position and
+    the half box, 16 bytes a row slot each; the bulk stores' zeros; the
+    64-bit overlap words [np / 64][np]; the slot stage (ab and normals,
+    STAGE slots); the warps' position sums and slot and drop sums."""
+    np_ = CHUNK * -(-n0 // CHUNK)
+    return (16 * 4 * np_ + ZERO_BYTES + 8 * (np_ // CHUNK * np_)
+            + 4 * (5 * STAGE + 32 * 3 + 32 * 2))
+
+
+def launch_shape(W: int, n0: int) -> dict:
+    """{ctas, threads, smem} of a launch at W worlds of n0 bodies."""
+    return {"ctas": W, "threads": block_threads(n0), "smem": smem_bytes(n0)}
 
 
 # ---------------------------------------------------------------------------
@@ -103,8 +138,11 @@ def _lib():
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_simple_jobs_step_launch.argtypes = (
-            [P, P, I, I, I, I] + [F] * 6 + [P] * 8)
+            [P, P, I, I, I, I] + [F] * 6 + [P] * 9)
         lib.fused_simple_jobs_step_launch.restype = I
+        IP = ctypes.POINTER(ctypes.c_int)
+        lib.simple_jobs_occupancy.argtypes = [I, IP, IP, IP]
+        lib.simple_jobs_occupancy.restype = I
         lib._typed = True
     return lib
 
@@ -120,13 +158,29 @@ def _check(pos, rot, n0):
                              f"[{W}, {n0}, {width}], got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"fused_simple_jobs_step: {key} must be contiguous")
+    if rot.data_ptr() % 16:
+        raise ValueError("fused_simple_jobs_step: rot must be 16-byte aligned (a float4 a body)")
 
 
-def fused_simple_jobs_step(pos, rot, *, n0: int, K: int, degree_cap: int, bounds):
+def occupancy(W: int, n0: int, K: int) -> dict:
+    """launch_shape plus the CTAs an SM the card's occupancy API gives for
+    it (needs the card; K does not change the shape)."""
+    if not fused_fits(n0) or K < 1:
+        raise ValueError(f"occupancy: n0={n0}, K={K}")
+    t, b, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = _lib().simple_jobs_occupancy(n0, ctypes.byref(t), ctypes.byref(b), ctypes.byref(c))
+    if rc != 0:
+        raise RuntimeError(f"simple_jobs_occupancy failed with cudaError {rc}")
+    return dict(launch_shape(W, n0), ctas_per_sm=c.value)
+
+
+def fused_simple_jobs_step(pos, rot, *, n0: int, K: int, degree_cap: int, bounds,
+                           zeros: bool = False):
     """pos [W, n0, 3], rot [W, n0, 4] (w-first quats) -> (translation
     [W, n0, 3], lo [W, n0, 3], hi [W, n0, 3], ab [W, K, 2] int32 (zero past
     counts), normals [W, K, 3] (zero past counts), counts [W] int32,
-    dropped [W] int32).
+    dropped [W] int32), and with ``zeros`` a [W] int32 zero tensor from the
+    same launch.
 
     K: the candidate capacity; degree_cap: the per-row partner cap D;
     bounds: ((lo x, y, z), (hi x, y, z)).  n0 is at most MAX_BODIES."""
@@ -139,8 +193,9 @@ def fused_simple_jobs_step(pos, rot, *, n0: int, K: int, degree_cap: int, bounds
     if K < 1 or degree_cap < 0:
         raise ValueError(f"fused_simple_jobs_step: K={K}, degree_cap={degree_cap}")
     if pos.device.type == "cpu":
-        return fused_simple_jobs_step_plain(pos, rot, n0=n0, K=K,
-                                            degree_cap=degree_cap, bounds=bounds)
+        out = fused_simple_jobs_step_plain(pos, rot, n0=n0, K=K,
+                                           degree_cap=degree_cap, bounds=bounds)
+        return (*out, torch.zeros_like(out[5])) if zeros else out
     _check(pos, rot, n0)
     W = pos.shape[0]
     translation = torch.empty_like(pos)
@@ -150,16 +205,19 @@ def fused_simple_jobs_step(pos, rot, *, n0: int, K: int, degree_cap: int, bounds
     nrm = torch.empty((W, K, 3), dtype=torch.float32, device=pos.device)
     counts = torch.empty((W,), dtype=torch.int32, device=pos.device)
     dropped = torch.empty((W,), dtype=torch.int32, device=pos.device)
+    zero = torch.empty((W,), dtype=torch.int32, device=pos.device) if zeros else None
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     rc = _lib().fused_simple_jobs_step_launch(
         pos.data_ptr(), rot.data_ptr(), W, n0, K, degree_cap,
         *(float(v) for v in bounds[0]), *(float(v) for v in bounds[1]),
         translation.data_ptr(), lo.data_ptr(), hi.data_ptr(), ab.data_ptr(),
-        nrm.data_ptr(), counts.data_ptr(), dropped.data_ptr(), stream)
+        nrm.data_ptr(), counts.data_ptr(), dropped.data_ptr(),
+        None if zero is None else zero.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_simple_jobs_step: kernel launch failed with cudaError {rc}")
     fused_simple_jobs_step.launches += 1
-    return translation, lo, hi, ab, nrm, counts, dropped
+    out = (translation, lo, hi, ab, nrm, counts, dropped)
+    return (*out, zero) if zeros else out
 
 
 fused_simple_jobs_step.launches = 0

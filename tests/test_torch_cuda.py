@@ -40,6 +40,7 @@ from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
 from gpu_ecs_madrona_tpu_torch.physics import RigidBodyPhysicsSystem
 
 import test_torch_render_scenes as scenes
+import test_torch_simple_jobs_cases as sj_cases
 from test_torch_joint_scenes import joint_world, random_joints
 
 
@@ -260,27 +261,43 @@ def test_slice_on_card_matches_cpu(card, fused, use_kernel):
 def sj_inputs(seed, W, n0, half, dev):
     """Bodies around the middle of the simple_jobs bounds, some outside
     them (the kernel clamps)."""
-    rng = np.random.default_rng(seed)
-    pos = rng.uniform(-half, half, (W, n0, 3)).astype(np.float32)
-    pos[..., 2] += 5.0
-    q = rng.normal(size=(W, n0, 4)).astype(np.float32)
-    q /= np.linalg.norm(q, axis=-1, keepdims=True)
-    return torch.from_numpy(pos).to(dev), torch.from_numpy(q).to(dev)
+    return tuple(torch.from_numpy(a).to(dev) for a in sj_cases.bodies(seed, W, n0, half))
+
+
+SJ_CASES = {
+    # name: (inputs (numpy), K, D)
+    "main": (lambda: sj_cases.bodies(3, 64, 100, 10.0), 1600, 32),
+    "cap_and_truncation": (lambda: sj_cases.bodies(3, 3, 37, 4.0), 128, 4),
+    "near_bound": (lambda: sj_cases.bodies(3, 2, 1000, 11.0), 4096, 32),
+    # AABBs meeting on closed slabs: the half-precision filter's outward
+    # rounding and the float32 re-test decide every lattice neighbour pair
+    "touching_grid": (lambda: sj_cases.touching_grid(4, 5, 5, 4), 1600, 32),
+    # every body overlaps 99 others: D = 32 drops pairs and 3200 slots pass K
+    "dense_cluster": (lambda: sj_cases.dense_cluster(4, 8, 100), 1600, 32),
+    # odd K: no world's ab or normals span starts on a 16-byte boundary
+    "odd_K": (lambda: sj_cases.bodies(5, 16, 100, 6.0), 1601, 32),
+}
+
+
+def sj_case(case, dev):
+    make, K, D = SJ_CASES[case]
+    pos, rot = (torch.from_numpy(a).to(dev) for a in make())
+    return pos, rot, dict(n0=pos.shape[1], K=K, degree_cap=D,
+                          bounds=(sj.BOUNDS_LO, sj.BOUNDS_HI))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,n0,K,D,half", [(64, 100, 1600, 32, 10.0), (3, 37, 128, 4, 4.0),
-                                           (2, 1000, 4096, 32, 11.0)],
-                         ids=["main", "cap_and_truncation", "near_bound"])
-def test_fused_simple_jobs_step_matches_plain(card, W, n0, K, D, half):
-    pos, rot = sj_inputs(3, W, n0, half, card)
-    bounds = (sj.BOUNDS_LO, sj.BOUNDS_HI)
-    got = sk.fused_simple_jobs_step(pos, rot, n0=n0, K=K, degree_cap=D, bounds=bounds)
+@pytest.mark.parametrize("case", list(SJ_CASES))
+def test_fused_simple_jobs_step_matches_plain(card, case):
+    """Integers, lo and hi exact (tails included), translation atol 1e-4,
+    normals atol 1e-5."""
+    pos, rot, kw = sj_case(case, card)
+    got = sk.fused_simple_jobs_step(pos, rot, **kw)
     torch.cuda.synchronize()
     assert sk.fused_simple_jobs_step.launches == 1
-    want = sk.fused_simple_jobs_step_plain(pos, rot, n0=n0, K=K, degree_cap=D, bounds=bounds)
+    want = sk.fused_simple_jobs_step_plain(pos, rot, **kw)
     names = ("translation", "lo", "hi", "ab", "normals", "counts", "dropped")
-    atol = {"translation": 1e-4, "lo": 1e-5, "hi": 1e-5, "normals": 1e-5}
+    atol = {"translation": 1e-4, "normals": 1e-5}
     for name, g, w in zip(names, got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         if name in atol:
@@ -288,9 +305,61 @@ def test_fused_simple_jobs_step_matches_plain(card, W, n0, K, D, half):
             assert torch.isfinite(g).all(), name
         else:
             assert torch.equal(g, w), name
-    assert int(want[5].sum()) > 0
-    if D == 4:
-        assert (want[6] > 0).any() and (want[5] > K).any()
+    K, counts, dropped = kw["K"], want[5], want[6]
+    assert int(counts.sum()) > 0
+    if case in ("cap_and_truncation", "dense_cluster"):
+        assert (dropped > 0).any() and (counts > K).any()
+    if case == "touching_grid":
+        # world 0's lattice is exact in half precision: every neighbour pair
+        # ties and is kept; the others' coordinates round off the tie
+        d = (pos[0, :, None] - pos[0, None]).abs().amax(-1)
+        assert int(counts[0]) == int(((d <= 2.0) & (d > 0)).sum())
+        assert (counts[1:] != counts[0]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["main", "dense_cluster", "odd_K"])
+def test_fused_simple_jobs_step_repeats_bit_for_bit(card, case):
+    """Two launches on one input give the same bits, floats included."""
+    pos, rot, kw = sj_case(case, card)
+    first = sk.fused_simple_jobs_step(pos, rot, **kw)
+    again = sk.fused_simple_jobs_step(pos, rot, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert sk.fused_simple_jobs_step.launches == 2
+
+
+@pytest.mark.cuda
+def test_simple_jobs_node_is_one_device_op(card):
+    """simple_jobs' fused node is one launch, its reset counters included:
+    one device operation (the nodes of a CUDA graph capturing the node),
+    and the state it leaves as before (counters 0, candidates and contacts
+    the same slots)."""
+    from gpu_ecs_madrona_tpu_torch.core.context import Context
+    sim = sj.make_executor(sj.SimpleJobsConfig(num_worlds=16, num_objects=100, fused=True),
+                           device="cuda")
+    sim.run(2)
+    torch.cuda.synchronize()
+    assert sim.graph.node_names == ["fused_step"]
+    node, state = sim.graph.nodes[0], sim.state
+    sk.fused_simple_jobs_step.launches = 0
+    assert graph_nodes(lambda: node.run(Context(sim.mgr, state))) == 1
+    assert sk.fused_simple_jobs_step.launches == 2
+    user = sim.state["user"]
+    assert int(user["num_candidates"].abs().sum()) == 0 == int(user["num_contacts"].abs().sum())
+    assert user["num_candidates"].dtype == torch.int32
+    assert user["candidates"] is user["contacts_ab"]
+
+
+@pytest.mark.cuda
+def test_simple_jobs_occupancy_is_exported(card):
+    """The occupancy API takes the main path's launch (4 compute warps and
+    the producer warp; one wave of 1024 worlds: at least 8 CTAs an SM) and
+    the bound's."""
+    occ = sk.occupancy(1024, 100, 1600)
+    assert occ["threads"] == 160 and occ["ctas_per_sm"] >= 8, occ
+    assert sk.occupancy(2, 1024, 4096)["ctas_per_sm"] >= 1
 
 
 @pytest.mark.cuda

@@ -23,6 +23,8 @@ from gpu_ecs_madrona_tpu_torch.models import collisions as col
 from gpu_ecs_madrona_tpu_torch.models import simple_jobs as sj
 from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
 
+import test_torch_simple_jobs_cases as cases
+
 W, N, K, SEED = 4, 24, 128, 5
 
 
@@ -100,25 +102,20 @@ def test_fused_matches_jax_interpret():
 
 BOUNDS = (sj.BOUNDS_LO, sj.BOUNDS_HI)
 KERNEL_CASES = {
-    # name: (seed, W, n0, half, K, D); cubes around (0, 0, 5)
-    "degree_cap": (0, 3, 37, 6.0, 128, 4),     # dropped > 0, n0 % 32 != 0
-    "k_truncation": (2, 2, 40, 3.0, 64, 8),    # total > K: slots cut
-    "no_cap": (1, 2, 24, 10.0, 128, 24),
+    # name: (inputs, K, D); cubes around (0, 0, 5)
+    "degree_cap": (lambda: cases.bodies(0, 3, 37, 6.0), 128, 4),    # dropped > 0, n0 % 32 != 0
+    "k_truncation": (lambda: cases.bodies(2, 2, 40, 3.0), 64, 8),   # total > K: slots cut
+    "no_cap": (lambda: cases.bodies(1, 2, 24, 10.0), 128, 24),
+    # AABBs meeting on closed slabs: every lattice neighbour pair on the tie
+    "touching_grid": (lambda: cases.touching_grid(4, 4, 4, 2), 512, 26),
 }
-
-
-def kernel_inputs(seed, W_, n0, half):
-    rng = np.random.default_rng(seed)
-    pos = rng.uniform(-half, half, (W_, n0, 3)).astype(np.float32)
-    pos[..., 2] += 5.0
-    q = rng.normal(size=(W_, n0, 4)).astype(np.float32)
-    return pos, (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
 
 
 @pytest.mark.parametrize("case", list(KERNEL_CASES))
 def test_kernel_plain_matches_jax_interpret(case):
-    seed, W_, n0, half, k, D = KERNEL_CASES[case]
-    pos, rot = kernel_inputs(seed, W_, n0, half)
+    make, k, D = KERNEL_CASES[case]
+    pos, rot = make()
+    n0 = pos.shape[1]
     want = [np.asarray(x) for x in jk.fused_simple_jobs_step(
         pos, rot, n0=n0, K=k, degree_cap=D, bounds=BOUNDS, interpret=True)]
     got = [x.numpy() for x in sk.fused_simple_jobs_step(
@@ -139,10 +136,14 @@ def test_kernel_plain_matches_jax_interpret(case):
     if case == "k_truncation":
         assert (counts > k).all()
         assert (got[3].any(-1)).all()  # every slot of every world filled
+    if case == "touching_grid":
+        # world 0's lattice is exact in half precision: every tie is kept
+        d = np.abs(pos[0, :, None] - pos[0, None]).max(-1)
+        assert counts[0] == ((d <= 2.0) & (d > 0)).sum()
 
 
 def test_kernel_wrapper_rejects_bad_shapes():
-    pos, rot = kernel_inputs(0, 1, 8, 3.0)
+    pos, rot = cases.bodies(0, 1, 8, 3.0)
     pos, rot = torch.from_numpy(pos), torch.from_numpy(rot)
     with pytest.raises(ValueError, match="n0"):
         sk.fused_simple_jobs_step(pos, rot, n0=9, K=16, degree_cap=4, bounds=BOUNDS)
@@ -247,6 +248,23 @@ def test_coincident_objects_no_blowup(fused):
     pos = sim.state["user"]["translation"]
     assert torch.isfinite(pos).all() and pos.abs().max() < 50
     assert torch.isfinite(sim.state["user"]["contacts_normal"]).all()
+
+
+@FUSED
+def test_degree_cap_check_under_debug(fused, monkeypatch, capsys):
+    """With GEM_TPU_DEBUG's flag on, a step that drops pairs at the degree
+    cap prints the check's failure; with it off the fused node evaluates no
+    predicate (its launch is its only device op)."""
+    from gpu_ecs_madrona_tpu_torch.utils import debug
+    cfg = small_cfg(fused, num_worlds=1, num_objects=6, degree_cap=2)
+    sim = sj.make_executor(cfg, device="cpu")
+    set_bodies(sim, [[[0.1 * i, 0.0, 5.0] for i in range(6)]])
+    sim.step()
+    assert "CHECK FAILED" not in capsys.readouterr().out
+    monkeypatch.setattr(debug, "DEBUG", True)
+    set_bodies(sim, [[[0.1 * i, 0.0, 5.0] for i in range(6)]])
+    sim.step()
+    assert "degree cap" in capsys.readouterr().out
 
 
 def test_fused_default_follows_device():
