@@ -5,7 +5,8 @@ Drives the port's main paths on one CUDA card — the collisions example at
 8192 worlds x 100 cubes, simple_jobs at 1024 worlds x 100 objects,
 fantasy_vs at 16384 worlds x 50 dragons + 200 knights, rigid_bench
 (rigid-body physics) at 8192 worlds x 64 bodies (also with the broadphase
-in the fused kernel, and the settled pile with its options) and simple_taskgraph
+in the fused kernel, and the settled pile with its options; at 32 bodies
+in the dense contact mode, and at 200 with the sap broadphase) and simple_taskgraph
 (physics and the batch renderer) at 1024 worlds x 100 spheres with 64 x 64
 RGB and depth — through every kernel they run, and holds every kernel
 against its plain PyTorch version.
@@ -47,10 +48,21 @@ Phases:
            replayed in scripted mode on the card: masks and arrows exact,
            hp and mana atol 1e-3, action atol 1e-4, positions atol 1e-5,
            at least one death
+  parity_sap   the sap broadphase node (rigid_bench at 8192 x 201 rows,
+           "auto" above 192, after 3 steps on the card, its AABBs made on
+           the card; and that state with its bodies on an unrotated grid of
+           boxes, ties in the globals' top-k and in the sort) on the card
+           against the same node on the CPU: candidate rows, handles, masks
+           and overflow exact; the node's device ms
+  parity_dense   one dense-mode step (rigid_bench at 256 x 33 rows, "auto"
+           at 48 or fewer, after 90 steps on the card) on the card against
+           the same step on the CPU: poses atol 1e-4, velocities 1e-3, the
+           step repeated on the card bit-identical, no kernel launched
   parity_substep   the fused substep kernel vs its plain version: the
            main path's shapes (8192 x 65 rows) after 3 steps at K=256 (the
            chunked TPU route) and K=128 (the unchunked one), the initial
-           uniform spawn, tables without restitution, a golden scene;
+           uniform spawn, tables without restitution, a golden scene, the
+           sap state of parity_sap (8192 x 201 rows, K=800, sap's order);
            and the single-substep kernel vs its plain version on the first
            substep of the K=256 state, and its node launch (the integrate,
            the joint solve and the writeback too) on the joint world of
@@ -91,6 +103,16 @@ Phases:
   main_rigid_k128    the same at max_candidates=128
   main_rigid_pairs   contact_mode="pairs", one window of 10 steps; no
            kernel launch
+  main_rigid_dense   rigid_bench at 8192 x 32 bodies + the plane,
+           contact_mode and broadphase "auto" (the dense contact mode, the
+           dense broadphase): 3 warm-up steps then 3 windows of 5; no
+           kernel launch, finite positions, empty temporaries; env-steps/s,
+           the peak of allocated device memory and the node's world block
+  main_rigid_sap   rigid_bench at 8192 x 200 bodies + the plane,
+           contact_mode="pallas", broadphase "auto" (sap), K=800: 3
+           warm-up steps then 5 windows of 20; launches = steps, all of
+           specialisation "none"; overflow counters and the last step's
+           window saturation (recounted); env-steps/s, peak memory
   main_rigid_fused_bp   the main_rigid pile with broadphase_mode="fused"
            (kernel 8: the broadphase inside the fused kernel), K = 256:
            launches = steps, all of the "bp" specialisation, and no other
@@ -155,7 +177,8 @@ Phases:
            state, with its registers and spills (the build's ptxas line),
            its launch shape and CTAs an SM, and the fused_step node's
            device ms, host ms and device operations, which must be 1; the substep
-           kernel: 20 calls at both K from the main_rigid states, with
+           kernel: 20 calls at both K from the main_rigid states and at
+           the main_rigid_sap state (n = 201, K = 800), with
            what its operation count is counted from: the pairs by kind,
            and the live contact points the plain version finds in each
            substep of the same call), beside the
@@ -737,13 +760,15 @@ def substep_case(torch, sk, kern, kw):
     return errs
 
 
-def parity_substep(torch, rb, phys, sk):
+def parity_substep(torch, rb, phys, sk, sap_sim):
     """fused_substep vs its plain version: the main path's shapes after 3
     steps at K = 256 and 128, the initial uniform spawn, tables without
-    restitution, a golden scene; the single-substep kernel on the first
-    substep of the K = 256 state, and its node launch on a joint world and
-    on simple_taskgraph's state with random joints.  Returns (the phase's line, the worst
-    error of each kernel)."""
+    restitution, a golden scene, and the sap broadphase's candidates and
+    order at 8192 x 201 rows, K = 800 (``sap_sim``, parity_sap's executor);
+    the single-substep kernel on the first substep of the K = 256 state,
+    and its node launch on a joint world and on simple_taskgraph's state
+    with random joints.  Returns (the phase's line, the worst error of each
+    kernel)."""
     import numpy as np
     cases, worst = {}, 0.0
     for K in (256, 128):
@@ -777,6 +802,13 @@ def parity_substep(torch, rb, phys, sk):
     gkern = sk.FusedSubstepKernel(gold.world_cls.objmgr, 1)
     cases["golden_cube_stack_ss1"] = {"pairs": int(gkw["kvalid"].sum()),
                                       "max_err": substep_case(torch, sk, gkern, gkw)}
+    # kernel 7 on the sap broadphase's candidates, in its order
+    skw = fused_inputs(sap_sim, rb, phys)
+    check(skw["rows_i"].shape[1] == SAP_K, f"sap K {skw['rows_i'].shape}")
+    cases["sap_n201_K800"] = {"W": RB_WORLDS, "n": SAP_BODIES + 1, "K": SAP_K,
+                              "pairs": pair_kinds(torch, skw, kern.tables),
+                              "max_err": substep_case(torch, sk, kern, skw)}
+    del skw
     # kernel 5's node launch on a world with live Fixed and Hinge joints
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import test_torch_joint_scenes as joint_scenes
@@ -988,16 +1020,19 @@ def golden_physics(torch, phys, sk):
 
 
 def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_counts,
-               specialisation="none", settle=3, also=()):
-    """rigid_bench at 8192 x 64 in configuration ``cfg`` (RigidBenchConfig
-    keywords): ``settle`` untimed steps, then ``count`` windows of
-    ``steps`` steps; launches = steps, all of the kernel specialisation
-    ``specialisation`` (kernel mode) or 0, launches = steps of the kernels
-    named in ``also`` (the world flags and the asleep worlds' kernel), no
-    other kernel launched, finite positions, empty temporaries."""
-    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, **cfg), device="cuda")
+               specialisation="none", settle=3, also=(), bodies=RB_BODIES):
+    """rigid_bench at 8192 worlds x ``bodies`` (64) in configuration ``cfg``
+    (RigidBenchConfig keywords): ``settle`` untimed steps, then ``count``
+    windows of ``steps`` steps; launches = steps, all of the kernel
+    specialisation ``specialisation`` (kernel mode) or 0, launches = steps
+    of the kernels named in ``also`` (the world flags and the asleep
+    worlds' kernel), no other kernel launched, finite positions, empty
+    temporaries; the peak of allocated device memory over the windows."""
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=bodies, **cfg),
+                           device="cuda")
     sim.run(settle)
     sim.block_until_ready()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     wins = []
     for _ in range(count):
@@ -1018,10 +1053,143 @@ def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_coun
     pos, mask = sim.get_exported(0)
     check(bool(torch.isfinite(pos[mask]).all()), f"finite positions (rigid_bench {cfg})")
     overflow = {k: int(v.sum()) for k, v in sim.overflow_counters().items()}
-    return sim, {"worlds": RB_WORLDS, "bodies": RB_BODIES, "config": cfg,
+    return sim, {"worlds": RB_WORLDS, "bodies": bodies, "config": cfg,
                  "settle_steps": settle, "launches": launches,
                  "launches_by_specialisation": by_options, "overflow_sum": overflow,
-                 "env_steps_per_s": rates(steps, wins, RB_WORLDS), "card": card}
+                 "env_steps_per_s": rates(steps, wins, RB_WORLDS),
+                 "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "card": card}
+
+
+# -- the sap broadphase and the dense contact mode -----------------------------
+
+SAP_BODIES, SAP_K = 200, 800      # 201 rows: "auto" takes sap; K = 4 x bodies
+DENSE_BODIES = 32                 # 33 rows: "auto" takes the dense contact mode
+DENSE_PARITY_WORLDS = 256
+
+
+def node_fn(sim, name):
+    return next(nd for nd in sim.graph.nodes if nd.name == name).run
+
+
+def parity_sap(torch, rb, phys):
+    """The sap node on the card against the same node on the CPU from one
+    state: rigid_bench at 8192 worlds x 201 rows after 3 steps on the card
+    (its AABBs made on the card), and that state with its bodies on an
+    unrotated grid of boxes (ties in the globals' top-k and in the sort);
+    rows, handles, masks and overflow exact.  Returns (the phase's line,
+    the card's executor after its 3 steps)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_sap_cases as sap_cases
+    from gpu_ecs_madrona_tpu_torch.core.context import Context
+    from gpu_ecs_madrona_tpu_torch.interop import state_to_numpy
+    cfg = rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=SAP_BODIES, contact_mode="pallas")
+    gpu = rb.make_executor(cfg, device="cuda")
+    check(node_fn(gpu, "bp_find_overlaps").__name__ == "find_overlaps_sap",
+          "auto above 192 rows takes sap")
+    gpu.run(3)
+    cpu = rb.make_executor(cfg, device="cpu")
+    cases = {}
+    after = sap_cases.aabb_state(gpu)
+    for name, state in (("after_3_steps", after),
+                        ("tie_grid", sap_cases.aabb_state(
+                            gpu, sap_cases.set_grid(state_to_numpy(gpu.state))))):
+        t0 = time.perf_counter()
+        a = sap_cases.sap_outputs(cpu, state)
+        cpu_s = time.perf_counter() - t0
+        b = sap_cases.sap_outputs(gpu, state)
+        diff = sap_cases.differing(a, b)
+        cases[name] = {"candidates": int(a["rows"]["mask"].sum()),
+                       "overflow_sum": int(a["overflow"].sum()), "differing": diff,
+                       "cpu_node_s": cpu_s}
+        check(diff == 0, f"sap on the card vs the CPU ({name}): {diff} entries differ")
+        check(cases[name]["candidates"] > RB_WORLDS, f"sap {name}: few candidates")
+    del cpu
+    # the node's device time at the state after 3 steps
+    ctx_state = gpu.state
+    find = node_fn(gpu, "bp_find_overlaps")
+    update = node_fn(gpu, "bp_update_aabbs")
+    ms = cuda_ms(torch, lambda: find(Context(gpu.mgr, ctx_state)), 20)
+    ms_update = cuda_ms(torch, lambda: update(Context(gpu.mgr, ctx_state)), 20)
+    return {"phase": "parity_sap", "W": RB_WORLDS, "n": SAP_BODIES + 1, "K": SAP_K,
+            "window": min(64, SAP_BODIES), "cases": cases, "ints": "exact",
+            "sap_node_ms": ms, "update_aabbs_ms": ms_update}, gpu
+
+
+def sap_saturation(torch, rb, sim, S=64, G=4):
+    """The sap broadphase's window saturation on sim's current AABB columns
+    (the last step's), recounted here from its definition: the live
+    non-global rows sorted by lower x whose first row past the window of S
+    still starts before their x interval ends; summed over the worlds."""
+    from gpu_ecs_madrona_tpu_torch.physics.components import CollisionAABB
+    box = sim.mgr.column(sim.state, rb.Body, CollisionAABB)
+    mask = sim.mgr.row_mask(sim.state, rb.Body)
+    lo, hi = box["lo"][..., 0], box["hi"][..., 0]
+    m = lo.shape[1] - S - 1
+    if m <= 0:
+        return 0
+    extent = torch.where(mask, hi - lo, -float("inf"))
+    grow = torch.sort(extent, dim=1, descending=True, stable=True).indices[:, :G]
+    live = mask & ~torch.zeros_like(mask).scatter_(1, grow, True)
+    order = torch.sort(torch.where(live, lo, float("inf")), dim=1, stable=True).indices
+    lo_s, hi_s = torch.gather(lo, 1, order), torch.gather(hi, 1, order)
+    live_s = torch.gather(live, 1, order)
+    sat = live_s[:, :m] & live_s[:, S + 1:] & (lo_s[:, S + 1:] <= hi_s[:, :m])
+    return int(sat.sum())
+
+
+def parity_dense(torch, rb, phys, subk):
+    """One dense-mode step on the card against the same step on the CPU
+    from one state: rigid_bench at 256 worlds x 33 rows ("auto" takes the
+    dense contact mode) after 90 steps on the card (the pile has landed);
+    poses atol 1e-4, velocities 1e-3, the step repeated on the card from
+    that state bit-identical, no kernel launched."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_sap_cases as sap_cases
+    from gpu_ecs_madrona_tpu_torch.core.context import Context
+    from gpu_ecs_madrona_tpu_torch.interop import state_from_numpy, state_to_numpy
+    cfg = rb.RigidBenchConfig(num_worlds=DENSE_PARITY_WORLDS, num_bodies=DENSE_BODIES,
+                              contact_mode="auto")
+    gpu = rb.make_executor(cfg, device="cuda")
+    check(phys.FUSED_NODE not in gpu.graph.node_names
+          and hasattr(node_fn(gpu, "physics_substep_0"), "world_block"),
+          "auto at 33 rows takes the dense contact mode")
+    gpu.run(90)
+    start = state_to_numpy(gpu.state)
+    # the contacts of the compared step's last substep (on a copy)
+    ctx = Context(gpu.mgr, gpu.state)
+    for nd in gpu.graph.nodes:
+        if nd.name.startswith("clear_"):
+            break
+        nd.run(ctx)
+    contacts = int(ctx.row_mask(phys.ContactTemporary).sum())
+    cpu = rb.make_executor(cfg, device="cpu")
+    cpu.state = state_from_numpy(start, "cpu")
+    launches = subk.FusedSubstepKernel.launches + subk.SubstepKernel.launches
+    gpu.step()
+    first = state_to_numpy(gpu.state)
+    gpu.state = state_from_numpy(start, "cuda")
+    gpu.step()
+    again = state_to_numpy(gpu.state)
+    check(subk.FusedSubstepKernel.launches + subk.SubstepKernel.launches == launches,
+          "a dense step launches no kernel")
+    t0 = time.perf_counter()
+    cpu.step()
+    cpu_s = time.perf_counter() - t0
+    want = state_to_numpy(cpu.state)["arch"][rb.Body.name]["comps"]
+    got = first["arch"][rb.Body.name]["comps"]
+    errs = {}
+    for comp, tol in (("Position", 1e-4), ("Rotation", 1e-4), ("Velocity", 1e-3)):
+        for f in want[comp]:
+            errs[f"{comp}.{f}"] = float(abs(got[comp][f] - want[comp][f]).max())
+            check(errs[f"{comp}.{f}"] <= tol, f"dense step {comp}.{f} vs the CPU {errs}")
+    same = all(bool((x == y).all()) for x, y in zip(sap_cases.leaves(first),
+                                                      sap_cases.leaves(again)))
+    check(same, "a repeated dense step on the card differs")
+    return {"phase": "parity_dense", "W": DENSE_PARITY_WORLDS, "n": DENSE_BODIES + 1,
+            "settle_steps": 90, "contacts_last_substep": contacts, "max_err": errs,
+            "atol": {"poses": 1e-4, "velocities": 1e-3}, "repeat": "bit-identical",
+            "cpu_step_s": cpu_s}
 
 
 # -- the fused kernel's options: TPU kernels 8 and 9 --------------------------
@@ -1864,8 +2032,14 @@ def main(argv):
     emit({"phase": "golden", **golden})
     emit(golden_fvs(torch, fvs))
 
+    # the sap node on the card vs the CPU, and a dense-mode step likewise
+    line, sap_sim = parity_sap(torch, rb, phys)
+    emit(line)
+    emit(parity_dense(torch, rb, phys, subk))
+
     # the fused substep kernel vs plain, and the physics goldens on the card
-    line, err_substep, err_substep1 = parity_substep(torch, rb, phys, subk)
+    line, err_substep, err_substep1 = parity_substep(torch, rb, phys, subk, sap_sim)
+    del sap_sim
     emit(line)
     emit(golden_physics(torch, phys, subk))
     emit(joints_cube_chain(torch, phys, subk))
@@ -2004,6 +2178,26 @@ def main(argv):
                               10, 1, smi, *counts)
     emit({"phase": "main_rigid_pairs", **line})
 
+    # rigid_bench's small worlds (33 rows: "auto" takes the dense contact
+    # mode and the dense broadphase) and its large ones (201 rows: "auto"
+    # takes sap, kernel 7 at K = 800)
+    dsim, line = main_rigid(torch, rb, phys, dict(contact_mode="auto"), 5, 3, smi, *counts,
+                            bodies=DENSE_BODIES)
+    check(phys.FUSED_NODE not in dsim.graph.node_names, "main_rigid_dense takes the dense mode")
+    emit({"phase": "main_rigid_dense", **line,
+          "world_block": node_fn(dsim, "physics_substep_0").world_block,
+          "dense_block_pairs": phys.DENSE_BLOCK_PAIRS,
+          "broadphase": node_fn(dsim, "bp_find_overlaps").__name__})
+    del dsim
+    ssap, line = main_rigid(torch, rb, phys, dict(contact_mode="pallas"), 20, 5, smi, *counts,
+                            bodies=SAP_BODIES)
+    sap_launches = line["launches"]["fused_substep"]
+    check(node_fn(ssap, "bp_find_overlaps").__name__ == "find_overlaps_sap",
+          "main_rigid_sap takes sap")
+    emit({"phase": "main_rigid_sap", **line, "K": SAP_K,
+          "kernel_smem_bytes": subk.smem_bytes(SAP_BODIES + 1, SAP_K),
+          "window_saturation_last_step": sap_saturation(torch, rb, ssap)})
+
     # the fused kernel's options: the broadphase in the kernel (kernel 8) on
     # the default pile, and the settled pile with persistent manifolds and
     # sleep (kernel 9) and without (its A/B) -----------------------------------
@@ -2096,7 +2290,7 @@ def main(argv):
 
     # the fused substep kernel at both capacities, from the main_rigid states
     sub_t = {}
-    for K, s_ in ((256, rsim), (128, r128)):
+    for K, s_ in ((256, rsim), (128, r128), (SAP_K, ssap)):
         kw = fused_inputs(s_, rb, phys)
         kern = subk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
         ops, kinds, work = substep_work(torch, subk, kern, kw)
@@ -2117,6 +2311,7 @@ def main(argv):
     # CTAs an SM]
     occupancy = {"fused_n65_K256": subk.occupancy(RB_BODIES + 1, 256),
                  "fused_n65_K128": subk.occupancy(RB_BODIES + 1, 128),
+                 "fused_n201_K800": subk.occupancy(SAP_BODIES + 1, SAP_K, codes=(0,)),
                  "substep_n104_K1000": subk.occupancy(104, 1000, single=True),
                  "substep_node_n104_K1000_J64": subk.occupancy(104, 1000, single=True,
                                                                joints=64)}
@@ -2237,6 +2432,7 @@ def main(argv):
               "live_pairs": slive, "overlapping_pairs": sover, "ptxas": s_ptxas,
               "shape": s_shape, "fused_step_node": s_node},
           "fused_substep_K256": sub_t[256], "fused_substep_K128": sub_t[128],
+          "fused_substep_sap_n201_K800": sub_t[SAP_K],
           "substep_occupancy": occupancy,
           "fused_substep_options": opt_t,
           "substep": sub1_t, "substep_node": node_t, "render": render_t,
@@ -2246,7 +2442,7 @@ def main(argv):
     if "--profile" in argv:
         profile(torch, {"fused": sim, "unfused_pushes": usim, "simple_jobs_fused": sjsim,
                         "rigid_fused_k256": rsim, "rigid_fused_k128": r128,
-                        "rigid_pairs": rpairs, "rigid_fused_bp": bsim,
+                        "rigid_pairs": rpairs, "rigid_sap": ssap, "rigid_fused_bp": bsim,
                         "rigid_settled": settled_sim, "rigid_settled_nopersist": nsim,
                         "simple_jobs_rank": sjusim, "fantasy_vs": fsim,
                         "simple_taskgraph": ssim})
@@ -2280,7 +2476,10 @@ def main(argv):
          "ms": sub_t[256]["ms"], "plain_ms": sub_t[256]["plain_ms"],
          "bound_ms": sub_t[256]["bound_ms"], "bound_by": sub_t[256]["bound_by"],
          "library_ms": None,
-         "K128": {k: sub_t[128][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+         "K128": {k: sub_t[128][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "sap_n201_K800": {"launches": sap_launches,
+                           **{k: sub_t[SAP_K][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                             "bound_by")}}},
         {"name": "fused_substep_bp", "route": "cuda", "source": csrc + "substep_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1278",
          "launches": bp_launches, "launches_per_step": 1, "max_abs_err": err_bp,

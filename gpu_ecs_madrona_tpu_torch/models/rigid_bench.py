@@ -9,8 +9,11 @@ substeps).  The default configuration is 8192 worlds x 64 bodies.
 ``contact_mode="pallas"`` runs the fused substep kernel (one launch a step
 on the card), ``broadphase_mode="fused"`` the broadphase inside it, and
 contact_refresh, sleep_threshold and manifold_persist its other options
-(SETTLED_PILE); ``"pairs"`` the per-substep PyTorch path.  The candidate
-capacity K is ``max_candidates`` or 4 x num_bodies (the JAX package's
+(SETTLED_PILE); ``"pairs"`` the per-substep PyTorch path; ``"dense"``
+the dense [W, n, n] contact grid (``"auto"`` takes it at 48 body rows or
+fewer, the kernel above).  ``broadphase_mode="auto"`` is the dense
+overlap grid up to 192 body rows and sweep and prune (``"sap"``) above.
+The candidate capacity K is ``max_candidates`` or 4 x num_bodies (the JAX package's
 autotuner artifact, written for the TPU, is not read).  The spawn draws
 from the port's own per-world generator, so its numbers differ from the
 JAX package's; parity tests start both from one JAX-initialised state.
@@ -58,10 +61,10 @@ def default_object_manager():
 
 @dataclasses.dataclass
 class RigidBenchConfig:
-    """The JAX config's fields and defaults.  broadphase_mode 'sap' raises
-    NotImplementedError when the graph is built (see physics/__init__.py);
-    'fused', contact_refresh, sleep_threshold > 0 and manifold_persist run
-    the fused kernel's options.  The settled pile of the JAX package's
+    """The JAX config's fields and defaults.  broadphase_mode 'sap' is
+    sweep and prune (sap_window 0: min(n - 1, 64)); 'fused',
+    contact_refresh, sleep_threshold > 0 and manifold_persist run the
+    fused kernel's options.  The settled pile of the JAX package's
     bench_physics.py (BENCH_PHYS_SETTLE=1) is SETTLED_PILE."""
 
     num_worlds: int = 8192
@@ -69,8 +72,8 @@ class RigidBenchConfig:
     num_substeps: int = 4
     delta_t: float = 1 / 60
     max_candidates: int = 0       # 0 = 4 * num_bodies
-    contact_mode: str = "pairs"   # pairs | pallas (the fused kernel) | auto
-    broadphase_mode: str = "auto"  # dense | fused (in the kernel) | auto (sap waits)
+    contact_mode: str = "pairs"   # pairs | pallas (the fused kernel) | dense | auto
+    broadphase_mode: str = "auto"  # dense | sap | fused (in the kernel) | auto
     sap_window: int = 0
     # dense-broadphase rank-compaction degree cap (0 = every pair)
     dense_degree: int = 12

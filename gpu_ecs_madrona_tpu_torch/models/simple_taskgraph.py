@@ -12,11 +12,13 @@ A step runs the clamp node, the dense broadphase, the substeps
 (relaxation 0.7), the cleanup, the render pack node and, with
 ``render=True``, the render node.  The body archetype holds
 ``num_objects + 4`` rows, so ``contact_mode="auto"`` takes the kernel
-mode (above 48 rows); the world registers the physics' joint archetype
-(64 rows, none made), so each substep is one node: the integrate, one
-launch of the single-substep kernel and the joint solve.
-``num_objects <= 44`` would take the dense contact mode, which is not
-ported, and raises.  The spawn draws
+mode above 48 rows (``num_objects >= 45``) and the dense contact mode at
+48 or fewer, as in the JAX package; the world registers the physics'
+joint archetype (64 rows, none made), so each substep is one node: in
+the kernel mode one launch of the single-substep kernel (the integrate,
+the solve, the joint solve), in the dense mode the dense grid's solve
+with the joint solve between its positional and velocity passes.  The
+spawn draws
 from the port's own per-world generator, so its numbers differ from the
 JAX package's; parity tests start both from one JAX-initialised state.
 """
@@ -37,7 +39,6 @@ from gpu_ecs_madrona_tpu_torch.core.registry import ECSRegistry
 from gpu_ecs_madrona_tpu_torch.core.state import uniform
 from gpu_ecs_madrona_tpu_torch.core.taskgraph import TaskGraphBuilder
 from gpu_ecs_madrona_tpu_torch.physics import (
-    AUTO_DENSE_MAX_ROWS,
     BODY_COMPONENTS,
     RigidBodyPhysicsSystem,
     assets,
@@ -132,11 +133,6 @@ class SimpleTaskgraphWorld:
     def register_types(cls, registry: ECSRegistry):
         cfg = cls.config
         rows = cfg.num_objects + 4
-        if rows <= AUTO_DENSE_MAX_ROWS:
-            raise NotImplementedError(
-                f"simple_taskgraph with num_objects={cfg.num_objects} ({rows} body rows) "
-                "takes contact_mode='dense', which is not ported to gpu_ecs_madrona_tpu_torch "
-                "yet (ROADMAP: the dense contact mode); use num_objects >= 45")
         # reference simple.cpp registerTypes:37-47 (the joint archetype
         # keeps its default 64 rows, as in the JAX package: no joint is
         # made, but the substeps take the per-substep kernel that solves

@@ -985,10 +985,12 @@ SPECIALISATION_CODES = (0, OPT_REFRESH, OPT_SLEEP, OPT_REFRESH | OPT_SLEEP, OPT_
                         OPT_PERSIST | OPT_BP | OPT_REFRESH | OPT_SLEEP)
 
 
-def occupancy(n: int, K: int, single: bool = False, joints=None):
+def occupancy(n: int, K: int, single: bool = False, joints=None,
+              codes=SPECIALISATION_CODES):
     """The kernels' launch shape at n bodies and K slots, on the current
     card: {specialisation name: (threads a CTA, CTAs an SM)} for the fused
-    kernel's eight specialisations, or (threads, CTAs an SM) of kernel 5
+    kernel's specialisations ``codes`` (all eight by default; a shape that
+    fits only some asks for those), or (threads, CTAs an SM) of kernel 5
     with ``single``: without its integrate and joints, or with ``joints``
     joints its node launch.  Builds the kernels if needed."""
     lib = _lib()
@@ -1005,7 +1007,7 @@ def occupancy(n: int, K: int, single: bool = False, joints=None):
                     "substep")
     return {option_name(code): read(lib.fused_substep_occupancy(
         code, n, K, ctypes.byref(threads), ctypes.byref(blocks)), option_name(code))
-        for code in SPECIALISATION_CODES}
+        for code in codes}
 
 
 def option_name(code: int) -> str:

@@ -14,30 +14,32 @@ overlap grid, compacted to candidate rows) -> the substeps (integrate ->
 narrowphase -> positional solve -> velocity recovery -> velocity solve)
 -> cleanup of the temporaries.
 
-What is ported: broadphase ``mode="dense"`` (exact ``dense_degree=0`` and
-rank-compacted ``dense_degree>0``) and ``mode="fused"`` (the broadphase
+The broadphase modes: ``"dense"`` (exact ``dense_degree=0`` and
+rank-compacted ``dense_degree>0``), ``"sap"`` (sweep and prune along x,
+with the widest bodies tested densely) and ``"fused"`` (the broadphase
 inside the fused substep kernel, degree cap ``dense_degree or 12``; the
 substep node writes the AABB and LeafID columns and emits the candidate
-temporaries from the kernel's outputs); ``contact_mode="pairs"`` (one
-node per substep, the pair math of physics/pairs.py, contact and event
-temporaries emitted lazily on the last substep) and
-``contact_mode="pallas"``, which keeps the JAX spelling and means the
-substep kernels of ops/substep_kernel.py (the CUDA kernels for CUDA
-tensors, their plain versions for CPU tensors): without joints the fused
-substep kernel, one node and one launch per step, with its options
-contact_refresh, world sleep (``sleep_threshold``) and persistent
-manifolds (``manifold_persist``, with ``register_persistent_manifolds``);
-with a joint archetype of any capacity the single-substep kernel, one
-node and one launch per substep, whose launch also integrates, solves the
-joints after the velocity pass (as the JAX package does) and writes the
-columns back.  Joints (``make_fixed_joint``,
-``make_hinge_joint``, ``solver.solve_joints``) run in both modes.
-``contact_mode="auto"`` picks "pallas" above 48 body rows on any device.
-The options raise the JAX package's ValueErrors where they do not
-compose.  What is not ported raises NotImplementedError naming its
-ROADMAP item: the dense contact mode (and "auto" at 48 rows or fewer) and
-the sap broadphase.  ``raycast`` runs the renderer's ray functions
-(render/renderer.py).
+temporaries from the kernel's outputs); ``"auto"`` is dense up to 192
+body rows and sap above.  The contact modes: ``"dense"`` (one node per
+substep over the whole [W, n, n] grid of body pairs,
+physics/narrowphase.py and the dense solves of physics/solver.py);
+``"pairs"`` (one node per substep over the compacted candidates, the
+pair math of physics/pairs.py); and ``"pallas"``, which keeps the JAX
+spelling and means the substep kernels of ops/substep_kernel.py (the CUDA
+kernels for CUDA tensors, their plain versions for CPU tensors): without
+joints the fused substep kernel, one node and one launch per step, with
+its options contact_refresh, world sleep (``sleep_threshold``) and
+persistent manifolds (``manifold_persist``, with
+``register_persistent_manifolds``); with a joint archetype of any
+capacity the single-substep kernel, one node and one launch per substep,
+whose launch also integrates, solves the joints after the velocity pass
+(as the JAX package does) and writes the columns back.  The dense and
+pairs modes emit the contact and event temporaries lazily on the last
+substep.  Joints (``make_fixed_joint``, ``make_hinge_joint``,
+``solver.solve_joints``) run in every mode.  ``contact_mode="auto"`` is
+"dense" at 48 body rows or fewer and "pallas" above, on any device.  The
+options raise the JAX package's ValueErrors where they do not compose.
+``raycast`` runs the renderer's ray functions (render/renderer.py).
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from gpu_ecs_madrona_tpu_torch.core.taskgraph import NodeID, TaskGraphBuilder
 # may be imported first
 from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
 from gpu_ecs_madrona_tpu_torch.physics import assets  # noqa: F401  (public submodule)
+from gpu_ecs_madrona_tpu_torch.physics import narrowphase as npk
 from gpu_ecs_madrona_tpu_torch.physics import pairs as pk
 from gpu_ecs_madrona_tpu_torch.physics import solver as solver_mod
 from gpu_ecs_madrona_tpu_torch.physics.components import (
@@ -105,20 +108,20 @@ ContactTemporary = Archetype("ContactTemporary", [ContactConstraint])
 CollisionEventTemporary = Archetype("CollisionEventTemporary", [CollisionEvent])
 JointArchetype = Archetype("JointArchetype", [JointConstraint])
 
-# Dense narrowphase below this many body rows in contact_mode="auto" (the
-# JAX package's threshold; that mode waits).
+# contact_mode="auto": the dense contact mode at this many body rows or
+# fewer (the JAX package's threshold)
 AUTO_DENSE_MAX_ROWS = 48
-# broadphase_mode="auto": dense up to this capacity, sap beyond (JAX's
-# measured crossover; sap waits).
+# broadphase_mode="auto": dense up to this capacity, sap beyond (the JAX
+# package's crossover)
 AUTO_DENSE_BP_MAX_ROWS = 192
+# The dense contact mode's substep node runs its worlds in equal blocks of
+# at most this many grid pairs (W x n x n), which bounds its intermediates:
+# ~3.5 KB a grid pair at the step's peak, ~15 GB a block (every block size
+# gives the same result)
+DENSE_BLOCK_PAIRS = 1 << 22
 # The task-graph node of contact_mode="pallas" without joints (one kernel
 # launch a step).
 FUSED_NODE = "physics_substeps_fused"
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to gpu_ecs_madrona_tpu_torch yet (ROADMAP: {item})")
 
 
 def _tables_on(object_manager, device) -> Dict[str, torch.Tensor]:
@@ -151,6 +154,123 @@ def _stable_topk_rows(flag, k):
     """Indices of the first k entries of flag [W, M] in descending order,
     lower index first among equals (lax.top_k's order on 0/1 values)."""
     return torch.sort(flag.to(torch.int8), dim=1, descending=True, stable=True).indices[:, :k]
+
+
+def _sap_node(arch: Archetype, W: int, n: int, k_cap: int, dev, sap_window: int,
+              sap_globals: int, sap_degree: int):
+    """The sap broadphase's node (the JAX package's find_overlaps_sap,
+    physics/__init__.py:419-545) for W worlds of n body rows and a
+    candidate capacity k_cap; see setup_broadphase_tasks."""
+    S = min(sap_window or 64, n - 1)
+    G = min(sap_globals, n)
+    Dc = min(sap_degree or S, S)
+    k_sap = min(k_cap, n * S + G * n)
+    k_take = min(k_sap, n * Dc + G * n)
+    BIGI = 2 ** 30
+    rows_n = torch.arange(n, dtype=torch.int32, device=dev)
+    kk = torch.arange(S, dtype=torch.int32, device=dev)
+    # a row's hits before window entry k (the product with it counts
+    # them exactly: 0/1 terms, sums below 2^24)
+    before = (kk[:, None] < kk[None, :]).to(torch.float32)
+    i_iota = rows_n[None, :, None]
+    gidx_iota = torch.arange(G * n, dtype=torch.int32, device=dev)[None]
+    # the first sorted row past each row's window
+    past = torch.clamp(rows_n + S + 1, max=n - 1).long()
+    in_range = rows_n + S + 1 <= n - 1
+
+    def find_overlaps_sap(ctx: Context):
+        # sweep and prune (the JAX package's find_overlaps_sap): one
+        # sort along x, each body against its next S in sorted order;
+        # the G widest live bodies (ground planes, large statics, whose
+        # x interval would saturate any window) leave the sweep and are
+        # tested against all n bodies
+        aabb = ctx.column(arch, CollisionAABB)
+        mask = ctx.row_mask(arch)
+        lo, hi = aabb["lo"], aabb["hi"]
+        # the globals: the top-G x extents of the live bodies, the lower
+        # row first among equal extents (lax.top_k's order)
+        extent = torch.where(mask, hi[..., 0] - lo[..., 0], -math.inf)
+        grow = torch.sort(extent, dim=1, descending=True, stable=True).indices[:, :G]
+        grow = grow.to(torch.int32)
+        is_global = (rows_n[None, None, :] == grow[:, :, None]).any(dim=1)   # [W, n]
+        mask_eff = mask & ~is_global
+
+        # the windowed sweep over the other bodies (dead and global
+        # rows sort last, in row order: the sort is stable)
+        key = torch.where(mask_eff, lo[..., 0], math.inf)
+        order = torch.sort(key, dim=1, stable=True).indices.to(torch.int32)
+        lo_s, hi_s = batched_gather(lo, order), batched_gather(hi, order)
+        mask_s = batched_gather(mask_eff, order)
+
+        # each sorted row i against sorted rows j = i + 1..i + S: windows
+        # of the sorted columns (views, no copy), past the last row
+        # padded dead
+        def window(x, pad):
+            return torch.nn.functional.pad(x, (0, S), value=pad).unfold(1, S, 1)[:, 1:]
+
+        ok = mask_s[:, :, None] & window(mask_s, False)
+        for c in range(3):
+            ok = ok & (lo_s[:, :, c, None] <= window(hi_s[..., c], 0.0)) \
+                & (window(lo_s[..., c], 0.0) <= hi_s[:, :, c, None])
+
+        # the globals against every body; a global pair counted once
+        # (at the higher row), never a body with itself
+        glo, ghi = batched_gather(lo, grow), batched_gather(hi, grow)
+        gmask = batched_gather(mask, grow)
+        ok_g = m.aabb_overlaps(glo[:, :, None], ghi[:, :, None], lo[:, None], hi[:, None])
+        ok_g = ok_g & gmask[:, :, None] & mask[:, None, :]
+        ok_g = ok_g & (~is_global[:, None, :] | (rows_n[None, None, :] > grow[:, :, None]))
+
+        # one compaction over both regions, in two stages: each sweep
+        # row's first Dc hits in window order kept in Dc slots (the
+        # drops counted), then the flat indices sorted (the JAX
+        # package's order: ascending flat index, the global rows after
+        # the sweep)
+        rank = (ok.to(torch.float32).reshape(W * n, S) @ before).reshape(W, n, S)
+        keep = ok & (rank < Dc)
+        deg = ok.sum(dim=2, dtype=torch.int32)
+        dropped = (ok & ~keep).sum(dim=(1, 2), dtype=torch.int32)
+        if debug.DEBUG:
+            debug.check(dropped == 0, f"sap per-row degree cap {Dc} exceeded: dropped "
+                        "pairs={} per world", dropped)
+        ctx.add_overflow(CandidateRowsTemporary, dropped)
+        # each kept hit to its row's slot of its rank (the others to one
+        # spare slot, all BIGI); every slot written once otherwise
+        slot = torch.where(keep, i_iota * Dc + rank.to(torch.int32), n * Dc).reshape(W, -1)
+        flat1 = torch.full((W, n * Dc + 1), BIGI, dtype=torch.int32, device=dev).scatter_(
+            1, slot.long(), torch.where(keep, i_iota * S + kk, BIGI).reshape(W, -1))
+        flat1 = flat1[:, :n * Dc]
+        flat_g = torch.where(ok_g.reshape(W, G * n), n * S + gidx_iota, BIGI)
+        pair_idx = torch.sort(torch.cat([flat1, flat_g], 1), dim=1).values[:, :k_take]
+        pair_idx = torch.where(pair_idx < BIGI, pair_idx, 0)
+        if k_take < k_sap:         # the stage-1 caps leave fewer than K
+            pair_idx = torch.nn.functional.pad(pair_idx, (0, k_sap - k_take))
+        counts = (deg.sum(dim=1, dtype=torch.int32) - dropped
+                  + ok_g.sum(dim=(1, 2), dtype=torch.int32))
+        in_sweep = pair_idx < n * S
+        # the sweep region: sorted i = idx // S, j = i + idx % S + 1
+        si = torch.where(in_sweep, pair_idx, 0) // S
+        sj = torch.clamp(si + pair_idx % S + 1, max=n - 1)
+        # the global region: g = idx' // n (its row), b = idx' % n
+        gidx = torch.where(in_sweep, 0, pair_idx - n * S)
+        ri = torch.where(in_sweep, batched_gather(order, si), batched_gather(grow, gidx // n))
+        rj = torch.where(in_sweep, batched_gather(order, sj), gidx % n)
+        # (low row, high row): the dense mode's pair order within a pair
+        _emit_candidates(ctx, arch, counts, torch.minimum(ri, rj), torch.maximum(ri, rj))
+
+        # the window's saturation: where the first body past a row's
+        # window still starts before that row's x interval ends, pairs
+        # beyond the window may be missed; counted as overflow
+        sat = mask_s & mask_s[:, past] & in_range[None] & (lo_s[..., 0][:, past]
+                                                            <= hi_s[..., 0])
+        sat_counts = sat.sum(dim=1, dtype=torch.int32)
+        if debug.DEBUG:
+            debug.check(sat_counts == 0, f"sap broadphase window saturated (window {S}): "
+                        "possibly-missed pairs={} per world — raise sap_window",
+                        sat_counts)
+        ctx.add_overflow(CandidateRowsTemporary, sat_counts)
+
+    return find_overlaps_sap
 
 
 class RigidBodyPhysicsSystem:
@@ -360,16 +480,21 @@ class RigidBodyPhysicsSystem:
         contact_mode "pallas" without joints): this registers a marker
         node, and the substep node writes the CollisionAABB and LeafID
         columns and the candidate temporaries.
-        mode "auto" is dense up to 192 body rows; "sap" waits."""
+        mode "sap": sweep and prune (``_sap_node``): the
+        sap_globals widest live bodies along x are tested against every
+        body; the others, sorted by their AABB's lower x, each against the
+        next S = min(sap_window or 64, n - 1) in that order, each sorted
+        row keeping at most sap_degree partners.  The rows dropped by that
+        cap, and the window's saturation (a body past the window whose x
+        interval may still overlap), go to CandidateRowsTemporary's
+        overflow counter.
+        mode "auto" is dense up to 192 body rows, sap above."""
         arch = body_archetype
         cap_n = builder.mgr.registry.archetypes[arch.name].capacity
         if mode == "auto":
             mode = "dense" if cap_n <= AUTO_DENSE_BP_MAX_ROWS else "sap"
         if mode not in ("dense", "sap", "fused"):
             raise ValueError(f"unknown broadphase mode {mode!r}")
-        if mode == "sap":
-            _not_ported("broadphase_mode='sap' (and 'auto' above 192 rows)",
-                        "the SAP broadphase")
         if mode == "fused":
             if cap_n > subk.MAX_BP_ROWS:
                 raise ValueError(f"fused broadphase requires body capacity <= "
@@ -440,7 +565,9 @@ class RigidBodyPhysicsSystem:
             _emit_candidates(ctx, arch, counts - excess, ab[..., 1].contiguous(),
                              ab[..., 0].contiguous())
 
-        return builder.add_node(find_overlaps, [n_aabb], name="bp_find_overlaps")
+        node = (_sap_node(arch, W, n, k_cap, dev, sap_window, sap_globals, sap_degree)
+                if mode == "sap" else find_overlaps)
+        return builder.add_node(node, [n_aabb], name="bp_find_overlaps")
 
     @staticmethod
     def setup_substep_tasks(builder: TaskGraphBuilder, deps: Sequence[NodeID],
@@ -468,8 +595,19 @@ class RigidBodyPhysicsSystem:
                     solves them between the positional and velocity
                     phases, as in the JAX package); no contact
                     temporaries.
-          "auto":   "pallas" above 48 body rows, on any device; at 48 or
-                    fewer (the dense mode) it raises.
+          "dense":  one node per substep over the whole [W, n, n] grid of
+                    body pairs (physics/narrowphase.py), gated by the
+                    AABB grid; solver.solve_positions, the joints,
+                    set_velocities, solver.solve_velocities.  The last
+                    substep emits the contact and collision-event
+                    temporaries (all n x n pairs in grid order, lazily).
+                    The worlds run in blocks of at most
+                    DENSE_BLOCK_PAIRS grid pairs (the node's
+                    ``world_block``).
+          "auto":   "dense" at 48 body rows or fewer, "pallas" above, on
+                    any device (the JAX package's thresholds; its
+                    autotuner artifact, written for the TPU, is not
+                    read).
         speculative_margin > 0: speculative-contact CCD (near-miss
         contacts clamp approach speed to depth/h in the velocity pass).
 
@@ -490,7 +628,6 @@ class RigidBodyPhysicsSystem:
                     skips the broadphase and SAT; the others rebuild with
                     AABBs inflated by persist_margin / 2.
         The JAX package's ValueErrors where the options do not compose.
-        contact_mode="dense" raises NotImplementedError (ROADMAP);
         substep_wt (the TPU kernel's world block) must stay None."""
         arch = body_archetype
         cap_n = builder.mgr.registry.archetypes[arch.name].capacity
@@ -498,9 +635,6 @@ class RigidBodyPhysicsSystem:
             contact_mode = "pallas" if cap_n > AUTO_DENSE_MAX_ROWS else "dense"
         if contact_mode not in ("dense", "pairs", "pallas"):
             raise ValueError(f"unknown contact_mode {contact_mode!r}")
-        if contact_mode == "dense":
-            _not_ported("contact_mode='dense' (and 'auto' at 48 rows or fewer)",
-                        "the dense contact mode")
         jinfo = builder.mgr.registry.archetypes.get(JointArchetype.name)
         has_joints = jinfo is not None and jinfo.capacity > 0
         if substep_wt is not None:
@@ -739,6 +873,102 @@ class RigidBodyPhysicsSystem:
             substeps_fused.flag_inputs = flag_inputs
             substeps_fused.kernel = fused_kernel
             return builder.add_node(substeps_fused, list(deps), name=FUSED_NODE)
+
+        if contact_mode == "dense":
+            # the JAX package's dense branch: narrowphase at the integrated
+            # poses over the [W, n, n] grid, gated by the AABB grid; the
+            # positional solve; the joints; velocity recovery; the velocity
+            # solve.  Worlds run in blocks of ``world_block`` (every world's
+            # arithmetic is its own, so any block size gives the same result)
+            np_tables = npk.tables_of(object_manager)
+            n = cap_n
+            block = -(-W // -(-W * n * n // DENSE_BLOCK_PAIRS))
+            k_eff = min(builder.mgr.registry.archetypes[ContactTemporary.name].capacity, n * n)
+
+            def cat(xs):
+                return xs[0] if len(xs) == 1 else torch.cat(xs)
+
+            def make_dense_substep(idx):
+                def substep(ctx: Context):
+                    phys = ctx.singleton(PhysicsState)
+                    h, rthr = phys["h"], phys["restitution_threshold"]
+                    body = body_inputs(ctx)
+                    pos, rot, obj, mask, inv_mass, inv_inertia, mu_s, mu_d, dyn = body
+                    new_pos, new_rot, v, w, prev_pos, prev_rot = integrate_and_stash(ctx, body)
+                    aabb = ctx.column(arch, CollisionAABB)
+                    rest = objtab["restitution"][obj.long()]
+                    blocks = [slice(w0, w0 + block) for w0 in range(0, W, block)]
+                    solved = []
+                    for sl in blocks:
+                        lo, hi = aabb["lo"][sl], aabb["hi"][sl]
+                        cand = m.aabb_overlaps(lo[:, :, None], hi[:, :, None],
+                                               lo[:, None], hi[:, None])
+                        contacts = npk.narrowphase_dense(new_pos[sl], new_rot[sl], obj[sl],
+                                                         mask[sl], np_tables,
+                                                         speculative=speculative_margin)
+                        contacts["ok"] = contacts["ok"] & cand
+                        solved.append((contacts,) + solver_mod.solve_positions(
+                            new_pos[sl], new_rot[sl], contacts, inv_mass[sl], inv_inertia[sl],
+                            mu_s[sl], prev_pos[sl], prev_rot[sl], dyn[sl], relaxation=relaxation))
+                    p2, r2 = solve_joints_at(ctx, cat([b[1] for b in solved]),
+                                             cat([b[2] for b in solved]), dyn, inv_mass,
+                                             inv_inertia)
+                    v2, w2 = solver_mod.set_velocities(p2, r2, prev_pos, prev_rot, h,
+                                                       cat([b[4] for b in solved]))
+                    vel = [solver_mod.solve_velocities(
+                        p2[sl], r2[sl], v2[sl], w2[sl], contacts, lam, inv_mass[sl],
+                        inv_inertia[sl], mu_d[sl], v[sl], w[sl], dyn[sl], h[sl], rthr[sl],
+                        rest_coef=rest[sl], speculative=speculative_margin)
+                        for sl, (contacts, _, _, lam, _) in zip(blocks, solved)]
+                    writeback(ctx, body, p2, r2, cat([x[0] for x in vel]),
+                              cat([x[1] for x in vel]))
+                    if idx == num_substeps - 1:
+                        emit_dense_contacts(ctx, [(b[0], b[3]) for b in solved])
+
+                substep.__name__ = f"physics_substep_{idx}"
+                substep.world_block = block
+                return substep
+
+            def emit_dense_contacts(ctx: Context, solved):
+                """The last substep's contact and collision-event
+                temporaries: the grid's pairs flattened (i * n + j), the
+                contacts first in that order (lax.top_k's order on the ok
+                flags), values built lazily; the counts now, for the
+                overflow counters."""
+                okk = cat([c["ok"].reshape(-1, n * n) for c, _ in solved])
+                counts = okk.sum(dim=1, dtype=torch.int32)
+                ents = ctx.entity_column(arch)
+                memo = {}
+
+                def selected():
+                    if "v" not in memo:
+                        pidx = _stable_topk_rows(okk, k_eff)
+
+                        def g(key, width=()):
+                            x = cat([c[key].reshape((-1, n * n) + width) for c, _ in solved])
+                            return batched_gather(x, pidx)
+
+                        a_ent = batched_gather(ents, pidx // n)
+                        b_ent = batched_gather(ents, pidx % n)
+                        lam = cat([lm.reshape(-1, n * n, 4) for _, lm in solved])
+                        memo["v"] = (a_ent, b_ent, {
+                            "ref": a_ent, "alt": b_ent,
+                            "points": torch.cat([g("points", (4, 3)),
+                                                 g("depth", (4,))[..., None]], -1),
+                            "num_points": g("num_points"), "normal": g("normal", (3,)),
+                            "lambda_n": batched_gather(lam, pidx)})
+                    return memo["v"]
+
+                ctx.emit_temporaries(CollisionEventTemporary, counts=counts, width=k_eff,
+                                     values=lambda: {CollisionEvent: {"a": selected()[0],
+                                                                      "b": selected()[1]}})
+                ctx.emit_temporaries(ContactTemporary, counts=counts, width=k_eff,
+                                     values=lambda: {ContactConstraint: selected()[2]})
+
+            last = list(deps)
+            for i in range(num_substeps):
+                last = [builder.add_node(make_dense_substep(i), last)]
+            return last[0]
 
         tables = pk.ObjTables(object_manager)
 

@@ -20,7 +20,12 @@ the render kernel's hit mask exact, depth and float rgb atol 1e-5, a
 repeat bit-identical; its views mode bit for bit the node's route through
 the rays mode, the node one launch), and the collisions, simple_jobs, rigid_bench (also
 its settled pile) and simple_taskgraph slices on the card against the
-same slices on the CPU (plain versions), positions atol 1e-4.
+same slices on the CPU (plain versions), positions atol 1e-4.  The sap
+broadphase's node on the card exactly equal to the CPU's (a pile and a
+tie grid), kernel 7 on sap's candidates against its plain version, a
+dense-mode step on the card against the CPU (poses 1e-4, velocities 1e-3)
+and bit-identical when repeated, and a dense and a sap step waiting for
+nothing.
 """
 
 import numpy as np
@@ -40,6 +45,7 @@ from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
 from gpu_ecs_madrona_tpu_torch.physics import RigidBodyPhysicsSystem
 
 import test_torch_render_scenes as scenes
+import test_torch_sap_cases as sap_cases
 import test_torch_simple_jobs_cases as sj_cases
 from test_torch_joint_scenes import joint_world, random_joints
 
@@ -1229,3 +1235,110 @@ def test_occupancy_is_exported(card):
     # kernel 5's node launch at simple_taskgraph's shape: three worlds an SM
     threads, blocks = subk.occupancy(104, 1000, single=True, joints=64)
     assert threads == subk.substep_threads(104, 1000) and blocks >= 3
+
+
+# -- the sap broadphase and the dense contact mode ------------------------------
+
+
+def sap_pair(card, W=64, n=200, grid=False):
+    """rigid_bench with the sap broadphase ("auto" above 192 rows) on the
+    card and on the CPU, the card's from the CPU's initial state (on a
+    grid with ``grid``) after 3 steps on the CPU."""
+    cfg = rb.RigidBenchConfig(num_worlds=W, num_bodies=n, contact_mode="pallas", seed=3)
+    cpu = rb.make_executor(cfg, device="cpu")
+    if grid:
+        cpu.state = state_from_numpy(sap_cases.set_grid(state_to_numpy(cpu.state)), "cpu")
+    cpu.run(3)
+    gpu = rb.make_executor(cfg, device="cuda")
+    gpu.state = state_from_numpy(state_to_numpy(cpu.state), card)
+    return cpu, gpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [False, True], ids=["pile", "tie_grid"])
+def test_sap_on_card_matches_cpu(card, grid):
+    """The sap node on the card and on the CPU from one state (the AABBs
+    made on the card): candidate rows, handles, masks and overflow
+    exactly equal, the tie grid too."""
+    cpu, gpu = sap_pair(card, grid=grid)
+    state = sap_cases.aabb_state(gpu)
+    a, b = sap_cases.sap_outputs(cpu, state), sap_cases.sap_outputs(gpu, state)
+    assert int(a["rows"]["mask"].sum()) > 64
+    assert sap_cases.differing(a, b) == 0
+
+
+@pytest.mark.cuda
+def test_fused_substep_matches_plain_at_sap_state(card):
+    """Kernel 7 (K = 800 > 128) on sap's candidates, in sap's order,
+    against its plain version; a repeat bit-identical."""
+    _, gpu = sap_pair(card, W=32)
+    kw = fused_inputs(gpu)
+    assert kw["rows_i"].shape[1] == 800 and int(kw["kvalid"].sum()) > 32 * 100
+    kern = subk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
+    got, again = kern(**kw), kern(**kw)
+    want = kern.plain(**kw)
+    torch.cuda.synchronize()
+    assert subk.FusedSubstepKernel.launches == 2
+    for k in subk.OUT_KEYS:
+        assert torch.isfinite(got[k]).all(), k
+        torch.testing.assert_close(got[k], want[k], rtol=0,
+                                   atol=1e-4 if k in POSE_KEYS else 1e-3, msg=k)
+        assert torch.equal(got[k], again[k]), k
+
+
+def dense_pair(card, W=64, n=32):
+    """rigid_bench in the dense contact mode ("auto" at 33 rows) on the CPU
+    after 3 steps, and on the card from that state."""
+    cfg = rb.RigidBenchConfig(num_worlds=W, num_bodies=n, contact_mode="auto", seed=3,
+                              spawn_xy=3.0, spawn_h=4.0)
+    cpu = rb.make_executor(cfg, device="cpu")
+    cpu.run(3)
+    gpu = rb.make_executor(cfg, device="cuda")
+    gpu.state = state_from_numpy(state_to_numpy(cpu.state), card)
+    return cpu, gpu
+
+
+@pytest.mark.cuda
+def test_dense_step_on_card_matches_cpu(card):
+    """One dense-mode step on the card and on the CPU from one state:
+    poses 1e-4, velocities 1e-3; the step repeated on the card from that
+    state bit-identical; no kernel launched."""
+    cpu, gpu = dense_pair(card)
+    start = state_to_numpy(gpu.state)
+    cpu.step()
+    gpu.step()
+    first = state_to_numpy(gpu.state)
+    gpu.state = state_from_numpy(start, card)
+    gpu.step()
+    again = state_to_numpy(gpu.state)
+    assert subk.FusedSubstepKernel.launches == 0 and subk.SubstepKernel.launches == 0
+    a = state_to_numpy(cpu.state)["arch"]["RigidBenchBody"]["comps"]
+    b = first["arch"]["RigidBenchBody"]["comps"]
+    for comp, tol in (("Position", 1e-4), ("Rotation", 1e-4), ("Velocity", 1e-3)):
+        for f in a[comp]:
+            np.testing.assert_allclose(b[comp][f], a[comp][f], atol=tol, rtol=0,
+                                       err_msg=f"{comp}.{f}")
+    for x, y in zip(sap_cases.leaves(first["arch"]), sap_cases.leaves(again["arch"])):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "sap"])
+def test_dense_and_sap_steps_wait_for_nothing(card, mode):
+    """A dense-mode step and a sap step (with the fused kernel) queue their
+    work and return: no operation makes the host wait for the card."""
+    if mode == "dense":
+        cfg = rb.RigidBenchConfig(num_worlds=16, num_bodies=32, contact_mode="auto")
+    else:
+        cfg = rb.RigidBenchConfig(num_worlds=16, num_bodies=200, contact_mode="pallas")
+    sim = rb.make_executor(cfg, device="cuda")
+    sim.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            sim.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert subk.FusedSubstepKernel.launches == (0 if mode == "dense" else 4)

@@ -153,6 +153,18 @@ def test_contact_temporaries_match_jax():
     tables (built lazily in the port): masks, handles and point counts
     exact, points, depths, normals and lambdas atol 1e-4 on live rows.
     One substep (the JAX side runs eagerly so the observer sees values)."""
+    temporaries_match_jax("pairs")
+
+
+def test_dense_contact_temporaries_match_jax():
+    """The dense contact mode's tables (the grid's n x n pairs, the
+    contacts first in grid order), as in the pairs mode."""
+    temporaries_match_jax("dense")
+
+
+def temporaries_match_jax(mode):
+    """Both packages' contact and event tables after one substep of
+    ``mode`` from one pile state, compared as the tests above say."""
     from gpu_ecs_madrona_tpu.core.taskgraph import NodeID as JNodeID
     from gpu_ecs_madrona_tpu.physics import CollisionEventTemporary as JEv
     from gpu_ecs_madrona_tpu.physics import ContactTemporary as JCt
@@ -163,11 +175,11 @@ def test_contact_temporaries_match_jax():
     from gpu_ecs_madrona_tpu_torch.physics.components import CollisionEvent, ContactConstraint
     jseen, pseen = [], []
     jw = _observed(jrb.RigidBenchWorld.with_config(jrb.RigidBenchConfig(
-        contact_mode="pairs", max_candidates=128, num_substeps=1, **PILE)),
+        contact_mode=mode, max_candidates=128, num_substeps=1, **PILE)),
         [(JCt, JCC), (JEv, JCE)],
         JNodeID, jseen)
     pw = _observed(rb.RigidBenchWorld.with_config(rb.RigidBenchConfig(
-        contact_mode="pairs", max_candidates=128, num_substeps=1, **PILE)),
+        contact_mode=mode, max_candidates=128, num_substeps=1, **PILE)),
         [(ContactTemporary, ContactConstraint), (CollisionEventTemporary, CollisionEvent)],
         NodeID, pseen)
     jsim = JTaskGraphExecutor(jw, JExecutorConfig(num_worlds=4, max_entities_per_world=28,

@@ -1,5 +1,7 @@
 """The reference engine binary's physics goldens through the port alone (no
-JAX), in both contact modes, and the options the port does not run yet.
+JAX), in both contact modes, and the options that raised until the dense
+contact mode and the sap broadphase were ported (each builds, resolves to
+its nodes and steps; "auto"'s thresholds at 48 and 192 body rows).
 
 tests/goldens/*.bin are trajectories of the reference's BVH broadphase ->
 SAT narrowphase -> XPBD solver (tools/ref_golden/golden_gen; see
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from gpu_ecs_madrona_tpu_torch import physics as phys
 from gpu_ecs_madrona_tpu_torch.core import base
 from gpu_ecs_madrona_tpu_torch.core.component import Archetype
 from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExecutor
@@ -189,27 +192,63 @@ def test_golden_free_fall_bitexact(mode):
     assert np.abs(mine[:fc - 1] - golden[:fc - 1]).max() <= 1e-5
 
 
-# -- what is not ported yet raises, naming its ROADMAP item ------------------
+# -- the options that raised until the dense contact mode and sap were ported
 
 
-def _bench(**kw):
-    return lambda: rb.make_executor(rb.RigidBenchConfig(num_worlds=1, num_bodies=4, **kw),
-                                    device="cpu")
+def _bench(num_bodies=4, **kw):
+    return rb.make_executor(rb.RigidBenchConfig(num_worlds=1, num_bodies=num_bodies, **kw),
+                            device="cpu")
 
 
-NOT_PORTED = {
-    "contact_mode=dense": _bench(contact_mode="dense"),
-    "auto at 48 rows or fewer": _bench(contact_mode="auto"),
-    "broadphase sap": _bench(contact_mode="pallas", broadphase_mode="sap"),
-    "auto broadphase above 192 rows": lambda: rb.make_executor(rb.RigidBenchConfig(
-        num_worlds=1, num_bodies=200, contact_mode="pallas"), device="cpu"),
+def _node(sim, name):
+    return next(nd for nd in sim.graph.nodes if nd.name == name).run
+
+
+# what: (configuration, substep route, broadphase node)
+FORMERLY_UNPORTED = {
+    "contact_mode=dense": (dict(contact_mode="dense"), "dense", "find_overlaps"),
+    "auto at 48 rows or fewer": (dict(contact_mode="auto", num_bodies=47), "dense",
+                                 "find_overlaps"),
+    "broadphase sap": (dict(contact_mode="pallas", broadphase_mode="sap"), "fused",
+                       "find_overlaps_sap"),
+    "auto broadphase above 192 rows": (dict(contact_mode="pallas", num_bodies=192), "fused",
+                                       "find_overlaps_sap"),
 }
 
 
-@pytest.mark.parametrize("what", sorted(NOT_PORTED))
-def test_not_ported_options_raise(what):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NOT_PORTED[what]()
+@pytest.mark.parametrize("what", sorted(FORMERLY_UNPORTED))
+def test_formerly_unported_options_build(what):
+    """Each configuration that raised NotImplementedError before the dense
+    contact mode and sap were ported builds, resolves to its nodes and
+    steps: the dense mode's per-substep nodes (with their world block) or
+    the fused kernel's node, the dense or the sap broadphase node."""
+    cfg, route, bp = FORMERLY_UNPORTED[what]
+    sim = _bench(**cfg)
+    assert _node(sim, "bp_find_overlaps").__name__ == bp
+    if route == "dense":
+        assert phys.FUSED_NODE not in sim.graph.node_names
+        assert _node(sim, "physics_substep_3").world_block == 1
+    else:
+        assert "physics_substep_0" not in sim.graph.node_names
+        assert _node(sim, phys.FUSED_NODE).kernel is not None
+    sim.step()
+    pos, mask = sim.get_exported(0)
+    assert bool(pos[mask].isfinite().all())
+
+
+@pytest.mark.parametrize("bodies,route", [(47, "dense"), (48, "fused")])
+def test_auto_contact_mode_threshold(bodies, route):
+    """contact_mode="auto": dense at 48 body rows (47 bodies and the
+    plane), the fused kernel at 49."""
+    names = _bench(num_bodies=bodies, contact_mode="auto").graph.node_names
+    assert (phys.FUSED_NODE in names) == (route == "fused")
+
+
+@pytest.mark.parametrize("bodies,bp", [(191, "find_overlaps"), (192, "find_overlaps_sap")])
+def test_auto_broadphase_threshold(bodies, bp):
+    """broadphase_mode="auto": the dense grid at 192 body rows, sap at 193."""
+    assert _node(_bench(num_bodies=bodies, contact_mode="pallas"),
+                 "bp_find_overlaps").__name__ == bp
 
 
 @pytest.mark.parametrize("spawn,body_mix", [("uniform", "alternate"), ("grid", "boxes")])

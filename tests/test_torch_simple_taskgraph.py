@@ -152,6 +152,14 @@ def test_port_spawn():
 
 @pytest.mark.parametrize("num_objects", [10, 44])
 def test_dense_contact_mode_raises(num_objects):
-    with pytest.raises(NotImplementedError, match="ROADMAP: the dense contact mode"):
-        stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=1, num_objects=num_objects),
-                          device="cpu")
+    """At 48 body rows or fewer the example takes the dense contact mode,
+    which raised NotImplementedError until it was ported: now it builds
+    its dense substep nodes and steps (tests/test_torch_simple_taskgraph_
+    dense.py holds it against JAX)."""
+    sim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=1, num_objects=num_objects),
+                            device="cpu")
+    nodes = [nd for nd in sim.graph.nodes if nd.name.startswith("physics_substep_")]
+    assert len(nodes) == 4 and all(hasattr(nd.run, "world_block") for nd in nodes)
+    sim.step()
+    pos, mask = sim.get_exported(2)
+    assert int(mask.sum()) == num_objects and bool(pos[mask].isfinite().all())
