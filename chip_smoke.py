@@ -9,7 +9,8 @@ in the fused kernel, and the settled pile with its options; at 32 bodies
 in the dense contact mode, and at 200 with the sap broadphase) and simple_taskgraph
 (physics and the batch renderer) at 1024 worlds x 100 spheres with 64 x 64
 RGB and depth — through every kernel they run, and holds every kernel
-against its plain PyTorch version.
+against its plain PyTorch version; and trains the PPO learner on
+fantasy_vs at 16384 worlds (the RL training path, which runs no kernel).
 Run from the root of a checkout:
 
     python3 chip_smoke.py            # the smoke test
@@ -48,6 +49,22 @@ Phases:
            replayed in scripted mode on the card: masks and arrows exact,
            hp and mana atol 1e-3, action atol 1e-4, positions atol 1e-5,
            at least one death
+  parity_learner   one PPO train step of the CPU tests' scripted RL
+           world (tests/test_torch_rl_cases.py: 8 worlds x (3 + 6), 2
+           epochs, 4 minibatches, observation normalisation, done every
+           third tick) on the card and on the CPU from the same numpy
+           parameters and draws: the largest differences of the loss
+           (rtol 2e-4), mean reward (1e-6), parameters (atol lr / 4, the
+           update as a whole 5e-3), Adam moments (2e-2 of each leaf's
+           largest entry), step count and observation statistics (1e-5;
+           the count exact): LEARNER_TOL, whose comment says why
+  parity_reset   the reset tests' worlds (start heights from a table, and
+           from each world's generator stream), 40 steps of 1024 worlds on
+           the card and on the CPU: positions, masks and ticks equal, at
+           least 3 resets a world
+  bindings   exported_tensor(...).to_torch() on the card is the column
+           (its data_ptr); an injected z round-trips through set_exported
+           and a collisions step (8192 worlds); to_numpy copies
   parity_sap   the sap broadphase node (rigid_bench at 8192 x 201 rows,
            "auto" above 192, after 3 steps on the card, its AABBs made on
            the card; and that state with its bodies on an unrotated grid of
@@ -96,6 +113,15 @@ Phases:
   main_fantasy_vs   16384 worlds x 50 dragons + 200 knights, cleanup on, 3
            warm-up steps then 5 windows of 50; live counts never rise,
            overflow counters 0, finite positions
+  main_ppo_fantasy_vs   PPOLearner on fantasy_vs at 16384 worlds x (50 +
+           200), cleanup on (obs 1250, actions 600), hidden 128, rollout 16,
+           2 epochs, 2 minibatches, observation normalisation: one untimed
+           train step, 5 timed (each ended by a synchronise), 2 with the
+           rollout and the update timed apart (CUDA events), one under
+           torch.cuda.set_sync_debug_mode("error"); train steps/s, training
+           env-steps/s (W x 16 / s), peak memory; no kernel launched, loss
+           and reward finite, the parameters changed, norm count 1e-4 +
+           steps x 16 x W (float32)
   main_rigid     rigid_bench defaults, 8192 x 64, K=256, the fused
            substep kernel: 3 warm-up steps then 5 windows of 50; launches =
            steps, finite positions, empty temporaries after each window;
@@ -1879,6 +1905,164 @@ def main_simple_taskgraph(torch, stg, steps, count, card, reset_counts, read_cou
                  "env_steps_per_s": rates(steps, wins, STG_WORLDS), "card": card}
 
 
+def rl_cases():
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_rl_cases
+    return test_torch_rl_cases
+
+
+def parity_learner(torch):
+    """One PPO train step of the CPU tests' scripted RL world on the card
+    and on the CPU, from the same parameters and draws (made once with
+    numpy, moved to each device): the largest differences, gated at the
+    CPU test's tolerances."""
+    cases = rl_cases()
+    cpu = cases.rl_train_step("cpu")
+    card = cases.rl_train_step("cuda")
+    diff = cases.rl_card_vs_cpu(card, cpu)
+    over = cases.within(diff, cases.LEARNER_TOL)
+    line = {"phase": "parity_learner", "worlds": cases.RL_WORLDS, "ppo": cases.RL_PPO,
+            "loss": {"card": card[0], "cpu": cpu[0]},
+            "mean_reward": {"card": card[1], "cpu": cpu[1]},
+            "max_abs_err": diff, "tolerance": cases.LEARNER_TOL}
+    check(not over, f"the learner on the card vs the CPU, over tolerance: {over}")
+    check(cpu[1] > 0, "the learner case deals rewards")
+    return line
+
+
+def parity_reset(torch):
+    """The reset tests' worlds (a table of start heights; start heights
+    from each world's generator stream), 40 steps of 1024 worlds on the
+    card and on the CPU: positions, masks and ticks equal."""
+    cases = rl_cases()
+    out = {}
+    for name, world in (("table", cases.PORT_TABLE), ("random", cases.PORT_RANDOM)):
+        cpu = cases.reset_run(world, "cpu", 40, num_worlds=1024)
+        gpu = cases.reset_run(world, "cuda", 40, num_worlds=1024)
+        differing = [int((a != b).sum()) for a, b in zip(gpu, cpu)]
+        resets = int((cpu[2][1:] == 1).sum())
+        out[name] = {"differing": dict(zip(("positions", "masks", "ticks"), differing)),
+                     "resets": resets}
+        check(sum(differing) == 0, f"reset world {name}: card vs CPU {differing}")
+        check(resets >= 3 * 1024, f"reset world {name}: {resets} resets")
+    return {"phase": "parity_reset", "worlds": 1024, "steps": 40, **out}
+
+
+def bindings_phase(torch, col, bindings):
+    """The Tensor hand-off on the card: to_torch is the column itself (its
+    data_ptr), an injected action round-trips through set_exported and a
+    step."""
+    sim = col.make_executor(col.CollisionsConfig(num_worlds=NUM_WORLDS), device="cuda")
+    t = bindings.exported_tensor(sim, 0)
+    tt = t.to_torch()
+    column = sim.mgr.column(sim.state, col.CubeObject, col.Translation)
+    check(tt.device == column.device and tt.data_ptr() == column.data_ptr(), "to_torch shares the column")
+    actions = tt.clone()
+    actions[:, :, 2] = 5.0
+    sim.set_exported(0, bindings.Tensor.from_torch(actions))
+    sim.step()
+    t2 = bindings.exported_tensor(sim, 0).sync()
+    dz = float((t2.values[t2.mask][:, 2] - 5.0).abs().max())
+    check(dz < 2.0, f"the injected z after a step ({dz})")
+    host = t2.to_numpy()
+    check(float(abs(host - t2.values.cpu().numpy()).max()) == 0.0, "to_numpy copies the column")
+    return {"phase": "bindings", "worlds": NUM_WORLDS, "same_storage": True,
+            "shape": list(t.shape), "dtype": str(t.dtype),
+            "injected_z_max_abs_dev_after_step": dz}
+
+
+def main_ppo_fantasy_vs(torch, fvs, learner_mod, smi, reset_counts, read_counts,
+                        timed=5, by_part=2):
+    """PPO on fantasy_vs at 16384 worlds x (50 + 200), cleanup on, the JAX
+    learner's defaults with the options of __graft_entry__.dryrun_multichip
+    (2 epochs, 2 minibatches, observation normalisation): one untimed train
+    step, ``timed`` timed ones (each ended by a synchronise), ``by_part``
+    with the rollout and the update timed apart (CUDA events), one under
+    the sync-debug mode "error"."""
+    import numpy as np
+    cfg = fvs.FantasyVsConfig(num_worlds=FVS_WORLDS, num_dragons=50, num_knights=200,
+                              cleanup=True)
+    sim, obs_fn, inject_fn, reward_fn, obs_dim, act_dim = fvs.make_rl_env(cfg, device="cuda")
+    pcfg = learner_mod.PPOConfig(obs_dim=obs_dim, act_dim=act_dim, epochs=2,
+                                 num_minibatches=2, normalize_obs=True)
+    learner = learner_mod.PPOLearner(pcfg, sim.graph.step, obs_fn, inject_fn, reward_fn,
+                                     seed=0, device="cuda")
+    start = {k: v.clone() for k, v in learner.params.items()}
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = sim.state
+    t0 = time.perf_counter()
+    state, loss, rew = learner.train_step(state)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    step_s, losses, rewards = [], [float(loss)], [float(rew)]
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        state, loss, rew = learner.train_step(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        rewards.append(float(rew))
+    rollout_ms, update_ms = [], []
+    for _ in range(by_part):
+        eps, perms = learner.draws(FVS_WORLDS)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        state, traj, last_value = learner.rollout(state, learner.params, learner.norm, eps)
+        ev[1].record()
+        loss, rew = learner.learn(traj, last_value, perms)
+        ev[2].record()
+        del traj
+        torch.cuda.synchronize()
+        rollout_ms.append(ev[0].elapsed_time(ev[1]))
+        update_ms.append(ev[1].elapsed_time(ev[2]))
+        losses.append(float(loss))
+        rewards.append(float(rew))
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        state, loss, rew = learner.train_step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sync_debug_s = time.perf_counter() - t0
+    losses.append(float(loss))
+    rewards.append(float(rew))
+    steps = 1 + timed + by_part + 1
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts()
+    check(all(v == 0 for v in launches.values()), f"PPO on fantasy_vs launched {launches}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(rewards)), "finite loss and reward")
+    check(any(not torch.equal(start[k], v) for k, v in learner.params.items()),
+          "the parameters changed")
+    want = np.float32(1e-4)
+    for _ in range(steps):   # the learner's float32 running count
+        want = np.float32(want + np.float32(pcfg.rollout_len * FVS_WORLDS))
+    count = float(learner.norm["count"])
+    check(count == float(want), f"norm count {count} != {float(want)}")
+    check(all(bool(torch.isfinite(v).all()) for v in learner.params.values()),
+          "finite parameters")
+    med = sorted(step_s)[len(step_s) // 2]
+    return {"phase": "main_ppo_fantasy_vs", "worlds": FVS_WORLDS, "dragons": 50,
+            "knights": 200, "cleanup": True, "obs_dim": obs_dim, "act_dim": act_dim,
+            "ppo": {k: getattr(pcfg, k) for k in ("hidden", "rollout_len", "epochs",
+                                                  "num_minibatches", "normalize_obs")},
+            "samples_per_step": pcfg.rollout_len * FVS_WORLDS, "train_steps": steps,
+            "launches": launches, "first_step_s": first_s, "step_s": step_s,
+            "train_steps_per_s": {"median": 1.0 / med, "min": 1.0 / max(step_s),
+                                  "max": 1.0 / min(step_s)},
+            "env_steps_per_s": {"median": FVS_WORLDS * pcfg.rollout_len / med,
+                                "min": FVS_WORLDS * pcfg.rollout_len / max(step_s),
+                                "max": FVS_WORLDS * pcfg.rollout_len / min(step_s)},
+            "rollout_device_ms": rollout_ms, "update_device_ms": update_ms,
+            "peak_allocated_gib": peak / 2 ** 30,
+            "peak_over_start_gib": (peak - base_bytes) / 2 ** 30,
+            "loss": losses, "mean_reward": rewards, "norm_count": count,
+            "sync_debug_step_s": sync_debug_s, "card": smi}
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -1901,6 +2085,8 @@ def main(argv):
     from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
     from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
     from gpu_ecs_madrona_tpu_torch.utils import math as m
+    from gpu_ecs_madrona_tpu_torch import bindings
+    from gpu_ecs_madrona_tpu_torch.parallel import learner as learner_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -2032,6 +2218,12 @@ def main(argv):
     emit({"phase": "golden", **golden})
     emit(golden_fvs(torch, fvs))
 
+    # the RL training path: the learner and the reset node on the card vs
+    # the CPU, the Tensor hand-off on the card
+    emit(parity_learner(torch))
+    emit(parity_reset(torch))
+    emit(bindings_phase(torch, col, bindings))
+
     # the sap node on the card vs the CPU, and a dense-mode step likewise
     line, sap_sim = parity_sap(torch, rb, phys)
     emit(line)
@@ -2162,6 +2354,9 @@ def main(argv):
           "destroyed_in_windows": {"Dragon": int((first[0] - before[0]).sum()),
                                    "Knight": int((first[1] - before[1]).sum())},
           "env_steps_per_s": rates(50, fvs_windows, FVS_WORLDS), "card": smi})
+
+    # PPO on fantasy_vs, 16384 worlds (BASELINE configs 4-5) ---------------------
+    emit(main_ppo_fantasy_vs(torch, fvs, learner_mod, smi, reset_counts, read_counts))
 
     # rigid_bench, 8192 x 64: the fused substep kernel at K = 256 and 128, and
     # the pairs path -------------------------------------------------------------

@@ -23,6 +23,7 @@ from gpu_ecs_madrona_tpu_torch.core.state import StateManager, SimState
 from gpu_ecs_madrona_tpu_torch.core.context import Context
 from gpu_ecs_madrona_tpu_torch.core.taskgraph import TaskGraph, TaskGraphBuilder, NodeID
 from gpu_ecs_madrona_tpu_torch.core.executor import TaskGraphExecutor, ExecutorConfig
+from gpu_ecs_madrona_tpu_torch.core.world import World, system
 
 __version__ = "0.1.0"
 
@@ -42,4 +43,6 @@ __all__ = [
     "NodeID",
     "TaskGraphExecutor",
     "ExecutorConfig",
+    "World",
+    "system",
 ]

@@ -216,6 +216,10 @@ class LazyRows(Mapping):
         self._build = build
         self._rows = None
 
+    @property
+    def built(self) -> bool:
+        return self._rows is not None
+
     def _get(self):
         if self._rows is None:
             self._rows = self._build()

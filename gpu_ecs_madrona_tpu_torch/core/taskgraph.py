@@ -13,13 +13,14 @@ the live-row mask gates the write-back.
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from gpu_ecs_madrona_tpu_torch.core.component import Archetype, Component
 from gpu_ecs_madrona_tpu_torch.core.context import Context
-from gpu_ecs_madrona_tpu_torch.core.state import SimState, StateManager, mix64
+from gpu_ecs_madrona_tpu_torch.core.state import LazyRows, SimState, StateManager, mix64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +76,7 @@ class TaskGraphBuilder:
       ClearTmpNode        -> clear_tmp_node
       ResetTmpAllocNode   -> reset_tmp_alloc_node (a no-op node: temporaries
                              are fixed-capacity archetypes)
+      (no reference node) -> reset_node (per-world episode auto-reset)
     """
 
     def __init__(self, mgr: StateManager):
@@ -170,6 +172,44 @@ class TaskGraphBuilder:
 
         return self.add_node(clear, deps, name=f"clear_{arch.name}")
 
+    # -- episode reset -------------------------------------------------------
+
+    def reset_node(
+        self,
+        condition_fn: Callable[[Context], torch.Tensor],
+        init_fn: Callable[[Context], None],
+        deps: Sequence[NodeID] = (),
+        name: str = "episode_reset",
+    ) -> NodeID:
+        """Per-world episode auto-reset (the RL pattern the reference leaves
+        to user code): worlds where ``condition_fn(ctx) -> [W] bool`` is
+        True are rebuilt by running ``init_fn`` (normally the world class's
+        ``init``) on a pristine state.
+
+        Each reset world's fresh generator stream derives from a key drawn
+        from its running stream, so episodes differ across resets and
+        worlds while the whole run stays deterministic by seed (the draws
+        are the port's, not the JAX package's).  Other worlds are
+        untouched (a per-leaf ``torch.where`` on the worlds axis, no host
+        sync: ``init_fn`` runs every step).  Reset worlds restart at tick 0.
+        Lazily emitted rows stay lazy: their merge is built when read.
+        """
+        mgr = self.mgr
+        pristine = []   # the initial state, made once (no op writes it)
+
+        def run(ctx: Context):
+            done = condition_fn(ctx)
+            keys = ctx.rng_one()
+            if not pristine:
+                pristine.append(mgr.make_initial_state(seed=0))
+            fresh = dict(pristine[0])
+            fresh["rng"] = torch.stack([mix64(keys), torch.zeros_like(keys)], dim=1)
+            fctx = Context(mgr, fresh)
+            init_fn(fctx)
+            ctx.set_state(_merge_worlds(done, ctx.state, fctx.state))
+
+        return self.add_node(run, deps, name=name)
+
     def reset_tmp_alloc_node(self, deps: Sequence[NodeID] = ()) -> NodeID:
         """reference ResetTmpAllocNode (taskgraph.hpp:115-123) — no bump
         allocator to reset; kept as an explicit no-op for graph parity."""
@@ -208,6 +248,23 @@ class TaskGraphBuilder:
 def _masked(mask, new, old):
     new = torch.as_tensor(new, dtype=old.dtype, device=old.device)
     return torch.where(mask.reshape(mask.shape + (1,) * (old.ndim - 2)), new, old)
+
+
+def _merge_worlds(done: torch.Tensor, cur, ini):
+    """``ini``'s worlds where ``done`` [W] is set and ``cur``'s elsewhere,
+    leaf by leaf (every state leaf has a leading worlds axis).  A key that
+    only ``cur`` holds (user data a node added) keeps its value; a leaf
+    both sides share is kept as it is; rows that either side has not built
+    yet are merged when they are read."""
+    if isinstance(cur, torch.Tensor):
+        if cur is ini:
+            return cur
+        return torch.where(done.reshape(done.shape + (1,) * (cur.ndim - 1)), ini, cur)
+    if not isinstance(cur, Mapping):
+        return cur
+    if any(isinstance(s, LazyRows) and not s.built for s in (cur, ini)):
+        return LazyRows(lambda: _merge_worlds(done, dict(cur), dict(ini)))
+    return {k: (_merge_worlds(done, v, ini[k]) if k in ini else v) for k, v in cur.items()}
 
 
 class TaskGraph:

@@ -356,11 +356,13 @@ def _executor(world, cfg: FantasyVsConfig, init_data, device):
         init_data=init_data)
 
 
-def make_rl_env(cfg: FantasyVsConfig = FantasyVsConfig(), device: str = "cuda"):
+def make_rl_env(cfg: FantasyVsConfig = FantasyVsConfig(), device: str = "cuda",
+                init_data=None):
     """(executor, obs_fn, inject_fn, reward_fn, obs_dim, act_dim) for a
-    learner: obs [W, 5 nd + 5 nk], actions [W, 3 nk], reward = the damage
-    dealt to dragons this step / 100."""
-    sim = _executor(FantasyVsRLWorld, cfg, None, device)
+    learner (``parallel.learner.PPOLearner``): obs [W, 5 nd + 5 nk],
+    actions [W, 3 nk], reward = the damage dealt to dragons this step / 100.
+    ``init_data`` holds the script tables when ``cfg.scripted``."""
+    sim = _executor(FantasyVsRLWorld, cfg, init_data, device)
     mgr = sim.mgr
     nd, nk = cfg.num_dragons, cfg.num_knights
 

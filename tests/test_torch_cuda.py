@@ -25,16 +25,21 @@ broadphase's node on the card exactly equal to the CPU's (a pile and a
 tie grid), kernel 7 on sap's candidates against its plain version, a
 dense-mode step on the card against the CPU (poses 1e-4, velocities 1e-3)
 and bit-identical when repeated, and a dense and a sap step waiting for
-nothing.
+nothing.  The RL training path: one PPO train step on the card against
+the CPU from the same parameters and draws (tests/test_torch_rl_cases.py's
+tolerances), a train step waiting for nothing, the exported columns
+handed off zero-copy, and the reset worlds on the card equal to the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from gpu_ecs_madrona_tpu_torch.bindings import Tensor, exported_tensor
 from gpu_ecs_madrona_tpu_torch.core.state import entity_rows
 from gpu_ecs_madrona_tpu_torch.interop import state_from_numpy, state_to_numpy
 from gpu_ecs_madrona_tpu_torch.models import collisions as col
+from gpu_ecs_madrona_tpu_torch.models import fantasy_vs as fvs
 from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
 from gpu_ecs_madrona_tpu_torch.models import simple_jobs as sj
 from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
@@ -42,9 +47,11 @@ from gpu_ecs_madrona_tpu_torch.ops import collision_kernel as ck
 from gpu_ecs_madrona_tpu_torch.ops import render_kernel as rk
 from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
 from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
+from gpu_ecs_madrona_tpu_torch.parallel import learner as pl
 from gpu_ecs_madrona_tpu_torch.physics import RigidBodyPhysicsSystem
 
 import test_torch_render_scenes as scenes
+import test_torch_rl_cases as rl_cases
 import test_torch_sap_cases as sap_cases
 import test_torch_simple_jobs_cases as sj_cases
 from test_torch_joint_scenes import joint_world, random_joints
@@ -1342,3 +1349,82 @@ def test_dense_and_sap_steps_wait_for_nothing(card, mode):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert subk.FusedSubstepKernel.launches == (0 if mode == "dense" else 4)
+
+
+# -- the RL training path --------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_learner_on_card_matches_cpu(card):
+    """One train step of the scripted RL world on the card and on the CPU
+    from the same parameters and draws: loss, mean reward, parameters,
+    Adam state and observation statistics within the train step's
+    tolerances against JAX (tests/test_torch_rl_cases.py LEARNER_TOL)."""
+    cpu = rl_cases.rl_train_step("cpu")
+    card_ = rl_cases.rl_train_step("cuda")
+    diff = rl_cases.rl_card_vs_cpu(card_, cpu)
+    assert not rl_cases.within(diff, rl_cases.LEARNER_TOL), diff
+    assert cpu[1] > 0                   # rewards were dealt
+
+
+@pytest.mark.cuda
+def test_train_step_waits_for_nothing(card):
+    """A train step (rollout, GAE, minibatched epochs, Adam, observation
+    statistics) queues its work and returns: no operation in it makes the
+    host wait for the card."""
+    sim, obs_fn, inject_fn, reward_fn, obs_dim, act_dim = fvs.make_rl_env(
+        fvs.FantasyVsConfig(num_worlds=16, num_dragons=3, num_knights=6, seed=4),
+        device="cuda")
+    learner = pl.PPOLearner(pl.PPOConfig(obs_dim=obs_dim, act_dim=act_dim, **rl_cases.RL_PPO),
+                            sim.graph.step, obs_fn, inject_fn, reward_fn,
+                            done_fn=rl_cases.done_fn, device="cuda")
+    state, _, _ = learner.train_step(sim.state)
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in learner.params.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, loss, rew = learner.train_step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert loss.device.type == "cuda" and torch.isfinite(loss) and torch.isfinite(rew)
+    assert any(not torch.equal(before[k], v) for k, v in learner.params.items())
+    assert float(learner.norm["count"]) == pytest.approx(1e-4 + 3 * 4 * 16, rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_bindings_zero_copy_on_card(card):
+    """exported_tensor(...).to_torch() on the card is the column itself;
+    an injected action round-trips through set_exported and a step."""
+    sim = col.make_executor(col.CollisionsConfig(num_worlds=4, num_objects=8, max_pairs=64,
+                                                 seed=1), device="cuda")
+    t = exported_tensor(sim, 0)
+    tt = t.to_torch()
+    column = sim.mgr.column(sim.state, col.CubeObject, col.Translation)
+    assert tt.device.type == "cuda" and tt.data_ptr() == column.data_ptr()
+    host = t.sync().to_numpy()
+    np.testing.assert_array_equal(host, column.cpu().numpy())
+    actions = tt.clone()
+    actions[:, :, 2] = 5.0
+    sim.set_exported(0, Tensor.from_torch(actions))
+    sim.step()
+    t2 = exported_tensor(sim, 0).sync()
+    assert ((t2.values[t2.mask][:, 2] - 5.0).abs() < 2.0).all()
+    hp = exported_tensor(fvs.make_executor(fvs.FantasyVsConfig(num_worlds=2, num_dragons=3,
+                                                               num_knights=5), device="cuda"), 1)
+    assert hp.to_torch()["hp"].device.type == "cuda" and hp.shape == (2, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["table", "random"])
+def test_reset_on_card_matches_cpu(card, which):
+    """40 steps of a reset world (several resets a world) on the card and
+    on the CPU: positions, masks and ticks equal (the generator's integer
+    stream and the float32 subtractions are the same on both)."""
+    world = rl_cases.PORT_TABLE if which == "table" else rl_cases.PORT_RANDOM
+    cpu = rl_cases.reset_run(world, "cpu", 40, num_worlds=64)
+    gpu = rl_cases.reset_run(world, "cuda", 40, num_worlds=64)
+    for a, b in zip(gpu, cpu):
+        assert torch.equal(a, b)
+    assert int((cpu[2][1:] == 1).sum()) >= 64 * 3    # resets happened

@@ -20,10 +20,9 @@ from gpu_ecs_madrona_tpu.models import fantasy_vs as jfvs
 from gpu_ecs_madrona_tpu_torch.interop import state_to_numpy
 from gpu_ecs_madrona_tpu_torch.models import fantasy_vs as fvs
 
+from test_torch_rl_cases import GOLDEN_CONSTANTS, random_script
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
-# the constants fvs_job_5d9k120t.bin was generated with (argv 5..8)
-GOLDEN_CONSTANTS = {"ARROW_DAMAGE": 350.0, "CAST_DAMAGE": 60.0, "CAST_RADIUS": 8.0,
-                    "CAST_COST": 5.0}
 
 
 def leaves(tree, path=()):
@@ -58,25 +57,6 @@ def assert_states_match(jstate, pstate, where):
             np.testing.assert_allclose(got, want, atol=tol, rtol=0, err_msg=f"{where} {path}")
         else:
             np.testing.assert_array_equal(got, want, err_msg=f"{where} {path}")
-
-
-def random_script(seed, nd, nk, T):
-    """Decision tables drawn with numpy: the same inputs for both sides."""
-    rng = np.random.default_rng(seed)
-    lo, hi = np.array(fvs.BOUNDS_LO, np.float32), np.array(fvs.BOUNDS_HI, np.float32)
-
-    def pts(*shape):
-        return (lo + (hi - lo) * rng.random(shape + (3,))).astype(np.float32)
-
-    def act(n):
-        tab = rng.random((T, n, 4)).astype(np.float32)
-        tab[..., 1:] = 2.0 * tab[..., 1:] - 1.0
-        return tab
-
-    return {"d_pos": pts(nd), "d_mana": (50.0 * rng.random(nd)).astype(np.float32),
-            "k_pos": pts(nk), "k_arrows": rng.integers(20, 41, nk).astype(np.int32),
-            "d_act": act(nd), "k_act": act(nk), "cast_target": pts(T, nd),
-            "archer_target": rng.integers(-1, nd, (T, nk)).astype(np.int32)}
 
 
 def patch_constants(monkeypatch, *modules):

@@ -36,6 +36,9 @@ def test_import_loads_no_jax():
         import gpu_ecs_madrona_tpu_torch.ops.substep_kernel
         import gpu_ecs_madrona_tpu_torch.core.base
         import gpu_ecs_madrona_tpu_torch.interop
+        import gpu_ecs_madrona_tpu_torch.core.world
+        import gpu_ecs_madrona_tpu_torch.bindings
+        import gpu_ecs_madrona_tpu_torch.parallel.learner
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
                or m == "gpu_ecs_madrona_tpu" or m.startswith("gpu_ecs_madrona_tpu.")]
@@ -51,7 +54,8 @@ def test_import_loads_no_jax():
 
 
 @pytest.mark.parametrize("module", ["ops.substep_kernel", "physics", "physics.solver",
-                                    "ops.render_kernel", "models.simple_taskgraph"])
+                                    "ops.render_kernel", "models.simple_taskgraph",
+                                    "core.world", "bindings", "parallel.learner"])
 def test_each_module_imports_first(module):
     """Any module of the port imports in a fresh process on its own (the
     physics package and the substep kernels' module import each other)."""
@@ -123,3 +127,19 @@ def test_rigid_bench_needs_a_card_or_cpu():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             rb.make_executor(cfg)
     assert rb.make_executor(cfg, device="cpu").device.type == "cpu"
+
+
+def test_learner_needs_a_card_or_cpu():
+    """The learner's entry point, like the executors', runs on the card
+    unless asked for the CPU."""
+    from gpu_ecs_madrona_tpu_torch.parallel.learner import PPOConfig, PPOLearner
+    cfg = PPOConfig(obs_dim=4, act_dim=2, hidden=8)
+    fns = (None,) * 4
+    if torch.cuda.is_available():
+        assert PPOLearner(cfg, *fns).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PPOLearner(cfg, *fns)
+    learner = PPOLearner(cfg, *fns, device="cpu")
+    assert learner.generator.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in learner.policy.parameters())
