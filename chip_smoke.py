@@ -6,7 +6,9 @@ Drives the port's main paths on one CUDA card — the collisions example at
 fantasy_vs at 16384 worlds x 50 dragons + 200 knights, rigid_bench
 (rigid-body physics) at 8192 worlds x 64 bodies (also with the broadphase
 in the fused kernel, and the settled pile with its options; at 32 bodies
-in the dense contact mode, and at 200 with the sap broadphase) and simple_taskgraph
+in the dense contact mode, and at 200 with the sap broadphase; and a pile of
+convex hulls imported from an .obj file, at 64 bodies and at the settled
+pile's options) and simple_taskgraph
 (physics and the batch renderer) at 1024 worlds x 100 spheres with 64 x 64
 RGB and depth — through every kernel they run, and holds every kernel
 against its plain PyTorch version; and trains the PPO learner on
@@ -90,6 +92,19 @@ Phases:
            1e-3, all finite, a repeated launch and a repeated plain run
            bit-identical (both are also held at the simple_taskgraph main
            state, in the timing phase)
+  parity_hull   the substep kernels' general-hull paths (the imported
+           hexagonal prism of tests/test_torch_hull_scenes.py) vs their plain
+           versions at 8192 x 65 rows: every fused specialisation (K = 256
+           and 128; refresh, sleep with mixed active flags, refresh and
+           sleep, the broadphase without and with refresh, persistence
+           without and with sleep, its branches also flipped) at the hull
+           pile's spawn, after 3 steps and on prisms stacked face on face
+           (after 0 and 2 steps; the persistent ones after 30); kernel 5
+           without FULL on the pile's first substep and at its spawn, and its
+           node launch on the joint world with the prism for its boxes;
+           parity_substep's gates, each case's candidates and touching pairs
+           by kind (the SAT's face and edge outcomes, sphere-hull and
+           hull-plane must all be reached)
   golden_physics   the reference binary's 1-substep physics goldens
            (cubes_fall, cube_pair, cube_stack, cube_bounce) and the
            free-fall check on the card, kernel and pairs modes, with
@@ -153,6 +168,17 @@ Phases:
            worlds rebuilding their cache (both shares must reach > 0)
   main_rigid_settled_nopersist   the same without persistence and sleep
            (bench_physics.py:43-47's A/B): "refresh+bp" launches
+  main_rigid_hulls   rigid_bench at main_rigid's width (8192 x 64, K = 256,
+           prisms and spheres, uniform spawn) with object 0 the prism
+           imported from an .obj file: launches = steps, all of the "hull"
+           specialisation, no other kernel; finite positions, empty
+           temporaries, env-steps/s; the fused node's device ms, host ms and
+           device ops
+  main_rigid_hulls_settled   the settled pile's options with prisms for
+           boxes (grid spawn, the broadphase in the kernel, refresh,
+           persistence, sleep), 400 untimed steps, then 5 windows of 50:
+           launches of "refresh+sleep+bp+persist+hull", the world flags and
+           the asleep worlds' kernel = steps; stable and asleep worlds seen
   parity_substep_options   each option's kernel specialisation vs its
            plain version at 8192 x 65: refresh over given rows at K = 256
            and 128, sleep with mixed active flags, the broadphase at K = 256
@@ -177,7 +203,8 @@ Phases:
            float rgb atol 1e-5, a repeated launch bit-identical; its views
            mode (the render node's one launch) at the main state and on
            VIEW_CASES (two views with dead ones, 24 x 40 and 18 x 30
-           images, a triangle-mesh scene) bit for bit against the node's
+           images, a triangle-mesh scene, the imported prism's importer
+           SourceMesh as a render mesh) bit for bit against the node's
            route before it on the card (camera_rays, pack, the rays mode,
            the RGBA8/depth epilogue; depth compared as int32 bits), a
            repeat bit-identical,
@@ -244,6 +271,10 @@ Phases:
            (persist_bound; the bound with the cache in and out beside it);
            and the settled pile's whole fused node: its device ms and the
            device operations it queues (a captured CUDA graph's nodes).
+           The general-hull specialisations at the hull piles' states (20
+           calls, beside their plain versions; the operations counted from
+           the .cu per prism pair, contact_ops), and kernel 5's node launch
+           on the joint world with prisms.
            substep_occupancy: each fused specialisation's [threads a CTA,
            CTAs an SM] at 65 rows and
            K = 256 and 128, and the single-substep kernel's at 104 rows, K =
@@ -626,10 +657,53 @@ OPS_JOINT = {0: 725, 1: 776}
 SUBSTEP_POSE_KEYS = ("pos", "rot", "prev_pos", "prev_rot", "ps_pos", "ps_rot")
 
 
+# The general-hull paths' operations (tables that are not all boxes),
+# counted from the .cu for a pair of the tables' hulls with nv verts, nf
+# faces, ns SAT axes, ne edge directions, nfe full edges and FV corner slots
+# a face: a quaternion rotation 30, a world vertex 33 (rotation and
+# offset), a dot product 5.  A candidate's test a substep: hull-plane 50 a
+# vertex (the vertex, its depth, the deepest-4 insert); sphere-hull 43 a
+# face and 10; the SAT both sides' vertices and edge directions, each SAT
+# axis's rotation and support (7 a vertex of both sides, 3 more), each
+# edge pair's cross axis (20) and support (the first pass only: the second,
+# to the first axis within the margin, ends early), the three winning axes
+# and the decision (110).  A touching face pair's clip: both faces chosen
+# (36 a face of both hulls), both faces' side planes (36 a corner), each
+# incident edge clipped (two vertices, 18 a side plane, 51) and each
+# reference corner tested and projected (33, 6 a side plane, 31).  An edge
+# pair's point: both supporting edges (78 a full edge of each side) and the
+# closest point (60).
+OPS_QROT, OPS_VERT, OPS_DOT = 30, 33, 5
+
+
+def contact_ops(tables):
+    """(a candidate's test a substep by kind, a face clip, an edge point)
+    for ``tables``: the box paths' constants for all-box tables, else the
+    general-hull paths' counted for the tables' first hull."""
+    if tables.all_box:
+        return OPS_TEST, OPS_CLIP_FACE, OPS_CLIP_EDGE
+    om = tables.om
+    h = int(list(om["prim_type"]).index(1))             # PRIM_HULL
+    nv, nf, ns, ne, nfe = (int(om[k][h]) for k in ("num_verts", "num_faces", "num_sat_axes",
+                                                   "num_edges", "num_full_edges"))
+    FV = tables.FVm
+    pen = 2 * nv * (OPS_DOT + 2) + 3
+    sat = (2 * nv * OPS_VERT + 2 * ne * OPS_QROT + 2 * ns * (OPS_QROT + pen)
+           + ne * ne * (20 + pen) + 110)
+    clip = (2 * nf * (OPS_QROT + OPS_DOT + 1) + 2 * FV * (OPS_QROT + OPS_DOT + 1)
+            + FV * (2 * OPS_VERT + 18 * FV + 51) + FV * (OPS_VERT + 6 * FV + 31))
+    edge = 2 * nfe * (2 * OPS_VERT + 2 * OPS_DOT + 2) + 60
+    test = {"box-box": sat, "box-plane": 50 * nv, "sphere-box": 43 * nf + 10,
+            "sphere-plane": OPS_TEST["sphere-plane"],
+            "sphere-sphere": OPS_TEST["sphere-sphere"], "other": 0}
+    return test, clip, edge
+
+
 def fused_inputs(sim, rb, phys):
-    """The fused substep kernel's inputs for a rigid_bench executor's next step."""
+    """The fused substep kernel's inputs for a rigid_bench executor's next
+    step (its own object manager: the box or the imported prism)."""
     return phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, rb.Body,
-                                                               rb.RigidBenchWorld.objmgr)
+                                                               sim.world_cls.objmgr)
 
 
 def kind_masks(torch, kw, tables):
@@ -693,8 +767,9 @@ def substep_work(torch, sk, kern, kw):
     S = 1 if single else kern.num_substeps
     per_point = OPS_POINT + (OPS_POINT_BOUNCE if kern.tables.any_restitution else 0)
     per_body = OPS_BODY_NODE if "joints" in kw else OPS_BODY_SOLVE if single else OPS_BODY
-    ops = (S * sum(c * OPS_TEST[k] for k, c in counts.items())
-           + n["face_clips"] * OPS_CLIP_FACE + n["edge_points"] * OPS_CLIP_EDGE
+    test, clip_face, clip_edge = contact_ops(kern.tables)
+    ops = (S * sum(c * test[k] for k, c in counts.items())
+           + n["face_clips"] * clip_face + n["edge_points"] * clip_edge
            + n["pairs"] * OPS_PAIR + n["dyn_sides"] * OPS_SIDE_SUM
            + n["points"] * per_point + n["point_pairs"] * OPS_POINT_PAIR
            + S * int(dyn.sum()) * per_body)
@@ -1046,16 +1121,20 @@ def golden_physics(torch, phys, sk):
 
 
 def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_counts,
-               specialisation="none", settle=3, also=(), bodies=RB_BODIES):
+               specialisation="none", settle=3, also=(), bodies=RB_BODIES, make=None):
     """rigid_bench at 8192 worlds x ``bodies`` (64) in configuration ``cfg``
     (RigidBenchConfig keywords): ``settle`` untimed steps, then ``count``
     windows of ``steps`` steps; launches = steps, all of the kernel
     specialisation ``specialisation`` (kernel mode) or 0, launches = steps
     of the kernels named in ``also`` (the world flags and the asleep
     worlds' kernel), no other kernel launched, finite positions, empty
-    temporaries; the peak of allocated device memory over the windows."""
-    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=bodies, **cfg),
-                           device="cuda")
+    temporaries; the peak of allocated device memory over the windows.
+    ``make(config, device)``: the executor's maker (default
+    rb.make_executor; the hull pile's tests/test_torch_hull_scenes.py
+    hull_pile)."""
+    make = make or rb.make_executor
+    sim = make(rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=bodies, **cfg),
+               device="cuda")
     sim.run(settle)
     sim.block_until_ready()
     torch.cuda.reset_peak_memory_stats()
@@ -1457,6 +1536,7 @@ def options_work(torch, kern, kw, out):
     n = dict.fromkeys(("tests", "refreshes", "caches", "pairs", "dyn_sides", "points",
                        "point_pairs", "face_clips", "edge_points"), 0)
     step = [0]
+    test, clip_face, clip_edge = contact_ops(kern.tables)
 
     def observe(c):
         s = step[0]
@@ -1472,7 +1552,7 @@ def options_work(torch, kern, kw, out):
         else:
             fresh, refreshed, built = awake, slots & False, None
         fresh_slots = slots & fresh[:, None]
-        n["tests"] += sum(int((m & fresh_slots).sum()) * OPS_TEST[k] for k, m in kinds.items())
+        n["tests"] += sum(int((m & fresh_slots).sum()) * test[k] for k, m in kinds.items())
         n["refreshes"] += int(refreshed.sum())
         n["caches"] += 0 if built is None else int(built.sum())
         live = c["ok"][:, None, :] & (c["depth"] > 0) & slots[:, None, :]
@@ -1489,7 +1569,7 @@ def options_work(torch, kern, kw, out):
     kern.plain(observe=observe, **kw)
     per_point = OPS_POINT + (OPS_POINT_BOUNCE if kern.tables.any_restitution else 0)
     bodies = int((kw["dyn"] & awake[:, None]).sum())
-    ops = (n["tests"] + n["face_clips"] * OPS_CLIP_FACE + n["edge_points"] * OPS_CLIP_EDGE
+    ops = (n["tests"] + n["face_clips"] * clip_face + n["edge_points"] * clip_edge
            + n["pairs"] * OPS_PAIR + n["dyn_sides"] * OPS_SIDE_SUM + n["points"] * per_point
            + n["point_pairs"] * OPS_POINT_PAIR + S * bodies * OPS_BODY
            + n["refreshes"] * OPS_REFRESH + n["caches"] * OPS_CACHE)
@@ -1661,6 +1741,179 @@ def option_timing(torch, kern, kw):
             "plain_ms": cuda_ms(torch, lambda: kern.plain(**kw), 3, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "work": work,
             "branches": branches(torch, kw), "slots_by_kind": slots}
+
+
+# -- imported convex hulls: the general-hull paths ---------------------------
+
+HULL_SETTLE_STACKED = 30          # steps of the stacked prisms before the persist case
+
+
+def hull_scenes():
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_hull_scenes as hs
+    return hs
+
+
+def hull_sim(rb, hs, steps=0, stacked=False, **cfg):
+    """The hull pile (tests/test_torch_hull_scenes.py, 8192 x 65 rows) in
+    configuration HULL_PILE + ``cfg`` on the card, its prisms stacked face on
+    face with ``stacked``, after ``steps`` steps."""
+    sim = hs.hull_pile(rb.RigidBenchConfig(**dict(hs.HULL_PILE, **cfg)), device="cuda")
+    if stacked:
+        hs.stack_prisms(sim)
+    sim.run(steps)
+    return sim
+
+
+def touching_kinds(torch, kern, kw, rows):
+    """The plain version's contacts on ``kw`` summed over its substeps, by
+    contact kind of the general paths: the valid pairs with ok and a live
+    point, the hull pairs on a face axis (more than one point) and on an
+    edge axis (one); ``rows`` the candidate rows (kw's, or the kernel's
+    broadphase's)."""
+    kinds = kind_masks(torch, dict(kw, rows_i=rows["rows_i"], rows_j=rows["rows_j"],
+                                   kvalid=rows["kvalid"]), kern.tables)
+    names = {"box-box": "hull-hull", "box-plane": "hull-plane", "sphere-box": "sphere-hull",
+             "sphere-plane": "sphere-plane", "sphere-sphere": "sphere-sphere"}
+    n = {v: 0 for v in names.values()}
+    n.update(hull_hull_face=0, hull_hull_edge=0)
+
+    def observe(c):
+        pts = (c["ok"][:, None, :] & (c["depth"] > 0)).sum(1)
+        for k, name in names.items():
+            n[name] += int((kinds[k] & (pts > 0)).sum())
+        n["hull_hull_face"] += int((kinds["box-box"] & (pts > 1)).sum())
+        n["hull_hull_edge"] += int((kinds["box-box"] & (pts == 1)).sum())
+
+    kern.plain(observe=observe, **kw)
+    return n
+
+
+def parity_hull(torch, rb, phys, sk):
+    """The general-hull paths of the substep kernels against their plain
+    versions on the hull pile (8192 x 65 rows, the imported prism and
+    spheres): every fused specialisation (K = 256 and 128; refresh, sleep
+    with mixed active flags, refresh and sleep, the broadphase without and
+    with refresh, persistence without and with sleep, as it is and with its
+    branches flipped) at the pile's initial spawn, after 3 steps, and on
+    stacked prisms resting face on face; kernel 5 without FULL on the first
+    substep of the pile after 3 steps and at its spawn, and its node launch
+    on the joint world with its boxes swapped for the prism.  parity_substep's
+    gates; each case prints its candidates and touching pairs by contact kind.
+    Returns (the phase's line, the worst error, kernel 5's worst error)."""
+    hs = hull_scenes()
+    cases, worst, worst5 = {}, 0.0, 0.0
+
+    def case(name, kern, kw, option=False):
+        nonlocal worst
+        sk.FusedSubstepKernel.launches_by_options.clear()
+        if option:
+            errs, out = option_case(torch, sk, kern, kw)
+        else:
+            errs, out = substep_case(torch, sk, kern, kw), kw
+        (launched, _), = sk.FusedSubstepKernel.launches_by_options.items()
+        rows = kw if "rows_i" in kw and kw["rows_i"] is not None else out
+        worst = max(worst, max(v for k, v in errs.items() if k not in INT_KEYS))
+        cases[name] = {"specialisation": launched,
+                       "K": int(rows["rows_i"].shape[1]),
+                       "candidates": pair_kinds(torch, dict(kw, rows_i=rows["rows_i"],
+                                                            rows_j=rows["rows_j"],
+                                                            kvalid=rows["kvalid"]),
+                                                kern.tables),
+                       "touching_over_substeps": touching_kinds(torch, kern, kw, rows),
+                       "branches": branches(torch, kw), "max_err": errs}
+
+    sim = hull_sim(rb, hs)
+    om = sim.world_cls.objmgr
+    check(not phys.subk.pk.ObjTables(om).all_box, "the hull pile's tables are general")
+
+    def kernel(**opts):
+        return sk.FusedSubstepKernel(om, 4, relaxation=0.7, **opts)
+
+    spawn = fused_inputs(sim, rb, phys)
+    sim.run(3)
+    kw256 = fused_inputs(sim, rb, phys)
+    worlds = torch.arange(RB_WORLDS, device=kw256["im"].device)
+    case("initial_spawn", kernel(), spawn)
+    case("main_K256", kernel(), kw256)
+    # kernel 5 without FULL: the first substep of both states
+    single = sk.SubstepKernel(om, relaxation=0.7)
+    for name, kw in (("single_substep_K256", kw256), ("single_substep_spawn", spawn)):
+        errs = substep1_case(torch, sk, single, phys.RigidBodyPhysicsSystem.substep_kernel_inputs(kw))
+        worst5 = max(worst5, max(errs.values()))
+        cases[name] = {"kernel": "substep", "max_err": errs}
+    del spawn
+    case("refresh_K256", kernel(contact_refresh=True), kw256, option=True)
+    case("sleep_K256", kernel(), dict(kw256, active=worlds % 3 != 1), option=True)
+    case("refresh_sleep_K256", kernel(contact_refresh=True),
+         dict(kw256, active=worlds % 3 != 1), option=True)
+    del sim
+    s128 = hull_sim(rb, hs, 3, max_candidates=128)
+    case("main_K128", kernel(), fused_inputs(s128, rb, phys))
+    case("refresh_K128", kernel(contact_refresh=True), fused_inputs(s128, rb, phys),
+         option=True)
+    del s128
+    bsim = hull_sim(rb, hs, 3, broadphase_mode="fused")
+    kwb = fused_inputs(bsim, rb, phys)
+    case("bp_K256", phys.RigidBodyPhysicsSystem.fused_kernel(bsim), kwb, option=True)
+    case("bp_refresh_K256", kernel(contact_refresh=True, bp_degree=12, bp_capacity=256), kwb,
+         option=True)
+    del bsim, kwb
+    # stacked prisms, face on face at rest: the pile's "none", and the
+    # settled pile's options after HULL_SETTLE_STACKED steps
+    ssim = hull_sim(rb, hs, 0, stacked=True, body_mix="boxes")
+    case("stacked_face_on_face", kernel(), fused_inputs(ssim, rb, phys))
+    ssim.run(2)
+    case("stacked_face_on_face_2_steps", kernel(), fused_inputs(ssim, rb, phys))
+    del ssim
+    psim = hull_sim(rb, hs, 0, stacked=True, **{k: v for k, v in hs.HULL_SETTLED.items()
+                                                  if k not in hs.HULL_PILE})
+    psim.run(HULL_SETTLE_STACKED)
+    kwp = fused_inputs(psim, rb, phys)
+    pkern = phys.RigidBodyPhysicsSystem.fused_kernel(psim)
+    case("persist_sleep_stacked", pkern, kwp, option=True)
+    case("persist_sleep_stacked_flipped", pkern, flip_branches(torch, kwp), option=True)
+    nosleep = kernel(contact_refresh=True, bp_degree=12, bp_capacity=256, persist_margin=0.05)
+    case("persist_stacked", nosleep, dict(kwp, active=None), option=True)
+    case("persist_stacked_flipped", nosleep,
+         dict(flip_branches(torch, kwp), active=None), option=True)
+    check(all(v > 0 for v in cases["persist_sleep_stacked_flipped"]["branches"].values()),
+          "the flipped stacked case runs every branch")
+    del psim, kwp
+    # kernel 5's node launch: the joint world with the prism for its boxes
+    jsim = hs_joint_world(hs)
+    jkw = phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(jsim, None, None, node=True)
+    jkern = phys.RigidBodyPhysicsSystem.substep_kernel(jsim)
+    check(not jkern.tables.all_box, "the joint world's prism tables are general")
+    errs = node_case(torch, sk, jkern, jkw)
+    worst5 = max(worst5, max(errs.values()))
+    cases["substep_node_joint_world_prisms"] = {"kernel": "substep", "W": 256,
+                                                "live_joints": int(live_joints(jkw).sum()),
+                                                "max_err": errs}
+    names = {c["specialisation"] for c in cases.values() if "specialisation" in c}
+    want = {sk.option_name(code | sk.OPT_HULL) for code in sk.SPECIALISATION_CODES}
+    check(names == want, f"parity_hull launched {sorted(names)}, not every specialisation")
+    # the general paths all reached: the SAT's face and edge outcomes,
+    # sphere-hull and hull-plane; face pairs on the stacked prisms
+    reached = {k: sum(c["touching_over_substeps"][k] for c in cases.values()
+                      if "touching_over_substeps" in c)
+               for k in ("hull_hull_face", "hull_hull_edge", "sphere-hull", "hull-plane")}
+    check(all(reached.values()), f"parity_hull: a general path not reached {reached}")
+    check(cases["stacked_face_on_face"]["touching_over_substeps"]["hull_hull_face"] > 0,
+          "stacked prisms: no face pair")
+    return {"phase": "parity_hull", "W": RB_WORLDS, "n": RB_BODIES + 1, "cases": cases,
+            "touching_over_all_cases": reached, "ints": "exact", "repeat": "bit-identical (kernel and plain)",
+            "atol": {"pose_stashes_aabb_cache": 1e-4, "velocities": 1e-3}}, worst, worst5
+
+
+def hs_joint_world(hs):
+    """The joint world of tests/test_torch_joint_scenes.py with the imported
+    prism for its boxes, 256 worlds on the card after 5 steps."""
+    import test_torch_joint_scenes as joint_scenes
+    jsim = joint_scenes.joint_world("pallas", num_worlds=256, device="cuda",
+                                    body=hs.prism_object())
+    jsim.run(5)
+    return jsim
 
 
 # -- the batch renderer: the render kernel ------------------------------------
@@ -2236,6 +2489,11 @@ def main(argv):
     emit(golden_physics(torch, phys, subk))
     emit(joints_cube_chain(torch, phys, subk))
 
+    # the general-hull paths of the substep kernels vs plain, on the pile of
+    # imported prisms
+    line, err_hull, err_hull5 = parity_hull(torch, rb, phys, subk)
+    emit(line)
+
     # the render kernel vs plain, and the kernel route vs the "xla" route
     line, err_render = parity_render(torch, rkm, stg, dev)
     emit(line)
@@ -2418,6 +2676,34 @@ def main(argv):
                             50, 5, smi, *counts, specialisation="refresh+bp",
                             settle=rb.SETTLE_STEPS)
     emit({"phase": "main_rigid_settled_nopersist", **line})
+
+    # the pile of imported prisms (tests/test_torch_hull_scenes.py): rigid_bench
+    # at main_rigid's width with the general-hull specialisation, and at the
+    # settled pile's options
+    hs = hull_scenes()
+    hsim, line = main_rigid(torch, rb, phys, dict(contact_mode="pallas"), 50, 5, smi, *counts,
+                            specialisation="hull", make=hs.hull_pile)
+    hull_launches = line["launches"]["fused_substep"]
+    hull_node = node_time(torch, hsim, phys.FUSED_NODE)
+    check(hull_node["device_ops"] <= 15,
+          f"the hull pile's fused node queues {hull_node['device_ops']} device ops")
+    emit({"phase": "main_rigid_hulls", **line, "objects": "imported prism, sphere 0.5, plane",
+          "fused_node": {k: hull_node[k] for k in ("device_ms", "host_ms", "device_ops")},
+          "main_rigid_env_steps_per_s_median": rig_rate})
+    hsettled_cfg = {k: v for k, v in hs.HULL_SETTLED.items()
+                    if k not in ("num_worlds", "num_bodies")}
+    hset_sim, line = main_rigid(torch, rb, phys, hsettled_cfg, 50, 5, smi, *counts,
+                                specialisation="refresh+sleep+bp+persist+hull",
+                                settle=rb.SETTLE_STEPS, also=("world_flags", "asleep_surface"),
+                                make=hs.hull_pile)
+    hull_persist_launches = line["launches"]["fused_substep"]
+    hset_node = node_time(torch, hset_sim, phys.FUSED_NODE)
+    # the prisms keep moving above the sleep threshold (no world falls asleep
+    # in 650 steps, PERF.md's findings): the cache is kept where stable
+    trace = settled_trace(torch, rb, phys, hset_sim, 10)
+    check(max(trace["stable_share"]) > 0, f"settled hull pile: no stable world {trace}")
+    emit({"phase": "main_rigid_hulls_settled", **line, "per_step_after_windows": trace,
+          "fused_node": {k: hset_node[k] for k in ("device_ms", "host_ms", "device_ops")}})
     line, err_bp, err_persist = parity_substep_options(torch, rb, phys, subk, rsim, r128, bsim,
                                                        settled_sim)
     err_flags = max(max(c["differing"].values()) for c in line["world_flags"].values())
@@ -2501,6 +2787,36 @@ def main(argv):
                     "work_over_substeps": work,
                     "pairs_per_world_max": int(rows.max())}
 
+    # the general-hull specialisations at the hull piles' states
+    hkw = fused_inputs(hsim, rb, phys)
+    hkern = phys.RigidBodyPhysicsSystem.fused_kernel(hsim)
+    h_ops, h_kinds, h_work = substep_work(torch, subk, hkern, hkw)
+    hb_ms, hb_by = substep_bound(hkw, h_ops)
+    hull_t = {"ms": cuda_ms(torch, lambda: hkern(**hkw), 20),
+              "plain_ms": cuda_ms(torch, lambda: hkern.plain(**hkw), 3, warmup=1),
+              "bound_ms": hb_ms, "bound_by": hb_by, "ops": h_ops, "pairs_by_kind": h_kinds,
+              "work_over_substeps": h_work, "ops_by_kind": contact_ops(hkern.tables),
+              "pairs_per_world_max": int(hkw["kvalid"].sum(1).max())}
+    del hkw
+    hkern_p, hkw_p = phys.RigidBodyPhysicsSystem.fused_kernel(hset_sim), fused_inputs(hset_sim,
+                                                                                       rb, phys)
+    hull_persist_t = persist_timing(torch, subk, hkern_p, hkw_p, flag_inputs(hset_sim, rb, phys))
+    hull_persist_t["every_branch"] = {k: v for k, v in persist_timing(
+        torch, subk, hkern_p, flip_branches(torch, hkw_p),
+        flag_inputs(hset_sim, rb, phys)).items() if k in ("ms", "plain_ms", "bound_ms",
+                                                           "bound_by", "branches")}
+    # kernel 5's node launch on the joint world with the prism for its boxes
+    jsim = hs_joint_world(hs)
+    jkw = phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(jsim, None, None, node=True)
+    jkern = phys.RigidBodyPhysicsSystem.substep_kernel(jsim)
+    j_ops, _, j_work = substep_work(torch, subk, jkern, jkw)
+    jb_ms, jb_by = substep_bound(jkw, j_ops)
+    hull5_t = {"ms": cuda_ms(torch, lambda: jkern.step(**jkw), 200),
+               "plain_ms": cuda_ms(torch, lambda: jkern.step_plain(**jkw), 3, warmup=1),
+               "bound_ms": jb_ms, "bound_by": jb_by, "ops": j_ops, "work": j_work,
+               "W": jkw["obj"].shape[0], "n": jkw["obj"].shape[1]}
+    del jsim, jkw
+
     # the fused kernel's launch shape by specialisation at the main shapes,
     # and the single-substep kernel's at simple_taskgraph's: [threads a CTA,
     # CTAs an SM]
@@ -2509,7 +2825,12 @@ def main(argv):
                  "fused_n201_K800": subk.occupancy(SAP_BODIES + 1, SAP_K, codes=(0,)),
                  "substep_n104_K1000": subk.occupancy(104, 1000, single=True),
                  "substep_node_n104_K1000_J64": subk.occupancy(104, 1000, single=True,
-                                                               joints=64)}
+                                                               joints=64),
+                 "fused_hull_n65_K256": subk.occupancy(RB_BODIES + 1, 256, hull=True),
+                 "fused_hull_n65_K128": subk.occupancy(RB_BODIES + 1, 128, hull=True),
+                 "substep_hull_n104_K1000": subk.occupancy(104, 1000, single=True, hull=True),
+                 "substep_node_hull_n104_K1000_J64": subk.occupancy(
+                     104, 1000, single=True, joints=64, hull=True)}
 
     # kernels 8 and 9 at their main paths' states (and kernel 8 with refresh
     # at the settled pile without persistence)
@@ -2631,6 +2952,8 @@ def main(argv):
           "substep_occupancy": occupancy,
           "fused_substep_options": opt_t,
           "substep": sub1_t, "substep_node": node_t, "render": render_t,
+          "fused_substep_hull": hull_t, "fused_substep_persist_hull": hull_persist_t,
+          "substep_node_hull_joint_world": hull5_t,
           "library_ms": "none: no single PyTorch call computes any of these functions",
           "card": smi})
 
@@ -2716,6 +3039,35 @@ def main(argv):
          "equal_work": {k: sub1_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "substep_node": {k: node_t["substep_node"][k]
                           for k in ("device_ms", "host_ms", "device_ops")}},
+        {"name": "fused_substep_hull", "route": "cuda", "source": csrc + "substep_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1257 (chunked :1241) on "
+                     "general hulls (its pk.pair_contacts: gpu_ecs_madrona_tpu/physics/"
+                     "pairs.py:855-1104)",
+         "specialisation": "hull", "launches": hull_launches, "launches_per_step": 1,
+         "max_abs_err": err_hull, "ms": hull_t["ms"], "plain_ms": hull_t["plain_ms"],
+         "bound_ms": hull_t["bound_ms"], "bound_by": hull_t["bound_by"], "library_ms": None,
+         "ms_is": "the main_rigid_hulls state (8192 x 65, K = 256)",
+         "fused_node": {k: hull_node[k] for k in ("device_ms", "device_ops")}},
+        {"name": "fused_substep_persist_hull", "route": "cuda",
+         "source": csrc + "substep_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1214 on general hulls",
+         "specialisation": "refresh+sleep+bp+persist+hull",
+         "launches": hull_persist_launches, "launches_per_step": 1, "max_abs_err": err_hull,
+         "ms": hull_persist_t["ms"], "plain_ms": hull_persist_t["plain_ms"],
+         "bound_ms": hull_persist_t["bound_ms"], "bound_by": hull_persist_t["bound_by"],
+         "library_ms": None,
+         "ms_is": "the launch (world_flags, asleep_surface, fused_substep) at the settled "
+                  "hull pile",
+         "every_branch": hull_persist_t["every_branch"],
+         "fused_node": {k: hset_node[k] for k in ("device_ms", "device_ops")}},
+        {"name": "substep_hull", "route": "cuda", "source": csrc + "substep_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1165 on general hulls",
+         "specialisation": "hull (FULL: the node launch)", "launches": 0,
+         "launches_is": "no main path runs a joint world of hulls; parity_hull launches it",
+         "launches_per_step": 4, "max_abs_err": err_hull5, "ms": hull5_t["ms"],
+         "plain_ms": hull5_t["plain_ms"], "bound_ms": hull5_t["bound_ms"],
+         "bound_by": hull5_t["bound_by"], "library_ms": None,
+         "ms_is": "the node launch on the joint world with prisms (256 worlds)"},
         {"name": "render", "route": "cuda", "source": csrc + "render_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/render_kernel.py:501",
          "launches": stg_launches["render"], "launches_per_step": 1,

@@ -20,15 +20,25 @@
 //     3. pair_contacts (physics/pairs.py): sphere-sphere, sphere-plane,
 //        hull-plane (all hull verts), sphere-box and box-box (Gottschalk's
 //        15-axis SAT, the incident face clipped against the reference face,
-//        an edge-edge point), compacted to the deepest 4 points;
+//        an edge-edge point) for all-box tables; for general hulls the
+//        deepest face plane for sphere-hull and the vertex-support SAT over
+//        both hulls' SAT axes and their edge directions' cross axes, the
+//        incident face (from the face tables) clipped against the reference
+//        face's side planes, or an edge-edge point between the supporting
+//        full edges; compacted to the deepest 4 points;
 //     4. positional_pass; 5. a segment sum to bodies; 6. the pose update and
 //        velocity recovery (_apply_positional_recover); 7. a re-gather at the
 //        post-solve poses; 8. velocity_pass (restitution channels when any
 //        material bounces); 9. a segment sum; non-dynamic rows keep their pose
 //        and get zero v/w.
 //   The outputs carry the last substep's stashes (prev pose, post-integrate
-//   pose and velocities).  Only all-box object tables are taken (the wrapper
-//   raises otherwise): the general-hull SAT waits.
+//   pose and velocities).  Tables with general hulls (a launch given the
+//   general-hull rows, pairs.py ObjTables.hull_table) take the kOptHull
+//   specialisation of each option set: GEN in pair_contacts, the general
+//   paths for every hull (boxes too, as in pairs.py), one thread a pair; the
+//   all-box tables run the box paths as compiled without it (the same
+//   registers, frames and outputs).  Caps: PhysicsLoader()'s defaults
+//   (kMaxVerts ... kMaxFullEdges); the wrapper refuses larger tables by name.
 //
 // world_flags_kernel and asleep_surface_kernel
 //   With the persistent manifolds (:1214) they make kernel 9's launch
@@ -144,6 +154,19 @@
 //   build); uncapped they take ~220 registers and 2 CTAs an SM, and in one
 //   A/B the capped kernel with the spill ran 2.33 ms against 2.93 ms
 //   (K = 256; PERF.md's findings).
+// The general-hull paths (GEN: hull_hull, sphere_hull, hull_plane) are
+// loops over the live counts, one thread a pair: each hull's world vertices
+// and edge directions in per-thread arrays (the stack frame, ~1.5 KB), the
+// face rows read through the read-only path, the candidates kept as they
+// come in a running deepest-4 (Top4) ordered as pairs.py's argmax rounds.
+// Padded rows score +-1e9 there and never tie a live one, so looping over
+// the live counts only gives the same choices.  Measured (ptxas -v, H100):
+// "hull", "sleep+hull", "bp+hull" 128 registers (the cap of 4 CTAs), 1696-
+// byte frames, 146 bytes of spill; the cache ones 223-236 registers, 1552-
+// byte frames, no spill; kernel 5's 168 registers, 1616-byte frames, 60-64
+// bytes of spill; CTAs an SM as the box specialisations'.  At the imported
+// prism pile (8192 x 65, K = 256) the "hull" launch takes ~8.0 ms against
+// an operation bound of 0.081 ms (PERF.md).
 // Arithmetic: -fmad=false keeps every product and sum separately rounded,
 // in the order of the plain version (ops/substep_kernel.py,
 // physics/pairs.py); 1/sqrtf stands for the plain version's 1 / sqrt.  The
@@ -159,7 +182,16 @@ constexpr float kBig = 1e9f;
 constexpr float kNegBig = -1e9f;
 constexpr float kSatTieEps = 1e-5f;
 constexpr float kFaceBias = 1.001f;
-constexpr int kMaxVerts = 8;     // table verts per hull (a box has 8)
+constexpr int kMaxBoxVerts = 8;  // table verts per hull, all-box tables (a box has 8)
+// The general-hull tables' caps: PhysicsLoader()'s defaults (physics/
+// assets.py) — verts, faces, SAT axes, edge directions, corner slots a face,
+// full edges per hull.
+constexpr int kMaxVerts = 32;
+constexpr int kMaxFaces = 32;
+constexpr int kMaxSatAxes = 32;
+constexpr int kMaxEdgeDirs = 16;
+constexpr int kMaxFaceVerts = 8;
+constexpr int kMaxFullEdges = 48;
 constexpr int kCand = 12;        // manifold candidates (3 per box-face vertex)
 constexpr int kPts = 4;          // manifold points kept
 constexpr int kPrimSphere = 0;
@@ -276,6 +308,11 @@ __device__ __forceinline__ V3 sym_mv(const Sym& M, V3 v) {
 // local_aabb_lo xyz, local_aabb_hi xyz, inv_mass, inv_inertia xyz, mu_s,
 // mu_d, bound_radius: kTableFixed + 3 vm floats.
 constexpr int kTableFixed = 20;
+// The general-hull rows' layout (Table::h): the counts, a face's head
+// (normal, offset) and a corner slot's floats.
+constexpr int kHullHead = 4;
+constexpr int kFaceHead = 4;
+constexpr int kCornerFl = 11;
 struct Table {
   const float* t;
   int stride;
@@ -303,6 +340,32 @@ struct Table {
   __device__ __forceinline__ V3 vert(int o, int v) const {
     const float* p = t + o * stride + 7 + 3 * v;
     return mk(p[0], p[1], p[2]);
+  }
+  // The general-hull rows (pairs.py ObjTables.hull_table; null for all-box
+  // tables), hs floats an object: the counts of its faces, SAT axes, edge
+  // directions and full edges; fm faces of kFaceHead + kCornerFl fvm floats
+  // (the outward normal and offset, then each corner slot's vertex, next
+  // vertex, side-plane normal and offset, and valid flag); sm SAT axes, em
+  // edge directions, efm full edges (two endpoints): the object's frame.
+  const float* h;
+  int hs, fm, sm, em, fvm, efm;
+  __device__ __forceinline__ int nfaces(int o) const { return static_cast<int>(__ldg(h + o * hs)); }
+  __device__ __forceinline__ int nsat(int o) const { return static_cast<int>(__ldg(h + o * hs + 1)); }
+  __device__ __forceinline__ int nedges(int o) const {
+    return static_cast<int>(__ldg(h + o * hs + 2));
+  }
+  __device__ __forceinline__ int nfull(int o) const { return static_cast<int>(__ldg(h + o * hs + 3)); }
+  __device__ __forceinline__ const float* face(int o, int f) const {
+    return h + o * hs + kHullHead + f * (kFaceHead + kCornerFl * fvm);
+  }
+  __device__ __forceinline__ const float* sat(int o, int k) const {
+    return h + o * hs + kHullHead + fm * (kFaceHead + kCornerFl * fvm) + 3 * k;
+  }
+  __device__ __forceinline__ const float* edge_dir(int o, int k) const {
+    return sat(o, sm) + 3 * k;
+  }
+  __device__ __forceinline__ const float* full_edge(int o, int k) const {
+    return sat(o, sm) + 3 * em + 6 * k;
   }
 };
 
@@ -846,12 +909,349 @@ __device__ __forceinline__ void box_box_group(const Body& A, const Body& B, cons
   }
 }
 
-// pair_contacts of physics/pairs.py for one live pair (all-box tables).
-// NPTS: also its num_points (candidates past the speculative margin, at
-// most kPts) in *npts, which only the manifold cache keeps.  Each kind's
-// branch compacts its own candidates, so the sphere kinds (one candidate)
-// carry no candidate arrays.
+// ---------------------------------------------------------------------------
+// General hulls: pairs.py's paths for tables that are not all boxes
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ V3 ld3g(const float* p) { return mk(__ldg(p), __ldg(p + 1), __ldg(p + 2)); }
+
+// Vertex v of hull H in world space (body_fields' verts_w).
+__device__ __forceinline__ V3 hull_vert(const Table& tab, const Body& H, int v) {
+  return add(qrot(H.rot, tab.vert(H.obj, v)), H.pos);
+}
+
+// The deepest 4 of a contact's candidates, kept as they come: a candidate
+// (depth d, index i, point p) ranks ahead of a kept one when it is deeper,
+// or as deep with a lower index — the order of pairs.py's four argmax
+// rounds (first index on ties), in whatever order the candidates come.
+// Only candidates above -1e9 are kept; a slot left empty takes candidate
+// 0's point at -1e9, as the rounds do once the real candidates are taken
+// (candidate 0 is then taken or dead, so it is the first at -1e9).
+struct Top4 {
+  float d[kPts];
+  int i[kPts];
+  V3 p[kPts];
+};
+__device__ __forceinline__ void top4_init(Top4& t) {
+#pragma unroll
+  for (int s = 0; s < kPts; ++s) {
+    t.d[s] = kNegBig;
+    t.i[s] = 0x7fffffff;
+    t.p[s] = mk(0.0f, 0.0f, 0.0f);
+  }
+}
+__device__ __forceinline__ void top4_push(Top4& t, float d, int i, V3 p) {
+  if (!(d > kNegBig)) return;
+  bool ahead[kPts];
+#pragma unroll
+  for (int s = 0; s < kPts; ++s) ahead[s] = d > t.d[s] || (d == t.d[s] && i < t.i[s]);
+  // ahead is false above the new entry's place and true from there on:
+  // the kept entries from there move down one
+#pragma unroll
+  for (int s = kPts - 1; s > 0; --s) {
+    const bool prev = ahead[s - 1];
+    t.d[s] = ahead[s] ? (prev ? t.d[s - 1] : d) : t.d[s];
+    t.i[s] = ahead[s] ? (prev ? t.i[s - 1] : i) : t.i[s];
+    t.p[s] = ahead[s] ? sel3(prev, t.p[s - 1], p) : t.p[s];
+  }
+  t.d[0] = ahead[0] ? d : t.d[0];
+  t.i[0] = ahead[0] ? i : t.i[0];
+  t.p[0] = sel3(ahead[0], p, t.p[0]);
+}
+__device__ __forceinline__ void top4_out(const Top4& t, V3 p0, Manifold& out) {
+#pragma unroll
+  for (int s = 0; s < kPts; ++s) {
+    out.d[s] = t.d[s];
+    out.p[s] = sel3(t.d[s] > kNegBig, t.p[s], p0);
+  }
+}
+
+// Sphere against a general hull: the deepest face plane (the first of the
+// largest dot(n_f, p) - d_f over the live faces), the contact at p - n_f
+// dist.  flip = the sphere is side B.
+__device__ bool sphere_hull(V3 s_pos, float s_rad, const Body& H, const Table& tab, float spec,
+                            bool flip, V3* normal, V3* point, float* pen_out) {
+  const int nf = tab.nfaces(H.obj);
+  float best = kNegBig;
+  V3 bn = mk(0.0f, 0.0f, 0.0f);
+  for (int f = 0; f < nf; ++f) {
+    const float* F = tab.face(H.obj, f);
+    const V3 fn = qrot(H.rot, ld3g(F));
+    const float fd = __ldg(F + 3) + dot(fn, H.pos);
+    const float cd = dot(fn, s_pos) - fd;
+    if (f == 0 || cd > best) {
+      best = cd;
+      bn = fn;
+    }
+  }
+  const float pen = s_rad - best;
+  *point = sub(s_pos, scl(bn, best));
+  *normal = flip ? bn : scl(bn, -1.0f);
+  *pen_out = pen;
+  return pen > -spec;
+}
+
+// A hull against a plane: every live vertex a candidate (its depth below
+// the plane), the deepest 4 kept.  Returns the candidates past the margin.
+__device__ int hull_plane(const Body& H, V3 p_n, float p_d, const Table& tab, float spec,
+                          Manifold& out) {
+  const int nv = tab.nverts(H.obj);
+  Top4 t;
+  top4_init(t);
+  V3 p0 = mk(0.0f, 0.0f, 0.0f);
+  int num = 0;
+  for (int v = 0; v < nv; ++v) {
+    const V3 vw = hull_vert(tab, H, v);
+    const float vd = dot(vw, p_n) - p_d;
+    const float pen_v = -vd;
+    num += pen_v > -spec ? 1 : 0;
+    top4_push(t, pen_v, v, vw);
+    if (v == 0) p0 = vw;
+  }
+  top4_out(t, p0, out);
+  return num;
+}
+
+// The penetration along axis ax of two vertex sets: min(maxA - minB, maxB -
+// minA) of their projections (pairs.py axis_pen).
+__device__ float axis_pen(V3 ax, const V3* vA, int nA, const V3* vB, int nB) {
+  float maxA = kNegBig, minA = kBig, maxB = kNegBig, minB = kBig;
+  for (int v = 0; v < nA; ++v) {
+    const float p = dot(ax, vA[v]);
+    maxA = fmaxf(maxA, p);
+    minA = fminf(minA, p);
+  }
+  for (int v = 0; v < nB; ++v) {
+    const float p = dot(ax, vB[v]);
+    maxB = fmaxf(maxB, p);
+    minB = fminf(minB, p);
+  }
+  return fminf(maxA - minB, maxB - minA);
+}
+
+// The cross axis of edge directions eA x eB, normalised; false where the
+// edges are (near) parallel.
+__device__ __forceinline__ bool cross_axis(V3 eA, V3 eB, V3* ax) {
+  const V3 c = cross(eA, eB);
+  const float clen = norm3(c, 1e-30f);
+  *ax = scl(c, 1.0f / fmaxf(clen, 1e-12f));
+  return clen > 1e-6f;
+}
+
+// The supporting full edge of hull H along n: the first of the edges whose
+// lower endpoint projection is largest.
+__device__ void support_edge(const Table& tab, const Body& H, V3 n, V3* e0, V3* e1) {
+  const int ne = tab.nfull(H.obj);
+  float best = kNegBig;
+  *e0 = *e1 = mk(0.0f, 0.0f, 0.0f);
+  for (int e = 0; e < ne; ++e) {
+    const float* E = tab.full_edge(H.obj, e);
+    const V3 p0 = add(qrot(H.rot, ld3g(E)), H.pos);
+    const V3 p1 = add(qrot(H.rot, ld3g(E + 3)), H.pos);
+    const float sc = fminf(dot(p0, n), dot(p1, n));
+    if (e == 0 || sc > best) {
+      best = sc;
+      *e0 = p0;
+      *e1 = p1;
+    }
+  }
+}
+
+// Two general hulls (pairs.py's vertex-support SAT): each side's SAT axes
+// and the cross axes of their edge directions (i-major), each axis's
+// penetration from both sides' vertex support; per family the first axis
+// within kSatTieEps of its minimum; then the face bias, the orientation
+// and, on a face axis, the incident face (the most anti-aligned of the
+// other hull) clipped against the reference face's side planes plus the
+// reference face's corners inside the incident face; on an edge axis one
+// point between the supporting edges.  Candidates (3 fvm: the clipped
+// edges' low and high ends, the reference corners) go to the deepest 4 as
+// they come.  The world vertices and edge directions sit in per-thread
+// arrays.  Without NPTS (no manifold cache keeps the points) a pair that
+// does not touch skips its manifold: the passes read none of it.
 template <bool NPTS>
+__device__ bool hull_hull(const Body& A, const Body& B, const Table& tab, float spec,
+                          Manifold& out, V3* normal, int* num) {
+  V3 vA[kMaxVerts], vB[kMaxVerts], eA[kMaxEdgeDirs], eB[kMaxEdgeDirs];
+  float pen[kMaxSatAxes];
+  const int nA = tab.nverts(A.obj), nB = tab.nverts(B.obj);
+  for (int v = 0; v < nA; ++v) vA[v] = hull_vert(tab, A, v);
+  for (int v = 0; v < nB; ++v) vB[v] = hull_vert(tab, B, v);
+  const int neA = tab.nedges(A.obj), neB = tab.nedges(B.obj);
+  for (int k = 0; k < neA; ++k) eA[k] = qrot(A.rot, ld3g(tab.edge_dir(A.obj, k)));
+  for (int k = 0; k < neB; ++k) eB[k] = qrot(B.rot, ld3g(tab.edge_dir(B.obj, k)));
+
+  // A's and B's SAT axes: the minimum, then the first within the margin
+  float minA = kBig, minB = kBig;
+  const int sA = tab.nsat(A.obj), sB = tab.nsat(B.obj);
+  for (int k = 0; k < sA; ++k) {
+    pen[k] = axis_pen(qrot(A.rot, ld3g(tab.sat(A.obj, k))), vA, nA, vB, nB);
+    minA = fminf(minA, pen[k]);
+  }
+  int ia = 0;
+  for (int k = sA - 1; k >= 0; --k)
+    if (pen[k] <= minA + kSatTieEps) ia = k;
+  for (int k = 0; k < sB; ++k) {
+    pen[k] = axis_pen(qrot(B.rot, ld3g(tab.sat(B.obj, k))), vA, nA, vB, nB);
+    minB = fminf(minB, pen[k]);
+  }
+  int ib = 0;
+  for (int k = sB - 1; k >= 0; --k)
+    if (pen[k] <= minB + kSatTieEps) ib = k;
+  // the edge cross axes (invalid ones score 1e9), likewise; the axis of
+  // edges 0 and 0 when none is valid, as the first index at 1e9
+  float minE = kBig;
+  for (int i = 0; i < neA; ++i)
+    for (int j = 0; j < neB; ++j) {
+      V3 ax;
+      if (cross_axis(eA[i], eB[j], &ax)) minE = fminf(minE, axis_pen(ax, vA, nA, vB, nB));
+    }
+  int ie = 0, je = 0;
+  bool found = false;
+  for (int i = 0; i < neA && !found; ++i)
+    for (int j = 0; j < neB && !found; ++j) {
+      V3 ax;
+      if (cross_axis(eA[i], eB[j], &ax) && axis_pen(ax, vA, nA, vB, nB) <= minE + kSatTieEps) {
+        ie = i;
+        je = j;
+        found = true;
+      }
+    }
+  const V3 fA = qrot(A.rot, ld3g(tab.sat(A.obj, ia)));
+  const V3 fB = qrot(B.rot, ld3g(tab.sat(B.obj, ib)));
+  V3 fE;
+  cross_axis(eA[ie], eB[je], &fE);
+
+  const float sat_pen = fminf(fminf(minA, minB), minE);
+  const bool hit = (sat_pen > -spec) && (sat_pen < kBig * 0.5f);
+  const bool faceA = minA <= fminf(minB, minE) * kFaceBias + kSatTieEps;
+  const bool faceB = !faceA && (minB <= minE * kFaceBias + kSatTieEps);
+  const V3 ab = sub(B.pos, A.pos);
+  const V3 f = sel3(faceA, fA, sel3(faceB, fB, fE));
+  const V3 nrm = scl(f, dot(f, ab) >= 0.0f ? 1.0f : -1.0f);
+  *normal = nrm;
+  if (!faceA && !faceB) {
+    // edge-edge: one point, the midpoint of the supporting edges' closest
+    // points, at the SAT depth
+    V3 a0, a1, b0, b1;
+    support_edge(tab, A, nrm, &a0, &a1);
+    support_edge(tab, B, scl(nrm, -1.0f), &b0, &b1);
+    single_point(segment_closest(a0, a1, b0, b1), sat_pen, out);
+    *num = sat_pen > 0.0f ? 1 : 0;
+    return hit;
+  }
+  if (!NPTS && !hit) {
+    single_point(mk(0.0f, 0.0f, 0.0f), kNegBig, out);
+    *num = 0;
+    return false;
+  }
+  // the reference (R) and incident (I) hulls; the reference face is the
+  // most aligned with the axis into I, the incident face the most
+  // anti-aligned (first index on ties)
+  const V3 nrm_inc = faceB ? scl(nrm, -1.0f) : nrm;
+  const Body R = sel_body(faceB, B, A), I = sel_body(faceB, A, B);
+  int fr = 0, fi = 0;
+  float sr = kNegBig, si = kBig;
+  const int nfR = tab.nfaces(R.obj), nfI = tab.nfaces(I.obj);
+  for (int k = 0; k < nfR; ++k) {
+    const float sc = dot(qrot(R.rot, ld3g(tab.face(R.obj, k))), nrm_inc);
+    if (k == 0 || sc > sr) {
+      sr = sc;
+      fr = k;
+    }
+  }
+  for (int k = 0; k < nfI; ++k) {
+    const float sc = dot(qrot(I.rot, ld3g(tab.face(I.obj, k))), nrm_inc);
+    if (k == 0 || sc < si) {
+      si = sc;
+      fi = k;
+    }
+  }
+  const float* FR = tab.face(R.obj, fr);
+  const float* FI = tab.face(I.obj, fi);
+  const V3 n_ref = qrot(R.rot, ld3g(FR));
+  const float d_ref = __ldg(FR + 3) + dot(n_ref, R.pos);
+  const V3 n_inc = qrot(I.rot, ld3g(FI));
+  const float d_inc = __ldg(FI + 3) + dot(n_inc, I.pos);
+  const int FV = tab.fvm;
+  // both faces' side planes in world space
+  V3 snR[kMaxFaceVerts], snI[kMaxFaceVerts];
+  float sdR[kMaxFaceVerts], sdI[kMaxFaceVerts];
+  bool pvR[kMaxFaceVerts], pvI[kMaxFaceVerts];
+  for (int p = 0; p < FV; ++p) {
+    const float* CR = FR + kFaceHead + kCornerFl * p;
+    const float* CI = FI + kFaceHead + kCornerFl * p;
+    snR[p] = qrot(R.rot, ld3g(CR + 6));
+    sdR[p] = __ldg(CR + 9) + dot(snR[p], R.pos);
+    pvR[p] = __ldg(CR + 10) > 0.5f;
+    snI[p] = qrot(I.rot, ld3g(CI + 6));
+    sdI[p] = __ldg(CI + 9) + dot(snI[p], I.pos);
+    pvI[p] = __ldg(CI + 10) > 0.5f;
+  }
+  Top4 t;
+  top4_init(t);
+  V3 p0 = mk(0.0f, 0.0f, 0.0f);
+  int cnt = 0;
+  // the incident face's edges clipped against the reference face's sides:
+  // candidates e (the low end) and FV + e (the high end, when clipped)
+  for (int e = 0; e < FV; ++e) {
+    const float* C = FI + kFaceHead + kCornerFl * e;
+    const V3 q0 = add(qrot(I.rot, ld3g(C)), I.pos);
+    const V3 q1 = add(qrot(I.rot, ld3g(C + 3)), I.pos);
+    float t_lo = 0.0f, t_hi = 1.0f;
+    bool empty = false;
+    for (int sd = 0; sd < FV; ++sd) {
+      if (!pvR[sd]) continue;
+      const float d0 = dot(q0, snR[sd]) - sdR[sd];
+      const float d1 = dot(q1, snR[sd]) - sdR[sd];
+      const float denom = d0 - d1;
+      const bool crossing = fabsf(denom) > 1e-12f;
+      const float tc = d0 / (crossing ? denom : 1.0f);
+      if (crossing && d0 > 0.0f && d1 <= 0.0f) t_lo = fmaxf(t_lo, tc);
+      if (crossing && d0 <= 0.0f && d1 > 0.0f) t_hi = fminf(t_hi, tc);
+      empty = empty || (d0 > 1e-6f && d1 > 1e-6f);
+    }
+    const bool edge_ok = __ldg(C + 10) > 0.5f && !empty && (t_lo <= t_hi + 1e-9f);
+    const V3 seg = sub(q1, q0);
+    const V3 pt_lo = add(q0, scl(seg, t_lo));
+    const V3 pt_hi = add(q0, scl(seg, t_hi));
+    const float dlo = edge_ok ? d_ref - dot(pt_lo, n_ref) : kNegBig;
+    const float dhi = (edge_ok && t_hi < 0.9999f) ? d_ref - dot(pt_hi, n_ref) : kNegBig;
+    if (e == 0) p0 = pt_lo;
+    cnt += (dlo > 0.0f ? 1 : 0) + (dhi > 0.0f ? 1 : 0);
+    top4_push(t, dlo, e, pt_lo);
+    top4_push(t, dhi, FV + e, pt_hi);
+  }
+  // the reference face's corners strictly inside the incident face,
+  // projected onto it along the axis: candidates 2 FV + e
+  const float den = dot(n_inc, nrm_inc);
+  const bool den_ok = fabsf(den) > 0.1f;
+  const float den_s = den_ok ? den : 1.0f;
+  for (int e = 0; e < FV; ++e) {
+    const float* C = FR + kFaceHead + kCornerFl * e;
+    const V3 pr = add(qrot(R.rot, ld3g(C)), R.pos);
+    bool inside = __ldg(C + 10) > 0.5f;
+    for (int sd = 0; sd < FV; ++sd)
+      if (pvI[sd]) inside = inside && (dot(pr, snI[sd]) - sdI[sd] <= -1e-5f);
+    const float sq = (d_inc - dot(pr, n_inc)) / den_s;
+    const V3 q = add(pr, scl(nrm_inc, sq));
+    const float dq = (inside && den_ok) ? d_ref - dot(q, n_ref) : kNegBig;
+    cnt += dq > 0.0f ? 1 : 0;
+    top4_push(t, dq, 2 * FV + e, q);
+  }
+  top4_out(t, p0, out);
+  *num = cnt;
+  return hit;
+}
+
+// pair_contacts of physics/pairs.py for one live pair: GEN false, the
+// all-box tables' analytic paths; GEN true, the general hulls' (every hull
+// of such tables, boxes too, takes them, as in pairs.py).  NPTS: also its
+// num_points (candidates past the speculative margin, at most kPts) in
+// *npts, which only the manifold cache keeps.  Each kind's branch compacts
+// its own candidates, so the sphere kinds (one candidate) carry no
+// candidate arrays.
+template <bool NPTS, bool GEN>
 __device__ __forceinline__ void pair_contacts(const Body& A, const Body& B, const Table& tab,
                                               float spec, Manifold& out, int* npts) {
   const int pa = tab.prim(A.obj), pb = tab.prim(B.obj);
@@ -885,23 +1285,27 @@ __device__ __forceinline__ void pair_contacts(const Body& A, const Body& B, cons
     const Body Pl = sel_body(flip, A, B);
     const V3 p_n = plane_normal(Pl.rot);
     const float p_d = dot(p_n, Pl.pos);
-    const int nv = tab.nverts(H.obj);
-    V3 cp[kCand];
-    float cd[kCand];
+    if (GEN) {
+      num = hull_plane(H, p_n, p_d, tab, spec, out);
+    } else {
+      const int nv = tab.nverts(H.obj);
+      V3 cp[kCand];
+      float cd[kCand];
 #pragma unroll
-    for (int v = 0; v < kCand; ++v) {
-      cp[v] = mk(0.0f, 0.0f, 0.0f);
-      cd[v] = kNegBig;
-      if (v < kMaxVerts && v < tab.vm) {
-        const V3 vw = add(qrot(H.rot, tab.vert(H.obj, v)), H.pos);
-        const float vd = dot(vw, p_n) - p_d;
-        const float pen_v = v < nv ? -vd : kNegBig;
-        cp[v] = vw;
-        cd[v] = pen_v;
-        num += pen_v > -spec ? 1 : 0;
+      for (int v = 0; v < kCand; ++v) {
+        cp[v] = mk(0.0f, 0.0f, 0.0f);
+        cd[v] = kNegBig;
+        if (v < kMaxBoxVerts && v < tab.vm) {
+          const V3 vw = add(qrot(H.rot, tab.vert(H.obj, v)), H.pos);
+          const float vd = dot(vw, p_n) - p_d;
+          const float pen_v = v < nv ? -vd : kNegBig;
+          cp[v] = vw;
+          cd[v] = pen_v;
+          num += pen_v > -spec ? 1 : 0;
+        }
       }
+      deepest4(cp, cd, out);
     }
-    deepest4(cp, cd, out);
     n = flip ? p_n : scl(p_n, -1.0f);
     ok = num > 0;
   } else if ((pa == kPrimSphere && pb == kPrimHull) || (pa == kPrimHull && pb == kPrimSphere)) {
@@ -910,14 +1314,21 @@ __device__ __forceinline__ void pair_contacts(const Body& A, const Body& B, cons
     const Body Bx = sel_body(flip, A, B);
     float pen;
     V3 p0;
-    ok = sphere_box(S.pos, tab.radius(S.obj), Bx, tab, spec, flip, &n, &p0, &pen);
+    if (GEN)
+      ok = sphere_hull(S.pos, tab.radius(S.obj), Bx, tab, spec, flip, &n, &p0, &pen);
+    else
+      ok = sphere_box(S.pos, tab.radius(S.obj), Bx, tab, spec, flip, &n, &p0, &pen);
     single_point(p0, pen, out);
     num = 1;
   } else if (pa == kPrimHull && pb == kPrimHull) {
-    V3 cp[kCand];
-    float cd[kCand];
-    ok = box_box(A, B, tab, spec, cp, cd, &n, &num);
-    deepest4(cp, cd, out);
+    if (GEN) {
+      ok = hull_hull<NPTS>(A, B, tab, spec, out, &n, &num);
+    } else {
+      V3 cp[kCand];
+      float cd[kCand];
+      ok = box_box(A, B, tab, spec, cp, cd, &n, &num);
+      deepest4(cp, cd, out);
+    }
   } else {
     single_point(mk(0.0f, 0.0f, 0.0f), kNegBig, out);  // no candidate
   }
@@ -1227,6 +1638,9 @@ constexpr int kMcCh = kMcRows + kCacheCh;
 constexpr int kAabbCh = 6;
 // The kernel's option bits (OPT_* in ops/substep_kernel.py).
 constexpr int kOptRefresh = 1, kOptSleep = 2, kOptBp = 4, kOptPersist = 8;
+// A specialisation's general-hull bit (the launch sets it for tables with
+// general-hull rows; OPT_HULL in ops/substep_kernel.py names it).
+constexpr int kOptHull = 16;
 // The world scalars in shared memory: the work list's length, the
 // broadphase's dropped pairs, kernel 5's end of the valid slots and the
 // broadphase's live rows (kBpWords bit words).
@@ -2033,8 +2447,9 @@ __device__ __forceinline__ void stash_load(const float* sst, int KS, Manifold& c
 // leaves the new pose in kPos/kRot (dynamic rows only) and the velocities
 // in kV/kW (zero on the other rows).  WIN: kernel 5's window layout (the
 // entries' rows, pass contributions and list entries by work entry, those
-// past the window in the global scratch; no cache).  Ends with a barrier.
-template <bool CACHE, bool WIN>
+// past the window in the global scratch; no cache).  GEN: the general-hull
+// contact paths (pair_contacts).  Ends with a barrier.
+template <bool CACHE, bool WIN, bool GEN>
 __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int kc, float h1,
                               float rest1, float relax, float spec, bool bounce, int mode,
                               int tid, int T) {
@@ -2090,10 +2505,11 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
     if (!CACHE || mode == kFresh || mode == kBuild || mode == kResolveBuild) {
       // box-box pairs on lane groups where the registers are free (the
       // cache specialisations; see min_blocks), on their own lane elsewhere
-      const bool bb = CACHE && act && tab.prim(Bd[0].obj) == kPrimHull &&
+      // and for general hulls
+      const bool bb = CACHE && !GEN && act && tab.prim(Bd[0].obj) == kPrimHull &&
                       tab.prim(Bd[1].obj) == kPrimHull;
-      if (CACHE) warp_box_box<CACHE>(Bd, tab, spec, bb, lane, c, &npts);
-      if (act && !bb) pair_contacts<CACHE>(Bd[0], Bd[1], tab, spec, c, &npts);
+      if (CACHE && !GEN) warp_box_box<CACHE>(Bd, tab, spec, bb, lane, c, &npts);
+      if (act && !bb) pair_contacts<CACHE, GEN>(Bd[0], Bd[1], tab, spec, c, &npts);
     }
     if (!act) continue;
     if (CACHE && (mode == kBuild || mode == kResolveBuild))
@@ -2261,7 +2677,7 @@ template <int OPTS>
 __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep_kernel(Args a) {
   constexpr bool REFRESH = (OPTS & kOptRefresh) != 0, SLEEP = (OPTS & kOptSleep) != 0;
   constexpr bool BP = (OPTS & kOptBp) != 0, PERSIST = (OPTS & kOptPersist) != 0;
-  constexpr bool CACHE = REFRESH || PERSIST;
+  constexpr bool CACHE = REFRESH || PERSIST, GEN = (OPTS & kOptHull) != 0;
   extern __shared__ float smem[];
   const int tid = threadIdx.x, T = blockDim.x;
   const int n = a.n, K = a.K;
@@ -2375,7 +2791,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
       mode = kBuild;
     else if (REFRESH && step > 0)
       mode = kRefresh;
-    solve_substep<CACHE, false>(s, a.tab, n, K, kc, h1, rest1, a.relax, a.spec, a.bounce != 0,
+    solve_substep<CACHE, false, GEN>(s, a.tab, n, K, kc, h1, rest1, a.relax, a.spec, a.bounce != 0,
                                 mode, tid, T);
   }
 
@@ -2587,7 +3003,7 @@ __device__ void joint_terms(const Args1& a, size_t g, const V3 (&x)[2], const Q4
 // pose and velocity), with the three stashes out.  Without FULL, steps
 // 2-9 alone from the caller's post-integrate pose and velocities (the JAX
 // kernel's contract).
-template <bool FULL>
+template <bool FULL, bool GEN>
 __global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kernel(Args1 a) {
   extern __shared__ float smem[];
   const int wld = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
@@ -2652,7 +3068,7 @@ __global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kerne
     }
   }
   const int kc = finish_slots_win(s, a.tab, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
-  solve_substep<false, true>(s, a.tab, n, K, kc, h1, a.rest_thr[wld], a.relax, a.spec,
+  solve_substep<false, true, GEN>(s, a.tab, n, K, kc, h1, a.rest_thr[wld], a.relax, a.spec,
                              a.bounce != 0, kFresh, tid, T);
 
   if (!FULL) {
@@ -2756,12 +3172,12 @@ cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool FULL>
+template <bool FULL, bool GEN>
 cudaError_t launch_substep(const Args1& a, int W, cudaStream_t stream) {
   const size_t smem = substep_smem_bytes(a.n, a.K, FULL ? a.J : 0);
-  const cudaError_t err = allow_smem(substep_kernel<FULL>, smem);
+  const cudaError_t err = allow_smem(substep_kernel<FULL, GEN>, smem);
   if (err != cudaSuccess) return err;
-  substep_kernel<FULL><<<W, substep_threads(a.n, a.K), smem, stream>>>(a);
+  substep_kernel<FULL, GEN><<<W, substep_threads(a.n, a.K), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -3025,40 +3441,70 @@ cudaError_t launch_flags(const FlagArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The general-hull rows of a launch (Table::h): hull, the device table of
+// pairs.py ObjTables.hull_table, and dims, a host array of its floats an
+// object and the table's faces, SAT axes, edge directions, corner slots a
+// face and full edges; both null for all-box tables (at most kMaxBoxVerts
+// verts a hull).  False when they break the caps or the layout.
+bool set_hull(Table& tab, const void* hull, const void* dims) {
+  if (!hull) return tab.vm <= kMaxBoxVerts;
+  if (!dims) return false;
+  const int* d = static_cast<const int*>(dims);
+  tab.h = static_cast<const float*>(hull);
+  tab.hs = d[0];
+  tab.fm = d[1];
+  tab.sm = d[2];
+  tab.em = d[3];
+  tab.fvm = d[4];
+  tab.efm = d[5];
+  return tab.vm <= kMaxVerts && tab.fm >= 1 && tab.fm <= kMaxFaces && tab.sm >= 1 &&
+         tab.sm <= kMaxSatAxes && tab.em >= 1 && tab.em <= kMaxEdgeDirs && tab.fvm >= 1 &&
+         tab.fvm <= kMaxFaceVerts && tab.efm >= 1 && tab.efm <= kMaxFullEdges &&
+         tab.hs == kHullHead + tab.fm * (kFaceHead + kCornerFl * tab.fvm) + 3 * tab.sm +
+                       3 * tab.em + 6 * tab.efm;
+}
+
+// The fused kernel's specialisations without the general-hull bit, each
+// also compiled with it.
+#define SUBSTEP_SPECIALISATIONS(X)                                                      \
+  X(0) X(kOptRefresh) X(kOptSleep) X(kOptRefresh | kOptSleep) X(kOptBp)                 \
+  X(kOptBp | kOptRefresh) X(kOptPersist | kOptBp | kOptRefresh)                         \
+  X(kOptPersist | kOptBp | kOptRefresh | kOptSleep)
+
 }  // namespace
 
 // The launch shape and occupancy of the fused kernel's specialisation
-// `opts` (fused_substep_launch's option bits) at n bodies and K slots:
+// `opts` (fused_substep_launch's option bits, kOptHull for the general-hull
+// one) at n bodies and K slots:
 // threads a CTA and CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 extern "C" int fused_substep_occupancy(int opts, int n, int K, int* threads, int* blocks) {
   cudaError_t err;
   switch (opts) {
-    case 0: err = occupancy_fused<0>(n, K, threads, blocks); break;
-    case kOptRefresh: err = occupancy_fused<kOptRefresh>(n, K, threads, blocks); break;
-    case kOptSleep: err = occupancy_fused<kOptSleep>(n, K, threads, blocks); break;
-    case kOptRefresh | kOptSleep:
-      err = occupancy_fused<kOptRefresh | kOptSleep>(n, K, threads, blocks);
-      break;
-    case kOptBp: err = occupancy_fused<kOptBp>(n, K, threads, blocks); break;
-    case kOptBp | kOptRefresh: err = occupancy_fused<kOptBp | kOptRefresh>(n, K, threads, blocks); break;
-    case kOptPersist | kOptBp | kOptRefresh:
-      err = occupancy_fused<kOptPersist | kOptBp | kOptRefresh>(n, K, threads, blocks);
-      break;
-    case kOptPersist | kOptBp | kOptRefresh | kOptSleep:
-      err = occupancy_fused<kOptPersist | kOptBp | kOptRefresh | kOptSleep>(n, K, threads, blocks);
-      break;
+#define SUBSTEP_OCC(c)                                                          \
+  case (c): err = occupancy_fused<(c)>(n, K, threads, blocks); break;         \
+  case (c) | kOptHull: err = occupancy_fused<(c) | kOptHull>(n, K, threads, blocks); break;
+    SUBSTEP_SPECIALISATIONS(SUBSTEP_OCC)
+#undef SUBSTEP_OCC
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
 // The same for kernel 5 (substep_kernel) at n bodies, K slots and J joints,
-// with its integrate, joints and writeback (full) or without.
-extern "C" int substep_occupancy(int n, int K, int J, int full, int* threads, int* blocks) {
+// with its integrate, joints and writeback (full) or without, for all-box
+// tables or general hulls (hull).
+extern "C" int substep_occupancy(int n, int K, int J, int full, int hull, int* threads,
+                                 int* blocks) {
   *threads = substep_threads(n, K);
   const size_t smem = substep_smem_bytes(n, K, full ? J : 0);
-  return static_cast<int>(full ? occupancy_of(substep_kernel<true>, *threads, smem, blocks)
-                               : occupancy_of(substep_kernel<false>, *threads, smem, blocks));
+  cudaError_t err;
+  if (hull)
+    err = full ? occupancy_of(substep_kernel<true, true>, *threads, smem, blocks)
+               : occupancy_of(substep_kernel<false, true>, *threads, smem, blocks);
+  else
+    err = full ? occupancy_of(substep_kernel<true, false>, *threads, smem, blocks)
+               : occupancy_of(substep_kernel<false, false>, *threads, smem, blocks);
+  return static_cast<int>(err);
 }
 
 extern "C" int fused_substep_launch(
@@ -3074,7 +3520,7 @@ extern "C" int fused_substep_launch(
     const void* aabb_lo, const void* aabb_hi, void* o_aabb_lo, void* o_aabb_hi, void* o_rows_i,
     void* o_rows_j, void* o_kvalid, void* o_count, void* o_dropped, void* o_mc, void* o_apos,
     void* o_arot, void* o_valid, const void* work_list, const void* work_count, int keep_v,
-    void* stream) {
+    const void* hull, const void* hull_dims, void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
   if (n <= 0 || K <= 0 || num_substeps < 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -3102,6 +3548,7 @@ extern "C" int fused_substep_launch(
   a.rows_j = static_cast<const int*>(rows_j);
   a.kvalid = static_cast<const uint8_t*>(kvalid);
   a.tab = Table{static_cast<const float*>(table), kTableFixed + 3 * vm, vm};
+  if (!set_hull(a.tab, hull, hull_dims)) return static_cast<int>(cudaErrorInvalidValue);
   a.n = n;
   a.K = K;
   a.num_substeps = num_substeps;
@@ -3143,20 +3590,14 @@ extern "C" int fused_substep_launch(
   a.work_count = static_cast<const int*>(work_count);
   a.keep_v = keep_v;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hull) opts |= kOptHull;
   cudaError_t err;
   switch (opts) {
-    case 0: err = launch_fused<0>(a, W, st); break;
-    case kOptRefresh: err = launch_fused<kOptRefresh>(a, W, st); break;
-    case kOptSleep: err = launch_fused<kOptSleep>(a, W, st); break;
-    case kOptRefresh | kOptSleep: err = launch_fused<kOptRefresh | kOptSleep>(a, W, st); break;
-    case kOptBp: err = launch_fused<kOptBp>(a, W, st); break;
-    case kOptBp | kOptRefresh: err = launch_fused<kOptBp | kOptRefresh>(a, W, st); break;
-    case kOptPersist | kOptBp | kOptRefresh:
-      err = launch_fused<kOptPersist | kOptBp | kOptRefresh>(a, W, st);
-      break;
-    case kOptPersist | kOptBp | kOptRefresh | kOptSleep:
-      err = launch_fused<kOptPersist | kOptBp | kOptRefresh | kOptSleep>(a, W, st);
-      break;
+#define SUBSTEP_LAUNCH(c)                                                         \
+  case (c): err = launch_fused<(c)>(a, W, st); break;                             \
+  case (c) | kOptHull: err = launch_fused<(c) | kOptHull>(a, W, st); break;
+    SUBSTEP_SPECIALISATIONS(SUBSTEP_LAUNCH)
+#undef SUBSTEP_LAUNCH
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -3277,7 +3718,7 @@ extern "C" int substep_launch(
     const void* obj, const void* dyn, const void* h, const void* rest_thr, const void* rows_i,
     const void* rows_j, const void* kvalid, const void* table, int num_objects, int vm, int W,
     int n, int K, float relaxation, float speculative, int bounce, void* o_pos, void* o_rot,
-    void* o_v, void* o_w, void* scratch, void* stream) {
+    void* o_v, void* o_w, void* scratch, const void* hull, const void* hull_dims, void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
   if (n <= 0 || K <= 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts ||
       (substep_scratch(K) > 0 && !scratch))
@@ -3301,6 +3742,7 @@ extern "C" int substep_launch(
   a.rows_j = static_cast<const int*>(rows_j);
   a.kvalid = static_cast<const uint8_t*>(kvalid);
   a.tab = Table{static_cast<const float*>(table), kTableFixed + 3 * vm, vm};
+  if (!set_hull(a.tab, hull, hull_dims)) return static_cast<int>(cudaErrorInvalidValue);
   a.n = n;
   a.K = K;
   a.bounce = bounce;
@@ -3311,7 +3753,9 @@ extern "C" int substep_launch(
   a.o_v = static_cast<float*>(o_v);
   a.o_w = static_cast<float*>(o_w);
   a.scratch = static_cast<float*>(scratch);
-  return static_cast<int>(launch_substep<false>(a, W, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(hull ? launch_substep<false, true>(a, W, st)
+                               : launch_substep<false, false>(a, W, st));
 }
 
 // Kernel 5 with its integrate, joint solve and writeback: the kernel-mode
@@ -3334,7 +3778,7 @@ extern "C" int substep_node_launch(
     const void* j_mask, int E, const void* e_arch, const void* e_row, const void* e_gen,
     int arch, int id_bits, void* o_pos, void* o_rot, void* o_v, void* o_w, void* o_prev_pos,
     void* o_prev_rot, void* o_ps_pos, void* o_ps_rot, void* o_ps_v, void* o_ps_w,
-    void* scratch, void* stream) {
+    void* scratch, const void* hull, const void* hull_dims, void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
   if (n <= 0 || K <= 0 || J < 0 || E <= 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts ||
       id_bits < 1 || id_bits > 30 || (substep_scratch(K) > 0 && !scratch))
@@ -3356,6 +3800,7 @@ extern "C" int substep_node_launch(
   a.rows_j = static_cast<const int*>(rows_j);
   a.kvalid = static_cast<const uint8_t*>(kvalid);
   a.tab = Table{static_cast<const float*>(table), kTableFixed + 3 * vm, vm};
+  if (!set_hull(a.tab, hull, hull_dims)) return static_cast<int>(cudaErrorInvalidValue);
   a.n = n;
   a.K = K;
   a.bounce = bounce;
@@ -3391,5 +3836,7 @@ extern "C" int substep_node_launch(
   a.o_ps_v = static_cast<float*>(o_ps_v);
   a.o_ps_w = static_cast<float*>(o_ps_w);
   a.scratch = static_cast<float*>(scratch);
-  return static_cast<int>(launch_substep<true>(a, W, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(hull ? launch_substep<true, true>(a, W, st)
+                               : launch_substep<true, false>(a, W, st));
 }

@@ -68,7 +68,11 @@ in the .cu).
 On CUDA tensors ``fused_substep``, ``substep`` and ``substep_node`` launch
 the hand-written kernels in ``csrc/substep_kernels.cu`` (one CTA per
 world; its notes say what bounds them and how they are laid out) or
-raise; on CPU tensors they run ``fused_substep_plain``, ``substep_plain``
+raise.  All-box tables take the analytic box paths; tables with general
+hulls (any convex hull, e.g. from utils/importer.py) up to
+PhysicsLoader()'s defaults take each specialisation's general-hull twin
+(OPT_HULL, counted as "...+hull" and in ``SubstepKernel.hull_launches``),
+which reads ``pairs.ObjTables.hull_table`` beside the object table; on CPU tensors they run ``fused_substep_plain``, ``substep_plain``
 and ``substep_node_plain``, the same loop in batched PyTorch over [W, K]
 pair tensors.  The segment sums add each body's A-side contributions in
 ascending slot order, then its B-side ones, in both versions (a stable
@@ -118,7 +122,18 @@ MC_CACHE = MC_CHANNELS - MC_ROWS
 # 227 KB a block on an H100.  The in-kernel broadphase takes one thread a
 # body row.
 MAX_SMEM_BYTES = 227 * 1024
-MAX_TABLE_VERTS = 8
+# The object tables the kernels take: all-box tables at most
+# MAX_BOX_TABLE_VERTS verts a hull (the analytic box paths); tables with
+# general hulls (pairs.ObjTables.hull_table) up to PhysicsLoader()'s
+# defaults, each cap a .cu constant (kMaxVerts, kMaxFaces, kMaxSatAxes,
+# kMaxEdgeDirs, kMaxFaceVerts, kMaxFullEdges).
+MAX_BOX_TABLE_VERTS = 8
+MAX_TABLE_VERTS = 32
+MAX_HULL_FACES = 32
+MAX_HULL_SAT_AXES = 32
+MAX_HULL_EDGE_DIRS = 16
+MAX_HULL_FACE_VERTS = 8
+MAX_HULL_FULL_EDGES = 48
 MAX_BP_ROWS = 128
 MAX_THREADS = 128
 
@@ -664,22 +679,22 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_substep_launch.argtypes = (
             [P] * 19 + [I] * 6 + [F, F, I] + [P] * 10 + [I, I, F] + [P] * 16 + [P] * 5 + [I]
-            + [P])
+            + [P, P] + [P])
         lib.fused_substep_launch.restype = I
         lib.world_flags_launch.argtypes = [P] * 15 + [I] * 5 + [F, I, F] + [P] * 4 + [P]
         lib.world_flags_launch.restype = I
         lib.asleep_surface_launch.argtypes = [P] * 8 + [I] * 3 + [P] * 19 + [P]
         lib.asleep_surface_launch.restype = I
-        lib.substep_launch.argtypes = [P] * 18 + [I] * 5 + [F, F, I] + [P] * 4 + [P, P]
+        lib.substep_launch.argtypes = [P] * 18 + [I] * 5 + [F, F, I] + [P] * 4 + [P] + [P, P] + [P]
         lib.substep_launch.restype = I
         lib.substep_node_launch.argtypes = (
             [P] * 16 + [I] * 5 + [F, F] + [I] * 3 + [P] * 11 + [I] + [P] * 3 + [I, I] + [P] * 10
-            + [P, P])
+            + [P] + [P, P] + [P])
         lib.substep_node_launch.restype = I
         IP = ctypes.POINTER(ctypes.c_int)
         lib.fused_substep_occupancy.argtypes = [I, I, I, IP, IP]
         lib.fused_substep_occupancy.restype = I
-        lib.substep_occupancy.argtypes = [I, I, I, I, IP, IP]
+        lib.substep_occupancy.argtypes = [I, I, I, I, I, IP, IP]
         lib.substep_occupancy.restype = I
         lib._typed = True
     return lib
@@ -689,12 +704,22 @@ def kernel_fits(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
                 cache: bool = False, single: bool = False, joints: int = 0) -> str:
     """'' when the kernel takes these tables and shapes (the fused kernel
     with the in-kernel broadphase, with a manifold cache; with ``single``
-    kernel 5 with ``joints`` joints), else why not."""
-    if not tables.all_box:
-        return ("a non-box hull in the object tables: the kernel's general-hull "
-                "SAT waits (ROADMAP)")
-    if tables.Vm > MAX_TABLE_VERTS:
-        return f"tables with {tables.Vm} verts per hull > {MAX_TABLE_VERTS}"
+    kernel 5 with ``joints`` joints), else why not: all-box tables up to
+    MAX_BOX_TABLE_VERTS verts a hull, general hulls up to the MAX_HULL_*
+    caps and MAX_TABLE_VERTS."""
+    if tables.all_box:
+        if tables.Vm > MAX_BOX_TABLE_VERTS:
+            return f"all-box tables with {tables.Vm} verts per hull > {MAX_BOX_TABLE_VERTS}"
+    else:
+        _, Fm, Sm, Em, FVm, EFm = tables.hull_dims()
+        for what, have, cap in (("verts", tables.Vm, MAX_TABLE_VERTS),
+                                ("faces", Fm, MAX_HULL_FACES),
+                                ("SAT axes", Sm, MAX_HULL_SAT_AXES),
+                                ("edge directions", Em, MAX_HULL_EDGE_DIRS),
+                                ("verts per face", FVm, MAX_HULL_FACE_VERTS),
+                                ("full edges", EFm, MAX_HULL_FULL_EDGES)):
+            if have > cap:
+                return f"general-hull tables with {have} {what} per hull > {cap}"
     if n < 1 or K < 1:
         return f"n={n} bodies and K={K} candidate slots must both be >= 1"
     if bp and n > MAX_BP_ROWS:
@@ -744,9 +769,21 @@ def _check_inputs(name, device, bodies, W, n, K, **others):
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-# the kernel's option bits (fused_substep_launch's opts)
-OPT_REFRESH, OPT_SLEEP, OPT_BP, OPT_PERSIST = 1, 2, 4, 8
+# the kernel's option bits (fused_substep_launch's opts); OPT_HULL names
+# the general-hull specialisations, which the launch takes for tables with
+# general hulls (kOptHull)
+OPT_REFRESH, OPT_SLEEP, OPT_BP, OPT_PERSIST, OPT_HULL = 1, 2, 4, 8, 16
 BP_KEYS = ("aabb_lo", "aabb_hi", "rows_i", "rows_j", "kvalid", "bp_count", "bp_dropped")
+
+
+def _hull_args(tables: pk.ObjTables, device):
+    """A launch's general-hull arguments: the hull table's pointer and a
+    host array of its shape (``hull_dims``), or two nulls for all-box
+    tables (the analytic box paths)."""
+    t = tables.hull_table(device)
+    if t is None:
+        return (None, None)
+    return (t.data_ptr(), ctypes.cast((ctypes.c_int * 6)(*tables.hull_dims()), ctypes.c_void_p))
 
 
 def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
@@ -840,6 +877,7 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
         _, *work = asleep_surface(pos, rot, v, w, active, mcache, aabb_lo, aabb_hi,
                                   outs=outs | extra)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    hull = _hull_args(tables, dev)
     rc = _lib().fused_substep_launch(
         *(ptr(t) for t in args), table.data_ptr(),
         tables.O, tables.Vm, W, n, K, int(num_substeps), float(relaxation),
@@ -849,11 +887,12 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
         *(ptr(t) for t in (scale, live, dtv, active, stable, mcache, aabb_lo, aabb_hi)),
         *(ptr(extra.get(k)) for k in BP_KEYS + ("mcache",)),
         *(ptr(t) for t in (anchors or (None, None, None))), *(ptr(t) for t in work),
-        int(keep_velocity), stream)
+        int(keep_velocity), *hull, stream)
     if rc != 0:
         raise RuntimeError(f"fused_substep: kernel launch failed with cudaError {rc}")
     FusedSubstepKernel.launches += 1
-    FusedSubstepKernel.launches_by_options[option_name(code)] += 1
+    FusedSubstepKernel.launches_by_options[
+        option_name(code | (OPT_HULL if hull[0] else 0))] += 1
     return extra | outs
 
 
@@ -986,13 +1025,14 @@ SPECIALISATION_CODES = (0, OPT_REFRESH, OPT_SLEEP, OPT_REFRESH | OPT_SLEEP, OPT_
 
 
 def occupancy(n: int, K: int, single: bool = False, joints=None,
-              codes=SPECIALISATION_CODES):
+              codes=SPECIALISATION_CODES, hull: bool = False):
     """The kernels' launch shape at n bodies and K slots, on the current
     card: {specialisation name: (threads a CTA, CTAs an SM)} for the fused
     kernel's specialisations ``codes`` (all eight by default; a shape that
     fits only some asks for those), or (threads, CTAs an SM) of kernel 5
     with ``single``: without its integrate and joints, or with ``joints``
-    joints its node launch.  Builds the kernels if needed."""
+    joints its node launch.  ``hull``: the general-hull specialisations.
+    Builds the kernels if needed."""
     lib = _lib()
     threads, blocks = ctypes.c_int(), ctypes.c_int()
 
@@ -1003,8 +1043,9 @@ def occupancy(n: int, K: int, single: bool = False, joints=None,
 
     if single:
         return read(lib.substep_occupancy(n, K, int(joints or 0), int(joints is not None),
-                                          ctypes.byref(threads), ctypes.byref(blocks)),
-                    "substep")
+                                          int(hull), ctypes.byref(threads),
+                                          ctypes.byref(blocks)), "substep")
+    codes = [code | (OPT_HULL if hull else 0) for code in codes]
     return {option_name(code): read(lib.fused_substep_occupancy(
         code, n, K, ctypes.byref(threads), ctypes.byref(blocks)), option_name(code))
         for code in codes}
@@ -1014,7 +1055,7 @@ def option_name(code: int) -> str:
     """The kernel specialisation of option bits ``code``: "none", or its
     options joined by "+" (e.g. "refresh+sleep+bp+persist")."""
     names = [n for bit, n in ((OPT_REFRESH, "refresh"), (OPT_SLEEP, "sleep"), (OPT_BP, "bp"),
-                              (OPT_PERSIST, "persist")) if code & bit]
+                              (OPT_PERSIST, "persist"), (OPT_HULL, "hull")) if code & bit]
     return "+".join(names) or "none"
 
 
@@ -1060,14 +1101,16 @@ def substep(pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn, h,
     outs = {k: torch.empty((W, n, _WIDTH[k]), dtype=torch.float32, device=pos.device)
             for k in SUBSTEP_KEYS}
     stream = torch.cuda.current_stream(pos.device).cuda_stream
+    hull = _hull_args(tables, pos.device)
     rc = _lib().substep_launch(
         *(t.data_ptr() for t in args), table.data_ptr(), tables.O, tables.Vm, W, n, K,
         float(relaxation), float(speculative), int(tables.any_restitution),
         *(outs[k].data_ptr() for k in SUBSTEP_KEYS),
-        0 if scratch is None else scratch.data_ptr(), stream)
+        0 if scratch is None else scratch.data_ptr(), *hull, stream)
     if rc != 0:
         raise RuntimeError(f"substep: kernel launch failed with cudaError {rc}")
     SubstepKernel.launches += 1
+    SubstepKernel.hull_launches += 1 if hull[0] else 0
     return outs
 
 
@@ -1126,16 +1169,19 @@ def substep_node(pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity,
     table = tables.kernel_table(dev)
     outs = {k: torch.empty((W, n, _WIDTH[k]), dtype=torch.float32, device=dev)
             for k in NODE_KEYS}
+    hull = _hull_args(tables, dev)
     rc = _lib().substep_node_launch(
         *(t.data_ptr() for t in args), table.data_ptr(), tables.O, tables.Vm, W, n, K,
         float(relaxation), float(speculative), int(tables.any_restitution), RESPONSE_DYNAMIC, J,
         *(joints[f].data_ptr() for f in JOINT_FIELDS), jmask.data_ptr(), E,
         *(eid[k].data_ptr() for k in ("loc_arch", "loc_row", "gen")), int(arch_index),
         ENTITY_ID_BITS, *(outs[k].data_ptr() for k in NODE_KEYS),
-        0 if scratch is None else scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        0 if scratch is None else scratch.data_ptr(), *hull,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"substep_node: kernel launch failed with cudaError {rc}")
     SubstepKernel.launches += 1
+    SubstepKernel.hull_launches += 1 if hull[0] else 0
     return outs
 
 
@@ -1150,9 +1196,11 @@ class SubstepKernel:
     (for worlds whose work overflows its shared window) is made once per
     shape.
 
-    ``launches`` counts the kernel launches (class-wide)."""
+    ``launches`` counts the kernel launches (class-wide), ``hull_launches``
+    those of its general-hull specialisation (tables with general hulls)."""
 
     launches = 0
+    hull_launches = 0
 
     def __init__(self, object_manager, relaxation: float = 1.0, speculative: float = 0.0):
         self.tables = pk.ObjTables(object_manager)

@@ -300,6 +300,49 @@ class ObjTables:
             tabs["_kernel"] = t
         return t
 
+    def hull_dims(self):
+        """The general-hull table's shape (``hull_table``): (floats an
+        object, faces Fm, SAT axes Sm, edge directions Em, corner slots a
+        face FVm, full edges EFm)."""
+        om = self.om
+        Sm, EFm = om["sat_axes"].shape[1], om["edge_p0"].shape[1]
+        per_face = 4 + 11 * self.FVm
+        return (4 + self.Fm * per_face + 3 * Sm + 3 * self.Em + 6 * EFm,
+                self.Fm, Sm, self.Em, self.FVm, EFm)
+
+    def hull_table(self, device):
+        """The general-hull rows the CUDA kernels read beside
+        ``kernel_table``, or None for all-box tables: [O, hull_dims()[0]]
+        float32, per object its counts (faces, SAT axes, edge directions,
+        full edges), then each of the Fm faces (its outward normal and
+        offset face_d, then each of its FVm corner slots: face_verts,
+        face_verts_next, face_side_n, face_side_d, face_slot_valid), the Sm
+        sat_axes, the Em edge_dirs and the EFm full edges (edge_p0,
+        edge_p1), all in the object's frame.  Built and copied once per
+        device."""
+        if self.all_box:
+            return None
+        tabs = self._by_device.setdefault(torch.device(device), {})
+        t = tabs.get("_hull")
+        if t is None:
+            om, O = self.om, self.O
+            corners = np.concatenate([
+                om["face_verts"], om["face_verts_next"], om["face_side_n"],
+                om["face_side_d"][..., None], om["face_slot_valid"][..., None]], axis=-1)
+            faces = np.concatenate([om["face_normals"], om["face_d"][..., None],
+                                    corners.reshape(O, self.Fm, -1)], axis=-1)
+            counts = np.stack([om[k] for k in ("num_faces", "num_sat_axes", "num_edges",
+                                               "num_full_edges")], axis=1)
+            rows = np.concatenate([
+                counts.astype(np.float32), faces.reshape(O, -1),
+                om["sat_axes"].reshape(O, -1), om["edge_dirs"].reshape(O, -1),
+                np.concatenate([om["edge_p0"], om["edge_p1"]], axis=-1).reshape(O, -1)],
+                axis=1).astype(np.float32)
+            assert rows.shape[1] == self.hull_dims()[0]
+            t = torch.as_tensor(np.ascontiguousarray(rows), device=device)
+            tabs["_hull"] = t
+        return t
+
 
 def body_fields(pos, rot, obj, tables: ObjTables) -> Dict[str, Any]:
     """World-space per-pair-side fields.  pos: vec3 tuple [W,K]; rot: quat

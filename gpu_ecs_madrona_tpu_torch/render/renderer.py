@@ -42,6 +42,7 @@ from gpu_ecs_madrona_tpu_torch.core.taskgraph import NodeID, TaskGraphBuilder
 from gpu_ecs_madrona_tpu_torch.ops.render_kernel import (RenderKernel, camera_rays,
                                                          observations)
 from gpu_ecs_madrona_tpu_torch.physics.assets import PRIM_HULL, PRIM_PLANE, PRIM_SPHERE
+from gpu_ecs_madrona_tpu_torch.utils import importer
 from gpu_ecs_madrona_tpu_torch.utils import math as m
 
 BIG = 1e9
@@ -90,10 +91,10 @@ class BatchRenderer:
     """Builds a render taskgraph node over the packed instance and view
     buffers of render.interop.RenderingSystem.setup_tasks.
 
-    ``render_meshes`` maps object id -> (verts [V, 3], tris [T, 3]).
-    Objects with a render mesh trace its triangles; the others their
-    analytic primitive.  (The JAX package also takes an importer
-    SourceMesh here; the importer is not ported yet.)  The tables live in
+    ``render_meshes`` maps object id -> (verts [V, 3], tris [T, 3]) or an
+    importer SourceMesh (utils/importer.py: its faces fan-triangulated by
+    ``index_mesh``).  Objects with a render mesh trace its triangles; the
+    others their analytic primitive.  The tables live in
     numpy and are copied to each device once, when a node first runs
     there."""
 
@@ -120,14 +121,12 @@ class BatchRenderer:
         tri_mask = np.zeros((num_objs, Tm), bool)
         has_mesh = np.zeros(num_objs, bool)
         for oid, mesh in (render_meshes or {}).items():
-            if hasattr(mesh, "vertices"):
-                raise NotImplementedError(
-                    "render meshes from the importer's SourceMesh are not ported to "
-                    "gpu_ecs_madrona_tpu_torch yet (ROADMAP: the learner and tooling "
-                    "layer, utils/importer.py); pass (verts, tris)")
-            verts, tris = mesh
-            verts = np.asarray(verts, np.float32)
-            tris = np.asarray(tris, np.int32)
+            if hasattr(mesh, "vertices"):  # SourceMesh: triangulate fans
+                verts, _, _, tris = importer.index_mesh(mesh)
+            else:
+                verts, tris = mesh
+                verts = np.asarray(verts, np.float32)
+                tris = np.asarray(tris, np.int32)
             if len(tris) > Tm:
                 raise ValueError(f"render mesh for object {oid} has {len(tris)} "
                                  f"triangles > max_tris={Tm}")

@@ -47,12 +47,23 @@ prints one JSON line:
              copies), else fused_substep alone (its flags were PyTorch
              glue); so also fused_node_settled, the device ms of the whole
              fused node at the settled pile, which is the same work in both
+  digests    a SHA-256 of the outputs of each row's call in ms (every output
+             tensor's bytes, keys in order): two checkouts whose kernels give
+             the same outputs bit for bit print the same digests
   settled    at the settled pile after those steps: the host ms a run of
              the fused node takes to queue its work (20 runs, no sync
              between), the device ops it queues (torch.profiler, by
              name), and over 20 steps
              the device busy share of the wall time and the device ops a
              step
+  hulls      where ROOT has the general-hull paths (tests/
+             test_torch_hull_scenes.py): the hull pile (rigid_bench at 8192 x
+             64 with the imported prism for its box, K = 256): env-steps/s
+             (main_rigid_hulls) after 3 untimed steps, the "hull" launch's ms
+             at its state after 253 steps (hull_K256) and at K = 128
+             (hull_K128), and the settled hull pile's launch
+             (hull_persist_settled, main_rigid_hulls_settled's rate) after
+             400 + 253 steps
   phases     (--phases) row 7's time at main_rigid's state with 0, 1 and 4
              substeps, with every slot cleared (the integrate and the body
              phases), with only the slots of one contact kind valid; row
@@ -84,6 +95,28 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def digest(x):
+    """SHA-256 of the tensors in x (a tensor, or dicts and tuples of them,
+    dict keys in sorted order), their bytes as they are on the card."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+
+    def walk(v):
+        if isinstance(v, dict):
+            for k in sorted(v):
+                h.update(k.encode())
+                walk(v[k])
+        elif isinstance(v, (tuple, list)):
+            for item in v:
+                walk(item)
+        elif isinstance(v, torch.Tensor):
+            h.update(v.detach().contiguous().cpu().numpy().tobytes())
+    walk(x)
+    return h.hexdigest()[:16]
 
 
 def rate(sim, steps=50, count=5):
@@ -182,8 +215,12 @@ def occupancy(ctypes, lib, n, K):
     for code, name in ((0, "none"), (1, "refresh"), (2, "sleep"), (3, "refresh+sleep"),
                        (4, "bp"), (5, "refresh+bp"), (13, "refresh+bp+persist"),
                        (15, "refresh+sleep+bp+persist")):
-        rc = lib.fused_substep_occupancy(code, n, K, ctypes.byref(t), ctypes.byref(b))
-        out[name] = [t.value, b.value] if rc == 0 else f"cudaError {rc}"
+        for bit, suffix in ((0, ""), (16, "+hull")):
+            rc = lib.fused_substep_occupancy(code | bit, n, K, ctypes.byref(t), ctypes.byref(b))
+            if rc == 0:
+                out[name + suffix] = [t.value, b.value]
+            elif not bit:
+                out[name] = f"cudaError {rc}"
     return out
 
 
@@ -202,12 +239,60 @@ def stg_case(torch, ms, rates, res):
     kw1 = RS.substep_kernel_inputs(RS.next_step_kernel_inputs(ssim, stg.Sphere, stg.OBJMGR))
     kern1 = sk.SubstepKernel(stg.OBJMGR, relaxation=0.7)
     ms["row5_substep"] = cuda_ms(torch, lambda: kern1(**kw1), 200)
+    res.setdefault("digests", {})["row5_substep"] = digest(kern1(**kw1))
     if hasattr(sk.SubstepKernel, "step"):
         kern = RS.substep_kernel(ssim)
         kwn = RS.next_step_kernel_inputs(ssim, stg.Sphere, stg.OBJMGR, node=True)
         ms["row5_node"] = cuda_ms(torch, lambda: kern.step(**kwn), 200)
+        res["digests"]["row5_node"] = digest(kern.step(**kwn))
     ms["stg_substep_node"], node = node_profile(torch, ssim, "physics_substep_0")
     res["stg"] = dict(node, pairs_per_world_max=int(kw1["kvalid"].sum(1).max()))
+
+
+def hull_case(torch, root, ms, rates, res):
+    """The hulls case (see the module doc), where ROOT has the hull scenes."""
+    if not os.path.exists(os.path.join(root, "tests", "test_torch_hull_scenes.py")):
+        res["hulls"] = "no general-hull paths in this checkout"
+        return
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import test_torch_hull_scenes as hs
+    from gpu_ecs_madrona_tpu_torch import physics as phys
+    from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
+    RS = phys.RigidBodyPhysicsSystem
+
+    def hull_sim(**cfg):
+        return hs.hull_pile(rb.RigidBenchConfig(**dict(hs.HULL_PILE, **cfg)), device="cuda")
+
+    def inputs(sim):
+        return RS.next_step_kernel_inputs(sim, rb.Body, sim.world_cls.objmgr)
+
+    for K in (256, 128):
+        sim = hull_sim(max_candidates=K)
+        sim.run(3)
+        sim.block_until_ready()
+        if K == 256:
+            rates["main_rigid_hulls"] = rate(sim)
+        else:
+            sim.run(250)
+        kern, kw = RS.fused_kernel(sim), inputs(sim)
+        ms[f"hull_K{K}"] = cuda_ms(torch, lambda: kern(**kw))
+        if K == 256:
+            res["hulls"] = {"live_slots": {k: int(v.sum()) for k, v in kind_masks(
+                torch, kw, sim.world_cls.objmgr["prim_type"]).items()}}
+        del sim, kw
+    settled = hull_sim(**{k: v for k, v in hs.HULL_SETTLED.items() if k not in hs.HULL_PILE})
+    settled.run(rb.SETTLE_STEPS + 3)
+    rates["main_rigid_hulls_settled"] = rate(settled)
+    pkern, kwp = RS.fused_kernel(settled), inputs(settled)
+    fkw = RS.next_step_kernel_inputs(settled, rb.Body, None, flags=True)
+    opts = dict(mcache_out=kwp["mcache"].clone(), keep_velocity=True,
+                anchors=tuple(fkw[k].clone() for k in ("apos", "arot", "valid")))
+    kwl = {k: x for k, x in kwp.items() if k not in ("im", "ii", "mu_s", "mu_d")}
+    ms["hull_persist_settled"] = cuda_ms(torch, lambda: (phys.subk.world_flags(**fkw),
+                                                         pkern(**kwl, **opts)))
+    res["hulls"]["settled_branches"] = {
+        "asleep": int((~kwp["active"]).sum()),
+        "awake_stable": int((kwp["active"] & kwp["stable"]).sum())}
 
 
 def one(root, phases, stg_only):
@@ -234,7 +319,9 @@ def one(root, phases, stg_only):
                 bits = entry.split("world_flags_kernelILb")[1]      # "1ELb0E..."
                 entry = f"world_flags<{bits[0]},{bits[4]}>"
             elif "substep_kernelILb" in entry:
-                entry = "substep<" + entry.split("substep_kernelILb")[1][0] + ">"
+                bits = entry.split("substep_kernelILb")[1]         # "1ELb0E..." or "1EE..."
+                entry = "substep<" + ",".join(
+                    [bits[0]] + ([bits[4]] if bits[2:4] == "Lb" else [])) + ">"
             else:
                 entry = next(k for k in ("asleep_surface_kernel", "substep_kernel")
                              if k in entry)
@@ -276,11 +363,17 @@ def one(root, phases, stg_only):
         sims[name] = sim
     kern = sk.FusedSubstepKernel(om, 4, relaxation=0.7)
     kw256, kw128 = inputs(sims["main_rigid"]), inputs(sims["main_rigid_k128"])
-    ms["row7_K256"] = cuda_ms(torch, lambda: kern(**kw256))
-    ms["row6_K128"] = cuda_ms(torch, lambda: kern(**kw128))
+    digests = res.setdefault("digests", {})
+
+    def timed(name, fn):
+        ms[name] = cuda_ms(torch, fn)
+        digests[name] = digest(fn())
+
+    timed("row7_K256", lambda: kern(**kw256))
+    timed("row6_K128", lambda: kern(**kw128))
     bkern = phys.RigidBodyPhysicsSystem.fused_kernel(sims["main_rigid_fused_bp"])
     kwb = inputs(sims["main_rigid_fused_bp"])
-    ms["row8_bp"] = cuda_ms(torch, lambda: bkern(**kwb))
+    timed("row8_bp", lambda: bkern(**kwb))
 
     settled = executor(**dict(rb.SETTLED_PILE, max_candidates=256))
     settled.run(rb.SETTLE_STEPS + 3)
@@ -301,8 +394,8 @@ def one(root, phases, stg_only):
     else:
         def launch(kw):
             return lambda: pkern(**kw)
-    ms["row9_persist_settled"] = cuda_ms(torch, launch(kwp))
-    ms["row9_persist_flipped"] = cuda_ms(torch, launch(flipped))
+    timed("row9_persist_settled", launch(kwp))
+    timed("row9_persist_flipped", launch(flipped))
     ms["fused_node_settled"], res["settled"] = settled_profile(torch, settled)
     del settled
     nsim = executor(**dict(rb.SETTLED_PILE, max_candidates=256, manifold_persist=False,
@@ -310,12 +403,13 @@ def one(root, phases, stg_only):
     nsim.run(rb.SETTLE_STEPS + 3)
     rates["main_rigid_settled_nopersist"] = rate(nsim)
     nkern, kwn = phys.RigidBodyPhysicsSystem.fused_kernel(nsim), inputs(nsim)
-    ms["row8_refresh_settled_nopersist"] = cuda_ms(torch, lambda: nkern(**kwn))
+    timed("row8_refresh_settled_nopersist", lambda: nkern(**kwn))
     del nsim
 
     res.update(ms=ms, rates=rates, live_slots={
         "main_rigid": {k: int(v.sum()) for k, v in kind_masks(
             torch, kw256, om["prim_type"]).items()}})
+    hull_case(torch, root, ms, rates, res)
 
     if phases:
         ph = {}

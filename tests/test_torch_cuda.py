@@ -54,6 +54,7 @@ import test_torch_render_scenes as scenes
 import test_torch_rl_cases as rl_cases
 import test_torch_sap_cases as sap_cases
 import test_torch_simple_jobs_cases as sj_cases
+import test_torch_hull_scenes as hull_scenes
 from test_torch_joint_scenes import joint_world, random_joints
 
 
@@ -66,6 +67,7 @@ def card():
     sk.fused_simple_jobs_step.launches = 0
     subk.FusedSubstepKernel.launches = 0
     subk.SubstepKernel.launches = 0
+    subk.SubstepKernel.hull_launches = 0
     subk.WorldFlags.launches = 0
     subk.AsleepSurface.launches = 0
     rk.RenderKernel.launches = 0
@@ -413,7 +415,17 @@ def test_simple_jobs_on_card_matches_cpu(card):
 
 def fused_inputs(sim):
     """The fused substep kernel's inputs for sim's next step."""
-    return RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, rb.Body, rb.RigidBenchWorld.objmgr)
+    return RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, rb.Body, sim.world_cls.objmgr)
+
+
+def over_the_caps(om=None):
+    """An object manager (rigid_bench's by default) with its box taken as a
+    general hull of 40 table verts (zero rows past its 8): over the
+    kernel's 32."""
+    om = dict(rb.RigidBenchWorld.objmgr if om is None else om)
+    om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
+    om["verts"] = np.pad(om["verts"], ((0, 0), (0, 32), (0, 0)))
+    return om
 
 
 POSE_KEYS = ("pos", "rot", "prev_pos", "prev_rot", "ps_pos", "ps_rot")
@@ -454,10 +466,8 @@ def test_fused_substep_rejects_bad_input(card):
         subk.fused_substep(**dict(args, pos=kw["pos"].double()))
     with pytest.raises(ValueError):
         subk.fused_substep(**dict(args, rows_i=kw["rows_i"].cpu()))
-    om = dict(rb.RigidBenchWorld.objmgr)
-    om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
-    with pytest.raises(NotImplementedError, match="general-hull"):
-        subk.fused_substep(**dict(args, tables=subk.pk.ObjTables(om)))
+    with pytest.raises(NotImplementedError, match="general-hull tables with 40 verts"):
+        subk.fused_substep(**dict(args, tables=subk.pk.ObjTables(over_the_caps())))
     assert subk.FusedSubstepKernel.launches == 0
 
 
@@ -494,10 +504,8 @@ def test_substep_rejects_bad_input(card):
         subk.substep(**dict(args, prev_rot=a["prev_rot"].double()))
     with pytest.raises(ValueError):
         subk.substep(**dict(args, kvalid=a["kvalid"].cpu()))
-    om = dict(rb.RigidBenchWorld.objmgr)
-    om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
-    with pytest.raises(NotImplementedError, match="general-hull"):
-        subk.substep(**dict(args, tables=subk.pk.ObjTables(om)))
+    with pytest.raises(NotImplementedError, match="general-hull tables with 40 verts"):
+        subk.substep(**dict(args, tables=subk.pk.ObjTables(over_the_caps())))
     assert subk.SubstepKernel.launches == 0
 
 
@@ -605,9 +613,8 @@ def test_substep_node_rejects_bad_input(card):
     with pytest.raises(ValueError):
         bad = dict(opts["joints"], attach_rot1=opts["joints"]["attach_rot1"][..., :3].contiguous())
         subk.substep_node(*args, **dict(opts, joints=bad))
-    om = dict(kern.tables.om)
-    om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
-    with pytest.raises(NotImplementedError, match="general-hull"):
+    om = over_the_caps(kern.tables.om)
+    with pytest.raises(NotImplementedError, match="general-hull tables with 40 verts"):
         subk.substep_node(*args, **dict(opts, tables=subk.pk.ObjTables(om)))
     assert subk.SubstepKernel.launches == 0
 
@@ -1428,3 +1435,107 @@ def test_reset_on_card_matches_cpu(card, which):
     for a, b in zip(gpu, cpu):
         assert torch.equal(a, b)
     assert int((cpu[2][1:] == 1).sum()) >= 64 * 3    # resets happened
+
+
+# -- general hulls: the imported prism of tests/test_torch_hull_scenes.py -----
+
+# the general-hull specialisations, each on a hull pile (prisms and spheres,
+# or prisms only) with its options; mixes of sleep and stable flags set
+HULL_CASES = {"none_K256": dict(max_candidates=256), "none_K128": dict(max_candidates=128),
+              "stacked": dict(body_mix="boxes"), **OPTION_CASES}
+
+
+def hull_case(case, dev, W=64):
+    """(kernel, inputs) of a hull pile case at a mid-pile state (or, for
+    "stacked", prisms resting face on face in columns), every branch
+    taken."""
+    cfg = dict(dict(contact_mode="pallas", spawn_xy=3.0, spawn_h=5.0, seed=3, num_worlds=W),
+               **HULL_CASES[case])
+    sim = hull_scenes.hull_pile(rb.RigidBenchConfig(**cfg), device=dev)
+    if case == "stacked":
+        hull_scenes.stack_prisms(sim)
+    sim.run(0 if case == "stacked" else 6)
+    kw = fused_inputs(sim)
+    worlds = torch.arange(W, device=dev)
+    if "active" in kw:
+        kw["active"] = worlds % 3 != 1
+    if "stable" in kw:
+        kw["stable"] = worlds % 2 == 0
+    return RigidBodyPhysicsSystem.fused_kernel(sim), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HULL_CASES))
+def test_fused_substep_hull_matches_plain(card, case):
+    """Each fused specialisation on general-hull tables (its "+hull" launch)
+    against the plain version: integers exact, poses, stashes, AABBs and the
+    cache atol 1e-4, velocities atol 1e-3; two launches bit-identical."""
+    kern, kw = hull_case(case, card)
+    assert not kern.tables.all_box
+    subk.FusedSubstepKernel.launches_by_options.clear()
+    got, again = kern(**kw), kern(**kw)
+    torch.cuda.synchronize()
+    (name, count), = subk.FusedSubstepKernel.launches_by_options.items()
+    assert count == 2 and name.endswith("hull"), name
+    want = kern.plain(**kw)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], again[k]), k
+        if k in INT_KEYS:
+            assert torch.equal(got[k], want[k]), k
+            continue
+        assert torch.isfinite(got[k]).all(), k
+        atol = 1e-4 if k in POSE_KEYS or k in ("aabb_lo", "aabb_hi", "mcache") else 1e-3
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=atol, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pile", "stacked", "joints"])
+def test_substep_hull_matches_plain(card, case):
+    """Kernel 5 on general-hull tables: without FULL on a hull pile's first
+    substep (a mid-pile state, stacked prisms), and its node launch on the
+    joint world with the prism for its boxes; parity_substep's gates, two
+    launches bit-identical."""
+    if case == "joints":
+        sim = joint_world("pallas", num_worlds=8, device=card, body=hull_scenes.prism_object())
+        sim.run(5)
+        kern = RigidBodyPhysicsSystem.substep_kernel(sim)
+        kw = RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, None, None, node=True)
+        torch.cuda.synchronize()
+        subk.SubstepKernel.launches = subk.SubstepKernel.hull_launches = 0
+        got, again = kern.step(**kw), kern.step(**kw)
+        want = kern.step_plain(**kw)
+    else:
+        fkern, fkw = hull_case("none_K256" if case == "pile" else "stacked", card)
+        kw = RigidBodyPhysicsSystem.substep_kernel_inputs(fkw)
+        tables = fkern.tables
+        got, again = (subk.substep(**kw, tables=tables, relaxation=0.7) for _ in range(2))
+        want = subk.substep_plain(**kw, tables=tables, relaxation=0.7)
+    torch.cuda.synchronize()
+    assert subk.SubstepKernel.launches == subk.SubstepKernel.hull_launches == 2
+    for k in want:
+        assert torch.isfinite(got[k]).all() and torch.equal(got[k], again[k]), k
+        torch.testing.assert_close(got[k], want[k], rtol=0,
+                                   atol=1e-4 if k in POSE_KEYS else 1e-3, msg=k)
+
+
+@pytest.mark.cuda
+def test_hull_tables_over_the_caps_are_refused(card):
+    """A general-hull table over a cap is refused by name on the card,
+    before any launch; at the caps it launches."""
+    kern, kw = hull_case("none_K256", card, W=4)
+    tables = kern.tables
+    wide = dict(tables.om)
+    wide["edge_dirs"] = np.pad(wide["edge_dirs"], ((0, 0), (0, 13), (0, 0)))
+    subk.FusedSubstepKernel.launches = 0
+    with pytest.raises(NotImplementedError, match="17 edge directions per hull > 16"):
+        subk.fused_substep(**kw, tables=subk.pk.ObjTables(wide), num_substeps=4)
+    assert subk.FusedSubstepKernel.launches == 0
+    wide["edge_dirs"] = wide["edge_dirs"][:, :16]
+    out = subk.fused_substep(**kw, tables=subk.pk.ObjTables(wide), num_substeps=4)
+    want = subk.fused_substep_plain(**kw, tables=tables, num_substeps=4)
+    torch.cuda.synchronize()
+    assert subk.FusedSubstepKernel.launches == 1
+    for k in subk.OUT_KEYS:
+        torch.testing.assert_close(out[k], want[k], rtol=0,
+                                   atol=1e-4 if k in POSE_KEYS else 1e-3, msg=k)

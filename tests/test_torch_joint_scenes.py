@@ -24,15 +24,17 @@ HINGE = np.array([0.0, 0.0, 5.4], np.float32)
 SWING = 0.2
 
 
-def joint_scene(physics, bmod, cmod, Arch, conv, contact_mode):
+def joint_scene(physics, bmod, cmod, Arch, conv, contact_mode, body=None):
     """The joint scene's World class (its archetype at ``World.Body``), 4
     substeps, from a package's ``physics``, ``base`` and physics
     ``components`` modules, its Archetype class and ``conv(x, dtype)``
     (numpy to the package's array on its device): the port's, or the JAX
-    package's in tests/test_torch_joint_world.py."""
+    package's in tests/test_torch_joint_world.py.  ``body``: the object of
+    every body but the plane (default a box of half extent 0.5; e.g. the
+    imported prism of tests/test_torch_hull_scenes.py)."""
     loader = physics.assets.PhysicsLoader()
     loader.load_objects([physics.assets.make_plane(),
-                         physics.assets.make_box((0.5, 0.5, 0.5), inv_mass=1.0)])
+                         body or physics.assets.make_box((0.5, 0.5, 0.5), inv_mass=1.0)])
     om = loader.get_object_manager()
     Body = Arch("JointBody", physics.BODY_COMPONENTS)
     down = np.array([math.sin(SWING), 0.0, -math.cos(SWING)], np.float32)
@@ -89,11 +91,12 @@ def joint_scene(physics, bmod, cmod, Arch, conv, contact_mode):
     return World
 
 
-def joint_world(contact_mode="pallas", num_worlds=2, device="cpu"):
-    """The joint scene's executor in the port on ``device``."""
+def joint_world(contact_mode="pallas", num_worlds=2, device="cpu", body=None):
+    """The joint scene's executor in the port on ``device`` (``body`` as in
+    joint_scene)."""
     def conv(x, dt=np.float32):
         return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dt))).to(device)
-    World = joint_scene(physics, base, comp, Archetype, conv, contact_mode)
+    World = joint_scene(physics, base, comp, Archetype, conv, contact_mode, body)
     return TaskGraphExecutor(World, ExecutorConfig(
         num_worlds=num_worlds, max_entities_per_world=16, seed=0, device=device))
 

@@ -288,12 +288,16 @@ def test_auto_contact_mode_is_the_kernel_above_48_rows():
 
 
 def test_kernel_refuses_general_hulls_on_the_card_path():
-    """The CUDA route takes all-box tables only; the reason names the
-    ROADMAP item (the plain version on the CPU takes any hull)."""
+    """The CUDA route takes general hulls up to PhysicsLoader()'s defaults
+    (here the box taken as a general hull) and refuses, by name, general
+    hulls over its caps (here 40 verts); all-box tables take the box
+    paths."""
     om = dict(rb.default_object_manager())
     om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
+    assert sk.kernel_fits(sk.pk.ObjTables(om), 65, 256) == ""
+    om["verts"] = np.pad(om["verts"], ((0, 0), (0, 32), (0, 0)))
     why = sk.kernel_fits(sk.pk.ObjTables(om), 65, 256)
-    assert "general-hull SAT" in why and "ROADMAP" in why
+    assert why == f"general-hull tables with 40 verts per hull > {sk.MAX_TABLE_VERTS}"
     assert sk.kernel_fits(sk.pk.ObjTables(rb.default_object_manager()), 65, 256) == ""
 
 

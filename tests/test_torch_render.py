@@ -206,9 +206,6 @@ def test_route_selection():
         route(backend="pallas", exact_hulls=False)
     with pytest.raises(ValueError, match="unknown renderer backend"):
         route(backend="vulkan")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        renderer.BatchRenderer(renderer.RendererConfig(), om,
-                               render_meshes={0: type("SourceMesh", (), {"vertices": []})()})
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])

@@ -159,6 +159,41 @@ def sphere_mesh(W=2, res=16, n_lat=3, n_lon=4):
                 mask=tile(np.array([True, True, True, True, False])))
 
 
+def prism_mesh(W=2, res=16):
+    """The imported-hull pile's objects (tests/test_torch_hull_scenes.py:
+    the hexagonal prism, a sphere, the plane) with the prism's importer
+    SourceMesh as its render mesh, through the renderer's SourceMesh
+    branch (index_mesh's fan triangles): three prisms at three rotations
+    and scales, a sphere, the ground plane and a dead row."""
+    import test_torch_hull_scenes as hs
+    from gpu_ecs_madrona_tpu_torch.render import renderer
+    from gpu_ecs_madrona_tpu_torch.utils import importer
+    om = hs.hull_object_manager(assets, importer)
+    mesh = importer.parse_obj_bytes(hs.prism_obj().encode())
+    mt = renderer.BatchRenderer(renderer.RendererConfig(backend="xla"), om,
+                                render_meshes={0: mesh}).mesh
+    ro, rd = _views([[((0.0, -3.0, 1.5), (1.0, 0, 0, 0), 90.0)]] * W, res)
+    pos = np.array([[0.0, 1.0, 1.0], [1.2, 2.0, 1.5], [-1.0, 0.8, 0.6], [0.3, 0.2, 2.2],
+                    [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]], np.float32)
+    pos = pos[None] + (np.arange(W, dtype=np.float32) * 0.2)[:, None, None] * \
+        np.array([0.0, 0.0, 1.0], np.float32)
+    q1 = np.array([np.cos(0.4), np.sin(0.4), 0.0, 0.0], np.float32)
+    q2 = np.array([np.cos(0.7), 0.0, 0.0, np.sin(0.7)], np.float32)
+    rot = np.array([q1, q2, [1, 0, 0, 0], [1, 0, 0, 0], [1, 0, 0, 0], [1, 0, 0, 0]],
+                   np.float32)
+    scale = np.array([[1, 1, 1], [1.5, 1.0, 0.8], [1, 1, 1], [1, 1, 1], [1, 1, 1], [1, 1, 1]],
+                     np.float32)
+
+    def tile(a):
+        return np.broadcast_to(a, (W,) + a.shape).copy()
+    return dict(om=om, albedo=np.array([[0.8, 0.5, 0.2], [0.3, 0.3, 0.8], [0.4, 0.6, 0.4]],
+                                       np.float32),
+                mesh_tables=mt, ro=ro, rd=rd, img_w=res, pos=pos.astype(np.float32),
+                rot=tile(rot), scale=tile(scale),
+                obj=tile(np.array([0, 0, 0, 1, 2, 0], np.int32)),
+                mask=tile(np.array([True, True, True, True, True, False])))
+
+
 def inside_wrapping(W=2):
     """The inside scene at 6 x 6: its two views stack as 12 rows, so the
     kernel's 8 x 4 tile over rows 4-7 spans both back-to-back views and its
@@ -167,7 +202,7 @@ def inside_wrapping(W=2):
 
 
 SCENES = {"pallas_scene": pallas_scene, "two_views": two_views, "inside": inside,
-          "sphere_mesh": sphere_mesh}
+          "sphere_mesh": sphere_mesh, "prism_mesh": prism_mesh}
 # the CUDA kernel's cases: the scenes and a tile whose cone wraps
 CARD_SCENES = dict(SCENES, inside_wrapping=inside_wrapping)
 
@@ -193,13 +228,14 @@ def torch_views(views, device="cpu"):
 
 
 # name: (W, views of the camera archetype, max_views, dead (world, view), H,
-# Wpx, the scene: the pallas scene's hulls, sphere and plane, or the sphere
-# mesh scene's triangle meshes)
+# Wpx, the scene: the pallas scene's hulls, sphere and plane, the sphere
+# mesh scene's triangle meshes, or the prism's importer SourceMesh)
 VIEW_CASES = {"one_view": (2, 1, 1, (), 16, 16, "pallas_scene"),
               "two_views_dead": (3, 2, 2, ((1, 1), (2, 0)), 16, 16, "pallas_scene"),
               "24x40": (2, 2, 2, ((0, 1),), 24, 40, "pallas_scene"),
               "18x30": (4, 3, 2, ((3, 1),), 18, 30, "pallas_scene"),
-              "mesh": (2, 2, 2, (), 16, 16, "sphere_mesh")}
+              "mesh": (2, 2, 2, (), 16, 16, "sphere_mesh"),
+              "source_mesh": (2, 2, 2, ((1, 1),), 16, 16, "prism_mesh")}
 
 
 def view_case(name, device="cpu"):

@@ -88,6 +88,12 @@ def test_limits_match_the_cu():
     c = cu_constants()
     assert sk.MAX_BP_ROWS == c["kMaxBpRows"] == 32 * c["kBpWords"]
     assert sk.MAX_TABLE_VERTS == c["kMaxVerts"]
+    assert sk.MAX_BOX_TABLE_VERTS == c["kMaxBoxVerts"]
+    assert (sk.MAX_HULL_FACES, sk.MAX_HULL_SAT_AXES, sk.MAX_HULL_EDGE_DIRS,
+            sk.MAX_HULL_FACE_VERTS, sk.MAX_HULL_FULL_EDGES) == (
+        c["kMaxFaces"], c["kMaxSatAxes"], c["kMaxEdgeDirs"], c["kMaxFaceVerts"],
+        c["kMaxFullEdges"])
+    assert sk.OPT_HULL == c["kOptHull"]
     assert sk.MC_CACHE == c["kCacheCh"]
     assert sk.MAX_SMEM_BYTES == 227 * 1024
     assert sk.MAX_THREADS == c["kMaxThreads"]
@@ -126,6 +132,22 @@ def test_shared_memory_above_227_kb_is_refused(bp, cache):
     assert sk.kernel_fits(tables, 65, K, bp, cache) == ""
     why = sk.kernel_fits(tables, 65, K + 1, bp, cache)
     assert "shared memory" in why and str(sk.MAX_SMEM_BYTES) in why
+
+
+def test_hull_table_layout_matches_the_cu():
+    """pairs.ObjTables.hull_table's row (hull_dims) is the .cu's Table::h
+    layout: kHullHead counts, Fm faces of kFaceHead + kCornerFl FVm floats,
+    3 Sm + 3 Em + 6 EFm floats (set_hull's check)."""
+    import numpy as np
+    c = cu_constants()
+    om = dict(rb.default_object_manager())
+    om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
+    tables = sk.pk.ObjTables(om)
+    hs_, Fm, Sm, Em, FVm, EFm = tables.hull_dims()
+    assert hs_ == (c["kHullHead"] + Fm * (c["kFaceHead"] + c["kCornerFl"] * FVm) + 3 * Sm
+                   + 3 * Em + 6 * EFm)
+    assert tuple(tables.hull_table("cpu").shape) == (tables.O, hs_)
+    assert sk.pk.ObjTables(rb.default_object_manager()).hull_table("cpu") is None
 
 
 def test_broadphase_above_128_rows_is_refused():
