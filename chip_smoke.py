@@ -8,7 +8,8 @@ fantasy_vs at 16384 worlds x 50 dragons + 200 knights, rigid_bench
 in the fused kernel, and the settled pile with its options; at 32 bodies
 in the dense contact mode, and at 200 with the sap broadphase; and a pile of
 convex hulls imported from an .obj file, at 64 bodies and at the settled
-pile's options) and simple_taskgraph
+pile's options, also of a 24-sided prism past PhysicsLoader()'s default
+caps) and simple_taskgraph
 (physics and the batch renderer) at 1024 worlds x 100 spheres with 64 x 64
 RGB and depth — through every kernel they run, and holds every kernel
 against its plain PyTorch version; and trains the PPO learner on
@@ -104,7 +105,12 @@ Phases:
            node launch on the joint world with the prism for its boxes;
            parity_substep's gates, each case's candidates and touching pairs
            by kind (the SAT's face and edge outcomes, sphere-hull and
-           hull-plane must all be reached)
+           hull-plane must all be reached); the same for the 24-sided prism
+           (tests/test_torch_hull_scenes.py's large hull: 48 verts, 24-vertex
+           caps, 72 full edges) at 128 x 65 rows (its plain version's SAT
+           tensors grow with the edge pairs), "none" after 3 steps, stacked,
+           the settled options after 30 steps, kernel 5 without FULL; every
+           general-hull case bit for bit its plain version (max_abs_err 0)
   golden_physics   the reference binary's 1-substep physics goldens
            (cubes_fall, cube_pair, cube_stack, cube_bounce) and the
            free-fall check on the card, kernel and pairs modes, with
@@ -178,7 +184,18 @@ Phases:
            boxes (grid spawn, the broadphase in the kernel, refresh,
            persistence, sleep), 400 untimed steps, then 5 windows of 50:
            launches of "refresh+sleep+bp+persist+hull", the world flags and
-           the asleep worlds' kernel = steps; stable and asleep worlds seen
+           the asleep worlds' kernel = steps; stable worlds seen; and, right
+           after the 400 steps and for 10 more (untimed), each step's motion
+           against the sleep threshold ("motion_after_settle"): the share
+           of worlds whose largest dynamic |v|^2 + |w|^2 passes
+           sleep_threshold^2 (the sleep classifier's test), quantiles of the
+           worlds' largest |v|^2 and |w|^2, the bodies above the threshold
+           by pose (a prism on a cap, on a side, tilted) and the quiet-step
+           counters (no world falls asleep: the prisms keep rocking, as in
+           the JAX package, tests/test_torch_hull_sleep.py)
+  main_rigid_hulls_large   main_rigid_hulls with the 24-sided prism for object
+           0 (tables past PhysicsLoader()'s defaults): launches = steps, all
+           of the "hull" specialisation, finite positions, env-steps/s
   parity_substep_options   each option's kernel specialisation vs its
            plain version at 8192 x 65: refresh over given rows at K = 256
            and 128, sleep with mixed active flags, the broadphase at K = 256
@@ -273,8 +290,10 @@ Phases:
            device operations it queues (a captured CUDA graph's nodes).
            The general-hull specialisations at the hull piles' states (20
            calls, beside their plain versions; the operations counted from
-           the .cu per prism pair, contact_ops), and kernel 5's node launch
-           on the joint world with prisms.
+           the .cu per prism pair, contact_ops), kernel 5's node launch on
+           the joint world with prisms, and the "hull" launch at
+           main_rigid_hulls_large's state (its plain version at 128 of the
+           worlds, its work counted over all of them in blocks of worlds).
            substep_occupancy: each fused specialisation's [threads a CTA,
            CTAs an SM] at 65 rows and
            K = 256 and 128, and the single-substep kernel's at 104 rows, K =
@@ -1121,7 +1140,8 @@ def golden_physics(torch, phys, sk):
 
 
 def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_counts,
-               specialisation="none", settle=3, also=(), bodies=RB_BODIES, make=None):
+               specialisation="none", settle=3, also=(), bodies=RB_BODIES, make=None,
+               probe=None):
     """rigid_bench at 8192 worlds x ``bodies`` (64) in configuration ``cfg``
     (RigidBenchConfig keywords): ``settle`` untimed steps, then ``count``
     windows of ``steps`` steps; launches = steps, all of the kernel
@@ -1131,11 +1151,13 @@ def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_coun
     temporaries; the peak of allocated device memory over the windows.
     ``make(config, device)``: the executor's maker (default
     rb.make_executor; the hull pile's tests/test_torch_hull_scenes.py
-    hull_pile)."""
+    hull_pile).  ``probe(sim)``, called after the settle steps (its steps
+    untimed and not counted), goes into the line as "probe"."""
     make = make or rb.make_executor
     sim = make(rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=bodies, **cfg),
                device="cuda")
     sim.run(settle)
+    probed = probe(sim) if probe else None
     sim.block_until_ready()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1163,7 +1185,7 @@ def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_coun
                  "launches_by_specialisation": by_options, "overflow_sum": overflow,
                  "env_steps_per_s": rates(steps, wins, RB_WORLDS),
                  "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                 "card": card}
+                 "card": card, **({"probe": probed} if probe else {})}
 
 
 # -- the sap broadphase and the dense contact mode -----------------------------
@@ -1746,6 +1768,68 @@ def option_timing(torch, kern, kw):
 # -- imported convex hulls: the general-hull paths ---------------------------
 
 HULL_SETTLE_STACKED = 30          # steps of the stacked prisms before the persist case
+# the 24-sided prism's parity worlds: its plain version's SAT holds [W, 169
+# edge pairs, 48 verts, K] tensors
+LARGE_PARITY_WORLDS = 128
+LARGE_STEPS, LARGE_WINDOWS = 10, 3  # main_rigid_hulls_large's windows
+MOTION_STEPS = 10                 # steps of motion_after_settle
+
+
+def world_chunks(kw, size):
+    """kw (a kernel's inputs) cut into blocks of ``size`` worlds: every
+    tensor whose first axis is the worlds' sliced, the rest as it is."""
+    W = kw["obj"].shape[0]
+    for a in range(0, W, size):
+        yield {k: v[a:a + size] if hasattr(v, "shape") and v.dim() and v.shape[0] == W else v
+               for k, v in kw.items()}
+
+
+def motion_line(torch, rb, sim, thr):
+    """The settled hull pile's motion against the sleep threshold ``thr``:
+    the share of worlds whose largest dynamic |v|^2 + |w|^2 passes thr^2
+    (the sleep classifier's moving test), quantiles (0.5, 0.9, 1.0) of the
+    worlds' largest |v|^2 and |w|^2, the dynamic bodies above the
+    threshold by pose (the prism's axis within 0.01 of vertical: on a cap;
+    of horizontal: on a side; else tilted), the asleep share and the worlds
+    by quiet-step counter (0, between, at sleep_frames)."""
+    from gpu_ecs_madrona_tpu_torch.core import base
+    from gpu_ecs_madrona_tpu_torch.physics import components as comp
+    vel = sim.mgr.column(sim.state, rb.Body, comp.Velocity)
+    rot = sim.mgr.column(sim.state, rb.Body, base.Rotation)
+    dyn = ((sim.mgr.column(sim.state, rb.Body, comp.ResponseType) == comp.RESPONSE_DYNAMIC)
+           & sim.mgr.row_mask(sim.state, rb.Body))
+    v2 = torch.where(dyn, (vel["linear"] ** 2).sum(-1), 0.0)
+    w2 = torch.where(dyn, (vel["angular"] ** 2).sum(-1), 0.0)
+    above = dyn & (v2 + w2 > thr * thr)
+    up = (1.0 - 2.0 * (rot[..., 1] ** 2 + rot[..., 2] ** 2)).abs()
+    q = torch.tensor([0.5, 0.9, 1.0], device=v2.device)
+    sleep = sim.state["singleton"]["SleepState"]
+    quiet = sleep["quiet_steps"]
+    frames = sim.world_cls.config.sleep_frames
+    return {"moving_world_share": float(above.any(1).float().mean()),
+            "world_max_v2_q50_q90_max": torch.quantile(v2.max(1).values, q).tolist(),
+            "world_max_w2_q50_q90_max": torch.quantile(w2.max(1).values, q).tolist(),
+            "bodies_above": int(above.sum()), "bodies": int(dyn.sum()),
+            "above_on_cap": int((above & (up > 0.99)).sum()),
+            "above_on_side": int((above & (up < 0.01)).sum()),
+            "above_tilted": int((above & (up >= 0.01) & (up <= 0.99)).sum()),
+            "asleep_share": float((sleep["asleep"] != 0).float().mean()),
+            "quiet_steps_0_mid_full": [int((quiet == 0).sum()),
+                                       int(((quiet > 0) & (quiet < frames)).sum()),
+                                       int((quiet >= frames).sum())]}
+
+
+def settle_motion(torch, rb, phys, steps):
+    """main_rigid's ``probe``: motion_line of the settled hull pile after its
+    settle steps and after each of ``steps`` more."""
+    def probe(sim):
+        thr = sim.world_cls.config.sleep_threshold
+        out = [motion_line(torch, rb, sim, thr)]
+        for _ in range(steps):
+            sim.step()
+            out.append(motion_line(torch, rb, sim, thr))
+        return out
+    return probe
 
 
 def hull_scenes():
@@ -1754,11 +1838,13 @@ def hull_scenes():
     return hs
 
 
-def hull_sim(rb, hs, steps=0, stacked=False, **cfg):
+def hull_sim(rb, hs, steps=0, stacked=False, large=False, **cfg):
     """The hull pile (tests/test_torch_hull_scenes.py, 8192 x 65 rows) in
     configuration HULL_PILE + ``cfg`` on the card, its prisms stacked face on
-    face with ``stacked``, after ``steps`` steps."""
-    sim = hs.hull_pile(rb.RigidBenchConfig(**dict(hs.HULL_PILE, **cfg)), device="cuda")
+    face with ``stacked``, the 24-sided prism with ``large``, after
+    ``steps`` steps."""
+    sim = hs.hull_pile(rb.RigidBenchConfig(**dict(hs.HULL_PILE, **cfg)), device="cuda",
+                       large=large)
     if stacked:
         hs.stack_prisms(sim)
     sim.run(steps)
@@ -1880,6 +1966,31 @@ def parity_hull(torch, rb, phys, sk):
     check(all(v > 0 for v in cases["persist_sleep_stacked_flipped"]["branches"].values()),
           "the flipped stacked case runs every branch")
     del psim, kwp
+    # the 24-sided prism (tables past PhysicsLoader()'s defaults), at 128
+    # worlds of 65 rows
+    lsim = hull_sim(rb, hs, 3, large=True, num_worlds=LARGE_PARITY_WORLDS)
+    lom = lsim.world_cls.objmgr
+
+    def lkernel(**opts):
+        return sk.FusedSubstepKernel(lom, 4, relaxation=0.7, **opts)
+
+    lkw = fused_inputs(lsim, rb, phys)
+    case("large_main_K256", lkernel(), lkw)
+    errs = substep1_case(torch, sk, sk.SubstepKernel(lom, relaxation=0.7),
+                         phys.RigidBodyPhysicsSystem.substep_kernel_inputs(lkw))
+    worst5 = max(worst5, max(errs.values()))
+    cases["large_single_substep_K256"] = {"kernel": "substep", "max_err": errs}
+    del lsim, lkw
+    lsim = hull_sim(rb, hs, 0, stacked=True, large=True, num_worlds=LARGE_PARITY_WORLDS,
+                    body_mix="boxes")
+    case("large_stacked_face_on_face", lkernel(), fused_inputs(lsim, rb, phys))
+    lsim = hull_sim(rb, hs, 0, stacked=True, large=True, num_worlds=LARGE_PARITY_WORLDS,
+                    **{k: v for k, v in hs.HULL_SETTLED.items() if k not in hs.HULL_PILE})
+    lsim.run(HULL_SETTLE_STACKED)
+    lkw = fused_inputs(lsim, rb, phys)
+    case("large_persist_sleep_stacked_flipped", phys.RigidBodyPhysicsSystem.fused_kernel(lsim),
+         flip_branches(torch, lkw), option=True)
+    del lsim, lkw
     # kernel 5's node launch: the joint world with the prism for its boxes
     jsim = hs_joint_world(hs)
     jkw = phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(jsim, None, None, node=True)
@@ -1901,6 +2012,11 @@ def parity_hull(torch, rb, phys, sk):
     check(all(reached.values()), f"parity_hull: a general path not reached {reached}")
     check(cases["stacked_face_on_face"]["touching_over_substeps"]["hull_hull_face"] > 0,
           "stacked prisms: no face pair")
+    check(cases["large_stacked_face_on_face"]["touching_over_substeps"]["hull_hull_face"] > 0,
+          "stacked 24-sided prisms: no face pair")
+    # the general-hull paths bit for bit their plain versions
+    check(worst == 0.0 and worst5 == 0.0,
+          f"parity_hull: a general-hull case differs from its plain version ({worst}, {worst5})")
     return {"phase": "parity_hull", "W": RB_WORLDS, "n": RB_BODIES + 1, "cases": cases,
             "touching_over_all_cases": reached, "ints": "exact", "repeat": "bit-identical (kernel and plain)",
             "atol": {"pose_stashes_aabb_cache": 1e-4, "velocities": 1e-3}}, worst, worst5
@@ -2322,7 +2438,16 @@ def main(argv):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    import gpu_ecs_madrona_tpu_torch as port
+    try:
+        import gpu_ecs_madrona_tpu_torch as port
+    except ModuleNotFoundError as e:
+        # the script alone, outside a checkout: nothing to drive (the
+        # expected failure of that run)
+        if e.name != "gpu_ecs_madrona_tpu_torch":
+            raise
+        print(f"chip_smoke: no gpu_ecs_madrona_tpu_torch beside {HERE}: run it from the root "
+              "of a checkout", file=sys.stderr)
+        return 1
     check(os.path.dirname(os.path.abspath(port.__file__)).startswith(HERE),
           f"the port must come from this checkout, got {port.__file__}")
     from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExecutor
@@ -2695,7 +2820,9 @@ def main(argv):
     hset_sim, line = main_rigid(torch, rb, phys, hsettled_cfg, 50, 5, smi, *counts,
                                 specialisation="refresh+sleep+bp+persist+hull",
                                 settle=rb.SETTLE_STEPS, also=("world_flags", "asleep_surface"),
-                                make=hs.hull_pile)
+                                make=hs.hull_pile,
+                                probe=settle_motion(torch, rb, phys, MOTION_STEPS))
+    line["motion_after_settle"] = line.pop("probe")
     hull_persist_launches = line["launches"]["fused_substep"]
     hset_node = node_time(torch, hset_sim, phys.FUSED_NODE)
     # the prisms keep moving above the sleep threshold (no world falls asleep
@@ -2704,6 +2831,14 @@ def main(argv):
     check(max(trace["stable_share"]) > 0, f"settled hull pile: no stable world {trace}")
     emit({"phase": "main_rigid_hulls_settled", **line, "per_step_after_windows": trace,
           "fused_node": {k: hset_node[k] for k in ("device_ms", "host_ms", "device_ops")}})
+    # the 24-sided prism for object 0: tables past PhysicsLoader()'s defaults
+    lsim, line = main_rigid(torch, rb, phys, dict(contact_mode="pallas"), LARGE_STEPS,
+                            LARGE_WINDOWS, smi, *counts, specialisation="hull",
+                            make=lambda cfg, device: hs.hull_pile(cfg, device, large=True))
+    large_launches = line["launches"]["fused_substep"]
+    emit({"phase": "main_rigid_hulls_large", **line,
+          "objects": "imported 24-sided prism, sphere 0.5, plane",
+          "hull_dims": list(phys.subk.pk.ObjTables(lsim.world_cls.objmgr).hull_dims())})
     line, err_bp, err_persist = parity_substep_options(torch, rb, phys, subk, rsim, r128, bsim,
                                                        settled_sim)
     err_flags = max(max(c["differing"].values()) for c in line["world_flags"].values())
@@ -2816,6 +2951,31 @@ def main(argv):
                "bound_ms": jb_ms, "bound_by": jb_by, "ops": j_ops, "work": j_work,
                "W": jkw["obj"].shape[0], "n": jkw["obj"].shape[1]}
     del jsim, jkw
+    # the "hull" launch at main_rigid_hulls_large's state: its plain version
+    # at LARGE_PARITY_WORLDS of the worlds, its work counted over all of them
+    # in blocks of 256 worlds
+    lkw = fused_inputs(lsim, rb, phys)
+    lkern = phys.RigidBodyPhysicsSystem.fused_kernel(lsim)
+    l_ops, l_kinds, l_work = 0, {}, {}
+    for chunk in world_chunks(lkw, 256):
+        o, kd, wk = substep_work(torch, subk, lkern, chunk)
+        l_ops += o
+        for d, src in ((l_kinds, kd), (l_work, wk)):
+            for k, v in src.items():
+                d[k] = d.get(k, 0) + v
+    lb_ms, lb_by = substep_bound(lkw, l_ops)
+    lkw_part = next(world_chunks(lkw, LARGE_PARITY_WORLDS))
+    large_t = {"ms": cuda_ms(torch, lambda: lkern(**lkw), 5),
+               "plain_ms": cuda_ms(torch, lambda: lkern.plain(**lkw_part), 2, warmup=1),
+               "plain_ms_is": f"its plain version at {LARGE_PARITY_WORLDS} of the "
+                              f"{RB_WORLDS} worlds",
+               "bound_ms": lb_ms, "bound_by": lb_by, "ops": l_ops, "pairs_by_kind": l_kinds,
+               "work_over_substeps": l_work, "ops_by_kind": contact_ops(lkern.tables),
+               "pairs_per_world_max": int(lkw["kvalid"].sum(1).max()),
+               "occupancy": subk.occupancy(RB_BODIES + 1, 256, codes=(0,),
+                                           hull=lkern.tables)}
+    del lkw, lkw_part, lsim
+    prism_tables = hkern.tables
 
     # the fused kernel's launch shape by specialisation at the main shapes,
     # and the single-substep kernel's at simple_taskgraph's: [threads a CTA,
@@ -2826,11 +2986,12 @@ def main(argv):
                  "substep_n104_K1000": subk.occupancy(104, 1000, single=True),
                  "substep_node_n104_K1000_J64": subk.occupancy(104, 1000, single=True,
                                                                joints=64),
-                 "fused_hull_n65_K256": subk.occupancy(RB_BODIES + 1, 256, hull=True),
-                 "fused_hull_n65_K128": subk.occupancy(RB_BODIES + 1, 128, hull=True),
-                 "substep_hull_n104_K1000": subk.occupancy(104, 1000, single=True, hull=True),
+                 "fused_hull_n65_K256": subk.occupancy(RB_BODIES + 1, 256, hull=prism_tables),
+                 "fused_hull_n65_K128": subk.occupancy(RB_BODIES + 1, 128, hull=prism_tables),
+                 "substep_hull_n104_K1000": subk.occupancy(104, 1000, single=True,
+                                                           hull=prism_tables),
                  "substep_node_hull_n104_K1000_J64": subk.occupancy(
-                     104, 1000, single=True, joints=64, hull=True)}
+                     104, 1000, single=True, joints=64, hull=prism_tables)}
 
     # kernels 8 and 9 at their main paths' states (and kernel 8 with refresh
     # at the settled pile without persistence)
@@ -2953,7 +3114,7 @@ def main(argv):
           "fused_substep_options": opt_t,
           "substep": sub1_t, "substep_node": node_t, "render": render_t,
           "fused_substep_hull": hull_t, "fused_substep_persist_hull": hull_persist_t,
-          "substep_node_hull_joint_world": hull5_t,
+          "substep_node_hull_joint_world": hull5_t, "fused_substep_hull_large": large_t,
           "library_ms": "none: no single PyTorch call computes any of these functions",
           "card": smi})
 
@@ -3068,6 +3229,15 @@ def main(argv):
          "plain_ms": hull5_t["plain_ms"], "bound_ms": hull5_t["bound_ms"],
          "bound_by": hull5_t["bound_by"], "library_ms": None,
          "ms_is": "the node launch on the joint world with prisms (256 worlds)"},
+        {"name": "fused_substep_hull_large", "route": "cuda",
+         "source": csrc + "substep_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1257 (chunked :1241) on "
+                     "general hulls past PhysicsLoader()'s defaults",
+         "specialisation": "hull", "launches": large_launches, "launches_per_step": 1,
+         "max_abs_err": err_hull, "ms": large_t["ms"], "plain_ms": large_t["plain_ms"],
+         "plain_ms_is": large_t["plain_ms_is"], "bound_ms": large_t["bound_ms"],
+         "bound_by": large_t["bound_by"], "library_ms": None,
+         "ms_is": "the main_rigid_hulls_large state (8192 x 65, K = 256, the 24-sided prism)"},
         {"name": "render", "route": "cuda", "source": csrc + "render_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/render_kernel.py:501",
          "launches": stg_launches["render"], "launches_per_step": 1,

@@ -34,11 +34,13 @@
 //   The outputs carry the last substep's stashes (prev pose, post-integrate
 //   pose and velocities).  Tables with general hulls (a launch given the
 //   general-hull rows, pairs.py ObjTables.hull_table) take the kOptHull
-//   specialisation of each option set: GEN in pair_contacts, the general
-//   paths for every hull (boxes too, as in pairs.py), one thread a pair; the
-//   all-box tables run the box paths as compiled without it (the same
-//   registers, frames and outputs).  Caps: PhysicsLoader()'s defaults
-//   (kMaxVerts ... kMaxFullEdges); the wrapper refuses larger tables by name.
+//   specialisation of each option set: GEN in solve_substep, the general
+//   paths for every hull (boxes too, as in pairs.py) from hull rows staged
+//   in shared memory, the hull pairs on lane groups; the all-box tables run
+//   the box paths as compiled without it (the same registers, frames and
+//   outputs).  No table count is capped: a launch needs only the shared
+//   memory for its staged rows, and the wrapper refuses by name a table
+//   whose rows do not fit beside the rest (kMaxSmem).
 //
 // world_flags_kernel and asleep_surface_kernel
 //   With the persistent manifolds (:1214) they make kernel 9's launch
@@ -154,19 +156,40 @@
 //   build); uncapped they take ~220 registers and 2 CTAs an SM, and in one
 //   A/B the capped kernel with the spill ran 2.33 ms against 2.93 ms
 //   (K = 256; PERF.md's findings).
-// The general-hull paths (GEN: hull_hull, sphere_hull, hull_plane) are
-// loops over the live counts, one thread a pair: each hull's world vertices
-// and edge directions in per-thread arrays (the stack frame, ~1.5 KB), the
-// face rows read through the read-only path, the candidates kept as they
-// come in a running deepest-4 (Top4) ordered as pairs.py's argmax rounds.
-// Padded rows score +-1e9 there and never tie a live one, so looping over
-// the live counts only gives the same choices.  Measured (ptxas -v, H100):
-// "hull", "sleep+hull", "bp+hull" 128 registers (the cap of 4 CTAs), 1696-
-// byte frames, 146 bytes of spill; the cache ones 223-236 registers, 1552-
-// byte frames, no spill; kernel 5's 168 registers, 1616-byte frames, 60-64
-// bytes of spill; CTAs an SM as the box specialisations'.  At the imported
-// prism pile (8192 x 65, K = 256) the "hull" launch takes ~8.0 ms against
-// an operation bound of 0.081 ms (PERF.md).
+// The general-hull paths (GEN: hull_hull, sphere_hull, hull_plane) loop
+// over the live counts; padded rows score +-1e9 in pairs.py and never tie a
+// live one, so the choices are the same.  What bounds them: a prism pair's
+// SAT is ~5.8K operations (24 axes over 24 vertices) against a box pair's
+// 420, the work list puts the hull pairs first (so, taken as they come, one
+// warp of four carries them all, a lane a pair), and a pair's world
+// vertices rebuilt per pair need per-thread arrays (local memory).
+// The design:
+//   - each substep stages every hull row's world vertices, edge
+//     directions, SAT axes and face planes once in shared memory
+//     (stage_hulls, Hulls: a thread an item), the values the per-pair code
+//     computed, so no per-thread array is left and the table's counts are
+//     bounded only by that shared memory;
+//   - a round's work entries are dealt lane-major across the warps, so the
+//     hull pairs at the head of the work list spread over every warp;
+//   - each warp's hull pairs run on lane groups (warp_hull_hull: as wide as
+//     the pending pairs allow, at least enough for the clip's corners in
+//     one pass), the lanes splitting each SAT family's axes, the face
+//     choices, the supporting edges and the clip's corners and side
+//     planes; minima by fminf shuffles (exact in any order), first indices
+//     by shuffle minima of indices, each lane's candidates in a running
+//     deepest-4 (Top4, ordered as pairs.py's argmax rounds) merged across
+//     the group in (depth, index) order.
+// Sphere-hull and hull-plane stay one thread a pair, on the staged rows.
+// Measured (H100, the imported prism pile at 8192 x 65, K = 256; PERF.md's
+// findings): the "hull" launch 5.40 ms against the one-thread-a-pair
+// code's 8.04, bit for bit its outputs; the hull rows ~24 KB of shared
+// memory, so "hull", "sleep+hull" 3 CTAs an SM (kHullBlocks: 168
+// registers, a 128-byte frame, 122 bytes of spill), "bp+hull" and the cache
+// twins 2.  The launch is bound by its issue rate, not by occupancy (2
+// CTAs an SM without spills ran as fast as 3 with them), and by the
+// passes' chains: dealing only the hull pairs across the warps (the other
+// kinds packed by kind) ran 6.05 ms, staging four items' table loads at
+// once 6.64, two clip corners a lane 5.64.
 // Arithmetic: -fmad=false keeps every product and sum separately rounded,
 // in the order of the plain version (ops/substep_kernel.py,
 // physics/pairs.py); 1/sqrtf stands for the plain version's 1 / sqrt.  The
@@ -183,15 +206,6 @@ constexpr float kNegBig = -1e9f;
 constexpr float kSatTieEps = 1e-5f;
 constexpr float kFaceBias = 1.001f;
 constexpr int kMaxBoxVerts = 8;  // table verts per hull, all-box tables (a box has 8)
-// The general-hull tables' caps: PhysicsLoader()'s defaults (physics/
-// assets.py) — verts, faces, SAT axes, edge directions, corner slots a face,
-// full edges per hull.
-constexpr int kMaxVerts = 32;
-constexpr int kMaxFaces = 32;
-constexpr int kMaxSatAxes = 32;
-constexpr int kMaxEdgeDirs = 16;
-constexpr int kMaxFaceVerts = 8;
-constexpr int kMaxFullEdges = 48;
 constexpr int kCand = 12;        // manifold candidates (3 per box-face vertex)
 constexpr int kPts = 4;          // manifold points kept
 constexpr int kPrimSphere = 0;
@@ -199,6 +213,10 @@ constexpr int kPrimHull = 1;
 constexpr int kPrimPlane = 2;
 constexpr int kMaxThreads = 128;
 constexpr int kMinBlocks = 4;
+constexpr int kHullBlocks = 3;   // CTAs an SM the general-hull twins of kMinBlocks' are built for
+// A block's shared memory at most (the H100's 227 KB; MAX_SMEM_BYTES in
+// ops/substep_kernel.py).
+constexpr size_t kMaxSmem = 232448;
 constexpr int kGroup = 4;        // lanes a box-box pair (box_box_group)
 
 struct V3 {
@@ -915,9 +933,54 @@ __device__ __forceinline__ void box_box_group(const Body& A, const Body& B, cons
 
 __device__ __forceinline__ V3 ld3g(const float* p) { return mk(__ldg(p), __ldg(p + 1), __ldg(p + 2)); }
 
-// Vertex v of hull H in world space (body_fields' verts_w).
-__device__ __forceinline__ V3 hull_vert(const Table& tab, const Body& H, int v) {
-  return add(qrot(H.rot, tab.vert(H.obj, v)), H.pos);
+constexpr int kNone = 0x7fffffff;  // no index (a lane without a candidate)
+
+// The world-space hull data of a world's rows in shared memory, staged once
+// a substep at the post-integrate poses (stage_hulls): each hull row's block
+// of `stride` floats, its world vertices (3 vm), edge directions (3 em),
+// SAT axes (3 sm) and faces (4 fm: the outward normal, then the offset
+// face_d + n . pos) — every row of the table's sections, so a padded row
+// holds what the per-pair code would compute from it.  A fixed stride a
+// row: the launch reserves the worst case (every row a hull) whatever the
+// world holds, so packing the rows tighter would save no shared memory.
+struct Hulls {
+  float* s;
+  int stride, oe, os, of;
+  __device__ __forceinline__ const float* verts(int b) const { return s + b * stride; }
+  __device__ __forceinline__ V3 at(int b, int off) const {
+    const float* p = s + b * stride + off;
+    return mk(p[0], p[1], p[2]);
+  }
+  __device__ __forceinline__ V3 edge(int b, int k) const { return at(b, oe + 3 * k); }
+  __device__ __forceinline__ V3 sat(int b, int k) const { return at(b, os + 3 * k); }
+  __device__ __forceinline__ V3 face_n(int b, int f) const { return at(b, of + 4 * f); }
+  __device__ __forceinline__ float face_d(int b, int f) const {
+    return s[b * stride + of + 4 * f + 3];
+  }
+};
+
+// The staged floats a row for a table's sections (hull_stage_floats in
+// ops/substep_kernel.py).
+__host__ __device__ __forceinline__ int hull_stride(int vm, int em, int sm, int fm) {
+  return 3 * (vm + em + sm) + 4 * fm;
+}
+__device__ __forceinline__ Hulls hulls_at(float* s, const Table& tab) {
+  Hulls h;
+  h.s = s;
+  h.oe = 3 * tab.vm;
+  h.os = h.oe + 3 * tab.em;
+  h.of = h.os + 3 * tab.sm;
+  h.stride = hull_stride(tab.vm, tab.em, tab.sm, tab.fm);
+  return h;
+}
+
+// The lanes a hull pair takes at least (warp_hull_hull): enough that the
+// clip runs its corners in one pass of one a lane (glo >= fvm), at most a
+// warp.
+__device__ __forceinline__ int hull_group_min(const Table& tab) {
+  int g = 1;
+  while (g < tab.fvm && g < 32) g <<= 1;
+  return g;
 }
 
 // The deepest 4 of a contact's candidates, kept as they come: a candidate
@@ -936,7 +999,7 @@ __device__ __forceinline__ void top4_init(Top4& t) {
 #pragma unroll
   for (int s = 0; s < kPts; ++s) {
     t.d[s] = kNegBig;
-    t.i[s] = 0x7fffffff;
+    t.i[s] = kNone;
     t.p[s] = mk(0.0f, 0.0f, 0.0f);
   }
 }
@@ -966,19 +1029,18 @@ __device__ __forceinline__ void top4_out(const Top4& t, V3 p0, Manifold& out) {
   }
 }
 
-// Sphere against a general hull: the deepest face plane (the first of the
-// largest dot(n_f, p) - d_f over the live faces), the contact at p - n_f
-// dist.  flip = the sphere is side B.
-__device__ bool sphere_hull(V3 s_pos, float s_rad, const Body& H, const Table& tab, float spec,
-                            bool flip, V3* normal, V3* point, float* pen_out) {
+// Sphere against a general hull (staged at row h): the deepest face plane
+// (the first of the largest dot(n_f, p) - d_f over the live faces), the
+// contact at p - n_f dist.  flip = the sphere is side B.
+__device__ bool sphere_hull(V3 s_pos, float s_rad, const Body& H, int h, const Table& tab,
+                            const Hulls& hs, float spec, bool flip, V3* normal, V3* point,
+                            float* pen_out) {
   const int nf = tab.nfaces(H.obj);
   float best = kNegBig;
   V3 bn = mk(0.0f, 0.0f, 0.0f);
   for (int f = 0; f < nf; ++f) {
-    const float* F = tab.face(H.obj, f);
-    const V3 fn = qrot(H.rot, ld3g(F));
-    const float fd = __ldg(F + 3) + dot(fn, H.pos);
-    const float cd = dot(fn, s_pos) - fd;
+    const V3 fn = hs.face_n(h, f);
+    const float cd = dot(fn, s_pos) - hs.face_d(h, f);
     if (f == 0 || cd > best) {
       best = cd;
       bn = fn;
@@ -991,17 +1053,18 @@ __device__ bool sphere_hull(V3 s_pos, float s_rad, const Body& H, const Table& t
   return pen > -spec;
 }
 
-// A hull against a plane: every live vertex a candidate (its depth below
-// the plane), the deepest 4 kept.  Returns the candidates past the margin.
-__device__ int hull_plane(const Body& H, V3 p_n, float p_d, const Table& tab, float spec,
-                          Manifold& out) {
+// A hull (staged at row h) against a plane: every live vertex a candidate
+// (its depth below the plane), the deepest 4 kept.  Returns the candidates
+// past the margin.
+__device__ int hull_plane(const Body& H, int h, V3 p_n, float p_d, const Table& tab,
+                          const Hulls& hs, float spec, Manifold& out) {
   const int nv = tab.nverts(H.obj);
   Top4 t;
   top4_init(t);
   V3 p0 = mk(0.0f, 0.0f, 0.0f);
   int num = 0;
   for (int v = 0; v < nv; ++v) {
-    const V3 vw = hull_vert(tab, H, v);
+    const V3 vw = hs.at(h, 3 * v);
     const float vd = dot(vw, p_n) - p_d;
     const float pen_v = -vd;
     num += pen_v > -spec ? 1 : 0;
@@ -1012,17 +1075,18 @@ __device__ int hull_plane(const Body& H, V3 p_n, float p_d, const Table& tab, fl
   return num;
 }
 
-// The penetration along axis ax of two vertex sets: min(maxA - minB, maxB -
-// minA) of their projections (pairs.py axis_pen).
-__device__ float axis_pen(V3 ax, const V3* vA, int nA, const V3* vB, int nB) {
+// The penetration along axis ax of two staged vertex sets: min(maxA - minB,
+// maxB - minA) of their projections (pairs.py axis_pen).
+__device__ __forceinline__ float axis_pen(V3 ax, const float* vA, int nA, const float* vB,
+                                          int nB) {
   float maxA = kNegBig, minA = kBig, maxB = kNegBig, minB = kBig;
   for (int v = 0; v < nA; ++v) {
-    const float p = dot(ax, vA[v]);
+    const float p = dot(ax, mk(vA[3 * v], vA[3 * v + 1], vA[3 * v + 2]));
     maxA = fmaxf(maxA, p);
     minA = fminf(minA, p);
   }
   for (int v = 0; v < nB; ++v) {
-    const float p = dot(ax, vB[v]);
+    const float p = dot(ax, mk(vB[3 * v], vB[3 * v + 1], vB[3 * v + 2]));
     maxB = fmaxf(maxB, p);
     minB = fminf(minB, p);
   }
@@ -1038,89 +1102,157 @@ __device__ __forceinline__ bool cross_axis(V3 eA, V3 eB, V3* ax) {
   return clen > 1e-6f;
 }
 
-// The supporting full edge of hull H along n: the first of the edges whose
-// lower endpoint projection is largest.
-__device__ void support_edge(const Table& tab, const Body& H, V3 n, V3* e0, V3* e1) {
+// Reductions over a lane group: G consecutive lanes (G a power of two, the
+// group's first lane a multiple of G), mask gmask.  fminf and min are exact
+// in any order.
+__device__ __forceinline__ float group_fmin(float v, int G, unsigned gmask) {
+  for (int m = 1; m < G; m <<= 1) v = fminf(v, __shfl_xor_sync(gmask, v, m));
+  return v;
+}
+__device__ __forceinline__ int group_imin(int v, int G, unsigned gmask) {
+  for (int m = 1; m < G; m <<= 1) v = min(v, __shfl_xor_sync(gmask, v, m));
+  return v;
+}
+__device__ __forceinline__ int group_isum(int v, int G, unsigned gmask) {
+  for (int m = 1; m < G; m <<= 1) v += __shfl_xor_sync(gmask, v, m);
+  return v;
+}
+// The group's (value, index) of the first extreme: each lane's pair the
+// first extreme of its own items in ascending index (index kNone: none);
+// MAX the largest value, else the smallest; equal values to the lower
+// index.
+template <bool MAX>
+__device__ __forceinline__ void group_arg(float* v, int* i, int G, unsigned gmask) {
+  for (int m = 1; m < G; m <<= 1) {
+    const float ov = __shfl_xor_sync(gmask, *v, m);
+    const int oi = __shfl_xor_sync(gmask, *i, m);
+    const bool better = MAX ? ov > *v : ov < *v;
+    const bool take = oi != kNone && (*i == kNone || better || (ov == *v && oi < *i));
+    *v = take ? ov : *v;
+    *i = take ? oi : *i;
+  }
+}
+
+// One family of SAT axes (cnt of them; lane s of the group takes s, s + G,
+// ...): the minimum of pen(k) from kBig, the per-pair loop's start, and the
+// first axis within kSatTieEps of it, 0 when none (pairs.py's first index
+// at the extreme).  The second pass computes pen(k) again in ascending
+// order to the lane's first hit, past the lane's first two axes, which
+// stay in registers.
+template <typename Pen>
+__device__ __forceinline__ int family_first(int cnt, int s, int G, unsigned gmask, Pen pen,
+                                            float* mn) {
+  float m = kBig, p0 = kBig, p1 = kBig;
+  for (int k = s, r = 0; k < cnt; k += G, ++r) {
+    const float p = pen(k);
+    p0 = r == 0 ? p : p0;
+    p1 = r == 1 ? p : p1;
+    m = fminf(m, p);
+  }
+  m = group_fmin(m, G, gmask);
+  const float lim = m + kSatTieEps;
+  int first = kNone;
+  if (s < cnt && p0 <= lim) {
+    first = s;
+  } else if (s + G < cnt && p1 <= lim) {
+    first = s + G;
+  } else {
+    for (int k = s + 2 * G; k < cnt; k += G)
+      if (pen(k) <= lim) {
+        first = k;
+        break;
+      }
+  }
+  first = group_imin(first, G, gmask);
+  *mn = m;
+  return first == kNone ? 0 : first;
+}
+
+// The supporting full edge of hull H along n, by the group: the first of
+// the edges whose lower endpoint projection is largest (zero endpoints
+// when H has none).
+__device__ void support_edge(const Table& tab, const Body& H, V3 n, int s, int G,
+                             unsigned gmask, V3* e0, V3* e1) {
   const int ne = tab.nfull(H.obj);
   float best = kNegBig;
-  *e0 = *e1 = mk(0.0f, 0.0f, 0.0f);
-  for (int e = 0; e < ne; ++e) {
+  int bi = kNone;
+  for (int e = s; e < ne; e += G) {
     const float* E = tab.full_edge(H.obj, e);
     const V3 p0 = add(qrot(H.rot, ld3g(E)), H.pos);
     const V3 p1 = add(qrot(H.rot, ld3g(E + 3)), H.pos);
     const float sc = fminf(dot(p0, n), dot(p1, n));
-    if (e == 0 || sc > best) {
+    if (bi == kNone || sc > best) {
       best = sc;
-      *e0 = p0;
-      *e1 = p1;
+      bi = e;
     }
   }
+  group_arg<true>(&best, &bi, G, gmask);
+  *e0 = *e1 = mk(0.0f, 0.0f, 0.0f);
+  if (bi == kNone) return;
+  const float* E = tab.full_edge(H.obj, bi);
+  *e0 = add(qrot(H.rot, ld3g(E)), H.pos);
+  *e1 = add(qrot(H.rot, ld3g(E + 3)), H.pos);
 }
 
-// Two general hulls (pairs.py's vertex-support SAT): each side's SAT axes
-// and the cross axes of their edge directions (i-major), each axis's
-// penetration from both sides' vertex support; per family the first axis
-// within kSatTieEps of its minimum; then the face bias, the orientation
-// and, on a face axis, the incident face (the most anti-aligned of the
-// other hull) clipped against the reference face's side planes plus the
-// reference face's corners inside the incident face; on an edge axis one
-// point between the supporting edges.  Candidates (3 fvm: the clipped
-// edges' low and high ends, the reference corners) go to the deepest 4 as
-// they come.  The world vertices and edge directions sit in per-thread
-// arrays.  Without NPTS (no manifold cache keeps the points) a pair that
-// does not touch skips its manifold: the passes read none of it.
-template <bool NPTS>
-__device__ bool hull_hull(const Body& A, const Body& B, const Table& tab, float spec,
-                          Manifold& out, V3* normal, int* num) {
-  V3 vA[kMaxVerts], vB[kMaxVerts], eA[kMaxEdgeDirs], eB[kMaxEdgeDirs];
-  float pen[kMaxSatAxes];
-  const int nA = tab.nverts(A.obj), nB = tab.nverts(B.obj);
-  for (int v = 0; v < nA; ++v) vA[v] = hull_vert(tab, A, v);
-  for (int v = 0; v < nB; ++v) vB[v] = hull_vert(tab, B, v);
-  const int neA = tab.nedges(A.obj), neB = tab.nedges(B.obj);
-  for (int k = 0; k < neA; ++k) eA[k] = qrot(A.rot, ld3g(tab.edge_dir(A.obj, k)));
-  for (int k = 0; k < neB; ++k) eB[k] = qrot(B.rot, ld3g(tab.edge_dir(B.obj, k)));
+// Corner slot k's side plane of face F of a body at (rot, pos), in world
+// space: its normal, offset and valid flag.
+__device__ __forceinline__ void side_plane(const float* F, int k, Q4 rot, V3 pos, V3* sn,
+                                           float* sd, bool* ok) {
+  const float* C = F + kFaceHead + kCornerFl * k;
+  *sn = qrot(rot, ld3g(C + 6));
+  *sd = __ldg(C + 9) + dot(*sn, pos);
+  *ok = __ldg(C + 10) > 0.5f;
+}
 
-  // A's and B's SAT axes: the minimum, then the first within the margin
-  float minA = kBig, minB = kBig;
-  const int sA = tab.nsat(A.obj), sB = tab.nsat(B.obj);
-  for (int k = 0; k < sA; ++k) {
-    pen[k] = axis_pen(qrot(A.rot, ld3g(tab.sat(A.obj, k))), vA, nA, vB, nB);
-    minA = fminf(minA, pen[k]);
-  }
-  int ia = 0;
-  for (int k = sA - 1; k >= 0; --k)
-    if (pen[k] <= minA + kSatTieEps) ia = k;
-  for (int k = 0; k < sB; ++k) {
-    pen[k] = axis_pen(qrot(B.rot, ld3g(tab.sat(B.obj, k))), vA, nA, vB, nB);
-    minB = fminf(minB, pen[k]);
-  }
-  int ib = 0;
-  for (int k = sB - 1; k >= 0; --k)
-    if (pen[k] <= minB + kSatTieEps) ib = k;
-  // the edge cross axes (invalid ones score 1e9), likewise; the axis of
-  // edges 0 and 0 when none is valid, as the first index at 1e9
-  float minE = kBig;
-  for (int i = 0; i < neA; ++i)
-    for (int j = 0; j < neB; ++j) {
-      V3 ax;
-      if (cross_axis(eA[i], eB[j], &ax)) minE = fminf(minE, axis_pen(ax, vA, nA, vB, nB));
-    }
-  int ie = 0, je = 0;
-  bool found = false;
-  for (int i = 0; i < neA && !found; ++i)
-    for (int j = 0; j < neB && !found; ++j) {
-      V3 ax;
-      if (cross_axis(eA[i], eB[j], &ax) && axis_pen(ax, vA, nA, vB, nB) <= minE + kSatTieEps) {
-        ie = i;
-        je = j;
-        found = true;
-      }
-    }
-  const V3 fA = qrot(A.rot, ld3g(tab.sat(A.obj, ia)));
-  const V3 fB = qrot(B.rot, ld3g(tab.sat(B.obj, ib)));
+// Two general hulls (pairs.py's vertex-support SAT) by a group of G lanes
+// (lane s, mask gmask, first lane gbase), from their staged rows ra and rb:
+// each side's SAT
+// axes and the cross axes of their edge directions (i-major), each axis's
+// penetration from both sides' staged vertices, the lanes splitting each
+// family; per family the first axis within kSatTieEps of its minimum; then
+// the face bias, the orientation and, on a face axis, the reference face
+// (the most aligned with the axis into the other hull) and the incident
+// face (the most anti-aligned; first index on ties), the incident face's
+// edges clipped against the reference face's side planes plus the
+// reference face's corners inside the incident face, the lanes splitting
+// the corners (one a lane a pass, in passes of G) and each lane's side
+// planes shared by shuffles; on an edge axis one point between the
+// supporting edges.  Candidates (3 fvm: the clipped edges' low and high
+// ends, the reference corners) go to each lane's deepest 4 as they come,
+// merged across the group in (depth, index) order.  Every lane of the group
+// returns the result.  Without NPTS (no manifold cache keeps the points) a
+// pair that does not touch skips its manifold: the passes read none of it.
+template <bool NPTS>
+__device__ bool hull_hull(const Body& A, const Body& B, int ra, int rb, const Table& tab,
+                          const Hulls& hs, float spec, int s, int G, unsigned gmask, int gbase,
+                          Manifold& out, V3* normal, int* num) {
+  const int nA = tab.nverts(A.obj), nB = tab.nverts(B.obj);
+  const float *vA = hs.verts(ra), *vB = hs.verts(rb);
+  float minA, minB, minE;
+  const int ia = family_first(
+      tab.nsat(A.obj), s, G, gmask, [&](int k) { return axis_pen(hs.sat(ra, k), vA, nA, vB, nB); },
+      &minA);
+  const int ib = family_first(
+      tab.nsat(B.obj), s, G, gmask, [&](int k) { return axis_pen(hs.sat(rb, k), vA, nA, vB, nB); },
+      &minB);
+  // the edge cross axes (invalid ones +inf: they neither lower the minimum
+  // nor hit); the axis of edges 0 and 0 when none is valid
+  const int neA = tab.nedges(A.obj), neB = tab.nedges(B.obj);
+  const int ie = family_first(
+      neA * neB, s, G, gmask,
+      [&](int k) {
+        const int i = k / neB;
+        V3 ax;
+        return cross_axis(hs.edge(ra, i), hs.edge(rb, k - i * neB), &ax)
+                   ? axis_pen(ax, vA, nA, vB, nB)
+                   : __int_as_float(0x7f800000);
+      },
+      &minE);
+  const int i0 = neB > 0 ? ie / neB : 0;
+  const V3 fA = hs.sat(ra, ia);
+  const V3 fB = hs.sat(rb, ib);
   V3 fE;
-  cross_axis(eA[ie], eB[je], &fE);
+  cross_axis(hs.edge(ra, i0), hs.edge(rb, ie - i0 * neB), &fE);
 
   const float sat_pen = fminf(fminf(minA, minB), minE);
   const bool hit = (sat_pen > -spec) && (sat_pen < kBig * 0.5f);
@@ -1134,8 +1266,8 @@ __device__ bool hull_hull(const Body& A, const Body& B, const Table& tab, float 
     // edge-edge: one point, the midpoint of the supporting edges' closest
     // points, at the SAT depth
     V3 a0, a1, b0, b1;
-    support_edge(tab, A, nrm, &a0, &a1);
-    support_edge(tab, B, scl(nrm, -1.0f), &b0, &b1);
+    support_edge(tab, A, nrm, s, G, gmask, &a0, &a1);
+    support_edge(tab, B, scl(nrm, -1.0f), s, G, gmask, &b0, &b1);
     single_point(segment_closest(a0, a1, b0, b1), sat_pen, out);
     *num = sat_pen > 0.0f ? 1 : 0;
     return hit;
@@ -1145,73 +1277,96 @@ __device__ bool hull_hull(const Body& A, const Body& B, const Table& tab, float 
     *num = 0;
     return false;
   }
-  // the reference (R) and incident (I) hulls; the reference face is the
-  // most aligned with the axis into I, the incident face the most
-  // anti-aligned (first index on ties)
+  // the reference (R) and incident (I) hulls and faces
   const V3 nrm_inc = faceB ? scl(nrm, -1.0f) : nrm;
   const Body R = sel_body(faceB, B, A), I = sel_body(faceB, A, B);
-  int fr = 0, fi = 0;
+  const int rr = faceB ? rb : ra, ri = faceB ? ra : rb;
   float sr = kNegBig, si = kBig;
+  int fr = kNone, fi = kNone;
   const int nfR = tab.nfaces(R.obj), nfI = tab.nfaces(I.obj);
-  for (int k = 0; k < nfR; ++k) {
-    const float sc = dot(qrot(R.rot, ld3g(tab.face(R.obj, k))), nrm_inc);
-    if (k == 0 || sc > sr) {
+  for (int k = s; k < nfR; k += G) {
+    const float sc = dot(hs.face_n(rr, k), nrm_inc);
+    if (fr == kNone || sc > sr) {
       sr = sc;
       fr = k;
     }
   }
-  for (int k = 0; k < nfI; ++k) {
-    const float sc = dot(qrot(I.rot, ld3g(tab.face(I.obj, k))), nrm_inc);
-    if (k == 0 || sc < si) {
+  for (int k = s; k < nfI; k += G) {
+    const float sc = dot(hs.face_n(ri, k), nrm_inc);
+    if (fi == kNone || sc < si) {
       si = sc;
       fi = k;
     }
   }
+  group_arg<true>(&sr, &fr, G, gmask);
+  group_arg<false>(&si, &fi, G, gmask);
+  fr = fr == kNone ? 0 : fr;
+  fi = fi == kNone ? 0 : fi;
   const float* FR = tab.face(R.obj, fr);
   const float* FI = tab.face(I.obj, fi);
-  const V3 n_ref = qrot(R.rot, ld3g(FR));
-  const float d_ref = __ldg(FR + 3) + dot(n_ref, R.pos);
-  const V3 n_inc = qrot(I.rot, ld3g(FI));
-  const float d_inc = __ldg(FI + 3) + dot(n_inc, I.pos);
+  const V3 n_ref = hs.face_n(rr, fr);
+  const float d_ref = hs.face_d(rr, fr);
+  const V3 n_inc = hs.face_n(ri, fi);
+  const float d_inc = hs.face_d(ri, fi);
   const int FV = tab.fvm;
-  // both faces' side planes in world space
-  V3 snR[kMaxFaceVerts], snI[kMaxFaceVerts];
-  float sdR[kMaxFaceVerts], sdI[kMaxFaceVerts];
-  bool pvR[kMaxFaceVerts], pvI[kMaxFaceVerts];
-  for (int p = 0; p < FV; ++p) {
-    const float* CR = FR + kFaceHead + kCornerFl * p;
-    const float* CI = FI + kFaceHead + kCornerFl * p;
-    snR[p] = qrot(R.rot, ld3g(CR + 6));
-    sdR[p] = __ldg(CR + 9) + dot(snR[p], R.pos);
-    pvR[p] = __ldg(CR + 10) > 0.5f;
-    snI[p] = qrot(I.rot, ld3g(CI + 6));
-    sdI[p] = __ldg(CI + 9) + dot(snI[p], I.pos);
-    pvI[p] = __ldg(CI + 10) > 0.5f;
-  }
+  const float den = dot(n_inc, nrm_inc);
+  const bool den_ok = fabsf(den) > 0.1f;
+  const float den_s = den_ok ? den : 1.0f;
   Top4 t;
   top4_init(t);
   V3 p0 = mk(0.0f, 0.0f, 0.0f);
   int cnt = 0;
-  // the incident face's edges clipped against the reference face's sides:
-  // candidates e (the low end) and FV + e (the high end, when clipped)
-  for (int e = 0; e < FV; ++e) {
-    const float* C = FI + kFaceHead + kCornerFl * e;
-    const V3 q0 = add(qrot(I.rot, ld3g(C)), I.pos);
-    const V3 q1 = add(qrot(I.rot, ld3g(C + 3)), I.pos);
+  // this lane's corner c0 + s of each pass of G: the incident face's edge e
+  // clipped against the reference face's sides (candidates e, the low end,
+  // and FV + e, the high end when clipped) and the reference face's corner e
+  // tested against the incident face's sides (candidate 2 FV + e)
+  for (int c0 = 0; c0 < FV; c0 += G) {
+    const int ec = min(c0 + s, FV - 1);
+    const float* CI = FI + kFaceHead + kCornerFl * ec;
+    const V3 q0 = add(qrot(I.rot, ld3g(CI)), I.pos);
+    const V3 q1 = add(qrot(I.rot, ld3g(CI + 3)), I.pos);
     float t_lo = 0.0f, t_hi = 1.0f;
     bool empty = false;
-    for (int sd = 0; sd < FV; ++sd) {
-      if (!pvR[sd]) continue;
-      const float d0 = dot(q0, snR[sd]) - sdR[sd];
-      const float d1 = dot(q1, snR[sd]) - sdR[sd];
-      const float denom = d0 - d1;
-      const bool crossing = fabsf(denom) > 1e-12f;
-      const float tc = d0 / (crossing ? denom : 1.0f);
-      if (crossing && d0 > 0.0f && d1 <= 0.0f) t_lo = fmaxf(t_lo, tc);
-      if (crossing && d0 <= 0.0f && d1 > 0.0f) t_hi = fminf(t_hi, tc);
-      empty = empty || (d0 > 1e-6f && d1 > 1e-6f);
+    const float* CR = FR + kFaceHead + kCornerFl * ec;
+    const V3 pr = add(qrot(R.rot, ld3g(CR)), R.pos);
+    bool inside = __ldg(CR + 10) > 0.5f;
+    // the side planes in ascending order, in passes of G: lane s makes
+    // plane p0 + s of both faces, and each goes to the group by shuffles
+    // from its lane
+    for (int b0 = 0; b0 < FV; b0 += G) {
+      V3 snR, snI;
+      float sdR, sdI;
+      bool pvR, pvI;
+      const int k = min(b0 + s, FV - 1);
+      side_plane(FR, k, R.rot, R.pos, &snR, &sdR, &pvR);
+      side_plane(FI, k, I.rot, I.pos, &snI, &sdI, &pvI);
+      const int lim = min(G, FV - b0);
+      for (int j = 0; j < lim; ++j) {
+        const int src = gbase + j;
+        const V3 nR = mk(__shfl_sync(gmask, snR.x, src), __shfl_sync(gmask, snR.y, src),
+                         __shfl_sync(gmask, snR.z, src));
+        const float dR = __shfl_sync(gmask, sdR, src);
+        const bool vR = __shfl_sync(gmask, pvR ? 1 : 0, src) != 0;
+        const V3 nI = mk(__shfl_sync(gmask, snI.x, src), __shfl_sync(gmask, snI.y, src),
+                         __shfl_sync(gmask, snI.z, src));
+        const float dI = __shfl_sync(gmask, sdI, src);
+        const bool vI = __shfl_sync(gmask, pvI ? 1 : 0, src) != 0;
+        if (vR) {
+          const float d0 = dot(q0, nR) - dR;
+          const float d1 = dot(q1, nR) - dR;
+          const float denom = d0 - d1;
+          const bool crossing = fabsf(denom) > 1e-12f;
+          const float tc = d0 / (crossing ? denom : 1.0f);
+          if (crossing && d0 > 0.0f && d1 <= 0.0f) t_lo = fmaxf(t_lo, tc);
+          if (crossing && d0 <= 0.0f && d1 > 0.0f) t_hi = fminf(t_hi, tc);
+          empty = empty || (d0 > 1e-6f && d1 > 1e-6f);
+        }
+        if (vI) inside = inside && (dot(pr, nI) - dI <= -1e-5f);
+      }
     }
-    const bool edge_ok = __ldg(C + 10) > 0.5f && !empty && (t_lo <= t_hi + 1e-9f);
+    const int e = c0 + s;
+    if (e >= FV) continue;
+    const bool edge_ok = __ldg(CI + 10) > 0.5f && !empty && (t_lo <= t_hi + 1e-9f);
     const V3 seg = sub(q1, q0);
     const V3 pt_lo = add(q0, scl(seg, t_lo));
     const V3 pt_hi = add(q0, scl(seg, t_hi));
@@ -1221,39 +1376,59 @@ __device__ bool hull_hull(const Body& A, const Body& B, const Table& tab, float 
     cnt += (dlo > 0.0f ? 1 : 0) + (dhi > 0.0f ? 1 : 0);
     top4_push(t, dlo, e, pt_lo);
     top4_push(t, dhi, FV + e, pt_hi);
-  }
-  // the reference face's corners strictly inside the incident face,
-  // projected onto it along the axis: candidates 2 FV + e
-  const float den = dot(n_inc, nrm_inc);
-  const bool den_ok = fabsf(den) > 0.1f;
-  const float den_s = den_ok ? den : 1.0f;
-  for (int e = 0; e < FV; ++e) {
-    const float* C = FR + kFaceHead + kCornerFl * e;
-    const V3 pr = add(qrot(R.rot, ld3g(C)), R.pos);
-    bool inside = __ldg(C + 10) > 0.5f;
-    for (int sd = 0; sd < FV; ++sd)
-      if (pvI[sd]) inside = inside && (dot(pr, snI[sd]) - sdI[sd] <= -1e-5f);
+    // the reference corner strictly inside the incident face, projected
+    // onto it along the axis
     const float sq = (d_inc - dot(pr, n_inc)) / den_s;
     const V3 q = add(pr, scl(nrm_inc, sq));
     const float dq = (inside && den_ok) ? d_ref - dot(q, n_ref) : kNegBig;
     cnt += dq > 0.0f ? 1 : 0;
     top4_push(t, dq, 2 * FV + e, q);
   }
-  top4_out(t, p0, out);
-  *num = cnt;
+  *num = group_isum(cnt, G, gmask);
+  // candidate 0's point (edge 0's low end) from the group's first lane
+  p0 = mk(__shfl_sync(gmask, p0.x, gbase), __shfl_sync(gmask, p0.y, gbase),
+          __shfl_sync(gmask, p0.z, gbase));
+  // the group's deepest 4: four rounds of the lanes' next kept entries
+  int head = 0;
+#pragma unroll
+  for (int pick = 0; pick < kPts; ++pick) {
+    float hd = kNegBig;
+    int hx = kNone;
+    V3 hp = mk(0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int q = 0; q < kPts; ++q) {
+      const bool at = q == head && t.d[q] > kNegBig;
+      hd = at ? t.d[q] : hd;
+      hx = at ? t.i[q] : hx;
+      hp = sel3(at, t.p[q], hp);
+    }
+    float bd = hd;
+    int bx = hx;
+    group_arg<true>(&bd, &bx, G, gmask);
+    const bool mine = bx != kNone && hx == bx;
+    const unsigned who = __ballot_sync(gmask, mine);
+    const int holder = who ? __ffs(who) - 1 : gbase;
+    const V3 bp = mk(__shfl_sync(gmask, hp.x, holder), __shfl_sync(gmask, hp.y, holder),
+                     __shfl_sync(gmask, hp.z, holder));
+    out.d[pick] = bx != kNone ? bd : kNegBig;
+    out.p[pick] = sel3(bx != kNone, bp, p0);
+    head += mine ? 1 : 0;
+  }
   return hit;
 }
 
-// pair_contacts of physics/pairs.py for one live pair: GEN false, the
-// all-box tables' analytic paths; GEN true, the general hulls' (every hull
-// of such tables, boxes too, takes them, as in pairs.py).  NPTS: also its
-// num_points (candidates past the speculative margin, at most kPts) in
-// *npts, which only the manifold cache keeps.  Each kind's branch compacts
-// its own candidates, so the sphere kinds (one candidate) carry no
-// candidate arrays.
+// pair_contacts of physics/pairs.py for one live pair (rows ra and rb):
+// GEN false, the all-box tables' analytic paths; GEN true, the general
+// hulls' (every hull of such tables, boxes too, takes them, as in
+// pairs.py) from the staged rows hs, but for the hull pairs, which
+// warp_hull_hull takes.  NPTS: also its num_points (candidates past the
+// speculative margin, at most kPts) in *npts, which only the manifold cache
+// keeps.  Each kind's branch compacts its own candidates, so the sphere
+// kinds (one candidate) carry no candidate arrays.
 template <bool NPTS, bool GEN>
-__device__ __forceinline__ void pair_contacts(const Body& A, const Body& B, const Table& tab,
-                                              float spec, Manifold& out, int* npts) {
+__device__ __forceinline__ void pair_contacts(const Body& A, const Body& B, int ra, int rb,
+                                              const Table& tab, const Hulls& hs, float spec,
+                                              Manifold& out, int* npts) {
   const int pa = tab.prim(A.obj), pb = tab.prim(B.obj);
   bool ok = false;
   V3 n = mk(0.0f, 0.0f, 0.0f);
@@ -1286,7 +1461,7 @@ __device__ __forceinline__ void pair_contacts(const Body& A, const Body& B, cons
     const V3 p_n = plane_normal(Pl.rot);
     const float p_d = dot(p_n, Pl.pos);
     if (GEN) {
-      num = hull_plane(H, p_n, p_d, tab, spec, out);
+      num = hull_plane(H, flip ? rb : ra, p_n, p_d, tab, hs, spec, out);
     } else {
       const int nv = tab.nverts(H.obj);
       V3 cp[kCand];
@@ -1315,20 +1490,17 @@ __device__ __forceinline__ void pair_contacts(const Body& A, const Body& B, cons
     float pen;
     V3 p0;
     if (GEN)
-      ok = sphere_hull(S.pos, tab.radius(S.obj), Bx, tab, spec, flip, &n, &p0, &pen);
+      ok = sphere_hull(S.pos, tab.radius(S.obj), Bx, flip ? ra : rb, tab, hs, spec, flip, &n, &p0,
+                       &pen);
     else
       ok = sphere_box(S.pos, tab.radius(S.obj), Bx, tab, spec, flip, &n, &p0, &pen);
     single_point(p0, pen, out);
     num = 1;
-  } else if (pa == kPrimHull && pb == kPrimHull) {
-    if (GEN) {
-      ok = hull_hull<NPTS>(A, B, tab, spec, out, &n, &num);
-    } else {
-      V3 cp[kCand];
-      float cd[kCand];
-      ok = box_box(A, B, tab, spec, cp, cd, &n, &num);
-      deepest4(cp, cd, out);
-    }
+  } else if (!GEN && pa == kPrimHull && pb == kPrimHull) {
+    V3 cp[kCand];
+    float cd[kCand];
+    ok = box_box(A, B, tab, spec, cp, cd, &n, &num);
+    deepest4(cp, cd, out);
   } else {
     single_point(mk(0.0f, 0.0f, 0.0f), kNegBig, out);  // no candidate
   }
@@ -1387,6 +1559,70 @@ __device__ __forceinline__ void warp_box_box(const Body (&Bd)[2], const Table& t
       if (NPTS) *npts = got_num < kPts ? got_num : kPts;
     }
     for (int i = 0; i < 32 / kGroup && todo; ++i) todo &= todo - 1u;
+  }
+}
+
+// The hull pairs among a warp's entries (lanes with hh set; general-hull
+// tables), a lane group each: the widest group (a power of two) that gives
+// every pending pair one, but at least glo lanes (hull_group_min); the warp
+// takes them in batches of 32 / G, lowest lanes first, each group runs
+// hull_hull on its owner's pair (bodies Bd, rows), and each owner lane takes
+// its manifold (and with NPTS its point count) back.  Called by every lane
+// of the warp.
+template <bool NPTS>
+__device__ __forceinline__ void warp_hull_hull(const Body (&Bd)[2], const int (&rows)[2],
+                                               const Table& tab, const Hulls& hs, float spec,
+                                               bool hh, int lane, int glo, Manifold& c,
+                                               int* npts) {
+  const unsigned full = 0xffffffffu;
+  unsigned todo = __ballot_sync(full, hh);
+  while (todo) {
+    const int pending = __popc(todo);
+    int G = 32;
+    while (G > glo && G * pending > 32) G >>= 1;
+    const int gs = lane % G, gbase = lane - gs, g = lane / G;
+    const unsigned gmask = G == 32 ? full : ((1u << G) - 1u) << gbase;
+    unsigned m = todo;
+    for (int i = 0; i < g; ++i) m &= m - 1u;
+    const int owner = m ? __ffs(m) - 1 : lane;
+    Body P[2];
+    int R[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      P[q].pos = mk(__shfl_sync(full, Bd[q].pos.x, owner), __shfl_sync(full, Bd[q].pos.y, owner),
+                    __shfl_sync(full, Bd[q].pos.z, owner));
+      P[q].rot = Q4{__shfl_sync(full, Bd[q].rot.w, owner), __shfl_sync(full, Bd[q].rot.x, owner),
+                    __shfl_sync(full, Bd[q].rot.y, owner), __shfl_sync(full, Bd[q].rot.z, owner)};
+      P[q].obj = __shfl_sync(full, Bd[q].obj, owner);
+      R[q] = __shfl_sync(full, rows[q], owner);
+    }
+    Manifold r;
+    single_point(mk(0.0f, 0.0f, 0.0f), kNegBig, r);
+    V3 n = mk(0.0f, 0.0f, 0.0f);
+    int num = 0;
+    bool ok = false;
+    if (m) ok = hull_hull<NPTS>(P[0], P[1], R[0], R[1], tab, hs, spec, gs, G, gmask, gbase, r, &n,
+                                &num);
+    __syncwarp();
+    const int rank = __popc(todo & ((1u << lane) - 1u));
+    const bool mine = ((todo >> lane) & 1u) && rank < 32 / G;
+    const int src = mine ? rank * G : lane;
+    Manifold got;
+    got.ok = __shfl_sync(full, ok ? 1 : 0, src) != 0;
+    got.n = mk(__shfl_sync(full, n.x, src), __shfl_sync(full, n.y, src),
+               __shfl_sync(full, n.z, src));
+#pragma unroll
+    for (int p = 0; p < kPts; ++p) {
+      got.p[p] = mk(__shfl_sync(full, r.p[p].x, src), __shfl_sync(full, r.p[p].y, src),
+                    __shfl_sync(full, r.p[p].z, src));
+      got.d[p] = __shfl_sync(full, r.d[p], src);
+    }
+    const int got_num = __shfl_sync(full, num, src);
+    if (mine) {
+      c = got;
+      if (NPTS) *npts = got_num < kPts ? got_num : kPts;
+    }
+    for (int i = 0; i < 32 / G && todo; ++i) todo &= todo - 1u;
   }
 }
 
@@ -1782,6 +2018,8 @@ struct Smem {
   int* swrow;
   float* sjv;
   int* sjr;
+  // the general-hull specialisations' staged rows (Hulls), after the rest
+  float* shull;
 };
 
 __device__ __forceinline__ Smem carve(float* smem, int n, int K, bool bp, bool cache, int T) {
@@ -1807,6 +2045,7 @@ __device__ __forceinline__ Smem carve(float* smem, int n, int K, bool bp, bool c
   s.sdeg = bp ? s.sworld + kWorldInts : nullptr;
   s.sbase = bp ? s.sdeg + n : nullptr;
   s.smask = bp ? reinterpret_cast<unsigned*>(s.sbase + n) : nullptr;
+  s.shull = reinterpret_cast<float*>(bp ? s.sbase + n + kBpWords * n : s.sworld + kWorldInts);
   return s;
 }
 
@@ -1859,6 +2098,7 @@ __device__ __forceinline__ Smem carve_window(float* smem, int n, int K, int J, i
   s.scurB = s.scurA + n;
   s.sworld = s.scurB + n;
   s.sjr = s.sworld + kWorldInts;
+  s.shull = reinterpret_cast<float*>(s.sjr + 2 * J);
   s.scache = s.saabb = nullptr;
   s.sri = s.srj = s.skv = s.swork = s.sdeg = s.sbase = nullptr;
   s.smask = nullptr;
@@ -2442,13 +2682,53 @@ __device__ __forceinline__ void stash_load(const float* sst, int KS, Manifold& c
   }
 }
 
+// Stages every hull row's world-space data (Hulls) at its post-integrate
+// pose, one thread an item (a vertex, edge direction, SAT axis or face of a
+// row), each value as the per-pair code computes it (hull_vert's qrot and
+// add; a face's offset face_d + n . pos).  The other rows stage nothing.
+__device__ void stage_hulls(const Hulls& h, const float* sb, const Table& tab, int n, int tid,
+                            int T) {
+  const int R = tab.vm + tab.em + tab.sm + tab.fm;
+  for (int it = tid; it < n * R; it += T) {
+    const int b = it / R, r = it - b * R;
+    const int o = obj_of(sb, b, n);
+    if (tab.prim(o) != kPrimHull) continue;
+    const V3 pos = ld3(sb, kIPos, b, n);
+    const Q4 rot = ld4(sb, kIRot, b, n);
+    float* q = h.s + b * h.stride;
+    V3 v;
+    if (r < tab.vm) {
+      v = add(qrot(rot, tab.vert(o, r)), pos);
+      q += 3 * r;
+    } else if (r < tab.vm + tab.em) {
+      v = qrot(rot, ld3g(tab.edge_dir(o, r - tab.vm)));
+      q += h.oe + 3 * (r - tab.vm);
+    } else if (r < tab.vm + tab.em + tab.sm) {
+      v = qrot(rot, ld3g(tab.sat(o, r - tab.vm - tab.em)));
+      q += h.os + 3 * (r - tab.vm - tab.em);
+    } else {
+      const float* F = tab.face(o, r - tab.vm - tab.em - tab.sm);
+      v = qrot(rot, ld3g(F));
+      q += h.of + 4 * (r - tab.vm - tab.em - tab.sm);
+      q[3] = __ldg(F + 3) + dot(v, pos);
+    }
+    q[0] = v.x;
+    q[1] = v.y;
+    q[2] = v.z;
+  }
+}
+
 // Steps 2-9 of a substep, from the post-integrate pose and velocities
 // (kIPos, kIRot, kIV, kIW) and the substep start (kPrevPos, kPrevRot):
 // leaves the new pose in kPos/kRot (dynamic rows only) and the velocities
 // in kV/kW (zero on the other rows).  WIN: kernel 5's window layout (the
 // entries' rows, pass contributions and list entries by work entry, those
 // past the window in the global scratch; no cache).  GEN: the general-hull
-// contact paths (pair_contacts).  Ends with a barrier.
+// contact paths (pair_contacts, warp_hull_hull) from the hull rows staged
+// once a substep (stage_hulls), and round r's work entries dealt to the
+// threads lane-major across the warps (entry r T + lane nw + warp, nw
+// warps), so that the hull pairs at the head of the work list spread over
+// every warp instead of filling the first.  Ends with a barrier.
 template <bool CACHE, bool WIN, bool GEN>
 __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int kc, float h1,
                               float rest1, float relax, float spec, bool bounce, int mode,
@@ -2457,6 +2737,12 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
   float* sb = s.sb;
   const int *sri = s.sri, *srj = s.srj, *skv = s.skv, *soff = s.soff, *slist = s.slist;
 
+  const bool fresh = !CACHE || mode == kFresh || mode == kBuild || mode == kResolveBuild;
+  const Hulls hs = hulls_at(s.shull, tab);
+  if (GEN && fresh) {
+    stage_hulls(hs, sb, tab, n, tid, T);
+    __syncthreads();
+  }
   if (CACHE && mode == kResolveBuild) {
     const V3 p0 = ld3(sb, kIPos, 0, n);
     const Q4 q0 = ld4(sb, kIRot, 0, n);
@@ -2470,11 +2756,13 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
   // loop runs in whole warps (warp_box_box's shuffles): a lane past the
   // list works on the warp's first entry and drops out before the pass.
   const int nwork = s.sworld[kWorkCount];
-  const int lane = tid % 32;
+  const int lane = tid % 32, nw = T > 32 ? T / 32 : 1, warp = tid / 32;
+  const int glo = GEN ? hull_group_min(tab) : 1;
   Manifold own;
   float own_lam[kPts];
-  for (int e0 = tid - lane; e0 < nwork; e0 += T) {
-    const int e = e0 + lane;
+  // e0: the warp's first entry of the round
+  for (int e0 = GEN ? warp : tid - lane; e0 < nwork; e0 += T) {
+    const int e = e0 + (GEN ? lane * nw : lane);
     const bool act = e < nwork;
     // the slot (or kernel 5's entry) whose contributions this is
     const int k = WIN ? e : s.swork[act ? e : e0];
@@ -2502,14 +2790,17 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
     }
     Manifold c;
     int npts = 0;
-    if (!CACHE || mode == kFresh || mode == kBuild || mode == kResolveBuild) {
+    if (fresh) {
       // box-box pairs on lane groups where the registers are free (the
-      // cache specialisations; see min_blocks), on their own lane elsewhere
-      // and for general hulls
-      const bool bb = CACHE && !GEN && act && tab.prim(Bd[0].obj) == kPrimHull &&
-                      tab.prim(Bd[1].obj) == kPrimHull;
+      // cache specialisations; see min_blocks), on their own lane elsewhere;
+      // general hull pairs on lane groups
+      const bool hull2 = act && tab.prim(Bd[0].obj) == kPrimHull &&
+                         tab.prim(Bd[1].obj) == kPrimHull;
+      const bool bb = CACHE && !GEN && hull2;
       if (CACHE && !GEN) warp_box_box<CACHE>(Bd, tab, spec, bb, lane, c, &npts);
-      if (act && !bb) pair_contacts<CACHE, GEN>(Bd[0], Bd[1], tab, spec, c, &npts);
+      if (GEN) warp_hull_hull<CACHE>(Bd, rows, tab, hs, spec, hull2, lane, glo, c, &npts);
+      if (act && !bb && !(GEN && hull2))
+        pair_contacts<CACHE, GEN>(Bd[0], Bd[1], rows[0], rows[1], tab, hs, spec, c, &npts);
     }
     if (!act) continue;
     if (CACHE && (mode == kBuild || mode == kResolveBuild))
@@ -2573,7 +2864,9 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
   __syncthreads();
 
   // (7-8) per valid slot: re-gather at the post-solve poses, velocity pass
-  for (int e = tid; e < nwork; e += T) {
+  // (the entries dealt as in the positional loop, so a thread's first is
+  // the one it kept)
+  for (int e = GEN ? lane * nw + warp : tid; e < nwork; e += T) {
     const int k = WIN ? e : s.swork[e];
     Side S[2];
     int rows[2];
@@ -2665,12 +2958,15 @@ __device__ void passthrough(const Args& a, int wld, int n, int tid, int T) {
 // kernel without options.
 // CTAs an SM each specialisation is compiled for (__launch_bounds__'s
 // second argument, which caps the registers a thread at 65536 / (128 x
-// that)): 4 where shared memory lets 4 worlds share an SM at K = 256;
-// with a manifold cache (33 floats a slot more) shared memory allows 2, and
-// the registers are left free.
+// that)): 4 where shared memory lets 4 worlds share an SM at K = 256; 3
+// for their general-hull twins, whose staged hull rows (~24 KB at 65 rows of
+// the prism's) leave room for 3; with a manifold cache (33 floats a slot
+// more) shared memory allows 2, and the registers are left free.
 template <int OPTS>
 constexpr int min_blocks() {
-  return (OPTS & (kOptRefresh | kOptPersist)) != 0 ? 1 : kMinBlocks;
+  return (OPTS & (kOptRefresh | kOptPersist)) != 0 ? 1
+         : (OPTS & kOptHull) != 0                  ? kHullBlocks
+                                                   : kMinBlocks;
 }
 
 template <int OPTS>
@@ -3161,11 +3457,19 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// The staged hull rows' bytes (Hulls) for n rows of a table's sections
+// (hull_stage_bytes in ops/substep_kernel.py): 0 for all-box tables.
+size_t hull_stage_bytes(int n, const Table& tab) {
+  if (!tab.h) return 0;
+  return sizeof(float) * static_cast<size_t>(n) * hull_stride(tab.vm, tab.em, tab.sm, tab.fm);
+}
+
 template <int OPTS>
 cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
   constexpr bool bp = (OPTS & kOptBp) != 0;
   constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
-  const size_t smem = smem_bytes(a.n, a.K, bp, cache);
+  const size_t smem = smem_bytes(a.n, a.K, bp, cache) + hull_stage_bytes(a.n, a.tab);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(fused_substep_kernel<OPTS>, smem);
   if (err != cudaSuccess) return err;
   fused_substep_kernel<OPTS><<<W, block_threads(a.n, a.K), smem, stream>>>(a);
@@ -3174,7 +3478,8 @@ cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
 
 template <bool FULL, bool GEN>
 cudaError_t launch_substep(const Args1& a, int W, cudaStream_t stream) {
-  const size_t smem = substep_smem_bytes(a.n, a.K, FULL ? a.J : 0);
+  const size_t smem = substep_smem_bytes(a.n, a.K, FULL ? a.J : 0) + hull_stage_bytes(a.n, a.tab);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(substep_kernel<FULL, GEN>, smem);
   if (err != cudaSuccess) return err;
   substep_kernel<FULL, GEN><<<W, substep_threads(a.n, a.K), smem, stream>>>(a);
@@ -3189,12 +3494,16 @@ cudaError_t occupancy_of(Kernel kernel, int threads, size_t smem, int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
 }
 
+// hull_floats: the staged floats a row of the general-hull twins (0 for the
+// box specialisations).
 template <int OPTS>
-cudaError_t occupancy_fused(int n, int K, int* threads, int* blocks) {
+cudaError_t occupancy_fused(int n, int K, int hull_floats, int* threads, int* blocks) {
   constexpr bool bp = (OPTS & kOptBp) != 0;
   constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
   *threads = block_threads(n, K);
-  return occupancy_of(fused_substep_kernel<OPTS>, *threads, smem_bytes(n, K, bp, cache), blocks);
+  const size_t stage = sizeof(float) * static_cast<size_t>(n) * hull_floats;
+  return occupancy_of(fused_substep_kernel<OPTS>, *threads, smem_bytes(n, K, bp, cache) + stage,
+                      blocks);
 }
 
 // ---------------------------------------------------------------------------
@@ -3445,7 +3754,9 @@ cudaError_t launch_flags(const FlagArgs& a, cudaStream_t stream) {
 // pairs.py ObjTables.hull_table, and dims, a host array of its floats an
 // object and the table's faces, SAT axes, edge directions, corner slots a
 // face and full edges; both null for all-box tables (at most kMaxBoxVerts
-// verts a hull).  False when they break the caps or the layout.
+// verts a hull).  False when they break the layout.  No count is capped:
+// the launch refuses only what its shared memory cannot hold (kMaxSmem,
+// with the staged rows).
 bool set_hull(Table& tab, const void* hull, const void* dims) {
   if (!hull) return tab.vm <= kMaxBoxVerts;
   if (!dims) return false;
@@ -3457,9 +3768,7 @@ bool set_hull(Table& tab, const void* hull, const void* dims) {
   tab.em = d[3];
   tab.fvm = d[4];
   tab.efm = d[5];
-  return tab.vm <= kMaxVerts && tab.fm >= 1 && tab.fm <= kMaxFaces && tab.sm >= 1 &&
-         tab.sm <= kMaxSatAxes && tab.em >= 1 && tab.em <= kMaxEdgeDirs && tab.fvm >= 1 &&
-         tab.fvm <= kMaxFaceVerts && tab.efm >= 1 && tab.efm <= kMaxFullEdges &&
+  return tab.fm >= 1 && tab.sm >= 1 && tab.em >= 1 && tab.fvm >= 1 && tab.efm >= 1 &&
          tab.hs == kHullHead + tab.fm * (kFaceHead + kCornerFl * tab.fvm) + 3 * tab.sm +
                        3 * tab.em + 6 * tab.efm;
 }
@@ -3475,14 +3784,18 @@ bool set_hull(Table& tab, const void* hull, const void* dims) {
 
 // The launch shape and occupancy of the fused kernel's specialisation
 // `opts` (fused_substep_launch's option bits, kOptHull for the general-hull
-// one) at n bodies and K slots:
+// one) at n bodies and K slots, with hull_floats staged floats a row for
+// the general-hull one (hull_stage_floats in ops/substep_kernel.py):
 // threads a CTA and CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int fused_substep_occupancy(int opts, int n, int K, int* threads, int* blocks) {
+extern "C" int fused_substep_occupancy(int opts, int n, int K, int hull_floats, int* threads,
+                                       int* blocks) {
   cudaError_t err;
   switch (opts) {
-#define SUBSTEP_OCC(c)                                                          \
-  case (c): err = occupancy_fused<(c)>(n, K, threads, blocks); break;         \
-  case (c) | kOptHull: err = occupancy_fused<(c) | kOptHull>(n, K, threads, blocks); break;
+#define SUBSTEP_OCC(c)                                                                 \
+  case (c): err = occupancy_fused<(c)>(n, K, 0, threads, blocks); break;               \
+  case (c) | kOptHull:                                                                 \
+    err = occupancy_fused<(c) | kOptHull>(n, K, hull_floats, threads, blocks);         \
+    break;
     SUBSTEP_SPECIALISATIONS(SUBSTEP_OCC)
 #undef SUBSTEP_OCC
     default: err = cudaErrorInvalidValue;
@@ -3492,11 +3805,12 @@ extern "C" int fused_substep_occupancy(int opts, int n, int K, int* threads, int
 
 // The same for kernel 5 (substep_kernel) at n bodies, K slots and J joints,
 // with its integrate, joints and writeback (full) or without, for all-box
-// tables or general hulls (hull).
+// tables (hull 0) or general hulls (hull the staged floats a row).
 extern "C" int substep_occupancy(int n, int K, int J, int full, int hull, int* threads,
                                  int* blocks) {
   *threads = substep_threads(n, K);
-  const size_t smem = substep_smem_bytes(n, K, full ? J : 0);
+  const size_t smem = substep_smem_bytes(n, K, full ? J : 0) +
+                      sizeof(float) * static_cast<size_t>(n) * (hull > 0 ? hull : 0);
   cudaError_t err;
   if (hull)
     err = full ? occupancy_of(substep_kernel<true, true>, *threads, smem, blocks)
@@ -3522,7 +3836,7 @@ extern "C" int fused_substep_launch(
     void* o_arot, void* o_valid, const void* work_list, const void* work_count, int keep_v,
     const void* hull, const void* hull_dims, void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
-  if (n <= 0 || K <= 0 || num_substeps < 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts)
+  if (n <= 0 || K <= 0 || num_substeps < 0 || num_objects <= 0 || vm < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((opts & kOptBp) && (n > kMaxBpRows || degree < 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -3615,7 +3929,7 @@ extern "C" int world_flags_launch(
     float thr2, int frames, float half_margin, void* o_quiet, void* o_asleep, void* o_active,
     void* o_stable, void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
-  if (n <= 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts || opts < 1 || opts > 3)
+  if (n <= 0 || num_objects <= 0 || vm < 0 || opts < 1 || opts > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   FlagArgs a;
   a.pos = static_cast<const float*>(pos);
@@ -3720,7 +4034,7 @@ extern "C" int substep_launch(
     int n, int K, float relaxation, float speculative, int bounce, void* o_pos, void* o_rot,
     void* o_v, void* o_w, void* scratch, const void* hull, const void* hull_dims, void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
-  if (n <= 0 || K <= 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts ||
+  if (n <= 0 || K <= 0 || num_objects <= 0 || vm < 0 ||
       (substep_scratch(K) > 0 && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   Args1 a = {};
@@ -3780,7 +4094,7 @@ extern "C" int substep_node_launch(
     void* o_prev_rot, void* o_ps_pos, void* o_ps_rot, void* o_ps_v, void* o_ps_w,
     void* scratch, const void* hull, const void* hull_dims, void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
-  if (n <= 0 || K <= 0 || J < 0 || E <= 0 || num_objects <= 0 || vm < 0 || vm > kMaxVerts ||
+  if (n <= 0 || K <= 0 || J < 0 || E <= 0 || num_objects <= 0 || vm < 0 ||
       id_bits < 1 || id_bits > 30 || (substep_scratch(K) > 0 && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   Args1 a = {};

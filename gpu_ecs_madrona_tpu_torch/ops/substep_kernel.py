@@ -69,10 +69,11 @@ On CUDA tensors ``fused_substep``, ``substep`` and ``substep_node`` launch
 the hand-written kernels in ``csrc/substep_kernels.cu`` (one CTA per
 world; its notes say what bounds them and how they are laid out) or
 raise.  All-box tables take the analytic box paths; tables with general
-hulls (any convex hull, e.g. from utils/importer.py) up to
-PhysicsLoader()'s defaults take each specialisation's general-hull twin
-(OPT_HULL, counted as "...+hull" and in ``SubstepKernel.hull_launches``),
-which reads ``pairs.ObjTables.hull_table`` beside the object table; on CPU tensors they run ``fused_substep_plain``, ``substep_plain``
+hulls (any convex hull, e.g. from utils/importer.py, of any size whose
+world-space rows fit the shared memory: ``hull_stage_bytes``) take each
+specialisation's general-hull twin (OPT_HULL, counted as "...+hull" and in
+``SubstepKernel.hull_launches``), which reads ``pairs.ObjTables.hull_table``
+beside the object table; on CPU tensors they run ``fused_substep_plain``, ``substep_plain``
 and ``substep_node_plain``, the same loop in batched PyTorch over [W, K]
 pair tensors.  The segment sums add each body's A-side contributions in
 ascending slot order, then its B-side ones, in both versions (a stable
@@ -124,16 +125,10 @@ MC_CACHE = MC_CHANNELS - MC_ROWS
 MAX_SMEM_BYTES = 227 * 1024
 # The object tables the kernels take: all-box tables at most
 # MAX_BOX_TABLE_VERTS verts a hull (the analytic box paths); tables with
-# general hulls (pairs.ObjTables.hull_table) up to PhysicsLoader()'s
-# defaults, each cap a .cu constant (kMaxVerts, kMaxFaces, kMaxSatAxes,
-# kMaxEdgeDirs, kMaxFaceVerts, kMaxFullEdges).
+# general hulls (pairs.ObjTables.hull_table) of any counts, the kernels
+# staging each hull row's world-space data in shared memory
+# (hull_stage_bytes), which with the rest must fit MAX_SMEM_BYTES.
 MAX_BOX_TABLE_VERTS = 8
-MAX_TABLE_VERTS = 32
-MAX_HULL_FACES = 32
-MAX_HULL_SAT_AXES = 32
-MAX_HULL_EDGE_DIRS = 16
-MAX_HULL_FACE_VERTS = 8
-MAX_HULL_FULL_EDGES = 48
 MAX_BP_ROWS = 128
 MAX_THREADS = 128
 
@@ -150,6 +145,24 @@ def stash_slots(n: int, K: int) -> int:
     registers, so only the rounds of T slots after the first."""
     T = block_threads(n, K)
     return (-(-K // T) - 1) * T
+
+
+def hull_stage_floats(tables: pk.ObjTables) -> int:
+    """The floats a row of the general-hull specialisations' staged hull
+    rows (hull_stride in the .cu): a row's world vertices, edge directions
+    and SAT axes (3 each) and faces (4: normal and offset), at the table's
+    counts; 0 for all-box tables."""
+    if tables.all_box:
+        return 0
+    _, Fm, Sm, Em, _, _ = tables.hull_dims()
+    return 3 * (tables.Vm + Em + Sm) + 4 * Fm
+
+
+def hull_stage_bytes(tables: pk.ObjTables, n: int) -> int:
+    """The shared memory the general-hull specialisations stage n rows of
+    ``tables``' hulls in, beside smem_bytes / substep_smem_bytes (0 for
+    all-box tables)."""
+    return 4 * n * hull_stage_floats(tables)
 
 
 def smem_bytes(n: int, K: int, bp: bool = False, cache: bool = False) -> int:
@@ -692,7 +705,7 @@ def _lib():
             + [P] + [P, P] + [P])
         lib.substep_node_launch.restype = I
         IP = ctypes.POINTER(ctypes.c_int)
-        lib.fused_substep_occupancy.argtypes = [I, I, I, IP, IP]
+        lib.fused_substep_occupancy.argtypes = [I, I, I, I, IP, IP]
         lib.fused_substep_occupancy.restype = I
         lib.substep_occupancy.argtypes = [I, I, I, I, I, IP, IP]
         lib.substep_occupancy.restype = I
@@ -705,21 +718,11 @@ def kernel_fits(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
     """'' when the kernel takes these tables and shapes (the fused kernel
     with the in-kernel broadphase, with a manifold cache; with ``single``
     kernel 5 with ``joints`` joints), else why not: all-box tables up to
-    MAX_BOX_TABLE_VERTS verts a hull, general hulls up to the MAX_HULL_*
-    caps and MAX_TABLE_VERTS."""
-    if tables.all_box:
-        if tables.Vm > MAX_BOX_TABLE_VERTS:
-            return f"all-box tables with {tables.Vm} verts per hull > {MAX_BOX_TABLE_VERTS}"
-    else:
-        _, Fm, Sm, Em, FVm, EFm = tables.hull_dims()
-        for what, have, cap in (("verts", tables.Vm, MAX_TABLE_VERTS),
-                                ("faces", Fm, MAX_HULL_FACES),
-                                ("SAT axes", Sm, MAX_HULL_SAT_AXES),
-                                ("edge directions", Em, MAX_HULL_EDGE_DIRS),
-                                ("verts per face", FVm, MAX_HULL_FACE_VERTS),
-                                ("full edges", EFm, MAX_HULL_FULL_EDGES)):
-            if have > cap:
-                return f"general-hull tables with {have} {what} per hull > {cap}"
+    MAX_BOX_TABLE_VERTS verts a hull; general hulls of any counts whose
+    staged rows (hull_stage_bytes) fit the shared memory the rest of the
+    kernel leaves of MAX_SMEM_BYTES, the message saying which budget broke."""
+    if tables.all_box and tables.Vm > MAX_BOX_TABLE_VERTS:
+        return f"all-box tables with {tables.Vm} verts per hull > {MAX_BOX_TABLE_VERTS}"
     if n < 1 or K < 1:
         return f"n={n} bodies and K={K} candidate slots must both be >= 1"
     if bp and n > MAX_BP_ROWS:
@@ -728,6 +731,13 @@ def kernel_fits(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
     if need > MAX_SMEM_BYTES:
         return (f"n={n} bodies and K={K} candidate slots need {need} B of "
                 f"shared memory, over the {MAX_SMEM_BYTES} B a block may have")
+    stage = hull_stage_bytes(tables, n)
+    if need + stage > MAX_SMEM_BYTES:
+        return (f"general-hull tables staged at {hull_stage_floats(tables)} floats a row "
+                f"({tables.Vm} verts, {tables.Em} edge directions, "
+                f"{tables.hull_dims()[2]} SAT axes, {tables.Fm} faces) need {stage} B for "
+                f"n={n} bodies, over the {MAX_SMEM_BYTES - need} B of the hull-row budget "
+                f"(the {MAX_SMEM_BYTES} B a block may have less the kernel's {need} B)")
     return ""
 
 
@@ -1025,14 +1035,15 @@ SPECIALISATION_CODES = (0, OPT_REFRESH, OPT_SLEEP, OPT_REFRESH | OPT_SLEEP, OPT_
 
 
 def occupancy(n: int, K: int, single: bool = False, joints=None,
-              codes=SPECIALISATION_CODES, hull: bool = False):
+              codes=SPECIALISATION_CODES, hull: pk.ObjTables = None):
     """The kernels' launch shape at n bodies and K slots, on the current
     card: {specialisation name: (threads a CTA, CTAs an SM)} for the fused
     kernel's specialisations ``codes`` (all eight by default; a shape that
     fits only some asks for those), or (threads, CTAs an SM) of kernel 5
     with ``single``: without its integrate and joints, or with ``joints``
-    joints its node launch.  ``hull``: the general-hull specialisations.
-    Builds the kernels if needed."""
+    joints its node launch.  ``hull``: tables with general hulls, for the
+    general-hull specialisations with those tables' staged rows.  Builds
+    the kernels if needed."""
     lib = _lib()
     threads, blocks = ctypes.c_int(), ctypes.c_int()
 
@@ -1041,13 +1052,16 @@ def occupancy(n: int, K: int, single: bool = False, joints=None,
             raise RuntimeError(f"occupancy of {what}: cudaError {rc}")
         return threads.value, blocks.value
 
+    floats = 0 if hull is None else hull_stage_floats(hull)
+    if hull is not None and not floats:
+        raise ValueError("occupancy: hull= takes tables with general hulls")
     if single:
         return read(lib.substep_occupancy(n, K, int(joints or 0), int(joints is not None),
-                                          int(hull), ctypes.byref(threads),
+                                          floats, ctypes.byref(threads),
                                           ctypes.byref(blocks)), "substep")
-    codes = [code | (OPT_HULL if hull else 0) for code in codes]
+    codes = [code | (OPT_HULL if floats else 0) for code in codes]
     return {option_name(code): read(lib.fused_substep_occupancy(
-        code, n, K, ctypes.byref(threads), ctypes.byref(blocks)), option_name(code))
+        code, n, K, floats, ctypes.byref(threads), ctypes.byref(blocks)), option_name(code))
         for code in codes}
 
 

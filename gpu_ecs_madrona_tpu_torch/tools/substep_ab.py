@@ -61,9 +61,15 @@ prints one JSON line:
              64 with the imported prism for its box, K = 256): env-steps/s
              (main_rigid_hulls) after 3 untimed steps, the "hull" launch's ms
              at its state after 253 steps (hull_K256) and at K = 128
-             (hull_K128), and the settled hull pile's launch
+             (hull_K128), the settled hull pile's launch
              (hull_persist_settled, main_rigid_hulls_settled's rate) after
-             400 + 253 steps
+             400 + 253 steps and with its flags flipped
+             (hull_persist_flipped), kernel 5's general-hull twin on the
+             pile's first substep (hull_substep) and its node launch on the
+             joint world of prisms (hull_node_joints), each with its output
+             digest; and where the scenes have the 24-sided prism, its pile
+             at the same width after 3 steps (hull_large_K256, or
+             "refused" where the kernel refuses its tables)
   phases     (--phases) row 7's time at main_rigid's state with 0, 1 and 4
              substeps, with every slot cleared (the integrate and the body
              phases), with only the slots of one contact kind valid; row
@@ -206,8 +212,10 @@ def kind_masks(torch, kw, prim_type):
     return {k: v & kw["kvalid"] for k, v in kinds.items()}
 
 
-def occupancy(ctypes, lib, n, K):
-    """{specialisation: [threads, CTAs an SM]} where the library exports it."""
+def occupancy(ctypes, lib, n, K, hull_floats=None):
+    """{specialisation: [threads, CTAs an SM]} where the library exports it;
+    hull_floats: the staged floats a row the general-hull twins take (the
+    imported prism's), where the library stages hull rows."""
     if not hasattr(lib, "fused_substep_occupancy"):
         return "not exported"
     out = {}
@@ -216,7 +224,12 @@ def occupancy(ctypes, lib, n, K):
                        (4, "bp"), (5, "refresh+bp"), (13, "refresh+bp+persist"),
                        (15, "refresh+sleep+bp+persist")):
         for bit, suffix in ((0, ""), (16, "+hull")):
-            rc = lib.fused_substep_occupancy(code | bit, n, K, ctypes.byref(t), ctypes.byref(b))
+            if hull_floats is None:
+                rc = lib.fused_substep_occupancy(code | bit, n, K, ctypes.byref(t),
+                                                 ctypes.byref(b))
+            else:
+                rc = lib.fused_substep_occupancy(code | bit, n, K, hull_floats if bit else 0,
+                                                 ctypes.byref(t), ctypes.byref(b))
             if rc == 0:
                 out[name + suffix] = [t.value, b.value]
             elif not bit:
@@ -249,8 +262,9 @@ def stg_case(torch, ms, rates, res):
     res["stg"] = dict(node, pairs_per_world_max=int(kw1["kvalid"].sum(1).max()))
 
 
-def hull_case(torch, root, ms, rates, res):
-    """The hulls case (see the module doc), where ROOT has the hull scenes."""
+def hull_case(torch, root, ms, rates, res, timed):
+    """The hulls case (see the module doc), where ROOT has the hull scenes;
+    timed(name, fn) times fn and keeps its outputs' digest."""
     if not os.path.exists(os.path.join(root, "tests", "test_torch_hull_scenes.py")):
         res["hulls"] = "no general-hull paths in this checkout"
         return
@@ -275,10 +289,13 @@ def hull_case(torch, root, ms, rates, res):
         else:
             sim.run(250)
         kern, kw = RS.fused_kernel(sim), inputs(sim)
-        ms[f"hull_K{K}"] = cuda_ms(torch, lambda: kern(**kw))
+        timed(f"hull_K{K}", lambda: kern(**kw))
         if K == 256:
             res["hulls"] = {"live_slots": {k: int(v.sum()) for k, v in kind_masks(
                 torch, kw, sim.world_cls.objmgr["prim_type"]).items()}}
+            single = phys.subk.SubstepKernel(sim.world_cls.objmgr, relaxation=0.7)
+            kw1 = RS.substep_kernel_inputs(kw)
+            timed("hull_substep", lambda: single(**kw1))
         del sim, kw
     settled = hull_sim(**{k: v for k, v in hs.HULL_SETTLED.items() if k not in hs.HULL_PILE})
     settled.run(rb.SETTLE_STEPS + 3)
@@ -288,11 +305,30 @@ def hull_case(torch, root, ms, rates, res):
     opts = dict(mcache_out=kwp["mcache"].clone(), keep_velocity=True,
                 anchors=tuple(fkw[k].clone() for k in ("apos", "arot", "valid")))
     kwl = {k: x for k, x in kwp.items() if k not in ("im", "ii", "mu_s", "mu_d")}
-    ms["hull_persist_settled"] = cuda_ms(torch, lambda: (phys.subk.world_flags(**fkw),
-                                                         pkern(**kwl, **opts)))
+    timed("hull_persist_settled", lambda: (phys.subk.world_flags(**fkw), pkern(**kwl, **opts)))
+    worlds = torch.arange(RB_WORLDS, device=kwp["pos"].device)
+    flipped = dict(kwl, stable=kwp["stable"] ^ (worlds % 2 == 1),
+                   active=kwp["active"] ^ (worlds % 4 >= 2))
+    timed("hull_persist_flipped", lambda: pkern(**flipped, **opts))
     res["hulls"]["settled_branches"] = {
         "asleep": int((~kwp["active"]).sum()),
         "awake_stable": int((kwp["active"] & kwp["stable"]).sum())}
+    del settled
+    import test_torch_joint_scenes as joint_scenes
+    jsim = joint_scenes.joint_world("pallas", num_worlds=256, device="cuda",
+                                    body=hs.prism_object())
+    jsim.run(5)
+    jkern = RS.substep_kernel(jsim)
+    jkw = RS.next_step_kernel_inputs(jsim, None, None, node=True)
+    timed("hull_node_joints", lambda: jkern.step(**jkw))
+    del jsim
+    if hasattr(hs, "large_hull_object_manager"):
+        large = hs.hull_pile(rb.RigidBenchConfig(**hs.HULL_PILE), device="cuda", large=True)
+        large.run(3)
+        lkern, lkw = RS.fused_kernel(large), inputs(large)
+        timed("hull_large_K256", lambda: lkern(**lkw))
+        res["hulls"]["large_live_slots"] = {k: int(v.sum()) for k, v in kind_masks(
+            torch, lkw, large.world_cls.objmgr["prim_type"]).items()}
 
 
 def one(root, phases, stg_only):
@@ -328,9 +364,16 @@ def one(root, phases, stg_only):
         elif entry and ("registers" in ln or "stack frame" in ln):
             ptxas[entry] = (ptxas.get(entry, "") + " " + ln.split(":")[-1].strip()).strip()
     lib = sk._lib()
+    floats = None
+    if hasattr(sk, "hull_stage_floats"):
+        sys.path.insert(0, os.path.join(root, "tests"))
+        import test_torch_hull_scenes as hs
+        from gpu_ecs_madrona_tpu_torch.physics import assets
+        from gpu_ecs_madrona_tpu_torch.utils import importer
+        floats = sk.hull_stage_floats(sk.pk.ObjTables(hs.hull_object_manager(assets, importer)))
     res = {"root": root, "card": torch.cuda.get_device_name(0), "ptxas": ptxas,
-           "occupancy": {"K256": occupancy(ctypes, lib, 65, 256),
-                         "K128": occupancy(ctypes, lib, 65, 128)}}
+           "occupancy": {"K256": occupancy(ctypes, lib, 65, 256, floats),
+                         "K128": occupancy(ctypes, lib, 65, 128, floats)}}
     res["occupancy"]["substep_1024x104_K1000"] = sk.occupancy(104, 1000, single=True)
     if hasattr(sk.SubstepKernel, "step"):
         res["occupancy"]["substep_node_1024x104_K1000_J64"] = sk.occupancy(
@@ -409,7 +452,7 @@ def one(root, phases, stg_only):
     res.update(ms=ms, rates=rates, live_slots={
         "main_rigid": {k: int(v.sum()) for k, v in kind_masks(
             torch, kw256, om["prim_type"]).items()}})
-    hull_case(torch, root, ms, rates, res)
+    hull_case(torch, root, ms, rates, res, timed)
 
     if phases:
         ph = {}

@@ -418,13 +418,14 @@ def fused_inputs(sim):
     return RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, rb.Body, sim.world_cls.objmgr)
 
 
-def over_the_caps(om=None):
+def over_the_budget(om=None):
     """An object manager (rigid_bench's by default) with its box taken as a
-    general hull of 40 table verts (zero rows past its 8): over the
-    kernel's 32."""
+    general hull of 4096 table verts (zero rows past its 8): staged hull
+    rows past the shared memory the kernels leave them, at any row count
+    the tests launch."""
     om = dict(rb.RigidBenchWorld.objmgr if om is None else om)
     om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
-    om["verts"] = np.pad(om["verts"], ((0, 0), (0, 32), (0, 0)))
+    om["verts"] = np.pad(om["verts"], ((0, 0), (0, 4096 - om["verts"].shape[1]), (0, 0)))
     return om
 
 
@@ -466,8 +467,8 @@ def test_fused_substep_rejects_bad_input(card):
         subk.fused_substep(**dict(args, pos=kw["pos"].double()))
     with pytest.raises(ValueError):
         subk.fused_substep(**dict(args, rows_i=kw["rows_i"].cpu()))
-    with pytest.raises(NotImplementedError, match="general-hull tables with 40 verts"):
-        subk.fused_substep(**dict(args, tables=subk.pk.ObjTables(over_the_caps())))
+    with pytest.raises(NotImplementedError, match="4096 verts.*hull-row budget"):
+        subk.fused_substep(**dict(args, tables=subk.pk.ObjTables(over_the_budget())))
     assert subk.FusedSubstepKernel.launches == 0
 
 
@@ -504,8 +505,8 @@ def test_substep_rejects_bad_input(card):
         subk.substep(**dict(args, prev_rot=a["prev_rot"].double()))
     with pytest.raises(ValueError):
         subk.substep(**dict(args, kvalid=a["kvalid"].cpu()))
-    with pytest.raises(NotImplementedError, match="general-hull tables with 40 verts"):
-        subk.substep(**dict(args, tables=subk.pk.ObjTables(over_the_caps())))
+    with pytest.raises(NotImplementedError, match="4096 verts.*hull-row budget"):
+        subk.substep(**dict(args, tables=subk.pk.ObjTables(over_the_budget())))
     assert subk.SubstepKernel.launches == 0
 
 
@@ -613,8 +614,8 @@ def test_substep_node_rejects_bad_input(card):
     with pytest.raises(ValueError):
         bad = dict(opts["joints"], attach_rot1=opts["joints"]["attach_rot1"][..., :3].contiguous())
         subk.substep_node(*args, **dict(opts, joints=bad))
-    om = over_the_caps(kern.tables.om)
-    with pytest.raises(NotImplementedError, match="general-hull tables with 40 verts"):
+    om = over_the_budget(kern.tables.om)
+    with pytest.raises(NotImplementedError, match="4096 verts.*hull-row budget"):
         subk.substep_node(*args, **dict(opts, tables=subk.pk.ObjTables(om)))
     assert subk.SubstepKernel.launches == 0
 
@@ -1439,22 +1440,29 @@ def test_reset_on_card_matches_cpu(card, which):
 
 # -- general hulls: the imported prism of tests/test_torch_hull_scenes.py -----
 
-# the general-hull specialisations, each on a hull pile (prisms and spheres,
-# or prisms only) with its options; mixes of sleep and stable flags set
+# the general-hull specialisations, each on a hull pile (prisms and spheres)
+# with its options, on prisms stacked face on face ("stacked_...": prisms
+# only) and on the pile of the 24-sided prism ("large_...": tables past
+# PhysicsLoader()'s defaults); mixes of sleep and stable flags set
 HULL_CASES = {"none_K256": dict(max_candidates=256), "none_K128": dict(max_candidates=128),
-              "stacked": dict(body_mix="boxes"), **OPTION_CASES}
+              "stacked": dict(body_mix="boxes", stacked=True), **OPTION_CASES,
+              "large_K256": dict(max_candidates=256, large=True),
+              **{f"stacked_{k}": dict(v, body_mix="boxes", stacked=True)
+                 for k, v in OPTION_CASES.items()},
+              **{f"large_{k}": dict(v, large=True) for k, v in OPTION_CASES.items()}}
 
 
 def hull_case(case, dev, W=64):
-    """(kernel, inputs) of a hull pile case at a mid-pile state (or, for
-    "stacked", prisms resting face on face in columns), every branch
+    """(kernel, inputs) of a hull pile case at a mid-pile state (or, for the
+    stacked cases, prisms resting face on face in columns), every branch
     taken."""
     cfg = dict(dict(contact_mode="pallas", spawn_xy=3.0, spawn_h=5.0, seed=3, num_worlds=W),
                **HULL_CASES[case])
-    sim = hull_scenes.hull_pile(rb.RigidBenchConfig(**cfg), device=dev)
-    if case == "stacked":
+    large, stacked = cfg.pop("large", False), cfg.pop("stacked", False)
+    sim = hull_scenes.hull_pile(rb.RigidBenchConfig(**cfg), device=dev, large=large)
+    if stacked:
         hull_scenes.stack_prisms(sim)
-    sim.run(0 if case == "stacked" else 6)
+    sim.run(0 if stacked else 6)
     kw = fused_inputs(sim)
     worlds = torch.arange(W, device=dev)
     if "active" in kw:
@@ -1464,14 +1472,27 @@ def hull_case(case, dev, W=64):
     return RigidBodyPhysicsSystem.fused_kernel(sim), kw
 
 
+def hull_pairs(kw, tables):
+    """The valid candidate slots [W, K] whose two rows are hulls (the
+    kernels' lane groups take them)."""
+    prim = torch.as_tensor(tables.om["prim_type"], device=kw["obj"].device)
+    pa = prim[torch.gather(kw["obj"], 1, kw["rows_i"].long()).long()]
+    pb = prim[torch.gather(kw["obj"], 1, kw["rows_j"].long()).long()]
+    return kw["kvalid"] & (pa == 1) & (pb == 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(HULL_CASES))
 def test_fused_substep_hull_matches_plain(card, case):
     """Each fused specialisation on general-hull tables (its "+hull" launch)
-    against the plain version: integers exact, poses, stashes, AABBs and the
-    cache atol 1e-4, velocities atol 1e-3; two launches bit-identical."""
+    against the plain version, bit for bit (integers, poses, stashes, AABBs,
+    the cache and velocities); two launches bit-identical.  Where the
+    candidate rows are inputs, hull pairs are among them (the lane-group
+    path runs)."""
     kern, kw = hull_case(case, card)
     assert not kern.tables.all_box
+    if kw.get("rows_i") is not None:
+        assert int(hull_pairs(kw, kern.tables).sum()) > 0
     subk.FusedSubstepKernel.launches_by_options.clear()
     got, again = kern(**kw), kern(**kw)
     torch.cuda.synchronize()
@@ -1481,21 +1502,18 @@ def test_fused_substep_hull_matches_plain(card, case):
     assert set(got) == set(want)
     for k in want:
         assert torch.equal(got[k], again[k]), k
-        if k in INT_KEYS:
-            assert torch.equal(got[k], want[k]), k
-            continue
-        assert torch.isfinite(got[k]).all(), k
-        atol = 1e-4 if k in POSE_KEYS or k in ("aabb_lo", "aabb_hi", "mcache") else 1e-3
-        torch.testing.assert_close(got[k], want[k], rtol=0, atol=atol, msg=k)
+        assert k in INT_KEYS or torch.isfinite(got[k]).all(), k
+        assert torch.equal(got[k], want[k]), (k, float((got[k].float() - want[k].float()).abs()
+                                                    .max()))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["pile", "stacked", "joints"])
+@pytest.mark.parametrize("case", ["pile", "stacked", "joints", "large"])
 def test_substep_hull_matches_plain(card, case):
     """Kernel 5 on general-hull tables: without FULL on a hull pile's first
-    substep (a mid-pile state, stacked prisms), and its node launch on the
-    joint world with the prism for its boxes; parity_substep's gates, two
-    launches bit-identical."""
+    substep (a mid-pile state, stacked prisms, the 24-sided prism's pile),
+    and its node launch on the joint world with the prism for its boxes;
+    bit for bit the plain version, two launches bit-identical."""
     if case == "joints":
         sim = joint_world("pallas", num_worlds=8, device=card, body=hull_scenes.prism_object())
         sim.run(5)
@@ -1506,7 +1524,8 @@ def test_substep_hull_matches_plain(card, case):
         got, again = kern.step(**kw), kern.step(**kw)
         want = kern.step_plain(**kw)
     else:
-        fkern, fkw = hull_case("none_K256" if case == "pile" else "stacked", card)
+        fkern, fkw = hull_case({"pile": "none_K256", "large": "large_K256"}.get(case, case),
+                               card)
         kw = RigidBodyPhysicsSystem.substep_kernel_inputs(fkw)
         tables = fkern.tables
         got, again = (subk.substep(**kw, tables=tables, relaxation=0.7) for _ in range(2))
@@ -1515,27 +1534,29 @@ def test_substep_hull_matches_plain(card, case):
     assert subk.SubstepKernel.launches == subk.SubstepKernel.hull_launches == 2
     for k in want:
         assert torch.isfinite(got[k]).all() and torch.equal(got[k], again[k]), k
-        torch.testing.assert_close(got[k], want[k], rtol=0,
-                                   atol=1e-4 if k in POSE_KEYS else 1e-3, msg=k)
+        assert torch.equal(got[k], want[k]), (k, float((got[k] - want[k]).abs().max()))
 
 
 @pytest.mark.cuda
 def test_hull_tables_over_the_caps_are_refused(card):
-    """A general-hull table over a cap is refused by name on the card,
-    before any launch; at the caps it launches."""
+    """A general-hull table whose staged rows pass the shared-memory budget
+    is refused by name on the card, before any launch; past PhysicsLoader()'s
+    default caps (17 edge directions, 33 verts) it launches, bit for bit the
+    plain version."""
     kern, kw = hull_case("none_K256", card, W=4)
     tables = kern.tables
     wide = dict(tables.om)
-    wide["edge_dirs"] = np.pad(wide["edge_dirs"], ((0, 0), (0, 13), (0, 0)))
+    wide["edge_dirs"] = np.pad(wide["edge_dirs"], ((0, 0), (0, 17 - wide["edge_dirs"].shape[1]),
+                                                   (0, 0)))
+    wide["verts"] = np.pad(wide["verts"], ((0, 0), (0, 33 - wide["verts"].shape[1]), (0, 0)))
     subk.FusedSubstepKernel.launches = 0
-    with pytest.raises(NotImplementedError, match="17 edge directions per hull > 16"):
-        subk.fused_substep(**kw, tables=subk.pk.ObjTables(wide), num_substeps=4)
-    assert subk.FusedSubstepKernel.launches == 0
-    wide["edge_dirs"] = wide["edge_dirs"][:, :16]
     out = subk.fused_substep(**kw, tables=subk.pk.ObjTables(wide), num_substeps=4)
     want = subk.fused_substep_plain(**kw, tables=tables, num_substeps=4)
     torch.cuda.synchronize()
     assert subk.FusedSubstepKernel.launches == 1
     for k in subk.OUT_KEYS:
-        torch.testing.assert_close(out[k], want[k], rtol=0,
-                                   atol=1e-4 if k in POSE_KEYS else 1e-3, msg=k)
+        assert torch.equal(out[k], want[k]), k
+    wide["verts"] = np.pad(wide["verts"], ((0, 0), (0, 4096 - 33), (0, 0)))
+    with pytest.raises(NotImplementedError, match="4096 verts.*hull-row budget"):
+        subk.fused_substep(**kw, tables=subk.pk.ObjTables(wide), num_substeps=4)
+    assert subk.FusedSubstepKernel.launches == 1

@@ -15,9 +15,10 @@ JAX's ``"pairs"`` mode, the reference JAX's own tests hold its kernel to
   - ten steps: test_torch_physics_world.py's multi-step gates (rtol 1e-4,
     atol 8e-2 on positions), with the measured deviation much smaller.
 
-Also: the kernel's limits take these tables and refuse, by name, tables
-over its caps; contact_mode "auto" at 65 rows takes the fused node with
-them.  One JAX executor serves both comparisons (one compile, module
+Also: the kernel's limits take these tables, larger ones (the 24-sided
+prism, counts past PhysicsLoader()'s defaults) and refuse, by name, tables
+whose staged hull rows pass the shared-memory budget; contact_mode "auto"
+at 65 rows takes the fused node with them.  One JAX executor serves both comparisons (one compile, module
 fixture).
 """
 
@@ -170,26 +171,55 @@ def test_ten_steps_match_jax_pairs(jax_run):
         :, 1:, 2].max()
 
 
-def test_kernel_fits_hull_tables_and_refuses_over_the_caps():
-    """The kernel takes the prism's tables at the main path's shapes with
-    every option, and any table PhysicsLoader() builds at its defaults;
-    over a cap it refuses by name."""
-    tables = pk.ObjTables(port_world().objmgr)
-    for K in (256, 128):
-        for bp, cache in ((False, False), (True, True), (False, True), (True, False)):
-            assert sk.kernel_fits(tables, 65, K, bp, cache) == ""
-    assert sk.kernel_fits(tables, 104, 1000, single=True, joints=64) == ""
-    # PhysicsLoader()'s defaults, filled: 32 verts, 32 faces, 16 edge
-    # directions, 8 corners a face, 48 full edges (an untrimmed table)
-    om = dict(port_world().objmgr)
-    full = {"verts": 32, "face_normals": 32, "sat_axes": 32, "edge_dirs": 16, "edge_p0": 48}
-    assert sk.kernel_fits(pk.ObjTables(_widen(om, full, fvm=8)), 65, 256) == ""
-    for key, cap, what in (("verts", 33, "verts"), ("face_normals", 33, "faces"),
-                           ("edge_dirs", 17, "edge directions"), ("edge_p0", 49, "full edges")):
-        why = sk.kernel_fits(pk.ObjTables(_widen(om, {key: cap})), 65, 256)
-        assert why.startswith("general-hull tables with") and what in why, why
-    why = sk.kernel_fits(pk.ObjTables(_widen(om, {}, fvm=9)), 65, 256)
-    assert "verts per face" in why and "> 8" in why
+# kernel_fits' cases: tables and the shape they are asked at, the main path's
+# 65 rows at K = 256 unless given; True where the kernel takes them
+FIT_CASES = {
+    # the prism at the main path's shapes with every option, kernel 5's
+    "prism": dict(),
+    # PhysicsLoader()'s defaults filled (an untrimmed table): 32 verts, 32
+    # faces, 16 edge directions, 8 corners a face, 48 full edges
+    "loader_defaults_filled": dict(rows={"verts": 32, "face_normals": 32, "sat_axes": 32,
+                                         "edge_dirs": 16, "edge_p0": 48}, fvm=8),
+    # each count past those defaults (which the kernels refused before
+    # their hull rows were staged in shared memory)
+    "past_the_defaults": dict(rows={"verts": 33, "face_normals": 33, "edge_dirs": 17,
+                                    "edge_p0": 49}, fvm=9),
+    # the 24-sided prism (48 verts, 24-vertex caps, 72 full edges)
+    "large_prism": dict(large=True),
+    # rows whose staged data passes the budget the kernel's shared memory
+    # leaves them
+    "over_the_budget": dict(rows={"verts": 600}, fits=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FIT_CASES))
+def test_kernel_fits_hull_tables_and_refuses_over_the_caps(case):
+    """The kernels take any general-hull table whose staged rows fit the
+    shared memory beside the rest of the kernel (the prism's at the main
+    path's shapes with every option and kernel 5's, the defaults filled,
+    counts past them, the 24-sided prism), and refuse one over that budget
+    by name, saying which budget broke."""
+    spec = FIT_CASES[case]
+    om = hs.large_hull_object_manager(assets, importer) if spec.get("large") else \
+        dict(port_world().objmgr)
+    if "rows" in spec:
+        om = _widen(om, spec["rows"], fvm=spec.get("fvm"))
+    tables = pk.ObjTables(om)
+    assert not tables.all_box
+    why = sk.kernel_fits(tables, 65, 256)
+    if not spec.get("fits", True):
+        assert why.startswith("general-hull tables staged at") and "hull-row budget" in why, why
+        need = sk.smem_bytes(65, 256) + sk.hull_stage_bytes(tables, 65)
+        assert need > sk.MAX_SMEM_BYTES and str(sk.hull_stage_bytes(tables, 65)) in why
+        # the same table at fewer rows fits
+        assert sk.kernel_fits(tables, 9, 32) == ""
+        return
+    assert why == ""
+    if case == "prism":
+        for K in (256, 128):
+            for bp, cache in ((False, False), (True, True), (False, True), (True, False)):
+                assert sk.kernel_fits(tables, 65, K, bp, cache) == ""
+        assert sk.kernel_fits(tables, 104, 1000, single=True, joints=64) == ""
 
 
 def _widen(om, rows, fvm=None):

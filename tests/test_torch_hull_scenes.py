@@ -3,7 +3,9 @@ scenes, no tests): shared by tests/test_torch_importer.py,
 test_torch_hull_pile.py, test_torch_cuda.py and chip_smoke.py.
 
   - prism_obj: the .obj text of a hexagonal prism (a regular hexagon of
-    circumradius 0.5 at z = +-0.5; 12 verts, 8 faces wound outward).
+    circumradius 0.5 at z = +-0.5; 12 verts, 8 faces wound outward), or of
+    a prism of ``sides`` sides (LARGE_SIDES: a 24-sided prism of 48 verts,
+    24-vertex caps and 72 full edges, past PhysicsLoader()'s defaults).
   - hull_objects: [the prism imported from a temporary .obj file, rigid_bench's
     sphere 0.5, its plane], from either package's ``assets`` and
     ``importer`` modules; hull_object_manager packs them with
@@ -13,6 +15,9 @@ test_torch_hull_pile.py, test_torch_cuda.py and chip_smoke.py.
     becomes the prism); hull_pile the port's executor of it.
   - HULL_PILE / HULL_SETTLED: the main path's configurations (rigid_bench
     at main_rigid's width; the settled pile's options with prisms).
+  - large_hull_object_manager / large_hull_pile: the same with the 24-sided
+    prism for object 0, packed by a PhysicsLoader with its caps raised to
+    take it (LARGE_LOADER).
 """
 
 import math
@@ -24,41 +29,47 @@ from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
 
 PRISM_RADIUS = 0.5
 PRISM_HALF_HEIGHT = 0.5
+# the large hull: a 24-sided prism, and the PhysicsLoader caps that take it
+# (its 48 verts, 24 corners a cap and 72 full edges are past the defaults'
+# 32, 8 and 48)
+LARGE_SIDES = 24
+LARGE_LOADER = dict(max_verts=64, max_face_verts=24, max_full_edges=96)
 
 
-def prism_obj(radius=PRISM_RADIUS, half=PRISM_HALF_HEIGHT) -> str:
-    """A hexagonal prism as .obj text: verts 1-6 the bottom hexagon
-    (counter-clockwise seen from above), 7-12 the top one; the bottom face,
-    the top face and six side quads, each wound counter-clockwise seen
-    from outside."""
-    lines = ["# hexagonal prism", "o prism"]
+def prism_obj(radius=PRISM_RADIUS, half=PRISM_HALF_HEIGHT, sides=6) -> str:
+    """A prism of ``sides`` sides (a hexagonal one by default) as .obj text:
+    verts 1..sides the bottom polygon (counter-clockwise seen from above),
+    the next ``sides`` the top one; the bottom face, the top face and the
+    side quads, each wound counter-clockwise seen from outside."""
+    lines = ["# hexagonal prism" if sides == 6 else f"# prism of {sides} sides", "o prism"]
     for z in (-half, half):
-        for k in range(6):
-            a = math.pi / 3.0 * k
+        for k in range(sides):
+            a = 2.0 * math.pi / sides * k
             lines.append(f"v {radius * math.cos(a)!r} {radius * math.sin(a)!r} {z!r}")
-    lines.append("f 6 5 4 3 2 1")
-    lines.append("f 7 8 9 10 11 12")
-    for k in range(6):
-        b0, b1 = k + 1, (k + 1) % 6 + 1
-        lines.append(f"f {b0} {b1} {b1 + 6} {b0 + 6}")
+    lines.append("f " + " ".join(str(k) for k in range(sides, 0, -1)))
+    lines.append("f " + " ".join(str(sides + k) for k in range(1, sides + 1)))
+    for k in range(sides):
+        b0, b1 = k + 1, (k + 1) % sides + 1
+        lines.append(f"f {b0} {b1} {b1 + sides} {b0 + sides}")
     return "\n".join(lines) + "\n"
 
 
-def write_prism(directory) -> str:
-    """prism_obj written to ``directory``/prism.obj; returns the path."""
+def write_prism(directory, sides=6) -> str:
+    """prism_obj(sides=sides) written to ``directory``/prism.obj; returns
+    the path."""
     path = os.path.join(directory, "prism.obj")
     with open(path, "w") as f:
-        f.write(prism_obj())
+        f.write(prism_obj(sides=sides))
     return path
 
 
-def hull_objects(assets, importer):
+def hull_objects(assets, importer, sides=6):
     """[the imported prism, sphere 0.5, plane] with rigid_bench's materials,
     from a package's physics ``assets`` and ``utils.importer`` modules: the
-    prism written to a temporary .obj file and read back with
-    ``importer.import_object(path, inv_mass=1.0, mu_s=0.6, mu_d=0.4)``."""
+    prism of ``sides`` sides written to a temporary .obj file and read back
+    with ``importer.import_object(path, inv_mass=1.0, mu_s=0.6, mu_d=0.4)``."""
     with tempfile.TemporaryDirectory() as d:
-        prism = importer.import_object(write_prism(d), inv_mass=1.0, mu_s=0.6, mu_d=0.4)
+        prism = importer.import_object(write_prism(d, sides), inv_mass=1.0, mu_s=0.6, mu_d=0.4)
     return [prism, assets.make_sphere(0.5, inv_mass=1.0, mu_s=0.6, mu_d=0.4),
             assets.make_plane(mu_s=0.8, mu_d=0.6)]
 
@@ -67,6 +78,13 @@ def hull_object_manager(assets, importer):
     """hull_objects packed by PhysicsLoader() at its defaults."""
     return assets.PhysicsLoader().load_objects(hull_objects(assets, importer)) \
         .get_object_manager()
+
+
+def large_hull_object_manager(assets, importer):
+    """hull_objects with the 24-sided prism, packed by PhysicsLoader with
+    its caps raised to LARGE_LOADER."""
+    return assets.PhysicsLoader(**LARGE_LOADER).load_objects(
+        hull_objects(assets, importer, LARGE_SIDES)).get_object_manager()
 
 
 def hull_world(bench, om):
@@ -82,12 +100,14 @@ HULL_PILE = dict(num_worlds=8192, num_bodies=64, contact_mode="pallas")
 HULL_SETTLED = dict(HULL_PILE, **rb.SETTLED_PILE)
 
 
-def hull_pile(cfg, device="cpu"):
+def hull_pile(cfg, device="cpu", large=False):
     """The port's rigid_bench executor of configuration ``cfg`` with the
-    imported prism as object 0, on ``device``."""
+    imported prism (with ``large`` the 24-sided one) as object 0, on
+    ``device``."""
     from gpu_ecs_madrona_tpu_torch.physics import assets
     from gpu_ecs_madrona_tpu_torch.utils import importer
-    World = hull_world(rb, hull_object_manager(assets, importer)).with_config(cfg)
+    make = large_hull_object_manager if large else hull_object_manager
+    World = hull_world(rb, make(assets, importer)).with_config(cfg)
     return TaskGraphExecutor(World, ExecutorConfig(
         num_worlds=cfg.num_worlds, max_entities_per_world=cfg.num_bodies + 8, seed=cfg.seed,
         device=device))

@@ -288,16 +288,21 @@ def test_auto_contact_mode_is_the_kernel_above_48_rows():
 
 
 def test_kernel_refuses_general_hulls_on_the_card_path():
-    """The CUDA route takes general hulls up to PhysicsLoader()'s defaults
-    (here the box taken as a general hull) and refuses, by name, general
-    hulls over its caps (here 40 verts); all-box tables take the box
-    paths."""
+    """The CUDA route takes general hulls whose staged rows fit its shared
+    memory (here the box taken as a general hull, also padded to 40 table
+    verts, past PhysicsLoader()'s default 32) and refuses, by name, those
+    whose rows do not (here 600 table verts at 65 rows); all-box tables
+    take the box paths."""
     om = dict(rb.default_object_manager())
     om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
     assert sk.kernel_fits(sk.pk.ObjTables(om), 65, 256) == ""
     om["verts"] = np.pad(om["verts"], ((0, 0), (0, 32), (0, 0)))
-    why = sk.kernel_fits(sk.pk.ObjTables(om), 65, 256)
-    assert why == f"general-hull tables with 40 verts per hull > {sk.MAX_TABLE_VERTS}"
+    assert sk.kernel_fits(sk.pk.ObjTables(om), 65, 256) == ""
+    om["verts"] = np.pad(om["verts"], ((0, 0), (0, 560), (0, 0)))
+    tables = sk.pk.ObjTables(om)
+    why = sk.kernel_fits(tables, 65, 256)
+    assert why.startswith("general-hull tables staged at") and "600 verts" in why, why
+    assert f"need {sk.hull_stage_bytes(tables, 65)} B" in why and "hull-row budget" in why
     assert sk.kernel_fits(sk.pk.ObjTables(rb.default_object_manager()), 65, 256) == ""
 
 

@@ -87,16 +87,49 @@ def test_smem_mirror_equals_the_cu_layout(n, K, bp, cache):
 def test_limits_match_the_cu():
     c = cu_constants()
     assert sk.MAX_BP_ROWS == c["kMaxBpRows"] == 32 * c["kBpWords"]
-    assert sk.MAX_TABLE_VERTS == c["kMaxVerts"]
     assert sk.MAX_BOX_TABLE_VERTS == c["kMaxBoxVerts"]
-    assert (sk.MAX_HULL_FACES, sk.MAX_HULL_SAT_AXES, sk.MAX_HULL_EDGE_DIRS,
-            sk.MAX_HULL_FACE_VERTS, sk.MAX_HULL_FULL_EDGES) == (
-        c["kMaxFaces"], c["kMaxSatAxes"], c["kMaxEdgeDirs"], c["kMaxFaceVerts"],
-        c["kMaxFullEdges"])
+    # no general-hull table count is capped: only the shared memory is
+    assert "kMaxVerts" not in c and "kMaxFullEdges" not in c
     assert sk.OPT_HULL == c["kOptHull"]
     assert sk.MC_CACHE == c["kCacheCh"]
-    assert sk.MAX_SMEM_BYTES == 227 * 1024
+    assert sk.MAX_SMEM_BYTES == 227 * 1024 == c["kMaxSmem"]
     assert sk.MAX_THREADS == c["kMaxThreads"]
+
+
+def hull_tables(which):
+    """The imported prism's tables, or the 24-sided prism's."""
+    import test_torch_hull_scenes as hs
+    from gpu_ecs_madrona_tpu_torch.physics import assets
+    from gpu_ecs_madrona_tpu_torch.utils import importer
+    make = hs.large_hull_object_manager if which == "large" else hs.hull_object_manager
+    return sk.pk.ObjTables(make(assets, importer))
+
+
+@pytest.mark.parametrize("which", ["prism", "large"])
+def test_hull_stage_mirror_equals_the_cu(which):
+    """hull_stage_floats is the .cu's hull_stride at the table's counts
+    (its world vertices, edge directions and SAT axes, 3 floats each, and
+    faces, 4)."""
+    body = CU[CU.index("int hull_stride("):]
+    expr = re.search(r"return (.*?);", body).group(1)
+    tables = hull_tables(which)
+    _, Fm, Sm, Em, _, _ = tables.hull_dims()
+    want = eval(expr, {}, dict(vm=tables.Vm, em=Em, sm=Sm, fm=Fm))
+    assert sk.hull_stage_floats(tables) == want
+    assert sk.hull_stage_bytes(tables, 65) == 4 * 65 * want
+    assert sk.hull_stage_floats(sk.pk.ObjTables(rb.default_object_manager())) == 0
+
+
+def test_prism_hull_twin_fits_kHullBlocks_ctas_an_sm():
+    """At the imported prism's main shape (65 rows, K = 256) the general-
+    hull twin of "none" stages its rows beside the box layout and still fits
+    the kHullBlocks CTAs an SM it is compiled for (228 KB an SM, 1 KB a
+    block reserved)."""
+    c = cu_constants()
+    tables = hull_tables("prism")
+    need = sk.smem_bytes(65, 256) + sk.hull_stage_bytes(tables, 65)
+    assert c["kHullBlocks"] * (need + 1024) <= 228 * 1024
+    assert sk.kernel_fits(tables, 65, 256) == ""
 
 
 @pytest.mark.parametrize("bp,cache", [(False, False), (False, True), (True, False),
