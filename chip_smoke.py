@@ -6,7 +6,7 @@ Drives the port's main paths on one CUDA card — the collisions example at
 fantasy_vs at 16384 worlds x 50 dragons + 200 knights, rigid_bench
 (rigid-body physics) at 8192 worlds x 64 bodies (also with the broadphase
 in the fused kernel, and the settled pile with its options; at 32 bodies
-in the dense contact mode, and at 200 with the sap broadphase; and a pile of
+in the dense contact mode, and at 200 and 255 with the sap broadphase; and a pile of
 convex hulls imported from an .obj file, at 64 bodies and at the settled
 pile's options, also of a 24-sided prism past PhysicsLoader()'s default
 caps) and simple_taskgraph
@@ -92,7 +92,14 @@ Phases:
            into another archetype); poses and stashes atol 1e-4, velocities atol
            1e-3, all finite, a repeated launch and a repeated plain run
            bit-identical (both are also held at the simple_taskgraph main
-           state, in the timing phase)
+           state, in the timing phase); and the fused kernel past one block's
+           shared memory (its windowed layout, WINDOW_CASES: rigid_bench at
+           8192 x 239, 255 and 511 bodies after 3 steps, contact refresh at
+           200 and 255 bodies, the imported-prism pile at 255 bodies; all
+           but 511 dropped close together, so that a world's valid slots pass
+           the window, which is checked) on every world, bit for bit its
+           plain version on the first 128 (max_abs_err 0), with each case's
+           window and valid slots
   parity_hull   the substep kernels' general-hull paths (the imported
            hexagonal prism of tests/test_torch_hull_scenes.py) vs their plain
            versions at 8192 x 65 rows: every fused specialisation (K = 256
@@ -160,6 +167,14 @@ Phases:
            warm-up steps then 5 windows of 20; launches = steps, all of
            specialisation "none"; overflow counters and the last step's
            window saturation (recounted); env-steps/s, peak memory
+  main_rigid_sap_large   rigid_bench at 8192 x 255 bodies + the plane
+           (K = 1020), contact_mode and broadphase_mode "auto" (checked to
+           resolve to the fused kernel and sap): 3 warm-up steps then 5
+           windows of 20; launches = steps, all of the windowed
+           specialisation "win"; overflow counters, the last step's window
+           saturation, env-steps/s, peak memory, the window and the shared
+           and global bytes a world takes, and the kernel at the state the
+           windows leave bit for bit its plain version on 128 worlds
   main_rigid_fused_bp   the main_rigid pile with broadphase_mode="fused"
            (kernel 8: the broadphase inside the fused kernel), K = 256:
            launches = steps, all of the "bp" specialisation, and no other
@@ -230,7 +245,11 @@ Phases:
            the "xla" route at 64 worlds: hit masks differ on at most 1
            pixel in 1e5 (the count is printed), depth rtol 1e-4 / atol
            1e-3 and RGBA8 within 1 where both hit
-           (tests/test_render_pallas.py's tolerances)
+           (tests/test_render_pallas.py's tolerances); and past one block's
+           shared memory (4,096 instance rows a world, staged in blocks of
+           512: tests/test_torch_render_scenes.py's large scene, a quarter
+           of its rows triangle meshes, the imported prism's SourceMesh
+           among them) both modes bit for bit their plain versions
   main_simple_taskgraph   simple_taskgraph at 1024 worlds x 100 spheres + 1
            agent camera, 4 substeps, 64 x 64 RGB and depth, renderer
            "auto" (the render node one views-mode launch): 3 warm-up steps
@@ -238,6 +257,14 @@ Phases:
            {substep: 4 x steps, render: steps} and no other, finite
            positions, finite depth on every hit and alpha 255 exactly where
            the depth is finite, overflow counters; env-steps/s
+  main_render_large   the render node of a BatchRenderer with backend
+           "auto" (checked to resolve to the kernel) on 256 worlds of 4,096
+           instance rows (the large scene's instances, one 64 x 64 view a
+           world about its camera: pixels x instances 2^24, past JAX's 2^19
+           threshold for its kernel), 5 runs: launches = 5 of the render
+           kernel and no other, RGBA8 and depth bit for bit the plain
+           version on 8 of the worlds, alpha 255 exactly where the depth is
+           finite; the blocks a CTA stages
   timing   CUDA-event time of each kernel wrapper (200 calls) and of its
            plain version at the main paths' shapes (kernel 3: the tiled
            case, n=1500, W=16, 128- and 1024-wide j tiles; the collision
@@ -288,6 +315,10 @@ Phases:
            (persist_bound; the bound with the cache in and out beside it);
            and the settled pile's whole fused node: its device ms and the
            device operations it queues (a captured CUDA graph's nodes).
+           The windowed fused kernel at main_rigid_sap_large's state, and
+           the blocked render kernel at main_render_large's (its plain
+           version at 8 of the 256 worlds; the rays mode on the same views'
+           rays), each beside its bound.
            The general-hull specialisations at the hull piles' states (20
            calls, beside their plain versions; the operations counted from
            the .cu per prism pair, contact_ops), kernel 5's node launch on
@@ -880,6 +911,69 @@ def substep_case(torch, sk, kern, kw):
     return errs
 
 
+def window_case(torch, sk, kern, kw):
+    """The fused kernel at a shape past one block's shared memory (its
+    windowed layout), twice on every world, against its plain version on
+    the first WINDOW_PARITY_WORLDS worlds, bit for bit: its line (the
+    window, the valid slots, the specialisation launched, the errors), or
+    raises."""
+    W, n = kw["obj"].shape
+    K = kw["rows_i"].shape[1]
+    refresh = kern.contact_refresh
+    check(sk.windowed(kern.tables, n, K, cache=refresh), f"n={n}, K={K} is not windowed")
+    sk.FusedSubstepKernel.launches_by_options.clear()
+    got, again = kern(**kw), kern(**kw)
+    launched = dict(sk.FusedSubstepKernel.launches_by_options)
+    window = sk.fused_window(n, K, refresh, sk.hull_stage_bytes(kern.tables, n))
+    valid = kw["kvalid"].sum(1)
+    check(int(valid.max()) > window,
+          f"windowed n={n} K={K}: no world's valid slots ({int(valid.max())}) pass the "
+          f"window ({window})")
+    want = kern.plain(**next(world_chunks(kw, WINDOW_PARITY_WORLDS)))
+    torch.cuda.synchronize()
+    errs = {}
+    for k in sk.OUT_KEYS:
+        check(bool(torch.isfinite(got[k]).all()), f"windowed {k} finite")
+        check(torch.equal(got[k], again[k]), f"windowed {k}: a repeated launch differs")
+        errs[k] = max_err(got[k][:WINDOW_PARITY_WORLDS], want[k])
+        check(errs[k] == 0.0, f"windowed n={n} K={K} {k}: {errs[k]} from the plain version")
+    (name, count), = launched.items()
+    check(count == 2 and "win" in name, f"windowed launches {launched}")
+    return {"W": W, "n": n, "K": K, "specialisation": name, "window": window,
+            "valid_slots_a_world": {"mean": float(valid.double().mean()),
+                                    "max": int(valid.max()),
+                                    "worlds_past_the_window": int((valid > window).sum())},
+            "plain_worlds": WINDOW_PARITY_WORLDS, "max_err": errs}
+
+
+def parity_window(torch, rb, phys, sk):
+    """parity_substep's windowed shapes (WINDOW_CASES): rigid_bench at 8192
+    worlds x 239, 255 and 511 bodies after 3 steps, contact refresh at 200
+    and 255 bodies, the imported-prism pile at 255 bodies (all but 511
+    spawned in WINDOW_SPAWN); each window_case.  Returns ({case: line}, the
+    worst error)."""
+    hs = hull_scenes()
+    cases, states = {}, {}
+    for name, (bodies, refresh, prisms, crowd) in WINDOW_CASES.items():
+        spawn = WINDOW_SPAWN if crowd else {}
+        key = (bodies, prisms, crowd)
+        if key in states:
+            sim = states[key]
+        elif prisms:
+            sim = hull_sim(rb, hs, steps=3, num_bodies=bodies, **spawn)
+        else:
+            sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=bodies,
+                                                       contact_mode="pallas", **spawn),
+                                   device="cuda")
+            sim.run(3)
+        states = {key: sim}
+        kern = sk.FusedSubstepKernel(sim.world_cls.objmgr, 4, relaxation=0.7,
+                                     contact_refresh=refresh)
+        cases[name] = window_case(torch, sk, kern, fused_inputs(sim, rb, phys))
+    del states
+    return cases, max(max(c["max_err"].values()) for c in cases.values())
+
+
 def parity_substep(torch, rb, phys, sk, sap_sim):
     """fused_substep vs its plain version: the main path's shapes after 3
     steps at K = 256 and 128, the initial uniform spawn, tables without
@@ -953,6 +1047,9 @@ def parity_substep(torch, rb, phys, sk, sap_sim):
     cases["substep_node_random_joints"] = {
         "kernel": "substep", "W": 16, "live_joints": live,
         "max_err": node_case(torch, sk, phys.RigidBodyPhysicsSystem.substep_kernel(rsim), rkw)}
+    # kernel 7 past one block's shared memory, bit for bit
+    windowed, worst_window = parity_window(torch, rb, phys, sk)
+    cases.update({f"windowed_{k}": v for k, v in windowed.items()})
     for c in cases.values():
         if "kernel" not in c:
             worst = max(worst, max(c["max_err"].values()))
@@ -960,7 +1057,8 @@ def parity_substep(torch, rb, phys, sk, sap_sim):
                  for c in ("single_substep_main_K256", "substep_node_joint_world",
                            "substep_node_random_joints"))
     return {"phase": "parity_substep", "cases": cases, "repeat": "bit-identical (kernel and plain)",
-            "atol": {"pose_and_stashes": 1e-4, "velocities": 1e-3}}, worst, worst1
+            "atol": {"pose_and_stashes": 1e-4, "velocities": 1e-3, "windowed": 0.0}}, worst, \
+        worst1, worst_window
 
 
 def load_physics_golden(np, name):
@@ -1152,7 +1250,8 @@ def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_coun
     ``make(config, device)``: the executor's maker (default
     rb.make_executor; the hull pile's tests/test_torch_hull_scenes.py
     hull_pile).  ``probe(sim)``, called after the settle steps (its steps
-    untimed and not counted), goes into the line as "probe"."""
+    untimed and not counted), goes into the line as "probe".  The kernel
+    runs where the executor's graph holds the fused node."""
     make = make or rb.make_executor
     sim = make(rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=bodies, **cfg),
                device="cuda")
@@ -1170,7 +1269,7 @@ def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_coun
                   f"{arch.name} not empty after a step")
     launches = read_counts()
     by_options = dict(phys.subk.FusedSubstepKernel.launches_by_options)
-    kernel_mode = cfg.get("contact_mode") == "pallas"
+    kernel_mode = phys.FUSED_NODE in sim.graph.node_names
     want = {name: 0 for name in launches}
     want["fused_substep"] = steps * count if kernel_mode else 0
     want.update({name: steps * count for name in also})
@@ -1193,6 +1292,21 @@ def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_coun
 SAP_BODIES, SAP_K = 200, 800      # 201 rows: "auto" takes sap; K = 4 x bodies
 DENSE_BODIES = 32                 # 33 rows: "auto" takes the dense contact mode
 DENSE_PARITY_WORLDS = 256
+# kernel 7 past one block's shared memory (the windowed layout): the
+# main_rigid_sap_large pile (256 rows, K = 1020; "auto" takes the kernel and
+# sap) and parity_substep's windowed shapes, (bodies, contact refresh,
+# imported prisms, spawned in WINDOW_SPAWN), each held bit for bit to its
+# plain version on its first WINDOW_PARITY_WORLDS worlds.  WINDOW_SPAWN drops
+# the bodies closer together than rigid_bench's default (8, 12), so that a
+# world's valid slots pass the window and the global scratch runs (at 511
+# bodies the default spawn already passes it)
+LARGE_SAP_BODIES, LARGE_SAP_K = 255, 1020
+WINDOW_PARITY_WORLDS = 128
+WINDOW_SPAWN = dict(spawn_xy=6.0, spawn_h=9.0)
+WINDOW_CASES = {"n240": (239, False, False, True), "n256": (255, False, False, True),
+                "n256_refresh": (255, True, False, True), "n512": (511, False, False, False),
+                "n201_refresh": (200, True, False, True),
+                "n256_prisms": (255, False, True, True)}
 
 
 def node_fn(sim, name):
@@ -2144,6 +2258,9 @@ def parity_render(torch, rkm, stg, dev, xla_worlds=64):
     for name in scenes.VIEW_CASES:
         views[name], err = views_case(torch, rkm, scenes, *scenes.view_case(name, dev))
         worst = max(worst, err)
+    # past one block's shared memory: 4,096 instance rows a world (meshes
+    # among them), staged in blocks, bit for bit the plain versions
+    blocked = blocked_render_cases(torch, rkm, scenes, dev)
     del sim, rays, inst
     # the kernel route against the batched "xla" route, same physics
     a, b = stg_sim(stg, xla_worlds), stg_sim(stg, xla_worlds, backend="xla")
@@ -2156,7 +2273,7 @@ def parity_render(torch, rkm, stg, dev, xla_worlds=64):
     depth_ok = bool(torch.allclose(da[both], db[both], rtol=1e-4, atol=1e-3))
     check(diff <= ha.numel() * 1e-5, f"kernel vs xla: {diff} hit pixels differ")
     check(depth_ok and rgb_d <= 1, f"kernel vs xla: depth {depth_ok}, rgb {rgb_d}")
-    return {"phase": "parity_render", "cases": cases, "views_mode": views,
+    return {"phase": "parity_render", "cases": cases, "views_mode": views, "blocked": blocked,
             "kernel_vs_xla": {"worlds": xla_worlds, "pixels": ha.numel(), "hits": int(ha.sum()),
                                         "hit_pixels_differing": diff,
                                         "depth_max_err": max_err(da[both], db[both]),
@@ -2166,6 +2283,116 @@ def parity_render(torch, rkm, stg, dev, xla_worlds=64):
                      "views_vs_old_route": "bit-identical (RGBA8, depth bits)",
                      "views_vs_plain": "alpha exact, depth 1e-5 where both hit, rgba8 1",
                      "kernel_vs_xla": "hit 1 in 1e5, depth rtol 1e-4 atol 1e-3, rgba8 1"}}, worst
+
+
+RENDER_LARGE_WORLDS, RENDER_LARGE_PARITY = 256, 8   # main_render_large
+RENDER_LARGE_STEPS = 5
+
+
+def blocked_render_cases(torch, rkm, scenes, dev, W=8, res=32):
+    """The render kernel at 4,096 instance rows a world (tests/
+    test_torch_render_scenes.py's large scene, staged in blocks: hulls,
+    spheres, the plane and triangle meshes, a SourceMesh's among them), both
+    modes, bit for bit the plain versions (rays: rgb, hit, depth; views:
+    RGBA8 and depth bits); a repeat bit-identical.  Returns {case: line}."""
+    out = {}
+    sc = scenes.large_scene(W=W, res=res)
+    k = rkm.RenderKernel(sc["om"], sc["albedo"], scenes.LIGHT_DIR, scenes.AMBIENT,
+                         mesh_tables=sc["mesh_tables"])
+    rays, inst = k.pack(*(torch.from_numpy(sc[key]).to(dev) for key in RENDER_INPUTS))
+    kw = dict(tables=k.tables, light=k.light, ambient=k.ambient)
+    got, again = (rkm.render(rays, inst, img_w=res, **kw) for _ in range(2))
+    want = rkm.render_plain(rays, inst, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "blocked rays: a repeated launch differs")
+    check(torch.equal(got, want), f"blocked rays vs plain: {max_err(got, want)}")
+    obj = inst[:, rkm.I_OBJ]
+    check(bool((obj == scenes.LARGE_PRISM).any() and (obj == scenes.LARGE_MESH_SPHERE).any()),
+          "the large scene holds both render meshes")
+    out["rays_4096"] = {"W": W, "P": rays.shape[2], "N": inst.shape[2],
+                        "mesh_rows": int((obj >= scenes.LARGE_PRISM).sum()),
+                        "blocks": rkm.stage_blocks(inst.shape[2]),
+                        "hits": int(want[:, rkm.O_HIT].sum()), "max_err": max_err(got, want)}
+    k, views, insts, V, H, Wpx = scenes.large_view_case(W=W, H=res, Wpx=res, device=dev)
+    vkw = dict(height=H, width=Wpx, max_views=V)
+    got, again = (k.render_views(views, *insts, **vkw) for _ in range(2))
+    plain = rkm.render_views_plain(views, *insts, tables=k.tables, light=k.light,
+                                   ambient=k.ambient, **vkw)
+    torch.cuda.synchronize()
+    for other, what in ((again, "a repeated launch"), (plain, "the plain version")):
+        check(torch.equal(got[0], other[0]) and torch.equal(got[1].view(torch.int32),
+                                                            other[1].view(torch.int32)),
+              f"blocked views vs {what}")
+    out["views_4096"] = {"W": W, "H": H, "Wpx": Wpx, "N": insts[0].shape[1],
+                         "blocks": rkm.stage_blocks(insts[0].shape[1], views=True),
+                         "hits": int(torch.isfinite(got[1]).sum()),
+                         "max_err": max_err(got[1][torch.isfinite(got[1])],
+                                            plain[1][torch.isfinite(got[1])])}
+    return out
+
+
+def main_render_large(torch, rkm, render_mod, card, reset_counts, read_counts):
+    """The render node's route on RENDER_LARGE_WORLDS worlds of 4,096
+    instance rows (tests/test_torch_render_scenes.py's large instances, one
+    64 x 64 view a world about its camera): a BatchRenderer with backend
+    "auto" (which must resolve to the kernel) and its render node, driven
+    RENDER_LARGE_STEPS times; launches = those, of the render kernel only;
+    RGBA8 and depth bit for bit the plain version on RENDER_LARGE_PARITY of
+    the worlds; alpha 255 exactly where the depth is finite.  Returns (its
+    line, the launch's inputs for the timing phase)."""
+    from types import SimpleNamespace
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_render_scenes as scenes
+    W, res = RENDER_LARGE_WORLDS, STG_RES
+    from gpu_ecs_madrona_tpu_torch.utils import importer
+    k0, views, inst, V, H, Wpx = scenes.large_view_case(W=W, H=res, Wpx=res, device="cuda")
+    rend = render_mod.BatchRenderer(render_mod.RendererConfig(
+        width=res, height=res, max_views=V, backend="auto"), scenes.large_object_manager(),
+        scenes.LARGE_ALBEDO, render_meshes=scenes.large_render_meshes(importer))
+    check(rend.route == "kernel", f"renderer auto takes {rend.route}")
+    nodes = []
+    rend.setup_tasks(SimpleNamespace(mgr=SimpleNamespace(device=torch.device("cuda")),
+                                     add_node=lambda fn, deps, name: nodes.append(fn)),
+                     [], [SimpleNamespace(name="LargeScene")])
+    render_node = nodes[0]
+    ctx = SimpleNamespace(data={"render": {"__views__": views, "LargeScene": dict(zip(
+        ("pos", "rot", "scale", "obj_id", "mask"), inst))}})
+    N = inst[0].shape[1]
+    check(N * res * res >= 1 << 19, "main_render_large below JAX's kernel threshold")
+    render_node(ctx)
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(RENDER_LARGE_STEPS):
+        render_node(ctx)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {name: 0 for name in launches}
+    want["render"] = RENDER_LARGE_STEPS
+    check(launches == want, f"main_render_large launches {launches}")
+    rgb, depth = ctx.data["render_out"]["rgb"], ctx.data["render_out"]["depth"]
+    hit = rgb[..., 3] == 255
+    check(torch.equal(hit, torch.isfinite(depth)) and bool(hit.any()),
+          "main_render_large: alpha 255 exactly where the depth is finite")
+    P8 = RENDER_LARGE_PARITY
+    kern = rend._kernel
+    plain = rkm.render_views_plain({key: v[:P8] for key, v in views.items()},
+                                   *(t[:P8] for t in inst), tables=kern.tables, light=kern.light,
+                                   ambient=kern.ambient, height=H, width=Wpx, max_views=V)
+    torch.cuda.synchronize()
+    check(torch.equal(rgb[:P8], plain[0])
+          and torch.equal(depth[:P8].view(torch.int32), plain[1].view(torch.int32)),
+          "main_render_large vs the plain version")
+    both = torch.isfinite(depth[:P8])
+    line = {"phase": "main_render_large", "worlds": W, "views": V, "resolution": res,
+            "instance_rows": N, "backend": "auto -> kernel (views mode, blocked)",
+            "blocks_a_cta": rkm.stage_blocks(N, views=True), "block": rkm.BLOCK,
+            "smem_bytes": rkm.smem_bytes(N, views=True),
+            "single_stage_would_need_bytes": N * rkm.STAGE_VIEWS,
+            "launches": launches, "hit_share": float(hit.double().mean()),
+            "vs_plain": {"worlds": P8, "rgba8_and_depth": "bit-identical",
+                         "max_err": max_err(depth[:P8][both], plain[1][both])},
+            "card": card}
+    return line, (kern, views, inst, V, H, Wpx), max_err(depth[:P8][both], plain[1][both])
 
 
 def render_work(torch, rkm, tables, rays, inst):
@@ -2462,6 +2689,7 @@ def main(argv):
     from gpu_ecs_madrona_tpu_torch.ops import render_kernel as rkm
     from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
     from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
+    from gpu_ecs_madrona_tpu_torch.render import renderer as render_mod
     from gpu_ecs_madrona_tpu_torch.utils import math as m
     from gpu_ecs_madrona_tpu_torch import bindings
     from gpu_ecs_madrona_tpu_torch.parallel import learner as learner_mod
@@ -2608,7 +2836,7 @@ def main(argv):
     emit(parity_dense(torch, rb, phys, subk))
 
     # the fused substep kernel vs plain, and the physics goldens on the card
-    line, err_substep, err_substep1 = parity_substep(torch, rb, phys, subk, sap_sim)
+    line, err_substep, err_substep1, err_window = parity_substep(torch, rb, phys, subk, sap_sim)
     del sap_sim
     emit(line)
     emit(golden_physics(torch, phys, subk))
@@ -2775,6 +3003,29 @@ def main(argv):
     emit({"phase": "main_rigid_sap", **line, "K": SAP_K,
           "kernel_smem_bytes": subk.smem_bytes(SAP_BODIES + 1, SAP_K),
           "window_saturation_last_step": sap_saturation(torch, rb, ssap)})
+    # past one block's shared memory: 255 bodies under "auto" (the fused
+    # kernel's windowed layout, sap)
+    slarge, line = main_rigid(torch, rb, phys, dict(contact_mode="auto", broadphase_mode="auto"),
+                              20, 5, smi, *counts, bodies=LARGE_SAP_BODIES, specialisation="win")
+    sap_large_launches = line["launches"]["fused_substep"]
+    check(phys.FUSED_NODE in slarge.graph.node_names
+          and node_fn(slarge, "bp_find_overlaps").__name__ == "find_overlaps_sap",
+          "main_rigid_sap_large: auto takes the fused kernel and sap")
+    n_large = LARGE_SAP_BODIES + 1
+    win = subk.fused_window(n_large, LARGE_SAP_K)
+    check(subk.windowed(subk.pk.ObjTables(rb.RigidBenchWorld.objmgr), n_large, LARGE_SAP_K),
+          "main_rigid_sap_large takes the windowed layout")
+    large_parity = window_case(torch, subk, subk.FusedSubstepKernel(
+        rb.RigidBenchWorld.objmgr, 4, relaxation=0.7), fused_inputs(slarge, rb, phys))
+    emit({"phase": "main_rigid_sap_large", **line, "K": LARGE_SAP_K,
+          "contact_mode": "auto -> fused kernel (windowed)", "broadphase": "auto -> sap",
+          "window": win,
+          "smem_bytes_a_world": subk.fused_window_smem_bytes(
+              n_large, win, subk.block_threads(n_large, LARGE_SAP_K)),
+          "scratch_bytes_a_world": 4 * subk.SCRATCH_CH * (LARGE_SAP_K - win),
+          "slot_layout_would_need_bytes": subk.smem_bytes(n_large, LARGE_SAP_K),
+          "window_saturation_last_step": sap_saturation(torch, rb, slarge),
+          "kernel_vs_plain_at_this_state": large_parity})
 
     # the fused kernel's options: the broadphase in the kernel (kernel 8) on
     # the default pile, and the settled pile with persistent manifolds and
@@ -2848,6 +3099,12 @@ def main(argv):
     ssim, line = main_simple_taskgraph(torch, stg, 50, 5, smi, *counts)
     stg_launches = line["launches"]
     emit({"phase": "main_simple_taskgraph", **line})
+    # the render node on scenes past one block's shared memory (4,096
+    # instance rows a world)
+    line, render_large_in, err_render_large = main_render_large(torch, rkm, render_mod, smi,
+                                                                *counts)
+    render_large_launches = line["launches"]["render"]
+    emit(line)
 
     # kernel times at the main paths' shapes ------------------------------------
     fpos = sim.mgr.column(sim.state, col.CubeObject, col.Translation)
@@ -2906,7 +3163,7 @@ def main(argv):
 
     # the fused substep kernel at both capacities, from the main_rigid states
     sub_t = {}
-    for K, s_ in ((256, rsim), (128, r128), (SAP_K, ssap)):
+    for K, s_ in ((256, rsim), (128, r128), (SAP_K, ssap), (LARGE_SAP_K, slarge)):
         kw = fused_inputs(s_, rb, phys)
         kern = subk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
         ops, kinds, work = substep_work(torch, subk, kern, kw)
@@ -3078,6 +3335,38 @@ def main(argv):
                 "W": rrays.shape[0], "P": rrays.shape[2], "N": rinst.shape[2]}
     check(1 <= render_t["render_node"]["device_ops"] <= 3,
           f"the render node queues {render_t['render_node']['device_ops']} device ops")
+    # the render kernel past one block's shared memory: main_render_large's
+    # launch (views mode, 4,096 instance rows staged in blocks), and the
+    # rays mode on the rays of the same views
+    lk, lviews, linst, lV, lH, lWpx = render_large_in
+    lW, lN, lP = linst[0].shape[0], linst[0].shape[1], lV * lH * lWpx
+    lrkw = dict(tables=lk.tables, light=lk.light, ambient=lk.ambient)
+    lvkw = dict(height=lH, width=lWpx, max_views=lV)
+    lro, ld = rkm.camera_rays(lviews, lV, lH, lWpx)
+    lrays, lpacked = lk.pack(lro.reshape(lW, -1, 3), ld.reshape(lW, -1, 3), *linst)
+    l_ops, l_bytes, l_pairs, l_rays = render_work(torch, rkm, lk.tables, lrays, lpacked)
+    lv_ops = l_ops + l_rays * OPS_RAY
+    lv_bytes = lW * (BYTES_VIEW + lN * BYTES_INST_VIEWS + lP * BYTES_PIXEL)
+    lv_bound, lv_by = bound(lv_bytes, lv_ops)
+    lr_bound, lr_by = bound(l_bytes, l_ops)
+    P8 = RENDER_LARGE_PARITY
+    lviews8, linst8 = {key: v[:P8] for key, v in lviews.items()}, tuple(t[:P8] for t in linst)
+    render_large_t = {
+        "ms": cuda_ms(torch, lambda: rkm.render_views(lviews, *linst, **lrkw, **lvkw), 20),
+        "plain_ms": cuda_ms(torch, lambda: rkm.render_views_plain(lviews8, *linst8, **lrkw,
+                                                                  **lvkw), 2, warmup=1),
+        "plain_ms_is": f"its plain version at {P8} of the {lW} worlds",
+        "bound_ms": lv_bound, "bound_by": lv_by, "ops": lv_ops, "bytes": lv_bytes,
+        "pairs_meeting_bounds": l_pairs, "live_rays": l_rays,
+        "ctas_per_sm": rkm.occupancy(lN, views=True), "blocks_a_cta": rkm.stage_blocks(
+            lN, views=True),
+        "splits": rkm.launch_splits(lW * lV, -(-lWpx // rkm.TILE_W) * -(-lH // rkm.TILE_H)),
+        "rays_mode": {"ms": cuda_ms(torch, lambda: rkm.render(lrays, lpacked, img_w=lWpx,
+                                                               **lrkw), 20),
+                      "bound_ms": lr_bound, "bound_by": lr_by,
+                      "ctas_per_sm": rkm.occupancy(lN), "blocks_a_cta": rkm.stage_blocks(lN)},
+        "W": lW, "P": lP, "N": lN}
+    del lrays, lpacked
     # a simple_taskgraph step by node group, device ms: the physics (clamp,
     # broadphase, substeps, cleanup) and the rendering (pack, render)
     from gpu_ecs_madrona_tpu_torch.core.context import Context
@@ -3115,13 +3404,16 @@ def main(argv):
           "substep": sub1_t, "substep_node": node_t, "render": render_t,
           "fused_substep_hull": hull_t, "fused_substep_persist_hull": hull_persist_t,
           "substep_node_hull_joint_world": hull5_t, "fused_substep_hull_large": large_t,
+          "fused_substep_windowed_n256_K1020": sub_t[LARGE_SAP_K],
+          "render_blocked_4096": render_large_t,
           "library_ms": "none: no single PyTorch call computes any of these functions",
           "card": smi})
 
     if "--profile" in argv:
         profile(torch, {"fused": sim, "unfused_pushes": usim, "simple_jobs_fused": sjsim,
                         "rigid_fused_k256": rsim, "rigid_fused_k128": r128,
-                        "rigid_pairs": rpairs, "rigid_sap": ssap, "rigid_fused_bp": bsim,
+                        "rigid_pairs": rpairs, "rigid_sap": ssap, "rigid_sap_large": slarge,
+                        "rigid_fused_bp": bsim,
                         "rigid_settled": settled_sim, "rigid_settled_nopersist": nsim,
                         "simple_jobs_rank": sjusim, "fantasy_vs": fsim,
                         "simple_taskgraph": ssim})
@@ -3238,6 +3530,25 @@ def main(argv):
          "plain_ms_is": large_t["plain_ms_is"], "bound_ms": large_t["bound_ms"],
          "bound_by": large_t["bound_by"], "library_ms": None,
          "ms_is": "the main_rigid_hulls_large state (8192 x 65, K = 256, the 24-sided prism)"},
+        {"name": "fused_substep_windowed", "route": "cuda", "source": csrc + "substep_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1241 (the K-slab chunked "
+                     "kernel) past one block's shared memory",
+         "specialisation": "win", "launches": sap_large_launches, "launches_per_step": 1,
+         "max_abs_err": err_window, "ms": sub_t[LARGE_SAP_K]["ms"],
+         "plain_ms": sub_t[LARGE_SAP_K]["plain_ms"], "bound_ms": sub_t[LARGE_SAP_K]["bound_ms"],
+         "bound_by": sub_t[LARGE_SAP_K]["bound_by"], "library_ms": None,
+         "ms_is": "the main_rigid_sap_large state (8192 x 256 rows, K = 1020, sap, after 103 "
+                  "steps)"},
+        {"name": "render_blocked", "route": "cuda", "source": csrc + "render_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/render_kernel.py:501 (its loop over a world "
+                     "tile's instances, :448-454) past one block's shared memory",
+         "specialisation": "views mode, blocked", "launches": render_large_launches,
+         "launches_per_step": 1, "max_abs_err": max(err_render_large, err_render),
+         "ms": render_large_t["ms"], "plain_ms": render_large_t["plain_ms"],
+         "plain_ms_is": render_large_t["plain_ms_is"], "bound_ms": render_large_t["bound_ms"],
+         "bound_by": render_large_t["bound_by"], "library_ms": None,
+         "ms_is": "main_render_large's launch (256 worlds x 4,096 instance rows, 64 x 64)",
+         "rays_mode": render_large_t["rays_mode"]},
         {"name": "render", "route": "cuda", "source": csrc + "render_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/render_kernel.py:501",
          "launches": stg_launches["render"], "launches_per_step": 1,

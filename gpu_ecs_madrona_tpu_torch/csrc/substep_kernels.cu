@@ -190,6 +190,31 @@
 // passes' chains: dealing only the hull pairs across the warps (the other
 // kinds packed by kind) ran 6.05 ms, staging four items' table loads at
 // once 6.64, two clip corners a lane 5.64.
+// Past one block's shared memory (kOptWin).  The slot layout above keeps
+// every slot's rows, pass contributions and stash in shared memory, which at
+// rigid_bench's K = 4 x bodies passes the 227 KB a block may have from 239
+// bodies (160 with the manifold cache), where JAX's K-slab chunked kernel
+// keeps one 128-slot slab in VMEM.  The windowed specialisations of "none"
+// and "refresh" (each also with kOptHull; sleep read from a.active at run
+// time) take kernel 5's window layout instead: the bodies, the lists'
+// offsets and cursors and the staged hull rows stay in shared memory; each
+// valid slot's work entry (the same work list, grouped by contact kind)
+// keeps its rows, pass contributions, stash, list entries and manifold cache
+// in the window when its index is below kw, else in the world's slice of a
+// global scratch (kScratchCh channels an entry, kWinCacheCh with the cache),
+// which only worlds with more live pairs than the window touch.  The window
+// (fused_window) is the most entries that let kWinBlocks CTAs share an SM
+// (378 at 256 rows, K = 1020; 220 with the cache), else the most one CTA
+// holds; a shape is refused only when its bodies, its hull rows and the
+// smallest window (a round of the block's threads) pass kMaxSmem: 968
+// bodies of boxes (894 with the cache), 370 of the imported prism (341).
+// The slot lists, work order, first-entry-in-registers stash and every
+// sum's order are the slot layout's, so a windowed launch is bit for bit
+// the slot layout's and the plain version's at any window (a serial CPU
+// build of this file held windows of 1, 3, half the live pairs and K to the
+// slot layout, bit for bit, on rigid_bench piles of 20-255 bodies); the
+// shapes that fit one block keep the slot layout and its specialisations
+// as compiled before.
 // Arithmetic: -fmad=false keeps every product and sum separately rounded,
 // in the order of the plain version (ops/substep_kernel.py,
 // physics/pairs.py); 1/sqrtf stands for the plain version's 1 / sqrt.  The
@@ -1899,6 +1924,19 @@ constexpr int kSubstepBlocks = 3;
 constexpr int kWindow = 320;
 constexpr int kScratchCh = 46;
 constexpr int kJointCh = 12;
+// The fused kernel's windowed specialisations (kOptWin; OPT_WIN in
+// ops/substep_kernel.py), which the launch takes for a shape without the
+// in-kernel broadphase whose whole layout (smem_bytes and the staged hull
+// rows) passes kMaxSmem: kernel 5's window layout, its work entries past a
+// window of fused_window(...) entries in the world's slice of a global
+// scratch of kScratchCh channels an entry, kWinCacheCh with the manifold
+// cache (its 33 channels after the others).  The window aims at kWinBlocks
+// CTAs an SM of kSmSmem bytes, each reserving kCtaReserved.
+constexpr int kOptWin = 32;
+constexpr int kWinBlocks = 2;
+constexpr int kWinCacheCh = 79;
+constexpr size_t kSmSmem = 233472;
+constexpr size_t kCtaReserved = 1024;
 
 struct Args {
   const float *pos, *rot, *v, *w, *im, *ii, *mu_s, *mu_d;
@@ -1936,6 +1974,11 @@ struct Args {
   const int *work_list, *work_count;
   // non-dynamic rows keep their velocities (else they come out zero)
   int keep_v;
+  // the windowed specialisations: the window's work entries and the global
+  // scratch [W, kScratchCh (kWinCacheCh with the cache), K - kw] (null when
+  // kw = K)
+  int kw;
+  float* scratch;
 };
 
 __device__ __forceinline__ V3 ld3(const float* s, int ch, int b, int n) {
@@ -2105,6 +2148,81 @@ __device__ __forceinline__ Smem carve_window(float* smem, int n, int K, int J, i
   return s;
 }
 
+// The fused kernel's windowed layout (kOptWin, carve_fused_window): its
+// dynamic shared memory for n bodies, a window of kw work entries and T
+// threads, with the manifold cache (cache):
+//   floats: 54 a body; 18 (pass contributions) a window entry, with the
+//           cache 33 more; 24 (the manifold stash) a window entry past the
+//           block's threads
+//   ints:   4 a window entry (its rows, its two list entries); 3 n + 1 (the
+//           lists' offsets and two cursors a body); 8 world scalars
+__host__ __device__ __forceinline__ size_t fused_window_smem_bytes(int n, int kw, int T,
+                                                                   bool cache) {
+  const size_t nn = static_cast<size_t>(n), ww = static_cast<size_t>(kw);
+  const size_t ks = kw > T ? static_cast<size_t>(kw - T) : 0;
+  const size_t floats = kBodyCh * nn + kSlotCh * ks + (kPackCh + (cache ? kCacheCh : 0)) * ww;
+  const size_t ints = 4 * ww + 3 * nn + 1 + kWorldInts;
+  return sizeof(float) * floats + sizeof(int) * ints;
+}
+
+// The window of the fused kernel's windowed layout for n bodies, K slots and
+// hull bytes of staged hull rows: the most work entries (at most K) whose
+// layout lets kWinBlocks CTAs share an SM, when that holds the smallest
+// window (a round of the block's threads, or K); else the most that one
+// CTA's kMaxSmem holds; 0 when not even the smallest window fits beside the
+// bodies and the hull rows.
+int fused_window(int n, int K, bool cache, size_t hull) {
+  const int T = block_threads(n, K);
+  const int least = K < T ? K : T;
+  const size_t budgets[2] = {kSmSmem / kWinBlocks - kCtaReserved, kMaxSmem};
+  for (const size_t budget : budgets) {
+    if (fused_window_smem_bytes(n, least, T, cache) + hull > budget) continue;
+    int lo = least, hi = K;
+    while (lo < hi) {
+      const int mid = lo + (hi - lo + 1) / 2;
+      if (fused_window_smem_bytes(n, mid, T, cache) + hull <= budget)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    return lo;
+  }
+  return 0;
+}
+
+// The windowed layout's shared memory, carved from the dynamic block: kernel
+// 5's window (carve_window) without joints and with the manifold cache of
+// the window's entries (33 channels of kw); gsc is the world's slice of the
+// global scratch (kScratchCh channels of kg = K - kw floats, then the
+// cache's kCacheCh).
+__device__ __forceinline__ Smem carve_fused_window(float* smem, int n, int K, int kw, bool cache,
+                                                   int T, float* gsc) {
+  Smem s;
+  s.kw = kw;
+  s.kg = K - kw;
+  s.gsc = gsc;
+  s.ks = kw > T ? kw - T : 0;
+  s.sb = smem;
+  s.sst = s.sb + kBodyCh * n;
+  s.spk = s.sst + kSlotCh * s.ks;
+  float* f = s.spk + kPackCh * kw;
+  s.scache = cache ? f : nullptr;
+  f += cache ? kCacheCh * kw : 0;
+  s.swrow = reinterpret_cast<int*>(f);
+  s.slist = s.swrow + 2 * kw;
+  s.soff = s.slist + 2 * kw;
+  s.scurA = s.soff + n + 1;
+  s.scurB = s.scurA + n;
+  s.sworld = s.scurB + n;
+  s.shull = reinterpret_cast<float*>(s.sworld + kWorldInts);
+  s.sjv = nullptr;
+  s.sjr = nullptr;
+  s.saabb = nullptr;
+  s.sri = s.srj = s.skv = s.swork = s.sdeg = s.sbase = nullptr;
+  s.smask = nullptr;
+  return s;
+}
+
 // Where an entry's data lives.  The fused kernel's layout (WIN false)
 // indexes the pass contributions by slot (idx = k), the stash by work
 // entry past the threads (e - T); kernel 5's (WIN true) indexes both by
@@ -2122,6 +2240,16 @@ __device__ __forceinline__ float* stash_at(const Smem& s, int T, int e, int* str
   }
   *stride = s.kg;
   return s.gsc + kPackCh * s.kg + (e - s.kw);
+}
+// The windowed fused kernel's manifold cache of work entry e: in the window
+// below kw, else in the global scratch after its kScratchCh channels.
+__device__ __forceinline__ float* cache_at(const Smem& s, int e, int* stride) {
+  if (e < s.kw) {
+    *stride = s.kw;
+    return s.scache + e;
+  }
+  *stride = s.kg;
+  return s.gsc + kScratchCh * s.kg + (e - s.kw);
 }
 // Kernel 5's rows of work entry e, and its body lists' entry i.
 __device__ __forceinline__ void entry_rows(const Smem& s, int e, int rows[2]) {
@@ -2722,8 +2850,9 @@ __device__ void stage_hulls(const Hulls& h, const float* sb, const Table& tab, i
 // (kIPos, kIRot, kIV, kIW) and the substep start (kPrevPos, kPrevRot):
 // leaves the new pose in kPos/kRot (dynamic rows only) and the velocities
 // in kV/kW (zero on the other rows).  WIN: kernel 5's window layout (the
-// entries' rows, pass contributions and list entries by work entry, those
-// past the window in the global scratch; no cache).  GEN: the general-hull
+// entries' rows, pass contributions, stash, list entries and, in the fused
+// kernel's windowed specialisations, manifold cache by work entry, those
+// past the window in the global scratch).  GEN: the general-hull
 // contact paths (pair_contacts, warp_hull_hull) from the hull rows staged
 // once a substep (stage_hulls), and round r's work entries dealt to the
 // threads lane-major across the warps (entry r T + lane nw + warp, nw
@@ -2733,7 +2862,6 @@ template <bool CACHE, bool WIN, bool GEN>
 __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int kc, float h1,
                               float rest1, float relax, float spec, bool bounce, int mode,
                               int tid, int T) {
-  static_assert(!(CACHE && WIN), "kernel 5's window layout has no manifold cache");
   float* sb = s.sb;
   const int *sri = s.sri, *srj = s.srj, *skv = s.skv, *soff = s.soff, *slist = s.slist;
 
@@ -2743,7 +2871,7 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
     stage_hulls(hs, sb, tab, n, tid, T);
     __syncthreads();
   }
-  if (CACHE && mode == kResolveBuild) {
+  if (CACHE && !WIN && mode == kResolveBuild) {
     const V3 p0 = ld3(sb, kIPos, 0, n);
     const Q4 q0 = ld4(sb, kIRot, 0, n);
     for (int k = tid; k < K; k += T)
@@ -2803,9 +2931,18 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
         pair_contacts<CACHE, GEN>(Bd[0], Bd[1], rows[0], rows[1], tab, hs, spec, c, &npts);
     }
     if (!act) continue;
-    if (CACHE && (mode == kBuild || mode == kResolveBuild))
+    if (CACHE && WIN && (mode == kBuild || mode == kRefresh)) {
+      // the entry's cache in the window or the scratch (no persistence here)
+      int cs;
+      float* sc = cache_at(s, e, &cs);
+      if (mode == kBuild)
+        cache_store(sc, cs, 0, c, npts, S[0], S[1]);
+      else
+        cache_refresh(sc, cs, 0, S[0], S[1], c);
+    }
+    if (CACHE && !WIN && (mode == kBuild || mode == kResolveBuild))
       cache_store(s.scache, K, k, c, npts, S[0], S[1]);
-    if (CACHE && (mode == kRefresh || mode == kResolveBuild || mode == kResolveKeep))
+    if (CACHE && !WIN && (mode == kRefresh || mode == kResolveBuild || mode == kResolveKeep))
       cache_refresh(s.scache, K, k, S[0], S[1], c);
     float pA[9], pB[9], lam[kPts];
     positional_pass(S[0], S[1], c, relax, pA, pB, lam);
@@ -2954,17 +3091,21 @@ __device__ void passthrough(const Args& a, int wld, int n, int tid, int T) {
 
 // The fused kernel, specialised for its options (kOpt* bits): REFRESH
 // (contact refresh), SLEEP (active), BP (the in-kernel broadphase), PERSIST
-// (the persistent manifold cache; with BP and REFRESH).  OPTS = 0 is the
-// kernel without options.
+// (the persistent manifold cache; with BP and REFRESH), WIN (the windowed
+// layout, without BP or PERSIST; sleep read from a.active when it is given,
+// so that a windowed specialisation serves both).  OPTS = 0 is the kernel
+// without options.
 // CTAs an SM each specialisation is compiled for (__launch_bounds__'s
 // second argument, which caps the registers a thread at 65536 / (128 x
 // that)): 4 where shared memory lets 4 worlds share an SM at K = 256; 3
 // for their general-hull twins, whose staged hull rows (~24 KB at 65 rows of
 // the prism's) leave room for 3; with a manifold cache (33 floats a slot
-// more) shared memory allows 2, and the registers are left free.
+// more) shared memory allows 2, and the registers are left free; the
+// windowed specialisations are sized for kWinBlocks.
 template <int OPTS>
 constexpr int min_blocks() {
   return (OPTS & (kOptRefresh | kOptPersist)) != 0 ? 1
+         : (OPTS & kOptWin) != 0                   ? kWinBlocks
          : (OPTS & kOptHull) != 0                  ? kHullBlocks
                                                    : kMinBlocks;
 }
@@ -2974,6 +3115,8 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
   constexpr bool REFRESH = (OPTS & kOptRefresh) != 0, SLEEP = (OPTS & kOptSleep) != 0;
   constexpr bool BP = (OPTS & kOptBp) != 0, PERSIST = (OPTS & kOptPersist) != 0;
   constexpr bool CACHE = REFRESH || PERSIST, GEN = (OPTS & kOptHull) != 0;
+  constexpr bool WIN = (OPTS & kOptWin) != 0;
+  static_assert(!(WIN && (BP || PERSIST)), "the windowed layout has no broadphase or persistence");
   extern __shared__ float smem[];
   const int tid = threadIdx.x, T = blockDim.x;
   const int n = a.n, K = a.K;
@@ -2983,11 +3126,17 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
     // asleep ones); the CTAs past the list's length have nothing to do
     if (wld >= *a.work_count) return;
     wld = a.work_list[wld];
-  } else if (SLEEP && !a.active[wld]) {
+  } else if ((SLEEP || (WIN && a.active)) && !a.active[wld]) {
     passthrough(a, wld, n, tid, T);
     return;
   }
-  const Smem s = carve(smem, n, K, BP, CACHE, T);
+  const Smem s =
+      WIN ? carve_fused_window(smem, n, K, a.kw, CACHE, T,
+                               a.scratch ? a.scratch + static_cast<size_t>(wld) *
+                                                           (CACHE ? kWinCacheCh : kScratchCh) *
+                                                           (K - a.kw)
+                                         : nullptr)
+          : carve(smem, n, K, BP, CACHE, T);
   float* sb = s.sb;
   const size_t b0 = static_cast<size_t>(wld) * n;
 
@@ -3035,10 +3184,16 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
   } else if (BP) {
     __syncthreads();
     inkernel_broadphase(s, a, wld, n, K, tid, T);
-  } else {
+  } else if (!WIN) {
     stage_rows(s, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
   }
-  const int kc = finish_slots(s, a.tab, n, K, tid, T);
+  // the slot lists and the work list (the windowed layout's by work entry,
+  // from the caller's rows)
+  int kc;
+  if constexpr (WIN)
+    kc = finish_slots_win(s, a.tab, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
+  else
+    kc = finish_slots(s, a.tab, n, K, tid, T);
   const float h1 = a.h[wld], rest1 = a.rest_thr[wld];
   const V3 grav = mk(a.gravity[3 * wld], a.gravity[3 * wld + 1], a.gravity[3 * wld + 2]);
 
@@ -3087,8 +3242,8 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
       mode = kBuild;
     else if (REFRESH && step > 0)
       mode = kRefresh;
-    solve_substep<CACHE, false, GEN>(s, a.tab, n, K, kc, h1, rest1, a.relax, a.spec, a.bounce != 0,
-                                mode, tid, T);
+    solve_substep<CACHE, WIN, GEN>(s, a.tab, n, K, kc, h1, rest1, a.relax, a.spec, a.bounce != 0,
+                                   mode, tid, T);
   }
 
   for (int b = tid; b < n; b += T) {
@@ -3464,11 +3619,28 @@ size_t hull_stage_bytes(int n, const Table& tab) {
   return sizeof(float) * static_cast<size_t>(n) * hull_stride(tab.vm, tab.em, tab.sm, tab.fm);
 }
 
+// The shared memory of the fused kernel's specialisation OPTS at n bodies
+// and K slots with a table's hull rows: the windowed layout at its window kw
+// (fused_window), or the slot layout.
 template <int OPTS>
-cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
+size_t fused_smem(int n, int K, int kw, size_t hull) {
   constexpr bool bp = (OPTS & kOptBp) != 0;
   constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
-  const size_t smem = smem_bytes(a.n, a.K, bp, cache) + hull_stage_bytes(a.n, a.tab);
+  if ((OPTS & kOptWin) != 0)
+    return fused_window_smem_bytes(n, kw, block_threads(n, K), cache) + hull;
+  return smem_bytes(n, K, bp, cache) + hull;
+}
+
+template <int OPTS>
+cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
+  constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
+  const size_t hull = hull_stage_bytes(a.n, a.tab);
+  if ((OPTS & kOptWin) != 0) {
+    // the window the wrapper sized its scratch for must be this layout's
+    const int kw = fused_window(a.n, a.K, cache, hull);
+    if (kw < 1 || kw != a.kw || (kw < a.K && !a.scratch)) return cudaErrorInvalidValue;
+  }
+  const size_t smem = fused_smem<OPTS>(a.n, a.K, a.kw, hull);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(fused_substep_kernel<OPTS>, smem);
   if (err != cudaSuccess) return err;
@@ -3498,11 +3670,12 @@ cudaError_t occupancy_of(Kernel kernel, int threads, size_t smem, int* blocks) {
 // box specialisations).
 template <int OPTS>
 cudaError_t occupancy_fused(int n, int K, int hull_floats, int* threads, int* blocks) {
-  constexpr bool bp = (OPTS & kOptBp) != 0;
   constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
   *threads = block_threads(n, K);
   const size_t stage = sizeof(float) * static_cast<size_t>(n) * hull_floats;
-  return occupancy_of(fused_substep_kernel<OPTS>, *threads, smem_bytes(n, K, bp, cache) + stage,
+  const int kw = (OPTS & kOptWin) != 0 ? fused_window(n, K, cache, stage) : 0;
+  if ((OPTS & kOptWin) != 0 && kw < 1) return cudaErrorInvalidValue;
+  return occupancy_of(fused_substep_kernel<OPTS>, *threads, fused_smem<OPTS>(n, K, kw, stage),
                       blocks);
 }
 
@@ -3774,22 +3947,25 @@ bool set_hull(Table& tab, const void* hull, const void* dims) {
 }
 
 // The fused kernel's specialisations without the general-hull bit, each
-// also compiled with it.
+// also compiled with it (the windowed ones serve sleep too: the launch
+// drops kOptSleep from their bits).
 #define SUBSTEP_SPECIALISATIONS(X)                                                      \
   X(0) X(kOptRefresh) X(kOptSleep) X(kOptRefresh | kOptSleep) X(kOptBp)                 \
   X(kOptBp | kOptRefresh) X(kOptPersist | kOptBp | kOptRefresh)                         \
-  X(kOptPersist | kOptBp | kOptRefresh | kOptSleep)
+  X(kOptPersist | kOptBp | kOptRefresh | kOptSleep) X(kOptWin) X(kOptWin | kOptRefresh)
 
 }  // namespace
 
 // The launch shape and occupancy of the fused kernel's specialisation
 // `opts` (fused_substep_launch's option bits, kOptHull for the general-hull
-// one) at n bodies and K slots, with hull_floats staged floats a row for
-// the general-hull one (hull_stage_floats in ops/substep_kernel.py):
-// threads a CTA and CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// one, kOptWin for the windowed one) at n bodies and K slots, with
+// hull_floats staged floats a row for the general-hull one
+// (hull_stage_floats in ops/substep_kernel.py): threads a CTA and CTAs an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 extern "C" int fused_substep_occupancy(int opts, int n, int K, int hull_floats, int* threads,
                                        int* blocks) {
   cudaError_t err;
+  if (opts & kOptWin) opts &= ~kOptSleep;
   switch (opts) {
 #define SUBSTEP_OCC(c)                                                                 \
   case (c): err = occupancy_fused<(c)>(n, K, 0, threads, blocks); break;               \
@@ -3834,9 +4010,11 @@ extern "C" int fused_substep_launch(
     const void* aabb_lo, const void* aabb_hi, void* o_aabb_lo, void* o_aabb_hi, void* o_rows_i,
     void* o_rows_j, void* o_kvalid, void* o_count, void* o_dropped, void* o_mc, void* o_apos,
     void* o_arot, void* o_valid, const void* work_list, const void* work_count, int keep_v,
-    const void* hull, const void* hull_dims, void* stream) {
+    const void* hull, const void* hull_dims, int window, void* scratch, void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
   if (n <= 0 || K <= 0 || num_substeps < 0 || num_objects <= 0 || vm < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((opts & kOptWin) && (opts & (kOptBp | kOptPersist)))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((opts & kOptBp) && (n > kMaxBpRows || degree < 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -3903,8 +4081,11 @@ extern "C" int fused_substep_launch(
   a.work_list = static_cast<const int*>(work_list);
   a.work_count = static_cast<const int*>(work_count);
   a.keep_v = keep_v;
+  a.kw = window;
+  a.scratch = static_cast<float*>(scratch);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hull) opts |= kOptHull;
+  if (opts & kOptWin) opts &= ~kOptSleep;
   cudaError_t err;
   switch (opts) {
 #define SUBSTEP_LAUNCH(c)                                                         \

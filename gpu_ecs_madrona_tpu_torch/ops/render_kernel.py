@@ -25,7 +25,11 @@ Layout, channel-major as the TPU kernel's:
 
 A padded ray (|rd|^2 < 0.5, RenderKernel's padding) comes out as a miss; so
 does every ray against an instance whose mask is 0 or whose object id is
-outside the tables.
+outside the tables.  A world's instances that do not fit one block's shared
+memory at once (``blocked``: above 1,614 rows in the rays mode, 2,421 in the
+views mode) are staged BLOCK at a time by the kernel's blocked
+specialisation, each pixel's nearest hit carried from block to block;
+the outputs are the same.
 
 On CUDA tensors ``render`` launches ``csrc/render_kernels.cu`` (its notes
 say what bounds it and how it is laid out) or raises; on CPU tensors it
@@ -90,6 +94,11 @@ WARPS = 4
 TILE_W, TILE_H = 8, 4
 STAGE_RAYS, STAGE_VIEWS = 4 * 16 + WARPS * 20, 6 * 16
 MAX_SMEM_BYTES = 227 * 1024
+# A world whose instances do not fit MAX_SMEM_BYTES at once takes the
+# kernel's blocked specialisation: BLOCK instances staged at a time, each
+# with its index (4 bytes more), each pixel's nearest hit carried in its
+# own outputs from block to block (csrc/render_kernels.cu kBlock).
+BLOCK = 512
 # CTAs a launch aims for (132 SMs x 16, two waves of 8 CTAs an SM): images
 # are split until the grid has them, so that the last wave is short and
 # small world counts still fill the card (the fastest of 1056, 2112, 4096
@@ -430,21 +439,35 @@ def _lib():
     lib = _build.load("render_kernels")
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.render_launch.argtypes = [P, P, P] + [I] * 9 + [F] * 5 + [P, P]
+        lib.render_launch.argtypes = [P, P, P] + [I] * 9 + [F] * 5 + [I] + [P, P]
         lib.render_launch.restype = I
         lib.render_views_launch.argtypes = ([P] * 4 + [I] * 4 + [P] * 6 + [I] * 7 + [F] * 5
-                                            + [P] * 3)
+                                            + [I] + [P] * 3)
         lib.render_views_launch.restype = I
-        lib.render_occupancy.argtypes = [I, I, P]
+        lib.render_occupancy.argtypes = [I, I, I, P]
         lib.render_occupancy.restype = I
         lib._typed = True
     return lib
 
 
+def blocked(N: int, views: bool = False) -> bool:
+    """Whether the mode stages N instances in blocks of BLOCK (their
+    STAGE_RAYS or STAGE_VIEWS bytes each pass MAX_SMEM_BYTES)."""
+    return N * (STAGE_VIEWS if views else STAGE_RAYS) > MAX_SMEM_BYTES
+
+
+def stage_blocks(N: int, views: bool = False) -> int:
+    """The instance blocks a CTA stages for N instances (1 when they fit at
+    once)."""
+    return -(-N // BLOCK) if blocked(N, views) else 1
+
+
 def smem_bytes(N: int, views: bool = False) -> int:
     """The kernel's dynamic shared memory for N instances: STAGE_RAYS or
-    STAGE_VIEWS bytes each."""
-    return N * (STAGE_VIEWS if views else STAGE_RAYS)
+    STAGE_VIEWS bytes each, or in blocks of BLOCK with an index (4 bytes)
+    more each."""
+    stage = STAGE_VIEWS if views else STAGE_RAYS
+    return BLOCK * (stage + 4) if blocked(N, views) else N * stage
 
 
 def tile_shape(P: int, img_w: int):
@@ -463,19 +486,18 @@ def launch_splits(blocks: int, tiles: int) -> int:
 
 
 def kernel_fits(N: int, views: bool = False) -> str:
-    """'' when the kernel's mode takes N instances, else why not."""
+    """'' when the kernel's mode takes N instances (any N >= 1: past
+    MAX_SMEM_BYTES in blocks), else why not."""
     if N < 1:
         return f"N={N} instances: the kernel needs at least one"
-    if smem_bytes(N, views) > MAX_SMEM_BYTES:
-        return (f"N={N} instances need {smem_bytes(N, views)} B of shared memory, over the "
-                f"{MAX_SMEM_BYTES} B a block may have")
     return ""
 
 
 def occupancy(N: int, views: bool = False) -> int:
     """CTAs an SM of the mode's kernel at N instances (needs the card)."""
     n = ctypes.c_int(0)
-    rc = _lib().render_occupancy(int(views), N, ctypes.byref(n))
+    rc = _lib().render_occupancy(int(views), N, BLOCK if blocked(N, views) else 0,
+                                 ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"render occupancy failed with cudaError {rc}")
     return n.value
@@ -485,8 +507,9 @@ def render(rays, inst, *, tables: RenderTables, light, ambient: float, img_w: in
     """rays [W, 6, P], inst [W, 12, N] float32 -> out [W, 5, P] float32 (see
     the module doc).  ``img_w``: pixels per image row, so the kernel's
     tiles are 2-D blocks of the image.  CPU tensors: the plain version.
-    CUDA tensors: the kernel, or a raise (bad input, tables or shapes the
-    kernel does not take, a failed launch) — never the plain version."""
+    CUDA tensors: the kernel (its blocked specialisation where the
+    instances do not fit at once), or a raise (bad input, tables or shapes
+    the kernel does not take, a failed launch) — never the plain version."""
     if rays.device != inst.device:
         raise ValueError(f"render: rays on {rays.device}, inst on {inst.device}")
     for name, t, c in (("rays", rays, 6), ("inst", inst, C_INST)):
@@ -520,7 +543,7 @@ def render(rays, inst, *, tables: RenderTables, light, ambient: float, img_w: in
         rays.data_ptr(), inst.data_ptr(), table.data_ptr(), tables.O, tables.stride,
         tables.F_used, tables.T_used, W, P, N, img_w, splits,
         float(light[0]), float(light[1]), float(light[2]), float(ambient),
-        float(1.0 - ambient), out.data_ptr(), stream)
+        float(1.0 - ambient), BLOCK if blocked(N) else 0, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"render: kernel launch failed with cudaError {rc}")
     RenderKernel.launches += 1
@@ -596,8 +619,8 @@ def render_views(views, pos, rot, scale, obj, mask, *, tables: RenderTables, lig
     float32, obj [W, N] int32, mask [W, N] bool.  Returns (RGBA8 [W, V, H,
     Wpx, 4] uint8, alpha 255 on a hit; depth [W, V, H, Wpx] float32, inf at
     a miss), 0 / inf on a dead view.  CPU tensors: ``render_views_plain``.
-    CUDA tensors: the kernel's views mode, bit for bit that route on the
-    card, or a raise — never the plain version."""
+    CUDA tensors: the kernel's views mode (blocked as ``render``), bit for
+    bit that route on the card, or a raise — never the plain version."""
     W, N, Vc = _check_views(views, pos, rot, scale, obj, mask, light, height, width,
                             max_views)
     kw = dict(tables=tables, light=light, ambient=ambient, height=height, width=width,
@@ -626,7 +649,8 @@ def render_views(views, pos, rot, scale, obj, mask, *, tables: RenderTables, lig
         *(t.data_ptr() for t in ins[:4]), Vc, V, H, Wpx, *(t.data_ptr() for t in ins[4:]),
         table.data_ptr(), tables.O, tables.stride, tables.F_used, tables.T_used, W, N, splits,
         float(light[0]), float(light[1]), float(light[2]), float(ambient),
-        float(1.0 - ambient), rgba.data_ptr(), depth.data_ptr(), stream)
+        float(1.0 - ambient), BLOCK if blocked(N, views=True) else 0,
+        rgba.data_ptr(), depth.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"render_views: kernel launch failed with cudaError {rc}")
     RenderKernel.launches += 1

@@ -73,7 +73,13 @@ hulls (any convex hull, e.g. from utils/importer.py, of any size whose
 world-space rows fit the shared memory: ``hull_stage_bytes``) take each
 specialisation's general-hull twin (OPT_HULL, counted as "...+hull" and in
 ``SubstepKernel.hull_launches``), which reads ``pairs.ObjTables.hull_table``
-beside the object table; on CPU tensors they run ``fused_substep_plain``, ``substep_plain``
+beside the object table.  A fused shape without the in-kernel broadphase
+whose slot layout passes one block's shared memory (``windowed``: from 239
+bodies of rigid_bench, 161 with contact refresh) takes each
+specialisation's windowed twin (OPT_WIN, counted as "...win"): a window of
+work entries in shared memory (``fused_window``), the rest in a global
+scratch (``fused_scratch``), bit for bit the slot layout.  On CPU tensors
+they run ``fused_substep_plain``, ``substep_plain``
 and ``substep_node_plain``, the same loop in batched PyTorch over [W, K]
 pair tensors.  The segment sums add each body's A-side contributions in
 ascending slot order, then its B-side ones, in both versions (a stable
@@ -165,6 +171,18 @@ def hull_stage_bytes(tables: pk.ObjTables, n: int) -> int:
     return 4 * n * hull_stage_floats(tables)
 
 
+# The fused kernel's windowed layout (OPT_WIN, see csrc/substep_kernels.cu
+# kOptWin): a shape without the in-kernel broadphase whose slot layout
+# (smem_bytes with the staged hull rows) passes MAX_SMEM_BYTES keeps kernel
+# 5's window of work entries in shared memory and the rest in a global
+# scratch of SCRATCH_CH channels an entry (WIN_CACHE_CH with the manifold
+# cache).  Its window aims at WIN_BLOCKS CTAs an SM of SM_SMEM_BYTES, each
+# reserving CTA_RESERVED_BYTES (fused_window).
+WIN_BLOCKS = 2
+SM_SMEM_BYTES = 228 * 1024
+CTA_RESERVED_BYTES = 1024
+
+
 def smem_bytes(n: int, K: int, bp: bool = False, cache: bool = False) -> int:
     """The kernel's shared memory for n bodies and K slots: its dynamic
     part (smem_bytes in the .cu: 54 floats a body, 18 a slot and 24 a
@@ -186,6 +204,7 @@ SUBSTEP_THREADS = 128
 SUBSTEP_WINDOW = 320
 SCRATCH_CH = 46
 JOINT_CH = 12
+WIN_CACHE_CH = SCRATCH_CH + MC_CACHE
 
 
 def substep_window(K: int) -> int:
@@ -208,6 +227,60 @@ def substep_smem_bytes(n: int, K: int, J: int = 0) -> int:
     floats = 54 * n + 24 * max(kw - T, 0) + 18 * kw + JOINT_CH * J
     ints = 4 * kw + 3 * n + 1 + 8 + 2 * J
     return 4 * floats + 4 * ints
+
+
+def fused_window_smem_bytes(n: int, kw: int, T: int, cache: bool = False) -> int:
+    """The windowed layout's shared memory for n bodies, a window of kw
+    work entries and T threads (fused_window_smem_bytes in the .cu): 54
+    floats a body, 18 a window entry (with the cache 33 more) and 24 more
+    one past the block's threads; 4 ints a window entry, 3 n + 1 list
+    offsets and cursors and 8 world ints."""
+    floats = 54 * n + 24 * max(kw - T, 0) + (18 + (MC_CACHE if cache else 0)) * kw
+    ints = 4 * kw + 3 * n + 1 + 8
+    return 4 * floats + 4 * ints
+
+
+def fused_window(n: int, K: int, cache: bool = False, hull_bytes: int = 0) -> int:
+    """The windowed layout's window for n bodies, K slots and hull_bytes of
+    staged hull rows (fused_window in the .cu): the most work entries (at
+    most K) whose layout lets WIN_BLOCKS CTAs share an SM, when that holds
+    the smallest window (min(K, the block's threads)); else the most that
+    one CTA's MAX_SMEM_BYTES holds; 0 when not even the smallest window fits
+    beside the bodies and the hull rows."""
+    T = block_threads(n, K)
+    least = min(K, T)
+    for budget in (SM_SMEM_BYTES // WIN_BLOCKS - CTA_RESERVED_BYTES, MAX_SMEM_BYTES):
+        if fused_window_smem_bytes(n, least, T, cache) + hull_bytes > budget:
+            continue
+        lo, hi = least, K
+        while lo < hi:
+            mid = lo + (hi - lo + 1) // 2
+            if fused_window_smem_bytes(n, mid, T, cache) + hull_bytes <= budget:
+                lo = mid
+            else:
+                hi = mid - 1
+        return lo
+    return 0
+
+
+def windowed(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
+             cache: bool = False) -> bool:
+    """Whether the fused kernel runs these shapes in its windowed layout:
+    without the in-kernel broadphase, when the slot layout with the staged
+    hull rows passes MAX_SMEM_BYTES."""
+    return (not bp and smem_bytes(n, K, bp, cache) + hull_stage_bytes(tables, n)
+            > MAX_SMEM_BYTES)
+
+
+def fused_scratch(W: int, K: int, kw: int, cache: bool, device):
+    """The windowed layout's global scratch for W worlds, K slots and a
+    window of kw (fused_window), [W, SCRATCH_CH (WIN_CACHE_CH with the
+    cache), K - kw] float32 (the work entries past the window), or None
+    when K fits the window."""
+    if kw >= K:
+        return None
+    return torch.empty((W, WIN_CACHE_CH if cache else SCRATCH_CH, K - kw), dtype=torch.float32,
+                       device=device)
 
 
 def substep_scratch(W: int, K: int, device):
@@ -692,7 +765,7 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_substep_launch.argtypes = (
             [P] * 19 + [I] * 6 + [F, F, I] + [P] * 10 + [I, I, F] + [P] * 16 + [P] * 5 + [I]
-            + [P, P] + [P])
+            + [P, P] + [I, P] + [P])
         lib.fused_substep_launch.restype = I
         lib.world_flags_launch.argtypes = [P] * 15 + [I] * 5 + [F, I, F] + [P] * 4 + [P]
         lib.world_flags_launch.restype = I
@@ -720,24 +793,43 @@ def kernel_fits(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
     kernel 5 with ``joints`` joints), else why not: all-box tables up to
     MAX_BOX_TABLE_VERTS verts a hull; general hulls of any counts whose
     staged rows (hull_stage_bytes) fit the shared memory the rest of the
-    kernel leaves of MAX_SMEM_BYTES, the message saying which budget broke."""
+    kernel leaves of MAX_SMEM_BYTES, the message saying which budget broke.
+    The fused kernel without the in-kernel broadphase takes a shape past
+    that in its windowed layout (windowed), and refuses only bodies and hull
+    rows that leave no room for its smallest window ("... window budget")."""
     if tables.all_box and tables.Vm > MAX_BOX_TABLE_VERTS:
         return f"all-box tables with {tables.Vm} verts per hull > {MAX_BOX_TABLE_VERTS}"
     if n < 1 or K < 1:
         return f"n={n} bodies and K={K} candidate slots must both be >= 1"
     if bp and n > MAX_BP_ROWS:
         return f"the in-kernel broadphase takes at most {MAX_BP_ROWS} body rows, not {n}"
-    need = substep_smem_bytes(n, K, joints) if single else smem_bytes(n, K, bp, cache)
-    if need > MAX_SMEM_BYTES:
-        return (f"n={n} bodies and K={K} candidate slots need {need} B of "
-                f"shared memory, over the {MAX_SMEM_BYTES} B a block may have")
+    if not single and windowed(tables, n, K, bp, cache):
+        # past one block: the windowed layout, refused only when the bodies,
+        # the hull rows and the smallest window do not fit
+        stage = hull_stage_bytes(tables, n)
+        if fused_window(n, K, cache, stage):
+            return ""
+        T = block_threads(n, K)
+        least = min(K, T)
+        need = fused_window_smem_bytes(n, least, T, cache)
+        what = f"the windowed kernel's {need} B for its bodies and smallest window"
+        if need > MAX_SMEM_BYTES:
+            return (f"n={n} bodies and the smallest window of {least} work entries need {need} "
+                    f"B of shared memory, over the {MAX_SMEM_BYTES} B a block may have (the "
+                    f"windowed kernel's window budget)")
+    else:
+        need = substep_smem_bytes(n, K, joints) if single else smem_bytes(n, K, bp, cache)
+        what = f"the kernel's {need} B"
+        if need > MAX_SMEM_BYTES:
+            return (f"n={n} bodies and K={K} candidate slots need {need} B of "
+                    f"shared memory, over the {MAX_SMEM_BYTES} B a block may have")
     stage = hull_stage_bytes(tables, n)
     if need + stage > MAX_SMEM_BYTES:
         return (f"general-hull tables staged at {hull_stage_floats(tables)} floats a row "
                 f"({tables.Vm} verts, {tables.Em} edge directions, "
                 f"{tables.hull_dims()[2]} SAT axes, {tables.Fm} faces) need {stage} B for "
                 f"n={n} bodies, over the {MAX_SMEM_BYTES - need} B of the hull-row budget "
-                f"(the {MAX_SMEM_BYTES} B a block may have less the kernel's {need} B)")
+                f"(the {MAX_SMEM_BYTES} B a block may have less {what})")
     return ""
 
 
@@ -782,7 +874,7 @@ def _check_inputs(name, device, bodies, W, n, K, **others):
 # the kernel's option bits (fused_substep_launch's opts); OPT_HULL names
 # the general-hull specialisations, which the launch takes for tables with
 # general hulls (kOptHull)
-OPT_REFRESH, OPT_SLEEP, OPT_BP, OPT_PERSIST, OPT_HULL = 1, 2, 4, 8, 16
+OPT_REFRESH, OPT_SLEEP, OPT_BP, OPT_PERSIST, OPT_HULL, OPT_WIN = 1, 2, 4, 8, 16, 32
 BP_KEYS = ("aabb_lo", "aabb_hi", "rows_i", "rows_j", "kvalid", "bp_count", "bp_dropped")
 
 
@@ -877,6 +969,12 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
         extra["mcache"] = mcache_out
     code = ((OPT_REFRESH if refresh else 0) | (OPT_SLEEP if active is not None else 0)
             | (OPT_BP if bp else 0) | (OPT_PERSIST if persist else 0))
+    window, scratch = 0, None
+    if windowed(tables, n, K, bp, refresh or persist):
+        # past one block's shared memory: the window, the rest in a scratch
+        code |= OPT_WIN
+        window = fused_window(n, K, refresh, hull_stage_bytes(tables, n))
+        scratch = fused_scratch(W, K, window, refresh, dev)
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
@@ -897,7 +995,7 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
         *(ptr(t) for t in (scale, live, dtv, active, stable, mcache, aabb_lo, aabb_hi)),
         *(ptr(extra.get(k)) for k in BP_KEYS + ("mcache",)),
         *(ptr(t) for t in (anchors or (None, None, None))), *(ptr(t) for t in work),
-        int(keep_velocity), *hull, stream)
+        int(keep_velocity), *hull, window, ptr(scratch), stream)
     if rc != 0:
         raise RuntimeError(f"fused_substep: kernel launch failed with cudaError {rc}")
     FusedSubstepKernel.launches += 1
@@ -1069,7 +1167,8 @@ def option_name(code: int) -> str:
     """The kernel specialisation of option bits ``code``: "none", or its
     options joined by "+" (e.g. "refresh+sleep+bp+persist")."""
     names = [n for bit, n in ((OPT_REFRESH, "refresh"), (OPT_SLEEP, "sleep"), (OPT_BP, "bp"),
-                              (OPT_PERSIST, "persist"), (OPT_HULL, "hull")) if code & bit]
+                              (OPT_PERSIST, "persist"), (OPT_WIN, "win"), (OPT_HULL, "hull"))
+             if code & bit]
     return "+".join(names) or "none"
 
 

@@ -27,6 +27,15 @@ prints one JSON line, from simple_taskgraph at 1024 worlds x 100 spheres,
              capturing one run)
   render_group_ms   device ms of the step's render nodes together
              (render_pack, batch_render; 20 runs)
+  digests    a SHA-256 of each timed call's outputs (two checkouts whose
+             kernel gives the same outputs bit for bit print the same)
+  large      tests/test_torch_render_scenes.py's large instances (4,096
+             rows a world, past one block's shared memory) at
+             chip_smoke.py's main_render_large shape (256 worlds, one 64 x
+             64 view): the views launch's ms ("views_4096") and the rays
+             mode's on the same rays ("rays_4096"), with their digests;
+             "refused" where the kernel refuses them, or a note where the
+             checkout has no such scene
 
 The script needs a CUDA card; without one it exits 1 and prints nothing.
 """
@@ -75,16 +84,57 @@ def graph_nodes(torch, fn):
 
 def ptxas_lines(log):
     """{kernel: "registers ..., stack ..., spills ..."} from an nvcc -Xptxas
-    -v log; the rays and views modes by their template argument."""
+    -v log; the rays and views modes, and the blocked specialisations, by
+    their template arguments."""
+    import re
     out, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry" in ln:
             entry = ln.split("'")[1]
-            entry = ("render_kernel<views>" if "ILb1E" in entry else
-                     "render_kernel<rays>" if "ILb0E" in entry else "render_kernel")
+            bits = re.findall(r"Lb(\d)E", entry.split("render_kernelI")[-1])
+            entry = "render_kernel"
+            if bits:
+                entry += "<" + ("views" if bits[0] == "1" else "rays") + (
+                    ",blocked" if bits[1:2] == ["1"] else "") + ">"
         elif entry and any(k in ln for k in ("registers", "stack frame")):
             out[entry] = (out.get(entry, "") + " " + ln.split(":", 1)[-1].strip()).strip()
     return out
+
+
+def digest(x):
+    """SHA-256 of the tensors in x (a tensor or a tuple of them), their bytes
+    as they are on the card."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in (x if isinstance(x, tuple) else (x,)):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def large_case(torch, root, rk, res):
+    """The large case (see the module doc)."""
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import test_torch_render_scenes as scenes
+    if not hasattr(scenes, "large_view_case"):
+        res["large"] = "no large scene in this checkout"
+        return
+    k, views, inst, V, H, Wpx = scenes.large_view_case(W=256, H=RES, Wpx=RES, device="cuda")
+    if rk.kernel_fits(inst[0].shape[1], views=True):
+        res["large"] = "refused"
+        return
+    kw = dict(tables=k.tables, light=k.light, ambient=k.ambient)
+    ro, d = rk.camera_rays(views, V, H, Wpx)
+    rays, packed = k.pack(ro.reshape(256, -1, 3), d.reshape(256, -1, 3), *inst)
+
+    def views_fn():
+        return rk.render_views(views, *inst, **kw, height=H, width=Wpx, max_views=V)
+
+    def rays_fn():
+        return rk.render(rays, packed, img_w=Wpx, **kw)
+
+    res["large"] = {"ms": {"views_4096": cuda_ms(torch, views_fn, 20),
+                           "rays_4096": cuda_ms(torch, rays_fn, 20)},
+                    "digests": {"views_4096": digest(views_fn()), "rays_4096": digest(rays_fn())}}
 
 
 def one(root):
@@ -121,9 +171,12 @@ def one(root):
     rays, inst = rend.kernel_inputs(render_in, [stg.Sphere])
     kw = dict(tables=k.tables, light=k.light, ambient=k.ambient)
     ms = {"rays_equal_work": cuda_ms(torch, lambda: rk.render(rays, inst, img_w=RES, **kw))}
+    res["digests"] = {"rays_equal_work": digest(rk.render(rays, inst, img_w=RES, **kw))}
     if hasattr(k, "render_views"):
         views, insts = render_in["__views__"], rend.instances(render_in, [stg.Sphere])
         ms["views_launch"] = cuda_ms(torch, lambda: k.render_views(
+            views, *insts, height=RES, width=RES, max_views=1))
+        res["digests"]["views_launch"] = digest(k.render_views(
             views, *insts, height=RES, width=RES, max_views=1))
 
     ctx = Context(sim.mgr, sim.state)
@@ -154,6 +207,7 @@ def one(root):
     res["render_group_ms"] = cuda_ms(torch, run_group, 20)
 
     res["ms"] = ms
+    large_case(torch, root, rk, res)
     print(json.dumps(res), flush=True)
 
 

@@ -70,6 +70,14 @@ prints one JSON line:
              digest; and where the scenes have the 24-sided prism, its pile
              at the same width after 3 steps (hull_large_K256, or
              "refused" where the kernel refuses its tables)
+  window     rigid_bench at 8192 x 255 bodies + the plane (K = 1020, the
+             sap broadphase), chip_smoke.py's main_rigid_sap_large: its
+             env-steps/s after 3 untimed steps and the fused launch's ms at
+             its state after 103 steps (window_n256_K1020), with the
+             digest; and the imported-prism pile at 255 bodies after 3 steps
+             (window_hull_n256_K1020); "refused" where the kernel refuses
+             these shapes (one block's shared memory); the occupancy of the
+             windowed specialisations at that shape ("occupancy" "n256_K1020")
   phases     (--phases) row 7's time at main_rigid's state with 0, 1 and 4
              substeps, with every slot cleared (the integrate and the body
              phases), with only the slots of one contact kind valid; row
@@ -331,6 +339,38 @@ def hull_case(torch, root, ms, rates, res, timed):
             torch, lkw, large.world_cls.objmgr["prim_type"]).items()}
 
 
+def window_case(torch, root, ms, rates, res, timed):
+    """The window case (see the module doc); timed(name, fn) times fn and
+    keeps its outputs' digest."""
+    from gpu_ecs_madrona_tpu_torch import physics as phys
+    from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
+    from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
+    RS = phys.RigidBodyPhysicsSystem
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import test_torch_hull_scenes as hs
+    from gpu_ecs_madrona_tpu_torch.physics import assets
+    from gpu_ecs_madrona_tpu_torch.utils import importer
+    cfg = rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=255, contact_mode="pallas")
+    for name, make, om in (("window_n256_K1020", rb.make_executor, rb.RigidBenchWorld.objmgr),
+                           ("window_hull_n256_K1020", hs.hull_pile,
+                            hs.hull_object_manager(assets, importer))):
+        if sk.kernel_fits(sk.pk.ObjTables(om), 256, 1020):
+            ms[name] = "refused"
+            continue
+        sim = make(cfg, device="cuda")
+        sim.run(3)
+        sim.block_until_ready()
+        if name == "window_n256_K1020":
+            rates["main_rigid_sap_large"] = rate(sim, 20, 5)
+        kern = RS.fused_kernel(sim)
+        kw = RS.next_step_kernel_inputs(sim, rb.Body, sim.world_cls.objmgr)
+        timed(name, lambda: kern(**kw))
+        del sim, kw
+    if hasattr(sk, "OPT_WIN"):
+        res["occupancy"]["n256_K1020"] = sk.occupancy(256, 1020, codes=(
+            sk.OPT_WIN, sk.OPT_WIN | sk.OPT_REFRESH))
+
+
 def one(root, phases, stg_only):
     import ctypes
 
@@ -453,6 +493,7 @@ def one(root, phases, stg_only):
         "main_rigid": {k: int(v.sum()) for k, v in kind_masks(
             torch, kw256, om["prim_type"]).items()}})
     hull_case(torch, root, ms, rates, res, timed)
+    window_case(torch, root, ms, rates, res, timed)
 
     if phases:
         ph = {}

@@ -29,6 +29,12 @@ nothing.  The RL training path: one PPO train step on the card against
 the CPU from the same parameters and draws (tests/test_torch_rl_cases.py's
 tolerances), a train step waiting for nothing, the exported columns
 handed off zero-copy, and the reset worlds on the card equal to the CPU.
+Past one block's shared memory: every non-broadphase fused specialisation
+in its windowed layout (rigid_bench at 240, 256 and 512 rows, the prism
+pile at 240 and 256) bit for bit its plain version, one body past the
+windowed ceiling refused by name, the render kernel's blocked modes at
+4,096 instance rows bit for bit their plain versions and, forced on scenes
+that fit, bit for bit the single-stage kernel.
 """
 
 import numpy as np
@@ -949,9 +955,11 @@ def test_render_wrapper_rejects_bad_input_on_card(card):
         rk.render(rays, inst.cpu(), **kw)
     with pytest.raises(ValueError):
         rk.render(rays.transpose(1, 2).contiguous().transpose(1, 2), inst, **kw)
-    big = torch.zeros((1, rk.C_INST, 5000), device=card)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        rk.render(rays[:1], big, **kw)
+    # no instance rows at all (any count past one block's shared memory is
+    # staged in blocks: test_render_blocked_matches_plain_bit_for_bit)
+    empty = torch.zeros((1, rk.C_INST, 0), device=card)
+    with pytest.raises(NotImplementedError, match="at least one"):
+        rk.render(rays[:1], empty, **kw)
     assert rk.RenderKernel.launches == 0
 
 
@@ -1011,9 +1019,9 @@ def test_render_views_rejects_bad_input_on_card(card):
     with pytest.raises(ValueError):
         k.render_views(views, inst[0].transpose(0, 1).contiguous().transpose(0, 1), *inst[1:],
                        **kw)
-    big = [torch.zeros((3, 3000) + x.shape[2:], dtype=x.dtype, device=card) for x in inst]
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        k.render_views(views, *big, **kw)
+    empty = [torch.zeros((3, 0) + x.shape[2:], dtype=x.dtype, device=card) for x in inst]
+    with pytest.raises(NotImplementedError, match="at least one"):
+        k.render_views(views, *empty, **kw)
     assert rk.RenderKernel.launches == 0
 
 
@@ -1560,3 +1568,165 @@ def test_hull_tables_over_the_caps_are_refused(card):
     with pytest.raises(NotImplementedError, match="4096 verts.*hull-row budget"):
         subk.fused_substep(**kw, tables=subk.pk.ObjTables(wide), num_substeps=4)
     assert subk.FusedSubstepKernel.launches == 1
+
+
+# -- kernels 7 and 10 past one block's shared memory ----------------------------
+
+# rigid_bench piles whose fused-kernel slot layout passes 227 KB (n = 240,
+# 256 and 512 rows, K = 4 x bodies; the prism pile at 240 and 256 rows),
+# dropped close together so that their worlds' valid slots pass the
+# window: the windowed layout and its global scratch run
+WINDOW_PILES = {"boxes_239": (239, False), "boxes_255": (255, False), "boxes_511": (511, False),
+                "prisms_239": (239, True), "prisms_255": (255, True)}
+WINDOW_OPTIONS = {"none": (False, False), "refresh": (True, False), "sleep": (False, True),
+                  "refresh_sleep": (True, True)}
+_window_states = {}
+
+
+def window_pile(name, dev, W=16):
+    """(sim, the fused kernel's inputs) of a WINDOW_PILES pile after 3
+    steps on the card, made once."""
+    if name not in _window_states:
+        bodies, prisms = WINDOW_PILES[name]
+        cfg = rb.RigidBenchConfig(num_worlds=W, num_bodies=bodies, contact_mode="pallas",
+                                  spawn_xy=4.0, spawn_h=6.0, seed=5)
+        sim = (hull_scenes.hull_pile(cfg, device=dev) if prisms
+               else rb.make_executor(cfg, device=dev))
+        sim.run(3)
+        _window_states[name] = (sim, fused_inputs(sim))
+    return _window_states[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", sorted(WINDOW_OPTIONS))
+@pytest.mark.parametrize("pile", sorted(WINDOW_PILES))
+def test_fused_substep_windowed_matches_plain_bit_for_bit(card, pile, option):
+    """Each non-broadphase specialisation of the fused kernel at shapes
+    past one block's shared memory (its "...win" launch: the window in
+    shared memory, the rest in a global scratch) against the plain version,
+    bit for bit; two launches bit-identical; the valid slots pass the
+    window."""
+    sim, kw = window_pile(pile, card)
+    refresh, sleep = WINDOW_OPTIONS[option]
+    kern = subk.FusedSubstepKernel(sim.world_cls.objmgr, 4, relaxation=0.7,
+                                   contact_refresh=refresh)
+    W, n = kw["obj"].shape
+    K = kw["rows_i"].shape[1]
+    assert subk.windowed(kern.tables, n, K, cache=refresh) and subk.kernel_fits(
+        kern.tables, n, K, cache=refresh) == ""
+    window = subk.fused_window(n, K, refresh, subk.hull_stage_bytes(kern.tables, n))
+    assert int(kw["kvalid"].sum(1).max()) > window
+    if sleep:
+        kw = dict(kw, active=torch.arange(W, device=card) % 3 != 1)
+    subk.FusedSubstepKernel.launches_by_options.clear()
+    got, again = kern(**kw), kern(**kw)
+    torch.cuda.synchronize()
+    (name, count), = subk.FusedSubstepKernel.launches_by_options.items()
+    assert count == 2 and "win" in name and name.endswith("hull") == WINDOW_PILES[pile][1], name
+    want = kern.plain(**kw)
+    for k in subk.OUT_KEYS:
+        assert torch.isfinite(got[k]).all() and torch.equal(got[k], again[k]), k
+        assert torch.equal(got[k], want[k]), (k, float((got[k] - want[k]).abs().max()))
+
+
+@pytest.mark.cuda
+def test_fused_substep_past_the_window_budget_is_refused(card):
+    """Bodies whose rows leave no room for the windowed layout's smallest
+    window (rigid_bench at 969 bodies, n = 970) are refused by that
+    budget's name before any launch; the ceiling's shape (968 bodies)
+    launches."""
+    kern = subk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
+    for bodies, fits in ((968, True), (969, False)):
+        sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=2, num_bodies=bodies,
+                                                   contact_mode="pallas"), device=card)
+        kw = fused_inputs(sim)
+        subk.FusedSubstepKernel.launches = 0
+        if fits:
+            out = kern(**kw)
+            torch.cuda.synchronize()
+            assert subk.FusedSubstepKernel.launches == 1
+            want = kern.plain(**kw)
+            for k in subk.OUT_KEYS:
+                assert torch.equal(out[k], want[k]), k
+        else:
+            with pytest.raises(NotImplementedError, match="window budget"):
+                kern(**kw)
+            assert subk.FusedSubstepKernel.launches == 0
+
+
+def blocked_views_case(dev, W=4, H=24, Wpx=40):
+    """tests/test_torch_render_scenes.py's large view case (4,096 instance
+    rows a world, past one block's shared memory in the views mode)."""
+    return scenes.large_view_case(W=W, H=H, Wpx=Wpx, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rays", "views"])
+def test_render_blocked_matches_plain_bit_for_bit(card, mode):
+    """4,096 instance rows a world (staged in blocks; hulls, spheres, the
+    plane and triangle meshes, a SourceMesh's among them): the rays mode
+    against render_plain and the views mode against render_views_plain, bit
+    for bit (rgb, hit and depth; RGBA8 and depth bits); a repeat
+    bit-identical; the blocks a CTA stages as stage_blocks says."""
+    rk.RenderKernel.launches = 0
+    if mode == "rays":
+        sc = scenes.large_scene(W=4, res=24)
+        k = rk.RenderKernel(sc["om"], sc["albedo"], scenes.LIGHT_DIR, scenes.AMBIENT,
+                            mesh_tables=sc["mesh_tables"])
+        rays, inst = k.pack(*(torch.from_numpy(sc[key]).to(card) for key in RENDER_INPUTS))
+        assert rk.blocked(inst.shape[2]) and rk.stage_blocks(inst.shape[2]) == 8
+        kw = dict(tables=k.tables, light=k.light, ambient=k.ambient)
+        got, again = (rk.render(rays, inst, img_w=sc["img_w"], **kw) for _ in range(2))
+        want = rk.render_plain(rays, inst, **kw)
+        torch.cuda.synchronize()
+        assert bool(want[:, rk.O_HIT].any()) and torch.equal(got, again)
+        assert torch.equal(got, want), float((got - want).abs().max())
+    else:
+        k, views, inst, V, H, Wpx = blocked_views_case(card)
+        assert rk.blocked(inst[0].shape[1], views=True)
+        kw = dict(height=H, width=Wpx, max_views=V)
+        got, again = (k.render_views(views, *inst, **kw) for _ in range(2))
+        plain = rk.render_views_plain(views, *inst, tables=k.tables, light=k.light,
+                                      ambient=k.ambient, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got[1]).any())
+        for a in (again, plain):
+            assert torch.equal(got[0], a[0])
+            assert torch.equal(got[1].view(torch.int32), a[1].view(torch.int32))
+    assert rk.RenderKernel.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pallas_scene", "sphere_mesh", "inside_wrapping", "large",
+                                  "views_main_state", "views_mesh", "views_source_mesh",
+                                  "views_two_views_dead"])
+def test_render_blocked_equals_the_single_stage(card, case, monkeypatch):
+    """The blocked specialisation forced (rk.blocked patched to say every
+    count is staged in blocks) on scenes whose instances fit one stage (the
+    large scene cut to 1,024 rows), bit for bit the single-stage kernel in
+    both modes: the blocks change nothing but what is staged."""
+    def forced(launch):
+        with monkeypatch.context() as m:
+            m.setattr(rk, "blocked", lambda N, views=False: True)
+            return launch()
+    if case.startswith("views_"):
+        k, views, inst, V, H, Wpx = views_case(case[len("views_"):], card)
+        kw = dict(tables=k.tables, light=k.light, ambient=k.ambient, height=H, width=Wpx,
+                  max_views=V)
+        a = rk.render_views(views, *inst, **kw)
+        b = forced(lambda: rk.render_views(views, *inst, **kw))
+        torch.cuda.synchronize()
+        assert torch.equal(a[0], b[0])
+        assert torch.equal(a[1].view(torch.int32), b[1].view(torch.int32))
+        return
+    if case == "large":
+        sc = scenes.large_scene(W=4, res=24, N=1024)
+    else:
+        sc = scenes.CARD_SCENES[case]()
+    k = rk.RenderKernel(sc["om"], sc["albedo"], scenes.LIGHT_DIR, scenes.AMBIENT,
+                        mesh_tables=sc["mesh_tables"])
+    rays, inst = k.pack(*(torch.from_numpy(sc[key]).to(card) for key in RENDER_INPUTS))
+    kw = dict(tables=k.tables, light=k.light, ambient=k.ambient, img_w=sc["img_w"])
+    a, b = rk.render(rays, inst, **kw), forced(lambda: rk.render(rays, inst, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

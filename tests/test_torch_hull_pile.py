@@ -198,7 +198,9 @@ def test_kernel_fits_hull_tables_and_refuses_over_the_caps(case):
     shared memory beside the rest of the kernel (the prism's at the main
     path's shapes with every option and kernel 5's, the defaults filled,
     counts past them, the 24-sided prism), and refuse one over that budget
-    by name, saying which budget broke."""
+    by name, saying which budget broke: past one block's slot layout the
+    fused kernel takes its windowed layout, so the budget is what the
+    bodies and the smallest window leave."""
     spec = FIT_CASES[case]
     om = hs.large_hull_object_manager(assets, importer) if spec.get("large") else \
         dict(port_world().objmgr)
@@ -211,6 +213,12 @@ def test_kernel_fits_hull_tables_and_refuses_over_the_caps(case):
         assert why.startswith("general-hull tables staged at") and "hull-row budget" in why, why
         need = sk.smem_bytes(65, 256) + sk.hull_stage_bytes(tables, 65)
         assert need > sk.MAX_SMEM_BYTES and str(sk.hull_stage_bytes(tables, 65)) in why
+        # the windowed layout's budget: the bodies and its smallest window
+        assert sk.windowed(tables, 65, 256)
+        rows = sk.fused_window_smem_bytes(65, 128, sk.block_threads(65, 256))
+        assert rows + sk.hull_stage_bytes(tables, 65) > sk.MAX_SMEM_BYTES
+        assert f"over the {sk.MAX_SMEM_BYTES - rows} B of the hull-row budget" in why, why
+        assert "windowed kernel" in why
         # the same table at fewer rows fits
         assert sk.kernel_fits(tables, 9, 32) == ""
         return

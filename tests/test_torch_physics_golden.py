@@ -306,15 +306,18 @@ def test_kernel_refuses_general_hulls_on_the_card_path():
     assert sk.kernel_fits(sk.pk.ObjTables(rb.default_object_manager()), 65, 256) == ""
 
 
-@pytest.mark.parametrize("n,K,fits", [(65, 256, True), (65, 128, True), (65, 1024, True),
-                                      (1024, 1024, False), (65, 2000, False)])
+@pytest.mark.parametrize("n,K,fits", [(65, 256, "slots"), (65, 128, "slots"),
+                                      (65, 1024, "slots"), (1024, 1024, False),
+                                      (65, 2000, "window")])
 def test_kernel_fits_checks_shared_memory(n, K, fits):
-    """Shapes whose shared memory passes the 227 KB a block may have are
-    refused with a reason that names the limit, not launched to fail."""
+    """Shapes whose slot layout passes the 227 KB a block may have take the
+    windowed layout, and those whose bodies leave it no room are refused
+    with a reason that names the limit, not launched to fail."""
     tables = sk.pk.ObjTables(rb.default_object_manager())
     why = sk.kernel_fits(tables, n, K)
-    assert (why == "") == fits
-    assert (sk.smem_bytes(n, K) <= sk.MAX_SMEM_BYTES) == fits
+    assert (why == "") == bool(fits)
+    assert (sk.smem_bytes(n, K) <= sk.MAX_SMEM_BYTES) == (fits == "slots")
+    assert sk.windowed(tables, n, K) == (fits != "slots")
     if not fits:
         assert "shared memory" in why and str(sk.MAX_SMEM_BYTES) in why
 

@@ -138,14 +138,21 @@ def test_render_wrapper_rejects_bad_input():
 
 def test_kernel_fits_and_tiles():
     assert rk.kernel_fits(104) == ""
-    assert "shared memory" in rk.kernel_fits(5000)
     assert "at least one" in rk.kernel_fits(0)
     # the views mode keeps 6 float4s an instance, the rays mode 4 and each
     # warp's cull terms (a float4 and a float)
     assert rk.smem_bytes(104, views=True) == 104 * 96 and rk.smem_bytes(104) == 104 * 144
-    assert rk.kernel_fits(2000, views=True) == ""
-    assert "shared memory" in rk.kernel_fits(2000)
-    assert "shared memory" in rk.kernel_fits(3000, views=True)
+    # past one block's 227 KB (2,421 instances in the views mode, 1,614 in
+    # the rays mode) the kernel stages them in blocks of BLOCK, each with its
+    # index: any count is taken
+    assert not rk.blocked(2421, views=True) and rk.blocked(2422, views=True)
+    assert not rk.blocked(1614) and rk.blocked(1615)
+    assert rk.kernel_fits(2000, views=True) == "" and rk.stage_blocks(2000, views=True) == 1
+    for N, views in ((5000, False), (2000, False), (3000, True), (4096, True), (4096, False)):
+        assert rk.kernel_fits(N, views) == "" and rk.blocked(N, views)
+        assert rk.stage_blocks(N, views) == -(-N // rk.BLOCK)
+        stage = rk.STAGE_VIEWS if views else rk.STAGE_RAYS
+        assert rk.smem_bytes(N, views) == rk.BLOCK * (stage + 4) <= rk.MAX_SMEM_BYTES
     # a warp's tile is 8 x 4 pixels: 128 tiles a 64 x 64 image
     assert rk.tile_shape(4096, 64) == (64, 8, 4, 128)
     # the inside scene: its two 8 x 8 views stack as 16 rows, four tiles,
@@ -188,3 +195,19 @@ def test_launch_mirror_matches_the_cu():
     env = {"kWarps": warps}
     assert eval(stage.group(1), env) == rk.STAGE_RAYS
     assert eval(stage.group(2), env) == rk.STAGE_VIEWS
+
+
+def test_blocked_layout_matches_the_cu():
+    """The blocked specialisations' block (kBlock) and shared-memory limit
+    (kMaxSmem) in csrc/render_kernels.cu are the wrapper's BLOCK and
+    MAX_SMEM_BYTES; its render_smem is smem_bytes (an index, 4 bytes, more
+    an instance when blocked)."""
+    import re
+    from pathlib import Path
+    cu = (Path(rk.__file__).resolve().parents[1] / "csrc" / "render_kernels.cu").read_text()
+    assert int(re.search(r"constexpr int kBlock = (\d+);", cu).group(1)) == rk.BLOCK
+    assert int(re.search(r"constexpr size_t kMaxSmem = (\d+);", cu).group(1)) == \
+        rk.MAX_SMEM_BYTES
+    body = cu[cu.index("size_t render_smem("):]
+    assert "static_cast<size_t>(block) * (stage + sizeof(int))" in body[:body.index("\n}\n")]
+

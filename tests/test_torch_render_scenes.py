@@ -272,3 +272,96 @@ def node_route(k, views, inst, V, H, Wpx):
     rgb, hit, depth = k.render(rays, packed, Wpx, V * H * Wpx)
     return rk.observations(rgb.reshape(W, V, H, Wpx, 3), hit.reshape(W, V, H, Wpx),
                            depth.reshape(W, V, H, Wpx), views["mask"][:, :V])
+
+
+# -- scenes past one block's shared memory -----------------------------------
+
+# instance rows a world of the large scenes: past what one block's shared
+# memory stages at once in either mode (2,421 in the views mode, 1,614 in
+# the rays mode), so the kernel stages them in blocks
+LARGE_ROWS = 4096
+# the large scenes' objects: the pallas scene's box, sphere and plane, the
+# imported prism with its importer SourceMesh as its render mesh, and a
+# sphere of radius 0.5 with a lat-long triangle render mesh
+LARGE_ALBEDO = np.array([[0.9, 0.2, 0.1], [0.1, 0.8, 0.3], [0.5, 0.5, 0.5], [0.8, 0.5, 0.2],
+                         [0.3, 0.3, 0.8]], np.float32)
+LARGE_PRISM, LARGE_MESH_SPHERE = 3, 4
+
+
+def large_object_manager():
+    """The large scenes' objects packed by PhysicsLoader() at its defaults:
+    box, sphere, plane, the imported prism, the small sphere."""
+    import test_torch_hull_scenes as hs
+    loader = assets.PhysicsLoader()
+    loader.load_objects([assets.make_box((0.6, 0.4, 0.5)), assets.make_sphere(0.7),
+                         assets.make_plane(), hs.prism_object(), assets.make_sphere(0.5)])
+    return loader.get_object_manager()
+
+
+def large_render_meshes(importer):
+    """The large scenes' render meshes for a renderer's ``render_meshes``,
+    from a package's utils.importer module: the prism's SourceMesh (parsed
+    from its .obj text; the renderer's SourceMesh branch fans its faces
+    into triangles) and the small sphere's lat-long triangles."""
+    import test_torch_hull_scenes as hs
+    return {LARGE_PRISM: importer.parse_obj_bytes(hs.prism_obj().encode()),
+            LARGE_MESH_SPHERE: _sphere_mesh(0.5, 3, 4)}
+
+
+def large_objects():
+    """(object manager, albedo, render meshes, mesh tables) of the large
+    scenes; the tables the port's renderer builds from the meshes."""
+    from gpu_ecs_madrona_tpu_torch.render import renderer
+    from gpu_ecs_madrona_tpu_torch.utils import importer
+    om, meshes = large_object_manager(), large_render_meshes(importer)
+    mt = renderer.BatchRenderer(renderer.RendererConfig(backend="xla"), om,
+                                render_meshes=meshes).mesh
+    return om, LARGE_ALBEDO, meshes, mt
+
+
+def large_instances(W, N=LARGE_ROWS, seed=11):
+    """N instance rows a world made from a seed with numpy: boxes and
+    spheres at random poses and scales in front of the pallas scene's
+    camera (x in [-6, 6], y in [0.5, 24], z in [0, 5]), a quarter of them
+    drawn with a render mesh instead (a box row as the prism's SourceMesh,
+    a sphere row as the lat-long sphere mesh), row 0 the ground plane,
+    every 16th row from row 5 dead."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform((-6.0, 0.5, 0.0), (6.0, 24.0, 5.0), (W, N, 3)).astype(np.float32)
+    rot = rng.normal(size=(W, N, 4)).astype(np.float32)
+    rot /= np.linalg.norm(rot, axis=-1, keepdims=True)
+    scale = rng.uniform(0.1, 0.5, (W, N, 3)).astype(np.float32)
+    obj = rng.integers(0, 2, (W, N)).astype(np.int32)
+    obj = np.where(rng.integers(0, 4, (W, N)) == 0, obj + LARGE_PRISM, obj).astype(np.int32)
+    mask = np.ones((W, N), bool)
+    mask[:, 5::16] = False
+    pos[:, 0] = 0.0
+    rot[:, 0] = (1.0, 0.0, 0.0, 0.0)
+    scale[:, 0] = 1.0
+    obj[:, 0] = 2
+    return dict(pos=pos, rot=rot, scale=scale, obj=obj, mask=mask)
+
+
+def large_scene(W=2, res=16, N=LARGE_ROWS, seed=11):
+    """large_instances seen by the pallas scene's camera at (0, -2, 1.2), 70
+    degrees, looking +y, res x res rays a world."""
+    ro, rd = _views([[((0.0, -2.0, 1.2), (1.0, 0, 0, 0), 70.0)]] * W, res)
+    om, albedo, _, mt = large_objects()
+    return dict(om=om, albedo=albedo, mesh_tables=mt, ro=ro, rd=rd, img_w=res,
+                **large_instances(W, N, seed))
+
+
+def large_view_case(W=2, H=16, Wpx=16, N=LARGE_ROWS, device="cpu", seed=11):
+    """large_instances under one random view a world about the large
+    scene's camera (as view_case makes them).  Returns (RenderKernel,
+    views, (pos, rot, scale, obj, mask), V, H, Wpx)."""
+    views = random_views(seed, W, 1)
+    views["eye"] = views["eye"] * np.float32(0.2) + np.float32([0.0, -2.0, 1.2])
+    views["rot"][..., 0] += np.float32(3.0)
+    views["rot"] /= np.linalg.norm(views["rot"], axis=-1, keepdims=True)
+    om, albedo, _, mt = large_objects()
+    k = rk.RenderKernel(om, albedo, LIGHT_DIR, AMBIENT, mesh_tables=mt)
+    sc = large_instances(W, N, seed)
+    inst = tuple(torch.from_numpy(sc[key]).to(device)
+                 for key in ("pos", "rot", "scale", "obj", "mask"))
+    return k, torch_views(views, device), inst, 1, H, Wpx

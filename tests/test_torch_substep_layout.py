@@ -156,15 +156,99 @@ def test_single_substep_main_shape_fits():
 
 @pytest.mark.parametrize("bp,cache", [(False, False), (True, True)])
 def test_shared_memory_above_227_kb_is_refused(bp, cache):
-    """The first K whose layout passes 227 KB is refused by name; the one
-    below it fits."""
+    """The first K whose slot layout passes 227 KB: with the in-kernel
+    broadphase it is refused by name; without it the kernel takes it in its
+    windowed layout.  The K below it fits the slot layout."""
     tables = sk.pk.ObjTables(rb.default_object_manager())
     K = 1
     while sk.smem_bytes(65, K + 1, bp, cache) <= sk.MAX_SMEM_BYTES:
         K += 1
     assert sk.kernel_fits(tables, 65, K, bp, cache) == ""
+    assert not sk.windowed(tables, 65, K, bp, cache)
     why = sk.kernel_fits(tables, 65, K + 1, bp, cache)
-    assert "shared memory" in why and str(sk.MAX_SMEM_BYTES) in why
+    if bp:
+        assert "shared memory" in why and str(sk.MAX_SMEM_BYTES) in why
+    else:
+        assert why == "" and sk.windowed(tables, 65, K + 1, bp, cache)
+
+
+def cu_window_smem_bytes(n, kw, T, cache):
+    """The .cu's fused_window_smem_bytes, its float and int counts evaluated
+    in Python."""
+    body = CU[CU.index("size_t fused_window_smem_bytes("):]
+    body = body[:body.index("\n}\n")]
+    env = dict(cu_constants(), nn=n, ww=kw, ks=max(kw - T, 0), cache=cache)
+    counts = {}
+    for var in ("floats", "ints"):
+        expr = " ".join(re.search(rf"const size_t {var} = (.*?);", body, re.S).group(1).split())
+        expr = re.sub(r"\((\w+) \? (\w+) : 0\)", r"(\2 if \1 else 0)", expr)
+        counts[var] = eval(expr, {}, env)
+    return 4 * counts["floats"] + 4 * counts["ints"]
+
+
+@pytest.mark.parametrize("n,kw,T", [(256, 378, 128), (256, 1020, 128), (512, 695, 128),
+                                    (201, 40, 128), (9, 5, 32)])
+@pytest.mark.parametrize("cache", [False, True])
+def test_window_smem_mirror_equals_the_cu_layout(n, kw, T, cache):
+    assert sk.fused_window_smem_bytes(n, kw, T, cache) == cu_window_smem_bytes(n, kw, T, cache)
+
+
+def test_window_limits_match_the_cu():
+    """The windowed layout's option bit, its CTAs an SM, an SM's shared
+    memory and a block's reservation, and its scratch channels (kernel 5's
+    an entry, and the manifold cache's after them)."""
+    c = cu_constants()
+    assert sk.OPT_WIN == c["kOptWin"]
+    assert sk.WIN_BLOCKS == c["kWinBlocks"] == 2
+    assert sk.SM_SMEM_BYTES == c["kSmSmem"] == 228 * 1024
+    assert sk.CTA_RESERVED_BYTES == c["kCtaReserved"]
+    assert sk.WIN_CACHE_CH == c["kWinCacheCh"] == c["kScratchCh"] + c["kCacheCh"]
+
+
+# rigid_bench piles past one block's shared memory, K = 4 x bodies: (bodies,
+# the manifold cache, the window that lets two CTAs share an SM or the most
+# one CTA holds)
+WINDOW_SHAPES = {"boxes_239": (239, False, 398), "boxes_255": (255, False, 378),
+                 "boxes_511": (511, False, 695), "refresh_200": (200, True, 259),
+                 "refresh_255": (255, True, 220)}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_SHAPES))
+def test_kernel_fits_takes_the_piles_past_one_block(case):
+    """kernel_fits takes rigid_bench at 239, 255 and 511 bodies (and 200
+    and 255 with contact refresh) in the windowed layout: its window and
+    scratch as stated, within the CTAs an SM it aims at (228 KB an SM, 1 KB
+    a block reserved), or one CTA's 227 KB where the bodies leave no room
+    for two."""
+    bodies, cache, window = WINDOW_SHAPES[case]
+    tables = sk.pk.ObjTables(rb.default_object_manager())
+    n, K = bodies + 1, 4 * bodies
+    assert sk.smem_bytes(n, K, cache=cache) > sk.MAX_SMEM_BYTES
+    assert sk.windowed(tables, n, K, cache=cache) and sk.kernel_fits(tables, n, K,
+                                                                     cache=cache) == ""
+    assert sk.fused_window(n, K, cache) == window < K
+    need = sk.fused_window_smem_bytes(n, window, sk.block_threads(n, K), cache)
+    ctas = 1 if bodies == 511 else 2
+    assert ctas * (need + 1024) <= 228 * 1024 and need <= sk.MAX_SMEM_BYTES
+    assert sk.fused_window_smem_bytes(n, window + 1, sk.block_threads(n, K), cache) > (
+        228 * 1024 // ctas - 1024 if ctas == 2 else sk.MAX_SMEM_BYTES)
+    scratch = sk.fused_scratch(3, K, window, cache, "cpu")
+    assert sk.fused_scratch(3, K, K, cache, "cpu") is None
+    assert tuple(scratch.shape) == (3, sk.WIN_CACHE_CH if cache else sk.SCRATCH_CH, K - window)
+    # the broadphase inside the kernel does not take the window
+    assert not sk.windowed(tables, 128, K, bp=True, cache=cache)
+
+
+@pytest.mark.parametrize("cache,ceiling", [(False, 968), (True, 894)])
+def test_windowed_body_ceiling_is_refused_by_name(cache, ceiling):
+    """The windowed layout's ceiling: the bodies whose rows leave room for
+    its smallest window (a round of the block's 128 threads) beside them;
+    one body more is refused by the window budget's name."""
+    tables = sk.pk.ObjTables(rb.default_object_manager())
+    assert sk.kernel_fits(tables, ceiling + 1, 4 * ceiling, cache=cache) == ""
+    why = sk.kernel_fits(tables, ceiling + 2, 4 * (ceiling + 1), cache=cache)
+    assert "window budget" in why and str(sk.MAX_SMEM_BYTES) in why, why
+    assert f"n={ceiling + 2}" in why and "smallest window of 128" in why
 
 
 def test_hull_table_layout_matches_the_cu():
