@@ -13,7 +13,10 @@ caps) and simple_taskgraph
 (physics and the batch renderer) at 1024 worlds x 100 spheres with 64 x 64
 RGB and depth — through every kernel they run, and holds every kernel
 against its plain PyTorch version; and trains the PPO learner on
-fantasy_vs at 16384 worlds (the RL training path, which runs no kernel).
+fantasy_vs at 16384 worlds (the RL training path, which runs no kernel),
+also across ranks (one NCCL rank, and two gloo processes sharing the card
+beside collisions split over them), and runs the profiler and the
+autotuner.
 Run from the root of a checkout:
 
     python3 chip_smoke.py            # the smoke test
@@ -265,6 +268,42 @@ Phases:
            kernel and no other, RGBA8 and depth bit for bit the plain
            version on 8 of the worlds, alpha 255 exactly where the depth is
            finite; the blocks a CTA stages
+  main_ppo_fantasy_vs_ranks   the learner across ranks over a one-rank
+           NCCL group (parallel/mesh.py) at main_ppo_fantasy_vs's
+           configuration: its first train step from seed 0 against the
+           learner without a process group (its collectives do nothing)
+           from the same seed and world state within
+           LEARNER_TOL; 5 timed train steps (train steps/s and training
+           env-steps/s beside main_ppo_fantasy_vs's), one under the
+           sync-debug mode "error", no kernel launched, peak memory
+  parity_ranks_shared_card   two processes on the one card over gloo
+           (NCCL refuses two ranks on one device; gloo's collectives on CUDA
+           tensors go through the host): one PPO train step of 2 x 2048
+           worlds of main_ppo_fantasy_vs's configuration from seed 0 against
+           one process at 4096 worlds on the card, within LEARNER_TOL, the
+           ranks' parameters bit-identical
+  sharded_collisions   the same two processes: each rank's 4096 of the
+           main path's 8192 x 100 collisions worlds (shard_state of the
+           global initial state) stepped 10 times with kernel 1: every state
+           leaf bit for bit the matching rows of one process, kernel 1's
+           launches = steps in each rank, the cross-rank checksum equal
+  profiler   tooling/profiler.py on collisions fused (8192 x 100) and
+           simple_taskgraph (1024 x 100, 64 x 64): profile_nodes (5 runs a
+           node, CUDA events behind a device sleep) and trace_step (3 steps)
+           -> node_timeline: the executor's state bit for bit as before,
+           every node segment inside its step span, node totals within the
+           steps'; the SVG under build/profile/
+  autotune   tooling/autotuner.py: tune_collisions at 8192 x 100 (200
+           ticks) and tune_physics_substep at rigid_bench 1024 x 64
+           ("dense", "pairs", "pallas"; 5 ticks), each candidate, the fixed
+           rule and the winner's recheck in a fresh process: each
+           candidate's env-steps/s and the validated flag; the artifact under
+           build/autotune/; with GEM_TPU_EXEC_CONFIG_FILE at a validated
+           "cuda" entry {"fused": false, "use_kernel": true} (the tuner's
+           unfused candidate) the default CollisionsConfig(fused=None)
+           launches kernel 2 and never kernel 1, with {"fused": true}
+           kernel 1; the repository's gem_tune.json gives
+           None for every kind and is left unwritten
   timing   CUDA-event time of each kernel wrapper (200 calls) and of its
            plain version at the main paths' shapes (kernel 3: the tiled
            case, n=1500, W=16, 128- and 1024-wide j tiles; the collision
@@ -2659,6 +2698,276 @@ def main_ppo_fantasy_vs(torch, fvs, learner_mod, smi, reset_counts, read_counts,
             "sync_debug_step_s": sync_debug_s, "card": smi}
 
 
+def rank_cases():
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_rank_cases
+    return test_torch_rank_cases
+
+
+def main_ppo_fantasy_vs_ranks(torch, fvs, learner_mod, mesh_mod, smi, reset_counts,
+                              read_counts, unranked, timed=5):
+    """The learner across ranks over a one-rank NCCL group at
+    main_ppo_fantasy_vs's configuration: its first train step from seed 0
+    held to the learner built without a mesh (one rank, no process group;
+    same seed, same world state) within LEARNER_TOL; ``timed`` timed
+    train steps beside main_ppo_fantasy_vs's
+    (``unranked``, its line), one under the sync-debug mode "error"."""
+    import numpy as np
+    cases, ranks = rl_cases(), rank_cases()
+    cfg = fvs.FantasyVsConfig(num_worlds=FVS_WORLDS, **ranks.FVS_MAIN)
+    sim, obs_fn, inject_fn, reward_fn, obs_dim, act_dim = fvs.make_rl_env(cfg, device="cuda")
+    pcfg = learner_mod.PPOConfig(obs_dim=obs_dim, act_dim=act_dim, **ranks.PPO_MAIN)
+
+    def learner(mesh=None):
+        return learner_mod.PPOLearner(pcfg, sim.graph.step, obs_fn, inject_fn, reward_fn,
+                                      seed=0, device="cuda", mesh=mesh)
+
+    plain = learner()
+    start = {k: v.cpu().numpy() for k, v in plain.params.items()}
+    _, loss, rew = plain.train_step(sim.state)
+    want = ranks.learner_result(loss, rew, plain)
+    del plain
+    mesh_mod.initialize_distributed(f"127.0.0.1:{ranks.free_port()}", 1, 0, device="cuda")
+    try:
+        backend = torch.distributed.get_backend()
+        check(backend == "nccl", f"the one-rank group's backend is {backend}")
+        mesh = mesh_mod.make_world_mesh("cuda:0")
+        ranked = learner(mesh)
+        state = mesh_mod.shard_state(sim.state, mesh)
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state, loss, rew = ranked.train_step(state)
+        got = ranks.learner_result(loss, rew, ranked)
+        step_s, losses = [], [got["loss"]]
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            state, loss, rew = ranked.train_step(state)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, loss, rew = ranked.train_step(state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        torch.distributed.destroy_process_group()
+    diff = cases.learner_differences(got, want, start)
+    diff["loss_rel"] = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    diff["mean_reward"] = abs(got["mean_reward"] - want["mean_reward"])
+    over = cases.within(diff, cases.LEARNER_TOL)
+    check(not over, f"the one-rank learner vs the learner without a mesh: {over}")
+    check(all(v == 0 for v in launches.values()), f"PPO across ranks launched {launches}")
+    check(all(np.isfinite(losses)), "finite losses")
+    med = sorted(step_s)[len(step_s) // 2]
+    steps_per_s = {"median": 1.0 / med, "min": 1.0 / max(step_s), "max": 1.0 / min(step_s)}
+    env_per_s = {k: v * FVS_WORLDS * pcfg.rollout_len for k, v in steps_per_s.items()}
+    return {"phase": "main_ppo_fantasy_vs_ranks", "backend": backend, "ranks": 1,
+            "worlds": FVS_WORLDS, "dragons": 50, "knights": 200, "cleanup": True,
+            "ppo": ranks.PPO_MAIN, "first_step_vs_unranked": diff,
+            "tolerance": cases.LEARNER_TOL, "step_s": step_s,
+            "train_steps_per_s": steps_per_s, "env_steps_per_s": env_per_s,
+            "unranked": {k: unranked[k] for k in ("train_steps_per_s", "env_steps_per_s",
+                                                   "peak_allocated_gib", "peak_over_start_gib")},
+            "peak_allocated_gib": peak / 2 ** 30,
+            "peak_over_start_gib": (peak - base_bytes) / 2 ** 30, "sync_debug_step": "clean",
+            "launches": launches, "loss": losses, "card": smi}
+
+
+SHARED_FVS_WORLDS, SHARED_COL_STEPS = 4096, 10
+
+
+def shared_card_phases(torch, col, smi):
+    """Two processes on the one card over gloo (NCCL refuses two ranks on one
+    device; gloo's collectives on CUDA tensors go through the host, so these
+    steps sync it): parity_ranks_shared_card, one PPO train step of 2 x 2048
+    worlds of main_ppo_fantasy_vs's configuration from seed 0 against one
+    process at 4096 worlds on the card, within LEARNER_TOL; and
+    sharded_collisions, each rank's 4096 of the main path's 8192 x 100
+    collisions worlds stepped 10 times with kernel 1, every leaf bit for
+    bit the matching rows of one process, kernel 1's launches = steps a
+    rank."""
+    import numpy as np
+    from gpu_ecs_madrona_tpu_torch.interop import state_to_numpy
+    from gpu_ecs_madrona_tpu_torch.ops import collision_kernel as ck
+    cases, ranks = rl_cases(), rank_cases()
+    work = os.path.join(HERE, "build", "shared_card")
+    os.makedirs(work, exist_ok=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = ranks.run_ranks(work, "shared_card_worker", 2, os.path.join(work, "ranks"),
+                          SHARED_FVS_WORLDS, NUM_WORLDS, SHARED_COL_STEPS, timeout=300)
+    workers_s = time.perf_counter() - t0
+    res = []
+    for r in range(2):
+        with np.load(os.path.join(work, f"ranks.{r}.npz")) as z:
+            res.append(dict(z))
+    got = [ranks.result_tree(x, "learner/") for x in res]
+    want = ranks.fvs_train_step("cuda", SHARED_FVS_WORLDS)
+    learners = []
+    for g in got:
+        for k, v in want["start"].items():
+            check(np.array_equal(g["start"][k], v), f"the ranks start from other parameters {k}")
+        diff = cases.learner_differences(g, want, want["start"])
+        diff["loss_rel"] = abs(g["loss"] - want["loss"]) / abs(want["loss"])
+        diff["mean_reward"] = abs(g["mean_reward"] - want["mean_reward"])
+        learners.append(diff)
+        over = cases.within(diff, cases.LEARNER_TOL)
+        check(not over, f"2 ranks on one card vs one process: {over}")
+    for k in got[0]["params"]:
+        check(np.array_equal(got[0]["params"][k], got[1]["params"][k]),
+              f"the ranks' parameters {k} differ")
+    parity = {"phase": "parity_ranks_shared_card", "backend": "gloo", "ranks": 2,
+              "worlds": SHARED_FVS_WORLDS, "per_rank": SHARED_FVS_WORLDS // 2,
+              "ppo": ranks.PPO_MAIN, "max_abs_err": learners, "tolerance": cases.LEARNER_TOL,
+              "loss": {"ranks": got[0]["loss"], "one": want["loss"]},
+              "mean_reward": {"ranks": got[0]["mean_reward"], "one": want["mean_reward"]},
+              "workers_s": workers_s, "host_syncs": "gloo on CUDA tensors", "card": smi}
+    ck.fused_collisions_step.launches = 0
+    one = col.make_executor(ranks.collisions_config("main", NUM_WORLDS, True), device="cuda")
+    one.run(SHARED_COL_STEPS)
+    one_launches = ck.fused_collisions_step.launches
+    full = state_to_numpy(one.state)
+    differing = [ranks.rank_state_rows(x, full) for x in res]
+    sums = [float(x["checksum"][0]) for x in res]
+    launches = [int(x["launches"]) for x in res]
+    check(one_launches == SHARED_COL_STEPS, f"one process launched kernel 1 {one_launches}x")
+    check(differing == [[], []], f"sharded collisions differ from one process: {differing}")
+    check(launches == [SHARED_COL_STEPS] * 2, f"kernel 1 launches by rank {launches}")
+    check(sums[0] == sums[1] > 0, f"cross-rank checksums {sums}")
+    sharded = {"phase": "sharded_collisions", "backend": "gloo", "ranks": 2,
+               "worlds": NUM_WORLDS, "objects": 100, "steps": SHARED_COL_STEPS,
+               "kernel_1_launches_by_rank": launches, "differing_leaves": differing,
+               "leaves_compared": sum(1 for k in res[0] if k.startswith("state/")),
+               "checksum": sums, "worker_stdout": [o.strip() for o in out]}
+    return parity, sharded
+
+
+def profiler_phase(torch, col, stg, prof, smi):
+    """tooling/profiler.py on the card: profile_nodes (5 runs a node) and
+    trace_step (3 steps) -> node_timeline on collisions fused (8192 x 100)
+    and simple_taskgraph (1024 x 100, 64 x 64): the executor's state bit
+    for bit the same after profile_nodes and trace_step, the timeline's node
+    segments inside their step spans and its node totals within the
+    steps'; the SVG written under build/profile/."""
+    import numpy as np
+    from gpu_ecs_madrona_tpu_torch.interop import state_to_numpy
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{path}/{k}")
+        else:
+            yield path, tree
+
+    line = {"phase": "profiler", "card": smi}
+    sims = {"collisions_fused": lambda: col.make_executor(
+                col.CollisionsConfig(num_worlds=NUM_WORLDS, fused=True), device="cuda"),
+            "simple_taskgraph": lambda: stg_sim(stg, STG_WORLDS)}
+    for name, make in sims.items():
+        sim = make()
+        sim.run(3)
+        torch.cuda.synchronize()
+        before = dict(leaves(state_to_numpy(sim.state)))
+        rows = prof.profile_nodes(sim, iters=5)
+        d = os.path.join(HERE, "build", "profile", name)
+        prof.trace_step(sim, d, steps=3)
+        after = dict(leaves(state_to_numpy(sim.state)))
+        changed = [k for k in before if not np.array_equal(before[k], after[k])]
+        check(before.keys() == after.keys() and not changed,
+              f"{name}: profiling changed the state at {changed}")
+        tl = prof.node_timeline(d)
+        check(len(tl["steps"]) == 3 and tl["nodes"], f"{name}: the timeline's steps")
+        for step in tl["steps"]:
+            for seg in step["segments"]:
+                check(seg["start_us"] >= 0
+                      and seg["start_us"] + seg["dur_us"] <= step["dur_us"] + 1e-3,
+                      f"{name}: a segment outside its step {seg}")
+        step_us = [s["dur_us"] for s in tl["steps"]]
+        node_us = sum(r["total_us"] for r in tl["nodes"])
+        check(node_us <= sum(step_us) + 0.1 * len(tl["nodes"]),
+              f"{name}: node totals {node_us} over the steps' {sum(step_us)}")
+        check(set(r["node"] for r in tl["nodes"]) <= set(sim.graph.node_names),
+              f"{name}: unknown nodes in the timeline")
+        svg = prof.render_timeline_svg(tl, os.path.join(d, "timeline.svg"))
+        line[name] = {"worlds": sim.cfg.num_worlds, "profile_nodes": rows,
+                      "timeline_step_us": step_us, "timeline_nodes": tl["nodes"],
+                      "svg": os.path.relpath(svg, HERE), "state_unchanged": True}
+        del sim
+    return line
+
+
+TUNE_PHYSICS_WORLDS, TUNE_PHYSICS_BODIES = 1024, 64
+
+
+def autotune_phase(torch, col, tuner, smi, reset_counts, read_counts):
+    """tooling/autotuner.py on the card: tune_collisions at 8192 x 100 and
+    tune_physics_substep at rigid_bench 1024 x 64 ("dense", "pairs",
+    "pallas"), each candidate in a fresh process; the artifact saved under
+    build/autotune/.  With GEM_TPU_EXEC_CONFIG_FILE at a validated "cuda"
+    entry {"fused": false, "use_kernel": true} (the tuner's unfused
+    candidate), the default CollisionsConfig(fused=None) launches kernel 2
+    and never kernel 1; with {"fused": true} kernel 1; the
+    repository's gem_tune.json ("tpu" entries) gives None for every kind
+    and is not written."""
+    import hashlib
+    work = os.path.join(HERE, "build", "autotune")
+    os.makedirs(work, exist_ok=True)
+    repo_tune = os.path.join(HERE, "gem_tune.json")
+    digest = hashlib.sha256(open(repo_tune, "rb").read()).hexdigest()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    entries = [tuner.tune_collisions(NUM_WORLDS, 100, ticks=200, device="cuda", timeout=300),
+               tuner.tune_physics_substep(TUNE_PHYSICS_WORLDS, TUNE_PHYSICS_BODIES, ticks=5,
+                                          device="cuda", timeout=300)]
+    sweep_s = time.perf_counter() - t0
+    for e in entries:
+        check(e["backend"] == "cuda" and not e["failed"], f"a tuner candidate failed: {e}")
+    path = tuner.save(entries, os.path.join(work, "gem_tune.json"))
+    consumer = {}
+    old = os.environ.get(tuner.CONFIG_ENV)
+    try:
+        for fused in (False, True):
+            p = os.path.join(work, f"consumer_fused_{fused}.json")
+            if os.path.exists(p):
+                os.remove(p)
+            tuner.save([{"kind": "collisions",
+                         "key": {"num_worlds": NUM_WORLDS, "num_objects": 100},
+                         "config": {"fused": fused, "use_kernel": True}, "backend": "cuda",
+                         "validated": True}], p)
+            os.environ[tuner.CONFIG_ENV] = p
+            reset_counts()
+            sim = col.make_executor(col.CollisionsConfig(num_worlds=NUM_WORLDS), device="cuda")
+            sim.run(3)
+            torch.cuda.synchronize()
+            c = read_counts()
+            got = (c["fused_collisions_step"], c["collision_pushes"])
+            check(got == ((3, 0) if fused else (0, 3)),
+                  f"the consumer of {{'fused': {fused}}} launched kernels 1, 2: {got}")
+            consumer[f"fused_{str(fused).lower()}"] = {"kernel_1": got[0], "kernel_2": got[1]}
+            del sim
+        os.environ[tuner.CONFIG_ENV] = repo_tune
+        repo = {kind: tuner.lookup(kind, num_worlds=8192, num_objects=100, bodies=64)
+                for kind in ("collisions", "physics_substep", "physics_capacity")}
+        check(all(v is None for v in repo.values()), f"the repo's gem_tune.json gave {repo}")
+    finally:
+        if old is None:
+            os.environ.pop(tuner.CONFIG_ENV, None)
+        else:
+            os.environ[tuner.CONFIG_ENV] = old
+    check(hashlib.sha256(open(repo_tune, "rb").read()).hexdigest() == digest,
+          "gem_tune.json was written")
+    return {"phase": "autotune", "entries": entries, "artifact": os.path.relpath(path, HERE),
+            "sweep_s": sweep_s, "consumer": consumer, "repo_gem_tune_lookup": repo,
+            "card": smi}
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -2693,6 +3002,9 @@ def main(argv):
     from gpu_ecs_madrona_tpu_torch.utils import math as m
     from gpu_ecs_madrona_tpu_torch import bindings
     from gpu_ecs_madrona_tpu_torch.parallel import learner as learner_mod
+    from gpu_ecs_madrona_tpu_torch.parallel import mesh as mesh_mod
+    from gpu_ecs_madrona_tpu_torch.tooling import autotuner as tuner
+    from gpu_ecs_madrona_tpu_torch.tooling import profiler as prof
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -2967,7 +3279,8 @@ def main(argv):
           "env_steps_per_s": rates(50, fvs_windows, FVS_WORLDS), "card": smi})
 
     # PPO on fantasy_vs, 16384 worlds (BASELINE configs 4-5) ---------------------
-    emit(main_ppo_fantasy_vs(torch, fvs, learner_mod, smi, reset_counts, read_counts))
+    ppo_line = main_ppo_fantasy_vs(torch, fvs, learner_mod, smi, reset_counts, read_counts)
+    emit(ppo_line)
 
     # rigid_bench, 8192 x 64: the fused substep kernel at K = 256 and 128, and
     # the pairs path -------------------------------------------------------------
@@ -3408,6 +3721,14 @@ def main(argv):
           "render_blocked_4096": render_large_t,
           "library_ms": "none: no single PyTorch call computes any of these functions",
           "card": smi})
+
+    # across ranks, and the tooling ---------------------------------------------
+    emit(main_ppo_fantasy_vs_ranks(torch, fvs, learner_mod, mesh_mod, smi, reset_counts,
+                                   read_counts, ppo_line))
+    for line in shared_card_phases(torch, col, smi):
+        emit(line)
+    emit(profiler_phase(torch, col, stg, prof, smi))
+    emit(autotune_phase(torch, col, tuner, smi, reset_counts, read_counts))
 
     if "--profile" in argv:
         profile(torch, {"fused": sim, "unfused_pushes": usim, "simple_jobs_fused": sjsim,

@@ -42,6 +42,7 @@ from gpu_ecs_madrona_tpu_torch.core.state import uniform
 from gpu_ecs_madrona_tpu_torch.core.taskgraph import TaskGraphBuilder
 from gpu_ecs_madrona_tpu_torch.ops.collision_kernel import (
     collision_pushes, fused_collisions_step, fused_fits)
+from gpu_ecs_madrona_tpu_torch.tooling import autotuner
 from gpu_ecs_madrona_tpu_torch.utils import math as m
 
 f32, i32 = torch.float32, torch.int32
@@ -163,9 +164,19 @@ class CollisionsWorld:
         W = builder.mgr.num_worlds
         cap = cfg.num_objects + 8
         k_eff = min(cfg.max_pairs, cap * cap)
-        fused = cfg.fused
+        fused, use_kernel = cfg.fused, cfg.use_kernel
         if fused is None:
-            fused = device.type == "cuda" and fused_fits(cap)
+            # the exec-config artifact first (tooling/autotuner.py, keyed by
+            # this device's backend), its whole config as measured (the
+            # tuner's unfused candidate is use_kernel=True), then the fixed
+            # rule
+            tuned = autotuner.lookup("collisions", backend_name=device.type,
+                                     num_worlds=W, num_objects=cfg.num_objects)
+            if tuned is not None and "fused" in tuned:
+                fused = bool(tuned["fused"])
+                use_kernel = bool(tuned.get("use_kernel", use_kernel))
+            else:
+                fused = device.type == "cuda" and fused_fits(cap)
         if fused and not fused_fits(cap):
             raise ValueError("fused=True: object count exceeds the fused "
                              "kernel's single-tile bound")
@@ -215,7 +226,7 @@ class CollisionsWorld:
                 mask = ctx.row_mask(CubeObject)
                 delta, lo, hi = fused_collisions_step(pos, rot, mask)
                 ctx.set_column(CubeObject, PhysicsAABB, {"lo": lo, "hi": hi})
-                ctx.data["push_delta"] = delta
+                ctx.data = dict(ctx.data, push_delta=delta)
 
             n_pre = builder.add_node(fused_pre, name="aabb_preprocess")
         else:
@@ -276,7 +287,7 @@ class CollisionsWorld:
                 return
             aabb = ctx.column(CubeObject, PhysicsAABB)
             mask = ctx.row_mask(CubeObject)
-            if cfg.use_kernel:
+            if use_kernel:
                 delta = collision_pushes(pos_col, aabb["lo"], aabb["hi"], mask)
             else:
                 # Gram form: the only [W, n, n] tensor is M = ok * rsqrt(d2)

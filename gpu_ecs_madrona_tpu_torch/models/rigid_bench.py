@@ -39,6 +39,7 @@ from gpu_ecs_madrona_tpu_torch.physics.components import (
     RESPONSE_STATIC,
     ResponseType,
 )
+from gpu_ecs_madrona_tpu_torch.tooling import autotuner
 from gpu_ecs_madrona_tpu_torch.utils import math as m
 
 Body = Archetype("RigidBenchBody", BODY_COMPONENTS)
@@ -96,10 +97,21 @@ class RigidBenchConfig:
     def resolved_broadphase(self) -> str:
         return self.broadphase_mode
 
-    def candidates(self) -> int:
+    def candidates(self, backend_name=None) -> int:
+        if self.max_candidates:
+            return self.max_candidates
+        # the exec-config artifact first (tooling/autotuner.py
+        # tune_physics_capacity, entries measured on ``backend_name``, by
+        # default this machine's: make_executor passes its device's type),
+        # at an exact body count only: a capacity does not carry over to
+        # another density
+        tuned = autotuner.lookup("physics_capacity", backend_name=backend_name,
+                                 num_worlds=self.num_worlds, bodies=self.num_bodies)
+        if tuned and tuned.get("for_bodies") == self.num_bodies:
+            return int(tuned["max_candidates"])
         # a settled pile averages ~3 overlap pairs per body; 4x covers the
         # in-flight transient (overflow drops excess candidates, counted)
-        return self.max_candidates or 4 * self.num_bodies
+        return 4 * self.num_bodies
 
 
 # The quasi-static settled pile (the JAX package's bench_physics.py:28-51,
@@ -198,7 +210,10 @@ class RigidBenchWorld:
 
 def make_executor(cfg: RigidBenchConfig = RigidBenchConfig(), device: str = "cuda"):
     """The rigid_bench executor on ``device`` (the card unless the caller
-    asks for the CPU; raises if there is no card)."""
+    asks for the CPU; raises if there is no card).  The candidate capacity
+    is resolved here, for the device's backend (``candidates``)."""
+    if not cfg.max_candidates:
+        cfg = dataclasses.replace(cfg, max_candidates=cfg.candidates(torch.device(device).type))
     return TaskGraphExecutor(
         RigidBenchWorld.with_config(cfg),
         ExecutorConfig(num_worlds=cfg.num_worlds, max_entities_per_world=cfg.num_bodies + 8,

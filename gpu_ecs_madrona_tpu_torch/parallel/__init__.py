@@ -1,4 +1,13 @@
 """Training on the simulator's device (counterpart of
-``gpu_ecs_madrona_tpu/parallel``): the PPO learner (``learner.py``).  The
-JAX package's ``mesh.py`` (worlds sharded over several devices) has no
-counterpart yet: the port's learner runs on one device."""
+``gpu_ecs_madrona_tpu/parallel``): the PPO learner (``learner.py``) and the
+worlds sharded over ranks with ``torch.distributed`` (``mesh.py``), over
+which the learner's update equals one process's on all the worlds."""
+
+from gpu_ecs_madrona_tpu_torch.parallel.mesh import (  # noqa: F401
+    WORLD_AXIS,
+    WorldMesh,
+    initialize_distributed,
+    make_world_mesh,
+    shard_state,
+    world_sharding,
+)

@@ -81,6 +81,7 @@ from gpu_ecs_madrona_tpu_torch.physics.components import (
     SubstepPrevState,
     Velocity,
 )
+from gpu_ecs_madrona_tpu_torch.tooling import autotuner
 from gpu_ecs_madrona_tpu_torch.utils import debug
 from gpu_ecs_madrona_tpu_torch.utils import math as m
 from gpu_ecs_madrona_tpu_torch.utils.compaction import first_partners, rank_slots
@@ -604,10 +605,11 @@ class RigidBodyPhysicsSystem:
                     The worlds run in blocks of at most
                     DENSE_BLOCK_PAIRS grid pairs (the node's
                     ``world_block``).
-          "auto":   "dense" at 48 body rows or fewer, "pallas" above, on
-                    any device (the JAX package's thresholds; its
-                    autotuner artifact, written for the TPU, is not
-                    read).
+          "auto":   the exec-config artifact's mode for this workload
+                    (tooling/autotuner.py, GEM_TPU_EXEC_CONFIG_FILE; only
+                    entries measured on this device's backend), else
+                    "dense" at 48 body rows or fewer, "pallas" above, on
+                    any device (the JAX package's thresholds).
         speculative_margin > 0: speculative-contact CCD (near-miss
         contacts clamp approach speed to depth/h in the velocity pass).
 
@@ -632,7 +634,16 @@ class RigidBodyPhysicsSystem:
         arch = body_archetype
         cap_n = builder.mgr.registry.archetypes[arch.name].capacity
         if contact_mode == "auto":
-            contact_mode = "pallas" if cap_n > AUTO_DENSE_MAX_ROWS else "dense"
+            # the exec-config artifact first (tooling/autotuner.py, keyed by
+            # this device's backend), then the fixed rule
+            tuned = autotuner.lookup("physics_substep", backend_name=builder.mgr.device.type,
+                                     num_worlds=builder.mgr.num_worlds, bodies=cap_n)
+            if tuned and tuned.get("contact_mode") in ("dense", "pairs", "pallas"):
+                contact_mode = tuned["contact_mode"]
+                if substep_wt is None and tuned.get("substep_wt", 1) != 1:
+                    substep_wt = tuned["substep_wt"]     # refused below
+            else:
+                contact_mode = "pallas" if cap_n > AUTO_DENSE_MAX_ROWS else "dense"
         if contact_mode not in ("dense", "pairs", "pallas"):
             raise ValueError(f"unknown contact_mode {contact_mode!r}")
         jinfo = builder.mgr.registry.archetypes.get(JointArchetype.name)

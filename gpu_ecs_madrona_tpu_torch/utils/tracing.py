@@ -4,7 +4,9 @@ Counterpart of ``gpu_ecs_madrona_tpu/utils/tracing.py`` (reference
 include/madrona/tracing.hpp + src/common/tracing.cpp): thread-local
 {event, timestamp} logs dumped to a binary file at exit, gated by
 GEM_TPU_TRACING.  Timestamps are ``time.perf_counter_ns``.  The record
-format is the JAX package's.
+format is the JAX package's.  Decode with ``parse``; aggregate with
+``analyze`` (the JAX package's pure-Python path; its native analyzer is
+part of that package).
 """
 
 from __future__ import annotations
@@ -76,6 +78,42 @@ def parse(path: str) -> List[Tuple[int, int]]:
         data = f.read()
     return [struct.unpack_from("<IQ", data, i)
             for i in range(0, len(data) - len(data) % 12, 12)]
+
+
+def analyze(path: str) -> dict:
+    """Aggregate a trace file: per-event counts and span statistics
+    (count, total, mean, min, max, p50, p95 in ns) of the START/END pairs
+    (step, render, init), each END closing the oldest open START."""
+    records = parse(path)
+    counts: dict = {}
+    for ev, _ in records:
+        counts[ev] = counts.get(ev, 0) + 1
+    spans = {}
+    for start, end, name in ((HostEvent.STEP_START, HostEvent.STEP_END, "step"),
+                             (HostEvent.RENDER_START, HostEvent.RENDER_END, "render"),
+                             (HostEvent.INIT_START, HostEvent.INIT_END, "init")):
+        open_ts, durs = [], []
+        for ev, ts in records:
+            if ev == start:
+                open_ts.append(ts)
+            elif ev == end and open_ts:
+                durs.append(ts - open_ts.pop(0))
+        if durs:
+            durs.sort()
+            n = len(durs)
+
+            def pct(p):
+                idx = p * (n - 1)
+                lo = int(idx)
+                hi = min(lo + 1, n - 1)
+                return int((1 - (idx - lo)) * durs[lo] + (idx - lo) * durs[hi])
+
+            spans[name] = {
+                "count": n, "total_ns": sum(durs),
+                "mean_ns": sum(durs) // n, "min_ns": durs[0],
+                "max_ns": durs[-1], "p50_ns": pct(0.5), "p95_ns": pct(0.95),
+            }
+    return {"event_counts": counts, "spans": spans}
 
 
 if _ENABLED:

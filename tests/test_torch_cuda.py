@@ -34,8 +34,13 @@ in its windowed layout (rigid_bench at 240, 256 and 512 rows, the prism
 pile at 240 and 256) bit for bit its plain version, one body past the
 windowed ceiling refused by name, the render kernel's blocked modes at
 4,096 instance rows bit for bit their plain versions and, forced on scenes
-that fit, bit for bit the single-stage kernel.
+that fit, bit for bit the single-stage kernel.  Across ranks and the
+tooling: the autotuner's lookup keyed "cuda" and its consumer, profile_nodes
+and trace_step on collisions (the state untouched), and a one-rank NCCL
+train step within LEARNER_TOL of the learner without a mesh.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -54,9 +59,13 @@ from gpu_ecs_madrona_tpu_torch.ops import render_kernel as rk
 from gpu_ecs_madrona_tpu_torch.ops import simple_jobs_kernel as sk
 from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
 from gpu_ecs_madrona_tpu_torch.parallel import learner as pl
+from gpu_ecs_madrona_tpu_torch.parallel import (initialize_distributed, make_world_mesh,
+                                                shard_state)
 from gpu_ecs_madrona_tpu_torch.physics import RigidBodyPhysicsSystem
+from gpu_ecs_madrona_tpu_torch.tooling import autotuner, profiler
 
 import test_torch_render_scenes as scenes
+import test_torch_rank_cases as rank_cases
 import test_torch_rl_cases as rl_cases
 import test_torch_sap_cases as sap_cases
 import test_torch_simple_jobs_cases as sj_cases
@@ -1730,3 +1739,110 @@ def test_render_blocked_equals_the_single_stage(card, case, monkeypatch):
     a, b = rk.render(rays, inst, **kw), forced(lambda: rk.render(rays, inst, **kw))
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# -- across ranks and the tooling ---------------------------------------------
+
+
+@pytest.mark.cuda
+def test_lookup_is_keyed_cuda_on_the_card(card, tmp_path, monkeypatch):
+    """On the card the autotuner's backend is "cuda": a validated "cuda"
+    entry {"fused": false, "use_kernel": true} (tune_collisions' unfused
+    candidate) makes the default CollisionsConfig(fused=None) run the
+    unfused tick with kernel 2 and never kernel 1; a "cpu" entry is not
+    taken (the fixed rule: kernel 1); the repository's gem_tune.json
+    (entries "tpu") gives None."""
+    path = str(tmp_path / "tune.json")
+    monkeypatch.setenv(autotuner.CONFIG_ENV, path)
+    assert autotuner.backend() == "cuda"
+    cfg = col.CollisionsConfig(num_worlds=4, num_objects=8, max_pairs=64, seed=1)
+    for backend, fused in (("cuda", False), ("cpu", False), ("cuda", True)):
+        autotuner.save([{"kind": "collisions", "key": {"num_worlds": 4, "num_objects": 8},
+                         "config": {"fused": fused, "use_kernel": True}, "backend": backend,
+                         "validated": True}], path)
+        ck.fused_collisions_step.launches = ck.collision_pushes.launches = 0
+        col.make_executor(cfg, device="cuda").run(2)
+        took = fused or backend == "cpu"
+        assert (ck.fused_collisions_step.launches, ck.collision_pushes.launches) == \
+            ((2, 0) if took else (0, 2)), (backend, fused)
+    repo = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "gem_tune.json")
+    for kind in ("collisions", "physics_substep", "physics_capacity"):
+        assert autotuner.lookup(kind, path=repo, num_worlds=8192, num_objects=100,
+                                bodies=64) is None
+
+
+@pytest.mark.cuda
+def test_profile_nodes_on_collisions(card, tmp_path):
+    """profile_nodes on the card (CUDA events) at small W: every node and the
+    step timed, the executor's state untouched; trace_step's timeline read
+    back with its node segments inside their steps."""
+    sim = col.make_executor(col.CollisionsConfig(num_worlds=64, num_objects=100, fused=True),
+                            device="cuda")
+    sim.run(2)
+    before = state_to_numpy(sim.state)
+    rows = profiler.profile_nodes(sim, iters=5)
+    assert [r["node"] for r in rows] == sim.graph.node_names + ["__full_step__"]
+    assert all(r["clock"] == "cuda_events" and r["mean_ms"] >= 0 for r in rows)
+    assert rows[-1]["mean_ms"] > 0
+    tl = profiler.node_timeline(profiler.trace_step(sim, str(tmp_path), steps=3))
+    assert len(tl["steps"]) == 3 and tl["nodes"]
+    for step in tl["steps"]:
+        assert all(0 <= s["start_us"] and s["start_us"] + s["dur_us"] <= step["dur_us"] + 1e-3
+                   for s in step["segments"])
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], path + (k,))
+        else:
+            yield path, tree
+
+    after = dict(leaves(state_to_numpy(sim.state)))
+    assert after.keys() == dict(leaves(before)).keys()
+    for path, leaf in leaves(before):
+        np.testing.assert_array_equal(after[path], leaf, err_msg=str(path))
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_train_step_matches_unranked(card):
+    """The learner over a one-rank NCCL group (the ranked path: the draws
+    sliced by worlds, the minibatch statistics, losses and gradients summed
+    over the group) against the learner without a mesh, on the card from
+    the same parameters and draws: within LEARNER_TOL."""
+    env = rank_cases.rl_env("cuda")
+    cfg = pl.PPOConfig(obs_dim=env[4], act_dim=env[5], **rl_cases.RL_PPO)
+    params = rl_cases.rl_params(cfg)
+    eps, perms = rl_cases.rl_draws(cfg, rl_cases.RL_WORLDS)
+    plain = rank_cases.rl_update(env, "cuda", params, eps, perms)
+    initialize_distributed(f"127.0.0.1:{rank_cases.free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = make_world_mesh("cuda:0")
+        assert torch.distributed.get_backend() == "nccl" and mesh.world_size == 1
+        ranked = rank_cases.rl_update(env, "cuda", params, eps, perms, mesh=mesh,
+                                      state=shard_state(env[0].state, mesh))
+    finally:
+        torch.distributed.destroy_process_group()
+    diff = rl_cases.learner_differences(ranked, plain, params)
+    diff["loss_rel"] = abs(ranked["loss"] - plain["loss"]) / abs(plain["loss"])
+    diff["mean_reward"] = abs(ranked["mean_reward"] - plain["mean_reward"])
+    assert not rl_cases.within(diff, rl_cases.LEARNER_TOL), diff
+    assert ranked["opt_t"] == plain["opt_t"] == 8
+
+
+@pytest.mark.cuda
+def test_rollout_policy_rows_on_card_do_not_depend_on_the_row_count(card):
+    """On the card the plain products of 2048 and 4096 rows part (the BLAS
+    kernel is picked by shape); the rollout's policy_rows gives each row the
+    same result for any row count (main_ppo_fantasy_vs's widths), from one
+    block's rows to eight blocks'."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = pl.PPOConfig(obs_dim=1250, act_dim=600)
+    g = torch.Generator(device=card).manual_seed(0)
+    params = pl.init_params(cfg, g)
+    obs = torch.randn((8 * pl.ROLLOUT_BLOCK, 1250), generator=g, device=card)
+    whole = pl.policy_rows(params, obs)
+    half = pl.ROLLOUT_BLOCK // 2
+    for lo, hi in ((0, half), (half, pl.ROLLOUT_BLOCK + 3), (pl.ROLLOUT_BLOCK, 3 * pl.ROLLOUT_BLOCK),
+                   (0, 4 * pl.ROLLOUT_BLOCK)):
+        part = pl.policy_rows(params, obs[lo:hi])
+        assert torch.equal(part[0], whole[0][lo:hi]) and torch.equal(part[2], whole[2][lo:hi])

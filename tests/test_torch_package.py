@@ -39,6 +39,10 @@ def test_import_loads_no_jax():
         import gpu_ecs_madrona_tpu_torch.core.world
         import gpu_ecs_madrona_tpu_torch.bindings
         import gpu_ecs_madrona_tpu_torch.parallel.learner
+        import gpu_ecs_madrona_tpu_torch.parallel.mesh
+        import gpu_ecs_madrona_tpu_torch.tooling.profiler
+        import gpu_ecs_madrona_tpu_torch.tooling.autotuner
+        import gpu_ecs_madrona_tpu_torch.utils.tracing
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
                or m == "gpu_ecs_madrona_tpu" or m.startswith("gpu_ecs_madrona_tpu.")]
@@ -55,7 +59,9 @@ def test_import_loads_no_jax():
 
 @pytest.mark.parametrize("module", ["ops.substep_kernel", "physics", "physics.solver",
                                     "ops.render_kernel", "models.simple_taskgraph",
-                                    "core.world", "bindings", "parallel.learner"])
+                                    "core.world", "bindings", "parallel.learner",
+                                    "parallel.mesh", "tooling.profiler", "tooling.autotuner",
+                                    "utils.tracing"])
 def test_each_module_imports_first(module):
     """Any module of the port imports in a fresh process on its own (the
     physics package and the substep kernels' module import each other)."""
