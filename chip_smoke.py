@@ -6,12 +6,12 @@ Drives the port's main paths on one CUDA card — the collisions example at
 fantasy_vs at 16384 worlds x 50 dragons + 200 knights, rigid_bench
 (rigid-body physics) at 8192 worlds x 64 bodies (also with the broadphase
 in the fused kernel, and the settled pile with its options; at 32 bodies
-in the dense contact mode, and at 200 and 255 with the sap broadphase; and a pile of
+in the dense contact mode, and at 200, 255 and 1,023 with the sap broadphase; and a pile of
 convex hulls imported from an .obj file, at 64 bodies and at the settled
 pile's options, also of a 24-sided prism past PhysicsLoader()'s default
 caps) and simple_taskgraph
-(physics and the batch renderer) at 1024 worlds x 100 spheres with 64 x 64
-RGB and depth — through every kernel they run, and holds every kernel
+(physics and the batch renderer) at 1024 worlds x 100 spheres, and x 1,000,
+with 64 x 64 RGB and depth — through every kernel they run, and holds every kernel
 against its plain PyTorch version; and trains the PPO learner on
 fantasy_vs at 16384 worlds (the RL training path, which runs no kernel),
 also across ranks (one NCCL rank, and two gloo processes sharing the card
@@ -102,7 +102,14 @@ Phases:
            but 511 dropped close together, so that a world's valid slots pass
            the window, which is checked) on every world, bit for bit its
            plain version on the first 128 (max_abs_err 0), with each case's
-           window and valid slots
+           window and valid slots; and past the body-row ceilings, with the
+           bodies in a global scratch, at 8 worlds, twice and bit for bit
+           the plain version (BODY_CASES): the windowed twin at 969 and
+           1,023 bodies of rigid_bench ("win+bodies"), with contact refresh
+           at 895, the imported-prism pile at 371 and 512 ("win+bodies+
+           hull"); kernel 5 at 816 rows (rigid_bench's first substep, its
+           JAX contract) and its node launch at 1,068 rows (simple_taskgraph
+           at 1,064 objects) with random live joints in its 64 joint rows
   parity_hull   the substep kernels' general-hull paths (the imported
            hexagonal prism of tests/test_torch_hull_scenes.py) vs their plain
            versions at 8192 x 65 rows: every fused specialisation (K = 256
@@ -131,6 +138,16 @@ Phases:
            card; both miss the golden's early gate (0.02 over 10 ticks) by
            the same amount as JAX's kernel mode (~0.048, equal within
            1e-5), horizon <= 1.5, final z < 2, finite
+  entity64   64-bit entity handles (GEM_TPU_ENTITY_64=1, read at import: a
+           process of its own, this script with --entity64-child): the
+           handle dtype int64 with a 32/31 split; one slot churned 2,100
+           times (past the int32 default's 2^11 generations) keeps a
+           handle of its first cycle dead; cube_chain_ss4 in the kernel
+           mode (kernel 5 with a live joint, its handles looked up in the
+           launch) tick by tick, each tick's node launch bit for bit its
+           plain version on the card, 4 launches a tick, and the whole
+           trajectory bit for bit joints_cube_chain's card run under int32
+           handles (a handle of generation 0 has one value at either width)
   main_fused     collisions fused=True (kernel 1), 3 warm-up steps then
            windows of 200 steps; launches = steps, finite positions, empty
            temporary tables; env-steps/s
@@ -178,6 +195,17 @@ Phases:
            saturation, env-steps/s, peak memory, the window and the shared
            and global bytes a world takes, and the kernel at the state the
            windows leave bit for bit its plain version on 128 worlds
+  main_rigid_sap_xlarge   rigid_bench at 8192 x 1,023 bodies + the plane
+           (K = 4,092), contact_mode and broadphase_mode "auto" (checked to
+           resolve to the fused kernel and sap): 3 warm-up steps then 3
+           windows of 5; launches = steps, all of "win+bodies" (the windowed
+           twin with the bodies in a global scratch); env-steps/s, peak
+           memory, the two scratches' size reckoned before the run, the
+           launch at the state the windows leave bit for bit its plain
+           version on 8 worlds, its ms (CUDA events) beside its bound and
+           its plain version's (8 worlds) and CTAs an SM; cut to 4,096
+           worlds only if the card's memory does not hold it (printed as
+           "reduced")
   main_rigid_fused_bp   the main_rigid pile with broadphase_mode="fused"
            (kernel 8: the broadphase inside the fused kernel), K = 256:
            launches = steps, all of the "bp" specialisation, and no other
@@ -260,6 +288,18 @@ Phases:
            {substep: 4 x steps, render: steps} and no other, finite
            positions, finite depth on every hit and alpha 255 exactly where
            the depth is finite, overflow counters; env-steps/s
+  main_simple_taskgraph_large   simple_taskgraph at 1024 worlds x 1,000
+           spheres (1,004 rows, K = 10,000, 64 joint rows), 64 x 64 RGB and
+           depth, "auto": four kernel-5 launches a step with the bodies in a
+           global scratch (counted in body_launches) and kernel 10's views
+           mode at 1,004 instances (below its blocked threshold); 3 steps,
+           a timed one (worlds cut to 256, printed as "reduced", if it
+           passes 150 ms), then 3 windows of 10; launches = {substep: 4 x
+           steps, render: steps}; env-steps/s, the device ms of a step (3
+           steps, CUDA events), peak memory, the step's four node launches
+           on 4 worlds bit for bit their plain version (each the last's
+           pose and velocities in), the node launch's ms beside its bound
+           and its plain version's, and CTAs an SM
   main_render_large   the render node of a BatchRenderer with backend
            "auto" (checked to resolve to the kernel) on 256 worlds of 4,096
            instance rows (the large scene's instances, one 64 x 64 view a
@@ -897,9 +937,9 @@ def substep_bound(kw, ops, single=False):
     return bound(W * (n * BYTES_BODY + BYTES_WORLD) + slots, ops)
 
 
-def substep1_case(torch, sk, kern, kw):
+def substep1_case(torch, sk, kern, kw, exact=False):
     """Single-substep kernel (twice) vs plain (twice) on one input: max
-    errors, or raises."""
+    errors (0 with ``exact``), or raises."""
     got, again = kern(**kw), kern(**kw)
     want, want2 = (sk.substep_plain(**kw, tables=kern.tables, relaxation=kern.relaxation,
                                     speculative=kern.speculative) for _ in range(2))
@@ -910,13 +950,14 @@ def substep1_case(torch, sk, kern, kw):
         check(torch.equal(g, a), f"substep1 {k}: a repeated launch differs")
         check(torch.equal(want[k], want2[k]), f"substep1 {k}: the plain version does not repeat")
         errs[k] = max_err(g, want[k])
-        check(errs[k] <= (1e-4 if k in SUBSTEP_POSE_KEYS else 1e-3), f"substep1 {k} err {errs[k]}")
+        tol = 0.0 if exact else 1e-4 if k in SUBSTEP_POSE_KEYS else 1e-3
+        check(errs[k] <= tol, f"substep1 {k} err {errs[k]}")
     return errs
 
 
-def node_case(torch, sk, kern, kw):
+def node_case(torch, sk, kern, kw, exact=False):
     """Kernel 5's node launch (twice) vs its plain version (twice) on one
-    input: max errors, or raises."""
+    input: max errors (0 with ``exact``), or raises."""
     got, again = kern.step(**kw), kern.step(**kw)
     want, want2 = kern.step_plain(**kw), kern.step_plain(**kw)
     torch.cuda.synchronize()
@@ -927,8 +968,8 @@ def node_case(torch, sk, kern, kw):
         check(torch.equal(want[k], want2[k]),
               f"substep node {k}: the plain version does not repeat")
         errs[k] = max_err(got[k], want[k])
-        check(errs[k] <= (1e-4 if k in SUBSTEP_POSE_KEYS else 1e-3),
-              f"substep node {k} err {errs[k]}")
+        tol = 0.0 if exact else 1e-4 if k in SUBSTEP_POSE_KEYS else 1e-3
+        check(errs[k] <= tol, f"substep node {k} err {errs[k]}")
     return errs
 
 
@@ -950,39 +991,43 @@ def substep_case(torch, sk, kern, kw):
     return errs
 
 
-def window_case(torch, sk, kern, kw):
+def window_case(torch, sk, kern, kw, plain_worlds=None):
     """The fused kernel at a shape past one block's shared memory (its
-    windowed layout), twice on every world, against its plain version on
-    the first WINDOW_PARITY_WORLDS worlds, bit for bit: its line (the
-    window, the valid slots, the specialisation launched, the errors), or
-    raises."""
+    windowed layout, or past its body ceiling the bodies in a global
+    scratch too), twice on every world, against its plain version on the
+    first ``plain_worlds`` (WINDOW_PARITY_WORLDS) worlds, bit for bit: its
+    line (the window, the valid slots, the specialisation launched, the
+    errors), or raises."""
+    plain_worlds = plain_worlds or WINDOW_PARITY_WORLDS
     W, n = kw["obj"].shape
     K = kw["rows_i"].shape[1]
     refresh = kern.contact_refresh
     check(sk.windowed(kern.tables, n, K, cache=refresh), f"n={n}, K={K} is not windowed")
+    bodies = sk.fused_bodies(kern.tables, n, K, cache=refresh)
     sk.FusedSubstepKernel.launches_by_options.clear()
     got, again = kern(**kw), kern(**kw)
     launched = dict(sk.FusedSubstepKernel.launches_by_options)
-    window = sk.fused_window(n, K, refresh, sk.hull_stage_bytes(kern.tables, n))
+    window = sk.fused_layout_window(kern.tables, n, K, refresh)
     valid = kw["kvalid"].sum(1)
     check(int(valid.max()) > window,
           f"windowed n={n} K={K}: no world's valid slots ({int(valid.max())}) pass the "
           f"window ({window})")
-    want = kern.plain(**next(world_chunks(kw, WINDOW_PARITY_WORLDS)))
+    want = kern.plain(**next(world_chunks(kw, plain_worlds)))
     torch.cuda.synchronize()
     errs = {}
     for k in sk.OUT_KEYS:
         check(bool(torch.isfinite(got[k]).all()), f"windowed {k} finite")
         check(torch.equal(got[k], again[k]), f"windowed {k}: a repeated launch differs")
-        errs[k] = max_err(got[k][:WINDOW_PARITY_WORLDS], want[k])
+        errs[k] = max_err(got[k][:plain_worlds], want[k])
         check(errs[k] == 0.0, f"windowed n={n} K={K} {k}: {errs[k]} from the plain version")
     (name, count), = launched.items()
-    check(count == 2 and "win" in name, f"windowed launches {launched}")
+    check(count == 2 and "win" in name and ("bodies" in name) == bodies,
+          f"windowed launches {launched}")
     return {"W": W, "n": n, "K": K, "specialisation": name, "window": window,
             "valid_slots_a_world": {"mean": float(valid.double().mean()),
                                     "max": int(valid.max()),
                                     "worlds_past_the_window": int((valid > window).sum())},
-            "plain_worlds": WINDOW_PARITY_WORLDS, "max_err": errs}
+            "plain_worlds": plain_worlds, "max_err": errs}
 
 
 def parity_window(torch, rb, phys, sk):
@@ -1086,18 +1131,24 @@ def parity_substep(torch, rb, phys, sk, sap_sim):
     cases["substep_node_random_joints"] = {
         "kernel": "substep", "W": 16, "live_joints": live,
         "max_err": node_case(torch, sk, phys.RigidBodyPhysicsSystem.substep_kernel(rsim), rkw)}
-    # kernel 7 past one block's shared memory, bit for bit
+    # kernel 7 past one block's shared memory, bit for bit; and kernels 5
+    # and 7 past their body ceilings (the bodies in a global scratch)
     windowed, worst_window = parity_window(torch, rb, phys, sk)
     cases.update({f"windowed_{k}": v for k, v in windowed.items()})
+    bodies, _ = parity_bodies(torch, rb, phys, sk)
+    cases.update(bodies)
+    worst_window = max([worst_window] + [max(c["max_err"].values()) for c in bodies.values()
+                                         if "kernel" not in c])
     for c in cases.values():
         if "kernel" not in c:
             worst = max(worst, max(c["max_err"].values()))
     worst1 = max(max(cases[c]["max_err"].values())
                  for c in ("single_substep_main_K256", "substep_node_joint_world",
-                           "substep_node_random_joints"))
+                           "substep_node_random_joints", "bodies_substep_n816",
+                           "bodies_substep_node_n1068_J64"))
     return {"phase": "parity_substep", "cases": cases, "repeat": "bit-identical (kernel and plain)",
-            "atol": {"pose_and_stashes": 1e-4, "velocities": 1e-3, "windowed": 0.0}}, worst, \
-        worst1, worst_window
+            "atol": {"pose_and_stashes": 1e-4, "velocities": 1e-3, "windowed": 0.0,
+                     "bodies_in_scratch": 0.0}}, worst, worst1, worst_window
 
 
 def load_physics_golden(np, name):
@@ -1191,9 +1242,10 @@ def joints_cube_chain(torch, phys, sk):
     velocity pass, as the JAX package's kernel mode does, and both miss the
     golden's early gate (0.02 over the first 10 ticks) by the same ~0.048
     as JAX (tests/test_torch_joint_golden.py holds the CPU route to JAX's
-    trajectory, atol 1e-5); the golden's other gates hold."""
+    trajectory, atol 1e-5); the golden's other gates hold.  Returns (the
+    phase's line, the card's trajectory [ticks + 1, W, K, 3])."""
     import numpy as np
-    err, final = {}, {}
+    err, final, chains = {}, {}, {}
     for dev in ("cuda", "cpu"):
         sk.SubstepKernel.launches = 0
         sim, golden, K = golden_sim(torch, phys, "cube_chain_ss4", "pallas", joint=True,
@@ -1209,6 +1261,7 @@ def joints_cube_chain(torch, phys, sk):
         check(bool(np.isfinite(mine).all()), f"cube_chain_ss4 {dev} finite")
         err[dev] = np.abs(mine - golden[..., 0:3]).max(axis=(1, 2, 3))
         final[dev] = mine[-1]
+        chains[dev] = mine
     res = {dev: {"early_gate_max": float(e[:10].max()), "horizon": float(e.max()),
                  "final_z_max": float(final[dev][..., 2].max())} for dev, e in err.items()}
     early = [res[d]["early_gate_max"] for d in ("cuda", "cpu")]
@@ -1220,7 +1273,7 @@ def joints_cube_chain(torch, phys, sk):
     return {"phase": "joints_cube_chain", "ticks": ticks, "launches": 4 * ticks, **res,
             "early_gate_card_minus_cpu": early[0] - early[1],
             "gates": {"early_gate_miss": "> 0.02 on both, equal within 1e-5",
-                      "horizon": 1.5, "final_z": 2.0}}
+                      "horizon": 1.5, "final_z": 2.0}}, chains["cuda"]
 
 
 def golden_physics(torch, phys, sk):
@@ -1278,8 +1331,8 @@ def golden_physics(torch, phys, sk):
 
 def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_counts,
                specialisation="none", settle=3, also=(), bodies=RB_BODIES, make=None,
-               probe=None):
-    """rigid_bench at 8192 worlds x ``bodies`` (64) in configuration ``cfg``
+               probe=None, worlds=RB_WORLDS):
+    """rigid_bench at ``worlds`` (8192) x ``bodies`` (64) in configuration ``cfg``
     (RigidBenchConfig keywords): ``settle`` untimed steps, then ``count``
     windows of ``steps`` steps; launches = steps, all of the kernel
     specialisation ``specialisation`` (kernel mode) or 0, launches = steps
@@ -1292,7 +1345,7 @@ def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_coun
     untimed and not counted), goes into the line as "probe".  The kernel
     runs where the executor's graph holds the fused node."""
     make = make or rb.make_executor
-    sim = make(rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=bodies, **cfg),
+    sim = make(rb.RigidBenchConfig(num_worlds=worlds, num_bodies=bodies, **cfg),
                device="cuda")
     sim.run(settle)
     probed = probe(sim) if probe else None
@@ -1318,10 +1371,10 @@ def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_coun
     pos, mask = sim.get_exported(0)
     check(bool(torch.isfinite(pos[mask]).all()), f"finite positions (rigid_bench {cfg})")
     overflow = {k: int(v.sum()) for k, v in sim.overflow_counters().items()}
-    return sim, {"worlds": RB_WORLDS, "bodies": bodies, "config": cfg,
+    return sim, {"worlds": worlds, "bodies": bodies, "config": cfg,
                  "settle_steps": settle, "launches": launches,
                  "launches_by_specialisation": by_options, "overflow_sum": overflow,
-                 "env_steps_per_s": rates(steps, wins, RB_WORLDS),
+                 "env_steps_per_s": rates(steps, wins, worlds),
                  "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                  "card": card, **({"probe": probed} if probe else {})}
 
@@ -2968,6 +3021,350 @@ def autotune_phase(torch, col, tuner, smi, reset_counts, read_counts):
             "card": smi}
 
 
+# -- past the body-row ceilings: the bodies in a global scratch, and 64-bit
+# entity handles ---------------------------------------------------------------
+
+# parity_substep's bodies-in-scratch cases, each bit for bit its plain version
+# on BODY_PARITY_WORLDS worlds: kernel 7's windowed twins past their body
+# ceiling, (bodies, contact refresh, imported prisms), after 3 steps from
+# rigid_bench's default spawn (the prisms' from WINDOW_SPAWN, so that their
+# valid slots pass the window); kernel 5 past its window layout: its JAX contract
+# (without the integrate and joints) on rigid_bench at 815 bodies + the plane,
+# and its node launch on simple_taskgraph at 1,064 objects (1,068 rows, K =
+# 10,640) with random live joints among its 64 joint rows
+BODY_PARITY_WORLDS = 8
+BODY_CASES = {"n970": (969, False, False), "n1024": (1023, False, False),
+              "n896_refresh": (895, True, False), "n372_prisms": (371, False, True),
+              "n513_prisms": (512, False, True)}
+KERNEL5_BODY_ROWS = 815
+KERNEL5_BODY_OBJECTS = 1064
+# main_simple_taskgraph_large: simple_taskgraph at 1,000 objects (1,004 rows,
+# K = 10,000, four kernel-5 launches a step with the bodies in the scratch);
+# cut to STG_LARGE_CUT worlds if a step passes STG_LARGE_STEP_MS
+STG_LARGE_WORLDS, STG_LARGE_OBJECTS = 1024, 1000
+STG_LARGE_CUT, STG_LARGE_STEP_MS = 256, 150.0
+STG_LARGE_STEPS, STG_LARGE_WINDOWS = 10, 3
+# main_rigid_sap_xlarge: main_rigid_sap_large's config at 1,023 bodies (1,024
+# rows, K = 4,092; the windowed twin with the bodies in the scratch, and sap);
+# cut to XLARGE_CUT worlds only if the card's memory or the script's time
+# forces it
+XLARGE_BODIES, XLARGE_K = 1023, 4092
+XLARGE_WORLDS, XLARGE_CUT = 8192, 4096
+XLARGE_STEPS, XLARGE_WINDOWS = 5, 3
+# the entity64 phase's churn: recycles of one slot, past the int32 default's
+# 2^11 generations
+ENTITY64_CHURN = 2100
+
+
+def parity_bodies(torch, rb, phys, sk):
+    """parity_substep's bodies-in-scratch cases (BODY_CASES and kernel 5's),
+    each at BODY_PARITY_WORLDS worlds, twice and bit for bit its plain
+    version.  Returns ({case: line}, the worst error)."""
+    hs = hull_scenes()
+    W = BODY_PARITY_WORLDS
+    cases = {}
+    for name, (bodies, refresh, prisms) in BODY_CASES.items():
+        if prisms:
+            sim = hull_sim(rb, hs, steps=3, num_worlds=W, num_bodies=bodies, **WINDOW_SPAWN)
+        else:
+            sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=W, num_bodies=bodies,
+                                                       contact_mode="pallas"), device="cuda")
+            sim.run(3)
+        kern = sk.FusedSubstepKernel(sim.world_cls.objmgr, 4, relaxation=0.7,
+                                     contact_refresh=refresh)
+        line = window_case(torch, sk, kern, fused_inputs(sim, rb, phys), plain_worlds=W)
+        check("bodies" in line["specialisation"], f"{name}: {line['specialisation']}")
+        cases[f"bodies_{name}"] = line
+        del sim
+    # kernel 5, the JAX contract, past its window layout
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=W, num_bodies=KERNEL5_BODY_ROWS,
+                                               contact_mode="pallas"), device="cuda")
+    sim.run(3)
+    kw1 = phys.RigidBodyPhysicsSystem.substep_kernel_inputs(fused_inputs(sim, rb, phys))
+    n, K = KERNEL5_BODY_ROWS + 1, kw1["rows_i"].shape[1]
+    single = sk.SubstepKernel(rb.RigidBenchWorld.objmgr, relaxation=0.7)
+    check(sk.substep_bodies(single.tables, n, K), f"kernel 5 at n={n}, K={K}: not in the scratch")
+    sk.SubstepKernel.body_launches = 0
+    errs = substep1_case(torch, sk, single, kw1, exact=True)
+    check(sk.SubstepKernel.body_launches == 2, "kernel 5 at 816 rows: launches in the scratch")
+    cases["bodies_substep_n816"] = {
+        "kernel": "substep", "W": W, "n": n, "K": K,
+        "valid_slots_max": int(kw1["kvalid"].sum(1).max()), "max_err": errs}
+    del sim, kw1
+    # kernel 5's node launch with live joints past its window layout
+    from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_joint_scenes as joint_scenes
+    rsim = stg.make_executor(stg.SimpleTaskgraphConfig(
+        num_worlds=W, num_objects=KERNEL5_BODY_OBJECTS, seed=3), device="cuda")
+    rsim.run(3)
+    rkw = joint_scenes.random_joints(rsim, phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(
+        rsim, stg.Sphere, None, node=True), num_spheres=KERNEL5_BODY_OBJECTS)
+    n, K, J = rkw["obj"].shape[1], rkw["rows_i"].shape[1], rkw["jmask"].shape[1]
+    kern = phys.RigidBodyPhysicsSystem.substep_kernel(rsim)
+    check(sk.substep_bodies(kern.tables, n, K, J), f"kernel 5 node at n={n}: not in the scratch")
+    live = int(live_joints(rkw).sum())
+    check(live > 0, "random joints: none live")
+    sk.SubstepKernel.body_launches = 0
+    errs = node_case(torch, sk, kern, rkw, exact=True)
+    check(sk.SubstepKernel.body_launches == 2, "kernel 5 node: launches in the scratch")
+    cases["bodies_substep_node_n1068_J64"] = {
+        "kernel": "substep", "W": W, "n": n, "K": K, "J": J, "live_joints": live,
+        "valid_slots_max": int(rkw["kvalid"].sum(1).max()), "max_err": errs}
+    return cases, max(max(c["max_err"].values()) for c in cases.values())
+
+
+def node_chain_case(torch, sk, kern, kw, launches=4):
+    """``launches`` successive node launches of kernel 5 (a step's substep
+    nodes: each reads the pose and velocities the last wrote) against as
+    many of its plain version, bit for bit: the worst error of each."""
+    got_kw, want_kw = dict(kw), dict(kw)
+    errs = []
+    for _ in range(launches):
+        got, want = kern.step(**got_kw), kern.step_plain(**want_kw)
+        torch.cuda.synchronize()
+        err = max(max_err(got[k], want[k]) for k in sk.NODE_KEYS)
+        check(err == 0.0, f"kernel 5 node chain: {err} from the plain version")
+        errs.append(err)
+        got_kw.update({k: got[k] for k in sk.SUBSTEP_KEYS})
+        want_kw.update({k: want[k] for k in sk.SUBSTEP_KEYS})
+    return errs
+
+
+def main_simple_taskgraph_large(torch, stg, phys, sk, card, reset_counts, read_counts):
+    """simple_taskgraph at 1,024 worlds x 1,000 objects (1,004 rows, K =
+    10,000, 64 joint rows) with 64 x 64 rendering, "auto": four kernel-5
+    launches a step with the bodies in the global scratch and the render
+    kernel's views mode; cut to STG_LARGE_CUT worlds where a step passes
+    STG_LARGE_STEP_MS.  Returns (its line, the node launch's timing)."""
+    worlds, reduced = STG_LARGE_WORLDS, None
+    while True:
+        sim = stg.make_executor(stg.SimpleTaskgraphConfig(
+            num_worlds=worlds, num_objects=STG_LARGE_OBJECTS, render=True,
+            render_width=STG_RES, render_height=STG_RES), device="cuda")
+        sim.run(3)
+        sim.block_until_ready()
+        t0 = time.perf_counter()
+        sim.step()
+        sim.block_until_ready()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        if step_ms <= STG_LARGE_STEP_MS or worlds == STG_LARGE_CUT:
+            break
+        reduced = f"worlds {worlds} -> {STG_LARGE_CUT}"
+        worlds = STG_LARGE_CUT
+        del sim
+    kw = phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, stg.Sphere, stg.OBJMGR,
+                                                              node=True)
+    kern = phys.RigidBodyPhysicsSystem.substep_kernel(sim)
+    n, K, J = kw["obj"].shape[1], kw["rows_i"].shape[1], kw["jmask"].shape[1]
+    check(sk.substep_bodies(kern.tables, n, K, J), f"simple_taskgraph n={n}: not in the scratch")
+    # the step's four node launches on 4 worlds, bit for bit their plain version
+    kw4 = {k: v[:4].contiguous() if torch.is_tensor(v) and v.shape[:1] == (worlds,) else v
+           for k, v in kw.items()}
+    kw4["joints"] = {f: t[:4].contiguous() for f, t in kw["joints"].items()}
+    kw4["eid"] = {f: t[:4].contiguous() for f, t in kw["eid"].items()}
+    chain = node_chain_case(torch, sk, kern, kw4)
+    del kw4
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sk.SubstepKernel.body_launches = 0
+    wins = windows(sim, STG_LARGE_STEPS, STG_LARGE_WINDOWS)
+    launches = read_counts()
+    steps = STG_LARGE_STEPS * STG_LARGE_WINDOWS
+    want = {name: 0 for name in launches}
+    want["substep"], want["render"] = 4 * steps, steps
+    check(launches == want, f"simple_taskgraph large launches {launches}")
+    check(sk.SubstepKernel.body_launches == 4 * steps, "simple_taskgraph large: layout")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pos, mask = sim.get_exported(2)
+    check(bool(torch.isfinite(pos[mask]).all()), "finite positions (simple_taskgraph large)")
+    rgb, depth = sim.rgb_observations(), sim.depth_observations()
+    hit = rgb[..., 3] == 255
+    check(torch.equal(hit, torch.isfinite(depth)), "alpha 255 exactly where depth is finite")
+    ops, _, work = substep_work(torch, sk, kern, kw)
+    b_ms, b_by = substep_bound(kw, ops)
+    node_t = {"ms": cuda_ms(torch, lambda: kern.step(**kw), 20),
+              "plain_ms": cuda_ms(torch, lambda: kern.step_plain(**kw), 2, warmup=1),
+              "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "work": work,
+              "W": worlds, "n": n, "K": K, "J": J,
+              "valid_slots_max": int(kw["kvalid"].sum(1).max()),
+              "occupancy": sk.occupancy(n, K, single=True, joints=J),
+              "smem_bytes": sk.substep_body_smem_bytes(n, K, J),
+              "body_scratch_bytes_a_world": 4 * sk.body_scratch_floats(n, kern.tables)}
+    step_dev = cuda_ms(torch, sim.step, 3, warmup=1)
+    line = {"phase": "main_simple_taskgraph_large", "worlds": worlds,
+            "objects": STG_LARGE_OBJECTS, "rows": n, "K": K, "joint_rows": J,
+            "resolution": STG_RES, "substeps": 4, "launches": launches,
+            "launches_with_bodies_in_scratch": 4 * steps,
+            "env_steps_per_s": rates(STG_LARGE_STEPS, wins, worlds),
+            "device_ms_a_step": step_dev, "first_step_ms": step_ms,
+            "peak_allocated_gib": peak, "node_chain_4_worlds_max_err": chain,
+            "hit_share": float(hit.double().mean()), "node_launch": node_t, "card": card}
+    if reduced:
+        line["reduced"] = reduced
+    return line, node_t
+
+
+def main_rigid_sap_xlarge(torch, rb, phys, sk, card, reset_counts, read_counts):
+    """rigid_bench at 8,192 worlds x 1,023 bodies + the plane (K = 4,092),
+    4 substeps, contact and broadphase "auto" (checked to resolve to the
+    fused kernel's windowed twin with the bodies in the scratch, and sap):
+    main_rigid's windows, the kernel at the state they leave bit for bit
+    its plain version on 8 worlds, its ms and bound, and CTAs an SM.  Cut
+    to XLARGE_CUT worlds where the card's memory does not hold it.  Returns (its line, the kernel's timing)."""
+    n = XLARGE_BODIES + 1
+    tables = sk.pk.ObjTables(rb.RigidBenchWorld.objmgr)
+    check(sk.fused_bodies(tables, n, XLARGE_K), "main_rigid_sap_xlarge: not in the scratch")
+    window = sk.fused_layout_window(tables, n, XLARGE_K)
+    # the memory reckoned before the run: the two scratches
+    need = {"work_scratch_gib": XLARGE_WORLDS * 4 * sk.SCRATCH_CH * (XLARGE_K - window) / 2 ** 30,
+            "body_scratch_gib": XLARGE_WORLDS * 4 * sk.body_scratch_floats(n, tables) / 2 ** 30}
+    worlds, reduced = XLARGE_WORLDS, None
+    try:
+        sim, line = main_rigid(torch, rb, phys, dict(contact_mode="auto",
+                                                     broadphase_mode="auto"),
+                               XLARGE_STEPS, XLARGE_WINDOWS, card, reset_counts, read_counts,
+                               bodies=XLARGE_BODIES, specialisation="win+bodies",
+                               worlds=worlds)
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        worlds, reduced = XLARGE_CUT, f"worlds {XLARGE_WORLDS} -> {XLARGE_CUT}: out of memory"
+        sim, line = main_rigid(torch, rb, phys, dict(contact_mode="auto",
+                                                     broadphase_mode="auto"),
+                               XLARGE_STEPS, XLARGE_WINDOWS, card, reset_counts, read_counts,
+                               bodies=XLARGE_BODIES, specialisation="win+bodies",
+                               worlds=worlds)
+    check(phys.FUSED_NODE in sim.graph.node_names
+          and node_fn(sim, "bp_find_overlaps").__name__ == "find_overlaps_sap",
+          "main_rigid_sap_xlarge: auto takes the fused kernel and sap")
+    kw = fused_inputs(sim, rb, phys)
+    kern = sk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
+    parity = window_case(torch, sk, kern, kw, plain_worlds=BODY_PARITY_WORLDS)
+    ops, kinds, work = 0, {}, {}
+    for chunk in world_chunks(kw, 256):
+        o, kd, wk = substep_work(torch, sk, kern, chunk)
+        ops += o
+        for d, src in ((kinds, kd), (work, wk)):
+            for k, v in src.items():
+                d[k] = d.get(k, 0) + v
+    b_ms, b_by = substep_bound(kw, ops)
+    kw8 = next(world_chunks(kw, BODY_PARITY_WORLDS))
+    kern_t = {"ms": cuda_ms(torch, lambda: kern(**kw), 3, warmup=1),
+              "plain_ms": cuda_ms(torch, lambda: kern.plain(**kw8), 2, warmup=1),
+              "plain_ms_is": f"its plain version at {BODY_PARITY_WORLDS} of the {worlds} worlds",
+              "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "pairs_by_kind": kinds,
+              "work_over_substeps": work, "window": window,
+              "occupancy": sk.occupancy(n, XLARGE_K, codes=(sk.OPT_WIN | sk.OPT_BODY,))}
+    del kw, kw8
+    line = {"phase": "main_rigid_sap_xlarge", **line, "K": XLARGE_K,
+            "contact_mode": "auto -> fused kernel (windowed, bodies in the scratch)",
+            "broadphase": "auto -> sap", "window": window,
+            "smem_bytes_a_world": sk.body_window_smem_bytes(n, window, sk.block_threads(
+                n, XLARGE_K)),
+            "memory_reckoned": need,
+            "window_saturation_last_step": sap_saturation(torch, rb, sim),
+            "kernel_vs_plain_at_this_state": parity, "kernel": kern_t}
+    if reduced:
+        line["reduced"] = reduced
+    del sim
+    torch.cuda.empty_cache()
+    return line, kern_t
+
+
+def entity64_child(torch):
+    """Run in a process with GEM_TPU_ENTITY_64=1 (read at import): the
+    port's 64-bit handles on the card.  One slot churned ENTITY64_CHURN
+    times keeps a handle of its first cycle dead; cube_chain_ss4 in the
+    kernel mode (kernel 5 with a live joint) tick by tick, each tick's node
+    launch bit for bit its plain version on the card, its trajectory saved
+    for the parent (which holds it to the int32 run's).  Prints one JSON
+    line."""
+    import numpy as np
+    from gpu_ecs_madrona_tpu_torch import physics as phys
+    from gpu_ecs_madrona_tpu_torch.core import component as cm
+    from gpu_ecs_madrona_tpu_torch.core.context import Context
+    from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExecutor
+    from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
+    check(cm.Entity.dtype == torch.int64 and cm.ENTITY_ID_BITS == 32
+          and cm.ENTITY_GEN_BITS == 31, "64-bit handles: dtype and split")
+    Tag = cm.component("E64Tag", ((), torch.int32))
+    Arch = cm.Archetype("E64Arch", [Tag])
+
+    class ChurnWorld:
+        @staticmethod
+        def register_types(r):
+            r.register_archetype(Arch, capacity=2)
+
+        @staticmethod
+        def init(ctx, init_data=None):
+            pass
+
+        @staticmethod
+        def setup_tasks(builder):
+            def churn(ctx):
+                ents = ctx.make_entities(Arch, counts=1, max_new=1)
+                ctx.destroy_entities(ents)
+            builder.add_node(churn, name="churn")
+
+    sim = TaskGraphExecutor(ChurnWorld, ExecutorConfig(num_worlds=2, max_entities_per_world=4,
+                                                       seed=0, device="cuda"))
+    ctx = Context(sim.mgr, sim.state)
+    stale = ctx.make_entities(Arch, counts=1, max_new=1)
+    ctx.destroy_entities(stale)
+    sim.state = ctx.state
+    sim.run(ENTITY64_CHURN)
+    _, _, live = sim.mgr.lookup(sim.state, stale)
+    gen = int(sim.state["eid"]["gen"][0, 0])
+    check(stale.dtype == torch.int64 and not bool(live.any()) and gen == ENTITY64_CHURN + 1,
+          f"64-bit handles: the stale handle after {ENTITY64_CHURN} recycles (gen {gen})")
+    # cube_chain_ss4, kernel 5's node launch with its joint's handles
+    sk.SubstepKernel.launches = 0
+    gsim, golden, _ = golden_sim(torch, phys, "cube_chain_ss4", "pallas", joint=True)
+    kern = phys.RigidBodyPhysicsSystem.substep_kernel(gsim)
+    T = golden.shape[0] - 1
+    mine = np.zeros(golden.shape[:-1] + (3,), np.float32)
+    mine[0] = golden[0, ..., 0:3]
+    worst, live_joints_seen = 0.0, 0
+    handles = gsim.mgr.entity_column(gsim.state, gsim.world_cls.Body)
+    for t in range(1, T + 1):
+        kw = phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(gsim, None, None, node=True)
+        live_joints_seen = max(live_joints_seen, int(live_joints(kw).sum()))
+        launches = sk.SubstepKernel.launches
+        worst = max(worst, max(node_case(torch, sk, kern, kw, exact=True).values()))
+        sk.SubstepKernel.launches = launches
+        gsim.step()
+        mine[t] = gsim.get_exported(0)[0][:, 1:].cpu().numpy()
+    check(live_joints_seen > 0, "64-bit handles: the chain's joint is not live")
+    check(sk.SubstepKernel.launches == 4 * T, f"64-bit chain launches {sk.SubstepKernel.launches}")
+    out = os.path.join(HERE, "build", "entity64_chain.npy")
+    np.save(out, mine)
+    emit({"handle_dtype": str(handles.dtype), "id_bits": cm.ENTITY_ID_BITS,
+          "gen_bits": cm.ENTITY_GEN_BITS, "churn_recycles": ENTITY64_CHURN,
+          "stale_handle_live": bool(live.any()), "slot_generation": gen,
+          "chain_ticks": T, "chain_launches": sk.SubstepKernel.launches,
+          "chain_live_joints": live_joints_seen, "node_vs_plain_max_err": worst,
+          "trajectory": os.path.relpath(out, HERE)})
+
+
+def entity64_phase(torch, chain32):
+    """The entity64 child (entity64_child, GEM_TPU_ENTITY_64=1) in a process
+    of its own, and its cube_chain_ss4 trajectory against ``chain32``, the
+    same chain under int32 handles (joints_cube_chain's card run): bit for
+    bit, since a handle of generation 0 has the same value at either
+    width."""
+    import numpy as np
+    env = dict(os.environ, GEM_TPU_ENTITY_64="1")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--entity64-child"],
+                       cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"entity64 child failed: {r.stderr[-3000:]}")
+    child = json.loads(r.stdout.strip().splitlines()[-1])
+    chain64 = np.load(os.path.join(HERE, child["trajectory"]))
+    diff = float(np.abs(chain64 - chain32).max())
+    check(chain64.shape == chain32.shape and diff == 0.0,
+          f"64-bit cube chain parts from the int32 one by {diff}")
+    return {"phase": "entity64", **child, "chain_vs_int32_max_abs_diff": diff}
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -2986,6 +3383,11 @@ def main(argv):
         return 1
     check(os.path.dirname(os.path.abspath(port.__file__)).startswith(HERE),
           f"the port must come from this checkout, got {port.__file__}")
+    if "--entity64-child" in argv:
+        # the entity64 phase's process (GEM_TPU_ENTITY_64=1)
+        torch.cuda.set_device(0)
+        entity64_child(torch)
+        return 0
     from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExecutor
     from gpu_ecs_madrona_tpu_torch.models import collisions as col
     from gpu_ecs_madrona_tpu_torch import physics as phys
@@ -3152,7 +3554,10 @@ def main(argv):
     del sap_sim
     emit(line)
     emit(golden_physics(torch, phys, subk))
-    emit(joints_cube_chain(torch, phys, subk))
+    line, chain32 = joints_cube_chain(torch, phys, subk)
+    emit(line)
+    # 64-bit entity handles (a process of its own: the flag is read at import)
+    emit(entity64_phase(torch, chain32))
 
     # the general-hull paths of the substep kernels vs plain, on the pile of
     # imported prisms
@@ -3339,6 +3744,11 @@ def main(argv):
           "slot_layout_would_need_bytes": subk.smem_bytes(n_large, LARGE_SAP_K),
           "window_saturation_last_step": sap_saturation(torch, rb, slarge),
           "kernel_vs_plain_at_this_state": large_parity})
+    # past the windowed layout's body ceiling: 1,023 bodies under "auto" (the
+    # windowed twin with the bodies in a global scratch, sap)
+    line, xlarge_t = main_rigid_sap_xlarge(torch, rb, phys, subk, smi, *counts)
+    xlarge_launches = line["launches"]["fused_substep"]
+    emit(line)
 
     # the fused kernel's options: the broadphase in the kernel (kernel 8) on
     # the default pile, and the settled pile with persistent manifolds and
@@ -3417,6 +3827,10 @@ def main(argv):
     line, render_large_in, err_render_large = main_render_large(torch, rkm, render_mod, smi,
                                                                 *counts)
     render_large_launches = line["launches"]["render"]
+    emit(line)
+    # simple_taskgraph past kernel 5's window layout: 1,000 objects
+    line, stg_large_t = main_simple_taskgraph_large(torch, stg, phys, subk, smi, *counts)
+    stg_large_launches = line["launches"]["substep"]
     emit(line)
 
     # kernel times at the main paths' shapes ------------------------------------
@@ -3771,7 +4185,12 @@ def main(argv):
          "K128": {k: sub_t[128][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "sap_n201_K800": {"launches": sap_launches,
                            **{k: sub_t[SAP_K][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                             "bound_by")}}},
+                                                             "bound_by")}},
+         "bodies_in_scratch": {
+             "launches": xlarge_launches, "specialisation": "win+bodies",
+             **{k: xlarge_t[k] for k in ("ms", "plain_ms", "plain_ms_is", "bound_ms",
+                                         "bound_by")},
+             "ms_is": "main_rigid_sap_xlarge's state (1,024 rows, K = 4,092, sap)"}},
         {"name": "fused_substep_bp", "route": "cuda", "source": csrc + "substep_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1278",
          "launches": bp_launches, "launches_per_step": 1, "max_abs_err": err_bp,
@@ -3812,7 +4231,12 @@ def main(argv):
          "ms_is": "the node launch: integrate, steps 2-9, joints, writeback",
          "equal_work": {k: sub1_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "substep_node": {k: node_t["substep_node"][k]
-                          for k in ("device_ms", "host_ms", "device_ops")}},
+                          for k in ("device_ms", "host_ms", "device_ops")},
+         "bodies_in_scratch": {
+             "launches": stg_large_launches,
+             **{k: stg_large_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             "ms_is": "the node launch at main_simple_taskgraph_large's state (1,004 rows, "
+                      "K = 10,000, 64 joint rows)"}},
         {"name": "fused_substep_hull", "route": "cuda", "source": csrc + "substep_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1257 (chunked :1241) on "
                      "general hulls (its pk.pair_contacts: gpu_ecs_madrona_tpu/physics/"

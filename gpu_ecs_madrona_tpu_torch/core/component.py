@@ -5,10 +5,11 @@ Counterpart of ``gpu_ecs_madrona_tpu/core/component.py``:
     (shape, torch dtype) leaf; storage is one tensor per field with a
     leading ``[num_worlds, capacity]`` axis;
   - an ``Archetype`` is a named, ordered set of component types;
-  - an entity handle is one ``torch.int32`` with the per-world entity id in
-    the low bits and the generation in the high bits, with the same bit
-    split and bit operations as the JAX package, so a converted state's
-    handles decode the same.
+  - an entity handle is one ``torch.int32`` (``torch.int64`` with
+    ``GEM_TPU_ENTITY_64=1``) with the per-world entity id in the low bits
+    and the generation in the high bits, with the same bit split and bit
+    operations as the JAX package, so a converted state's handles decode
+    the same.
 """
 
 from __future__ import annotations
@@ -21,12 +22,22 @@ import torch
 
 # Entity id bit layout (within one world's id space):
 #   bits [0, ENTITY_ID_BITS)   : slot index into the world's entity store
-#   bits [ENTITY_ID_BITS, 31)  : generation counter (wraps)
-# -1 is the null entity.  The split is read from GEM_TPU_ENTITY_ID_BITS at
-# import, as in the JAX package (default 20/11).
-ENTITY_ID_BITS = int(os.environ.get("GEM_TPU_ENTITY_ID_BITS", 20))
-assert 4 <= ENTITY_ID_BITS <= 27, ENTITY_ID_BITS
-ENTITY_GEN_BITS = 31 - ENTITY_ID_BITS
+#   bits [ENTITY_ID_BITS, ...) : generation counter (wraps)
+# -1 is the null entity.  Both settings are read at import, as in the JAX
+# package: by default handles are int32 with the split of
+# GEM_TPU_ENTITY_ID_BITS (20/11); GEM_TPU_ENTITY_64=1 widens them to int64
+# with a 32-bit id and a 31-bit generation (the reference's Entity{gen, id}
+# headroom), so a slot's generation practically never wraps.  Component
+# data stays float32 either way; the entity store's gen, loc_arch and
+# loc_row columns stay int32.
+ENTITY_64 = os.environ.get("GEM_TPU_ENTITY_64") == "1"
+if ENTITY_64:
+    ENTITY_ID_BITS = 32
+    ENTITY_GEN_BITS = 31
+else:
+    ENTITY_ID_BITS = int(os.environ.get("GEM_TPU_ENTITY_ID_BITS", 20))
+    assert 4 <= ENTITY_ID_BITS <= 27, ENTITY_ID_BITS
+    ENTITY_GEN_BITS = 31 - ENTITY_ID_BITS
 ENTITY_ID_MASK = (1 << ENTITY_ID_BITS) - 1
 ENTITY_GEN_MASK = (1 << ENTITY_GEN_BITS) - 1
 
@@ -34,9 +45,10 @@ NULL_ENTITY = -1
 
 
 class Entity:
-    """Namespace for entity-handle helpers (handles are int32 tensors)."""
+    """Namespace for entity-handle helpers (handles are int32 tensors, int64
+    with GEM_TPU_ENTITY_64=1; ``id`` and ``gen`` are int32 either way)."""
 
-    dtype = torch.int32
+    dtype = torch.int64 if ENTITY_64 else torch.int32
 
     @staticmethod
     def pack(eid, gen):
@@ -46,11 +58,14 @@ class Entity:
 
     @staticmethod
     def id(e):
-        return torch.as_tensor(e, dtype=Entity.dtype) & ENTITY_ID_MASK
+        # an id of up to 32 bits kept as int32, as the JAX package does
+        # (entity stores stay far below 2^31 rows)
+        return (torch.as_tensor(e, dtype=Entity.dtype) & ENTITY_ID_MASK).to(torch.int32)
 
     @staticmethod
     def gen(e):
-        return (torch.as_tensor(e, dtype=Entity.dtype) >> ENTITY_ID_BITS) & ENTITY_GEN_MASK
+        return ((torch.as_tensor(e, dtype=Entity.dtype) >> ENTITY_ID_BITS)
+                & ENTITY_GEN_MASK).to(torch.int32)
 
     @staticmethod
     def is_null(e):

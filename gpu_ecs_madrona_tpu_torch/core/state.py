@@ -159,8 +159,12 @@ def batched_scatter(arr: torch.Tensor, rows: torch.Tensor, values,
 
 
 def lookup_entities(eid_state, ents: torch.Tensor):
-    """Entity handles [W, K] -> (arch_index, row, live bool), each [W, K],
-    read from the entity store ``eid_state`` (loc_arch, loc_row, gen [W, E])."""
+    """Entity handles [W, K] (of any integer type: a handle kept in an int32
+    field reads as one of generation 0 under 64-bit handles, as in the JAX
+    package) -> (arch_index, row, live bool), each [W, K], read from the
+    entity store ``eid_state`` (loc_arch, loc_row, gen [W, E] int32); the
+    stored generation is masked to the handles' generation bits, as JAX's
+    ``lookup`` does."""
     eids = Entity.id(ents)
     gens = Entity.gen(ents)
     cur_gen = batched_gather(eid_state["gen"], eids)
@@ -336,8 +340,8 @@ class StateManager:
     ) -> Tuple[SimState, torch.Tensor]:
         """Create up to ``counts[w]`` entities per world (max_new static cap).
 
-        Returns (new_state, entities [W, max_new] int32; -1 where not
-        created).  Overflow (table or id space full) drops the excess
+        Returns (new_state, entities [W, max_new] of Entity.dtype; -1 where
+        not created).  Overflow (table or id space full) drops the excess
         creates and increments the per-world overflow counter.
         """
         W = self.num_worlds
@@ -399,7 +403,7 @@ class StateManager:
     def destroy_entities(
         self,
         state: SimState,
-        ents: torch.Tensor,  # int32 [W, K]
+        ents: torch.Tensor,  # Entity.dtype [W, K]
         valid: Optional[torch.Tensor] = None,
     ) -> SimState:
         """Destroy entities (null/-1 and stale-generation handles ignored)."""

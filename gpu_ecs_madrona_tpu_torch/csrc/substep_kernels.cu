@@ -39,8 +39,10 @@
 //   in shared memory, the hull pairs on lane groups; the all-box tables run
 //   the box paths as compiled without it (the same registers, frames and
 //   outputs).  No table count is capped: a launch needs only the shared
-//   memory for its staged rows, and the wrapper refuses by name a table
-//   whose rows do not fit beside the rest (kMaxSmem).
+//   memory for its staged rows; a table whose rows do not fit beside the
+//   rest (kMaxSmem) goes to a global scratch with the bodies (kOptBody,
+//   below), and only the in-kernel broadphase, which keeps its rows in
+//   shared memory, refuses it by name.
 //
 // world_flags_kernel and asleep_surface_kernel
 //   With the persistent manifolds (:1214) they make kernel 9's launch
@@ -93,7 +95,8 @@
 //   ran 0.181 ms a node launch, 320 at 3 CTAs 0.157, 200 at 4 CTAs (128
 //   registers, a 120-byte spill, most worlds past the window) 0.155, 256
 //   threads at 2 CTAs 0.175; the window of 320 keeps most worlds' live
-//   pairs in shared memory at no spill.
+//   pairs in shared memory at no spill.  Past 815 rows (799 with 64 joint
+//   rows) the bodies move to a global scratch (kOptBody, below).
 //
 // What bounds them on this card.  At 8192 worlds x 65 rows x K = 256 a
 // call moves W (65 x 237 B + K x 9 B + 20 B) ~ 145 MB (~0.043 ms at 3.35
@@ -205,9 +208,10 @@
 // which only worlds with more live pairs than the window touch.  The window
 // (fused_window) is the most entries that let kWinBlocks CTAs share an SM
 // (378 at 256 rows, K = 1020; 220 with the cache), else the most one CTA
-// holds; a shape is refused only when its bodies, its hull rows and the
-// smallest window (a round of the block's threads) pass kMaxSmem: 968
-// bodies of boxes (894 with the cache), 370 of the imported prism (341).
+// holds; where its bodies, its hull rows and the smallest window (a round
+// of the block's threads) pass kMaxSmem, past 968 bodies of boxes (894
+// with the cache) and 370 of the imported prism (341), the bodies take a
+// global scratch too (kOptBody, below).
 // The slot lists, work order, first-entry-in-registers stash and every
 // sum's order are the slot layout's, so a windowed launch is bit for bit
 // the slot layout's and the plain version's at any window (a serial CPU
@@ -215,6 +219,37 @@
 // slot layout, bit for bit, on rigid_bench piles of 20-255 bodies); the
 // shapes that fit one block keep the slot layout and its specialisations
 // as compiled before.
+// Past the body-row ceilings (kOptBody).  Both window layouts keep a world's
+// bodies (kBodyCh = 54 floats a row) and its lists' offsets and cursors (3 n
+// + 1 ints) in shared memory, 228 B a body: kernel 5 passes kMaxSmem from
+// 816 rows (800 with simple_taskgraph's 64 joint rows), the windowed fused
+// specialisations from 969 bodies of boxes (895 with the cache, 371 of the
+// imported prism, whose staged hull rows add 368 B a body), where JAX's
+// kernels keep them in VMEM.  There those arrays, and the staged hull rows,
+// live in the world's slice of a second global scratch (body_scratch_floats
+// a world), the rest of the layout in shared memory as before: kernel 5's
+// window of kWindow entries and its joints (~50 KB at simple_taskgraph's
+// 1,000 objects), the fused kernel's window sized by body_window (695
+// entries for kWinBlocks CTAs an SM, 404 with the cache).  The code that
+// reads them is the window layouts' (the Smem pointers are generic, so the
+// loads and stores address global memory; no cp.async, cvta or
+// shared-only intrinsic touches them; __syncthreads and __syncwarp order
+// a block's global writes as its shared ones; the cursors' integer atomics
+// work on global memory), compiled as twins (substep_kernel<FULL, GEN,
+// true>, fused_substep_kernel<kOptWin | kOptBody (| kOptRefresh) (|
+// kOptHull)>), so the shapes that fit one block keep their specialisations
+// as compiled before, and every sum keeps its order: bit for bit the plain
+// version.  What bounds them: a world's rows (~228 KB at 1,024 bodies) stay
+// in L1 and L2 while its CTA runs; at the natural occupancy (3 CTAs an SM
+// for kernel 5, by its registers; 2 for the fused twin, by its window) the
+// worlds in flight hold ~90-130 MB of rows, past the 50 MB L2, and at 1 CTA
+// an SM (shared memory padded to one CTA's) ~30 MB.  Measured (H100 80GB
+// HBM3, 700 W): kernel 5's node launch at 1024 x 1,004 rows, K = 10,000
+// 7.48 ms at 3 CTAs an SM against 12.28 at 1; the fused twin at 8192 x
+// 1,024 rows, K = 4,092, 72.3 ms at 2 CTAs an SM against 86.2 at 1: the
+// worlds in flight hide the latency of each world's chain better than L2
+// hits do, so both keep their natural occupancy, and the padded layout was
+// dropped.
 // Arithmetic: -fmad=false keeps every product and sum separately rounded,
 // in the order of the plain version (ops/substep_kernel.py,
 // physics/pairs.py); 1/sqrtf stands for the plain version's 1 / sqrt.  The
@@ -1937,6 +1972,18 @@ constexpr int kWinBlocks = 2;
 constexpr int kWinCacheCh = 79;
 constexpr size_t kSmSmem = 233472;
 constexpr size_t kCtaReserved = 1024;
+// Bodies in a global scratch (kOptBody; OPT_BODY in ops/substep_kernel.py),
+// which kernel 5 takes where its window layout passes kMaxSmem and the
+// fused kernel's windowed specialisations where not even their smallest
+// window fits beside the bodies: a world's body rows (kBodyCh floats a
+// row), its lists' offsets and cursors (3 n + 1 ints) and the staged hull
+// rows (Hulls) live in its slice of a second global scratch instead of
+// shared memory; the window of work entries, the joints and the world
+// scalars stay in shared memory.  The code that reads them is the same
+// (generic pointers: the body scratch is addressed as the shared rows were,
+// __syncthreads orders a block's global writes as its shared ones, and the
+// integer atomics on the cursors work on either).
+constexpr int kOptBody = 64;
 
 struct Args {
   const float *pos, *rot, *v, *w, *im, *ii, *mu_s, *mu_d;
@@ -1979,6 +2026,9 @@ struct Args {
   // kw = K)
   int kw;
   float* scratch;
+  // kOptBody: the body scratch [W, bstride] (body_scratch_floats)
+  float* bodies;
+  size_t bstride;
 };
 
 __device__ __forceinline__ V3 ld3(const float* s, int ch, int b, int n) {
@@ -2124,24 +2174,45 @@ size_t substep_smem_bytes(int n, int K, int J) {
 
 // Kernel 5's shared memory, carved from the dynamic block; gsc is the
 // world's slice of the global scratch (kScratchCh channels of kg floats).
-__device__ __forceinline__ Smem carve_window(float* smem, int n, int K, int J, int T, float* gsc) {
+// BODY: the bodies in a global scratch (kOptBody), gb the world's slice of
+// it: its body rows, then the lists' offsets and cursors, then the staged
+// hull rows (body_scratch_floats); the rest carved from the block as
+// without it, in the same order.
+template <bool BODY>
+__device__ __forceinline__ Smem carve_window(float* smem, int n, int K, int J, int T, float* gsc,
+                                             float* gb) {
   Smem s;
   s.kw = substep_window(K);
   s.kg = substep_scratch(K);
   s.gsc = gsc;
   s.ks = s.kw > T ? s.kw - T : 0;
-  s.sb = smem;
-  s.sst = s.sb + kBodyCh * n;
-  s.spk = s.sst + kSlotCh * s.ks;
-  s.sjv = s.spk + kPackCh * s.kw;
-  s.swrow = reinterpret_cast<int*>(s.sjv + kJointCh * J);
-  s.slist = s.swrow + 2 * s.kw;
-  s.soff = s.slist + 2 * s.kw;
-  s.scurA = s.soff + n + 1;
-  s.scurB = s.scurA + n;
-  s.sworld = s.scurB + n;
-  s.sjr = s.sworld + kWorldInts;
-  s.shull = reinterpret_cast<float*>(s.sjr + 2 * J);
+  if constexpr (BODY) {
+    s.sb = gb;
+    s.sst = smem;
+    s.spk = s.sst + kSlotCh * s.ks;
+    s.sjv = s.spk + kPackCh * s.kw;
+    s.swrow = reinterpret_cast<int*>(s.sjv + kJointCh * J);
+    s.slist = s.swrow + 2 * s.kw;
+    s.sworld = s.slist + 2 * s.kw;
+    s.sjr = s.sworld + kWorldInts;
+    s.soff = reinterpret_cast<int*>(gb + kBodyCh * n);
+    s.scurA = s.soff + n + 1;
+    s.scurB = s.scurA + n;
+    s.shull = reinterpret_cast<float*>(s.scurB + n);
+  } else {
+    s.sb = smem;
+    s.sst = s.sb + kBodyCh * n;
+    s.spk = s.sst + kSlotCh * s.ks;
+    s.sjv = s.spk + kPackCh * s.kw;
+    s.swrow = reinterpret_cast<int*>(s.sjv + kJointCh * J);
+    s.slist = s.swrow + 2 * s.kw;
+    s.soff = s.slist + 2 * s.kw;
+    s.scurA = s.soff + n + 1;
+    s.scurB = s.scurA + n;
+    s.sworld = s.scurB + n;
+    s.sjr = s.sworld + kWorldInts;
+    s.shull = reinterpret_cast<float*>(s.sjr + 2 * J);
+  }
   s.scache = s.saabb = nullptr;
   s.sri = s.srj = s.skv = s.swork = s.sdeg = s.sbase = nullptr;
   s.smask = nullptr;
@@ -2194,33 +2265,88 @@ int fused_window(int n, int K, bool cache, size_t hull) {
 // 5's window (carve_window) without joints and with the manifold cache of
 // the window's entries (33 channels of kw); gsc is the world's slice of the
 // global scratch (kScratchCh channels of kg = K - kw floats, then the
-// cache's kCacheCh).
+// cache's kCacheCh).  BODY: the bodies in a global scratch, as in
+// carve_window.
+template <bool BODY>
 __device__ __forceinline__ Smem carve_fused_window(float* smem, int n, int K, int kw, bool cache,
-                                                   int T, float* gsc) {
+                                                   int T, float* gsc, float* gb) {
   Smem s;
   s.kw = kw;
   s.kg = K - kw;
   s.gsc = gsc;
   s.ks = kw > T ? kw - T : 0;
-  s.sb = smem;
-  s.sst = s.sb + kBodyCh * n;
-  s.spk = s.sst + kSlotCh * s.ks;
-  float* f = s.spk + kPackCh * kw;
-  s.scache = cache ? f : nullptr;
-  f += cache ? kCacheCh * kw : 0;
-  s.swrow = reinterpret_cast<int*>(f);
-  s.slist = s.swrow + 2 * kw;
-  s.soff = s.slist + 2 * kw;
-  s.scurA = s.soff + n + 1;
-  s.scurB = s.scurA + n;
-  s.sworld = s.scurB + n;
-  s.shull = reinterpret_cast<float*>(s.sworld + kWorldInts);
+  if constexpr (BODY) {
+    s.sb = gb;
+    s.sst = smem;
+    s.spk = s.sst + kSlotCh * s.ks;
+    float* f = s.spk + kPackCh * kw;
+    s.scache = cache ? f : nullptr;
+    f += cache ? kCacheCh * kw : 0;
+    s.swrow = reinterpret_cast<int*>(f);
+    s.slist = s.swrow + 2 * kw;
+    s.sworld = s.slist + 2 * kw;
+    s.soff = reinterpret_cast<int*>(gb + kBodyCh * n);
+    s.scurA = s.soff + n + 1;
+    s.scurB = s.scurA + n;
+    s.shull = reinterpret_cast<float*>(s.scurB + n);
+  } else {
+    s.sb = smem;
+    s.sst = s.sb + kBodyCh * n;
+    s.spk = s.sst + kSlotCh * s.ks;
+    float* f = s.spk + kPackCh * kw;
+    s.scache = cache ? f : nullptr;
+    f += cache ? kCacheCh * kw : 0;
+    s.swrow = reinterpret_cast<int*>(f);
+    s.slist = s.swrow + 2 * kw;
+    s.soff = s.slist + 2 * kw;
+    s.scurA = s.soff + n + 1;
+    s.scurB = s.scurA + n;
+    s.sworld = s.scurB + n;
+    s.shull = reinterpret_cast<float*>(s.sworld + kWorldInts);
+  }
   s.sjv = nullptr;
   s.sjr = nullptr;
   s.saabb = nullptr;
   s.sri = s.srj = s.skv = s.swork = s.sdeg = s.sbase = nullptr;
   s.smask = nullptr;
   return s;
+}
+
+// The bodies-in-scratch layout (kOptBody).  The bytes a world's bodies,
+// lists' offsets and cursors take in the layouts above (what it moves out
+// of shared memory); the floats of a world's body scratch with hull_stride
+// staged floats a hull row (0 for all-box tables); kernel 5's shared memory
+// in it (its window layout without the bodies); the fused kernel's (its
+// windowed layout without the bodies) at a window of kw entries, and that
+// window: the most entries (at most K) that let kWinBlocks CTAs share an SM.
+__host__ __device__ __forceinline__ size_t body_bytes(int n) {
+  const size_t nn = static_cast<size_t>(n);
+  return sizeof(float) * kBodyCh * nn + sizeof(int) * (3 * nn + 1);
+}
+__host__ __device__ __forceinline__ size_t body_scratch_floats(int n, int hull_stride) {
+  const size_t nn = static_cast<size_t>(n);
+  return kBodyCh * nn + 3 * nn + 1 + nn * static_cast<size_t>(hull_stride);
+}
+size_t substep_body_smem_bytes(int n, int K, int J) {
+  return substep_smem_bytes(n, K, J) - body_bytes(n);
+}
+size_t body_window_smem_bytes(int n, int kw, int T, bool cache) {
+  return fused_window_smem_bytes(n, kw, T, cache) - body_bytes(n);
+}
+int body_window(int n, int K, bool cache) {
+  const int T = block_threads(n, K);
+  const int least = K < T ? K : T;
+  const size_t budget = kSmSmem / kWinBlocks - kCtaReserved;
+  if (body_window_smem_bytes(n, least, T, cache) > budget) return 0;
+  int lo = least, hi = K;
+  while (lo < hi) {
+    const int mid = lo + (hi - lo + 1) / 2;
+    if (body_window_smem_bytes(n, mid, T, cache) <= budget)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
 }
 
 // Where an entry's data lives.  The fused kernel's layout (WIN false)
@@ -3115,8 +3241,9 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
   constexpr bool REFRESH = (OPTS & kOptRefresh) != 0, SLEEP = (OPTS & kOptSleep) != 0;
   constexpr bool BP = (OPTS & kOptBp) != 0, PERSIST = (OPTS & kOptPersist) != 0;
   constexpr bool CACHE = REFRESH || PERSIST, GEN = (OPTS & kOptHull) != 0;
-  constexpr bool WIN = (OPTS & kOptWin) != 0;
+  constexpr bool WIN = (OPTS & kOptWin) != 0, BODY = (OPTS & kOptBody) != 0;
   static_assert(!(WIN && (BP || PERSIST)), "the windowed layout has no broadphase or persistence");
+  static_assert(WIN || !BODY, "the bodies-in-scratch layout is a windowed one");
   extern __shared__ float smem[];
   const int tid = threadIdx.x, T = blockDim.x;
   const int n = a.n, K = a.K;
@@ -3131,11 +3258,12 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
     return;
   }
   const Smem s =
-      WIN ? carve_fused_window(smem, n, K, a.kw, CACHE, T,
-                               a.scratch ? a.scratch + static_cast<size_t>(wld) *
-                                                           (CACHE ? kWinCacheCh : kScratchCh) *
-                                                           (K - a.kw)
-                                         : nullptr)
+      WIN ? carve_fused_window<BODY>(
+                smem, n, K, a.kw, CACHE, T,
+                a.scratch ? a.scratch + static_cast<size_t>(wld) *
+                                            (CACHE ? kWinCacheCh : kScratchCh) * (K - a.kw)
+                          : nullptr,
+                BODY ? a.bodies + static_cast<size_t>(wld) * a.bstride : nullptr)
           : carve(smem, n, K, BP, CACHE, T);
   float* sb = s.sb;
   const size_t b0 = static_cast<size_t>(wld) * n;
@@ -3330,11 +3458,14 @@ struct Args1 {
   const float *ext_f, *ext_t, *gravity;
   int resp_dynamic;
   float *o_prev_pos, *o_prev_rot, *o_ps_pos, *o_ps_rot, *o_ps_v, *o_ps_w;
-  int J, E, arch, id_bits;
+  int J, E, arch, id_bits, gen_bits;
   const int *j_e1, *j_e2, *j_type;
   const uint8_t* j_mask;
   const float *j_ar1, *j_ar2, *j_sep, *j_a1, *j_a2, *j_r1, *j_r2;
   const int *e_arch, *e_row, *e_gen;
+  // BODY: the body scratch [W, bstride] (body_scratch_floats)
+  float* bodies;
+  size_t bstride;
 };
 
 // solver.integrate for one body: semi-implicit Euler with the gyroscopic
@@ -3363,12 +3494,18 @@ __device__ __forceinline__ void integrate_t(V3 p, Q4 rot, V3 v, V3 w, float im, 
 
 // The body row of entity handle e (StateManager.lookup): -1 unless the
 // handle is live (its generation current) and its entity in archetype arch.
+// The handle is an int32 field's: widened to 64 bits as the port (and the
+// JAX package) widen it under 64-bit handles, its id and generation masks
+// built in 64 bits, so that the 32 id bits of GEM_TPU_ENTITY_64 are
+// defined (an int32 field then holds generation 0).
 __device__ __forceinline__ int joint_row(const Args1& a, size_t w0, int e) {
-  const int id = e & ((1 << a.id_bits) - 1);
-  const int gen = (e >> a.id_bits) & ((1 << (31 - a.id_bits)) - 1);
+  const long long h = e;
+  const long long id_mask = (1LL << a.id_bits) - 1, gen_mask = (1LL << a.gen_bits) - 1;
+  const int id = static_cast<int>(h & id_mask);
+  const long long gen = (h >> a.id_bits) & gen_mask;
   const size_t g = w0 + min(max(id, 0), a.E - 1);
   const int arch = a.e_arch[g];
-  const bool live = e >= 0 && arch >= 0 && (a.e_gen[g] & ((1 << (31 - a.id_bits)) - 1)) == gen;
+  const bool live = e >= 0 && arch >= 0 && (a.e_gen[g] & gen_mask) == gen;
   return live && arch == a.arch ? a.e_row[g] : -1;
 }
 
@@ -3454,14 +3591,16 @@ __device__ void joint_terms(const Args1& a, size_t g, const V3 (&x)[2], const Q4
 // pose and velocity), with the three stashes out.  Without FULL, steps
 // 2-9 alone from the caller's post-integrate pose and velocities (the JAX
 // kernel's contract).
-template <bool FULL, bool GEN>
+// BODY: the bodies in a global scratch (kOptBody).
+template <bool FULL, bool GEN, bool BODY>
 __global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kernel(Args1 a) {
   extern __shared__ float smem[];
   const int wld = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
   const int n = a.n, K = a.K, J = FULL ? a.J : 0;
-  const Smem s = carve_window(
+  const Smem s = carve_window<BODY>(
       smem, n, K, J, T,
-      a.scratch ? a.scratch + static_cast<size_t>(wld) * kScratchCh * substep_scratch(K) : nullptr);
+      a.scratch ? a.scratch + static_cast<size_t>(wld) * kScratchCh * substep_scratch(K) : nullptr,
+      BODY ? a.bodies + static_cast<size_t>(wld) * a.bstride : nullptr);
   float* sb = s.sb;
   const size_t b0 = static_cast<size_t>(wld) * n;
   const float h1 = a.h[wld];
@@ -3626,19 +3765,32 @@ template <int OPTS>
 size_t fused_smem(int n, int K, int kw, size_t hull) {
   constexpr bool bp = (OPTS & kOptBp) != 0;
   constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
+  if ((OPTS & kOptBody) != 0) return body_window_smem_bytes(n, kw, block_threads(n, K), cache);
   if ((OPTS & kOptWin) != 0)
     return fused_window_smem_bytes(n, kw, block_threads(n, K), cache) + hull;
   return smem_bytes(n, K, bp, cache) + hull;
 }
 
+// The window of the fused kernel's windowed specialisation OPTS (kOptWin)
+// at n bodies and K slots with hull bytes of staged rows: the bodies-in-
+// scratch one's (body_window) exactly where the windowed layout's
+// (fused_window) is 0, else 0 for OPTS of the wrong layout.
+template <int OPTS>
+int fused_layout_window(int n, int K, size_t hull) {
+  constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
+  const int kw = fused_window(n, K, cache, hull);
+  if ((OPTS & kOptBody) == 0) return kw;
+  return kw == 0 ? body_window(n, K, cache) : 0;
+}
+
 template <int OPTS>
 cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
-  constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
   const size_t hull = hull_stage_bytes(a.n, a.tab);
   if ((OPTS & kOptWin) != 0) {
     // the window the wrapper sized its scratch for must be this layout's
-    const int kw = fused_window(a.n, a.K, cache, hull);
+    const int kw = fused_layout_window<OPTS>(a.n, a.K, hull);
     if (kw < 1 || kw != a.kw || (kw < a.K && !a.scratch)) return cudaErrorInvalidValue;
+    if ((OPTS & kOptBody) != 0 && !a.bodies) return cudaErrorInvalidValue;
   }
   const size_t smem = fused_smem<OPTS>(a.n, a.K, a.kw, hull);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -3648,14 +3800,37 @@ cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool FULL, bool GEN>
-cudaError_t launch_substep(const Args1& a, int W, cudaStream_t stream) {
-  const size_t smem = substep_smem_bytes(a.n, a.K, FULL ? a.J : 0) + hull_stage_bytes(a.n, a.tab);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t err = allow_smem(substep_kernel<FULL, GEN>, smem);
+// Kernel 5's layout and shared memory at n bodies, K slots, J joints and
+// hull bytes of staged hull rows: the window layout where it fits kMaxSmem
+// (*body false), else the bodies in a global scratch (*body true).
+size_t substep_layout_smem(int n, int K, int J, size_t hull, bool* body) {
+  const size_t smem = substep_smem_bytes(n, K, J) + hull;
+  *body = smem > kMaxSmem;
+  return *body ? substep_body_smem_bytes(n, K, J) : smem;
+}
+
+template <bool FULL, bool GEN, bool BODY>
+cudaError_t launch_substep(const Args1& a, int W, size_t smem, cudaStream_t stream) {
+  if (smem > kMaxSmem || (BODY && !a.bodies)) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(substep_kernel<FULL, GEN, BODY>, smem);
   if (err != cudaSuccess) return err;
-  substep_kernel<FULL, GEN><<<W, substep_threads(a.n, a.K), smem, stream>>>(a);
+  substep_kernel<FULL, GEN, BODY><<<W, substep_threads(a.n, a.K), smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// Kernel 5's launch with or without its integrate and joints (FULL), in the
+// layout and specialisation its shapes and table take.
+template <bool FULL>
+cudaError_t launch_substep_any(const Args1& a, int W, cudaStream_t stream) {
+  bool body;
+  const size_t smem = substep_layout_smem(a.n, a.K, FULL ? a.J : 0,
+                                          hull_stage_bytes(a.n, a.tab), &body);
+  const bool gen = a.tab.h != nullptr;
+  if (body)
+    return gen ? launch_substep<FULL, true, true>(a, W, smem, stream)
+               : launch_substep<FULL, false, true>(a, W, smem, stream);
+  return gen ? launch_substep<FULL, true, false>(a, W, smem, stream)
+             : launch_substep<FULL, false, false>(a, W, smem, stream);
 }
 
 // CTAs an SM of a kernel at `threads` a CTA and smem bytes of shared memory.
@@ -3670,10 +3845,9 @@ cudaError_t occupancy_of(Kernel kernel, int threads, size_t smem, int* blocks) {
 // box specialisations).
 template <int OPTS>
 cudaError_t occupancy_fused(int n, int K, int hull_floats, int* threads, int* blocks) {
-  constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
   *threads = block_threads(n, K);
   const size_t stage = sizeof(float) * static_cast<size_t>(n) * hull_floats;
-  const int kw = (OPTS & kOptWin) != 0 ? fused_window(n, K, cache, stage) : 0;
+  const int kw = (OPTS & kOptWin) != 0 ? fused_layout_window<OPTS>(n, K, stage) : 0;
   if ((OPTS & kOptWin) != 0 && kw < 1) return cudaErrorInvalidValue;
   return occupancy_of(fused_substep_kernel<OPTS>, *threads, fused_smem<OPTS>(n, K, kw, stage),
                       blocks);
@@ -3952,14 +4126,16 @@ bool set_hull(Table& tab, const void* hull, const void* dims) {
 #define SUBSTEP_SPECIALISATIONS(X)                                                      \
   X(0) X(kOptRefresh) X(kOptSleep) X(kOptRefresh | kOptSleep) X(kOptBp)                 \
   X(kOptBp | kOptRefresh) X(kOptPersist | kOptBp | kOptRefresh)                         \
-  X(kOptPersist | kOptBp | kOptRefresh | kOptSleep) X(kOptWin) X(kOptWin | kOptRefresh)
+  X(kOptPersist | kOptBp | kOptRefresh | kOptSleep) X(kOptWin) X(kOptWin | kOptRefresh) \
+  X(kOptWin | kOptBody) X(kOptWin | kOptBody | kOptRefresh)
 
 }  // namespace
 
 // The launch shape and occupancy of the fused kernel's specialisation
 // `opts` (fused_substep_launch's option bits, kOptHull for the general-hull
-// one, kOptWin for the windowed one) at n bodies and K slots, with
-// hull_floats staged floats a row for the general-hull one
+// one, kOptWin for the windowed one, kOptBody with it for the bodies in a
+// global scratch) at n bodies and K slots,
+// with hull_floats staged floats a row for the general-hull one
 // (hull_stage_floats in ops/substep_kernel.py): threads a CTA and CTAs an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 extern "C" int fused_substep_occupancy(int opts, int n, int K, int hull_floats, int* threads,
@@ -3981,19 +4157,27 @@ extern "C" int fused_substep_occupancy(int opts, int n, int K, int hull_floats, 
 
 // The same for kernel 5 (substep_kernel) at n bodies, K slots and J joints,
 // with its integrate, joints and writeback (full) or without, for all-box
-// tables (hull 0) or general hulls (hull the staged floats a row).
+// tables (hull 0) or general hulls (hull the staged floats a row), in the
+// layout those shapes take (the bodies in a global scratch where the window
+// layout does not fit).
 extern "C" int substep_occupancy(int n, int K, int J, int full, int hull, int* threads,
                                  int* blocks) {
   *threads = substep_threads(n, K);
-  const size_t smem = substep_smem_bytes(n, K, full ? J : 0) +
-                      sizeof(float) * static_cast<size_t>(n) * (hull > 0 ? hull : 0);
+  bool body;
+  const size_t smem = substep_layout_smem(
+      n, K, full ? J : 0, sizeof(float) * static_cast<size_t>(n) * (hull > 0 ? hull : 0), &body);
+  const int t = *threads;
   cudaError_t err;
-  if (hull)
-    err = full ? occupancy_of(substep_kernel<true, true>, *threads, smem, blocks)
-               : occupancy_of(substep_kernel<false, true>, *threads, smem, blocks);
+  if (full)
+    err = hull ? (body ? occupancy_of(substep_kernel<true, true, true>, t, smem, blocks)
+                       : occupancy_of(substep_kernel<true, true, false>, t, smem, blocks))
+               : (body ? occupancy_of(substep_kernel<true, false, true>, t, smem, blocks)
+                       : occupancy_of(substep_kernel<true, false, false>, t, smem, blocks));
   else
-    err = full ? occupancy_of(substep_kernel<true, false>, *threads, smem, blocks)
-               : occupancy_of(substep_kernel<false, false>, *threads, smem, blocks);
+    err = hull ? (body ? occupancy_of(substep_kernel<false, true, true>, t, smem, blocks)
+                       : occupancy_of(substep_kernel<false, true, false>, t, smem, blocks))
+               : (body ? occupancy_of(substep_kernel<false, false, true>, t, smem, blocks)
+                       : occupancy_of(substep_kernel<false, false, false>, t, smem, blocks));
   return static_cast<int>(err);
 }
 
@@ -4010,12 +4194,14 @@ extern "C" int fused_substep_launch(
     const void* aabb_lo, const void* aabb_hi, void* o_aabb_lo, void* o_aabb_hi, void* o_rows_i,
     void* o_rows_j, void* o_kvalid, void* o_count, void* o_dropped, void* o_mc, void* o_apos,
     void* o_arot, void* o_valid, const void* work_list, const void* work_count, int keep_v,
-    const void* hull, const void* hull_dims, int window, void* scratch, void* stream) {
+    const void* hull, const void* hull_dims, int window, void* scratch, void* bodies,
+    void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
   if (n <= 0 || K <= 0 || num_substeps < 0 || num_objects <= 0 || vm < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((opts & kOptWin) && (opts & (kOptBp | kOptPersist)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((opts & kOptBody) && !(opts & kOptWin)) return static_cast<int>(cudaErrorInvalidValue);
   if ((opts & kOptBp) && (n > kMaxBpRows || degree < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((opts & kOptPersist) && (opts & kOptSleep) && (!work_list || !work_count))
@@ -4083,6 +4269,8 @@ extern "C" int fused_substep_launch(
   a.keep_v = keep_v;
   a.kw = window;
   a.scratch = static_cast<float*>(scratch);
+  a.bodies = static_cast<float*>(bodies);
+  a.bstride = body_scratch_floats(n, hull ? hull_stride(a.tab.vm, a.tab.em, a.tab.sm, a.tab.fm) : 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hull) opts |= kOptHull;
   if (opts & kOptWin) opts &= ~kOptSleep;
@@ -4213,7 +4401,8 @@ extern "C" int substep_launch(
     const void* obj, const void* dyn, const void* h, const void* rest_thr, const void* rows_i,
     const void* rows_j, const void* kvalid, const void* table, int num_objects, int vm, int W,
     int n, int K, float relaxation, float speculative, int bounce, void* o_pos, void* o_rot,
-    void* o_v, void* o_w, void* scratch, const void* hull, const void* hull_dims, void* stream) {
+    void* o_v, void* o_w, void* scratch, const void* hull, const void* hull_dims, void* bodies,
+    void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
   if (n <= 0 || K <= 0 || num_objects <= 0 || vm < 0 ||
       (substep_scratch(K) > 0 && !scratch))
@@ -4248,9 +4437,9 @@ extern "C" int substep_launch(
   a.o_v = static_cast<float*>(o_v);
   a.o_w = static_cast<float*>(o_w);
   a.scratch = static_cast<float*>(scratch);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(hull ? launch_substep<false, true>(a, W, st)
-                               : launch_substep<false, false>(a, W, st));
+  a.bodies = static_cast<float*>(bodies);
+  a.bstride = body_scratch_floats(n, hull ? hull_stride(a.tab.vm, a.tab.em, a.tab.sm, a.tab.fm) : 0);
+  return static_cast<int>(launch_substep_any<false>(a, W, static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel 5 with its integrate, joint solve and writeback: the kernel-mode
@@ -4260,8 +4449,11 @@ extern "C" int substep_launch(
 // candidate rows [W, K]; the joints [W, J]: e1, e2, joint_type, attach_rot1/2,
 // separation, a1/a2_local, r1/r2, their mask; the entity store [W, E]
 // (loc_arch, loc_row, gen), the body archetype's index arch and the entity
-// handles' id bits.  Outputs [W, n]: pos, rot, v, w, prev_pos, prev_rot,
-// ps_pos, ps_rot, ps_v, ps_w.
+// handles' id and generation bits (20 and 11 by default, 32 and 31 with
+// 64-bit handles).  Outputs [W, n]: pos, rot, v, w, prev_pos, prev_rot,
+// ps_pos, ps_rot, ps_v, ps_w.  bodies: the body scratch [W,
+// body_scratch_floats] where the shapes take the bodies in a global scratch
+// (else null).
 extern "C" int substep_node_launch(
     const void* pos, const void* rot, const void* v, const void* w, const void* obj,
     const void* resp, const void* mask, const void* ext_f, const void* ext_t, const void* h,
@@ -4271,12 +4463,14 @@ extern "C" int substep_node_launch(
     const void* j_e2, const void* j_type, const void* j_ar1, const void* j_ar2,
     const void* j_sep, const void* j_a1, const void* j_a2, const void* j_r1, const void* j_r2,
     const void* j_mask, int E, const void* e_arch, const void* e_row, const void* e_gen,
-    int arch, int id_bits, void* o_pos, void* o_rot, void* o_v, void* o_w, void* o_prev_pos,
-    void* o_prev_rot, void* o_ps_pos, void* o_ps_rot, void* o_ps_v, void* o_ps_w,
-    void* scratch, const void* hull, const void* hull_dims, void* stream) {
+    int arch, int id_bits, int gen_bits, void* o_pos, void* o_rot, void* o_v, void* o_w,
+    void* o_prev_pos, void* o_prev_rot, void* o_ps_pos, void* o_ps_rot, void* o_ps_v,
+    void* o_ps_w, void* scratch, const void* hull, const void* hull_dims, void* bodies,
+    void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
-  if (n <= 0 || K <= 0 || J < 0 || E <= 0 || num_objects <= 0 || vm < 0 ||
-      id_bits < 1 || id_bits > 30 || (substep_scratch(K) > 0 && !scratch))
+  if (n <= 0 || K <= 0 || J < 0 || E <= 0 || num_objects <= 0 || vm < 0 || id_bits < 1 ||
+      id_bits > 32 || gen_bits < 1 || gen_bits > 31 || id_bits + gen_bits > 63 ||
+      (substep_scratch(K) > 0 && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   Args1 a = {};
   a.pos = static_cast<const float*>(pos);
@@ -4320,6 +4514,7 @@ extern "C" int substep_node_launch(
   a.e_gen = static_cast<const int*>(e_gen);
   a.arch = arch;
   a.id_bits = id_bits;
+  a.gen_bits = gen_bits;
   a.o_pos = static_cast<float*>(o_pos);
   a.o_rot = static_cast<float*>(o_rot);
   a.o_v = static_cast<float*>(o_v);
@@ -4331,7 +4526,7 @@ extern "C" int substep_node_launch(
   a.o_ps_v = static_cast<float*>(o_ps_v);
   a.o_ps_w = static_cast<float*>(o_ps_w);
   a.scratch = static_cast<float*>(scratch);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(hull ? launch_substep<true, true>(a, W, st)
-                               : launch_substep<true, false>(a, W, st));
+  a.bodies = static_cast<float*>(bodies);
+  a.bstride = body_scratch_floats(n, hull ? hull_stride(a.tab.vm, a.tab.em, a.tab.sm, a.tab.fm) : 0);
+  return static_cast<int>(launch_substep_any<true>(a, W, static_cast<cudaStream_t>(stream)));
 }

@@ -78,7 +78,13 @@ whose slot layout passes one block's shared memory (``windowed``: from 239
 bodies of rigid_bench, 161 with contact refresh) takes each
 specialisation's windowed twin (OPT_WIN, counted as "...win"): a window of
 work entries in shared memory (``fused_window``), the rest in a global
-scratch (``fused_scratch``), bit for bit the slot layout.  On CPU tensors
+scratch (``fused_scratch``), bit for bit the slot layout.  Where even that
+layout's smallest window does not fit beside the bodies (from 969 bodies of
+rigid_bench, 895 with contact refresh), and where kernel 5's window layout
+passes one block's shared memory (from 816 body rows), the bodies' rows,
+lists' offsets and cursors and staged hull rows move to a second global
+scratch (``body_scratch``; OPT_BODY, counted as "...win+bodies" and in
+``SubstepKernel.body_launches``), bit for bit the same.  On CPU tensors
 they run ``fused_substep_plain``, ``substep_plain``
 and ``substep_node_plain``, the same loop in batched PyTorch over [W, K]
 pair tensors.  The segment sums add each body's A-side contributions in
@@ -98,7 +104,7 @@ import math
 
 import torch
 
-from gpu_ecs_madrona_tpu_torch.core.component import ENTITY_ID_BITS
+from gpu_ecs_madrona_tpu_torch.core.component import ENTITY_GEN_BITS, ENTITY_ID_BITS
 from gpu_ecs_madrona_tpu_torch.core.state import entity_rows
 from gpu_ecs_madrona_tpu_torch.ops import _build
 from gpu_ecs_madrona_tpu_torch.physics import pairs as pk
@@ -270,6 +276,89 @@ def windowed(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
     hull rows passes MAX_SMEM_BYTES."""
     return (not bp and smem_bytes(n, K, bp, cache) + hull_stage_bytes(tables, n)
             > MAX_SMEM_BYTES)
+
+
+# Bodies in a global scratch (OPT_BODY, see csrc/substep_kernels.cu
+# kOptBody): kernel 5 where its window layout (substep_smem_bytes with the
+# staged hull rows) passes MAX_SMEM_BYTES, the fused kernel's windowed
+# specialisations where fused_window is 0.  A world's body rows (BODY_CH
+# floats a row), its lists' offsets and cursors (3 n + 1) and its staged hull
+# rows live in its slice of a second global scratch (body_scratch); the rest
+# keeps its layout in shared memory, at the CTAs an SM the kernel's
+# registers allow (the fused kernel's window sized for WIN_BLOCKS).
+BODY_CH = 54
+
+
+def body_bytes(n: int) -> int:
+    """The shared memory the window layouts keep n bodies' rows, lists'
+    offsets and cursors in (body_bytes in the .cu): what the
+    bodies-in-scratch layout moves out."""
+    return 4 * BODY_CH * n + 4 * (3 * n + 1)
+
+
+def body_scratch_floats(n: int, tables: pk.ObjTables) -> int:
+    """A world's floats of the body scratch (body_scratch_floats in the .cu):
+    its body rows, lists' offsets and cursors, and staged hull rows."""
+    return BODY_CH * n + 3 * n + 1 + n * hull_stage_floats(tables)
+
+
+def substep_body_smem_bytes(n: int, K: int, J: int = 0) -> int:
+    """Kernel 5's shared memory with its bodies in the scratch."""
+    return substep_smem_bytes(n, K, J) - body_bytes(n)
+
+
+def body_window_smem_bytes(n: int, kw: int, T: int, cache: bool = False) -> int:
+    """The fused kernel's windowed layout's shared memory with its bodies in
+    the scratch, at a window of kw entries."""
+    return fused_window_smem_bytes(n, kw, T, cache) - body_bytes(n)
+
+
+def body_window(n: int, K: int, cache: bool = False) -> int:
+    """The fused kernel's window with its bodies in the scratch (body_window
+    in the .cu): the most work entries (at most K) that let WIN_BLOCKS CTAs
+    share an SM."""
+    T = block_threads(n, K)
+    least = min(K, T)
+    budget = SM_SMEM_BYTES // WIN_BLOCKS - CTA_RESERVED_BYTES
+    if body_window_smem_bytes(n, least, T, cache) > budget:
+        return 0
+    lo, hi = least, K
+    while lo < hi:
+        mid = lo + (hi - lo + 1) // 2
+        if body_window_smem_bytes(n, mid, T, cache) <= budget:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def substep_bodies(tables: pk.ObjTables, n: int, K: int, J: int = 0) -> bool:
+    """Whether kernel 5 keeps these shapes' bodies in the scratch: its window
+    layout with the staged hull rows passes MAX_SMEM_BYTES."""
+    return substep_smem_bytes(n, K, J) + hull_stage_bytes(tables, n) > MAX_SMEM_BYTES
+
+
+def fused_bodies(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
+                 cache: bool = False) -> bool:
+    """Whether the fused kernel keeps these shapes' bodies in the scratch: a
+    windowed shape whose smallest window does not fit beside the bodies and
+    the staged hull rows (fused_window 0)."""
+    return (windowed(tables, n, K, bp, cache)
+            and fused_window(n, K, cache, hull_stage_bytes(tables, n)) == 0)
+
+
+def fused_layout_window(tables: pk.ObjTables, n: int, K: int, cache: bool = False) -> int:
+    """The window of a windowed fused launch: fused_window, or body_window
+    where the bodies go to the scratch."""
+    if fused_bodies(tables, n, K, cache=cache):
+        return body_window(n, K, cache)
+    return fused_window(n, K, cache, hull_stage_bytes(tables, n))
+
+
+def body_scratch(W: int, n: int, tables: pk.ObjTables, device):
+    """The body scratch for W worlds of n bodies with ``tables``' staged hull
+    rows, [W, body_scratch_floats] float32."""
+    return torch.empty((W, body_scratch_floats(n, tables)), dtype=torch.float32, device=device)
 
 
 def fused_scratch(W: int, K: int, kw: int, cache: bool, device):
@@ -765,17 +854,18 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_substep_launch.argtypes = (
             [P] * 19 + [I] * 6 + [F, F, I] + [P] * 10 + [I, I, F] + [P] * 16 + [P] * 5 + [I]
-            + [P, P] + [I, P] + [P])
+            + [P, P] + [I, P] + [P] + [P])
         lib.fused_substep_launch.restype = I
         lib.world_flags_launch.argtypes = [P] * 15 + [I] * 5 + [F, I, F] + [P] * 4 + [P]
         lib.world_flags_launch.restype = I
         lib.asleep_surface_launch.argtypes = [P] * 8 + [I] * 3 + [P] * 19 + [P]
         lib.asleep_surface_launch.restype = I
-        lib.substep_launch.argtypes = [P] * 18 + [I] * 5 + [F, F, I] + [P] * 4 + [P] + [P, P] + [P]
+        lib.substep_launch.argtypes = ([P] * 18 + [I] * 5 + [F, F, I] + [P] * 4 + [P] + [P, P]
+                                       + [P] + [P])
         lib.substep_launch.restype = I
         lib.substep_node_launch.argtypes = (
-            [P] * 16 + [I] * 5 + [F, F] + [I] * 3 + [P] * 11 + [I] + [P] * 3 + [I, I] + [P] * 10
-            + [P] + [P, P] + [P])
+            [P] * 16 + [I] * 5 + [F, F] + [I] * 3 + [P] * 11 + [I] + [P] * 3 + [I, I, I]
+            + [P] * 10 + [P] + [P, P] + [P] + [P])
         lib.substep_node_launch.restype = I
         IP = ctypes.POINTER(ctypes.c_int)
         lib.fused_substep_occupancy.argtypes = [I, I, I, I, IP, IP]
@@ -791,45 +881,45 @@ def kernel_fits(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
     """'' when the kernel takes these tables and shapes (the fused kernel
     with the in-kernel broadphase, with a manifold cache; with ``single``
     kernel 5 with ``joints`` joints), else why not: all-box tables up to
-    MAX_BOX_TABLE_VERTS verts a hull; general hulls of any counts whose
-    staged rows (hull_stage_bytes) fit the shared memory the rest of the
-    kernel leaves of MAX_SMEM_BYTES, the message saying which budget broke.
-    The fused kernel without the in-kernel broadphase takes a shape past
-    that in its windowed layout (windowed), and refuses only bodies and hull
-    rows that leave no room for its smallest window ("... window budget")."""
+    MAX_BOX_TABLE_VERTS verts a hull; general hulls of any counts.  The
+    fused kernel with the in-kernel broadphase (at most MAX_BP_ROWS rows)
+    refuses staged hull rows that do not fit the shared memory the rest of
+    the kernel leaves of MAX_SMEM_BYTES ("... hull-row budget").  Without
+    it, a shape past that takes the windowed layout (windowed), and past
+    that the bodies in the scratch (fused_bodies); kernel 5 takes the
+    bodies in the scratch past its window layout (substep_bodies), and
+    refuses only joints whose rows with the window pass MAX_SMEM_BYTES
+    (56 B a joint: about 3,300 joints a world).  Two refusals are the
+    port's alone, JAX's kernels taking those shapes: all-box tables past
+    MAX_BOX_TABLE_VERTS, and kernel 5's joints past MAX_SMEM_BYTES."""
     if tables.all_box and tables.Vm > MAX_BOX_TABLE_VERTS:
         return f"all-box tables with {tables.Vm} verts per hull > {MAX_BOX_TABLE_VERTS}"
     if n < 1 or K < 1:
         return f"n={n} bodies and K={K} candidate slots must both be >= 1"
     if bp and n > MAX_BP_ROWS:
         return f"the in-kernel broadphase takes at most {MAX_BP_ROWS} body rows, not {n}"
+    if single and substep_bodies(tables, n, K, joints):
+        need = substep_body_smem_bytes(n, K, joints)
+        if need > MAX_SMEM_BYTES:
+            return (f"K={K} candidate slots and {joints} joints need {need} B of shared "
+                    f"memory with the bodies in the scratch, over the {MAX_SMEM_BYTES} B a "
+                    f"block may have")
+        return ""
     if not single and windowed(tables, n, K, bp, cache):
-        # past one block: the windowed layout, refused only when the bodies,
-        # the hull rows and the smallest window do not fit
-        stage = hull_stage_bytes(tables, n)
-        if fused_window(n, K, cache, stage):
-            return ""
-        T = block_threads(n, K)
-        least = min(K, T)
-        need = fused_window_smem_bytes(n, least, T, cache)
-        what = f"the windowed kernel's {need} B for its bodies and smallest window"
-        if need > MAX_SMEM_BYTES:
-            return (f"n={n} bodies and the smallest window of {least} work entries need {need} "
-                    f"B of shared memory, over the {MAX_SMEM_BYTES} B a block may have (the "
-                    f"windowed kernel's window budget)")
-    else:
-        need = substep_smem_bytes(n, K, joints) if single else smem_bytes(n, K, bp, cache)
-        what = f"the kernel's {need} B"
-        if need > MAX_SMEM_BYTES:
-            return (f"n={n} bodies and K={K} candidate slots need {need} B of "
-                    f"shared memory, over the {MAX_SMEM_BYTES} B a block may have")
+        # past one block: the windowed layout, and past that the bodies in
+        # the scratch, whose smallest window always fits
+        return ""
+    need = substep_smem_bytes(n, K, joints) if single else smem_bytes(n, K, bp, cache)
+    if need > MAX_SMEM_BYTES:
+        return (f"n={n} bodies and K={K} candidate slots need {need} B of "
+                f"shared memory, over the {MAX_SMEM_BYTES} B a block may have")
     stage = hull_stage_bytes(tables, n)
     if need + stage > MAX_SMEM_BYTES:
         return (f"general-hull tables staged at {hull_stage_floats(tables)} floats a row "
                 f"({tables.Vm} verts, {tables.Em} edge directions, "
                 f"{tables.hull_dims()[2]} SAT axes, {tables.Fm} faces) need {stage} B for "
                 f"n={n} bodies, over the {MAX_SMEM_BYTES - need} B of the hull-row budget "
-                f"(the {MAX_SMEM_BYTES} B a block may have less {what})")
+                f"(the {MAX_SMEM_BYTES} B a block may have less the kernel's {need} B)")
     return ""
 
 
@@ -873,8 +963,10 @@ def _check_inputs(name, device, bodies, W, n, K, **others):
 
 # the kernel's option bits (fused_substep_launch's opts); OPT_HULL names
 # the general-hull specialisations, which the launch takes for tables with
-# general hulls (kOptHull)
+# general hulls (kOptHull); OPT_BODY the bodies in a global scratch (with
+# OPT_WIN)
 OPT_REFRESH, OPT_SLEEP, OPT_BP, OPT_PERSIST, OPT_HULL, OPT_WIN = 1, 2, 4, 8, 16, 32
+OPT_BODY = 64
 BP_KEYS = ("aabb_lo", "aabb_hi", "rows_i", "rows_j", "kvalid", "bp_count", "bp_dropped")
 
 
@@ -969,11 +1061,15 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
         extra["mcache"] = mcache_out
     code = ((OPT_REFRESH if refresh else 0) | (OPT_SLEEP if active is not None else 0)
             | (OPT_BP if bp else 0) | (OPT_PERSIST if persist else 0))
-    window, scratch = 0, None
+    window, scratch, bodies = 0, None, None
     if windowed(tables, n, K, bp, refresh or persist):
-        # past one block's shared memory: the window, the rest in a scratch
+        # past one block's shared memory: the window, the rest in a scratch;
+        # past that the bodies in a scratch too
         code |= OPT_WIN
-        window = fused_window(n, K, refresh, hull_stage_bytes(tables, n))
+        if fused_bodies(tables, n, K, bp, refresh):
+            code |= OPT_BODY
+            bodies = body_scratch(W, n, tables, dev)
+        window = fused_layout_window(tables, n, K, refresh)
         scratch = fused_scratch(W, K, window, refresh, dev)
 
     def ptr(t):
@@ -995,7 +1091,7 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
         *(ptr(t) for t in (scale, live, dtv, active, stable, mcache, aabb_lo, aabb_hi)),
         *(ptr(extra.get(k)) for k in BP_KEYS + ("mcache",)),
         *(ptr(t) for t in (anchors or (None, None, None))), *(ptr(t) for t in work),
-        int(keep_velocity), *hull, window, ptr(scratch), stream)
+        int(keep_velocity), *hull, window, ptr(scratch), ptr(bodies), stream)
     if rc != 0:
         raise RuntimeError(f"fused_substep: kernel launch failed with cudaError {rc}")
     FusedSubstepKernel.launches += 1
@@ -1137,11 +1233,12 @@ def occupancy(n: int, K: int, single: bool = False, joints=None,
     """The kernels' launch shape at n bodies and K slots, on the current
     card: {specialisation name: (threads a CTA, CTAs an SM)} for the fused
     kernel's specialisations ``codes`` (all eight by default; a shape that
-    fits only some asks for those), or (threads, CTAs an SM) of kernel 5
-    with ``single``: without its integrate and joints, or with ``joints``
-    joints its node launch.  ``hull``: tables with general hulls, for the
-    general-hull specialisations with those tables' staged rows.  Builds
-    the kernels if needed."""
+    fits only some asks for those; OPT_WIN and OPT_BODY for the windowed
+    layouts), or (threads, CTAs an SM) of kernel 5 with ``single``: without
+    its integrate and joints, or with ``joints`` joints its node launch, in
+    the layout the shape takes.  ``hull``: tables with general hulls, for
+    the general-hull specialisations with those tables' staged rows.
+    Builds the kernels if needed."""
     lib = _lib()
     threads, blocks = ctypes.c_int(), ctypes.c_int()
 
@@ -1155,19 +1252,20 @@ def occupancy(n: int, K: int, single: bool = False, joints=None,
         raise ValueError("occupancy: hull= takes tables with general hulls")
     if single:
         return read(lib.substep_occupancy(n, K, int(joints or 0), int(joints is not None),
-                                          floats, ctypes.byref(threads),
-                                          ctypes.byref(blocks)), "substep")
+                                          floats, ctypes.byref(threads), ctypes.byref(blocks)),
+                    "substep")
     codes = [code | (OPT_HULL if floats else 0) for code in codes]
     return {option_name(code): read(lib.fused_substep_occupancy(
-        code, n, K, floats, ctypes.byref(threads), ctypes.byref(blocks)), option_name(code))
-        for code in codes}
+        code, n, K, floats, ctypes.byref(threads), ctypes.byref(blocks)),
+        option_name(code)) for code in codes}
 
 
 def option_name(code: int) -> str:
     """The kernel specialisation of option bits ``code``: "none", or its
     options joined by "+" (e.g. "refresh+sleep+bp+persist")."""
     names = [n for bit, n in ((OPT_REFRESH, "refresh"), (OPT_SLEEP, "sleep"), (OPT_BP, "bp"),
-                              (OPT_PERSIST, "persist"), (OPT_WIN, "win"), (OPT_HULL, "hull"))
+                              (OPT_PERSIST, "persist"), (OPT_WIN, "win"), (OPT_BODY, "bodies"),
+                              (OPT_HULL, "hull"))
              if code & bit]
     return "+".join(names) or "none"
 
@@ -1210,6 +1308,7 @@ def substep(pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn, h,
                   restitution_threshold=restitution_threshold, rows_i=rows_i, rows_j=rows_j,
                   kvalid=kvalid)
     scratch = _scratch_for(scratch, W, K, pos.device)
+    bodies = body_scratch(W, n, tables, pos.device) if substep_bodies(tables, n, K) else None
     table = tables.kernel_table(pos.device)
     outs = {k: torch.empty((W, n, _WIDTH[k]), dtype=torch.float32, device=pos.device)
             for k in SUBSTEP_KEYS}
@@ -1219,11 +1318,13 @@ def substep(pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn, h,
         *(t.data_ptr() for t in args), table.data_ptr(), tables.O, tables.Vm, W, n, K,
         float(relaxation), float(speculative), int(tables.any_restitution),
         *(outs[k].data_ptr() for k in SUBSTEP_KEYS),
-        0 if scratch is None else scratch.data_ptr(), *hull, stream)
+        0 if scratch is None else scratch.data_ptr(), *hull,
+        0 if bodies is None else bodies.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"substep: kernel launch failed with cudaError {rc}")
     SubstepKernel.launches += 1
     SubstepKernel.hull_launches += 1 if hull[0] else 0
+    SubstepKernel.body_launches += 0 if bodies is None else 1
     return outs
 
 
@@ -1279,6 +1380,7 @@ def substep_node(pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity,
                   h=h, gravity=gravity, restitution_threshold=restitution_threshold,
                   rows_i=rows_i, rows_j=rows_j, kvalid=kvalid)
     scratch = _scratch_for(scratch, W, K, dev)
+    bodies = body_scratch(W, n, tables, dev) if substep_bodies(tables, n, K, J) else None
     table = tables.kernel_table(dev)
     outs = {k: torch.empty((W, n, _WIDTH[k]), dtype=torch.float32, device=dev)
             for k in NODE_KEYS}
@@ -1288,13 +1390,14 @@ def substep_node(pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity,
         float(relaxation), float(speculative), int(tables.any_restitution), RESPONSE_DYNAMIC, J,
         *(joints[f].data_ptr() for f in JOINT_FIELDS), jmask.data_ptr(), E,
         *(eid[k].data_ptr() for k in ("loc_arch", "loc_row", "gen")), int(arch_index),
-        ENTITY_ID_BITS, *(outs[k].data_ptr() for k in NODE_KEYS),
+        ENTITY_ID_BITS, ENTITY_GEN_BITS, *(outs[k].data_ptr() for k in NODE_KEYS),
         0 if scratch is None else scratch.data_ptr(), *hull,
-        torch.cuda.current_stream(dev).cuda_stream)
+        0 if bodies is None else bodies.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"substep_node: kernel launch failed with cudaError {rc}")
     SubstepKernel.launches += 1
     SubstepKernel.hull_launches += 1 if hull[0] else 0
+    SubstepKernel.body_launches += 0 if bodies is None else 1
     return outs
 
 
@@ -1310,10 +1413,13 @@ class SubstepKernel:
     shape.
 
     ``launches`` counts the kernel launches (class-wide), ``hull_launches``
-    those of its general-hull specialisation (tables with general hulls)."""
+    those of its general-hull specialisation (tables with general hulls),
+    ``body_launches`` those with the bodies in a global scratch
+    (substep_bodies)."""
 
     launches = 0
     hull_launches = 0
+    body_launches = 0
 
     def __init__(self, object_manager, relaxation: float = 1.0, speculative: float = 0.0):
         self.tables = pk.ObjTables(object_manager)

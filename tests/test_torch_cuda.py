@@ -31,8 +31,11 @@ tolerances), a train step waiting for nothing, the exported columns
 handed off zero-copy, and the reset worlds on the card equal to the CPU.
 Past one block's shared memory: every non-broadphase fused specialisation
 in its windowed layout (rigid_bench at 240, 256 and 512 rows, the prism
-pile at 240 and 256) bit for bit its plain version, one body past the
-windowed ceiling refused by name, the render kernel's blocked modes at
+pile at 240 and 256) bit for bit its plain version; past the windowed
+layout's body ceiling (rigid_bench at 970 rows, the prism pile at 372) and
+kernel 5's (816 rows; 1,068 with joints) the bodies in a global scratch,
+bit for bit; kernel 5's joint lookup under 64-bit handles (a process of
+its own) bit for bit the int32 one; the render kernel's blocked modes at
 4,096 instance rows bit for bit their plain versions and, forced on scenes
 that fit, bit for bit the single-stage kernel.  Across ranks and the
 tooling: the autotuner's lookup keyed "cuda" and its consumer, profile_nodes
@@ -437,11 +440,30 @@ def over_the_budget(om=None):
     """An object manager (rigid_bench's by default) with its box taken as a
     general hull of 4096 table verts (zero rows past its 8): staged hull
     rows past the shared memory the kernels leave them, at any row count
-    the tests launch."""
+    the tests launch (refused with the in-kernel broadphase; the other
+    launches take them with the bodies in a global scratch)."""
     om = dict(rb.RigidBenchWorld.objmgr if om is None else om)
     om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
     om["verts"] = np.pad(om["verts"], ((0, 0), (0, 4096 - om["verts"].shape[1]), (0, 0)))
     return om
+
+
+def nine_vert_boxes(om=None):
+    """An object manager (rigid_bench's by default) whose all-box table has
+    9 verts a hull: past MAX_BOX_TABLE_VERTS, refused by every launch."""
+    om = dict(rb.RigidBenchWorld.objmgr if om is None else om)
+    om["verts"] = np.pad(om["verts"], ((0, 0), (0, 9 - om["verts"].shape[1]), (0, 0)))
+    return om
+
+
+def bp_args(kw, K=128):
+    """fused_substep's keyword arguments for its in-kernel broadphase over
+    kw's bodies (degree cap 4, K slots, every row live, no expansion)."""
+    W, n = kw["obj"].shape
+    dev = kw["pos"].device
+    return dict(bp_degree=4, K=K, scale=torch.ones((W, n, 3), device=dev),
+                live=torch.ones((W, n), dtype=torch.bool, device=dev),
+                dtv=torch.zeros((W,), device=dev))
 
 
 POSE_KEYS = ("pos", "rot", "prev_pos", "prev_rot", "ps_pos", "ps_rot")
@@ -483,7 +505,10 @@ def test_fused_substep_rejects_bad_input(card):
     with pytest.raises(ValueError):
         subk.fused_substep(**dict(args, rows_i=kw["rows_i"].cpu()))
     with pytest.raises(NotImplementedError, match="4096 verts.*hull-row budget"):
-        subk.fused_substep(**dict(args, tables=subk.pk.ObjTables(over_the_budget())))
+        subk.fused_substep(**dict(args, tables=subk.pk.ObjTables(over_the_budget())),
+                           **bp_args(kw))
+    with pytest.raises(NotImplementedError, match="9 verts per hull"):
+        subk.fused_substep(**dict(args, tables=subk.pk.ObjTables(nine_vert_boxes())))
     assert subk.FusedSubstepKernel.launches == 0
 
 
@@ -520,8 +545,8 @@ def test_substep_rejects_bad_input(card):
         subk.substep(**dict(args, prev_rot=a["prev_rot"].double()))
     with pytest.raises(ValueError):
         subk.substep(**dict(args, kvalid=a["kvalid"].cpu()))
-    with pytest.raises(NotImplementedError, match="4096 verts.*hull-row budget"):
-        subk.substep(**dict(args, tables=subk.pk.ObjTables(over_the_budget())))
+    with pytest.raises(NotImplementedError, match="9 verts per hull"):
+        subk.substep(**dict(args, tables=subk.pk.ObjTables(nine_vert_boxes())))
     assert subk.SubstepKernel.launches == 0
 
 
@@ -629,8 +654,8 @@ def test_substep_node_rejects_bad_input(card):
     with pytest.raises(ValueError):
         bad = dict(opts["joints"], attach_rot1=opts["joints"]["attach_rot1"][..., :3].contiguous())
         subk.substep_node(*args, **dict(opts, joints=bad))
-    om = over_the_budget(kern.tables.om)
-    with pytest.raises(NotImplementedError, match="4096 verts.*hull-row budget"):
+    om = nine_vert_boxes(kern.tables.om)
+    with pytest.raises(NotImplementedError, match="9 verts per hull"):
         subk.substep_node(*args, **dict(opts, tables=subk.pk.ObjTables(om)))
     assert subk.SubstepKernel.launches == 0
 
@@ -1557,9 +1582,11 @@ def test_substep_hull_matches_plain(card, case):
 @pytest.mark.cuda
 def test_hull_tables_over_the_caps_are_refused(card):
     """A general-hull table whose staged rows pass the shared-memory budget
-    is refused by name on the card, before any launch; past PhysicsLoader()'s
-    default caps (17 edge directions, 33 verts) it launches, bit for bit the
-    plain version."""
+    is refused by name on the card, before any launch, by the in-kernel
+    broadphase (whose rows stay in shared memory), and taken by the other
+    launches with the bodies and hull rows in a global scratch; past
+    PhysicsLoader()'s default caps (17 edge directions, 33 verts) it
+    launches, bit for bit the plain version."""
     kern, kw = hull_case("none_K256", card, W=4)
     tables = kern.tables
     wide = dict(tables.om)
@@ -1574,9 +1601,13 @@ def test_hull_tables_over_the_caps_are_refused(card):
     for k in subk.OUT_KEYS:
         assert torch.equal(out[k], want[k]), k
     wide["verts"] = np.pad(wide["verts"], ((0, 0), (0, 4096 - 33), (0, 0)))
+    over = subk.pk.ObjTables(wide)
     with pytest.raises(NotImplementedError, match="4096 verts.*hull-row budget"):
-        subk.fused_substep(**kw, tables=subk.pk.ObjTables(wide), num_substeps=4)
+        subk.fused_substep(**kw, tables=over, num_substeps=4, **bp_args(kw))
     assert subk.FusedSubstepKernel.launches == 1
+    W, n = kw["obj"].shape
+    K = kw["rows_i"].shape[1]
+    assert subk.kernel_fits(over, n, K) == "" and subk.fused_bodies(over, n, K)
 
 
 # -- kernels 7 and 10 past one block's shared memory ----------------------------
@@ -1640,27 +1671,181 @@ def test_fused_substep_windowed_matches_plain_bit_for_bit(card, pile, option):
 
 @pytest.mark.cuda
 def test_fused_substep_past_the_window_budget_is_refused(card):
-    """Bodies whose rows leave no room for the windowed layout's smallest
-    window (rigid_bench at 969 bodies, n = 970) are refused by that
-    budget's name before any launch; the ceiling's shape (968 bodies)
-    launches."""
+    """The windowed layout's ceiling (rigid_bench at 968 bodies, n = 969),
+    and one body past it (969 bodies, n = 970), which its window budget
+    refused: the ceiling's shape launches the windowed twin, the next the
+    twin with the bodies in a global scratch ("win+bodies"), both bit for
+    bit the plain version."""
     kern = subk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
-    for bodies, fits in ((968, True), (969, False)):
+    for bodies, name in ((968, "win"), (969, "win+bodies")):
         sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=2, num_bodies=bodies,
                                                    contact_mode="pallas"), device=card)
         kw = fused_inputs(sim)
-        subk.FusedSubstepKernel.launches = 0
-        if fits:
-            out = kern(**kw)
-            torch.cuda.synchronize()
-            assert subk.FusedSubstepKernel.launches == 1
-            want = kern.plain(**kw)
-            for k in subk.OUT_KEYS:
-                assert torch.equal(out[k], want[k]), k
-        else:
-            with pytest.raises(NotImplementedError, match="window budget"):
-                kern(**kw)
-            assert subk.FusedSubstepKernel.launches == 0
+        subk.FusedSubstepKernel.launches_by_options.clear()
+        out = kern(**kw)
+        torch.cuda.synchronize()
+        assert dict(subk.FusedSubstepKernel.launches_by_options) == {name: 1}
+        want = kern.plain(**kw)
+        for k in subk.OUT_KEYS:
+            assert torch.equal(out[k], want[k]), k
+
+
+# -- kernels 5 and 7 past their body-row ceilings (the bodies in a global
+# scratch) ------------------------------------------------------------------
+
+# rigid_bench piles past the windowed layout's body ceiling (969 bodies; 895
+# with contact refresh), the prism pile past its own (371; 342), dropped
+# close together so that their worlds' valid slots pass the window
+BODY_PILES = {"boxes_969": (969, False), "prisms_371": (371, True)}
+_body_states = {}
+
+
+def body_pile(name, dev, W=4):
+    """(sim, the fused kernel's inputs) of a BODY_PILES pile after 3 steps
+    on the card, made once."""
+    if name not in _body_states:
+        bodies, prisms = BODY_PILES[name]
+        cfg = rb.RigidBenchConfig(num_worlds=W, num_bodies=bodies, contact_mode="pallas",
+                                  spawn_xy=6.0, spawn_h=9.0, seed=5)
+        sim = (hull_scenes.hull_pile(cfg, device=dev) if prisms
+               else rb.make_executor(cfg, device=dev))
+        sim.run(3)
+        _body_states[name] = (sim, fused_inputs(sim))
+    return _body_states[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", sorted(WINDOW_OPTIONS))
+@pytest.mark.parametrize("pile", sorted(BODY_PILES))
+def test_fused_substep_bodies_in_scratch_matches_plain_bit_for_bit(card, pile, option):
+    """Each windowed specialisation of the fused kernel past its body
+    ceiling (its "...win+bodies" launch: the bodies, lists and hull rows in
+    a global scratch beside the work entries past the window) against the
+    plain version, bit for bit; two launches bit-identical; the valid slots
+    pass the window."""
+    sim, kw = body_pile(pile, card)
+    refresh, sleep = WINDOW_OPTIONS[option]
+    kern = subk.FusedSubstepKernel(sim.world_cls.objmgr, 4, relaxation=0.7,
+                                   contact_refresh=refresh)
+    W, n = kw["obj"].shape
+    K = kw["rows_i"].shape[1]
+    assert subk.fused_bodies(kern.tables, n, K, cache=refresh)
+    assert subk.kernel_fits(kern.tables, n, K, cache=refresh) == ""
+    window = subk.fused_layout_window(kern.tables, n, K, refresh)
+    assert int(kw["kvalid"].sum(1).max()) > window
+    if sleep:
+        kw = dict(kw, active=torch.arange(W, device=card) % 3 != 1)
+    subk.FusedSubstepKernel.launches_by_options.clear()
+    got, again = kern(**kw), kern(**kw)
+    torch.cuda.synchronize()
+    (name, count), = subk.FusedSubstepKernel.launches_by_options.items()
+    assert count == 2 and "win+bodies" in name
+    assert name.endswith("hull") == BODY_PILES[pile][1], name
+    want = kern.plain(**kw)
+    for k in subk.OUT_KEYS:
+        assert torch.isfinite(got[k]).all() and torch.equal(got[k], again[k]), k
+        assert torch.equal(got[k], want[k]), (k, float((got[k] - want[k]).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["substep_n816", "node_n1068_J64"])
+def test_substep_bodies_in_scratch_matches_plain_bit_for_bit(card, case):
+    """Kernel 5 past its window layout's 227 KB, with the bodies in a global
+    scratch: its JAX contract (no integrate, no joints) on rigid_bench at
+    815 bodies + the plane, and its node launch on simple_taskgraph at
+    1,064 objects (1,068 rows, K = 10,640) with random live joints among
+    its 64 joint rows; bit for bit the plain version, two launches
+    bit-identical, each counted in body_launches."""
+    subk.SubstepKernel.launches = subk.SubstepKernel.body_launches = 0
+    if case == "substep_n816":
+        sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=4, num_bodies=815,
+                                                   contact_mode="pallas"), device=card)
+        sim.run(3)
+        a = RigidBodyPhysicsSystem.substep_kernel_inputs(fused_inputs(sim))
+        tables = subk.pk.ObjTables(rb.RigidBenchWorld.objmgr)
+        n, K = a["im"].shape[1], a["rows_i"].shape[1]
+        assert subk.substep_bodies(tables, n, K)
+        assert int(a["kvalid"].sum(1).max()) > subk.SUBSTEP_WINDOW
+        subk.SubstepKernel.launches = subk.SubstepKernel.body_launches = 0
+        got, again = (subk.substep(**a, tables=tables, relaxation=0.7) for _ in range(2))
+        want = subk.substep_plain(**a, tables=tables, relaxation=0.7)
+        keys = subk.SUBSTEP_KEYS
+    else:
+        sim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=4, num_objects=1064,
+                                                          seed=3), device=card)
+        sim.run(1)
+        kern = RigidBodyPhysicsSystem.substep_kernel(sim)
+        kw = random_joints(sim, RigidBodyPhysicsSystem.next_step_kernel_inputs(
+            sim, stg.Sphere, None, node=True), num_spheres=1064)
+        n, K, J = kw["obj"].shape[1], kw["rows_i"].shape[1], kw["jmask"].shape[1]
+        assert subk.substep_bodies(kern.tables, n, K, J) and J == 64
+        rows = [entity_rows(kw["eid"], kw["joints"][e], kw["arch_index"]) for e in ("e1", "e2")]
+        assert bool((kw["jmask"] & (rows[0] >= 0) & (rows[1] >= 0)).any())
+        subk.SubstepKernel.launches = subk.SubstepKernel.body_launches = 0
+        got, again = kern.step(**kw), kern.step(**kw)
+        want = kern.step_plain(**kw)
+        keys = subk.NODE_KEYS
+    torch.cuda.synchronize()
+    assert subk.SubstepKernel.launches == subk.SubstepKernel.body_launches == 2
+    for k in keys:
+        assert torch.isfinite(got[k]).all() and torch.equal(got[k], again[k]), k
+        assert torch.equal(got[k], want[k]), (k, float((got[k] - want[k]).abs().max()))
+
+
+ENTITY64_NODE = """
+import os, sys
+import numpy as np
+import torch
+sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+from gpu_ecs_madrona_tpu_torch.core.component import ENTITY_64, Entity
+from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
+from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
+from gpu_ecs_madrona_tpu_torch.physics import RigidBodyPhysicsSystem
+from test_torch_joint_scenes import random_joints
+sim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=8, num_objects=100, seed=3),
+                        device="cuda")
+sim.run(3)
+kern = RigidBodyPhysicsSystem.substep_kernel(sim)
+kw = random_joints(sim, RigidBodyPhysicsSystem.next_step_kernel_inputs(
+    sim, stg.Sphere, None, node=True), num_spheres=100)
+subk.SubstepKernel.launches = 0
+got, want = kern.step(**kw), kern.step_plain(**kw)
+torch.cuda.synchronize()
+for k in subk.NODE_KEYS:
+    assert torch.equal(got[k], want[k]), k
+assert subk.SubstepKernel.launches == 1
+np.savez(sys.argv[1], dtype=str(sim.mgr.entity_column(sim.state, stg.Sphere).dtype),
+         wide=ENTITY_64, **{k: got[k].cpu().numpy() for k in subk.NODE_KEYS})
+print("OK")
+"""
+
+
+@pytest.mark.cuda
+def test_joint_lookup_under_64_bit_handles(card, tmp_path):
+    """Kernel 5's in-kernel joint lookup with GEM_TPU_ENTITY_64=1 (32 id
+    bits: its masks built in 64 bits), in a process of its own (the flag is
+    read at import): simple_taskgraph's node launch with random live joints
+    bit for bit its plain version, and bit for bit the same launch under
+    int32 handles (a handle of generation 0 has one value at either
+    width)."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = {}
+    for wide in (False, True):
+        env = dict(os.environ)
+        env.pop("GEM_TPU_ENTITY_64", None)
+        if wide:
+            env["GEM_TPU_ENTITY_64"] = "1"
+        path = tmp_path / f"node_{int(wide)}.npz"
+        r = subprocess.run([sys.executable, "-c", ENTITY64_NODE, str(path)], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr[-3000:]
+        out[wide] = np.load(path)
+    assert str(out[True]["dtype"]) == "torch.int64" and bool(out[True]["wide"])
+    assert str(out[False]["dtype"]) == "torch.int32" and not bool(out[False]["wide"])
+    for k in subk.NODE_KEYS:
+        assert np.array_equal(out[True][k], out[False][k]), k
 
 
 def blocked_views_case(dev, W=4, H=24, Wpx=40):

@@ -187,7 +187,8 @@ FIT_CASES = {
     # the 24-sided prism (48 verts, 24-vertex caps, 72 full edges)
     "large_prism": dict(large=True),
     # rows whose staged data passes the budget the kernel's shared memory
-    # leaves them
+    # leaves them: refused with the in-kernel broadphase, taken with the
+    # bodies in the scratch otherwise
     "over_the_budget": dict(rows={"verts": 600}, fits=False),
 }
 
@@ -197,10 +198,12 @@ def test_kernel_fits_hull_tables_and_refuses_over_the_caps(case):
     """The kernels take any general-hull table whose staged rows fit the
     shared memory beside the rest of the kernel (the prism's at the main
     path's shapes with every option and kernel 5's, the defaults filled,
-    counts past them, the 24-sided prism), and refuse one over that budget
-    by name, saying which budget broke: past one block's slot layout the
-    fused kernel takes its windowed layout, so the budget is what the
-    bodies and the smallest window leave."""
+    counts past them, the 24-sided prism).  A table over that budget is
+    refused by name where the kernel keeps its rows in shared memory, with
+    the in-kernel broadphase, saying which budget broke; without it the
+    fused kernel and kernel 5 take it with the bodies and the hull rows in
+    the global scratch (past one block's slot layout the windowed one,
+    whose smallest window the bodies and the hull rows leave no room for)."""
     spec = FIT_CASES[case]
     om = hs.large_hull_object_manager(assets, importer) if spec.get("large") else \
         dict(port_world().objmgr)
@@ -210,17 +213,23 @@ def test_kernel_fits_hull_tables_and_refuses_over_the_caps(case):
     assert not tables.all_box
     why = sk.kernel_fits(tables, 65, 256)
     if not spec.get("fits", True):
-        assert why.startswith("general-hull tables staged at") and "hull-row budget" in why, why
-        need = sk.smem_bytes(65, 256) + sk.hull_stage_bytes(tables, 65)
-        assert need > sk.MAX_SMEM_BYTES and str(sk.hull_stage_bytes(tables, 65)) in why
-        # the windowed layout's budget: the bodies and its smallest window
-        assert sk.windowed(tables, 65, 256)
-        rows = sk.fused_window_smem_bytes(65, 128, sk.block_threads(65, 256))
+        bp_why = sk.kernel_fits(tables, 65, 256, bp=True)
+        assert bp_why.startswith("general-hull tables staged at"), bp_why
+        assert "hull-row budget" in bp_why, bp_why
+        rows = sk.smem_bytes(65, 256, bp=True)
         assert rows + sk.hull_stage_bytes(tables, 65) > sk.MAX_SMEM_BYTES
-        assert f"over the {sk.MAX_SMEM_BYTES - rows} B of the hull-row budget" in why, why
-        assert "windowed kernel" in why
-        # the same table at fewer rows fits
-        assert sk.kernel_fits(tables, 9, 32) == ""
+        assert str(sk.hull_stage_bytes(tables, 65)) in bp_why
+        assert f"over the {sk.MAX_SMEM_BYTES - rows} B of the hull-row budget" in bp_why, bp_why
+        # without the broadphase: the windowed layout's smallest window does
+        # not fit beside the bodies and the hull rows, so both go to the
+        # scratch; kernel 5 likewise
+        assert why == "" and sk.windowed(tables, 65, 256)
+        assert sk.fused_window(65, 256, False, sk.hull_stage_bytes(tables, 65)) == 0
+        assert sk.fused_bodies(tables, 65, 256)
+        assert sk.substep_bodies(tables, 104, 1000, 64)
+        assert sk.kernel_fits(tables, 104, 1000, single=True, joints=64) == ""
+        # the same table at fewer rows fits the shared memory
+        assert sk.kernel_fits(tables, 9, 32, bp=True) == ""
         return
     assert why == ""
     if case == "prism":

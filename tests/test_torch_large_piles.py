@@ -26,6 +26,20 @@ kernel's instance blocks, as a user's configuration reaches them.
     atol 1e-3 where both hit, hit masks equal (tests/test_render_pallas.py's
     tolerances).
 
+Past the body-row ceilings (the bodies in a global scratch on the card):
+
+  - simple_taskgraph at 2 worlds x 1,000 spheres (1,004 rows, K = 10,000,
+    its 64-row joint archetype: kernel 5's node, its plain version here)
+    against JAX's pairs mode from one JAX-initialised state, 2 steps of 2
+    substeps: the physics slice's gates (poses 1e-4, velocities 1e-3);
+  - rigid_bench at 2 worlds x 1,023 boxes + the plane (1,024 rows, K =
+    4,092; "auto": the fused kernel's plain version and sap) against JAX's
+    "pairs" mode, one step, as at 255 boxes.
+
+Both compile a JAX world at these shapes for tens of seconds, so they are
+``slow``; their Tier-1 twins check the layout the port's executors take at
+those shapes, with no JAX world.
+
 One JAX executor serves the piles (one compile, module fixture).  The
 contact-refresh pile past the window is tests/test_torch_large_refresh.py.
 """
@@ -41,12 +55,14 @@ import jax.numpy as jnp
 from gpu_ecs_madrona_tpu import ExecutorConfig as JExecutorConfig
 from gpu_ecs_madrona_tpu import TaskGraphExecutor as JTaskGraphExecutor
 from gpu_ecs_madrona_tpu.models import rigid_bench as jrb
+from gpu_ecs_madrona_tpu.models import simple_taskgraph as jstg
 from gpu_ecs_madrona_tpu.render import renderer as jrenderer
 from gpu_ecs_madrona_tpu.utils import importer as jimporter
 
 from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExecutor
 from gpu_ecs_madrona_tpu_torch.interop import state_from_numpy, state_to_numpy
 from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
+from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
 from gpu_ecs_madrona_tpu_torch.ops import render_kernel as rk
 from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
 
@@ -193,3 +209,86 @@ def test_large_render_plain_matches_jax_batched_route():
     np.testing.assert_array_equal(hit, np.isfinite(want_depth))
     np.testing.assert_allclose(got_depth[hit], want_depth[hit], rtol=1e-4, atol=1e-3)
     assert np.abs(got_rgba.astype(int) - want_rgba.astype(int)).max() <= 1
+
+
+# -- past the body-row ceilings -------------------------------------------------
+
+XPILE = dict(PILE, num_bodies=1023)
+STG_LARGE = dict(num_worlds=2, num_objects=1000, num_substeps=2, seed=3)
+
+
+def test_auto_takes_the_bodies_in_scratch_past_the_window_ceiling():
+    """rigid_bench at 1,023 boxes (1,024 rows, K = 4,092): "auto" takes the
+    fused kernel and sap, and the shape passes the windowed layout's body
+    ceiling, so on the card the bodies go to the global scratch, which
+    kernel_fits takes."""
+    sim = port_sim(XPILE)
+    assert "physics_substeps_fused" in sim.graph.node_names
+    node = next(nd for nd in sim.graph.nodes if nd.name == "bp_find_overlaps")
+    assert node.run.__name__ == "find_overlaps_sap"
+    tables = sk.pk.ObjTables(rb.RigidBenchWorld.objmgr)
+    n, K = XPILE["num_bodies"] + 1, 4 * XPILE["num_bodies"]
+    assert sk.fused_window(n, K) == 0 and sk.fused_bodies(tables, n, K)
+    assert sk.kernel_fits(tables, n, K) == ""
+
+
+def test_simple_taskgraph_at_1000_objects_takes_kernel_5_with_the_bodies_in_scratch():
+    """simple_taskgraph at 1,000 objects: the kernel-mode substep nodes
+    (its 64-row joint archetype) at 1,004 rows and K = 10,000, past kernel
+    5's window layout, so on the card the bodies go to the global scratch,
+    which kernel_fits takes (it refused them before)."""
+    sim = stg.make_executor(stg.SimpleTaskgraphConfig(**STG_LARGE), device="cpu")
+    assert "physics_substep_0" in sim.graph.node_names
+    assert "physics_substeps_fused" not in sim.graph.node_names
+    kern = next(nd for nd in sim.graph.nodes if nd.name == "physics_substep_0").run.kernel
+    n = sim.mgr.registry.archetypes["StgSphere"].capacity
+    K = sim.mgr.registry.archetypes["CandidateRowsTemporary"].capacity
+    J = sim.mgr.registry.archetypes["JointArchetype"].capacity
+    assert (n, K, J) == (1004, 10000, 64)
+    assert sk.substep_bodies(kern.tables, n, K, J)
+    assert sk.substep_smem_bytes(n, K, J) > sk.MAX_SMEM_BYTES
+    assert sk.kernel_fits(kern.tables, n, K, single=True, joints=J) == ""
+
+
+@pytest.mark.slow
+def test_large_simple_taskgraph_two_steps_match_jax_pairs():
+    """simple_taskgraph at 2 worlds x 1,000 spheres from JAX's initial
+    state, 2 steps of 2 substeps: the port's kernel-mode nodes (kernel 5's
+    plain version) against JAX's pairs mode; after the first step the
+    one-step gates (poses atol 1e-4, velocities 1e-3), after the second the
+    gates of more steps (positions 1e-3, velocities 1e-2: the two routes
+    sum in other orders, and 1,000 crowded spheres part faster than the
+    48 of tests/test_torch_simple_taskgraph.py); masks and overflow exact."""
+    jcfg = jstg.SimpleTaskgraphConfig(**STG_LARGE)
+    jsim = JTaskGraphExecutor(jstg.SimpleTaskgraphWorld.with_config(jcfg), JExecutorConfig(
+        num_worlds=jcfg.num_worlds, max_entities_per_world=jcfg.num_objects + 8,
+        seed=jcfg.seed, donate=False))
+    psim = stg.make_executor(stg.SimpleTaskgraphConfig(**STG_LARGE), device="cpu")
+    psim.state = state_from_numpy(to_np(jsim.state), "cpu")
+    sk.SubstepKernel.launches = 0
+    for step, (pose_tol, vel_tol) in enumerate(((1e-4, 1e-3), (1e-3, 1e-2))):
+        jsim.step()
+        psim.step()
+        want, got = to_np(jsim.state), state_to_numpy(psim.state)
+        for arch in ("StgSphere", "StgAgent"):
+            np.testing.assert_array_equal(got["arch"][arch]["mask"], want["arch"][arch]["mask"])
+            cw, cg = want["arch"][arch]["comps"], got["arch"][arch]["comps"]
+            comps = ("Position", "Rotation") if step == 0 else ("Position",)
+            for comp in comps:
+                np.testing.assert_allclose(cg[comp]["value"], cw[comp]["value"], atol=pose_tol,
+                                           rtol=0, err_msg=f"step {step + 1} {arch} {comp}")
+            for k in ("linear", "angular"):
+                np.testing.assert_allclose(cg["Velocity"][k], cw["Velocity"][k], atol=vel_tol,
+                                           rtol=0, err_msg=f"step {step + 1} {arch} {k}")
+        for name, a in want["overflow"].items():
+            np.testing.assert_array_equal(got["overflow"][name], a, err_msg=name)
+    assert sk.SubstepKernel.launches == 0          # CPU: the plain version
+
+
+@pytest.mark.slow
+def test_xlarge_pile_one_step_matches_jax_pairs():
+    """rigid_bench at 2 worlds x 1,023 boxes from JAX's initial state, one
+    step: the port's fused plain version and sap under "auto" against JAX's
+    pairs mode, the one-step gates of the 255-box pile."""
+    run = jax_pile(XPILE, steps=1)
+    assert_one_step(run[1], port_run(run[0], 1, XPILE))

@@ -290,9 +290,11 @@ def test_auto_contact_mode_is_the_kernel_above_48_rows():
 def test_kernel_refuses_general_hulls_on_the_card_path():
     """The CUDA route takes general hulls whose staged rows fit its shared
     memory (here the box taken as a general hull, also padded to 40 table
-    verts, past PhysicsLoader()'s default 32) and refuses, by name, those
-    whose rows do not (here 600 table verts at 65 rows); all-box tables
-    take the box paths."""
+    verts, past PhysicsLoader()'s default 32); those whose rows do not (here
+    600 table verts at 65 rows) it takes with the bodies and hull rows in a
+    global scratch, and refuses them, by name, only with the in-kernel
+    broadphase, which keeps its rows in shared memory; all-box tables take
+    the box paths."""
     om = dict(rb.default_object_manager())
     om["hull_is_box"] = np.zeros_like(om["hull_is_box"])
     assert sk.kernel_fits(sk.pk.ObjTables(om), 65, 256) == ""
@@ -300,7 +302,9 @@ def test_kernel_refuses_general_hulls_on_the_card_path():
     assert sk.kernel_fits(sk.pk.ObjTables(om), 65, 256) == ""
     om["verts"] = np.pad(om["verts"], ((0, 0), (0, 560), (0, 0)))
     tables = sk.pk.ObjTables(om)
-    why = sk.kernel_fits(tables, 65, 256)
+    assert sk.kernel_fits(tables, 65, 256) == "" and sk.fused_bodies(tables, 65, 256)
+    assert sk.kernel_fits(tables, 65, 256, single=True, joints=64) == ""
+    why = sk.kernel_fits(tables, 65, 128, bp=True)
     assert why.startswith("general-hull tables staged at") and "600 verts" in why, why
     assert f"need {sk.hull_stage_bytes(tables, 65)} B" in why and "hull-row budget" in why
     assert sk.kernel_fits(sk.pk.ObjTables(rb.default_object_manager()), 65, 256) == ""
@@ -311,15 +315,19 @@ def test_kernel_refuses_general_hulls_on_the_card_path():
                                       (65, 2000, "window")])
 def test_kernel_fits_checks_shared_memory(n, K, fits):
     """Shapes whose slot layout passes the 227 KB a block may have take the
-    windowed layout, and those whose bodies leave it no room are refused
-    with a reason that names the limit, not launched to fail."""
+    windowed layout, and those whose bodies leave it no room (``fits``
+    False: no layout in one block) the bodies in a global scratch; the
+    in-kernel broadphase, which has neither, refuses such shapes with a
+    reason that names the limit, not launched to fail."""
     tables = sk.pk.ObjTables(rb.default_object_manager())
     why = sk.kernel_fits(tables, n, K)
-    assert (why == "") == bool(fits)
+    assert why == ""
     assert (sk.smem_bytes(n, K) <= sk.MAX_SMEM_BYTES) == (fits == "slots")
     assert sk.windowed(tables, n, K) == (fits != "slots")
-    if not fits:
-        assert "shared memory" in why and str(sk.MAX_SMEM_BYTES) in why
+    assert sk.fused_bodies(tables, n, K) == (not fits)
+    if fits != "slots" and n <= sk.MAX_BP_ROWS:
+        why = sk.kernel_fits(tables, n, K, bp=True)
+        assert "shared memory" in why and str(sk.MAX_SMEM_BYTES) in why, why
 
 
 def test_kernel_table_is_built_once_per_device():

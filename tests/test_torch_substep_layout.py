@@ -242,13 +242,125 @@ def test_kernel_fits_takes_the_piles_past_one_block(case):
 @pytest.mark.parametrize("cache,ceiling", [(False, 968), (True, 894)])
 def test_windowed_body_ceiling_is_refused_by_name(cache, ceiling):
     """The windowed layout's ceiling: the bodies whose rows leave room for
-    its smallest window (a round of the block's 128 threads) beside them;
-    one body more is refused by the window budget's name."""
+    its smallest window (a round of the block's 128 threads) beside them.
+    Up to it the shapes keep the windowed layout; one body more, which it
+    refused by its window budget's name, and 1,023 bodies (1,024 rows) now
+    take the bodies in the scratch, with a window that lets WIN_BLOCKS CTAs
+    share an SM."""
     tables = sk.pk.ObjTables(rb.default_object_manager())
-    assert sk.kernel_fits(tables, ceiling + 1, 4 * ceiling, cache=cache) == ""
-    why = sk.kernel_fits(tables, ceiling + 2, 4 * (ceiling + 1), cache=cache)
-    assert "window budget" in why and str(sk.MAX_SMEM_BYTES) in why, why
-    assert f"n={ceiling + 2}" in why and "smallest window of 128" in why
+    n, K = ceiling + 1, 4 * ceiling
+    assert sk.kernel_fits(tables, n, K, cache=cache) == ""
+    assert sk.windowed(tables, n, K, cache=cache) and not sk.fused_bodies(tables, n, K,
+                                                                          cache=cache)
+    assert sk.fused_layout_window(tables, n, K, cache) == sk.fused_window(n, K, cache) >= 128
+    for bodies in (ceiling + 1, 1023):
+        n, K = bodies + 1, 4 * bodies
+        assert sk.fused_window(n, K, cache) == 0
+        assert sk.kernel_fits(tables, n, K, cache=cache) == ""
+        assert sk.fused_bodies(tables, n, K, cache=cache)
+        kw = sk.fused_layout_window(tables, n, K, cache)
+        assert kw == sk.body_window(n, K, cache) > 128
+        T = sk.block_threads(n, K)
+        budget = 228 * 1024 // sk.WIN_BLOCKS - 1024
+        assert sk.body_window_smem_bytes(n, kw, T, cache) <= budget
+        assert sk.body_window_smem_bytes(n, kw + 1, T, cache) > budget
+
+
+def cu_return_expr(name):
+    """The expression a one-line .cu function ``name`` returns, with its
+    casts and sizeofs taken out (every sizeof there is of a 4-byte type)."""
+    body = CU[CU.index(f" {name}("):]
+    expr = re.search(r"return (.*?);", body[:body.index("\n}\n")], re.S).group(1)
+    expr = re.sub(r"static_cast<\w+>\((\w+)\)", r"\1", " ".join(expr.split()))
+    return expr.replace("sizeof(float)", "4").replace("sizeof(int)", "4")
+
+
+@pytest.mark.parametrize("which", ["boxes", "prism", "large"])
+@pytest.mark.parametrize("n", [1, 65, 816, 1024])
+def test_body_scratch_mirror_equals_the_cu(which, n):
+    """body_bytes and body_scratch_floats are the .cu's: the rows, lists'
+    offsets and cursors the window layouts keep in shared memory, and a
+    world's slice of the body scratch (with the staged hull rows)."""
+    c = cu_constants()
+    tables = (sk.pk.ObjTables(rb.default_object_manager()) if which == "boxes"
+              else hull_tables(which))
+    env = dict(c, nn=n, hull_stride=sk.hull_stage_floats(tables))
+    assert sk.body_bytes(n) == eval(cu_return_expr("body_bytes"), {}, env)
+    assert sk.body_scratch_floats(n, tables) == eval(cu_return_expr("body_scratch_floats"), {},
+                                                     env)
+    scratch = sk.body_scratch(3, n, tables, "cpu")
+    assert scratch.dtype == sk.torch.float32
+    assert tuple(scratch.shape) == (3, sk.body_scratch_floats(n, tables))
+
+
+def test_body_layout_limits_match_the_cu():
+    """The bodies-in-scratch option bit, its body channels, and the budget
+    its window is sized for: WIN_BLOCKS CTAs an SM, each the SM's 228 KB
+    shared less the 1 KB a block reserves."""
+    c = cu_constants()
+    assert sk.OPT_BODY == c["kOptBody"] == 64
+    assert sk.BODY_CH == c["kBodyCh"]
+    assert sk.option_name(sk.OPT_WIN | sk.OPT_BODY | sk.OPT_REFRESH | sk.OPT_HULL) == (
+        "refresh+win+bodies+hull")
+    body = CU[CU.index(" body_window("):]
+    budget = re.search(r"const size_t budget = (.*?);", body[:body.index("\n}\n")]).group(1)
+    assert eval(budget.replace("/", "//"), {}, c) == 228 * 1024 // 2 - 1024
+
+
+# kernel 5's shapes about its window layout's ceiling: (rows, K, joints,
+# the bodies in the scratch)
+KERNEL5_SHAPES = [(799, 1000, 64, False), (800, 1000, 64, True), (815, 1000, 0, False),
+                  (816, 1000, 0, True), (1004, 10000, 64, True), (1068, 10640, 64, True)]
+
+
+@pytest.mark.parametrize("n,K,J,bodies", KERNEL5_SHAPES)
+def test_kernel5_takes_the_bodies_in_scratch_past_its_window_layout(n, K, J, bodies):
+    """Kernel 5 keeps its window layout while it fits one block (799 rows
+    with simple_taskgraph's 64 joint rows, 815 without joints) and takes
+    the bodies in the scratch past it: simple_taskgraph at 1,000 objects
+    (1,004 rows, K = 10,000) among them, whose shared memory is then the
+    window and the joints, ~50 KB."""
+    tables = sk.pk.ObjTables(stg.OBJMGR)
+    assert sk.kernel_fits(tables, n, K, single=True, joints=J) == ""
+    assert sk.substep_bodies(tables, n, K, J) == bodies
+    assert (sk.substep_smem_bytes(n, K, J) > sk.MAX_SMEM_BYTES) == bodies
+    need = sk.substep_body_smem_bytes(n, K, J)
+    assert need == sk.substep_smem_bytes(n, K, J) - sk.body_bytes(n)
+    if bodies:
+        assert need < 52 * 1024
+    # the general-hull tables' staged rows move with the bodies: the
+    # 24-sided prism's at these rows take the scratch too
+    large = hull_tables("large")
+    assert sk.substep_bodies(large, n, K, J) and sk.kernel_fits(large, n, K, single=True,
+                                                                 joints=J) == ""
+
+
+def test_kernel5_refuses_only_joints_past_one_block():
+    """With the bodies in the scratch, kernel 5's shared memory is its window
+    and its joints (12 floats and 2 ints each): only a joint count whose
+    rows pass 227 KB is refused, by name."""
+    tables = sk.pk.ObjTables(stg.OBJMGR)
+    J = 1
+    while sk.substep_body_smem_bytes(1004, 10000, J + 1) <= sk.MAX_SMEM_BYTES:
+        J += 1
+    assert sk.kernel_fits(tables, 1004, 10000, single=True, joints=J) == ""
+    why = sk.kernel_fits(tables, 1004, 10000, single=True, joints=J + 1)
+    assert f"{J + 1} joints" in why and "bodies in the scratch" in why, why
+
+
+@pytest.mark.parametrize("bodies,cache,fits_one_block",
+                         [(370, False, True), (371, False, False), (512, False, False),
+                          (341, True, True), (342, True, False)])
+def test_prism_pile_ceiling_takes_the_bodies_in_scratch(bodies, cache, fits_one_block):
+    """The imported-prism pile: its windowed layout, hull rows staged beside
+    the bodies, fits up to 370 bodies (341 with contact refresh); past that
+    the bodies and the hull rows go to the scratch."""
+    tables = hull_tables("prism")
+    n, K = bodies + 1, 4 * bodies
+    assert sk.windowed(tables, n, K, cache=cache)
+    assert sk.kernel_fits(tables, n, K, cache=cache) == ""
+    assert sk.fused_bodies(tables, n, K, cache=cache) != fits_one_block
+    assert (sk.fused_window(n, K, cache, sk.hull_stage_bytes(tables, n)) > 0) == fits_one_block
 
 
 def test_hull_table_layout_matches_the_cu():
