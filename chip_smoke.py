@@ -2,11 +2,12 @@
 """Chip smoke test of the PyTorch/CUDA port (gpu_ecs_madrona_tpu_torch).
 
 Drives the port's main paths on one CUDA card — the collisions example at
-8192 worlds x 100 cubes, simple_jobs at 1024 worlds x 100 objects,
+8192 worlds x 100 cubes, simple_jobs at 1024 worlds x 100 and x 2,048 objects,
 fantasy_vs at 16384 worlds x 50 dragons + 200 knights, rigid_bench
 (rigid-body physics) at 8192 worlds x 64 bodies (also with the broadphase
 in the fused kernel, and the settled pile with its options; at 32 bodies
-in the dense contact mode, and at 200, 255 and 1,023 with the sap broadphase; and a pile of
+in the dense contact mode, and at 200, 255 and 1,023 with the sap broadphase; chains of
+boxes in 4,096 joint rows; and a pile of
 convex hulls imported from an .obj file, at 64 bodies and at the settled
 pile's options, also of a 24-sided prism past PhysicsLoader()'s default
 caps) and simple_taskgraph
@@ -42,8 +43,9 @@ Phases:
            main shapes (1024 x 100, K=1600, D=32, the executor's initial
            state), a dense cluster with D=4 (dropped > 0), K=128 with more
            pairs (slots cut), coincident bodies in one corner, n0=37, a
-           touching grid (AABBs meeting on closed slabs) and a dense
-           cluster with D=32 (every row past the cap, K cut); ab, counts,
+           touching grid (AABBs meeting on closed slabs), a dense
+           cluster with D=32 (every row past the cap, K cut) and 8 worlds
+           of 2,048 bodies, K = 32,768 (the rounds layout); ab, counts,
            dropped, lo and hi exact, normals atol 1e-5, translation atol
            1e-4, all finite, a repeated launch bit-identical
   golden   the reference binary's collisions trajectory
@@ -92,7 +94,13 @@ Phases:
            tests/test_torch_joint_scenes.py (256 worlds, live Fixed and
            Hinge joints) and on simple_taskgraph's state with its random
            joints (16 worlds: several on a body, a null handle, a handle
-           into another archetype); poses and stashes atol 1e-4, velocities atol
+           into another archetype); rigid_bench's boxes with the table padded
+           to 9 and 32 verts a hull and with the box's 12 and 20 live verts
+           (the wide-box build: the fused kernel with and without contact
+           refresh at the K=256 state, kernel 5's node on the joint world
+           after 30 steps, its free box tilted into the plane), bit for bit
+           the plain version, the padded ones also the box table's launch;
+           poses and stashes atol 1e-4, velocities atol
            1e-3, all finite, a repeated launch and a repeated plain run
            bit-identical (both are also held at the simple_taskgraph main
            state, in the timing phase); and the fused kernel past one block's
@@ -158,6 +166,18 @@ Phases:
            positions, counters 0 (the node's one launch writes them)
   main_simple_jobs_unfused   fused=False, rank compaction, 50 steps; no
            kernel launch
+  main_simple_jobs_large   simple_jobs at 1024 worlds x 2,048 objects, K =
+           32,768 (the config's 16 slots an object), D = 32, fused=None:
+           kernel 4's rounds layout, one launch a step; at the executor's
+           initial state the launch against its plain version on 8 worlds
+           (integers, lo and hi exact, translation atol 1e-4, normals 1e-5)
+           and a repeat bit-identical on every world; after 3 steps the
+           same with the normals within 1e-5 and the translation within
+           SJL_F64_ATOL of the push in float64 (both sums' distances
+           reported); 3 windows of 10 steps (launches = steps,
+           counters 0, finite positions); the launch's ms beside its bound
+           and its plain version's (8 worlds); the rank path (fused=False)
+           at 256 worlds, its step
   main_fantasy_vs   16384 worlds x 50 dragons + 200 knights, cleanup on, 3
            warm-up steps then 5 windows of 50; live counts never rise,
            overflow counters 0, finite positions
@@ -300,6 +320,15 @@ Phases:
            on 4 worlds bit for bit their plain version (each the last's
            pose and velocities in), the node launch's ms beside its bound
            and its plain version's, and CTAs an SM
+  main_joint_rows_large   the chains' world of tests/test_torch_joint_scenes.py
+           at 1024 worlds x 68 chains of 16 boxes (1,089 rows, K = 2,048),
+           4,096 joint rows of which 1,020 live (alternating Fixed and
+           Hinge), kernel mode: four kernel-5 launches a step with the joint
+           rows in the body scratch (joint_scratch_launches); 3 steps, the
+           step's four node launches on 4 worlds bit for bit their plain
+           version, 3 windows of 10 (launches = {substep: 4 x steps});
+           env-steps/s, a step's device ms, peak memory, the node launch's
+           ms beside its bound and its plain version's
   main_render_large   the render node of a BatchRenderer with backend
            "auto" (checked to resolve to the kernel) on 256 worlds of 4,096
            instance rows (the large scene's instances, one 64 x 64 view a
@@ -423,12 +452,22 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 NUM_WORLDS = 8192        # collisions
 SJ_WORLDS, SJ_OBJECTS, SJ_K, SJ_D = 1024, 100, 1600, 32   # simple_jobs
+# main_simple_jobs_large: simple_jobs past kernel 4's one-block layout, the
+# config's 16 slots an object
+SJL_WORLDS, SJL_OBJECTS, SJL_K, SJL_D = 1024, 2048, 32768, 32
 FVS_WORLDS = 16384       # fantasy_vs
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12      # H100 SXM fp32, outside the tensor cores
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """Prints obj as a JSON line; a phase's line with at_s, the script's
+    seconds when it ended (where a run's time goes)."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -658,8 +697,9 @@ def golden_fvs(torch, fvs):
 
 
 def parity_simple_jobs(torch, sj, sk, dev):
-    """fused_simple_jobs_step vs its plain version on the five cases; returns
-    (the phase's line, the largest float error)."""
+    """fused_simple_jobs_step vs its plain version on its cases (the last,
+    n0 = 2,048, in the rounds layout); returns (the phase's line, the
+    largest float error)."""
     bounds = (sj.BOUNDS_LO, sj.BOUNDS_HI)
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -690,6 +730,9 @@ def parity_simple_jobs(torch, sj, sk, dev):
         # the float32 re-test), and every body past the degree cap, K cut
         "touching_grid": (*numpy_case(sj_cases.touching_grid(4, 5, 5, 4)), SJ_K, SJ_D),
         "dense_cluster": (*numpy_case(sj_cases.dense_cluster(4, 64, SJ_OBJECTS)), SJ_K, SJ_D),
+        # past the one-block layout: the rounds layout at 2,048 bodies over
+        # the example's bounds (dense: rows past D, slots past K)
+        "n0_2048_rounds": (*bodies(8, SJL_OBJECTS, 10.0), SJL_K, SJL_D),
     }
     out, worst = {}, 0.0
     names = ("translation", "lo", "hi", "ab", "normals", "counts", "dropped")
@@ -722,6 +765,8 @@ def parity_simple_jobs(torch, sj, sk, dev):
     check(out["coincident_corner"]["pairs_kept"] > 0, "coincident case kept no pair")
     check(out["dense_cluster"]["dropped"] > 0 and out["dense_cluster"]["counts_over_K"] > 0,
           "dense-cluster case dropped no pair or cut no slot")
+    check(sk.rounds(SJL_OBJECTS) and out["n0_2048_rounds"]["dropped"] > 0,
+          "n0 = 2048: not the rounds layout, or no pair dropped")
     tg = cases["touching_grid"][0]
     d = (tg[0, :, None] - tg[0, None]).abs().amax(-1)
     check(touching_world0 == int(((d <= 2.0) & (d > 0)).sum()),
@@ -1058,6 +1103,100 @@ def parity_window(torch, rb, phys, sk):
     return cases, max(max(c["max_err"].values()) for c in cases.values())
 
 
+# parity_substep's all-box tables wider than a box's 8 verts a hull: padded
+# to 9 and 32 verts (bit for bit the box table), and the first box with 12
+# and 20 live verts (its corners and edge midpoints: more live hull-plane
+# candidates than 8 and than pairs.py's 12)
+WIDE_BOX_TABLES = (9, 32, "12 live", "20 live")
+
+
+def wide_box_table(om, table):
+    hs = hull_scenes()
+    if isinstance(table, int):
+        return hs.padded_verts(om, table)
+    return hs.live_vert_box(om, int(table.split()[0]))
+
+
+def box_plane_slots(torch, tables, kw):
+    """Valid candidate slots of kw that pair the first box with a plane."""
+    import numpy as np
+    o = int(np.flatnonzero(tables.om["prim_type"] == 1)[0])
+    obj = kw["obj"].long()
+    oi = torch.gather(obj, 1, kw["rows_i"].long())
+    oj = torch.gather(obj, 1, kw["rows_j"].long())
+    plane = torch.as_tensor(tables.om["prim_type"] == 2, device=obj.device)
+    return int((kw["kvalid"].bool() & (((oi == o) & plane[oj]) | ((oj == o) & plane[oi])))
+               .sum())
+
+
+def wide_box_cases(torch, rb, sk, phys, joint_scenes, kw):
+    """The wide all-box tables (WIDE_BOX_TABLES): the fused kernel without
+    and with contact refresh at the K = 256 state ``kw``, and kernel 5's
+    node on the joint world after 30 steps (its free box on the plane,
+    tilted 40 degrees about x and sunk to z = 0.25, so that edge midpoints
+    are among its deepest 4 and below the plane), each launched twice, bit
+    for bit their plain versions; the padded tables also bit for bit the
+    box table's launch, the live ones not (their extra verts count).  The
+    first box meets the plane in valid slots of both inputs.  Returns {case:
+    line}; "wide_box_vm32_K256" also holds the launch's ms beside the box
+    table's (20 calls each)."""
+    import copy
+    import math
+    cases = {}
+    om = rb.RigidBenchWorld.objmgr
+    check(box_plane_slots(torch, sk.pk.ObjTables(om), kw) > 0, "wide box: no box-plane slot")
+    jsim = joint_scenes.joint_world("pallas", num_worlds=256, device="cuda")
+    jsim.run(30)
+    kern5 = phys.RigidBodyPhysicsSystem.substep_kernel(jsim)
+    jkw = phys.RigidBodyPhysicsSystem.next_step_kernel_inputs(jsim, None, None, node=True)
+    del jsim
+    jkw["pos"], jkw["rot"] = jkw["pos"].clone(), jkw["rot"].clone()
+    jkw["pos"][:, 5, 2] = 0.25
+    jkw["rot"][:, 5] = torch.tensor([math.cos(math.radians(20)), math.sin(math.radians(20)),
+                                     0.0, 0.0])
+    check(box_plane_slots(torch, kern5.tables, jkw) == 256,
+          "wide box node: the free box does not meet the plane in every world")
+    own5 = kern5.step(**jkw)
+    for table in WIDE_BOX_TABLES:
+        tag = f"vm{table}" if isinstance(table, int) else table.replace(" ", "_")
+        padded = isinstance(table, int)
+        wide_om = wide_box_table(om, table)
+        for refresh in (False, True):
+            box = sk.FusedSubstepKernel(om, 4, relaxation=0.7, contact_refresh=refresh)
+            wide = sk.FusedSubstepKernel(wide_om, 4, relaxation=0.7, contact_refresh=refresh)
+            check(sk.wide_box(wide.tables), f"wide box {table}: not a wide all-box table")
+            got, again, own = wide(**kw), wide(**kw), box(**kw)
+            want = wide.plain(**kw)
+            torch.cuda.synchronize()
+            errs = {}
+            for k in sk.OUT_KEYS:
+                check(torch.equal(got[k], again[k]), f"wide box {table} {k}: a repeat differs")
+                check(torch.equal(got[k], own[k]) or not padded,
+                      f"wide box {table} {k}: differs from the box table's launch")
+                errs[k] = max_err(got[k], want[k])
+                check(errs[k] == 0.0, f"wide box {table} {k}: {errs[k]} from the plain version")
+            name = f"wide_box_{tag}_K256" + ("_refresh" if refresh else "")
+            cases[name] = {"W": kw["obj"].shape[0], "K": kw["rows_i"].shape[1],
+                           "Vm": wide.tables.Vm, "max_err": errs,
+                           "equals_box_table": all(torch.equal(got[k], own[k])
+                                                   for k in sk.OUT_KEYS)}
+            if table == 32 and not refresh:
+                cases[name].update(ms=cuda_ms(torch, lambda: wide(**kw), 20),
+                                   box_table_ms=cuda_ms(torch, lambda: box(**kw), 20))
+        wide5 = copy.copy(kern5)
+        wide5.tables = sk.pk.ObjTables(wide_box_table(kern5.tables.om, table))
+        errs = node_case(torch, sk, wide5, jkw, exact=True)
+        got = wide5.step(**jkw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(got[k], own5[k]) for k in sk.NODE_KEYS)
+        check(same == padded, f"wide box node {table}: the box table's launch "
+              + ("differs" if padded else "is the same: the live verts went unread"))
+        cases[f"wide_box_{tag}_substep_node_joint_world"] = {
+            "kernel": "substep", "Vm": wide5.tables.Vm, "max_err": errs,
+            "equals_box_table": same}
+    return cases
+
+
 def parity_substep(torch, rb, phys, sk, sap_sim):
     """fused_substep vs its plain version: the main path's shapes after 3
     steps at K = 256 and 128, the initial uniform spawn, tables without
@@ -1076,6 +1215,7 @@ def parity_substep(torch, rb, phys, sk, sap_sim):
             spawn = fused_inputs(sim, rb, phys)
         sim.run(3)
         kw = fused_inputs(sim, rb, phys)
+        kw256 = kw if K == 256 else kw256
         kern = sk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
         errs = substep_case(torch, sk, kern, kw)
         cases[f"main_K{K}"] = {"W": RB_WORLDS, "n": RB_BODIES + 1, "K": K,
@@ -1118,6 +1258,10 @@ def parity_substep(torch, rb, phys, sk, sap_sim):
     cases["substep_node_joint_world"] = {
         "kernel": "substep", "W": 256, "live_joints": live,
         "max_err": node_case(torch, sk, phys.RigidBodyPhysicsSystem.substep_kernel(jsim), jkw)}
+    # all-box tables past a box's 8 verts a hull, through the fused kernel
+    # and kernel 5's node
+    cases.update(wide_box_cases(torch, rb, sk, phys, joint_scenes, kw256))
+    del kw256
     # and on simple_taskgraph's state with random live joints (several on
     # one body and side, a null handle, a handle into another archetype)
     from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
@@ -1142,10 +1286,7 @@ def parity_substep(torch, rb, phys, sk, sap_sim):
     for c in cases.values():
         if "kernel" not in c:
             worst = max(worst, max(c["max_err"].values()))
-    worst1 = max(max(cases[c]["max_err"].values())
-                 for c in ("single_substep_main_K256", "substep_node_joint_world",
-                           "substep_node_random_joints", "bodies_substep_n816",
-                           "bodies_substep_node_n1068_J64"))
+    worst1 = max(max(c["max_err"].values()) for c in cases.values() if "kernel" in c)
     return {"phase": "parity_substep", "cases": cases, "repeat": "bit-identical (kernel and plain)",
             "atol": {"pose_and_stashes": 1e-4, "velocities": 1e-3, "windowed": 0.0,
                      "bodies_in_scratch": 0.0}}, worst, worst1, worst_window
@@ -3131,6 +3272,223 @@ def node_chain_case(torch, sk, kern, kw, launches=4):
     return errs
 
 
+# main_simple_jobs_large: windows ended by a synchronise; the plain version
+# (its [W, n0, n0, 3] push grid) on SJL_PLAIN_WORLDS worlds; the rank path
+# (fused=False), the route the parent took there, at SJL_RANK_WORLDS worlds
+# (its [W, n0, n0] int64 scatter index alone is 34 GB at 1,024 worlds)
+SJL_STEPS, SJL_WINDOWS = 10, 3
+SJL_PLAIN_WORLDS, SJL_RANK_WORLDS = 8, 256
+# After 3 steps rows sum ~110-190 pushes to |sum| ~180, which the kernel
+# adds one after another: its translation's distance from the push in
+# float64 (push_f64) is gated at twice the largest reading of its sound runs
+# (6.17e-4 on an H100; the plain version's, in PyTorch's order, 1.71e-4).
+SJL_F64_ATOL = 1.25e-3
+# main_joint_rows_large: the chains' world (tests/test_torch_joint_scenes.py)
+# at JRL_CHAINS chains of 16 boxes (1,088 bodies + the plane, 1,020 live
+# joints a world) in 4,096 joint rows, K = JRL_K
+JRL_WORLDS, JRL_CHAINS, JRL_K = 1024, 68, 2048
+JRL_STEPS, JRL_WINDOWS = 10, 3
+
+
+def push_f64(torch, sk, pos, rot, bounds):
+    """The fused step's translation evaluated in float64 (the plain
+    version's formula: clamp, the overlap grid from the float32 AABBs, the
+    centred push), the reference both float32 sums are measured against."""
+    p = sk.clamp_to_bounds(pos, bounds)
+    lo, hi = sk.aabb_plain(p, rot)
+    ok = sk.overlap_grid(lo, hi)
+    p64 = p.double()
+    pc = p64 - p64.mean(dim=1, keepdim=True)
+    diff = pc[:, None, :, :] - pc[:, :, None, :]
+    d2 = (diff * diff).sum(-1)
+    m = torch.where(ok & (d2 > 1e-12), torch.rsqrt(d2.clamp(min=1e-30)), 0.0)
+    return p64 - 2.0 * (m[..., None] * diff).sum(dim=2)
+
+
+def main_simple_jobs_large(torch, sj, sk, card, reset_counts, read_counts):
+    """simple_jobs at 1,024 worlds x 2,048 objects, K = 32,768, D = 32,
+    fused=None on the card: kernel 4's rounds layout, one launch a step.
+    The launch at the executor's initial state against its plain version
+    on SJL_PLAIN_WORLDS worlds (integers, lo and hi exact, translation atol
+    1e-4, normals 1e-5; a repeat bit-identical on every world); windows of
+    SJL_STEPS steps; the same comparison after 3 steps, the normals still
+    within 1e-5 (per pair, from exact clamped positions: no sum order
+    touches them) and the translation, which the kernel sums one partner
+    after another and the plain version in PyTorch's order, gated against
+    the push in float64 instead (SJL_F64_ATOL), both versions' distances
+    from it reported; the launch's ms beside its bound (the bytes, and the
+    unordered pair tests at 6 operations with 20 more an overlapping
+    ordered pair);
+    and the unfused rank path's step at SJL_RANK_WORLDS worlds.  Returns
+    (its line, the launch's timing)."""
+    cfg = dict(num_worlds=SJL_WORLDS, num_objects=SJL_OBJECTS, max_pairs=SJL_K,
+               degree_cap=SJL_D)
+    sim = sj.make_executor(sj.SimpleJobsConfig(**cfg), device="cuda")
+    check(sim.graph.node_names == ["fused_step"] and sk.rounds(SJL_OBJECTS),
+          f"simple_jobs large: fused=None built {sim.graph.node_names}")
+    kw = dict(n0=SJL_OBJECTS, K=SJL_K, degree_cap=SJL_D, bounds=(sj.BOUNDS_LO, sj.BOUNDS_HI))
+    P = SJL_PLAIN_WORLDS
+    names = ("translation", "lo", "hi", "ab", "normals", "counts", "dropped")
+    floats = ("translation", "normals")
+    inf = float("inf")
+
+    def against_plain(atol):
+        """The launch at the state against its plain version on P worlds
+        (integers, lo and hi exact; the floats and the kernel's translation
+        from the push in float64 (push_f64, "translation_vs_f64") within
+        ``atol``, where it names them), a repeat bit-identical on every
+        world; the float errors, and the kernel's and the plain version's
+        distances from push_f64."""
+        user = sim.state["user"]
+        pos, rot = user["translation"], user["rotation"]
+        got, again = (sk.fused_simple_jobs_step(pos, rot, **kw) for _ in range(2))
+        want = sk.fused_simple_jobs_step_plain(pos[:P].contiguous(), rot[:P].contiguous(), **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, a2, b in zip(names, got, again, want):
+            check(bool(torch.equal(a.view(torch.int32), a2.view(torch.int32))),
+                  f"simple_jobs large {name}: a repeated launch differs")
+            check(bool(torch.isfinite(a).all()), f"simple_jobs large {name} finite")
+            if name in floats:
+                errs[name] = max_err(a[:P], b)
+                check(errs[name] <= atol.get(name, inf),
+                      f"simple_jobs large {name} err {errs[name]}")
+            else:
+                check(bool(torch.equal(a[:P], b)), f"simple_jobs large {name} not exact")
+        check(int(got[6].min()) > 0, "simple_jobs large: a world dropped no pair")
+        exact = push_f64(torch, sk, pos[:P], rot[:P], kw["bounds"])
+        errs["translation_vs_f64"] = {"kernel": max_err(got[0][:P].double(), exact),
+                                      "plain": max_err(want[0].double(), exact)}
+        check(errs["translation_vs_f64"]["kernel"] <= atol.get("translation_vs_f64", inf),
+              f"simple_jobs large translation {errs['translation_vs_f64']} from float64")
+        return errs
+
+    # at the executor's initial state (parity_simple_jobs' "main" case's
+    # gate), and after 3 steps, where bodies pressed against the bounds
+    # sum ~100-190 pushes a row to |sum| ~ 180
+    errs = against_plain({"translation": 1e-4, "normals": 1e-5})
+    sim.run(3)
+    sim.block_until_ready()
+    errs_stepped = against_plain({"normals": 1e-5, "translation_vs_f64": SJL_F64_ATOL})
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    wins = windows(sim, SJL_STEPS, SJL_WINDOWS)
+    launches = read_counts()
+    steps = SJL_STEPS * SJL_WINDOWS
+    expect = {name: 0 for name in launches}
+    expect["fused_simple_jobs_step"] = steps
+    check(launches == expect, f"simple_jobs large launches {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    user = sim.state["user"]
+    check(bool(torch.isfinite(user["translation"]).all()), "finite positions (simple_jobs large)")
+    check(int(user["num_candidates"].abs().sum()) == 0
+          and int(user["num_contacts"].abs().sum()) == 0, "simple_jobs large counters reset")
+    # the launch at the state the windows left, beside its bound and plain version
+    pos, rot = user["translation"], user["rotation"]
+    ms = cuda_ms(torch, lambda: sk.fused_simple_jobs_step(pos, rot, **kw), 20)
+    plain_ms = cuda_ms(torch, lambda: sk.fused_simple_jobs_step_plain(
+        pos[:P].contiguous(), rot[:P].contiguous(), **kw), 3, warmup=1)
+    _, lo, hi, _, _, cnt, drp = sk.fused_simple_jobs_step(pos, rot, **kw)
+    mask = torch.ones(pos.shape[:2], dtype=torch.bool, device=pos.device)
+    live, over = pair_counts(torch, lo, hi, mask)
+    W, n = mask.shape
+    # the half-box filter tests each unordered pair once (chunk pairs ci <= cj)
+    b_ms, b_by = bound(W * (n * 28 + n * 36 + SJL_K * 20 + 8),
+                       W * n * 40 + live / 2 * 6 + over * 20)
+    timing = {"ms": ms, "plain_ms": plain_ms, "plain_ms_is": f"{P} of the {W} worlds",
+              "bound_ms": b_ms, "bound_by": b_by,
+              "live_pairs": live, "overlapping_pairs": over,
+              "shape": sk.occupancy(W, n, SJL_K),
+              "max_abs_err": max(errs["translation"], errs["normals"])}
+    del lo, hi
+    # the unfused rank path at the same shape (fewer worlds), its step
+    os.environ["GEM_SJ_COMPACT"] = "rank"
+    rsim = sj.make_executor(sj.SimpleJobsConfig(
+        fused=False, **dict(cfg, num_worlds=SJL_RANK_WORLDS)), device="cuda")
+    rsim.run(1)
+    rsim.block_until_ready()
+    rwins = windows(rsim, 2, 2)
+    del rsim
+    torch.cuda.empty_cache()
+    line = {"phase": "main_simple_jobs_large", "worlds": W, "objects": n, "max_pairs": SJL_K,
+            "degree_cap": SJL_D, "launches": launches,
+            "env_steps_per_s": rates(SJL_STEPS, wins, W),
+            "pairs_a_world": {"counted": float(cnt.double().mean()),
+                              "dropped": float(drp.double().mean()),
+                              "overlapping_ordered": over / W},
+            "kernel_vs_plain": {"worlds": P, "ints_lo_hi": "exact", "initial_state": errs,
+                                "after_3_steps": errs_stepped},
+            "launch": timing, "peak_allocated_gib": peak,
+            "rank_path": {"worlds": SJL_RANK_WORLDS,
+                          "env_steps_per_s": rates(2, rwins, SJL_RANK_WORLDS),
+                          "step_s": min(rwins) / 2},
+            "card": card}
+    return line, timing
+
+
+def main_joint_rows_large(torch, phys, sk, card, reset_counts, read_counts):
+    """The chains' world (tests/test_torch_joint_scenes.py chain_world) at
+    1,024 worlds x JRL_CHAINS chains of 16 boxes, 4,096 joint rows of which
+    1,020 live (alternating Fixed and Hinge), kernel mode: four kernel-5
+    launches a step, the joint rows in the body scratch.  The node chain on
+    4 worlds bit for bit its plain version; windows of JRL_STEPS steps; the
+    node launch's ms beside its bound and its plain version's.  Returns
+    (its line, the launch's timing)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_joint_scenes as joint_scenes
+    sim = joint_scenes.chain_world("pallas", num_worlds=JRL_WORLDS, device="cuda",
+                                   num_chains=JRL_CHAINS, max_candidates=JRL_K)
+    sim.run(3)
+    sim.block_until_ready()
+    RS = phys.RigidBodyPhysicsSystem
+    kern = RS.substep_kernel(sim)
+    kw = RS.next_step_kernel_inputs(sim, sim.world_cls.Body, None, node=True)
+    n, K, J = kw["obj"].shape[1], kw["rows_i"].shape[1], kw["jmask"].shape[1]
+    live = live_joints(kw).sum(1)
+    check(J == 4096 and sk.substep_joints_in_scratch(kern.tables, n, K, J),
+          f"joint rows: J={J} at n={n}, K={K} not in the body scratch")
+    check(int(live.min()) >= 1000, f"joint rows: {int(live.min())} live joints in a world")
+    kw4 = {k: v[:4].contiguous() if torch.is_tensor(v) and v.shape[:1] == (JRL_WORLDS,) else v
+           for k, v in kw.items()}
+    kw4["joints"] = {f: t[:4].contiguous() for f, t in kw["joints"].items()}
+    kw4["eid"] = {f: t[:4].contiguous() for f, t in kw["eid"].items()}
+    chain = node_chain_case(torch, sk, kern, kw4)
+    del kw4
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sk.SubstepKernel.joint_scratch_launches = 0
+    wins = windows(sim, JRL_STEPS, JRL_WINDOWS)
+    launches = read_counts()
+    steps = JRL_STEPS * JRL_WINDOWS
+    expect = {name: 0 for name in launches}
+    expect["substep"] = 4 * steps
+    check(launches == expect, f"joint rows launches {launches}")
+    check(sk.SubstepKernel.joint_scratch_launches == 4 * steps, "joint rows: layout")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pos, mask = sim.get_exported(0)
+    check(bool(torch.isfinite(pos[mask]).all()), "finite positions (joint rows)")
+    kw = RS.next_step_kernel_inputs(sim, sim.world_cls.Body, None, node=True)
+    ops, _, work = substep_work(torch, sk, kern, kw)
+    b_ms, b_by = substep_bound(kw, ops)
+    timing = {"ms": cuda_ms(torch, lambda: kern.step(**kw), 20),
+              "plain_ms": cuda_ms(torch, lambda: kern.step_plain(**kw), 2, warmup=1),
+              "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "work": work,
+              "W": JRL_WORLDS, "n": n, "K": K, "J": J,
+              "live_joints_a_world": int(live.min()),
+              "occupancy": sk.occupancy(n, K, single=True, joints=J),
+              "smem_bytes": sk.substep_layout_smem_bytes(kern.tables, n, K, J),
+              "body_scratch_bytes_a_world": 4 * sk.body_scratch_floats(n, kern.tables, J),
+              "max_abs_err": max(chain)}
+    step_dev = cuda_ms(torch, sim.step, 3, warmup=1)
+    line = {"phase": "main_joint_rows_large", "worlds": JRL_WORLDS, "rows": n, "K": K,
+            "joint_rows": J, "live_joints_a_world": int(live.min()), "substeps": 4,
+            "launches": launches, "launches_with_joint_rows_in_scratch": 4 * steps,
+            "env_steps_per_s": rates(JRL_STEPS, wins, JRL_WORLDS),
+            "device_ms_a_step": step_dev, "peak_allocated_gib": peak,
+            "node_chain_4_worlds_max_err": chain, "node_launch": timing, "card": card}
+    return line, timing
+
+
 def main_simple_taskgraph_large(torch, stg, phys, sk, card, reset_counts, read_counts):
     """simple_taskgraph at 1,024 worlds x 1,000 objects (1,004 rows, K =
     10,000, 64 joint rows) with 64 x 64 rendering, "auto": four kernel-5
@@ -3552,6 +3910,9 @@ def main(argv):
     # the fused substep kernel vs plain, and the physics goldens on the card
     line, err_substep, err_substep1, err_window = parity_substep(torch, rb, phys, subk, sap_sim)
     del sap_sim
+    wide_t = dict(line["cases"]["wide_box_vm32_K256"], max_err={
+        name: max(c["max_err"].values()) for name, c in line["cases"].items()
+        if name.startswith("wide_box")})
     emit(line)
     emit(golden_physics(torch, phys, subk))
     line, chain32 = joints_cube_chain(torch, phys, subk)
@@ -3648,6 +4009,10 @@ def main(argv):
     emit({"phase": "main_simple_jobs_unfused", "worlds": SJ_WORLDS, "objects": SJ_OBJECTS,
           "compaction": "rank", "launches": sju_launches,
           "env_steps_per_s": rates(50, sju_windows, SJ_WORLDS), "card": smi})
+    # simple_jobs past kernel 4's one-block layout: 2,048 objects, fused=None
+    line, sjl_t = main_simple_jobs_large(torch, sj, sk, smi, reset_counts, read_counts)
+    sjl_launches = line["launches"]["fused_simple_jobs_step"]
+    emit(line)
 
     # fantasy_vs, 16384 worlds, cleanup on --------------------------------------
     fcfg = fvs.FantasyVsConfig(num_worlds=FVS_WORLDS, num_dragons=50, num_knights=200,
@@ -3832,6 +4197,10 @@ def main(argv):
     line, stg_large_t = main_simple_taskgraph_large(torch, stg, phys, subk, smi, *counts)
     stg_large_launches = line["launches"]["substep"]
     emit(line)
+    # kernel 5 with 4,096 joint rows (past what fits beside its window)
+    line, jrl_t = main_joint_rows_large(torch, phys, subk, smi, *counts)
+    jrl_launches = line["launches"]["substep"]
+    emit(line)
 
     # kernel times at the main paths' shapes ------------------------------------
     fpos = sim.mgr.column(sim.state, col.CubeObject, col.Translation)
@@ -3880,7 +4249,7 @@ def main(argv):
     slive, sover = pair_counts(torch, slo, shi, smask)
     sW, sn = smask.shape
     s_bound, s_by = bound(sW * (sn * 28 + sn * 36 + SJ_K * 20 + 8),
-                          sW * sn * 40 + slive * 6 + sover * 20)
+                          sW * sn * 40 + slive / 2 * 6 + sover * 20)
     s_ptxas = [ln for ln in logs["simple_jobs_kernels"].splitlines()
                if any(k in ln for k in ("registers", "spill"))]
     s_shape = sk.occupancy(sW, sn, SJ_K)
@@ -4176,6 +4545,15 @@ def main(argv):
                    "a half-box bit grid re-tested in float32, shuffle scans, slots staged "
                    "and written as 16-byte stores; the node's one launch",
          "fused_step_node": {k: s_node[k] for k in ("device_ms", "host_ms", "device_ops")}},
+        {"name": "fused_simple_jobs_step_rounds", "route": "cuda",
+         "source": csrc + "simple_jobs_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/simple_jobs_kernel.py:276 (past 1,024 bodies)",
+         "specialisation": "fused_simple_jobs_rounds_kernel", "launches": sjl_launches,
+         "launches_per_step": 1, "max_abs_err": sjl_t["max_abs_err"], "ms": sjl_t["ms"],
+         "plain_ms": sjl_t["plain_ms"], "plain_ms_is": sjl_t["plain_ms_is"],
+         "bound_ms": sjl_t["bound_ms"], "bound_by": sjl_t["bound_by"], "library_ms": None,
+         "ms_is": "main_simple_jobs_large's launch (1024 x 2048, K = 32768, D = 32)",
+         "shape": sjl_t["shape"]},
         {"name": "fused_substep", "route": "cuda", "source": csrc + "substep_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1257 (chunked :1241)",
          "launches": rig_launches, "launches_per_step": 1, "max_abs_err": err_substep,
@@ -4190,7 +4568,15 @@ def main(argv):
              "launches": xlarge_launches, "specialisation": "win+bodies",
              **{k: xlarge_t[k] for k in ("ms", "plain_ms", "plain_ms_is", "bound_ms",
                                          "bound_by")},
-             "ms_is": "main_rigid_sap_xlarge's state (1,024 rows, K = 4,092, sap)"}},
+             "ms_is": "main_rigid_sap_xlarge's state (1,024 rows, K = 4,092, sap)"},
+         "wide_box_tables": {
+             "source": csrc + "substep_wide_box_kernels.cu",
+             "max_abs_err": max(wide_t["max_err"].values()), "ms": wide_t["ms"],
+             "box_table_ms": wide_t["box_table_ms"],
+             "ms_is": "parity_substep's K = 256 state (8192 x 65) with the box table padded "
+                      "to 32 verts a hull, beside the same launch on the box table",
+             "max_abs_err_is": "over every wide_box case: 9 and 32 verts padded, 12 and 20 "
+                               "live, the fused kernel and kernel 5's node"}},
         {"name": "fused_substep_bp", "route": "cuda", "source": csrc + "substep_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1278",
          "launches": bp_launches, "launches_per_step": 1, "max_abs_err": err_bp,
@@ -4236,7 +4622,12 @@ def main(argv):
              "launches": stg_large_launches,
              **{k: stg_large_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
              "ms_is": "the node launch at main_simple_taskgraph_large's state (1,004 rows, "
-                      "K = 10,000, 64 joint rows)"}},
+                      "K = 10,000, 64 joint rows)"},
+         "joint_rows_in_scratch": {
+             "launches": jrl_launches,
+             **{k: jrl_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+             "ms_is": "the node launch at main_joint_rows_large's state (1,089 rows, K = 2,048, "
+                      "4,096 joint rows, 1,020 live)"}},
         {"name": "fused_substep_hull", "route": "cuda", "source": csrc + "substep_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1257 (chunked :1241) on "
                      "general hulls (its pk.pair_contacts: gpu_ecs_madrona_tpu/physics/"

@@ -39,7 +39,8 @@
 //
 // Design: one CTA a world: a compute thread a row slot (n0 rounded up to
 // 64, at least 128: 4 warps at the example's 100 bodies; n0 <= 1024) and,
-// where it fits in 1024 threads (n0 <= 960), one producer warp.
+// where it fits in 1024 threads (n0 <= 960), one producer warp.  Past 1024
+// bodies the rounds layout below takes the same steps.
 //   0. The producer warp queues the world's whole ab and normals spans as
 //      zeros on the copy engine (bulk stores of a 2 KB zero buffer in
 //      shared memory, cp.async.bulk), waits for them to be written and
@@ -86,6 +87,32 @@
 //   CTAs an SM, one wave at 1024 worlds, which caps it at 48 registers)
 //   and <1024, 1> for the rest.
 //
+// The rounds layout (fused_simple_jobs_rounds_kernel), past kMaxBodies
+// bodies, where a thread a row slot and the np^2 / 8 bytes of the bit grid
+// no longer fit one CTA (2048 bodies: 512 KB of words): 992 compute threads
+// and the producer warp.  The compute threads take the row slots in rounds
+// (row r = a + k 992, ascending within a round as above), each row's state
+// in memory between the steps: lo, hi, position and half box (16 bytes a
+// row each) in shared memory while they fit (n0 <= 3584), else in the
+// world's slice of a global scratch that the wrapper allocates (from
+// PyTorch's caching allocator: no device allocation once warm); the bit
+// grid's words always there.  Step 3 gives a warp a whole
+// 64 x 64 chunk pair: its ballots build the 64 row words of chunk ci and
+// the predicates kept by lane j the 64 transposed words of chunk cj, each
+// stored whole by one lane (every word of the grid has one writer, so the
+// scratch needs no clearing and no atomics).  Step 4 keeps a row's degree
+// in the w of its staged translation and step 5 its base in the w of its
+// hi; step 5 scans a round at a time (a warp scan, the warps' totals, then
+// the rounds' totals in round order); step 6 writes each row's slots from
+// its own thread in one pass (no stage: with the words in global memory, a
+// stage of kStage slots spent ~80% of a CTA's cycles waiting on them,
+// once a chunk, in PERF.md).  The arithmetic, the orders and so
+// the outputs are those of the one-block layout; only the world's mean is
+// summed in another order (each thread's rows first).  At 1024 worlds x
+// 2048 bodies, K = 32768: ~805 MB of bytes (0.24 ms at 3.35 TB/s) against
+// W n0 (n0 - 1) ~ 4.3G ordered-pair tests of ~6 operations (0.385 ms at 67
+// TFLOP/s): the pair tests bound it.
+//
 // Arithmetic: -fmad=false keeps every product and sum separately rounded,
 // in the order of the plain version (ops/simple_jobs_kernel.py), so the
 // clamped positions and the AABBs come out bit-identical and so do the
@@ -110,7 +137,7 @@
 
 namespace {
 
-constexpr int kMaxBodies = 1024;
+constexpr int kMaxBodies = 1024;   // the one-block layout's bodies at most (the rounds layout past it)
 constexpr int kMaxThreads = 1024;
 constexpr int kMinThreads = 128;   // compute threads: 4 warps at the example's 100 bodies
 constexpr int kSmallCtas = 8;      // CTAs an SM the small launch is built for
@@ -118,6 +145,8 @@ constexpr int kChunk = 64;         // rows j a warp holds (two a lane), bits a w
 constexpr int kUnit = 16;          // rows i of a bit-grid unit (divides kChunk)
 constexpr int kStage = 512;        // slots staged a chunk
 constexpr int kZeroBytes = 2048;   // the bulk stores' zero source
+constexpr int kRoundThreads = 992; // the rounds layout's compute threads (a producer warp beside)
+constexpr int kMaxSmem = 232448;   // a CTA's shared memory at most (227 KB)
 constexpr unsigned kFull = 0xffffffffu;
 
 typedef unsigned long long u64;
@@ -193,6 +222,33 @@ __device__ Smem smem_layout(float4* smem, int n0) {
   s.red = s.st_nrm + 3 * kStage;
   s.isum = reinterpret_cast<int*>(s.red + 32 * 3);
   return s;
+}
+
+// The rounds layout (n0 > kMaxBodies).  Whether a world's rows (lo, hi,
+// position and half box, 16 bytes a row slot each) stay in shared memory;
+// its dynamic shared memory: those rows where they stay, the zeros and the
+// warps' sums; and the bytes of a world's slice of the
+// global scratch: the bit grid's words u64 [np / kChunk][np], then the rows
+// where they do not stay.
+__host__ __device__ inline bool rounds_rows_shared(int n0) {
+  const size_t np = kChunk * static_cast<size_t>(chunks(n0));
+  const size_t rows = 4 * np;
+  const size_t rest = kZeroBytes + 4 * (32 * 3 + 32 * 2);
+  return 16 * rows + rest <= kMaxSmem;
+}
+
+size_t rounds_smem_bytes(int n0) {
+  const size_t np = kChunk * static_cast<size_t>(chunks(n0));
+  const size_t rows = rounds_rows_shared(n0) ? 4 * np : 0;
+  const size_t sums = 32 * 3 + 32 * 2;
+  return 16 * rows + kZeroBytes + 4 * sums;
+}
+
+__host__ __device__ inline size_t rounds_scratch_bytes(int n0) {
+  const size_t np = kChunk * static_cast<size_t>(chunks(n0));
+  const size_t words = np / kChunk * np;
+  const size_t rows = rounds_rows_shared(n0) ? 0 : 4 * np;
+  return 8 * words + 16 * rows;
 }
 
 __device__ inline HalfBox nan_half_box() {
@@ -613,6 +669,254 @@ fused_simple_jobs_step_kernel(const float* __restrict__ pos,
   SJ_PHASE(6);
 }
 
+// The rounds layout's step 3: the candidate bits of whole 64 x 64 chunk
+// pairs (ci <= cj, row-major), a pair a warp, round-robin over the
+// compute warps.  Lane j holds rows j and j + 32 of chunk cj; for each row
+// i0 + k of chunk ci two ballots give its word cj, which lane k (or k - 32)
+// keeps, and lane j keeps bit k of rows j's and j + 32's word ci; then each
+// lane stores its two row words and, off the diagonal, its two transposed
+// words whole.  Every word of [nc][np] is stored once, by one lane.
+__device__ void overlap_bits_rounds(u64* __restrict__ bits, const HalfBox* hb, int np, int nc,
+                                    int tc) {
+  const int lane = threadIdx.x & 31;
+  const int warps = tc >> 5;
+  const int units = nc * (nc + 1) / 2;
+  for (int u = threadIdx.x >> 5; u < units; u += warps) {
+    int b = u, ci = 0, row = nc;
+    while (b >= row) {
+      b -= row;
+      ++ci;
+      --row;
+    }
+    const int cj = ci + b;
+    const int i0 = kChunk * ci;
+    const int j = kChunk * cj + lane;
+    const HalfBox j0 = hb[j], j1 = hb[j + 32];
+    u64 r0 = 0ull, r1 = 0ull, c0 = 0ull, c1 = 0ull;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const HalfBox bi = hb[i0 + k];
+      const bool p0 = half_overlap(bi, j0), p1 = half_overlap(bi, j1);
+      const u64 word = static_cast<u64>(__ballot_sync(kFull, p0)) |
+                       (static_cast<u64>(__ballot_sync(kFull, p1)) << 32);
+      if (k < 32) {
+        if (lane == k) r0 = word;
+      } else if (lane == k - 32) {
+        r1 = word;
+      }
+      c0 |= static_cast<u64>(p0) << k;
+      c1 |= static_cast<u64>(p1) << k;
+    }
+    bits[static_cast<size_t>(cj) * np + i0 + lane] = r0;
+    bits[static_cast<size_t>(cj) * np + i0 + 32 + lane] = r1;
+    if (ci != cj) {
+      bits[static_cast<size_t>(ci) * np + j] = c0;
+      bits[static_cast<size_t>(ci) * np + j + 32] = c1;
+    }
+  }
+}
+
+// The rounds layout (see the notes at the top): 1024 threads, the last warp
+// the producer.  scratch: the global scratch, rounds_scratch_bytes(n0) a
+// world.
+__global__ void __launch_bounds__(kMaxThreads, 1)
+fused_simple_jobs_rounds_kernel(const float* __restrict__ pos,
+                                const float4* __restrict__ rot, int n0, int K, int D,
+                                Bounds bounds, float* __restrict__ translation,
+                                float* __restrict__ lo, float* __restrict__ hi,
+                                int* __restrict__ ab, float* __restrict__ nrm,
+                                int* __restrict__ counts, int* __restrict__ dropped,
+                                int* __restrict__ zeros, unsigned char* __restrict__ scratch) {
+  extern __shared__ float4 smem[];
+  const int w = blockIdx.x;
+  const int a = threadIdx.x;
+  const int tc = kRoundThreads;
+  const int nc = chunks(n0);
+  const int np = kChunk * nc;
+  const bool shared_rows = rounds_rows_shared(n0);
+  unsigned char* g = scratch + static_cast<size_t>(w) * rounds_scratch_bytes(n0);
+  u64* bits = reinterpret_cast<u64*>(g);
+  float4* rows = shared_rows ? smem
+                             : reinterpret_cast<float4*>(g + 8 * static_cast<size_t>(nc) * np);
+  float4* s_lo = rows;
+  float4* s_hi = s_lo + np;
+  float4* s_pos = s_hi + np;
+  HalfBox* s_hb = reinterpret_cast<HalfBox*>(s_pos + np);
+  float4* s_tr = reinterpret_cast<float4*>(s_hb);  // the translation and degree, after step 3
+  uint4* s_zero = reinterpret_cast<uint4*>(shared_rows ? smem + 4 * np : smem);
+  float* red = reinterpret_cast<float*>(s_zero + kZeroBytes / 16);
+  int* isum = reinterpret_cast<int*>(red + 32 * 3);
+  uint32_t* ab_w = reinterpret_cast<uint32_t*>(ab + static_cast<size_t>(w) * K * 2);
+  uint32_t* nrm_w = reinterpret_cast<uint32_t*>(nrm + static_cast<size_t>(w) * K * 3);
+
+  // 0. the producer warp queues the slot spans' zeros and leaves.
+  if (a >= tc) {
+    const int lane = a - tc;
+    for (int i = lane; i < kZeroBytes / 16; i += 32) s_zero[i] = make_uint4(0u, 0u, 0u, 0u);
+    fence_shared_for_bulk();
+    __syncwarp();
+    zero_span(ab_w, 2 * K, s_zero, lane);
+    zero_span(nrm_w, 3 * K, s_zero, lane);
+    if (lane == 0) {
+      bulk_commit();
+      bulk_wait();
+    }
+    __syncwarp();
+    cta_sync();  // the compute threads write the slots after this
+    return;
+  }
+  SJ_PHASE_START
+
+  // 1. clamp and AABB, a row at a time; each thread's position sum.
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+  for (int r = a; r < n0; r += tc) {
+    const size_t body = static_cast<size_t>(w) * n0 + r;
+    const float4 q = rot[body];
+    const float gx = pos[body * 3], gy = pos[body * 3 + 1], gz = pos[body * 3 + 2];
+    const float qw = q.x, qx = q.y, qy = q.z, qz = q.w;
+    const float r00 = 1.0f - 2.0f * (qy * qy + qz * qz);
+    const float r01 = 2.0f * (qx * qy - qw * qz);
+    const float r02 = 2.0f * (qx * qz + qw * qy);
+    const float r10 = 2.0f * (qx * qy + qw * qz);
+    const float r11 = 1.0f - 2.0f * (qx * qx + qz * qz);
+    const float r12 = 2.0f * (qy * qz - qw * qx);
+    const float r20 = 2.0f * (qx * qz - qw * qy);
+    const float r21 = 2.0f * (qy * qz + qw * qx);
+    const float r22 = 1.0f - 2.0f * (qx * qx + qy * qy);
+    const float ex = fabsf(r00) + fabsf(r01) + fabsf(r02);
+    const float ey = fabsf(r10) + fabsf(r11) + fabsf(r12);
+    const float ez = fabsf(r20) + fabsf(r21) + fabsf(r22);
+    float4 p;
+    p.x = fminf(fmaxf(gx, bounds.lo[0]), bounds.hi[0]);
+    p.y = fminf(fmaxf(gy, bounds.lo[1]), bounds.hi[1]);
+    p.z = fminf(fmaxf(gz, bounds.lo[2]), bounds.hi[2]);
+    p.w = 0.0f;
+    s_lo[r] = make_float4(p.x - ex, p.y - ey, p.z - ez, 0.0f);
+    s_hi[r] = make_float4(p.x + ex, p.y + ey, p.z + ez, 0.0f);
+    s_pos[r] = p;
+    sx += p.x;
+    sy += p.y;
+    sz += p.z;
+  }
+  SJ_PHASE(1);
+
+  // 2. the world's mean; the half boxes about it (a thread reads back only
+  // the rows it wrote).
+  const float3 sum = block_sum3(sx, sy, sz, red, tc);  // syncs
+  const float fn = static_cast<float>(n0);
+  const float3 mean = make_float3(sum.x / fn, sum.y / fn, sum.z / fn);
+  const float3 ref = finite_ref(mean);
+  for (int r = a; r < np; r += tc)
+    s_hb[r] = r < n0 ? half_box(s_lo[r], s_hi[r], ref) : nan_half_box();
+  compute_sync(tc);
+  SJ_PHASE(2);
+
+  // 3. the candidate bits.
+  overlap_bits_rounds(bits, s_hb, np, nc, tc);
+  compute_sync(tc);
+  SJ_PHASE(3);
+
+  // 4. each row's exact overlaps in ascending b: its words, degree and
+  // push; the translation staged where the half boxes were, the degree in
+  // its w.
+  for (int r = a; r < n0; r += tc) {
+    const float4 l = s_lo[r], h = s_hi[r], p = s_pos[r];
+    const float xa = p.x - mean.x, ya = p.y - mean.y, za = p.z - mean.z;
+    int deg = 0;
+    float ax = 0.0f, ay = 0.0f, az = 0.0f;
+    for (int k = 0; k < nc; ++k) {
+      u64* at = bits + static_cast<size_t>(k) * np + r;
+      u64 word = *at;
+      if (k == r / kChunk) word &= ~(1ull << (r % kChunk));
+      u64 exact = word;
+      while (word != 0ull) {
+        const int bit = __ffsll(static_cast<long long>(word)) - 1;
+        const int b = kChunk * k + bit;
+        word &= word - 1ull;
+        if (!overlap(l, h, s_lo[b], s_hi[b])) {
+          exact &= ~(1ull << bit);
+          continue;
+        }
+        const float4 pb = s_pos[b];
+        const float dx = (pb.x - mean.x) - xa;
+        const float dy = (pb.y - mean.y) - ya;
+        const float dz = (pb.z - mean.z) - za;
+        const float d2 = dx * dx + dy * dy + dz * dz;
+        if (d2 > 1e-12f) {
+          const float m = rsqrtf(fmaxf(d2, 1e-30f));
+          ax += m * dx;
+          ay += m * dy;
+          az += m * dz;
+        }
+      }
+      *at = exact;
+      deg += __popcll(exact);
+    }
+    s_tr[r] = make_float4(p.x + -2.0f * ax, p.y + -2.0f * ay, p.z + -2.0f * az,
+                          __int_as_float(deg));
+  }
+  SJ_PHASE(4);
+
+  // 5. base = the exclusive prefix of the capped degrees over the rows in
+  // order, a round at a time, each row's kept in the w of its hi (no
+  // thread reads a hi's w before step 6); total; dropped.
+  int run = 0, drop = 0;
+  for (int r0 = 0; r0 < np; r0 += tc) {
+    const int r = r0 + a;
+    const int deg = r < n0 ? __float_as_int(s_tr[r].w) : 0;
+    const int degc = min(deg, D);
+    const Scan sc = block_scan(degc, deg - degc, isum, tc);  // syncs
+    if (r < n0) s_hi[r].w = __int_as_float(run + sc.base);
+    run += sc.total;
+    drop += sc.dropped;
+    compute_sync(tc);  // the warps' totals are written again next round
+  }
+  const int nlive = min(run, K);
+  SJ_PHASE(5);
+  if (a == 0) {
+    counts[w] = run;
+    dropped[w] = drop;
+    if (zeros != nullptr) zeros[w] = 0;
+  }
+
+  // 6. lo, hi and the translation out; then, once the zeros are written,
+  // the slots in one pass: each row walks its exact words again and writes
+  // its first partners at base + rank itself (a row's slots are
+  // contiguous, and the rows' in row order), where a stage would wait on
+  // a barrier and on the words' global loads once a chunk of slots.
+  const size_t row3 = static_cast<size_t>(w) * n0 * 3;
+  put_rows3(lo + row3, 0, 3 * n0, s_lo, a, tc);
+  put_rows3(hi + row3, 0, 3 * n0, s_hi, a, tc);
+  put_rows3(translation + row3, 0, 3 * n0, s_tr, a, tc);
+  cta_sync();  // the zeros are written before the slots
+  int2* ab2 = reinterpret_cast<int2*>(ab) + static_cast<size_t>(w) * K;
+  float* nrm_s = nrm + static_cast<size_t>(w) * K * 3;
+  for (int r = a; r < n0; r += tc) {
+    const int base = __float_as_int(s_hi[r].w);
+    const int row_end = min(base + min(__float_as_int(s_tr[r].w), D), nlive);
+    const float4 p = s_pos[r];
+    int k = base;
+    for (int c = 0; c < nc && k < row_end; ++c) {
+      u64 word = bits[static_cast<size_t>(c) * np + r];
+      while (word != 0ull && k < row_end) {
+        const int b = kChunk * c + __ffsll(static_cast<long long>(word)) - 1;
+        word &= word - 1ull;
+        const float4 pb = s_pos[b];
+        const float dx = pb.x - p.x;
+        const float dy = pb.y - p.y;
+        const float dz = pb.z - p.z;
+        const float inv = rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-30f));
+        ab2[k] = make_int2(r, b);
+        nrm_s[3 * k] = dx * inv;
+        nrm_s[3 * k + 1] = dy * inv;
+        nrm_s[3 * k + 2] = dz * inv;
+        ++k;
+      }
+    }
+  }
+  SJ_PHASE(6);
+}
+
 // The instantiation a launch at n0 bodies takes: the small one where the
 // compute threads are kMinThreads.
 typedef void (*KernelFn)(const float*, const float4*, int, int, int, Bounds, float*, float*,
@@ -624,7 +928,8 @@ KernelFn kernel_for(int n0) {
   return fused_simple_jobs_step_kernel<kMaxThreads, 1>;
 }
 
-cudaError_t allow_smem(KernelFn kernel, size_t smem) {
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
@@ -633,20 +938,37 @@ cudaError_t allow_smem(KernelFn kernel, size_t smem) {
 }  // namespace
 
 // zeros may be null: the node's zero counters are then not written.
+// scratch: past kMaxBodies bodies (the rounds layout) W
+// rounds_scratch_bytes(n0) bytes (scratch_bytes in ops/simple_jobs_kernel.py),
+// 16-byte aligned; else unused.
 extern "C" int fused_simple_jobs_step_launch(
     const void* pos, const void* rot, int W, int n0, int K, int D,
     float lo_x, float lo_y, float lo_z, float hi_x, float hi_y, float hi_z,
     void* translation, void* lo, void* hi, void* ab, void* nrm, void* counts,
-    void* dropped, void* zeros, void* stream) {
+    void* dropped, void* zeros, void* scratch, void* stream) {
   if (W <= 0) return static_cast<int>(cudaSuccess);
-  if (n0 <= 0 || n0 > kMaxBodies || K <= 0 || D < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n0 <= 0 || K <= 0 || D < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Bounds bounds = {{lo_x, lo_y, lo_z}, {hi_x, hi_y, hi_z}};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n0 > kMaxBodies) {
+    if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = rounds_smem_bytes(n0);
+    const cudaError_t err = allow_smem(fused_simple_jobs_rounds_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_simple_jobs_rounds_kernel<<<W, kMaxThreads, smem, st>>>(
+        static_cast<const float*>(pos), static_cast<const float4*>(rot), n0, K, D, bounds,
+        static_cast<float*>(translation), static_cast<float*>(lo), static_cast<float*>(hi),
+        static_cast<int*>(ab), static_cast<float*>(nrm), static_cast<int*>(counts),
+        static_cast<int*>(dropped), static_cast<int*>(zeros),
+        static_cast<unsigned char*>(scratch));
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = smem_bytes(n0);
   const KernelFn kernel = kernel_for(n0);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Bounds bounds = {{lo_x, lo_y, lo_z}, {hi_x, hi_y, hi_z}};
-  kernel<<<W, block_threads(n0), smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<W, block_threads(n0), smem, st>>>(
       static_cast<const float*>(pos), static_cast<const float4*>(rot), n0, K, D,
       bounds, static_cast<float*>(translation), static_cast<float*>(lo),
       static_cast<float*>(hi), static_cast<int*>(ab), static_cast<float*>(nrm),
@@ -657,7 +979,17 @@ extern "C" int fused_simple_jobs_step_launch(
 // The launch shape at n0 bodies: threads a CTA, dynamic shared bytes and
 // CTAs an SM (the occupancy API).
 extern "C" int simple_jobs_occupancy(int n0, int* threads, int* smem, int* ctas) {
-  if (n0 <= 0 || n0 > kMaxBodies) return static_cast<int>(cudaErrorInvalidValue);
+  if (n0 <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n0 > kMaxBodies) {
+    const size_t bytes = rounds_smem_bytes(n0);
+    *threads = kMaxThreads;
+    *smem = static_cast<int>(bytes);
+    cudaError_t err = allow_smem(fused_simple_jobs_rounds_kernel, bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fused_simple_jobs_rounds_kernel,
+                                                          *threads, bytes);
+    return static_cast<int>(err);
+  }
   const size_t bytes = smem_bytes(n0);
   const KernelFn kernel = kernel_for(n0);
   *threads = block_threads(n0);

@@ -96,7 +96,9 @@
 //   registers, a 120-byte spill, most worlds past the window) 0.155, 256
 //   threads at 2 CTAs 0.175; the window of 320 keeps most worlds' live
 //   pairs in shared memory at no spill.  Past 815 rows (799 with 64 joint
-//   rows) the bodies move to a global scratch (kOptBody, below).
+//   rows) the bodies move to a global scratch (kOptBody, below), and where
+//   the joints' rows (56 B a joint) do not fit beside the window either
+//   (~3,300 joint rows a world), they move there too (Args1::jg).
 //
 // What bounds them on this card.  At 8192 worlds x 65 rows x K = 256 a
 // call moves W (65 x 237 B + K x 9 B + 20 B) ~ 145 MB (~0.043 ms at 3.35
@@ -266,6 +268,20 @@ constexpr float kNegBig = -1e9f;
 constexpr float kSatTieEps = 1e-5f;
 constexpr float kFaceBias = 1.001f;
 constexpr int kMaxBoxVerts = 8;  // table verts per hull, all-box tables (a box has 8)
+// All-box tables of any verts a hull (past kMaxBoxVerts: a hand-built or
+// merged object manager): this source built again with SUBSTEP_WIDE_BOX
+// (substep_wide_box_kernels.cu), whose box-plane path merges every live
+// vertex of the row as it reads it, and which builds only the all-box
+// specialisations.  This build keeps pairs.py's 12 candidates unrolled in
+// registers and takes tables of at most kMaxBoxVerts.
+#ifdef SUBSTEP_WIDE_BOX
+constexpr bool kWideBox = true;
+#else
+constexpr bool kWideBox = false;
+#endif
+// Whether this build has the specialisations of general hulls (gen) or
+// of all-box tables (!gen).
+constexpr bool builds(bool gen) { return !(kWideBox && gen); }
 constexpr int kCand = 12;        // manifold candidates (3 per box-face vertex)
 constexpr int kPts = 4;          // manifold points kept
 constexpr int kPrimSphere = 0;
@@ -1113,18 +1129,18 @@ __device__ bool sphere_hull(V3 s_pos, float s_rad, const Body& H, int h, const T
   return pen > -spec;
 }
 
-// A hull (staged at row h) against a plane: every live vertex a candidate
-// (its depth below the plane), the deepest 4 kept.  Returns the candidates
-// past the margin.
-__device__ int hull_plane(const Body& H, int h, V3 p_n, float p_d, const Table& tab,
-                          const Hulls& hs, float spec, Manifold& out) {
-  const int nv = tab.nverts(H.obj);
+// A hull's nv live verts (vert(v), world space) against a plane: every
+// vertex a candidate (its depth below the plane), the deepest 4 kept.
+// Returns the candidates past the margin.
+template <typename Vert>
+__device__ __forceinline__ int verts_plane(int nv, Vert vert, V3 p_n, float p_d, float spec,
+                                           Manifold& out) {
   Top4 t;
   top4_init(t);
   V3 p0 = mk(0.0f, 0.0f, 0.0f);
   int num = 0;
   for (int v = 0; v < nv; ++v) {
-    const V3 vw = hs.at(h, 3 * v);
+    const V3 vw = vert(v);
     const float vd = dot(vw, p_n) - p_d;
     const float pen_v = -vd;
     num += pen_v > -spec ? 1 : 0;
@@ -1133,6 +1149,13 @@ __device__ int hull_plane(const Body& H, int h, V3 p_n, float p_d, const Table& 
   }
   top4_out(t, p0, out);
   return num;
+}
+
+// A hull staged at row h against a plane.
+__device__ int hull_plane(const Body& H, int h, V3 p_n, float p_d, const Table& tab,
+                          const Hulls& hs, float spec, Manifold& out) {
+  return verts_plane(
+      tab.nverts(H.obj), [&](int v) { return hs.at(h, 3 * v); }, p_n, p_d, spec, out);
 }
 
 // The penetration along axis ax of two staged vertex sets: min(maxA - minB,
@@ -1522,6 +1545,14 @@ __device__ __forceinline__ void pair_contacts(const Body& A, const Body& B, int 
     const float p_d = dot(p_n, Pl.pos);
     if (GEN) {
       num = hull_plane(H, flip ? rb : ra, p_n, p_d, tab, hs, spec, out);
+    } else if constexpr (kWideBox) {
+      // every live vertex of the row, read at the table's stride: pairs.py's
+      // max(vm, 12) candidates, whose dead ones (-1e9) give way to vertex 0
+      // once the live ones are taken
+      num = verts_plane(
+          min(tab.nverts(H.obj), tab.vm),
+          [&](int v) { return add(qrot(H.rot, tab.vert(H.obj, v)), H.pos); }, p_n, p_d, spec,
+          out);
     } else {
       const int nv = tab.nverts(H.obj);
       V3 cp[kCand];
@@ -2178,20 +2209,24 @@ size_t substep_smem_bytes(int n, int K, int J) {
 // it: its body rows, then the lists' offsets and cursors, then the staged
 // hull rows (body_scratch_floats); the rest carved from the block as
 // without it, in the same order.
+// JG (with BODY): the joints' rows in the body scratch too, after the
+// lists' offsets and cursors (the joints' kJointCh floats, then their 2
+// ints a joint), the staged hull rows after them.
 template <bool BODY>
 __device__ __forceinline__ Smem carve_window(float* smem, int n, int K, int J, int T, float* gsc,
-                                             float* gb) {
+                                             float* gb, bool jg = false) {
   Smem s;
   s.kw = substep_window(K);
   s.kg = substep_scratch(K);
   s.gsc = gsc;
   s.ks = s.kw > T ? s.kw - T : 0;
   if constexpr (BODY) {
+    const int js = jg ? 0 : J;  // the joints in shared memory
     s.sb = gb;
     s.sst = smem;
     s.spk = s.sst + kSlotCh * s.ks;
     s.sjv = s.spk + kPackCh * s.kw;
-    s.swrow = reinterpret_cast<int*>(s.sjv + kJointCh * J);
+    s.swrow = reinterpret_cast<int*>(s.sjv + kJointCh * js);
     s.slist = s.swrow + 2 * s.kw;
     s.sworld = s.slist + 2 * s.kw;
     s.sjr = s.sworld + kWorldInts;
@@ -2199,6 +2234,11 @@ __device__ __forceinline__ Smem carve_window(float* smem, int n, int K, int J, i
     s.scurA = s.soff + n + 1;
     s.scurB = s.scurA + n;
     s.shull = reinterpret_cast<float*>(s.scurB + n);
+    if (jg) {
+      s.sjv = s.shull;
+      s.sjr = reinterpret_cast<int*>(s.sjv + kJointCh * J);
+      s.shull = reinterpret_cast<float*>(s.sjr + 2 * J);
+    }
   } else {
     s.sb = smem;
     s.sst = s.sb + kBodyCh * n;
@@ -2323,9 +2363,11 @@ __host__ __device__ __forceinline__ size_t body_bytes(int n) {
   const size_t nn = static_cast<size_t>(n);
   return sizeof(float) * kBodyCh * nn + sizeof(int) * (3 * nn + 1);
 }
-__host__ __device__ __forceinline__ size_t body_scratch_floats(int n, int hull_stride) {
+__host__ __device__ __forceinline__ size_t body_scratch_floats(int n, int hull_stride,
+                                                               int jg = 0) {
   const size_t nn = static_cast<size_t>(n);
-  return kBodyCh * nn + 3 * nn + 1 + nn * static_cast<size_t>(hull_stride);
+  return kBodyCh * nn + 3 * nn + 1 + (kJointCh + 2) * static_cast<size_t>(jg) +
+         nn * static_cast<size_t>(hull_stride);
 }
 size_t substep_body_smem_bytes(int n, int K, int J) {
   return substep_smem_bytes(n, K, J) - body_bytes(n);
@@ -3463,9 +3505,11 @@ struct Args1 {
   const uint8_t* j_mask;
   const float *j_ar1, *j_ar2, *j_sep, *j_a1, *j_a2, *j_r1, *j_r2;
   const int *e_arch, *e_row, *e_gen;
-  // BODY: the body scratch [W, bstride] (body_scratch_floats)
+  // BODY: the body scratch [W, bstride] (body_scratch_floats); jg: the
+  // joints' rows in it too (substep_layout_smem)
   float* bodies;
   size_t bstride;
+  int jg;
 };
 
 // solver.integrate for one body: semi-implicit Euler with the gyroscopic
@@ -3600,7 +3644,7 @@ __global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kerne
   const Smem s = carve_window<BODY>(
       smem, n, K, J, T,
       a.scratch ? a.scratch + static_cast<size_t>(wld) * kScratchCh * substep_scratch(K) : nullptr,
-      BODY ? a.bodies + static_cast<size_t>(wld) * a.bstride : nullptr);
+      BODY ? a.bodies + static_cast<size_t>(wld) * a.bstride : nullptr, BODY && a.jg != 0);
   float* sb = s.sb;
   const size_t b0 = static_cast<size_t>(wld) * n;
   const float h1 = a.h[wld];
@@ -3785,47 +3829,62 @@ int fused_layout_window(int n, int K, size_t hull) {
 
 template <int OPTS>
 cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
-  const size_t hull = hull_stage_bytes(a.n, a.tab);
-  if ((OPTS & kOptWin) != 0) {
-    // the window the wrapper sized its scratch for must be this layout's
-    const int kw = fused_layout_window<OPTS>(a.n, a.K, hull);
-    if (kw < 1 || kw != a.kw || (kw < a.K && !a.scratch)) return cudaErrorInvalidValue;
-    if ((OPTS & kOptBody) != 0 && !a.bodies) return cudaErrorInvalidValue;
+  if constexpr (!builds((OPTS & kOptHull) != 0)) {
+    return cudaErrorInvalidValue;
+  } else {
+    const size_t hull = hull_stage_bytes(a.n, a.tab);
+    if ((OPTS & kOptWin) != 0) {
+      // the window the wrapper sized its scratch for must be this layout's
+      const int kw = fused_layout_window<OPTS>(a.n, a.K, hull);
+      if (kw < 1 || kw != a.kw || (kw < a.K && !a.scratch)) return cudaErrorInvalidValue;
+      if ((OPTS & kOptBody) != 0 && !a.bodies) return cudaErrorInvalidValue;
+    }
+    const size_t smem = fused_smem<OPTS>(a.n, a.K, a.kw, hull);
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    const cudaError_t err = allow_smem(fused_substep_kernel<OPTS>, smem);
+    if (err != cudaSuccess) return err;
+    fused_substep_kernel<OPTS><<<W, block_threads(a.n, a.K), smem, stream>>>(a);
+    return cudaGetLastError();
   }
-  const size_t smem = fused_smem<OPTS>(a.n, a.K, a.kw, hull);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t err = allow_smem(fused_substep_kernel<OPTS>, smem);
-  if (err != cudaSuccess) return err;
-  fused_substep_kernel<OPTS><<<W, block_threads(a.n, a.K), smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 // Kernel 5's layout and shared memory at n bodies, K slots, J joints and
 // hull bytes of staged hull rows: the window layout where it fits kMaxSmem
-// (*body false), else the bodies in a global scratch (*body true).
-size_t substep_layout_smem(int n, int K, int J, size_t hull, bool* body) {
+// (*body false), else the bodies in a global scratch (*body true), with
+// the joints' rows there too where they do not fit beside the window
+// (*jg true).
+size_t substep_layout_smem(int n, int K, int J, size_t hull, bool* body, bool* jg) {
   const size_t smem = substep_smem_bytes(n, K, J) + hull;
   *body = smem > kMaxSmem;
-  return *body ? substep_body_smem_bytes(n, K, J) : smem;
+  *jg = *body && substep_body_smem_bytes(n, K, J) > kMaxSmem;
+  if (!*body) return smem;
+  return substep_body_smem_bytes(n, K, *jg ? 0 : J);
 }
 
 template <bool FULL, bool GEN, bool BODY>
 cudaError_t launch_substep(const Args1& a, int W, size_t smem, cudaStream_t stream) {
-  if (smem > kMaxSmem || (BODY && !a.bodies)) return cudaErrorInvalidValue;
-  const cudaError_t err = allow_smem(substep_kernel<FULL, GEN, BODY>, smem);
-  if (err != cudaSuccess) return err;
-  substep_kernel<FULL, GEN, BODY><<<W, substep_threads(a.n, a.K), smem, stream>>>(a);
-  return cudaGetLastError();
+  if constexpr (!builds(GEN)) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (smem > kMaxSmem || (BODY && !a.bodies)) return cudaErrorInvalidValue;
+    const cudaError_t err = allow_smem(substep_kernel<FULL, GEN, BODY>, smem);
+    if (err != cudaSuccess) return err;
+    substep_kernel<FULL, GEN, BODY><<<W, substep_threads(a.n, a.K), smem, stream>>>(a);
+    return cudaGetLastError();
+  }
 }
 
 // Kernel 5's launch with or without its integrate and joints (FULL), in the
 // layout and specialisation its shapes and table take.
 template <bool FULL>
-cudaError_t launch_substep_any(const Args1& a, int W, cudaStream_t stream) {
-  bool body;
+cudaError_t launch_substep_any(Args1 a, int W, cudaStream_t stream) {
+  bool body, jg;
   const size_t smem = substep_layout_smem(a.n, a.K, FULL ? a.J : 0,
-                                          hull_stage_bytes(a.n, a.tab), &body);
+                                          hull_stage_bytes(a.n, a.tab), &body, &jg);
   const bool gen = a.tab.h != nullptr;
+  a.jg = jg ? 1 : 0;
+  a.bstride = body_scratch_floats(
+      a.n, gen ? hull_stride(a.tab.vm, a.tab.em, a.tab.sm, a.tab.fm) : 0, jg ? a.J : 0);
   if (body)
     return gen ? launch_substep<FULL, true, true>(a, W, smem, stream)
                : launch_substep<FULL, false, true>(a, W, smem, stream);
@@ -3846,11 +3905,27 @@ cudaError_t occupancy_of(Kernel kernel, int threads, size_t smem, int* blocks) {
 template <int OPTS>
 cudaError_t occupancy_fused(int n, int K, int hull_floats, int* threads, int* blocks) {
   *threads = block_threads(n, K);
-  const size_t stage = sizeof(float) * static_cast<size_t>(n) * hull_floats;
-  const int kw = (OPTS & kOptWin) != 0 ? fused_layout_window<OPTS>(n, K, stage) : 0;
-  if ((OPTS & kOptWin) != 0 && kw < 1) return cudaErrorInvalidValue;
-  return occupancy_of(fused_substep_kernel<OPTS>, *threads, fused_smem<OPTS>(n, K, kw, stage),
-                      blocks);
+  if constexpr (!builds((OPTS & kOptHull) != 0)) {
+    return cudaErrorInvalidValue;
+  } else {
+    const size_t stage = sizeof(float) * static_cast<size_t>(n) * hull_floats;
+    const int kw = (OPTS & kOptWin) != 0 ? fused_layout_window<OPTS>(n, K, stage) : 0;
+    if ((OPTS & kOptWin) != 0 && kw < 1) return cudaErrorInvalidValue;
+    return occupancy_of(fused_substep_kernel<OPTS>, *threads,
+                        fused_smem<OPTS>(n, K, kw, stage), blocks);
+  }
+}
+
+// The same for kernel 5 in the specialisation <FULL, GEN> at `threads` a
+// CTA and smem bytes, with its bodies in the scratch (body) or not.
+template <bool FULL, bool GEN>
+cudaError_t occupancy_substep(int threads, size_t smem, bool body, int* blocks) {
+  if constexpr (!builds(GEN)) {
+    return cudaErrorInvalidValue;
+  } else {
+    return body ? occupancy_of(substep_kernel<FULL, GEN, true>, threads, smem, blocks)
+                : occupancy_of(substep_kernel<FULL, GEN, false>, threads, smem, blocks);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -4101,11 +4176,13 @@ cudaError_t launch_flags(const FlagArgs& a, cudaStream_t stream) {
 // pairs.py ObjTables.hull_table, and dims, a host array of its floats an
 // object and the table's faces, SAT axes, edge directions, corner slots a
 // face and full edges; both null for all-box tables (at most kMaxBoxVerts
-// verts a hull).  False when they break the layout.  No count is capped:
-// the launch refuses only what its shared memory cannot hold (kMaxSmem,
-// with the staged rows).
+// verts a hull, of any with SUBSTEP_WIDE_BOX).  False when they break the
+// layout or this build has no specialisation for them.  No count is
+// capped: the launch refuses only what its shared memory cannot hold
+// (kMaxSmem, with the staged rows).
 bool set_hull(Table& tab, const void* hull, const void* dims) {
-  if (!hull) return tab.vm <= kMaxBoxVerts;
+  if (!hull) return kWideBox || tab.vm <= kMaxBoxVerts;
+  if (!builds(true)) return false;
   if (!dims) return false;
   const int* d = static_cast<const int*>(dims);
   tab.h = static_cast<const float*>(hull);
@@ -4163,21 +4240,19 @@ extern "C" int fused_substep_occupancy(int opts, int n, int K, int hull_floats, 
 extern "C" int substep_occupancy(int n, int K, int J, int full, int hull, int* threads,
                                  int* blocks) {
   *threads = substep_threads(n, K);
-  bool body;
-  const size_t smem = substep_layout_smem(
-      n, K, full ? J : 0, sizeof(float) * static_cast<size_t>(n) * (hull > 0 ? hull : 0), &body);
+  bool body, jg;
+  const size_t smem =
+      substep_layout_smem(n, K, full ? J : 0,
+                          sizeof(float) * static_cast<size_t>(n) * (hull > 0 ? hull : 0), &body,
+                          &jg);
   const int t = *threads;
   cudaError_t err;
   if (full)
-    err = hull ? (body ? occupancy_of(substep_kernel<true, true, true>, t, smem, blocks)
-                       : occupancy_of(substep_kernel<true, true, false>, t, smem, blocks))
-               : (body ? occupancy_of(substep_kernel<true, false, true>, t, smem, blocks)
-                       : occupancy_of(substep_kernel<true, false, false>, t, smem, blocks));
+    err = hull ? occupancy_substep<true, true>(t, smem, body, blocks)
+               : occupancy_substep<true, false>(t, smem, body, blocks);
   else
-    err = hull ? (body ? occupancy_of(substep_kernel<false, true, true>, t, smem, blocks)
-                       : occupancy_of(substep_kernel<false, true, false>, t, smem, blocks))
-               : (body ? occupancy_of(substep_kernel<false, false, true>, t, smem, blocks)
-                       : occupancy_of(substep_kernel<false, false, false>, t, smem, blocks));
+    err = hull ? occupancy_substep<false, true>(t, smem, body, blocks)
+               : occupancy_substep<false, false>(t, smem, body, blocks);
   return static_cast<int>(err);
 }
 
@@ -4438,7 +4513,6 @@ extern "C" int substep_launch(
   a.o_w = static_cast<float*>(o_w);
   a.scratch = static_cast<float*>(scratch);
   a.bodies = static_cast<float*>(bodies);
-  a.bstride = body_scratch_floats(n, hull ? hull_stride(a.tab.vm, a.tab.em, a.tab.sm, a.tab.fm) : 0);
   return static_cast<int>(launch_substep_any<false>(a, W, static_cast<cudaStream_t>(stream)));
 }
 
@@ -4527,6 +4601,5 @@ extern "C" int substep_node_launch(
   a.o_ps_w = static_cast<float*>(o_ps_w);
   a.scratch = static_cast<float*>(scratch);
   a.bodies = static_cast<float*>(bodies);
-  a.bstride = body_scratch_floats(n, hull ? hull_stride(a.tab.vm, a.tab.em, a.tab.sm, a.tab.fm) : 0);
   return static_cast<int>(launch_substep_any<true>(a, W, static_cast<cudaStream_t>(stream)));
 }

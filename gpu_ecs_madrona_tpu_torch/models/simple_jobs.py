@@ -70,9 +70,8 @@ class SimpleJobsConfig:
     # ``dropped`` (checked under GEM_TPU_DEBUG), never silently reordered
     degree_cap: int = 32
     seed: int = 0
-    # The whole tick as one kernel.  None = on for a CUDA device when the
-    # bodies fit the kernel's bound, off on the CPU; True beyond the bound
-    # raises.
+    # The whole tick as one kernel.  None = on for a CUDA device (at any
+    # body count), off on the CPU.
     fused: Optional[bool] = None
 
 
@@ -128,10 +127,9 @@ class SimpleJobsWorld:
         K, n0 = cfg.max_pairs, cfg.num_objects
         fused = cfg.fused
         if fused is None:
-            fused = builder.mgr.device.type == "cuda" and fused_fits(n0)
+            fused = builder.mgr.device.type == "cuda"
         if fused and not fused_fits(n0):
-            raise ValueError(f"fused=True: num_objects={n0} exceeds the fused "
-                             "kernel's bound (ops/simple_jobs_kernel.MAX_BODIES)")
+            raise ValueError(f"fused=True: num_objects={n0}, at least 1 needed")
         if fused:
             def fused_step(ctx: Context):
                 d = dict(ctx.data)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface, ``build/torch_kernels/<name>-<hash>.so`` at the root
-of the checkout, where the hash covers the source and the flags: a changed
+of the checkout, where the hash covers the source, the sources of csrc/
+it includes, and the flags: a changed
 source builds anew, an unchanged one loads what is there.  ``build`` starts
 one ``nvcc`` per source, all at once, and waits for them.  Nothing is
 compiled or loaded when this module is imported.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -48,8 +50,16 @@ def sources() -> list:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def library_path(name: str) -> Path:
+def _source_bytes(name: str) -> bytes:
+    """``csrc/<name>.cu`` with the sources of csrc/ that it includes."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for inc in re.findall(rb'^#include "([^"]+)"', src, re.M):
+        src += (CSRC / inc.decode()).read_bytes()
+    return src
+
+
+def library_path(name: str) -> Path:
+    src = _source_bytes(name)
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

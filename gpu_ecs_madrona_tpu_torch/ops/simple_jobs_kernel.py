@@ -38,23 +38,37 @@ from gpu_ecs_madrona_tpu_torch.ops.collision_kernel import aabb_plain
 from gpu_ecs_madrona_tpu_torch.utils.compaction import first_partners, rank_slots
 
 # The kernel's launch shape (csrc/simple_jobs_kernels.cu; the layout test
-# holds these equal to the .cu's constants and shared-memory formula): one
-# CTA a world, a compute thread a row slot (n0 rounded up to CHUNK, at
-# least MIN_THREADS), so n0 is at most MAX_BODIES, and one producer warp
-# that queues the slot spans' zeros where it fits in MAX_THREADS.
+# holds these equal to the .cu's constants and shared-memory formulas): one
+# CTA a world.  Up to MAX_BODIES bodies, a compute thread a row slot (n0
+# rounded up to CHUNK, at least MIN_THREADS) and one producer warp that
+# queues the slot spans' zeros where it fits in MAX_THREADS.  Past it, the
+# rounds layout: ROUND_THREADS compute threads take the row slots in rounds
+# beside the producer warp, the rows' state in shared memory while it fits
+# MAX_SMEM (rounds_rows_shared), else in a global scratch that also holds
+# the bit grid's words (scratch_bytes a world; the wrapper allocates it).
 MAX_BODIES = 1024
 MAX_THREADS = 1024
 MIN_THREADS = 128
+ROUND_THREADS = 992
 CHUNK = 64          # rows a bit-grid word covers
 STAGE = 512         # slots staged a chunk
 ZERO_BYTES = 2048   # the bulk stores' zero source
+MAX_SMEM = 232448   # a CTA's shared memory at most (227 KB)
 
 
 def fused_fits(n0: int) -> bool:
-    return 1 <= n0 <= MAX_BODIES
+    """Whether the kernel takes n0 bodies: any n0 >= 1."""
+    return n0 >= 1
+
+
+def rounds(n0: int) -> bool:
+    """Whether a launch at n0 bodies takes the rounds layout."""
+    return n0 > MAX_BODIES
 
 
 def compute_threads(n0: int) -> int:
+    if rounds(n0):
+        return ROUND_THREADS
     return max(MIN_THREADS, CHUNK * -(-n0 // CHUNK))
 
 
@@ -64,18 +78,49 @@ def block_threads(n0: int) -> int:
 
 
 def smem_bytes(n0: int) -> int:
-    """Shared bytes of a CTA (smem_bytes in the .cu): lo, hi, position and
-    the half box, 16 bytes a row slot each; the bulk stores' zeros; the
-    64-bit overlap words [np / 64][np]; the slot stage (ab and normals,
-    STAGE slots); the warps' position sums and slot and drop sums."""
+    """Shared bytes of a one-block CTA (smem_bytes in the .cu): lo, hi,
+    position and the half box, 16 bytes a row slot each; the bulk stores'
+    zeros; the 64-bit overlap words [np / 64][np]; the slot stage (ab and
+    normals, STAGE slots); the warps' position sums and slot and drop
+    sums."""
     np_ = CHUNK * -(-n0 // CHUNK)
     return (16 * 4 * np_ + ZERO_BYTES + 8 * (np_ // CHUNK * np_)
             + 4 * (5 * STAGE + 32 * 3 + 32 * 2))
 
 
+def rounds_rows_shared(n0: int) -> bool:
+    """Whether the rounds layout keeps the rows' lo, hi, position and half
+    box in shared memory (rounds_rows_shared in the .cu)."""
+    np_ = CHUNK * -(-n0 // CHUNK)
+    return 16 * 4 * np_ + ZERO_BYTES + 4 * (32 * 3 + 32 * 2) <= MAX_SMEM
+
+
+def rounds_smem_bytes(n0: int) -> int:
+    """Shared bytes of a rounds-layout CTA (rounds_smem_bytes in the .cu):
+    the rows where they fit, the zeros, the warps' sums."""
+    np_ = CHUNK * -(-n0 // CHUNK)
+    rows = 4 * np_ if rounds_rows_shared(n0) else 0
+    return 16 * rows + ZERO_BYTES + 4 * (32 * 3 + 32 * 2)
+
+
+def scratch_bytes(n0: int) -> int:
+    """A world's bytes of the rounds layout's global scratch
+    (rounds_scratch_bytes in the .cu; 0 in the one-block layout): the bit
+    grid's words [np / 64][np] u64, then the rows where they are not in
+    shared memory."""
+    if not rounds(n0):
+        return 0
+    np_ = CHUNK * -(-n0 // CHUNK)
+    rows = 0 if rounds_rows_shared(n0) else 4 * np_
+    return 8 * (np_ // CHUNK * np_) + 16 * rows
+
+
 def launch_shape(W: int, n0: int) -> dict:
-    """{ctas, threads, smem} of a launch at W worlds of n0 bodies."""
-    return {"ctas": W, "threads": block_threads(n0), "smem": smem_bytes(n0)}
+    """{ctas, threads, smem} of a launch at W worlds of n0 bodies, and the
+    global scratch's bytes."""
+    smem = rounds_smem_bytes(n0) if rounds(n0) else smem_bytes(n0)
+    return {"ctas": W, "threads": block_threads(n0), "smem": smem,
+            "scratch": W * scratch_bytes(n0)}
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +183,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_simple_jobs_step_launch.argtypes = (
-            [P, P, I, I, I, I] + [F] * 6 + [P] * 9)
+            [P, P, I, I, I, I] + [F] * 6 + [P] * 10)
         lib.fused_simple_jobs_step_launch.restype = I
         IP = ctypes.POINTER(ctypes.c_int)
         lib.simple_jobs_occupancy.argtypes = [I, IP, IP, IP]
@@ -162,6 +207,15 @@ def _check(pos, rot, n0):
         raise ValueError("fused_simple_jobs_step: rot must be 16-byte aligned (a float4 a body)")
 
 
+def scratch(W: int, n0: int, device):
+    """The rounds layout's global scratch for W worlds of n0 bodies
+    (scratch_bytes a world; the launch writes every word it reads, so it
+    needs no clearing), or None in the one-block layout."""
+    if not rounds(n0):
+        return None
+    return torch.empty((W * scratch_bytes(n0) // 16, 4), dtype=torch.int32, device=device)
+
+
 def occupancy(W: int, n0: int, K: int) -> dict:
     """launch_shape plus the CTAs an SM the card's occupancy API gives for
     it (needs the card; K does not change the shape)."""
@@ -183,13 +237,13 @@ def fused_simple_jobs_step(pos, rot, *, n0: int, K: int, degree_cap: int, bounds
     same launch.
 
     K: the candidate capacity; degree_cap: the per-row partner cap D;
-    bounds: ((lo x, y, z), (hi x, y, z)).  n0 is at most MAX_BODIES."""
+    bounds: ((lo x, y, z), (hi x, y, z)).  Past MAX_BODIES bodies the
+    kernel takes its rounds layout, with a global scratch made here."""
     if pos.ndim != 3 or pos.shape[1] != n0:
         raise ValueError(f"fused_simple_jobs_step: pos {tuple(pos.shape)} does not "
                          f"hold n0={n0} bodies")
     if not fused_fits(n0):
-        raise ValueError(f"fused_simple_jobs_step: n0={n0} outside the kernel's "
-                         f"bound [1, {MAX_BODIES}] (one thread per body)")
+        raise ValueError(f"fused_simple_jobs_step: n0={n0} bodies, at least 1 needed")
     if K < 1 or degree_cap < 0:
         raise ValueError(f"fused_simple_jobs_step: K={K}, degree_cap={degree_cap}")
     if pos.device.type == "cpu":
@@ -206,13 +260,15 @@ def fused_simple_jobs_step(pos, rot, *, n0: int, K: int, degree_cap: int, bounds
     counts = torch.empty((W,), dtype=torch.int32, device=pos.device)
     dropped = torch.empty((W,), dtype=torch.int32, device=pos.device)
     zero = torch.empty((W,), dtype=torch.int32, device=pos.device) if zeros else None
+    work = scratch(W, n0, pos.device)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     rc = _lib().fused_simple_jobs_step_launch(
         pos.data_ptr(), rot.data_ptr(), W, n0, K, degree_cap,
         *(float(v) for v in bounds[0]), *(float(v) for v in bounds[1]),
         translation.data_ptr(), lo.data_ptr(), hi.data_ptr(), ab.data_ptr(),
         nrm.data_ptr(), counts.data_ptr(), dropped.data_ptr(),
-        None if zero is None else zero.data_ptr(), stream)
+        None if zero is None else zero.data_ptr(),
+        None if work is None else work.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_simple_jobs_step: kernel launch failed with cudaError {rc}")
     fused_simple_jobs_step.launches += 1

@@ -84,7 +84,10 @@ rigid_bench, 895 with contact refresh), and where kernel 5's window layout
 passes one block's shared memory (from 816 body rows), the bodies' rows,
 lists' offsets and cursors and staged hull rows move to a second global
 scratch (``body_scratch``; OPT_BODY, counted as "...win+bodies" and in
-``SubstepKernel.body_launches``), bit for bit the same.  On CPU tensors
+``SubstepKernel.body_launches``), bit for bit the same; kernel 5's joint
+rows follow them where they do not fit beside its window either (about
+3,300 joint rows a world: ``substep_joints_in_scratch``, counted in
+``SubstepKernel.joint_scratch_launches``).  On CPU tensors
 they run ``fused_substep_plain``, ``substep_plain``
 and ``substep_node_plain``, the same loop in batched PyTorch over [W, K]
 pair tensors.  The segment sums add each body's A-side contributions in
@@ -135,12 +138,14 @@ MC_CACHE = MC_CHANNELS - MC_ROWS
 # 227 KB a block on an H100.  The in-kernel broadphase takes one thread a
 # body row.
 MAX_SMEM_BYTES = 227 * 1024
-# The object tables the kernels take: all-box tables at most
-# MAX_BOX_TABLE_VERTS verts a hull (the analytic box paths); tables with
-# general hulls (pairs.ObjTables.hull_table) of any counts, the kernels
-# staging each hull row's world-space data in shared memory
-# (hull_stage_bytes), which with the rest must fit MAX_SMEM_BYTES.
-MAX_BOX_TABLE_VERTS = 8
+# The object tables the kernels take: all-box tables of any verts a hull
+# (the analytic box paths; past BOX_VERTS, the wide_box tables, from the
+# build of csrc/substep_wide_box_kernels.cu, whose hull-plane path reads
+# every live vertex at the table's stride); tables with general hulls
+# (pairs.ObjTables.hull_table) of any counts, the kernels staging each hull
+# row's world-space data in shared memory (hull_stage_bytes), which with
+# the rest must fit MAX_SMEM_BYTES (or, past it, goes to the body scratch).
+BOX_VERTS = 8
 MAX_BP_ROWS = 128
 MAX_THREADS = 128
 
@@ -296,10 +301,12 @@ def body_bytes(n: int) -> int:
     return 4 * BODY_CH * n + 4 * (3 * n + 1)
 
 
-def body_scratch_floats(n: int, tables: pk.ObjTables) -> int:
+def body_scratch_floats(n: int, tables: pk.ObjTables, joints: int = 0) -> int:
     """A world's floats of the body scratch (body_scratch_floats in the .cu):
-    its body rows, lists' offsets and cursors, and staged hull rows."""
-    return BODY_CH * n + 3 * n + 1 + n * hull_stage_floats(tables)
+    its body rows, lists' offsets and cursors, the rows of ``joints`` joints
+    where they are there too (JOINT_CH floats and 2 ints a joint;
+    substep_joints_in_scratch), and staged hull rows."""
+    return BODY_CH * n + 3 * n + 1 + (JOINT_CH + 2) * joints + n * hull_stage_floats(tables)
 
 
 def substep_body_smem_bytes(n: int, K: int, J: int = 0) -> int:
@@ -338,6 +345,24 @@ def substep_bodies(tables: pk.ObjTables, n: int, K: int, J: int = 0) -> bool:
     return substep_smem_bytes(n, K, J) + hull_stage_bytes(tables, n) > MAX_SMEM_BYTES
 
 
+def substep_joints_in_scratch(tables: pk.ObjTables, n: int, K: int, J: int) -> bool:
+    """Whether kernel 5 keeps these shapes' joint rows in the body scratch
+    too (Args1::jg in the .cu): its bodies are there and the joint rows do
+    not fit beside its window (substep_body_smem_bytes past
+    MAX_SMEM_BYTES, ~3,300 joint rows a world)."""
+    return (substep_bodies(tables, n, K, J)
+            and substep_body_smem_bytes(n, K, J) > MAX_SMEM_BYTES)
+
+
+def substep_layout_smem_bytes(tables: pk.ObjTables, n: int, K: int, J: int = 0) -> int:
+    """Kernel 5's shared memory in the layout these shapes take
+    (substep_layout_smem in the .cu)."""
+    if not substep_bodies(tables, n, K, J):
+        return substep_smem_bytes(n, K, J) + hull_stage_bytes(tables, n)
+    return substep_body_smem_bytes(n, K, 0 if substep_joints_in_scratch(tables, n, K, J)
+                                   else J)
+
+
 def fused_bodies(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
                  cache: bool = False) -> bool:
     """Whether the fused kernel keeps these shapes' bodies in the scratch: a
@@ -355,10 +380,11 @@ def fused_layout_window(tables: pk.ObjTables, n: int, K: int, cache: bool = Fals
     return fused_window(n, K, cache, hull_stage_bytes(tables, n))
 
 
-def body_scratch(W: int, n: int, tables: pk.ObjTables, device):
+def body_scratch(W: int, n: int, tables: pk.ObjTables, device, joints: int = 0):
     """The body scratch for W worlds of n bodies with ``tables``' staged hull
-    rows, [W, body_scratch_floats] float32."""
-    return torch.empty((W, body_scratch_floats(n, tables)), dtype=torch.float32, device=device)
+    rows (and ``joints`` joints' rows), [W, body_scratch_floats] float32."""
+    return torch.empty((W, body_scratch_floats(n, tables, joints)), dtype=torch.float32,
+                       device=device)
 
 
 def fused_scratch(W: int, K: int, kw: int, cache: bool, device):
@@ -848,8 +874,17 @@ def substep_node_plain(pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity
 # ---------------------------------------------------------------------------
 
 
-def _lib():
-    lib = _build.load("substep_kernels")
+def wide_box(tables: pk.ObjTables) -> bool:
+    """Whether ``tables`` is an all-box table past a box's BOX_VERTS verts a
+    hull, which the kernels of csrc/substep_wide_box_kernels.cu take."""
+    return tables.all_box and tables.Vm > BOX_VERTS
+
+
+def _lib(tables: pk.ObjTables = None):
+    """The substep kernels' library: the wide-box build for wide_box
+    ``tables``, else csrc/substep_kernels.cu's."""
+    wide = tables is not None and wide_box(tables)
+    lib = _build.load("substep_wide_box_kernels" if wide else "substep_kernels")
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_substep_launch.argtypes = (
@@ -880,30 +915,24 @@ def kernel_fits(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
                 cache: bool = False, single: bool = False, joints: int = 0) -> str:
     """'' when the kernel takes these tables and shapes (the fused kernel
     with the in-kernel broadphase, with a manifold cache; with ``single``
-    kernel 5 with ``joints`` joints), else why not: all-box tables up to
-    MAX_BOX_TABLE_VERTS verts a hull; general hulls of any counts.  The
-    fused kernel with the in-kernel broadphase (at most MAX_BP_ROWS rows)
-    refuses staged hull rows that do not fit the shared memory the rest of
-    the kernel leaves of MAX_SMEM_BYTES ("... hull-row budget").  Without
-    it, a shape past that takes the windowed layout (windowed), and past
-    that the bodies in the scratch (fused_bodies); kernel 5 takes the
-    bodies in the scratch past its window layout (substep_bodies), and
-    refuses only joints whose rows with the window pass MAX_SMEM_BYTES
-    (56 B a joint: about 3,300 joints a world).  Two refusals are the
-    port's alone, JAX's kernels taking those shapes: all-box tables past
-    MAX_BOX_TABLE_VERTS, and kernel 5's joints past MAX_SMEM_BYTES."""
-    if tables.all_box and tables.Vm > MAX_BOX_TABLE_VERTS:
-        return f"all-box tables with {tables.Vm} verts per hull > {MAX_BOX_TABLE_VERTS}"
+    kernel 5 with ``joints`` joints), else why not: all-box tables of any
+    verts a hull; general hulls of any counts.  The fused kernel with the
+    in-kernel broadphase (at most MAX_BP_ROWS rows) refuses staged hull rows
+    that do not fit the shared memory the rest of the kernel leaves of
+    MAX_SMEM_BYTES ("... hull-row budget").  Without it, a shape past that
+    takes the windowed layout (windowed), and past that the bodies in the
+    scratch (fused_bodies); kernel 5 takes the bodies in the scratch past
+    its window layout (substep_bodies), and its joint rows there too past
+    that (substep_joints_in_scratch).  What it refuses the JAX kernels
+    refuse too (the in-kernel broadphase past MAX_BP_ROWS rows or its
+    shared memory)."""
     if n < 1 or K < 1:
         return f"n={n} bodies and K={K} candidate slots must both be >= 1"
     if bp and n > MAX_BP_ROWS:
         return f"the in-kernel broadphase takes at most {MAX_BP_ROWS} body rows, not {n}"
     if single and substep_bodies(tables, n, K, joints):
-        need = substep_body_smem_bytes(n, K, joints)
-        if need > MAX_SMEM_BYTES:
-            return (f"K={K} candidate slots and {joints} joints need {need} B of shared "
-                    f"memory with the bodies in the scratch, over the {MAX_SMEM_BYTES} B a "
-                    f"block may have")
+        # the bodies in the scratch, and the joints' rows where they do not
+        # fit beside the window: the window layout's rest always fits
         return ""
     if not single and windowed(tables, n, K, bp, cache):
         # past one block: the windowed layout, and past that the bodies in
@@ -1082,7 +1111,7 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
                                   outs=outs | extra)
     stream = torch.cuda.current_stream(dev).cuda_stream
     hull = _hull_args(tables, dev)
-    rc = _lib().fused_substep_launch(
+    rc = _lib(tables).fused_substep_launch(
         *(ptr(t) for t in args), table.data_ptr(),
         tables.O, tables.Vm, W, n, K, int(num_substeps), float(relaxation),
         float(speculative), int(tables.any_restitution),
@@ -1314,7 +1343,7 @@ def substep(pos, rot, v, w, prev_pos, prev_rot, im, ii, mu_s, mu_d, obj, dyn, h,
             for k in SUBSTEP_KEYS}
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     hull = _hull_args(tables, pos.device)
-    rc = _lib().substep_launch(
+    rc = _lib(tables).substep_launch(
         *(t.data_ptr() for t in args), table.data_ptr(), tables.O, tables.Vm, W, n, K,
         float(relaxation), float(speculative), int(tables.any_restitution),
         *(outs[k].data_ptr() for k in SUBSTEP_KEYS),
@@ -1380,12 +1409,14 @@ def substep_node(pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity,
                   h=h, gravity=gravity, restitution_threshold=restitution_threshold,
                   rows_i=rows_i, rows_j=rows_j, kvalid=kvalid)
     scratch = _scratch_for(scratch, W, K, dev)
-    bodies = body_scratch(W, n, tables, dev) if substep_bodies(tables, n, K, J) else None
+    jg = substep_joints_in_scratch(tables, n, K, J)
+    bodies = (body_scratch(W, n, tables, dev, J if jg else 0)
+              if substep_bodies(tables, n, K, J) else None)
     table = tables.kernel_table(dev)
     outs = {k: torch.empty((W, n, _WIDTH[k]), dtype=torch.float32, device=dev)
             for k in NODE_KEYS}
     hull = _hull_args(tables, dev)
-    rc = _lib().substep_node_launch(
+    rc = _lib(tables).substep_node_launch(
         *(t.data_ptr() for t in args), table.data_ptr(), tables.O, tables.Vm, W, n, K,
         float(relaxation), float(speculative), int(tables.any_restitution), RESPONSE_DYNAMIC, J,
         *(joints[f].data_ptr() for f in JOINT_FIELDS), jmask.data_ptr(), E,
@@ -1398,6 +1429,7 @@ def substep_node(pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity,
     SubstepKernel.launches += 1
     SubstepKernel.hull_launches += 1 if hull[0] else 0
     SubstepKernel.body_launches += 0 if bodies is None else 1
+    SubstepKernel.joint_scratch_launches += int(jg)
     return outs
 
 
@@ -1415,11 +1447,13 @@ class SubstepKernel:
     ``launches`` counts the kernel launches (class-wide), ``hull_launches``
     those of its general-hull specialisation (tables with general hulls),
     ``body_launches`` those with the bodies in a global scratch
-    (substep_bodies)."""
+    (substep_bodies), ``joint_scratch_launches`` those with the joints'
+    rows there too (substep_joints_in_scratch)."""
 
     launches = 0
     hull_launches = 0
     body_launches = 0
+    joint_scratch_launches = 0
 
     def __init__(self, object_manager, relaxation: float = 1.0, speculative: float = 0.0):
         self.tables = pk.ObjTables(object_manager)

@@ -32,10 +32,19 @@ prints one JSON line, from simple_jobs at 1024 worlds x 100 bodies, K =
              card's write rate: one zero_() over as many bytes as a "main"
              call writes
   pairs      the overlapping ordered pairs a world at those states (mean)
+  digests    a SHA-256 of the outputs of the "main" and "initial" calls
+             (every output tensor's bytes, in order), and of the rounds
+             layout's call at main_simple_jobs_large's shape ("large":
+             1024 worlds x 2048 objects, K = 32768, D = 32, the model's
+             initial state; its ms under "ms" too), or "refused" where ROOT's
+             kernel does not take that shape: two checkouts whose kernels
+             give the same outputs bit for bit print the same digests
   node       the fused_step node on main_simple_jobs' state: device ms (20
              runs), host ms a run (20 runs, no sync between) and device
              operations (the nodes of a CUDA graph capturing one run)
-  phases     (--phases) the kernel's cycles a CTA by phase, from a copy of
+  phases     (--phases) the kernel's cycles a CTA by phase (also of the
+             rounds layout at the large shape, at its initial state and
+             after 33 steps, as main_simple_jobs_large times it), from a copy of
              ROOT's .cu built with clock64() markers (a barrier of the
              threads that compute and thread 0's clock at each phase's
              end, summed over the CTAs with an atomicAdd; the markers'
@@ -52,6 +61,7 @@ The script needs a CUDA card; without one it exits 1 and prints nothing.
 """
 
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -60,6 +70,7 @@ import sys
 import time
 
 WORLDS, OBJECTS, K, D = 1024, 100, 1600, 32
+LARGE_OBJECTS, LARGE_K = 2048, 32768
 
 # the PR 2 kernel's phases, each ended at the comment that opens the next
 PARENT_MARKS = [("  // The world's mean position:", "clamp_aabb"),
@@ -101,6 +112,14 @@ extern "C" int sj_cta_ns(unsigned long long* out, int n) {
 }
 """
 CTA_SLOTS = 1024
+
+
+def digest(outs):
+    """A SHA-256 (16 hex digits) of a call's output tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def cuda_ms(torch, fn, iters=200, warmup=3):
@@ -212,32 +231,36 @@ def instrumented(root, _build):
                    capture_output=True, text=True)
     lib = ctypes.CDLL(so)
     takes_zeros = "void* zeros" in src
+    takes_scratch = "void* scratch" in src
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fused_simple_jobs_step_launch.argtypes = (
-        [P, P, I, I, I, I] + [F] * 6 + [P] * (9 if takes_zeros else 8))
+        [P, P, I, I, I, I] + [F] * 6 + [P] * (8 + takes_zeros + takes_scratch))
     lib.fused_simple_jobs_step_launch.restype = I
     lib.sj_phase_cycles.argtypes = [P, I]
     lib.sj_phase_cycles.restype = I
     lib.sj_cta_ns.argtypes = [P, I]
     lib.sj_cta_ns.restype = I
+    lib.takes_scratch = takes_scratch
     return lib, names, takes_zeros
 
 
-def phases(torch, lib, names, takes_zeros, pos, rot, bounds, launches=20):
-    W = pos.shape[0]
+def phases(torch, lib, names, takes_zeros, pos, rot, bounds, launches=20, k=K, scratch=None):
+    W, n0 = pos.shape[:2]
     outs = [torch.empty_like(pos) for _ in range(3)]
-    ab = torch.empty((W, K, 2), dtype=torch.int32, device=pos.device)
-    nrm = torch.empty((W, K, 3), dtype=torch.float32, device=pos.device)
+    ab = torch.empty((W, k, 2), dtype=torch.int32, device=pos.device)
+    nrm = torch.empty((W, k, 3), dtype=torch.float32, device=pos.device)
     ints = [torch.empty((W,), dtype=torch.int32, device=pos.device) for _ in range(3)]
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        args = [pos.data_ptr(), rot.data_ptr(), W, OBJECTS, K, D,
+        args = [pos.data_ptr(), rot.data_ptr(), W, n0, k, D,
                 *map(float, bounds[0]), *map(float, bounds[1]),
                 *(t.data_ptr() for t in outs), ab.data_ptr(), nrm.data_ptr(),
                 ints[0].data_ptr(), ints[1].data_ptr()]
         if takes_zeros:
             args.append(ints[2].data_ptr())
+        if lib.takes_scratch:
+            args.append(None if scratch is None else scratch.data_ptr())
         rc = lib.fused_simple_jobs_step_launch(*args, stream)
         if rc != 0:
             raise RuntimeError(f"instrumented launch failed with cudaError {rc}")
@@ -317,6 +340,21 @@ def one(root, with_phases):
         pairs[name] = float(sk.overlap_grid(lo, hi).sum()) / p.shape[0]
     p, r = states["main"]["translation"], states["main"]["rotation"]
     ms["main_again"] = cuda_ms(torch, lambda: sk.fused_simple_jobs_step(p, r, **kw))
+    digests = {name: digest(sk.fused_simple_jobs_step(
+        states[name]["translation"], states[name]["rotation"], **kw))
+        for name in ("main", "initial")}
+    if sk.fused_fits(LARGE_OBJECTS):
+        big = sj.make_executor(sj.SimpleJobsConfig(
+            fused=True, **dict(cfg, num_objects=LARGE_OBJECTS, max_pairs=LARGE_K)),
+            device="cuda").state["user"]
+        bp, br = big["translation"], big["rotation"]
+        bkw = dict(kw, n0=LARGE_OBJECTS, K=LARGE_K)
+        ms["large"] = cuda_ms(torch, lambda: sk.fused_simple_jobs_step(bp, br, **bkw), 20)
+        digests["large"] = digest(sk.fused_simple_jobs_step(bp, br, **bkw))
+        del big, bp, br
+    else:
+        ms["large"] = digests["large"] = "refused"
+    res["digests"] = digests
     # the card's rate for the bytes a main call writes, as one fill
     fill = torch.empty(WORLDS * (OBJECTS * 36 + K * 20 + 12), dtype=torch.uint8, device=p.device)
     ms["fill_written_bytes"] = cuda_ms(torch, fill.zero_)
@@ -358,6 +396,19 @@ def one(root, with_phases):
             user = states[name]
             res["phases"][name] = phases(torch, lib, names, takes_zeros, user["translation"],
                                          user["rotation"], bounds)
+        if sk.fused_fits(LARGE_OBJECTS):
+            # the rounds layout (its first phase, the producer's, is empty)
+            big = sj.make_executor(sj.SimpleJobsConfig(
+                fused=True, **dict(cfg, num_objects=LARGE_OBJECTS, max_pairs=LARGE_K)),
+                device="cuda")
+            for name, steps in (("large_initial", 0), ("large_after_33_steps", 33)):
+                big.run(steps)
+                user = big.state["user"]
+                res["phases"][name] = phases(
+                    torch, lib, names, takes_zeros, user["translation"], user["rotation"],
+                    bounds, launches=3, k=LARGE_K,
+                    scratch=sk.scratch(WORLDS, LARGE_OBJECTS, user["translation"].device))
+            del big
         smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                               "--format=csv,noheader"], capture_output=True, text=True)
         res["phases"]["sm_clock_after"] = smi.stdout.strip()

@@ -78,6 +78,16 @@ prints one JSON line:
              (window_hull_n256_K1020); "refused" where the kernel refuses
              these shapes (one block's shared memory); the occupancy of the
              windowed specialisations at that shape ("occupancy" "n256_K1020")
+  shapes     the shapes past one block's resources: rigid_bench at 8192 x
+             1,023 bodies + the plane (K = 4,092, sap), chip_smoke.py's
+             main_rigid_sap_xlarge, its fused launch ("win+bodies") at its
+             state after 3 steps (bodies_n1024_K4092); row 7 at main_rigid's
+             state with the box table padded to 9 and 32 verts a hull
+             (wide_box_vm9_K256, wide_box_vm32_K256); and kernel 5's node
+             launch on the chains' world of tests/test_torch_joint_scenes.py
+             at 1024 worlds, 4,096 joint rows (joint_rows_node_J4096); each
+             with its digest, or "refused" where ROOT's kernel (or its
+             tests' scenes) do not take the shape
   phases     (--phases) row 7's time at main_rigid's state with 0, 1 and 4
              substeps, with every slot cleared (the integrate and the body
              phases), with only the slots of one contact kind valid; row
@@ -371,6 +381,46 @@ def window_case(torch, root, ms, rates, res, timed):
             sk.OPT_WIN, sk.OPT_WIN | sk.OPT_REFRESH))
 
 
+def shapes_case(torch, root, ms, res, timed, kw256):
+    """The shapes case (see the module doc); timed(name, fn) times fn and
+    keeps its outputs' digest."""
+    import numpy as np
+
+    from gpu_ecs_madrona_tpu_torch import physics as phys
+    from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
+    from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
+    RS = phys.RigidBodyPhysicsSystem
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=1023,
+                                               contact_mode="auto", broadphase_mode="auto"),
+                           device="cuda")
+    sim.run(3)
+    kern, kw = RS.fused_kernel(sim), RS.next_step_kernel_inputs(sim, rb.Body,
+                                                                 rb.RigidBenchWorld.objmgr)
+    timed("bodies_n1024_K4092", lambda: kern(**kw))
+    del sim, kw
+    om = rb.RigidBenchWorld.objmgr
+    for vm in (9, 32):
+        wide = dict(om, verts=np.pad(om["verts"], ((0, 0), (0, vm - om["verts"].shape[1]),
+                                                   (0, 0))))
+        name = f"wide_box_vm{vm}_K256"
+        if sk.kernel_fits(sk.pk.ObjTables(wide), 65, 256):
+            ms[name] = res["digests"][name] = "refused"
+            continue
+        wkern = sk.FusedSubstepKernel(wide, 4, relaxation=0.7)
+        timed(name, lambda: wkern(**kw256))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import test_torch_joint_scenes as js
+    name = "joint_rows_node_J4096"
+    if not hasattr(js, "chain_world"):
+        ms[name] = res["digests"][name] = "refused"
+        return
+    csim = js.chain_world("pallas", num_worlds=STG_WORLDS, device="cuda")
+    csim.run(2)
+    ckern = RS.substep_kernel(csim)
+    ckw = RS.next_step_kernel_inputs(csim, csim.world_cls.Body, None, node=True)
+    timed(name, lambda: ckern.step(**ckw))
+
+
 def one(root, phases, stg_only):
     import ctypes
 
@@ -384,7 +434,9 @@ def one(root, phases, stg_only):
     if not os.path.abspath(port.__file__).startswith(os.path.abspath(root)):
         raise RuntimeError(f"{port.__file__} is not under {root}")
     torch.cuda.set_device(0)
-    log = _build.build(["substep_kernels"])["substep_kernels"]
+    # the substep sources (where ROOT has it, the wide-box build too) at once
+    log = _build.build([name for name in _build.sources()
+                        if name.startswith("substep")])["substep_kernels"]
     ptxas, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry" in ln:
@@ -494,6 +546,7 @@ def one(root, phases, stg_only):
             torch, kw256, om["prim_type"]).items()}})
     hull_case(torch, root, ms, rates, res, timed)
     window_case(torch, root, ms, rates, res, timed)
+    shapes_case(torch, root, ms, res, timed, kw256)
 
     if phases:
         ph = {}

@@ -73,7 +73,7 @@ import test_torch_rl_cases as rl_cases
 import test_torch_sap_cases as sap_cases
 import test_torch_simple_jobs_cases as sj_cases
 import test_torch_hull_scenes as hull_scenes
-from test_torch_joint_scenes import joint_world, random_joints
+from test_torch_joint_scenes import chain_world, joint_world, random_joints
 
 
 @pytest.fixture
@@ -448,12 +448,11 @@ def over_the_budget(om=None):
     return om
 
 
-def nine_vert_boxes(om=None):
+def padded_boxes(om=None, vm=9):
     """An object manager (rigid_bench's by default) whose all-box table has
-    9 verts a hull: past MAX_BOX_TABLE_VERTS, refused by every launch."""
-    om = dict(rb.RigidBenchWorld.objmgr if om is None else om)
-    om["verts"] = np.pad(om["verts"], ((0, 0), (0, 9 - om["verts"].shape[1]), (0, 0)))
-    return om
+    vm verts a hull: wider than a box's 8, which every launch takes, bit
+    for bit the box table's result."""
+    return hull_scenes.padded_verts(rb.RigidBenchWorld.objmgr if om is None else om, vm)
 
 
 def bp_args(kw, K=128):
@@ -507,9 +506,15 @@ def test_fused_substep_rejects_bad_input(card):
     with pytest.raises(NotImplementedError, match="4096 verts.*hull-row budget"):
         subk.fused_substep(**dict(args, tables=subk.pk.ObjTables(over_the_budget())),
                            **bp_args(kw))
-    with pytest.raises(NotImplementedError, match="9 verts per hull"):
-        subk.fused_substep(**dict(args, tables=subk.pk.ObjTables(nine_vert_boxes())))
     assert subk.FusedSubstepKernel.launches == 0
+    # an all-box table of 9 verts a hull is no bad input: it launches, bit
+    # for bit the box table's launch
+    wide = subk.fused_substep(**dict(args, tables=subk.pk.ObjTables(padded_boxes())))
+    own = subk.fused_substep(**args)
+    torch.cuda.synchronize()
+    assert subk.FusedSubstepKernel.launches == 2
+    for k in subk.OUT_KEYS:
+        assert torch.equal(wide[k], own[k]), k
 
 
 @pytest.mark.cuda
@@ -545,24 +550,30 @@ def test_substep_rejects_bad_input(card):
         subk.substep(**dict(args, prev_rot=a["prev_rot"].double()))
     with pytest.raises(ValueError):
         subk.substep(**dict(args, kvalid=a["kvalid"].cpu()))
-    with pytest.raises(NotImplementedError, match="9 verts per hull"):
-        subk.substep(**dict(args, tables=subk.pk.ObjTables(nine_vert_boxes())))
     assert subk.SubstepKernel.launches == 0
+    # an all-box table of 9 verts a hull launches, bit for bit the box table
+    wide = subk.substep(**dict(args, tables=subk.pk.ObjTables(padded_boxes())))
+    own = subk.substep(**args)
+    torch.cuda.synchronize()
+    assert subk.SubstepKernel.launches == 2
+    for k in subk.SUBSTEP_KEYS:
+        assert torch.equal(wide[k], own[k]), k
 
 
 def node_case(case, dev):
     """(SubstepKernel, node inputs) of kernel 5's node launch: "stg",
     simple_taskgraph's state (100 spheres, K = 1000, 64 dead joint rows,
     dead body rows); "joints", the joint world (live Fixed and Hinge
-    joints, static bodies); "overflow", simple_taskgraph's state with all
+    joints, static bodies) after 5 steps, "joints_landed" after 30 (its
+    free box on the plane); "overflow", simple_taskgraph's state with all
     1000 slots of world 0 valid (every pair of its rows in order: past the
     shared window, so the global scratch is used) and every other slot of
     world 1; "random_joints", simple_taskgraph's state with random live
     Fixed and Hinge joints (several on one body and side, a null handle, a
     handle into another archetype: test_torch_joint_scenes.random_joints)."""
-    if case == "joints":
+    if case.startswith("joints"):
         sim = joint_world("pallas", num_worlds=8, device=dev)
-        sim.run(5)
+        sim.run(5 if case == "joints" else 30)
         arch = sim.world_cls.Body
     else:
         sim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=8, num_objects=100, seed=3),
@@ -654,10 +665,15 @@ def test_substep_node_rejects_bad_input(card):
     with pytest.raises(ValueError):
         bad = dict(opts["joints"], attach_rot1=opts["joints"]["attach_rot1"][..., :3].contiguous())
         subk.substep_node(*args, **dict(opts, joints=bad))
-    om = nine_vert_boxes(kern.tables.om)
-    with pytest.raises(NotImplementedError, match="9 verts per hull"):
-        subk.substep_node(*args, **dict(opts, tables=subk.pk.ObjTables(om)))
     assert subk.SubstepKernel.launches == 0
+    # an all-box table of 9 verts a hull launches, bit for bit the box table
+    om = padded_boxes(kern.tables.om)
+    wide = subk.substep_node(*args, **dict(opts, tables=subk.pk.ObjTables(om)))
+    own = subk.substep_node(*args, **opts)
+    torch.cuda.synchronize()
+    assert subk.SubstepKernel.launches == 2
+    for k in subk.NODE_KEYS:
+        assert torch.equal(wide[k], own[k]), k
 
 
 @pytest.mark.cuda
@@ -1792,6 +1808,157 @@ def test_substep_bodies_in_scratch_matches_plain_bit_for_bit(card, case):
         assert torch.equal(got[k], want[k]), (k, float((got[k] - want[k]).abs().max()))
 
 
+SJ_LARGE = {1025: 8, 2048: 8, 4096: 2}    # n0: worlds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n0", sorted(SJ_LARGE))
+def test_fused_simple_jobs_step_past_one_block_matches_plain(card, n0):
+    """Kernel 4's rounds layout past 1,024 bodies (at 4,096 the rows' state
+    in the global scratch too), dense worlds over the example's bounds, K =
+    16 n0, D = 32: integers, lo and hi exact (tails included), translation
+    atol 1e-4, normals atol 1e-5, as the one-block cases; a repeated launch
+    bit-identical."""
+    W = SJ_LARGE[n0]
+    pos, rot = sj_inputs(7, W, n0, 10.0, card)
+    kw = dict(n0=n0, K=16 * n0, degree_cap=32, bounds=(sj.BOUNDS_LO, sj.BOUNDS_HI))
+    assert sk.rounds(n0) and sk.rounds_rows_shared(n0) == (n0 <= 3584)
+    got = sk.fused_simple_jobs_step(pos, rot, **kw)
+    again = sk.fused_simple_jobs_step(pos, rot, **kw)
+    torch.cuda.synchronize()
+    assert sk.fused_simple_jobs_step.launches == 2
+    want = sk.fused_simple_jobs_step_plain(pos, rot, **kw)
+    names = ("translation", "lo", "hi", "ab", "normals", "counts", "dropped")
+    atol = {"translation": 1e-4, "normals": 1e-5}
+    for name, g, g2, w in zip(names, got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g.view(torch.int32), g2.view(torch.int32)), name
+        if name in atol:
+            torch.testing.assert_close(g, w, atol=atol[name], rtol=0, msg=name)
+            assert torch.isfinite(g).all(), name
+        else:
+            assert torch.equal(g, w), name
+    assert (want[6] > 0).all() and (want[5] > 1000).all()
+    if n0 == 4096:
+        assert (want[5] > kw["K"]).all()        # slots cut
+
+
+def chain_node_case(dev, W=4):
+    """(SubstepKernel, node inputs) of the chains' world (4,096 joint rows,
+    60 live Fixed and Hinge joints a world) two steps in: kernel 5 with its
+    joint rows in the body scratch."""
+    sim = chain_world("pallas", num_worlds=W, device=dev)
+    sim.run(2)
+    kern = RigidBodyPhysicsSystem.substep_kernel(sim)
+    kw = RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, sim.world_cls.Body, None,
+                                                        node=True)
+    return kern, kw
+
+
+@pytest.mark.cuda
+def test_substep_node_joint_rows_in_scratch_matches_plain_bit_for_bit(card):
+    """Kernel 5's node launch with 4,096 joint rows (past what fits beside
+    its window: the rows in the body scratch), four successive launches (a
+    step's substep nodes) bit for bit as many of its plain version, two
+    launches on one input bit-identical, each counted."""
+    kern, kw = chain_node_case(card)
+    n, K, J = kw["obj"].shape[1], kw["rows_i"].shape[1], kw["jmask"].shape[1]
+    assert J == 4096 and subk.substep_joints_in_scratch(kern.tables, n, K, J)
+    assert int(kw["jmask"].sum(1).min()) == 60
+    subk.SubstepKernel.launches = subk.SubstepKernel.joint_scratch_launches = 0
+    again = kern.step(**kw)
+    got_kw, want_kw = dict(kw), dict(kw)
+    for t in range(4):
+        got, want = kern.step(**got_kw), kern.step_plain(**want_kw)
+        torch.cuda.synchronize()
+        for k in subk.NODE_KEYS:
+            assert torch.isfinite(got[k]).all(), k
+            assert torch.equal(got[k], want[k]), (t, k, float((got[k] - want[k]).abs().max()))
+            if t == 0:
+                assert torch.equal(got[k], again[k]), k
+        got_kw.update({k: got[k] for k in subk.SUBSTEP_KEYS})
+        want_kw.update({k: want[k] for k in subk.SUBSTEP_KEYS})
+    assert subk.SubstepKernel.launches == subk.SubstepKernel.joint_scratch_launches == 5
+
+
+WIDE_BOX_CASES = ["none", *sorted(OPTION_CASES)]
+# the all-box tables wider than a box's 8 verts: padded to 9 and 32 verts a
+# hull (bit for bit the box table), and the first box carrying 12 and 20
+# live verts (its corners and edge midpoints: more live hull-plane
+# candidates than 8 and than pairs.py's 12, merged by the wide path)
+WIDE_BOX_TABLES = [9, 32, "12 live", "20 live"]
+
+
+def wide_box_table(om, table):
+    if isinstance(table, int):
+        return padded_boxes(om, table)
+    return hull_scenes.live_vert_box(om, int(table.split()[0]))
+
+
+def box_plane_pairs(tables, kw):
+    """Valid candidate slots of kw that pair the first box with a plane."""
+    o = int(np.flatnonzero(tables.om["prim_type"] == 1)[0])
+    obj = kw["obj"].long()
+    oi, oj = torch.gather(obj, 1, kw["rows_i"].long()), torch.gather(obj, 1, kw["rows_j"].long())
+    plane = torch.as_tensor(tables.om["prim_type"] == 2, device=obj.device)
+    return int((kw["kvalid"].bool() & (((oi == o) & plane[oj]) | ((oj == o) & plane[oi])))
+               .sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_BOX_CASES)
+@pytest.mark.parametrize("vm", WIDE_BOX_TABLES)
+def test_wide_box_tables_match_plain_bit_for_bit(card, vm, case):
+    """All-box tables wider than 8 verts a hull through every fused option
+    set (each specialisation of kernels 6-9) and kernel 5's node: bit for
+    bit the plain version; the padded tables also bit for bit the same
+    launch on the box table (the padding changes nothing).  Outside the
+    in-kernel broadphase's cases the first box meets the plane in some
+    valid slot."""
+    import copy
+    if case == "none":
+        sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=64, contact_mode="pallas",
+                                                   spawn_xy=4.0, spawn_h=6.0, seed=3),
+                               device=card)
+        sim.run(6)
+        kern, kw = RigidBodyPhysicsSystem.fused_kernel(sim), fused_inputs(sim)
+    else:
+        kern, kw = option_case(case, card)
+    wide = copy.copy(kern)
+    wide.tables = subk.pk.ObjTables(wide_box_table(kern.tables.om, vm))
+    assert wide.tables.all_box and subk.wide_box(wide.tables)
+    if "kvalid" in kw and "bp" not in case:
+        assert box_plane_pairs(wide.tables, kw) > 0
+    subk.FusedSubstepKernel.launches = 0
+    got, own = wide(**kw), kern(**kw)
+    torch.cuda.synchronize()
+    assert subk.FusedSubstepKernel.launches == 2
+    want = wide.plain(**kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), (k, float((got[k].float() - want[k].float())
+                                                       .abs().max()))
+        if isinstance(vm, int):
+            assert torch.equal(got[k], own[k]), k
+    # kernel 5's node on the joint world (its free box on the plane, tilted
+    # 40 degrees about x and sunk to z = 0.25, so that edge midpoints are
+    # among its deepest 4 and below the plane), the table widened likewise
+    kern5, kw5 = node_case("joints_landed", card)
+    kw5["pos"], kw5["rot"] = kw5["pos"].clone(), kw5["rot"].clone()
+    kw5["pos"][:, 5, 2] = 0.25
+    kw5["rot"][:, 5] = torch.tensor([np.cos(np.radians(20)), np.sin(np.radians(20)), 0, 0])
+    wide5 = copy.copy(kern5)
+    wide5.tables = subk.pk.ObjTables(wide_box_table(kern5.tables.om, vm))
+    assert box_plane_pairs(wide5.tables, kw5) > 0
+    got, own, want = wide5.step(**kw5), kern5.step(**kw5), wide5.step_plain(**kw5)
+    torch.cuda.synchronize()
+    for k in subk.NODE_KEYS:
+        assert torch.equal(got[k], want[k]), k
+        if isinstance(vm, int):
+            assert torch.equal(got[k], own[k]), k
+    # the live verts past 8 change the tilted box's contacts
+    assert isinstance(vm, int) or not all(torch.equal(got[k], own[k]) for k in subk.NODE_KEYS)
+
+
 ENTITY64_NODE = """
 import os, sys
 import numpy as np
@@ -1802,32 +1969,46 @@ from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
 from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as subk
 from gpu_ecs_madrona_tpu_torch.physics import RigidBodyPhysicsSystem
 from test_torch_joint_scenes import random_joints
-sim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=8, num_objects=100, seed=3),
-                        device="cuda")
-sim.run(3)
-kern = RigidBodyPhysicsSystem.substep_kernel(sim)
-kw = random_joints(sim, RigidBodyPhysicsSystem.next_step_kernel_inputs(
-    sim, stg.Sphere, None, node=True), num_spheres=100)
+if sys.argv[2] == "chain":
+    from test_torch_joint_scenes import chain_world
+    sim = chain_world("pallas", num_worlds=4, device="cuda")
+    sim.run(2)
+    kern = RigidBodyPhysicsSystem.substep_kernel(sim)
+    kw = RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, sim.world_cls.Body, None,
+                                                        node=True)
+    n, K, J = kw["obj"].shape[1], kw["rows_i"].shape[1], kw["jmask"].shape[1]
+    assert subk.substep_joints_in_scratch(kern.tables, n, K, J)
+    entities = sim.mgr.entity_column(sim.state, sim.world_cls.Body)
+else:
+    sim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=8, num_objects=100, seed=3),
+                            device="cuda")
+    sim.run(3)
+    kern = RigidBodyPhysicsSystem.substep_kernel(sim)
+    kw = random_joints(sim, RigidBodyPhysicsSystem.next_step_kernel_inputs(
+        sim, stg.Sphere, None, node=True), num_spheres=100)
+    entities = sim.mgr.entity_column(sim.state, stg.Sphere)
 subk.SubstepKernel.launches = 0
 got, want = kern.step(**kw), kern.step_plain(**kw)
 torch.cuda.synchronize()
 for k in subk.NODE_KEYS:
     assert torch.equal(got[k], want[k]), k
 assert subk.SubstepKernel.launches == 1
-np.savez(sys.argv[1], dtype=str(sim.mgr.entity_column(sim.state, stg.Sphere).dtype),
+np.savez(sys.argv[1], dtype=str(entities.dtype),
          wide=ENTITY_64, **{k: got[k].cpu().numpy() for k in subk.NODE_KEYS})
 print("OK")
 """
 
 
 @pytest.mark.cuda
-def test_joint_lookup_under_64_bit_handles(card, tmp_path):
+@pytest.mark.parametrize("scene", ["stg", "chain"])
+def test_joint_lookup_under_64_bit_handles(card, tmp_path, scene):
     """Kernel 5's in-kernel joint lookup with GEM_TPU_ENTITY_64=1 (32 id
     bits: its masks built in 64 bits), in a process of its own (the flag is
     read at import): simple_taskgraph's node launch with random live joints
     bit for bit its plain version, and bit for bit the same launch under
     int32 handles (a handle of generation 0 has one value at either
-    width)."""
+    width).  "chain": the chains' world, its 4,096 joint rows in the body
+    scratch."""
     import subprocess
     import sys
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1838,7 +2019,8 @@ def test_joint_lookup_under_64_bit_handles(card, tmp_path):
         if wide:
             env["GEM_TPU_ENTITY_64"] = "1"
         path = tmp_path / f"node_{int(wide)}.npz"
-        r = subprocess.run([sys.executable, "-c", ENTITY64_NODE, str(path)], cwd=root, env=env,
+        r = subprocess.run([sys.executable, "-c", ENTITY64_NODE, str(path), scene], cwd=root,
+                           env=env,
                            capture_output=True, text=True, timeout=300)
         assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr[-3000:]
         out[wide] = np.load(path)

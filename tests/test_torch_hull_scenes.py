@@ -18,14 +18,21 @@ test_torch_hull_pile.py, test_torch_cuda.py and chip_smoke.py.
   - large_hull_object_manager / large_hull_pile: the same with the 24-sided
     prism for object 0, packed by a PhysicsLoader with its caps raised to
     take it (LARGE_LOADER).
+  - padded_verts: an object manager with its vert axis padded (an all-box
+    table wider than a box's 8 verts a hull, as a merged object manager
+    may be); live_vert_box: one with its first box carrying up to 20 real
+    verts (the corners, then edge midpoints).
 """
 
 import math
 import os
 import tempfile
 
+import numpy as np
+
 from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExecutor
 from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
+from gpu_ecs_madrona_tpu_torch.physics.assets import PRIM_HULL
 
 PRISM_RADIUS = 0.5
 PRISM_HALF_HEIGHT = 0.5
@@ -85,6 +92,34 @@ def large_hull_object_manager(assets, importer):
     its caps raised to LARGE_LOADER."""
     return assets.PhysicsLoader(**LARGE_LOADER).load_objects(
         hull_objects(assets, importer, LARGE_SIDES)).get_object_manager()
+
+
+def padded_verts(om, vm):
+    """om with its vert axis padded to vm verts a hull (zero verts past each
+    row's count)."""
+    om = dict(om)
+    om["verts"] = np.pad(om["verts"], ((0, 0), (0, vm - om["verts"].shape[1]), (0, 0)))
+    return om
+
+
+def live_vert_box(om, live):
+    """om (an all-box table) with its first box carrying ``live`` real verts
+    (8 < live <= 20): its 8 corners, then the midpoints of live - 8 of its
+    12 edges, the 4 vertical ones first, then those along x and along y (on
+    its surface, so the hull is the same box); the vert axis padded to live
+    rounded up to 8."""
+    om = padded_verts(om, -(-live // 8) * 8)
+    o = int(np.flatnonzero(om["prim_type"] == PRIM_HULL)[0])
+    hx, hy, hz = om["box_half"][o]
+    corners = [(sx, sy) for sx in (-1, 1) for sy in (-1, 1)]
+    mids = ([(sx * hx, sy * hy, 0.0) for sx, sy in corners]
+            + [(0.0, sy * hy, sz * hz) for sy, sz in corners]
+            + [(sx * hx, 0.0, sz * hz) for sx, sz in corners])
+    om["verts"] = om["verts"].copy()
+    om["verts"][o, 8:live] = mids[:live - 8]
+    om["num_verts"] = om["num_verts"].copy()
+    om["num_verts"][o] = live
+    return om
 
 
 def hull_world(bench, om):

@@ -7,6 +7,9 @@ test_torch_cuda.py and chip_smoke.py.
     free box on the plane.  BODIES and the joints' arguments are also what
     tests/test_torch_joint_world.py builds the JAX package's world from.
   - random_joints: random live joints on simple_taskgraph's spheres.
+  - chain_scene / chain_world: hanging chains of boxes, their links joined
+    by alternating Fixed and Hinge joints, in a joint archetype of many
+    rows (4,096 by default: past what fits beside kernel 5's window).
 """
 
 import math
@@ -129,3 +132,115 @@ def random_joints(sim, kw, seed=0, num_spheres=48):
     for f in ("a1_local", "a2_local", "r1", "r2"):
         joints[f] = conv(rng.normal(size=(W, J, 3)).astype(np.float32))
     return dict(kw, joints=joints, jmask=conv(rng.random((W, J)) < 0.8))
+
+
+CHAIN_LINKS = 16       # boxes a chain, the first a static anchor
+CHAIN_TOP = 30.0       # the anchors' height
+CHAIN_GAP = 3.0        # the chains' spacing along x
+CHAIN_BEND = 0.05      # each link's x offset from the one above (the joints pull it back)
+
+
+def chain_layout(num_chains, links=CHAIN_LINKS):
+    """The chains' bodies and joints, in numpy: (positions [B, 3], static
+    [B] bool, joints [(row 1, row 2, fixed)]) over B = num_chains x links
+    boxes in chain order.  Link k hangs from link k - 1 by a Fixed joint
+    (attachments 1 below and above the boxes' centres: 2.0 apart) for odd
+    k, a Hinge joint about y (0.6 below and above: 1.2 apart) for even k,
+    each link bent CHAIN_BEND further along x."""
+    pos, static, joints = [], [], []
+    for c in range(num_chains):
+        x, z = CHAIN_GAP * (c - (num_chains - 1) / 2), CHAIN_TOP
+        for k in range(links):
+            if k:
+                fixed = k % 2 == 1
+                z -= 2.0 if fixed else 1.2
+                x += CHAIN_BEND
+                joints.append((len(pos) - 1, len(pos), fixed))
+            pos.append((x, 0.0, z))
+            static.append(k == 0)
+    return np.asarray(pos, np.float32), np.asarray(static), joints
+
+
+def chain_scene(physics, bmod, cmod, Arch, conv, contact_mode, num_chains=4,
+                max_joints=4096, max_candidates=256, links=CHAIN_LINKS):
+    """The chains' World class (its archetype at ``World.Body``), 4
+    substeps, from a package's modules as joint_scene takes them: the
+    plane and ``num_chains`` chains of ``links`` boxes (chain_layout), in a
+    joint archetype of ``max_joints`` rows."""
+    loader = physics.assets.PhysicsLoader()
+    loader.load_objects([physics.assets.make_plane(),
+                         physics.assets.make_box((0.5, 0.5, 0.5), inv_mass=1.0)])
+    om = loader.get_object_manager()
+    Body = Arch("ChainBody", physics.BODY_COMPONENTS)
+    pos, static, joints = chain_layout(num_chains, links)
+    nb = len(pos) + 1
+    obj = np.concatenate([[0], np.ones(len(pos), np.int32)]).astype(np.int32)
+    where = np.concatenate([np.zeros((1, 3), np.float32), pos])
+    resp = np.where(np.concatenate([[True], static]), cmod.RESPONSE_STATIC,
+                    cmod.RESPONSE_DYNAMIC).astype(np.int32)
+    fixed = [(i + 1, j + 1) for i, j, f in joints if f]
+    hinge = [(i + 1, j + 1) for i, j, f in joints if not f]
+
+    class World:
+        @staticmethod
+        def register_types(registry):
+            physics.RigidBodyPhysicsSystem.register_types(
+                registry, max_candidates=max_candidates, max_contacts=max_candidates,
+                max_joints=max_joints)
+            registry.register_archetype(Body, capacity=nb)
+            registry.export_column(Body, bmod.Position, 0)
+            registry.export_column(Body, bmod.Rotation, 1)
+
+        @staticmethod
+        def init(ctx, init_data=None):
+            W = ctx.num_worlds
+
+            def tile(x, dt=np.float32):
+                x = np.asarray(x, dt)
+                return conv(np.broadcast_to(x, (W,) + x.shape), dt)
+            ctx.data = {"_": conv(np.zeros((W, 1)))}
+            physics.RigidBodyPhysicsSystem.init(ctx, delta_t=1 / 60, num_substeps=4)
+            rot = np.zeros((nb, 4), np.float32)
+            rot[:, 0] = 1.0
+            ents = ctx.make_entities(Body, counts=nb, max_new=nb, values={
+                bmod.Position: tile(where), bmod.Rotation: tile(rot),
+                bmod.Scale: conv(np.ones((W, nb, 3))), bmod.ObjectID: tile(obj, np.int32),
+                cmod.ResponseType: tile(resp, np.int32)})
+
+            def vec(x, m, k=3):
+                return conv(np.broadcast_to(np.asarray(x, np.float32), (W, m, k)))
+
+            def side(pairs, s):
+                return ents[:, [p[s] for p in pairs]]
+            nf, nh = len(fixed), len(hinge)
+            physics.make_fixed_joint(ctx, side(fixed, 0), side(fixed, 1), vec([1, 0, 0, 0], nf, 4),
+                                     vec([1, 0, 0, 0], nf, 4), r1=vec([0, 0, -1.0], nf),
+                                     r2=vec([0, 0, 1.0], nf),
+                                     separation=conv(np.zeros((W, nf))), counts=nf, max_new=nf)
+            physics.make_hinge_joint(ctx, side(hinge, 0), side(hinge, 1), vec([0, 1, 0], nh),
+                                     vec([0, 1, 0], nh), vec([1, 0, 0], nh), vec([1, 0, 0], nh),
+                                     vec([0, 0, -0.6], nh), vec([0, 0, 0.6], nh), counts=nh,
+                                     max_new=nh)
+
+        @staticmethod
+        def setup_tasks(builder):
+            bp = physics.RigidBodyPhysicsSystem.setup_broadphase_tasks(builder, [], Body, om)
+            ss = physics.RigidBodyPhysicsSystem.setup_substep_tasks(
+                builder, [bp], 4, Body, om, relaxation=0.7, contact_mode=contact_mode)
+            physics.RigidBodyPhysicsSystem.setup_cleanup_tasks(builder, [ss])
+
+    World.Body = Body
+    World.num_joints = len(joints)
+    World.num_rows = nb
+    return World
+
+
+def chain_world(contact_mode="pallas", num_worlds=2, device="cpu", **kw):
+    """The chains' executor in the port on ``device`` (chain_scene's
+    keywords)."""
+    def conv(x, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dt))).to(device)
+    World = chain_scene(physics, base, comp, Archetype, conv, contact_mode, **kw)
+    return TaskGraphExecutor(World, ExecutorConfig(
+        num_worlds=num_worlds, max_entities_per_world=World.num_rows + World.num_joints + 8,
+        seed=0, device=device))

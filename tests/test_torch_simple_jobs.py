@@ -143,14 +143,22 @@ def test_kernel_plain_matches_jax_interpret(case):
 
 
 def test_kernel_wrapper_rejects_bad_shapes():
+    """A pos that does not hold n0 bodies and n0 = 0 are refused; past the
+    one-block layout's MAX_BODIES the wrapper takes the shape (on the CPU
+    its plain version) as the JAX kernel does."""
     pos, rot = cases.bodies(0, 1, 8, 3.0)
     pos, rot = torch.from_numpy(pos), torch.from_numpy(rot)
     with pytest.raises(ValueError, match="n0"):
         sk.fused_simple_jobs_step(pos, rot, n0=9, K=16, degree_cap=4, bounds=BOUNDS)
-    big = torch.zeros((1, sk.MAX_BODIES + 1, 3))
-    with pytest.raises(ValueError, match="bound"):
-        sk.fused_simple_jobs_step(big, torch.zeros((1, sk.MAX_BODIES + 1, 4)),
-                                  n0=sk.MAX_BODIES + 1, K=16, degree_cap=4, bounds=BOUNDS)
+    with pytest.raises(ValueError, match="at least 1"):
+        sk.fused_simple_jobs_step(pos[:, :0], rot[:, :0], n0=0, K=16, degree_cap=4,
+                                  bounds=BOUNDS)
+    n0 = sk.MAX_BODIES + 1
+    big, brot = (torch.from_numpy(a) for a in cases.bodies(3, 1, n0, 10.0))
+    out = sk.fused_simple_jobs_step(big, brot, n0=n0, K=16, degree_cap=4, bounds=BOUNDS)
+    assert [tuple(t.shape) for t in out] == [(1, n0, 3)] * 3 + [(1, 16, 2), (1, 16, 3), (1,),
+                                                                  (1,)]
+    assert int(out[5][0]) > 16 and int(out[6][0]) > 0   # slots cut, pairs dropped
 
 
 # -- behaviour (tests/test_simple_jobs.py, on the port) ----------------------
@@ -268,8 +276,16 @@ def test_degree_cap_check_under_debug(fused, monkeypatch, capsys):
 
 
 def test_fused_default_follows_device():
+    """fused=None is the 4-node path on the CPU (the kernel on the card, at
+    every body count); fused=True builds the kernel's node past the
+    one-block layout's MAX_BODIES too, and refuses no body count >= 1."""
     sim = sj.make_executor(small_cfg(None), device="cpu")
     assert sim.graph.node_names == ["preprocess", "broadphase", "narrowphase", "solver"]
-    with pytest.raises(ValueError, match="bound"):
-        sj.make_executor(small_cfg(True, num_objects=sk.MAX_BODIES + 1, num_worlds=1),
-                         device="cpu")
+    sim = sj.make_executor(small_cfg(None, num_objects=sk.MAX_BODIES + 1, num_worlds=1),
+                           device="cpu")
+    assert sim.graph.node_names == ["preprocess", "broadphase", "narrowphase", "solver"]
+    sim = sj.make_executor(small_cfg(True, num_objects=sk.MAX_BODIES + 1, num_worlds=1),
+                           device="cpu")
+    assert sim.graph.node_names == ["fused_step"]
+    with pytest.raises(ValueError, match="at least 1"):
+        sj.make_executor(small_cfg(True, num_objects=0, num_worlds=1), device="cpu")

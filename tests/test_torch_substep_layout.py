@@ -16,7 +16,8 @@ from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
 from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
 from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
 
-CU = (Path(sk.__file__).resolve().parents[1] / "csrc" / "substep_kernels.cu").read_text()
+CSRC = Path(sk.__file__).resolve().parents[1] / "csrc"
+CU = (CSRC / "substep_kernels.cu").read_text()
 
 
 def cu_constants():
@@ -87,7 +88,14 @@ def test_smem_mirror_equals_the_cu_layout(n, K, bp, cache):
 def test_limits_match_the_cu():
     c = cu_constants()
     assert sk.MAX_BP_ROWS == c["kMaxBpRows"] == 32 * c["kBpWords"]
-    assert sk.MAX_BOX_TABLE_VERTS == c["kMaxBoxVerts"]
+    # all-box tables past a box's verts a hull take the wide-box build of
+    # the same source (its box-plane candidates merged as they come), whose
+    # library the wrapper picks for them: no table's verts are capped
+    assert sk.BOX_VERTS == c["kMaxBoxVerts"] == 8
+    assert not hasattr(sk, "MAX_BOX_TABLE_VERTS")
+    wide = (CSRC / "substep_wide_box_kernels.cu").read_text()
+    assert "#define SUBSTEP_WIDE_BOX" in wide and '#include "substep_kernels.cu"' in wide
+    assert "return kWideBox || tab.vm <= kMaxBoxVerts;" in CU
     # no general-hull table count is capped: only the shared memory is
     assert "kMaxVerts" not in c and "kMaxFullEdges" not in c
     assert sk.OPT_HULL == c["kOptHull"]
@@ -337,15 +345,43 @@ def test_kernel5_takes_the_bodies_in_scratch_past_its_window_layout(n, K, J, bod
 
 def test_kernel5_refuses_only_joints_past_one_block():
     """With the bodies in the scratch, kernel 5's shared memory is its window
-    and its joints (12 floats and 2 ints each): only a joint count whose
-    rows pass 227 KB is refused, by name."""
+    and its joints (12 floats and 2 ints each).  Where the joints' rows pass
+    227 KB beside the window (J + 1 below; ~3,300 a world), they move to the
+    body scratch too, and kernel 5 refuses no joint count: 4,096 joint rows
+    (main_joint_rows_large's) and 20,000 fit, in ~50 KB of shared memory."""
     tables = sk.pk.ObjTables(stg.OBJMGR)
     J = 1
     while sk.substep_body_smem_bytes(1004, 10000, J + 1) <= sk.MAX_SMEM_BYTES:
         J += 1
+    assert 3000 < J < 3600
     assert sk.kernel_fits(tables, 1004, 10000, single=True, joints=J) == ""
-    why = sk.kernel_fits(tables, 1004, 10000, single=True, joints=J + 1)
-    assert f"{J + 1} joints" in why and "bodies in the scratch" in why, why
+    assert not sk.substep_joints_in_scratch(tables, 1004, 10000, J)
+    assert sk.substep_layout_smem_bytes(tables, 1004, 10000, J) == sk.substep_body_smem_bytes(
+        1004, 10000, J)
+    for joints in (J + 1, 4096, 20000):
+        assert sk.kernel_fits(tables, 1004, 10000, single=True, joints=joints) == ""
+        assert sk.substep_joints_in_scratch(tables, 1004, 10000, joints)
+        smem = sk.substep_layout_smem_bytes(tables, 1004, 10000, joints)
+        assert smem == sk.substep_body_smem_bytes(1004, 10000, 0) < 52 * 1024
+        assert sk.body_scratch_floats(1004, tables, joints) == (
+            sk.body_scratch_floats(1004, tables) + (sk.JOINT_CH + 2) * joints)
+    # a few bodies with 4,096 joint rows: the joints alone pass one block,
+    # so the bodies go to the scratch with them
+    assert sk.substep_bodies(tables, 64, 256, 4096)
+    assert sk.substep_joints_in_scratch(tables, 64, 256, 4096)
+    assert not sk.substep_bodies(tables, 64, 256, 64)
+
+
+def test_body_scratch_mirror_equals_the_cu():
+    """body_scratch_floats with the joints' rows, as the .cu computes it."""
+    c = cu_constants()
+    body = CU[CU.index("size_t body_scratch_floats("):]
+    ret = re.search(r"return (.*?);", body, re.S).group(1)
+    ret = " ".join(ret.split()).replace("static_cast<size_t>", "")
+    for n, hs, jg in ((1004, 0, 0), (1004, 0, 4096), (64, 30, 4096), (7, 5, 3)):
+        want = eval(ret, {}, dict(c, nn=n, hull_stride=hs, jg=jg))
+        tables = sk.pk.ObjTables(stg.OBJMGR)
+        assert sk.body_scratch_floats(n, tables, jg) + n * hs == want
 
 
 @pytest.mark.parametrize("bodies,cache,fits_one_block",
@@ -385,3 +421,18 @@ def test_broadphase_above_128_rows_is_refused():
     why = sk.kernel_fits(tables, 129, 128, bp=True)
     assert "128 body rows" in why
     assert sk.kernel_fits(tables, 129, 128, bp=False) == ""
+
+
+def test_wide_box_library_follows_the_source_it_includes(tmp_path, monkeypatch):
+    """The wide-box build's library name hashes substep_kernels.cu too,
+    which it includes: a change there builds both libraries anew."""
+    from gpu_ecs_madrona_tpu_torch.ops import _build
+    names = ("substep_kernels", "substep_wide_box_kernels")
+    assert set(names) <= set(_build.sources())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    for name in names:
+        (tmp_path / f"{name}.cu").write_bytes((CSRC / f"{name}.cu").read_bytes())
+    before = {name: _build.library_path(name) for name in names}
+    (tmp_path / "substep_kernels.cu").write_text(CU + "\n// changed\n")
+    for name in names:
+        assert _build.library_path(name) != before[name], name
