@@ -30,8 +30,9 @@ CUDA device, or run outside a checkout, it exits non-zero.
 
 Phases:
   device   card name, count, nvidia-smi name and power limit
-  build    nvcc of every csrc/*.cu (in parallel), ptxas register and
-           shared-memory lines
+  build    nvcc of every csrc/*.cu and of the substep kernels' phase build
+           (-DSUBSTEP_PHASES: clock64() between their phases), in
+           parallel, ptxas register and shared-memory lines
   parity   collision kernels vs their plain versions at the main path's
            shapes (W=8192, n=108 rows, 100 live) and collision_pushes at
            n=1500, W=16 (the tiled path), a dense cluster (64 x 64 rows,
@@ -107,8 +108,9 @@ Phases:
            shared memory (its windowed layout, WINDOW_CASES: rigid_bench at
            8192 x 239, 255 and 511 bodies after 3 steps, contact refresh at
            200 and 255 bodies, the imported-prism pile at 255 bodies; all
-           but 511 dropped close together, so that a world's valid slots pass
-           the window, which is checked) on every world, bit for bit its
+           but 511 dropped close together, so that for each twin they
+           launch a world's valid slots pass the window, which is checked)
+           on every world, bit for bit its
            plain version on the first 128 (max_abs_err 0), with each case's
            window and valid slots; and past the body-row ceilings, with the
            bodies in a global scratch, at 8 worlds, twice and bit for bit
@@ -223,7 +225,9 @@ Phases:
            memory, the two scratches' size reckoned before the run, the
            launch at the state the windows leave bit for bit its plain
            version on 8 worlds, its ms (CUDA events) beside its bound and
-           its plain version's (8 worlds) and CTAs an SM; cut to 4,096
+           its plain version's (8 worlds), CTAs an SM, the shared memory's
+           plan (body_plan) and its time by phase (the phase build's cycles
+           a CTA and their shares of the launch's ms); cut to 4,096
            worlds only if the card's memory does not hold it (printed as
            "reduced")
   main_rigid_fused_bp   the main_rigid pile with broadphase_mode="fused"
@@ -319,7 +323,8 @@ Phases:
            steps, CUDA events), peak memory, the step's four node launches
            on 4 worlds bit for bit their plain version (each the last's
            pose and velocities in), the node launch's ms beside its bound
-           and its plain version's, and CTAs an SM
+           and its plain version's, CTAs an SM, its shared memory's plan and
+           its time by phase
   main_joint_rows_large   the chains' world of tests/test_torch_joint_scenes.py
            at 1024 worlds x 68 chains of 16 boxes (1,089 rows, K = 2,048),
            4,096 joint rows of which 1,020 live (alternating Fixed and
@@ -328,7 +333,8 @@ Phases:
            step's four node launches on 4 worlds bit for bit their plain
            version, 3 windows of 10 (launches = {substep: 4 x steps});
            env-steps/s, a step's device ms, peak memory, the node launch's
-           ms beside its bound and its plain version's
+           ms beside its bound and its plain version's and its time by
+           phase
   main_render_large   the render node of a BatchRenderer with backend
            "auto" (checked to resolve to the kernel) on 256 worlds of 4,096
            instance rows (the large scene's instances, one 64 x 64 view a
@@ -382,8 +388,10 @@ Phases:
            state, with its registers and spills (the build's ptxas line),
            its launch shape and CTAs an SM, and the fused_step node's
            device ms, host ms and device operations, which must be 1; the substep
-           kernel: 20 calls at both K from the main_rigid states and at
-           the main_rigid_sap state (n = 201, K = 800), with
+           kernel: 20 calls at both K from the main_rigid states, at
+           the main_rigid_sap state (n = 201, K = 800) and at the
+           main_rigid_sap_large state (the windowed twin, with its CTAs an
+           SM and its time by phase), with
            what its operation count is counted from: the pairs by kind,
            and the live contact points the plain version finds in each
            substep of the same call), beside the
@@ -505,6 +513,18 @@ def cuda_ms(torch, fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_phases(sk, fn, ctas, ms):
+    """A substep launch's time by phase: its cycles a CTA by phase on the
+    kernels' phase build (ops/substep_kernel.py phase_cycles: a barrier and
+    a clock read between phases; fn(phases=True) launches it, on ``ctas``
+    CTAs), each phase's share of them, and that share of the launch's ``ms``
+    as built."""
+    cycles = sk.phase_cycles(fn, ctas, launches=2)
+    total = sum(cycles.values())
+    return {"cycles_a_cta": cycles,
+            "ms_by_phase": {k: ms * v / total for k, v in cycles.items() if v > 0}}
 
 
 def pair_counts(torch, lo, hi, mask):
@@ -1036,13 +1056,15 @@ def substep_case(torch, sk, kern, kw):
     return errs
 
 
-def window_case(torch, sk, kern, kw, plain_worlds=None):
+def window_case(torch, sk, kern, kw, plain_worlds=None, past_window=True):
     """The fused kernel at a shape past one block's shared memory (its
     windowed layout, or past its body ceiling the bodies in a global
     scratch too), twice on every world, against its plain version on the
     first ``plain_worlds`` (WINDOW_PARITY_WORLDS) worlds, bit for bit: its
     line (the window, the valid slots, the specialisation launched, the
-    errors), or raises."""
+    errors), or raises.  ``past_window``: some world's valid slots must pass
+    a window below K (so that the global scratch runs); parity_window asks
+    that of its cases together instead."""
     plain_worlds = plain_worlds or WINDOW_PARITY_WORLDS
     W, n = kw["obj"].shape
     K = kw["rows_i"].shape[1]
@@ -1054,7 +1076,7 @@ def window_case(torch, sk, kern, kw, plain_worlds=None):
     launched = dict(sk.FusedSubstepKernel.launches_by_options)
     window = sk.fused_layout_window(kern.tables, n, K, refresh)
     valid = kw["kvalid"].sum(1)
-    check(int(valid.max()) > window,
+    check(not past_window or window == K or int(valid.max()) > window,
           f"windowed n={n} K={K}: no world's valid slots ({int(valid.max())}) pass the "
           f"window ({window})")
     want = kern.plain(**next(world_chunks(kw, plain_worlds)))
@@ -1079,8 +1101,11 @@ def parity_window(torch, rb, phys, sk):
     """parity_substep's windowed shapes (WINDOW_CASES): rigid_bench at 8192
     worlds x 239, 255 and 511 bodies after 3 steps, contact refresh at 200
     and 255 bodies, the imported-prism pile at 255 bodies (all but 511
-    spawned in WINDOW_SPAWN); each window_case.  Returns ({case: line}, the
-    worst error)."""
+    spawned in WINDOW_SPAWN); each window_case, and for each twin they
+    launch ("win", "refresh+win", "win+hull") some case's valid slots past
+    its window, so that its entries past the window (their channel pairs in
+    the scratch) run (the one-CTA window holds every slot of some of these
+    piles).  Returns ({case: line}, the worst error)."""
     hs = hull_scenes()
     cases, states = {}, {}
     for name, (bodies, refresh, prisms, crowd) in WINDOW_CASES.items():
@@ -1098,8 +1123,15 @@ def parity_window(torch, rb, phys, sk):
         states = {key: sim}
         kern = sk.FusedSubstepKernel(sim.world_cls.objmgr, 4, relaxation=0.7,
                                      contact_refresh=refresh)
-        cases[name] = window_case(torch, sk, kern, fused_inputs(sim, rb, phys))
+        cases[name] = window_case(torch, sk, kern, fused_inputs(sim, rb, phys),
+                                  past_window=False)
     del states
+    twins = {c["specialisation"] for c in cases.values()}
+    for twin in sorted(twins):
+        past = {name: c["valid_slots_a_world"]["worlds_past_the_window"]
+                for name, c in cases.items() if c["specialisation"] == twin}
+        check(any(v > 0 for v in past.values()),
+              f"windowed twin {twin}: no world's valid slots pass the window {past}")
     return cases, max(max(c["max_err"].values()) for c in cases.values())
 
 
@@ -1532,7 +1564,9 @@ DENSE_PARITY_WORLDS = 256
 # plain version on its first WINDOW_PARITY_WORLDS worlds.  WINDOW_SPAWN drops
 # the bodies closer together than rigid_bench's default (8, 12), so that a
 # world's valid slots pass the window and the global scratch runs (at 511
-# bodies the default spawn already passes it)
+# bodies the default spawn already passes it) wherever the window is below K
+# (the windowed twin's one CTA an SM holds every slot of the
+# piles at 239 and 255 bodies without the cache)
 LARGE_SAP_BODIES, LARGE_SAP_K = 255, 1020
 WINDOW_PARITY_WORLDS = 128
 WINDOW_SPAWN = dict(spawn_xy=6.0, spawn_h=9.0)
@@ -3279,10 +3313,11 @@ def node_chain_case(torch, sk, kern, kw, launches=4):
 SJL_STEPS, SJL_WINDOWS = 10, 3
 SJL_PLAIN_WORLDS, SJL_RANK_WORLDS = 8, 256
 # After 3 steps rows sum ~110-190 pushes to |sum| ~180, which the kernel
-# adds one after another: its translation's distance from the push in
-# float64 (push_f64) is gated at twice the largest reading of its sound runs
-# (6.17e-4 on an H100; the plain version's, in PyTorch's order, 1.71e-4).
-SJL_F64_ATOL = 1.25e-3
+# adds in a fixed tree (each 64-row chunk's partners, then the chunks
+# pairwise) and the plain version in PyTorch's order: the translation's
+# distance from the push in float64 (push_f64) is gated at about twice the
+# plain version's reading on an H100 (7.8e-5; the kernel's 7.0e-5).
+SJL_F64_ATOL = 1.5e-4
 # main_joint_rows_large: the chains' world (tests/test_torch_joint_scenes.py)
 # at JRL_CHAINS chains of 16 boxes (1,088 bodies + the plane, 1,020 live
 # joints a world) in 4,096 joint rows, K = JRL_K
@@ -3313,8 +3348,8 @@ def main_simple_jobs_large(torch, sj, sk, card, reset_counts, read_counts):
     1e-4, normals 1e-5; a repeat bit-identical on every world); windows of
     SJL_STEPS steps; the same comparison after 3 steps, the normals still
     within 1e-5 (per pair, from exact clamped positions: no sum order
-    touches them) and the translation, which the kernel sums one partner
-    after another and the plain version in PyTorch's order, gated against
+    touches them) and the translation, which the kernel sums in a fixed
+    tree and the plain version in PyTorch's order, gated against
     the push in float64 instead (SJL_F64_ATOL), both versions' distances
     from it reported; the launch's ms beside its bound (the bytes, and the
     unordered pair tests at 6 operations with 20 more an overlapping
@@ -3477,8 +3512,11 @@ def main_joint_rows_large(torch, phys, sk, card, reset_counts, read_counts):
               "live_joints_a_world": int(live.min()),
               "occupancy": sk.occupancy(n, K, single=True, joints=J),
               "smem_bytes": sk.substep_layout_smem_bytes(kern.tables, n, K, J),
-              "body_scratch_bytes_a_world": 4 * sk.body_scratch_floats(n, kern.tables, J),
+              "body_scratch_bytes_a_world": 4 * sk.body_scratch_floats(n, kern.tables, J,
+                                                                       True),
               "max_abs_err": max(chain)}
+    timing["phases"] = launch_phases(sk, lambda **p: kern.step(**kw, **p), JRL_WORLDS,
+                                     timing["ms"])
     step_dev = cuda_ms(torch, sim.step, 3, warmup=1)
     line = {"phase": "main_joint_rows_large", "worlds": JRL_WORLDS, "rows": n, "K": K,
             "joint_rows": J, "live_joints_a_world": int(live.min()), "substeps": 4,
@@ -3548,7 +3586,9 @@ def main_simple_taskgraph_large(torch, stg, phys, sk, card, reset_counts, read_c
               "valid_slots_max": int(kw["kvalid"].sum(1).max()),
               "occupancy": sk.occupancy(n, K, single=True, joints=J),
               "smem_bytes": sk.substep_body_smem_bytes(n, K, J),
-              "body_scratch_bytes_a_world": 4 * sk.body_scratch_floats(n, kern.tables)}
+              "body_plan": sk.substep_body_plan(n, K, J),
+              "body_scratch_bytes_a_world": 4 * sk.body_scratch_floats(n, kern.tables, J)}
+    node_t["phases"] = launch_phases(sk, lambda **p: kern.step(**kw, **p), worlds, node_t["ms"])
     step_dev = cuda_ms(torch, sim.step, 3, warmup=1)
     line = {"phase": "main_simple_taskgraph_large", "worlds": worlds,
             "objects": STG_LARGE_OBJECTS, "rows": n, "K": K, "joint_rows": J,
@@ -3575,7 +3615,8 @@ def main_rigid_sap_xlarge(torch, rb, phys, sk, card, reset_counts, read_counts):
     check(sk.fused_bodies(tables, n, XLARGE_K), "main_rigid_sap_xlarge: not in the scratch")
     window = sk.fused_layout_window(tables, n, XLARGE_K)
     # the memory reckoned before the run: the two scratches
-    need = {"work_scratch_gib": XLARGE_WORLDS * 4 * sk.SCRATCH_CH * (XLARGE_K - window) / 2 ** 30,
+    need = {"work_scratch_gib": XLARGE_WORLDS * 4 * sk.SCRATCH_CH * sk.win_pitch(
+                XLARGE_K - window) / 2 ** 30,
             "body_scratch_gib": XLARGE_WORLDS * 4 * sk.body_scratch_floats(n, tables) / 2 ** 30}
     worlds, reduced = XLARGE_WORLDS, None
     try:
@@ -3612,13 +3653,14 @@ def main_rigid_sap_xlarge(torch, rb, phys, sk, card, reset_counts, read_counts):
               "plain_ms_is": f"its plain version at {BODY_PARITY_WORLDS} of the {worlds} worlds",
               "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "pairs_by_kind": kinds,
               "work_over_substeps": work, "window": window,
+              "body_plan": sk.fused_body_plan(n, XLARGE_K),
               "occupancy": sk.occupancy(n, XLARGE_K, codes=(sk.OPT_WIN | sk.OPT_BODY,))}
+    kern_t["phases"] = launch_phases(sk, lambda **p: kern(**kw, **p), worlds, kern_t["ms"])
     del kw, kw8
     line = {"phase": "main_rigid_sap_xlarge", **line, "K": XLARGE_K,
             "contact_mode": "auto -> fused kernel (windowed, bodies in the scratch)",
             "broadphase": "auto -> sap", "window": window,
-            "smem_bytes_a_world": sk.body_window_smem_bytes(n, window, sk.block_threads(
-                n, XLARGE_K)),
+            "smem_bytes_a_world": sk.fused_body_plan(n, XLARGE_K)["bytes"],
             "memory_reckoned": need,
             "window_saturation_last_step": sap_saturation(torch, rb, sim),
             "kernel_vs_plain_at_this_state": parity, "kernel": kern_t}
@@ -3794,8 +3836,11 @@ def main(argv):
 
     # build -----------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _build.build()
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
+    # every source, and the substep kernels' phase build (the large phases'
+    # time by phase), one nvcc each, all at once
+    logs = _build.build(_build.sources() + ["substep_phases"])
+    ptxas = [ln.strip() for name, log in logs.items() if name != "substep_phases"
+             for ln in log.splitlines()
              if any(k in ln for k in ("Compiling entry", "registers", "spill"))]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(logs), "dir": os.path.relpath(_build.BUILD_DIR, HERE),
@@ -4104,8 +4149,9 @@ def main(argv):
           "contact_mode": "auto -> fused kernel (windowed)", "broadphase": "auto -> sap",
           "window": win,
           "smem_bytes_a_world": subk.fused_window_smem_bytes(
-              n_large, win, subk.block_threads(n_large, LARGE_SAP_K)),
-          "scratch_bytes_a_world": 4 * subk.SCRATCH_CH * (LARGE_SAP_K - win),
+              n_large, win, subk.win_threads(n_large, LARGE_SAP_K)),
+          "scratch_bytes_a_world": 4 * subk.SCRATCH_CH * subk.win_pitch(LARGE_SAP_K - win)
+          if win < LARGE_SAP_K else 0,
           "slot_layout_would_need_bytes": subk.smem_bytes(n_large, LARGE_SAP_K),
           "window_saturation_last_step": sap_saturation(torch, rb, slarge),
           "kernel_vs_plain_at_this_state": large_parity})
@@ -4274,6 +4320,11 @@ def main(argv):
                     "overlapping_pairs": sum(kinds.values()), "pairs_by_kind": kinds,
                     "work_over_substeps": work,
                     "pairs_per_world_max": int(rows.max())}
+        if K == LARGE_SAP_K:
+            sub_t[K]["phases"] = launch_phases(subk, lambda **p: kern(**kw, **p), RB_WORLDS,
+                                               sub_t[K]["ms"])
+            sub_t[K]["occupancy"] = subk.occupancy(LARGE_SAP_BODIES + 1, K,
+                                                   codes=(subk.OPT_WIN,))
 
     # the general-hull specialisations at the hull piles' states
     hkw = fused_inputs(hsim, rb, phys)

@@ -69,8 +69,9 @@
 //   4. One thread a row walks its candidate bits in ascending b, re-tests
 //      each in float32 on the closed slabs (the plain version's
 //      overlap_grid), clears the filter's false positives from its words,
-//      and adds the push of the exact overlaps.  Degrees, ranks and slots
-//      come from the exact words only.
+//      and adds the push of the exact overlaps in the push tree's order
+//      (PushTree).  Degrees, ranks and slots come from the exact words
+//      only.
 //   5. base, total and dropped by warp shuffles: an inclusive scan a warp,
 //      then each warp scans the warps' totals (no thread-0 loop, no
 //      atomics).
@@ -110,17 +111,22 @@
 // the outputs are those of the one-block layout; only the world's mean is
 // summed in another order (each thread's rows first).  At 1024 worlds x
 // 2048 bodies, K = 32768: ~805 MB of bytes (0.24 ms at 3.35 TB/s) against
-// W n0 (n0 - 1) ~ 4.3G ordered-pair tests of ~6 operations (0.385 ms at 67
-// TFLOP/s): the pair tests bound it.
+// the half-box filter's W n0 (n0 - 1) / 2 ~ 2.15G unordered pair tests of
+// ~6 operations and, at main_simple_jobs_large's state, ~482M overlapping
+// ordered pairs of ~20 (0.3373 ms at 67 TFLOP/s): the pair tests bound it.
 //
 // Arithmetic: -fmad=false keeps every product and sum separately rounded,
 // in the order of the plain version (ops/simple_jobs_kernel.py), so the
 // clamped positions and the AABBs come out bit-identical and so do the
 // overlap decisions and every integer output.  The push sums a row's
-// partners in ascending b, on the kernel's own mean; rsqrtf is the SFU's
-// approximate reciprocal square root (about 2 ulp).  Every sum runs in a
-// fixed order and the only atomics are integer ORs, so a repeated launch is
-// bit-identical.
+// partners in a fixed tree (PushTree): each chunk's partners in ascending
+// b into the chunk's partial, then the chunks' partials pairwise in chunk
+// order, on the kernel's own mean.  A row of a dense stepped world sums
+// ~110-190 pushes to |sum| ~180; added one after another their rounding
+// grew with the count (6.2e-4 from float64 on an H100, PERF.md), in the
+// tree with its depth.  rsqrtf is the SFU's approximate reciprocal square
+// root (about 2 ulp).  Every sum runs in a fixed order and the only
+// atomics are integer ORs, so a repeated launch is bit-identical.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -386,6 +392,49 @@ __device__ float3 block_sum3(float sx, float sy, float sz, float* red, int tc) {
   return sum;
 }
 
+// A row's push sum in a fixed tree order.  Each chunk's partners (word k of
+// the row, ascending b) are added one after another into the chunk's
+// partial, which push(k) then folds into a binary counter over the chunks:
+// level l holds the partial of the 2^l chunks before it until its sibling
+// block arrives (left + right), and blocks of 2^L chunks are added to top in
+// chunk order.  total(nc) adds the levels that are left from the lowest up
+// (each the block left of the sum so far), top last.  The order depends on
+// nc alone; L is the instantiation's levels (nc <= 2^L where the layout
+// bounds it).
+template <int L>
+struct PushTree {
+  float3 lv[L];
+  float3 top;
+  __device__ void clear() {
+#pragma unroll
+    for (int l = 0; l < L; ++l) lv[l] = make_float3(0.0f, 0.0f, 0.0f);
+    top = make_float3(0.0f, 0.0f, 0.0f);
+  }
+  __device__ void push(float3 c, int k) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      if (((k >> l) & 1) == 0) {
+        lv[l] = c;
+        return;
+      }
+      c = make_float3(lv[l].x + c.x, lv[l].y + c.y, lv[l].z + c.z);
+    }
+    top = make_float3(top.x + c.x, top.y + c.y, top.z + c.z);
+  }
+  __device__ float3 total(int nc) const {
+    float3 s = make_float3(0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int l = 0; l < L; ++l)
+      if ((nc >> l) & 1) s = make_float3(lv[l].x + s.x, lv[l].y + s.y, lv[l].z + s.z);
+    if (nc >> L) s = make_float3(top.x + s.x, top.y + s.y, top.z + s.z);
+    return s;
+  }
+};
+// Levels of the one-block layout's push trees (nc <= kMaxBodies / kChunk =
+// 16 chunks; 2 in the small instantiation) and of the rounds layout's (64
+// chunks, 4,096 bodies; past that top adds blocks of 64 in order).
+constexpr int kTreeLevels = 4, kSmallTreeLevels = 1, kRoundTreeLevels = 6;
+
 // The exclusive prefix of v over the tc compute threads in thread order,
 // its total, and the total of drop: a shuffle scan a warp, the warps'
 // totals in shared memory, then each warp scans those by shuffles (one
@@ -570,15 +619,19 @@ fused_simple_jobs_step_kernel(const float* __restrict__ pos,
   compute_sync(tc);
   SJ_PHASE(3);
 
-  // 4. row a's exact overlaps in ascending b: its words, degree and push.
+  // 4. row a's exact overlaps in ascending b: its words, degree and push
+  // (in the push tree's order).
   int deg = 0;
   float ax = 0.0f, ay = 0.0f, az = 0.0f;
   if (live) {
     const float xa = p.x - mean.x, ya = p.y - mean.y, za = p.z - mean.z;
+    PushTree<kMaxT == kMaxThreads ? kTreeLevels : kSmallTreeLevels> tree;
+    tree.clear();
     for (int k = 0; k < nc; ++k) {
       u64 word = s.bits[k * s.np + a];
       if (k == a / kChunk) word &= ~(1ull << (a % kChunk));
       u64 exact = word;
+      float cx = 0.0f, cy = 0.0f, cz = 0.0f;
       while (word != 0ull) {
         const int bit = __ffsll(static_cast<long long>(word)) - 1;
         const int b = kChunk * k + bit;
@@ -594,14 +647,19 @@ fused_simple_jobs_step_kernel(const float* __restrict__ pos,
         const float d2 = dx * dx + dy * dy + dz * dz;
         if (d2 > 1e-12f) {
           const float m = rsqrtf(fmaxf(d2, 1e-30f));
-          ax += m * dx;
-          ay += m * dy;
-          az += m * dz;
+          cx += m * dx;
+          cy += m * dy;
+          cz += m * dz;
         }
       }
+      tree.push(make_float3(cx, cy, cz), k);
       s.bits[k * s.np + a] = exact;
       deg += __popcll(exact);
     }
+    const float3 t = tree.total(nc);
+    ax = t.x;
+    ay = t.y;
+    az = t.z;
   }
   SJ_PHASE(4);
 
@@ -817,18 +875,20 @@ fused_simple_jobs_rounds_kernel(const float* __restrict__ pos,
   SJ_PHASE(3);
 
   // 4. each row's exact overlaps in ascending b: its words, degree and
-  // push; the translation staged where the half boxes were, the degree in
-  // its w.
+  // push (in the push tree's order); the translation staged where the half
+  // boxes were, the degree in its w.
   for (int r = a; r < n0; r += tc) {
     const float4 l = s_lo[r], h = s_hi[r], p = s_pos[r];
     const float xa = p.x - mean.x, ya = p.y - mean.y, za = p.z - mean.z;
     int deg = 0;
-    float ax = 0.0f, ay = 0.0f, az = 0.0f;
+    PushTree<kRoundTreeLevels> tree;
+    tree.clear();
     for (int k = 0; k < nc; ++k) {
       u64* at = bits + static_cast<size_t>(k) * np + r;
       u64 word = *at;
       if (k == r / kChunk) word &= ~(1ull << (r % kChunk));
       u64 exact = word;
+      float ax = 0.0f, ay = 0.0f, az = 0.0f;
       while (word != 0ull) {
         const int bit = __ffsll(static_cast<long long>(word)) - 1;
         const int b = kChunk * k + bit;
@@ -849,10 +909,12 @@ fused_simple_jobs_rounds_kernel(const float* __restrict__ pos,
           az += m * dz;
         }
       }
+      tree.push(make_float3(ax, ay, az), k);
       *at = exact;
       deg += __popcll(exact);
     }
-    s_tr[r] = make_float4(p.x + -2.0f * ax, p.y + -2.0f * ay, p.z + -2.0f * az,
+    const float3 t = tree.total(nc);
+    s_tr[r] = make_float4(p.x + -2.0f * t.x, p.y + -2.0f * t.y, p.z + -2.0f * t.z,
                           __int_as_float(deg));
   }
   SJ_PHASE(4);

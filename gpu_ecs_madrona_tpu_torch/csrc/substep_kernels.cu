@@ -208,50 +208,74 @@
 // in the window when its index is below kw, else in the world's slice of a
 // global scratch (kScratchCh channels an entry, kWinCacheCh with the cache),
 // which only worlds with more live pairs than the window touch.  The window
-// (fused_window) is the most entries that let kWinBlocks CTAs share an SM
-// (378 at 256 rows, K = 1020; 220 with the cache), else the most one CTA
-// holds; where its bodies, its hull rows and the smallest window (a round
-// of the block's threads) pass kMaxSmem, past 968 bodies of boxes (894
-// with the cache) and 370 of the imported prism (341), the bodies take a
-// global scratch too (kOptBody, below).
+// (fused_window) is the most entries that one CTA's kMaxSmem holds (every
+// one of K = 1,020 at 256 rows; 667 with the cache); where its bodies, its
+// hull rows and the smallest
+// window (a round of the block's threads) pass kMaxSmem, past 870 bodies of
+// boxes (647 with the cache) and 332 of the imported prism (247), the bodies
+// take a global scratch too (kOptBody, below).
 // The slot lists, work order, first-entry-in-registers stash and every
 // sum's order are the slot layout's, so a windowed launch is bit for bit
-// the slot layout's and the plain version's at any window (a serial CPU
-// build of this file held windows of 1, 3, half the live pairs and K to the
-// slot layout, bit for bit, on rigid_bench piles of 20-255 bodies); the
-// shapes that fit one block keep the slot layout and its specialisations
-// as compiled before.
+// the slot layout's and the plain version's at any window and any block (a
+// serial CPU build of this file held windows of 1, 3, half the live pairs
+// and K to the slot layout, bit for bit, on rigid_bench piles of 20-255
+// bodies); the shapes that fit one block keep the slot layout and its
+// specialisations as compiled before.
 // Past the body-row ceilings (kOptBody).  Both window layouts keep a world's
 // bodies (kBodyCh = 54 floats a row) and its lists' offsets and cursors (3 n
 // + 1 ints) in shared memory, 228 B a body: kernel 5 passes kMaxSmem from
 // 816 rows (800 with simple_taskgraph's 64 joint rows), the windowed fused
-// specialisations from 969 bodies of boxes (895 with the cache, 371 of the
+// specialisations from 871 bodies of boxes (648 with the cache, 333 of the
 // imported prism, whose staged hull rows add 368 B a body), where JAX's
-// kernels keep them in VMEM.  There those arrays, and the staged hull rows,
-// live in the world's slice of a second global scratch (body_scratch_floats
-// a world), the rest of the layout in shared memory as before: kernel 5's
-// window of kWindow entries and its joints (~50 KB at simple_taskgraph's
-// 1,000 objects), the fused kernel's window sized by body_window (695
-// entries for kWinBlocks CTAs an SM, 404 with the cache).  The code that
-// reads them is the window layouts' (the Smem pointers are generic, so the
-// loads and stores address global memory; no cp.async, cvta or
-// shared-only intrinsic touches them; __syncthreads and __syncwarp order
-// a block's global writes as its shared ones; the cursors' integer atomics
-// work on global memory), compiled as twins (substep_kernel<FULL, GEN,
-// true>, fused_substep_kernel<kOptWin | kOptBody (| kOptRefresh) (|
-// kOptHull)>), so the shapes that fit one block keep their specialisations
-// as compiled before, and every sum keeps its order: bit for bit the plain
-// version.  What bounds them: a world's rows (~228 KB at 1,024 bodies) stay
-// in L1 and L2 while its CTA runs; at the natural occupancy (3 CTAs an SM
-// for kernel 5, by its registers; 2 for the fused twin, by its window) the
-// worlds in flight hold ~90-130 MB of rows, past the 50 MB L2, and at 1 CTA
-// an SM (shared memory padded to one CTA's) ~30 MB.  Measured (H100 80GB
-// HBM3, 700 W): kernel 5's node launch at 1024 x 1,004 rows, K = 10,000
-// 7.48 ms at 3 CTAs an SM against 12.28 at 1; the fused twin at 8192 x
-// 1,024 rows, K = 4,092, 72.3 ms at 2 CTAs an SM against 86.2 at 1: the
-// worlds in flight hide the latency of each world's chain better than L2
-// hits do, so both keep their natural occupancy, and the padded layout was
-// dropped.
+// kernels keep them in VMEM.  There a world's body rows (every channel's
+// place), its lists' offsets and cursors, kernel 5's joints' rows where
+// they do not fit beside its window (Args1::jg) and joint lists, and the
+// staged hull rows live in the world's slice of a second global scratch
+// (body_scratch_floats a world); shared memory holds the fixed part
+// (kernel 5's window of kWindow entries and its joints, the fused kernel's
+// window of at most kBodyWinEntries, body_window) and then, each where it
+// still fits the budget (body_plan), the lists' offsets and cursors,
+// kernel 5's joint lists and the hottest body channels, ranked by how often
+// the passes gather them at a work entry's rows (body_rank, SplitRows: the
+// object, the post-integrate pose, the inverse mass and inertia, the
+// substep start, the friction, the post-positional-solve pose and
+// velocities first).  The code is the window layouts' (generic pointers:
+// whichever memory a channel, a list or a cursor lives in, the loads,
+// stores and integer atomics address it alike; __syncthreads orders a
+// block's global writes as its shared ones), compiled as twins
+// (substep_kernel<FULL, GEN, true>, fused_substep_kernel<kOptWin | kOptBody
+// (| kOptRefresh) (| kOptHull)>), so the shapes that fit one block keep
+// their specialisations as compiled before, and every sum keeps its order:
+// bit for bit the plain version.
+// The twins' design for the card (PERF.md).  Measured by phase
+// (clock64() between barriers, SS_PHASE) at the parent's design, H100:
+// kernel 5 with 4,096 joint rows spent 94% of its cycles in the joint sums,
+// each body walking every joint row; with the bodies in the scratch its
+// slot lists (25%) and segment sums (43%) waited on chains of global loads
+// (a cursor or list word, then the pass channels), as did the fused twin's
+// sums (35%) and passes (44%).  So: (1) kernel 5's twin builds each body's
+// side-1 and side-2 joint lists once a launch (joint_lists: counts, a warp's
+// scan, a stable fill in joint order), and a body sums only its own joints,
+// O(n + J) for O(n J), in the order it summed them; (2) the hottest body
+// channels, the lists' offsets and cursors (and the joint lists) in shared
+// memory, as above; (3) the twins' own block: kWinThreads and kBodyThreads
+// threads (384), one CTA an SM (the budget is one CTA's 227 KB, and 170
+// registers a thread), so that a world's many entries and bodies run in 12
+// warps and its window holds every slot of the 256-row pile; (4) the work
+// list's counts by kind taken by every warp, and two sorter warps (the
+// entries and A sides; the B sides) loading a chunk ahead
+// (finish_slots_twin, which kernel 5's window layout takes too); (5) the
+// entries past the window as channel pairs in the scratch
+// (pack_store_pairs), so that a body's sum reads an entry's side in (C +
+// 1) / 2 sectors, not C.  A world stays one CTA (one unit of work,
+// substep_wt's meaning).  Tried and dropped: a segment sum that loads a few
+// entries before adding them, and entries stored entry-major (the passes'
+// stores then scattered); 256 and 512 threads, and two CTAs an SM; a
+// cluster of 8 CTAs a world, its rows and entries dealt over their shared
+// memory (distributed shared memory), 3.2x slower at 1,024 rows: a world
+// ran 2.8x faster on 8x the SMs, each gather of another CTA's row crossing
+// the SM-to-SM network uncached where the scratch's hit L1 and L2
+// (PERF.md).
 // Arithmetic: -fmad=false keeps every product and sum separately rounded,
 // in the order of the plain version (ops/substep_kernel.py,
 // physics/pairs.py); 1/sqrtf stands for the plain version's 1 / sqrt.  The
@@ -260,6 +284,35 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Phase markers.  Empty in the kernels as built; the phase build
+// (ops/_build.py's "substep_phases": this source with -DSUBSTEP_PHASES)
+// adds up each phase's clock64() cycles over a launch's CTAs (a barrier of
+// the block, then thread 0's clock since the last marker) in
+// ss_phase_cycles_d, which substep_phase_cycles at the end of this file
+// reads; ops/substep_kernel.py phase_cycles names the phases (PHASES):
+// 0 load (and kernel 5's integrate), 1 slots, 2 integrate, 3 hull rows,
+// 4 positional (contacts and the pass), 5 positional sum, 6 velocity,
+// 7 velocity sum, 8 joint terms, 9 joint sums and writeback, or writeback.
+#ifdef SUBSTEP_PHASES
+constexpr int kPhaseSlots = 16;
+__device__ unsigned long long ss_phase_cycles_d[kPhaseSlots];
+__shared__ long long ss_t0;
+#define SS_PHASE_START \
+  if (threadIdx.x == 0) ss_t0 = clock64();
+#define SS_PHASE(k)                                                                         \
+  do {                                                                                      \
+    __syncthreads();                                                                        \
+    if (threadIdx.x == 0) {                                                                 \
+      const long long ss_t = clock64();                                                     \
+      atomicAdd(&ss_phase_cycles_d[k], static_cast<unsigned long long>(ss_t - ss_t0));     \
+      ss_t0 = ss_t;                                                                         \
+    }                                                                                       \
+  } while (0)
+#else
+#define SS_PHASE_START
+#define SS_PHASE(k)
+#endif
 
 namespace {
 
@@ -1996,13 +2049,9 @@ constexpr int kJointCh = 12;
 // rows) passes kMaxSmem: kernel 5's window layout, its work entries past a
 // window of fused_window(...) entries in the world's slice of a global
 // scratch of kScratchCh channels an entry, kWinCacheCh with the manifold
-// cache (its 33 channels after the others).  The window aims at kWinBlocks
-// CTAs an SM of kSmSmem bytes, each reserving kCtaReserved.
+// cache (its 33 channels after the others).
 constexpr int kOptWin = 32;
-constexpr int kWinBlocks = 2;
 constexpr int kWinCacheCh = 79;
-constexpr size_t kSmSmem = 233472;
-constexpr size_t kCtaReserved = 1024;
 // Bodies in a global scratch (kOptBody; OPT_BODY in ops/substep_kernel.py),
 // which kernel 5 takes where its window layout passes kMaxSmem and the
 // fused kernel's windowed specialisations where not even their smallest
@@ -2015,6 +2064,15 @@ constexpr size_t kCtaReserved = 1024;
 // __syncthreads orders a block's global writes as its shared ones, and the
 // integer atomics on the cursors work on either).
 constexpr int kOptBody = 64;
+// The launch geometry of the twins past one block (PERF.md): the
+// windowed twins (kOptWin, with or without kOptBody) take kWinThreads
+// threads a CTA at most, kernel 5's bodies-in-scratch twin kBodyThreads,
+// each one CTA an SM (its registers capped for it, its shared memory
+// kMaxSmem at most); the fused bodies-in-scratch twin's window holds at
+// most kBodyWinEntries work entries.
+constexpr int kWinThreads = 384;
+constexpr int kBodyThreads = 384;
+constexpr int kBodyWinEntries = 512;
 
 struct Args {
   const float *pos, *rot, *v, *w, *im, *ii, *mu_s, *mu_d;
@@ -2082,6 +2140,68 @@ __device__ __forceinline__ void st4(float* s, int ch, int b, int n, Q4 q) {
 __device__ __forceinline__ int obj_of(const float* s, int b, int n) {
   return __float_as_int(s[kObj * n + b]);
 }
+__device__ __forceinline__ float ld1(const float* s, int ch, int b, int n) { return s[ch * n + b]; }
+__device__ __forceinline__ void st1(float* s, int ch, int b, int n, float v) { s[ch * n + b] = v; }
+
+// The bodies-in-scratch twins' body rows (kOptBody; substep_kernel<FULL,
+// GEN, true>): channel ch at rank r = body_rank(ch), in shared memory at hot
+// + r n where r < nh, else in the body scratch at cold + r n (the scratch
+// keeps every channel's place).  The ranks order the channels by how often
+// the passes gather them at a work entry's rows: the object, the
+// post-integrate pose, the inverse mass and inertia, the substep start, the
+// friction, the post-positional-solve pose and velocities, then the
+// dynamic flag, the post-integrate velocities (restitution) and the
+// channels read only once a body (the current state, the start rotation).
+// The launch puts as many ranks in shared memory as its budget leaves
+// (body_plan), so a world's hottest channels stay on chip at any body count.
+struct SplitRows {
+  float* hot;
+  float* cold;
+  int nh;
+};
+__host__ __device__ constexpr int body_rank(int ch) {
+  return ch == kObj                          ? 0
+         : ch >= kIPos && ch < kIV           ? 1 + (ch - kIPos)       // kIPos, kIRot
+         : ch >= kIm && ch < kMuS            ? 8 + (ch - kIm)         // kIm, kIi
+         : ch >= kPrevPos && ch < kPrevRot   ? 12 + (ch - kPrevPos)
+         : ch == kMuS                        ? 15
+         : ch == kMuD                        ? 16
+         : ch >= kP2 && ch < kIm             ? 17 + (ch - kP2)        // kP2, kR2, kV2, kW2
+         : ch == kDyn                        ? 30
+         : ch >= kIV && ch < kP2             ? 31 + (ch - kIV)        // kIV, kIW
+         : ch < kPrevPos                     ? 37 + ch                // kPos, kRot, kV, kW
+                                             : 50 + (ch - kPrevRot);  // kPrevRot
+}
+__device__ __forceinline__ float* row_ch(const SplitRows& r, int ch, int n) {
+  const int k = body_rank(ch);
+  return (k < r.nh ? r.hot : r.cold) + k * n;
+}
+__device__ __forceinline__ float ld1(const SplitRows& r, int ch, int b, int n) {
+  return row_ch(r, ch, n)[b];
+}
+__device__ __forceinline__ void st1(const SplitRows& r, int ch, int b, int n, float v) {
+  row_ch(r, ch, n)[b] = v;
+}
+__device__ __forceinline__ V3 ld3(const SplitRows& r, int ch, int b, int n) {
+  return mk(ld1(r, ch, b, n), ld1(r, ch + 1, b, n), ld1(r, ch + 2, b, n));
+}
+__device__ __forceinline__ Q4 ld4(const SplitRows& r, int ch, int b, int n) {
+  return Q4{ld1(r, ch, b, n), ld1(r, ch + 1, b, n), ld1(r, ch + 2, b, n), ld1(r, ch + 3, b, n)};
+}
+__device__ __forceinline__ void st3(const SplitRows& r, int ch, int b, int n, V3 v) {
+  st1(r, ch, b, n, v.x);
+  st1(r, ch + 1, b, n, v.y);
+  st1(r, ch + 2, b, n, v.z);
+}
+__device__ __forceinline__ void st4(const SplitRows& r, int ch, int b, int n, Q4 q) {
+  st1(r, ch, b, n, q.w);
+  st1(r, ch + 1, b, n, q.x);
+  st1(r, ch + 2, b, n, q.y);
+  st1(r, ch + 3, b, n, q.z);
+}
+__device__ __forceinline__ int obj_of(const SplitRows& r, int b, int n) {
+  return __float_as_int(ld1(r, kObj, b, n));
+}
 
 // The block size for n bodies and K slots: one thread a slot and a body,
 // rounded up to whole warps, at most kMaxThreads (the threads loop over
@@ -2091,6 +2211,20 @@ __host__ __device__ __forceinline__ int block_threads(int n, int K) {
   const int t = ((widest + 31) / 32) * 32;
   return t < kMaxThreads ? t : kMaxThreads;
 }
+
+// The windowed twins' block: the same, at most kWinThreads.
+__host__ __device__ __forceinline__ int win_threads(int n, int K) {
+  const int widest = n > K ? n : K;
+  const int t = ((widest + 31) / 32) * 32;
+  return t < kWinThreads ? t : kWinThreads;
+}
+
+// The fused twins' scratch pitch (its channel stride): the entries past
+// the window, rounded up to even, so that every world's slice of the
+// scratch, and each pair region in it, is 8-byte aligned (the wrapper's
+// fused_scratch has that pitch; kernel 5's 46 channels are aligned as
+// they are).
+__host__ __device__ __forceinline__ int win_pitch(int kg) { return kg + (kg & 1); }
 
 // The slots whose manifold waits in shared memory between the two passes:
 // a thread keeps the manifold of its first work-list entry in registers,
@@ -2144,6 +2278,27 @@ struct Smem {
   int* sjr;
   // the general-hull specialisations' staged rows (Hulls), after the rest
   float* shull;
+  // the bodies-in-scratch twins (kOptBody): sb the hot body channels in
+  // shared memory, sbc the body rows in the scratch, nh the ranks in
+  // shared memory (SplitRows); kernel 5's joint lists (joint_lists): je
+  // the end of each body's side-1 list (n) then side-2 list (n), jl the
+  // joints of the side-1 lists (J) then the side-2 lists (J)
+  float* sbc;
+  int nh;
+  int *je, *jl;
+};
+
+// The body rows of a layout: the shared rows (a float pointer), or the
+// bodies-in-scratch twins' split rows.
+template <bool BODY>
+struct RowsOf {
+  typedef float* type;
+  __device__ static float* of(const Smem& s) { return s.sb; }
+};
+template <>
+struct RowsOf<true> {
+  typedef SplitRows type;
+  __device__ static SplitRows of(const Smem& s) { return SplitRows{s.sb, s.sbc, s.nh}; }
 };
 
 __device__ __forceinline__ Smem carve(float* smem, int n, int K, bool bp, bool cache, int T) {
@@ -2203,6 +2358,85 @@ size_t substep_smem_bytes(int n, int K, int J) {
   return sizeof(float) * floats + sizeof(int) * ints;
 }
 
+// The bodies-in-scratch layout (kOptBody).  body_bytes: the bytes a
+// world's body rows, lists' offsets and cursors take in the layouts above
+// (what the twins move to the scratch).  body_scratch_floats: a world's
+// slice of the body scratch: its body rows (every channel's place), the
+// lists' offsets and cursors, kernel 5's joints' rows where they do not fit
+// beside its window (jg), its joint lists (J > 0), and the staged hull rows
+// (hull_stride floats a row, 0 for all-box tables).  Kernel 5's twin's block
+// (substep_body_threads) and the fixed part of its shared memory
+// (substep_body_fixed_bytes: its window layout without the bodies, with js
+// joints' rows); body_plan: what a budget holds past a fixed part.
+__host__ __device__ __forceinline__ size_t body_bytes(int n) {
+  const size_t nn = static_cast<size_t>(n);
+  return sizeof(float) * kBodyCh * nn + sizeof(int) * (3 * nn + 1);
+}
+__host__ __device__ __forceinline__ size_t body_scratch_floats(int n, int hull_stride, int J = 0,
+                                                               bool jg = false) {
+  const size_t nn = static_cast<size_t>(n), jj = static_cast<size_t>(J);
+  return kBodyCh * nn + 3 * nn + 1 + (jg ? (kJointCh + 2) * jj : 0) +
+         (J > 0 ? 2 * nn + 2 * jj : 0) + nn * static_cast<size_t>(hull_stride);
+}
+__host__ __device__ __forceinline__ int substep_body_threads(int n, int K) {
+  const int kw = substep_window(K);
+  const int widest = n > kw ? n : kw;
+  const int t = ((widest + 31) / 32) * 32;
+  return t < kBodyThreads ? t : kBodyThreads;
+}
+__host__ __device__ __forceinline__ size_t substep_body_fixed_bytes(int n, int K, int js) {
+  const size_t ww = static_cast<size_t>(substep_window(K)), jj = static_cast<size_t>(js);
+  const size_t tt = static_cast<size_t>(substep_body_threads(n, K));
+  const size_t ks = ww > tt ? ww - tt : 0;
+  const size_t floats = kSlotCh * ks + kPackCh * ww + kJointCh * jj;
+  const size_t ints = 4 * ww + kWorldInts + 2 * jj;
+  return sizeof(float) * floats + sizeof(int) * ints;
+}
+
+// What a bodies-in-scratch twin's shared memory holds past its fixed part
+// (fixed bytes: the window, kernel 5's joints where they are there, the
+// world scalars), in order, each where the budget still holds it: the
+// lists' offsets and cursors (3 n + 1 ints; offs), kernel 5's joint lists
+// (2 n + 2 J ints; lists), then the first nh body channel ranks (n floats
+// each; SplitRows).  bytes: the dynamic shared memory it takes.  What is
+// not in shared memory is in the body scratch.
+struct BodyPlan {
+  bool offs, lists;
+  int nh;
+  size_t bytes;
+};
+__host__ __device__ __forceinline__ BodyPlan body_plan(size_t fixed, int n, int J,
+                                                       size_t budget) {
+  const size_t nn = static_cast<size_t>(n), jj = static_cast<size_t>(J);
+  BodyPlan p;
+  size_t used = fixed;
+  const size_t offs = sizeof(int) * (3 * nn + 1);
+  p.offs = used + offs <= budget;
+  used += p.offs ? offs : 0;
+  const size_t lists = sizeof(int) * (2 * nn + 2 * jj);
+  p.lists = J > 0 && used + lists <= budget;
+  used += p.lists ? lists : 0;
+  const size_t nh = budget > used ? (budget - used) / (sizeof(float) * nn) : 0;
+  p.nh = static_cast<int>(nh < kBodyCh ? nh : kBodyCh);
+  p.bytes = used + sizeof(float) * nn * static_cast<size_t>(p.nh);
+  return p;
+}
+
+// Kernel 5's bodies-in-scratch twin's shared memory at n bodies, K slots
+// and J joints, with its joints' rows in the scratch (jg) or not.
+__host__ __device__ __forceinline__ size_t substep_body_smem_bytes(int n, int K, int J,
+                                                                    bool jg) {
+  return body_plan(substep_body_fixed_bytes(n, K, jg ? 0 : J), n, J, kMaxSmem)
+      .bytes;
+}
+
+// A carve's lists' offsets and cursors (n + 1, n and n ints) from off.
+__device__ __forceinline__ void place_offsets(Smem& s, int* off, int n) {
+  s.soff = off;
+  s.scurA = off + n + 1;
+  s.scurB = s.scurA + n;
+}
+
 // Kernel 5's shared memory, carved from the dynamic block; gsc is the
 // world's slice of the global scratch (kScratchCh channels of kg floats).
 // BODY: the bodies in a global scratch (kOptBody), gb the world's slice of
@@ -2221,8 +2455,12 @@ __device__ __forceinline__ Smem carve_window(float* smem, int n, int K, int J, i
   s.gsc = gsc;
   s.ks = s.kw > T ? s.kw - T : 0;
   if constexpr (BODY) {
+    // the fixed part, then body_plan's: offsets and cursors, joint lists,
+    // hot body ranks; the body scratch: rows, offsets and cursors, the
+    // joints' rows (jg), the joint lists, the hull rows
     const int js = jg ? 0 : J;  // the joints in shared memory
-    s.sb = gb;
+    const BodyPlan p =
+        body_plan(substep_body_fixed_bytes(n, K, js), n, J, kMaxSmem);
     s.sst = smem;
     s.spk = s.sst + kSlotCh * s.ks;
     s.sjv = s.spk + kPackCh * s.kw;
@@ -2230,15 +2468,24 @@ __device__ __forceinline__ Smem carve_window(float* smem, int n, int K, int J, i
     s.slist = s.swrow + 2 * s.kw;
     s.sworld = s.slist + 2 * s.kw;
     s.sjr = s.sworld + kWorldInts;
-    s.soff = reinterpret_cast<int*>(gb + kBodyCh * n);
-    s.scurA = s.soff + n + 1;
-    s.scurB = s.scurA + n;
-    s.shull = reinterpret_cast<float*>(s.scurB + n);
+    int* si = s.sjr + 2 * js;
+    int* gi = reinterpret_cast<int*>(gb + kBodyCh * n);
+    place_offsets(s, p.offs ? si : gi, n);
+    si += p.offs ? 3 * n + 1 : 0;
+    gi += 3 * n + 1;
     if (jg) {
-      s.sjv = s.shull;
-      s.sjr = reinterpret_cast<int*>(s.sjv + kJointCh * J);
-      s.shull = reinterpret_cast<float*>(s.sjr + 2 * J);
+      s.sjv = reinterpret_cast<float*>(gi);
+      s.sjr = gi + kJointCh * J;
+      gi += (kJointCh + 2) * J;
     }
+    s.je = p.lists ? si : gi;
+    s.jl = s.je + 2 * n;
+    si += p.lists ? 2 * n + 2 * J : 0;
+    gi += J > 0 ? 2 * n + 2 * J : 0;
+    s.shull = reinterpret_cast<float*>(gi);
+    s.sb = reinterpret_cast<float*>(si);
+    s.sbc = gb;
+    s.nh = p.nh;
   } else {
     s.sb = smem;
     s.sst = s.sb + kBodyCh * n;
@@ -2276,29 +2523,30 @@ __host__ __device__ __forceinline__ size_t fused_window_smem_bytes(int n, int kw
   return sizeof(float) * floats + sizeof(int) * ints;
 }
 
+// The same without the bodies (the bodies-in-scratch twins' fixed part).
+__host__ __device__ __forceinline__ size_t body_window_smem_bytes(int n, int kw, int T,
+                                                                   bool cache) {
+  return fused_window_smem_bytes(n, kw, T, cache) - body_bytes(n);
+}
+
 // The window of the fused kernel's windowed layout for n bodies, K slots and
 // hull bytes of staged hull rows: the most work entries (at most K) whose
-// layout lets kWinBlocks CTAs share an SM, when that holds the smallest
-// window (a round of the block's threads, or K); else the most that one
-// CTA's kMaxSmem holds; 0 when not even the smallest window fits beside the
-// bodies and the hull rows.
+// layout fits one CTA's kMaxSmem; 0 when not even the smallest window (a
+// round of the block's threads, or K) fits beside the bodies and the hull
+// rows.
 int fused_window(int n, int K, bool cache, size_t hull) {
-  const int T = block_threads(n, K);
+  const int T = win_threads(n, K);
   const int least = K < T ? K : T;
-  const size_t budgets[2] = {kSmSmem / kWinBlocks - kCtaReserved, kMaxSmem};
-  for (const size_t budget : budgets) {
-    if (fused_window_smem_bytes(n, least, T, cache) + hull > budget) continue;
-    int lo = least, hi = K;
-    while (lo < hi) {
-      const int mid = lo + (hi - lo + 1) / 2;
-      if (fused_window_smem_bytes(n, mid, T, cache) + hull <= budget)
-        lo = mid;
-      else
-        hi = mid - 1;
-    }
-    return lo;
+  if (fused_window_smem_bytes(n, least, T, cache) + hull > kMaxSmem) return 0;
+  int lo = least, hi = K;
+  while (lo < hi) {
+    const int mid = lo + (hi - lo + 1) / 2;
+    if (fused_window_smem_bytes(n, mid, T, cache) + hull <= kMaxSmem)
+      lo = mid;
+    else
+      hi = mid - 1;
   }
-  return 0;
+  return lo;
 }
 
 // The windowed layout's shared memory, carved from the dynamic block: kernel
@@ -2312,11 +2560,15 @@ __device__ __forceinline__ Smem carve_fused_window(float* smem, int n, int K, in
                                                    int T, float* gsc, float* gb) {
   Smem s;
   s.kw = kw;
-  s.kg = K - kw;
+  s.kg = win_pitch(K - kw);
   s.gsc = gsc;
   s.ks = kw > T ? kw - T : 0;
   if constexpr (BODY) {
-    s.sb = gb;
+    // the fixed part (the window, the world scalars), then body_plan's:
+    // offsets and cursors, hot body ranks; the body scratch: rows, offsets
+    // and cursors, the hull rows
+    const BodyPlan p =
+        body_plan(body_window_smem_bytes(n, kw, T, cache), n, 0, kMaxSmem);
     s.sst = smem;
     s.spk = s.sst + kSlotCh * s.ks;
     float* f = s.spk + kPackCh * kw;
@@ -2325,10 +2577,14 @@ __device__ __forceinline__ Smem carve_fused_window(float* smem, int n, int K, in
     s.swrow = reinterpret_cast<int*>(f);
     s.slist = s.swrow + 2 * kw;
     s.sworld = s.slist + 2 * kw;
-    s.soff = reinterpret_cast<int*>(gb + kBodyCh * n);
-    s.scurA = s.soff + n + 1;
-    s.scurB = s.scurA + n;
-    s.shull = reinterpret_cast<float*>(s.scurB + n);
+    int* si = s.sworld + kWorldInts;
+    int* gi = reinterpret_cast<int*>(gb + kBodyCh * n);
+    place_offsets(s, p.offs ? si : gi, n);
+    si += p.offs ? 3 * n + 1 : 0;
+    s.shull = reinterpret_cast<float*>(gi + 3 * n + 1);
+    s.sb = reinterpret_cast<float*>(si);
+    s.sbc = gb;
+    s.nh = p.nh;
   } else {
     s.sb = smem;
     s.sst = s.sb + kBodyCh * n;
@@ -2352,35 +2608,17 @@ __device__ __forceinline__ Smem carve_fused_window(float* smem, int n, int K, in
   return s;
 }
 
-// The bodies-in-scratch layout (kOptBody).  The bytes a world's bodies,
-// lists' offsets and cursors take in the layouts above (what it moves out
-// of shared memory); the floats of a world's body scratch with hull_stride
-// staged floats a hull row (0 for all-box tables); kernel 5's shared memory
-// in it (its window layout without the bodies); the fused kernel's (its
-// windowed layout without the bodies) at a window of kw entries, and that
-// window: the most entries (at most K) that let kWinBlocks CTAs share an SM.
-__host__ __device__ __forceinline__ size_t body_bytes(int n) {
-  const size_t nn = static_cast<size_t>(n);
-  return sizeof(float) * kBodyCh * nn + sizeof(int) * (3 * nn + 1);
-}
-__host__ __device__ __forceinline__ size_t body_scratch_floats(int n, int hull_stride,
-                                                               int jg = 0) {
-  const size_t nn = static_cast<size_t>(n);
-  return kBodyCh * nn + 3 * nn + 1 + (kJointCh + 2) * static_cast<size_t>(jg) +
-         nn * static_cast<size_t>(hull_stride);
-}
-size_t substep_body_smem_bytes(int n, int K, int J) {
-  return substep_smem_bytes(n, K, J) - body_bytes(n);
-}
-size_t body_window_smem_bytes(int n, int kw, int T, bool cache) {
-  return fused_window_smem_bytes(n, kw, T, cache) - body_bytes(n);
-}
+// The fused kernel's bodies-in-scratch twins' window: the most entries (at
+// most K and kBodyWinEntries) that fit kMaxSmem, the rest of which
+// body_plan gives the lists' offsets and cursors and the hottest body
+// channels.
 int body_window(int n, int K, bool cache) {
-  const int T = block_threads(n, K);
+  const int T = win_threads(n, K);
   const int least = K < T ? K : T;
-  const size_t budget = kSmSmem / kWinBlocks - kCtaReserved;
+  const int most = K < kBodyWinEntries ? K : (kBodyWinEntries > least ? kBodyWinEntries : least);
+  const size_t budget = kMaxSmem;
   if (body_window_smem_bytes(n, least, T, cache) > budget) return 0;
-  int lo = least, hi = K;
+  int lo = least, hi = most;
   while (lo < hi) {
     const int mid = lo + (hi - lo + 1) / 2;
     if (body_window_smem_bytes(n, mid, T, cache) <= budget)
@@ -2418,6 +2656,33 @@ __device__ __forceinline__ float* cache_at(const Smem& s, int e, int* stride) {
   }
   *stride = s.kg;
   return s.gsc + kScratchCh * s.kg + (e - s.kw);
+}
+// The twins past one block (the fused kernel's windowed ones, kernel 5's
+// bodies-in-scratch one) keep the pass contributions of an entry g past
+// the window (g = e - kw) in the scratch as pairs of channels: channels
+// 2j, 2j + 1 at float2 j kg + g, the same kPackCh kg floats.  A thread's
+// store of its entry is kPackCh / 2 wide stores that a warp makes whole
+// (as the channel-major ones were), and a body's segment sum reads a side's
+// C channels in (C + 1) / 2 of them where it read C sectors.
+template <int P>
+__device__ __forceinline__ void pack_store_pairs(const Smem& s, int g, const float (&v)[2 * P]) {
+  float2* p = reinterpret_cast<float2*>(s.gsc) + g;
+#pragma unroll
+  for (int j = 0; j < P; ++j) p[j * s.kg] = make_float2(v[2 * j], v[2 * j + 1]);
+}
+template <int C>
+__device__ __forceinline__ void pack_load_pairs(const Smem& s, int g, int side, float (&v)[C]) {
+  const int first = C * side, odd = first & 1;
+  const float2* p = reinterpret_cast<const float2*>(s.gsc) + g + (first >> 1) * s.kg;
+  float w[C + 1];
+#pragma unroll
+  for (int j = 0; j < (C + 1) / 2; ++j) {
+    const float2 t = p[j * s.kg];
+    w[2 * j] = t.x;
+    w[2 * j + 1] = t.y;
+  }
+#pragma unroll
+  for (int q = 0; q < C; ++q) v[q] = odd ? w[q + 1] : w[q];
 }
 // Kernel 5's rows of work entry e, and its body lists' entry i.
 __device__ __forceinline__ void entry_rows(const Smem& s, int e, int rows[2]) {
@@ -2601,65 +2866,92 @@ __device__ int finish_slots(const Smem& s, const Table& tab, int n, int K, int t
   return kc;
 }
 
-// Kernel 5's slot lists and work list, in its window's layout: the rows are
-// read from the caller's arrays (nothing K-wide is staged).  After the
-// counts by body (as finish_slots), warp 0 scans the lists' offsets while
-// warp 1 counts the valid slots below kc by contact kind; then warp 1 gives
-// each valid slot its work entry e (grouped by kind, ascending within a
-// kind, as build_work), stores its rows at e and lists its two sides by
-// body as (e << 1 | side), in ascending slot order, A sides first (as
-// build_lists, whose per-body order the segment sums keep).  Starts and ends
-// with a barrier; returns kc.
-__device__ int finish_slots_win(const Smem& s, const Table& tab, const int* rows_i,
-                                const int* rows_j, const uint8_t* kvalid, int wld, int n, int K,
-                                int tid, int T) {
+// The slot lists and work list of kernel 5's window layout and of the
+// twins past one block (the fused kernel's windowed specialisations, kernel
+// 5's bodies-in-scratch twin): the rows are read from the caller's arrays
+// (nothing K-wide is staged).  The end of the valid slots by a warp maximum
+// (one shared atomic a warp) and each body's count of A and B sides
+// (integer atomics: the counts do not depend on their order); every warp
+// counts the valid slots by contact kind over its own chunks (ballots, then
+// one shared atomic a kind a warp, into the pack channels' first words,
+// which the passes write later) while warp 0 scans the lists' offsets
+// (list_offsets); then two sorter warps walk the valid slots in order, each
+// giving every slot its work entry e (grouped by kind, ascending within a
+// kind, as build_work), the first storing the entries' rows at e and
+// listing the A sides by body as (e << 1 | side), the second listing the B
+// sides (one warp both where the block has fewer than three), in ascending
+// slot order, A sides first (as build_lists, whose per-body order the
+// segment sums keep), each loading the next chunk's slot before it works
+// on this one's.  Starts and ends with a barrier; returns
+// kc.
+template <bool BODY>
+__device__ int finish_slots_twin(const Smem& s, const Table& tab, const int* rows_i,
+                                 const int* rows_j, const uint8_t* kvalid, int wld, int n, int K,
+                                 int tid, int T) {
+  const typename RowsOf<BODY>::type sb = RowsOf<BODY>::of(s);
   const size_t k0 = static_cast<size_t>(wld) * K;
+  const int L = T < 32 ? T : 32, lane = tid % 32, warp = tid / 32, nw = T > 32 ? T / 32 : 1;
+  const unsigned full = 0xffffffffu, below = (1u << lane) - 1u;
+  int* kinds = reinterpret_cast<int*>(s.spk);
   if (tid == 0) s.sworld[kSlotsEnd] = 0;
+  if (tid < kKinds) kinds[tid] = 0;
   for (int b = tid; b < n; b += T) s.scurA[b] = s.scurB[b] = 0;
   __syncthreads();
+  int end = 0;
   for (int k = tid; k < K; k += T)
     if (kvalid[k0 + k]) {
-      atomicMax(&s.sworld[kSlotsEnd], k + 1);
+      end = k + 1;
       atomicAdd(&s.scurA[clamp_row(rows_i[k0 + k], n)], 1);
       atomicAdd(&s.scurB[clamp_row(rows_j[k0 + k], n)], 1);
     }
+  end = __reduce_max_sync(full, end);
+  if (lane == 0 && end > 0) atomicMax(&s.sworld[kSlotsEnd], end);
   __syncthreads();
   const int kc = s.sworld[kSlotsEnd];
-  const int L = T < 32 ? T : 32, lane = tid % 32;
-  const unsigned full = 0xffffffffu, below = (1u << lane) - 1u;
-  const bool sorter = T > 32 ? (tid >= 32 && tid < 64) : tid < 32;
-  int base[kKinds];
-  if (tid < 32) list_offsets(s, n, lane, L);
-  if (sorter) {
-    int total = 0;
+  {
+    int cnt[kKinds];
 #pragma unroll
-    for (int c = 0; c < kKinds; ++c) base[c] = 0;
-    for (int c0 = 0; c0 < kc; c0 += L) {
+    for (int c = 0; c < kKinds; ++c) cnt[c] = 0;
+    for (int c0 = warp * L; c0 < kc; c0 += nw * L) {
       const int k = c0 + lane;
       const int kind = (k < kc && kvalid[k0 + k])
-                           ? pair_kind(tab.prim(obj_of(s.sb, clamp_row(rows_i[k0 + k], n), n)),
-                                       tab.prim(obj_of(s.sb, clamp_row(rows_j[k0 + k], n), n)))
+                           ? pair_kind(tab.prim(obj_of(sb, clamp_row(rows_i[k0 + k], n), n)),
+                                       tab.prim(obj_of(sb, clamp_row(rows_j[k0 + k], n), n)))
                            : kKinds;
 #pragma unroll
-      for (int c = 0; c < kKinds; ++c) base[c] += __popc(__ballot_sync(full, kind == c));
+      for (int c = 0; c < kKinds; ++c) cnt[c] += __popc(__ballot_sync(full, kind == c));
     }
+    if (lane == 0)
+#pragma unroll
+      for (int c = 0; c < kKinds; ++c)
+        if (cnt[c] != 0) atomicAdd(&kinds[c], cnt[c]);
+  }
+  if (tid < 32) list_offsets(s, n, lane, L);
+  __syncthreads();
+  // the sorter warps: warp 1 the entries' rows and the A sides, warp 2 the
+  // B sides (warp 1 both in a block of two warps, warp 0 in one of one)
+  const int nsort = nw >= 3 ? 2 : 1;
+  const bool sorter = nw > 1 ? (warp >= 1 && warp <= nsort) : true;
+  if (sorter) {
+    const int side0 = nsort == 2 ? warp - 1 : 0, side1 = nsort == 2 ? warp : 2;
+    int base[kKinds], total = 0;
 #pragma unroll
     for (int c = 0; c < kKinds; ++c) {
-      const int cnt = base[c];
       base[c] = total;
-      total += cnt;
+      total += kinds[c];
     }
-    if (lane == 0) s.sworld[kWorkCount] = total;
-  }
-  __syncthreads();
-  if (sorter) {
+    if (side0 == 0 && lane == 0) s.sworld[kWorkCount] = total;
+    bool next_valid = lane < kc && kvalid[k0 + lane];
+    int next_i = next_valid ? rows_i[k0 + lane] : 0, next_j = next_valid ? rows_j[k0 + lane] : 0;
     for (int c0 = 0; c0 < kc; c0 += L) {
-      const int k = c0 + lane;
-      const bool valid = k < kc && kvalid[k0 + k];
-      const int ri = valid ? clamp_row(rows_i[k0 + k], n) : 0;
-      const int rj = valid ? clamp_row(rows_j[k0 + k], n) : 0;
+      const bool valid = next_valid;
+      const int ri = clamp_row(next_i, n), rj = clamp_row(next_j, n);
+      const int kn = c0 + L + lane;
+      next_valid = kn < kc && kvalid[k0 + kn];
+      next_i = next_valid ? rows_i[k0 + kn] : 0;
+      next_j = next_valid ? rows_j[k0 + kn] : 0;
       const int kind =
-          valid ? pair_kind(tab.prim(obj_of(s.sb, ri, n)), tab.prim(obj_of(s.sb, rj, n))) : kKinds;
+          valid ? pair_kind(tab.prim(obj_of(sb, ri, n)), tab.prim(obj_of(sb, rj, n))) : kKinds;
       int e = 0;
 #pragma unroll
       for (int c = 0; c < kKinds; ++c) {
@@ -2667,9 +2959,8 @@ __device__ int finish_slots_win(const Smem& s, const Table& tab, const int* rows
         if (kind == c) e = base[c] + __popc(b & below);
         base[c] += __popc(b);
       }
-      if (valid) entry_rows_store(s, e, ri, rj);
-#pragma unroll
-      for (int side = 0; side < 2; ++side) {
+      if (valid && side0 == 0) entry_rows_store(s, e, ri, rj);
+      for (int side = side0; side < side1; ++side) {
         const int row = side ? rj : ri;
         const int key = valid ? row : -1 - lane;
         const unsigned same = __match_any_sync(full, key);
@@ -2982,8 +3273,8 @@ __device__ __forceinline__ void stash_load(const float* sst, int KS, Manifold& c
 // pose, one thread an item (a vertex, edge direction, SAT axis or face of a
 // row), each value as the per-pair code computes it (hull_vert's qrot and
 // add; a face's offset face_d + n . pos).  The other rows stage nothing.
-__device__ void stage_hulls(const Hulls& h, const float* sb, const Table& tab, int n, int tid,
-                            int T) {
+template <typename Rows>
+__device__ void stage_hulls(const Hulls& h, Rows sb, const Table& tab, int n, int tid, int T) {
   const int R = tab.vm + tab.em + tab.sm + tab.fm;
   for (int it = tid; it < n * R; it += T) {
     const int b = it / R, r = it - b * R;
@@ -3026,11 +3317,11 @@ __device__ void stage_hulls(const Hulls& h, const float* sb, const Table& tab, i
 // threads lane-major across the warps (entry r T + lane nw + warp, nw
 // warps), so that the hull pairs at the head of the work list spread over
 // every warp instead of filling the first.  Ends with a barrier.
-template <bool CACHE, bool WIN, bool GEN>
+template <bool CACHE, bool WIN, bool GEN, bool BODY = false, bool TWIN = false>
 __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int kc, float h1,
                               float rest1, float relax, float spec, bool bounce, int mode,
                               int tid, int T) {
-  float* sb = s.sb;
+  const typename RowsOf<BODY>::type sb = RowsOf<BODY>::of(s);
   const int *sri = s.sri, *srj = s.srj, *skv = s.skv, *soff = s.soff, *slist = s.slist;
 
   const bool fresh = !CACHE || mode == kFresh || mode == kBuild || mode == kResolveBuild;
@@ -3039,6 +3330,7 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
     stage_hulls(hs, sb, tab, n, tid, T);
     __syncthreads();
   }
+  SS_PHASE(3);
   if (CACHE && !WIN && mode == kResolveBuild) {
     const V3 p0 = ld3(sb, kIPos, 0, n);
     const Q4 q0 = ld4(sb, kIRot, 0, n);
@@ -3080,9 +3372,9 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
       S[q].pos = Bd[q].pos;
       S[q].rot = Bd[q].rot;
       S[q].prev_pos = ld3(sb, kPrevPos, b, n);
-      S[q].im = sb[kIm * n + b];
+      S[q].im = ld1(sb, kIm, b, n);
       S[q].ii = ld3(sb, kIi, b, n);
-      S[q].mu = sb[kMuS * n + b];
+      S[q].mu = ld1(sb, kMuS, b, n);
     }
     Manifold c;
     int npts = 0;
@@ -3123,13 +3415,24 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
       float* st = stash_at<WIN>(s, T, e, &ks);
       stash_store(st, ks, c, lam);
     }
+    if (TWIN && k >= s.kw) {
+      float v[kPackCh];
 #pragma unroll
-    for (int q = 0; q < 9; ++q) {
-      *pack_at<WIN>(s, K, q, k) = pA[q];
-      *pack_at<WIN>(s, K, 9 + q, k) = pB[q];
+      for (int q = 0; q < 9; ++q) {
+        v[q] = pA[q];
+        v[9 + q] = pB[q];
+      }
+      pack_store_pairs<kPackCh / 2>(s, k - s.kw, v);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) {
+        *pack_at<WIN>(s, K, q, k) = pA[q];
+        *pack_at<WIN>(s, K, 9 + q, k) = pB[q];
+      }
     }
   }
   __syncthreads();
+  SS_PHASE(4);
 
   // (5-6) segment sum (A sides, then B sides, ascending slots) and the
   // pose update / velocity recovery
@@ -3139,12 +3442,19 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
     float acc[9];
 #pragma unroll
     for (int q = 0; q < 9; ++q) acc[q] = 0.0f;
-    if (sb[kDyn * n + b] > 0.5f)
+    if (ld1(sb, kDyn, b, n) > 0.5f)
       for (int i = soff[b]; i < soff[b + 1]; ++i) {
         const int ent = WIN ? list_at(s, i) : slist[i];
         const int k = ent >> 1, side = ent & 1;
+        if (TWIN && k >= s.kw) {
+          float v[9];
+          pack_load_pairs<9>(s, k - s.kw, side, v);
 #pragma unroll
-        for (int q = 0; q < 9; ++q) acc[q] = acc[q] + *pack_at<WIN>(s, K, 9 * side + q, k);
+          for (int q = 0; q < 9; ++q) acc[q] = acc[q] + v[q];
+        } else {
+#pragma unroll
+          for (int q = 0; q < 9; ++q) acc[q] = acc[q] + *pack_at<WIN>(s, K, 9 * side + q, k);
+        }
       }
     const V3 pos_i = ld3(sb, kIPos, b, n);
     const Q4 rot_i = ld4(sb, kIRot, b, n);
@@ -3167,6 +3477,7 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
     st3(sb, kW2, b, n, w2);
   }
   __syncthreads();
+  SS_PHASE(5);
 
   // (7-8) per valid slot: re-gather at the post-solve poses, velocity pass
   // (the entries dealt as in the positional loop, so a thread's first is
@@ -3190,9 +3501,9 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
       S[q].w = ld3(sb, kW2, b, n);
       S[q].pv = ld3(sb, kIV, b, n);
       S[q].pw = ld3(sb, kIW, b, n);
-      S[q].im = sb[kIm * n + b];
+      S[q].im = ld1(sb, kIm, b, n);
       S[q].ii = ld3(sb, kIi, b, n);
-      S[q].mu = sb[kMuD * n + b];
+      S[q].mu = ld1(sb, kMuD, b, n);
       S[q].rest = tab.rest(obj_of(sb, b, n));
     }
     Manifold c = own;
@@ -3206,18 +3517,29 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
     }
     float pA[6], pB[6];
     velocity_pass(S[0], S[1], c, lam, h1, rest1, bounce, spec, pA, pB);
+    if (TWIN && k >= s.kw) {
+      float v[12];
 #pragma unroll
-    for (int q = 0; q < 6; ++q) {
-      *pack_at<WIN>(s, K, q, k) = pA[q];
-      *pack_at<WIN>(s, K, 6 + q, k) = pB[q];
+      for (int q = 0; q < 6; ++q) {
+        v[q] = pA[q];
+        v[6 + q] = pB[q];
+      }
+      pack_store_pairs<6>(s, k - s.kw, v);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        *pack_at<WIN>(s, K, q, k) = pA[q];
+        *pack_at<WIN>(s, K, 6 + q, k) = pB[q];
+      }
     }
   }
   __syncthreads();
+  SS_PHASE(6);
 
   // (9) segment sum; dynamic rows take the solve, the others keep their
   // pose and get zero velocity
   for (int b = tid; b < n; b += T) {
-    const bool dyn = sb[kDyn * n + b] > 0.5f;
+    const bool dyn = ld1(sb, kDyn, b, n) > 0.5f;
     float acc[6];
 #pragma unroll
     for (int q = 0; q < 6; ++q) acc[q] = 0.0f;
@@ -3225,8 +3547,15 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
       for (int i = soff[b]; i < soff[b + 1]; ++i) {
         const int ent = WIN ? list_at(s, i) : slist[i];
         const int k = ent >> 1, side = ent & 1;
+        if (TWIN && k >= s.kw) {
+          float v[6];
+          pack_load_pairs<6>(s, k - s.kw, side, v);
 #pragma unroll
-        for (int q = 0; q < 6; ++q) acc[q] = acc[q] + *pack_at<WIN>(s, K, 6 * side + q, k);
+          for (int q = 0; q < 6; ++q) acc[q] = acc[q] + v[q];
+        } else {
+#pragma unroll
+          for (int q = 0; q < 6; ++q) acc[q] = acc[q] + *pack_at<WIN>(s, K, 6 * side + q, k);
+        }
       }
     const V3 v3 = add(ld3(sb, kV2, b, n), mk(acc[0], acc[1], acc[2]));
     const V3 w3 = add(ld3(sb, kW2, b, n), mk(acc[3], acc[4], acc[5]));
@@ -3239,6 +3568,7 @@ __device__ void solve_substep(const Smem& s, const Table& tab, int n, int K, int
     st3(sb, kW, b, n, dyn ? w3 : zero);
   }
   __syncthreads();
+  SS_PHASE(7);
 }
 
 // An asleep world: pose and velocity unchanged, every stash the current state.
@@ -3269,17 +3599,26 @@ __device__ void passthrough(const Args& a, int wld, int n, int tid, int T) {
 // for their general-hull twins, whose staged hull rows (~24 KB at 65 rows of
 // the prism's) leave room for 3; with a manifold cache (33 floats a slot
 // more) shared memory allows 2, and the registers are left free; the
-// windowed specialisations are sized for kWinBlocks.
+// windowed specialisations for 1.
+template <int OPTS>
+constexpr int max_threads() {
+  return (OPTS & kOptWin) != 0 ? kWinThreads : kMaxThreads;
+}
+template <int OPTS>
+__host__ __device__ __forceinline__ int fused_threads(int n, int K) {
+  return (OPTS & kOptWin) != 0 ? win_threads(n, K) : block_threads(n, K);
+}
 template <int OPTS>
 constexpr int min_blocks() {
   return (OPTS & (kOptRefresh | kOptPersist)) != 0 ? 1
-         : (OPTS & kOptWin) != 0                   ? kWinBlocks
+         : (OPTS & kOptWin) != 0                   ? 1
          : (OPTS & kOptHull) != 0                  ? kHullBlocks
                                                    : kMinBlocks;
 }
 
 template <int OPTS>
-__global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep_kernel(Args a) {
+__global__ void __launch_bounds__(max_threads<OPTS>(), min_blocks<OPTS>())
+    fused_substep_kernel(Args a) {
   constexpr bool REFRESH = (OPTS & kOptRefresh) != 0, SLEEP = (OPTS & kOptSleep) != 0;
   constexpr bool BP = (OPTS & kOptBp) != 0, PERSIST = (OPTS & kOptPersist) != 0;
   constexpr bool CACHE = REFRESH || PERSIST, GEN = (OPTS & kOptHull) != 0;
@@ -3303,39 +3642,41 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
       WIN ? carve_fused_window<BODY>(
                 smem, n, K, a.kw, CACHE, T,
                 a.scratch ? a.scratch + static_cast<size_t>(wld) *
-                                            (CACHE ? kWinCacheCh : kScratchCh) * (K - a.kw)
+                                            (CACHE ? kWinCacheCh : kScratchCh) *
+                                            win_pitch(K - a.kw)
                           : nullptr,
                 BODY ? a.bodies + static_cast<size_t>(wld) * a.bstride : nullptr)
           : carve(smem, n, K, BP, CACHE, T);
-  float* sb = s.sb;
+  const typename RowsOf<BODY>::type sb = RowsOf<BODY>::of(s);
   const size_t b0 = static_cast<size_t>(wld) * n;
+  SS_PHASE_START
 
   for (int b = tid; b < n; b += T) {
     const size_t g = b0 + b;
     for (int c = 0; c < 3; ++c) {
-      sb[(kPos + c) * n + b] = a.pos[3 * g + c];
-      sb[(kV + c) * n + b] = a.v[3 * g + c];
-      sb[(kW + c) * n + b] = a.w[3 * g + c];
+      st1(sb, kPos + c, b, n, a.pos[3 * g + c]);
+      st1(sb, kV + c, b, n, a.v[3 * g + c]);
+      st1(sb, kW + c, b, n, a.w[3 * g + c]);
     }
-    for (int c = 0; c < 4; ++c) sb[(kRot + c) * n + b] = a.rot[4 * g + c];
+    for (int c = 0; c < 4; ++c) st1(sb, kRot + c, b, n, a.rot[4 * g + c]);
     const int o = a.obj[g];
     const bool dy = a.dyn[g] != 0;
     if (a.im) {
       // the static columns as given
-      for (int c = 0; c < 3; ++c) sb[(kIi + c) * n + b] = a.ii[3 * g + c];
-      sb[kIm * n + b] = a.im[g];
-      sb[kMuS * n + b] = a.mu_s[g];
-      sb[kMuD * n + b] = a.mu_d[g];
+      for (int c = 0; c < 3; ++c) st1(sb, kIi + c, b, n, a.ii[3 * g + c]);
+      st1(sb, kIm, b, n, a.im[g]);
+      st1(sb, kMuS, b, n, a.mu_s[g]);
+      st1(sb, kMuD, b, n, a.mu_d[g]);
     } else {
       // from the object table at the body's object, mass and inertia zero
       // on non-dynamic rows
-      for (int c = 0; c < 3; ++c) sb[(kIi + c) * n + b] = dy ? a.tab.inv_inertia(o, c) : 0.0f;
-      sb[kIm * n + b] = dy ? a.tab.inv_mass(o) : 0.0f;
-      sb[kMuS * n + b] = a.tab.mu_s(o);
-      sb[kMuD * n + b] = a.tab.mu_d(o);
+      for (int c = 0; c < 3; ++c) st1(sb, kIi + c, b, n, dy ? a.tab.inv_inertia(o, c) : 0.0f);
+      st1(sb, kIm, b, n, dy ? a.tab.inv_mass(o) : 0.0f);
+      st1(sb, kMuS, b, n, a.tab.mu_s(o));
+      st1(sb, kMuD, b, n, a.tab.mu_d(o));
     }
-    sb[kDyn * n + b] = dy ? 1.0f : 0.0f;
-    sb[kObj * n + b] = __int_as_float(o);
+    st1(sb, kDyn, b, n, dy ? 1.0f : 0.0f);
+    st1(sb, kObj, b, n, __int_as_float(o));
     // stashes for a zero-substep call: the current state
     st3(sb, kPrevPos, b, n, ld3(sb, kPos, b, n));
     st4(sb, kPrevRot, b, n, ld4(sb, kRot, b, n));
@@ -3344,6 +3685,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
     st3(sb, kIV, b, n, ld3(sb, kV, b, n));
     st3(sb, kIW, b, n, ld3(sb, kW, b, n));
   }
+  SS_PHASE(0);
   // the candidate slots: kept in the cache, from the broadphase, or given
   const bool keep = PERSIST && a.stable[wld] != 0;
   if (keep) {
@@ -3361,9 +3703,10 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
   // from the caller's rows)
   int kc;
   if constexpr (WIN)
-    kc = finish_slots_win(s, a.tab, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
+    kc = finish_slots_twin<BODY>(s, a.tab, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
   else
     kc = finish_slots(s, a.tab, n, K, tid, T);
+  SS_PHASE(1);
   const float h1 = a.h[wld], rest1 = a.rest_thr[wld];
   const V3 grav = mk(a.gravity[3 * wld], a.gravity[3 * wld + 1], a.gravity[3 * wld + 2]);
 
@@ -3374,12 +3717,12 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
       const Q4 rot = ld4(sb, kRot, b, n);
       st3(sb, kPrevPos, b, n, p);
       st4(sb, kPrevRot, b, n, rot);
-      const float im = sb[kIm * n + b];
+      const float im = ld1(sb, kIm, b, n);
       const V3 ii = ld3(sb, kIi, b, n);
       const size_t g = b0 + b;
       const V3 f = mk(a.ext_f[3 * g], a.ext_f[3 * g + 1], a.ext_f[3 * g + 2]);
       const V3 tq = mk(a.ext_t[3 * g], a.ext_t[3 * g + 1], a.ext_t[3 * g + 2]);
-      const bool live = sb[kDyn * n + b] > 0.5f && im > 0.0f;
+      const bool live = ld1(sb, kDyn, b, n) > 0.5f && im > 0.0f;
       const V3 vn = live ? mk(v.x + h1 * (grav.x + f.x * im), v.y + h1 * (grav.y + f.y * im),
                               v.z + h1 * (grav.z + f.z * im))
                          : v;
@@ -3404,6 +3747,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
       st3(sb, kIW, b, n, wn);
     }
     __syncthreads();
+    SS_PHASE(2);
     // (2-9), the contacts as the options say
     int mode = kFresh;
     if (PERSIST && step == 0)
@@ -3412,26 +3756,26 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
       mode = kBuild;
     else if (REFRESH && step > 0)
       mode = kRefresh;
-    solve_substep<CACHE, WIN, GEN>(s, a.tab, n, K, kc, h1, rest1, a.relax, a.spec, a.bounce != 0,
-                                   mode, tid, T);
+    solve_substep<CACHE, WIN, GEN, BODY, WIN>(s, a.tab, n, K, kc, h1, rest1, a.relax, a.spec,
+                                              a.bounce != 0, mode, tid, T);
   }
 
   for (int b = tid; b < n; b += T) {
     const size_t g = b0 + b;
-    const bool kept_v = a.keep_v && sb[kDyn * n + b] < 0.5f;
+    const bool kept_v = a.keep_v && ld1(sb, kDyn, b, n) < 0.5f;
     for (int c = 0; c < 3; ++c) {
-      a.o_pos[3 * g + c] = sb[(kPos + c) * n + b];
-      a.o_v[3 * g + c] = kept_v ? a.v[3 * g + c] : sb[(kV + c) * n + b];
-      a.o_w[3 * g + c] = kept_v ? a.w[3 * g + c] : sb[(kW + c) * n + b];
-      a.o_prev_pos[3 * g + c] = sb[(kPrevPos + c) * n + b];
-      a.o_ps_pos[3 * g + c] = sb[(kIPos + c) * n + b];
-      a.o_ps_v[3 * g + c] = sb[(kIV + c) * n + b];
-      a.o_ps_w[3 * g + c] = sb[(kIW + c) * n + b];
+      a.o_pos[3 * g + c] = ld1(sb, kPos + c, b, n);
+      a.o_v[3 * g + c] = kept_v ? a.v[3 * g + c] : ld1(sb, kV + c, b, n);
+      a.o_w[3 * g + c] = kept_v ? a.w[3 * g + c] : ld1(sb, kW + c, b, n);
+      a.o_prev_pos[3 * g + c] = ld1(sb, kPrevPos + c, b, n);
+      a.o_ps_pos[3 * g + c] = ld1(sb, kIPos + c, b, n);
+      a.o_ps_v[3 * g + c] = ld1(sb, kIV + c, b, n);
+      a.o_ps_w[3 * g + c] = ld1(sb, kIW + c, b, n);
     }
     for (int c = 0; c < 4; ++c) {
-      a.o_rot[4 * g + c] = sb[(kRot + c) * n + b];
-      a.o_prev_rot[4 * g + c] = sb[(kPrevRot + c) * n + b];
-      a.o_ps_rot[4 * g + c] = sb[(kIRot + c) * n + b];
+      a.o_rot[4 * g + c] = ld1(sb, kRot + c, b, n);
+      a.o_prev_rot[4 * g + c] = ld1(sb, kPrevRot + c, b, n);
+      a.o_ps_rot[4 * g + c] = ld1(sb, kIRot + c, b, n);
     }
   }
   if (PERSIST && !keep) {
@@ -3455,6 +3799,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<OPTS>()) fused_substep
       if (tid == 0) a.o_valid[wld] = s.sworld[kBpDropped] == 0 ? 1 : 0;
     }
   }
+  SS_PHASE(9);
 }
 
 // Row g of a [.., 3] or [.., 4] float column in device memory.
@@ -3624,6 +3969,55 @@ __device__ void joint_terms(const Args1& a, size_t g, const V3 (&x)[2], const Q4
   }
 }
 
+// Kernel 5's twin with the bodies in the scratch: each body's side-1 and
+// side-2 joints in ascending joint order, a stable counting sort of the
+// joints' body rows (s.sjr): the counts by integer atomics; then for each
+// side one warp (warp 0 side 1, warp 1 side 2; one warp both in a block of
+// one) scans the counts into each body's first entry and fills the lists
+// over chunks of 32 joints in order, the lanes of one body ranked by
+// __match_any_sync (as build_lists), which leaves s.je[side n + b] at the
+// end of body b's list of that side (its start is body b - 1's end) and
+// its joints in s.jl[side J + i].  Starts and ends with a barrier.
+__device__ void joint_lists(const Smem& s, int n, int J, int tid, int T) {
+  const unsigned full = 0xffffffffu;
+  for (int b = tid; b < 2 * n; b += T) s.je[b] = 0;
+  __syncthreads();
+  for (int j = tid; j < J; j += T) {
+    const int r1 = s.sjr[j], r2 = s.sjr[J + j];
+    if (r1 >= 0) atomicAdd(&s.je[r1], 1);
+    if (r2 >= 0) atomicAdd(&s.je[n + r2], 1);
+  }
+  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  const unsigned below = (1u << lane) - 1u;
+  if (warp < 2)
+    for (int side = T > 32 ? warp : 0; side < 2 && (T == 32 || side == warp); ++side) {
+      int* e = s.je + side * n;
+      int carry = 0;
+      for (int c0 = 0; c0 < n; c0 += 32) {
+        const int b = c0 + lane;
+        const int v = b < n ? e[b] : 0;
+        const int incl = warp_scan(v, lane, 32);
+        if (b < n) e[b] = carry + incl - v;
+        carry += __shfl_sync(full, incl, 31);
+      }
+      __syncwarp();
+      for (int c0 = 0; c0 < J; c0 += 32) {
+        const int j = c0 + lane;
+        const int row = j < J ? s.sjr[side * J + j] : -1;
+        const bool valid = row >= 0;
+        const unsigned same = __match_any_sync(full, valid ? row : -1 - lane);
+        const int leader = __ffs(same) - 1;
+        const int first = __shfl_sync(full, lane == leader && valid ? e[row] : 0, leader);
+        if (valid) s.jl[side * J + first + __popc(same & below)] = j;
+        __syncwarp();
+        if (valid && lane == leader) e[row] = first + __popc(same);
+        __syncwarp();
+      }
+    }
+  __syncthreads();
+}
+
 // Kernel 5 (JAX _make_kernel): one substep of a world with joints.  FULL:
 // the whole substep node in one launch — the integrate from the state's
 // columns (the per-object constants from the table, masked by dynamic =
@@ -3635,9 +4029,14 @@ __device__ void joint_terms(const Args1& a, size_t g, const V3 (&x)[2], const Q4
 // pose and velocity), with the three stashes out.  Without FULL, steps
 // 2-9 alone from the caller's post-integrate pose and velocities (the JAX
 // kernel's contract).
-// BODY: the bodies in a global scratch (kOptBody).
+// BODY: the bodies in a global scratch (kOptBody), its hottest channels,
+// the lists' offsets and cursors and the joint lists in shared memory where
+// they fit (body_plan), each body's joint sums over its own joints
+// (joint_lists) in the same order.
 template <bool FULL, bool GEN, bool BODY>
-__global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kernel(Args1 a) {
+__global__ void __launch_bounds__(BODY ? kBodyThreads : kSubstepThreads,
+                                  BODY ? 1 : kSubstepBlocks)
+    substep_kernel(Args1 a) {
   extern __shared__ float smem[];
   const int wld = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
   const int n = a.n, K = a.K, J = FULL ? a.J : 0;
@@ -3645,9 +4044,10 @@ __global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kerne
       smem, n, K, J, T,
       a.scratch ? a.scratch + static_cast<size_t>(wld) * kScratchCh * substep_scratch(K) : nullptr,
       BODY ? a.bodies + static_cast<size_t>(wld) * a.bstride : nullptr, BODY && a.jg != 0);
-  float* sb = s.sb;
+  const typename RowsOf<BODY>::type sb = RowsOf<BODY>::of(s);
   const size_t b0 = static_cast<size_t>(wld) * n;
   const float h1 = a.h[wld];
+  SS_PHASE_START
 
   for (int b = tid; b < n; b += T) {
     const size_t g = b0 + b;
@@ -3674,47 +4074,51 @@ __global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kerne
       st3(sb, kIV, b, n, vn);
       st3(sb, kIW, b, n, wn);
       st3(sb, kIi, b, n, ii);
-      sb[kIm * n + b] = im;
-      sb[kMuS * n + b] = a.tab.mu_s(o);
-      sb[kMuD * n + b] = a.tab.mu_d(o);
-      sb[kDyn * n + b] = dy ? 1.0f : 0.0f;
-      sb[kObj * n + b] = __int_as_float(o);
+      st1(sb, kIm, b, n, im);
+      st1(sb, kMuS, b, n, a.tab.mu_s(o));
+      st1(sb, kMuD, b, n, a.tab.mu_d(o));
+      st1(sb, kDyn, b, n, dy ? 1.0f : 0.0f);
+      st1(sb, kObj, b, n, __int_as_float(o));
     } else {
       for (int c = 0; c < 3; ++c) {
         const float p = a.pos[3 * g + c], v = a.v[3 * g + c], w = a.w[3 * g + c];
-        sb[(kPos + c) * n + b] = p;
-        sb[(kIPos + c) * n + b] = p;
-        sb[(kIV + c) * n + b] = v;
-        sb[(kIW + c) * n + b] = w;
-        sb[(kPrevPos + c) * n + b] = a.prev_pos[3 * g + c];
-        sb[(kIi + c) * n + b] = a.ii[3 * g + c];
+        st1(sb, kPos + c, b, n, p);
+        st1(sb, kIPos + c, b, n, p);
+        st1(sb, kIV + c, b, n, v);
+        st1(sb, kIW + c, b, n, w);
+        st1(sb, kPrevPos + c, b, n, a.prev_pos[3 * g + c]);
+        st1(sb, kIi + c, b, n, a.ii[3 * g + c]);
       }
       for (int c = 0; c < 4; ++c) {
-        sb[(kRot + c) * n + b] = a.rot[4 * g + c];
-        sb[(kIRot + c) * n + b] = a.rot[4 * g + c];
-        sb[(kPrevRot + c) * n + b] = a.prev_rot[4 * g + c];
+        st1(sb, kRot + c, b, n, a.rot[4 * g + c]);
+        st1(sb, kIRot + c, b, n, a.rot[4 * g + c]);
+        st1(sb, kPrevRot + c, b, n, a.prev_rot[4 * g + c]);
       }
-      sb[kIm * n + b] = a.im[g];
-      sb[kMuS * n + b] = a.mu_s[g];
-      sb[kMuD * n + b] = a.mu_d[g];
-      sb[kDyn * n + b] = a.dyn[g] ? 1.0f : 0.0f;
-      sb[kObj * n + b] = __int_as_float(a.obj[g]);
+      st1(sb, kIm, b, n, a.im[g]);
+      st1(sb, kMuS, b, n, a.mu_s[g]);
+      st1(sb, kMuD, b, n, a.mu_d[g]);
+      st1(sb, kDyn, b, n, a.dyn[g] ? 1.0f : 0.0f);
+      st1(sb, kObj, b, n, __int_as_float(a.obj[g]));
     }
   }
-  const int kc = finish_slots_win(s, a.tab, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
-  solve_substep<false, true, GEN>(s, a.tab, n, K, kc, h1, a.rest_thr[wld], a.relax, a.spec,
-                             a.bounce != 0, kFresh, tid, T);
+  SS_PHASE(0);
+  const int kc =
+      finish_slots_twin<BODY>(s, a.tab, a.rows_i, a.rows_j, a.kvalid, wld, n, K, tid, T);
+  SS_PHASE(1);
+  solve_substep<false, true, GEN, BODY, BODY>(s, a.tab, n, K, kc, h1, a.rest_thr[wld],
+                                              a.relax, a.spec, a.bounce != 0, kFresh, tid, T);
 
   if (!FULL) {
     for (int b = tid; b < n; b += T) {
       const size_t g = b0 + b;
       for (int c = 0; c < 3; ++c) {
-        a.o_pos[3 * g + c] = sb[(kPos + c) * n + b];
-        a.o_v[3 * g + c] = sb[(kV + c) * n + b];
-        a.o_w[3 * g + c] = sb[(kW + c) * n + b];
+        a.o_pos[3 * g + c] = ld1(sb, kPos + c, b, n);
+        a.o_v[3 * g + c] = ld1(sb, kV + c, b, n);
+        a.o_w[3 * g + c] = ld1(sb, kW + c, b, n);
       }
-      for (int c = 0; c < 4; ++c) a.o_rot[4 * g + c] = sb[(kRot + c) * n + b];
+      for (int c = 0; c < 4; ++c) a.o_rot[4 * g + c] = ld1(sb, kRot + c, b, n);
     }
+    SS_PHASE(9);
     return;
   }
 
@@ -3738,7 +4142,7 @@ __global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kerne
     for (int sd = 0; sd < 2; ++sd) {
       x[sd] = ld3(sb, kPos, rows[sd], n);
       q[sd] = ld4(sb, kRot, rows[sd], n);
-      im[sd] = sb[kIm * n + rows[sd]];
+      im[sd] = ld1(sb, kIm, rows[sd], n);
       ii[sd] = ld3(sb, kIi, rows[sd], n);
     }
     float out[kJointCh];
@@ -3747,6 +4151,10 @@ __global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kerne
     for (int c = 0; c < kJointCh; ++c) s.sjv[c * J + j] = out[c];
   }
   const bool joints = __syncthreads_or(any) != 0;
+  if constexpr (BODY) {
+    if (joints) joint_lists(s, n, J, tid, T);
+  }
+  SS_PHASE(8);
 
   // each body: its joint sums (side 1's over the joints in order, then side
   // 2's), the pose they move it to, and the writeback
@@ -3755,7 +4163,20 @@ __global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kerne
     float acc1[6], acc2[6];
 #pragma unroll
     for (int c = 0; c < 6; ++c) acc1[c] = acc2[c] = 0.0f;
-    if (joints)
+    if constexpr (BODY) {
+      if (joints) {
+        for (int i = b > 0 ? s.je[b - 1] : 0; i < s.je[b]; ++i) {
+          const int j = s.jl[i];
+#pragma unroll
+          for (int c = 0; c < 6; ++c) acc1[c] = acc1[c] + s.sjv[c * J + j];
+        }
+        for (int i = b > 0 ? s.je[n + b - 1] : 0; i < s.je[n + b]; ++i) {
+          const int j = s.jl[J + i];
+#pragma unroll
+          for (int c = 0; c < 6; ++c) acc2[c] = acc2[c] + s.sjv[(6 + c) * J + j];
+        }
+      }
+    } else if (joints) {
       for (int j = 0; j < J; ++j) {
         if (s.sjr[j] == b)
 #pragma unroll
@@ -3764,12 +4185,13 @@ __global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kerne
 #pragma unroll
           for (int c = 0; c < 6; ++c) acc2[c] = acc2[c] + s.sjv[(6 + c) * J + j];
       }
+    }
     const V3 p = ld3(sb, kPos, b, n);
     const Q4 r = ld4(sb, kRot, b, n);
     const V3 pj =
         mk(p.x + (acc1[0] + acc2[0]), p.y + (acc1[1] + acc2[1]), p.z + (acc1[2] + acc2[2]));
     const Q4 rj = rot_delta_t(r, mk(acc1[3] + acc2[3], acc1[4] + acc2[4], acc1[5] + acc2[5]));
-    const bool dy = sb[kDyn * n + b] > 0.5f;
+    const bool dy = ld1(sb, kDyn, b, n) > 0.5f;
     const V3 p0 = ld3(sb, kPrevPos, b, n);
     const Q4 r0 = ld4(sb, kPrevRot, b, n);
     const V3 v = dy ? ld3(sb, kV, b, n) : ldg3(a.v, g);
@@ -3785,6 +4207,7 @@ __global__ void __launch_bounds__(kSubstepThreads, kSubstepBlocks) substep_kerne
     stg3(a.o_ps_v, g, ld3(sb, kIV, b, n));
     stg3(a.o_ps_w, g, ld3(sb, kIW, b, n));
   }
+  SS_PHASE(9);
 }
 
 // Raises a kernel's dynamic shared-memory limit to smem when needed.
@@ -3809,9 +4232,12 @@ template <int OPTS>
 size_t fused_smem(int n, int K, int kw, size_t hull) {
   constexpr bool bp = (OPTS & kOptBp) != 0;
   constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
-  if ((OPTS & kOptBody) != 0) return body_window_smem_bytes(n, kw, block_threads(n, K), cache);
+  if ((OPTS & kOptBody) != 0)
+    return body_plan(body_window_smem_bytes(n, kw, win_threads(n, K), cache), n, 0,
+                     kMaxSmem)
+        .bytes;
   if ((OPTS & kOptWin) != 0)
-    return fused_window_smem_bytes(n, kw, block_threads(n, K), cache) + hull;
+    return fused_window_smem_bytes(n, kw, win_threads(n, K), cache) + hull;
   return smem_bytes(n, K, bp, cache) + hull;
 }
 
@@ -3843,7 +4269,7 @@ cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
     if (smem > kMaxSmem) return cudaErrorInvalidValue;
     const cudaError_t err = allow_smem(fused_substep_kernel<OPTS>, smem);
     if (err != cudaSuccess) return err;
-    fused_substep_kernel<OPTS><<<W, block_threads(a.n, a.K), smem, stream>>>(a);
+    fused_substep_kernel<OPTS><<<W, fused_threads<OPTS>(a.n, a.K), smem, stream>>>(a);
     return cudaGetLastError();
   }
 }
@@ -3856,9 +4282,9 @@ cudaError_t launch_fused(const Args& a, int W, cudaStream_t stream) {
 size_t substep_layout_smem(int n, int K, int J, size_t hull, bool* body, bool* jg) {
   const size_t smem = substep_smem_bytes(n, K, J) + hull;
   *body = smem > kMaxSmem;
-  *jg = *body && substep_body_smem_bytes(n, K, J) > kMaxSmem;
+  *jg = *body && substep_body_fixed_bytes(n, K, J) > kMaxSmem;
   if (!*body) return smem;
-  return substep_body_smem_bytes(n, K, *jg ? 0 : J);
+  return substep_body_smem_bytes(n, K, J, *jg);
 }
 
 template <bool FULL, bool GEN, bool BODY>
@@ -3869,7 +4295,8 @@ cudaError_t launch_substep(const Args1& a, int W, size_t smem, cudaStream_t stre
     if (smem > kMaxSmem || (BODY && !a.bodies)) return cudaErrorInvalidValue;
     const cudaError_t err = allow_smem(substep_kernel<FULL, GEN, BODY>, smem);
     if (err != cudaSuccess) return err;
-    substep_kernel<FULL, GEN, BODY><<<W, substep_threads(a.n, a.K), smem, stream>>>(a);
+    substep_kernel<FULL, GEN, BODY>
+        <<<W, BODY ? substep_body_threads(a.n, a.K) : substep_threads(a.n, a.K), smem, stream>>>(a);
     return cudaGetLastError();
   }
 }
@@ -3884,7 +4311,7 @@ cudaError_t launch_substep_any(Args1 a, int W, cudaStream_t stream) {
   const bool gen = a.tab.h != nullptr;
   a.jg = jg ? 1 : 0;
   a.bstride = body_scratch_floats(
-      a.n, gen ? hull_stride(a.tab.vm, a.tab.em, a.tab.sm, a.tab.fm) : 0, jg ? a.J : 0);
+      a.n, gen ? hull_stride(a.tab.vm, a.tab.em, a.tab.sm, a.tab.fm) : 0, FULL ? a.J : 0, jg);
   if (body)
     return gen ? launch_substep<FULL, true, true>(a, W, smem, stream)
                : launch_substep<FULL, false, true>(a, W, smem, stream);
@@ -3904,7 +4331,7 @@ cudaError_t occupancy_of(Kernel kernel, int threads, size_t smem, int* blocks) {
 // box specialisations).
 template <int OPTS>
 cudaError_t occupancy_fused(int n, int K, int hull_floats, int* threads, int* blocks) {
-  *threads = block_threads(n, K);
+  *threads = fused_threads<OPTS>(n, K);
   if constexpr (!builds((OPTS & kOptHull) != 0)) {
     return cudaErrorInvalidValue;
   } else {
@@ -4239,12 +4666,12 @@ extern "C" int fused_substep_occupancy(int opts, int n, int K, int hull_floats, 
 // layout does not fit).
 extern "C" int substep_occupancy(int n, int K, int J, int full, int hull, int* threads,
                                  int* blocks) {
-  *threads = substep_threads(n, K);
   bool body, jg;
   const size_t smem =
       substep_layout_smem(n, K, full ? J : 0,
                           sizeof(float) * static_cast<size_t>(n) * (hull > 0 ? hull : 0), &body,
                           &jg);
+  *threads = body ? substep_body_threads(n, K) : substep_threads(n, K);
   const int t = *threads;
   cudaError_t err;
   if (full)
@@ -4603,3 +5030,18 @@ extern "C" int substep_node_launch(
   a.bodies = static_cast<float*>(bodies);
   return static_cast<int>(launch_substep_any<true>(a, W, static_cast<cudaStream_t>(stream)));
 }
+
+#ifdef SUBSTEP_PHASES
+// The phase build's cycles by phase, summed over the CTAs of the launches
+// since the last reset (ss_phase_cycles_d, kPhaseSlots of them); reset
+// zeroes them after the read.
+extern "C" int substep_phase_cycles(unsigned long long* out, int reset) {
+  cudaError_t e =
+      cudaMemcpyFromSymbol(out, ss_phase_cycles_d, sizeof(unsigned long long) * kPhaseSlots);
+  if (e == cudaSuccess && reset) {
+    unsigned long long z[kPhaseSlots] = {};
+    e = cudaMemcpyToSymbol(ss_phase_cycles_d, z, sizeof z);
+  }
+  return static_cast<int>(e);
+}
+#endif

@@ -30,6 +30,12 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Builds of a source with extra flags, by name: (the source, its flags).
+# Not among sources(): built only where named (chip_smoke.py and
+# tools/substep_ab.py --phases build the substep kernels with their phase
+# markers, csrc/substep_kernels.cu's SUBSTEP_PHASES).
+VARIANTS = {"substep_phases": ("substep_kernels", ("-DSUBSTEP_PHASES",))}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -58,14 +64,21 @@ def _source_bytes(name: str) -> bytes:
     return src
 
 
+def _source_flags(name: str):
+    """(the source a build of ``name`` compiles, its nvcc flags)."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    return src, NVCC_FLAGS + tuple(extra)
+
+
 def library_path(name: str) -> Path:
-    src = _source_bytes(name)
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src, flags = _source_flags(name)
+    digest = hashlib.sha256(_source_bytes(src) + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def build(names: Iterable[str] = None) -> Dict[str, str]:
-    """Compile the named sources (default: all) that are not built yet, in
+    """Compile the named sources (default: all; a name of VARIANTS builds
+    its source with its flags) that are not built yet, in
     parallel.  Returns {name: the nvcc log of its build} (the saved log
     when it was built before).  Raises if any build fails."""
     names = list(sources() if names is None else names)
@@ -76,7 +89,8 @@ def build(names: Iterable[str] = None) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        src, flags = _source_flags(name)
+        cmd = [nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{src}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -78,16 +78,20 @@ whose slot layout passes one block's shared memory (``windowed``: from 239
 bodies of rigid_bench, 161 with contact refresh) takes each
 specialisation's windowed twin (OPT_WIN, counted as "...win"): a window of
 work entries in shared memory (``fused_window``), the rest in a global
-scratch (``fused_scratch``), bit for bit the slot layout.  Where even that
-layout's smallest window does not fit beside the bodies (from 969 bodies of
-rigid_bench, 895 with contact refresh), and where kernel 5's window layout
+scratch (``fused_scratch``), bit for bit the slot layout, in a block of
+its own (``win_threads``, one CTA an SM).  Where even that layout's
+smallest window does not fit beside the bodies (from 871 bodies of
+rigid_bench, 648 with contact refresh), and where kernel 5's window layout
 passes one block's shared memory (from 816 body rows), the bodies' rows,
 lists' offsets and cursors and staged hull rows move to a second global
 scratch (``body_scratch``; OPT_BODY, counted as "...win+bodies" and in
-``SubstepKernel.body_launches``), bit for bit the same; kernel 5's joint
-rows follow them where they do not fit beside its window either (about
-3,300 joint rows a world: ``substep_joints_in_scratch``, counted in
-``SubstepKernel.joint_scratch_launches``).  On CPU tensors
+``SubstepKernel.body_launches``), bit for bit the same, and the shared
+memory the twin's budget leaves holds the offsets and cursors, kernel 5's
+joint lists and the hottest body channels (``body_plan``); kernel 5's joint
+rows follow the bodies where they do not fit beside its window either
+(about 3,600 joint rows a world: ``substep_joints_in_scratch``, counted in
+``SubstepKernel.joint_scratch_launches``), and that twin sums each body's
+joints over its own per-body lists.  On CPU tensors
 they run ``fused_substep_plain``, ``substep_plain``
 and ``substep_node_plain``, the same loop in batched PyTorch over [W, K]
 pair tensors.  The segment sums add each body's A-side contributions in
@@ -187,11 +191,21 @@ def hull_stage_bytes(tables: pk.ObjTables, n: int) -> int:
 # (smem_bytes with the staged hull rows) passes MAX_SMEM_BYTES keeps kernel
 # 5's window of work entries in shared memory and the rest in a global
 # scratch of SCRATCH_CH channels an entry (WIN_CACHE_CH with the manifold
-# cache).  Its window aims at WIN_BLOCKS CTAs an SM of SM_SMEM_BYTES, each
-# reserving CTA_RESERVED_BYTES (fused_window).
-WIN_BLOCKS = 2
-SM_SMEM_BYTES = 228 * 1024
-CTA_RESERVED_BYTES = 1024
+# cache), its window the most entries one CTA's MAX_SMEM_BYTES holds
+# (fused_window).
+# The twins past one block (kWinThreads, kBodyThreads, kBodyWinEntries in
+# the .cu), one CTA an SM: the windowed twins' threads a CTA at most; kernel
+# 5's bodies-in-scratch twin's threads; the fused bodies-in-scratch twin's
+# window at most.
+WIN_THREADS = 384
+BODY_THREADS = 384
+BODY_WIN_ENTRIES = 512
+
+
+def win_threads(n: int, K: int) -> int:
+    """The windowed twins' block (win_threads in the .cu): one thread a
+    slot and a body, in whole warps, at most WIN_THREADS."""
+    return min(-(-max(n, K) // 32) * 32, WIN_THREADS)
 
 
 def smem_bytes(n: int, K: int, bp: bool = False, cache: bool = False) -> int:
@@ -254,24 +268,21 @@ def fused_window_smem_bytes(n: int, kw: int, T: int, cache: bool = False) -> int
 def fused_window(n: int, K: int, cache: bool = False, hull_bytes: int = 0) -> int:
     """The windowed layout's window for n bodies, K slots and hull_bytes of
     staged hull rows (fused_window in the .cu): the most work entries (at
-    most K) whose layout lets WIN_BLOCKS CTAs share an SM, when that holds
-    the smallest window (min(K, the block's threads)); else the most that
-    one CTA's MAX_SMEM_BYTES holds; 0 when not even the smallest window fits
-    beside the bodies and the hull rows."""
-    T = block_threads(n, K)
+    most K) whose layout fits one CTA's MAX_SMEM_BYTES; 0 when not even the
+    smallest window (min(K, the block's threads)) fits beside the bodies and
+    the hull rows."""
+    T = win_threads(n, K)
     least = min(K, T)
-    for budget in (SM_SMEM_BYTES // WIN_BLOCKS - CTA_RESERVED_BYTES, MAX_SMEM_BYTES):
-        if fused_window_smem_bytes(n, least, T, cache) + hull_bytes > budget:
-            continue
-        lo, hi = least, K
-        while lo < hi:
-            mid = lo + (hi - lo + 1) // 2
-            if fused_window_smem_bytes(n, mid, T, cache) + hull_bytes <= budget:
-                lo = mid
-            else:
-                hi = mid - 1
-        return lo
-    return 0
+    if fused_window_smem_bytes(n, least, T, cache) + hull_bytes > MAX_SMEM_BYTES:
+        return 0
+    lo, hi = least, K
+    while lo < hi:
+        mid = lo + (hi - lo + 1) // 2
+        if fused_window_smem_bytes(n, mid, T, cache) + hull_bytes <= MAX_SMEM_BYTES:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
 
 
 def windowed(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
@@ -287,10 +298,14 @@ def windowed(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
 # kOptBody): kernel 5 where its window layout (substep_smem_bytes with the
 # staged hull rows) passes MAX_SMEM_BYTES, the fused kernel's windowed
 # specialisations where fused_window is 0.  A world's body rows (BODY_CH
-# floats a row), its lists' offsets and cursors (3 n + 1) and its staged hull
-# rows live in its slice of a second global scratch (body_scratch); the rest
-# keeps its layout in shared memory, at the CTAs an SM the kernel's
-# registers allow (the fused kernel's window sized for WIN_BLOCKS).
+# floats a row, every channel's place), its lists' offsets and cursors
+# (3 n + 1), kernel 5's joints' rows where they do not fit beside its window,
+# its joint lists and the staged hull rows live in its slice of a second
+# global scratch (body_scratch).  Shared memory, MAX_SMEM_BYTES at most (one
+# CTA an SM), holds the fixed part (the window, kernel 5's joints, the
+# world ints) and then, each where it still fits (body_plan), the lists'
+# offsets and cursors, kernel 5's joint lists and the hottest body channels
+# (the first ``hot`` of the .cu's body_rank order).
 BODY_CH = 54
 
 
@@ -301,35 +316,78 @@ def body_bytes(n: int) -> int:
     return 4 * BODY_CH * n + 4 * (3 * n + 1)
 
 
-def body_scratch_floats(n: int, tables: pk.ObjTables, joints: int = 0) -> int:
+def body_scratch_floats(n: int, tables: pk.ObjTables, joints: int = 0,
+                        joints_in_scratch: bool = False) -> int:
     """A world's floats of the body scratch (body_scratch_floats in the .cu):
     its body rows, lists' offsets and cursors, the rows of ``joints`` joints
     where they are there too (JOINT_CH floats and 2 ints a joint;
-    substep_joints_in_scratch), and staged hull rows."""
-    return BODY_CH * n + 3 * n + 1 + (JOINT_CH + 2) * joints + n * hull_stage_floats(tables)
+    substep_joints_in_scratch), kernel 5's joint lists (2 n + 2 ``joints``
+    ints where it has joints) and staged hull rows."""
+    return (BODY_CH * n + 3 * n + 1 + ((JOINT_CH + 2) * joints if joints_in_scratch else 0)
+            + (2 * n + 2 * joints if joints > 0 else 0) + n * hull_stage_floats(tables))
 
 
-def substep_body_smem_bytes(n: int, K: int, J: int = 0) -> int:
-    """Kernel 5's shared memory with its bodies in the scratch."""
-    return substep_smem_bytes(n, K, J) - body_bytes(n)
+def substep_body_threads(n: int, K: int) -> int:
+    """Kernel 5's bodies-in-scratch twin's block: one thread a window entry
+    and a body, in whole warps, at most BODY_THREADS."""
+    return min(-(-max(n, substep_window(K)) // 32) * 32, BODY_THREADS)
+
+
+def substep_body_fixed_bytes(n: int, K: int, J: int = 0) -> int:
+    """The fixed part of kernel 5's bodies-in-scratch twin's shared memory
+    with J joints' rows there (substep_body_fixed_bytes in the .cu): its
+    window layout without the bodies at its own block."""
+    kw, T = substep_window(K), substep_body_threads(n, K)
+    floats = 24 * max(kw - T, 0) + 18 * kw + JOINT_CH * J
+    ints = 4 * kw + 8 + 2 * J
+    return 4 * floats + 4 * ints
+
+
+def body_plan(fixed: int, n: int, J: int, budget: int) -> dict:
+    """What a bodies-in-scratch twin's shared memory holds past its fixed
+    part (body_plan in the .cu): the lists' offsets and cursors ("offsets"),
+    kernel 5's joint lists ("joint_lists"), each where it still fits, then
+    the ``hot`` body channels that fit; "bytes" its shared memory."""
+    used = fixed
+    offs = used + 4 * (3 * n + 1) <= budget
+    used += 4 * (3 * n + 1) if offs else 0
+    lists = J > 0 and used + 4 * (2 * n + 2 * J) <= budget
+    used += 4 * (2 * n + 2 * J) if lists else 0
+    hot = min(BODY_CH, max(budget - used, 0) // (4 * n))
+    return {"offsets": offs, "joint_lists": lists, "hot": hot, "bytes": used + 4 * n * hot}
+
+
+def substep_body_plan(n: int, K: int, J: int = 0, jg: bool = False) -> dict:
+    """Kernel 5's bodies-in-scratch twin's body_plan at n bodies, K slots and
+    J joints, their rows in the scratch (jg) or not."""
+    return body_plan(substep_body_fixed_bytes(n, K, 0 if jg else J), n, J, MAX_SMEM_BYTES)
+
+
+def substep_body_smem_bytes(n: int, K: int, J: int = 0, jg: bool = False) -> int:
+    """Kernel 5's shared memory with its bodies in the scratch
+    (substep_body_smem_bytes in the .cu)."""
+    return substep_body_plan(n, K, J, jg)["bytes"]
 
 
 def body_window_smem_bytes(n: int, kw: int, T: int, cache: bool = False) -> int:
-    """The fused kernel's windowed layout's shared memory with its bodies in
-    the scratch, at a window of kw entries."""
+    """The fused kernel's windowed layout's shared memory without its
+    bodies, at a window of kw entries: its bodies-in-scratch twin's fixed
+    part."""
     return fused_window_smem_bytes(n, kw, T, cache) - body_bytes(n)
 
 
 def body_window(n: int, K: int, cache: bool = False) -> int:
     """The fused kernel's window with its bodies in the scratch (body_window
-    in the .cu): the most work entries (at most K) that let WIN_BLOCKS CTAs
-    share an SM."""
-    T = block_threads(n, K)
+    in the .cu): the most work entries (at most K and BODY_WIN_ENTRIES, at
+    least a round of the block) whose fixed part fits MAX_SMEM_BYTES; 0 when
+    not even the least does."""
+    T = win_threads(n, K)
     least = min(K, T)
-    budget = SM_SMEM_BYTES // WIN_BLOCKS - CTA_RESERVED_BYTES
+    most = K if K < BODY_WIN_ENTRIES else max(BODY_WIN_ENTRIES, least)
+    budget = MAX_SMEM_BYTES
     if body_window_smem_bytes(n, least, T, cache) > budget:
         return 0
-    lo, hi = least, K
+    lo, hi = least, most
     while lo < hi:
         mid = lo + (hi - lo + 1) // 2
         if body_window_smem_bytes(n, mid, T, cache) <= budget:
@@ -337,6 +395,13 @@ def body_window(n: int, K: int, cache: bool = False) -> int:
         else:
             hi = mid - 1
     return lo
+
+
+def fused_body_plan(n: int, K: int, cache: bool = False) -> dict:
+    """The fused bodies-in-scratch twin's body_plan at its window."""
+    kw = body_window(n, K, cache)
+    return body_plan(body_window_smem_bytes(n, kw, win_threads(n, K), cache), n, 0,
+                     MAX_SMEM_BYTES)
 
 
 def substep_bodies(tables: pk.ObjTables, n: int, K: int, J: int = 0) -> bool:
@@ -347,11 +412,11 @@ def substep_bodies(tables: pk.ObjTables, n: int, K: int, J: int = 0) -> bool:
 
 def substep_joints_in_scratch(tables: pk.ObjTables, n: int, K: int, J: int) -> bool:
     """Whether kernel 5 keeps these shapes' joint rows in the body scratch
-    too (Args1::jg in the .cu): its bodies are there and the joint rows do
-    not fit beside its window (substep_body_smem_bytes past
-    MAX_SMEM_BYTES, ~3,300 joint rows a world)."""
+    too (Args1::jg in the .cu): its bodies are there and its window with the
+    joint rows does not fit its twin's budget (~3,600 joint rows a world at
+    K > 320)."""
     return (substep_bodies(tables, n, K, J)
-            and substep_body_smem_bytes(n, K, J) > MAX_SMEM_BYTES)
+            and substep_body_fixed_bytes(n, K, J) > MAX_SMEM_BYTES)
 
 
 def substep_layout_smem_bytes(tables: pk.ObjTables, n: int, K: int, J: int = 0) -> int:
@@ -359,8 +424,7 @@ def substep_layout_smem_bytes(tables: pk.ObjTables, n: int, K: int, J: int = 0) 
     (substep_layout_smem in the .cu)."""
     if not substep_bodies(tables, n, K, J):
         return substep_smem_bytes(n, K, J) + hull_stage_bytes(tables, n)
-    return substep_body_smem_bytes(n, K, 0 if substep_joints_in_scratch(tables, n, K, J)
-                                   else J)
+    return substep_body_smem_bytes(n, K, J, substep_joints_in_scratch(tables, n, K, J))
 
 
 def fused_bodies(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
@@ -380,22 +444,31 @@ def fused_layout_window(tables: pk.ObjTables, n: int, K: int, cache: bool = Fals
     return fused_window(n, K, cache, hull_stage_bytes(tables, n))
 
 
-def body_scratch(W: int, n: int, tables: pk.ObjTables, device, joints: int = 0):
+def body_scratch(W: int, n: int, tables: pk.ObjTables, device, joints: int = 0,
+                 joints_in_scratch: bool = False):
     """The body scratch for W worlds of n bodies with ``tables``' staged hull
-    rows (and ``joints`` joints' rows), [W, body_scratch_floats] float32."""
-    return torch.empty((W, body_scratch_floats(n, tables, joints)), dtype=torch.float32,
-                       device=device)
+    rows (and kernel 5's ``joints`` joints' lists, and their rows where
+    ``joints_in_scratch``), [W, body_scratch_floats] float32."""
+    return torch.empty((W, body_scratch_floats(n, tables, joints, joints_in_scratch)),
+                       dtype=torch.float32, device=device)
+
+
+def win_pitch(kg: int) -> int:
+    """The windowed twins' scratch pitch for kg entries past the window
+    (win_pitch in the .cu): rounded up to even, so that each world's slice
+    is 8-byte aligned for the twins' paired pass channels."""
+    return kg + (kg & 1)
 
 
 def fused_scratch(W: int, K: int, kw: int, cache: bool, device):
     """The windowed layout's global scratch for W worlds, K slots and a
     window of kw (fused_window), [W, SCRATCH_CH (WIN_CACHE_CH with the
-    cache), K - kw] float32 (the work entries past the window), or None
-    when K fits the window."""
+    cache), win_pitch(K - kw)] float32 (the work entries past the window),
+    or None when K fits the window."""
     if kw >= K:
         return None
-    return torch.empty((W, WIN_CACHE_CH if cache else SCRATCH_CH, K - kw), dtype=torch.float32,
-                       device=device)
+    return torch.empty((W, WIN_CACHE_CH if cache else SCRATCH_CH, win_pitch(K - kw)),
+                       dtype=torch.float32, device=device)
 
 
 def substep_scratch(W: int, K: int, device):
@@ -880,11 +953,21 @@ def wide_box(tables: pk.ObjTables) -> bool:
     return tables.all_box and tables.Vm > BOX_VERTS
 
 
-def _lib(tables: pk.ObjTables = None):
+# The phases the substep kernels' phase build counts cycles in
+# (csrc/substep_kernels.cu's SS_PHASE markers, in their order).
+PHASES = ("load", "slots", "integrate", "hull_rows", "positional", "positional_sum",
+          "velocity", "velocity_sum", "joint_terms", "writeback")
+
+
+def _lib(tables: pk.ObjTables = None, phases: bool = False):
     """The substep kernels' library: the wide-box build for wide_box
-    ``tables``, else csrc/substep_kernels.cu's."""
+    ``tables``, else csrc/substep_kernels.cu's, its phase build with
+    ``phases`` (phase_cycles)."""
     wide = tables is not None and wide_box(tables)
-    lib = _build.load("substep_wide_box_kernels" if wide else "substep_kernels")
+    if phases and wide:
+        raise ValueError("phase_cycles: the wide-box tables have no phase build")
+    lib = _build.load("substep_wide_box_kernels" if wide
+                      else "substep_phases" if phases else "substep_kernels")
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_substep_launch.argtypes = (
@@ -909,6 +992,30 @@ def _lib(tables: pk.ObjTables = None):
         lib.substep_occupancy.restype = I
         lib._typed = True
     return lib
+
+
+def phase_cycles(fn, ctas: int, launches: int = 5) -> dict:
+    """The substep launches of ``fn(phases=True)`` (fused_substep's or
+    substep_node's ``phases``: the kernels' phase build, its SS_PHASE
+    markers): {phase: clock cycles a CTA, averaged over ``launches`` calls of
+    fn and ``ctas`` CTAs a call}, each phase ended by a barrier of the
+    block.  The phase build's kernels run the same code with those barriers
+    and clock reads between the phases; time the kernels as built, not
+    these."""
+    lib = _lib(phases=True)
+    lib.substep_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.substep_phase_cycles.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * 16)()
+    fn(phases=True)
+    torch.cuda.synchronize()
+    if lib.substep_phase_cycles(buf, 1) != 0:
+        raise RuntimeError("substep_phase_cycles failed")
+    for _ in range(launches):
+        fn(phases=True)
+    torch.cuda.synchronize()
+    if lib.substep_phase_cycles(buf, 1) != 0:
+        raise RuntimeError("substep_phase_cycles failed")
+    return {name: buf[k] / (launches * ctas) for k, name in enumerate(PHASES)}
 
 
 def kernel_fits(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
@@ -1015,7 +1122,8 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
                   speculative: float = 0.0, refresh: bool = False, active=None,
                   bp_degree: int = 0, K: int = 0, scale=None, live=None, dtv=None,
                   persist_margin: float = 0.0, mcache=None, stable=None, aabb_lo=None,
-                  aabb_hi=None, mcache_out=None, anchors=None, keep_velocity: bool = False):
+                  aabb_hi=None, mcache_out=None, anchors=None, keep_velocity: bool = False,
+                  phases: bool = False):
     """All substeps of one physics step.  Body args [W, n(, 3/4)] (dyn
     bool, obj int32; im, ii, mu_s and mu_d may be None: the kernel reads
     them from its object table); pair args rows_i/rows_j [W, K] int32,
@@ -1027,7 +1135,8 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
     tensors: the plain version.  CUDA tensors: the kernel (with
     persistence and sleep, asleep_surface_kernel first), or a raise (bad
     input, tables or shapes the kernel does not take, a failed launch) —
-    never the plain version."""
+    never the plain version.  ``phases``: launch the kernels' phase build
+    (phase_cycles)."""
     bp, persist = bool(bp_degree), persist_margin > 0.0
     if persist and not (bp and refresh):
         raise ValueError("fused_substep: persist_margin needs bp_degree and refresh")
@@ -1111,7 +1220,7 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
                                   outs=outs | extra)
     stream = torch.cuda.current_stream(dev).cuda_stream
     hull = _hull_args(tables, dev)
-    rc = _lib(tables).fused_substep_launch(
+    rc = _lib(tables, phases).fused_substep_launch(
         *(ptr(t) for t in args), table.data_ptr(),
         tables.O, tables.Vm, W, n, K, int(num_substeps), float(relaxation),
         float(speculative), int(tables.any_restitution),
@@ -1382,7 +1491,7 @@ def _check_joints(device, W, joints, jmask, eid):
 def substep_node(pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity,
                  restitution_threshold, rows_i, rows_j, kvalid, *, tables: pk.ObjTables,
                  relaxation: float = 1.0, speculative: float = 0.0, joints, jmask, eid,
-                 arch_index: int, scratch=None):
+                 arch_index: int, scratch=None, phases: bool = False):
     """The kernel-mode substep node of a world with joints in one launch of
     kernel 5: the integrate, steps 2-9, the joint solve and the writeback
     (substep_node_plain, same arguments; ``joints`` the JointConstraint
@@ -1390,7 +1499,7 @@ def substep_node(pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity,
     required).  Returns the dict of NODE_KEYS.  CPU tensors: the plain
     version.  CUDA tensors: the kernel, or a raise (bad input, tables or
     shapes the kernel does not take, a failed launch) — never the plain
-    version."""
+    version.  ``phases``: launch the kernels' phase build (phase_cycles)."""
     args = (pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity, restitution_threshold,
             rows_i, rows_j, kvalid)
     if pos.device.type == "cpu":
@@ -1410,13 +1519,13 @@ def substep_node(pos, rot, v, w, obj, resp, mask, ext_f, ext_t, h, gravity,
                   rows_i=rows_i, rows_j=rows_j, kvalid=kvalid)
     scratch = _scratch_for(scratch, W, K, dev)
     jg = substep_joints_in_scratch(tables, n, K, J)
-    bodies = (body_scratch(W, n, tables, dev, J if jg else 0)
+    bodies = (body_scratch(W, n, tables, dev, J, jg)
               if substep_bodies(tables, n, K, J) else None)
     table = tables.kernel_table(dev)
     outs = {k: torch.empty((W, n, _WIDTH[k]), dtype=torch.float32, device=dev)
             for k in NODE_KEYS}
     hull = _hull_args(tables, dev)
-    rc = _lib(tables).substep_node_launch(
+    rc = _lib(tables, phases).substep_node_launch(
         *(t.data_ptr() for t in args), table.data_ptr(), tables.O, tables.Vm, W, n, K,
         float(relaxation), float(speculative), int(tables.any_restitution), RESPONSE_DYNAMIC, J,
         *(joints[f].data_ptr() for f in JOINT_FIELDS), jmask.data_ptr(), E,
@@ -1498,16 +1607,16 @@ class SubstepKernel:
                     arch_index=int(arch_index))
         return args, opts
 
-    def step(self, **kw):
+    def step(self, phases=False, **kw):
         """One substep node's launch (substep_node) on keyword inputs: the
         body columns pos, rot, v, w, obj, resp, mask, ext_f, ext_t; h,
         gravity, restitution_threshold; the candidate rows rows_i, rows_j,
         kvalid; the joints (the JointConstraint field dict), jmask, the
         entity store eid and the body archetype's arch_index.  Returns the
-        dict of NODE_KEYS."""
+        dict of NODE_KEYS.  ``phases`` as in substep_node."""
         args, opts = self._node_args(**kw)
         if args[0].is_cuda:
-            opts["scratch"] = self.scratch(*args[12].shape, args[0].device)
+            opts.update(scratch=self.scratch(*args[12].shape, args[0].device), phases=phases)
         return substep_node(*args, **opts)
 
     def step_plain(self, observe=None, **kw):
@@ -1553,7 +1662,7 @@ class FusedSubstepKernel:
             raise ValueError("persist_margin requires the in-kernel broadphase (bp_degree) "
                              "and contact_refresh")
 
-    def __call__(self, mcache_out=None, anchors=None, keep_velocity=False, **kw):
+    def __call__(self, mcache_out=None, anchors=None, keep_velocity=False, phases=False, **kw):
         """Body args [W, n(, 3/4)] (im, ii, mu_s and mu_d may be None or
         left out: the object tables' at obj); pair args [W, K]; h and
         restitution_threshold [W]; gravity [W, 3]; active [W] (true or 1 =
@@ -1566,10 +1675,11 @@ class FusedSubstepKernel:
         columns: pos, rot, v, w and the last substep's stashes prev_pos,
         prev_rot, ps_pos, ps_rot, ps_v, ps_w; with bp_degree also
         aabb_lo/hi, rows_i/j [W, K] int32, kvalid [W, K] bool, bp_count
-        and bp_dropped [W] int32; with persist_margin also "mcache"."""
+        and bp_dropped [W] int32; with persist_margin also "mcache".
+        ``phases`` as in fused_substep."""
         args, opts = self._arguments(**kw)
         return fused_substep(*args, **opts, mcache_out=mcache_out, anchors=anchors,
-                             keep_velocity=keep_velocity)
+                             keep_velocity=keep_velocity, phases=phases)
 
     def plain(self, observe=None, mcache_out=None, anchors=None, keep_velocity=False, **kw):
         """The plain version on the same inputs, on their own device (how

@@ -36,7 +36,9 @@ prints one JSON line, from simple_jobs at 1024 worlds x 100 bodies, K =
              (every output tensor's bytes, in order), and of the rounds
              layout's call at main_simple_jobs_large's shape ("large":
              1024 worlds x 2048 objects, K = 32768, D = 32, the model's
-             initial state; its ms under "ms" too), or "refused" where ROOT's
+             initial state; "large_after_33_steps": its state after 33
+             steps, where rows sum 110-190 pushes; their ms under "ms"
+             too), or "refused" where ROOT's
              kernel does not take that shape: two checkouts whose kernels
              give the same outputs bit for bit print the same digests
   node       the fused_step node on main_simple_jobs' state: device ms (20
@@ -344,14 +346,16 @@ def one(root, with_phases):
         states[name]["translation"], states[name]["rotation"], **kw))
         for name in ("main", "initial")}
     if sk.fused_fits(LARGE_OBJECTS):
-        big = sj.make_executor(sj.SimpleJobsConfig(
+        bsim = sj.make_executor(sj.SimpleJobsConfig(
             fused=True, **dict(cfg, num_objects=LARGE_OBJECTS, max_pairs=LARGE_K)),
-            device="cuda").state["user"]
-        bp, br = big["translation"], big["rotation"]
+            device="cuda")
         bkw = dict(kw, n0=LARGE_OBJECTS, K=LARGE_K)
-        ms["large"] = cuda_ms(torch, lambda: sk.fused_simple_jobs_step(bp, br, **bkw), 20)
-        digests["large"] = digest(sk.fused_simple_jobs_step(bp, br, **bkw))
-        del big, bp, br
+        for name, steps in (("large", 0), ("large_after_33_steps", 33)):
+            bsim.run(steps)
+            bp, br = bsim.state["user"]["translation"], bsim.state["user"]["rotation"]
+            ms[name] = cuda_ms(torch, lambda: sk.fused_simple_jobs_step(bp, br, **bkw), 20)
+            digests[name] = digest(sk.fused_simple_jobs_step(bp, br, **bkw))
+        del bsim, bp, br
     else:
         ms["large"] = digests["large"] = "refused"
     res["digests"] = digests

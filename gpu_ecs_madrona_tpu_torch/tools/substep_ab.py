@@ -5,6 +5,7 @@ in turns: an A/B of a change against its parent.
     python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py ROOT [ROOT ...]
     python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --phases ROOT
     python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --stg ROOT [ROOT ...]
+    python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --large [--phases] ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository; each runs in a
 process of its own (so that two versions of the package never meet), in
@@ -92,6 +93,19 @@ prints one JSON line:
              substeps, with every slot cleared (the integrate and the body
              phases), with only the slots of one contact kind valid; row
              8's with 0 substeps (its broadphase and the loads and stores)
+  large      (--large, the only case) the four launches past one block at
+             chip_smoke.py's states: kernel 5's node launch on the chains'
+             world (1024 x 1,089 rows, K = 2,048, 4,096 joint rows, the
+             joint rows in the body scratch: joint_rows_node_J4096) and on
+             simple_taskgraph at 1,000 objects (1024 x 1,004 rows, K =
+             10,000, 64 joint rows: stg_large_node), each after 3 steps;
+             the fused kernel's "win" at main_rigid_sap_large's state (8192
+             x 256 rows, K = 1,020, after 103 steps: window_n256_K1020) and
+             "win+bodies" at main_rigid_sap_xlarge's (8192 x 1,024 rows, K =
+             4,092, after 3 steps: bodies_n1024_K4092): each launch's ms,
+             digest and launch shape (threads, CTAs an SM); with --phases
+             and where ROOT has the phase build (ops/substep_kernel.py
+             phase_cycles), its cycles a CTA by phase
 
 The script needs a CUDA card; without one it exits 1 and prints nothing.
 """
@@ -421,7 +435,63 @@ def shapes_case(torch, root, ms, res, timed, kw256):
     timed(name, lambda: ckern.step(**ckw))
 
 
-def one(root, phases, stg_only):
+def large_case(torch, root, phases):
+    """The large case (see the module doc): {launch: its line}."""
+    from gpu_ecs_madrona_tpu_torch import physics as phys
+    from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
+    from gpu_ecs_madrona_tpu_torch.models import simple_taskgraph as stg
+    from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
+    RS = phys.RigidBodyPhysicsSystem
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import test_torch_joint_scenes as js
+    out = {}
+
+    def record(name, fn, W, shape):
+        # fn(**p): the launch (p: the phase build's keyword, where ROOT takes it)
+        line = {"ms": cuda_ms(torch, fn, 10 if W > STG_WORLDS else 20), "digest": digest(fn()),
+                "shape": shape}
+        if phases and hasattr(sk, "phase_cycles"):
+            line["phase_cycles"] = sk.phase_cycles(fn, W)
+        out[name] = line
+
+    def node(sim, body, objmgr, name):
+        kern = RS.substep_kernel(sim)
+        kw = RS.next_step_kernel_inputs(sim, body, objmgr, node=True)
+        n, K, J = kw["obj"].shape[1], kw["rows_i"].shape[1], kw["jmask"].shape[1]
+        record(name, lambda **p: kern.step(**kw, **p), kw["obj"].shape[0],
+               {"n": n, "K": K, "J": J, "valid_slots_max": int(kw["kvalid"].sum(1).max()),
+                "occupancy": sk.occupancy(n, K, single=True, joints=J)})
+
+    csim = js.chain_world("pallas", num_worlds=STG_WORLDS, device="cuda", num_chains=68,
+                          max_candidates=2048)
+    csim.run(3)
+    node(csim, csim.world_cls.Body, None, "joint_rows_node_J4096")
+    del csim
+    ssim = stg.make_executor(stg.SimpleTaskgraphConfig(num_worlds=STG_WORLDS,
+                                                       num_objects=1000), device="cuda")
+    ssim.run(3)
+    node(ssim, stg.Sphere, stg.OBJMGR, "stg_large_node")
+    del ssim
+    for name, bodies, steps, cfg, code in (
+            ("window_n256_K1020", 255, 103, dict(contact_mode="pallas"), sk.OPT_WIN),
+            ("bodies_n1024_K4092", 1023, 3, dict(contact_mode="auto", broadphase_mode="auto"),
+             sk.OPT_WIN | sk.OPT_BODY)):
+        sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=bodies,
+                                                   **cfg), device="cuda")
+        sim.run(steps)
+        kern = RS.fused_kernel(sim)
+        kw = RS.next_step_kernel_inputs(sim, rb.Body, rb.RigidBenchWorld.objmgr)
+        n, K = kw["obj"].shape[1], kw["rows_i"].shape[1]
+        record(name, lambda **p: kern(**kw, **p), RB_WORLDS,
+               {"n": n, "K": K, "valid_slots_max": int(kw["kvalid"].sum(1).max()),
+                "window": sk.fused_layout_window(kern.tables, n, K),
+                "occupancy": sk.occupancy(n, K, codes=(code,))})
+        del sim, kw
+        torch.cuda.empty_cache()
+    return out
+
+
+def one(root, phases, stg_only, large=False):
     import ctypes
 
     import torch
@@ -435,8 +505,10 @@ def one(root, phases, stg_only):
         raise RuntimeError(f"{port.__file__} is not under {root}")
     torch.cuda.set_device(0)
     # the substep sources (where ROOT has it, the wide-box build too) at once
+    extra = ["substep_phases"] if phases and "substep_phases" in getattr(
+        _build, "VARIANTS", {}) else []
     log = _build.build([name for name in _build.sources()
-                        if name.startswith("substep")])["substep_kernels"]
+                        if name.startswith("substep")] + extra)["substep_kernels"]
     ptxas, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry" in ln:
@@ -463,6 +535,11 @@ def one(root, phases, stg_only):
         from gpu_ecs_madrona_tpu_torch.physics import assets
         from gpu_ecs_madrona_tpu_torch.utils import importer
         floats = sk.hull_stage_floats(sk.pk.ObjTables(hs.hull_object_manager(assets, importer)))
+    if large:
+        print(json.dumps({"root": root, "card": torch.cuda.get_device_name(0),
+                          "ptxas": ptxas, "large": large_case(torch, root, phases)}),
+              flush=True)
+        return
     res = {"root": root, "card": torch.cuda.get_device_name(0), "ptxas": ptxas,
            "occupancy": {"K256": occupancy(ctypes, lib, 65, 256, floats),
                          "K128": occupancy(ctypes, lib, 65, 128, floats)}}
@@ -567,9 +644,9 @@ def one(root, phases, stg_only):
 
 
 def main(argv):
-    phases, stg_only = "--phases" in argv, "--stg" in argv
+    phases, stg_only, large = "--phases" in argv, "--stg" in argv, "--large" in argv
     if "--one" in argv:
-        one(argv[argv.index("--one") + 1], phases, stg_only)
+        one(argv[argv.index("--one") + 1], phases, stg_only, large)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -585,7 +662,8 @@ def main(argv):
     for root in roots:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
                         os.path.abspath(root)] + (["--phases"] if phases else [])
-                       + (["--stg"] if stg_only else []), check=True)
+                       + (["--stg"] if stg_only else []) + (["--large"] if large else []),
+                       check=True)
     return 0
 
 

@@ -1661,7 +1661,8 @@ def test_fused_substep_windowed_matches_plain_bit_for_bit(card, pile, option):
     past one block's shared memory (its "...win" launch: the window in
     shared memory, the rest in a global scratch) against the plain version,
     bit for bit; two launches bit-identical; the valid slots pass the
-    window."""
+    window wherever it is below K (at 239 and 255 boxes without the cache
+    it holds every slot)."""
     sim, kw = window_pile(pile, card)
     refresh, sleep = WINDOW_OPTIONS[option]
     kern = subk.FusedSubstepKernel(sim.world_cls.objmgr, 4, relaxation=0.7,
@@ -1671,7 +1672,9 @@ def test_fused_substep_windowed_matches_plain_bit_for_bit(card, pile, option):
     assert subk.windowed(kern.tables, n, K, cache=refresh) and subk.kernel_fits(
         kern.tables, n, K, cache=refresh) == ""
     window = subk.fused_window(n, K, refresh, subk.hull_stage_bytes(kern.tables, n))
-    assert int(kw["kvalid"].sum(1).max()) > window
+    assert window == K or int(kw["kvalid"].sum(1).max()) > window
+    if pile == "boxes_511" or WINDOW_PILES[pile][1] or refresh:
+        assert window < K
     if sleep:
         kw = dict(kw, active=torch.arange(W, device=card) % 3 != 1)
     subk.FusedSubstepKernel.launches_by_options.clear()
@@ -1687,13 +1690,17 @@ def test_fused_substep_windowed_matches_plain_bit_for_bit(card, pile, option):
 
 @pytest.mark.cuda
 def test_fused_substep_past_the_window_budget_is_refused(card):
-    """The windowed layout's ceiling (rigid_bench at 968 bodies, n = 969),
-    and one body past it (969 bodies, n = 970), which its window budget
-    refused: the ceiling's shape launches the windowed twin, the next the
-    twin with the bodies in a global scratch ("win+bodies"), both bit for
-    bit the plain version."""
+    """The windowed layout's ceiling (the most rigid_bench bodies whose
+    smallest window, a round of the twin's block, fits beside them), and one
+    body past it, which a window budget once refused: the ceiling's shape
+    launches the windowed twin, the next the twin with the bodies in a
+    global scratch ("win+bodies"), both bit for bit the plain version."""
     kern = subk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
-    for bodies, name in ((968, "win"), (969, "win+bodies")):
+    ceiling = 200
+    while subk.fused_window(ceiling + 2, 4 * (ceiling + 1)) > 0:
+        ceiling += 1
+    assert 700 < ceiling < 969
+    for bodies, name in ((ceiling, "win"), (ceiling + 1, "win+bodies")):
         sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=2, num_bodies=bodies,
                                                    contact_mode="pallas"), device=card)
         kw = fused_inputs(sim)
@@ -1843,6 +1850,52 @@ def test_fused_simple_jobs_step_past_one_block_matches_plain(card, n0):
         assert (want[5] > kw["K"]).all()        # slots cut
 
 
+# kernel 4's stepped translation against the push in float64: chip_smoke.py's
+# SJL_F64_ATOL (about twice the plain version's distance on an H100)
+SJ_STEPPED_F64_ATOL = 1.5e-4
+
+
+def sj_push_f64(pos, rot, bounds):
+    """The fused step's translation evaluated in float64 (the plain
+    version's formula on the float32 AABBs' overlaps)."""
+    p = sk.clamp_to_bounds(pos, bounds)
+    lo, hi = sk.aabb_plain(p, rot)
+    ok = sk.overlap_grid(lo, hi)
+    p64 = p.double()
+    pc = p64 - p64.mean(dim=1, keepdim=True)
+    diff = pc[:, None, :, :] - pc[:, :, None, :]
+    d2 = (diff * diff).sum(-1)
+    m = torch.where(ok & (d2 > 1e-12), torch.rsqrt(d2.clamp(min=1e-30)), 0.0)
+    return p64 - 2.0 * (m[..., None] * diff).sum(dim=2)
+
+
+@pytest.mark.cuda
+def test_fused_simple_jobs_stepped_translation_near_float64(card):
+    """Kernel 4's rounds layout at simple_jobs' 2,048 objects after 3 steps
+    of the executor (8 worlds, K = 32,768, D = 32: bodies pressed against
+    the bounds, rows summing ~110-190 pushes to |sum| ~180), which sums a
+    row's pushes in a fixed tree: the translation within
+    SJ_STEPPED_F64_ATOL of the push in float64, the integers and normals as
+    its plain version's, a repeated launch bit-identical."""
+    sim = sj.make_executor(sj.SimpleJobsConfig(num_worlds=8, num_objects=2048,
+                                               max_pairs=32768, degree_cap=32), device=card)
+    sim.run(3)
+    user = sim.state["user"]
+    pos, rot = user["translation"], user["rotation"]
+    kw = dict(n0=2048, K=32768, degree_cap=32, bounds=(sj.BOUNDS_LO, sj.BOUNDS_HI))
+    got, again = (sk.fused_simple_jobs_step(pos, rot, **kw) for _ in range(2))
+    want = sk.fused_simple_jobs_step_plain(pos, rot, **kw)
+    exact = sj_push_f64(pos, rot, kw["bounds"])
+    torch.cuda.synchronize()
+    for g, g2 in zip(got, again):
+        assert torch.equal(g.view(torch.int32), g2.view(torch.int32))
+    err = float((got[0].double() - exact).abs().max())
+    assert err <= SJ_STEPPED_F64_ATOL, err
+    for name, i in (("lo", 1), ("hi", 2), ("ab", 3), ("counts", 5), ("dropped", 6)):
+        assert torch.equal(got[i], want[i]), name
+    torch.testing.assert_close(got[4], want[4], atol=1e-5, rtol=0)
+
+
 def chain_node_case(dev, W=4):
     """(SubstepKernel, node inputs) of the chains' world (4,096 joint rows,
     60 live Fixed and Hinge joints a world) two steps in: kernel 5 with its
@@ -1879,6 +1932,35 @@ def test_substep_node_joint_rows_in_scratch_matches_plain_bit_for_bit(card):
         got_kw.update({k: got[k] for k in subk.SUBSTEP_KEYS})
         want_kw.update({k: want[k] for k in subk.SUBSTEP_KEYS})
     assert subk.SubstepKernel.launches == subk.SubstepKernel.joint_scratch_launches == 5
+
+
+@pytest.mark.cuda
+def test_substep_node_joint_lists_in_scratch_matches_plain_bit_for_bit(card):
+    """Kernel 5's bodies-in-scratch twin with 32,768 joint rows: the joint
+    rows and the per-body joint lists past its shared memory (both in the
+    body scratch), every body channel in shared memory; two successive
+    launches bit for bit as many of its plain version, a repeat
+    bit-identical."""
+    sim = chain_world("pallas", num_worlds=2, device=card, max_joints=32768)
+    sim.run(2)
+    kern = RigidBodyPhysicsSystem.substep_kernel(sim)
+    kw = RigidBodyPhysicsSystem.next_step_kernel_inputs(sim, sim.world_cls.Body, None,
+                                                        node=True)
+    n, K, J = kw["obj"].shape[1], kw["rows_i"].shape[1], kw["jmask"].shape[1]
+    assert J == 32768 and subk.substep_joints_in_scratch(kern.tables, n, K, J)
+    plan = subk.substep_body_plan(n, K, J, True)
+    assert not plan["joint_lists"] and plan["hot"] == subk.BODY_CH
+    again = kern.step(**kw)
+    got_kw, want_kw = dict(kw), dict(kw)
+    for t in range(2):
+        got, want = kern.step(**got_kw), kern.step_plain(**want_kw)
+        torch.cuda.synchronize()
+        for k in subk.NODE_KEYS:
+            assert torch.equal(got[k], want[k]), (t, k, float((got[k] - want[k]).abs().max()))
+            if t == 0:
+                assert torch.equal(got[k], again[k]), k
+        got_kw.update({k: got[k] for k in subk.SUBSTEP_KEYS})
+        want_kw.update({k: want[k] for k in subk.SUBSTEP_KEYS})
 
 
 WIDE_BOX_CASES = ["none", *sorted(OPTION_CASES)]

@@ -202,76 +202,83 @@ def test_window_smem_mirror_equals_the_cu_layout(n, kw, T, cache):
 
 
 def test_window_limits_match_the_cu():
-    """The windowed layout's option bit, its CTAs an SM, an SM's shared
-    memory and a block's reservation, and its scratch channels (kernel 5's
-    an entry, and the manifold cache's after them)."""
+    """The windowed layout's option bit, its budget (one CTA's kMaxSmem: one
+    CTA of up to WIN_THREADS a world, one an SM), and its scratch channels
+    (kernel 5's an entry, and the manifold cache's after them)."""
     c = cu_constants()
     assert sk.OPT_WIN == c["kOptWin"]
-    assert sk.WIN_BLOCKS == c["kWinBlocks"] == 2
-    assert sk.SM_SMEM_BYTES == c["kSmSmem"] == 228 * 1024
-    assert sk.CTA_RESERVED_BYTES == c["kCtaReserved"]
+    fn = CU[CU.index("int fused_window(int n, int K, bool cache, size_t hull) {"):]
+    fn = fn[:fn.index("\n}\n")]
+    assert fn.count("kMaxSmem") == 2 and "budget" not in fn
+    assert sk.MAX_SMEM_BYTES == c["kMaxSmem"]
     assert sk.WIN_CACHE_CH == c["kWinCacheCh"] == c["kScratchCh"] + c["kCacheCh"]
 
 
 # rigid_bench piles past one block's shared memory, K = 4 x bodies: (bodies,
-# the manifold cache, the window that lets two CTAs share an SM or the most
-# one CTA holds)
-WINDOW_SHAPES = {"boxes_239": (239, False, 398), "boxes_255": (255, False, 378),
-                 "boxes_511": (511, False, 695), "refresh_200": (200, True, 259),
-                 "refresh_255": (255, True, 220)}
+# the manifold cache, the window: the most entries one CTA's 227 KB holds,
+# every slot at 239 and 255 bodies without the cache)
+WINDOW_SHAPES = {"boxes_239": (239, False, 956), "boxes_255": (255, False, 1020),
+                 "boxes_511": (511, False, 829), "refresh_200": (200, True, 707),
+                 "refresh_255": (255, True, 667)}
 
 
 @pytest.mark.parametrize("case", sorted(WINDOW_SHAPES))
 def test_kernel_fits_takes_the_piles_past_one_block(case):
     """kernel_fits takes rigid_bench at 239, 255 and 511 bodies (and 200
     and 255 with contact refresh) in the windowed layout: its window and
-    scratch as stated, within the CTAs an SM it aims at (228 KB an SM, 1 KB
-    a block reserved), or one CTA's 227 KB where the bodies leave no room
-    for two."""
+    scratch as stated, the most entries one CTA of the twin's block holds
+    (one CTA an SM: 228 KB an SM, 1 KB a block reserved, at most 227 KB),
+    the scratch only where the window is below K."""
     bodies, cache, window = WINDOW_SHAPES[case]
     tables = sk.pk.ObjTables(rb.default_object_manager())
     n, K = bodies + 1, 4 * bodies
     assert sk.smem_bytes(n, K, cache=cache) > sk.MAX_SMEM_BYTES
     assert sk.windowed(tables, n, K, cache=cache) and sk.kernel_fits(tables, n, K,
                                                                      cache=cache) == ""
-    assert sk.fused_window(n, K, cache) == window < K
-    need = sk.fused_window_smem_bytes(n, window, sk.block_threads(n, K), cache)
-    ctas = 1 if bodies == 511 else 2
-    assert ctas * (need + 1024) <= 228 * 1024 and need <= sk.MAX_SMEM_BYTES
-    assert sk.fused_window_smem_bytes(n, window + 1, sk.block_threads(n, K), cache) > (
-        228 * 1024 // ctas - 1024 if ctas == 2 else sk.MAX_SMEM_BYTES)
-    scratch = sk.fused_scratch(3, K, window, cache, "cpu")
+    assert sk.fused_window(n, K, cache) == window <= K
+    T = sk.win_threads(n, K)
+    assert T == sk.WIN_THREADS == 384
+    need = sk.fused_window_smem_bytes(n, window, T, cache)
+    assert need + 1024 <= 228 * 1024 and need <= sk.MAX_SMEM_BYTES
+    assert window == K or sk.fused_window_smem_bytes(n, window + 1, T, cache) > (
+        sk.MAX_SMEM_BYTES)
     assert sk.fused_scratch(3, K, K, cache, "cpu") is None
-    assert tuple(scratch.shape) == (3, sk.WIN_CACHE_CH if cache else sk.SCRATCH_CH, K - window)
+    if window < K:
+        scratch = sk.fused_scratch(3, K, window, cache, "cpu")
+        assert tuple(scratch.shape) == (3, sk.WIN_CACHE_CH if cache else sk.SCRATCH_CH,
+                                        sk.win_pitch(K - window))
+        assert sk.win_pitch(K - window) % 2 == 0 and 0 <= sk.win_pitch(K - window) - (
+            K - window) <= 1
     # the broadphase inside the kernel does not take the window
     assert not sk.windowed(tables, 128, K, bp=True, cache=cache)
 
 
-@pytest.mark.parametrize("cache,ceiling", [(False, 968), (True, 894)])
+@pytest.mark.parametrize("cache,ceiling", [(False, 870), (True, 647)])
 def test_windowed_body_ceiling_is_refused_by_name(cache, ceiling):
     """The windowed layout's ceiling: the bodies whose rows leave room for
-    its smallest window (a round of the block's 128 threads) beside them.
-    Up to it the shapes keep the windowed layout; one body more, which it
-    refused by its window budget's name, and 1,023 bodies (1,024 rows) now
-    take the bodies in the scratch, with a window that lets WIN_BLOCKS CTAs
-    share an SM."""
+    its smallest window (a round of the block's 384 threads) beside them.
+    Up to it the shapes keep the windowed layout; one body more, which a
+    window budget once refused by name, and 1,023 bodies (1,024 rows) take
+    the bodies in the scratch, with a window of at most BODY_WIN_ENTRIES
+    that fits one CTA's MAX_SMEM_BYTES."""
     tables = sk.pk.ObjTables(rb.default_object_manager())
     n, K = ceiling + 1, 4 * ceiling
     assert sk.kernel_fits(tables, n, K, cache=cache) == ""
     assert sk.windowed(tables, n, K, cache=cache) and not sk.fused_bodies(tables, n, K,
                                                                           cache=cache)
-    assert sk.fused_layout_window(tables, n, K, cache) == sk.fused_window(n, K, cache) >= 128
+    assert sk.fused_layout_window(tables, n, K, cache) == sk.fused_window(n, K, cache) >= 384
     for bodies in (ceiling + 1, 1023):
         n, K = bodies + 1, 4 * bodies
         assert sk.fused_window(n, K, cache) == 0
         assert sk.kernel_fits(tables, n, K, cache=cache) == ""
         assert sk.fused_bodies(tables, n, K, cache=cache)
         kw = sk.fused_layout_window(tables, n, K, cache)
-        assert kw == sk.body_window(n, K, cache) > 128
-        T = sk.block_threads(n, K)
-        budget = 228 * 1024 // sk.WIN_BLOCKS - 1024
+        assert kw == sk.body_window(n, K, cache) > 384
+        T = sk.win_threads(n, K)
+        budget = sk.MAX_SMEM_BYTES
         assert sk.body_window_smem_bytes(n, kw, T, cache) <= budget
-        assert sk.body_window_smem_bytes(n, kw + 1, T, cache) > budget
+        assert kw == sk.BODY_WIN_ENTRIES or sk.body_window_smem_bytes(n, kw + 1, T,
+                                                                       cache) > budget
 
 
 def cu_return_expr(name):
@@ -292,10 +299,9 @@ def test_body_scratch_mirror_equals_the_cu(which, n):
     c = cu_constants()
     tables = (sk.pk.ObjTables(rb.default_object_manager()) if which == "boxes"
               else hull_tables(which))
-    env = dict(c, nn=n, hull_stride=sk.hull_stage_floats(tables))
+    env = dict(c, nn=n, jj=0, J=0, jg=False, hull_stride=sk.hull_stage_floats(tables))
     assert sk.body_bytes(n) == eval(cu_return_expr("body_bytes"), {}, env)
-    assert sk.body_scratch_floats(n, tables) == eval(cu_return_expr("body_scratch_floats"), {},
-                                                     env)
+    assert sk.body_scratch_floats(n, tables) == eval(cu_body_scratch_expr(), {}, env)
     scratch = sk.body_scratch(3, n, tables, "cpu")
     assert scratch.dtype == sk.torch.float32
     assert tuple(scratch.shape) == (3, sk.body_scratch_floats(n, tables))
@@ -303,8 +309,7 @@ def test_body_scratch_mirror_equals_the_cu(which, n):
 
 def test_body_layout_limits_match_the_cu():
     """The bodies-in-scratch option bit, its body channels, and the budget
-    its window is sized for: WIN_BLOCKS CTAs an SM, each the SM's 228 KB
-    shared less the 1 KB a block reserves."""
+    its window is sized for: one CTA's 227 KB."""
     c = cu_constants()
     assert sk.OPT_BODY == c["kOptBody"] == 64
     assert sk.BODY_CH == c["kBodyCh"]
@@ -312,7 +317,7 @@ def test_body_layout_limits_match_the_cu():
         "refresh+win+bodies+hull")
     body = CU[CU.index(" body_window("):]
     budget = re.search(r"const size_t budget = (.*?);", body[:body.index("\n}\n")]).group(1)
-    assert eval(budget.replace("/", "//"), {}, c) == 228 * 1024 // 2 - 1024
+    assert budget == "kMaxSmem" and "body_budget" not in CU
 
 
 # kernel 5's shapes about its window layout's ceiling: (rows, K, joints,
@@ -327,15 +332,18 @@ def test_kernel5_takes_the_bodies_in_scratch_past_its_window_layout(n, K, J, bod
     with simple_taskgraph's 64 joint rows, 815 without joints) and takes
     the bodies in the scratch past it: simple_taskgraph at 1,000 objects
     (1,004 rows, K = 10,000) among them, whose shared memory is then the
-    window and the joints, ~50 KB."""
+    window, the joints, the lists' offsets and cursors, the joint lists and
+    the hottest body channels (body_plan), within the twin's budget of one
+    CTA an SM."""
     tables = sk.pk.ObjTables(stg.OBJMGR)
     assert sk.kernel_fits(tables, n, K, single=True, joints=J) == ""
     assert sk.substep_bodies(tables, n, K, J) == bodies
     assert (sk.substep_smem_bytes(n, K, J) > sk.MAX_SMEM_BYTES) == bodies
-    need = sk.substep_body_smem_bytes(n, K, J)
-    assert need == sk.substep_smem_bytes(n, K, J) - sk.body_bytes(n)
     if bodies:
-        assert need < 52 * 1024
+        plan = sk.substep_body_plan(n, K, J)
+        assert sk.substep_layout_smem_bytes(tables, n, K, J) == plan["bytes"] <= (
+            sk.MAX_SMEM_BYTES)
+        assert plan["offsets"] and plan["joint_lists"] == (J > 0) and plan["hot"] >= 30
     # the general-hull tables' staged rows move with the bodies: the
     # 24-sided prism's at these rows take the scratch too
     large = hull_tables("large")
@@ -344,27 +352,31 @@ def test_kernel5_takes_the_bodies_in_scratch_past_its_window_layout(n, K, J, bod
 
 
 def test_kernel5_refuses_only_joints_past_one_block():
-    """With the bodies in the scratch, kernel 5's shared memory is its window
-    and its joints (12 floats and 2 ints each).  Where the joints' rows pass
-    227 KB beside the window (J + 1 below; ~3,300 a world), they move to the
-    body scratch too, and kernel 5 refuses no joint count: 4,096 joint rows
-    (main_joint_rows_large's) and 20,000 fit, in ~50 KB of shared memory."""
+    """With the bodies in the scratch, kernel 5's shared memory holds its
+    window and its joints (12 floats and 2 ints each) first.  Where the
+    joints' rows pass the twin's budget beside the window (J + 1 below;
+    ~3,600 a world), they move to the body scratch too, and kernel 5 refuses
+    no joint count: 4,096 joint rows (main_joint_rows_large's), 20,000 and
+    30,000 fit, the joint lists in shared memory while they fit (20,000
+    joints), else in the scratch too (30,000)."""
     tables = sk.pk.ObjTables(stg.OBJMGR)
+    budget = sk.MAX_SMEM_BYTES
     J = 1
-    while sk.substep_body_smem_bytes(1004, 10000, J + 1) <= sk.MAX_SMEM_BYTES:
+    while sk.substep_body_fixed_bytes(1004, 10000, J + 1) <= budget:
         J += 1
-    assert 3000 < J < 3600
+    assert 3000 < J < 4000
     assert sk.kernel_fits(tables, 1004, 10000, single=True, joints=J) == ""
     assert not sk.substep_joints_in_scratch(tables, 1004, 10000, J)
     assert sk.substep_layout_smem_bytes(tables, 1004, 10000, J) == sk.substep_body_smem_bytes(
-        1004, 10000, J)
-    for joints in (J + 1, 4096, 20000):
+        1004, 10000, J) <= budget
+    for joints, lists in ((J + 1, True), (4096, True), (20000, True), (30000, False)):
         assert sk.kernel_fits(tables, 1004, 10000, single=True, joints=joints) == ""
         assert sk.substep_joints_in_scratch(tables, 1004, 10000, joints)
         smem = sk.substep_layout_smem_bytes(tables, 1004, 10000, joints)
-        assert smem == sk.substep_body_smem_bytes(1004, 10000, 0) < 52 * 1024
-        assert sk.body_scratch_floats(1004, tables, joints) == (
-            sk.body_scratch_floats(1004, tables) + (sk.JOINT_CH + 2) * joints)
+        assert smem == sk.substep_body_smem_bytes(1004, 10000, joints, True) <= budget
+        assert sk.substep_body_plan(1004, 10000, joints, True)["joint_lists"] == lists
+        assert sk.body_scratch_floats(1004, tables, joints, True) == (
+            sk.body_scratch_floats(1004, tables) + (sk.JOINT_CH + 2 + 2) * joints + 2 * 1004)
     # a few bodies with 4,096 joint rows: the joints alone pass one block,
     # so the bodies go to the scratch with them
     assert sk.substep_bodies(tables, 64, 256, 4096)
@@ -372,25 +384,36 @@ def test_kernel5_refuses_only_joints_past_one_block():
     assert not sk.substep_bodies(tables, 64, 256, 64)
 
 
-def test_body_scratch_mirror_equals_the_cu():
-    """body_scratch_floats with the joints' rows, as the .cu computes it."""
-    c = cu_constants()
+def cu_body_scratch_expr():
+    """The .cu's body_scratch_floats return expression, in Python."""
     body = CU[CU.index("size_t body_scratch_floats("):]
-    ret = re.search(r"return (.*?);", body, re.S).group(1)
-    ret = " ".join(ret.split()).replace("static_cast<size_t>", "")
-    for n, hs, jg in ((1004, 0, 0), (1004, 0, 4096), (64, 30, 4096), (7, 5, 3)):
-        want = eval(ret, {}, dict(c, nn=n, hull_stride=hs, jg=jg))
-        tables = sk.pk.ObjTables(stg.OBJMGR)
-        assert sk.body_scratch_floats(n, tables, jg) + n * hs == want
+    ret = " ".join(re.search(r"return (.*?);", body, re.S).group(1).split())
+    ret = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1", ret)
+    return re.sub(r"\((\w+(?: > 0)?) \? (.+?) : 0\)", r"((\2) if \1 else 0)", ret)
+
+
+def test_body_scratch_mirror_equals_the_cu():
+    """body_scratch_floats with kernel 5's joint lists and, where they are
+    in the scratch too, the joints' rows, as the .cu computes it."""
+    c = cu_constants()
+    expr = cu_body_scratch_expr()
+    tables = sk.pk.ObjTables(stg.OBJMGR)
+    for n, hs, J, jg in ((1004, 0, 0, False), (1004, 0, 64, False), (1004, 0, 4096, True),
+                         (64, 30, 4096, True), (7, 5, 3, False)):
+        want = eval(expr, {}, dict(c, nn=n, jj=J, J=J, hull_stride=hs, jg=jg))
+        assert sk.body_scratch_floats(n, tables, J, jg) + n * hs == want
+    assert sk.body_scratch_floats(1004, tables, 4096, True) == (
+        sk.body_scratch_floats(1004, tables) + (sk.JOINT_CH + 2) * 4096 + 2 * 1004 + 2 * 4096)
 
 
 @pytest.mark.parametrize("bodies,cache,fits_one_block",
-                         [(370, False, True), (371, False, False), (512, False, False),
-                          (341, True, True), (342, True, False)])
+                         [(332, False, True), (333, False, False), (512, False, False),
+                          (247, True, True), (248, True, False)])
 def test_prism_pile_ceiling_takes_the_bodies_in_scratch(bodies, cache, fits_one_block):
     """The imported-prism pile: its windowed layout, hull rows staged beside
-    the bodies, fits up to 370 bodies (341 with contact refresh); past that
-    the bodies and the hull rows go to the scratch."""
+    the bodies and a window of at least the block's 384 threads, fits up to
+    332 bodies (247 with contact refresh); past that the bodies and the hull
+    rows go to the scratch."""
     tables = hull_tables("prism")
     n, K = bodies + 1, 4 * bodies
     assert sk.windowed(tables, n, K, cache=cache)
@@ -436,3 +459,112 @@ def test_wide_box_library_follows_the_source_it_includes(tmp_path, monkeypatch):
     (tmp_path / "substep_kernels.cu").write_text(CU + "\n// changed\n")
     for name in names:
         assert _build.library_path(name) != before[name], name
+
+
+# -- the twins past one block, redesigned (the hot body ranks in shared
+# memory, kernel 5's joint lists, the twins' own blocks) ------------------
+
+
+def cu_body_rank():
+    """The .cu's body_rank as a Python function of a channel."""
+    body = CU[CU.index("constexpr int body_rank(int ch) {"):]
+    expr = " ".join(re.search(r"return (.*?);", body[:body.index("\n}\n")], re.S)
+                    .group(1).split())
+    expr = re.sub(r"//[^:?]*", "", expr)
+    parts = [p.strip() for p in expr.split(" : ")]
+    c = cu_constants()
+
+    def rank(ch):
+        env = dict(c, ch=ch)
+        for part in parts[:-1]:
+            cond, value = part.split(" ? ")
+            if eval(cond.replace("&&", "and"), {}, env):
+                return eval(value, {}, env)
+        return eval(parts[-1], {}, env)
+    return rank
+
+
+def test_body_ranks_are_a_permutation_grouped_by_vector():
+    """body_rank orders the 54 body channels, each once, the pass gathers
+    first (object, post-integrate pose, inverse mass and inertia, substep
+    start, friction, post-positional-solve pose and velocities), and keeps
+    each vector's components on consecutive ranks."""
+    c, rank = cu_constants(), cu_body_rank()
+    ranks = [rank(ch) for ch in range(c["kBodyCh"])]
+    assert sorted(ranks) == list(range(c["kBodyCh"]))
+    assert rank(c["kObj"]) == 0
+    for first, width in (("kPos", 3), ("kRot", 4), ("kV", 3), ("kW", 3), ("kPrevPos", 3),
+                         ("kPrevRot", 4), ("kIPos", 3), ("kIRot", 4), ("kIV", 3), ("kIW", 3),
+                         ("kP2", 3), ("kR2", 4), ("kV2", 3), ("kW2", 3), ("kIi", 3)):
+        r0 = rank(c[first])
+        assert [rank(c[first] + i) for i in range(width)] == list(range(r0, r0 + width)), first
+    gathered = ["kIPos", "kIRot", "kIm", "kIi", "kPrevPos", "kMuS", "kMuD", "kObj"]
+    assert max(rank(c[k]) for k in gathered) < min(rank(c[k]) for k in ("kP2", "kV", "kPos"))
+
+
+def test_twin_geometry_matches_the_cu():
+    c = cu_constants()
+    assert sk.WIN_THREADS == c["kWinThreads"]
+    assert sk.BODY_THREADS == c["kBodyThreads"]
+    assert sk.BODY_WIN_ENTRIES == c["kBodyWinEntries"]
+    pitch = re.search(r"int win_pitch\(int kg\) \{ return (.*?); \}", CU).group(1)
+    for kg in (0, 1, 2, 3, 641, 3580):
+        assert sk.win_pitch(kg) == eval(pitch.replace("&", "&"), {}, {"kg": kg})
+    for n, K in ((256, 1020), (9, 5), (1024, 4092), (40, 100)):
+        assert sk.win_threads(n, K) == min(-(-max(n, K) // 32) * 32, c["kWinThreads"])
+        assert sk.substep_body_threads(n, K) == min(-(-max(n, min(K, c["kWindow"])) // 32) * 32,
+                                                    c["kBodyThreads"])
+
+
+def cu_substep_body_fixed_bytes(n, K, js):
+    """The .cu's substep_body_fixed_bytes evaluated in Python."""
+    body = CU[CU.index("size_t substep_body_fixed_bytes("):]
+    body = body[:body.index("\n}\n")]
+    c = cu_constants()
+    env = dict(c, ww=min(K, c["kWindow"]), jj=js, tt=sk.substep_body_threads(n, K))
+    env["ks"] = max(env["ww"] - env["tt"], 0)
+    counts = {var: eval(" ".join(re.search(rf"const size_t {var} = (.*?);", body, re.S)
+                                 .group(1).split()), {}, env) for var in ("floats", "ints")}
+    return 4 * counts["floats"] + 4 * counts["ints"]
+
+
+@pytest.mark.parametrize("n,K,J", [(816, 1000, 0), (1004, 10000, 64), (1089, 2048, 4096),
+                                   (65, 256, 4096), (8, 8, 20000)])
+def test_kernel5_body_fixed_part_mirror_equals_the_cu(n, K, J):
+    for js in (0, J):
+        assert sk.substep_body_fixed_bytes(n, K, js) == cu_substep_body_fixed_bytes(n, K, js)
+
+
+# (n, K, J, the joints' rows in the scratch, kernel 5) and (n, K, the cache,
+# fused): the twins' shapes on the main paths and the card tests'
+PLAN_SHAPES = [(1004, 10000, 64, False, True), (1089, 2048, 4096, True, True),
+               (816, 3260, 0, False, True), (65, 256, 4096, True, True),
+               (65, 256, 16384, True, True), (20001, 256, 0, False, True),
+               (1024, 4092, 0, False, False), (970, 3876, 0, True, False),
+               (372, 1484, 0, False, False)]
+
+
+@pytest.mark.parametrize("n,K,J,flag,kernel5", PLAN_SHAPES)
+def test_body_plan_fills_the_budget_in_order(n, K, J, flag, kernel5):
+    """The twins' shared memory past their fixed part: the lists' offsets
+    and cursors, then kernel 5's joint lists, each where it still fits, then
+    as many body ranks as fit; within the twin's budget, and the next rank
+    past it (or all 54 in)."""
+    if kernel5:
+        plan, budget = sk.substep_body_plan(n, K, J, flag), sk.MAX_SMEM_BYTES
+        fixed = sk.substep_body_fixed_bytes(n, K, 0 if flag else J)
+        assert flag == (sk.substep_body_fixed_bytes(n, K, J) > budget)
+    else:
+        plan, budget = sk.fused_body_plan(n, K, flag), sk.MAX_SMEM_BYTES
+        kw = sk.body_window(n, K, flag)
+        assert min(K, sk.win_threads(n, K)) <= kw <= max(sk.BODY_WIN_ENTRIES,
+                                                         sk.win_threads(n, K))
+        fixed = sk.body_window_smem_bytes(n, kw, sk.win_threads(n, K), flag)
+    offs, lists = 4 * (3 * n + 1), 4 * (2 * n + 2 * J) if J else 0
+    assert plan["offsets"] == (fixed + offs <= budget)
+    used = fixed + (offs if plan["offsets"] else 0)
+    assert plan["joint_lists"] == (J > 0 and used + lists <= budget)
+    used += lists if plan["joint_lists"] else 0
+    assert plan["bytes"] == used + 4 * n * plan["hot"] <= budget
+    assert plan["hot"] == sk.BODY_CH or plan["bytes"] + 4 * n > budget
+
