@@ -2591,7 +2591,7 @@ def blocked_render_cases(torch, rkm, scenes, dev, W=8, res=32):
                                                             other[1].view(torch.int32)),
               f"blocked views vs {what}")
     out["views_4096"] = {"W": W, "H": H, "Wpx": Wpx, "N": insts[0].shape[1],
-                         "blocks": rkm.stage_blocks(insts[0].shape[1], views=True),
+                         "stages_at_most": rkm.stage_blocks(insts[0].shape[1], True, H, Wpx),
                          "hits": int(torch.isfinite(got[1]).sum()),
                          "max_err": max_err(got[1][torch.isfinite(got[1])],
                                             plain[1][torch.isfinite(got[1])])}
@@ -2652,8 +2652,9 @@ def main_render_large(torch, rkm, render_mod, card, reset_counts, read_counts):
     both = torch.isfinite(depth[:P8])
     line = {"phase": "main_render_large", "worlds": W, "views": V, "resolution": res,
             "instance_rows": N, "backend": "auto -> kernel (views mode, blocked)",
-            "blocks_a_cta": rkm.stage_blocks(N, views=True), "block": rkm.BLOCK,
-            "smem_bytes": rkm.smem_bytes(N, views=True),
+            "stages_at_most": rkm.stage_blocks(N, True, H, Wpx),
+            "stage": rkm.views_stage(H, Wpx), "ctas_an_image": rkm.views_splits(H, Wpx),
+            "smem_bytes": rkm.smem_bytes(N, True, H, Wpx),
             "single_stage_would_need_bytes": N * rkm.STAGE_VIEWS,
             "launches": launches, "hit_share": float(hit.double().mean()),
             "vs_plain": {"worlds": P8, "rgba8_and_depth": "bit-identical",
@@ -4505,9 +4506,9 @@ def main(argv):
         "plain_ms_is": f"its plain version at {P8} of the {lW} worlds",
         "bound_ms": lv_bound, "bound_by": lv_by, "ops": lv_ops, "bytes": lv_bytes,
         "pairs_meeting_bounds": l_pairs, "live_rays": l_rays,
-        "ctas_per_sm": rkm.occupancy(lN, views=True), "blocks_a_cta": rkm.stage_blocks(
-            lN, views=True),
-        "splits": rkm.launch_splits(lW * lV, -(-lWpx // rkm.TILE_W) * -(-lH // rkm.TILE_H)),
+        "ctas_per_sm": rkm.occupancy(lN, True, lH, lWpx),
+        "stages_at_most": rkm.stage_blocks(lN, True, lH, lWpx),
+        "splits": rkm.views_splits(lH, lWpx),
         "rays_mode": {"ms": cuda_ms(torch, lambda: rkm.render(lrays, lpacked, img_w=lWpx,
                                                                **lrkw), 20),
                       "bound_ms": lr_bound, "bound_by": lr_by,
@@ -4604,6 +4605,11 @@ def main(argv):
          "plain_ms": sjl_t["plain_ms"], "plain_ms_is": sjl_t["plain_ms_is"],
          "bound_ms": sjl_t["bound_ms"], "bound_by": sjl_t["bound_by"], "library_ms": None,
          "ms_is": "main_simple_jobs_large's launch (1024 x 2048, K = 32768, D = 32)",
+         "design": "32 warps a world, rows a block of 256 at a time; each "
+                   "unordered chunk pair tested once in float32 into exact words (the block's "
+                   "in shared memory, the lower triangle's quarters in a scratch), a warp a "
+                   "row for the push (lanes a chunk, the push tree by a butterfly) and for "
+                   "its slots (contiguous ab and normals stores)",
          "shape": sjl_t["shape"]},
         {"name": "fused_substep", "route": "cuda", "source": csrc + "substep_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1257 (chunked :1241)",
@@ -4729,7 +4735,12 @@ def main(argv):
         {"name": "render_blocked", "route": "cuda", "source": csrc + "render_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/render_kernel.py:501 (its loop over a world "
                      "tile's instances, :448-454) past one block's shared memory",
-         "specialisation": "views mode, blocked", "launches": render_large_launches,
+         "specialisation": "render_views_blocked_kernel (views mode past one block)",
+         "design": "views_splits CTAs an image, each culling the world "
+                   "against the view's cone into stages of survivors in index order, the "
+                   "hits carried in shared memory; hulls and meshes tested only where a "
+                   "pixel ray of the tile meets their widened bounding sphere",
+         "launches": render_large_launches,
          "launches_per_step": 1, "max_abs_err": max(err_render_large, err_render),
          "ms": render_large_t["ms"], "plain_ms": render_large_t["plain_ms"],
          "plain_ms_is": render_large_t["plain_ms_is"], "bound_ms": render_large_t["bound_ms"],

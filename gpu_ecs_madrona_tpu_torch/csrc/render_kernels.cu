@@ -68,21 +68,42 @@
 //   shared-memory reads are broadcasts.  Strict < keeps the first instance
 //   in index order on a tie of t.
 //
-//   Past one block's shared memory (BLOCKED: a world's instances at
-//   kStageViews or kStageRays bytes each pass kMaxSmem, above 2,421 in the
-//   views mode and 1,614 in the rays mode, where JAX's kernel holds a world
-//   tile's instances in VMEM and loops over them in groups) the CTA stages
-//   kBlock instances at a time, in index order, and traces every one of its
-//   tiles against each block in turn.  Between the blocks a pixel's nearest
-//   hit so far waits in its own outputs (views: its depth and its RGBA8
-//   word, the winner's index; rays: depth and hit), written and read by the
-//   lane that owns the pixel, so no register or shared memory is held across
-//   blocks whatever the image size, and the scratch costs 8 bytes a pixel a
-//   block.  A later block's instance wins only with a strictly smaller t, so
-//   ties keep the first instance in index order, as one pass does; the last
-//   block shades the winner, a winner from an earlier block from its rows
-//   read again, its normal made as its trace made it.  Images whose
-//   instances fit keep the single-stage specialisations as compiled before.
+//   Past one block's shared memory (a world's instances at kStageViews or
+//   kStageRays bytes each pass kMaxSmem: above 2,421 in the views mode and
+//   1,614 in the rays mode, where JAX's kernel holds a world tile's
+//   instances in VMEM and loops over them in groups):
+//     rays   (render_kernel<false, true>, BLOCKED) the CTA stages kBlock
+//            instances at a time, in index order, and traces every one of
+//            its tiles against each block in turn; between the blocks a
+//            pixel's nearest hit so far (t and the winner's index) waits in
+//            its own outputs (depth and hit), written and read by the lane
+//            that owns the pixel.
+//     views  (render_views_blocked_kernel, the twin designed for the card)
+//            views_splits CTAs an image (blockIdx.y; 2 of 8 warps at 64 x
+//            64), each filling a stage of survivors: the instances from a
+//            cursor on, culled against the view's cone (the single-stage
+//            kernel's staging cull), compacted in index order until the
+//            stage holds views_stage(H, Wpx) of them (960 at 64 x 64); the
+//            view's survivors, not its instances, are what is blocked, so a
+//            view whose survivors fit one stage has no block loop.  Every warp
+//            then traces its tiles (split kVWarps + warp, then every
+//            splits kVWarps) against the stage; each pixel's nearest hit so
+//            far waits from stage to stage in shared memory, 8 bytes a
+//            pixel of the CTA's tiles (in the image's outputs past
+//            kCarryMax).  Hulls and meshes are tested only where some pixel
+//            ray of the tile passes within their bounding sphere widened by
+//            1% plus 0.01 (kRayRel, kRayAbs) and could still beat that
+//            pixel's nearest hit (every hit lies past |eye - pos| - R):
+//            like the cull, this decides which instances are tested, never
+//            a result.  (PERF.md: the blocked twin before this one spent a
+//            third of a warp's cycles in its staging and was bound by the
+//            trace's issue all the same: a fill alone takes 0.10 ms here.)
+//   A later block's or stage's instance wins only with a strictly smaller
+//   t, so ties keep the first instance in index order, as one pass does;
+//   the last block or stage shades the winner, a winner from an earlier one
+//   from its rows read again, its normal made as its trace made it.  Images
+//   whose instances fit keep the single-stage specialisations as compiled
+//   before.
 //
 //   The cull widens each bounding sphere by 0.1% plus 1e-3 so that
 //   rounding in the cone test cannot drop an instance a ray hits: the cull
@@ -98,6 +119,17 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Phase markers: empty in the kernel as built; tools/render_ab.py --phases
+// defines them to add up each warp's clock64() cycles by phase (no barrier:
+// a phase's cycles include the waits on loads an earlier phase issued).
+// RK_PHASES: setup stage_loads cone_cull stage_compact tile_setup carried_load
+// RK_PHASES: tile_cull trace carried_store shade block_sync
+#ifndef RK_PHASE
+#define RK_PHASE_START
+#define RK_PHASE(k)
+#define RK_PHASE_END
+#endif
 
 namespace {
 
@@ -126,6 +158,24 @@ constexpr int kStageRays = 4 * 16 + kWarps * 20, kStageViews = 6 * 16;
 // kBlock instances staged at a time, each with its index (an int more).
 constexpr int kBlock = 512;
 constexpr size_t kMaxSmem = 232448;
+// The views mode's blocked twin (render_views_blocked_kernel): kVSplits
+// CTAs an image (at most one a kVWarps tiles), each of kVWarps warps,
+// kVCtas CTAs an SM; a CTA's shared memory holds a stage of survivors
+// (kVEntry bytes each: six float4s and the index) and each of its pixels'
+// carried hit where they fit kCarryMax (t and the winner's index, 8 bytes
+// a pixel).
+constexpr int kVSplits = 2;
+// the blocked twin's pixel-ray cull of hulls and meshes: the bounding sphere
+// widened by 1% plus 0.01, far past the rounding of its test
+constexpr float kRayRel = 1e-2f, kRayAbs = 1e-2f;
+constexpr int kVWarps = 8;
+constexpr int kVThreads = 32 * kVWarps;
+constexpr int kVCtas = 2;
+constexpr int kVEntry = 6 * 16 + 4;
+constexpr int kCarryMax = 65536;
+// a CTA's dynamic shared memory at most: an SM's 228 KB shared by kVCtas
+// CTAs, 1 KB reserved a CTA and 1 KB left for its static arrays
+constexpr int kVSmem = (kVCtas == 1 ? static_cast<int>(kMaxSmem) : 233472 / kVCtas - 1024) - 1024;
 
 struct V3 {
   float x, y, z;
@@ -376,11 +426,12 @@ __device__ __forceinline__ void earlier_winner(const Args& a, bool views, int w,
   }
 }
 
-// BLOCKED: the world's instances staged kBlock (a.B) at a time, in index
-// order; between the blocks each pixel's nearest hit so far (its t and the
-// winner's index) waits in the pixel's own outputs (views: depth and the
-// RGBA8 word; rays: depth and hit), and the last block shades it.  Else
-// every instance at once (a.N).
+// BLOCKED (launched in the rays mode only; the views mode past one block is
+// render_views_blocked_kernel): the world's instances staged kBlock (a.B)
+// at a time, in index order; between the blocks each pixel's nearest hit so
+// far (its t and the winner's index) waits in the pixel's own outputs
+// (depth and hit), and the last block shades it.  Else every instance at
+// once (a.N).
 template <bool VIEWS, bool BLOCKED>
 __global__ void __launch_bounds__(kThreads) render_kernel(const Args a) {
   extern __shared__ float4 smem[];
@@ -400,6 +451,7 @@ __global__ void __launch_bounds__(kThreads) render_kernel(const Args a) {
       VIEWS ? reinterpret_cast<float*>(s_alb + 3 * C)
             : reinterpret_cast<float*>(s_alb + C + kWarps * C) + kWarps * C);
   __shared__ int s_count[kWarps];
+  RK_PHASE_START
 
   const int w = VIEWS ? blockIdx.x / a.V : blockIdx.x;
   const int v = VIEWS ? blockIdx.x % a.V : 0;
@@ -445,6 +497,7 @@ __global__ void __launch_bounds__(kThreads) render_kernel(const Args a) {
     if (!(cos_v > 0.0f)) cos_v = -1.0f;   // wider than a half-space (or NaN): keep all
     sin_v = sqrtf(fmaxf(1.0f - cos_v * cos_v, 0.0f));
   }
+  RK_PHASE(0);
 
   // one pass: stage the instances [i0, i1) (all of them unless BLOCKED),
   // then trace every tile of the CTA against them
@@ -481,6 +534,7 @@ __global__ void __launch_bounds__(kThreads) render_kernel(const Args a) {
       const int prim = static_cast<int>(__ldg(tb + kPrim));
       const float radius = __ldg(tb + kRadius);
       const float rbs = __ldg(tb + kRBound) * fmaxf(fmaxf(s.x, s.y), s.z);
+      RK_PHASE(1);
       float4 sph = make_float4(0.0f, 0.0f, 0.0f, 0.0f), cone = sph;
       float sin_b = 0.0f;
       if (VIEWS && keep) {
@@ -493,6 +547,7 @@ __global__ void __launch_bounds__(kThreads) render_kernel(const Args a) {
         const float rad = radius * s.x;
         sph = make_float4(oc.x, oc.y, oc.z, dot(oc, oc) - rad * rad);
       }
+      RK_PHASE(2);
       const unsigned ballot = __ballot_sync(0xffffffffu, keep);
       if (lane == 0) s_count[warp] = __popc(ballot);
       __syncthreads();
@@ -517,6 +572,7 @@ __global__ void __launch_bounds__(kThreads) render_kernel(const Args a) {
       }
       M += chunk;
       __syncthreads();
+      RK_PHASE(3);
     }
 
     V3 apex = {0.0f, 0.0f, 0.0f};   // rays mode: the apex of s_apex (none yet)
@@ -606,11 +662,13 @@ __global__ void __launch_bounds__(kThreads) render_kernel(const Args a) {
       const size_t o_px = VIEWS ? img + static_cast<size_t>(row) * a.Wpx + col
                                 : static_cast<size_t>(w) * 5 * a.P + p;
       int best_gid = -1;
+      RK_PHASE(4);
       if (BLOCKED && i0 > 0 && valid) {
         best_t = VIEWS ? a.depth[o_px] : a.out[o_px + 4 * static_cast<size_t>(a.P)];
         best_gid = VIEWS ? static_cast<int>(a.rgba[o_px])
                          : __float_as_int(a.out[o_px + 3 * static_cast<size_t>(a.P)]);
       }
+      RK_PHASE(5);
       for (int base = 0; count > 0.0f && base < M; base += 32) {
         const int i = base + lane;
         bool keep = false;
@@ -637,6 +695,7 @@ __global__ void __launch_bounds__(kThreads) render_kernel(const Args a) {
             VIEWS ? __ballot_sync(0xffffffffu, i < M && (__float_as_int(s_alb[i].w) &
                                                          (kCodeMesh | 3)) == kSphere)
                   : 0u;
+        RK_PHASE(6);
         if (pad) continue;
         // the sphere test with the view's terms staged (oc = eye - pos, c =
         // |oc|^2 - r^2): trace's sphere branch, value for value; its normal
@@ -688,6 +747,7 @@ __global__ void __launch_bounds__(kThreads) render_kernel(const Args a) {
             best_sphere = false;
           }
         }
+        RK_PHASE(7);
       }
       if (BLOCKED && i1 < N) {
         // not the last block: the nearest hit so far waits in the outputs
@@ -701,6 +761,7 @@ __global__ void __launch_bounds__(kThreads) render_kernel(const Args a) {
             a.out[o_px + 3 * static_cast<size_t>(a.P)] = __int_as_float(best_gid);
           }
         }
+        RK_PHASE(8);
         continue;
       }
       if (best_k >= 0) {
@@ -738,16 +799,341 @@ __global__ void __launch_bounds__(kThreads) render_kernel(const Args a) {
           o[4 * a.P] = hit ? best_t : kBig;
         }
       }
+      RK_PHASE(9);
     }
   };
   if (BLOCKED) {
     for (int i0 = 0; i0 < N; i0 += C) {
       pass(i0, min(N, i0 + C));
       __syncthreads();   // the next block's staging overwrites this one's
+      RK_PHASE(10);
     }
   } else {
     pass(0, N);
   }
+  RK_PHASE_END
+}
+
+// The views mode's blocked twin's layout for an H x Wpx image: its CTAs an
+// image; a CTA's carried hits' bytes in shared memory (8 a pixel of its
+// tiles; 0: they wait in the image's outputs); the survivors a stage
+// holds; and the dynamic shared memory.
+__host__ __device__ inline int views_splits(int H, int Wpx) {
+  const int tiles = ((Wpx + kTileW - 1) / kTileW) * ((H + kTileH - 1) / kTileH);
+  const int most = (tiles + kVWarps - 1) / kVWarps;
+  return most < kVSplits ? most : kVSplits;
+}
+
+__host__ __device__ inline int views_carry_bytes(int H, int Wpx) {
+  const int tiles = ((Wpx + kTileW - 1) / kTileW) * ((H + kTileH - 1) / kTileH);
+  const int group = views_splits(H, Wpx) * kVWarps;
+  const long long bytes = 8LL * 32 * kVWarps * ((tiles + group - 1) / group);
+  return bytes <= kCarryMax ? static_cast<int>(bytes) : 0;
+}
+
+__host__ __device__ inline int views_stage(int H, int Wpx) {
+  return (kVSmem - views_carry_bytes(H, Wpx)) / kVEntry / 32 * 32;
+}
+
+size_t views_blocked_smem(int stage, int H, int Wpx) {
+  return static_cast<size_t>(stage) * kVEntry + views_carry_bytes(H, Wpx);
+}
+
+// The views mode past one block's shared memory (see the notes at the
+// top).  a.splits CTAs an image (blockIdx.y), each through stages of at
+// most a.B survivors, each filled by culling the instances from a cursor
+// on against the view's cone (the single-stage kernel's staging cull,
+// value for value) and compacting them in index order until the stage is
+// full; then every warp traces its tiles (tile (split kVWarps + warp) +
+// splits kVWarps j) against the stage, each pixel's nearest hit so far
+// carried from stage to stage in shared memory (or, for a large image, in
+// its outputs).  A later stage's instance wins only with a strictly
+// smaller t, so a tie keeps the first instance in index order; the last
+// stage shades, a winner from an earlier stage from its rows read again.
+__global__ void __launch_bounds__(kVThreads, kVCtas) render_views_blocked_kernel(const Args a) {
+  extern __shared__ float4 smem[];
+  const int N = a.N, C = a.B;
+  float4* s_pos = smem;         // pos xyz, sin_b of the instance against the eye
+  float4* s_rot = s_pos + C;    // rot wxyz
+  float4* s_scl = s_rot + C;    // scale xyz, radius
+  float4* s_alb = s_scl + C;    // albedo rgb, code (int bits)
+  float4* s_sph = s_alb + C;    // eye - pos, the sphere test's |eye - pos|^2 - r^2
+  float4* s_cone = s_sph + C;   // apex_terms from the eye
+  int* s_gid = reinterpret_cast<int*>(s_cone + C);
+  float* s_ct = reinterpret_cast<float*>(s_gid + C);   // carried t, a pixel
+  __shared__ int s_count[kVWarps];
+  __shared__ int s_next;
+  RK_PHASE_START
+
+  const int w = blockIdx.x / a.V;
+  const int v = blockIdx.x % a.V;
+  const int view = w * a.Vc + v;
+  const int npx = a.H * a.Wpx;
+  const size_t img = static_cast<size_t>(blockIdx.x) * npx;
+  const int tiles_x = (a.Wpx + kTileW - 1) / kTileW;
+  const int tiles = tiles_x * ((a.H + kTileH - 1) / kTileH);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int split = blockIdx.y;
+  if (a.vmask[view] == 0) {   // a dead view: black, depth inf
+    for (int p = split * kVThreads + threadIdx.x; p < npx; p += a.splits * kVThreads) {
+      a.rgba[img + p] = 0u;
+      a.depth[img + p] = __int_as_float(0x7f800000);
+    }
+    return;
+  }
+  const V3 eye = {a.eye[view * 3], a.eye[view * 3 + 1], a.eye[view * 3 + 2]};
+  const Q vq = {a.vrot[view * 4], a.vrot[view * 4 + 1], a.vrot[view * 4 + 2],
+                a.vrot[view * 4 + 3]};
+  const float tanf = a.tan_fov[view];
+  // the view's cone, as the single-stage kernel makes it
+  const V3 c0 = camera_ray(0, 0, a.H, a.Wpx, vq, tanf);
+  const V3 c1 = camera_ray(0, a.Wpx - 1, a.H, a.Wpx, vq, tanf);
+  const V3 c2 = camera_ray(a.H - 1, 0, a.H, a.Wpx, vq, tanf);
+  const V3 c3 = camera_ray(a.H - 1, a.Wpx - 1, a.H, a.Wpx, vq, tanf);
+  const V3 csum = add(add(c0, c1), add(c2, c3));
+  const V3 view_ax = scale(csum, 1.0f / sqrtf(fmaxf(dot(csum, csum), kEps)));
+  float cos_v = fminf(fminf(dot(c0, view_ax), dot(c1, view_ax)),
+                      fminf(dot(c2, view_ax), dot(c3, view_ax)));
+  if (!(cos_v > 0.0f)) cos_v = -1.0f;   // wider than a half-space (or NaN): keep all
+  const float sin_v = sqrtf(fmaxf(1.0f - cos_v * cos_v, 0.0f));
+  // each pixel's hit so far: t and the winner's index (-1 for none yet),
+  // in shared memory at the pixel's slot among this CTA's tiles, or in the
+  // image's outputs at the pixel
+  const int carry_px = views_carry_bytes(a.H, a.Wpx) / 8;
+  float* ct = carry_px > 0 ? s_ct : a.depth + img;
+  uint32_t* cid = carry_px > 0 ? reinterpret_cast<uint32_t*>(s_ct + carry_px) : a.rgba + img;
+  RK_PHASE(0);
+
+  int cursor = 0;
+  for (bool first = true;; first = false) {
+    // fill the stage: the instances from the cursor on, kVThreads at a
+    // time, culled against the view's cone and compacted in index order
+    // until the stage is full (the cursor then at the first survivor left
+    // out) or every instance is culled
+    int M = 0;
+    while (cursor < N && M < C) {
+      const int i = cursor + threadIdx.x;
+      V3 p = {0.0f, 0.0f, 0.0f}, s = {1.0f, 1.0f, 1.0f};
+      Q q = {1.0f, 0.0f, 0.0f, 0.0f};
+      int o = 0;
+      bool keep = false;
+      if (i < N) {
+        const size_t r = static_cast<size_t>(w) * N + i;
+        p = {a.pos[r * 3], a.pos[r * 3 + 1], a.pos[r * 3 + 2]};
+        q = {a.rot[r * 4], a.rot[r * 4 + 1], a.rot[r * 4 + 2], a.rot[r * 4 + 3]};
+        s = {a.scl[r * 3], a.scl[r * 3 + 1], a.scl[r * 3 + 2]};
+        o = a.obj[r];
+        keep = a.mask[r] != 0 && o >= 0 && o < a.O;
+      }
+      if (!keep) o = 0;
+      const float* tb = a.table + static_cast<size_t>(o) * a.S;
+      const int prim = static_cast<int>(__ldg(tb + kPrim));
+      const float radius = __ldg(tb + kRadius);
+      const float rbs = __ldg(tb + kRBound) * fmaxf(fmaxf(s.x, s.y), s.z);
+      RK_PHASE(1);
+      float4 sph = make_float4(0.0f, 0.0f, 0.0f, 0.0f), cone = sph;
+      float sin_b = 0.0f;
+      const bool mesh = __ldg(tb + kMesh) > 0.5f;
+      if (keep) {
+        cone = apex_terms(p, rbs, prim == kPlane, eye, sin_b);
+        keep = cone.w < -1.5f ||
+               meets_cone(sub(p, eye), rbs * (1.0f + kCullRel) + kCullAbs, view_ax, cos_v, sin_v);
+        const V3 oc = sub(eye, p);
+        const float rad = radius * s.x;
+        // a sphere without a mesh: the sphere test's c; else the radius of
+        // the pixel rays' own cull (see the trace below)
+        sph = make_float4(oc.x, oc.y, oc.z,
+                          prim == kSphere && !mesh ? dot(oc, oc) - rad * rad
+                                                   : rbs * (1.0f + kRayRel) + kRayAbs);
+      }
+      RK_PHASE(2);
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      if (lane == 0) s_count[warp] = __popc(ballot);
+      __syncthreads();
+      int slot = M, batch = 0;
+      for (int j = 0; j < kVWarps; ++j) {
+        slot += j < warp ? s_count[j] : 0;
+        batch += s_count[j];
+      }
+      slot += __popc(ballot & ((1u << lane) - 1u));
+      if (keep && slot < C) {
+        const int code = (o << kCodeObj) | (mesh ? kCodeMesh : 0) | prim;
+        s_pos[slot] = make_float4(p.x, p.y, p.z, sin_b);
+        s_rot[slot] = make_float4(q.w, q.x, q.y, q.z);
+        s_scl[slot] = make_float4(s.x, s.y, s.z, radius);
+        s_alb[slot] = make_float4(__ldg(tb + kAlbedo), __ldg(tb + kAlbedo + 1),
+                                  __ldg(tb + kAlbedo + 2), __int_as_float(code));
+        s_sph[slot] = sph;
+        s_cone[slot] = cone;
+        s_gid[slot] = i;
+      }
+      if (keep && slot == C) s_next = i;
+      __syncthreads();
+      if (M + batch <= C) {
+        cursor += kVThreads;
+        M += batch;
+      } else {
+        cursor = s_next;
+        M = C;
+      }
+      RK_PHASE(3);
+    }
+    const bool last = cursor >= N;
+
+    for (int tile = split * kVWarps + warp, slot = warp * 32 + lane; tile < tiles;
+         tile += a.splits * kVWarps, slot += kVThreads) {
+      const int row = (tile / tiles_x) * kTileH + lane / kTileW;
+      const int col = (tile % tiles_x) * kTileW + lane % kTileW;
+      const bool valid = row < a.H && col < a.Wpx;
+      const V3 ro = eye;
+      const V3 rd = camera_ray(row, col, a.H, a.Wpx, vq, tanf);
+      const bool pad = !valid || !(dot(rd, rd) >= 0.5f);
+      // the tile's view cone from its corner rays (the single-stage kernel's)
+      const float count = __ballot_sync(0xffffffffu, !pad) != 0u ? 1.0f : 0.0f;
+      const int r0 = (tile / tiles_x) * kTileH, q0 = (tile % tiles_x) * kTileW;
+      const int cl = min(kTileW, a.Wpx - q0) - 1, rl = (min(kTileH, a.H - r0) - 1) * kTileW;
+      V3 k[4];
+      const int src[4] = {0, cl, rl, rl + cl};
+      for (int c = 0; c < 4; ++c)
+        k[c] = {__shfl_sync(0xffffffffu, rd.x, src[c]), __shfl_sync(0xffffffffu, rd.y, src[c]),
+                __shfl_sync(0xffffffffu, rd.z, src[c])};
+      const V3 ksum = add(add(k[0], k[1]), add(k[2], k[3]));
+      const V3 ax = scale(ksum, 1.0f / sqrtf(fmaxf(dot(ksum, ksum), kEps)));
+      float cos_m = fminf(fminf(dot(k[0], ax), dot(k[1], ax)), fminf(dot(k[2], ax), dot(k[3], ax)));
+      cos_m = cos_m > 0.0f ? fminf(cos_m, 1.0f) : -1.0f;   // wider (or NaN): keep all
+      const float sin_m = sqrtf(fmaxf(1.0f - cos_m * cos_m, 0.0f));
+
+      float best_t = kBig;
+      V3 best_n = {0.0f, 0.0f, 0.0f}, best_a = {0.0f, 0.0f, 0.0f};
+      int best_k = -1;            // the winner's staged index
+      bool best_sphere = false;   // its normal is still to make
+      const int px = row * a.Wpx + col;
+      const int cx = carry_px > 0 ? slot : px;   // the pixel's carried hit
+      int best_gid = -1;          // a winner of an earlier stage
+      RK_PHASE(4);
+      if (!first && valid) {
+        best_t = ct[cx];
+        best_gid = static_cast<int>(cid[cx]);
+      }
+      RK_PHASE(5);
+      for (int base = 0; count > 0.0f && base < M; base += 32) {
+        const int i = base + lane;
+        bool keep = false;
+        if (i < M) {
+          const float4 ps = s_pos[i];
+          const float4 c = s_cone[i];
+          keep = cos_m <= -c.w || dot({c.x, c.y, c.z}, ax) >= cos_m * c.w - sin_m * ps.w;
+        }
+        unsigned bits = __ballot_sync(0xffffffffu, keep);
+        // the staged spheres without a mesh, whose test is the short one below
+        const unsigned spheres = __ballot_sync(
+            0xffffffffu, i < M && (__float_as_int(s_alb[i].w) & (kCodeMesh | 3)) == kSphere);
+        const unsigned live = __ballot_sync(0xffffffffu, !pad);
+        RK_PHASE(6);
+        if (pad) continue;
+        auto sphere_t = [&](int j) {
+          const float4 sp = s_sph[j];
+          const float b = dot({sp.x, sp.y, sp.z}, rd);
+          const float disc = b * b - sp.w;
+          const float ts = -b - sqrtf(fmaxf(disc, 0.0f));
+          return (disc >= 0.0f && ts > 1e-4f) ? ts : kBig;
+        };
+        auto take_sphere = [&](float t, int j) {
+          if (t < best_t) {
+            best_t = t;
+            best_k = j;
+            best_sphere = true;
+          }
+        };
+        while (bits) {
+          const int j = __ffs(bits) - 1;
+          const unsigned rest = bits & (bits - 1u);
+          const int j2 = __ffs(rest) - 1;
+          if (((spheres >> j) & 1u) && rest && ((spheres >> j2) & 1u)) {
+            // two spheres in a row: both tests at once, taken in index order
+            const float t = sphere_t(base + j), t2 = sphere_t(base + j2);
+            take_sphere(t, base + j);
+            take_sphere(t2, base + j2);
+            bits = rest & (rest - 1u);
+            continue;
+          }
+          bits = rest;
+          const int kk = base + j;
+          if ((spheres >> j) & 1u) {
+            take_sphere(sphere_t(kk), kk);
+            continue;
+          }
+          const int code = __float_as_int(s_alb[kk].w);
+          const int prim = code & 3;
+          if (prim != kPlane) {
+            // a hull or a mesh: tested only where some pixel ray of the
+            // tile passes within its widened bounding sphere (radius R,
+            // staged), not behind the eye, and could still beat the
+            // pixel's nearest hit (every hit of it lies past |eye - pos| -
+            // R; the widening is far past the rounding of these tests)
+            const float4 sp = s_sph[kk];
+            const float b = dot({sp.x, sp.y, sp.z}, rd);
+            const float o2 = dot({sp.x, sp.y, sp.z}, {sp.x, sp.y, sp.z});
+            const float r2 = sp.w * sp.w;
+            const bool meets = o2 - b * b <= r2 && (b < sp.w || o2 <= r2);
+            if (!__any_sync(live, meets && !(best_t < sqrtf(o2) - sp.w))) continue;
+          }
+          const bool mesh = (code & kCodeMesh) != 0 && a.T > 0;
+          const float4 ps = s_pos[kk], qr = s_rot[kk], sr = s_scl[kk];
+          const float* tb = a.table + static_cast<size_t>(code >> kCodeObj) * a.S;
+          V3 n = best_n;
+          const float t = trace(prim, mesh, sr.w, tb, a.F, a.T, ro, rd, {ps.x, ps.y, ps.z},
+                                {qr.x, qr.y, qr.z, qr.w}, {sr.x, sr.y, sr.z}, best_t, n);
+          if (t < best_t) {
+            best_t = t;
+            best_n = n;
+            best_k = kk;
+            best_sphere = false;
+          }
+        }
+        RK_PHASE(7);
+      }
+      if (!last) {
+        // not the last stage: the nearest hit so far waits for the next
+        if (best_k >= 0) best_gid = s_gid[best_k];
+        if (valid) {
+          ct[cx] = best_t;
+          cid[cx] = static_cast<uint32_t>(best_gid);
+        }
+        RK_PHASE(8);
+        continue;
+      }
+      if (best_k >= 0) {
+        const float4 al = s_alb[best_k];
+        best_a = {al.x, al.y, al.z};
+        if (best_sphere) {
+          const float4 ps = s_pos[best_k];
+          best_n = sub(add(ro, scale(rd, best_t)), {ps.x, ps.y, ps.z});
+        }
+      } else if (best_gid >= 0) {
+        earlier_winner(a, true, w, best_gid, ro, rd, best_t, best_n, best_a);
+      }
+      if (valid) {
+        // shade: Lambert plus ambient
+        const bool hit = !pad && best_t < kBig * 0.5f;
+        const float inv_len = 1.0f / sqrtf(fmaxf(dot(best_n, best_n), kEps));
+        const V3 nn = scale(best_n, inv_len);
+        const float lam = fmaxf(nn.x * a.lx + nn.y * a.ly + nn.z * a.lz, 0.0f);
+        const float shade = a.amb + a.one_m_amb * lam;
+        const float hitf = hit ? 1.0f : 0.0f;
+        const float r = pad ? 0.0f : best_a.x * shade * hitf;
+        const float g = pad ? 0.0f : best_a.y * shade * hitf;
+        const float b = pad ? 0.0f : best_a.z * shade * hitf;
+        a.rgba[img + px] = to_u8(r) | (to_u8(g) << 8) | (to_u8(b) << 16) | ((hit ? 255u : 0u) << 24);
+        a.depth[img + px] = hit ? best_t : __int_as_float(0x7f800000);
+      }
+      RK_PHASE(9);
+    }
+    if (last) break;
+    __syncthreads();   // the next stage overwrites this one
+    RK_PHASE(10);
+  }
+  RK_PHASE_END
 }
 
 // The dynamic shared memory of a mode's kernel: N instances at once, or
@@ -775,16 +1161,34 @@ int launch_mode(const Args& a, int blocks, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The views mode's blocked twin: views_splits CTAs an image, a.B
+// survivors a stage.
+int launch_views_blocked(const Args& a, int blocks, cudaStream_t stream) {
+  if (a.B > views_stage(a.H, a.Wpx) || a.splits != views_splits(a.H, a.Wpx))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = views_blocked_smem(a.B, a.H, a.Wpx);
+  const cudaError_t err = allow_smem(render_views_blocked_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  render_views_blocked_kernel<<<dim3(blocks, a.splits), kVThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool VIEWS>
 int launch(const Args& a, int blocks, cudaStream_t stream) {
-  return a.B > 0 ? launch_mode<VIEWS, true>(a, blocks, stream)
-                 : launch_mode<VIEWS, false>(a, blocks, stream);
+  if (a.B == 0) return launch_mode<VIEWS, false>(a, blocks, stream);
+  if constexpr (VIEWS)
+    return launch_views_blocked(a, blocks, stream);
+  else
+    return launch_mode<false, true>(a, blocks, stream);
 }
 
 }  // namespace
 
 // block: 0 for every instance at once, else kBlock (the blocked
-// specialisation; ops/render_kernel.py blocked)
+// specialisation; ops/render_kernel.py blocked); in render_views_launch
+// the survivors a stage of the blocked twin holds (at most
+// views_stage(H, Wpx); ops/render_kernel.py views_stage), splits
+// views_splits(H, Wpx)
 extern "C" int render_launch(const void* rays, const void* inst, const void* table, int O,
                              int S, int F, int T, int W, int P, int N, int img_w, int splits,
                              float lx, float ly, float lz, float amb, float one_m_amb,
@@ -813,8 +1217,7 @@ extern "C" int render_views_launch(const void* eye, const void* vrot, const void
                                    float ly, float lz, float amb, float one_m_amb, int block,
                                    void* rgba, void* depth, void* stream) {
   if (W <= 0 || V <= 0 || H <= 0 || Wpx <= 0) return static_cast<int>(cudaSuccess);
-  if (N <= 0 || Vc < V || splits <= 0 || (block != 0 && block != kBlock))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0 || Vc < V || splits <= 0 || block < 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a = {};
   a.eye = static_cast<const float*>(eye);
   a.vrot = static_cast<const float*>(vrot);
@@ -843,13 +1246,19 @@ int occupancy_of(Kernel kernel, size_t smem, int* ctas_per_sm) {
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, kThreads, smem));
 }
 
-// CTAs an SM of each mode at N instances, all at once (block 0) or kBlock
-// a stage (cudaOccupancy...), for chip_smoke.py's timing line
-extern "C" int render_occupancy(int views, int N, int block, int* ctas_per_sm) {
+// CTAs an SM of each mode at N instances, all at once (block 0) or in
+// stages of block (the views mode's blocked twin at an H x Wpx image)
+// (cudaOccupancy...), for chip_smoke.py's timing line
+extern "C" int render_occupancy(int views, int N, int block, int H, int Wpx, int* ctas_per_sm) {
   const size_t smem = render_smem(views != 0, N, block);
-  if (block > 0)
-    return views ? occupancy_of(render_kernel<true, true>, smem, ctas_per_sm)
-                 : occupancy_of(render_kernel<false, true>, smem, ctas_per_sm);
+  if (block > 0 && views) {
+    const size_t vsmem = views_blocked_smem(block, H, Wpx);
+    const cudaError_t err = allow_smem(render_views_blocked_kernel, vsmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_per_sm, render_views_blocked_kernel, kVThreads, vsmem));
+  }
+  if (block > 0) return occupancy_of(render_kernel<false, true>, smem, ctas_per_sm);
   return views ? occupancy_of(render_kernel<true, false>, smem, ctas_per_sm)
                : occupancy_of(render_kernel<false, false>, smem, ctas_per_sm);
 }

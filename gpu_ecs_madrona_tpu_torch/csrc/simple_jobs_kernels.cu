@@ -89,31 +89,37 @@
 //   and <1024, 1> for the rest.
 //
 // The rounds layout (fused_simple_jobs_rounds_kernel), past kMaxBodies
-// bodies, where a thread a row slot and the np^2 / 8 bytes of the bit grid
-// no longer fit one CTA (2048 bodies: 512 KB of words): 992 compute threads
-// and the producer warp.  The compute threads take the row slots in rounds
-// (row r = a + k 992, ascending within a round as above), each row's state
-// in memory between the steps: lo, hi, position and half box (16 bytes a
-// row each) in shared memory while they fit (n0 <= 3584), else in the
-// world's slice of a global scratch that the wrapper allocates (from
-// PyTorch's caching allocator: no device allocation once warm); the bit
-// grid's words always there.  Step 3 gives a warp a whole
-// 64 x 64 chunk pair: its ballots build the 64 row words of chunk ci and
-// the predicates kept by lane j the 64 transposed words of chunk cj, each
-// stored whole by one lane (every word of the grid has one writer, so the
-// scratch needs no clearing and no atomics).  Step 4 keeps a row's degree
-// in the w of its staged translation and step 5 its base in the w of its
-// hi; step 5 scans a round at a time (a warp scan, the warps' totals, then
-// the rounds' totals in round order); step 6 writes each row's slots from
-// its own thread in one pass (no stage: with the words in global memory, a
-// stage of kStage slots spent ~80% of a CTA's cycles waiting on them,
-// once a chunk, in PERF.md).  The arithmetic, the orders and so
-// the outputs are those of the one-block layout; only the world's mean is
-// summed in another order (each thread's rows first).  At 1024 worlds x
-// 2048 bodies, K = 32768: ~805 MB of bytes (0.24 ms at 3.35 TB/s) against
-// the half-box filter's W n0 (n0 - 1) / 2 ~ 2.15G unordered pair tests of
-// ~6 operations and, at main_simple_jobs_large's state, ~482M overlapping
-// ordered pairs of ~20 (0.3373 ms at 67 TFLOP/s): the pair tests bound it.
+// bodies, where a thread a row slot and a bit grid of np^2 / 8 bytes no
+// longer fit one CTA (2048 bodies: 512 KB): 1024 threads, every warp
+// computing (the slot tail's zeros come last, only past min(total, K)).
+// Step 1 clamps and takes the AABB a row at a time; the rows (lo, hi and
+// the position less the world's mean, 48 bytes a row) stay in shared memory
+// while they fit beside a block's words (n0 <= 3,776), else in a global
+// scratch.  Then the rows a block of R (whole chunks, 256 at 2,048 bodies)
+// at a time, in row order:
+//   A. the block's exact overlap words in shared memory: each unordered
+//      chunk pair (ci in the block, cj >= ci) tested once, float32 on the
+//      closed slabs (no half-box filter, so no re-test), units of 16 rows a
+//      warp with chunk cj's 64 boxes in registers; two ballots give a row's
+//      word cj, and each lane keeps its rows' 16-bit quarter of word ci,
+//      stored into the block's words when cj is in the block, else into
+//      the scratch's lower triangle [nc][np] for cj's block, which copies
+//      it in before its own step A (each quarter and word one writer);
+//   B. the degrees (popcounts), then C the capped degrees' exclusive
+//      prefix a block at a time (warp 0, carried across blocks);
+//   D. a warp a row for its push and slots: lane l walks chunk l's word
+//      (chunks 2l and 2l + 1 past 32 chunks) in ascending b, the push in
+//      PushTree's order (below), the partners of the first 32 ranks into
+//      the warp's stage, which lane k turns into slot base + k (ab as an
+//      int2, the normals through the stage as consecutive floats); ranks
+//      past 32 (a cap D above 32) in further windows.
+// At 1024 worlds x 2048 bodies, K = 32768: ~805 MB of outputs (0.24 ms at
+// 3.35 TB/s) against the W n0 (n0 - 1) / 2 ~ 2.15G unordered pair tests
+// of ~6 operations and, at main_simple_jobs_large's state, ~482M
+// overlapping ordered pairs of ~20 (0.3373 ms at 67 TFLOP/s): the pair
+// tests bound it.  The world's mean is summed as the layout before this
+// one summed it (992 threads' rows first), so the outputs are its bit for
+// bit.
 //
 // Arithmetic: -fmad=false keeps every product and sum separately rounded,
 // in the order of the plain version (ops/simple_jobs_kernel.py), so the
@@ -121,7 +127,8 @@
 // overlap decisions and every integer output.  The push sums a row's
 // partners in a fixed tree (PushTree): each chunk's partners in ascending
 // b into the chunk's partial, then the chunks' partials pairwise in chunk
-// order, on the kernel's own mean.  A row of a dense stepped world sums
+// order, on the kernel's own mean (the rounds layout: a lane's chunk
+// partials, then a shuffle butterfly over the lanes, the same tree).  A row of a dense stepped world sums
 // ~110-190 pushes to |sum| ~180; added one after another their rounding
 // grew with the count (6.2e-4 from float64 on an H100, PERF.md), in the
 // tree with its depth.  rsqrtf is the SFU's approximate reciprocal square
@@ -134,7 +141,9 @@
 
 // Phase markers: empty in the kernel as built; tools/simple_jobs_ab.py
 // --phases defines them to add up each phase's clock64() cycles, with
-// SJ_SYNC() (the compute threads' barrier) before each reading.
+// SJ_SYNC() (the compute threads' barrier) before each reading.  In the
+// rounds layout phase 3 is steps A-B, 4 the push and slots, 5 the prefix, 6
+// the tail's zeros.
 #ifndef SJ_PHASE
 #define SJ_PHASE_START
 #define SJ_PHASE(k)
@@ -151,7 +160,10 @@ constexpr int kChunk = 64;         // rows j a warp holds (two a lane), bits a w
 constexpr int kUnit = 16;          // rows i of a bit-grid unit (divides kChunk)
 constexpr int kStage = 512;        // slots staged a chunk
 constexpr int kZeroBytes = 2048;   // the bulk stores' zero source
-constexpr int kRoundThreads = 992; // the rounds layout's compute threads (a producer warp beside)
+constexpr int kRoundThreads = 1024; // the rounds layout's threads: 32 warps, all computing
+constexpr int kBlockRows = 256;    // the rounds layout's rows a block at most
+constexpr int kMinBlockRows = 64;  // ... at least (whole chunks), where its rows stay in shared memory
+constexpr int kMeanThreads = 992;  // the rounds layout's threads that sum the world's mean
 constexpr int kMaxSmem = 232448;   // a CTA's shared memory at most (227 KB)
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -230,31 +242,63 @@ __device__ Smem smem_layout(float4* smem, int n0) {
   return s;
 }
 
-// The rounds layout (n0 > kMaxBodies).  Whether a world's rows (lo, hi,
-// position and half box, 16 bytes a row slot each) stay in shared memory;
-// its dynamic shared memory: those rows where they stay, the zeros and the
-// warps' sums; and the bytes of a world's slice of the
-// global scratch: the bit grid's words u64 [np / kChunk][np], then the rows
-// where they do not stay.
+// The rounds layout (n0 > kMaxBodies).  Its shared memory: the rows (lo,
+// hi and centred position, 16 bytes a row slot each) where they fit beside
+// a block of kMinBlockRows rows' words; a block's words, u64 [rows][ncp]
+// (ncp = nc made odd, so that a unit's 16 rows fall in different banks);
+// each warp's slot stage, int [32] and float [3 * 32]; the block's degrees
+// and bases, int [2 kBlockRows]; the warps' sums, float [32 * 3] and int
+// [32 * 2].  The world's slice of a global scratch that the wrapper
+// allocates: the lower triangle's words, u64 [nc][np] (row r's word c for
+// the chunks c below r's block, written as 16-bit quarters), then the rows
+// and a block's words where they do not fit in shared memory.
+__host__ __device__ inline int round_ncp(int n0) { return chunks(n0) | 1; }
+
+__host__ __device__ inline size_t rounds_fixed_bytes() {
+  return 4 * (static_cast<size_t>(kRoundThreads / 32) * 4 * 32 + 2 * kBlockRows + 32 * 3 +
+              32 * 2);
+}
+
 __host__ __device__ inline bool rounds_rows_shared(int n0) {
   const size_t np = kChunk * static_cast<size_t>(chunks(n0));
-  const size_t rows = 4 * np;
-  const size_t rest = kZeroBytes + 4 * (32 * 3 + 32 * 2);
-  return 16 * rows + rest <= kMaxSmem;
+  const size_t block_words = static_cast<size_t>(kMinBlockRows) * round_ncp(n0);
+  return 16 * 3 * np + 8 * block_words + rounds_fixed_bytes() <= kMaxSmem;
+}
+
+// The rows a block takes (whole chunks, at most kBlockRows): as many as the
+// shared memory left holds the words of, or kBlockRows with the words in
+// the scratch where not even kMinBlockRows rows' fit.
+__host__ __device__ inline int rounds_block_rows(int n0) {
+  const size_t np = kChunk * static_cast<size_t>(chunks(n0));
+  const size_t rows = rounds_rows_shared(n0) ? 16 * 3 * np : 0;
+  const size_t left = kMaxSmem - rounds_fixed_bytes() - rows;
+  const size_t fit = left / (8 * static_cast<size_t>(round_ncp(n0))) / kChunk * kChunk;
+  const size_t capped = fit < kBlockRows ? fit : kBlockRows;
+  return static_cast<int>(fit < kMinBlockRows ? kBlockRows : capped);
+}
+
+__host__ __device__ inline bool rounds_words_shared(int n0) {
+  const size_t np = kChunk * static_cast<size_t>(chunks(n0));
+  const size_t rows = rounds_rows_shared(n0) ? 16 * 3 * np : 0;
+  const size_t block_words = static_cast<size_t>(kMinBlockRows) * round_ncp(n0);
+  return rows + 8 * block_words + rounds_fixed_bytes() <= kMaxSmem;
 }
 
 size_t rounds_smem_bytes(int n0) {
   const size_t np = kChunk * static_cast<size_t>(chunks(n0));
-  const size_t rows = rounds_rows_shared(n0) ? 4 * np : 0;
-  const size_t sums = 32 * 3 + 32 * 2;
-  return 16 * rows + kZeroBytes + 4 * sums;
+  const size_t rows = rounds_rows_shared(n0) ? 3 * np : 0;
+  const size_t words = rounds_words_shared(n0)
+                           ? static_cast<size_t>(rounds_block_rows(n0)) * round_ncp(n0) : 0;
+  return 16 * rows + 8 * words + rounds_fixed_bytes();
 }
 
 __host__ __device__ inline size_t rounds_scratch_bytes(int n0) {
   const size_t np = kChunk * static_cast<size_t>(chunks(n0));
-  const size_t words = np / kChunk * np;
-  const size_t rows = rounds_rows_shared(n0) ? 0 : 4 * np;
-  return 8 * words + 16 * rows;
+  const size_t lower = np / kChunk * np;
+  const size_t rows = rounds_rows_shared(n0) ? 0 : 3 * np;
+  const size_t words = rounds_words_shared(n0)
+                           ? 0 : static_cast<size_t>(rounds_block_rows(n0)) * round_ncp(n0);
+  return 8 * lower + 16 * rows + 8 * words;
 }
 
 __device__ inline HalfBox nan_half_box() {
@@ -727,57 +771,211 @@ fused_simple_jobs_step_kernel(const float* __restrict__ pos,
   SJ_PHASE(6);
 }
 
-// The rounds layout's step 3: the candidate bits of whole 64 x 64 chunk
-// pairs (ci <= cj, row-major), a pair a warp, round-robin over the
-// compute warps.  Lane j holds rows j and j + 32 of chunk cj; for each row
-// i0 + k of chunk ci two ballots give its word cj, which lane k (or k - 32)
-// keeps, and lane j keeps bit k of rows j's and j + 32's word ci; then each
-// lane stores its two row words and, off the diagonal, its two transposed
-// words whole.  Every word of [nc][np] is stored once, by one lane.
-__device__ void overlap_bits_rounds(u64* __restrict__ bits, const HalfBox* hb, int np, int nc,
-                                    int tc) {
+// The rounds layout's step A for the block of chunks [cb, cb + nb) (rows
+// r0 = 64 cb on): the exact overlap words, each unordered chunk pair (ci,
+// cj), ci in the block and cj >= ci, tested once, in units u = (16 rows of
+// ci, cj) a warp, round-robin over the warps.  Lane j holds chunk cj's rows
+// j and j + 32 (lo and hi in registers; pad rows NaN, which overlap
+// nothing); for each row i0 + k of the unit, row i0 + k's lo and hi are
+// broadcast, the plain version's overlap_grid test (closed slabs, float32;
+// it is symmetric) runs on both candidates, and two ballots give row i0 +
+// k's word cj, which lane k keeps and stores without its own bit; lane j
+// keeps bit k of rows j's and j + 32's word ci, a 16-bit quarter of it,
+// which it stores off the diagonal: into the block's words where cj is in
+// the block, else into the lower triangle lo [nc][np] for cj's block to
+// read.  Every quarter and word has one writer (no atomics).
+__device__ void round_words(u64* __restrict__ words, u64* __restrict__ lower,
+                            const float4* s_lo, const float4* s_hi, int cb, int nb, int nc,
+                            int np, int ncp) {
   const int lane = threadIdx.x & 31;
-  const int warps = tc >> 5;
-  const int units = nc * (nc + 1) / 2;
-  for (int u = threadIdx.x >> 5; u < units; u += warps) {
-    int b = u, ci = 0, row = nc;
-    while (b >= row) {
-      b -= row;
+  const int parts = kChunk / kUnit;
+  int units = 0;
+  for (int t = 0; t < nb; ++t) units += parts * (nc - cb - t);
+  const int r0 = kChunk * cb;
+  for (int u = threadIdx.x >> 5; u < units; u += kRoundThreads / 32) {
+    int q = u / parts, ci = cb;
+    while (q >= nc - ci) {
+      q -= nc - ci;
       ++ci;
-      --row;
     }
-    const int cj = ci + b;
-    const int i0 = kChunk * ci;
+    const int cj = ci + q, part = u % parts;
+    const int i0 = kChunk * ci + kUnit * part;
     const int j = kChunk * cj + lane;
-    const HalfBox j0 = hb[j], j1 = hb[j + 32];
-    u64 r0 = 0ull, r1 = 0ull, c0 = 0ull, c1 = 0ull;
+    const float4 l0 = s_lo[j], h0 = s_hi[j], l1 = s_lo[j + 32], h1 = s_hi[j + 32];
+    u64 mine = 0ull;
+    uint32_t c0 = 0u, c1 = 0u;
 #pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const HalfBox bi = hb[i0 + k];
-      const bool p0 = half_overlap(bi, j0), p1 = half_overlap(bi, j1);
+    for (int k = 0; k < kUnit; ++k) {
+      const float4 li = s_lo[i0 + k], hi = s_hi[i0 + k];
+      const bool p0 = overlap(li, hi, l0, h0), p1 = overlap(li, hi, l1, h1);
       const u64 word = static_cast<u64>(__ballot_sync(kFull, p0)) |
                        (static_cast<u64>(__ballot_sync(kFull, p1)) << 32);
-      if (k < 32) {
-        if (lane == k) r0 = word;
-      } else if (lane == k - 32) {
-        r1 = word;
-      }
-      c0 |= static_cast<u64>(p0) << k;
-      c1 |= static_cast<u64>(p1) << k;
+      if (lane == k) mine = word;
+      c0 |= static_cast<uint32_t>(p0) << k;
+      c1 |= static_cast<uint32_t>(p1) << k;
     }
-    bits[static_cast<size_t>(cj) * np + i0 + lane] = r0;
-    bits[static_cast<size_t>(cj) * np + i0 + 32 + lane] = r1;
-    if (ci != cj) {
-      bits[static_cast<size_t>(ci) * np + j] = c0;
-      bits[static_cast<size_t>(ci) * np + j + 32] = c1;
+    const int i = i0 + lane;
+    if (cj == ci) mine &= ~(1ull << (i % kChunk));
+    if (lane < kUnit) words[static_cast<size_t>(i - r0) * ncp + cj] = mine;
+    if (cj != ci) {
+      uint16_t* q0 = cj < cb + nb
+                         ? reinterpret_cast<uint16_t*>(words + static_cast<size_t>(j - r0) * ncp + ci)
+                         : reinterpret_cast<uint16_t*>(lower + static_cast<size_t>(ci) * np + j);
+      uint16_t* q1 = cj < cb + nb
+                         ? reinterpret_cast<uint16_t*>(words + static_cast<size_t>(j + 32 - r0) * ncp + ci)
+                         : reinterpret_cast<uint16_t*>(lower + static_cast<size_t>(ci) * np + j + 32);
+      q0[part] = static_cast<uint16_t>(c0);
+      q1[part] = static_cast<uint16_t>(c1);
     }
   }
 }
 
-// The rounds layout (see the notes at the top): 1024 threads, the last warp
-// the producer.  scratch: the global scratch, rounds_scratch_bytes(n0) a
-// world.
-__global__ void __launch_bounds__(kMaxThreads, 1)
+// The rounds layout's step B for row a, one warp: lane l walks the exact
+// words of chunk l (nc <= 32) or of chunks 2l and 2l + 1 of each block of 64
+// chunks in ascending b and adds the pushes one after another into its
+// chunk's partial; a lane's two chunks are added left + right, then the
+// lanes' partials by a shuffle butterfly (xor 1, 2, 4, 8, 16: each level
+// adds the same two values in either order, so every lane ends with the
+// same bits), each full block of 64 chunks into top in block order.  That
+// is PushTree<kRoundTreeLevels>'s order, zero chunks padding the last
+// block (x + 0 is x).  A shuffle scan of the words' popcounts gives each
+// chunk's first rank, and the walk puts the partners of ranks below
+// min(cnt, 32), the row's first slots, into the warp's stage st_b (step D
+// takes them from there).  Returns the push sum.
+__device__ float3 round_push(const u64* __restrict__ wrow, const float4* s_pc, int a, int nc,
+                             int cnt, int* st_b) {
+  static_assert(kChunk == 64 && (1 << kRoundTreeLevels) == kChunk,
+                "a block of the butterfly is 64 chunks, two a lane");
+  const int lane = threadIdx.x & 31;
+  const float4 pa = s_pc[a];
+  const bool pair = nc > 32;
+  const int staged = min(cnt, 32);
+  float3 top = make_float3(0.0f, 0.0f, 0.0f), last = top;
+  int done = 0;   // the ranks of the blocks before
+  for (int c0 = 0; c0 < nc; c0 += kChunk) {
+    const int ca = pair ? c0 + 2 * lane : lane;
+    const u64 w0 = ca < nc ? wrow[ca] : 0ull;
+    const u64 w1 = pair && ca + 1 < nc ? wrow[ca + 1] : 0ull;
+    const int n0 = __popcll(w0), n = n0 + __popcll(w1);
+    int incl = n;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    float cx = 0.0f, cy = 0.0f, cz = 0.0f;
+    for (int h = 0; h < (pair ? 2 : 1); ++h) {
+      u64 word = h == 0 ? w0 : w1;
+      int q = done + incl - n + (h == 0 ? 0 : n0);   // the rank of word's first partner
+      float hx = 0.0f, hy = 0.0f, hz = 0.0f;
+      while (word != 0ull) {
+        const int b = kChunk * (ca + h) + __ffsll(static_cast<long long>(word)) - 1;
+        word &= word - 1ull;
+        if (q < staged) st_b[q] = b;
+        ++q;
+        const float4 pb = s_pc[b];
+        const float dx = pb.x - pa.x;
+        const float dy = pb.y - pa.y;
+        const float dz = pb.z - pa.z;
+        const float d2 = dx * dx + dy * dy + dz * dz;
+        if (d2 > 1e-12f) {
+          const float m = rsqrtf(fmaxf(d2, 1e-30f));
+          hx += m * dx;
+          hy += m * dy;
+          hz += m * dz;
+        }
+      }
+      if (h == 0) {
+        cx = hx;
+        cy = hy;
+        cz = hz;
+      } else {
+        cx = cx + hx;
+        cy = cy + hy;
+        cz = cz + hz;
+      }
+    }
+    done += __shfl_sync(kFull, incl, 31);
+    for (int o = 1; o < 32; o <<= 1) {
+      cx += __shfl_xor_sync(kFull, cx, o);
+      cy += __shfl_xor_sync(kFull, cy, o);
+      cz += __shfl_xor_sync(kFull, cz, o);
+    }
+    if (c0 + kChunk <= nc)
+      top = make_float3(top.x + cx, top.y + cy, top.z + cz);
+    else
+      last = make_float3(cx, cy, cz);
+  }
+  return nc >= kChunk ? make_float3(top.x + last.x, top.y + last.y, top.z + last.z) : last;
+}
+
+// The rounds layout's step D for row a, one warp: slots base + q0 .. base +
+// q0 + m - 1 from the partners of ranks q0 .. q0 + m - 1 in the warp's
+// stage st_b (m <= 32): lane k makes the k-th normal, stores its ab as one
+// int2 (a warp's int2s contiguous), and the normals leave the stage st_n as
+// consecutive floats.
+__device__ void round_emit(const float4* s_lo, const float4* s_hi, const float4* s_pc, int a,
+                           int base, int q0, int m, int2* __restrict__ ab2,
+                           float* __restrict__ nrm_s, const int* st_b, float* st_n) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  if (lane < m) {
+    const float4 la = s_lo[a], ha = s_hi[a], pa = s_pc[a];   // w: the clamped position
+    const int b = st_b[lane];
+    const float4 lb = s_lo[b], hb = s_hi[b], cb = s_pc[b];
+    const float dx = lb.w - la.w;
+    const float dy = hb.w - ha.w;
+    const float dz = cb.w - pa.w;
+    const float inv = rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-30f));
+    ab2[base + q0 + lane] = make_int2(a, b);
+    st_n[3 * lane] = dx * inv;
+    st_n[3 * lane + 1] = dy * inv;
+    st_n[3 * lane + 2] = dz * inv;
+  }
+  __syncwarp();
+  float* out = nrm_s + 3 * static_cast<size_t>(base + q0);
+  for (int f = lane; f < 3 * m; f += 32) out[f] = st_n[f];
+  __syncwarp();
+}
+
+// Step D past a row's first 32 slots (a cap D above 32): the ranks from 32
+// to cnt in windows of 32, each window's partners found again from the
+// exact words (lane l a chunk of 32 at a time, a shuffle scan of their
+// popcounts) and put into the stage, then round_emit.
+__device__ void round_slots_past(const u64* __restrict__ wrow, const float4* s_lo,
+                                 const float4* s_hi, const float4* s_pc, int a, int nc, int base,
+                                 int cnt, int2* __restrict__ ab2, float* __restrict__ nrm_s,
+                                 int* st_b, float* st_n) {
+  const int lane = threadIdx.x & 31;
+  int done = 0;
+  for (int g = 0; g < nc && done < cnt; g += 32) {
+    const u64 word = g + lane < nc ? wrow[g + lane] : 0ull;
+    const int n = __popcll(word);
+    int incl = n;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int first = done + incl - n;   // this lane's first rank
+    const int end = min(done + __shfl_sync(kFull, incl, 31), cnt);
+    for (int q0 = max(done, 32); q0 < end; q0 += 32) {
+      const int q1 = min(q0 + 32, end);
+      u64 w = word;
+      int q = first;
+      for (; w != 0ull && q < q0; ++q) w &= w - 1ull;
+      for (; w != 0ull && q < q1; ++q) {
+        st_b[q - q0] = kChunk * (g + lane) + __ffsll(static_cast<long long>(w)) - 1;
+        w &= w - 1ull;
+      }
+      round_emit(s_lo, s_hi, s_pc, a, base, q0, q1 - q0, ab2, nrm_s, st_b, st_n);
+    }
+    done = end;
+  }
+}
+
+// The rounds layout (see the notes at the top): 1024 threads, every warp
+// computing.  scratch: the global scratch, rounds_scratch_bytes(n0) a world
+// (unused where it is 0).
+__global__ void __launch_bounds__(kRoundThreads, 1)
 fused_simple_jobs_rounds_kernel(const float* __restrict__ pos,
                                 const float4* __restrict__ rot, int n0, int K, int D,
                                 Bounds bounds, float* __restrict__ translation,
@@ -789,45 +987,36 @@ fused_simple_jobs_rounds_kernel(const float* __restrict__ pos,
   const int w = blockIdx.x;
   const int a = threadIdx.x;
   const int tc = kRoundThreads;
+  const int lane = a & 31, warp = a >> 5;
   const int nc = chunks(n0);
   const int np = kChunk * nc;
+  const int ncp = round_ncp(n0);
+  const int R = rounds_block_rows(n0);
   const bool shared_rows = rounds_rows_shared(n0);
   unsigned char* g = scratch + static_cast<size_t>(w) * rounds_scratch_bytes(n0);
-  u64* bits = reinterpret_cast<u64*>(g);
-  float4* rows = shared_rows ? smem
-                             : reinterpret_cast<float4*>(g + 8 * static_cast<size_t>(nc) * np);
-  float4* s_lo = rows;
-  float4* s_hi = s_lo + np;
-  float4* s_pos = s_hi + np;
-  HalfBox* s_hb = reinterpret_cast<HalfBox*>(s_pos + np);
-  float4* s_tr = reinterpret_cast<float4*>(s_hb);  // the translation and degree, after step 3
-  uint4* s_zero = reinterpret_cast<uint4*>(shared_rows ? smem + 4 * np : smem);
-  float* red = reinterpret_cast<float*>(s_zero + kZeroBytes / 16);
+  u64* lower = reinterpret_cast<u64*>(g);   // [nc][np]
+  g += 8 * static_cast<size_t>(nc) * np;
+  float4* rows = shared_rows ? smem : reinterpret_cast<float4*>(g);
+  float4* s_lo = rows;           // lo xyz, the clamped position's x
+  float4* s_hi = s_lo + np;      // hi xyz, the clamped position's y
+  float4* s_pc = s_hi + np;      // the position less the world's mean xyz, the clamped z
+  unsigned char* after = reinterpret_cast<unsigned char*>(shared_rows ? smem + 3 * np : smem);
+  u64* words = reinterpret_cast<u64*>(rounds_words_shared(n0)
+                                          ? after
+                                          : g + (shared_rows ? 0 : 16 * 3 * static_cast<size_t>(np)));
+  float* stage = reinterpret_cast<float*>(after + (rounds_words_shared(n0)
+                                                       ? 8 * static_cast<size_t>(R) * ncp : 0));
+  int* s_deg = reinterpret_cast<int*>(stage + (kRoundThreads / 32) * 4 * 32);
+  int* s_base = s_deg + kBlockRows;
+  float* red = reinterpret_cast<float*>(s_base + kBlockRows);
   int* isum = reinterpret_cast<int*>(red + 32 * 3);
-  uint32_t* ab_w = reinterpret_cast<uint32_t*>(ab + static_cast<size_t>(w) * K * 2);
-  uint32_t* nrm_w = reinterpret_cast<uint32_t*>(nrm + static_cast<size_t>(w) * K * 3);
-
-  // 0. the producer warp queues the slot spans' zeros and leaves.
-  if (a >= tc) {
-    const int lane = a - tc;
-    for (int i = lane; i < kZeroBytes / 16; i += 32) s_zero[i] = make_uint4(0u, 0u, 0u, 0u);
-    fence_shared_for_bulk();
-    __syncwarp();
-    zero_span(ab_w, 2 * K, s_zero, lane);
-    zero_span(nrm_w, 3 * K, s_zero, lane);
-    if (lane == 0) {
-      bulk_commit();
-      bulk_wait();
-    }
-    __syncwarp();
-    cta_sync();  // the compute threads write the slots after this
-    return;
-  }
   SJ_PHASE_START
 
-  // 1. clamp and AABB, a row at a time; each thread's position sum.
+  // 1. clamp and AABB, a row at a time; each thread's position sum, over
+  // rows a + kMeanThreads k (the last warp's threads take none), so that
+  // the world's mean is summed in the order the layout took before.
   float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-  for (int r = a; r < n0; r += tc) {
+  for (int r = a; a < kMeanThreads && r < n0; r += kMeanThreads) {
     const size_t body = static_cast<size_t>(w) * n0 + r;
     const float4 q = rot[body];
     const float gx = pos[body * 3], gy = pos[body * 3 + 1], gz = pos[body * 3 + 2];
@@ -844,138 +1033,128 @@ fused_simple_jobs_rounds_kernel(const float* __restrict__ pos,
     const float ex = fabsf(r00) + fabsf(r01) + fabsf(r02);
     const float ey = fabsf(r10) + fabsf(r11) + fabsf(r12);
     const float ez = fabsf(r20) + fabsf(r21) + fabsf(r22);
-    float4 p;
-    p.x = fminf(fmaxf(gx, bounds.lo[0]), bounds.hi[0]);
-    p.y = fminf(fmaxf(gy, bounds.lo[1]), bounds.hi[1]);
-    p.z = fminf(fmaxf(gz, bounds.lo[2]), bounds.hi[2]);
-    p.w = 0.0f;
-    s_lo[r] = make_float4(p.x - ex, p.y - ey, p.z - ez, 0.0f);
-    s_hi[r] = make_float4(p.x + ex, p.y + ey, p.z + ez, 0.0f);
-    s_pos[r] = p;
-    sx += p.x;
-    sy += p.y;
-    sz += p.z;
+    const float px = fminf(fmaxf(gx, bounds.lo[0]), bounds.hi[0]);
+    const float py = fminf(fmaxf(gy, bounds.lo[1]), bounds.hi[1]);
+    const float pz = fminf(fmaxf(gz, bounds.lo[2]), bounds.hi[2]);
+    s_lo[r] = make_float4(px - ex, py - ey, pz - ez, px);
+    s_hi[r] = make_float4(px + ex, py + ey, pz + ez, py);
+    s_pc[r] = make_float4(0.0f, 0.0f, 0.0f, pz);
+    sx += px;
+    sy += py;
+    sz += pz;
   }
   SJ_PHASE(1);
 
-  // 2. the world's mean; the half boxes about it (a thread reads back only
-  // the rows it wrote).
+  // 2. the world's mean; the centred positions; pad rows' boxes NaN, which
+  // overlap nothing; lo and hi out.
   const float3 sum = block_sum3(sx, sy, sz, red, tc);  // syncs
   const float fn = static_cast<float>(n0);
   const float3 mean = make_float3(sum.x / fn, sum.y / fn, sum.z / fn);
-  const float3 ref = finite_ref(mean);
-  for (int r = a; r < np; r += tc)
-    s_hb[r] = r < n0 ? half_box(s_lo[r], s_hi[r], ref) : nan_half_box();
+  for (int r = a; r < np; r += tc) {
+    if (r < n0) {
+      const float4 l = s_lo[r], h = s_hi[r];
+      s_pc[r] = make_float4(l.w - mean.x, h.w - mean.y, s_pc[r].w - mean.z, s_pc[r].w);
+    } else {
+      const float q = __int_as_float(0x7fffffff);
+      s_lo[r] = s_hi[r] = make_float4(q, q, q, q);
+    }
+  }
   compute_sync(tc);
+  const size_t row3 = static_cast<size_t>(w) * n0 * 3;
+  put_rows3(lo + row3, 0, 3 * n0, s_lo, a, tc);
+  put_rows3(hi + row3, 0, 3 * n0, s_hi, a, tc);
   SJ_PHASE(2);
 
-  // 3. the candidate bits.
-  overlap_bits_rounds(bits, s_hb, np, nc, tc);
-  compute_sync(tc);
-  SJ_PHASE(3);
+  // Steps A-D a block of R rows (whole chunks) at a time, in row order: A
+  // the block's words (those below its chunks from the lower triangle); B
+  // each row's degree and push (the translation out); C the capped
+  // degrees' exclusive prefix, carried from block to block (warp 0); D each
+  // row's slots.
+  int2* ab2 = reinterpret_cast<int2*>(ab) + static_cast<size_t>(w) * K;
+  float* nrm_s = nrm + static_cast<size_t>(w) * K * 3;
+  int* st_b = reinterpret_cast<int*>(stage + warp * 4 * 32);   // this warp's slot stage
+  float* st_n = stage + warp * 4 * 32 + 32;
+  int run = 0, drop = 0;   // warp 0's: the slots and drops of the blocks so far
+  for (int r0 = 0; r0 < n0; r0 += R) {
+    const int rows_here = min(R, n0 - r0);
+    const int cb = r0 / kChunk, nb = (rows_here + kChunk - 1) / kChunk;
+    for (int t = a; t < cb * kChunk * nb; t += tc) {
+      const int c = t / (kChunk * nb), r = t % (kChunk * nb);
+      words[static_cast<size_t>(r) * ncp + c] = lower[static_cast<size_t>(c) * np + r0 + r];
+    }
+    round_words(words, lower, s_lo, s_hi, cb, nb, nc, np, ncp);
+    compute_sync(tc);
+    for (int r = r0 + warp; r < r0 + rows_here; r += tc / 32) {
+      const u64* wrow = words + static_cast<size_t>(r - r0) * ncp;
+      int n = 0;
+      for (int c = lane; c < nc; c += 32) n += __popcll(wrow[c]);
+      n = static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(n)));
+      if (lane == 0) s_deg[r - r0] = n;
+    }
+    compute_sync(tc);
+    SJ_PHASE(3);
 
-  // 4. each row's exact overlaps in ascending b: its words, degree and
-  // push (in the push tree's order); the translation staged where the half
-  // boxes were, the degree in its w.
-  for (int r = a; r < n0; r += tc) {
-    const float4 l = s_lo[r], h = s_hi[r], p = s_pos[r];
-    const float xa = p.x - mean.x, ya = p.y - mean.y, za = p.z - mean.z;
-    int deg = 0;
-    PushTree<kRoundTreeLevels> tree;
-    tree.clear();
-    for (int k = 0; k < nc; ++k) {
-      u64* at = bits + static_cast<size_t>(k) * np + r;
-      u64 word = *at;
-      if (k == r / kChunk) word &= ~(1ull << (r % kChunk));
-      u64 exact = word;
-      float ax = 0.0f, ay = 0.0f, az = 0.0f;
-      while (word != 0ull) {
-        const int bit = __ffsll(static_cast<long long>(word)) - 1;
-        const int b = kChunk * k + bit;
-        word &= word - 1ull;
-        if (!overlap(l, h, s_lo[b], s_hi[b])) {
-          exact &= ~(1ull << bit);
-          continue;
-        }
-        const float4 pb = s_pos[b];
-        const float dx = (pb.x - mean.x) - xa;
-        const float dy = (pb.y - mean.y) - ya;
-        const float dz = (pb.z - mean.z) - za;
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        if (d2 > 1e-12f) {
-          const float m = rsqrtf(fmaxf(d2, 1e-30f));
-          ax += m * dx;
-          ay += m * dy;
-          az += m * dz;
+    if (warp == 0) {
+      constexpr int per = kBlockRows / 32;
+      int v = 0, d = 0;
+#pragma unroll
+      for (int k = 0; k < per; ++k) {
+        const int i = per * lane + k;
+        const int deg = i < rows_here ? s_deg[i] : 0;
+        v += min(deg, D);
+        d += deg - min(deg, D);
+      }
+      int x = v;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x += y;
+      }
+      int at = run + x - v;
+#pragma unroll
+      for (int k = 0; k < per; ++k) {
+        const int i = per * lane + k;
+        if (i < rows_here) {
+          s_base[i] = at;
+          at += min(s_deg[i], D);
         }
       }
-      tree.push(make_float3(ax, ay, az), k);
-      *at = exact;
-      deg += __popcll(exact);
+      run += __shfl_sync(kFull, x, 31);
+      drop += static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(d)));
     }
-    const float3 t = tree.total(nc);
-    s_tr[r] = make_float4(p.x + -2.0f * t.x, p.y + -2.0f * t.y, p.z + -2.0f * t.z,
-                          __int_as_float(deg));
-  }
-  SJ_PHASE(4);
+    compute_sync(tc);
+    SJ_PHASE(5);
 
-  // 5. base = the exclusive prefix of the capped degrees over the rows in
-  // order, a round at a time, each row's kept in the w of its hi (no
-  // thread reads a hi's w before step 6); total; dropped.
-  int run = 0, drop = 0;
-  for (int r0 = 0; r0 < np; r0 += tc) {
-    const int r = r0 + a;
-    const int deg = r < n0 ? __float_as_int(s_tr[r].w) : 0;
-    const int degc = min(deg, D);
-    const Scan sc = block_scan(degc, deg - degc, isum, tc);  // syncs
-    if (r < n0) s_hi[r].w = __int_as_float(run + sc.base);
-    run += sc.total;
-    drop += sc.dropped;
-    compute_sync(tc);  // the warps' totals are written again next round
+    for (int r = r0 + warp; r < r0 + rows_here; r += tc / 32) {
+      const u64* wrow = words + static_cast<size_t>(r - r0) * ncp;
+      const int base = s_base[r - r0];
+      const int cnt = min(base + min(s_deg[r - r0], D), K) - base;
+      const float3 t = round_push(wrow, s_pc, r, nc, cnt, st_b);
+      if (lane < 3) {
+        const float4 pr = lane == 0 ? s_lo[r] : (lane == 1 ? s_hi[r] : s_pc[r]);
+        const float tl = lane == 0 ? t.x : (lane == 1 ? t.y : t.z);
+        translation[(static_cast<size_t>(w) * n0 + r) * 3 + lane] = pr.w + -2.0f * tl;
+      }
+      if (cnt > 0) round_emit(s_lo, s_hi, s_pc, r, base, 0, min(cnt, 32), ab2, nrm_s, st_b, st_n);
+      if (cnt > 32)
+        round_slots_past(wrow, s_lo, s_hi, s_pc, r, nc, base, cnt, ab2, nrm_s, st_b, st_n);
+    }
+    compute_sync(tc);  // the next block's words overwrite this one's
+    SJ_PHASE(4);
   }
-  const int nlive = min(run, K);
-  SJ_PHASE(5);
+
+  // the counters, then the slot spans' tail past min(total, K) as zeros
   if (a == 0) {
     counts[w] = run;
     dropped[w] = drop;
     if (zeros != nullptr) zeros[w] = 0;
+    isum[0] = run;
   }
-
-  // 6. lo, hi and the translation out; then, once the zeros are written,
-  // the slots in one pass: each row walks its exact words again and writes
-  // its first partners at base + rank itself (a row's slots are
-  // contiguous, and the rows' in row order), where a stage would wait on
-  // a barrier and on the words' global loads once a chunk of slots.
-  const size_t row3 = static_cast<size_t>(w) * n0 * 3;
-  put_rows3(lo + row3, 0, 3 * n0, s_lo, a, tc);
-  put_rows3(hi + row3, 0, 3 * n0, s_hi, a, tc);
-  put_rows3(translation + row3, 0, 3 * n0, s_tr, a, tc);
-  cta_sync();  // the zeros are written before the slots
-  int2* ab2 = reinterpret_cast<int2*>(ab) + static_cast<size_t>(w) * K;
-  float* nrm_s = nrm + static_cast<size_t>(w) * K * 3;
-  for (int r = a; r < n0; r += tc) {
-    const int base = __float_as_int(s_hi[r].w);
-    const int row_end = min(base + min(__float_as_int(s_tr[r].w), D), nlive);
-    const float4 p = s_pos[r];
-    int k = base;
-    for (int c = 0; c < nc && k < row_end; ++c) {
-      u64 word = bits[static_cast<size_t>(c) * np + r];
-      while (word != 0ull && k < row_end) {
-        const int b = kChunk * c + __ffsll(static_cast<long long>(word)) - 1;
-        word &= word - 1ull;
-        const float4 pb = s_pos[b];
-        const float dx = pb.x - p.x;
-        const float dy = pb.y - p.y;
-        const float dz = pb.z - p.z;
-        const float inv = rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-30f));
-        ab2[k] = make_int2(r, b);
-        nrm_s[3 * k] = dx * inv;
-        nrm_s[3 * k + 1] = dy * inv;
-        nrm_s[3 * k + 2] = dz * inv;
-        ++k;
-      }
-    }
-  }
+  compute_sync(tc);
+  const int nlive = min(isum[0], K);
+  uint32_t* ab_w = reinterpret_cast<uint32_t*>(ab2);
+  uint32_t* nrm_w = reinterpret_cast<uint32_t*>(nrm_s);
+  put_words(ab_w, 2 * nlive, 2 * K, [](int) { return 0u; }, a, tc);
+  put_words(nrm_w, 3 * nlive, 3 * K, [](int) { return 0u; }, a, tc);
   SJ_PHASE(6);
 }
 
@@ -1000,9 +1179,9 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }  // namespace
 
 // zeros may be null: the node's zero counters are then not written.
-// scratch: past kMaxBodies bodies (the rounds layout) W
-// rounds_scratch_bytes(n0) bytes (scratch_bytes in ops/simple_jobs_kernel.py),
-// 16-byte aligned; else unused.
+// scratch: past kMaxBodies bodies (the rounds layout), where
+// rounds_scratch_bytes(n0) > 0, W times that many bytes (scratch_bytes in
+// ops/simple_jobs_kernel.py), 16-byte aligned; else unused.
 extern "C" int fused_simple_jobs_step_launch(
     const void* pos, const void* rot, int W, int n0, int K, int D,
     float lo_x, float lo_y, float lo_z, float hi_x, float hi_y, float hi_z,
@@ -1013,12 +1192,13 @@ extern "C" int fused_simple_jobs_step_launch(
   const Bounds bounds = {{lo_x, lo_y, lo_z}, {hi_x, hi_y, hi_z}};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n0 > kMaxBodies) {
-    if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    if (rounds_scratch_bytes(n0) > 0 &&
+        (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16 != 0))
       return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = rounds_smem_bytes(n0);
     const cudaError_t err = allow_smem(fused_simple_jobs_rounds_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_simple_jobs_rounds_kernel<<<W, kMaxThreads, smem, st>>>(
+    fused_simple_jobs_rounds_kernel<<<W, kRoundThreads, smem, st>>>(
         static_cast<const float*>(pos), static_cast<const float4*>(rot), n0, K, D, bounds,
         static_cast<float*>(translation), static_cast<float*>(lo), static_cast<float*>(hi),
         static_cast<int*>(ab), static_cast<float*>(nrm), static_cast<int*>(counts),
@@ -1044,7 +1224,7 @@ extern "C" int simple_jobs_occupancy(int n0, int* threads, int* smem, int* ctas)
   if (n0 <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n0 > kMaxBodies) {
     const size_t bytes = rounds_smem_bytes(n0);
-    *threads = kMaxThreads;
+    *threads = kRoundThreads;
     *smem = static_cast<int>(bytes);
     cudaError_t err = allow_smem(fused_simple_jobs_rounds_kernel, bytes);
     if (err == cudaSuccess)

@@ -27,9 +27,10 @@ A padded ray (|rd|^2 < 0.5, RenderKernel's padding) comes out as a miss; so
 does every ray against an instance whose mask is 0 or whose object id is
 outside the tables.  A world's instances that do not fit one block's shared
 memory at once (``blocked``: above 1,614 rows in the rays mode, 2,421 in the
-views mode) are staged BLOCK at a time by the kernel's blocked
-specialisation, each pixel's nearest hit carried from block to block;
-the outputs are the same.
+views mode) are staged in blocks by the kernel's blocked specialisations
+(the rays mode BLOCK at a time; the views mode's twin in stages of the
+view's survivors, ``views_stage``), each pixel's nearest hit carried from
+block to block; the outputs are the same.
 
 On CUDA tensors ``render`` launches ``csrc/render_kernels.cu`` (its notes
 say what bounds it and how it is laid out) or raises; on CPU tensors it
@@ -95,10 +96,23 @@ TILE_W, TILE_H = 8, 4
 STAGE_RAYS, STAGE_VIEWS = 4 * 16 + WARPS * 20, 6 * 16
 MAX_SMEM_BYTES = 227 * 1024
 # A world whose instances do not fit MAX_SMEM_BYTES at once takes the
-# kernel's blocked specialisation: BLOCK instances staged at a time, each
-# with its index (4 bytes more), each pixel's nearest hit carried in its
-# own outputs from block to block (csrc/render_kernels.cu kBlock).
+# kernel's blocked specialisation.  Rays mode: BLOCK instances staged at a
+# time, each with its index (4 bytes more), each pixel's nearest hit
+# carried in its own outputs from block to block (csrc/render_kernels.cu
+# kBlock).  Views mode (render_views_blocked_kernel): views_splits(H, Wpx)
+# CTAs an image (VIEWS_SPLITS, at most one a VIEWS_WARPS tiles), each of
+# VIEWS_WARPS warps, VIEWS_CTAS CTAs an SM; stages of views_stage(H, Wpx)
+# survivors of the view's cone, VIEWS_ENTRY bytes each (six float4s and
+# the index), each pixel's nearest hit carried in shared memory (8 bytes a
+# pixel of the CTA's tiles) where they fit CARRY_MAX bytes, else in the
+# image's outputs; VIEWS_SMEM dynamic shared bytes a CTA at most.
 BLOCK = 512
+VIEWS_SPLITS = 2
+VIEWS_WARPS = 8
+VIEWS_CTAS = 2
+VIEWS_ENTRY = 6 * 16 + 4
+CARRY_MAX = 65536
+VIEWS_SMEM = (MAX_SMEM_BYTES if VIEWS_CTAS == 1 else 233472 // VIEWS_CTAS - 1024) - 1024
 # CTAs a launch aims for (132 SMs x 16, two waves of 8 CTAs an SM): images
 # are split until the grid has them, so that the last wave is short and
 # small world counts still fill the card (the fastest of 1056, 2112, 4096
@@ -444,30 +458,67 @@ def _lib():
         lib.render_views_launch.argtypes = ([P] * 4 + [I] * 4 + [P] * 6 + [I] * 7 + [F] * 5
                                             + [I] + [P] * 3)
         lib.render_views_launch.restype = I
-        lib.render_occupancy.argtypes = [I, I, I, P]
+        lib.render_occupancy.argtypes = [I, I, I, I, I, P]
         lib.render_occupancy.restype = I
         lib._typed = True
     return lib
 
 
 def blocked(N: int, views: bool = False) -> bool:
-    """Whether the mode stages N instances in blocks of BLOCK (their
-    STAGE_RAYS or STAGE_VIEWS bytes each pass MAX_SMEM_BYTES)."""
+    """Whether the mode takes N instances in stages (their STAGE_RAYS or
+    STAGE_VIEWS bytes each pass MAX_SMEM_BYTES)."""
     return N * (STAGE_VIEWS if views else STAGE_RAYS) > MAX_SMEM_BYTES
 
 
-def stage_blocks(N: int, views: bool = False) -> int:
+def views_splits(H: int, Wpx: int) -> int:
+    """The views mode's blocked twin: its CTAs an H x Wpx image
+    (views_splits in the .cu)."""
+    tiles = -(-Wpx // TILE_W) * -(-H // TILE_H)
+    return min(-(-tiles // VIEWS_WARPS), VIEWS_SPLITS)
+
+
+def views_carry_bytes(H: int, Wpx: int) -> int:
+    """The views mode's blocked twin: the shared bytes of a CTA's carried
+    hits at an H x Wpx image (8 a pixel of its tiles), or 0 where they pass
+    CARRY_MAX and wait in the image's outputs (views_carry_bytes in the
+    .cu)."""
+    tiles = -(-Wpx // TILE_W) * -(-H // TILE_H)
+    nbytes = 8 * 32 * VIEWS_WARPS * -(-tiles // (views_splits(H, Wpx) * VIEWS_WARPS))
+    return nbytes if nbytes <= CARRY_MAX else 0
+
+
+def views_stage(H: int, Wpx: int) -> int:
+    """The survivors a stage of the views mode's blocked twin holds at an H x
+    Wpx image: what VIEWS_SMEM leaves beside the carried hits, a multiple of
+    32 (views_stage in the .cu)."""
+    return (VIEWS_SMEM - views_carry_bytes(H, Wpx)) // VIEWS_ENTRY // 32 * 32
+
+
+def views_blocked_stage(H: int, Wpx: int) -> int:
+    """The stage a views-mode blocked launch asks for: views_stage (the card
+    tests patch this to hold a smaller one to the kernel's)."""
+    return views_stage(H, Wpx)
+
+
+def stage_blocks(N: int, views: bool = False, H: int = 64, Wpx: int = 64) -> int:
     """The instance blocks a CTA stages for N instances (1 when they fit at
-    once)."""
-    return -(-N // BLOCK) if blocked(N, views) else 1
+    once); in the views mode's blocked twin the stages at most (the view's
+    cone may leave fewer survivors), at an H x Wpx image."""
+    if not blocked(N, views):
+        return 1
+    return -(-N // (views_stage(H, Wpx) if views else BLOCK))
 
 
-def smem_bytes(N: int, views: bool = False) -> int:
+def smem_bytes(N: int, views: bool = False, H: int = 64, Wpx: int = 64) -> int:
     """The kernel's dynamic shared memory for N instances: STAGE_RAYS or
-    STAGE_VIEWS bytes each, or in blocks of BLOCK with an index (4 bytes)
-    more each."""
-    stage = STAGE_VIEWS if views else STAGE_RAYS
-    return BLOCK * (stage + 4) if blocked(N, views) else N * stage
+    STAGE_VIEWS bytes each, or blocked: the rays mode's BLOCK instances with
+    an index (4 bytes) more each; the views mode's stage and carried hits
+    at an H x Wpx image."""
+    if not blocked(N, views):
+        return N * (STAGE_VIEWS if views else STAGE_RAYS)
+    if views:
+        return views_stage(H, Wpx) * VIEWS_ENTRY + views_carry_bytes(H, Wpx)
+    return BLOCK * (STAGE_RAYS + 4)
 
 
 def tile_shape(P: int, img_w: int):
@@ -493,11 +544,14 @@ def kernel_fits(N: int, views: bool = False) -> str:
     return ""
 
 
-def occupancy(N: int, views: bool = False) -> int:
-    """CTAs an SM of the mode's kernel at N instances (needs the card)."""
+def occupancy(N: int, views: bool = False, H: int = 64, Wpx: int = 64) -> int:
+    """CTAs an SM of the mode's kernel at N instances (the views mode's
+    blocked twin at an H x Wpx image; needs the card)."""
     n = ctypes.c_int(0)
-    rc = _lib().render_occupancy(int(views), N, BLOCK if blocked(N, views) else 0,
-                                 ctypes.byref(n))
+    block = 0
+    if blocked(N, views):
+        block = views_stage(H, Wpx) if views else BLOCK
+    rc = _lib().render_occupancy(int(views), N, block, H, Wpx, ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"render occupancy failed with cudaError {rc}")
     return n.value
@@ -643,14 +697,16 @@ def render_views(views, pos, rot, scale, obj, mask, *, tables: RenderTables, lig
     depth = torch.empty((W, V, H, Wpx), dtype=torch.float32, device=dev)
     if W == 0:
         return rgba, depth
-    splits = launch_splits(W * V, -(-Wpx // TILE_W) * -(-H // TILE_H))
+    if blocked(N, views=True):   # the blocked twin: stages of survivors
+        splits, block = views_splits(H, Wpx), views_blocked_stage(H, Wpx)
+    else:
+        splits, block = launch_splits(W * V, -(-Wpx // TILE_W) * -(-H // TILE_H)), 0
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().render_views_launch(
         *(t.data_ptr() for t in ins[:4]), Vc, V, H, Wpx, *(t.data_ptr() for t in ins[4:]),
         table.data_ptr(), tables.O, tables.stride, tables.F_used, tables.T_used, W, N, splits,
         float(light[0]), float(light[1]), float(light[2]), float(ambient),
-        float(1.0 - ambient), BLOCK if blocked(N, views=True) else 0,
-        rgba.data_ptr(), depth.data_ptr(), stream)
+        float(1.0 - ambient), block, rgba.data_ptr(), depth.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"render_views: kernel launch failed with cudaError {rc}")
     RenderKernel.launches += 1

@@ -42,14 +42,19 @@ from gpu_ecs_madrona_tpu_torch.utils.compaction import first_partners, rank_slot
 # CTA a world.  Up to MAX_BODIES bodies, a compute thread a row slot (n0
 # rounded up to CHUNK, at least MIN_THREADS) and one producer warp that
 # queues the slot spans' zeros where it fits in MAX_THREADS.  Past it, the
-# rounds layout: ROUND_THREADS compute threads take the row slots in rounds
-# beside the producer warp, the rows' state in shared memory while it fits
-# MAX_SMEM (rounds_rows_shared), else in a global scratch that also holds
-# the bit grid's words (scratch_bytes a world; the wrapper allocates it).
+# rounds layout: ROUND_THREADS threads, every warp computing, take the rows
+# a block of at most BLOCK_ROWS at a time, a warp a row; the rows' state in
+# shared memory while it fits beside a block of MIN_BLOCK_ROWS rows' overlap
+# words (rounds_rows_shared).  A global scratch (scratch_bytes a world; the
+# wrapper allocates it) holds the lower triangle's words, and the rows and a
+# block's words where they do not fit.
 MAX_BODIES = 1024
 MAX_THREADS = 1024
 MIN_THREADS = 128
-ROUND_THREADS = 992
+ROUND_THREADS = 1024
+BLOCK_ROWS = 256    # the rounds layout's rows a block at most
+MIN_BLOCK_ROWS = 64  # ... at least, where its rows stay in shared memory
+UNIT = 16           # rows of a candidate-word unit
 CHUNK = 64          # rows a bit-grid word covers
 STAGE = 512         # slots staged a chunk
 ZERO_BYTES = 2048   # the bulk stores' zero source
@@ -88,31 +93,65 @@ def smem_bytes(n0: int) -> int:
             + 4 * (5 * STAGE + 32 * 3 + 32 * 2))
 
 
+def round_ncp(n0: int) -> int:
+    """The rounds layout's words a row in a block: the chunks, made odd."""
+    return -(-n0 // CHUNK) | 1
+
+
+def rounds_fixed_bytes() -> int:
+    """The rounds layout's shared bytes at any n0: each warp's slot stage
+    (32 partners and 3 x 32 normals), a block's degrees and bases, the
+    warps' sums."""
+    return 4 * (ROUND_THREADS // 32 * 4 * 32 + 2 * BLOCK_ROWS + 32 * 3 + 32 * 2)
+
+
 def rounds_rows_shared(n0: int) -> bool:
-    """Whether the rounds layout keeps the rows' lo, hi, position and half
-    box in shared memory (rounds_rows_shared in the .cu)."""
+    """Whether the rounds layout keeps the rows' lo, hi and centred position
+    (16 bytes a row slot each) in shared memory: where they fit beside a
+    MIN_BLOCK_ROWS-row block's words (rounds_rows_shared in the .cu)."""
     np_ = CHUNK * -(-n0 // CHUNK)
-    return 16 * 4 * np_ + ZERO_BYTES + 4 * (32 * 3 + 32 * 2) <= MAX_SMEM
+    return (16 * 3 * np_ + 8 * MIN_BLOCK_ROWS * round_ncp(n0) + rounds_fixed_bytes()
+            <= MAX_SMEM)
+
+
+def _rows_bytes(n0: int) -> int:
+    return 16 * 3 * CHUNK * -(-n0 // CHUNK) if rounds_rows_shared(n0) else 0
+
+
+def rounds_words_shared(n0: int) -> bool:
+    """Whether a block's words stay in shared memory (at least
+    MIN_BLOCK_ROWS rows')."""
+    return (_rows_bytes(n0) + 8 * MIN_BLOCK_ROWS * round_ncp(n0) + rounds_fixed_bytes()
+            <= MAX_SMEM)
+
+
+def rounds_block_rows(n0: int) -> int:
+    """The rows a rounds-layout block takes (rounds_block_rows in the .cu):
+    whole chunks, as many as the shared memory left holds the words of, at
+    most BLOCK_ROWS; BLOCK_ROWS with the words in the scratch."""
+    left = MAX_SMEM - rounds_fixed_bytes() - _rows_bytes(n0)
+    fit = left // (8 * round_ncp(n0)) // CHUNK * CHUNK
+    return BLOCK_ROWS if fit < MIN_BLOCK_ROWS else min(fit, BLOCK_ROWS)
 
 
 def rounds_smem_bytes(n0: int) -> int:
     """Shared bytes of a rounds-layout CTA (rounds_smem_bytes in the .cu):
-    the rows where they fit, the zeros, the warps' sums."""
-    np_ = CHUNK * -(-n0 // CHUNK)
-    rows = 4 * np_ if rounds_rows_shared(n0) else 0
-    return 16 * rows + ZERO_BYTES + 4 * (32 * 3 + 32 * 2)
+    the rows where they fit, a block's words where they fit, the rest."""
+    words = rounds_block_rows(n0) * round_ncp(n0) if rounds_words_shared(n0) else 0
+    return _rows_bytes(n0) + 8 * words + rounds_fixed_bytes()
 
 
 def scratch_bytes(n0: int) -> int:
     """A world's bytes of the rounds layout's global scratch
-    (rounds_scratch_bytes in the .cu; 0 in the one-block layout): the bit
-    grid's words [np / 64][np] u64, then the rows where they are not in
-    shared memory."""
+    (rounds_scratch_bytes in the .cu; 0 in the one-block layout): the lower
+    triangle's words u64 [np / 64][np], then the rows and a block's words
+    where they are not in shared memory."""
     if not rounds(n0):
         return 0
     np_ = CHUNK * -(-n0 // CHUNK)
-    rows = 0 if rounds_rows_shared(n0) else 4 * np_
-    return 8 * (np_ // CHUNK * np_) + 16 * rows
+    rows = 0 if rounds_rows_shared(n0) else 3 * np_
+    words = 0 if rounds_words_shared(n0) else rounds_block_rows(n0) * round_ncp(n0)
+    return 8 * (np_ // CHUNK * np_) + 16 * rows + 8 * words
 
 
 def launch_shape(W: int, n0: int) -> dict:
@@ -211,7 +250,7 @@ def scratch(W: int, n0: int, device):
     """The rounds layout's global scratch for W worlds of n0 bodies
     (scratch_bytes a world; the launch writes every word it reads, so it
     needs no clearing), or None in the one-block layout."""
-    if not rounds(n0):
+    if scratch_bytes(n0) == 0:
         return None
     return torch.empty((W * scratch_bytes(n0) // 16, 4), dtype=torch.int32, device=device)
 
@@ -238,7 +277,8 @@ def fused_simple_jobs_step(pos, rot, *, n0: int, K: int, degree_cap: int, bounds
 
     K: the candidate capacity; degree_cap: the per-row partner cap D;
     bounds: ((lo x, y, z), (hi x, y, z)).  Past MAX_BODIES bodies the
-    kernel takes its rounds layout, with a global scratch made here."""
+    kernel takes its rounds layout, with a global scratch made here where
+    its rows do not fit in shared memory."""
     if pos.ndim != 3 or pos.shape[1] != n0:
         raise ValueError(f"fused_simple_jobs_step: pos {tuple(pos.shape)} does not "
                          f"hold n0={n0} bodies")

@@ -2,7 +2,7 @@
 """Times the render kernel and simple_taskgraph's render node of one or more
 checkouts on one card, in turns: an A/B of a change against its parent.
 
-    python3 gpu_ecs_madrona_tpu_torch/tools/render_ab.py ROOT [ROOT ...]
+    python3 gpu_ecs_madrona_tpu_torch/tools/render_ab.py [--phases] [--large-only] ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository; each runs in a
 process of its own (so that two versions of the package never meet), in
@@ -36,6 +36,17 @@ prints one JSON line, from simple_taskgraph at 1024 worlds x 100 spheres,
              mode's on the same rays ("rays_4096"), with their digests;
              "refused" where the kernel refuses them, or a note where the
              checkout has no such scene
+  phases     (--phases) the large launches' cycles a warp by phase, from a
+             copy of ROOT's csrc/render_kernels.cu built with its RK_PHASE
+             markers defined (each warp adds clock64() differences by phase
+             in registers, no barrier, and its lane 0 adds them to a
+             __device__ array at the end, read back through
+             cudaMemcpyFromSymbol), with the instrumented copy's ms and the
+             SM clock nvidia-smi reads after it.  The phase names are the
+             source's "RK_PHASES:" lines; a checkout without markers (the kernel
+             before them) gets PARENT_MARKS put in at their anchors.
+
+--large-only skips everything but the large case (and its phases).
 
 The script needs a CUDA card; without one it exits 1 and prints nothing.
 """
@@ -47,6 +58,54 @@ import sys
 import time
 
 WORLDS, OBJECTS, RES = 1024, 100, 64
+
+# the phases of the kernel before the markers: (anchor, marker, marker after
+# the anchor)
+PARENT_NAMES = ("setup stage_loads cone_cull stage_compact tile_setup carried_load tile_cull "
+                "trace carried_store shade block_sync").split()
+PARENT_MARKS = [
+    ("  __shared__ int s_count[kWarps];\n", "  RK_PHASE_START\n", True),
+    ("    sin_v = sqrtf(fmaxf(1.0f - cos_v * cos_v, 0.0f));\n  }\n", "  RK_PHASE(0);\n", True),
+    ("      const float rbs = __ldg(tb + kRBound) * fmaxf(fmaxf(s.x, s.y), s.z);\n",
+     "      RK_PHASE(1);\n", True),
+    ("      const unsigned ballot = __ballot_sync(0xffffffffu, keep);\n",
+     "      RK_PHASE(2);\n", False),
+    ("      M += chunk;\n      __syncthreads();\n", "      RK_PHASE(3);\n", True),
+    ("      int best_gid = -1;\n", "      RK_PHASE(4);\n", True),
+    ("                         : __float_as_int(a.out[o_px + 3 * static_cast<size_t>(a.P)]);\n"
+     "      }\n", "      RK_PHASE(5);\n", True),
+    ("        if (pad) continue;\n", "        RK_PHASE(6);\n", False),
+    ("            best_sphere = false;\n          }\n        }\n", "        RK_PHASE(7);\n", True),
+    ("        continue;\n      }\n      if (best_k >= 0) {\n", "        RK_PHASE(8);\n", False),
+    ("          o[4 * a.P] = hit ? best_t : kBig;\n        }\n      }\n", "      RK_PHASE(9);\n",
+     True),
+    ("      __syncthreads();   // the next block's staging overwrites this one's\n",
+     "      RK_PHASE(10);\n", True),
+    ("  } else {\n    pass(0, N);\n  }\n", "  RK_PHASE_END\n", True)]
+PHASE_SLOTS = 16
+PRELUDE = r"""
+#include <cuda_runtime.h>
+__device__ unsigned long long rk_phase_cycles_d[PHASE_SLOTS + 1];
+#define RK_PHASE_START long long rk_t0 = clock64(); \
+  unsigned long long rk_acc[PHASE_SLOTS] = {};
+#define RK_PHASE(k) do { const long long rk_t = clock64(); \
+    rk_acc[k] += (unsigned long long)(rk_t - rk_t0); rk_t0 = rk_t; } while (0)
+#define RK_PHASE_END if ((threadIdx.x & 31) == 0) { \
+    for (int rk_k = 0; rk_k < PHASE_SLOTS; ++rk_k) \
+      if (rk_acc[rk_k]) atomicAdd(&rk_phase_cycles_d[rk_k], rk_acc[rk_k]); \
+    atomicAdd(&rk_phase_cycles_d[PHASE_SLOTS], 1ull); }
+"""
+READER = r"""
+extern "C" int rk_phase_cycles(unsigned long long* out, int reset) {
+  const size_t n = sizeof(unsigned long long) * (PHASE_SLOTS + 1);
+  cudaError_t e = cudaMemcpyFromSymbol(out, rk_phase_cycles_d, n);
+  if (e == cudaSuccess && reset) {
+    unsigned long long z[PHASE_SLOTS + 1] = {};
+    e = cudaMemcpyToSymbol(rk_phase_cycles_d, z, n);
+  }
+  return (int)e;
+}
+"""
 
 
 def cuda_ms(torch, fn, iters=200, warmup=3):
@@ -111,7 +170,61 @@ def digest(x):
     return h.hexdigest()[:16]
 
 
-def large_case(torch, root, rk, res):
+def marked_source(root):
+    """ROOT's render .cu with phase markers (its own, or PARENT_MARKS put
+    in) and the phase names."""
+    src = open(os.path.join(root, "gpu_ecs_madrona_tpu_torch", "csrc",
+                            "render_kernels.cu")).read()
+    if "RK_PHASE(" in src:
+        names = " ".join(ln.split("RK_PHASES:", 1)[1] for ln in src.splitlines()
+                         if "// RK_PHASES:" in ln).split()
+        return src, names
+    for anchor, marker, after in PARENT_MARKS:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"phase anchor {anchor!r} is not in {root}'s kernel once")
+        src = src.replace(anchor, anchor + marker if after else marker + anchor)
+    return src, PARENT_NAMES
+
+
+def instrumented(root, _build):
+    """ROOT's render .cu built with its phase markers defined, into ROOT's
+    build directory: (the library, the phase names)."""
+    import ctypes
+    src, names = marked_source(root)
+    out_dir = os.path.join(root, "build", "rk_phases")
+    os.makedirs(out_dir, exist_ok=True)
+    cu = os.path.join(out_dir, "render_phases.cu")
+    with open(cu, "w") as f:
+        f.write((PRELUDE + src + READER).replace("PHASE_SLOTS", str(PHASE_SLOTS)))
+    so = os.path.join(out_dir, "render_phases.so")
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", so, cu], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(so)
+    lib.rk_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.rk_phase_cycles.restype = ctypes.c_int
+    return lib, names
+
+
+def phase_cycles(torch, lib, names, fn, launches=5):
+    """fn's cycles a warp by phase (mean over launches and warps), run on
+    the instrumented library lib."""
+    import ctypes
+    buf = (ctypes.c_ulonglong * (PHASE_SLOTS + 1))()
+    fn()
+    torch.cuda.synchronize()
+    lib.rk_phase_cycles(buf, 1)
+    for _ in range(launches):
+        fn()
+    torch.cuda.synchronize()
+    if lib.rk_phase_cycles(buf, 1) != 0:
+        raise RuntimeError("rk_phase_cycles failed")
+    warps = buf[PHASE_SLOTS] / launches
+    cycles = {n: buf[k] / launches / max(warps, 1) for k, n in enumerate(names)}
+    return {"cycles_per_warp": cycles, "total_cycles_per_warp": sum(cycles.values()),
+            "warps_a_launch": warps, "instrumented_ms": cuda_ms(torch, fn, 5)}
+
+
+def large_case(torch, root, rk, res, with_phases=False, _build=None):
     """The large case (see the module doc)."""
     sys.path.insert(0, os.path.join(root, "tests"))
     import test_torch_render_scenes as scenes
@@ -135,9 +248,23 @@ def large_case(torch, root, rk, res):
     res["large"] = {"ms": {"views_4096": cuda_ms(torch, views_fn, 20),
                            "rays_4096": cuda_ms(torch, rays_fn, 20)},
                     "digests": {"views_4096": digest(views_fn()), "rays_4096": digest(rays_fn())}}
+    if with_phases:
+        lib, names = instrumented(root, _build)
+        built = _build._loaded.get("render_kernels")
+        _build._loaded["render_kernels"] = lib      # rk._lib() types and takes it
+        try:
+            got = {"views_4096": phase_cycles(torch, lib, names, views_fn),
+                   "rays_4096": phase_cycles(torch, lib, names, rays_fn)}
+            got["digests"] = {"views_4096": digest(views_fn()), "rays_4096": digest(rays_fn())}
+        finally:
+            _build._loaded["render_kernels"] = built
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                              "--format=csv,noheader"], capture_output=True, text=True)
+        got["sm_clock_after"] = smi.stdout.strip()
+        res["phases"] = got
 
 
-def one(root):
+def one(root, with_phases=False, large_only=False):
     import torch
     sys.path.insert(0, root)
     import gpu_ecs_madrona_tpu_torch as port
@@ -148,9 +275,13 @@ def one(root):
     if not os.path.abspath(port.__file__).startswith(os.path.abspath(root)):
         raise RuntimeError(f"{port.__file__} is not under {root}")
     torch.cuda.set_device(torch.device("cuda:0"))
-    _build.build()
+    _build.build(["render_kernels"] if large_only else None)
     res = {"root": root, "card": torch.cuda.get_device_name(0),
            "ptxas": ptxas_lines(_build.build(["render_kernels"])["render_kernels"])}
+    if large_only:
+        large_case(torch, root, rk, res, with_phases, _build)
+        print(json.dumps(res), flush=True)
+        return
 
     sim = stg.make_executor(stg.SimpleTaskgraphConfig(
         num_worlds=WORLDS, num_objects=OBJECTS, render=True, render_width=RES,
@@ -207,13 +338,14 @@ def one(root):
     res["render_group_ms"] = cuda_ms(torch, run_group, 20)
 
     res["ms"] = ms
-    large_case(torch, root, rk, res)
+    large_case(torch, root, rk, res, with_phases, _build)
     print(json.dumps(res), flush=True)
 
 
 def main(argv):
+    flags = [a for a in argv if a in ("--phases", "--large-only")]
     if "--one" in argv:
-        one(argv[argv.index("--one") + 1])
+        one(argv[argv.index("--one") + 1], "--phases" in flags, "--large-only" in flags)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -228,7 +360,7 @@ def main(argv):
     print(json.dumps({"card": smi.strip().splitlines()[0], "order": roots}), flush=True)
     for root in roots:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                        os.path.abspath(root)], check=True)
+                        os.path.abspath(root)] + flags, check=True)
     return 0
 
 

@@ -34,10 +34,14 @@ ANON = re.compile(r"\d*_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
 
 
 def kernels_sass(cubin: str, objdump: str) -> dict:
-    """{kernel's mangled name: its SASS} of a cubin."""
+    """{kernel's mangled name: its SASS} of a cubin, each run of blanks made
+    one space (cuobjdump pads every line of a file to the widest
+    instruction in it, so a kernel added beside another moves the other's
+    columns)."""
     sass = subprocess.run([objdump, "-sass", cubin], capture_output=True, text=True,
                           check=True).stdout
-    parts = re.split(r"\n\s*Function : (\S+)\n", ANON.sub("ANON", sass))
+    sass = re.sub(r"[ \t]+", " ", ANON.sub("ANON", sass))
+    parts = re.split(r"\n\s*Function : (\S+)\n", sass)
     return {parts[i]: parts[i + 1] for i in range(1, len(parts) - 1, 2)}
 
 

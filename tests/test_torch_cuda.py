@@ -1815,21 +1815,28 @@ def test_substep_bodies_in_scratch_matches_plain_bit_for_bit(card, case):
         assert torch.equal(got[k], want[k]), (k, float((got[k] - want[k]).abs().max()))
 
 
-SJ_LARGE = {1025: 8, 2048: 8, 4096: 2}    # n0: worlds
+# the rows' state past shared memory from this count on
+SJ_ROWS_PAST = 1 + max(n for n in range(1025, 4097) if sk.rounds_rows_shared(n))
+# case: (n0, worlds, K, D)
+SJ_LARGE = {"1025": (1025, 8, 16 * 1025, 32), "2048": (2048, 8, 16 * 2048, 32),
+            "rows_past_shared": (SJ_ROWS_PAST, 2, 16 * SJ_ROWS_PAST, 32),
+            "4096": (4096, 2, 16 * 4096, 32), "cap_100_cut": (2048, 4, 20000, 100)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n0", sorted(SJ_LARGE))
-def test_fused_simple_jobs_step_past_one_block_matches_plain(card, n0):
-    """Kernel 4's rounds layout past 1,024 bodies (at 4,096 the rows' state
-    in the global scratch too), dense worlds over the example's bounds, K =
-    16 n0, D = 32: integers, lo and hi exact (tails included), translation
-    atol 1e-4, normals atol 1e-5, as the one-block cases; a repeated launch
+@pytest.mark.parametrize("case", list(SJ_LARGE))
+def test_fused_simple_jobs_step_past_one_block_matches_plain(card, case):
+    """Kernel 4's rounds layout past 1,024 bodies (one past
+    rounds_rows_shared and at 4,096 the rows' state in the global scratch),
+    dense worlds over the example's bounds, K = 16 n0, D = 32, and at 2,048
+    rows kept up to a cap of 100 with the slots cut at K = 20,000:
+    integers, lo and hi exact (tails included), translation atol 1e-4,
+    normals atol 1e-5, as the one-block cases; a repeated launch
     bit-identical."""
-    W = SJ_LARGE[n0]
+    n0, W, K, D = SJ_LARGE[case]
     pos, rot = sj_inputs(7, W, n0, 10.0, card)
-    kw = dict(n0=n0, K=16 * n0, degree_cap=32, bounds=(sj.BOUNDS_LO, sj.BOUNDS_HI))
-    assert sk.rounds(n0) and sk.rounds_rows_shared(n0) == (n0 <= 3584)
+    kw = dict(n0=n0, K=K, degree_cap=D, bounds=(sj.BOUNDS_LO, sj.BOUNDS_HI))
+    assert sk.rounds(n0) and sk.rounds_rows_shared(n0) == (n0 < SJ_ROWS_PAST)
     got = sk.fused_simple_jobs_step(pos, rot, **kw)
     again = sk.fused_simple_jobs_step(pos, rot, **kw)
     torch.cuda.synchronize()
@@ -1846,8 +1853,11 @@ def test_fused_simple_jobs_step_past_one_block_matches_plain(card, n0):
         else:
             assert torch.equal(g, w), name
     assert (want[6] > 0).all() and (want[5] > 1000).all()
-    if n0 == 4096:
+    if case in ("4096", "cap_100_cut"):
         assert (want[5] > kw["K"]).all()        # slots cut
+    if case == "cap_100_cut":                   # rows past 64 partners kept, and at the cap
+        deg = sk.overlap_grid(want[1], want[2]).sum(-1)
+        assert bool((deg > 64).any()) and bool((deg > D).any())
 
 
 # kernel 4's stepped translation against the push in float64: chip_smoke.py's
@@ -2152,6 +2162,63 @@ def test_render_blocked_matches_plain_bit_for_bit(card, mode):
             assert torch.equal(got[0], a[0])
             assert torch.equal(got[1].view(torch.int32), a[1].view(torch.int32))
     assert rk.RenderKernel.launches == 2
+
+
+# views-mode blocked cases: (W, H, Wpx, N, the stage forced, or None)
+VIEWS_BLOCKED = {"n_2422": (3, 24, 40, 2422, None), "n_4096": (2, 32, 32, 4096, None),
+                 "stages_of_96": (2, 24, 40, 4096, 96),
+                 "carry_in_outputs": (1, 256, 160, 4096, None),
+                 "no_survivors": (2, 24, 40, 4096, None),
+                 "tie_across_stages": (2, 24, 40, 4096, 96)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(VIEWS_BLOCKED))
+def test_render_views_blocked_twin_matches_plain(card, case, monkeypatch):
+    """The views mode's blocked twin (one CTA an image, stages of the view's
+    survivors) at the edges of its layout: just past one block (2,422
+    rows), 4,096 rows in one or two stages, stages forced to 96 survivors
+    (dozens of stages, the hits carried in shared memory), a 256 x 160
+    image (the hits carried in its outputs), views that see no instance (looking
+    away, the plane dead), and a tie of t between rows 3 and 3,000 in
+    different stages (the first row in index order wins, in either order
+    of the two objects): RGBA8 and depth bits equal to render_views_plain,
+    a repeated launch bit-identical."""
+    W, H, Wpx, N, stage = VIEWS_BLOCKED[case]
+    if stage is not None:
+        monkeypatch.setattr(rk, "views_blocked_stage", lambda H, Wpx: stage)
+    cases = [scenes.large_view_case(W=W, H=H, Wpx=Wpx, N=N, device=card)]
+    if case == "no_survivors":
+        k, views, inst, V, _, _ = cases[0]
+        views["rot"][:] = torch.tensor([0.0, 0.0, 0.0, 1.0], device=card)   # looking -y
+        inst[4][:, 0] = False                                                 # the plane
+        cases = [(k, views, inst, V, H, Wpx)]
+    if case == "tie_across_stages":
+        cases = [scenes.large_tie_case(W=W, H=H, Wpx=Wpx, N=N, swap=swap, device=card)
+                 for swap in (False, True)]
+    outs = []
+    for k, views, inst, V, H, Wpx in cases:
+        assert rk.blocked(inst[0].shape[1], views=True)
+        kw = dict(height=H, width=Wpx, max_views=V)
+        got, again = (k.render_views(views, *inst, **kw) for _ in range(2))
+        plain = rk.render_views_plain(views, *inst, tables=k.tables, light=k.light,
+                                      ambient=k.ambient, **kw)
+        torch.cuda.synchronize()
+        for other in (again, plain):
+            assert torch.equal(got[0], other[0])
+            assert torch.equal(got[1].view(torch.int32), other[1].view(torch.int32))
+        outs.append(got)
+    hits = torch.isfinite(outs[0][1])
+    if case == "no_survivors":
+        assert not bool(hits.any())
+    else:
+        assert bool(hits.any())
+    if case == "tie_across_stages":   # the tied sphere's colour follows the first row's object
+        assert not torch.equal(outs[0][0], outs[1][0])
+        assert torch.equal(outs[0][1].view(torch.int32), outs[1][1].view(torch.int32))
+    if case == "carry_in_outputs":
+        assert rk.views_carry_bytes(H, Wpx) == 0 < rk.views_carry_bytes(64, 64)
+        assert rk.stage_blocks(4096, True, H, Wpx) > 1
 
 
 @pytest.mark.cuda

@@ -32,8 +32,8 @@ from gpu_ecs_madrona_tpu_torch.core.executor import ExecutorConfig, TaskGraphExe
 from gpu_ecs_madrona_tpu_torch.interop import state_to_numpy
 from gpu_ecs_madrona_tpu_torch.physics import components as comp
 
-from test_torch_dense_world import DYNAMIC, EARLY, PLANE, graft, run_scene
-from test_torch_physics_world import OBJ_BOX, OBJ_SPHERE, make_world, objmgr
+from test_torch_dense_world import DYNAMIC, EARLY, PLANE, graft, one_thread, run_scenes
+from test_torch_physics_world import OBJ_BOX, OBJ_SPHERE, objmgr
 
 STACK_SCENES = {
     "sphere_sphere": ([PLANE, (OBJ_SPHERE, (0.0, 0.0, 1.0), DYNAMIC),
@@ -44,15 +44,16 @@ STACK_SCENES = {
 
 
 @pytest.fixture(scope="module")
-def jax_world():
-    """One compiled JAX executor of make_world's layout, one world."""
-    return make_world("jax", "auto", num_worlds=1)
+def stack_runs():
+    """Both stack scenes run once, one world each, in one executor a
+    package (test_torch_dense_world.run_scenes)."""
+    return run_scenes(STACK_SCENES, num_worlds=1)
 
 
 @pytest.mark.parametrize("name", sorted(STACK_SCENES))
-def test_stack_scene_matches_jax(jax_world, name):
+def test_stack_scene_matches_jax(stack_runs, name):
     bodies, steps, tol = STACK_SCENES[name]
-    got, want, _ = run_scene(jax_world, bodies, steps, num_worlds=1)
+    got, want = stack_runs[name]
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got[:EARLY], want[:EARLY], atol=1e-4, rtol=0)
     np.testing.assert_allclose(got[-1], want[-1], atol=tol, rtol=1e-4)
@@ -183,11 +184,12 @@ def executors(world, num_worlds, max_entities):
 
 def trajectories(jsim, psim, steps):
     got, want = [], []
-    for _ in range(steps):
-        psim.step()
-        jsim.step()
-        got.append(psim.get_exported(0)[0].numpy())
-        want.append(np.asarray(jsim.get_exported(0)[0]))
+    with one_thread():
+        for _ in range(steps):
+            psim.step()
+            jsim.step()
+            got.append(psim.get_exported(0)[0].numpy())
+            want.append(np.asarray(jsim.get_exported(0)[0]))
     return np.stack(got), np.stack(want)
 
 

@@ -3,9 +3,11 @@ scenes of tests/test_physics.py that run it (``make_world``'s
 ``contact_mode="auto"`` at 16 body rows takes the dense mode in both
 packages).
 
-Each scene's state is made by the port's world (test_torch_physics_world
-``make_world``, no joint archetype, 2 worlds), carried into one compiled
-JAX executor of the same layout, and both run the scene's steps.  Gates:
+Every scene runs in two worlds of one executor a package (test_torch_
+physics_world ``make_world``, no joint archetype, a body list a world):
+the port's initial state is carried into the JAX executor of the same
+layout, and both run the most steps of any scene.  Gates, each scene on
+its own worlds and steps:
 the scene's own gates of tests/test_physics.py on the port (free fall,
 a box and a sphere settling on the plane, a static body that never
 moves, a bouncing ball's rebound), and the port's positions against
@@ -13,6 +15,8 @@ JAX's: within 1e-4 after the first steps, and at the end of the scene
 within that scene's own tolerance.  A dense step is bit-identical from
 one world block size to another, and from run to run.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -50,25 +54,52 @@ def graft(template, port_state):
     return {k: (v if k == "rng" else put(v, port_state[k])) for k, v in template.items()}
 
 
-@pytest.fixture(scope="module")
-def jax_world():
-    """One compiled JAX executor of make_world's layout (dense mode)."""
-    return make_world("jax", "auto")
+@contextlib.contextmanager
+def one_thread():
+    """PyTorch's CPU ops on one thread for the block: a dense step's small
+    ops split across threads cost ~20x when other processes hold the cores
+    (as the test run's parallel workers do), and a step's results do not
+    depend on it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
-def run_scene(jsim, bodies, steps, num_worlds=2):
-    """Both engines ``steps`` steps from the port's initial state of the
-    scene: (port positions [steps, W, bodies, 3], JAX's, port executor)."""
-    psim = make_world("port", "auto", bodies=bodies, num_worlds=num_worlds)
+def run_scenes(scenes, num_worlds=2):
+    """The scenes ``{name: (bodies, steps, ...)}``, each in num_worlds
+    worlds of one executor a package (one JAX compile; a dense step
+    repeats bit for bit whatever the worlds beside it): both engines the
+    most steps of any scene from the port's initial state.  Returns {name:
+    (port positions [steps, W, bodies, 3], JAX's)}, each cut to its own
+    steps, worlds and bodies."""
+    per_world = [sc[0] for sc in scenes.values() for _ in range(num_worlds)]
+    psim = make_world("port", "auto", per_world=per_world)
+    jsim = make_world("jax", "auto", per_world=per_world)
     jsim.state = graft(jax.tree_util.tree_map(np.asarray, jsim.state),
                        state_to_numpy(psim.state))
     got, want = [], []
-    for _ in range(steps):
-        psim.step()
-        jsim.step()
-        got.append(psim.get_exported(0)[0].numpy()[:, :len(bodies)])
-        want.append(np.asarray(jsim.get_exported(0)[0])[:, :len(bodies)])
-    return np.stack(got), np.stack(want), psim
+    with one_thread():
+        for _ in range(max(sc[1] for sc in scenes.values())):
+            psim.step()
+            jsim.step()
+            got.append(psim.get_exported(0)[0].numpy())
+            want.append(np.asarray(jsim.get_exported(0)[0]))
+    got, want = np.stack(got), np.stack(want)
+    out = {}
+    for k, (name, (bodies, steps, *_)) in enumerate(scenes.items()):
+        cut = (slice(0, steps), slice(k * num_worlds, (k + 1) * num_worlds),
+               slice(0, len(bodies)))
+        out[name] = (got[cut], want[cut])
+    return out
+
+
+@pytest.fixture(scope="module")
+def scene_runs():
+    """Every scene of SCENES run once, two worlds each (run_scenes)."""
+    return run_scenes(SCENES)
 
 
 def test_auto_takes_the_dense_mode():
@@ -81,8 +112,8 @@ def test_auto_takes_the_dense_mode():
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
-def test_scene_matches_jax(jax_world, name):
-    got, want, psim = run_scene(jax_world, *SCENES[name][:2])
+def test_scene_matches_jax(scene_runs, name):
+    got, want = scene_runs[name]
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got[:EARLY], want[:EARLY], atol=1e-4, rtol=0)
     np.testing.assert_allclose(got[-1], want[-1], atol=SCENES[name][2], rtol=1e-4)
@@ -135,8 +166,9 @@ def test_dense_step_repeats_bit_for_bit():
     """tests/test_physics.py test_determinism on the port: two runs from
     one state agree bit for bit."""
     runs = []
-    for _ in range(2):
-        sim = make_world("port", "auto", bodies=random_pile()[:4])
-        sim.run(20)
-        runs.append(sim.get_exported(0)[0])
+    with one_thread():
+        for _ in range(2):
+            sim = make_world("port", "auto", bodies=random_pile()[:4])
+            sim.run(20)
+            runs.append(sim.get_exported(0)[0])
     assert torch.equal(runs[0], runs[1])

@@ -7,13 +7,16 @@ With the flag, handles are int64 with a 32-bit id and a 31-bit generation
 int32, and so do the component fields that hold handles (a handle kept in
 one keeps its low 32 bits: the id, read back as a handle of generation 0).
 The flag is read when the packages are imported, so every check runs in a
-subprocess of its own, on the CPU.
+subprocess of its own, on the CPU: the checks are scripts in CHECKS, all
+started when the module's first test asks for them (the ``checks``
+fixture, a few at a time), each test waiting on its own.
 """
 
 import os
 import subprocess
 import sys
 import textwrap
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
@@ -78,17 +81,38 @@ JAX_PRELUDE = PRELUDE + textwrap.dedent("""
 """)
 
 
-def run(script, timeout=240, **env):
+# name: (script, handle settings, time limit s); each test's script sits
+# above it
+CHECKS = {}
+CHECK_PROCESSES = 4   # checks run at once
+
+
+def run(script, env, timeout=240):
     """Runs ``script`` in a fresh interpreter at the repository's root, on
-    the CPU, with the handle settings of ``env`` only; asserts it ends with
-    "OK"."""
+    the CPU, with the handle settings of ``env`` only: the finished
+    process."""
     base = {k: v for k, v in os.environ.items()
             if k not in ("GEM_TPU_ENTITY_64", "GEM_TPU_ENTITY_ID_BITS")}
-    r = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                       cwd=REPO, timeout=timeout, env={**base, "JAX_PLATFORMS": "cpu", **env})
+    return subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          cwd=REPO, timeout=timeout,
+                          env={**base, "JAX_PLATFORMS": "cpu", **env})
+
+
+@pytest.fixture(scope="module")
+def checks():
+    """Every script of CHECKS started, CHECK_PROCESSES at a time: {name: the
+    future of its finished process}."""
+    pool = ThreadPoolExecutor(CHECK_PROCESSES)
+    futures = {name: pool.submit(run, *spec) for name, spec in CHECKS.items()}
+    yield futures
+    pool.shutdown(wait=True)
+
+
+def passed(checks, name):
+    """Asserts that the check ``name`` exited 0 and ended with "OK"."""
+    r = checks[name].result()
     assert r.returncode == 0, r.stderr[-4000:]
     assert r.stdout.strip().endswith("OK"), r.stdout[-2000:]
-    return r.stdout
 
 
 def test_default_handles_stay_int32():
@@ -101,103 +125,111 @@ def test_default_handles_stay_int32():
     assert Entity.id(h).dtype == Entity.gen(h).dtype == torch.int32
 
 
-def test_handles_decode_as_jax():
+HANDLES_DECODE = JAX_PRELUDE + textwrap.dedent("""
+    assert pcm.Entity.dtype == torch.int64 and jcm.Entity.dtype == jnp.int64
+    assert pcm.ENTITY_ID_BITS == jcm.ENTITY_ID_BITS == 32
+    assert pcm.ENTITY_GEN_BITS == jcm.ENTITY_GEN_BITS == 31
+    eids = np.array([0, 1, 123456, (1 << 20) + 7, (1 << 31) - 1, 1 << 31], np.int64)
+    gens = np.array([0, 5000, 1 << 11, 1 << 20, (1 << 30) + 3, 1 << 30], np.int64)
+    jh = np.asarray(jcm.Entity.pack(eids, gens))
+    ph = pcm.Entity.pack(torch.from_numpy(eids), torch.from_numpy(gens))
+    assert ph.dtype == torch.int64 and jh.dtype == np.int64
+    assert np.array_equal(ph.numpy(), jh)
+    for f in ("id", "gen"):
+        j, p = np.asarray(getattr(jcm.Entity, f)(jh)), getattr(pcm.Entity, f)(ph)
+        assert p.dtype == torch.int32 and j.dtype == np.int32, f
+        assert np.array_equal(p.numpy(), j), f
+    assert np.array_equal(pcm.Entity.gen(ph).numpy(), gens.astype(np.int32))
+    assert not bool(pcm.Entity.is_null(ph).any())
+    nulls = np.array([-1, -5], np.int64)
+    assert np.array_equal(pcm.Entity.is_null(torch.from_numpy(nulls)).numpy(),
+                          np.asarray(jcm.Entity.is_null(nulls)))
+    assert bool(pcm.Entity.is_null(pcm.Entity.null()))
+    assert int(pcm.Entity.null()) == int(jcm.Entity.null()) == -1
+    print("OK")
+""")
+CHECKS["handles_decode"] = (HANDLES_DECODE, {"GEM_TPU_ENTITY_64": "1"})
+
+
+def test_handles_decode_as_jax(checks):
     """pack, id, gen, is_null and null at ids up to 2^31 and generations up
     to 2^30, in both packages: the same values, int64 handles, int32 ids and
     generations."""
-    run(JAX_PRELUDE + textwrap.dedent("""
-        assert pcm.Entity.dtype == torch.int64 and jcm.Entity.dtype == jnp.int64
-        assert pcm.ENTITY_ID_BITS == jcm.ENTITY_ID_BITS == 32
-        assert pcm.ENTITY_GEN_BITS == jcm.ENTITY_GEN_BITS == 31
-        eids = np.array([0, 1, 123456, (1 << 20) + 7, (1 << 31) - 1, 1 << 31], np.int64)
-        gens = np.array([0, 5000, 1 << 11, 1 << 20, (1 << 30) + 3, 1 << 30], np.int64)
-        jh = np.asarray(jcm.Entity.pack(eids, gens))
-        ph = pcm.Entity.pack(torch.from_numpy(eids), torch.from_numpy(gens))
-        assert ph.dtype == torch.int64 and jh.dtype == np.int64
-        assert np.array_equal(ph.numpy(), jh)
-        for f in ("id", "gen"):
-            j, p = np.asarray(getattr(jcm.Entity, f)(jh)), getattr(pcm.Entity, f)(ph)
-            assert p.dtype == torch.int32 and j.dtype == np.int32, f
-            assert np.array_equal(p.numpy(), j), f
-        assert np.array_equal(pcm.Entity.gen(ph).numpy(), gens.astype(np.int32))
-        assert not bool(pcm.Entity.is_null(ph).any())
-        nulls = np.array([-1, -5], np.int64)
-        assert np.array_equal(pcm.Entity.is_null(torch.from_numpy(nulls)).numpy(),
-                              np.asarray(jcm.Entity.is_null(nulls)))
-        assert bool(pcm.Entity.is_null(pcm.Entity.null()))
-        assert int(pcm.Entity.null()) == int(jcm.Entity.null()) == -1
-        print("OK")
-    """), GEM_TPU_ENTITY_64="1")
+    passed(checks, "handles_decode")
 
 
-def test_stale_handle_stays_dead_past_2_11_recycles():
+STALE_HANDLE = PRELUDE + textwrap.dedent("""
+    from gpu_ecs_madrona_tpu_torch import (Archetype, ExecutorConfig, TaskGraphExecutor,
+                                           component)
+    from gpu_ecs_madrona_tpu_torch.core.component import Entity
+    from gpu_ecs_madrona_tpu_torch.core.context import Context
+    assert Entity.dtype == torch.int64
+    Tag = component("E64Tag", ((), torch.int32))
+    A = Archetype("E64Arch", [Tag])
+
+    class W:
+        @staticmethod
+        def register_types(r):
+            r.register_archetype(A, capacity=2)
+            r.export_column(A, Tag, 0)
+
+        @staticmethod
+        def init(ctx, init_data=None):
+            pass
+
+        @staticmethod
+        def setup_tasks(builder):
+            def churn(ctx):
+                ents = ctx.make_entities(A, counts=1, max_new=1,
+                                         values={Tag: torch.zeros((2, 1), dtype=torch.int32)})
+                ctx.destroy_entities(ents)
+            builder.add_node(churn, name="churn")
+
+    sim = TaskGraphExecutor(W, ExecutorConfig(num_worlds=2, max_entities_per_world=4,
+                                              seed=0, device="cpu"))
+    ctx = Context(sim.mgr, sim.state)
+    stale = ctx.make_entities(A, counts=1, max_new=1,
+                              values={Tag: torch.zeros((2, 1), dtype=torch.int32)})
+    ctx.destroy_entities(stale)
+    sim.state = ctx.state
+    assert stale.dtype == torch.int64
+    sim.run(2100)
+    _, _, live = sim.mgr.lookup(sim.state, stale)
+    assert not bool(live.any()), "stale 64-bit handle aliased after churn"
+    assert (sim.state["eid"]["gen"][:, 0] == 2101).all()
+    assert sim.state["eid"]["gen"].dtype == torch.int32
+    # a checkpoint carries the int64 handle columns: a live handle of
+    # generation 2,101 made, saved, churned past and restored
+    import tempfile
+    ctx = Context(sim.mgr, sim.state)
+    held = ctx.make_entities(A, counts=1, max_new=1,
+                             values={Tag: torch.zeros((2, 1), dtype=torch.int32)})
+    sim.state = ctx.state
+    assert (Entity.gen(held) == 2101).all()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        sim.save_checkpoint(path)
+        kept = sim.state["arch"]["E64Arch"]["entity"].clone()
+        ctx = Context(sim.mgr, sim.state)
+        ctx.destroy_entities(held)
+        sim.state = ctx.state
+        assert not bool(sim.mgr.lookup(sim.state, held)[2].any())
+        sim.restore_checkpoint(path)
+    ent = sim.state["arch"]["E64Arch"]["entity"]
+    assert ent.dtype == torch.int64 and torch.equal(ent, kept)
+    assert bool(sim.mgr.lookup(sim.state, held)[2].all())
+    assert not bool(sim.mgr.lookup(sim.state, stale)[2].any())
+    print("OK")
+""")
+CHECKS["stale_handle"] = (STALE_HANDLE, {"GEM_TPU_ENTITY_64": "1"})
+
+
+def test_stale_handle_stays_dead_past_2_11_recycles(checks):
     """tests/test_entity64.py's churn in the port: a handle from a slot's
     first cycle stays dead after 2,100 recycles of it through the
     executor (at int32's default split it aliases at 2,048); a checkpoint
     of that state restores its int64 handle columns."""
-    run(PRELUDE + textwrap.dedent("""
-        from gpu_ecs_madrona_tpu_torch import (Archetype, ExecutorConfig, TaskGraphExecutor,
-                                               component)
-        from gpu_ecs_madrona_tpu_torch.core.component import Entity
-        from gpu_ecs_madrona_tpu_torch.core.context import Context
-        assert Entity.dtype == torch.int64
-        Tag = component("E64Tag", ((), torch.int32))
-        A = Archetype("E64Arch", [Tag])
-
-        class W:
-            @staticmethod
-            def register_types(r):
-                r.register_archetype(A, capacity=2)
-                r.export_column(A, Tag, 0)
-
-            @staticmethod
-            def init(ctx, init_data=None):
-                pass
-
-            @staticmethod
-            def setup_tasks(builder):
-                def churn(ctx):
-                    ents = ctx.make_entities(A, counts=1, max_new=1,
-                                             values={Tag: torch.zeros((2, 1), dtype=torch.int32)})
-                    ctx.destroy_entities(ents)
-                builder.add_node(churn, name="churn")
-
-        sim = TaskGraphExecutor(W, ExecutorConfig(num_worlds=2, max_entities_per_world=4,
-                                                  seed=0, device="cpu"))
-        ctx = Context(sim.mgr, sim.state)
-        stale = ctx.make_entities(A, counts=1, max_new=1,
-                                  values={Tag: torch.zeros((2, 1), dtype=torch.int32)})
-        ctx.destroy_entities(stale)
-        sim.state = ctx.state
-        assert stale.dtype == torch.int64
-        sim.run(2100)
-        _, _, live = sim.mgr.lookup(sim.state, stale)
-        assert not bool(live.any()), "stale 64-bit handle aliased after churn"
-        assert (sim.state["eid"]["gen"][:, 0] == 2101).all()
-        assert sim.state["eid"]["gen"].dtype == torch.int32
-        # a checkpoint carries the int64 handle columns: a live handle of
-        # generation 2,101 made, saved, churned past and restored
-        import tempfile
-        ctx = Context(sim.mgr, sim.state)
-        held = ctx.make_entities(A, counts=1, max_new=1,
-                                 values={Tag: torch.zeros((2, 1), dtype=torch.int32)})
-        sim.state = ctx.state
-        assert (Entity.gen(held) == 2101).all()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "ckpt.npz")
-            sim.save_checkpoint(path)
-            kept = sim.state["arch"]["E64Arch"]["entity"].clone()
-            ctx = Context(sim.mgr, sim.state)
-            ctx.destroy_entities(held)
-            sim.state = ctx.state
-            assert not bool(sim.mgr.lookup(sim.state, held)[2].any())
-            sim.restore_checkpoint(path)
-        ent = sim.state["arch"]["E64Arch"]["entity"]
-        assert ent.dtype == torch.int64 and torch.equal(ent, kept)
-        assert bool(sim.mgr.lookup(sim.state, held)[2].all())
-        assert not bool(sim.mgr.lookup(sim.state, stale)[2].any())
-        print("OK")
-    """), GEM_TPU_ENTITY_64="1")
+    passed(checks, "stale_handle")
 
 
 # The churn world of test_churn_world_matches_jax_after_40_ticks: bodies made
@@ -251,7 +283,38 @@ CHURN_WORLD = textwrap.dedent("""
 """)
 
 
-def test_churn_world_matches_jax_after_40_ticks():
+CHURN_TICKS = JAX_PRELUDE + CHURN_WORLD + textwrap.dedent("""
+    jfw = Fw(J, jnp.float32, jnp.int32, jnp)
+    pfw = Fw(P, torch.float32, torch.int32, torch)
+    js = jfw.mgr.make_initial_state(seed=0)
+    ps = state_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
+    jtick = jax.jit(lambda s, tab: tick(jfw, s, tab))
+    made_all = []
+    for t in range(T):
+        js, jmade = jtick(js, {k: jnp.asarray(v[t]) for k, v in TAB.items()})
+        ps, pmade = tick(pfw, ps, {k: torch.from_numpy(v[t].copy()) for k, v in TAB.items()})
+        assert pmade.dtype == torch.int64 and np.asarray(jmade).dtype == np.int64
+        assert np.array_equal(pmade.numpy(), np.asarray(jmade)), t
+        made_all.append(np.asarray(jmade))
+    pl = compare(js, ps, "tick 40", lambda path: 1e-6 if path[-1] == "value" and
+                 path[-2] in ("Pos", "Vel") else 0.0)
+    assert pl[("arch", "Body", "entity")].dtype == np.int64
+    assert pl[("eid", "gen")].dtype == np.int32
+    assert pl[("arch", "Tmp", "comps", "Ref", "a")].dtype == np.int32
+    handles = np.concatenate(made_all, axis=1)
+    j = [np.asarray(x) for x in jfw.mgr.lookup(js, jnp.asarray(handles))]
+    p = [x.numpy() for x in pfw.mgr.lookup(ps, torch.from_numpy(handles))]
+    for a, b in zip(j, p):
+        assert np.array_equal(a, b)
+    assert p[2].sum() > 0 and (~p[2] & (handles >= 0)).sum() > 0
+    # generations past 0 were made, and stored in the int32 fields
+    assert (pcm.Entity.gen(torch.from_numpy(handles)) > 0).any()
+    print("OK")
+""")
+CHECKS["churn_ticks"] = (CHURN_TICKS, {"GEM_TPU_ENTITY_64": "1"})
+
+
+def test_churn_world_matches_jax_after_40_ticks(checks):
     """The churn world (make, destroy by handle and by row mask, a
     temporary's int32 fields holding handles, positions moved by
     velocities) for 40 ticks in both packages with 64-bit handles, from one
@@ -261,37 +324,61 @@ def test_churn_world_matches_jax_after_40_ticks():
     products and sums in both); the lookups of every handle made exact.
     The JAX package's overflow counters of Body and Unit come out int64
     under x64, the port's int32: compared by value (``compare``)."""
-    run(JAX_PRELUDE + CHURN_WORLD + textwrap.dedent("""
-        jfw = Fw(J, jnp.float32, jnp.int32, jnp)
-        pfw = Fw(P, torch.float32, torch.int32, torch)
-        js = jfw.mgr.make_initial_state(seed=0)
-        ps = state_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
-        jtick = jax.jit(lambda s, tab: tick(jfw, s, tab))
-        made_all = []
-        for t in range(T):
-            js, jmade = jtick(js, {k: jnp.asarray(v[t]) for k, v in TAB.items()})
-            ps, pmade = tick(pfw, ps, {k: torch.from_numpy(v[t].copy()) for k, v in TAB.items()})
-            assert pmade.dtype == torch.int64 and np.asarray(jmade).dtype == np.int64
-            assert np.array_equal(pmade.numpy(), np.asarray(jmade)), t
-            made_all.append(np.asarray(jmade))
-        pl = compare(js, ps, "tick 40", lambda path: 1e-6 if path[-1] == "value" and
-                     path[-2] in ("Pos", "Vel") else 0.0)
-        assert pl[("arch", "Body", "entity")].dtype == np.int64
-        assert pl[("eid", "gen")].dtype == np.int32
-        assert pl[("arch", "Tmp", "comps", "Ref", "a")].dtype == np.int32
-        handles = np.concatenate(made_all, axis=1)
-        j = [np.asarray(x) for x in jfw.mgr.lookup(js, jnp.asarray(handles))]
-        p = [x.numpy() for x in pfw.mgr.lookup(ps, torch.from_numpy(handles))]
-        for a, b in zip(j, p):
-            assert np.array_equal(a, b)
-        assert p[2].sum() > 0 and (~p[2] & (handles >= 0)).sum() > 0
-        # generations past 0 were made, and stored in the int32 fields
-        assert (pcm.Entity.gen(torch.from_numpy(handles)) > 0).any()
-        print("OK")
-    """), GEM_TPU_ENTITY_64="1")
+    passed(checks, "churn_ticks")
 
 
-def test_fantasy_vs_matches_jax_with_64_bit_handles():
+FANTASY_VS = JAX_PRELUDE + textwrap.dedent("""
+    from gpu_ecs_madrona_tpu.core.context import Context as JContext
+    from gpu_ecs_madrona_tpu.models import fantasy_vs as jfvs
+    from gpu_ecs_madrona_tpu_torch.core.context import Context as PContext
+    from gpu_ecs_madrona_tpu_torch.models import fantasy_vs as fvs
+    from test_torch_fantasy_vs import tolerance
+    from test_torch_rl_cases import GOLDEN_CONSTANTS, random_script
+    for mod in (jfvs, fvs):
+        for name, value in GOLDEN_CONSTANTS.items():
+            setattr(mod, name, value)
+    seen = {"jax": [], "port": []}
+
+    def spy(cls, key, as_np):
+        clear = cls.clear_archetype
+
+        def clear_and_record(self, arch):
+            if arch.name == "CleanupTracker":
+                col = self.column(arch, jfvs.CleanupEntity if key == "jax"
+                                  else fvs.CleanupEntity)
+                mask = self.row_mask(arch)
+                seen[key].append((as_np(col), as_np(mask)))
+            return clear(self, arch)
+        cls.clear_archetype = clear_and_record
+
+    spy(JContext, "jax", np.asarray)
+    spy(PContext, "port", lambda t: t.numpy().copy())
+    nd, nk, T = 5, 9, 8
+    script = random_script(3, nd, nk, 24)
+    kw = dict(num_worlds=2, num_dragons=nd, num_knights=nk, seed=0, scripted=True,
+              replicate_clamp_bug=True)
+    jsim = jfvs.make_executor(jfvs.FantasyVsConfig(**kw), init_data=script, donate=False)
+    psim = fvs.make_executor(fvs.FantasyVsConfig(**kw), init_data=script, device="cpu")
+    js = jsim.state
+    for t in range(T):
+        js = jsim.graph.step(js)
+        psim.step()
+        pl = compare(js, psim.state, f"tick {t}", tolerance)
+        for arch in ("Dragon", "Knight"):
+            assert pl[("arch", arch, "entity")].dtype == np.int64
+    assert len(seen["jax"]) == len(seen["port"]) == T
+    dead = 0
+    for (jc, jm), (pc, pm) in zip(seen["jax"], seen["port"]):
+        assert pc.dtype == jc.dtype == np.int32
+        assert np.array_equal(pm, jm) and np.array_equal(pc, jc)
+        dead += int(pm.sum())
+    assert dead > 0, "no deaths: the cleanup never tracked a handle"
+    print("OK")
+""")
+CHECKS["fantasy_vs"] = (FANTASY_VS, {"GEM_TPU_ENTITY_64": "1"}, 400)
+
+
+def test_fantasy_vs_matches_jax_with_64_bit_handles(checks):
     """fantasy_vs at 2 worlds, scripted (both packages replay one decision
     table, damage high enough for deaths), 8 ticks with 64-bit handles:
     every tick the entity columns exact (int64), and the rows the cleanup
@@ -299,54 +386,7 @@ def test_fantasy_vs_matches_jax_with_64_bit_handles():
     handles) exact; the other leaves at the fantasy_vs tests' tolerances.
     With x64 on, every JAX leaf keeps the port's dtype (no float64 or int64
     leaf but the handles)."""
-    run(JAX_PRELUDE + textwrap.dedent("""
-        from gpu_ecs_madrona_tpu.core.context import Context as JContext
-        from gpu_ecs_madrona_tpu.models import fantasy_vs as jfvs
-        from gpu_ecs_madrona_tpu_torch.core.context import Context as PContext
-        from gpu_ecs_madrona_tpu_torch.models import fantasy_vs as fvs
-        from test_torch_fantasy_vs import tolerance
-        from test_torch_rl_cases import GOLDEN_CONSTANTS, random_script
-        for mod in (jfvs, fvs):
-            for name, value in GOLDEN_CONSTANTS.items():
-                setattr(mod, name, value)
-        seen = {"jax": [], "port": []}
-
-        def spy(cls, key, as_np):
-            clear = cls.clear_archetype
-
-            def clear_and_record(self, arch):
-                if arch.name == "CleanupTracker":
-                    col = self.column(arch, jfvs.CleanupEntity if key == "jax"
-                                      else fvs.CleanupEntity)
-                    mask = self.row_mask(arch)
-                    seen[key].append((as_np(col), as_np(mask)))
-                return clear(self, arch)
-            cls.clear_archetype = clear_and_record
-
-        spy(JContext, "jax", np.asarray)
-        spy(PContext, "port", lambda t: t.numpy().copy())
-        nd, nk, T = 5, 9, 8
-        script = random_script(3, nd, nk, 24)
-        kw = dict(num_worlds=2, num_dragons=nd, num_knights=nk, seed=0, scripted=True,
-                  replicate_clamp_bug=True)
-        jsim = jfvs.make_executor(jfvs.FantasyVsConfig(**kw), init_data=script, donate=False)
-        psim = fvs.make_executor(fvs.FantasyVsConfig(**kw), init_data=script, device="cpu")
-        js = jsim.state
-        for t in range(T):
-            js = jsim.graph.step(js)
-            psim.step()
-            pl = compare(js, psim.state, f"tick {t}", tolerance)
-            for arch in ("Dragon", "Knight"):
-                assert pl[("arch", arch, "entity")].dtype == np.int64
-        assert len(seen["jax"]) == len(seen["port"]) == T
-        dead = 0
-        for (jc, jm), (pc, pm) in zip(seen["jax"], seen["port"]):
-            assert pc.dtype == jc.dtype == np.int32
-            assert np.array_equal(pm, jm) and np.array_equal(pc, jc)
-            dead += int(pm.sum())
-        assert dead > 0, "no deaths: the cleanup never tracked a handle"
-        print("OK")
-    """), timeout=400, GEM_TPU_ENTITY_64="1")
+    passed(checks, "fantasy_vs")
 
 
 INT32_FIELD = textwrap.dedent("""
@@ -396,16 +436,20 @@ INT32_FIELD = textwrap.dedent("""
 """)
 
 
+for _width in ("int32", "int64"):
+    CHECKS[f"int32_field_{_width}"] = (JAX_PRELUDE + INT32_FIELD + "print('OK')\n",
+                                       {"GEM_TPU_ENTITY_64": "1"} if _width == "int64" else {})
+
+
 @pytest.mark.parametrize("width", ["int32", "int64"])
-def test_int32_fields_pin_a_handle_past_generation_0(width):
+def test_int32_fields_pin_a_handle_past_generation_0(width, checks):
     """A handle of generation 3 stored in an int32 component field (as
     CandidatePair, ContactData, CleanupEntity and the physics' handle
     fields are declared in both packages), in both packages at both
     widths: int32 handles are kept whole and stay live; a 64-bit handle
     keeps its low 32 bits, its id, and reads back as a generation-0 handle,
     dead once its slot has been recycled."""
-    env = {"GEM_TPU_ENTITY_64": "1"} if width == "int64" else {}
-    run(JAX_PRELUDE + INT32_FIELD + "print('OK')\n", **env)
+    passed(checks, f"int32_field_{width}")
 
 
 SOAK = textwrap.dedent("""
@@ -459,14 +503,18 @@ SOAK = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("split", ["int32_20_11", "int32_8_23", "int64_32_31"])
-def test_entity_soak_at_both_widths(split):
+SOAK_SPLITS = {"int32_20_11": {}, "int32_8_23": {"GEM_TPU_ENTITY_ID_BITS": "8"},
+               "int64_32_31": {"GEM_TPU_ENTITY_64": "1"}}
+for _split, _env in SOAK_SPLITS.items():
+    CHECKS[f"soak_{_split}"] = (PRELUDE + SOAK + "print('OK')\n", _env)
+
+
+@pytest.mark.parametrize("split", list(SOAK_SPLITS))
+def test_entity_soak_at_both_widths(split, checks):
     """tests/test_entity_soak.py in the port, with real churn: at the int32
     default split (11 generation bits) a stale handle dies at every recycle
     and aliases at exactly 2^11; with 8 id bits (23 generation bits) and
     with 64-bit handles (31) it is still dead after 2^11 recycles, and
     aliases where its own generations wrap (the slot's generation
     fast-forwarded there)."""
-    env = {"int32_20_11": {}, "int32_8_23": {"GEM_TPU_ENTITY_ID_BITS": "8"},
-           "int64_32_31": {"GEM_TPU_ENTITY_64": "1"}}[split]
-    run(PRELUDE + SOAK + "print('OK')\n", **env)
+    passed(checks, f"soak_{split}")

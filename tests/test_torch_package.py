@@ -57,19 +57,40 @@ def test_import_loads_no_jax():
     assert "BAD []" in out.stdout
 
 
-@pytest.mark.parametrize("module", ["ops.substep_kernel", "physics", "physics.solver",
-                                    "ops.render_kernel", "models.simple_taskgraph",
-                                    "core.world", "bindings", "parallel.learner",
-                                    "parallel.mesh", "tooling.profiler", "tooling.autotuner",
-                                    "utils.tracing"])
-def test_each_module_imports_first(module):
-    """Any module of the port imports in a fresh process on its own (the
-    physics package and the substep kernels' module import each other)."""
+FIRST_IMPORTS = ["ops.substep_kernel", "physics", "physics.solver", "ops.render_kernel",
+                 "models.simple_taskgraph", "core.world", "bindings", "parallel.learner",
+                 "parallel.mesh", "tooling.profiler", "tooling.autotuner", "utils.tracing"]
+
+
+@pytest.fixture(scope="module")
+def first_imports():
+    """Each module of FIRST_IMPORTS imported in a fresh process of its own,
+    the processes started together (each waits on little but its own
+    imports): {module: (return code, output)}."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    out = subprocess.run([sys.executable, "-c", f"import gpu_ecs_madrona_tpu_torch.{module}"],
-                         env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stdout + out.stderr
+    procs = {m: subprocess.Popen([sys.executable, "-c", f"import gpu_ecs_madrona_tpu_torch.{m}"],
+                                 env=env, cwd=REPO, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for m in FIRST_IMPORTS}
+    out = {}
+    try:
+        for m, proc in procs.items():
+            out[m] = (proc.wait(timeout=300), proc.stdout.read())
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.stdout.close()
+    return out
+
+
+@pytest.mark.parametrize("module", FIRST_IMPORTS)
+def test_each_module_imports_first(module, first_imports):
+    """Any module of the port imports in a fresh process on its own (the
+    physics package and the substep kernels' module import each other)."""
+    rc, output = first_imports[module]
+    assert rc == 0, output
 
 
 IMPORT_RE = re.compile(

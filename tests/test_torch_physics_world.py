@@ -52,9 +52,13 @@ def objmgr(assets):
     return loader.get_object_manager()
 
 
-def make_world(pkg, contact_mode, bodies=FOUR_BODIES, num_worlds=2):
+def make_world(pkg, contact_mode, bodies=FOUR_BODIES, num_worlds=2, per_world=None):
     """test_physics.make_world for either package (no joint archetype, so
-    the two states convert 1:1); returns the executor."""
+    the two states convert 1:1); returns the executor.  ``per_world``: a
+    body list a world instead (num_worlds is its length), so that scenes
+    share one executor."""
+    if per_world is not None:
+        num_worlds = len(per_world)
     if pkg == "jax":
         physics, bmod, cmod, Arch, lib = jphys, jbase, jcomp, JArchetype, jnp
     else:
@@ -79,13 +83,26 @@ def make_world(pkg, contact_mode, bodies=FOUR_BODIES, num_worlds=2):
             ctx.data = {"_": conv(np.zeros((W, 1)))}
             physics.RigidBodyPhysicsSystem.init(ctx, delta_t=1 / 60, num_substeps=4)
             tile = lambda a: np.broadcast_to(np.asarray(a), (W,) + np.asarray(a).shape)  # noqa
-            ctx.make_entities(Body, counts=nb, max_new=nb, values={
-                bmod.Position: conv(tile([b[1] for b in bodies])),
-                bmod.Rotation: conv(tile([[1.0, 0, 0, 0]] * nb)),
-                bmod.Scale: conv(np.ones((W, nb, 3))),
-                bmod.ObjectID: conv(tile([b[0] for b in bodies]), np.int32),
-                cmod.ResponseType: conv(tile([b[2] for b in bodies]), np.int32),
-            })
+            if per_world is None:
+                ctx.make_entities(Body, counts=nb, max_new=nb, values={
+                    bmod.Position: conv(tile([b[1] for b in bodies])),
+                    bmod.Rotation: conv(tile([[1.0, 0, 0, 0]] * nb)),
+                    bmod.Scale: conv(np.ones((W, nb, 3))),
+                    bmod.ObjectID: conv(tile([b[0] for b in bodies]), np.int32),
+                    cmod.ResponseType: conv(tile([b[2] for b in bodies]), np.int32),
+                })
+                return
+            # a world's rows past its own bodies repeat its first (never made)
+            nb = max(len(b) for b in per_world)
+            rows = [[b[min(i, len(b) - 1)] for i in range(nb)] for b in per_world]
+            ctx.make_entities(
+                Body, counts=conv([len(b) for b in per_world], np.int32), max_new=nb, values={
+                    bmod.Position: conv([[r[1] for r in w] for w in rows]),
+                    bmod.Rotation: conv(tile([[1.0, 0, 0, 0]] * nb)),
+                    bmod.Scale: conv(np.ones((W, nb, 3))),
+                    bmod.ObjectID: conv([[r[0] for r in w] for w in rows], np.int32),
+                    cmod.ResponseType: conv([[r[2] for r in w] for w in rows], np.int32),
+                })
 
         @staticmethod
         def setup_tasks(builder):

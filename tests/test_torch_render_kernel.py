@@ -150,9 +150,13 @@ def test_kernel_fits_and_tiles():
     assert rk.kernel_fits(2000, views=True) == "" and rk.stage_blocks(2000, views=True) == 1
     for N, views in ((5000, False), (2000, False), (3000, True), (4096, True), (4096, False)):
         assert rk.kernel_fits(N, views) == "" and rk.blocked(N, views)
-        assert rk.stage_blocks(N, views) == -(-N // rk.BLOCK)
-        stage = rk.STAGE_VIEWS if views else rk.STAGE_RAYS
-        assert rk.smem_bytes(N, views) == rk.BLOCK * (stage + 4) <= rk.MAX_SMEM_BYTES
+        if views:   # the blocked twin: stages of survivors beside a 64 x 64 image's hits
+            assert rk.stage_blocks(N, views) == -(-N // rk.views_stage(64, 64))
+            assert rk.smem_bytes(N, views) == (rk.views_stage(64, 64) * rk.VIEWS_ENTRY
+                                               + rk.views_carry_bytes(64, 64)) <= rk.VIEWS_SMEM
+        else:
+            assert rk.stage_blocks(N, views) == -(-N // rk.BLOCK)
+            assert rk.smem_bytes(N) == rk.BLOCK * (rk.STAGE_RAYS + 4) <= rk.MAX_SMEM_BYTES
     # a warp's tile is 8 x 4 pixels: 128 tiles a 64 x 64 image
     assert rk.tile_shape(4096, 64) == (64, 8, 4, 128)
     # the inside scene: its two 8 x 8 views stack as 16 rows, four tiles,
@@ -210,4 +214,45 @@ def test_blocked_layout_matches_the_cu():
         rk.MAX_SMEM_BYTES
     body = cu[cu.index("size_t render_smem("):]
     assert "static_cast<size_t>(block) * (stage + sizeof(int))" in body[:body.index("\n}\n")]
+    # the views mode's blocked twin: its constants, and views_stage /
+    # views_carry_bytes / views_blocked_smem evaluated from the .cu
+    const = {k: v for k, v in re.findall(r"constexpr int (k\w+) = ([^;]+);", cu)}
+    env = {"kMaxSmem": rk.MAX_SMEM_BYTES, "kTileW": rk.TILE_W, "kTileH": rk.TILE_H}
+    for name in ("kVSplits", "kVWarps", "kVThreads", "kVCtas", "kVEntry", "kCarryMax", "kVSmem"):
+        expr = const[name].replace("static_cast<int>(kMaxSmem)", "kMaxSmem").replace("/", "//")
+        expr = re.sub(r"\((\w+) == 1 \? (.+?) : (.+)\) - 1024",
+                      r"((\2) if \1 == 1 else (\3)) - 1024", expr)
+        env[name] = eval(expr, {}, env)
+    assert (env["kVSplits"], env["kVWarps"], env["kVCtas"], env["kVEntry"], env["kCarryMax"],
+            env["kVSmem"]) == (rk.VIEWS_SPLITS, rk.VIEWS_WARPS, rk.VIEWS_CTAS, rk.VIEWS_ENTRY,
+                               rk.CARRY_MAX, rk.VIEWS_SMEM)
+
+    def cu_fn(name, **args):
+        """The .cu's function ``name`` evaluated in Python: its const
+        lines in order, then its return; calls of views_splits and
+        views_carry_bytes evaluated the same way."""
+        body = cu[cu.index(f" {name}(int "):]
+        body = body[:body.index("\n}\n")]
+        scope = dict(env, **args)
+
+        def py(expr):
+            expr = " ".join(expr.split())
+            expr = re.sub(r"static_cast<[\w ]+>", "", expr).replace("8LL", "8").replace("/", "//")
+            for fn in ("views_splits", "views_carry_bytes"):
+                if f"{fn}(H, Wpx)" in expr:
+                    expr = expr.replace(f"{fn}(H, Wpx)",
+                                        str(cu_fn(fn, H=scope["H"], Wpx=scope["Wpx"])))
+            return re.sub(r"^(.*?) \? (.*?) : (.*)$", r"(\2) if (\1) else (\3)", expr)
+
+        for var, expr in re.findall(r"const (?:int|long long) (\w+) = (.*?);", body, re.S):
+            scope[var] = eval(py(expr), {}, scope)
+        return eval(py(re.search(r"return (.*?);", body, re.S).group(1)), {}, scope)
+
+    for H, Wpx in ((64, 64), (24, 40), (96, 96), (8, 8), (90, 91), (128, 64), (256, 256)):
+        assert cu_fn("views_splits", H=H, Wpx=Wpx) == rk.views_splits(H, Wpx) >= 1
+        assert cu_fn("views_carry_bytes", H=H, Wpx=Wpx) == rk.views_carry_bytes(H, Wpx)
+        assert cu_fn("views_stage", H=H, Wpx=Wpx) == rk.views_stage(H, Wpx) > 0
+        stage = rk.views_stage(H, Wpx)
+        smem = cu_fn("views_blocked_smem", stage=stage, H=H, Wpx=Wpx)
+        assert smem == rk.smem_bytes(4096, True, H, Wpx) <= rk.VIEWS_SMEM
 

@@ -365,3 +365,43 @@ def large_view_case(W=2, H=16, Wpx=16, N=LARGE_ROWS, device="cpu", seed=11):
     inst = tuple(torch.from_numpy(sc[key]).to(device)
                  for key in ("pos", "rot", "scale", "obj", "mask"))
     return k, torch_views(views, device), inst, 1, H, Wpx
+
+
+# the tie case's second sphere: object 1's geometry (radius 0.7) with an
+# albedo of its own
+TIE_SPHERE = 5
+
+
+def large_tie_case(W=2, H=24, Wpx=40, N=LARGE_ROWS, rows=(3, 3000), swap=False, device="cpu",
+                   seed=11):
+    """large_view_case with rows ``rows`` made one sphere at the same pose
+    3 units past each view's eye along +y: object 1 at the first row and
+    TIE_SPHERE at the second (swapped with ``swap``), the same geometry
+    with another albedo, so that every pixel it covers is a tie of t that
+    the first row in index order wins.  Returns what large_view_case does."""
+    import test_torch_hull_scenes as hs
+    from gpu_ecs_madrona_tpu_torch.render import renderer
+    from gpu_ecs_madrona_tpu_torch.utils import importer
+    loader = assets.PhysicsLoader()
+    loader.load_objects([assets.make_box((0.6, 0.4, 0.5)), assets.make_sphere(0.7),
+                         assets.make_plane(), hs.prism_object(), assets.make_sphere(0.5),
+                         assets.make_sphere(0.7)])
+    om = loader.get_object_manager()
+    mt = renderer.BatchRenderer(renderer.RendererConfig(backend="xla"), om,
+                                render_meshes=large_render_meshes(importer)).mesh
+    albedo = np.concatenate([LARGE_ALBEDO, [[0.1, 0.9, 0.9]]]).astype(np.float32)
+    views = random_views(seed, W, 1)
+    views["eye"] = views["eye"] * np.float32(0.2) + np.float32([0.0, -2.0, 1.2])
+    views["rot"][..., 0] += np.float32(3.0)
+    views["rot"] /= np.linalg.norm(views["rot"], axis=-1, keepdims=True)
+    sc = large_instances(W, N, seed)
+    for r, o in zip(rows, (TIE_SPHERE, 1) if swap else (1, TIE_SPHERE)):
+        sc["pos"][:, r] = views["eye"][:, 0] + np.float32([0.0, 3.0, 0.0])
+        sc["rot"][:, r] = (1.0, 0.0, 0.0, 0.0)
+        sc["scale"][:, r] = 0.5
+        sc["obj"][:, r] = o
+        sc["mask"][:, r] = True
+    k = rk.RenderKernel(om, albedo, LIGHT_DIR, AMBIENT, mesh_tables=mt)
+    inst = tuple(torch.from_numpy(sc[key]).to(device)
+                 for key in ("pos", "rot", "scale", "obj", "mask"))
+    return k, torch_views(views, device), inst, 1, H, Wpx
