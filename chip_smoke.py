@@ -135,7 +135,9 @@ Phases:
            hull-plane must all be reached); the same for the 24-sided prism
            (tests/test_torch_hull_scenes.py's large hull: 48 verts, 24-vertex
            caps, 72 full edges) at 128 x 65 rows (its plain version's SAT
-           tensors grow with the edge pairs), "none" after 3 steps, stacked,
+           tensors grow with the edge pairs), "none" after 3 steps and stacked
+           (both the windowed twin "win+hull": its staged rows leave the slot
+           layout one CTA an SM),
            the settled options after 30 steps, kernel 5 without FULL; every
            general-hull case bit for bit its plain version (max_abs_err 0)
   golden_physics   the reference binary's 1-substep physics goldens
@@ -207,8 +209,11 @@ Phases:
   main_rigid_sap   rigid_bench at 8192 x 200 bodies + the plane,
            contact_mode="pallas", broadphase "auto" (sap), K=800: 3
            warm-up steps then 5 windows of 20; launches = steps, all of
-           specialisation "none"; overflow counters and the last step's
-           window saturation (recounted); env-steps/s, peak memory
+           specialisation "win" (the slot layout leaves one CTA an SM, so
+           the windowed twin's block runs it, its window every slot);
+           overflow counters and the last step's window saturation
+           (recounted); env-steps/s, peak memory, the launch shape
+           (threads, CTAs an SM, the window)
   main_rigid_sap_large   rigid_bench at 8192 x 255 bodies + the plane
            (K = 1020), contact_mode and broadphase_mode "auto" (checked to
            resolve to the fused kernel and sap): 3 warm-up steps then 5
@@ -265,7 +270,9 @@ Phases:
            the JAX package, tests/test_torch_hull_sleep.py)
   main_rigid_hulls_large   main_rigid_hulls with the 24-sided prism for object
            0 (tables past PhysicsLoader()'s defaults): launches = steps, all
-           of the "hull" specialisation, finite positions, env-steps/s
+           of "win+hull" (its staged hull rows leave the slot layout one CTA
+           an SM, so the windowed twin's block runs it), finite positions,
+           env-steps/s, the launch shape (threads, CTAs an SM, the window)
   parity_substep_options   each option's kernel specialisation vs its
            plain version at 8192 x 65: refresh over given rows at K = 256
            and 128, sleep with mixed active flags, the broadphase at K = 256
@@ -390,8 +397,8 @@ Phases:
            device ms, host ms and device operations, which must be 1; the substep
            kernel: 20 calls at both K from the main_rigid states, at
            the main_rigid_sap state (n = 201, K = 800) and at the
-           main_rigid_sap_large state (the windowed twin, with its CTAs an
-           SM and its time by phase), with
+           main_rigid_sap_large state (both the windowed twin, each with
+           its CTAs an SM and its time by phase), with
            what its operation count is counted from: the pairs by kind,
            and the live contact points the plain version finds in each
            substep of the same call), beside the
@@ -438,7 +445,7 @@ Phases:
            The general-hull specialisations at the hull piles' states (20
            calls, beside their plain versions; the operations counted from
            the .cu per prism pair, contact_ops), kernel 5's node launch on
-           the joint world with prisms, and the "hull" launch at
+           the joint world with prisms, and the "win+hull" launch at
            main_rigid_hulls_large's state (its plain version at 128 of the
            worlds, its work counted over all of them in blocks of worlds).
            substep_occupancy: each fused specialisation's [threads a CTA,
@@ -1552,6 +1559,20 @@ def main_rigid(torch, rb, phys, cfg, steps, count, card, reset_counts, read_coun
                  "card": card, **({"probe": probed} if probe else {})}
 
 
+def launch_shape(sk, om, n, K):
+    """The fused launch's shape at n rows and K slots with object manager
+    om, without options: its specialisation, [threads, CTAs an SM] and its
+    window (None in the slot layout), the slot layout's shared memory and
+    its staged hull rows'."""
+    tables = sk.pk.ObjTables(om)
+    hull = None if tables.all_box else tables
+    (name, shape), = sk.occupancy(n, K, codes=(0,), hull=hull).items()
+    return {"specialisation": name, "threads_ctas_an_sm": list(shape),
+            "window": sk.fused_layout_window(tables, n, K) if sk.windowed(tables, n, K) else None,
+            "slot_layout_smem_bytes": sk.smem_bytes(n, K),
+            "hull_stage_bytes": sk.hull_stage_bytes(tables, n)}
+
+
 # -- the sap broadphase and the dense contact mode -----------------------------
 
 SAP_BODIES, SAP_K = 200, 800      # 201 rows: "auto" takes sap; K = 4 x bodies
@@ -2383,7 +2404,10 @@ def parity_hull(torch, rb, phys, sk):
                                                 "live_joints": int(live_joints(jkw).sum()),
                                                 "max_err": errs}
     names = {c["specialisation"] for c in cases.values() if "specialisation" in c}
+    # and the windowed twin, which the 24-sided prism's pile takes (its
+    # staged hull rows leave the slot layout one CTA an SM)
     want = {sk.option_name(code | sk.OPT_HULL) for code in sk.SPECIALISATION_CODES}
+    want.add(sk.option_name(sk.OPT_WIN | sk.OPT_HULL))
     check(names == want, f"parity_hull launched {sorted(names)}, not every specialisation")
     # the general paths all reached: the SAT's face and edge outcomes,
     # sphere-hull and hull-plane; face pairs on the stacked prisms
@@ -4125,12 +4149,13 @@ def main(argv):
           "broadphase": node_fn(dsim, "bp_find_overlaps").__name__})
     del dsim
     ssap, line = main_rigid(torch, rb, phys, dict(contact_mode="pallas"), 20, 5, smi, *counts,
-                            bodies=SAP_BODIES)
+                            bodies=SAP_BODIES, specialisation="win")
     sap_launches = line["launches"]["fused_substep"]
     check(node_fn(ssap, "bp_find_overlaps").__name__ == "find_overlaps_sap",
           "main_rigid_sap takes sap")
     emit({"phase": "main_rigid_sap", **line, "K": SAP_K,
-          "kernel_smem_bytes": subk.smem_bytes(SAP_BODIES + 1, SAP_K),
+          "launch_shape": launch_shape(subk, rb.RigidBenchWorld.objmgr, SAP_BODIES + 1, SAP_K),
+          "slot_layout_smem_bytes": subk.smem_bytes(SAP_BODIES + 1, SAP_K),
           "window_saturation_last_step": sap_saturation(torch, rb, ssap)})
     # past one block's shared memory: 255 bodies under "auto" (the fused
     # kernel's windowed layout, sap)
@@ -4150,7 +4175,7 @@ def main(argv):
           "contact_mode": "auto -> fused kernel (windowed)", "broadphase": "auto -> sap",
           "window": win,
           "smem_bytes_a_world": subk.fused_window_smem_bytes(
-              n_large, win, subk.win_threads(n_large, LARGE_SAP_K)),
+              n_large, win, subk.WIN_THREADS),
           "scratch_bytes_a_world": 4 * subk.SCRATCH_CH * subk.win_pitch(LARGE_SAP_K - win)
           if win < LARGE_SAP_K else 0,
           "slot_layout_would_need_bytes": subk.smem_bytes(n_large, LARGE_SAP_K),
@@ -4219,10 +4244,11 @@ def main(argv):
           "fused_node": {k: hset_node[k] for k in ("device_ms", "host_ms", "device_ops")}})
     # the 24-sided prism for object 0: tables past PhysicsLoader()'s defaults
     lsim, line = main_rigid(torch, rb, phys, dict(contact_mode="pallas"), LARGE_STEPS,
-                            LARGE_WINDOWS, smi, *counts, specialisation="hull",
+                            LARGE_WINDOWS, smi, *counts, specialisation="win+hull",
                             make=lambda cfg, device: hs.hull_pile(cfg, device, large=True))
     large_launches = line["launches"]["fused_substep"]
     emit({"phase": "main_rigid_hulls_large", **line,
+          "launch_shape": launch_shape(subk, lsim.world_cls.objmgr, RB_BODIES + 1, 256),
           "objects": "imported 24-sided prism, sphere 0.5, plane",
           "hull_dims": list(phys.subk.pk.ObjTables(lsim.world_cls.objmgr).hull_dims())})
     line, err_bp, err_persist = parity_substep_options(torch, rb, phys, subk, rsim, r128, bsim,
@@ -4321,11 +4347,12 @@ def main(argv):
                     "overlapping_pairs": sum(kinds.values()), "pairs_by_kind": kinds,
                     "work_over_substeps": work,
                     "pairs_per_world_max": int(rows.max())}
-        if K == LARGE_SAP_K:
+        if K in (SAP_K, LARGE_SAP_K):
+            # the windowed twin: at sap's 201 rows for one CTA an SM, past
+            # one block at 256
             sub_t[K]["phases"] = launch_phases(subk, lambda **p: kern(**kw, **p), RB_WORLDS,
                                                sub_t[K]["ms"])
-            sub_t[K]["occupancy"] = subk.occupancy(LARGE_SAP_BODIES + 1, K,
-                                                   codes=(subk.OPT_WIN,))
+            sub_t[K]["occupancy"] = subk.occupancy(kw["obj"].shape[1], K, codes=(0,))
 
     # the general-hull specialisations at the hull piles' states
     hkw = fused_inputs(hsim, rb, phys)
@@ -4370,7 +4397,8 @@ def main(argv):
                 d[k] = d.get(k, 0) + v
     lb_ms, lb_by = substep_bound(lkw, l_ops)
     lkw_part = next(world_chunks(lkw, LARGE_PARITY_WORLDS))
-    large_t = {"ms": cuda_ms(torch, lambda: lkern(**lkw), 5),
+    large_ms = cuda_ms(torch, lambda: lkern(**lkw), 5)
+    large_t = {"ms": large_ms,
                "plain_ms": cuda_ms(torch, lambda: lkern.plain(**lkw_part), 2, warmup=1),
                "plain_ms_is": f"its plain version at {LARGE_PARITY_WORLDS} of the "
                               f"{RB_WORLDS} worlds",
@@ -4378,7 +4406,9 @@ def main(argv):
                "work_over_substeps": l_work, "ops_by_kind": contact_ops(lkern.tables),
                "pairs_per_world_max": int(lkw["kvalid"].sum(1).max()),
                "occupancy": subk.occupancy(RB_BODIES + 1, 256, codes=(0,),
-                                           hull=lkern.tables)}
+                                           hull=lkern.tables),
+               "phases": launch_phases(subk, lambda **p: lkern(**lkw, **p), RB_WORLDS,
+                                       large_ms)}
     del lkw, lkw_part, lsim
     prism_tables = hkern.tables
 
@@ -4618,7 +4648,7 @@ def main(argv):
          "bound_ms": sub_t[256]["bound_ms"], "bound_by": sub_t[256]["bound_by"],
          "library_ms": None,
          "K128": {k: sub_t[128][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-         "sap_n201_K800": {"launches": sap_launches,
+         "sap_n201_K800": {"launches": sap_launches, "specialisation": "win",
                            **{k: sub_t[SAP_K][k] for k in ("ms", "plain_ms", "bound_ms",
                                                              "bound_by")}},
          "bodies_in_scratch": {
@@ -4718,7 +4748,7 @@ def main(argv):
          "source": csrc + "substep_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/substep_kernel.py:1257 (chunked :1241) on "
                      "general hulls past PhysicsLoader()'s defaults",
-         "specialisation": "hull", "launches": large_launches, "launches_per_step": 1,
+         "specialisation": "win+hull", "launches": large_launches, "launches_per_step": 1,
          "max_abs_err": err_hull, "ms": large_t["ms"], "plain_ms": large_t["plain_ms"],
          "plain_ms_is": large_t["plain_ms_is"], "bound_ms": large_t["bound_ms"],
          "bound_by": large_t["bound_by"], "library_ms": None,

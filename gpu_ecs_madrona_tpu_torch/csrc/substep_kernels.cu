@@ -130,7 +130,11 @@
 //     registers between the passes: the shared stash holds only the
 //     entries past T, which with the per-body channels and the slot
 //     arrays lets 4 worlds share an SM at K = 256 (min_blocks caps the
-//     no-cache specialisations at 128 registers for that);
+//     no-cache specialisations at 128 registers for that); a shape whose
+//     slot layout leaves one CTA an SM (past (kMaxSmem - 1 KB) / 2:
+//     rigid_bench from 130 rows, 81 with the cache, the 24-sided prism's
+//     pile at 65) takes the windowed twin's block instead (kOptWin,
+//     below), where that cap and 4 warps an SM bought nothing;
 //   - in the cache specialisations (2 worlds an SM, registers free) the
 //     box-box pairs are taken by groups of kGroup = 4 lanes
 //     (warp_box_box, box_box_group): the edge axes, clipped edges and
@@ -195,25 +199,32 @@
 // passes' chains: dealing only the hull pairs across the warps (the other
 // kinds packed by kind) ran 6.05 ms, staging four items' table loads at
 // once 6.64, two clip corners a lane 5.64.
-// Past one block's shared memory (kOptWin).  The slot layout above keeps
-// every slot's rows, pass contributions and stash in shared memory, which at
-// rigid_bench's K = 4 x bodies passes the 227 KB a block may have from 239
-// bodies (160 with the manifold cache), where JAX's K-slab chunked kernel
-// keeps one 128-slot slab in VMEM.  The windowed specialisations of "none"
-// and "refresh" (each also with kOptHull; sleep read from a.active at run
-// time) take kernel 5's window layout instead: the bodies, the lists'
-// offsets and cursors and the staged hull rows stay in shared memory; each
-// valid slot's work entry (the same work list, grouped by contact kind)
-// keeps its rows, pass contributions, stash, list entries and manifold cache
-// in the window when its index is below kw, else in the world's slice of a
-// global scratch (kScratchCh channels an entry, kWinCacheCh with the cache),
-// which only worlds with more live pairs than the window touch.  The window
-// (fused_window) is the most entries that one CTA's kMaxSmem holds (every
-// one of K = 1,020 at 256 rows; 667 with the cache); where its bodies, its
-// hull rows and the smallest
-// window (a round of the block's threads) pass kMaxSmem, past 870 bodies of
-// boxes (647 with the cache) and 332 of the imported prism (247), the bodies
-// take a global scratch too (kOptBody, below).
+// Where the slot layout leaves one CTA an SM, and past one block's shared
+// memory (kOptWin).  The slot layout above keeps every slot's rows, pass
+// contributions and stash in shared memory, which at rigid_bench's K = 4 x
+// bodies passes the 227 KB a block may have from 239 bodies (161 with the
+// manifold cache), where JAX's K-slab chunked kernel keeps one 128-slot slab
+// in VMEM, and passes (kMaxSmem - 1 KB) / 2, the most a CTA may take for two
+// to share an SM (an SM holds kMaxSmem and 1 KB, each CTA reserves 1 KB),
+// from 129 bodies (80 with the cache; the 24-sided prism's 85 KB of staged
+// hull rows at 64), so that one CTA of 4 warps holds an SM.  Every such shape
+// without the in-kernel broadphase (ops/substep_kernel.py windowed and
+// TWO_CTA_BYTES, the route's one rule) takes the windowed specialisations of
+// "none" and "refresh" (each also with kOptHull; sleep read from a.active at
+// run time), kernel 5's window layout in the twins' block (below): the
+// bodies, the lists' offsets and cursors and the staged hull rows stay in
+// shared memory; each valid slot's work entry (the same work list, grouped by
+// contact kind) keeps its rows, pass contributions, stash, list entries and
+// manifold cache in the window when its index is below kw, else in the
+// world's slice of a global scratch (kScratchCh channels an entry,
+// kWinCacheCh with the cache), which only worlds with more live pairs than
+// the window touch.  The window (fused_window) is the most entries that one
+// CTA's kMaxSmem holds (every one of K = 1,020 at 256 rows, so of every shape
+// below one block; 667 with the cache at 256 rows); where its bodies, its
+// hull rows and the smallest window (a round of the block's threads) pass
+// kMaxSmem, past 870 bodies of boxes (647 with the cache) and 332 of the
+// imported prism (247), the bodies take a global scratch too (kOptBody,
+// below).
 // The slot lists, work order, first-entry-in-registers stash and every
 // sum's order are the slot layout's, so a windowed launch is bit for bit
 // the slot layout's and the plain version's at any window and any block (a
@@ -247,35 +258,41 @@
 // (| kOptRefresh) (| kOptHull)>), so the shapes that fit one block keep
 // their specialisations as compiled before, and every sum keeps its order:
 // bit for bit the plain version.
-// The twins' design for the card (PERF.md).  Measured by phase
-// (clock64() between barriers, SS_PHASE) at the parent's design, H100:
-// kernel 5 with 4,096 joint rows spent 94% of its cycles in the joint sums,
-// each body walking every joint row; with the bodies in the scratch its
-// slot lists (25%) and segment sums (43%) waited on chains of global loads
-// (a cursor or list word, then the pass channels), as did the fused twin's
-// sums (35%) and passes (44%).  So: (1) kernel 5's twin builds each body's
-// side-1 and side-2 joint lists once a launch (joint_lists: counts, a warp's
-// scan, a stable fill in joint order), and a body sums only its own joints,
-// O(n + J) for O(n J), in the order it summed them; (2) the hottest body
-// channels, the lists' offsets and cursors (and the joint lists) in shared
-// memory, as above; (3) the twins' own block: kWinThreads and kBodyThreads
-// threads (384), one CTA an SM (the budget is one CTA's 227 KB, and 170
-// registers a thread), so that a world's many entries and bodies run in 12
-// warps and its window holds every slot of the 256-row pile; (4) the work
-// list's counts by kind taken by every warp, and two sorter warps (the
-// entries and A sides; the B sides) loading a chunk ahead
-// (finish_slots_twin, which kernel 5's window layout takes too); (5) the
-// entries past the window as channel pairs in the scratch
-// (pack_store_pairs), so that a body's sum reads an entry's side in (C +
-// 1) / 2 sectors, not C.  A world stays one CTA (one unit of work,
-// substep_wt's meaning).  Tried and dropped: a segment sum that loads a few
-// entries before adding them, and entries stored entry-major (the passes'
-// stores then scattered); 256 and 512 threads, and two CTAs an SM; a
-// cluster of 8 CTAs a world, its rows and entries dealt over their shared
-// memory (distributed shared memory), 3.2x slower at 1,024 rows: a world
-// ran 2.8x faster on 8x the SMs, each gather of another CTA's row crossing
-// the SM-to-SM network uncached where the scratch's hit L1 and L2
-// (PERF.md).
+// The twins' design for the card (PERF.md).  Measured by phase (clock64()
+// between barriers, SS_PHASE) at the parent's design, H100: kernel 5 with
+// 4,096 joint rows spent 94% of its cycles in the joint sums, each body
+// walking every joint row; with the bodies in the scratch its slot lists
+// (25%) and segment sums (43%) waited on chains of global loads (a cursor or
+// list word, then the pass channels), as did the fused twin's sums (35%) and
+// passes (44%).  So: (1) kernel 5's twin builds each body's side-1 and side-2
+// joint lists once a launch (joint_lists: counts, a warp's scan, a stable
+// fill in joint order), and a body sums only its own joints, O(n + J) for
+// O(n J), in the order it summed them; (2) the hottest body channels, the lists'
+// offsets and cursors (and the joint lists) in shared memory, as above; (3)
+// the twins' own block: kWinThreads and kBodyThreads threads (384), one CTA
+// an SM (the budget is one CTA's 227 KB, and 170 registers a thread), so that
+// a world's many entries and bodies run in 12 warps and its window holds
+// every slot of the 256-row pile; (4) the work list's counts by kind taken by
+// every warp, and two sorter warps (the entries and A sides; the B sides)
+// loading a chunk ahead (finish_slots_twin, which kernel 5's window layout
+// takes too); (5) the entries past the window as channel pairs in the scratch
+// (pack_store_pairs), so that a body's sum reads an entry's side in
+// (C + 1) / 2 sectors, not C.  A world stays one CTA (one unit of work, substep_wt's
+// meaning).  Measured on the H100 at the one-CTA shapes (PERF.md): at sap's
+// 201 rows, K = 800 the slot layout's 4 warps ran the passes' 558 entries in
+// 5 rounds of a 128-register thread, 11.8 ms, the twin 8.2-8.3 ms; at the
+// 24-sided prism's pile the slot layout ran 15.0 ms, the twin 11.8 at 256
+// threads and 11.5 at 384 (the hull rows staged and the hull pairs' lane
+// groups spread over 12 warps).  Tried there and dropped: numbering the work
+// entries so that the passes' second round paired the first round's cheap
+// tail with its own head (positional -8%, velocity +4%, the list build +9%:
+// the launch -0.8%).  Tried and dropped before: a segment sum that loads a
+// few entries before adding them, and entries stored entry-major (the passes'
+// stores then scattered); 256 and 512 threads, and two CTAs an SM; a cluster
+// of 8 CTAs a world, its rows and entries dealt over their shared memory
+// (distributed shared memory), 3.2x slower at 1,024 rows: a world ran 2.8x
+// faster on 8x the SMs, each gather of another CTA's row crossing the
+// SM-to-SM network uncached where the scratch's hit L1 and L2 (PERF.md).
 // Arithmetic: -fmad=false keeps every product and sum separately rounded,
 // in the order of the plain version (ops/substep_kernel.py,
 // physics/pairs.py); 1/sqrtf stands for the plain version's 1 / sqrt.  The
@@ -2046,10 +2063,10 @@ constexpr int kJointCh = 12;
 // The fused kernel's windowed specialisations (kOptWin; OPT_WIN in
 // ops/substep_kernel.py), which the launch takes for a shape without the
 // in-kernel broadphase whose whole layout (smem_bytes and the staged hull
-// rows) passes kMaxSmem: kernel 5's window layout, its work entries past a
-// window of fused_window(...) entries in the world's slice of a global
-// scratch of kScratchCh channels an entry, kWinCacheCh with the manifold
-// cache (its 33 channels after the others).
+// rows) passes (kMaxSmem - 1 KB) / 2 (one CTA an SM): kernel 5's window
+// layout, its work entries past a window of fused_window(...) entries in
+// the world's slice of a global scratch of kScratchCh channels an entry,
+// kWinCacheCh with the manifold cache (its 33 channels after the others).
 constexpr int kOptWin = 32;
 constexpr int kWinCacheCh = 79;
 // Bodies in a global scratch (kOptBody; OPT_BODY in ops/substep_kernel.py),
@@ -2066,7 +2083,9 @@ constexpr int kWinCacheCh = 79;
 constexpr int kOptBody = 64;
 // The launch geometry of the twins past one block (PERF.md): the
 // windowed twins (kOptWin, with or without kOptBody) take kWinThreads
-// threads a CTA at most, kernel 5's bodies-in-scratch twin kBodyThreads,
+// threads a CTA at every shape (a narrow one's hull rows and hull pairs
+// spread over its 12 warps), kernel 5's bodies-in-scratch twin kBodyThreads
+// at most,
 // each one CTA an SM (its registers capped for it, its shared memory
 // kMaxSmem at most); the fused bodies-in-scratch twin's window holds at
 // most kBodyWinEntries work entries.
@@ -2210,13 +2229,6 @@ __host__ __device__ __forceinline__ int block_threads(int n, int K) {
   const int widest = n > K ? n : K;
   const int t = ((widest + 31) / 32) * 32;
   return t < kMaxThreads ? t : kMaxThreads;
-}
-
-// The windowed twins' block: the same, at most kWinThreads.
-__host__ __device__ __forceinline__ int win_threads(int n, int K) {
-  const int widest = n > K ? n : K;
-  const int t = ((widest + 31) / 32) * 32;
-  return t < kWinThreads ? t : kWinThreads;
 }
 
 // The fused twins' scratch pitch (its channel stride): the entries past
@@ -2535,7 +2547,7 @@ __host__ __device__ __forceinline__ size_t body_window_smem_bytes(int n, int kw,
 // round of the block's threads, or K) fits beside the bodies and the hull
 // rows.
 int fused_window(int n, int K, bool cache, size_t hull) {
-  const int T = win_threads(n, K);
+  const int T = kWinThreads;
   const int least = K < T ? K : T;
   if (fused_window_smem_bytes(n, least, T, cache) + hull > kMaxSmem) return 0;
   int lo = least, hi = K;
@@ -2613,7 +2625,7 @@ __device__ __forceinline__ Smem carve_fused_window(float* smem, int n, int K, in
 // body_plan gives the lists' offsets and cursors and the hottest body
 // channels.
 int body_window(int n, int K, bool cache) {
-  const int T = win_threads(n, K);
+  const int T = kWinThreads;
   const int least = K < T ? K : T;
   const int most = K < kBodyWinEntries ? K : (kBodyWinEntries > least ? kBodyWinEntries : least);
   const size_t budget = kMaxSmem;
@@ -3599,14 +3611,15 @@ __device__ void passthrough(const Args& a, int wld, int n, int tid, int T) {
 // for their general-hull twins, whose staged hull rows (~24 KB at 65 rows of
 // the prism's) leave room for 3; with a manifold cache (33 floats a slot
 // more) shared memory allows 2, and the registers are left free; the
-// windowed specialisations for 1.
+// windowed specialisations for 1, at kWinThreads threads, which every shape
+// whose slot layout would leave one CTA an SM takes.
 template <int OPTS>
 constexpr int max_threads() {
   return (OPTS & kOptWin) != 0 ? kWinThreads : kMaxThreads;
 }
 template <int OPTS>
 __host__ __device__ __forceinline__ int fused_threads(int n, int K) {
-  return (OPTS & kOptWin) != 0 ? win_threads(n, K) : block_threads(n, K);
+  return (OPTS & kOptWin) != 0 ? kWinThreads : block_threads(n, K);
 }
 template <int OPTS>
 constexpr int min_blocks() {
@@ -4233,11 +4246,11 @@ size_t fused_smem(int n, int K, int kw, size_t hull) {
   constexpr bool bp = (OPTS & kOptBp) != 0;
   constexpr bool cache = (OPTS & (kOptRefresh | kOptPersist)) != 0;
   if ((OPTS & kOptBody) != 0)
-    return body_plan(body_window_smem_bytes(n, kw, win_threads(n, K), cache), n, 0,
+    return body_plan(body_window_smem_bytes(n, kw, kWinThreads, cache), n, 0,
                      kMaxSmem)
         .bytes;
   if ((OPTS & kOptWin) != 0)
-    return fused_window_smem_bytes(n, kw, win_threads(n, K), cache) + hull;
+    return fused_window_smem_bytes(n, kw, kWinThreads, cache) + hull;
   return smem_bytes(n, K, bp, cache) + hull;
 }
 

@@ -74,12 +74,14 @@ world-space rows fit the shared memory: ``hull_stage_bytes``) take each
 specialisation's general-hull twin (OPT_HULL, counted as "...+hull" and in
 ``SubstepKernel.hull_launches``), which reads ``pairs.ObjTables.hull_table``
 beside the object table.  A fused shape without the in-kernel broadphase
-whose slot layout passes one block's shared memory (``windowed``: from 239
-bodies of rigid_bench, 161 with contact refresh) takes each
-specialisation's windowed twin (OPT_WIN, counted as "...win"): a window of
-work entries in shared memory (``fused_window``), the rest in a global
-scratch (``fused_scratch``), bit for bit the slot layout, in a block of
-its own (``win_threads``, one CTA an SM).  Where even that layout's
+whose slot layout leaves one CTA an SM (``windowed``: from 129 bodies of
+rigid_bench, 80 with contact refresh, the 24-sided prism's pile at 64; past
+one block's shared memory from 239 bodies) takes each specialisation's
+windowed twin (OPT_WIN, counted as "...win"; ``fused_route``): a window of
+work entries in shared memory (``fused_window``: every slot up to ~250
+bodies), the rest in a global scratch (``fused_scratch``), bit for bit the
+slot layout, in a block of its own (``WIN_THREADS``, one CTA an SM, no
+register cap).  Where even that layout's
 smallest window does not fit beside the bodies (from 871 bodies of
 rigid_bench, 648 with contact refresh), and where kernel 5's window layout
 passes one block's shared memory (from 816 body rows), the bodies' rows,
@@ -172,8 +174,8 @@ def hull_stage_floats(tables: pk.ObjTables) -> int:
     """The floats a row of the general-hull specialisations' staged hull
     rows (hull_stride in the .cu): a row's world vertices, edge directions
     and SAT axes (3 each) and faces (4: normal and offset), at the table's
-    counts; 0 for all-box tables."""
-    if tables.all_box:
+    counts; 0 for all-box tables (or None)."""
+    if tables is None or tables.all_box:
         return 0
     _, Fm, Sm, Em, _, _ = tables.hull_dims()
     return 3 * (tables.Vm + Em + Sm) + 4 * Fm
@@ -188,24 +190,19 @@ def hull_stage_bytes(tables: pk.ObjTables, n: int) -> int:
 
 # The fused kernel's windowed layout (OPT_WIN, see csrc/substep_kernels.cu
 # kOptWin): a shape without the in-kernel broadphase whose slot layout
-# (smem_bytes with the staged hull rows) passes MAX_SMEM_BYTES keeps kernel
+# (smem_bytes with the staged hull rows) passes TWO_CTA_BYTES keeps kernel
 # 5's window of work entries in shared memory and the rest in a global
 # scratch of SCRATCH_CH channels an entry (WIN_CACHE_CH with the manifold
 # cache), its window the most entries one CTA's MAX_SMEM_BYTES holds
 # (fused_window).
 # The twins past one block (kWinThreads, kBodyThreads, kBodyWinEntries in
-# the .cu), one CTA an SM: the windowed twins' threads a CTA at most; kernel
-# 5's bodies-in-scratch twin's threads; the fused bodies-in-scratch twin's
-# window at most.
+# the .cu), one CTA an SM: the windowed twins' threads a CTA (at every
+# shape: a narrow one's hull phases spread over all 12 warps); kernel 5's
+# bodies-in-scratch twin's threads at most; the fused bodies-in-scratch
+# twin's window at most.
 WIN_THREADS = 384
 BODY_THREADS = 384
 BODY_WIN_ENTRIES = 512
-
-
-def win_threads(n: int, K: int) -> int:
-    """The windowed twins' block (win_threads in the .cu): one thread a
-    slot and a body, in whole warps, at most WIN_THREADS."""
-    return min(-(-max(n, K) // 32) * 32, WIN_THREADS)
 
 
 def smem_bytes(n: int, K: int, bp: bool = False, cache: bool = False) -> int:
@@ -271,7 +268,7 @@ def fused_window(n: int, K: int, cache: bool = False, hull_bytes: int = 0) -> in
     most K) whose layout fits one CTA's MAX_SMEM_BYTES; 0 when not even the
     smallest window (min(K, the block's threads)) fits beside the bodies and
     the hull rows."""
-    T = win_threads(n, K)
+    T = WIN_THREADS
     least = min(K, T)
     if fused_window_smem_bytes(n, least, T, cache) + hull_bytes > MAX_SMEM_BYTES:
         return 0
@@ -285,13 +282,23 @@ def fused_window(n: int, K: int, cache: bool = False, hull_bytes: int = 0) -> in
     return lo
 
 
+# The most shared memory a CTA may take for two to share an SM: an H100 SM
+# holds MAX_SMEM_BYTES and 1 KB, and each CTA on it reserves 1 KB.
+TWO_CTA_BYTES = (MAX_SMEM_BYTES - 1024) // 2
+
+
 def windowed(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
              cache: bool = False) -> bool:
-    """Whether the fused kernel runs these shapes in its windowed layout:
-    without the in-kernel broadphase, when the slot layout with the staged
-    hull rows passes MAX_SMEM_BYTES."""
+    """Whether the fused kernel runs these shapes in its windowed twin (the
+    route's one rule; ``tables`` None for all-box tables): without the
+    in-kernel broadphase (and so without persistence), where the slot layout
+    with the staged hull rows leaves one CTA an SM (passes TWO_CTA_BYTES);
+    there the twin's block of WIN_THREADS threads, its registers
+    uncapped, runs the same work bit for bit (rigid_bench from 130 rows, 81
+    with contact refresh; the 24-sided prism's pile at 65 rows, K = 256);
+    past MAX_SMEM_BYTES the slot layout does not fit at all."""
     return (not bp and smem_bytes(n, K, bp, cache) + hull_stage_bytes(tables, n)
-            > MAX_SMEM_BYTES)
+            > TWO_CTA_BYTES)
 
 
 # Bodies in a global scratch (OPT_BODY, see csrc/substep_kernels.cu
@@ -381,7 +388,7 @@ def body_window(n: int, K: int, cache: bool = False) -> int:
     in the .cu): the most work entries (at most K and BODY_WIN_ENTRIES, at
     least a round of the block) whose fixed part fits MAX_SMEM_BYTES; 0 when
     not even the least does."""
-    T = win_threads(n, K)
+    T = WIN_THREADS
     least = min(K, T)
     most = K if K < BODY_WIN_ENTRIES else max(BODY_WIN_ENTRIES, least)
     budget = MAX_SMEM_BYTES
@@ -400,7 +407,7 @@ def body_window(n: int, K: int, cache: bool = False) -> int:
 def fused_body_plan(n: int, K: int, cache: bool = False) -> dict:
     """The fused bodies-in-scratch twin's body_plan at its window."""
     kw = body_window(n, K, cache)
-    return body_plan(body_window_smem_bytes(n, kw, win_threads(n, K), cache), n, 0,
+    return body_plan(body_window_smem_bytes(n, kw, WIN_THREADS, cache), n, 0,
                      MAX_SMEM_BYTES)
 
 
@@ -425,6 +432,19 @@ def substep_layout_smem_bytes(tables: pk.ObjTables, n: int, K: int, J: int = 0) 
     if not substep_bodies(tables, n, K, J):
         return substep_smem_bytes(n, K, J) + hull_stage_bytes(tables, n)
     return substep_body_smem_bytes(n, K, J, substep_joints_in_scratch(tables, n, K, J))
+
+
+def fused_route(code: int, tables: pk.ObjTables, n: int, K: int) -> int:
+    """The fused kernel's option bits ``code`` (no OPT_HULL) as a launch at n
+    bodies and K slots with ``tables`` (None: all-box) takes them: with
+    OPT_WIN where windowed, and OPT_BODY where fused_bodies; bits that name
+    a layout already are kept."""
+    if code & OPT_WIN:
+        return code
+    bp, cache = bool(code & OPT_BP), bool(code & (OPT_REFRESH | OPT_PERSIST))
+    if not windowed(tables, n, K, bp, cache):
+        return code
+    return code | OPT_WIN | (OPT_BODY if fused_bodies(tables, n, K, bp, cache) else 0)
 
 
 def fused_bodies(tables: pk.ObjTables, n: int, K: int, bp: bool = False,
@@ -1197,15 +1217,14 @@ def fused_substep(pos, rot, v, w, im, ii, mu_s, mu_d, obj, ext_f, ext_t, dyn,
                  "bp_dropped": torch.empty((W,), dtype=torch.int32, device=dev)}
     if persist:
         extra["mcache"] = mcache_out
-    code = ((OPT_REFRESH if refresh else 0) | (OPT_SLEEP if active is not None else 0)
-            | (OPT_BP if bp else 0) | (OPT_PERSIST if persist else 0))
+    code = fused_route((OPT_REFRESH if refresh else 0) | (OPT_SLEEP if active is not None else 0)
+                       | (OPT_BP if bp else 0) | (OPT_PERSIST if persist else 0), tables, n, K)
     window, scratch, bodies = 0, None, None
-    if windowed(tables, n, K, bp, refresh or persist):
-        # past one block's shared memory: the window, the rest in a scratch;
-        # past that the bodies in a scratch too
-        code |= OPT_WIN
-        if fused_bodies(tables, n, K, bp, refresh):
-            code |= OPT_BODY
+    if code & OPT_WIN:
+        # where the slot layout leaves one CTA an SM: the twin's window (every
+        # slot where it fits), the rest in a scratch; past that the bodies in
+        # a scratch too
+        if code & OPT_BODY:
             bodies = body_scratch(W, n, tables, dev)
         window = fused_layout_window(tables, n, K, refresh)
         scratch = fused_scratch(W, K, window, refresh, dev)
@@ -1371,10 +1390,11 @@ def occupancy(n: int, K: int, single: bool = False, joints=None,
     """The kernels' launch shape at n bodies and K slots, on the current
     card: {specialisation name: (threads a CTA, CTAs an SM)} for the fused
     kernel's specialisations ``codes`` (all eight by default; a shape that
-    fits only some asks for those; OPT_WIN and OPT_BODY for the windowed
-    layouts), or (threads, CTAs an SM) of kernel 5 with ``single``: without
-    its integrate and joints, or with ``joints`` joints its node launch, in
-    the layout the shape takes.  ``hull``: tables with general hulls, for
+    fits only some asks for those), each as a launch at these shapes takes
+    it (fused_route: the windowed twin where the slot layout leaves one CTA
+    an SM, named "...win"), or (threads, CTAs an SM) of kernel 5 with
+    ``single``: without its integrate and joints, or with ``joints`` joints
+    its node launch, in the layout the shape takes.  ``hull``: tables with general hulls, for
     the general-hull specialisations with those tables' staged rows.
     Builds the kernels if needed."""
     lib = _lib()
@@ -1392,7 +1412,7 @@ def occupancy(n: int, K: int, single: bool = False, joints=None,
         return read(lib.substep_occupancy(n, K, int(joints or 0), int(joints is not None),
                                           floats, ctypes.byref(threads), ctypes.byref(blocks)),
                     "substep")
-    codes = [code | (OPT_HULL if floats else 0) for code in codes]
+    codes = [fused_route(code, hull, n, K) | (OPT_HULL if floats else 0) for code in codes]
     return {option_name(code): read(lib.fused_substep_occupancy(
         code, n, K, floats, ctypes.byref(threads), ctypes.byref(blocks)),
         option_name(code)) for code in codes}

@@ -6,6 +6,7 @@ in turns: an A/B of a change against its parent.
     python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --phases ROOT
     python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --stg ROOT [ROOT ...]
     python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --large [--phases] ROOT [ROOT ...]
+    python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --sap [--phases] ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository; each runs in a
 process of its own (so that two versions of the package never meet), in
@@ -106,6 +107,18 @@ prints one JSON line:
              digest and launch shape (threads, CTAs an SM); with --phases
              and where ROOT has the phase build (ops/substep_kernel.py
              phase_cycles), its cycles a CTA by phase
+  sap        (--sap, the only case) the fused launches whose slot layout
+             leaves one CTA an SM: kernel 7 at main_rigid_sap's state
+             (8192 x 201 rows, K = 800, sap, after its 3 warm-up steps and
+             5 windows of 20: sap_n201_K800), the 24-sided prism's launch
+             at main_rigid_hulls_large's (8192 x 65, K = 256, after 3
+             steps: hull_large_K256), and rigid_bench at 8192 x 129 rows
+             (K = 512, after 3 steps) without and with contact refresh
+             (n129_K512, refresh_n129_K512): each launch's ms, digest,
+             the specialisation it launched and its launch shape (threads,
+             CTAs an SM, the window); with --phases and where ROOT has the
+             phase build, its cycles a CTA by phase.  Builds only the
+             substep source (and its phase build)
 
 The script needs a CUDA card; without one it exits 1 and prints nothing.
 """
@@ -294,7 +307,7 @@ def stg_case(torch, ms, rates, res):
     res["stg"] = dict(node, pairs_per_world_max=int(kw1["kvalid"].sum(1).max()))
 
 
-def hull_case(torch, root, ms, rates, res, timed):
+def hull_case(torch, root, ms, rates, res, timed, phases=False):
     """The hulls case (see the module doc), where ROOT has the hull scenes;
     timed(name, fn) times fn and keeps its outputs' digest."""
     if not os.path.exists(os.path.join(root, "tests", "test_torch_hull_scenes.py")):
@@ -359,6 +372,9 @@ def hull_case(torch, root, ms, rates, res, timed):
         large.run(3)
         lkern, lkw = RS.fused_kernel(large), inputs(large)
         timed("hull_large_K256", lambda: lkern(**lkw))
+        if phases and hasattr(phys.subk, "phase_cycles"):
+            res["hulls"]["large_phase_cycles"] = phys.subk.phase_cycles(
+                lambda **p: lkern(**lkw, **p), RB_WORLDS)
         res["hulls"]["large_live_slots"] = {k: int(v.sum()) for k, v in kind_masks(
             torch, lkw, large.world_cls.objmgr["prim_type"]).items()}
 
@@ -491,7 +507,65 @@ def large_case(torch, root, phases):
     return out
 
 
-def one(root, phases, stg_only, large=False):
+def launch_line(torch, sk, kern, kw, phases):
+    """One fused launch's line: its ms, digest, the specialisation it
+    launched, its shape (n, K, valid slots, window, [threads, CTAs an SM])
+    and, with ``phases`` where the checkout has the phase build, its cycles
+    a CTA by phase."""
+    W, n = kw["obj"].shape
+    K = kw["rows_i"].shape[1]
+    sk.FusedSubstepKernel.launches_by_options.clear()
+    outs = kern(**kw)
+    (spec, _), = sk.FusedSubstepKernel.launches_by_options.items()
+    win = "win" in spec
+    code = ((sk.OPT_WIN if win else 0)
+            | (sk.OPT_REFRESH if kern.contact_refresh else 0))
+    hull = None if kern.tables.all_box else kern.tables
+    line = {"ms": cuda_ms(torch, lambda: kern(**kw)), "digest": digest(outs),
+            "specialisation": spec,
+            "shape": {"W": W, "n": n, "K": K, "valid_slots_max": int(kw["kvalid"].sum(1).max()),
+                      "window": sk.fused_layout_window(kern.tables, n, K, kern.contact_refresh)
+                      if win else None,
+                      "occupancy": sk.occupancy(n, K, codes=(code,), hull=hull)}}
+    if phases and hasattr(sk, "phase_cycles"):
+        line["phase_cycles"] = sk.phase_cycles(lambda **p: kern(**kw, **p), W)
+    return line
+
+
+def sap_case(torch, root, phases):
+    """The sap case (see the module doc): {launch: its line}."""
+    from gpu_ecs_madrona_tpu_torch import physics as phys
+    from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
+    from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
+    RS = phys.RigidBodyPhysicsSystem
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import test_torch_hull_scenes as hs
+    om = rb.RigidBenchWorld.objmgr
+    out = {}
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=200,
+                                               contact_mode="pallas"), device="cuda")
+    sim.run(103)
+    out["sap_n201_K800"] = launch_line(torch, sk, RS.fused_kernel(sim),
+                                       RS.next_step_kernel_inputs(sim, rb.Body, om), phases)
+    del sim
+    torch.cuda.empty_cache()
+    large = hs.hull_pile(rb.RigidBenchConfig(**hs.HULL_PILE), device="cuda", large=True)
+    large.run(3)
+    out["hull_large_K256"] = launch_line(
+        torch, sk, RS.fused_kernel(large),
+        RS.next_step_kernel_inputs(large, rb.Body, large.world_cls.objmgr), phases)
+    del large
+    sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, num_bodies=128,
+                                               contact_mode="pallas"), device="cuda")
+    sim.run(3)
+    kw = RS.next_step_kernel_inputs(sim, rb.Body, om)
+    for name, refresh in (("n129_K512", False), ("refresh_n129_K512", True)):
+        kern = sk.FusedSubstepKernel(om, 4, relaxation=0.7, contact_refresh=refresh)
+        out[name] = launch_line(torch, sk, kern, kw, phases)
+    return out
+
+
+def one(root, phases, stg_only, large=False, sap=False):
     import ctypes
 
     import torch
@@ -507,8 +581,9 @@ def one(root, phases, stg_only, large=False):
     # the substep sources (where ROOT has it, the wide-box build too) at once
     extra = ["substep_phases"] if phases and "substep_phases" in getattr(
         _build, "VARIANTS", {}) else []
-    log = _build.build([name for name in _build.sources()
-                        if name.startswith("substep")] + extra)["substep_kernels"]
+    log = _build.build((["substep_kernels"] if sap else [
+        name for name in _build.sources() if name.startswith("substep")]) + extra)[
+            "substep_kernels"]
     ptxas, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry" in ln:
@@ -535,9 +610,10 @@ def one(root, phases, stg_only, large=False):
         from gpu_ecs_madrona_tpu_torch.physics import assets
         from gpu_ecs_madrona_tpu_torch.utils import importer
         floats = sk.hull_stage_floats(sk.pk.ObjTables(hs.hull_object_manager(assets, importer)))
-    if large:
+    if large or sap:
+        key, case = ("sap", sap_case) if sap else ("large", large_case)
         print(json.dumps({"root": root, "card": torch.cuda.get_device_name(0),
-                          "ptxas": ptxas, "large": large_case(torch, root, phases)}),
+                          "ptxas": ptxas, key: case(torch, root, phases)}),
               flush=True)
         return
     res = {"root": root, "card": torch.cuda.get_device_name(0), "ptxas": ptxas,
@@ -621,7 +697,7 @@ def one(root, phases, stg_only, large=False):
     res.update(ms=ms, rates=rates, live_slots={
         "main_rigid": {k: int(v.sum()) for k, v in kind_masks(
             torch, kw256, om["prim_type"]).items()}})
-    hull_case(torch, root, ms, rates, res, timed)
+    hull_case(torch, root, ms, rates, res, timed, phases)
     window_case(torch, root, ms, rates, res, timed)
     shapes_case(torch, root, ms, res, timed, kw256)
 
@@ -645,8 +721,9 @@ def one(root, phases, stg_only, large=False):
 
 def main(argv):
     phases, stg_only, large = "--phases" in argv, "--stg" in argv, "--large" in argv
+    sap = "--sap" in argv
     if "--one" in argv:
-        one(argv[argv.index("--one") + 1], phases, stg_only, large)
+        one(argv[argv.index("--one") + 1], phases, stg_only, large, sap)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -662,7 +739,8 @@ def main(argv):
     for root in roots:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
                         os.path.abspath(root)] + (["--phases"] if phases else [])
-                       + (["--stg"] if stg_only else []) + (["--large"] if large else []),
+                       + (["--stg"] if stg_only else []) + (["--large"] if large else [])
+                       + (["--sap"] if sap else []),
                        check=True)
     return 0
 

@@ -1343,20 +1343,71 @@ def test_sap_on_card_matches_cpu(card, grid):
 @pytest.mark.cuda
 def test_fused_substep_matches_plain_at_sap_state(card):
     """Kernel 7 (K = 800 > 128) on sap's candidates, in sap's order,
-    against its plain version; a repeat bit-identical."""
+    against its plain version, bit for bit (the slot layout leaves one CTA
+    an SM there, so the windowed twin runs it); a repeat bit-identical."""
     _, gpu = sap_pair(card, W=32)
     kw = fused_inputs(gpu)
     assert kw["rows_i"].shape[1] == 800 and int(kw["kvalid"].sum()) > 32 * 100
     kern = subk.FusedSubstepKernel(rb.RigidBenchWorld.objmgr, 4, relaxation=0.7)
+    subk.FusedSubstepKernel.launches_by_options.clear()
     got, again = kern(**kw), kern(**kw)
     want = kern.plain(**kw)
     torch.cuda.synchronize()
     assert subk.FusedSubstepKernel.launches == 2
+    assert dict(subk.FusedSubstepKernel.launches_by_options) == {"win": 2}
     for k in subk.OUT_KEYS:
         assert torch.isfinite(got[k]).all(), k
-        torch.testing.assert_close(got[k], want[k], rtol=0,
-                                   atol=1e-4 if k in POSE_KEYS else 1e-3, msg=k)
+        assert torch.equal(got[k], want[k]), (k, float((got[k] - want[k]).abs().max()))
         assert torch.equal(got[k], again[k]), k
+
+
+# the shapes whose slot layout leaves one CTA an SM, which take the windowed
+# twin's block: kernel 7 at sap's state (201 rows, K = 800) and the 24-sided
+# prism's pile (65 rows, K = 256), without and with an option
+ONE_CTA_CASES = {"sap": ("sap", {}, "win"), "sap_sleep": ("sap", {"sleep": True}, "sleep+win"),
+                 "large_prism": ("large", {}, "win+hull"),
+                 "large_prism_refresh": ("large", {"contact_refresh": True},
+                                         "refresh+win+hull")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ONE_CTA_CASES))
+def test_one_cta_shapes_take_the_twin_bit_for_bit(card, case):
+    """Each shape whose slot layout leaves one CTA an SM launches the
+    windowed twin (counted under its name), its window every slot, in a
+    block of WIN_THREADS threads at one CTA an SM; bit for bit the plain
+    version, and a repeat bit-identical."""
+    pile, opts, name = ONE_CTA_CASES[case]
+    opts = dict(opts)
+    sleep = opts.pop("sleep", False)
+    if pile == "sap":
+        _, sim = sap_pair(card, W=32)
+    else:
+        sim = hull_scenes.hull_pile(rb.RigidBenchConfig(**dict(hull_scenes.HULL_PILE,
+                                                               num_worlds=64)),
+                                    device=card, large=True)
+        sim.run(3)
+    kw = fused_inputs(sim)
+    W, n = kw["obj"].shape
+    K = kw["rows_i"].shape[1]
+    if sleep:
+        kw["active"] = torch.arange(W, device=card) % 3 != 1
+    kern = subk.FusedSubstepKernel(sim.world_cls.objmgr, 4, relaxation=0.7, **opts)
+    refresh = kern.contact_refresh
+    assert subk.windowed(kern.tables, n, K, cache=refresh)
+    assert subk.fused_layout_window(kern.tables, n, K, refresh) == K
+    hull = None if kern.tables.all_box else kern.tables
+    code = subk.OPT_REFRESH if refresh else 0
+    assert subk.occupancy(n, K, codes=(code,), hull=hull) == {
+        name.replace("sleep+", ""): (subk.WIN_THREADS, 1)}
+    subk.FusedSubstepKernel.launches_by_options.clear()
+    got, again = kern(**kw), kern(**kw)
+    want = kern.plain(**kw)
+    torch.cuda.synchronize()
+    assert dict(subk.FusedSubstepKernel.launches_by_options) == {name: 2}
+    for k in subk.OUT_KEYS:
+        assert torch.isfinite(got[k]).all() and torch.equal(got[k], again[k]), k
+        assert torch.equal(got[k], want[k]), (k, float((got[k] - want[k]).abs().max()))
 
 
 def dense_pair(card, W=64, n=32):

@@ -315,7 +315,8 @@ def test_kernel_refuses_general_hulls_on_the_card_path():
                                       (65, 2000, "window")])
 def test_kernel_fits_checks_shared_memory(n, K, fits):
     """Shapes whose slot layout passes the 227 KB a block may have take the
-    windowed layout, and those whose bodies leave it no room (``fits``
+    windowed layout (as do those whose slot layout leaves one CTA an SM, at
+    65 rows from K = 539), and those whose bodies leave it no room (``fits``
     False: no layout in one block) the bodies in a global scratch; the
     in-kernel broadphase, which has neither, refuses such shapes with a
     reason that names the limit, not launched to fail."""
@@ -323,7 +324,8 @@ def test_kernel_fits_checks_shared_memory(n, K, fits):
     why = sk.kernel_fits(tables, n, K)
     assert why == ""
     assert (sk.smem_bytes(n, K) <= sk.MAX_SMEM_BYTES) == (fits == "slots")
-    assert sk.windowed(tables, n, K) == (fits != "slots")
+    assert sk.windowed(tables, n, K) == (fits != "slots"
+                                         or sk.smem_bytes(n, K) > sk.TWO_CTA_BYTES)
     assert sk.fused_bodies(tables, n, K) == (not fits)
     if fits != "slots" and n <= sk.MAX_BP_ROWS:
         why = sk.kernel_fits(tables, n, K, bp=True)

@@ -166,13 +166,16 @@ def test_single_substep_main_shape_fits():
 def test_shared_memory_above_227_kb_is_refused(bp, cache):
     """The first K whose slot layout passes 227 KB: with the in-kernel
     broadphase it is refused by name; without it the kernel takes it in its
-    windowed layout.  The K below it fits the slot layout."""
+    windowed layout.  The K below it fits the slot layout, at one CTA an SM:
+    the broadphase launches it, and without it the windowed twin takes it
+    too."""
     tables = sk.pk.ObjTables(rb.default_object_manager())
     K = 1
     while sk.smem_bytes(65, K + 1, bp, cache) <= sk.MAX_SMEM_BYTES:
         K += 1
     assert sk.kernel_fits(tables, 65, K, bp, cache) == ""
-    assert not sk.windowed(tables, 65, K, bp, cache)
+    assert sk.smem_bytes(65, K, bp, cache) > sk.TWO_CTA_BYTES
+    assert sk.windowed(tables, 65, K, bp, cache) == (not bp)
     why = sk.kernel_fits(tables, 65, K + 1, bp, cache)
     if bp:
         assert "shared memory" in why and str(sk.MAX_SMEM_BYTES) in why
@@ -236,7 +239,7 @@ def test_kernel_fits_takes_the_piles_past_one_block(case):
     assert sk.windowed(tables, n, K, cache=cache) and sk.kernel_fits(tables, n, K,
                                                                      cache=cache) == ""
     assert sk.fused_window(n, K, cache) == window <= K
-    T = sk.win_threads(n, K)
+    T = sk.WIN_THREADS
     assert T == sk.WIN_THREADS == 384
     need = sk.fused_window_smem_bytes(n, window, T, cache)
     assert need + 1024 <= 228 * 1024 and need <= sk.MAX_SMEM_BYTES
@@ -274,7 +277,7 @@ def test_windowed_body_ceiling_is_refused_by_name(cache, ceiling):
         assert sk.fused_bodies(tables, n, K, cache=cache)
         kw = sk.fused_layout_window(tables, n, K, cache)
         assert kw == sk.body_window(n, K, cache) > 384
-        T = sk.win_threads(n, K)
+        T = sk.WIN_THREADS
         budget = sk.MAX_SMEM_BYTES
         assert sk.body_window_smem_bytes(n, kw, T, cache) <= budget
         assert kw == sk.BODY_WIN_ENTRIES or sk.body_window_smem_bytes(n, kw + 1, T,
@@ -510,8 +513,9 @@ def test_twin_geometry_matches_the_cu():
     pitch = re.search(r"int win_pitch\(int kg\) \{ return (.*?); \}", CU).group(1)
     for kg in (0, 1, 2, 3, 641, 3580):
         assert sk.win_pitch(kg) == eval(pitch.replace("&", "&"), {}, {"kg": kg})
+    # the windowed twins launch kWinThreads threads at every shape
+    assert "? kWinThreads : block_threads(n, K)" in CU and "win_threads" not in CU
     for n, K in ((256, 1020), (9, 5), (1024, 4092), (40, 100)):
-        assert sk.win_threads(n, K) == min(-(-max(n, K) // 32) * 32, c["kWinThreads"])
         assert sk.substep_body_threads(n, K) == min(-(-max(n, min(K, c["kWindow"])) // 32) * 32,
                                                     c["kBodyThreads"])
 
@@ -557,9 +561,8 @@ def test_body_plan_fills_the_budget_in_order(n, K, J, flag, kernel5):
     else:
         plan, budget = sk.fused_body_plan(n, K, flag), sk.MAX_SMEM_BYTES
         kw = sk.body_window(n, K, flag)
-        assert min(K, sk.win_threads(n, K)) <= kw <= max(sk.BODY_WIN_ENTRIES,
-                                                         sk.win_threads(n, K))
-        fixed = sk.body_window_smem_bytes(n, kw, sk.win_threads(n, K), flag)
+        assert min(K, sk.WIN_THREADS) <= kw <= max(sk.BODY_WIN_ENTRIES, sk.WIN_THREADS)
+        fixed = sk.body_window_smem_bytes(n, kw, sk.WIN_THREADS, flag)
     offs, lists = 4 * (3 * n + 1), 4 * (2 * n + 2 * J) if J else 0
     assert plan["offsets"] == (fixed + offs <= budget)
     used = fixed + (offs if plan["offsets"] else 0)
@@ -567,4 +570,175 @@ def test_body_plan_fills_the_budget_in_order(n, K, J, flag, kernel5):
     used += lists if plan["joint_lists"] else 0
     assert plan["bytes"] == used + 4 * n * plan["hot"] <= budget
     assert plan["hot"] == sk.BODY_CH or plan["bytes"] + 4 * n > budget
+
+
+
+# -- the one-CTA rule: fused shapes whose slot layout leaves one CTA an SM
+# take the windowed twin's block ------------------------------------------
+
+
+def ctas_an_sm(need):
+    """CTAs of ``need`` bytes of dynamic shared memory an SM holds by shared
+    memory (the .cu's kMaxSmem and the 1 KB a CTA reserves make the SM's
+    228 KB)."""
+    sm = cu_constants()["kMaxSmem"] + 1024
+    return sm // (need + 1024)
+
+
+def slot_layout_bytes(tables, n, K, bp=False, cache=False):
+    return sk.smem_bytes(n, K, bp, cache) + sk.hull_stage_bytes(tables, n)
+
+
+def test_one_cta_rule_matches_the_cu():
+    """The rule's bound is the one the .cu's notes state from its kMaxSmem,
+    (kMaxSmem - 1 KB) / 2: the most a CTA may take for two to share an SM."""
+    c = cu_constants()
+    assert sk.TWO_CTA_BYTES == (c["kMaxSmem"] - 1024) // 2
+    assert "(kMaxSmem - 1 KB) / 2" in CU and "TWO_CTA_BYTES" in CU
+    assert ctas_an_sm(sk.TWO_CTA_BYTES) == 2 and ctas_an_sm(sk.TWO_CTA_BYTES + 1) == 1
+
+
+# (tables, n, K, bp, cache): the main paths' fused shapes that keep two or
+# more CTAs an SM in the slot layout (main_rigid at K = 256 and 128,
+# main_rigid_fused_bp, the settled piles, the imported prism's pile with
+# and without the cache, the 24-sided prism at K = 128, rigid_bench at 99
+# bodies and at 128, the last before the rule)
+SLOT_SHAPES = {"main_rigid_K256": ("boxes", 65, 256, False, False),
+               "main_rigid_K128": ("boxes", 65, 128, False, False),
+               "main_rigid_fused_bp": ("boxes", 65, 256, True, False),
+               "settled": ("boxes", 65, 256, True, True),
+               "settled_K128": ("boxes", 65, 128, True, True),
+               "refresh_K256": ("boxes", 65, 256, False, True),
+               "prism_K256": ("prism", 65, 256, False, False),
+               "prism_K128": ("prism", 65, 128, False, False),
+               "prism_refresh_K256": ("prism", 65, 256, False, True),
+               "prism_settled": ("prism", 65, 256, True, True),
+               "large_K128": ("large", 65, 128, False, False),
+               "boxes_99": ("boxes", 100, 396, False, False),
+               "boxes_128": ("boxes", 129, 512, False, False),
+               "refresh_79": ("boxes", 80, 316, False, True)}
+
+
+def shape_tables(which):
+    if which == "boxes":
+        return sk.pk.ObjTables(rb.default_object_manager())
+    return hull_tables(which)
+
+
+@pytest.mark.parametrize("case", sorted(SLOT_SHAPES))
+def test_shapes_at_two_ctas_keep_the_slot_layout(case):
+    """The fused shapes that keep two or more CTAs an SM in the slot layout
+    launch it as before: not windowed, their option bits unchanged, taken
+    by kernel_fits."""
+    which, n, K, bp, cache = SLOT_SHAPES[case]
+    tables = shape_tables(which)
+    need = slot_layout_bytes(tables, n, K, bp, cache)
+    assert need <= sk.TWO_CTA_BYTES and ctas_an_sm(need) >= 2
+    assert not sk.windowed(tables, n, K, bp, cache)
+    code = (sk.OPT_BP if bp else 0) | (sk.OPT_REFRESH if cache else 0)
+    assert sk.fused_route(code, tables, n, K) == code
+    assert sk.fused_route(code | sk.OPT_SLEEP, tables, n, K) == code | sk.OPT_SLEEP
+    assert sk.kernel_fits(tables, n, K, bp, cache) == ""
+
+
+# (tables, bodies, the cache): the shapes whose slot layout leaves one CTA
+# an SM and whose twin's window holds every slot (K = 4 x bodies, or 256
+# for the 24-sided prism's pile): rigid_bench at 129 (the first), 200
+# (main_rigid_sap) and 238 bodies (the last whose slot layout fits one
+# block), with contact refresh at 80 (the first) and 128, the 24-sided
+# prism at main_rigid_hulls_large's 64 bodies, with and without refresh
+TWIN_SHAPES = {"boxes_129": ("boxes", 129, False, 516), "main_rigid_sap": ("boxes", 200, False, 800),
+               "boxes_238": ("boxes", 238, False, 952), "refresh_80": ("boxes", 80, True, 320),
+               "refresh_128": ("boxes", 128, True, 512),
+               "large_K256": ("large", 64, False, 256),
+               "large_refresh_K256": ("large", 64, True, 256)}
+
+
+@pytest.mark.parametrize("case", sorted(TWIN_SHAPES))
+def test_shapes_at_one_cta_take_the_twin_with_every_slot_in_the_window(case):
+    """Where the slot layout leaves one CTA an SM (and fits one block), the
+    fused kernel without the broadphase takes the windowed twin ("win",
+    "sleep+win", "refresh+win"): its window holds every slot, so no scratch
+    is allocated, in a block of WIN_THREADS threads within one CTA's
+    MAX_SMEM_BYTES; kernel_fits takes it."""
+    which, bodies, cache, K = TWIN_SHAPES[case]
+    tables = shape_tables(which)
+    n = bodies + 1
+    need = slot_layout_bytes(tables, n, K, cache=cache)
+    assert sk.TWO_CTA_BYTES < need <= sk.MAX_SMEM_BYTES and ctas_an_sm(need) == 1
+    assert sk.windowed(tables, n, K, cache=cache)
+    assert not sk.fused_bodies(tables, n, K, cache=cache)
+    refresh = sk.OPT_REFRESH if cache else 0
+    assert sk.fused_route(refresh, tables, n, K) == refresh | sk.OPT_WIN
+    assert sk.fused_route(refresh | sk.OPT_SLEEP, tables, n, K) == (
+        refresh | sk.OPT_SLEEP | sk.OPT_WIN)
+    window = sk.fused_layout_window(tables, n, K, cache)
+    assert window == K
+    assert sk.fused_scratch(3, K, window, cache, "cpu") is None
+    T = sk.WIN_THREADS
+    twin = sk.fused_window_smem_bytes(n, K, T, cache) + sk.hull_stage_bytes(tables, n)
+    assert twin <= sk.MAX_SMEM_BYTES
+    assert sk.kernel_fits(tables, n, K, cache=cache) == ""
+    assert sk.option_name(sk.fused_route(refresh, tables, n, K)
+                          | (0 if tables.all_box else sk.OPT_HULL)).endswith(
+        "win" if tables.all_box else "win+hull")
+
+
+@pytest.mark.parametrize("which,cache,slots_past_one_block,bodies_ceiling",
+                         [("boxes", False, 239, 870), ("boxes", True, 161, 647),
+                          ("prism", False, 174, 332), ("prism", True, 129, 247)])
+def test_thresholds_past_one_block_do_not_change(which, cache, slots_past_one_block,
+                                                 bodies_ceiling):
+    """The rule moves only the shapes between two CTAs an SM and one
+    block: the slot layout still passes one block's shared memory from 239
+    bodies of boxes (161 with the cache; the imported prism's 174 and 129),
+    and the windowed twin's body ceiling (past it "win+bodies") is still 870
+    bodies (647; the imported prism's 332 and 247)."""
+    tables = shape_tables(which)
+    b = slots_past_one_block
+    assert slot_layout_bytes(tables, b, 4 * (b - 1), cache=cache) <= sk.MAX_SMEM_BYTES
+    assert slot_layout_bytes(tables, b + 1, 4 * b, cache=cache) > sk.MAX_SMEM_BYTES
+    for bodies, past in ((bodies_ceiling, False), (bodies_ceiling + 1, True)):
+        n, K = bodies + 1, 4 * bodies
+        assert sk.windowed(tables, n, K, cache=cache)
+        assert sk.fused_bodies(tables, n, K, cache=cache) == past
+        assert sk.kernel_fits(tables, n, K, cache=cache) == ""
+
+
+@pytest.mark.parametrize("n,K,persist", [(128, 512, False), (128, 512, True), (100, 400, True),
+                                         (65, 256, True), (128, 900, False)])
+def test_broadphase_and_persist_shapes_do_not_change(n, K, persist):
+    """The in-kernel broadphase (and persistence, which needs it) has no
+    windowed twin: its shapes keep the slot layout at any CTAs an SM (at
+    128 rows, K = 512, one), and kernel_fits refuses the slot layout past
+    one block by name, as before."""
+    tables = sk.pk.ObjTables(rb.default_object_manager())
+    assert not sk.windowed(tables, n, K, bp=True, cache=persist)
+    code = sk.OPT_BP | (sk.OPT_PERSIST | sk.OPT_REFRESH if persist else 0)
+    assert sk.fused_route(code, tables, n, K) == code
+    assert sk.fused_route(code | sk.OPT_SLEEP, tables, n, K) == code | sk.OPT_SLEEP
+    need = sk.smem_bytes(n, K, True, persist)
+    assert (sk.kernel_fits(tables, n, K, bp=True, cache=persist) == "") == (
+        need <= sk.MAX_SMEM_BYTES)
+    if (n, K) == (128, 512) and not persist:
+        assert sk.TWO_CTA_BYTES < need <= sk.MAX_SMEM_BYTES and ctas_an_sm(need) == 1
+
+
+@pytest.mark.parametrize("which", ["boxes", "prism", "large"])
+def test_kernel_fits_refuses_what_it_refused(which):
+    """kernel_fits refuses exactly the shapes it refused before the rule:
+    with the broadphase, a slot layout past one block (or past 128 rows);
+    without it, none (the windowed twin takes them, past its body ceiling
+    with the bodies in the scratch)."""
+    tables = shape_tables(which)
+    for n in (1, 2, 33, 65, 100, 128, 129, 201, 239, 256, 871, 1024):
+        for K in (1, 128, 256, 512, 800, 1020, 4092):
+            for bp in (False, True):
+                for cache in (False, True):
+                    why = sk.kernel_fits(tables, n, K, bp, cache)
+                    need = sk.smem_bytes(n, K, bp, cache)
+                    before = not bp or (n <= sk.MAX_BP_ROWS and need <= sk.MAX_SMEM_BYTES
+                                        and need + sk.hull_stage_bytes(tables, n)
+                                        <= sk.MAX_SMEM_BYTES)
+                    assert (why == "") == before, (n, K, bp, cache, why)
 
