@@ -308,10 +308,12 @@ Phases:
            pixel in 1e5 (the count is printed), depth rtol 1e-4 / atol
            1e-3 and RGBA8 within 1 where both hit
            (tests/test_render_pallas.py's tolerances); and past one block's
-           shared memory (4,096 instance rows a world, staged in blocks of
-           512: tests/test_torch_render_scenes.py's large scene, a quarter
-           of its rows triangle meshes, the imported prism's SourceMesh
-           among them) both modes bit for bit their plain versions
+           shared memory (4,096 instance rows a world, staged in stages of
+           survivors by the blocked twins: tests/test_torch_render_scenes.py's
+           large scene, a quarter of its rows triangle meshes, the imported
+           prism's SourceMesh among them) both modes bit for bit their plain
+           versions, the rays mode also on a 360-degree sweep from the
+           camera's eye (sweep_rays, +-30 degrees of elevation)
   main_simple_taskgraph   simple_taskgraph at 1024 worlds x 100 spheres + 1
            agent camera, 4 substeps, 64 x 64 RGB and depth, renderer
            "auto" (the render node one views-mode launch): 3 warm-up steps
@@ -349,7 +351,15 @@ Phases:
            threshold for its kernel), 5 runs: launches = 5 of the render
            kernel and no other, RGBA8 and depth bit for bit the plain
            version on 8 of the worlds, alpha 255 exactly where the depth is
-           finite; the blocks a CTA stages
+           finite; the stages a CTA fills at most
+  main_render_rays_large   RenderKernel.__call__ (the JAX package's
+           PallasRenderKernel.__call__, the rays mode: a caller's own rays)
+           on main_render_large's worlds and instances with the camera rays
+           of its views (camera_rays), 5 calls: launches = 5 of the render
+           kernel (its rays twin past one block) and no other, rgb, hit and
+           depth bit for bit render_plain's on 8 of the worlds, a repeat
+           bit-identical; the kernel's ms beside its bound, the call's ms,
+           CTAs an SM, CTAs an image, the stage and the stages at most
   main_ppo_fantasy_vs_ranks   the learner across ranks over a one-rank
            NCCL group (parallel/mesh.py) at main_ppo_fantasy_vs's
            configuration: its first train step from seed 0 against the
@@ -439,9 +449,10 @@ Phases:
            and the settled pile's whole fused node: its device ms and the
            device operations it queues (a captured CUDA graph's nodes).
            The windowed fused kernel at main_rigid_sap_large's state, and
-           the blocked render kernel at main_render_large's (its plain
-           version at 8 of the 256 worlds; the rays mode on the same views'
-           rays), each beside its bound.
+           the blocked render twins at main_render_large's (their plain
+           versions at 8 of the 256 worlds; the rays twin's from
+           main_render_rays_large, on the same views' rays), each beside its
+           bound.
            The general-hull specialisations at the hull piles' states (20
            calls, beside their plain versions; the operations counted from
            the .cu per prism pair, contact_ops), kernel 5's node launch on
@@ -2582,28 +2593,33 @@ RENDER_LARGE_STEPS = 5
 
 def blocked_render_cases(torch, rkm, scenes, dev, W=8, res=32):
     """The render kernel at 4,096 instance rows a world (tests/
-    test_torch_render_scenes.py's large scene, staged in blocks: hulls,
-    spheres, the plane and triangle meshes, a SourceMesh's among them), both
-    modes, bit for bit the plain versions (rays: rgb, hit, depth; views:
-    RGBA8 and depth bits); a repeat bit-identical.  Returns {case: line}."""
+    test_torch_render_scenes.py's large scene, staged by the blocked twins:
+    hulls, spheres, the plane and triangle meshes, a SourceMesh's among
+    them), both modes under its camera and the rays mode under a 360-degree
+    sweep from its eye, bit for bit the plain versions (rays: rgb, hit,
+    depth; views: RGBA8 and depth bits); a repeat bit-identical.  Returns
+    {case: line}."""
     out = {}
     sc = scenes.large_scene(W=W, res=res)
     k = rkm.RenderKernel(sc["om"], sc["albedo"], scenes.LIGHT_DIR, scenes.AMBIENT,
                          mesh_tables=sc["mesh_tables"])
-    rays, inst = k.pack(*(torch.from_numpy(sc[key]).to(dev) for key in RENDER_INPUTS))
-    kw = dict(tables=k.tables, light=k.light, ambient=k.ambient)
-    got, again = (rkm.render(rays, inst, img_w=res, **kw) for _ in range(2))
-    want = rkm.render_plain(rays, inst, **kw)
-    torch.cuda.synchronize()
-    check(torch.equal(got, again), "blocked rays: a repeated launch differs")
-    check(torch.equal(got, want), f"blocked rays vs plain: {max_err(got, want)}")
-    obj = inst[:, rkm.I_OBJ]
-    check(bool((obj == scenes.LARGE_PRISM).any() and (obj == scenes.LARGE_MESH_SPHERE).any()),
-          "the large scene holds both render meshes")
-    out["rays_4096"] = {"W": W, "P": rays.shape[2], "N": inst.shape[2],
-                        "mesh_rows": int((obj >= scenes.LARGE_PRISM).sum()),
-                        "blocks": rkm.stage_blocks(inst.shape[2]),
-                        "hits": int(want[:, rkm.O_HIT].sum()), "max_err": max_err(got, want)}
+    sweep = scenes.sweep_rays(sc["ro"][:, 0], res, res)
+    for name, (ro, rd) in (("rays_4096", (sc["ro"], sc["rd"])), ("sweep_4096", sweep)):
+        rays, inst = k.pack(*(torch.from_numpy(a).to(dev) for a in (
+            ro, rd, *(sc[key] for key in RENDER_INPUTS[2:]))))
+        kw = dict(tables=k.tables, light=k.light, ambient=k.ambient)
+        got, again = (rkm.render(rays, inst, img_w=res, **kw) for _ in range(2))
+        want = rkm.render_plain(rays, inst, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"blocked {name}: a repeated launch differs")
+        check(torch.equal(got, want), f"blocked {name} vs plain: {max_err(got, want)}")
+        obj = inst[:, rkm.I_OBJ]
+        check(bool((obj == scenes.LARGE_PRISM).any() and (obj == scenes.LARGE_MESH_SPHERE).any()),
+              "the large scene holds both render meshes")
+        out[name] = {"W": W, "P": rays.shape[2], "N": inst.shape[2],
+                     "mesh_rows": int((obj >= scenes.LARGE_PRISM).sum()),
+                     "stages_at_most": rkm.stage_blocks(inst.shape[2], False, res, res),
+                     "hits": int(want[:, rkm.O_HIT].sum()), "max_err": max_err(got, want)}
     k, views, insts, V, H, Wpx = scenes.large_view_case(W=W, H=res, Wpx=res, device=dev)
     vkw = dict(height=H, width=Wpx, max_views=V)
     got, again = (k.render_views(views, *insts, **vkw) for _ in range(2))
@@ -2685,6 +2701,73 @@ def main_render_large(torch, rkm, render_mod, card, reset_counts, read_counts):
                          "max_err": max_err(depth[:P8][both], plain[1][both])},
             "card": card}
     return line, (kern, views, inst, V, H, Wpx), max_err(depth[:P8][both], plain[1][both])
+
+
+def main_render_rays_large(torch, rkm, card, reset_counts, read_counts, render_large_in):
+    """RenderKernel.__call__ (the JAX package's PallasRenderKernel.__call__:
+    a caller's own rays) on main_render_large's worlds and instances
+    (RENDER_LARGE_WORLDS x 4,096 rows) with the camera rays of its views,
+    passed as a caller passes them: RENDER_LARGE_STEPS calls, launches =
+    those, of the render kernel (its rays twin) and no other; rgb, hit and
+    depth bit for bit render_plain's on RENDER_LARGE_PARITY of the worlds; a
+    repeat bit-identical.  Returns (its line, the rays twin's timing for the
+    kernels line, the worst error)."""
+    kern, views, inst, V, H, Wpx = render_large_in
+    W, N = inst[0].shape[:2]
+    ro, rd = (t.reshape(W, -1, 3) for t in rkm.camera_rays(views, V, H, Wpx))
+    P0 = ro.shape[1]
+    check(rkm.blocked(N), "main_render_rays_large fits one block")
+    first = kern(ro, rd, *inst, img_w=Wpx)
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(RENDER_LARGE_STEPS):
+        got = kern(ro, rd, *inst, img_w=Wpx)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {name: 0 for name in launches}
+    want["render"] = RENDER_LARGE_STEPS
+    check(launches == want, f"main_render_rays_large launches {launches}")
+    check(all(torch.equal(a, b) for a, b in zip(first, got)),
+          "main_render_rays_large: a repeated call differs")
+    rgb, hit, depth = got
+    check(bool(hit.any()) and bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(depth).all()),
+          "main_render_rays_large: finite outputs with hits")
+    P8 = RENDER_LARGE_PARITY
+    rays8, inst8 = kern.pack(ro[:P8], rd[:P8], *(t[:P8] for t in inst))
+    kw = dict(tables=kern.tables, light=kern.light, ambient=kern.ambient)
+    plain = rkm.render_plain(rays8, inst8, **kw)[:, :, :P0]
+    torch.cuda.synchronize()
+    check(torch.equal(rgb[:P8], plain[:, rkm.O_R:rkm.O_B + 1].transpose(1, 2))
+          and torch.equal(hit[:P8], plain[:, rkm.O_HIT] > 0.5)
+          and torch.equal(depth[:P8], plain[:, rkm.O_DEPTH]),
+          "main_render_rays_large vs render_plain")
+    err = max_err(depth[:P8], plain[:, rkm.O_DEPTH])
+    # the kernel alone on the packed inputs, beside its bound
+    rays, packed = kern.pack(ro, rd, *inst)
+    rows = rays.shape[2] // Wpx
+    tiles = rkm.tile_shape(rays.shape[2], Wpx)[3]
+    ops, nbytes, pairs, live = render_work(torch, rkm, kern.tables, rays, packed)
+    b_ms, b_by = bound(nbytes, ops)
+    timing = {"ms": cuda_ms(torch, lambda: rkm.render(rays, packed, img_w=Wpx, **kw), 20),
+              "plain_ms": cuda_ms(torch, lambda: rkm.render_plain(rays8, inst8, **kw), 2,
+                                  warmup=1),
+              "plain_ms_is": f"its plain version at {P8} of the {W} worlds",
+              "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes,
+              "pairs_meeting_bounds": pairs, "live_rays": live,
+              "call_ms": cuda_ms(torch, lambda: kern(ro, rd, *inst, img_w=Wpx), 20),
+              "ctas_per_sm": rkm.occupancy(N, False, rows, Wpx),
+              "splits": rkm.rays_splits(tiles),
+              "stage": rkm.rays_stage(-(-tiles // rkm.rays_splits(tiles))),
+              "stages_at_most": rkm.stage_blocks(N, False, rows, Wpx)}
+    line = {"phase": "main_render_rays_large", "worlds": W, "rays_a_world": P0, "img_w": Wpx,
+            "instance_rows": N, "entry": "RenderKernel.__call__ -> render_rays_blocked_kernel",
+            "launches": launches, "hit_share": float(hit.double().mean()),
+            "vs_plain": {"worlds": P8, "rgb_hit_depth": "bit-identical", "max_err": err},
+            "repeat": "bit-identical",
+            **{key: timing[key] for key in ("ms", "call_ms", "bound_ms", "bound_by", "ctas_per_sm",
+                                            "splits", "stage", "stages_at_most")},
+            "card": card}
+    return line, timing, err
 
 
 def render_work(torch, rkm, tables, rays, inst):
@@ -4266,6 +4349,12 @@ def main(argv):
                                                                 *counts)
     render_large_launches = line["launches"]["render"]
     emit(line)
+    # the rays mode past one block through the JAX class's entry: the same
+    # worlds and instances under the camera rays of the same views
+    line, rays_large_t, err_rays_large = main_render_rays_large(torch, rkm, smi, *counts,
+                                                                render_large_in)
+    rays_large_launches = line["launches"]["render"]
+    emit(line)
     # simple_taskgraph past kernel 5's window layout: 1,000 objects
     line, stg_large_t = main_simple_taskgraph_large(torch, stg, phys, subk, smi, *counts)
     stg_large_launches = line["launches"]["substep"]
@@ -4514,19 +4603,19 @@ def main(argv):
     check(1 <= render_t["render_node"]["device_ops"] <= 3,
           f"the render node queues {render_t['render_node']['device_ops']} device ops")
     # the render kernel past one block's shared memory: main_render_large's
-    # launch (views mode, 4,096 instance rows staged in blocks), and the
-    # rays mode on the rays of the same views
+    # launch (views mode, 4,096 instance rows staged by the views twin); the
+    # rays twin on the rays of the same views was timed in
+    # main_render_rays_large, whose (pixel, instance) work the views twin
+    # has too, and the views' rays beside it
     lk, lviews, linst, lV, lH, lWpx = render_large_in
     lW, lN, lP = linst[0].shape[0], linst[0].shape[1], lV * lH * lWpx
     lrkw = dict(tables=lk.tables, light=lk.light, ambient=lk.ambient)
     lvkw = dict(height=lH, width=lWpx, max_views=lV)
-    lro, ld = rkm.camera_rays(lviews, lV, lH, lWpx)
-    lrays, lpacked = lk.pack(lro.reshape(lW, -1, 3), ld.reshape(lW, -1, 3), *linst)
-    l_ops, l_bytes, l_pairs, l_rays = render_work(torch, rkm, lk.tables, lrays, lpacked)
+    l_ops, l_pairs, l_rays = (rays_large_t[k] for k in ("ops", "pairs_meeting_bounds",
+                                                         "live_rays"))
     lv_ops = l_ops + l_rays * OPS_RAY
     lv_bytes = lW * (BYTES_VIEW + lN * BYTES_INST_VIEWS + lP * BYTES_PIXEL)
     lv_bound, lv_by = bound(lv_bytes, lv_ops)
-    lr_bound, lr_by = bound(l_bytes, l_ops)
     P8 = RENDER_LARGE_PARITY
     lviews8, linst8 = {key: v[:P8] for key, v in lviews.items()}, tuple(t[:P8] for t in linst)
     render_large_t = {
@@ -4539,12 +4628,9 @@ def main(argv):
         "ctas_per_sm": rkm.occupancy(lN, True, lH, lWpx),
         "stages_at_most": rkm.stage_blocks(lN, True, lH, lWpx),
         "splits": rkm.views_splits(lH, lWpx),
-        "rays_mode": {"ms": cuda_ms(torch, lambda: rkm.render(lrays, lpacked, img_w=lWpx,
-                                                               **lrkw), 20),
-                      "bound_ms": lr_bound, "bound_by": lr_by,
-                      "ctas_per_sm": rkm.occupancy(lN), "blocks_a_cta": rkm.stage_blocks(lN)},
+        "rays_mode": {k: rays_large_t[k] for k in ("ms", "bound_ms", "bound_by", "ctas_per_sm",
+                                                   "splits", "stages_at_most")},
         "W": lW, "P": lP, "N": lN}
-    del lrays, lpacked
     # a simple_taskgraph step by node group, device ms: the physics (clamp,
     # broadphase, substeps, cleanup) and the rendering (pack, render)
     from gpu_ecs_madrona_tpu_torch.core.context import Context
@@ -4775,8 +4861,23 @@ def main(argv):
          "ms": render_large_t["ms"], "plain_ms": render_large_t["plain_ms"],
          "plain_ms_is": render_large_t["plain_ms_is"], "bound_ms": render_large_t["bound_ms"],
          "bound_by": render_large_t["bound_by"], "library_ms": None,
-         "ms_is": "main_render_large's launch (256 worlds x 4,096 instance rows, 64 x 64)",
-         "rays_mode": render_large_t["rays_mode"]},
+         "ms_is": "main_render_large's launch (256 worlds x 4,096 instance rows, 64 x 64)"},
+        {"name": "render_rays_blocked", "route": "cuda", "source": csrc + "render_kernels.cu",
+         "replaces": "gpu_ecs_madrona_tpu/ops/render_kernel.py:501 (PallasRenderKernel's rays "
+                     "mode, its loop over a world tile's instances, :446-451) past one block's "
+                     "shared memory",
+         "specialisation": "render_rays_blocked_kernel (rays mode past one block)",
+         "design": "rays_splits CTAs an image, each a strip of tiles culling the world against "
+                   "the cone of its rays into stages of survivors in index order, the tiles' "
+                   "cones built once and the hits carried in shared memory; hulls and meshes "
+                   "tested only where a pixel ray of the tile meets their widened bounding "
+                   "sphere",
+         "launches": rays_large_launches, "launches_per_step": 1, "max_abs_err": err_rays_large,
+         "ms": rays_large_t["ms"], "plain_ms": rays_large_t["plain_ms"],
+         "plain_ms_is": rays_large_t["plain_ms_is"], "bound_ms": rays_large_t["bound_ms"],
+         "bound_by": rays_large_t["bound_by"], "library_ms": None,
+         "ms_is": "main_render_rays_large's launch (256 worlds x 4,096 instance rows, the 64 x "
+                  "64 camera rays of main_render_large's views)"},
         {"name": "render", "route": "cuda", "source": csrc + "render_kernels.cu",
          "replaces": "gpu_ecs_madrona_tpu/ops/render_kernel.py:501",
          "launches": stg_launches["render"], "launches_per_step": 1,

@@ -27,10 +27,9 @@ A padded ray (|rd|^2 < 0.5, RenderKernel's padding) comes out as a miss; so
 does every ray against an instance whose mask is 0 or whose object id is
 outside the tables.  A world's instances that do not fit one block's shared
 memory at once (``blocked``: above 1,614 rows in the rays mode, 2,421 in the
-views mode) are staged in blocks by the kernel's blocked specialisations
-(the rays mode BLOCK at a time; the views mode's twin in stages of the
-view's survivors, ``views_stage``), each pixel's nearest hit carried from
-block to block; the outputs are the same.
+views mode) go to the mode's blocked twin, which stages the survivors of
+its CTA's cone in stages (``rays_stage``, ``views_stage``), each pixel's
+nearest hit carried from stage to stage; the outputs are the same.
 
 On CUDA tensors ``render`` launches ``csrc/render_kernels.cu`` (its notes
 say what bounds it and how it is laid out) or raises; on CPU tensors it
@@ -60,7 +59,7 @@ import torch
 
 from gpu_ecs_madrona_tpu_torch.ops import _build
 from gpu_ecs_madrona_tpu_torch.physics import pairs as pk
-from gpu_ecs_madrona_tpu_torch.physics.assets import PRIM_HULL, PRIM_SPHERE
+from gpu_ecs_madrona_tpu_torch.physics.assets import PRIM_HULL, PRIM_PLANE, PRIM_SPHERE
 
 BIG = 1e9
 EPS = 1e-9
@@ -96,23 +95,32 @@ TILE_W, TILE_H = 8, 4
 STAGE_RAYS, STAGE_VIEWS = 4 * 16 + WARPS * 20, 6 * 16
 MAX_SMEM_BYTES = 227 * 1024
 # A world whose instances do not fit MAX_SMEM_BYTES at once takes the
-# kernel's blocked specialisation.  Rays mode: BLOCK instances staged at a
-# time, each with its index (4 bytes more), each pixel's nearest hit
-# carried in its own outputs from block to block (csrc/render_kernels.cu
-# kBlock).  Views mode (render_views_blocked_kernel): views_splits(H, Wpx)
-# CTAs an image (VIEWS_SPLITS, at most one a VIEWS_WARPS tiles), each of
-# VIEWS_WARPS warps, VIEWS_CTAS CTAs an SM; stages of views_stage(H, Wpx)
-# survivors of the view's cone, VIEWS_ENTRY bytes each (six float4s and
-# the index), each pixel's nearest hit carried in shared memory (8 bytes a
-# pixel of the CTA's tiles) where they fit CARRY_MAX bytes, else in the
-# image's outputs; VIEWS_SMEM dynamic shared bytes a CTA at most.
-BLOCK = 512
+# mode's blocked twin (csrc/render_kernels.cu render_views_blocked_kernel,
+# render_rays_blocked_kernel): CTAs of VIEWS_WARPS warps, VIEWS_CTAS CTAs an
+# SM, each through stages of the survivors of its cone, VIEWS_ENTRY bytes
+# each (six float4s and the index), each pixel's nearest hit carried in
+# shared memory (8 bytes a pixel of the CTA's tiles); VIEWS_SMEM dynamic
+# shared bytes a CTA at most.  Views mode: views_splits(H, Wpx) CTAs an
+# image (VIEWS_SPLITS, at most one a VIEWS_WARPS tiles), stages of
+# views_stage(H, Wpx) survivors of the view's cone, the carried hits in the
+# image's outputs past CARRY_MAX bytes.  Rays mode: rays_splits(tiles) CTAs
+# an image (RAYS_SPLITS, at most one a VIEWS_WARPS tiles, more where a CTA
+# would have more than RAYS_TILES tiles), each a strip of the image (the
+# tiles in column-major order, rays_pixel_cta) whose rays' cone it culls
+# against, stages of rays_stage(its tiles) survivors beside
+# RAYS_TILE_BYTES a tile (the tile's cone and its pixels' carried hits).
 VIEWS_SPLITS = 2
 VIEWS_WARPS = 8
 VIEWS_CTAS = 2
 VIEWS_ENTRY = 6 * 16 + 4
 CARRY_MAX = 65536
 VIEWS_SMEM = (MAX_SMEM_BYTES if VIEWS_CTAS == 1 else 233472 // VIEWS_CTAS - 1024) - 1024
+RAYS_SPLITS = 4
+RAYS_TILES = 128
+RAYS_TILE_BYTES = 16 + 32 * 8
+# the cull's widening of each bounding sphere, relative and absolute (the
+# .cu's kCullRel, kCullAbs): far past the rounding of the cone test
+CULL_REL, CULL_ABS = 1e-3, 1e-3
 # CTAs a launch aims for (132 SMs x 16, two waves of 8 CTAs an SM): images
 # are split until the grid has them, so that the last wave is short and
 # small world counts still fill the card (the fastest of 1056, 2112, 4096
@@ -236,7 +244,8 @@ def _nonzero_sign(x):
 
 
 def _plain_block(rays, inst, tables: RenderTables, light, ambient):
-    """render_plain on one block of worlds: [w, P, N] pair tensors."""
+    """render_plain on one block of worlds: [w, P, N] pair tensors.  Returns
+    (out [w, 5, P], each ray's winner [w, P], -1 at a miss)."""
     dev = rays.device
     tab = tables.kernel_table(dev)
     F, T = tables.F_used, tables.T_used
@@ -371,24 +380,28 @@ def _plain_block(rays, inst, tables: RenderTables, light, ambient):
     out = [a * shade * hitf for a in alb] + [hitf, torch.where(hit, best_t, BIG)]
     out = torch.cat(out, dim=2).transpose(1, 2)                     # [w, 5, P]
     miss = torch.tensor([0.0, 0.0, 0.0, 0.0, BIG], device=dev)[None, :, None]
-    return torch.where(pad.transpose(1, 2), miss, out)
+    return (torch.where(pad.transpose(1, 2), miss, out),
+            torch.where(hit & ~pad, win, -1)[..., 0])
 
 
-def render_plain(rays, inst, *, tables: RenderTables, light, ambient: float):
+def render_plain(rays, inst, *, tables: RenderTables, light, ambient: float,
+                 winners: bool = False):
     """The plain PyTorch version of the render kernel (see the module doc):
     rays [W, 6, P], inst [W, 12, N] float32 -> out [W, 5, P] float32.
-    ``light``: the unit vector toward the light (3 floats)."""
+    ``light``: the unit vector toward the light (3 floats).  ``winners``:
+    also each ray's winning instance row [W, P] int64 (-1 at a miss)."""
     W, _, P = rays.shape
     N = inst.shape[2]
     out = torch.empty((W, C_OUT, P), dtype=torch.float32, device=rays.device)
+    win = torch.full((W, P), -1, dtype=torch.int64, device=rays.device)
     if N == 0:
         out[:] = torch.tensor([0.0, 0.0, 0.0, 0.0, BIG], device=rays.device)[None, :, None]
-        return out
+        return (out, win) if winners else out
     step = max(1, PLAIN_BLOCK // max(1, P * N))
     for w0 in range(0, W, step):
-        out[w0:w0 + step] = _plain_block(rays[w0:w0 + step], inst[w0:w0 + step], tables,
-                                         light, ambient)
-    return out
+        out[w0:w0 + step], win[w0:w0 + step] = _plain_block(
+            rays[w0:w0 + step], inst[w0:w0 + step], tables, light, ambient)
+    return (out, win) if winners else out
 
 
 # ---------------------------------------------------------------------------
@@ -500,25 +513,137 @@ def views_blocked_stage(H: int, Wpx: int) -> int:
     return views_stage(H, Wpx)
 
 
+def image_tiles(H: int, Wpx: int) -> int:
+    """The 8 x 4 tiles of an H x Wpx image."""
+    return -(-Wpx // TILE_W) * -(-H // TILE_H)
+
+
+def rays_splits(tiles: int) -> int:
+    """The rays mode's blocked twin: its CTAs an image of ``tiles`` tiles
+    (rays_splits in the .cu)."""
+    return max(min(-(-tiles // VIEWS_WARPS), RAYS_SPLITS), -(-tiles // RAYS_TILES))
+
+
+def rays_stage(cta_tiles: int) -> int:
+    """The survivors a stage of the rays mode's blocked twin holds beside a
+    CTA's ``cta_tiles`` tiles (their cones and carried hits), a multiple of
+    32 (rays_stage in the .cu)."""
+    return (VIEWS_SMEM - RAYS_TILE_BYTES * cta_tiles) // VIEWS_ENTRY // 32 * 32
+
+
+def rays_blocked_splits(tiles: int) -> int:
+    """The CTAs an image a rays-mode blocked launch asks for: rays_splits
+    (the card tests patch this to hold more of them to the kernel's)."""
+    return rays_splits(tiles)
+
+
+def rays_blocked_stage(cta_tiles: int) -> int:
+    """The stage a rays-mode blocked launch asks for: rays_stage (the card
+    tests patch this to hold a smaller one to the kernel's)."""
+    return rays_stage(cta_tiles)
+
+
+def _blocked_stage(views: bool, H: int, Wpx: int) -> int:
+    """The survivors a stage of the mode's blocked twin holds at an H x Wpx
+    image (rays: H rows of Wpx rays, rays_splits CTAs an image)."""
+    if views:
+        return views_stage(H, Wpx)
+    tiles = image_tiles(H, Wpx)
+    return rays_stage(-(-tiles // rays_splits(tiles)))
+
+
 def stage_blocks(N: int, views: bool = False, H: int = 64, Wpx: int = 64) -> int:
-    """The instance blocks a CTA stages for N instances (1 when they fit at
-    once); in the views mode's blocked twin the stages at most (the view's
-    cone may leave fewer survivors), at an H x Wpx image."""
+    """The stages a CTA fills for N instances at an H x Wpx image (rays: H
+    rows of Wpx rays): 1 when they fit at once; in a blocked twin the
+    stages at most (its cone may leave fewer survivors)."""
     if not blocked(N, views):
         return 1
-    return -(-N // (views_stage(H, Wpx) if views else BLOCK))
+    return -(-N // _blocked_stage(views, H, Wpx))
 
 
 def smem_bytes(N: int, views: bool = False, H: int = 64, Wpx: int = 64) -> int:
     """The kernel's dynamic shared memory for N instances: STAGE_RAYS or
-    STAGE_VIEWS bytes each, or blocked: the rays mode's BLOCK instances with
-    an index (4 bytes) more each; the views mode's stage and carried hits
-    at an H x Wpx image."""
+    STAGE_VIEWS bytes each, or blocked: the twin's stage and its CTA's
+    carried hits (rays: and tile cones) at an H x Wpx image."""
     if not blocked(N, views):
         return N * (STAGE_VIEWS if views else STAGE_RAYS)
     if views:
         return views_stage(H, Wpx) * VIEWS_ENTRY + views_carry_bytes(H, Wpx)
-    return BLOCK * (STAGE_RAYS + 4)
+    tiles = image_tiles(H, Wpx)
+    cta_tiles = -(-tiles // rays_splits(tiles))
+    return rays_stage(cta_tiles) * VIEWS_ENTRY + RAYS_TILE_BYTES * cta_tiles
+
+
+def rays_pixel_cta(P: int, img_w: int, splits: int, device="cpu"):
+    """The rays-mode blocked twin's CTA of each of P pixels in rows of
+    img_w: its tiles are numbered in column-major order and CTA s owns
+    tiles [s cta_tiles, (s + 1) cta_tiles), a strip of whole tile columns
+    where splits divides them."""
+    tiles = tile_shape(P, img_w)[3]
+    rows = -(-P // img_w)
+    tiles_y = -(-rows // TILE_H)
+    px = torch.arange(P, device=device)
+    tile = (px % img_w) // TILE_W * tiles_y + px // img_w // TILE_H
+    return tile // -(-tiles // splits)
+
+
+def rays_cta_cull(rays, inst, tables: RenderTables, img_w: int, splits: int = None):
+    """The rays-mode blocked twin's staging cull, in PyTorch: for each CTA
+    of each world (``splits`` of them, rays_splits by default), whether
+    each instance is staged.  rays [W, 6, P], inst [W, 12, N] float32 ->
+    keep [W, splits, N] bool.
+
+    The kernel's formula in float32 (its sums in another order): the CTA's
+    traced rays (|rd|^2 >= 0.5) are those of its tiles (rays_pixel_cta);
+    its cone's axis is their mean direction, cos_m the least cosine to it
+    (clamped to [-1, 1]); its apex their common origin where they all start at one
+    point bit for bit (spread 0), else their origins' mean, spread the
+    greatest distance from it.  An instance is staged where it is live and
+    a plane, or its bounding sphere (r_bound x its largest scale, plus the
+    spread, widened by CULL_REL and CULL_ABS) meets the cone."""
+    W, _, P = rays.shape
+    dev = rays.device
+    splits = rays_splits(tile_shape(P, img_w)[3]) if splits is None else int(splits)
+    cta = rays_pixel_cta(P, img_w, splits, dev)
+    ro, rd = rays[:, 0:3].transpose(1, 2), rays[:, 3:6].transpose(1, 2)    # [W, P, 3]
+    traced = pk.dot3(rd.unbind(-1), rd.unbind(-1)) >= 0.5                # [W, P]
+    obj_f = inst[:, I_OBJ]
+    o = obj_f.to(torch.int64)
+    live = (inst[:, I_MASK] > 0.5) & (o.to(torch.float32) == obj_f) & (o >= 0) & (o < tables.O)
+    row = tables.kernel_table(dev)[o.clamp(0, tables.O - 1)]             # [W, N, S]
+    rbs = row[..., K_RBOUND] * inst[:, I_SCALE:I_SCALE + 3].amax(1)
+    plane = row[..., K_PRIM] == PRIM_PLANE
+    pos = inst[:, I_POS:I_POS + 3].transpose(1, 2)                       # [W, N, 3]
+    keep = torch.zeros((W, splits, inst.shape[2]), dtype=torch.bool, device=dev)
+    for split in range(splits):
+        m = traced & (cta == split)[None]
+        mf = m.to(torch.float32)[..., None]
+        cnt = m.sum(1)
+        sd = (rd * mf).sum(1)                                            # [W, 3]
+        ax = sd / torch.sqrt(torch.clamp(pk.dot3(sd.unbind(-1), sd.unbind(-1)), min=EPS))[:, None]
+        cos_m = torch.where(m, pk.dot3(rd.unbind(-1), tuple(c[:, None] for c in ax.unbind(-1))),
+                            1.0).amin(1).clamp(-1.0, 1.0)
+        sin_m = torch.sqrt(torch.clamp(1.0 - cos_m * cos_m, min=0.0))
+        bits = ro.contiguous().view(torch.int32)
+        big = torch.iinfo(torch.int32).max
+        lo = torch.where(m[..., None], bits, big).amin(1)
+        hi = torch.where(m[..., None], bits, -big - 1).amax(1)
+        one = (cnt > 0) & (lo == hi).all(-1)
+        apex = torch.where(one[:, None], lo.view(torch.float32),
+                           (ro * mf).sum(1) / torch.clamp(cnt, min=1)[:, None].to(torch.float32))
+        dro = ro - apex[:, None]
+        d2 = torch.where(m, pk.dot3(dro.unbind(-1), dro.unbind(-1)), 0.0).amax(1)
+        spread = torch.where(one, 0.0, torch.sqrt(d2))
+        r_eff = (rbs + spread[:, None]) * (1.0 + CULL_REL) + CULL_ABS   # [W, N]
+        d = pos - apex[:, None]
+        dist = torch.sqrt(torch.clamp(pk.dot3(d.unbind(-1), d.unbind(-1)), min=EPS))
+        cos_ad = pk.dot3(d.unbind(-1), tuple(c[:, None] for c in ax.unbind(-1))) / dist
+        sin_b = torch.clamp(r_eff / dist, 0.0, 1.0)
+        cos_b = torch.sqrt(torch.clamp(1.0 - sin_b * sin_b, min=0.0))
+        meets = ((cos_m[:, None] <= -cos_b)
+                 | (cos_ad >= cos_m[:, None] * cos_b - sin_m[:, None] * sin_b) | (dist <= r_eff))
+        keep[:, split] = live & (plane | meets) & (cnt > 0)[:, None]
+    return keep
 
 
 def tile_shape(P: int, img_w: int):
@@ -545,12 +670,10 @@ def kernel_fits(N: int, views: bool = False) -> str:
 
 
 def occupancy(N: int, views: bool = False, H: int = 64, Wpx: int = 64) -> int:
-    """CTAs an SM of the mode's kernel at N instances (the views mode's
-    blocked twin at an H x Wpx image; needs the card)."""
+    """CTAs an SM of the mode's kernel at N instances (a blocked twin at an
+    H x Wpx image, rays: H rows of Wpx rays; needs the card)."""
     n = ctypes.c_int(0)
-    block = 0
-    if blocked(N, views):
-        block = views_stage(H, Wpx) if views else BLOCK
+    block = _blocked_stage(views, H, Wpx) if blocked(N, views) else 0
     rc = _lib().render_occupancy(int(views), N, block, H, Wpx, ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"render occupancy failed with cudaError {rc}")
@@ -561,9 +684,9 @@ def render(rays, inst, *, tables: RenderTables, light, ambient: float, img_w: in
     """rays [W, 6, P], inst [W, 12, N] float32 -> out [W, 5, P] float32 (see
     the module doc).  ``img_w``: pixels per image row, so the kernel's
     tiles are 2-D blocks of the image.  CPU tensors: the plain version.
-    CUDA tensors: the kernel (its blocked specialisation where the
-    instances do not fit at once), or a raise (bad input, tables or shapes
-    the kernel does not take, a failed launch) — never the plain version."""
+    CUDA tensors: the kernel (its blocked twin where the instances do not
+    fit at once), or a raise (bad input, tables or shapes the kernel does
+    not take, a failed launch) — never the plain version."""
     if rays.device != inst.device:
         raise ValueError(f"render: rays on {rays.device}, inst on {inst.device}")
     for name, t, c in (("rays", rays, 6), ("inst", inst, C_INST)):
@@ -591,13 +714,22 @@ def render(rays, inst, *, tables: RenderTables, light, ambient: float, img_w: in
     out = torch.empty((W, C_OUT, P), dtype=torch.float32, device=rays.device)
     if W == 0 or P == 0:
         return out
-    splits = launch_splits(W, tile_shape(P, img_w)[3])
+    tiles = tile_shape(P, img_w)[3]
+    if blocked(N):   # the blocked twin: strips of tiles, stages of survivors
+        splits = rays_blocked_splits(tiles)
+        block = rays_blocked_stage(-(-tiles // splits))
+        if splits > MAX_SPLITS:
+            raise NotImplementedError(
+                f"render: {tiles} tiles an image take {splits} CTAs an image in the blocked "
+                f"twin, past the grid's {MAX_SPLITS}")
+    else:
+        splits, block = launch_splits(W, tiles), 0
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     rc = _lib().render_launch(
         rays.data_ptr(), inst.data_ptr(), table.data_ptr(), tables.O, tables.stride,
         tables.F_used, tables.T_used, W, P, N, img_w, splits,
         float(light[0]), float(light[1]), float(light[2]), float(ambient),
-        float(1.0 - ambient), BLOCK if blocked(N) else 0, out.data_ptr(), stream)
+        float(1.0 - ambient), block, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"render: kernel launch failed with cudaError {rc}")
     RenderKernel.launches += 1
@@ -700,7 +832,7 @@ def render_views(views, pos, rot, scale, obj, mask, *, tables: RenderTables, lig
     if blocked(N, views=True):   # the blocked twin: stages of survivors
         splits, block = views_splits(H, Wpx), views_blocked_stage(H, Wpx)
     else:
-        splits, block = launch_splits(W * V, -(-Wpx // TILE_W) * -(-H // TILE_H)), 0
+        splits, block = launch_splits(W * V, image_tiles(H, Wpx)), 0
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().render_views_launch(
         *(t.data_ptr() for t in ins[:4]), Vc, V, H, Wpx, *(t.data_ptr() for t in ins[4:]),

@@ -32,10 +32,14 @@ prints one JSON line, from simple_taskgraph at 1024 worlds x 100 spheres,
   large      tests/test_torch_render_scenes.py's large instances (4,096
              rows a world, past one block's shared memory) at
              chip_smoke.py's main_render_large shape (256 worlds, one 64 x
-             64 view): the views launch's ms ("views_4096") and the rays
-             mode's on the same rays ("rays_4096"), with their digests;
-             "refused" where the kernel refuses them, or a note where the
-             checkout has no such scene
+             64 view): the views launch's ms ("views_4096"), the rays
+             mode's on the same rays ("rays_4096") and on a 360-degree
+             sweep of 64 x 64 rays from each world's eye (``sweep_rays``,
+             +-30 degrees of elevation; "sweep_4096"), with their digests
+             and the rays mode's launch shape (CTAs an SM, CTAs an image,
+             stages or blocks a CTA at most); "refused" where the kernel
+             refuses them, or a note where the checkout has no such scene.
+             A checkout without ``sweep_rays`` takes this checkout's
   phases     (--phases) the large launches' cycles a warp by phase, from a
              copy of ROOT's csrc/render_kernels.cu built with its RK_PHASE
              markers defined (each warp adds clock64() differences by phase
@@ -143,16 +147,17 @@ def graph_nodes(torch, fn):
 
 def ptxas_lines(log):
     """{kernel: "registers ..., stack ..., spills ..."} from an nvcc -Xptxas
-    -v log; the rays and views modes, and the blocked specialisations, by
-    their template arguments."""
+    -v log, each kernel by its name; render_kernel's modes (and, before it
+    lost them, its blocked specialisations) by their template arguments."""
     import re
     out, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry" in ln:
             entry = ln.split("'")[1]
-            bits = re.findall(r"Lb(\d)E", entry.split("render_kernelI")[-1])
-            entry = "render_kernel"
-            if bits:
+            m = re.search(r"\d+(render\w*?kernel)((?:I(?:Lb\d+E)+E)?)", entry)
+            bits = re.findall(r"Lb(\d)E", m.group(2)) if m else []
+            entry = m.group(1) if m else entry
+            if entry == "render_kernel" and bits:
                 entry += "<" + ("views" if bits[0] == "1" else "rays") + (
                     ",blocked" if bits[1:2] == ["1"] else "") + ">"
         elif entry and any(k in ln for k in ("registers", "stack frame")):
@@ -224,6 +229,18 @@ def phase_cycles(torch, lib, names, fn, launches=5):
             "warps_a_launch": warps, "instrumented_ms": cuda_ms(torch, fn, 5)}
 
 
+def own_scenes():
+    """This checkout's tests/test_torch_render_scenes.py, loaded under a name
+    of its own (for a checkout whose scenes lack the sweep)."""
+    import importlib.util
+    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    spec = importlib.util.spec_from_file_location(
+        "render_ab_scenes", os.path.join(here, "tests", "test_torch_render_scenes.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def large_case(torch, root, rk, res, with_phases=False, _build=None):
     """The large case (see the module doc)."""
     sys.path.insert(0, os.path.join(root, "tests"))
@@ -239,23 +256,30 @@ def large_case(torch, root, rk, res, with_phases=False, _build=None):
     ro, d = rk.camera_rays(views, V, H, Wpx)
     rays, packed = k.pack(ro.reshape(256, -1, 3), d.reshape(256, -1, 3), *inst)
 
-    def views_fn():
-        return rk.render_views(views, *inst, **kw, height=H, width=Wpx, max_views=V)
-
-    def rays_fn():
-        return rk.render(rays, packed, img_w=Wpx, **kw)
-
-    res["large"] = {"ms": {"views_4096": cuda_ms(torch, views_fn, 20),
-                           "rays_4096": cuda_ms(torch, rays_fn, 20)},
-                    "digests": {"views_4096": digest(views_fn()), "rays_4096": digest(rays_fn())}}
+    sweep = getattr(scenes, "sweep_rays", None) or own_scenes().sweep_rays
+    sro, srd = (torch.from_numpy(a).to("cuda")
+                for a in sweep(views["eye"][:, 0].cpu().numpy(), H, Wpx))
+    srays, _ = k.pack(sro, srd, *inst)
+    fns = {"views_4096": lambda: rk.render_views(views, *inst, **kw, height=H, width=Wpx,
+                                                 max_views=V),
+           "rays_4096": lambda: rk.render(rays, packed, img_w=Wpx, **kw),
+           "sweep_4096": lambda: rk.render(srays, packed, img_w=Wpx, **kw)}
+    N, tiles = packed.shape[2], rk.tile_shape(rays.shape[2], Wpx)[3]
+    # the rays twin's bands (a checkout before it: the blocked kernel's
+    # launch_splits)
+    splits = rk.rays_splits(tiles) if hasattr(rk, "rays_splits") else rk.launch_splits(256, tiles)
+    shape = {"ctas_per_sm": rk.occupancy(N, False, H, Wpx), "splits": splits,
+             "stages_at_most": rk.stage_blocks(N, False, H, Wpx)}
+    res["large"] = {"ms": {name: cuda_ms(torch, fn, 20) for name, fn in fns.items()},
+                    "digests": {name: digest(fn()) for name, fn in fns.items()},
+                    "rays_launch": shape}
     if with_phases:
         lib, names = instrumented(root, _build)
         built = _build._loaded.get("render_kernels")
         _build._loaded["render_kernels"] = lib      # rk._lib() types and takes it
         try:
-            got = {"views_4096": phase_cycles(torch, lib, names, views_fn),
-                   "rays_4096": phase_cycles(torch, lib, names, rays_fn)}
-            got["digests"] = {"views_4096": digest(views_fn()), "rays_4096": digest(rays_fn())}
+            got = {name: phase_cycles(torch, lib, names, fn) for name, fn in fns.items()}
+            got["digests"] = {name: digest(fn()) for name, fn in fns.items()}
         finally:
             _build._loaded["render_kernels"] = built
         smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",

@@ -11,7 +11,9 @@ Each source of each checkout is compiled to a cubin with this checkout's
 ``cuobjdump -sass``, and split by kernel; the anonymous namespace's name,
 which hashes the file, is normalised.  Prints one JSON line a source: the
 kernels of each side, how many are identical, and the names of those
-that differ or are on one side only.  A kernel whose SASS is identical
+that differ or are on one side only; a kernel on one side only whose SASS
+is that of a kernel on the other side only (a kernel renamed, say by a
+template argument taken out) is listed under "renamed" instead.  A kernel whose SASS is identical
 runs the same instructions: its time can differ from the parent's only by
 the card's noise.  Needs the CUDA toolkit (nvcc, cuobjdump), not a card.
 """
@@ -69,11 +71,18 @@ def main(argv):
     for src in sources:
         a, b = funcs[("parent", src)], funcs[("change", src)]
         both = sorted(set(a) & set(b))
+        only_a, only_b = sorted(set(a) - set(b)), sorted(set(b) - set(a))
+        renamed = {}
+        for k in only_a:
+            same = [n for n in only_b if b[n] == a[k] and n not in renamed.values()]
+            if same:
+                renamed[k] = same[0]
         print(json.dumps({"source": src, "kernels_parent": len(a), "kernels_change": len(b),
                           "identical": sum(a[k] == b[k] for k in both),
                           "differ": [k for k in both if a[k] != b[k]],
-                          "only_change": sorted(set(b) - set(a)),
-                          "only_parent": sorted(set(a) - set(b))}), flush=True)
+                          "renamed": renamed,
+                          "only_change": [k for k in only_b if k not in renamed.values()],
+                          "only_parent": [k for k in only_a if k not in renamed]}), flush=True)
     return 0
 
 

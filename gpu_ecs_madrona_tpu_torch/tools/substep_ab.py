@@ -7,6 +7,7 @@ in turns: an A/B of a change against its parent.
     python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --stg ROOT [ROOT ...]
     python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --large [--phases] ROOT [ROOT ...]
     python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --sap [--phases] ROOT [ROOT ...]
+    python3 gpu_ecs_madrona_tpu_torch/tools/substep_ab.py --a13 ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository; each runs in a
 process of its own (so that two versions of the package never meet), in
@@ -119,6 +120,21 @@ prints one JSON line:
              CTAs an SM, the window); with --phases and where ROOT has the
              phase build, its cycles a CTA by phase.  Builds only the
              substep source (and its phase build)
+  a13        (--a13, the only case) the fused shapes that keep the slot
+             layout at one CTA an SM (the in-kernel broadphase and the
+             persistent cache, which the windowed twin lacks), at 8192
+             worlds after 3 steps, every world awake: "bp" at 128 rows, K =
+             508 (the JAX package's bench_physics.py with
+             BENCH_PHYS_BP=fused, BENCH_PHYS_BODIES=127: bp_n128_K508);
+             "refresh+bp" and "refresh+sleep+bp+persist" at 101 rows, K =
+             400 (BENCH_PHYS_SETTLE=1, BENCH_PHYS_BODIES=100,
+             BENCH_PHYS_PERSIST=0 or 1: refresh_bp_n101_K400,
+             persist_n101_K400): each launch's ms beside its plain version's
+             and its bound (ROOT's chip_smoke.py option_timing /
+             persist_timing: the launch as the fused node makes it), its
+             dynamic shared bytes, its launch shape (threads, CTAs an SM),
+             the specialisation it launched and its digest.  Builds only
+             the substep source
 
 The script needs a CUDA card; without one it exits 1 and prints nothing.
 """
@@ -565,7 +581,48 @@ def sap_case(torch, root, phases):
     return out
 
 
-def one(root, phases, stg_only, large=False, sap=False):
+def a13_case(torch, root):
+    """The a13 case (see the module doc): {launch: its line}."""
+    from gpu_ecs_madrona_tpu_torch import physics as phys
+    from gpu_ecs_madrona_tpu_torch.models import rigid_bench as rb
+    from gpu_ecs_madrona_tpu_torch.ops import substep_kernel as sk
+    import chip_smoke as cs
+    RS = phys.RigidBodyPhysicsSystem
+    shapes = {"bp_n128_K508": (dict(num_bodies=127, contact_mode="pallas",
+                                    broadphase_mode="fused"), sk.OPT_BP),
+              "refresh_bp_n101_K400": (dict(rb.SETTLED_PILE, num_bodies=100,
+                                            manifold_persist=False, sleep_threshold=0.0),
+                                       sk.OPT_REFRESH | sk.OPT_BP),
+              "persist_n101_K400": (dict(rb.SETTLED_PILE, num_bodies=100),
+                                    sk.OPT_REFRESH | sk.OPT_SLEEP | sk.OPT_BP | sk.OPT_PERSIST)}
+    out = {}
+    for name, (cfg, code) in shapes.items():
+        sim = rb.make_executor(rb.RigidBenchConfig(num_worlds=RB_WORLDS, **cfg), device="cuda")
+        sim.run(3)
+        kern, kw = RS.fused_kernel(sim), cs.fused_inputs(sim, rb, phys)
+        n, K = kw["obj"].shape[1], 4 * cfg["num_bodies"]
+        if kw.get("active") is not None:
+            kw["active"] = torch.ones_like(kw["active"])   # every world awake
+        persist = code & sk.OPT_PERSIST
+        sk.FusedSubstepKernel.launches_by_options.clear()
+        if persist:
+            line = cs.persist_timing(torch, sk, kern, kw, cs.flag_inputs(sim, rb, phys))
+            line = {k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "branches")}
+        else:
+            line = cs.option_timing(torch, kern, kw)
+            line = {k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+            line["digest"] = digest(kern(**kw))
+        line.update(specialisations=sorted(sk.FusedSubstepKernel.launches_by_options),
+                    n=n, K=K, smem_bytes=sk.smem_bytes(
+                        n, K, bp=True, cache=bool(code & (sk.OPT_REFRESH | sk.OPT_PERSIST))),
+                    occupancy=sk.occupancy(n, K, codes=(code,)))
+        out[name] = line
+        del sim, kern, kw
+        torch.cuda.empty_cache()
+    return out
+
+
+def one(root, phases, stg_only, large=False, sap=False, a13=False):
     import ctypes
 
     import torch
@@ -581,7 +638,7 @@ def one(root, phases, stg_only, large=False, sap=False):
     # the substep sources (where ROOT has it, the wide-box build too) at once
     extra = ["substep_phases"] if phases and "substep_phases" in getattr(
         _build, "VARIANTS", {}) else []
-    log = _build.build((["substep_kernels"] if sap else [
+    log = _build.build((["substep_kernels"] if sap or a13 else [
         name for name in _build.sources() if name.startswith("substep")]) + extra)[
             "substep_kernels"]
     ptxas, entry = {}, None
@@ -615,6 +672,10 @@ def one(root, phases, stg_only, large=False, sap=False):
         print(json.dumps({"root": root, "card": torch.cuda.get_device_name(0),
                           "ptxas": ptxas, key: case(torch, root, phases)}),
               flush=True)
+        return
+    if a13:
+        print(json.dumps({"root": root, "card": torch.cuda.get_device_name(0),
+                          "ptxas": ptxas, "a13": a13_case(torch, root)}), flush=True)
         return
     res = {"root": root, "card": torch.cuda.get_device_name(0), "ptxas": ptxas,
            "occupancy": {"K256": occupancy(ctypes, lib, 65, 256, floats),
@@ -721,9 +782,9 @@ def one(root, phases, stg_only, large=False, sap=False):
 
 def main(argv):
     phases, stg_only, large = "--phases" in argv, "--stg" in argv, "--large" in argv
-    sap = "--sap" in argv
+    sap, a13 = "--sap" in argv, "--a13" in argv
     if "--one" in argv:
-        one(argv[argv.index("--one") + 1], phases, stg_only, large, sap)
+        one(argv[argv.index("--one") + 1], phases, stg_only, large, sap, a13)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -740,7 +801,7 @@ def main(argv):
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
                         os.path.abspath(root)] + (["--phases"] if phases else [])
                        + (["--stg"] if stg_only else []) + (["--large"] if large else [])
-                       + (["--sap"] if sap else []),
+                       + (["--sap"] if sap else []) + (["--a13"] if a13 else []),
                        check=True)
     return 0
 

@@ -2186,14 +2186,16 @@ def test_render_blocked_matches_plain_bit_for_bit(card, mode):
     plane and triangle meshes, a SourceMesh's among them): the rays mode
     against render_plain and the views mode against render_views_plain, bit
     for bit (rgb, hit and depth; RGBA8 and depth bits); a repeat
-    bit-identical; the blocks a CTA stages as stage_blocks says."""
+    bit-identical; the stages a CTA fills at most as stage_blocks says."""
     rk.RenderKernel.launches = 0
     if mode == "rays":
         sc = scenes.large_scene(W=4, res=24)
         k = rk.RenderKernel(sc["om"], sc["albedo"], scenes.LIGHT_DIR, scenes.AMBIENT,
                             mesh_tables=sc["mesh_tables"])
         rays, inst = k.pack(*(torch.from_numpy(sc[key]).to(card) for key in RENDER_INPUTS))
-        assert rk.blocked(inst.shape[2]) and rk.stage_blocks(inst.shape[2]) == 8
+        # 640 rays in rows of 24: 27 rows, 21 tiles, three strips of 7
+        # tiles and stages of 1,120 survivors
+        assert rk.blocked(inst.shape[2]) and rk.stage_blocks(inst.shape[2], False, 27, 24) == 4
         kw = dict(tables=k.tables, light=k.light, ambient=k.ambient)
         got, again = (rk.render(rays, inst, img_w=sc["img_w"], **kw) for _ in range(2))
         want = rk.render_plain(rays, inst, **kw)
@@ -2272,15 +2274,118 @@ def test_render_views_blocked_twin_matches_plain(card, case, monkeypatch):
         assert rk.stage_blocks(4096, True, H, Wpx) > 1
 
 
+# rays-mode blocked cases: (W, res, N, the stage forced or None, the CTAs an
+# image forced or None)
+RAYS_BLOCKED = {"n_1615": (3, 24, 1615, None, None), "n_4096": (2, 32, 4096, None, None),
+                "sweep": (2, 32, 4096, None, None), "tie_across_stages": (2, 0, 4096, 96, None),
+                "no_survivors": (2, 24, 4096, None, None),
+                "padded_partial_row": (2, 24, 4096, None, None),
+                "stages_of_96": (2, 32, 4096, 96, None), "five_strips": (2, 32, 4096, None, 5),
+                "many_origins": (2, 32, 4096, 96, None)}
+
+
+def rays_blocked_inputs(case, card):
+    """[(RenderKernel, rays, inst, img_w)] of a RAYS_BLOCKED case: the large
+    scene under its camera (tie_across_stages: large_tie_case's views, in
+    both orders, as camera rays; sweep: sweep_rays from its eye; no_survivors:
+    looking -y, away from every row, the plane dead; padded_partial_row: the
+    last 5 rays dropped, so that the zero rays pack adds fill the last row
+    but one and a partial last row; many_origins: each ray from its own
+    point within 0.3)."""
+    W, res, N, _, _ = RAYS_BLOCKED[case]
+    if case == "tie_across_stages":
+        out = []
+        for swap in (False, True):
+            k, views, inst, V, H, Wpx = scenes.large_tie_case(W=W, N=N, swap=swap, device=card)
+            ro, d = rk.camera_rays(views, V, H, Wpx)
+            out.append((k, *k.pack(ro.reshape(W, -1, 3), d.reshape(W, -1, 3), *inst), Wpx))
+        return out
+    sc = scenes.large_scene(W=W, res=res, N=N)
+    ro, rd = sc["ro"], sc["rd"]
+    if case == "sweep":
+        ro, rd = scenes.sweep_rays(sc["ro"][:, 0], res, res)
+    if case == "no_survivors":
+        rd = -rd
+        sc["mask"][:, 0] = False
+    if case == "padded_partial_row":
+        ro, rd = ro[:, :-5], rd[:, :-5]
+    if case == "many_origins":
+        ro = ro + np.random.default_rng(5).uniform(-0.3, 0.3, ro.shape).astype(np.float32)
+    k = rk.RenderKernel(sc["om"], sc["albedo"], scenes.LIGHT_DIR, scenes.AMBIENT,
+                        mesh_tables=sc["mesh_tables"])
+    arrays = (ro, rd) + tuple(sc[key] for key in RENDER_INPUTS[2:])
+    return [(k, *k.pack(*(torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in arrays)),
+             res)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RAYS_BLOCKED))
+def test_render_rays_blocked_twin_matches_plain(card, case, monkeypatch):
+    """The rays mode's blocked twin (strips of tiles, stages of the survivors
+    of each strip's cone) at the edges of its layout: just past one block
+    (1,615 rows), 4,096 rows, a 360-degree sweep, a tie of t between rows 3
+    and 3,000 in different stages (either order of the two objects), rays
+    that see no instance, padded rays with a partial last row, stages forced
+    to 96 survivors, five strips forced, and rays from many origins (the
+    spread widens the cull; spheres take trace's own test): rgb, hit and
+    depth bit for bit render_plain's, a repeated launch bit-identical, one
+    launch a call."""
+    W, res, N, stage, splits = RAYS_BLOCKED[case]
+    if stage is not None:
+        monkeypatch.setattr(rk, "rays_blocked_stage", lambda cta_tiles: stage)
+    if splits is not None:
+        monkeypatch.setattr(rk, "rays_blocked_splits", lambda tiles: splits)
+    outs = []
+    for k, rays, inst, img_w in rays_blocked_inputs(case, card):
+        assert rk.blocked(inst.shape[2])
+        kw = dict(tables=k.tables, light=k.light, ambient=k.ambient)
+        rk.RenderKernel.launches = 0
+        got, again = (rk.render(rays, inst, img_w=img_w, **kw) for _ in range(2))
+        assert rk.RenderKernel.launches == 2
+        want = rk.render_plain(rays, inst, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert torch.equal(got, want), float((got - want).abs().max())
+        outs.append(got)
+    hits = outs[0][:, rk.O_HIT] > 0.5
+    assert bool(hits.any()) != (case == "no_survivors")
+    if case == "tie_across_stages":   # the tied sphere's colour follows the first row's object
+        assert not torch.equal(outs[0][:, :3], outs[1][:, :3])
+        assert torch.equal(outs[0][:, 3:], outs[1][:, 3:])
+    if case == "padded_partial_row":
+        assert rays.shape[2] % img_w != 0 and not bool(hits[:, -69:].any())
+
+
+@pytest.mark.cuda
+def test_render_rays_call_runs_the_twin(card):
+    """RenderKernel.__call__ (the JAX class's entry) on 4,096 rows: one
+    launch of the rays twin a call, its (rgb, hit, depth) bit for bit what
+    render_plain gives on the same packed inputs, cut to the caller's
+    rays."""
+    sc = scenes.large_scene(W=2, res=24)
+    k = rk.RenderKernel(sc["om"], sc["albedo"], scenes.LIGHT_DIR, scenes.AMBIENT,
+                        mesh_tables=sc["mesh_tables"])
+    args = [torch.from_numpy(sc[key]).to(card) for key in RENDER_INPUTS]
+    rk.RenderKernel.launches = 0
+    rgb, hit, depth = k(*args, img_w=24)
+    assert rk.RenderKernel.launches == 1
+    rays, inst = k.pack(*args)
+    want = rk.render_plain(rays, inst, tables=k.tables, light=k.light,
+                           ambient=k.ambient)[:, :, :24 * 24]
+    torch.cuda.synchronize()
+    assert torch.equal(rgb, want[:, :3].transpose(1, 2))
+    assert torch.equal(hit, want[:, rk.O_HIT] > 0.5) and torch.equal(depth, want[:, rk.O_DEPTH])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["pallas_scene", "sphere_mesh", "inside_wrapping", "large",
                                   "views_main_state", "views_mesh", "views_source_mesh",
                                   "views_two_views_dead"])
 def test_render_blocked_equals_the_single_stage(card, case, monkeypatch):
-    """The blocked specialisation forced (rk.blocked patched to say every
-    count is staged in blocks) on scenes whose instances fit one stage (the
-    large scene cut to 1,024 rows), bit for bit the single-stage kernel in
-    both modes: the blocks change nothing but what is staged."""
+    """The blocked twins forced (rk.blocked patched to say every count is
+    staged in stages) on scenes whose instances fit one stage (the large
+    scene cut to 1,024 rows), bit for bit the single-stage kernel in both
+    modes: the twins change nothing but what is staged and where."""
     def forced(launch):
         with monkeypatch.context() as m:
             m.setattr(rk, "blocked", lambda N, views=False: True)

@@ -143,8 +143,8 @@ def test_kernel_fits_and_tiles():
     # warp's cull terms (a float4 and a float)
     assert rk.smem_bytes(104, views=True) == 104 * 96 and rk.smem_bytes(104) == 104 * 144
     # past one block's 227 KB (2,421 instances in the views mode, 1,614 in
-    # the rays mode) the kernel stages them in blocks of BLOCK, each with its
-    # index: any count is taken
+    # the rays mode) the mode's blocked twin stages its cone's survivors in
+    # stages: any count is taken
     assert not rk.blocked(2421, views=True) and rk.blocked(2422, views=True)
     assert not rk.blocked(1614) and rk.blocked(1615)
     assert rk.kernel_fits(2000, views=True) == "" and rk.stage_blocks(2000, views=True) == 1
@@ -154,9 +154,11 @@ def test_kernel_fits_and_tiles():
             assert rk.stage_blocks(N, views) == -(-N // rk.views_stage(64, 64))
             assert rk.smem_bytes(N, views) == (rk.views_stage(64, 64) * rk.VIEWS_ENTRY
                                                + rk.views_carry_bytes(64, 64)) <= rk.VIEWS_SMEM
-        else:
-            assert rk.stage_blocks(N, views) == -(-N // rk.BLOCK)
-            assert rk.smem_bytes(N) == rk.BLOCK * (rk.STAGE_RAYS + 4) <= rk.MAX_SMEM_BYTES
+        else:   # the rays twin: 64 x 64 rays in four strips of 32 tiles
+            assert rk.rays_splits(128) == 4 and rk.rays_stage(32) == 1056
+            assert rk.stage_blocks(N, views) == -(-N // 1056)
+            assert rk.smem_bytes(N) == (1056 * rk.VIEWS_ENTRY + 32 * rk.RAYS_TILE_BYTES
+                                        ) <= rk.VIEWS_SMEM
     # a warp's tile is 8 x 4 pixels: 128 tiles a 64 x 64 image
     assert rk.tile_shape(4096, 64) == (64, 8, 4, 128)
     # the inside scene: its two 8 x 8 views stack as 16 rows, four tiles,
@@ -199,26 +201,30 @@ def test_launch_mirror_matches_the_cu():
     env = {"kWarps": warps}
     assert eval(stage.group(1), env) == rk.STAGE_RAYS
     assert eval(stage.group(2), env) == rk.STAGE_VIEWS
+    cull = [float(re.search(rf"constexpr float {k} = ([\d.e-]+)f;", src).group(1))
+            for k in ("kCullRel", "kCullAbs")]
+    assert cull == [rk.CULL_REL, rk.CULL_ABS]
 
 
 def test_blocked_layout_matches_the_cu():
-    """The blocked specialisations' block (kBlock) and shared-memory limit
-    (kMaxSmem) in csrc/render_kernels.cu are the wrapper's BLOCK and
-    MAX_SMEM_BYTES; its render_smem is smem_bytes (an index, 4 bytes, more
-    an instance when blocked)."""
+    """The shared-memory limit (kMaxSmem) in csrc/render_kernels.cu is the
+    wrapper's MAX_SMEM_BYTES; its render_smem is smem_bytes at one stage
+    (the staged bytes an instance, no index); the blocked twins' constants
+    and layout functions are the wrapper's."""
     import re
     from pathlib import Path
     cu = (Path(rk.__file__).resolve().parents[1] / "csrc" / "render_kernels.cu").read_text()
-    assert int(re.search(r"constexpr int kBlock = (\d+);", cu).group(1)) == rk.BLOCK
     assert int(re.search(r"constexpr size_t kMaxSmem = (\d+);", cu).group(1)) == \
         rk.MAX_SMEM_BYTES
     body = cu[cu.index("size_t render_smem("):]
-    assert "static_cast<size_t>(block) * (stage + sizeof(int))" in body[:body.index("\n}\n")]
-    # the views mode's blocked twin: its constants, and views_stage /
+    assert "static_cast<size_t>(N) * (views ? kStageViews : kStageRays)" in \
+        body[:body.index("\n}\n")]
+    # the blocked twins: their constants, and views_stage /
     # views_carry_bytes / views_blocked_smem evaluated from the .cu
     const = {k: v for k, v in re.findall(r"constexpr int (k\w+) = ([^;]+);", cu)}
     env = {"kMaxSmem": rk.MAX_SMEM_BYTES, "kTileW": rk.TILE_W, "kTileH": rk.TILE_H}
-    for name in ("kVSplits", "kVWarps", "kVThreads", "kVCtas", "kVEntry", "kCarryMax", "kVSmem"):
+    for name in ("kVSplits", "kVWarps", "kVThreads", "kVCtas", "kVEntry", "kCarryMax", "kVSmem",
+                 "kRSplits", "kRTiles", "kRTileBytes"):
         expr = const[name].replace("static_cast<int>(kMaxSmem)", "kMaxSmem").replace("/", "//")
         expr = re.sub(r"\((\w+) == 1 \? (.+?) : (.+)\) - 1024",
                       r"((\2) if \1 == 1 else (\3)) - 1024", expr)
@@ -226,6 +232,8 @@ def test_blocked_layout_matches_the_cu():
     assert (env["kVSplits"], env["kVWarps"], env["kVCtas"], env["kVEntry"], env["kCarryMax"],
             env["kVSmem"]) == (rk.VIEWS_SPLITS, rk.VIEWS_WARPS, rk.VIEWS_CTAS, rk.VIEWS_ENTRY,
                                rk.CARRY_MAX, rk.VIEWS_SMEM)
+    assert (env["kRSplits"], env["kRTiles"], env["kRTileBytes"]) == (
+        rk.RAYS_SPLITS, rk.RAYS_TILES, rk.RAYS_TILE_BYTES)
 
     def cu_fn(name, **args):
         """The .cu's function ``name`` evaluated in Python: its const
@@ -255,4 +263,49 @@ def test_blocked_layout_matches_the_cu():
         stage = rk.views_stage(H, Wpx)
         smem = cu_fn("views_blocked_smem", stage=stage, H=H, Wpx=Wpx)
         assert smem == rk.smem_bytes(4096, True, H, Wpx) <= rk.VIEWS_SMEM
+    # the rays mode's blocked twin: P rays in rows of img_w (a partial last
+    # row among them), its strips of tiles, stages and shared memory
+    for P, img_w in ((4096, 64), (640, 24), (128, 8), (72, 6), (40960, 160), (1 << 20, 1024),
+                     (4097, 64)):
+        tiles = cu_fn("ray_tiles", P=P, img_w=img_w)
+        assert tiles == rk.tile_shape(P, img_w)[3]
+        splits = cu_fn("rays_splits", tiles=tiles)
+        assert splits == rk.rays_splits(tiles) >= 1
+        cta = cu_fn("rays_cta_tiles", tiles=tiles, splits=splits)
+        assert cta == -(-tiles // splits) <= rk.RAYS_TILES
+        assert cu_fn("rays_stage", cta_tiles=cta) == rk.rays_stage(cta) >= 32
+        smem = cu_fn("rays_blocked_smem", stage=rk.rays_stage(cta), cta_tiles=cta)
+        assert smem <= rk.VIEWS_SMEM
+        if P % img_w == 0:
+            assert smem == rk.smem_bytes(4096, False, P // img_w, img_w)
 
+
+
+@pytest.mark.parametrize("rays", ["camera", "sweep", "many_origins"])
+def test_rays_cta_cone_keeps_every_winner(rays):
+    """The rays-mode blocked twin stages only the instances that meet its
+    CTA's cone (rk.rays_cta_cull, the kernel's formula): on the large scene
+    (2 worlds, 16 x 16, 4,096 rows) under its camera, under a 360-degree
+    sweep from its eye (whose strips' cones span 90 degrees or more) and
+    under rays from many origins, every pixel's winner in render_plain is
+    staged by the pixel's CTA, for the default strips and for 2, 4 and 8 of
+    them; the cull keeps less than the whole world."""
+    sc = scenes.large_scene(W=2, res=16)
+    k = rk.RenderKernel(sc["om"], sc["albedo"], scenes.LIGHT_DIR, scenes.AMBIENT,
+                        mesh_tables=sc["mesh_tables"])
+    ro, rd = sc["ro"], sc["rd"]
+    if rays == "sweep":
+        ro, rd = scenes.sweep_rays(sc["ro"][:, 0], 16, 16)
+    if rays == "many_origins":   # each ray from a point of its own within 0.3
+        ro = ro + np.random.default_rng(5).uniform(-0.3, 0.3, ro.shape).astype(np.float32)
+    rays_t, inst = k.pack(*(torch.from_numpy(a) for a in (ro, rd, sc["pos"], sc["rot"],
+                                                          sc["scale"], sc["obj"], sc["mask"])))
+    _, win = rk.render_plain(rays_t, inst, tables=k.tables, light=k.light, ambient=k.ambient,
+                             winners=True)
+    w, p = torch.nonzero(win >= 0, as_tuple=True)
+    assert len(p) > 100
+    for splits in (None, 2, 4, 8):
+        keep = rk.rays_cta_cull(rays_t, inst, k.tables, 16, splits)
+        cta = rk.rays_pixel_cta(rays_t.shape[2], 16, keep.shape[1])
+        assert bool(keep[w, cta[p], win[w, p]].all()), (rays, splits)
+        assert not bool(keep.all()), (rays, splits)

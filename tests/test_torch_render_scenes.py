@@ -367,6 +367,23 @@ def large_view_case(W=2, H=16, Wpx=16, N=LARGE_ROWS, device="cpu", seed=11):
     return k, torch_views(views, device), inst, 1, H, Wpx
 
 
+def sweep_rays(eye, H=64, Wpx=64, elevation=30.0):
+    """A 360-degree sweep from each world's eye (eye [W, 3]): H x Wpx rays a
+    world, row-major pixels, column c at azimuth 360 (c + 0.5) / Wpx degrees
+    from +y toward +x, row r at elevation ``elevation`` (1 - 2 (r + 0.5) /
+    H) degrees: (ro, rd) [W, H Wpx, 3] float32, rd of unit length.  Most
+    8 x 4 tiles' rays span a few degrees; a block of tiles that spans the
+    azimuth wraps past a half-space."""
+    eye = np.asarray(eye, np.float32).reshape(-1, 3)
+    az = np.radians(360.0 * (np.arange(Wpx) + 0.5) / Wpx)
+    el = np.radians(elevation * (1.0 - 2.0 * (np.arange(H) + 0.5) / H))
+    el, az = np.meshgrid(el, az, indexing="ij")
+    d = np.stack([np.cos(el) * np.sin(az), np.cos(el) * np.cos(az), np.sin(el)], -1)
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).reshape(-1, 3).astype(np.float32)
+    rd = np.broadcast_to(d, (eye.shape[0],) + d.shape).copy()
+    return np.broadcast_to(eye[:, None], rd.shape).copy(), rd
+
+
 # the tie case's second sphere: object 1's geometry (radius 0.7) with an
 # albedo of its own
 TIE_SPHERE = 5
